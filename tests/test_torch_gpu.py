@@ -1,0 +1,94 @@
+"""The port's CUDA kernels against their plain twins, on the card.
+
+Marked ``gpu``; each test asks the ``cuda`` fixture for the card and skips
+without one. Run on a machine with an H100: ``python -m pytest -m gpu
+tests/test_torch_gpu.py``. Kernel and twin share every rounding site, so
+they differ only where an f32 sum in another order flips a bf16 rounding:
+max-abs 1e-2 and rel-L2 2e-3, as in chip_smoke.py.
+"""
+
+import pytest
+import torch
+
+from uspace_tpu_torch.models import UViT
+from uspace_tpu_torch.ops import attention as attn
+
+pytestmark = pytest.mark.gpu
+
+MAX_ABS, REL_L2 = 1e-2, 2e-3
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _rand(gen, *shape, std=1.0, dtype=torch.bfloat16):
+    dev = gen.device
+    return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+
+def _agree(out, ref):
+    a, b = out.float(), ref.float()
+    assert torch.isfinite(a).all()
+    assert float((a - b).abs().max()) <= MAX_ABS
+    assert float((a - b).norm() / b.norm()) <= REL_L2
+
+
+@pytest.mark.parametrize("b,l,h", [(2, 17, 4), (3, 257, 16), (2, 334, 16),
+                                   (1, 512, 2), (1, 1, 1)])
+def test_kernels_match_twins(cuda, b, l, h):
+    g = torch.Generator(device=cuda).manual_seed(l)
+    c = 64 * h
+    x = _rand(g, b, l, c)
+    w = _rand(g, c, 3 * c, std=c ** -0.5)
+    qkv = _rand(g, b, l, 3 * c)
+    lns = 1 + _rand(g, c, std=0.1, dtype=torch.float32)
+    lnb = _rand(g, c, std=0.1, dtype=torch.float32)
+    s = 0.125
+    _agree(attn.fused_qkv_attention(qkv, h),
+           attn.packed_attention_plain(qkv, h, s))
+    _agree(attn.fused_qkvproj_attention(x, w, h),
+           attn.qkvproj_attention_plain(x, w, h, s))
+    _agree(attn.fused_ln_qkvproj_attention(x, lns, lnb, w, h),
+           attn.ln_qkvproj_attention_plain(x, lns, lnb, w, h, s, 1e-5))
+
+
+def test_wrappers_count_launches_and_refuse(cuda):
+    attn.reset_launches()
+    x = torch.zeros(1, 8, 128, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(128, 384, dtype=torch.bfloat16, device=cuda)
+    attn.fused_qkvproj_attention(x, w, 2)
+    attn.fused_qkv_attention(torch.zeros(1, 8, 384, dtype=torch.bfloat16,
+                                         device=cuda), 2)
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES == {"packed_attention": 1, "qkvproj_attention": 1,
+                             "ln_qkvproj_attention": 0}
+    with pytest.raises(ValueError, match="bfloat16"):
+        attn.fused_qkvproj_attention(x.float(), w, 2)
+    with pytest.raises(ValueError, match="L <="):
+        attn.fused_qkv_attention(torch.zeros(1, 513, 384, dtype=torch.bfloat16,
+                                             device=cuda), 2)
+    with pytest.raises(ValueError, match="is on"):
+        attn.fused_qkvproj_attention(x, w.cpu(), 2)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        attn.fused_qkvproj_attention(x, w.requires_grad_(), 2)
+
+
+def test_uvit_auto_routes_through_the_kernel(cuda):
+    cfg = dict(img_size=8, patch_size=2, in_chans=4, embed_dim=128, depth=2,
+               num_heads=2, dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    fused = UViT(**cfg).init_weights(g).eval()
+    plain = UViT(attn_impl="xla", **cfg).eval()
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(4, 8, 8, 4, generator=g, device=cuda)
+    t = torch.full((4,), 0.5, device=cuda)
+    attn.reset_launches()
+    with torch.no_grad():
+        a, _ = fused(x, t)
+        b, _ = plain(x, t)
+    assert attn.LAUNCHES["qkvproj_attention"] == 3
+    assert float((a.float() - b.float()).norm() / b.float().norm()) < 2e-2

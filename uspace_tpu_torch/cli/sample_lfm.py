@@ -1,0 +1,89 @@
+"""Sample latents with the U-ViT field and Euler steps.
+
+The no-VAE branch of ``uspace_tpu/cli/sample_lfm.py``: noise goes through
+``core.flow.decode`` with fixed-step Euler and each mini-batch of raw
+latents ([n, 32, 32, 4] f32, NHWC) is written to ``<out>/<first index>.npy``.
+Without ``--weights`` the field has seeded random weights; ``--weights``
+takes an ``.npz`` of JAX params keyed ``a/b/c``.
+
+    python -m uspace_tpu_torch.cli.sample_lfm --config uvit_large \\
+        --n_samples 100 --batch 50 --steps 50 --seed 0 --out samples
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..codecs.convert import load_uvit_from_jax, unflatten
+from ..configs import get_config, solver_kwargs
+from ..core import flow
+from ..models import get_nnet
+
+
+def build_model(config: dict, device: torch.device, seed: int = 0,
+                weights: Optional[str] = None, attn_impl: str = "auto"):
+    """The config's field in its compute dtype, from JAX weights or seeded
+    random init."""
+    nnet = dict(config["nnet"])
+    name = nnet.pop("name")
+    dtype = getattr(torch, config.get("compute_dtype", "float32"))
+    model = get_nnet(name, dtype=dtype, attn_impl=attn_impl, device=device,
+                     **nnet)
+    if weights:
+        with np.load(weights) as npz:
+            load_uvit_from_jax(model, unflatten(dict(npz)))
+    else:
+        model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return model.eval()
+
+
+@torch.no_grad()
+def run(config: str = "uvit_large", n_samples: int = 100, batch: int = 50,
+        steps: int = 50, seed: int = 0, weights: Optional[str] = None,
+        out: str = "samples", device=None) -> List[str]:
+    """Write ceil(n_samples / batch) latent batches; returns their paths."""
+    dev = resolve_device(device)
+    cfg = get_config(config)
+    model = build_model(cfg, dev, seed, weights)
+    sk = solver_kwargs(cfg, steps)
+    c, h, w = cfg["z_shape"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    os.makedirs(out, exist_ok=True)
+    paths = []
+    for b in range(math.ceil(n_samples / batch)):
+        n = min(batch, n_samples - b * batch)
+        z = torch.randn((n, h, w, c), generator=gen, dtype=torch.float32,
+                        device=dev)
+        lat = flow.decode(lambda t, x: model(x, t)[0], z, sk)
+        path = os.path.join(out, f"{b * batch}.npy")
+        np.save(path, lat.float().cpu().numpy())
+        paths.append(path)
+    return paths
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", default="uvit_large")
+    ap.add_argument("--n_samples", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=50)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--weights", default=None,
+                    help=".npz of JAX U-ViT params (keys a/b/c)")
+    ap.add_argument("--out", default="samples")
+    ap.add_argument("--device", default=None, help="default: cuda")
+    a = ap.parse_args(argv)
+    paths = run(a.config, a.n_samples, a.batch, a.steps, a.seed, a.weights,
+                a.out, a.device)
+    print(f"wrote {len(paths)} batches to {a.out}")
+
+
+if __name__ == "__main__":
+    main()

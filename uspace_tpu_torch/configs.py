@@ -1,0 +1,54 @@
+"""Model and sampling configurations as plain dicts.
+
+Counterpart of the ``nnet`` and ``sample`` blocks of ``uspace_tpu/configs``
+(ml_collections there; plain dicts here, so the port needs neither
+ml_collections nor absl).
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict
+
+
+def uvit_nnet(embed_dim: int = 512, depth: int = 16, num_heads: int = 8,
+              **kw) -> Dict[str, Any]:
+    cfg = dict(name="uvit", img_size=32, patch_size=2, in_chans=4,
+               embed_dim=embed_dim, depth=depth, num_heads=num_heads,
+               mlp_ratio=4.0, qkv_bias=False, mlp_time_embed=False,
+               num_classes=-1, use_checkpoint=True, remat_exempt=0)
+    cfg.update(kw)
+    return cfg
+
+
+# solver_fix_step <= 0 derives the step from sample_steps
+_SAMPLE = dict(sample_steps=50, n_samples=50_000, mini_batch_size=50,
+               solver_kwargs=dict(solver="fixed", solver_fix="euler",
+                                  solver_fix_step=-1.0))
+
+CONFIGS: Dict[str, Dict[str, Any]] = {
+    # CelebAMask-HQ 256 U-ViT-large (configs/lfm_cm256_uvit_large.py):
+    # 4x32x32 latents, embed 1024, depth 20, 16 heads, patch 2, L = 257
+    "uvit_large": dict(
+        z_shape=(4, 32, 32),  # CHW, reference convention
+        compute_dtype="bfloat16",
+        nnet=uvit_nnet(embed_dim=1024, depth=20, num_heads=16),
+        sample=_SAMPLE,
+    ),
+}
+
+
+def get_config(name: str) -> Dict[str, Any]:
+    if name not in CONFIGS:
+        raise KeyError(f"unknown config {name!r}; have {sorted(CONFIGS)}")
+    return copy.deepcopy(CONFIGS[name])
+
+
+def solver_kwargs(config: Dict[str, Any], sample_steps: int = 0) -> dict:
+    """The sampling solve of ``config``; a non-positive solver_fix_step
+    becomes 1 / sample_steps."""
+    steps = sample_steps or config["sample"]["sample_steps"]
+    sk = dict(config["sample"]["solver_kwargs"])
+    if sk.get("solver") == "fixed" and sk.get("solver_fix_step", -1.0) <= 0:
+        sk["solver_fix_step"] = 1.0 / steps
+    return sk

@@ -1,0 +1,225 @@
+"""Shared denoiser layers: time embedding, patch ops, transformer blocks.
+
+Counterpart of ``uspace_tpu/models/layers.py`` as ``nn.Module``s. Latents
+are NHWC at the public functions, as in the JAX package; convolutions
+permute to NCHW inside. Parameter names follow the reference's torch
+state-dict keys, so JAX params load with ``strict=True``
+(``codecs/convert.load_uvit_from_jax``).
+
+Numerics follow the Flax modules: a layer built with ``dtype`` keeps its
+matmul weights in that dtype and casts its input to it (Flax's
+``promote_dtype``); LayerNorm keeps f32 parameters and f32 statistics.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import (
+    fused_ln_qkvproj_attention,
+    fused_qkv_attention,
+    fused_qkvproj_attention,
+    multi_head_attention,
+)
+from ..ops.mlp import gelu_exact
+
+# torch defaults the reference relies on: LayerNorm eps=1e-5, exact GELU
+LN_EPS = 1e-5
+
+ATTN_IMPLS = ("auto", "xla", "pallas_qkvproj", "pallas_packed",
+              "pallas_lnmlp")
+_UNPORTED_QUANT = ("quantized views (quant != False) come with the int8 "
+                   "slice; only the bf16/f32 field is ported")
+
+
+def check_quant(quant) -> None:
+    if quant is not False:
+        raise NotImplementedError(_UNPORTED_QUANT)
+
+
+def _fused_ok(x: torch.Tensor) -> bool:
+    """``auto`` mode runs the fused CUDA kernels on the card, as the JAX
+    package runs its Pallas kernels on the TPU only."""
+    return x.is_cuda
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal timestep embedding, [cos | sin] order (cos first)."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=timesteps.device)
+        / half)
+    args = timesteps.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+def patchify(imgs: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, (H/p)*(W/p), p*p*C], feature order (p1, p2, C)."""
+    b, h, w, c = imgs.shape
+    p = patch_size
+    x = imgs.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (h // p) * (w // p), p * p * c)
+
+
+def unpatchify(x: torch.Tensor, channels: int) -> torch.Tensor:
+    """[B, L, p*p*C] -> [B, H, W, C] (inverse of :func:`patchify`)."""
+    b, l, d = x.shape
+    p = int(round((d // channels) ** 0.5))
+    hw = int(round(l ** 0.5))
+    if hw * hw != l or p * p * channels != d:
+        raise ValueError(f"cannot unpatchify {tuple(x.shape)} into "
+                         f"{channels} channels")
+    x = x.reshape(b, hw, hw, p, p, channels).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, hw * p, hw * p, channels)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` that casts its input to its weight's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class LayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm``: f32 statistics (var = E[x^2] - mu^2, clamped
+    at 0), f32 scale and bias, output in ``dtype``."""
+
+    def __init__(self, dim: int, eps: float = LN_EPS,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu,
+                          min=0.0)
+        y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(self.dtype)
+
+
+class Mlp(nn.Module):
+    """Transformer MLP: fc1 -> exact GELU -> fc2."""
+
+    def __init__(self, in_features: int, hidden_dim: int,
+                 out_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32, quant=False,
+                 device=None):
+        super().__init__()
+        check_quant(quant)
+        kw = dict(dtype=dtype, device=device)
+        self.fc1 = Dense(in_features, hidden_dim, **kw)
+        self.fc2 = Dense(hidden_dim, out_dim or in_features, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(gelu_exact(self.fc1(x)))
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with fused QKV."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
+                 qk_scale: Optional[float] = None,
+                 dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "auto", quant=False, device=None):
+        super().__init__()
+        check_quant(quant)
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        self.num_heads = num_heads
+        self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.qkv_bias = qkv_bias
+        self.attn_impl = attn_impl
+        kw = dict(dtype=dtype, device=device)
+        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, **kw)
+        self.proj = Dense(dim, dim, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, l, c = x.shape
+        h = self.num_heads
+        use_fused = self.attn_impl in (
+            "pallas_packed", "pallas_qkvproj", "pallas_lnmlp") or (
+            self.attn_impl == "auto" and _fused_ok(x))
+        if use_fused:
+            if not self.qkv_bias and self.attn_impl != "pallas_packed":
+                # QKV projection inside the kernel; weight.t() is the JAX
+                # [C, 3C] layout and costs no copy
+                out = fused_qkvproj_attention(
+                    x.to(self.qkv.weight.dtype), self.qkv.weight.t(), h,
+                    self.scale)
+            else:
+                out = fused_qkv_attention(self.qkv(x), h, self.scale)
+            return self.proj(out)
+        qkv = self.qkv(x).reshape(b, l, 3, h, c // h).permute(2, 0, 3, 1, 4)
+        out = multi_head_attention(qkv[0], qkv[1], qkv[2], scale=self.scale,
+                                   impl=self.attn_impl)
+        return self.proj(out.transpose(1, 2).reshape(b, l, c))
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block with optional long-skip fusion."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, qk_scale: Optional[float] = None,
+                 skip: bool = False, dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "auto", quant=False, device=None):
+        super().__init__()
+        check_quant(quant)
+        kw = dict(dtype=dtype, device=device)
+        self.dtype = dtype
+        self.attn_impl = attn_impl
+        self.qkv_bias = qkv_bias
+        self.skip_linear = Dense(2 * dim, dim, **kw) if skip else None
+        self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
+        self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
+                              qk_scale=qk_scale, attn_impl=attn_impl, **kw)
+        self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), **kw)
+
+    def forward(self, x: torch.Tensor,
+                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.skip_linear is not None:
+            x = self.skip_linear(torch.cat([x, skip], dim=-1))
+        if self.attn_impl == "pallas_lnmlp" and not self.qkv_bias:
+            # LN1 folds into the attention kernel; LN2 feeds the plain MLP
+            a = fused_ln_qkvproj_attention(
+                x.to(self.dtype), self.norm1.weight, self.norm1.bias,
+                self.attn.qkv.weight.t(), self.attn.num_heads,
+                scale=self.attn.scale, eps=self.norm1.eps)
+            x = x + self.attn.proj(a).to(x.dtype)
+        else:
+            x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
+
+
+class PatchEmbed(nn.Module):
+    """Patchifying conv embed: NHWC [B, H, W, C] -> tokens [B, L, E]."""
+
+    def __init__(self, patch_size: int, in_chans: int, embed_dim: int,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size,
+                              stride=patch_size, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, _ = x.shape
+        p = self.patch_size
+        if h % p or w % p:
+            raise ValueError(f"{tuple(x.shape)} is not a multiple of patch "
+                             f"{p}")
+        y = self.proj(x.to(self.proj.weight.dtype).permute(0, 3, 1, 2))
+        return y.flatten(2).transpose(1, 2)

@@ -1,0 +1,108 @@
+"""Build and load the hand-written CUDA kernels of ``ops/csrc``.
+
+Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
+by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repository root
+(listed in ``.gitignore``) and loaded with ``ctypes``. The library's file
+name carries a hash of its source, so an edited kernel is never served from
+a stale build. A failed build or load raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signatures of every entry point, by source name
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "attention": {
+        "uspace_packed_attention": (_P, _P, _I, _I, _I, _F, _P),
+        "uspace_qkvproj_attention": (_P, _P, _P, _I, _I, _I, _F, _P),
+        "uspace_ln_qkvproj_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                        _F, _P),
+    },
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           "source on a machine with the CUDA toolkit")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for ``name`` unless its library exists; returns
+    ``(process or None, tmp_path, final_path)``."""
+    out = library_path(name)
+    if out.exists():
+        return None, None, out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, proc, tmp, out) -> None:
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed to build {name}.cu:\n{log}")
+    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+
+
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> None:
+    """Compile the named sources, one nvcc process each, all in parallel."""
+    jobs = [(n, *_start_build(n)) for n in names]
+    errors = []
+    for job in jobs:
+        try:
+            _finish_build(*job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    _loaded[name] = lib
+    return lib

@@ -1,0 +1,330 @@
+"""Multi-head attention for U-ViT denoisers: CUDA kernels + plain path.
+
+Counterpart of ``uspace_tpu/ops/attention.py``. The sampling views launch
+three fused kernels, hand-written in CUDA C++ for Hopper
+(``csrc/attention.cu``); they share one attention core and differ in their
+prologue:
+
+- :func:`fused_qkv_attention` — packed qkv [B, L, 3C] in device memory
+  (TPU kernel ``_packed_fwd_kernel``);
+- :func:`fused_qkvproj_attention` — the QKV projection inside the kernel
+  (``_qkv_attn_kernel``);
+- :func:`fused_ln_qkvproj_attention` — LN1 and the projection inside the
+  kernel (``_qkv_attn_kernel_ln``).
+
+Each wrapper has a plain PyTorch twin in this module with the kernel's
+rounding sites (bf16 qkv after the projection, bf16 P before P·V, division
+by the f32 row sum after P·V) and a launch count in :data:`LAUNCHES`. A
+wrapper launches its kernel for a CUDA tensor and uses the twin only for a
+tensor on the CPU; on CUDA it never falls back.
+
+Layout: q, k, v are ``[B, H, L, D]``; packed and fused entry points take
+and return ``[B, L, C]`` as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+# launches of each CUDA kernel since the last reset (the CPU twin does not count)
+LAUNCHES: Dict[str, int] = {
+    "packed_attention": 0,
+    "qkvproj_attention": 0,
+    "ln_qkvproj_attention": 0,
+}
+
+KERNEL_HEAD_DIM = 64
+KERNEL_MAX_LEN = 512  # the whole head's q, k, v stay in one SM's shared memory
+
+# beyond this length the JAX package switches to its [B, H, L, D] Pallas
+# kernels (_fwd_kernel/_bwd_kernel, _flash_kernel), not yet ported
+_XLA_PREFERRED_MAX_LEN = 512
+_UNPORTED_LONG = ("[B, H, L, D] kernel attention (kernels 7-8 of the kernel "
+                  "table: _fwd_kernel/_bwd_kernel, and 9: _flash_kernel) is "
+                  "not ported yet")
+_UNPORTED_INT8 = ("int8 QKV projection (quant=True) comes with the int8 slice "
+                  "(kernels 5-6 of the kernel table: _qkv_attn_kernel_qln, "
+                  "_qkv_attn_kernel_q)")
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _default_scale(head_dim: int, scale: Optional[float]) -> float:
+    return float(head_dim) ** -0.5 if scale is None else float(scale)
+
+
+# ---------------------------------------------------------------------------
+# Plain path (math attention) — also the probability-readout path
+# ---------------------------------------------------------------------------
+
+
+def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, return_probs: bool = False):
+    """softmax(q k^T * scale) v with f32 scores and softmax; P is cast to
+    v's dtype before P·V (``xla_attention`` of the JAX package)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    p = torch.softmax(s * scale, dim=-1)
+    out = torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+    if return_probs:
+        return out, p
+    return out
+
+
+def _attention_core_plain(q, k, v, scale):
+    """The fused kernels' attention core on [B, H, L, D]: f32 scores and
+    row max, p = exp(s - max), bf16 P before P·V, division by the f32 row
+    sum after P·V."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+    return o.to(q.dtype)
+
+
+def packed_attention_plain(qkv: torch.Tensor, num_heads: int,
+                           scale: float) -> torch.Tensor:
+    """Twin of the packed kernel: qkv [B, L, 3HD] -> [B, L, HD]."""
+    b, l, c3 = qkv.shape
+    h = num_heads
+    d = c3 // (3 * h)
+    q, k, v = qkv.reshape(b, l, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    o = _attention_core_plain(q, k, v, scale)
+    return o.transpose(1, 2).reshape(b, l, h * d)
+
+
+def qkvproj_attention_plain(x: torch.Tensor, w_qkv: torch.Tensor,
+                            num_heads: int, scale: float) -> torch.Tensor:
+    """Twin of the QKV-projection kernel: W cast to x's dtype, f32
+    accumulation, qkv rounded to x's dtype, then the packed core."""
+    w = w_qkv.to(x.dtype)
+    qkv = torch.matmul(x.float(), w.float()).to(x.dtype)
+    return packed_attention_plain(qkv, num_heads, scale)
+
+
+def ln_qkvproj_attention_plain(x: torch.Tensor, ln_scale: torch.Tensor,
+                               ln_bias: torch.Tensor, w_qkv: torch.Tensor,
+                               num_heads: int, scale: float,
+                               eps: float) -> torch.Tensor:
+    """Twin of the LN + QKV-projection kernel: f32 statistics with
+    var = E[x^2] - mu^2, LN output rounded to x's dtype."""
+    xf = x.float()
+    c = x.shape[-1]
+    mu = xf.sum(dim=-1, keepdim=True) / c
+    var = (xf * xf).sum(dim=-1, keepdim=True) / c - mu * mu
+    inv = torch.rsqrt(var + eps)
+    xln = ((xf - mu) * inv * ln_scale.float() + ln_bias.float()).to(x.dtype)
+    return qkvproj_attention_plain(xln, w_qkv, num_heads, scale)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _check_x(name: str, x: torch.Tensor, num_heads: int, parts: int) -> None:
+    """Limits of the CUDA kernels: x [B, L, parts*H*64] bf16, L <= 512."""
+    if x.dim() != 3:
+        raise ValueError(f"{name} must be [B, L, C], got {tuple(x.shape)}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"the CUDA attention kernels take bfloat16, got "
+                         f"{x.dtype} (use attn_impl='xla' for other dtypes)")
+    if x.shape[-1] != parts * num_heads * KERNEL_HEAD_DIM:
+        raise ValueError(f"the CUDA attention kernels take head dim "
+                         f"{KERNEL_HEAD_DIM}: {name} width {x.shape[-1]} "
+                         f"with {num_heads} heads")
+    if not 1 <= x.shape[1] <= KERNEL_MAX_LEN:
+        raise ValueError(f"the CUDA attention kernels take 1 <= L <= "
+                         f"{KERNEL_MAX_LEN}, got {x.shape[1]}")
+    _check(name, x, torch.bfloat16, tuple(x.shape), x.device)
+
+
+def _check_no_grad(*ts: torch.Tensor) -> None:
+    """The kernels define no backward yet: refuse rather than return an
+    output that silently drops the gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            "the CUDA attention kernels are inference-only until the "
+            "training slice ports _packed_bwd_kernel; call under "
+            "torch.no_grad() or use attn_impl='xla'")
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _raise_on(rc: int, fn: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed: cudaError {rc}")
+
+
+def _packed_kernel(qkv: torch.Tensor, num_heads: int,
+                   scale: float) -> torch.Tensor:
+    from ._build import load
+
+    b, l, c3 = qkv.shape
+    _check_x("qkv", qkv, num_heads, 3)
+    _check_no_grad(qkv)
+    out = torch.empty((b, l, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    rc = load("attention").uspace_packed_attention(
+        qkv.data_ptr(), out.data_ptr(), b, l, num_heads, scale,
+        _stream(qkv.device))
+    _raise_on(rc, "uspace_packed_attention")
+    LAUNCHES["packed_attention"] += 1
+    return out
+
+
+def _weight_rows(w_qkv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """[C, 3C] weight (JAX layout) as the kernel's [3C, C] rows in x's
+    dtype; free when w_qkv is the transpose of a torch Linear weight."""
+    c = x.shape[-1]
+    if tuple(w_qkv.shape) != (c, 3 * c):
+        raise ValueError(f"w_qkv must be [{c}, {3 * c}], got "
+                         f"{tuple(w_qkv.shape)}")
+    w = w_qkv.to(x.dtype).t().contiguous()
+    _check("w_qkv", w, x.dtype, (3 * c, c), x.device)
+    return w
+
+
+def _qkvproj_kernel(x, w_qkv, num_heads, scale):
+    from ._build import load
+
+    b, l, c = x.shape
+    _check_x("x", x, num_heads, 1)
+    _check_no_grad(x, w_qkv)
+    w = _weight_rows(w_qkv, x)
+    out = torch.empty_like(x)
+    rc = load("attention").uspace_qkvproj_attention(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), b, l, num_heads, scale,
+        _stream(x.device))
+    _raise_on(rc, "uspace_qkvproj_attention")
+    LAUNCHES["qkvproj_attention"] += 1
+    return out
+
+
+def _ln_qkvproj_kernel(x, ln_scale, ln_bias, w_qkv, num_heads, scale, eps):
+    from ._build import load
+
+    b, l, c = x.shape
+    _check_x("x", x, num_heads, 1)
+    _check_no_grad(x, ln_scale, ln_bias, w_qkv)
+    w = _weight_rows(w_qkv, x)
+    lns = ln_scale.to(torch.float32).reshape(-1).contiguous()
+    lnb = ln_bias.to(torch.float32).reshape(-1).contiguous()
+    _check("ln_scale", lns, torch.float32, (c,), x.device)
+    _check("ln_bias", lnb, torch.float32, (c,), x.device)
+    out = torch.empty_like(x)
+    rc = load("attention").uspace_ln_qkvproj_attention(
+        x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w.data_ptr(),
+        out.data_ptr(), b, l, num_heads, scale, eps, _stream(x.device))
+    _raise_on(rc, "uspace_ln_qkvproj_attention")
+    LAUNCHES["ln_qkvproj_attention"] += 1
+    return out
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+def fused_qkv_attention(qkv: torch.Tensor, num_heads: int,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """qkv [B, L, 3*H*D] (packed [q|k|v] x heads) -> [B, L, H*D].
+    Inference only: the backward kernel comes with the training slice."""
+    d = qkv.shape[-1] // (3 * num_heads)
+    scale = _default_scale(d, scale)
+    if _on_cpu(qkv):
+        return packed_attention_plain(qkv, num_heads, scale)
+    return _packed_kernel(qkv, num_heads, scale)
+
+
+def fused_qkvproj_attention(x: torch.Tensor, w_qkv: torch.Tensor,
+                            num_heads: int, scale: Optional[float] = None,
+                            quant: bool = False) -> torch.Tensor:
+    """x [B, L, C] (post-LN) and fused QKV weight [C, 3C] -> attention
+    output [B, L, C] (pre out-projection); the [B, L, 3C] qkv never
+    touches device memory."""
+    if quant:
+        raise NotImplementedError(_UNPORTED_INT8)
+    scale = _default_scale(x.shape[-1] // num_heads, scale)
+    if _on_cpu(x):
+        return qkvproj_attention_plain(x, w_qkv, num_heads, scale)
+    return _qkvproj_kernel(x, w_qkv, num_heads, scale)
+
+
+def fused_ln_qkvproj_attention(
+    x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+    w_qkv: torch.Tensor, num_heads: int, scale: Optional[float] = None,
+    eps: float = 1e-5, quant: bool = False,
+) -> torch.Tensor:
+    """``attention(qkv(LN(x)))``; the LN output never touches device
+    memory. Only the bf16 projection (``quant=False``) is ported."""
+    if quant:
+        raise NotImplementedError(_UNPORTED_INT8)
+    scale = _default_scale(x.shape[-1] // num_heads, scale)
+    if _on_cpu(x):
+        return ln_qkvproj_attention_plain(x, ln_scale, ln_bias, w_qkv,
+                                          num_heads, scale, eps)
+    return _ln_qkvproj_kernel(x, ln_scale, ln_bias, w_qkv, num_heads, scale,
+                              eps)
+
+
+# ---------------------------------------------------------------------------
+# Public dispatcher
+# ---------------------------------------------------------------------------
+
+
+def multi_head_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+    col_mult: Optional[torch.Tensor] = None,
+    return_probs: bool = False,
+):
+    """Dispatching attention front-end on ``[B, H, L, D]``.
+
+    ``col_mult``: optional ``[B, L]`` post-softmax per-key multiplier
+    (prompt-to-prompt rescale), folded exactly into V. ``impl``: ``xla``
+    (plain), or ``auto`` — plain for L <= 512 and on the CPU, as in the
+    JAX package; the longer-sequence kernels are not ported yet.
+    """
+    scale = _default_scale(q.shape[-1], scale)
+    if col_mult is not None:
+        # out_i = sum_j p_ij m_j v_j: the column rescale is a V row scale
+        v = v * col_mult[:, None, :, None].to(v.dtype)
+    if return_probs:
+        return xla_attention(q, k, v, scale, return_probs=True)
+    if impl == "auto":
+        if q.shape[2] <= _XLA_PREFERRED_MAX_LEN or _on_cpu(q):
+            impl = "xla"
+        else:
+            raise NotImplementedError(_UNPORTED_LONG)
+    if impl == "xla":
+        return xla_attention(q, k, v, scale)
+    if impl == "pallas":
+        raise NotImplementedError(_UNPORTED_LONG)
+    raise ValueError(f"unknown impl {impl!r}")
