@@ -6,10 +6,11 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 1. the card: `nvidia-smi` name and power limit, TF32 off for comparisons;
 2. build every CUDA kernel from the sources in this checkout (nvcc, sm_90a);
-3. each kernel against its plain PyTorch twin at the main path's shapes
-   (B=50, L=257, C=1024, H=16, bf16): max-abs and rel-L2 within the
-   tolerances below; kernel, twin and library-call times with CUDA events;
-   the bound of the same work on an H100 SXM;
+3. each kernel against its plain PyTorch twin at its path's shapes
+   (B=50 for the sampling kernels, B=128 for the backward kernel; L=257,
+   C=1024, H=16, bf16): max-abs and rel-L2 within the tolerances below;
+   kernel, twin and library-call times with CUDA events; the bound of the
+   same work on an H100 SXM;
 4. the main path: U-ViT-large (embed 1024, depth 20, 16 heads, patch 2) in
    bf16 with seeded random weights, Euler-50 at batch 50 through
    `core.flow.decode` with attn_impl="auto": 21 x 50 = 1050 launches of the
@@ -17,7 +18,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    from the same z, img/s of both, peak memory;
 5. the "pallas_packed" and "pallas_lnmlp" views for a few Euler steps, their
    launch counts and agreement with the plain path;
-6. the entry point `cli.sample_lfm.run` writing two latent batches.
+6. the entry point `cli.sample_lfm.run` writing two latent batches;
+7. the training path: U-ViT-large with f32 master weights and bf16 compute,
+   attn_impl="pallas_packed", per-block remat with REMAT_EXEMPT blocks
+   exempt, batch 128 of `SyntheticFeatures` moments, the JAX bench's Adam
+   (betas 0.99, L2 0.03), warmup schedule and EMA 0.995, through
+   `train.step.make_train_step`: train img/s, peak memory, every loss
+   finite, no non-finite skip, and exact launch counts per step (packed
+   attention 21 + rematted blocks, its backward 21);
+8. gradient agreement at batch 32 on one batch: the kernel path
+   (pallas_packed) against the plain path (xla attention), and the `auto`
+   view (QKV-projection kernel + backward) against pallas_packed;
+9. the entry point `cli.train_lfm.run` for 2 steps; its checkpoint's params
+   load into a fresh model with strict=True.
 
 Prints the `kernels` JSON line and then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -26,6 +39,7 @@ With `--out PATH` the whole report is also written to PATH as JSON.
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,6 +55,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # rel-L2 <= 5e-4
 KERNEL_MAX_ABS = 1e-2
 KERNEL_REL_L2 = 2e-3
+# the backward kernel vs its twin at B=128 (same reasoning: shared rounding
+# sites, bf16 flips where an f32 sum runs in another order); measured on an
+# H100: max-abs 9.8e-4 (one bf16 ulp), rel-L2 8.2e-5
+BWD_MAX_ABS = 5e-3
+BWD_REL_L2 = 5e-4
 # a whole solve, fused kernels vs plain attention: the kernels normalise
 # after P.V (the plain softmax before), so bf16 roundings differ in every
 # attention call; measured on an H100: cos >= 0.9999982, rel-L2 <= 1.9e-3
@@ -51,9 +70,23 @@ PATH_MAX_REL_L2 = 1e-2
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
+# global gradient at batch 32, kernel path vs plain path and auto vs
+# pallas_packed: bf16 roundings differ in every attention call, forward and
+# backward; measured on an H100: pallas_packed vs xla cos 0.9999986, rel-L2
+# 1.7e-3 (auto vs pallas_packed: identical)
+GRAD_MIN_COS = 0.99999
+GRAD_MAX_REL_L2 = 1e-2
+
 B, L, C, H = 50, 257, 1024, 16
 STEPS = 50
 SHORT_STEPS = 4
+TRAIN_B = 128          # the reference's per-GPU batch
+# blocks left un-rematted at TRAIN_B: all 21 fit (47.5 GiB peak) and run
+# fastest (profile_field --train on an H100: 121.0 img/s, against 103.1 at
+# 12 and 90.8 at 0); phase 8 runs the rematted path (remat_exempt 0)
+REMAT_EXEMPT = 21
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+GRAD_B = 32
 
 
 def fail(msg):
@@ -82,7 +115,7 @@ def time_ms(torch, fn, iters=20, warmup=3):
 
 
 def compare(torch, out, ref):
-    a, b = out.float(), ref.float()
+    a, b = out.double(), ref.double()
     if not torch.isfinite(a).all():
         return float("inf"), float("inf"), float("-inf")
     max_abs = float((a - b).abs().max())
@@ -98,7 +131,7 @@ def bound(bytes_moved, flops):
 
 
 def check_kernels(torch, F, attn):
-    """Phase 3: each kernel vs its twin at the main path's shapes."""
+    """Phase 3: each kernel vs its twin at its path's shapes."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
     bf = torch.bfloat16
@@ -145,6 +178,26 @@ def check_kernels(torch, F, attn):
                  F.layer_norm(x, (C,), lns.to(bf), lnb.to(bf), 1e-5), w)),
              bytes=io(x, w, lns, lnb) + io(x), flops=proj_flops + attn_flops),
     ]
+    # the backward at the training path's batch
+    qkv_t = randn(TRAIN_B, L, 3 * C, std=0.64)
+    do_t = randn(TRAIN_B, L, C)
+    qkv_l = qkv_t.detach().requires_grad_()
+    o_l = F.scaled_dot_product_attention(
+        *qkv_l.view(TRAIN_B, L, 3, H, d).permute(2, 0, 3, 1, 4))
+    go_l = do_t.view(TRAIN_B, L, H, d).transpose(1, 2)
+    cases.append(dict(
+        name="packed_attention_bwd",
+        source="uspace_tpu_torch/ops/csrc/attention_bwd.cu",
+        replaces="uspace_tpu/ops/attention.py:285 (_packed_bwd_kernel)",
+        kernel=lambda: attn.packed_attention_bwd(qkv_t, do_t, H),
+        plain=lambda: attn.packed_attention_bwd_plain(qkv_t, do_t, H, scale),
+        # SDPA's backward on a retained graph: a yardstick only
+        library=lambda: torch.autograd.grad(o_l, qkv_l, go_l,
+                                            retain_graph=True),
+        bytes=io(qkv_t, do_t) + io(qkv_t),
+        flops=10.0 * TRAIN_B * H * L * L * d,
+        tol=(BWD_MAX_ABS, BWD_REL_L2), shape=f"B={TRAIN_B} L={L} C={C} "
+        f"H={H} bf16"))
     results = []
     for case in cases:
         before = attn.LAUNCHES[case["name"]]
@@ -154,19 +207,22 @@ def check_kernels(torch, F, attn):
             fail(f"{case['name']}: the wrapper did not launch its kernel")
         ref = case["plain"]()
         max_abs, rel, cos = compare(torch, out, ref)
-        ok = max_abs <= KERNEL_MAX_ABS and rel <= KERNEL_REL_L2
+        tol_abs, tol_rel = case.get("tol", (KERNEL_MAX_ABS, KERNEL_REL_L2))
+        ok = max_abs <= tol_abs and rel <= tol_rel
+        del out, ref
         ms = time_ms(torch, case["kernel"])
         plain_ms = time_ms(torch, case["plain"], iters=5)
         library_ms = time_ms(torch, case["library"])
         bound_ms, bound_by = bound(case["bytes"], case["flops"])
         r = dict(name=case["name"], route="cuda",
-                 source="uspace_tpu_torch/ops/csrc/attention.cu",
+                 source=case.get("source",
+                                 "uspace_tpu_torch/ops/csrc/attention.cu"),
                  replaces=case["replaces"], launches=0, max_abs_err=max_abs,
                  rel_l2=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=library_ms,
-                 shape=f"B={B} L={L} C={C} H={H} bf16")
+                 shape=case.get("shape", f"B={B} L={L} C={C} H={H} bf16"))
         log(f"kernel {case['name']}: max_abs {max_abs:.3e} (tol "
-            f"{KERNEL_MAX_ABS}) rel_l2 {rel:.3e} (tol {KERNEL_REL_L2}) | "
+            f"{tol_abs}) rel_l2 {rel:.3e} (tol {tol_rel}) | "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} "
             f"ms, bound {bound_ms * 1e3:.1f} us ({bound_by})")
         if not ok:
@@ -184,6 +240,144 @@ def decode_run(torch, flow, model, z, steps):
         out = flow.decode(lambda t, x: model(x, t)[0], z, sk)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def train_path(torch, attn, cfg, dev, by_key):
+    """Phase 7: TRAIN_STEPS timed steps of U-ViT-large at TRAIN_B after
+    TRAIN_WARMUP steps, with the JAX bench's optimizer (bench.py:567-581)."""
+    from uspace_tpu_torch.cli.train_lfm import build_train_model
+    from uspace_tpu_torch.data.datasets import SyntheticFeatures
+    from uspace_tpu_torch.train.state import (
+        TrainState,
+        get_lr_schedule,
+        get_optimizer,
+    )
+    from uspace_tpu_torch.train.step import make_train_step
+
+    model = build_train_model(cfg, dev, seed=0, attn_impl="pallas_packed",
+                              remat_exempt=REMAT_EXEMPT)
+    n_remat = sum(model.remat)
+    lr = get_lr_schedule("customized", 2e-4, warmup_steps=100)
+    tx = get_optimizer("adam", lr, betas=(0.99, 0.99), weight_decay=0.03)
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    step = make_train_step(model, tx, lr_schedule=lr, ema_rate=0.995,
+                           latents_from_moments=True)
+    n = TRAIN_WARMUP + TRAIN_STEPS
+    data = SyntheticFeatures(num=n * TRAIN_B, shape=(32, 32, 8), seed=0)
+    batches = [torch.from_numpy(data.batch(range(i * TRAIN_B,
+                                                 (i + 1) * TRAIN_B))["x"]
+                                ).to(dev) for i in range(n)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    metrics = [step(state, {"x": batches[i]}, gen)
+               for i in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP, n):
+        metrics.append(step(state, {"x": batches[i]}, gen))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(attn.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    skips = sum(float(m["nonfinite_skip"]) for m in metrics)
+    blocks = cfg["nnet"]["depth"] + 1
+    want = {"packed_attention": TRAIN_STEPS * (blocks + n_remat),
+            "packed_attention_bwd": TRAIN_STEPS * blocks,
+            "qkvproj_attention": 0, "ln_qkvproj_attention": 0}
+    ips = TRAIN_B * TRAIN_STEPS / secs
+    log(f"train (pallas_packed, batch {TRAIN_B}, remat_exempt {REMAT_EXEMPT}"
+        f": {n_remat} of {blocks} blocks rematted): {TRAIN_STEPS} steps in "
+        f"{secs:.3f} s, {ips:.3f} img/s, peak {peak_gb:.2f} GiB, launches "
+        f"{launches} (expected {want}), losses {losses[0]:.5f} .. "
+        f"{losses[-1]:.5f}, non-finite skips {skips:.0f}, step "
+        f"{int(state.step)}")
+    if launches != want:
+        fail(f"training launches {launches}, expected {want}")
+    if not all(map(math.isfinite, losses)) or skips:
+        fail(f"training losses {losses}, non-finite skips {skips}")
+    for k in ("packed_attention", "packed_attention_bwd"):
+        by_key[k]["launches"] = launches[k]
+    return dict(batch=TRAIN_B, steps=TRAIN_STEPS, remat_exempt=REMAT_EXEMPT,
+                rematted_blocks=n_remat, seconds=secs, imgs_per_s=ips,
+                ms_per_step=secs / TRAIN_STEPS * 1e3, peak_gib=peak_gb,
+                launches=launches, losses=losses)
+
+
+def grad_agreement(torch, attn, cfg, dev):
+    """Phase 8: one global gradient at GRAD_B from each view, same
+    weights and batch (f32 masters, bf16 compute, full remat)."""
+    from uspace_tpu_torch.cli.train_lfm import build_train_model
+    from uspace_tpu_torch.core import interpolant
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x1 = torch.randn((GRAD_B, 32, 32, 4), generator=g, device=dev) * 0.18
+    t, xt, ut = interpolant.sample_path(x1, 1e-4, g)
+    grads, launches = {}, {}
+    ref_state = None
+    for impl in ("xla", "pallas_packed", "auto"):
+        model = build_train_model(cfg, dev, seed=2, attn_impl=impl,
+                                  remat_exempt=0)
+        if ref_state is None:
+            ref_state = model.state_dict()
+        model.load_state_dict(ref_state)
+        attn.reset_launches()
+        loss = interpolant.cfm_loss(model(xt, t)[0], ut).mean()
+        gs = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        launches[impl] = dict(attn.LAUNCHES)
+        grads[impl] = torch.cat([x.flatten() for x in gs])
+        del model, gs, loss
+    out = {}
+    blocks = cfg["nnet"]["depth"] + 1
+    want = {"pallas_packed": {"packed_attention": 2 * blocks,
+                              "qkvproj_attention": 0,
+                              "ln_qkvproj_attention": 0,
+                              "packed_attention_bwd": blocks},
+            "auto": {"packed_attention": 0, "qkvproj_attention": 2 * blocks,
+                     "ln_qkvproj_attention": 0,
+                     "packed_attention_bwd": blocks}}
+    for impl, ref in (("pallas_packed", "xla"), ("auto", "pallas_packed")):
+        _, rel, cos = compare(torch, grads[impl], grads[ref])
+        log(f"gradient {impl} vs {ref} at batch {GRAD_B}: cos {cos:.7f} "
+            f"(min {GRAD_MIN_COS}) rel_l2 {rel:.3e} (max {GRAD_MAX_REL_L2}); "
+            f"launches {launches[impl]}")
+        if launches[impl] != want[impl]:
+            fail(f"{impl} gradient launches {launches[impl]}, expected "
+                 f"{want[impl]}")
+        if not (cos >= GRAD_MIN_COS and rel <= GRAD_MAX_REL_L2):
+            fail(f"{impl} gradient disagrees with {ref}")
+        out[f"{impl}_vs_{ref}"] = dict(cos=cos, rel_l2=rel,
+                                       launches=launches[impl])
+    return out
+
+
+def train_entry_point(torch, cfg, dev):
+    """Phase 9: cli.train_lfm.run for 2 steps into a temporary workdir;
+    its checkpoint's params load strictly into a fresh model."""
+    from uspace_tpu_torch.cli import train_lfm
+    from uspace_tpu_torch.train import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = train_lfm.run(config="uvit_large", n_steps=2, batch=GRAD_B,
+                            seed=3, workdir=tmp, remat_exempt=REMAT_EXEMPT,
+                            log=log)
+        secs = time.perf_counter() - t0
+        losses = [h["loss"] for h in out["history"]]
+        del out["state"], out["model"]
+        sd = checkpoint.load(out["checkpoint"], map_location=dev)
+        fresh = train_lfm.build_train_model(cfg, dev, seed=4)
+        fresh.load_state_dict(sd["params"], strict=True)
+        step = int(sd["step"])
+        size_gb = os.path.getsize(out["checkpoint"]) / 2**30
+    log(f"train_lfm.run: 2 steps at batch {GRAD_B} in {secs:.1f} s (build "
+        f"and checkpoint included), losses {losses}, checkpoint step {step} "
+        f"({size_gb:.2f} GiB) reloaded with strict=True")
+    if step != 2 or not all(map(math.isfinite, losses)):
+        fail(f"train_lfm: step {step}, losses {losses}")
+    return dict(seconds=secs, losses=losses, checkpoint_gib=size_gb)
 
 
 def main():
@@ -315,6 +509,15 @@ def main():
                 np.isfinite(a).all() for a in arrays):
             fail(f"sample_lfm wrote {shapes}")
     report["sample_lfm_seconds"] = secs_cli
+
+    # 7. the training path
+    report["train"] = train_path(torch, attn, cfg, dev, by_key)
+
+    # 8. gradient agreement: kernel vs plain, auto vs pallas_packed
+    report["grad_agreement"] = grad_agreement(torch, attn, cfg, dev)
+
+    # 9. the training entry point
+    report["train_lfm"] = train_entry_point(torch, cfg, dev)
 
     for k in kernels:
         if k["launches"] < 1:

@@ -2,13 +2,16 @@
 
 The JAX side runs its Pallas kernels in interpret mode on the CPU, as
 tests/test_quant.py does; the port's wrappers take their plain twins for
-CPU tensors. Inputs come from numpy seeds. Tolerances: f32 1e-5 (the same
-arithmetic, summed in another order), bf16 2e-2 (one bf16 rounding of an
-O(1) value is 8e-3).
+CPU tensors. Gradients: ``jax.vjp`` of the JAX function (its custom VJP
+runs ``_packed_bwd_kernel`` in interpret mode) against port autograd.
+Inputs come from numpy seeds. Tolerances: f32 1e-5 (the same arithmetic,
+summed in another order), bf16 2e-2 (one bf16 rounding of an O(1) value is
+8e-3).
 """
 
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,6 +106,90 @@ def test_xla_attention_and_col_mult_match_jax(dt):
     _close(out, ref, tol)
 
 
+def _vjp_inputs(l, seed):
+    """qkv, cotangent and projection operands at 2 heads of 64."""
+    r = np.random.default_rng(seed)
+    c = 128
+    return dict(qkv=(0.5 * r.standard_normal((2, l, 3 * c))).astype(np.float32),
+                g=r.standard_normal((2, l, c)).astype(np.float32),
+                x=r.standard_normal((2, l, c)).astype(np.float32),
+                w=(r.standard_normal((c, 3 * c)) * c ** -0.5).astype(np.float32))
+
+
+@pytest.mark.parametrize("l", [17, 257])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_packed_vjp_matches_jax(dt, l):
+    """Port autograd of fused_qkv_attention (the backward twin) vs the JAX
+    custom VJP (_packed_bwd_kernel, interpret mode)."""
+    jd, td, tol = DTYPES[dt]
+    a = _vjp_inputs(l, 4)
+    out_j, vjp = jax.vjp(
+        lambda q: jattn.fused_qkv_attention(q, 2, interpret=True),
+        jnp.asarray(a["qkv"], jd))
+    (ref,) = vjp(jnp.asarray(a["g"], jd))
+    qkv = torch.from_numpy(a["qkv"]).to(td).requires_grad_()
+    out = tattn.fused_qkv_attention(qkv, 2)
+    out.backward(torch.from_numpy(a["g"]).to(td))
+    assert qkv.grad.dtype == td and qkv.grad.shape == qkv.shape
+    _close(out.detach(), out_j, tol)
+    _close(qkv.grad, ref, tol)
+    # the public backward entry point is the same twin
+    _close(tattn.packed_attention_bwd(qkv.detach(), torch.from_numpy(
+        a["g"]).to(td), 2), ref, tol)
+
+
+@pytest.mark.parametrize("l", [17, 257])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_qkvproj_vjp_matches_jax(dt, l):
+    """dx and dW of fused_qkvproj_attention vs the JAX _qkv_attn_bwd; W
+    enters in f32 and is cast to x's dtype, as the model passes it."""
+    jd, td, tol = DTYPES[dt]
+    a = _vjp_inputs(l, 5)
+    _, vjp = jax.vjp(
+        lambda x, w: jattn.fused_qkvproj_attention(x, w.astype(jd), 2,
+                                                   interpret=True),
+        jnp.asarray(a["x"], jd), jnp.asarray(a["w"]))
+    ref_dx, ref_dw = vjp(jnp.asarray(a["g"], jd))
+    x = torch.from_numpy(a["x"]).to(td).requires_grad_()
+    w = torch.from_numpy(a["w"]).requires_grad_()
+    tattn.fused_qkvproj_attention(x, w, 2).backward(
+        torch.from_numpy(a["g"]).to(td))
+    assert x.grad.dtype == td and w.grad.dtype == torch.float32
+    _close(x.grad, ref_dx, tol)
+    # each dW entry sums B*L products (|dW| up to ~8 at L = 257, where one
+    # bf16 ulp is 0.03-0.06): the tolerance scales with the largest entry
+    _close(w.grad, ref_dw, tol * max(1.0, float(np.abs(_np(ref_dw)).max())))
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_gelu_grad_matches_jax_autodiff(dt):
+    """The GELU Function's backward vs jax.grad of layers.gelu_exact (the
+    autodiff of the same polynomial), x = 0 included."""
+    from uspace_tpu.models import layers as jlayers
+
+    jd, td, tol = DTYPES[dt]
+    r = np.random.default_rng(6)
+    x = np.concatenate([np.linspace(-6, 6, 1001), [0.0],
+                        3 * r.standard_normal(1000)]).astype(np.float32)
+    g = r.standard_normal(x.shape).astype(np.float32)
+    _, vjp = jax.vjp(jlayers.gelu_exact, jnp.asarray(x, jd))
+    (ref,) = vjp(jnp.asarray(g, jd))
+    xt = torch.from_numpy(x).to(td).requires_grad_()
+    tmlp.gelu_exact(xt).backward(torch.from_numpy(g).to(td))
+    assert xt.grad.dtype == td
+    _close(xt.grad, ref, tol)
+
+
+@pytest.mark.parametrize("td", [torch.float32, torch.bfloat16])
+def test_gelu_forward_is_the_plain_polynomial(td):
+    """The autograd Function leaves the forward bit for bit as the eager
+    polynomial, so sampling does not move."""
+    x = torch.from_numpy(np.linspace(-8, 8, 4001).astype(np.float32)).to(td)
+    xf = x.float()
+    plain = (0.5 * xf * (1.0 + tmlp.erf_poly(xf * 0.7071067811865476))).to(td)
+    assert torch.equal(tmlp.gelu_exact(x), plain)
+
+
 def test_gelu_matches_jax_polynomial():
     x = np.linspace(-6, 6, 1001).astype(np.float32)
     _close(tmlp.gelu_exact(torch.from_numpy(x)),
@@ -132,7 +219,10 @@ def test_cpu_twin_does_not_count_launches():
     tattn.fused_qkv_attention(torch.from_numpy(a["qkv"]), H)
     tattn.fused_qkvproj_attention(torch.from_numpy(a["x"]),
                                   torch.from_numpy(a["w"]), H)
+    qkv = torch.from_numpy(a["qkv"])
+    tattn.packed_attention_bwd(qkv, qkv[..., :C], H)
     assert set(tattn.LAUNCHES.values()) == {0}
+    assert "packed_attention_bwd" in tattn.LAUNCHES
 
 
 def test_kernel_input_checks():
@@ -164,15 +254,17 @@ def test_kernel_input_checks():
 def test_ctypes_signatures_match_c_source():
     """Each declared argtypes list has one entry per C parameter, pointers
     as c_void_p (a 32-bit default would cut a pointer)."""
-    src = (_build.CSRC / "attention.cu").read_text()
-    for fn, argtypes in _build.SIGNATURES["attention"].items():
-        m = re.search(rf"int {fn}\(([^)]*)\)", src)
-        assert m, fn
-        params = [p.strip() for p in m.group(1).split(",")]
-        assert len(params) == len(argtypes), fn
-        for p, t in zip(params, argtypes):
-            want = {"int": _build._I, "float": _build._F}.get(
-                p.split()[0], _build._P)
-            assert t is want, (fn, p)
-    a, b = _build.library_path("attention"), _build.library_path("attention")
-    assert a == b and a.parent == _build.BUILD_DIR
+    assert set(_build.SIGNATURES) == {"attention", "attention_bwd"}
+    for name, sigs in _build.SIGNATURES.items():
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        for fn, argtypes in sigs.items():
+            m = re.search(rf"int {fn}\(([^)]*)\)", src)
+            assert m, fn
+            params = [p.strip() for p in m.group(1).split(",")]
+            assert len(params) == len(argtypes), fn
+            for p, t in zip(params, argtypes):
+                want = {"int": _build._I, "float": _build._F}.get(
+                    p.split()[0], _build._P)
+                assert t is want, (fn, p)
+        a, b = _build.library_path(name), _build.library_path(name)
+        assert a == b and a.parent == _build.BUILD_DIR

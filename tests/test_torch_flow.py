@@ -222,7 +222,8 @@ _GUARD = textwrap.dedent("""
     assert not torch.cuda.is_available()
     for call in (lambda: uspace_tpu_torch.resolve_device(),
                  lambda: uspace_tpu_torch.models.get_nnet("uvit"),
-                 lambda: uspace_tpu_torch.cli.sample_lfm.run(n_samples=1)):
+                 lambda: uspace_tpu_torch.cli.sample_lfm.run(n_samples=1),
+                 lambda: uspace_tpu_torch.cli.train_lfm.run(n_steps=1)):
         try:
             call()
         except RuntimeError as e:

@@ -1,12 +1,16 @@
-"""Time the attention kernels of this checkout against another source of them.
+"""Time the kernels of one CUDA source of this checkout against another
+version of that source.
 
-Builds ``--base`` (an ``attention.cu`` with the same C interface, e.g. from
+Builds ``--base`` (a ``<source>.cu`` with the same C interface, e.g. from
 ``git archive`` of the parent commit) beside this checkout's
-``ops/csrc/attention.cu`` and times each of the three kernels at the main
-path's shapes (B=50, L=257, C=1024, H=16, bf16) with CUDA events, the two
+``ops/csrc/<source>.cu`` and times each of its kernels at its path's shapes
+(``attention``: the three sampling kernels at B=50; ``attention_bwd``: the
+backward at B=128; L=257, C=1024, H=16, bf16) with CUDA events, the two
 builds alternating base, new, new, base, ... on one card. Needs a CUDA card.
 
     python -m uspace_tpu_torch.cli.kernel_ab --base old/attention.cu
+    python -m uspace_tpu_torch.cli.kernel_ab --source attention_bwd \
+        --base old/attention_bwd.cu
 """
 
 from __future__ import annotations
@@ -21,13 +25,14 @@ import torch
 from ..ops import _build
 
 B, L, C, H = 50, 257, 1024, 16
+TRAIN_B = 128
 
 
-def _load(path: str, out: str) -> ctypes.CDLL:
+def _load(source: str, path: str, out: str) -> ctypes.CDLL:
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, path],
                    check=True)
     lib = ctypes.CDLL(out)
-    for fn, argtypes in _build.SIGNATURES["attention"].items():
+    for fn, argtypes in _build.SIGNATURES[source].items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
@@ -36,15 +41,19 @@ def _load(path: str, out: str) -> ctypes.CDLL:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--base", required=True, help="attention.cu to compare")
+    ap.add_argument("--source", default="attention",
+                    choices=sorted(_build.SIGNATURES))
+    ap.add_argument("--base", required=True,
+                    help="the other version of <source>.cu")
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--pairs", type=int, default=3)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA card")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    libs = {"base": _load(a.base, str(_build.BUILD_DIR / "ab_base.so")),
-            "new": _build.load("attention")}
+    libs = {"base": _load(a.source, a.base,
+                          str(_build.BUILD_DIR / f"ab_{a.source}.so")),
+            "new": _build.load(a.source)}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
@@ -54,6 +63,11 @@ def main(argv=None) -> None:
     lns = 1 + 0.1 * torch.randn(C, generator=g, device=dev)
     lnb = 0.1 * torch.randn(C, generator=g, device=dev)
     out = torch.empty(B, L, C, dtype=bf, device=dev)
+    qkv_t = (torch.randn(TRAIN_B, L, 3 * C, generator=g, device=dev)
+             * 0.64).to(bf)
+    do_t = torch.randn(TRAIN_B, L, C, generator=g, device=dev).to(bf)
+    dqkv = torch.empty_like(qkv_t)
+    stats = torch.empty(TRAIN_B * H * 3 * L, device=dev)
     s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     calls = {
         "packed_attention": lambda lib: lib.uspace_packed_attention(
@@ -63,7 +77,12 @@ def main(argv=None) -> None:
         "ln_qkvproj_attention": lambda lib: lib.uspace_ln_qkvproj_attention(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w.data_ptr(),
             out.data_ptr(), B, L, H, 0.125, 1e-5, s),
+        "packed_attention_bwd": lambda lib: lib.uspace_packed_attention_bwd(
+            qkv_t.data_ptr(), do_t.data_ptr(), dqkv.data_ptr(),
+            stats.data_ptr(), TRAIN_B, L, H, 0.125, s),
     }
+    calls = {k: f for k, f in calls.items()
+             if f"uspace_{k}" in _build.SIGNATURES[a.source]}
 
     def time_ms(call, lib):
         for _ in range(3):

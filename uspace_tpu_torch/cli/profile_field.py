@@ -1,13 +1,20 @@
-"""Where one evaluation of the sampling field spends its device time.
+"""Where one evaluation of the sampling field, or one train step, spends
+its device time.
 
 Builds a config's field (seeded random weights, compute dtype), warms it
 up, then traces ``--evals`` evaluations at ``--batch`` with
 ``torch.profiler`` and prints the device time per kernel name, grouped
 into the layers that launch them, beside the host wall time (the
-difference is the device's idle share). Needs a CUDA card.
+difference is the device's idle share). With ``--train`` it traces
+``--evals`` train steps instead (f32 master weights, ``--attn_impl``
+default pallas_packed, ``--remat_exempt`` blocks exempt from remat, the
+JAX bench's optimizer) and also reports peak device memory and img/s.
+Needs a CUDA card.
 
     python -m uspace_tpu_torch.cli.profile_field --config uvit_large \\
         --batch 50 --attn_impl auto --out profile_field.json
+    python -m uspace_tpu_torch.cli.profile_field --train --batch 128 \\
+        --remat_exempt 21 --out profile_train.json
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from .sample_lfm import build_model
 
 # kernel-name fragments -> the layer that launches them
 GROUPS = (
+    ("attention backward kernels (ours)", ("bwd_dq_kernel",
+                                           "bwd_dkdv_kernel")),
     ("attention kernel (ours)", ("attention_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet")),
     ("conv (cuDNN)", ("conv", "Conv", "cudnn")),
@@ -43,27 +52,60 @@ def _group(name: str) -> str:
     return "other"
 
 
-@torch.no_grad()
-def profile(config: str = "uvit_large", batch: int = 50, evals: int = 3,
-            attn_impl: str = "auto", seed: int = 0, device=None) -> dict:
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise RuntimeError("profile_field measures the card; it needs CUDA")
-    cfg = get_config(config)
+def _field_fn(cfg, dev, batch, attn_impl, seed):
+    """One sampling-field evaluation, without autograd."""
     model = build_model(cfg, dev, seed, attn_impl=attn_impl)
     c, h, w = cfg["z_shape"]
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     x = torch.randn((batch, h, w, c), generator=g, device=dev)
     t = torch.full((batch,), 0.5, device=dev)
-    for _ in range(2):
+
+    @torch.no_grad()
+    def run():
         model(x, t)
+    return run
+
+
+def _train_fn(cfg, dev, batch, attn_impl, seed, remat_exempt):
+    """One train step of the JAX bench's setup (bench.py:567-581) on a
+    fixed batch of synthetic moments."""
+    from ..data.datasets import SyntheticFeatures
+    from ..train.state import TrainState, get_lr_schedule, get_optimizer
+    from ..train.step import make_train_step
+    from .train_lfm import build_train_model
+
+    model = build_train_model(cfg, dev, seed, attn_impl, remat_exempt)
+    lr = get_lr_schedule("customized", 2e-4, warmup_steps=100)
+    tx = get_optimizer("adam", lr, betas=(0.99, 0.99), weight_decay=0.03)
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    step = make_train_step(model, tx, lr_schedule=lr, ema_rate=0.995,
+                           latents_from_moments=True)
+    c, h, w = cfg["z_shape"]
+    data = SyntheticFeatures(num=batch, shape=(h, w, 2 * c), seed=seed)
+    x = torch.from_numpy(data.batch(range(batch))["x"]).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    return lambda: step(state, {"x": x}, g)
+
+
+def profile(config: str = "uvit_large", batch: int = 50, evals: int = 3,
+            attn_impl: str = "auto", seed: int = 0, device=None,
+            train: bool = False, remat_exempt: int = 0) -> dict:
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("profile_field measures the card; it needs CUDA")
+    cfg = get_config(config)
+    fn = (_train_fn(cfg, dev, batch, attn_impl, seed, remat_exempt) if train
+          else _field_fn(cfg, dev, batch, attn_impl, seed))
+    for _ in range(2):
+        fn()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(evals):
-            model(x, t)
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / evals
     kernels = defaultdict(lambda: [0.0, 0])
@@ -79,7 +121,10 @@ def profile(config: str = "uvit_large", batch: int = 50, evals: int = 3,
     busy = sum(groups.values())
     return dict(
         config=config, batch=batch, attn_impl=attn_impl, evals=evals,
+        train=train, remat_exempt=remat_exempt if train else None,
         card=torch.cuda.get_device_name(0), wall_ms_per_eval=wall * 1e3,
+        imgs_per_s=batch / wall,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         device_ms_per_eval=busy,
         idle_share=max(0.0, 1.0 - busy / (wall * 1e3)),
         groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
@@ -94,16 +139,26 @@ def main(argv=None) -> None:
     ap.add_argument("--config", default="uvit_large")
     ap.add_argument("--batch", type=int, default=50)
     ap.add_argument("--evals", type=int, default=3)
-    ap.add_argument("--attn_impl", default="auto")
+    ap.add_argument("--attn_impl", default=None,
+                    help="default: auto, or pallas_packed with --train")
+    ap.add_argument("--train", action="store_true",
+                    help="trace train steps instead of field evaluations")
+    ap.add_argument("--remat_exempt", type=int, default=0)
     ap.add_argument("--out", default="")
     a = ap.parse_args(argv)
-    rep = profile(a.config, a.batch, a.evals, a.attn_impl)
+    impl = a.attn_impl or ("pallas_packed" if a.train else "auto")
+    rep = profile(a.config, a.batch, a.evals, impl, train=a.train,
+                  remat_exempt=a.remat_exempt)
+    what = (f"train step, remat_exempt {a.remat_exempt}" if a.train
+            else "field evaluation")
     print(f"{rep['card']}: {rep['config']} batch {rep['batch']} "
-          f"attn_impl={rep['attn_impl']}: wall {rep['wall_ms_per_eval']:.2f} "
-          f"ms/eval, device {rep['device_ms_per_eval']:.2f} ms/eval, idle "
-          f"{rep['idle_share']:.3f}")
+          f"attn_impl={rep['attn_impl']} ({what}): wall "
+          f"{rep['wall_ms_per_eval']:.2f} ms/eval, device "
+          f"{rep['device_ms_per_eval']:.2f} ms/eval, idle "
+          f"{rep['idle_share']:.3f}, {rep['imgs_per_s']:.3f} img/s, peak "
+          f"{rep['peak_gib']:.2f} GiB")
     for g, ms in rep["groups_ms"].items():
-        print(f"  {g:28s} {ms:9.3f} ms")
+        print(f"  {g:34s} {ms:9.3f} ms")
     for k in rep["top_kernels"]:
         print(f"  {k['ms']:9.3f} ms x{k['calls']:4d}  {k['name']}")
     if a.out:

@@ -1,8 +1,9 @@
-"""Model and sampling configurations as plain dicts.
+"""Model, training and sampling configurations as plain dicts.
 
-Counterpart of the ``nnet`` and ``sample`` blocks of ``uspace_tpu/configs``
-(ml_collections there; plain dicts here, so the port needs neither
-ml_collections nor absl).
+Counterpart of the ``nnet``, ``train``, ``optimizer``, ``lr_scheduler``,
+``dynamic`` and ``sample`` blocks of ``uspace_tpu/configs`` (ml_collections
+there; plain dicts here, so the port needs neither ml_collections nor
+absl).
 """
 
 from __future__ import annotations
@@ -21,6 +22,15 @@ def uvit_nnet(embed_dim: int = 512, depth: int = 16, num_heads: int = 8,
     return cfg
 
 
+# configs/common.py:35-51 (base_config): train, optimizer, lr_scheduler,
+# dynamic. batch_size is the per-card batch here.
+_TRAIN = dict(n_steps=500_000, batch_size=256, mode="uncond", log_interval=100,
+              eval_interval=5000, save_interval=10_000, ema_rate=0.9999,
+              grad_clip=-1.0, from_moments=True)
+_OPTIMIZER = dict(name="adam", lr=1e-4, weight_decay=0.03, betas=(0.9, 0.999))
+_LR_SCHEDULER = dict(name="customized", warmup_steps=0)
+_DYNAMIC = dict(sigma_min=1e-4)
+
 # solver_fix_step <= 0 derives the step from sample_steps
 _SAMPLE = dict(sample_steps=50, n_samples=50_000, mini_batch_size=50,
                solver_kwargs=dict(solver="fixed", solver_fix="euler",
@@ -29,11 +39,31 @@ _SAMPLE = dict(sample_steps=50, n_samples=50_000, mini_batch_size=50,
 CONFIGS: Dict[str, Dict[str, Any]] = {
     # CelebAMask-HQ 256 U-ViT-large (configs/lfm_cm256_uvit_large.py):
     # 4x32x32 latents, embed 1024, depth 20, 16 heads, patch 2, L = 257
+    # training (configs/lfm_cm256_uvit_large.py:8-12): 300k steps at a
+    # global batch of 512, i.e. 128 per card over the reference's 4 GPUs
     "uvit_large": dict(
         z_shape=(4, 32, 32),  # CHW, reference convention
         compute_dtype="bfloat16",
         nnet=uvit_nnet(embed_dim=1024, depth=20, num_heads=16),
+        train=dict(_TRAIN, n_steps=300_000, batch_size=128),
+        optimizer=_OPTIMIZER,
+        lr_scheduler=_LR_SCHEDULER,
+        dynamic=_DYNAMIC,
         sample=_SAMPLE,
+    ),
+    # tiny CPU smoke config (configs/synthetic_smoke.py): 4x8x8 latents,
+    # embed 32, depth 2, f32
+    "synthetic_smoke": dict(
+        z_shape=(4, 8, 8),
+        compute_dtype="float32",
+        nnet=uvit_nnet(embed_dim=32, depth=2, num_heads=4, img_size=8,
+                       use_checkpoint=False),
+        train=dict(_TRAIN, n_steps=10, batch_size=8, log_interval=5,
+                   eval_interval=10, save_interval=5),
+        optimizer=_OPTIMIZER,
+        lr_scheduler=_LR_SCHEDULER,
+        dynamic=_DYNAMIC,
+        sample=dict(_SAMPLE, sample_steps=4, n_samples=4, mini_batch_size=4),
     ),
 }
 

@@ -1,10 +1,9 @@
-"""Continuous-normalizing-flow sampling and inversion: decode and encode.
+"""Continuous-normalizing-flow training loss, decode and encode.
 
 Counterpart of ``uspace_tpu/core/flow.py``. The caller supplies a velocity
 closure ``velocity_fn(t[B], x) -> v`` (conditioning and weights closed
 over). The state stays in the dtype of ``z`` (f32 on the sampling path)
-while a bf16 field returns bf16 velocities. The training loss comes with
-the training slice.
+while a bf16 field returns bf16 velocities.
 """
 
 from __future__ import annotations
@@ -13,7 +12,14 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from . import solvers
+from . import interpolant, solvers
+
+
+def training_loss(velocity_fn: Callable, x1: torch.Tensor, sigma_min: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Per-sample OT-CFM loss [B] (f32); t and eps from ``generator``."""
+    t, x_t, u_t = interpolant.sample_path(x1, sigma_min, generator)
+    return interpolant.cfm_loss(velocity_fn(t, x_t), u_t)
 
 
 def _scalar_to_batch_vf(velocity_fn: Callable, batch: int) -> Callable:

@@ -7,8 +7,11 @@ state-dict keys, so JAX params load with ``strict=True``
 (``codecs/convert.load_uvit_from_jax``).
 
 Numerics follow the Flax modules: a layer built with ``dtype`` keeps its
-matmul weights in that dtype and casts its input to it (Flax's
-``promote_dtype``); LayerNorm keeps f32 parameters and f32 statistics.
+dense, conv and embedding parameters in ``param_dtype`` (``dtype`` unless
+given; f32 master weights for training) and casts its input, weight and
+bias to ``dtype`` at each call (Flax's ``promote_dtype``), so no f32 copy
+of an activation is made and the gradient reaches the master weight
+through the cast. LayerNorm keeps f32 parameters and f32 statistics.
 """
 
 from __future__ import annotations
@@ -83,11 +86,52 @@ def unpatchify(x: torch.Tensor, channels: int) -> torch.Tensor:
     return x.reshape(b, hw * p, hw * p, channels)
 
 
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype):
+    return None if t is None else t.to(dtype)
+
+
 class Dense(nn.Linear):
-    """``nn.Linear`` that casts its input to its weight's dtype."""
+    """``nn.Linear`` with parameters in ``param_dtype`` that computes in
+    ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32, param_dtype=None,
+                 device=None):
+        super().__init__(in_features, out_features, bias=bias,
+                         dtype=param_dtype or dtype, device=device)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        _cast(self.bias, self.dtype))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (NCHW) with parameters in ``param_dtype`` that
+    computes in ``dtype``."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32,
+                 param_dtype=None, device=None, **kw):
+        super().__init__(*args, dtype=param_dtype or dtype, device=device,
+                         **kw)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype),
+                                  _cast(self.bias, self.dtype))
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` with its table in ``param_dtype``, looked up in
+    ``dtype``."""
+
+    def __init__(self, num: int, dim: int, dtype: torch.dtype = torch.float32,
+                 param_dtype=None, device=None):
+        super().__init__(num, dim, dtype=param_dtype or dtype, device=device)
+        self.dtype = dtype
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return F.embedding(idx, self.weight.to(self.dtype))
 
 
 class LayerNorm(nn.Module):
@@ -117,10 +161,10 @@ class Mlp(nn.Module):
     def __init__(self, in_features: int, hidden_dim: int,
                  out_dim: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, quant=False,
-                 device=None):
+                 param_dtype=None, device=None):
         super().__init__()
         check_quant(quant)
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.fc1 = Dense(in_features, hidden_dim, **kw)
         self.fc2 = Dense(hidden_dim, out_dim or in_features, **kw)
 
@@ -134,7 +178,8 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
                  qk_scale: Optional[float] = None,
                  dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "auto", quant=False, device=None):
+                 attn_impl: str = "auto", quant=False, param_dtype=None,
+                 device=None):
         super().__init__()
         check_quant(quant)
         if attn_impl not in ATTN_IMPLS:
@@ -143,7 +188,7 @@ class Attention(nn.Module):
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.qkv_bias = qkv_bias
         self.attn_impl = attn_impl
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, **kw)
         self.proj = Dense(dim, dim, **kw)
 
@@ -158,8 +203,7 @@ class Attention(nn.Module):
                 # QKV projection inside the kernel; weight.t() is the JAX
                 # [C, 3C] layout and costs no copy
                 out = fused_qkvproj_attention(
-                    x.to(self.qkv.weight.dtype), self.qkv.weight.t(), h,
-                    self.scale)
+                    x.to(self.qkv.dtype), self.qkv.weight.t(), h, self.scale)
             else:
                 out = fused_qkv_attention(self.qkv(x), h, self.scale)
             return self.proj(out)
@@ -175,10 +219,11 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
                  skip: bool = False, dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "auto", quant=False, device=None):
+                 attn_impl: str = "auto", quant=False, param_dtype=None,
+                 device=None):
         super().__init__()
         check_quant(quant)
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.dtype = dtype
         self.attn_impl = attn_impl
         self.qkv_bias = qkv_bias
@@ -209,11 +254,12 @@ class PatchEmbed(nn.Module):
     """Patchifying conv embed: NHWC [B, H, W, C] -> tokens [B, L, E]."""
 
     def __init__(self, patch_size: int, in_chans: int, embed_dim: int,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, param_dtype=None,
+                 device=None):
         super().__init__()
         self.patch_size = patch_size
-        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size,
-                              stride=patch_size, dtype=dtype, device=device)
+        self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=patch_size,
+                           dtype=dtype, param_dtype=param_dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, _ = x.shape
@@ -221,5 +267,5 @@ class PatchEmbed(nn.Module):
         if h % p or w % p:
             raise ValueError(f"{tuple(x.shape)} is not a multiple of patch "
                              f"{p}")
-        y = self.proj(x.to(self.proj.weight.dtype).permute(0, 3, 1, 2))
+        y = self.proj(x.permute(0, 3, 1, 2))
         return y.flatten(2).transpose(1, 2)

@@ -7,20 +7,26 @@ depth//2 out-blocks with skip fusion, then norm -> linear decoder ->
 unpatchify -> 3x3 conv. Latents are NHWC.
 
 ``capture`` returns the head/mid/tail tap activations. The ``edit`` write
-hooks come with the editing slice. ``use_checkpoint``/``remat_exempt``
-are accepted for config parity and do not change the forward pass.
+hooks come with the editing slice. With ``use_checkpoint`` each block is
+recomputed in the backward (``torch.utils.checkpoint``, non-reentrant)
+except ``remat_exempt`` blocks spread evenly over depth, the JAX package's
+exempt set; values and gradients do not depend on either. Without autograd
+(sampling) no block is checkpointed.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Set, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (
     Block,
+    Conv2d,
     Dense,
+    Embedding,
     LayerNorm,
     PatchEmbed,
     check_quant,
@@ -29,6 +35,15 @@ from .layers import (
 )
 
 TAPS = ("head", "mid", "tail")
+
+
+def remat_exempt_set(depth: int, remat_exempt: int) -> Set[int]:
+    """Indices (in-blocks, mid, out-blocks in order) of the blocks left
+    un-rematted: ``remat_exempt`` of the depth + 1, spread evenly
+    (``uspace_tpu/models/uvit.py:153-157``)."""
+    total = depth + 1
+    k = min(remat_exempt, total)
+    return {int(j * total / k) for j in range(k)} if k > 0 else set()
 
 
 class UViT(nn.Module):
@@ -53,6 +68,7 @@ class UViT(nn.Module):
         dtype: torch.dtype = torch.float32,
         attn_impl: str = "auto",
         quant=False,
+        param_dtype: Optional[torch.dtype] = None,
         device=None,
     ):
         super().__init__()
@@ -65,18 +81,22 @@ class UViT(nn.Module):
         self.num_classes = num_classes
         self.dtype = dtype
         self.extras = 2 if num_classes > 0 else 1
-        kw = dict(dtype=dtype, device=device)
+        exempt = remat_exempt_set(depth, remat_exempt)
+        self.remat = [use_checkpoint and i not in exempt
+                      for i in range(depth + 1)]
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
 
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim, **kw)
         self.time_embed = (
             nn.Sequential(Dense(embed_dim, 4 * embed_dim, **kw), nn.SiLU(),
                           Dense(4 * embed_dim, embed_dim, **kw))
             if mlp_time_embed else nn.Identity())
-        self.label_emb = (nn.Embedding(num_classes, embed_dim, **kw)
+        self.label_emb = (Embedding(num_classes, embed_dim, **kw)
                           if num_classes > 0 else None)
         num_patches = (img_size // patch_size) ** 2
         self.pos_embed = nn.Parameter(torch.zeros(
-            1, self.extras + num_patches, embed_dim, **kw))
+            1, self.extras + num_patches, embed_dim,
+            dtype=param_dtype or dtype, device=device))
 
         def block(skip_: bool) -> Block:
             return Block(embed_dim, num_heads, mlp_ratio=mlp_ratio,
@@ -89,7 +109,7 @@ class UViT(nn.Module):
                                         for _ in range(depth // 2))
         self.norm = LayerNorm(embed_dim, dtype=dtype, device=device)
         self.decoder_pred = Dense(embed_dim, patch_size ** 2 * in_chans, **kw)
-        self.final_layer = (nn.Conv2d(in_chans, in_chans, 3, padding=1, **kw)
+        self.final_layer = (Conv2d(in_chans, in_chans, 3, padding=1, **kw)
                             if conv else None)
 
     @torch.no_grad()
@@ -143,17 +163,25 @@ class UViT(nn.Module):
             if y is None:
                 raise ValueError("class-conditional UViT requires labels y")
             tokens = [self.label_emb(y)[:, None, :]] + tokens
-        x = torch.cat(tokens, dim=1) + self.pos_embed
+        x = torch.cat(tokens, dim=1) + self.pos_embed.to(self.dtype)
 
+        blocks = [*self.in_blocks, self.mid_block, *self.out_blocks]
+
+        def run(i: int, *args: torch.Tensor) -> torch.Tensor:
+            if self.remat[i] and torch.is_grad_enabled():
+                return checkpoint(blocks[i], *args, use_reentrant=False)
+            return blocks[i](*args)
+
+        half = self.depth // 2
         skips = []
-        for blk in self.in_blocks:
-            x = blk(x)
+        for i in range(half):
+            x = run(i, x)
             skips.append(x)
-        x = self.mid_block(x)
+        x = run(half, x)
         if "mid" in capture:
             taps["mid"] = x
-        for blk in self.out_blocks:
-            x = blk(x, skips.pop())
+        for i in range(half + 1, 2 * half + 1):
+            x = run(i, x, skips.pop())
 
         x = self.decoder_pred(self.norm(x))[:, self.extras:, :]
         x = unpatchify(x, self.in_chans)

@@ -35,6 +35,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_ln_qkvproj_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _F,
                                         _F, _P),
     },
+    "attention_bwd": {
+        "uspace_packed_attention_bwd": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

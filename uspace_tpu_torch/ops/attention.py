@@ -12,11 +12,17 @@ prologue:
 - :func:`fused_ln_qkvproj_attention` — LN1 and the projection inside the
   kernel (``_qkv_attn_kernel_ln``).
 
+The first two are differentiable, as in the JAX package: their backward
+runs :func:`packed_attention_bwd` (``csrc/attention_bwd.cu``, TPU kernel
+``_packed_bwd_kernel``), which recomputes P from the saved qkv. The third is
+inference-only.
+
 Each wrapper has a plain PyTorch twin in this module with the kernel's
 rounding sites (bf16 qkv after the projection, bf16 P before P·V, division
-by the f32 row sum after P·V) and a launch count in :data:`LAUNCHES`. A
-wrapper launches its kernel for a CUDA tensor and uses the twin only for a
-tensor on the CPU; on CUDA it never falls back.
+by the f32 row sum after P·V; in the backward bf16 P before Pᵀ·dO and bf16
+dS) and a launch count in :data:`LAUNCHES`. A wrapper launches its kernel
+for a CUDA tensor and uses the twin only for a tensor on the CPU; on CUDA it
+never falls back.
 
 Layout: q, k, v are ``[B, H, L, D]``; packed and fused entry points take
 and return ``[B, L, C]`` as the JAX package does.
@@ -34,6 +40,7 @@ LAUNCHES: Dict[str, int] = {
     "packed_attention": 0,
     "qkvproj_attention": 0,
     "ln_qkvproj_attention": 0,
+    "packed_attention_bwd": 0,
 }
 
 KERNEL_HEAD_DIM = 64
@@ -98,6 +105,31 @@ def packed_attention_plain(qkv: torch.Tensor, num_heads: int,
     return o.transpose(1, 2).reshape(b, l, h * d)
 
 
+def packed_attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor,
+                               num_heads: int, scale: float) -> torch.Tensor:
+    """Twin of the packed backward kernel: dqkv [B, L, 3HD] from the
+    forward's input qkv and the output cotangent do [B, L, HD]. f32 scores,
+    row max and p = e / l; dv = bf16(p)ᵀ·dO; delta = rowsum(p ⊙ dp) from
+    p and dp = dO·Vᵀ (not from dO ⊙ O); ds = bf16(p ⊙ (dp − delta));
+    dq = ds·K·scale, dk = dsᵀ·Q·scale; each rounded to qkv's dtype."""
+    b, l, c3 = qkv.shape
+    h = num_heads
+    d = c3 // (3 * h)
+    q, k, v = qkv.reshape(b, l, 3, h, d).permute(2, 0, 3, 1, 4).float()
+    g = do.reshape(b, l, h, d).transpose(1, 2).float()
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.to(qkv.dtype).float().transpose(-1, -2), g)
+    dp = torch.matmul(g, v.transpose(-1, -2))
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta)).to(qkv.dtype).float()
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    dqkv = torch.stack([dq, dk, dv]).to(qkv.dtype)  # [3, B, H, L, D]
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(b, l, c3)
+
+
 def qkvproj_attention_plain(x: torch.Tensor, w_qkv: torch.Tensor,
                             num_heads: int, scale: float) -> torch.Tensor:
     """Twin of the QKV-projection kernel: W cast to x's dtype, f32
@@ -158,13 +190,14 @@ def _check_x(name: str, x: torch.Tensor, num_heads: int, parts: int) -> None:
 
 
 def _check_no_grad(*ts: torch.Tensor) -> None:
-    """The kernels define no backward yet: refuse rather than return an
-    output that silently drops the gradient."""
+    """The LN-fused kernel defines no backward (nor does the JAX
+    package's): refuse rather than return an output that silently drops
+    the gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
-            "the CUDA attention kernels are inference-only until the "
-            "training slice ports _packed_bwd_kernel; call under "
-            "torch.no_grad() or use attn_impl='xla'")
+            "the LN + QKV-projection attention kernel is inference-only, as "
+            "in the JAX package; call under torch.no_grad() or train with "
+            "attn_impl='pallas_packed', 'auto' or 'xla'")
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
@@ -182,7 +215,6 @@ def _packed_kernel(qkv: torch.Tensor, num_heads: int,
 
     b, l, c3 = qkv.shape
     _check_x("qkv", qkv, num_heads, 3)
-    _check_no_grad(qkv)
     out = torch.empty((b, l, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     rc = load("attention").uspace_packed_attention(
         qkv.data_ptr(), out.data_ptr(), b, l, num_heads, scale,
@@ -190,6 +222,25 @@ def _packed_kernel(qkv: torch.Tensor, num_heads: int,
     _raise_on(rc, "uspace_packed_attention")
     LAUNCHES["packed_attention"] += 1
     return out
+
+
+def _packed_bwd_kernel(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
+                       scale: float) -> torch.Tensor:
+    from ._build import load
+
+    b, l, c3 = qkv.shape
+    _check_x("qkv", qkv, num_heads, 3)
+    _check("do", do, qkv.dtype, (b, l, c3 // 3), qkv.device)
+    dqkv = torch.empty_like(qkv)
+    # per-row max, sum and delta, passed from the dQ kernel to the dK/dV one
+    stats = torch.empty((b * num_heads * 3 * l,), dtype=torch.float32,
+                        device=qkv.device)
+    rc = load("attention_bwd").uspace_packed_attention_bwd(
+        qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, l,
+        num_heads, scale, _stream(qkv.device))
+    _raise_on(rc, "uspace_packed_attention_bwd")
+    LAUNCHES["packed_attention_bwd"] += 1
+    return dqkv
 
 
 def _weight_rows(w_qkv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -209,7 +260,6 @@ def _qkvproj_kernel(x, w_qkv, num_heads, scale):
 
     b, l, c = x.shape
     _check_x("x", x, num_heads, 1)
-    _check_no_grad(x, w_qkv)
     w = _weight_rows(w_qkv, x)
     out = torch.empty_like(x)
     rc = load("attention").uspace_qkvproj_attention(
@@ -248,15 +298,67 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
+def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
+                         num_heads: int,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """dqkv [B, L, 3*H*D] of packed attention from its input qkv and the
+    output cotangent do [B, L, H*D]; P is recomputed, never stored."""
+    scale = _default_scale(qkv.shape[-1] // (3 * num_heads), scale)
+    if _on_cpu(qkv):
+        return packed_attention_bwd_plain(qkv, do, num_heads, scale)
+    return _packed_bwd_kernel(qkv, do.contiguous(), num_heads, scale)
+
+
+class _PackedAttention(torch.autograd.Function):
+    """The packed kernel (its twin on the CPU) with the packed backward
+    kernel as VJP, as ``_packed_attention`` of the JAX package: CPU
+    autograd reproduces the JAX VJP, not autograd of the forward twin."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        if _on_cpu(qkv):
+            return packed_attention_plain(qkv, num_heads, scale)
+        return _packed_kernel(qkv, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return packed_attention_bwd(qkv, g, ctx.num_heads, ctx.scale), None, None
+
+
+class _QKVProjAttention(torch.autograd.Function):
+    """The QKV-projection kernel with the VJP of ``_qkv_attn_bwd``:
+    recompute qkv = x @ W, run the packed backward, then dx and dW are two
+    plain matmuls (outside any kernel in the JAX package too)."""
+
+    @staticmethod
+    def forward(ctx, x, w, num_heads, scale):
+        ctx.save_for_backward(x, w)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        if _on_cpu(x):
+            return qkvproj_attention_plain(x, w, num_heads, scale)
+        return _qkvproj_kernel(x, w, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        qkv = torch.matmul(x, w)
+        dqkv = packed_attention_bwd(qkv, g, ctx.num_heads, ctx.scale)
+        dx = torch.matmul(dqkv, w.t()) if ctx.needs_input_grad[0] else None
+        dw = (torch.matmul(x.reshape(-1, x.shape[-1]).t(),
+                           dqkv.reshape(-1, dqkv.shape[-1]))
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw, None, None
+
+
 def fused_qkv_attention(qkv: torch.Tensor, num_heads: int,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """qkv [B, L, 3*H*D] (packed [q|k|v] x heads) -> [B, L, H*D].
-    Inference only: the backward kernel comes with the training slice."""
+    """qkv [B, L, 3*H*D] (packed [q|k|v] x heads) -> [B, L, H*D];
+    differentiable through the packed backward kernel."""
     d = qkv.shape[-1] // (3 * num_heads)
-    scale = _default_scale(d, scale)
-    if _on_cpu(qkv):
-        return packed_attention_plain(qkv, num_heads, scale)
-    return _packed_kernel(qkv, num_heads, scale)
+    return _PackedAttention.apply(qkv, num_heads, _default_scale(d, scale))
 
 
 def fused_qkvproj_attention(x: torch.Tensor, w_qkv: torch.Tensor,
@@ -264,13 +366,12 @@ def fused_qkvproj_attention(x: torch.Tensor, w_qkv: torch.Tensor,
                             quant: bool = False) -> torch.Tensor:
     """x [B, L, C] (post-LN) and fused QKV weight [C, 3C] -> attention
     output [B, L, C] (pre out-projection); the [B, L, 3C] qkv never
-    touches device memory."""
+    touches device memory. W is cast to x's dtype first, so its gradient
+    reaches an f32 master weight through the cast."""
     if quant:
         raise NotImplementedError(_UNPORTED_INT8)
     scale = _default_scale(x.shape[-1] // num_heads, scale)
-    if _on_cpu(x):
-        return qkvproj_attention_plain(x, w_qkv, num_heads, scale)
-    return _qkvproj_kernel(x, w_qkv, num_heads, scale)
+    return _QKVProjAttention.apply(x, w_qkv.to(x.dtype), num_heads, scale)
 
 
 def fused_ln_qkvproj_attention(
