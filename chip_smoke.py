@@ -5,20 +5,36 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 1. the card: `nvidia-smi` name and power limit, TF32 off for comparisons;
-2. build every CUDA kernel from the sources in this checkout (nvcc, sm_90a);
+2. build every CUDA kernel from the sources in this checkout (nvcc, sm_90a,
+   one process per source, in parallel);
 3. each kernel against its plain PyTorch twin at its path's shapes
    (B=50 for the sampling kernels, B=128 for the backward kernel; L=257,
-   C=1024, H=16, bf16): max-abs and rel-L2 within the tolerances below;
-   kernel, twin and library-call times with CUDA events; the bound of the
-   same work on an H100 SXM;
+   C=1024, H=16, bf16; the int8 MLP on the 12850 rows of B=50 with hidden
+   4096): max-abs and rel-L2 within the tolerances below; for each int8
+   kernel, controls (twins with one rounding site changed) that the same
+   limits must refuse; kernel, twin and library-call times with CUDA
+   events; the bound of the same work on an H100 SXM;
 4. the main path: U-ViT-large (embed 1024, depth 20, 16 heads, patch 2) in
    bf16 with seeded random weights, Euler-50 at batch 50 through
    `core.flow.decode` with attn_impl="auto": 21 x 50 = 1050 launches of the
    QKV-projection kernel, latents against the plain path (attn_impl="xla")
    from the same z, img/s of both, peak memory;
-5. the "pallas_packed" and "pallas_lnmlp" views for a few Euler steps, their
-   launch counts and agreement with the plain path;
-6. the entry point `cli.sample_lfm.run` writing two latent batches;
+4b. the int8 W8A8 view's main path: the same weights in f32, quant=True,
+   attn_impl="auto", Euler-50 at batch 50 from the same z: 1050 launches of
+   the int8 LN + QKV-projection kernel and 1050 of the int8 MLP sub-block
+   kernel and no other kernel, no weight quantization inside the timed
+   solve, img/s and peak memory, the JAX bench's quality gate (latent
+   cosine and rel-L2 against the bf16 kernel view of phase 4) and one
+   full-width field evaluation: each block (kernels) against the same
+   block composed from the kernels' plain twins on the same input, with
+   control blocks the limit must refuse, and the whole field against the
+   twins' composition;
+5. the "pallas_packed" and "pallas_lnmlp" views, and the int8
+   "pallas_qkvproj" (int8 QKV-projection + int8 MLP kernels) and "xla"
+   (int8 MLP kernel) views, for a few Euler steps each: launch counts and
+   agreement with the plain path;
+6. the entry point `cli.sample_lfm.run` writing two latent batches, bf16 and
+   int8 (quant=True);
 7. the training path: U-ViT-large with f32 master weights and bf16 compute,
    attn_impl="pallas_packed", per-block remat with REMAT_EXEMPT blocks
    exempt, batch 128 of `SyntheticFeatures` moments, the JAX bench's Adam
@@ -65,9 +81,44 @@ BWD_REL_L2 = 5e-4
 # attention call; measured on an H100: cos >= 0.9999982, rel-L2 <= 1.9e-3
 PATH_MIN_COS = 0.9999
 PATH_MAX_REL_L2 = 1e-2
+# int8 kernels vs their twins: kernel and twin share every rounding site,
+# so an output moves only where an f32 sum in another order (LN
+# statistics) flips an int8 code or a bf16 rounding: max-abs one bf16 step
+# of the largest output value; rel-L2 of the kernel's own part (out - x for
+# the MLP sub-block, whose residual would dilute an error). Measured on an
+# H100 at the main path's shapes: attention 1.33e-4 (LN) and 7.1e-5, MLP
+# kernels equal bit for bit. Each int8 case also runs controls, twins with
+# one rounding site changed, which must fail the same comparison; the
+# nearest read 1.9e-3 (MLP, x coded by division), 2.3e-3 (LN-free
+# attention, the same) and 5.0e-3 (LN attention, LN1 output in bf16).
+INT8_ATTN_REL_L2 = 5e-4
+INT8_MLP_REL_L2 = 1e-4
+# the int8 view against the bf16 view over a whole Euler-50 solve (the JAX
+# bench's quality gate, bench.py:123-142) and the other int8 views over a
+# few steps against the plain path; first H100 run: cos 0.9999902 / rel-L2
+# 4.43e-3 (Euler-50), 0.9999834 / 5.76e-3 (4 steps): margins of 6x or more
+# on 1 - cos and 5x on rel-L2
+QUANT_MIN_COS = 0.9999
+QUANT_MAX_REL_L2 = 3e-2
+# one full-width field evaluation of the int8 view, block by block: each
+# block of the model (kernels) against the same block composed from the
+# twins, on the same input; rel-L2 of the block's update (out - in). Flips
+# of the attention kernel pass through proj's row codes into the MLP.
+# Controls: twin blocks whose MLP keeps its hidden in f32 or codes it with
+# one grid per row must read above the limit. Measured on an H100: kernels
+# 2.08e-3 at most over the 21 blocks, controls 8.24e-3 and 9.61e-3 at
+# least: the limit sits about 2x from each.
+BLOCK_REL_L2 = 4e-3
+# the whole field, kernels vs the twins' composition: a flipped code in one
+# block moves the quantizers of every later block, so this reading only
+# shows that the view routes through its kernels (measured on an H100:
+# 1.63e-2, and 1.74e-2 for twins whose MLPs keep their hidden in f32)
+FIELD_MIN_COS = 0.999
+FIELD_MAX_REL_L2 = 5e-2
 
-# H100 SXM published peaks (dense bf16, HBM3)
+# H100 SXM published peaks (dense bf16 and int8, HBM3)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # global gradient at batch 32, kernel path vs plain path and auto vs
@@ -124,13 +175,49 @@ def compare(torch, out, ref):
     return max_abs, rel, cos
 
 
-def bound(bytes_moved, flops):
+def bf16_step(v):
+    """One bf16 step (8 significant bits) at magnitude ``v``."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7) if v > 0 else 0.0
+
+
+def judge(torch, case, out, ref):
+    """max-abs and rel-L2 of ``out`` against ``ref`` (rel-L2 on the
+    case's ``part``) and the case's limits; a max-abs limit of None is one
+    bf16 step of the largest |ref|."""
+    part = case.get("part", lambda t: t)
+    _, rel, _ = compare(torch, part(out), part(ref))
+    max_abs, _, _ = compare(torch, out, ref)
+    tol_abs, tol_rel = case.get("tol", (KERNEL_MAX_ABS, KERNEL_REL_L2))
+    if tol_abs is None:
+        tol_abs = bf16_step(float(ref.float().abs().max()))
+    return max_abs, rel, tol_abs, tol_rel
+
+
+def bound(bytes_moved, flops, int8_ops=0.0):
+    """Least ms for the work: bytes over the memory rate against bf16
+    operations and int8 operations, each over its peak rate."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernels(torch, F, attn):
+def all_launches(attn, mlpk):
+    return {**attn.LAUNCHES, **mlpk.LAUNCHES}
+
+
+def reset_launches(attn, mlpk):
+    attn.reset_launches()
+    mlpk.reset_launches()
+
+
+def expected(attn, mlpk, **counts):
+    """Every kernel's launch count: 0 unless given."""
+    want = dict.fromkeys(all_launches(attn, mlpk), 0)
+    want.update(counts)
+    return want
+
+
+def check_kernels(torch, F, attn, mlpk, quant):
     """Phase 3: each kernel vs its twin at its path's shapes."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -198,22 +285,39 @@ def check_kernels(torch, F, attn):
         flops=10.0 * TRAIN_B * H * L * L * d,
         tol=(BWD_MAX_ABS, BWD_REL_L2), shape=f"B={TRAIN_B} L={L} C={C} "
         f"H={H} bf16"))
-    results = []
+    cases += int8_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
+    results, controls, problems = [], {}, []
     for case in cases:
-        before = attn.LAUNCHES[case["name"]]
-        out = case["kernel"]()
+        before = all_launches(attn, mlpk)[case["name"]]
+        with torch.no_grad():
+            out = case["kernel"]()
         torch.cuda.synchronize()
-        if attn.LAUNCHES[case["name"]] != before + 1:
+        if all_launches(attn, mlpk)[case["name"]] != before + 1:
             fail(f"{case['name']}: the wrapper did not launch its kernel")
         ref = case["plain"]()
-        max_abs, rel, cos = compare(torch, out, ref)
-        tol_abs, tol_rel = case.get("tol", (KERNEL_MAX_ABS, KERNEL_REL_L2))
-        ok = max_abs <= tol_abs and rel <= tol_rel
+        max_abs, rel, tol_abs, tol_rel = judge(torch, case, out, ref)
+        if not (max_abs <= tol_abs and rel <= tol_rel):
+            problems.append(f"{case['name']} disagrees with its plain twin")
+        log(f"kernel {case['name']}: max_abs {max_abs:.3e} (tol "
+            f"{tol_abs:.3e}) rel_l2 {rel:.3e} (tol {tol_rel:.1e})")
+        for cname, cfn in case.get("controls", ()):
+            c_abs, c_rel, _, _ = judge(torch, case, cfn(), ref)
+            caught = c_abs > tol_abs or c_rel > tol_rel
+            log(f"  control, {cname}: max_abs {c_abs:.3e} rel_l2 "
+                f"{c_rel:.3e}: {'fails' if caught else 'PASSES'} the "
+                f"comparison")
+            if not caught:
+                problems.append(f"{case['name']}: the limits let a twin with "
+                                f"{cname} pass")
+            controls.setdefault(case["name"], {})[cname] = dict(
+                max_abs=c_abs, rel_l2=c_rel)
         del out, ref
-        ms = time_ms(torch, case["kernel"])
-        plain_ms = time_ms(torch, case["plain"], iters=5)
-        library_ms = time_ms(torch, case["library"])
-        bound_ms, bound_by = bound(case["bytes"], case["flops"])
+        with torch.no_grad():
+            ms = time_ms(torch, case["kernel"])
+            plain_ms = time_ms(torch, case["plain"], iters=5)
+            library_ms = time_ms(torch, case["library"])
+        bound_ms, bound_by = bound(case["bytes"], case["flops"],
+                                   case.get("int8_ops", 0.0))
         r = dict(name=case["name"], route="cuda",
                  source=case.get("source",
                                  "uspace_tpu_torch/ops/csrc/attention.cu"),
@@ -221,14 +325,164 @@ def check_kernels(torch, F, attn):
                  rel_l2=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=library_ms,
                  shape=case.get("shape", f"B={B} L={L} C={C} H={H} bf16"))
-        log(f"kernel {case['name']}: max_abs {max_abs:.3e} (tol "
-            f"{tol_abs}) rel_l2 {rel:.3e} (tol {tol_rel}) | "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} "
-            f"ms, bound {bound_ms * 1e3:.1f} us ({bound_by})")
-        if not ok:
-            fail(f"{case['name']} disagrees with its plain twin")
+        log(f"  {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({bound_by})")
         results.append(r)
-    return results
+    if problems:
+        fail("; ".join(problems))
+    return results, controls
+
+
+def attn_control(attn, quant, x, qw, w, heads, scale, change, ln=None):
+    """A twin of the int8 attention kernels with one rounding site changed
+    (a wrong kernel's stand-in); ``ln = (scale, bias, eps)`` for LN1."""
+    if change == "a bf16 projection":
+        if ln is None:
+            return attn.qkvproj_attention_plain(x, w, heads, scale)
+        return attn.ln_qkvproj_attention_plain(x, ln[0], ln[1], w, heads,
+                                               scale, ln[2])
+    xf = x.float() if ln is None else attn._ln_f32(x, *ln)
+    if change == "the LN1 output rounded to bf16":
+        xf = xf.to(x.dtype).float()
+    xq, xs = (quant.quantize_rowwise(xf) if change == "x coded by division"
+              else quant.row_codes(xf))
+    qkv = (quant.int_matmul(xq, qw.kn).float() * xs * qw.scale).to(x.dtype)
+    return attn.packed_attention_plain(qkv, heads, scale)
+
+
+def mlp_control(torch, attn, mlpk, quant, x, q1, b1, q2, b2, strips, change,
+                ln=None):
+    """A twin of the int8 MLP kernels with one rounding site changed (a
+    wrong kernel's stand-in); ``ln = (scale, bias, eps)`` for the LN2 +
+    residual variant."""
+    if ln is None:
+        xf = x.float()
+    elif change == "LN2 normalised in f32":
+        xf = attn._ln_f32(x, *ln)
+    else:
+        xf = mlpk._ln_bf16_normalise(x, *ln)
+    codes = (quant.quantize_rowwise(xf) if change == "x coded by division"
+             else quant.row_codes(xf))
+    if change == "the hidden kept in f32":
+        xq, xs = codes
+        h = mlpk._gelu_f32(quant.int_matmul(xq, q1.kn).float() * xs
+                           * q1.scale + b1.float())
+        m = (torch.matmul(h, q2.kn.float() * q2.scale) + b2.float()).to(
+            x.dtype)
+    else:
+        m = mlpk._mlp_int8_core(
+            *codes, q1, b1, q2, b2,
+            1 if change == "one hidden grid per row" else strips, x.dtype)
+    return m if ln is None else x + m
+
+
+def int8_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
+    """Phase 3's int8 cases (rows 5, 6, 15, 14 of the PERF.md table). The
+    weights are f32 views of torch-layout tensors, as the model passes
+    them; their codes come from the cache (made before any timing), so a
+    call reads int8 codes and f32 scales. Yardsticks: the same function
+    from PyTorch calls (F.layer_norm, row quantization, torch._int_mm,
+    dequantization, SDPA or F.gelu). Controls: twins with one rounding
+    site changed, which the limits must refuse."""
+    f32, bf = torch.float32, torch.bfloat16
+    x = randn(B, L, C)
+    w = randn(3 * C, C, std=0.02, dtype=f32).t()
+    lns = 1.0 + randn(C, std=0.1, dtype=f32)
+    lnb = randn(C, std=0.1, dtype=f32)
+    qw = quant.quantized_weight(w)
+    d = C // H
+    scale = d ** -0.5
+    hid = 4 * C
+    rows = B * L
+    xr = x.reshape(rows, C)
+    w1 = randn(hid, C, std=0.02, dtype=f32).t()
+    b1 = randn(hid, std=0.02, dtype=f32)
+    w2 = randn(C, hid, std=0.02, dtype=f32).t()
+    b2 = randn(C, std=0.02, dtype=f32)
+    q1, q2 = quant.quantized_weight(w1), quant.quantized_weight(w2)
+    strips = mlpk.col_slices(hid)
+    ln1 = (lns, lnb, 1e-5)
+
+    def lib_proj(xf, qw_):  # row codes, torch._int_mm, dequant
+        xq, xs = quant.quantize_rowwise(xf)
+        return quant.int8_matmul(xq, xs, qw_.kn, qw_.scale)
+
+    def lib_attn(xf):
+        return sdpa_packed(lib_proj(xf, qw).to(bf))
+
+    def lib_mlp(xf):
+        h = F.gelu(lib_proj(xf, q1) + b1)
+        return (lib_proj(h, q2) + b2).to(bf)
+
+    def ln(t):
+        return F.layer_norm(t.float(), (C,), lns, lnb, 1e-5)
+
+    def a_ctl(*changes, ln_=None):
+        return [(c, lambda c=c: attn_control(attn, quant, x, qw, w, H, scale,
+                                             c, ln_))
+                for c in changes]
+
+    def m_ctl(*changes, ln_=None):
+        return [(c, lambda c=c: mlp_control(torch, attn, mlpk, quant, xr, q1,
+                                            b1, q2, b2, strips, c, ln_))
+                for c in changes]
+
+    proj_ops = 2.0 * B * L * C * 3 * C
+    attn_flops = 4.0 * B * H * L * L * d
+    mlp_ops = 2.0 * 2.0 * rows * C * hid
+    wbytes = io(qw.q, qw.scale)
+    mbytes = io(q1.q, q1.scale, b1, q2.q, q2.scale, b2)
+    mshape = f"rows={rows} C={C} hidden={hid} strips={strips} bf16/int8"
+    ashape = f"B={B} L={L} C={C} H={H} bf16/int8"
+    mlp_src = "uspace_tpu_torch/ops/csrc/mlp_int8.cu"
+    a_tol, m_tol = (None, INT8_ATTN_REL_L2), (None, INT8_MLP_REL_L2)
+    return [
+        dict(name="ln_qkvproj_attention_int8",
+             replaces="uspace_tpu/ops/attention.py:592 (_qkv_attn_kernel_qln)",
+             kernel=lambda: attn.fused_ln_qkvproj_attention(
+                 x, lns, lnb, w, H, quant=True),
+             plain=lambda: attn.ln_qkvproj_attention_int8_plain(
+                 x, lns, lnb, qw, H, scale, 1e-5),
+             library=lambda: lib_attn(ln(x)),
+             bytes=io(x, lns, lnb) + wbytes + io(x), flops=attn_flops,
+             int8_ops=proj_ops, tol=a_tol, shape=ashape,
+             # not "x coded by division": on f32 LN rows (bf16 x makes
+             # ties) it reads 1.97e-4 on an H100, as close to the twin as
+             # a reordered f32 sum
+             controls=a_ctl("the LN1 output rounded to bf16",
+                            "a bf16 projection", ln_=ln1)),
+        dict(name="qkvproj_attention_int8",
+             replaces="uspace_tpu/ops/attention.py:541 (_qkv_attn_kernel_q)",
+             kernel=lambda: attn.fused_qkvproj_attention(x, w, H, quant=True),
+             plain=lambda: attn.qkvproj_attention_int8_plain(x, qw, H, scale),
+             library=lambda: lib_attn(x.float()),
+             bytes=io(x) + wbytes + io(x), flops=attn_flops,
+             int8_ops=proj_ops, tol=a_tol, shape=ashape,
+             controls=a_ctl("x coded by division", "a bf16 projection")),
+        dict(name="ln_mlp_int8", source=mlp_src,
+             replaces="uspace_tpu/ops/mlp.py:225 (_mlp_kernel_int8_lnres)",
+             kernel=lambda: mlpk.fused_mlp_block_q(xr, lns, lnb, w1, b1, w2,
+                                                   b2),
+             plain=lambda: mlpk.ln_mlp_int8_plain(xr, lns, lnb, q1, b1, q2,
+                                                  b2, strips, 1e-5),
+             library=lambda: xr + lib_mlp(ln(xr)),
+             bytes=io(xr, lns, lnb) + mbytes + io(xr), flops=0.0,
+             int8_ops=mlp_ops, tol=m_tol, shape=mshape,
+             part=lambda t: t.double() - xr.double(),
+             controls=m_ctl("the hidden kept in f32",
+                            "one hidden grid per row", "x coded by division",
+                            "LN2 normalised in f32", ln_=ln1)),
+        dict(name="mlp_int8", source=mlp_src,
+             replaces="uspace_tpu/ops/mlp.py:161 (_mlp_kernel_int8)",
+             kernel=lambda: mlpk.fused_mlp(xr, w1, b1, w2, b2),
+             plain=lambda: mlpk.mlp_int8_plain(xr, q1, b1, q2, b2, strips),
+             library=lambda: lib_mlp(xr.float()),
+             bytes=io(xr) + mbytes + io(xr), flops=0.0, int8_ops=mlp_ops,
+             tol=m_tol, shape=mshape,
+             controls=m_ctl("the hidden kept in f32",
+                            "one hidden grid per row",
+                            "x coded by division")),
+    ]
 
 
 def decode_run(torch, flow, model, z, steps):
@@ -240,6 +494,163 @@ def decode_run(torch, flow, model, z, steps):
         out = flow.decode(lambda t, x: model(x, t)[0], z, sk)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def twin_block(torch, blk, z, skip=None, change=None):
+    """One block of the int8 view on the LN-fused route composed from the
+    kernels' plain twins (int8_dense for proj and skip_linear, as the
+    model); ``change`` names a control of ``mlp_control`` for its MLP."""
+    from uspace_tpu_torch.ops import attention as attn
+    from uspace_tpu_torch.ops import mlp as mlpk
+    from uspace_tpu_torch.ops import quant
+
+    if blk.skip_linear is not None:
+        z = blk.skip_linear(torch.cat([z, skip], dim=-1))
+    a = attn.ln_qkvproj_attention_int8_plain(
+        z, blk.norm1.weight, blk.norm1.bias,
+        quant.quantized_weight(blk.attn.qkv.weight.t()), blk.attn.num_heads,
+        blk.attn.scale, blk.norm1.eps)
+    z = z + blk.attn.proj.int8(a).to(z.dtype)
+    q1 = quant.quantized_weight(blk.mlp.fc1.weight.t())
+    q2 = quant.quantized_weight(blk.mlp.fc2.weight.t())
+    z2 = z.reshape(-1, z.shape[-1])
+    ln = (blk.norm2.weight, blk.norm2.bias, blk.norm2.eps)
+    strips = mlpk.col_slices(q1.q.shape[0])
+    if change is None:
+        out = mlpk.ln_mlp_int8_plain(z2, *ln[:2], q1, blk.mlp.fc1.bias, q2,
+                                     blk.mlp.fc2.bias, strips, ln[2])
+    else:
+        out = mlp_control(torch, attn, mlpk, quant, z2, q1, blk.mlp.fc1.bias,
+                          q2, blk.mlp.fc2.bias, strips, change, ln)
+    return out.reshape(z.shape)
+
+
+def composed_field(torch, model, x, t, block):
+    """The model's field with each block computed by ``block(blk, z,
+    skip)``, the rest by the model's own modules."""
+    from uspace_tpu_torch.models.layers import timestep_embedding, unpatchify
+
+    m = model
+    z = m.patch_embed(x)
+    t_emb = m.time_embed(timestep_embedding(t, m.embed_dim).to(m.dtype))
+    z = torch.cat([t_emb[:, None, :], z], dim=1) + m.pos_embed.to(m.dtype)
+    skips = []
+    for blk in m.in_blocks:
+        z = block(blk, z, None)
+        skips.append(z)
+    z = block(m.mid_block, z, None)
+    for blk in m.out_blocks:
+        z = block(blk, z, skips.pop())
+    z = unpatchify(m.decoder_pred(m.norm(z))[:, m.extras:, :], m.in_chans)
+    return m.final_layer(z.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+BLOCK_CONTROLS = ("the hidden kept in f32", "one hidden grid per row")
+
+
+def field_check(torch, model, z, t):
+    """Phase 4b's full-width field evaluation of the int8 view: block by
+    block on the kernels' own inputs (kernels vs twins, and controls vs
+    twins: rel-L2 of each block's update), then the whole field against
+    the twins' composition and against a control's composition."""
+    rels = {"kernels": []}
+    rels.update({c: [] for c in BLOCK_CONTROLS})
+
+    def kernel_block(blk, zin, skip):
+        out = blk(zin, skip)
+        ref = twin_block(torch, blk, zin, skip)
+        base = zin  # the update is taken after skip_linear (int8_dense)
+        if skip is not None:
+            base = blk.skip_linear(torch.cat([zin, skip], dim=-1))
+        upd = (ref.double() - base.double()).norm()
+        rels["kernels"].append(float((out.double() - ref.double()).norm()
+                                     / upd))
+        for c in BLOCK_CONTROLS:
+            ctl = twin_block(torch, blk, zin, skip, c)
+            rels[c].append(float((ctl.double() - ref.double()).norm() / upd))
+        return out
+
+    with torch.no_grad():
+        v_kernel = composed_field(torch, model, z, t, kernel_block)
+        v_direct, _ = model(z, t)
+        v_twin = composed_field(torch, model, z, t, lambda b, zi, s:
+                                twin_block(torch, b, zi, s))
+        v_ctl = composed_field(torch, model, z, t, lambda b, zi, s:
+                               twin_block(torch, b, zi, s, BLOCK_CONTROLS[0]))
+    if not torch.equal(v_kernel, v_direct):
+        fail("the block-by-block field differs from the model's own call")
+    f_abs, f_rel, f_cos = compare(torch, v_kernel, v_twin)
+    c_abs, c_rel, c_cos = compare(torch, v_ctl, v_twin)
+    out = dict(block_rel_l2_max=max(rels["kernels"]),
+               block_rel_l2=rels["kernels"],
+               controls={c: dict(rel_l2_min=min(rels[c]), rel_l2=rels[c])
+                         for c in BLOCK_CONTROLS},
+               field=dict(cos=f_cos, rel_l2=f_rel, max_abs=f_abs),
+               field_control=dict(change=BLOCK_CONTROLS[0], cos=c_cos,
+                                  rel_l2=c_rel, max_abs=c_abs))
+    log(f"int8 blocks at batch {B}, kernels vs twins on the same input: "
+        f"update rel_l2 max {out['block_rel_l2_max']:.3e} over "
+        f"{len(rels['kernels'])} blocks (max {BLOCK_REL_L2})")
+    problems = []
+    if out["block_rel_l2_max"] > BLOCK_REL_L2:
+        problems.append("an int8 block disagrees with its twins")
+    for c in BLOCK_CONTROLS:
+        lo = out["controls"][c]["rel_l2_min"]
+        log(f"  control, {c}: update rel_l2 min {lo:.3e} over the blocks: "
+            f"{'fails' if lo > BLOCK_REL_L2 else 'PASSES'} the comparison")
+        if lo <= BLOCK_REL_L2:
+            problems.append(f"the block limit lets twins with {c} pass")
+    log(f"int8 field, kernels vs twins' composition: cos {f_cos:.7f} (min "
+        f"{FIELD_MIN_COS}) rel_l2 {f_rel:.3e} (max {FIELD_MAX_REL_L2}) "
+        f"max_abs {f_abs:.3e}; twins with {BLOCK_CONTROLS[0]} vs twins: cos "
+        f"{c_cos:.7f} rel_l2 {c_rel:.3e}")
+    if not (f_cos >= FIELD_MIN_COS and f_rel <= FIELD_MAX_REL_L2):
+        problems.append("the int8 field disagrees with its twins' "
+                        "composition")
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
+def int8_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
+              lat_bf16, by_key):
+    """Phase 4b: the int8 W8A8 view's Euler-50 solve at batch 50."""
+    model = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="auto",
+                                   quant=True)
+    t_half = torch.full((B,), 0.5, device=dev)
+    with torch.no_grad():  # warm-up: quantizes every weight once
+        model(z, torch.zeros(B, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(attn, mlpk)
+    quant.reset_quantizations()
+    lat, secs = decode_run(torch, flow, model, z, STEPS)
+    launches = all_launches(attn, mlpk)
+    n_quant = quant.QUANTIZATIONS["weights"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n = (cfg["nnet"]["depth"] + 1) * STEPS
+    want = expected(attn, mlpk, ln_qkvproj_attention_int8=n, ln_mlp_int8=n)
+    max_abs, rel, cos = compare(torch, lat, lat_bf16)
+    log(f"int8 main path (quant=True, auto): {secs:.3f} s, {B / secs:.3f} "
+        f"img/s, launches {launches}, weight quantizations in the solve "
+        f"{n_quant}, peak {peak_gb:.2f} GiB; latents vs the bf16 kernel view: "
+        f"cos {cos:.7f} (min {QUANT_MIN_COS}) rel_l2 {rel:.3e} (max "
+        f"{QUANT_MAX_REL_L2})")
+    if launches != want:
+        fail(f"int8 main path launches {launches}, expected {want}")
+    if n_quant:
+        fail(f"{n_quant} weight quantizations inside the timed solve")
+    if tuple(lat.shape) != (B, 32, 32, 4) or not torch.isfinite(lat).all():
+        fail(f"int8 latents {tuple(lat.shape)} or not finite")
+    if not (cos >= QUANT_MIN_COS and rel <= QUANT_MAX_REL_L2):
+        fail("the int8 view fails the quality gate against bf16")
+    for k in ("ln_qkvproj_attention_int8", "ln_mlp_int8"):
+        by_key[k]["launches"] = launches[k]
+    return model, dict(
+        steps=STEPS, batch=B, seconds=secs, imgs_per_s=B / secs, cos=cos,
+        rel_l2=rel, max_abs=max_abs, launches=launches,
+        quantizations_in_solve=n_quant, peak_gib=peak_gb,
+        field_check=field_check(torch, model, z, t_half))
 
 
 def train_path(torch, attn, cfg, dev, by_key):
@@ -283,9 +694,9 @@ def train_path(torch, attn, cfg, dev, by_key):
     losses = [float(m["loss"]) for m in metrics]
     skips = sum(float(m["nonfinite_skip"]) for m in metrics)
     blocks = cfg["nnet"]["depth"] + 1
-    want = {"packed_attention": TRAIN_STEPS * (blocks + n_remat),
-            "packed_attention_bwd": TRAIN_STEPS * blocks,
-            "qkvproj_attention": 0, "ln_qkvproj_attention": 0}
+    want = dict.fromkeys(launches, 0)
+    want.update(packed_attention=TRAIN_STEPS * (blocks + n_remat),
+                packed_attention_bwd=TRAIN_STEPS * blocks)
     ips = TRAIN_B * TRAIN_STEPS / secs
     log(f"train (pallas_packed, batch {TRAIN_B}, remat_exempt {REMAT_EXEMPT}"
         f": {n_remat} of {blocks} blocks rematted): {TRAIN_STEPS} steps in "
@@ -331,13 +742,11 @@ def grad_agreement(torch, attn, cfg, dev):
         del model, gs, loss
     out = {}
     blocks = cfg["nnet"]["depth"] + 1
-    want = {"pallas_packed": {"packed_attention": 2 * blocks,
-                              "qkvproj_attention": 0,
-                              "ln_qkvproj_attention": 0,
-                              "packed_attention_bwd": blocks},
-            "auto": {"packed_attention": 0, "qkvproj_attention": 2 * blocks,
-                     "ln_qkvproj_attention": 0,
-                     "packed_attention_bwd": blocks}}
+    zero = dict.fromkeys(attn.LAUNCHES, 0)
+    want = {"pallas_packed": dict(zero, packed_attention=2 * blocks,
+                                  packed_attention_bwd=blocks),
+            "auto": dict(zero, qkvproj_attention=2 * blocks,
+                         packed_attention_bwd=blocks)}
     for impl, ref in (("pallas_packed", "xla"), ("auto", "pallas_packed")):
         _, rel, cos = compare(torch, grads[impl], grads[ref])
         log(f"gradient {impl} vs {ref} at batch {GRAD_B}: cos {cos:.7f} "
@@ -402,8 +811,9 @@ def main():
     from uspace_tpu_torch.cli import sample_lfm
     from uspace_tpu_torch.configs import get_config
     from uspace_tpu_torch.core import flow
-    from uspace_tpu_torch.ops import _build
+    from uspace_tpu_torch.ops import _build, quant
     from uspace_tpu_torch.ops import attention as attn
+    from uspace_tpu_torch.ops import mlp as mlpk
 
     report = {}
     # 1. the card
@@ -424,12 +834,13 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     _build.build()
-    _build.load("attention")
+    for name in _build.SIGNATURES:
+        _build.load(name)
     report["build_s"] = time.perf_counter() - t0
     log(f"built kernels in {report['build_s']:.1f} s")
 
     # 3. kernels vs twins
-    kernels = check_kernels(torch, F, attn)
+    kernels, report["controls"] = check_kernels(torch, F, attn, mlpk, quant)
     by_key = {k["name"]: k for k in kernels}
 
     # 4. the main path: U-ViT-large Euler-50 at batch 50
@@ -444,16 +855,16 @@ def main():
             m(z.to(torch.bfloat16), torch.zeros(B, device=dev))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    attn.reset_launches()
+    reset_launches(attn, mlpk)
     lat, secs = decode_run(torch, flow, model, z, STEPS)
-    launches = dict(attn.LAUNCHES)
+    launches = all_launches(attn, mlpk)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    expected = (cfg["nnet"]["depth"] + 1) * STEPS
+    n_main = (cfg["nnet"]["depth"] + 1) * STEPS
     log(f"main path (auto): {secs:.3f} s, {B / secs:.3f} img/s, launches "
         f"{launches}, peak {peak_gb:.2f} GiB")
-    if launches["qkvproj_attention"] != expected:
-        fail(f"qkvproj kernel launched {launches['qkvproj_attention']} times, "
-             f"expected {expected}")
+    if launches != expected(attn, mlpk, qkvproj_attention=n_main):
+        fail(f"main path launches {launches}, expected {n_main} of "
+             f"qkvproj_attention and no other")
     by_key["qkvproj_attention"]["launches"] = launches["qkvproj_attention"]
     lat_plain, secs_plain = decode_run(torch, flow, plain, z, STEPS)
     max_abs, rel, cos = compare(torch, lat, lat_plain)
@@ -470,45 +881,67 @@ def main():
         cos=cos, rel_l2=rel, max_abs=max_abs, launches=launches,
         peak_gib=peak_gb)
 
-    # 5. the other two kernel views, a few Euler steps each
-    ref_short, _ = decode_run(torch, flow, plain, z, SHORT_STEPS)
-    for impl, key in (("pallas_packed", "packed_attention"),
-                      ("pallas_lnmlp", "ln_qkvproj_attention")):
-        view = sample_lfm.build_model(cfg, dev, seed=0, attn_impl=impl)
-        view.load_state_dict(model.state_dict())
-        attn.reset_launches()
-        out, secs_v = decode_run(torch, flow, view, z, SHORT_STEPS)
-        n = attn.LAUNCHES[key]
-        _, rel_v, cos_v = compare(torch, out, ref_short)
-        want = (cfg["nnet"]["depth"] + 1) * SHORT_STEPS
-        log(f"{impl}: {SHORT_STEPS} Euler steps in {secs_v:.3f} s, {key} "
-            f"launches {n} (expected {want}), cos {cos_v:.7f} rel_l2 "
-            f"{rel_v:.3e}")
-        if n != want or sum(attn.LAUNCHES.values()) != n:
-            fail(f"{impl}: launches {dict(attn.LAUNCHES)}, expected {want} "
-                 f"of {key}")
-        if not (cos_v >= PATH_MIN_COS and rel_v <= PATH_MAX_REL_L2):
-            fail(f"{impl} disagrees with the plain path")
-        by_key[key]["launches"] = n
-        report[impl] = dict(steps=SHORT_STEPS, seconds=secs_v, cos=cos_v,
-                            rel_l2=rel_v, launches=n)
-        del view
-    del model, plain
+    # 4b. the int8 W8A8 view's main path
+    qmodel, report["int8_main_path"] = int8_path(
+        torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z, lat, by_key)
 
-    # 6. the sampling entry point
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        paths = sample_lfm.run(config="uvit_large", n_samples=2 * B, batch=B,
-                               steps=STEPS, seed=3, out=tmp)
-        secs_cli = time.perf_counter() - t0
-        arrays = [np.load(p) for p in paths]
-        shapes = [a.shape for a in arrays]
-        log(f"sample_lfm.run: {len(paths)} batches {shapes} in "
-            f"{secs_cli:.1f} s")
-        if shapes != [(B, 32, 32, 4)] * 2 or not all(
-                np.isfinite(a).all() for a in arrays):
-            fail(f"sample_lfm wrote {shapes}")
-    report["sample_lfm_seconds"] = secs_cli
+    # 5. the other kernel views, a few Euler steps each: bf16 views against
+    # the plain path's limits, int8 views against the quality gate
+    ref_short, _ = decode_run(torch, flow, plain, z, SHORT_STEPS)
+    per = (cfg["nnet"]["depth"] + 1) * SHORT_STEPS
+    skips = cfg["nnet"]["depth"] // 2
+    views = (
+        ("pallas_packed", False, dict(packed_attention=per)),
+        ("pallas_lnmlp", False, dict(ln_qkvproj_attention=per)),
+        ("pallas_qkvproj", True, dict(qkvproj_attention_int8=per,
+                                      mlp_int8=per)),
+        ("xla", True, dict(mlp_int8=per)),
+    )
+    for impl, q, counts in views:
+        src = qmodel if q else model
+        view = sample_lfm.build_model(cfg, dev, seed=0, attn_impl=impl,
+                                      quant=q)
+        view.load_state_dict(src.state_dict())
+        reset_launches(attn, mlpk)
+        out, secs_v = decode_run(torch, flow, view, z, SHORT_STEPS)
+        got = all_launches(attn, mlpk)
+        _, rel_v, cos_v = compare(torch, out, ref_short)
+        name = f"{impl}{' int8' if q else ''}"
+        min_cos, max_rel = ((QUANT_MIN_COS, QUANT_MAX_REL_L2) if q
+                            else (PATH_MIN_COS, PATH_MAX_REL_L2))
+        log(f"{name}: {SHORT_STEPS} Euler steps in {secs_v:.3f} s, launches "
+            f"{got} (expected {counts}), cos {cos_v:.7f} rel_l2 {rel_v:.3e} "
+            f"against the plain path ({skips} int8 skip_linear layers per "
+            f"evaluation when quantized)")
+        if got != expected(attn, mlpk, **counts):
+            fail(f"{name}: launches {got}, expected {counts}")
+        if not (cos_v >= min_cos and rel_v <= max_rel):
+            fail(f"{name} disagrees with the plain path")
+        for k, n in counts.items():
+            if by_key[k]["launches"] < 1:
+                by_key[k]["launches"] = n
+        report[name.replace(" ", "_")] = dict(
+            steps=SHORT_STEPS, seconds=secs_v, cos=cos_v, rel_l2=rel_v,
+            launches=counts)
+        del view
+    del model, plain, qmodel
+
+    # 6. the sampling entry point, bf16 and int8 views
+    for q in (None, True):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            paths = sample_lfm.run(config="uvit_large", n_samples=2 * B,
+                                   batch=B, steps=STEPS, seed=3, out=tmp,
+                                   quant=q)
+            secs_cli = time.perf_counter() - t0
+            arrays = [np.load(p) for p in paths]
+            shapes = [a.shape for a in arrays]
+            log(f"sample_lfm.run (quant={q}): {len(paths)} batches {shapes} "
+                f"in {secs_cli:.1f} s")
+            if shapes != [(B, 32, 32, 4)] * 2 or not all(
+                    np.isfinite(a).all() for a in arrays):
+                fail(f"sample_lfm (quant={q}) wrote {shapes}")
+        report["sample_lfm_seconds" + ("_int8" if q else "")] = secs_cli
 
     # 7. the training path
     report["train"] = train_path(torch, attn, cfg, dev, by_key)

@@ -201,9 +201,11 @@ def test_gelu_matches_jax_polynomial():
 def test_unported_paths_raise():
     a = _inputs()
     x, w = torch.from_numpy(a["x"]), torch.from_numpy(a["w"])
-    with pytest.raises(NotImplementedError, match="int8"):
+    # the int8 kernels are ported but inference-only, as in the JAX package
+    w.requires_grad_()
+    with pytest.raises(NotImplementedError, match="inference-only"):
         tattn.fused_qkvproj_attention(x, w, H, quant=True)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(NotImplementedError, match="inference-only"):
         tattn.fused_ln_qkvproj_attention(x, x[0, 0], x[0, 0], w, H,
                                          quant=True)
     q = torch.zeros(1, H, 8, 16)
@@ -246,15 +248,16 @@ def test_kernel_input_checks():
         tattn.fused_qkv_attention(torch.zeros(1, 4, 3 * 64, device="meta"), 1)
     w = torch.zeros(2, requires_grad=True)
     with pytest.raises(NotImplementedError, match="inference-only"):
-        tattn._check_no_grad(ok, w)
+        _build.check_no_grad(ok, w, what="the LN kernel")
     with torch.no_grad():
-        tattn._check_no_grad(ok, w)
+        _build.check_no_grad(ok, w, what="the LN kernel")
 
 
 def test_ctypes_signatures_match_c_source():
     """Each declared argtypes list has one entry per C parameter, pointers
     as c_void_p (a 32-bit default would cut a pointer)."""
-    assert set(_build.SIGNATURES) == {"attention", "attention_bwd"}
+    assert set(_build.SIGNATURES) == {"attention", "attention_bwd",
+                                      "mlp_int8"}
     for name, sigs in _build.SIGNATURES.items():
         src = (_build.CSRC / f"{name}.cu").read_text()
         for fn, argtypes in sigs.items():

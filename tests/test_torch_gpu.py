@@ -5,19 +5,28 @@ without one. Run on a machine with an H100: ``python -m pytest -m gpu
 --noconftest tests/test_torch_gpu.py``. Kernel and twin share every
 rounding site, so they differ only where an f32 sum in another order flips
 a bf16 rounding: max-abs 1e-2 and rel-L2 2e-3 for the forward kernels, and
-the backward kernel's limits of chip_smoke.py.
+the backward kernel's limits of chip_smoke.py. The int8 kernels may also
+flip an int8 code by one step where an f32 sum (LN statistics) runs in
+another order: max-abs one bf16 step of the largest output value, and the
+int8 rel-L2 limits of chip_smoke.py, taken for the MLP sub-block on out - x
+(the residual would dilute an error of the MLP).
 """
+
+import math
 
 import pytest
 import torch
 
 from uspace_tpu_torch.models import UViT
 from uspace_tpu_torch.ops import attention as attn
+from uspace_tpu_torch.ops import mlp
+from uspace_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.gpu
 
 MAX_ABS, REL_L2 = 1e-2, 2e-3
 BWD_MAX_ABS, BWD_REL_L2 = 5e-3, 5e-4
+INT8_ATTN_REL_L2, INT8_MLP_REL_L2 = 5e-4, 1e-4
 
 
 @pytest.fixture
@@ -37,6 +46,21 @@ def _agree(out, ref, max_abs=MAX_ABS, rel_l2=REL_L2):
     assert torch.isfinite(a).all()
     assert float((a - b).abs().max()) <= max_abs
     assert float((a - b).norm() / b.norm()) <= rel_l2
+
+
+def _agree_int8(out, ref, rel_l2, x=None):
+    """The int8 limits: max-abs one bf16 step of max|ref|, rel-L2 of the
+    kernel's part (``out - x`` where a residual x is given)."""
+    a, b = out.double(), ref.double()
+    assert torch.isfinite(a).all()
+    top = float(b.abs().max())
+    step = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    err = float((a - b).abs().max())
+    assert err <= step, (err, step)
+    if x is not None:
+        a, b = a - x.double(), b - x.double()
+    rel = float((a - b).norm() / b.norm()) if b.norm() > 0 else 0.0
+    assert rel <= rel_l2, rel
 
 
 @pytest.mark.parametrize("b,l,h", [(2, 17, 4), (3, 257, 16), (2, 334, 16),
@@ -98,7 +122,9 @@ def test_wrappers_count_launches_and_refuse(cuda):
     torch.cuda.synchronize()
     assert attn.LAUNCHES == {"packed_attention": 1, "qkvproj_attention": 1,
                              "ln_qkvproj_attention": 0,
-                             "packed_attention_bwd": 1}
+                             "packed_attention_bwd": 1,
+                             "qkvproj_attention_int8": 0,
+                             "ln_qkvproj_attention_int8": 0}
     with pytest.raises(ValueError, match="bfloat16"):
         attn.fused_qkvproj_attention(x.float(), w, 2)
     with pytest.raises(ValueError, match="L <="):
@@ -156,3 +182,117 @@ def test_uvit_kernel_gradients_match_plain(cuda):
     for impl in ("pallas_packed", "auto"):
         rel = float((grads[impl] - ref).norm() / ref.norm())
         assert rel < 2e-2, (impl, rel)
+
+
+@pytest.mark.parametrize("b,l,h", [(2, 17, 4), (3, 257, 16), (2, 334, 16),
+                                   (1, 512, 2), (1, 1, 1)])
+def test_int8_attention_kernels_match_twins(cuda, b, l, h):
+    g = torch.Generator(device=cuda).manual_seed(l + 2)
+    c = 64 * h
+    x = _rand(g, b, l, c)
+    w = _rand(g, c, 3 * c, std=c ** -0.5, dtype=torch.float32)
+    lns = 1 + _rand(g, c, std=0.1, dtype=torch.float32)
+    lnb = _rand(g, c, std=0.1, dtype=torch.float32)
+    qw = quant.quantized_weight(w)
+    with torch.no_grad():
+        _agree_int8(attn.fused_qkvproj_attention(x, w, h, quant=True),
+                    attn.qkvproj_attention_int8_plain(x, qw, h, 0.125),
+                    INT8_ATTN_REL_L2)
+        _agree_int8(attn.fused_ln_qkvproj_attention(x, lns, lnb, w, h,
+                                                    quant=True),
+                    attn.ln_qkvproj_attention_int8_plain(x, lns, lnb, qw, h,
+                                                         0.125, 1e-5),
+                    INT8_ATTN_REL_L2)
+
+
+@pytest.mark.parametrize("rows,c", [(1, 1024), (33, 256), (500, 512),
+                                    (12850, 1024)])
+def test_int8_mlp_kernels_match_twins(cuda, rows, c):
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    hid = 4 * c
+    x = _rand(g, rows, c)
+    w1 = _rand(g, c, hid, std=0.02, dtype=torch.float32)
+    b1 = _rand(g, hid, std=0.02, dtype=torch.float32)
+    w2 = _rand(g, hid, c, std=0.02, dtype=torch.float32)
+    b2 = _rand(g, c, std=0.02, dtype=torch.float32)
+    lns = 1 + _rand(g, c, std=0.1, dtype=torch.float32)
+    lnb = _rand(g, c, std=0.1, dtype=torch.float32)
+    q1, q2 = quant.quantized_weight(w1), quant.quantized_weight(w2)
+    s = mlp.col_slices(hid)
+    with torch.no_grad():
+        _agree_int8(mlp.fused_mlp(x, w1, b1, w2, b2),
+                    mlp.mlp_int8_plain(x, q1, b1, q2, b2, s), INT8_MLP_REL_L2)
+        _agree_int8(mlp.fused_mlp_block_q(x, lns, lnb, w1, b1, w2, b2),
+                    mlp.ln_mlp_int8_plain(x, lns, lnb, q1, b1, q2, b2, s,
+                                          1e-5), INT8_MLP_REL_L2, x)
+
+
+def test_int_mm_is_exact(cuda):
+    """torch._int_mm (int8_dense on the card) against the exact f64
+    product, in the one layout it is given."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    a = torch.randint(-127, 128, (300, 1024), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (2048, 1024), generator=g, device=cuda,
+                      dtype=torch.int8)
+    exact = torch.matmul(a.double(), w.t().double()).to(torch.int32)
+    assert torch.equal(quant.int_matmul(a, w.t()), exact)
+    part = torch.matmul(a[:, :512].double(), w[:, 512:].t().double())
+    assert torch.equal(quant.int_matmul(a[:, :512], w[:, 512:].t()),
+                       part.to(torch.int32))
+
+
+def test_int8_wrappers_count_launches_and_refuse(cuda):
+    attn.reset_launches()
+    mlp.reset_launches()
+    x = torch.zeros(1, 8, 256, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(256, 768, device=cuda)
+    with torch.no_grad():
+        attn.fused_qkvproj_attention(x, w, 4, quant=True)
+        attn.fused_ln_qkvproj_attention(x, torch.ones(256, device=cuda),
+                                        torch.zeros(256, device=cuda), w, 4,
+                                        quant=True)
+        w1 = torch.zeros(256, 1024, device=cuda)
+        w2 = torch.zeros(1024, 256, device=cuda)
+        bb = torch.zeros(1024, device=cuda)
+        mlp.fused_mlp(x, w1, bb, w2, bb[:256])
+        mlp.fused_mlp_block_q(x, bb[:256] + 1, bb[:256], w1, bb, w2, bb[:256])
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES["qkvproj_attention_int8"] == 1
+    assert attn.LAUNCHES["ln_qkvproj_attention_int8"] == 1
+    assert mlp.LAUNCHES == {"mlp_int8": 1, "ln_mlp_int8": 1}
+    with pytest.raises(ValueError, match="bfloat16"):
+        with torch.no_grad():
+            mlp.fused_mlp(x.float(), w1, bb, w2, bb[:256])
+    with pytest.raises(ValueError, match="multiple of 256"):
+        with torch.no_grad():
+            mlp.fused_mlp(x, w1, bb, w2[:, :200], bb[:200])
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        attn.fused_qkvproj_attention(x, w.requires_grad_(), 4, quant=True)
+
+
+def test_uvit_int8_auto_routes_through_the_lnfused_kernels(cuda):
+    """The int8 view's `auto` on the card: LN-fused route, rows 5 and 15,
+    one weight quantization per weight value."""
+    cfg = dict(img_size=8, patch_size=2, in_chans=4, embed_dim=256, depth=2,
+               num_heads=4, dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = UViT(quant=True, **cfg).init_weights(g).eval()
+    plain = UViT(attn_impl="xla", param_dtype=torch.float32, **cfg).eval()
+    plain.load_state_dict(q.state_dict())
+    x = torch.randn(4, 8, 8, 4, generator=g, device=cuda)
+    t = torch.full((4,), 0.5, device=cuda)
+    attn.reset_launches()
+    mlp.reset_launches()
+    with torch.no_grad():
+        a, _ = q(x, t)
+        quant.reset_quantizations()
+        a2, _ = q(x, t)
+        b, _ = plain(x, t)
+    assert quant.QUANTIZATIONS["weights"] == 0
+    assert torch.equal(a, a2)
+    assert attn.LAUNCHES["ln_qkvproj_attention_int8"] == 6
+    assert mlp.LAUNCHES["ln_mlp_int8"] == 6
+    assert sum(attn.LAUNCHES.values()) == 6 and mlp.LAUNCHES["mlp_int8"] == 0
+    af, bf = a.float(), b.float()
+    assert float((af * bf).sum() / (af.norm() * bf.norm())) > 0.99

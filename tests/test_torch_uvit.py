@@ -172,9 +172,10 @@ def test_layer_helpers_match_jax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="int8"):
-        UViT(quant=True, device="cpu", **_cfg("uncond"))
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(NotImplementedError, match="kernel 11"):
+        UViT(quant=True, attn_impl="pallas_block", device="cpu",
+             **_cfg("uncond"))
+    with pytest.raises(NotImplementedError, match="kernels 16-17"):
         tlayers.Block(64, 4, quant="w8")
     with pytest.raises(NotImplementedError):
         get_nnet("unet_t2i")

@@ -4,13 +4,18 @@ version of that source.
 Builds ``--base`` (a ``<source>.cu`` with the same C interface, e.g. from
 ``git archive`` of the parent commit) beside this checkout's
 ``ops/csrc/<source>.cu`` and times each of its kernels at its path's shapes
-(``attention``: the three sampling kernels at B=50; ``attention_bwd``: the
-backward at B=128; L=257, C=1024, H=16, bf16) with CUDA events, the two
-builds alternating base, new, new, base, ... on one card. Needs a CUDA card.
+(``attention``: the bf16 and int8 sampling kernels at B=50;
+``attention_bwd``: the backward at B=128; L=257, C=1024, H=16, bf16;
+``mlp_int8``: the int8 MLP kernels on the 12850 rows of B=50, hidden 4096)
+with CUDA events, the two builds alternating base, new, new, base, ... on
+one card. A base source that lacks an entry point skips its kernel. Needs a
+CUDA card.
 
     python -m uspace_tpu_torch.cli.kernel_ab --base old/attention.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source attention_bwd \
         --base old/attention_bwd.cu
+    python -m uspace_tpu_torch.cli.kernel_ab --source mlp_int8 \
+        --base old/mlp_int8.cu
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import subprocess
 import torch
 
 from ..ops import _build
+from ..ops.quant import quantized_weight
 
 B, L, C, H = 50, 257, 1024, 16
 TRAIN_B = 128
@@ -33,6 +39,8 @@ def _load(source: str, path: str, out: str) -> ctypes.CDLL:
                    check=True)
     lib = ctypes.CDLL(out)
     for fn, argtypes in _build.SIGNATURES[source].items():
+        if not hasattr(lib, fn):
+            continue
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
@@ -68,6 +76,19 @@ def main(argv=None) -> None:
     do_t = torch.randn(TRAIN_B, L, C, generator=g, device=dev).to(bf)
     dqkv = torch.empty_like(qkv_t)
     stats = torch.empty(TRAIN_B * H * 3 * L, device=dev)
+    q = quantized_weight(
+        (torch.randn(3 * C, C, generator=g, device=dev) * 0.02).t())
+    rows, hid = B * L, 4 * C
+    q1 = quantized_weight(
+        (torch.randn(hid, C, generator=g, device=dev) * 0.02).t())
+    q2 = quantized_weight(
+        (torch.randn(C, hid, generator=g, device=dev) * 0.02).t())
+    b1 = 0.02 * torch.randn(hid, generator=g, device=dev)
+    b2 = 0.02 * torch.randn(C, generator=g, device=dev)
+    cs = q2.colsums(4)
+    mw = (q1.q.data_ptr(), q1.scale.data_ptr(), b1.data_ptr(),
+          q2.q.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(), cs.data_ptr(),
+          out.data_ptr(), rows, C, hid, C, 4)
     s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     calls = {
         "packed_attention": lambda lib: lib.uspace_packed_attention(
@@ -80,9 +101,20 @@ def main(argv=None) -> None:
         "packed_attention_bwd": lambda lib: lib.uspace_packed_attention_bwd(
             qkv_t.data_ptr(), do_t.data_ptr(), dqkv.data_ptr(),
             stats.data_ptr(), TRAIN_B, L, H, 0.125, s),
+        "qkvproj_attention_int8": lambda lib: lib.uspace_qkvproj_attention_int8(
+            x.data_ptr(), q.q.data_ptr(), q.scale.data_ptr(), out.data_ptr(),
+            B, L, H, 0.125, s),
+        "ln_qkvproj_attention_int8":
+            lambda lib: lib.uspace_ln_qkvproj_attention_int8(
+                x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), q.q.data_ptr(),
+                q.scale.data_ptr(), out.data_ptr(), B, L, H, 0.125, 1e-5, s),
+        "mlp_int8": lambda lib: lib.uspace_mlp_int8(x.data_ptr(), *mw, s),
+        "ln_mlp_int8": lambda lib: lib.uspace_ln_mlp_int8(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *mw, 1e-5, s),
     }
     calls = {k: f for k, f in calls.items()
-             if f"uspace_{k}" in _build.SIGNATURES[a.source]}
+             if f"uspace_{k}" in _build.SIGNATURES[a.source]
+             and hasattr(libs["base"], f"uspace_{k}")}
 
     def time_ms(call, lib):
         for _ in range(3):

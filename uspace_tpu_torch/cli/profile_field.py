@@ -9,10 +9,12 @@ difference is the device's idle share). With ``--train`` it traces
 ``--evals`` train steps instead (f32 master weights, ``--attn_impl``
 default pallas_packed, ``--remat_exempt`` blocks exempt from remat, the
 JAX bench's optimizer) and also reports peak device memory and img/s.
-Needs a CUDA card.
+``--quant`` profiles the int8 W8A8 sampling view (f32 weights, quantized
+once in the warm-up). Needs a CUDA card.
 
     python -m uspace_tpu_torch.cli.profile_field --config uvit_large \\
         --batch 50 --attn_impl auto --out profile_field.json
+    python -m uspace_tpu_torch.cli.profile_field --quant --out q.json
     python -m uspace_tpu_torch.cli.profile_field --train --batch 128 \\
         --remat_exempt 21 --out profile_train.json
 """
@@ -36,6 +38,8 @@ GROUPS = (
     ("attention backward kernels (ours)", ("bwd_dq_kernel",
                                            "bwd_dkdv_kernel")),
     ("attention kernel (ours)", ("attention_kernel",)),
+    ("int8 attention kernel (ours)", ("attention_int8_kernel",)),
+    ("int8 MLP kernel (ours)", ("mlp_int8_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet")),
     ("conv (cuDNN)", ("conv", "Conv", "cudnn")),
     ("softmax", ("softmax", "Softmax")),
@@ -52,9 +56,9 @@ def _group(name: str) -> str:
     return "other"
 
 
-def _field_fn(cfg, dev, batch, attn_impl, seed):
+def _field_fn(cfg, dev, batch, attn_impl, seed, quant=None):
     """One sampling-field evaluation, without autograd."""
-    model = build_model(cfg, dev, seed, attn_impl=attn_impl)
+    model = build_model(cfg, dev, seed, attn_impl=attn_impl, quant=quant)
     c, h, w = cfg["z_shape"]
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     x = torch.randn((batch, h, w, c), generator=g, device=dev)
@@ -89,13 +93,14 @@ def _train_fn(cfg, dev, batch, attn_impl, seed, remat_exempt):
 
 def profile(config: str = "uvit_large", batch: int = 50, evals: int = 3,
             attn_impl: str = "auto", seed: int = 0, device=None,
-            train: bool = False, remat_exempt: int = 0) -> dict:
+            train: bool = False, remat_exempt: int = 0,
+            quant=None) -> dict:
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("profile_field measures the card; it needs CUDA")
     cfg = get_config(config)
     fn = (_train_fn(cfg, dev, batch, attn_impl, seed, remat_exempt) if train
-          else _field_fn(cfg, dev, batch, attn_impl, seed))
+          else _field_fn(cfg, dev, batch, attn_impl, seed, quant))
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -120,7 +125,8 @@ def profile(config: str = "uvit_large", batch: int = 50, evals: int = 3,
         groups[_group(name)] += ms
     busy = sum(groups.values())
     return dict(
-        config=config, batch=batch, attn_impl=attn_impl, evals=evals,
+        config=config, batch=batch, attn_impl=attn_impl, quant=quant,
+        evals=evals,
         train=train, remat_exempt=remat_exempt if train else None,
         card=torch.cuda.get_device_name(0), wall_ms_per_eval=wall * 1e3,
         imgs_per_s=batch / wall,
@@ -144,13 +150,16 @@ def main(argv=None) -> None:
     ap.add_argument("--train", action="store_true",
                     help="trace train steps instead of field evaluations")
     ap.add_argument("--remat_exempt", type=int, default=0)
+    ap.add_argument("--quant", nargs="?", const="w8a8", default=None,
+                    choices=["w8a8", "w8a8_mlp"],
+                    help="profile the int8 sampling view (flag: w8a8)")
     ap.add_argument("--out", default="")
     a = ap.parse_args(argv)
     impl = a.attn_impl or ("pallas_packed" if a.train else "auto")
     rep = profile(a.config, a.batch, a.evals, impl, train=a.train,
-                  remat_exempt=a.remat_exempt)
+                  remat_exempt=a.remat_exempt, quant=a.quant)
     what = (f"train step, remat_exempt {a.remat_exempt}" if a.train
-            else "field evaluation")
+            else f"field evaluation, quant={a.quant}")
     print(f"{rep['card']}: {rep['config']} batch {rep['batch']} "
           f"attn_impl={rep['attn_impl']} ({what}): wall "
           f"{rep['wall_ms_per_eval']:.2f} ms/eval, device "

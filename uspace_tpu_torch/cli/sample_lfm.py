@@ -4,10 +4,14 @@ The no-VAE branch of ``uspace_tpu/cli/sample_lfm.py``: noise goes through
 ``core.flow.decode`` with fixed-step Euler and each mini-batch of raw
 latents ([n, 32, 32, 4] f32, NHWC) is written to ``<out>/<first index>.npy``.
 Without ``--weights`` the field has seeded random weights; ``--weights``
-takes an ``.npz`` of JAX params keyed ``a/b/c``.
+takes an ``.npz`` of JAX params keyed ``a/b/c``. ``--quant`` samples with
+the int8 W8A8 view of the same weights (``w8a8``, the default of the flag,
+or ``w8a8_mlp``), as the config's ``nnet.quant`` does.
 
     python -m uspace_tpu_torch.cli.sample_lfm --config uvit_large \\
         --n_samples 100 --batch 50 --steps 50 --seed 0 --out samples
+    python -m uspace_tpu_torch.cli.sample_lfm --config synthetic_smoke \\
+        --quant --device cpu --n_samples 4 --batch 4 --out /tmp/q
 """
 
 from __future__ import annotations
@@ -28,11 +32,18 @@ from ..models import get_nnet
 
 
 def build_model(config: dict, device: torch.device, seed: int = 0,
-                weights: Optional[str] = None, attn_impl: str = "auto"):
+                weights: Optional[str] = None, attn_impl: str = "auto",
+                quant=None):
     """The config's field in its compute dtype, from JAX weights or seeded
-    random init."""
+    random init. ``quant`` (default: the config's ``nnet.quant``) picks a
+    quantized view; such a view keeps f32 parameters, on which its int8
+    scales are fitted, as in the JAX package."""
     nnet = dict(config["nnet"])
     name = nnet.pop("name")
+    if quant is not None:
+        nnet["quant"] = quant
+    if nnet.get("quant"):
+        nnet["param_dtype"] = torch.float32
     dtype = getattr(torch, config.get("compute_dtype", "float32"))
     model = get_nnet(name, dtype=dtype, attn_impl=attn_impl, device=device,
                      **nnet)
@@ -47,11 +58,11 @@ def build_model(config: dict, device: torch.device, seed: int = 0,
 @torch.no_grad()
 def run(config: str = "uvit_large", n_samples: int = 100, batch: int = 50,
         steps: int = 50, seed: int = 0, weights: Optional[str] = None,
-        out: str = "samples", device=None) -> List[str]:
+        out: str = "samples", device=None, quant=None) -> List[str]:
     """Write ceil(n_samples / batch) latent batches; returns their paths."""
     dev = resolve_device(device)
     cfg = get_config(config)
-    model = build_model(cfg, dev, seed, weights)
+    model = build_model(cfg, dev, seed, weights, quant=quant)
     sk = solver_kwargs(cfg, steps)
     c, h, w = cfg["z_shape"]
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -79,9 +90,12 @@ def main(argv=None) -> None:
                     help=".npz of JAX U-ViT params (keys a/b/c)")
     ap.add_argument("--out", default="samples")
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--quant", nargs="?", const="w8a8", default=None,
+                    choices=["w8a8", "w8a8_mlp"],
+                    help="int8 sampling view (default of the flag: w8a8)")
     a = ap.parse_args(argv)
     paths = run(a.config, a.n_samples, a.batch, a.steps, a.seed, a.weights,
-                a.out, a.device)
+                a.out, a.device, a.quant)
     print(f"wrote {len(paths)} batches to {a.out}")
 
 

@@ -17,7 +17,8 @@ def uvit_nnet(embed_dim: int = 512, depth: int = 16, num_heads: int = 8,
     cfg = dict(name="uvit", img_size=32, patch_size=2, in_chans=4,
                embed_dim=embed_dim, depth=depth, num_heads=num_heads,
                mlp_ratio=4.0, qkv_bias=False, mlp_time_embed=False,
-               num_classes=-1, use_checkpoint=True, remat_exempt=0)
+               num_classes=-1, use_checkpoint=True, remat_exempt=0,
+               quant=False)
     cfg.update(kw)
     return cfg
 

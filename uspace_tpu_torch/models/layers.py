@@ -12,6 +12,17 @@ given; f32 master weights for training) and casts its input, weight and
 bias to ``dtype`` at each call (Flax's ``promote_dtype``), so no f32 copy
 of an activation is made and the gradient reaches the master weight
 through the cast. LayerNorm keeps f32 parameters and f32 statistics.
+
+Quantized sampling views (``quant``, the JAX package's ``_qmodes``):
+``True``/``"w8a8"`` runs int8 W8A8 on the block matmuls (qkv, proj, MLP,
+skip_linear) where the JAX package does, ``"w8a8_mlp"`` on the MLP only.
+The param tree is the bf16 view's, so one checkpoint loads into every
+view; the int8 layers quantize their f32 weights once per weight value
+(``ops/quant.quantized_weight``). ``Block`` follows the JAX routing
+(``uspace_tpu/models/layers.py:364-518``), including its less obvious
+choices: the unfused attention keeps bf16 qkv and proj, ``pallas_packed``
+keeps a bf16 qkv but an int8 proj, and ``w8a8_mlp`` on the LN-fused route
+pairs the bf16 LN kernel with the int8 MLP sub-block.
 """
 
 from __future__ import annotations
@@ -29,20 +40,32 @@ from ..ops.attention import (
     fused_qkvproj_attention,
     multi_head_attention,
 )
-from ..ops.mlp import gelu_exact
+from ..ops.mlp import fused_mlp, fused_mlp_block_q, gelu_exact
+from ..ops.quant import int8_dense
 
 # torch defaults the reference relies on: LayerNorm eps=1e-5, exact GELU
 LN_EPS = 1e-5
 
 ATTN_IMPLS = ("auto", "xla", "pallas_qkvproj", "pallas_packed",
               "pallas_lnmlp")
-_UNPORTED_QUANT = ("quantized views (quant != False) come with the int8 "
-                   "slice; only the bf16/f32 field is ported")
+QUANT_VIEWS = (False, True, "w8a8", "w8", "w8a8_mlp")
+_UNPORTED_W8 = ("the weight-only int8 view (quant='w8': kernels 16-17 of the "
+                "kernel table, _mlp_kernel_w8_lnres / _mlp_kernel_w8) is not "
+                "ported yet")
+_UNPORTED_BLOCK_Q = ("attn_impl='pallas_block' with the W8A8 view needs the "
+                     "int8 whole-sub-block kernel (kernel 11 of the kernel "
+                     "table, _attn_block_kernel_q), not ported yet")
 
 
-def check_quant(quant) -> None:
-    if quant is not False:
-        raise NotImplementedError(_UNPORTED_QUANT)
+def _qmodes(quant) -> tuple:
+    """``(w8a8, a8mlp)`` of the ``quant`` view flag
+    (``uspace_tpu/models/layers.py:189-204``); the ``"w8"`` view raises."""
+    if not any(quant is v or (isinstance(v, str) and quant == v)
+               for v in QUANT_VIEWS):
+        raise ValueError(f"unknown quant view {quant!r}")
+    if quant == "w8":
+        raise NotImplementedError(_UNPORTED_W8)
+    return (quant is True or quant == "w8a8"), quant == "w8a8_mlp"
 
 
 def _fused_ok(x: torch.Tensor) -> bool:
@@ -92,18 +115,26 @@ def _cast(t: Optional[torch.Tensor], dtype: torch.dtype):
 
 class Dense(nn.Linear):
     """``nn.Linear`` with parameters in ``param_dtype`` that computes in
-    ``dtype``."""
+    ``dtype``; with ``quant=True`` the JAX package's ``Int8Dense`` (same
+    parameters, W8A8 through :func:`int8_dense`)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32, param_dtype=None,
-                 device=None):
+                 device=None, quant: bool = False):
         super().__init__(in_features, out_features, bias=bias,
                          dtype=param_dtype or dtype, device=device)
         self.dtype = dtype
+        self.quant = quant
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant:
+            return self.int8(x)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
                         _cast(self.bias, self.dtype))
+
+    def int8(self, x: torch.Tensor) -> torch.Tensor:
+        """W8A8 ``x @ W + b`` in ``dtype`` (x row-quantized as it comes)."""
+        return int8_dense(x, self.weight.t(), self.bias, out_dtype=self.dtype)
 
 
 class Conv2d(nn.Conv2d):
@@ -156,19 +187,26 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Transformer MLP: fc1 -> exact GELU -> fc2."""
+    """Transformer MLP: fc1 -> exact GELU -> fc2; any quantized view runs
+    the fused int8 MLP (``ops.mlp.fused_mlp``)."""
 
     def __init__(self, in_features: int, hidden_dim: int,
                  out_dim: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, quant=False,
                  param_dtype=None, device=None):
         super().__init__()
-        check_quant(quant)
+        _qmodes(quant)
+        self.quant = bool(quant)
+        self.dtype = dtype
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.fc1 = Dense(in_features, hidden_dim, **kw)
         self.fc2 = Dense(hidden_dim, out_dim or in_features, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant:
+            return fused_mlp(x.to(self.dtype), self.fc1.weight.t(),
+                             self.fc1.bias, self.fc2.weight.t(),
+                             self.fc2.bias, quant=True)
         return self.fc2(gelu_exact(self.fc1(x)))
 
 
@@ -181,7 +219,7 @@ class Attention(nn.Module):
                  attn_impl: str = "auto", quant=False, param_dtype=None,
                  device=None):
         super().__init__()
-        check_quant(quant)
+        self.w8a8 = _qmodes(quant)[0]
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         self.num_heads = num_heads
@@ -201,12 +239,19 @@ class Attention(nn.Module):
         if use_fused:
             if not self.qkv_bias and self.attn_impl != "pallas_packed":
                 # QKV projection inside the kernel; weight.t() is the JAX
-                # [C, 3C] layout and costs no copy
-                out = fused_qkvproj_attention(
-                    x.to(self.qkv.dtype), self.qkv.weight.t(), h, self.scale)
+                # [C, 3C] layout and costs no copy. The int8 kernel fits its
+                # scales on the f32 weight, as the JAX package does.
+                if self.w8a8:
+                    out = fused_qkvproj_attention(
+                        x, self.qkv.weight.t(), h, self.scale, quant=True)
+                else:
+                    out = fused_qkvproj_attention(
+                        x.to(self.qkv.dtype), self.qkv.weight.t(), h,
+                        self.scale)
             else:
                 out = fused_qkv_attention(self.qkv(x), h, self.scale)
-            return self.proj(out)
+            return self.proj.int8(out) if self.w8a8 else self.proj(out)
+        # the unfused route keeps bf16 qkv and proj in every view (JAX too)
         qkv = self.qkv(x).reshape(b, l, 3, h, c // h).permute(2, 0, 3, 1, 4)
         out = multi_head_attention(qkv[0], qkv[1], qkv[2], scale=self.scale,
                                    impl=self.attn_impl)
@@ -222,31 +267,58 @@ class Block(nn.Module):
                  attn_impl: str = "auto", quant=False, param_dtype=None,
                  device=None):
         super().__init__()
-        check_quant(quant)
+        self.w8a8, self.a8mlp = _qmodes(quant)
+        if self.w8a8 and attn_impl == "pallas_block":
+            raise NotImplementedError(_UNPORTED_BLOCK_Q)
+        self.quant = bool(quant)
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.dtype = dtype
         self.attn_impl = attn_impl
         self.qkv_bias = qkv_bias
-        self.skip_linear = Dense(2 * dim, dim, **kw) if skip else None
+        self.skip_linear = (Dense(2 * dim, dim, quant=self.w8a8, **kw)
+                            if skip else None)
         self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
-                              qk_scale=qk_scale, attn_impl=attn_impl, **kw)
+                              qk_scale=qk_scale, attn_impl=attn_impl,
+                              quant=quant, **kw)
         self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), **kw)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), quant=quant, **kw)
+
+    def _mlp_block_q(self, x: torch.Tensor) -> torch.Tensor:
+        """x + MLP(LN2(x)) in one int8 kernel (``fused_mlp_block_q``)."""
+        return fused_mlp_block_q(
+            x, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight.t(),
+            self.mlp.fc1.bias, self.mlp.fc2.weight.t(), self.mlp.fc2.bias,
+            eps=self.norm2.eps, quant=True)
 
     def forward(self, x: torch.Tensor,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.skip_linear is not None:
             x = self.skip_linear(torch.cat([x, skip], dim=-1))
-        if self.attn_impl == "pallas_lnmlp" and not self.qkv_bias:
-            # LN1 folds into the attention kernel; LN2 feeds the plain MLP
+        # LN-fused route: explicit, or `auto` for a quantized view on the
+        # card (the JAX package's int8 view on its accelerator)
+        lnfused = (self.attn_impl == "pallas_lnmlp" or (
+            self.quant and self.attn_impl == "auto" and _fused_ok(x))) \
+            and not self.qkv_bias
+        if lnfused:
+            # LN1 folds into the attention kernel
             a = fused_ln_qkvproj_attention(
                 x.to(self.dtype), self.norm1.weight, self.norm1.bias,
                 self.attn.qkv.weight.t(), self.attn.num_heads,
-                scale=self.attn.scale, eps=self.norm1.eps)
+                scale=self.attn.scale, eps=self.norm1.eps, quant=self.w8a8)
+            if self.w8a8:
+                x = x + self.attn.proj.int8(a).to(x.dtype)
+                return self._mlp_block_q(x)
             x = x + self.attn.proj(a).to(x.dtype)
-        else:
-            x = x + self.attn(self.norm1(x))
+            if self.a8mlp:
+                return self._mlp_block_q(x)
+            return x + self.mlp(self.norm2(x))  # bf16: LN2 feeds the plain MLP
+        x = x + self.attn(self.norm1(x))
+        if self.quant and self.attn_impl == "pallas_lnmlp":
+            # reached with qkv_bias; the JAX package sends w8a8_mlp to "w8"
+            if not self.w8a8:
+                raise NotImplementedError(_UNPORTED_W8)
+            return self._mlp_block_q(x)
         return x + self.mlp(self.norm2(x))
 
 

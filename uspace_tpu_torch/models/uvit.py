@@ -29,7 +29,7 @@ from .layers import (
     Embedding,
     LayerNorm,
     PatchEmbed,
-    check_quant,
+    _qmodes,
     timestep_embedding,
     unpatchify,
 )
@@ -72,7 +72,11 @@ class UViT(nn.Module):
         device=None,
     ):
         super().__init__()
-        check_quant(quant)
+        _qmodes(quant)
+        if quant and param_dtype is None:
+            # int8 scales are fitted on f32 weights, as the JAX package's
+            param_dtype = torch.float32
+        self.quant = quant
         self.img_size = img_size
         self.patch_size = patch_size
         self.in_chans = in_chans
@@ -101,7 +105,7 @@ class UViT(nn.Module):
         def block(skip_: bool) -> Block:
             return Block(embed_dim, num_heads, mlp_ratio=mlp_ratio,
                          qkv_bias=qkv_bias, qk_scale=qk_scale, skip=skip_,
-                         attn_impl=attn_impl, **kw)
+                         attn_impl=attn_impl, quant=quant, **kw)
 
         self.in_blocks = nn.ModuleList(block(False) for _ in range(depth // 2))
         self.mid_block = block(False)

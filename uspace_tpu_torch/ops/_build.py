@@ -5,6 +5,9 @@ by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repository root
 (listed in ``.gitignore``) and loaded with ``ctypes``. The library's file
 name carries a hash of its source, so an edited kernel is never served from
 a stale build. A failed build or load raises; nothing falls back.
+
+The launch plumbing that every kernel wrapper shares is here too: argument
+checks, the CPU/CUDA choice, the current stream and the C return code.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -34,9 +39,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_qkvproj_attention": (_P, _P, _P, _I, _I, _I, _F, _P),
         "uspace_ln_qkvproj_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _F,
                                         _F, _P),
+        "uspace_qkvproj_attention_int8": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+        "uspace_ln_qkvproj_attention_int8": (_P, _P, _P, _P, _P, _P, _I, _I,
+                                             _I, _F, _F, _P),
     },
     "attention_bwd": {
         "uspace_packed_attention_bwd": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    },
+    "mlp_int8": {
+        "uspace_mlp_int8": (_P,) * 9 + (_I,) * 5 + (_P,),
+        "uspace_ln_mlp_int8": (_P,) * 11 + (_I,) * 5 + (_F, _P),
     },
 }
 
@@ -109,3 +121,46 @@ def load(name: str) -> ctypes.CDLL:
         f.restype = ctypes.c_int
     _loaded[name] = lib
     return lib
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: tuple, device: torch.device) -> None:
+    """Refuse an argument a kernel cannot read as given."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def check_no_grad(*ts: torch.Tensor, what: str) -> None:
+    """Kernels that define no backward (nor do the JAX package's): refuse
+    rather than return an output that silently drops the gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            f"{what} is inference-only, as in the JAX package; call under "
+            "torch.no_grad() or train the bf16 view with "
+            "attn_impl='pallas_packed', 'auto' or 'xla'")
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the wrapper runs its plain twin), False for a
+    CUDA tensor (it launches its kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+def cuda_stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raise_on(rc: int, fn: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed: cudaError {rc}")

@@ -1,21 +1,29 @@
 """Multi-head attention for U-ViT denoisers: CUDA kernels + plain path.
 
 Counterpart of ``uspace_tpu/ops/attention.py``. The sampling views launch
-three fused kernels, hand-written in CUDA C++ for Hopper
-(``csrc/attention.cu``); they share one attention core and differ in their
-prologue:
+fused kernels, hand-written in CUDA C++ for Hopper (``csrc/attention.cu``);
+they share one attention core and differ in their prologue:
 
 - :func:`fused_qkv_attention` — packed qkv [B, L, 3C] in device memory
   (TPU kernel ``_packed_fwd_kernel``);
 - :func:`fused_qkvproj_attention` — the QKV projection inside the kernel
-  (``_qkv_attn_kernel``);
+  (``_qkv_attn_kernel``; with ``quant=True`` an int8 projection,
+  ``_qkv_attn_kernel_q``);
 - :func:`fused_ln_qkvproj_attention` — LN1 and the projection inside the
-  kernel (``_qkv_attn_kernel_ln``).
+  kernel (``_qkv_attn_kernel_ln``; int8: ``_qkv_attn_kernel_qln``).
 
-The first two are differentiable, as in the JAX package: their backward
-runs :func:`packed_attention_bwd` (``csrc/attention_bwd.cu``, TPU kernel
-``_packed_bwd_kernel``), which recomputes P from the saved qkv. The third is
+The bf16 packed and QKV-projection kernels are differentiable, as in the
+JAX package: their backward runs :func:`packed_attention_bwd`
+(``csrc/attention_bwd.cu``, TPU kernel ``_packed_bwd_kernel``), which
+recomputes P from the saved qkv. The LN kernel and both int8 kernels are
 inference-only.
+
+The int8 kernels take the f32 weight and quantize it once through
+``ops.quant.quantized_weight`` (scales fitted on full precision, as the JAX
+package fits them). In the kernel the row's f32 activations (after LN) are
+coded as ``round(x * (127 / amax))``, the int32 product is dequantized as
+``f32(acc) * (amax * (1/127)) * ws[col]`` and rounded to bf16 qkv; then the
+shared attention core runs.
 
 Each wrapper has a plain PyTorch twin in this module with the kernel's
 rounding sites (bf16 qkv after the projection, bf16 P before P·V, division
@@ -30,10 +38,19 @@ and return ``[B, L, C]`` as the JAX package does.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional
 
 import torch
+
+from ._build import (
+    check_no_grad,
+    check_tensor,
+    cuda_stream,
+    load,
+    on_cpu,
+    raise_on,
+)
+from .quant import QWeight, int_matmul, quantized_weight, row_codes, true_div
 
 # launches of each CUDA kernel since the last reset (the CPU twin does not count)
 LAUNCHES: Dict[str, int] = {
@@ -41,6 +58,8 @@ LAUNCHES: Dict[str, int] = {
     "qkvproj_attention": 0,
     "ln_qkvproj_attention": 0,
     "packed_attention_bwd": 0,
+    "qkvproj_attention_int8": 0,
+    "ln_qkvproj_attention_int8": 0,
 }
 
 KERNEL_HEAD_DIM = 64
@@ -52,9 +71,6 @@ _XLA_PREFERRED_MAX_LEN = 512
 _UNPORTED_LONG = ("[B, H, L, D] kernel attention (kernels 7-8 of the kernel "
                   "table: _fwd_kernel/_bwd_kernel, and 9: _flash_kernel) is "
                   "not ported yet")
-_UNPORTED_INT8 = ("int8 QKV projection (quant=True) comes with the int8 slice "
-                  "(kernels 5-6 of the kernel table: _qkv_attn_kernel_qln, "
-                  "_qkv_attn_kernel_q)")
 
 
 def reset_launches() -> None:
@@ -145,31 +161,55 @@ def ln_qkvproj_attention_plain(x: torch.Tensor, ln_scale: torch.Tensor,
                                eps: float) -> torch.Tensor:
     """Twin of the LN + QKV-projection kernel: f32 statistics with
     var = E[x^2] - mu^2, LN output rounded to x's dtype."""
+    xln = _ln_f32(x, ln_scale, ln_bias, eps).to(x.dtype)
+    return qkvproj_attention_plain(xln, w_qkv, num_heads, scale)
+
+
+def _ln_f32(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    """LN1 of the fused kernels in f32: f32 statistics (var = E[x^2] -
+    mu^2) and an f32 output (the int8 kernel codes it as it is; the bf16
+    kernel rounds it to x's dtype)."""
     xf = x.float()
     c = x.shape[-1]
-    mu = xf.sum(dim=-1, keepdim=True) / c
-    var = (xf * xf).sum(dim=-1, keepdim=True) / c - mu * mu
+    mu = true_div(xf.sum(dim=-1, keepdim=True), c)
+    var = true_div((xf * xf).sum(dim=-1, keepdim=True), c) - mu * mu
     inv = torch.rsqrt(var + eps)
-    xln = ((xf - mu) * inv * ln_scale.float() + ln_bias.float()).to(x.dtype)
-    return qkvproj_attention_plain(xln, w_qkv, num_heads, scale)
+    return (xf - mu) * inv * ln_scale.float() + ln_bias.float()
+
+
+def _int8_qkv_attention(xf: torch.Tensor, qw: QWeight, num_heads: int,
+                        scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """The int8 kernels after their prologue: row codes ``round(x * (127 /
+    amax))`` (a product, not int8_dense's division), the int32 product,
+    ``f32(acc) * (amax * (1/127)) * ws`` rounded to ``dtype`` qkv, then the
+    packed attention core."""
+    xq, xs = row_codes(xf)
+    qkv = (int_matmul(xq, qw.kn).float() * xs * qw.scale).to(dtype)
+    return packed_attention_plain(qkv, num_heads, scale)
+
+
+def qkvproj_attention_int8_plain(x: torch.Tensor, qw: QWeight,
+                                 num_heads: int,
+                                 scale: float) -> torch.Tensor:
+    """Twin of the int8 QKV-projection kernel (``_qkv_attn_kernel_q``):
+    x (already LN'd) coded per row in f32."""
+    return _int8_qkv_attention(x.float(), qw, num_heads, scale, x.dtype)
+
+
+def ln_qkvproj_attention_int8_plain(x: torch.Tensor, ln_scale: torch.Tensor,
+                                    ln_bias: torch.Tensor, qw: QWeight,
+                                    num_heads: int, scale: float,
+                                    eps: float) -> torch.Tensor:
+    """Twin of the int8 LN + QKV-projection kernel
+    (``_qkv_attn_kernel_qln``): LN1 in f32, then as the LN-free twin."""
+    return _int8_qkv_attention(_ln_f32(x, ln_scale, ln_bias, eps), qw,
+                               num_heads, scale, x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {shape}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
 def _check_x(name: str, x: torch.Tensor, num_heads: int, parts: int) -> None:
@@ -186,59 +226,35 @@ def _check_x(name: str, x: torch.Tensor, num_heads: int, parts: int) -> None:
     if not 1 <= x.shape[1] <= KERNEL_MAX_LEN:
         raise ValueError(f"the CUDA attention kernels take 1 <= L <= "
                          f"{KERNEL_MAX_LEN}, got {x.shape[1]}")
-    _check(name, x, torch.bfloat16, tuple(x.shape), x.device)
-
-
-def _check_no_grad(*ts: torch.Tensor) -> None:
-    """The LN-fused kernel defines no backward (nor does the JAX
-    package's): refuse rather than return an output that silently drops
-    the gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "the LN + QKV-projection attention kernel is inference-only, as "
-            "in the JAX package; call under torch.no_grad() or train with "
-            "attn_impl='pallas_packed', 'auto' or 'xla'")
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _raise_on(rc: int, fn: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{fn} failed: cudaError {rc}")
+    check_tensor(name, x, torch.bfloat16, tuple(x.shape), x.device)
 
 
 def _packed_kernel(qkv: torch.Tensor, num_heads: int,
                    scale: float) -> torch.Tensor:
-    from ._build import load
-
     b, l, c3 = qkv.shape
     _check_x("qkv", qkv, num_heads, 3)
     out = torch.empty((b, l, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     rc = load("attention").uspace_packed_attention(
         qkv.data_ptr(), out.data_ptr(), b, l, num_heads, scale,
-        _stream(qkv.device))
-    _raise_on(rc, "uspace_packed_attention")
+        cuda_stream(qkv.device))
+    raise_on(rc, "uspace_packed_attention")
     LAUNCHES["packed_attention"] += 1
     return out
 
 
 def _packed_bwd_kernel(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
                        scale: float) -> torch.Tensor:
-    from ._build import load
-
     b, l, c3 = qkv.shape
     _check_x("qkv", qkv, num_heads, 3)
-    _check("do", do, qkv.dtype, (b, l, c3 // 3), qkv.device)
+    check_tensor("do", do, qkv.dtype, (b, l, c3 // 3), qkv.device)
     dqkv = torch.empty_like(qkv)
     # per-row max, sum and delta, passed from the dQ kernel to the dK/dV one
     stats = torch.empty((b * num_heads * 3 * l,), dtype=torch.float32,
                         device=qkv.device)
     rc = load("attention_bwd").uspace_packed_attention_bwd(
         qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, l,
-        num_heads, scale, _stream(qkv.device))
-    _raise_on(rc, "uspace_packed_attention_bwd")
+        num_heads, scale, cuda_stream(qkv.device))
+    raise_on(rc, "uspace_packed_attention_bwd")
     LAUNCHES["packed_attention_bwd"] += 1
     return dqkv
 
@@ -251,51 +267,70 @@ def _weight_rows(w_qkv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"w_qkv must be [{c}, {3 * c}], got "
                          f"{tuple(w_qkv.shape)}")
     w = w_qkv.to(x.dtype).t().contiguous()
-    _check("w_qkv", w, x.dtype, (3 * c, c), x.device)
+    check_tensor("w_qkv", w, x.dtype, (3 * c, c), x.device)
     return w
 
 
 def _qkvproj_kernel(x, w_qkv, num_heads, scale):
-    from ._build import load
-
     b, l, c = x.shape
     _check_x("x", x, num_heads, 1)
     w = _weight_rows(w_qkv, x)
     out = torch.empty_like(x)
     rc = load("attention").uspace_qkvproj_attention(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), b, l, num_heads, scale,
-        _stream(x.device))
-    _raise_on(rc, "uspace_qkvproj_attention")
+        cuda_stream(x.device))
+    raise_on(rc, "uspace_qkvproj_attention")
     LAUNCHES["qkvproj_attention"] += 1
     return out
 
 
 def _ln_qkvproj_kernel(x, ln_scale, ln_bias, w_qkv, num_heads, scale, eps):
-    from ._build import load
-
     b, l, c = x.shape
     _check_x("x", x, num_heads, 1)
-    _check_no_grad(x, ln_scale, ln_bias, w_qkv)
+    check_no_grad(x, ln_scale, ln_bias, w_qkv,
+                  what="the LN + QKV-projection attention kernel")
     w = _weight_rows(w_qkv, x)
     lns = ln_scale.to(torch.float32).reshape(-1).contiguous()
     lnb = ln_bias.to(torch.float32).reshape(-1).contiguous()
-    _check("ln_scale", lns, torch.float32, (c,), x.device)
-    _check("ln_bias", lnb, torch.float32, (c,), x.device)
+    check_tensor("ln_scale", lns, torch.float32, (c,), x.device)
+    check_tensor("ln_bias", lnb, torch.float32, (c,), x.device)
     out = torch.empty_like(x)
     rc = load("attention").uspace_ln_qkvproj_attention(
         x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w.data_ptr(),
-        out.data_ptr(), b, l, num_heads, scale, eps, _stream(x.device))
-    _raise_on(rc, "uspace_ln_qkvproj_attention")
+        out.data_ptr(), b, l, num_heads, scale, eps, cuda_stream(x.device))
+    raise_on(rc, "uspace_ln_qkvproj_attention")
     LAUNCHES["ln_qkvproj_attention"] += 1
     return out
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return False
+def _int8_kernel(x, qw, num_heads, scale, ln=None):
+    """The int8 QKV-projection kernel; with ``ln = (scale, bias, eps)`` the
+    LN1 variant."""
+    b, l, c = x.shape
+    _check_x("x", x, num_heads, 1)
+    check_tensor("w_qkv codes", qw.q, torch.int8, (3 * c, c), x.device)
+    check_tensor("w_qkv scales", qw.scale, torch.float32, (3 * c,), x.device)
+    out = torch.empty_like(x)
+    lib = load("attention")
+    if ln is None:
+        rc = lib.uspace_qkvproj_attention_int8(
+            x.data_ptr(), qw.q.data_ptr(), qw.scale.data_ptr(),
+            out.data_ptr(), b, l, num_heads, scale, cuda_stream(x.device))
+        raise_on(rc, "uspace_qkvproj_attention_int8")
+        LAUNCHES["qkvproj_attention_int8"] += 1
+        return out
+    ln_scale, ln_bias, eps = ln
+    lns = ln_scale.to(torch.float32).reshape(-1).contiguous()
+    lnb = ln_bias.to(torch.float32).reshape(-1).contiguous()
+    check_tensor("ln_scale", lns, torch.float32, (c,), x.device)
+    check_tensor("ln_bias", lnb, torch.float32, (c,), x.device)
+    rc = lib.uspace_ln_qkvproj_attention_int8(
+        x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), qw.q.data_ptr(),
+        qw.scale.data_ptr(), out.data_ptr(), b, l, num_heads, scale, eps,
+        cuda_stream(x.device))
+    raise_on(rc, "uspace_ln_qkvproj_attention_int8")
+    LAUNCHES["ln_qkvproj_attention_int8"] += 1
+    return out
 
 
 def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
@@ -304,7 +339,7 @@ def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
     """dqkv [B, L, 3*H*D] of packed attention from its input qkv and the
     output cotangent do [B, L, H*D]; P is recomputed, never stored."""
     scale = _default_scale(qkv.shape[-1] // (3 * num_heads), scale)
-    if _on_cpu(qkv):
+    if on_cpu(qkv):
         return packed_attention_bwd_plain(qkv, do, num_heads, scale)
     return _packed_bwd_kernel(qkv, do.contiguous(), num_heads, scale)
 
@@ -318,7 +353,7 @@ class _PackedAttention(torch.autograd.Function):
     def forward(ctx, qkv, num_heads, scale):
         ctx.save_for_backward(qkv)
         ctx.num_heads, ctx.scale = num_heads, scale
-        if _on_cpu(qkv):
+        if on_cpu(qkv):
             return packed_attention_plain(qkv, num_heads, scale)
         return _packed_kernel(qkv, num_heads, scale)
 
@@ -337,7 +372,7 @@ class _QKVProjAttention(torch.autograd.Function):
     def forward(ctx, x, w, num_heads, scale):
         ctx.save_for_backward(x, w)
         ctx.num_heads, ctx.scale = num_heads, scale
-        if _on_cpu(x):
+        if on_cpu(x):
             return qkvproj_attention_plain(x, w, num_heads, scale)
         return _qkvproj_kernel(x, w, num_heads, scale)
 
@@ -367,10 +402,15 @@ def fused_qkvproj_attention(x: torch.Tensor, w_qkv: torch.Tensor,
     """x [B, L, C] (post-LN) and fused QKV weight [C, 3C] -> attention
     output [B, L, C] (pre out-projection); the [B, L, 3C] qkv never
     touches device memory. W is cast to x's dtype first, so its gradient
-    reaches an f32 master weight through the cast."""
-    if quant:
-        raise NotImplementedError(_UNPORTED_INT8)
+    reaches an f32 master weight through the cast. ``quant=True``: int8
+    projection of the f32 weight, inference-only."""
     scale = _default_scale(x.shape[-1] // num_heads, scale)
+    if quant:
+        check_no_grad(x, w_qkv, what="the int8 QKV-projection kernel")
+        qw = quantized_weight(w_qkv)
+        if on_cpu(x):
+            return qkvproj_attention_int8_plain(x, qw, num_heads, scale)
+        return _int8_kernel(x, qw, num_heads, scale)
     return _QKVProjAttention.apply(x, w_qkv.to(x.dtype), num_heads, scale)
 
 
@@ -380,11 +420,18 @@ def fused_ln_qkvproj_attention(
     eps: float = 1e-5, quant: bool = False,
 ) -> torch.Tensor:
     """``attention(qkv(LN(x)))``; the LN output never touches device
-    memory. Only the bf16 projection (``quant=False``) is ported."""
-    if quant:
-        raise NotImplementedError(_UNPORTED_INT8)
+    memory. ``quant=False``: bf16 projection (W cast to x's dtype);
+    ``quant=True``: LN in f32, int8 projection of the f32 weight."""
     scale = _default_scale(x.shape[-1] // num_heads, scale)
-    if _on_cpu(x):
+    if quant:
+        check_no_grad(x, ln_scale, ln_bias, w_qkv,
+                      what="the int8 LN + QKV-projection kernel")
+        qw = quantized_weight(w_qkv)
+        if on_cpu(x):
+            return ln_qkvproj_attention_int8_plain(
+                x, ln_scale, ln_bias, qw, num_heads, scale, eps)
+        return _int8_kernel(x, qw, num_heads, scale, (ln_scale, ln_bias, eps))
+    if on_cpu(x):
         return ln_qkvproj_attention_plain(x, ln_scale, ln_bias, w_qkv,
                                           num_heads, scale, eps)
     return _ln_qkvproj_kernel(x, ln_scale, ln_bias, w_qkv, num_heads, scale,
@@ -420,7 +467,7 @@ def multi_head_attention(
     if return_probs:
         return xla_attention(q, k, v, scale, return_probs=True)
     if impl == "auto":
-        if q.shape[2] <= _XLA_PREFERRED_MAX_LEN or _on_cpu(q):
+        if q.shape[2] <= _XLA_PREFERRED_MAX_LEN or on_cpu(q):
             impl = "xla"
         else:
             raise NotImplementedError(_UNPORTED_LONG)

@@ -1,9 +1,30 @@
-"""Exact-erf GELU of the U-ViT MLP (counterpart of uspace_tpu/ops/mlp.py).
+"""The U-ViT MLP: exact-erf GELU and the fused int8 W8A8 MLP kernels
+(counterpart of uspace_tpu/ops/mlp.py).
 
 The JAX field evaluates GELU with the Abramowitz–Stegun 7.1.26 erf
 polynomial (|err| <= 1.5e-7), not erf itself; the port copies the
-polynomial so that the two fields agree. The fused MLP kernels of that
-module belong to later slices.
+polynomial so that the two fields agree.
+
+Fused int8 MLP (``csrc/mlp_int8.cu``, CUDA C++ for Hopper):
+:func:`fused_mlp_block_q` (``x + fc2(gelu(fc1(LN2(x))))``, TPU kernel
+``_mlp_kernel_int8_lnres``) and :func:`fused_mlp` (``fc2(gelu(fc1(x)))``,
+``_mlp_kernel_int8``). Both take f32 weights, quantized once per weight
+value through ``ops.quant.quantized_weight``. Rounding sites, shared by
+kernel and plain twin:
+
+- LN2 (lnres only): f32 statistics, normalised in x's dtype (bf16):
+  ``(x - bf16(mu)) * bf16(rsqrt(var + eps)) * bf16(s) + bf16(b)``, each
+  product and sum rounded, then f32;
+- row codes ``round(x * (127 / amax))``, ``xs = amax * (1/127)``;
+- per strip j of ``hidden / strips`` columns: ``f32(acc) * xs * s1 + b1``,
+  GELU in f32, then per row an affine grid ``scale = max(gmax - gmin,
+  1e-8) * (1/254)``, ``zp = (gmax + gmin) * 0.5``, codes ``round((g - zp)
+  / scale)``;
+- fc2: ``acc += f32(d_j) * scale_j + zp_j * colsum_j(W2q)``, then ``acc *
+  s2 + b2`` rounded to x's dtype (and added to x in x's dtype).
+
+The strip count, the largest <= 4 that divides the hidden width, is part of
+the numerics (the JAX package's ``_call_mlp`` rule).
 
 Under autograd :func:`gelu_exact` saves only its input (bf16 in training):
 eager autograd of the polynomial would save about a dozen f32 tensors of
@@ -14,7 +35,31 @@ same polynomial.
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
+
+from ._build import (
+    check_no_grad,
+    check_tensor,
+    cuda_stream,
+    load,
+    on_cpu,
+    raise_on,
+)
+from .quant import QWeight, int_matmul, quantized_weight, row_codes, true_div
+
+# launches of each CUDA kernel since the last reset (the CPU twin does not count)
+LAUNCHES: Dict[str, int] = {"mlp_int8": 0, "ln_mlp_int8": 0}
+
+COL_SLICES = 4  # hidden strips, at most (uspace_tpu/ops/mlp.py _COL_SLICES)
+
+_UNPORTED_W8 = ("the weight-only int8 MLP (quant='w8': kernels 16-17 of the "
+                "kernel table, _mlp_kernel_w8_lnres / _mlp_kernel_w8) is not "
+                "ported yet")
+_UNPORTED_BF16 = ("the fused bf16 MLP (quant=False: kernels 12-13 of the "
+                  "kernel table, _mlp_kernel_bf16 / _mlp_kernel_bf16_lnres) "
+                  "is not ported yet")
 
 _A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
 _P = 0.3275911
@@ -59,3 +104,180 @@ class _Gelu(torch.autograd.Function):
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, evaluated in f32 and returned in x's dtype."""
     return _Gelu.apply(x)
+
+
+# ---------------------------------------------------------------------------
+# Fused int8 W8A8 MLP: plain twins and CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def col_slices(hidden: int) -> int:
+    """Largest strip count <= :data:`COL_SLICES` that divides ``hidden``
+    (a count that does not divide would drop hidden units)."""
+    s = COL_SLICES
+    while hidden % s:
+        s -= 1
+    return s
+
+
+def _ln_bf16_normalise(x: torch.Tensor, ln_scale: torch.Tensor,
+                       ln_bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """LN2 of the int8 MLP kernel: f32 statistics, normalised in x's dtype
+    with a rounding after each operation; returned in f32."""
+    xf = x.float()
+    c = x.shape[-1]
+    mu = true_div(xf.sum(dim=-1, keepdim=True), c)
+    var = true_div((xf * xf).sum(dim=-1, keepdim=True), c) - mu * mu
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    xln = ((x - mu.to(x.dtype)) * inv * ln_scale.to(x.dtype)
+           + ln_bias.to(x.dtype))
+    return xln.float()
+
+
+def _mlp_int8_core(xq: torch.Tensor, xs: torch.Tensor, q1: QWeight,
+                   b1: torch.Tensor, q2: QWeight, b2: torch.Tensor,
+                   strips: int, dtype: torch.dtype) -> torch.Tensor:
+    """fc2(gelu(fc1(x))) with the kernels' int8 rounding sites, from the
+    row codes ``xq [R, C]`` and scales ``xs [R, 1]`` of x; returns ``[R,
+    out]`` in ``dtype``."""
+    hidden = q1.q.shape[0]
+    hs = hidden // strips
+    colsum = q2.colsums(strips)
+    b1f, b2f = b1.float(), b2.float()
+    acc = None
+    for j in range(strips):
+        cols = slice(j * hs, (j + 1) * hs)
+        part = int_matmul(xq, q1.q[cols].t())
+        g = _gelu_f32(part.float() * xs * q1.scale[cols] + b1f[cols])
+        gmax = g.amax(dim=-1, keepdim=True)
+        gmin = g.amin(dim=-1, keepdim=True)
+        scale = torch.clamp(gmax - gmin, min=1e-8) * (1.0 / 254.0)
+        zp = (gmax + gmin) * 0.5
+        hq = torch.round((g - zp) / scale).to(torch.int8)
+        d = int_matmul(hq, q2.q[:, cols].t())
+        t = d.float() * scale + zp * colsum[j]
+        acc = t if acc is None else acc + t
+    return (acc * q2.scale + b2f).to(dtype)
+
+
+def mlp_int8_plain(x: torch.Tensor, q1: QWeight, b1: torch.Tensor,
+                   q2: QWeight, b2: torch.Tensor, strips: int) -> torch.Tensor:
+    """Twin of the int8 MLP kernel (``_mlp_kernel_int8``): x [R, C]."""
+    return _mlp_int8_core(*row_codes(x.float()), q1, b1, q2, b2, strips,
+                          x.dtype)
+
+
+def ln_mlp_int8_plain(x: torch.Tensor, ln_scale: torch.Tensor,
+                      ln_bias: torch.Tensor, q1: QWeight, b1: torch.Tensor,
+                      q2: QWeight, b2: torch.Tensor, strips: int,
+                      eps: float) -> torch.Tensor:
+    """Twin of the int8 MLP sub-block kernel (``_mlp_kernel_int8_lnres``):
+    ``x + MLP(LN2(x))`` for x [R, C], the sum in x's dtype."""
+    xln = _ln_bf16_normalise(x, ln_scale, ln_bias, eps)
+    return x + _mlp_int8_core(*row_codes(xln), q1, b1, q2, b2, strips,
+                              x.dtype)
+
+
+def _mlp_int8_kernel(x2d, q1, b1, q2, b2, strips, ln=None):
+    """Launch the int8 MLP kernel on x [R, C] bf16; with ``ln = (scale,
+    bias, eps)`` the LN2 + residual variant."""
+    r, c = x2d.shape
+    hidden, out_dim = q1.q.shape[0], q2.q.shape[0]
+    hs = hidden // strips
+    dev = x2d.device
+    if x2d.dtype != torch.bfloat16:
+        raise ValueError(f"the int8 MLP kernels take bfloat16, got "
+                         f"{x2d.dtype}")
+    if (c % 32 or hs % 256 or hs > 1024 or c > hs or out_dim % 256):
+        raise ValueError(
+            f"the int8 MLP kernels take C % 32 == 0, a strip width "
+            f"hidden/{strips} of 256, 512, 768 or 1024 and >= C, and an "
+            f"output width that is a multiple of 256; got C={c}, "
+            f"hidden={hidden}, out={out_dim}")
+    check_tensor("x", x2d, torch.bfloat16, (r, c), dev)
+    check_tensor("w1 codes", q1.q, torch.int8, (hidden, c), dev)
+    check_tensor("w2 codes", q2.q, torch.int8, (out_dim, hidden), dev)
+    s1, s2 = q1.scale, q2.scale
+    b1f = b1.to(torch.float32).contiguous()
+    b2f = b2.to(torch.float32).contiguous()
+    colsum = q2.colsums(strips)
+    for name, t, n in (("w1 scales", s1, (hidden,)), ("b1", b1f, (hidden,)),
+                       ("w2 scales", s2, (out_dim,)), ("b2", b2f, (out_dim,)),
+                       ("colsums", colsum, (strips, out_dim))):
+        check_tensor(name, t, torch.float32, n, dev)
+    out = torch.empty((r, out_dim), dtype=x2d.dtype, device=dev)
+    stream = cuda_stream(dev)
+    lib = load("mlp_int8")
+    common = (q1.q.data_ptr(), s1.data_ptr(), b1f.data_ptr(), q2.q.data_ptr(),
+              s2.data_ptr(), b2f.data_ptr(), colsum.data_ptr(),
+              out.data_ptr(), r, c, hidden, out_dim, strips)
+    if ln is None:
+        rc = lib.uspace_mlp_int8(x2d.data_ptr(), *common, stream)
+        key = "mlp_int8"
+    else:
+        ln_scale, ln_bias, eps = ln
+        if out_dim != c:
+            raise ValueError("the residual needs out == C")
+        lns = ln_scale.to(torch.float32).reshape(-1).contiguous()
+        lnb = ln_bias.to(torch.float32).reshape(-1).contiguous()
+        check_tensor("ln_scale", lns, torch.float32, (c,), dev)
+        check_tensor("ln_bias", lnb, torch.float32, (c,), dev)
+        rc = lib.uspace_ln_mlp_int8(x2d.data_ptr(), lns.data_ptr(),
+                                    lnb.data_ptr(), *common, eps, stream)
+        key = "ln_mlp_int8"
+    raise_on(rc, f"uspace_{key}")
+    LAUNCHES[key] += 1
+    return out
+
+
+def _check_quant(quant) -> None:
+    if quant == "w8":
+        raise NotImplementedError(_UNPORTED_W8)
+    if quant is not True and quant != "w8a8":
+        raise NotImplementedError(_UNPORTED_BF16)
+
+
+def fused_mlp_block_q(x: torch.Tensor, ln_scale: torch.Tensor,
+                      ln_bias: torch.Tensor, w1: torch.Tensor,
+                      b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                      eps: float = 1e-5, quant=True) -> torch.Tensor:
+    """``x + fc2(gelu(fc1(LN(x))))``, the pre-norm MLP sub-block, with int8
+    W8A8 projections (``quant=True``); w1 [C, H] and w2 [H, C] in the JAX
+    layout (f32, as ``linear.weight.t()``). Inference-only."""
+    _check_quant(quant)
+    check_no_grad(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                  what="the int8 MLP sub-block kernel")
+    c = x.shape[-1]
+    x2d = x.reshape(-1, c)
+    q1, q2 = quantized_weight(w1), quantized_weight(w2)
+    strips = col_slices(q1.q.shape[0])
+    if on_cpu(x):
+        out = ln_mlp_int8_plain(x2d, ln_scale, ln_bias, q1, b1, q2, b2,
+                                strips, eps)
+    else:
+        out = _mlp_int8_kernel(x2d.contiguous(), q1, b1, q2, b2, strips,
+                               (ln_scale, ln_bias, eps))
+    return out.reshape(x.shape)
+
+
+def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor, quant=True) -> torch.Tensor:
+    """``gelu(x @ w1 + b1) @ w2 + b2`` with int8 W8A8 projections
+    (``quant=True``); x [..., C], w1 [C, H], w2 [H, C'] (JAX layout, f32).
+    Inference-only."""
+    _check_quant(quant)
+    check_no_grad(x, w1, b1, w2, b2, what="the int8 MLP kernel")
+    c = x.shape[-1]
+    x2d = x.reshape(-1, c)
+    q1, q2 = quantized_weight(w1), quantized_weight(w2)
+    strips = col_slices(q1.q.shape[0])
+    if on_cpu(x):
+        out = mlp_int8_plain(x2d, q1, b1, q2, b2, strips)
+    else:
+        out = _mlp_int8_kernel(x2d.contiguous(), q1, b1, q2, b2, strips)
+    return out.reshape(*x.shape[:-1], q2.q.shape[0])

@@ -1,0 +1,168 @@
+"""Int8 W8A8 quantization of the sampling view (counterpart of
+``uspace_tpu/ops/quant.py``).
+
+Scheme, as in the JAX package: weights get symmetric per-output-channel
+scales, activations symmetric per-row scales computed on the fly, and the
+int32 product is dequantized as ``acc * row_scale * col_scale``. Rounding
+is half to even (``torch.round``, like ``jnp.round``) and codes are clipped
+to +-127.
+
+:func:`int8_dense` is a plain int8 matmul outside any kernel (the JAX
+package leaves it to XLA): ``torch._int_mm`` on the card, an exact product
+otherwise.
+
+Weight cache. XLA hoists ``quantize_colwise(w)`` out of the ODE scan, so a
+solve quantizes each weight once. The port keeps the same promise with
+:func:`quantized_weight`: one quantization per weight value. The codes
+are kept on the tensor behind the weight (a view such as
+``linear.weight.t()`` finds its parameter's), stamped with the view, its
+data pointer and its ``_version``, so an in-place update, a
+``load_state_dict`` or a move to another device re-quantizes. They die with
+their parameter. :data:`QUANTIZATIONS` counts the quantizations made.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+QMAX = 127.0
+
+# weight quantizations made by the cache since the last reset
+QUANTIZATIONS: Dict[str, int] = {"weights": 0}
+
+
+def reset_quantizations() -> None:
+    QUANTIZATIONS["weights"] = 0
+
+
+def true_div(a, b) -> torch.Tensor:
+    """``a / b`` rounded once, as ``jnp`` and the kernels' ``__fdiv_rn``
+    divide, on every device: PyTorch's CUDA kernels turn a division by a
+    Python scalar into a product with its reciprocal, and ``scalar /
+    tensor`` is ``reciprocal(tensor) * scalar``. Scalars become 0-dim
+    tensors on the other operand's device (filled there: no host copy)."""
+    t = a if isinstance(a, torch.Tensor) else b
+    if not isinstance(a, torch.Tensor):
+        a = torch.full((), a, dtype=t.dtype, device=t.device)
+    if not isinstance(b, torch.Tensor):
+        b = torch.full((), b, dtype=t.dtype, device=t.device)
+    return torch.div(a, b)
+
+
+def quantize_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (last-axis) symmetric int8: ``(q int8 [..., K], scale f32
+    [..., 1])`` with ``x ~= q * scale``; ``x / (amax / 127)``."""
+    xf = x.float()
+    amax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    scale = true_div(amax, QMAX)
+    q = torch.clamp(torch.round(xf / scale), -QMAX, QMAX).to(torch.int8)
+    return q, scale
+
+
+def row_codes(xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused kernels' per-row int8 codes of f32 rows: ``round(x * (127
+    / amax))``, a product with a quotient rounded once (not
+    :func:`quantize_rowwise`'s division by a rounded scale), and the row
+    scale ``amax * (1/127)``."""
+    amax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    xq = torch.round(xf * true_div(QMAX, amax)).to(torch.int8)
+    return xq, amax * (1.0 / QMAX)
+
+
+def quantize_colwise(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 of a ``[K, N]`` (JAX layout)
+    weight: ``(q int8 [K, N], scale f32 [N])``."""
+    wf = w.float()
+    amax = torch.clamp(wf.abs().amax(dim=0), min=1e-8)
+    scale = true_div(amax, QMAX)
+    q = torch.clamp(torch.round(wf / scale), -QMAX, QMAX).to(torch.int8)
+    return q, scale
+
+
+def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 x int8 -> int32 product of ``a [..., K]`` and ``b [K,
+    N]``. On the card ``torch._int_mm`` where its shape rules hold (more
+    than 16 rows, K and N multiples of 8); otherwise a float64 product,
+    exact because every partial sum is an integer below 2**53."""
+    lead, k = a.shape[:-1], a.shape[-1]
+    a2 = a.reshape(-1, k)
+    n = b.shape[-1]
+    if a.is_cuda and a2.shape[0] > 16 and k % 8 == 0 and n % 8 == 0:
+        # one layout only: row-major a, column-major b (b.t() contiguous)
+        out = torch._int_mm(a2.contiguous(), b.t().contiguous().t())
+    else:
+        out = torch.matmul(a2.double(), b.double()).to(torch.int32)
+    return out.reshape(*lead, n)
+
+
+def int8_matmul(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor,
+                w_scale: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``(xq * x_scale) @ (wq * w_scale)``: one int8 product, then
+    ``f32(acc) * x_scale * w_scale``."""
+    acc = int_matmul(xq, wq)
+    return (acc.float() * x_scale * w_scale).to(out_dtype)
+
+
+class QWeight:
+    """A weight ``w [K, N]`` (JAX layout) quantized per output channel:
+    ``q`` int8 ``[N, K]`` (the torch Linear layout the kernels read,
+    contiguous), ``scale`` f32 ``[N]``. :meth:`colsums` adds what only the
+    codes determine: the int32 column sums of each of ``strips`` row strips
+    of ``w``, as f32 ``[strips, N]`` (exact below 2**24)."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor):
+        self.q = q
+        self.scale = scale
+        self._colsums: Dict[int, torch.Tensor] = {}
+
+    @property
+    def kn(self) -> torch.Tensor:
+        """The codes as ``[K, N]`` (a view)."""
+        return self.q.t()
+
+    def colsums(self, strips: int) -> torch.Tensor:
+        cs = self._colsums.get(strips)
+        if cs is None:
+            n, k = self.q.shape
+            cs = (self.q.reshape(n, strips, k // strips).sum(
+                dim=-1, dtype=torch.int32).t().float().contiguous())
+            self._colsums[strips] = cs
+        return cs
+
+
+def _quantize(w: torch.Tensor) -> QWeight:
+    q, scale = quantize_colwise(w)
+    QUANTIZATIONS["weights"] += 1
+    return QWeight(q.t().contiguous(), scale.contiguous())
+
+
+def quantized_weight(w: torch.Tensor) -> QWeight:
+    """The :class:`QWeight` of ``w [K, N]``, quantized once per value."""
+    base = w._base if w._base is not None else w
+    stamp = (w._version, w.data_ptr(), tuple(w.shape), tuple(w.stride()),
+             w.dtype, w.device)
+    held = getattr(base, "_int8_codes", None)
+    if held is not None and held[0] == stamp:
+        return held[1]
+    with torch.no_grad():
+        qw = _quantize(w.detach())
+    base._int8_codes = (stamp, qw)
+    return qw
+
+
+def int8_dense(x: torch.Tensor, w: torch.Tensor,
+               bias: Optional[torch.Tensor] = None,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Quantized ``x @ w + b`` with ``w [K, N]`` the full-precision weight
+    (quantized once through the cache): row-quantize x, one int8 product,
+    ``f32(acc) * xs * ws + f32(b)``, cast to ``out_dtype`` (x's dtype)."""
+    out_dtype = out_dtype or x.dtype
+    xq, xs = quantize_rowwise(x)
+    qw = quantized_weight(w)
+    y = int8_matmul(xq, xs, qw.kn, qw.scale)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype)
