@@ -9,11 +9,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one process per source, in parallel);
 3. each kernel against its plain PyTorch twin at its path's shapes
    (B=50 for the sampling kernels, B=128 for the backward kernel; L=257,
-   C=1024, H=16, bf16; the int8 MLP on the 12850 rows of B=50 with hidden
-   4096): max-abs and rel-L2 within the tolerances below; for each int8
-   kernel, controls (twins with one rounding site changed) that the same
-   limits must refuse; kernel, twin and library-call times with CUDA
-   events; the bound of the same work on an H100 SXM;
+   C=1024, H=16, bf16; the int8 and w8 MLPs on the 12850 rows of B=50 with
+   hidden 4096): max-abs and rel-L2 within the tolerances below; for each
+   int8 and w8 kernel, controls (twins with one rounding site changed) that
+   the same limits must refuse; kernel, twin and library-call times with
+   CUDA events; the bound of the same work on an H100 SXM;
 4. the main path: U-ViT-large (embed 1024, depth 20, 16 heads, patch 2) in
    bf16 with seeded random weights, Euler-50 at batch 50 through
    `core.flow.decode` with attn_impl="auto": 21 x 50 = 1050 launches of the
@@ -29,12 +29,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    block composed from the kernels' plain twins on the same input, with
    control blocks the limit must refuse, and the whole field against the
    twins' composition;
-5. the "pallas_packed" and "pallas_lnmlp" views, and the int8
-   "pallas_qkvproj" (int8 QKV-projection + int8 MLP kernels) and "xla"
-   (int8 MLP kernel) views, for a few Euler steps each: launch counts and
-   agreement with the plain path;
-6. the entry point `cli.sample_lfm.run` writing two latent batches, bf16 and
-   int8 (quant=True);
+4c. adaptive sampling, the reference's eval decode: dopri5 at rtol = atol =
+   1e-5 (I controller, safety 0.9) through `core.flow.decode` at batch 50
+   from the same weights and z, a warm solve and a timed one per view: the
+   bf16 view on the LN-fused route (attn_impl="pallas_lnmlp": 21 x NFE
+   launches of the LN + QKV-projection kernel, latents against rk4-50 of
+   the same view) and the weight-only int8 view (quant="w8", "auto": 21 x
+   NFE launches each of that kernel and of the w8 MLP sub-block kernel, no
+   weight quantization in the timed solve, NFE at most 1.5 x the bf16
+   view's, latents against the bf16 view's): NFE, steps, rejections, t = 1,
+   img/s, peak memory; the W8A8 view under the same solve, capped at 60
+   step attempts, as a control (its NFE, and whether it hit the cap);
+5. the "pallas_packed" and "pallas_lnmlp" views, the int8 "pallas_qkvproj"
+   (int8 QKV-projection + int8 MLP kernels) and "xla" (int8 MLP kernel)
+   views, and the w8 "pallas_qkvproj" (QKV-projection + w8 MLP kernels) and
+   "xla" (w8 MLP kernel) views, for a few Euler steps each: launch counts
+   and agreement with the plain path; then the w8 view's Euler-50 against
+   phase 4's bf16 latents, which must sit closer than the W8A8 view's;
+6. the entry point `cli.sample_lfm.run`: one batch of the w8 view with the
+   config's adaptive solve (dopri5, PI controller), and two latent batches
+   each of the bf16 and int8 (quant=True) views with Euler-50;
 7. the training path: U-ViT-large with f32 master weights and bf16 compute,
    attn_impl="pallas_packed", per-block remat with REMAT_EXEMPT blocks
    exempt, batch 128 of `SyntheticFeatures` moments, the JAX bench's Adam
@@ -115,6 +129,29 @@ BLOCK_REL_L2 = 4e-3
 # 1.63e-2, and 1.74e-2 for twins whose MLPs keep their hidden in f32)
 FIELD_MIN_COS = 0.999
 FIELD_MAX_REL_L2 = 5e-2
+
+# weight-only int8 (w8) MLP kernels vs their twins: shared rounding sites,
+# so an output moves only where an f32 sum in another order (the products,
+# the LN statistics) flips a bf16 rounding of the hidden or the output:
+# max-abs one bf16 step of the largest output value, rel-L2 on out - x for
+# the sub-block. Controls: twins with the hidden kept in f32, with the
+# weights dequantized to bf16 before the product, or with LN2 normalised in
+# f32, must fail the same comparison. First H100 run: kernels 1.70e-4 (LN)
+# and 1.86e-4, controls 2.55e-3 at least: the limit sits 3x and 4x from
+# them.
+W8_MLP_REL_L2 = 6e-4
+# the adaptive phase: dopri5 at the reference's eval tolerances
+ADAPTIVE_SK = {"solver": "adaptive", "solver_adaptive": "dopri5",
+               "rtol": 1e-5, "atol": 1e-5, "controller": "i", "safety": 0.9}
+MAX_STEPS = 4096
+W8A8_CONTROL_MAX_STEPS = 60
+# the w8 view's dopri5 NFE at most this multiple of the bf16 view's
+W8_NFE_RATIO = 1.5
+# dopri5 latents vs rk4-50 of the same view (bf16), and the w8 view's
+# dopri5 latents vs the bf16 view's; first H100 run: cos 0.9999997 / rel-L2
+# 8.29e-4 and 0.9999965 / 2.63e-3: margins of 5x on 1 - cos and on rel-L2
+ADAPT_RK4_LIMITS = (0.9999985, 4e-3)
+ADAPT_W8_LIMITS = (0.99998, 1.3e-2)
 
 # H100 SXM published peaks (dense bf16 and int8, HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -286,6 +323,7 @@ def check_kernels(torch, F, attn, mlpk, quant):
         tol=(BWD_MAX_ABS, BWD_REL_L2), shape=f"B={TRAIN_B} L={L} C={C} "
         f"H={H} bf16"))
     cases += int8_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
+    cases += w8_cases(torch, F, attn, mlpk, quant, randn, io)
     results, controls, problems = [], {}, []
     for case in cases:
         before = all_launches(attn, mlpk)[case["name"]]
@@ -485,8 +523,101 @@ def int8_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
     ]
 
 
-def decode_run(torch, flow, model, z, steps):
-    sk = {"solver": "fixed", "solver_fix": "euler",
+def w8_twin(torch, attn, mlpk, x, q1, b1, q2, b2, strips, change=None,
+            ln=None):
+    """The w8 MLP kernels' twin, or with ``change`` one rounding site
+    changed (a wrong kernel's stand-in); ``ln = (scale, bias, eps)`` for
+    the LN2 + residual variant."""
+    if change is None:
+        if ln is None:
+            return mlpk.mlp_w8_plain(x, q1, b1, q2, b2, strips)
+        return mlpk.ln_mlp_w8_plain(x, *ln[:2], q1, b1, q2, b2, strips, ln[2])
+    if ln is None:
+        xf = x.float()
+    elif change == "LN2 normalised in f32":
+        xf = attn._ln_f32(x, *ln)
+    else:
+        xf = mlpk._ln_bf16_normalise(x, *ln)
+    if change == "the weights dequantized to bf16":
+        w1 = (q1.q.float() * q1.scale[:, None]).to(x.dtype).float()
+        w2 = (q2.q.float() * q2.scale[:, None]).to(x.dtype).float()
+        h = mlpk._gelu_f32(torch.matmul(xf, w1.t()) + b1.float()).to(x.dtype)
+        m = (torch.matmul(h.float(), w2.t()) + b2.float()).to(x.dtype)
+    elif change == "the hidden kept in f32":
+        h = mlpk._gelu_f32(torch.matmul(xf, q1.q.float().t()) * q1.scale
+                           + b1.float())
+        m = (torch.matmul(h, q2.q.float().t()) * q2.scale
+             + b2.float()).to(x.dtype)
+    else:
+        m = mlpk._mlp_w8_core(xf, q1, b1, q2, b2, strips, x.dtype)
+    return m if ln is None else x + m
+
+
+def w8_cases(torch, F, attn, mlpk, quant, randn, io):
+    """Phase 3's weight-only int8 cases (rows 16 and 17 of the PERF.md
+    table) on the 12850 rows of B=50, C=1024, hidden 4096: f32 weights
+    whose codes come from the cache (made before any timing). Yardstick:
+    the same function from PyTorch calls (the LN chain, F.linear on bf16
+    copies of the codes with the scales and biases in f32, F.gelu)."""
+    f32, bf = torch.float32, torch.bfloat16
+    rows, hid = B * L, 4 * C
+    xr = randn(rows, C)
+    w1 = randn(hid, C, std=0.02, dtype=f32).t()
+    b1 = randn(hid, std=0.02, dtype=f32)
+    w2 = randn(C, hid, std=0.02, dtype=f32).t()
+    b2 = randn(C, std=0.02, dtype=f32)
+    lns = 1.0 + randn(C, std=0.1, dtype=f32)
+    lnb = randn(C, std=0.1, dtype=f32)
+    q1, q2 = quant.quantized_weight(w1), quant.quantized_weight(w2)
+    strips = mlpk.col_slices(hid)
+    ln2 = (lns, lnb, 1e-5)
+    c1, c2 = q1.q.to(bf), q2.q.to(bf)  # the library's bf16 weights
+
+    def lib_mlp(xa):
+        h = F.gelu(F.linear(xa, c1).float() * q1.scale + b1).to(bf)
+        return (F.linear(h, c2).float() * q2.scale + b2).to(bf)
+
+    def lib_ln(t):
+        return F.layer_norm(t, (C,), lns.to(bf), lnb.to(bf), 1e-5)
+
+    def ctl(*changes, ln_=None):
+        return [(c, lambda c=c: w8_twin(torch, attn, mlpk, xr, q1, b1, q2, b2,
+                                        strips, c, ln_))
+                for c in changes]
+
+    flops = 2.0 * 2.0 * rows * C * hid
+    mbytes = io(q1.q, q1.scale, b1, q2.q, q2.scale, b2)
+    shape = f"rows={rows} C={C} hidden={hid} bf16, int8 weights"
+    src = "uspace_tpu_torch/ops/csrc/mlp_w8.cu"
+    tol = (None, W8_MLP_REL_L2)
+    return [
+        dict(name="ln_mlp_w8", source=src,
+             replaces="uspace_tpu/ops/mlp.py:287 (_mlp_kernel_w8_lnres)",
+             kernel=lambda: mlpk.fused_mlp_block_q(xr, lns, lnb, w1, b1, w2,
+                                                   b2, quant="w8"),
+             plain=lambda: w8_twin(torch, attn, mlpk, xr, q1, b1, q2, b2,
+                                   strips, ln=ln2),
+             library=lambda: xr + lib_mlp(lib_ln(xr)),
+             bytes=io(xr, lns, lnb) + mbytes + io(xr), flops=flops, tol=tol,
+             shape=shape, part=lambda t: t.double() - xr.double(),
+             controls=ctl("the hidden kept in f32",
+                          "the weights dequantized to bf16",
+                          "LN2 normalised in f32", ln_=ln2)),
+        dict(name="mlp_w8", source=src,
+             replaces="uspace_tpu/ops/mlp.py:437 (_mlp_kernel_w8)",
+             kernel=lambda: mlpk.fused_mlp(xr, w1, b1, w2, b2, quant="w8"),
+             plain=lambda: w8_twin(torch, attn, mlpk, xr, q1, b1, q2, b2,
+                                   strips),
+             library=lambda: lib_mlp(xr),
+             bytes=io(xr) + mbytes + io(xr), flops=flops, tol=tol,
+             shape=shape,
+             controls=ctl("the hidden kept in f32",
+                          "the weights dequantized to bf16")),
+    ]
+
+
+def decode_run(torch, flow, model, z, steps, method="euler"):
+    sk = {"solver": "fixed", "solver_fix": method,
           "solver_fix_step": 1.0 / steps}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -651,6 +782,118 @@ def int8_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
         rel_l2=rel, max_abs=max_abs, launches=launches,
         quantizations_in_solve=n_quant, peak_gib=peak_gb,
         field_check=field_check(torch, model, z, t_half))
+
+
+def adaptive_solve(torch, flow, model, z, max_steps=MAX_STEPS):
+    """One dopri5 solve through ``core.flow.decode``: latents, seconds and
+    the solver's statistics."""
+    stats = {}
+    sk = dict(ADAPTIVE_SK, max_steps=max_steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lat = flow.decode(lambda t, x: model(x, t)[0], z, sk, stats=stats)
+    torch.cuda.synchronize()
+    return lat, time.perf_counter() - t0, stats
+
+
+def adaptive_view(torch, flow, attn, mlpk, quant, name, model, z, blocks,
+                  kernels):
+    """A warm dopri5 solve, then a timed one: its readings, with exactly
+    ``blocks * NFE`` launches of each of ``kernels`` and of no other
+    kernel, no weight quantization, t = 1 below ``MAX_STEPS``."""
+    adaptive_solve(torch, flow, model, z)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(attn, mlpk)
+    quant.reset_quantizations()
+    lat, secs, st = adaptive_solve(torch, flow, model, z)
+    launches = all_launches(attn, mlpk)
+    n_quant = quant.QUANTIZATIONS["weights"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    want = expected(attn, mlpk, **{k: blocks * st["nfe"] for k in kernels})
+    rec = dict(nfe=st["nfe"], steps=st["steps"], accepted=st["accepted"],
+               rejections=st["steps"] - st["accepted"], t=st["t"],
+               seconds=secs, imgs_per_s=B / secs, peak_gib=peak_gb,
+               launches=launches, quantizations_in_solve=n_quant)
+    log(f"{name}: dopri5 rtol=atol=1e-5 (I controller, safety 0.9): NFE "
+        f"{st['nfe']}, steps {st['steps']}, accepted {st['accepted']}, t "
+        f"{st['t']}, {secs:.3f} s, {B / secs:.3f} img/s, peak {peak_gb:.2f} "
+        f"GiB, launches {launches}, weight quantizations {n_quant}")
+    if st["t"] != 1.0 or st["steps"] >= MAX_STEPS:
+        fail(f"{name}: the dopri5 solve stopped at t={st['t']} after "
+             f"{st['steps']} steps")
+    if launches != want:
+        fail(f"{name}: launches {launches}, expected {want}")
+    if n_quant:
+        fail(f"{name}: {n_quant} weight quantizations inside the solve")
+    if tuple(lat.shape) != (B, 32, 32, 4) or not torch.isfinite(lat).all():
+        fail(f"{name}: latents {tuple(lat.shape)} or not finite")
+    return lat, rec
+
+
+def adaptive_agree(torch, what, lat, ref, limits):
+    max_abs, rel, cos = compare(torch, lat, ref)
+    min_cos, max_rel = limits
+    log(f"  {what}: cos {cos:.7f} (min {min_cos}) rel_l2 {rel:.3e} (max "
+        f"{max_rel})")
+    if not (cos >= min_cos and rel <= max_rel):
+        fail(f"{what}: outside the limits")
+    return dict(cos=cos, rel_l2=rel, max_abs=max_abs)
+
+
+def adaptive_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
+                  model, by_key):
+    """Phase 4c: the reference's eval decode, dopri5 at rtol = atol = 1e-5,
+    at batch 50 from phase 4's weights and z: the bf16 view on the LN-fused
+    route (LN + QKV-projection kernel, plain MLP), the w8 view (the same
+    kernel and the w8 MLP sub-block kernel), and the W8A8 view as a control
+    capped at W8A8_CONTROL_MAX_STEPS step attempts. Returns the w8 model."""
+    blocks = cfg["nnet"]["depth"] + 1
+    out = {}
+    view = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="pallas_lnmlp")
+    view.load_state_dict(model.state_dict())
+    lat_bf16, out["bf16"] = adaptive_view(
+        torch, flow, attn, mlpk, quant, "adaptive bf16 (pallas_lnmlp)", view,
+        z, blocks, ("ln_qkvproj_attention",))
+    lat_rk4, secs = decode_run(torch, flow, view, z, STEPS, method="rk4")
+    out["bf16"]["rk4_seconds"] = secs
+    out["bf16"]["vs_rk4"] = adaptive_agree(
+        torch, f"bf16 dopri5 vs rk4-{STEPS} ({4 * STEPS} evaluations, "
+        f"{secs:.1f} s)", lat_bf16, lat_rk4, ADAPT_RK4_LIMITS)
+    by_key["ln_qkvproj_attention"]["launches"] = \
+        out["bf16"]["launches"]["ln_qkvproj_attention"]
+    del view, lat_rk4
+    w8 = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="auto",
+                                quant="w8")
+    w8.load_state_dict(model.state_dict())  # the bf16 weights, in f32
+    lat_w8, out["w8"] = adaptive_view(
+        torch, flow, attn, mlpk, quant, "adaptive w8 (auto)", w8, z, blocks,
+        ("ln_qkvproj_attention", "ln_mlp_w8"))
+    out["w8"]["vs_bf16"] = adaptive_agree(torch, "w8 dopri5 vs bf16 dopri5",
+                                          lat_w8, lat_bf16, ADAPT_W8_LIMITS)
+    ratio = out["w8"]["nfe"] / out["bf16"]["nfe"]
+    out["w8"]["nfe_ratio"] = ratio
+    log(f"  w8 NFE / bf16 NFE = {ratio:.3f} (max {W8_NFE_RATIO})")
+    if ratio > W8_NFE_RATIO:
+        fail("the w8 view's dopri5 NFE exceeds the bound")
+    by_key["ln_mlp_w8"]["launches"] = out["w8"]["launches"]["ln_mlp_w8"]
+    q = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="auto", quant=True)
+    q.load_state_dict(model.state_dict())
+    with torch.no_grad():  # quantizes every weight once
+        q(z, torch.zeros(B, device=dev))
+    lat_q, secs, st = adaptive_solve(torch, flow, q, z,
+                                     W8A8_CONTROL_MAX_STEPS)
+    capped = st["t"] != 1.0
+    out["w8a8_control"] = dict(
+        max_steps=W8A8_CONTROL_MAX_STEPS, nfe=st["nfe"], steps=st["steps"],
+        accepted=st["accepted"], t=st["t"], hit_cap=capped, seconds=secs)
+    log(f"adaptive W8A8 control (quant=True, at most "
+        f"{W8A8_CONTROL_MAX_STEPS} steps): NFE {st['nfe']}, steps "
+        f"{st['steps']}, accepted {st['accepted']}, t {st['t']:.6g}"
+        f"{' (hit the cap)' if capped else ''}, {secs:.1f} s; w8 view NFE "
+        f"{out['w8']['nfe']}")
+    del q, lat_q
+    return w8, out
 
 
 def train_path(torch, attn, cfg, dev, by_key):
@@ -885,6 +1128,11 @@ def main():
     qmodel, report["int8_main_path"] = int8_path(
         torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z, lat, by_key)
 
+    # 4c. adaptive sampling: dopri5 in the bf16 and w8 views
+    w8model, report["adaptive"] = adaptive_path(
+        torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z, model,
+        by_key)
+
     # 5. the other kernel views, a few Euler steps each: bf16 views against
     # the plain path's limits, int8 views against the quality gate
     ref_short, _ = decode_run(torch, flow, plain, z, SHORT_STEPS)
@@ -896,9 +1144,11 @@ def main():
         ("pallas_qkvproj", True, dict(qkvproj_attention_int8=per,
                                       mlp_int8=per)),
         ("xla", True, dict(mlp_int8=per)),
+        ("pallas_qkvproj", "w8", dict(qkvproj_attention=per, mlp_w8=per)),
+        ("xla", "w8", dict(mlp_w8=per)),
     )
     for impl, q, counts in views:
-        src = qmodel if q else model
+        src = {False: model, True: qmodel, "w8": w8model}[q]
         view = sample_lfm.build_model(cfg, dev, seed=0, attn_impl=impl,
                                       quant=q)
         view.load_state_dict(src.state_dict())
@@ -906,13 +1156,13 @@ def main():
         out, secs_v = decode_run(torch, flow, view, z, SHORT_STEPS)
         got = all_launches(attn, mlpk)
         _, rel_v, cos_v = compare(torch, out, ref_short)
-        name = f"{impl}{' int8' if q else ''}"
+        name = impl + {False: "", True: " int8", "w8": " w8"}[q]
         min_cos, max_rel = ((QUANT_MIN_COS, QUANT_MAX_REL_L2) if q
                             else (PATH_MIN_COS, PATH_MAX_REL_L2))
         log(f"{name}: {SHORT_STEPS} Euler steps in {secs_v:.3f} s, launches "
             f"{got} (expected {counts}), cos {cos_v:.7f} rel_l2 {rel_v:.3e} "
             f"against the plain path ({skips} int8 skip_linear layers per "
-            f"evaluation when quantized)")
+            f"evaluation in the int8 views)")
         if got != expected(attn, mlpk, **counts):
             fail(f"{name}: launches {got}, expected {counts}")
         if not (cos_v >= min_cos and rel_v <= max_rel):
@@ -924,9 +1174,43 @@ def main():
             steps=SHORT_STEPS, seconds=secs_v, cos=cos_v, rel_l2=rel_v,
             launches=counts)
         del view
-    del model, plain, qmodel
 
-    # 6. the sampling entry point, bf16 and int8 views
+    # 5b. the w8 view's Euler-50 against phase 4's bf16 latents: closer
+    # than the W8A8 view (the JAX package's test of the view)
+    reset_launches(attn, mlpk)
+    lat_w8, secs_w8 = decode_run(torch, flow, w8model, z, STEPS)
+    got = all_launches(attn, mlpk)
+    _, rel_w8, cos_w8 = compare(torch, lat_w8, lat)
+    rel_q = report["int8_main_path"]["rel_l2"]
+    log(f"w8 Euler-{STEPS} (auto): {secs_w8:.3f} s, {B / secs_w8:.3f} img/s, "
+        f"launches {got}; latents vs the bf16 kernel view: cos {cos_w8:.7f} "
+        f"rel_l2 {rel_w8:.3e} (W8A8 view: {rel_q:.3e})")
+    if got != expected(attn, mlpk, ln_qkvproj_attention=n_main,
+                       ln_mlp_w8=n_main):
+        fail(f"w8 Euler-{STEPS}: launches {got}")
+    if not rel_w8 < rel_q:
+        fail("the w8 view is not closer to the bf16 view than W8A8")
+    report["w8_euler"] = dict(steps=STEPS, seconds=secs_w8,
+                              imgs_per_s=B / secs_w8, cos=cos_w8,
+                              rel_l2=rel_w8, w8a8_rel_l2=rel_q)
+    del model, plain, qmodel, w8model
+
+    # 6. the sampling entry point: bf16 and int8 views, and the w8 view's
+    # adaptive solve (the config's dopri5 with the PI controller)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        st = []
+        paths = sample_lfm.run(config="uvit_large", n_samples=B, batch=B,
+                               seed=3, out=tmp, quant="w8",
+                               solver="adaptive", stats=st)
+        secs_cli = time.perf_counter() - t0
+        a = np.load(paths[0])
+        log(f"sample_lfm.run (quant=w8, solver=adaptive): {a.shape} in "
+            f"{secs_cli:.1f} s, {st}")
+        if len(paths) != 1 or a.shape != (B, 32, 32, 4) or not \
+                np.isfinite(a).all() or st[0]["t"] != 1.0:
+            fail(f"sample_lfm (w8, adaptive) wrote {a.shape}, {st}")
+    report["sample_lfm_w8_adaptive"] = dict(seconds=secs_cli, **st[0])
     for q in (None, True):
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()

@@ -257,7 +257,7 @@ def test_ctypes_signatures_match_c_source():
     """Each declared argtypes list has one entry per C parameter, pointers
     as c_void_p (a 32-bit default would cut a pointer)."""
     assert set(_build.SIGNATURES) == {"attention", "attention_bwd",
-                                      "mlp_int8"}
+                                      "mlp_int8", "mlp_w8"}
     for name, sigs in _build.SIGNATURES.items():
         src = (_build.CSRC / f"{name}.cu").read_text()
         for fn, argtypes in sigs.items():

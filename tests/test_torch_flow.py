@@ -109,11 +109,18 @@ def test_odeint_dispatch():
         tsolvers.odeint_fixed(f, x0, 0.0, 1.0, 10, "midpoint").numpy())
     assert tsolvers.num_fixed_steps(1.0, 0.0, 0.02) == 50
     assert tsolvers.num_fixed_steps(0.0, 1.0, 3.0) == 1
-    for kind in ("adaptive", "fixadp"):
-        with pytest.raises(NotImplementedError):
-            tsolvers.odeint(f, x0, 0.0, 1.0, {"solver": kind})
-    with pytest.raises(NotImplementedError):
-        tsolvers.odeint(f, x0, 0.0, 1.0)  # the JAX default is dopri5
+    # the JAX default is dopri5 at rtol = atol = 1e-5, I controller
+    np.testing.assert_array_equal(
+        tsolvers.odeint(f, x0, 0.0, 1.0).numpy(),
+        tsolvers.odeint_adaptive(f, x0, 0.0, 1.0, "dopri5").numpy())
+    with pytest.raises(ValueError, match="t_mid"):
+        tsolvers.odeint(f, x0, 0.0, 1.0, {"solver": "fixadp"})
+    mid = tsolvers.odeint_fixed(f, x0, 0.0, 0.5, 5)
+    np.testing.assert_array_equal(
+        tsolvers.odeint(f, x0, 0.0, 1.0, {"solver": "fixadp",
+                                          "solver_fix_step": 0.1},
+                        t_mid=0.5).numpy(),
+        tsolvers.odeint_adaptive(f, mid, 0.5, 1.0).numpy())
     with pytest.raises(NotImplementedError):
         tsolvers.odeint_fixed(f, x0, 0.0, 1.0, 2, method="heun")
 

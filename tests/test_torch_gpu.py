@@ -9,7 +9,8 @@ the backward kernel's limits of chip_smoke.py. The int8 kernels may also
 flip an int8 code by one step where an f32 sum (LN statistics) runs in
 another order: max-abs one bf16 step of the largest output value, and the
 int8 rel-L2 limits of chip_smoke.py, taken for the MLP sub-block on out - x
-(the residual would dilute an error of the MLP).
+(the residual would dilute an error of the MLP). The weight-only int8 (w8)
+MLP kernels are held the same way, at chip_smoke.py's w8 limit.
 """
 
 import math
@@ -27,6 +28,7 @@ pytestmark = pytest.mark.gpu
 MAX_ABS, REL_L2 = 1e-2, 2e-3
 BWD_MAX_ABS, BWD_REL_L2 = 5e-3, 5e-4
 INT8_ATTN_REL_L2, INT8_MLP_REL_L2 = 5e-4, 1e-4
+W8_MLP_REL_L2 = 6e-4
 
 
 @pytest.fixture
@@ -260,7 +262,8 @@ def test_int8_wrappers_count_launches_and_refuse(cuda):
     torch.cuda.synchronize()
     assert attn.LAUNCHES["qkvproj_attention_int8"] == 1
     assert attn.LAUNCHES["ln_qkvproj_attention_int8"] == 1
-    assert mlp.LAUNCHES == {"mlp_int8": 1, "ln_mlp_int8": 1}
+    assert mlp.LAUNCHES == {"mlp_int8": 1, "ln_mlp_int8": 1, "mlp_w8": 0,
+                            "ln_mlp_w8": 0}
     with pytest.raises(ValueError, match="bfloat16"):
         with torch.no_grad():
             mlp.fused_mlp(x.float(), w1, bb, w2, bb[:256])
@@ -296,3 +299,79 @@ def test_uvit_int8_auto_routes_through_the_lnfused_kernels(cuda):
     assert sum(attn.LAUNCHES.values()) == 6 and mlp.LAUNCHES["mlp_int8"] == 0
     af, bf = a.float(), b.float()
     assert float((af * bf).sum() / (af.norm() * bf.norm())) > 0.99
+
+
+@pytest.mark.parametrize("rows,c,out", [(1, 1024, 1024), (33, 256, 256),
+                                        (500, 512, 768), (12850, 1024, 1024)])
+def test_w8_mlp_kernels_match_twins(cuda, rows, c, out):
+    g = torch.Generator(device=cuda).manual_seed(rows + 3)
+    hid = 4 * c
+    x = _rand(g, rows, c)
+    w1 = _rand(g, c, hid, std=0.02, dtype=torch.float32)
+    b1 = _rand(g, hid, std=0.02, dtype=torch.float32)
+    w2 = _rand(g, hid, out, std=0.02, dtype=torch.float32)
+    b2 = _rand(g, out, std=0.02, dtype=torch.float32)
+    lns = 1 + _rand(g, c, std=0.1, dtype=torch.float32)
+    lnb = _rand(g, c, std=0.1, dtype=torch.float32)
+    q1, q2 = quant.quantized_weight(w1), quant.quantized_weight(w2)
+    s = mlp.col_slices(hid)
+    with torch.no_grad():
+        _agree_int8(mlp.fused_mlp(x, w1, b1, w2, b2, quant="w8"),
+                    mlp.mlp_w8_plain(x, q1, b1, q2, b2, s), W8_MLP_REL_L2)
+        if out == c:
+            _agree_int8(mlp.fused_mlp_block_q(x, lns, lnb, w1, b1, w2, b2,
+                                              quant="w8"),
+                        mlp.ln_mlp_w8_plain(x, lns, lnb, q1, b1, q2, b2, s,
+                                            1e-5), W8_MLP_REL_L2, x)
+
+
+def test_w8_wrappers_count_launches_and_refuse(cuda):
+    mlp.reset_launches()
+    x = torch.zeros(1, 8, 256, dtype=torch.bfloat16, device=cuda)
+    w1 = torch.zeros(256, 1024, device=cuda)
+    w2 = torch.zeros(1024, 256, device=cuda)
+    bb = torch.zeros(1024, device=cuda)
+    with torch.no_grad():
+        mlp.fused_mlp(x, w1, bb, w2, bb[:256], quant="w8")
+        mlp.fused_mlp_block_q(x, bb[:256] + 1, bb[:256], w1, bb, w2, bb[:256],
+                              quant="w8")
+    torch.cuda.synchronize()
+    assert mlp.LAUNCHES == {"mlp_int8": 0, "ln_mlp_int8": 0, "mlp_w8": 1,
+                            "ln_mlp_w8": 1}
+    with pytest.raises(ValueError, match="bfloat16"):
+        with torch.no_grad():
+            mlp.fused_mlp(x.float(), w1, bb, w2, bb[:256], quant="w8")
+    with pytest.raises(ValueError, match="output width"):
+        with torch.no_grad():
+            mlp.fused_mlp(x, w1, bb, w2[:, :200], bb[:200], quant="w8")
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        mlp.fused_mlp(x, w1.requires_grad_(), bb, w2, bb[:256], quant="w8")
+
+
+def test_uvit_w8_auto_routes_through_the_lnfused_kernels(cuda):
+    """The w8 view's `auto` on the card: the bf16 LN + QKV-projection kernel
+    (row 3) and the w8 MLP sub-block (row 16), one quantization per weight
+    value, and a field close to the bf16 view of the same weights."""
+    cfg = dict(img_size=8, patch_size=2, in_chans=4, embed_dim=256, depth=2,
+               num_heads=4, dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    w8 = UViT(quant="w8", **cfg).init_weights(g).eval()
+    plain = UViT(attn_impl="xla", param_dtype=torch.float32, **cfg).eval()
+    plain.load_state_dict(w8.state_dict())
+    x = torch.randn(4, 8, 8, 4, generator=g, device=cuda)
+    t = torch.full((4,), 0.5, device=cuda)
+    attn.reset_launches()
+    mlp.reset_launches()
+    with torch.no_grad():
+        a, _ = w8(x, t)
+        quant.reset_quantizations()
+        a2, _ = w8(x, t)
+        b, _ = plain(x, t)
+    assert quant.QUANTIZATIONS["weights"] == 0
+    assert torch.equal(a, a2)
+    assert attn.LAUNCHES["ln_qkvproj_attention"] == 6
+    assert mlp.LAUNCHES == {"mlp_int8": 0, "ln_mlp_int8": 0, "mlp_w8": 0,
+                            "ln_mlp_w8": 6}
+    assert sum(attn.LAUNCHES.values()) == 6
+    af, bf = a.float(), b.float()
+    assert float((af * bf).sum() / (af.norm() * bf.norm())) > 0.999

@@ -389,18 +389,14 @@ def test_model_views_reuse_the_cache():
 
 
 def test_unported_quant_options_raise():
-    with pytest.raises(NotImplementedError, match="kernels 16-17"):
-        UViT(quant="w8", device="cpu", **TOY)
-    with pytest.raises(NotImplementedError, match="kernels 16-17"):
-        tlayers.Mlp(64, 256, quant="w8")
     with pytest.raises(NotImplementedError, match="kernel 11"):
         tlayers.Block(64, H, quant=True, attn_impl="pallas_block")
+    with pytest.raises(NotImplementedError, match="kernel 10"):
+        tlayers.Block(64, H, quant="w8", attn_impl="pallas_block")
     with pytest.raises(ValueError, match="quant view"):
         tlayers.Block(64, H, quant="int4")
     x = torch.zeros(4, 64)
     w1, w2 = torch.zeros(64, 256), torch.zeros(256, 64)
-    with pytest.raises(NotImplementedError, match="kernels 16-17"):
-        tmlp.fused_mlp(x, w1, w1[0], w2, w2[0], quant="w8")
     with pytest.raises(NotImplementedError, match="kernels 12-13"):
         tmlp.fused_mlp(x, w1, w1[0], w2, w2[0], quant=False)
     with pytest.raises(NotImplementedError, match="kernels 12-13"):
@@ -408,12 +404,10 @@ def test_unported_quant_options_raise():
                                quant=False)
     with pytest.raises(NotImplementedError, match="inference-only"):
         tmlp.fused_mlp(x, w1.requires_grad_(), w1[0], w2, w2[0])
-    # the w8a8_mlp view with a qkv bias goes to the "w8" MLP, as in JAX
-    blk = tlayers.Block(64, H, qkv_bias=True, quant="w8a8_mlp",
-                        attn_impl="pallas_lnmlp")
-    with pytest.raises(NotImplementedError, match="kernels 16-17"):
-        with torch.no_grad():
-            blk(torch.zeros(1, 5, 64))
+    # the w8 view, once refused here, runs (tests/test_torch_w8.py)
+    with torch.no_grad():
+        tmlp.fused_mlp(x, w1, w1[0], w2, w2[0], quant="w8")
+    UViT(quant="w8", device="cpu", **TOY)
 
 
 def test_cpu_int8_twins_do_not_count_launches():
@@ -426,7 +420,8 @@ def test_cpu_int8_twins_do_not_count_launches():
         tmlp.fused_mlp(_t(m["x"]), _t(m["w1"]), _t(m["b1"]), _t(m["w2"]),
                        _t(m["b2"]))
     assert set(tattn.LAUNCHES.values()) == {0}
-    assert tmlp.LAUNCHES == {"mlp_int8": 0, "ln_mlp_int8": 0}
+    assert tmlp.LAUNCHES == {"mlp_int8": 0, "ln_mlp_int8": 0, "mlp_w8": 0,
+                             "ln_mlp_w8": 0}
 
 
 def test_sample_lfm_quant_on_cpu(tmp_path):

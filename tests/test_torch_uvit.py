@@ -175,8 +175,8 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="kernel 11"):
         UViT(quant=True, attn_impl="pallas_block", device="cpu",
              **_cfg("uncond"))
-    with pytest.raises(NotImplementedError, match="kernels 16-17"):
-        tlayers.Block(64, 4, quant="w8")
+    with pytest.raises(NotImplementedError, match="kernel 10"):
+        tlayers.Block(64, 4, quant="w8", attn_impl="pallas_block")
     with pytest.raises(NotImplementedError):
         get_nnet("unet_t2i")
     with pytest.raises(ValueError, match="attn_impl"):

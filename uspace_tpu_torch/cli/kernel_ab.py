@@ -6,7 +6,8 @@ Builds ``--base`` (a ``<source>.cu`` with the same C interface, e.g. from
 ``ops/csrc/<source>.cu`` and times each of its kernels at its path's shapes
 (``attention``: the bf16 and int8 sampling kernels at B=50;
 ``attention_bwd``: the backward at B=128; L=257, C=1024, H=16, bf16;
-``mlp_int8``: the int8 MLP kernels on the 12850 rows of B=50, hidden 4096)
+``mlp_int8`` and ``mlp_w8``: the W8A8 and weight-only int8 MLP kernels on
+the 12850 rows of B=50, hidden 4096)
 with CUDA events, the two builds alternating base, new, new, base, ... on
 one card. A base source that lacks an entry point skips its kernel. Needs a
 CUDA card.
@@ -16,6 +17,8 @@ CUDA card.
         --base old/attention_bwd.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source mlp_int8 \
         --base old/mlp_int8.cu
+    python -m uspace_tpu_torch.cli.kernel_ab --source mlp_w8 \
+        --base old/mlp_w8.cu
 """
 
 from __future__ import annotations
@@ -89,6 +92,9 @@ def main(argv=None) -> None:
     mw = (q1.q.data_ptr(), q1.scale.data_ptr(), b1.data_ptr(),
           q2.q.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(), cs.data_ptr(),
           out.data_ptr(), rows, C, hid, C, 4)
+    w8 = (q1.q.data_ptr(), q1.scale.data_ptr(), b1.data_ptr(),
+          q2.q.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(), out.data_ptr(),
+          rows, C, hid, C)
     s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     calls = {
         "packed_attention": lambda lib: lib.uspace_packed_attention(
@@ -111,6 +117,9 @@ def main(argv=None) -> None:
         "mlp_int8": lambda lib: lib.uspace_mlp_int8(x.data_ptr(), *mw, s),
         "ln_mlp_int8": lambda lib: lib.uspace_ln_mlp_int8(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *mw, 1e-5, s),
+        "mlp_w8": lambda lib: lib.uspace_mlp_w8(x.data_ptr(), *w8, s),
+        "ln_mlp_w8": lambda lib: lib.uspace_ln_mlp_w8(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *w8, 1e-5, s),
     }
     calls = {k: f for k, f in calls.items()
              if f"uspace_{k}" in _build.SIGNATURES[a.source]

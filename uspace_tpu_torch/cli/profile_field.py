@@ -9,12 +9,14 @@ difference is the device's idle share). With ``--train`` it traces
 ``--evals`` train steps instead (f32 master weights, ``--attn_impl``
 default pallas_packed, ``--remat_exempt`` blocks exempt from remat, the
 JAX bench's optimizer) and also reports peak device memory and img/s.
-``--quant`` profiles the int8 W8A8 sampling view (f32 weights, quantized
-once in the warm-up). Needs a CUDA card.
+``--quant`` profiles an int8 sampling view (f32 weights, quantized once in
+the warm-up): W8A8 (the flag's default) or weight-only (``--quant w8``).
+Needs a CUDA card.
 
     python -m uspace_tpu_torch.cli.profile_field --config uvit_large \\
         --batch 50 --attn_impl auto --out profile_field.json
     python -m uspace_tpu_torch.cli.profile_field --quant --out q.json
+    python -m uspace_tpu_torch.cli.profile_field --quant w8 --out w8.json
     python -m uspace_tpu_torch.cli.profile_field --train --batch 128 \\
         --remat_exempt 21 --out profile_train.json
 """
@@ -40,6 +42,7 @@ GROUPS = (
     ("attention kernel (ours)", ("attention_kernel",)),
     ("int8 attention kernel (ours)", ("attention_int8_kernel",)),
     ("int8 MLP kernel (ours)", ("mlp_int8_kernel",)),
+    ("w8 MLP kernel (ours)", ("mlp_w8_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet")),
     ("conv (cuDNN)", ("conv", "Conv", "cudnn")),
     ("softmax", ("softmax", "Softmax")),
@@ -151,7 +154,7 @@ def main(argv=None) -> None:
                     help="trace train steps instead of field evaluations")
     ap.add_argument("--remat_exempt", type=int, default=0)
     ap.add_argument("--quant", nargs="?", const="w8a8", default=None,
-                    choices=["w8a8", "w8a8_mlp"],
+                    choices=["w8a8", "w8a8_mlp", "w8"],
                     help="profile the int8 sampling view (flag: w8a8)")
     ap.add_argument("--out", default="")
     a = ap.parse_args(argv)

@@ -1,17 +1,26 @@
-"""Sample latents with the U-ViT field and Euler steps.
+"""Sample latents with the U-ViT field.
 
 The no-VAE branch of ``uspace_tpu/cli/sample_lfm.py``: noise goes through
-``core.flow.decode`` with fixed-step Euler and each mini-batch of raw
-latents ([n, 32, 32, 4] f32, NHWC) is written to ``<out>/<first index>.npy``.
-Without ``--weights`` the field has seeded random weights; ``--weights``
-takes an ``.npz`` of JAX params keyed ``a/b/c``. ``--quant`` samples with
-the int8 W8A8 view of the same weights (``w8a8``, the default of the flag,
-or ``w8a8_mlp``), as the config's ``nnet.quant`` does.
+``core.flow.decode`` and each mini-batch of raw latents ([n, 32, 32, 4]
+f32, NHWC) is written to ``<out>/<first index>.npy``. Without
+``--weights`` the field has seeded random weights; ``--weights`` takes an
+``.npz`` of JAX params keyed ``a/b/c``. ``--quant`` samples with an int8
+view of the same weights, as the config's ``nnet.quant`` does: W8A8
+(``w8a8``, the default of the flag, or ``w8a8_mlp``) or weight-only
+(``w8``, the view for adaptive solves).
+
+The solve is the config's, fixed-step Euler of ``--steps`` by default.
+``--solver adaptive`` runs the reference's eval decode (dopri5 at rtol =
+atol = 1e-5 unless ``--rtol`` / ``--atol`` say otherwise; the config's PI
+controller unless ``--controller i``); ``--solver fixadp`` is Euler to
+``--t_edit`` and adaptive from there. An adaptive solve prints each batch's
+field evaluations (NFE), step attempts and accepted steps.
 
     python -m uspace_tpu_torch.cli.sample_lfm --config uvit_large \\
         --n_samples 100 --batch 50 --steps 50 --seed 0 --out samples
     python -m uspace_tpu_torch.cli.sample_lfm --config synthetic_smoke \\
-        --quant --device cpu --n_samples 4 --batch 4 --out /tmp/q
+        --quant w8 --solver adaptive --device cpu --n_samples 4 --batch 4 \\
+        --out /tmp/w8
 """
 
 from __future__ import annotations
@@ -58,12 +67,19 @@ def build_model(config: dict, device: torch.device, seed: int = 0,
 @torch.no_grad()
 def run(config: str = "uvit_large", n_samples: int = 100, batch: int = 50,
         steps: int = 50, seed: int = 0, weights: Optional[str] = None,
-        out: str = "samples", device=None, quant=None) -> List[str]:
-    """Write ceil(n_samples / batch) latent batches; returns their paths."""
+        out: str = "samples", device=None, quant=None,
+        solver: Optional[str] = None, t_edit: Optional[float] = None,
+        rtol: Optional[float] = None, atol: Optional[float] = None,
+        controller: Optional[str] = None, safety: Optional[float] = None,
+        stats: Optional[List[dict]] = None) -> List[str]:
+    """Write ceil(n_samples / batch) latent batches; returns their paths.
+    For an adaptive solve each batch's statistics are printed and, when
+    ``stats`` is a list, appended to it."""
     dev = resolve_device(device)
     cfg = get_config(config)
     model = build_model(cfg, dev, seed, weights, quant=quant)
-    sk = solver_kwargs(cfg, steps)
+    sk = solver_kwargs(cfg, steps, solver=solver, rtol=rtol, atol=atol,
+                       controller=controller, safety=safety)
     c, h, w = cfg["z_shape"]
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     os.makedirs(out, exist_ok=True)
@@ -72,7 +88,14 @@ def run(config: str = "uvit_large", n_samples: int = 100, batch: int = 50,
         n = min(batch, n_samples - b * batch)
         z = torch.randn((n, h, w, c), generator=gen, dtype=torch.float32,
                         device=dev)
-        lat = flow.decode(lambda t, x: model(x, t)[0], z, sk)
+        st = {}
+        lat = flow.decode(lambda t, x: model(x, t)[0], z, sk, t_edit=t_edit,
+                          stats=st)
+        if st:
+            print(f"batch {b}: NFE {st['nfe']}, steps {st['steps']}, "
+                  f"accepted {st['accepted']}, t {st['t']:.6g}", flush=True)
+            if stats is not None:
+                stats.append(st)
         path = os.path.join(out, f"{b * batch}.npy")
         np.save(path, lat.float().cpu().numpy())
         paths.append(path)
@@ -91,11 +114,21 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default="samples")
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--quant", nargs="?", const="w8a8", default=None,
-                    choices=["w8a8", "w8a8_mlp"],
+                    choices=["w8a8", "w8a8_mlp", "w8"],
                     help="int8 sampling view (default of the flag: w8a8)")
+    ap.add_argument("--solver", default=None,
+                    choices=["fixed", "adaptive", "fixadp"],
+                    help="default: the config's (fixed-step Euler)")
+    ap.add_argument("--t_edit", type=float, default=None,
+                    help="split time of --solver fixadp")
+    ap.add_argument("--rtol", type=float, default=None)
+    ap.add_argument("--atol", type=float, default=None)
+    ap.add_argument("--controller", default=None, choices=["i", "pi"])
+    ap.add_argument("--safety", type=float, default=None)
     a = ap.parse_args(argv)
     paths = run(a.config, a.n_samples, a.batch, a.steps, a.seed, a.weights,
-                a.out, a.device, a.quant)
+                a.out, a.device, a.quant, a.solver, a.t_edit, a.rtol, a.atol,
+                a.controller, a.safety)
     print(f"wrote {len(paths)} batches to {a.out}")
 
 

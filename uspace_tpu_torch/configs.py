@@ -32,10 +32,14 @@ _OPTIMIZER = dict(name="adam", lr=1e-4, weight_decay=0.03, betas=(0.9, 0.999))
 _LR_SCHEDULER = dict(name="customized", warmup_steps=0)
 _DYNAMIC = dict(sigma_min=1e-4)
 
-# solver_fix_step <= 0 derives the step from sample_steps
+# configs/common.py:53-74: fixed Euler by default; solver="adaptive" runs
+# the reference's eval decode (dopri5 at rtol = atol = 1e-5) with the keys
+# below. solver_fix_step <= 0 derives the step from sample_steps.
 _SAMPLE = dict(sample_steps=50, n_samples=50_000, mini_batch_size=50,
                solver_kwargs=dict(solver="fixed", solver_fix="euler",
-                                  solver_fix_step=-1.0))
+                                  solver_fix_step=-1.0,
+                                  solver_adaptive="dopri5", rtol=1e-5,
+                                  atol=1e-5, controller="pi"))
 
 CONFIGS: Dict[str, Dict[str, Any]] = {
     # CelebAMask-HQ 256 U-ViT-large (configs/lfm_cm256_uvit_large.py):
@@ -75,11 +79,16 @@ def get_config(name: str) -> Dict[str, Any]:
     return copy.deepcopy(CONFIGS[name])
 
 
-def solver_kwargs(config: Dict[str, Any], sample_steps: int = 0) -> dict:
-    """The sampling solve of ``config``; a non-positive solver_fix_step
-    becomes 1 / sample_steps."""
+def solver_kwargs(config: Dict[str, Any], sample_steps: int = 0,
+                  **overrides) -> dict:
+    """The sampling solve of ``config``, every key passed through and the
+    keys of ``overrides`` that are not None replaced (``solver``, ``rtol``,
+    ...); a non-positive solver_fix_step becomes 1 / sample_steps for the
+    fixed solve and the fixed part of "fixadp"."""
     steps = sample_steps or config["sample"]["sample_steps"]
     sk = dict(config["sample"]["solver_kwargs"])
-    if sk.get("solver") == "fixed" and sk.get("solver_fix_step", -1.0) <= 0:
+    sk.update({k: v for k, v in overrides.items() if v is not None})
+    if sk.get("solver") in ("fixed", "fixadp") and \
+            sk.get("solver_fix_step", -1.0) <= 0:
         sk["solver_fix_step"] = 1.0 / steps
     return sk

@@ -39,11 +39,14 @@ def decode(
     solver_kwargs: Optional[dict] = None,
     t_edit: Optional[float] = None,
     has_aux: bool = False,
+    stats: Optional[dict] = None,
 ) -> Any:
-    """Integrate noise -> data, t: 0 -> 1."""
+    """Integrate noise -> data, t: 0 -> 1 (the "fixadp" solver splits at
+    ``t_edit``). A dict passed as ``stats`` receives an adaptive solve's
+    step and evaluation counts (``solvers.odeint``)."""
     vf = _scalar_to_batch_vf(velocity_fn, z.shape[0])
     return solvers.odeint(vf, z, 0.0, 1.0, solver_kwargs=solver_kwargs,
-                          t_mid=t_edit, has_aux=has_aux)
+                          t_mid=t_edit, has_aux=has_aux, stats=stats)
 
 
 def encode(

@@ -15,14 +15,17 @@ through the cast. LayerNorm keeps f32 parameters and f32 statistics.
 
 Quantized sampling views (``quant``, the JAX package's ``_qmodes``):
 ``True``/``"w8a8"`` runs int8 W8A8 on the block matmuls (qkv, proj, MLP,
-skip_linear) where the JAX package does, ``"w8a8_mlp"`` on the MLP only.
-The param tree is the bf16 view's, so one checkpoint loads into every
-view; the int8 layers quantize their f32 weights once per weight value
+skip_linear) where the JAX package does, ``"w8a8_mlp"`` on the MLP only,
+and ``"w8"`` keeps int8 weights with activations in the compute dtype on
+the MLP only (qkv, proj and skip_linear stay bf16 ``Dense``). The param
+tree is the bf16 view's, so one checkpoint loads into every view; the int8
+layers quantize their f32 weights once per weight value
 (``ops/quant.quantized_weight``). ``Block`` follows the JAX routing
 (``uspace_tpu/models/layers.py:364-518``), including its less obvious
 choices: the unfused attention keeps bf16 qkv and proj, ``pallas_packed``
-keeps a bf16 qkv but an int8 proj, and ``w8a8_mlp`` on the LN-fused route
-pairs the bf16 LN kernel with the int8 MLP sub-block.
+keeps a bf16 qkv but an int8 proj, ``w8`` and ``w8a8_mlp`` on the LN-fused
+route pair the bf16 LN kernel with their MLP sub-block, and
+``pallas_lnmlp`` with a qkv bias sends ``w8a8_mlp`` to the ``w8`` MLP.
 """
 
 from __future__ import annotations
@@ -49,23 +52,22 @@ LN_EPS = 1e-5
 ATTN_IMPLS = ("auto", "xla", "pallas_qkvproj", "pallas_packed",
               "pallas_lnmlp")
 QUANT_VIEWS = (False, True, "w8a8", "w8", "w8a8_mlp")
-_UNPORTED_W8 = ("the weight-only int8 view (quant='w8': kernels 16-17 of the "
-                "kernel table, _mlp_kernel_w8_lnres / _mlp_kernel_w8) is not "
-                "ported yet")
 _UNPORTED_BLOCK_Q = ("attn_impl='pallas_block' with the W8A8 view needs the "
                      "int8 whole-sub-block kernel (kernel 11 of the kernel "
                      "table, _attn_block_kernel_q), not ported yet")
+_UNPORTED_BLOCK = ("attn_impl='pallas_block' needs the bf16 whole-attention-"
+                   "sub-block kernel (kernel 10 of the kernel table, "
+                   "_attn_block_kernel), not ported yet")
 
 
 def _qmodes(quant) -> tuple:
-    """``(w8a8, a8mlp)`` of the ``quant`` view flag
-    (``uspace_tpu/models/layers.py:189-204``); the ``"w8"`` view raises."""
+    """``(w8a8, w8, a8mlp)`` of the ``quant`` view flag
+    (``uspace_tpu/models/layers.py:189-204``)."""
     if not any(quant is v or (isinstance(v, str) and quant == v)
                for v in QUANT_VIEWS):
         raise ValueError(f"unknown quant view {quant!r}")
-    if quant == "w8":
-        raise NotImplementedError(_UNPORTED_W8)
-    return (quant is True or quant == "w8a8"), quant == "w8a8_mlp"
+    return ((quant is True or quant == "w8a8"), quant == "w8",
+            quant == "w8a8_mlp")
 
 
 def _fused_ok(x: torch.Tensor) -> bool:
@@ -187,16 +189,17 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Transformer MLP: fc1 -> exact GELU -> fc2; any quantized view runs
-    the fused int8 MLP (``ops.mlp.fused_mlp``)."""
+    """Transformer MLP: fc1 -> exact GELU -> fc2; a quantized view runs the
+    fused int8 MLP (``ops.mlp.fused_mlp``): weight-only for ``"w8"``, W8A8
+    for the others."""
 
     def __init__(self, in_features: int, hidden_dim: int,
                  out_dim: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, quant=False,
                  param_dtype=None, device=None):
         super().__init__()
-        _qmodes(quant)
-        self.quant = bool(quant)
+        w8 = _qmodes(quant)[1]
+        self.quant = ("w8" if w8 else True) if quant else False
         self.dtype = dtype
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.fc1 = Dense(in_features, hidden_dim, **kw)
@@ -206,7 +209,7 @@ class Mlp(nn.Module):
         if self.quant:
             return fused_mlp(x.to(self.dtype), self.fc1.weight.t(),
                              self.fc1.bias, self.fc2.weight.t(),
-                             self.fc2.bias, quant=True)
+                             self.fc2.bias, quant=self.quant)
         return self.fc2(gelu_exact(self.fc1(x)))
 
 
@@ -267,9 +270,11 @@ class Block(nn.Module):
                  attn_impl: str = "auto", quant=False, param_dtype=None,
                  device=None):
         super().__init__()
-        self.w8a8, self.a8mlp = _qmodes(quant)
+        self.w8a8, self.w8, self.a8mlp = _qmodes(quant)
         if self.w8a8 and attn_impl == "pallas_block":
             raise NotImplementedError(_UNPORTED_BLOCK_Q)
+        if self.w8 and attn_impl == "pallas_block":
+            raise NotImplementedError(_UNPORTED_BLOCK)
         self.quant = bool(quant)
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.dtype = dtype
@@ -284,12 +289,13 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), quant=quant, **kw)
 
-    def _mlp_block_q(self, x: torch.Tensor) -> torch.Tensor:
-        """x + MLP(LN2(x)) in one int8 kernel (``fused_mlp_block_q``)."""
+    def _mlp_block_q(self, x: torch.Tensor, quant=True) -> torch.Tensor:
+        """x + MLP(LN2(x)) in one int8 kernel (``fused_mlp_block_q``): W8A8
+        (``quant=True``) or weight-only (``"w8"``)."""
         return fused_mlp_block_q(
             x, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight.t(),
             self.mlp.fc1.bias, self.mlp.fc2.weight.t(), self.mlp.fc2.bias,
-            eps=self.norm2.eps, quant=True)
+            eps=self.norm2.eps, quant=quant)
 
     def forward(self, x: torch.Tensor,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -310,15 +316,13 @@ class Block(nn.Module):
                 x = x + self.attn.proj.int8(a).to(x.dtype)
                 return self._mlp_block_q(x)
             x = x + self.attn.proj(a).to(x.dtype)
-            if self.a8mlp:
-                return self._mlp_block_q(x)
+            if self.w8 or self.a8mlp:
+                return self._mlp_block_q(x, "w8" if self.w8 else True)
             return x + self.mlp(self.norm2(x))  # bf16: LN2 feeds the plain MLP
         x = x + self.attn(self.norm1(x))
         if self.quant and self.attn_impl == "pallas_lnmlp":
             # reached with qkv_bias; the JAX package sends w8a8_mlp to "w8"
-            if not self.w8a8:
-                raise NotImplementedError(_UNPORTED_W8)
-            return self._mlp_block_q(x)
+            return self._mlp_block_q(x, True if self.w8a8 else "w8")
         return x + self.mlp(self.norm2(x))
 
 

@@ -50,6 +50,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_mlp_int8": (_P,) * 9 + (_I,) * 5 + (_P,),
         "uspace_ln_mlp_int8": (_P,) * 11 + (_I,) * 5 + (_F, _P),
     },
+    "mlp_w8": {
+        "uspace_mlp_w8": (_P,) * 8 + (_I,) * 4 + (_P,),
+        "uspace_ln_mlp_w8": (_P,) * 10 + (_I,) * 4 + (_F, _P),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

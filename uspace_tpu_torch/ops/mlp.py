@@ -1,5 +1,5 @@
-"""The U-ViT MLP: exact-erf GELU and the fused int8 W8A8 MLP kernels
-(counterpart of uspace_tpu/ops/mlp.py).
+"""The U-ViT MLP: exact-erf GELU and the fused int8 MLP kernels, W8A8 and
+weight-only (counterpart of uspace_tpu/ops/mlp.py).
 
 The JAX field evaluates GELU with the Abramowitz–Stegun 7.1.26 erf
 polynomial (|err| <= 1.5e-7), not erf itself; the port copies the
@@ -26,6 +26,23 @@ kernel and plain twin:
 The strip count, the largest <= 4 that divides the hidden width, is part of
 the numerics (the JAX package's ``_call_mlp`` rule).
 
+Weight-only int8 MLP, the ``quant="w8"`` view (``csrc/mlp_w8.cu``):
+the same two entry points with ``quant="w8"`` (TPU kernels
+``_mlp_kernel_w8_lnres`` and ``_mlp_kernel_w8``). The weights are the same
+int8 codes and f32 column scales; activations stay in x's dtype and are
+never quantized, so the field is a fixed, smooth perturbation of the bf16
+one (what an adaptive solve needs). Rounding sites:
+
+- LN2 (lnres only): as above, ``xln`` kept in x's dtype;
+- per hidden strip j: ``h_j = round(gelu(f32(xln @ q1[:, j]) * s1_j +
+  b1_j))`` to x's dtype, the product exact products of x's dtype with f32
+  sums, the scale and bias two roundings;
+- ``acc = sum_j f32(h_j @ q2[j, :])``, then ``acc * s2 + b2`` rounded to
+  x's dtype (and added to x in x's dtype).
+
+Nothing is quantized per strip here, so the strip count is only tiling: it
+orders the f32 sums and changes no rounding.
+
 Under autograd :func:`gelu_exact` saves only its input (bf16 in training):
 eager autograd of the polynomial would save about a dozen f32 tensors of
 the MLP's hidden width per block. Its backward recomputes the derivative
@@ -50,13 +67,11 @@ from ._build import (
 from .quant import QWeight, int_matmul, quantized_weight, row_codes, true_div
 
 # launches of each CUDA kernel since the last reset (the CPU twin does not count)
-LAUNCHES: Dict[str, int] = {"mlp_int8": 0, "ln_mlp_int8": 0}
+LAUNCHES: Dict[str, int] = {"mlp_int8": 0, "ln_mlp_int8": 0, "mlp_w8": 0,
+                            "ln_mlp_w8": 0}
 
 COL_SLICES = 4  # hidden strips, at most (uspace_tpu/ops/mlp.py _COL_SLICES)
 
-_UNPORTED_W8 = ("the weight-only int8 MLP (quant='w8': kernels 16-17 of the "
-                "kernel table, _mlp_kernel_w8_lnres / _mlp_kernel_w8) is not "
-                "ported yet")
 _UNPORTED_BF16 = ("the fused bf16 MLP (quant=False: kernels 12-13 of the "
                   "kernel table, _mlp_kernel_bf16 / _mlp_kernel_bf16_lnres) "
                   "is not ported yet")
@@ -183,6 +198,41 @@ def ln_mlp_int8_plain(x: torch.Tensor, ln_scale: torch.Tensor,
                               x.dtype)
 
 
+def _mlp_operands(what, x2d, q1, b1, q2, b2):
+    """Check what every MLP kernel reads (x bf16 [R, C], the codes and
+    scales of w1 [C, H] and w2 [H, C']) and return ``(b1, b2, out)``: the
+    biases as contiguous f32 and an empty bf16 output [R, C']."""
+    r, c = x2d.shape
+    hidden, out_dim = q1.q.shape[0], q2.q.shape[0]
+    dev = x2d.device
+    if x2d.dtype != torch.bfloat16:
+        raise ValueError(f"the {what} MLP kernels take bfloat16, got "
+                         f"{x2d.dtype}")
+    check_tensor("x", x2d, torch.bfloat16, (r, c), dev)
+    check_tensor("w1 codes", q1.q, torch.int8, (hidden, c), dev)
+    check_tensor("w2 codes", q2.q, torch.int8, (out_dim, hidden), dev)
+    b1f = b1.to(torch.float32).contiguous()
+    b2f = b2.to(torch.float32).contiguous()
+    for name, t, n in (("w1 scales", q1.scale, (hidden,)),
+                       ("b1", b1f, (hidden,)),
+                       ("w2 scales", q2.scale, (out_dim,)),
+                       ("b2", b2f, (out_dim,))):
+        check_tensor(name, t, torch.float32, n, dev)
+    return b1f, b2f, torch.empty((r, out_dim), dtype=x2d.dtype, device=dev)
+
+
+def _ln_operands(ln, c, out_dim, dev):
+    """``(scale, bias)`` of LN2 as contiguous f32 [C], checked, for the
+    LN2 + residual variants (which need out == C)."""
+    if out_dim != c:
+        raise ValueError("the residual needs out == C")
+    lns = ln[0].to(torch.float32).reshape(-1).contiguous()
+    lnb = ln[1].to(torch.float32).reshape(-1).contiguous()
+    check_tensor("ln_scale", lns, torch.float32, (c,), dev)
+    check_tensor("ln_bias", lnb, torch.float32, (c,), dev)
+    return lns, lnb
+
+
 def _mlp_int8_kernel(x2d, q1, b1, q2, b2, strips, ln=None):
     """Launch the int8 MLP kernel on x [R, C] bf16; with ``ln = (scale,
     bias, eps)`` the LN2 + residual variant."""
@@ -190,56 +240,115 @@ def _mlp_int8_kernel(x2d, q1, b1, q2, b2, strips, ln=None):
     hidden, out_dim = q1.q.shape[0], q2.q.shape[0]
     hs = hidden // strips
     dev = x2d.device
-    if x2d.dtype != torch.bfloat16:
-        raise ValueError(f"the int8 MLP kernels take bfloat16, got "
-                         f"{x2d.dtype}")
+    b1f, b2f, out = _mlp_operands("int8", x2d, q1, b1, q2, b2)
     if (c % 32 or hs % 256 or hs > 1024 or c > hs or out_dim % 256):
         raise ValueError(
             f"the int8 MLP kernels take C % 32 == 0, a strip width "
             f"hidden/{strips} of 256, 512, 768 or 1024 and >= C, and an "
             f"output width that is a multiple of 256; got C={c}, "
             f"hidden={hidden}, out={out_dim}")
-    check_tensor("x", x2d, torch.bfloat16, (r, c), dev)
-    check_tensor("w1 codes", q1.q, torch.int8, (hidden, c), dev)
-    check_tensor("w2 codes", q2.q, torch.int8, (out_dim, hidden), dev)
-    s1, s2 = q1.scale, q2.scale
-    b1f = b1.to(torch.float32).contiguous()
-    b2f = b2.to(torch.float32).contiguous()
     colsum = q2.colsums(strips)
-    for name, t, n in (("w1 scales", s1, (hidden,)), ("b1", b1f, (hidden,)),
-                       ("w2 scales", s2, (out_dim,)), ("b2", b2f, (out_dim,)),
-                       ("colsums", colsum, (strips, out_dim))):
-        check_tensor(name, t, torch.float32, n, dev)
-    out = torch.empty((r, out_dim), dtype=x2d.dtype, device=dev)
+    check_tensor("colsums", colsum, torch.float32, (strips, out_dim), dev)
     stream = cuda_stream(dev)
     lib = load("mlp_int8")
-    common = (q1.q.data_ptr(), s1.data_ptr(), b1f.data_ptr(), q2.q.data_ptr(),
-              s2.data_ptr(), b2f.data_ptr(), colsum.data_ptr(),
-              out.data_ptr(), r, c, hidden, out_dim, strips)
+    common = (q1.q.data_ptr(), q1.scale.data_ptr(), b1f.data_ptr(),
+              q2.q.data_ptr(), q2.scale.data_ptr(), b2f.data_ptr(),
+              colsum.data_ptr(), out.data_ptr(), r, c, hidden, out_dim,
+              strips)
     if ln is None:
         rc = lib.uspace_mlp_int8(x2d.data_ptr(), *common, stream)
         key = "mlp_int8"
     else:
-        ln_scale, ln_bias, eps = ln
-        if out_dim != c:
-            raise ValueError("the residual needs out == C")
-        lns = ln_scale.to(torch.float32).reshape(-1).contiguous()
-        lnb = ln_bias.to(torch.float32).reshape(-1).contiguous()
-        check_tensor("ln_scale", lns, torch.float32, (c,), dev)
-        check_tensor("ln_bias", lnb, torch.float32, (c,), dev)
+        lns, lnb = _ln_operands(ln, c, out_dim, dev)
         rc = lib.uspace_ln_mlp_int8(x2d.data_ptr(), lns.data_ptr(),
-                                    lnb.data_ptr(), *common, eps, stream)
+                                    lnb.data_ptr(), *common, ln[2], stream)
         key = "ln_mlp_int8"
     raise_on(rc, f"uspace_{key}")
     LAUNCHES[key] += 1
     return out
 
 
-def _check_quant(quant) -> None:
+def _mlp_w8_core(xa: torch.Tensor, q1: QWeight, b1: torch.Tensor,
+                 q2: QWeight, b2: torch.Tensor, strips: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """fc2(gelu(fc1(x))) with the w8 kernels' rounding sites, from rows
+    ``xa [R, C]`` whose values are exact in ``dtype``; returns ``[R,
+    out]`` in ``dtype``. int8 codes are exact in f32 (and bf16), so the f32
+    products below are the kernels' exact products with f32 sums."""
+    hidden = q1.q.shape[0]
+    hs = hidden // strips
+    xf = xa.float()
+    b1f, b2f = b1.float(), b2.float()
+    acc = None
+    for j in range(strips):
+        cols = slice(j * hs, (j + 1) * hs)
+        part = torch.matmul(xf, q1.q[cols].float().t())
+        h = _gelu_f32(part * q1.scale[cols] + b1f[cols]).to(dtype)
+        t = torch.matmul(h.float(), q2.q[:, cols].float().t())
+        acc = t if acc is None else acc + t
+    return (acc * q2.scale + b2f).to(dtype)
+
+
+def mlp_w8_plain(x: torch.Tensor, q1: QWeight, b1: torch.Tensor,
+                 q2: QWeight, b2: torch.Tensor, strips: int) -> torch.Tensor:
+    """Twin of the weight-only int8 MLP kernel (``_mlp_kernel_w8``): x [R,
+    C]."""
+    return _mlp_w8_core(x, q1, b1, q2, b2, strips, x.dtype)
+
+
+def ln_mlp_w8_plain(x: torch.Tensor, ln_scale: torch.Tensor,
+                    ln_bias: torch.Tensor, q1: QWeight, b1: torch.Tensor,
+                    q2: QWeight, b2: torch.Tensor, strips: int,
+                    eps: float) -> torch.Tensor:
+    """Twin of the weight-only int8 MLP sub-block kernel
+    (``_mlp_kernel_w8_lnres``): ``x + MLP(LN2(x))`` for x [R, C], the sum in
+    x's dtype. ``xln`` is x's dtype (its f32 copy is exact)."""
+    xln = _ln_bf16_normalise(x, ln_scale, ln_bias, eps)
+    return x + _mlp_w8_core(xln, q1, b1, q2, b2, strips, x.dtype)
+
+
+def _mlp_w8_kernel(x2d, q1, b1, q2, b2, ln=None):
+    """Launch the weight-only int8 MLP kernel on x [R, C] bf16; with ``ln =
+    (scale, bias, eps)`` the LN2 + residual variant."""
+    r, c = x2d.shape
+    hidden, out_dim = q1.q.shape[0], q2.q.shape[0]
+    dev = x2d.device
+    b1f, b2f, out = _mlp_operands("w8", x2d, q1, b1, q2, b2)
+    # C <= 1280: a block's bf16 rows, its hidden chunk and the weight ring
+    # share 227 KB of shared memory (csrc/mlp_w8.cu make_layout)
+    if (c % 128 or c > 1280 or hidden % 256
+            or out_dim not in (256, 512, 768, 1024)):
+        raise ValueError(
+            f"the w8 MLP kernels take C a multiple of 128 up to 1280, a "
+            f"hidden width that is a multiple of 256 and an output width "
+            f"of 256, 512, 768 or 1024; got C={c}, hidden={hidden}, "
+            f"out={out_dim}")
+    stream = cuda_stream(dev)
+    lib = load("mlp_w8")
+    common = (q1.q.data_ptr(), q1.scale.data_ptr(), b1f.data_ptr(),
+              q2.q.data_ptr(), q2.scale.data_ptr(), b2f.data_ptr(),
+              out.data_ptr(), r, c, hidden, out_dim)
+    if ln is None:
+        rc = lib.uspace_mlp_w8(x2d.data_ptr(), *common, stream)
+        key = "mlp_w8"
+    else:
+        lns, lnb = _ln_operands(ln, c, out_dim, dev)
+        rc = lib.uspace_ln_mlp_w8(x2d.data_ptr(), lns.data_ptr(),
+                                  lnb.data_ptr(), *common, ln[2], stream)
+        key = "ln_mlp_w8"
+    raise_on(rc, f"uspace_{key}")
+    LAUNCHES[key] += 1
+    return out
+
+
+def _check_quant(quant) -> bool:
+    """True for the weight-only view ``"w8"``, False for W8A8 (``True`` or
+    ``"w8a8"``); the bf16 fused MLP raises."""
     if quant == "w8":
-        raise NotImplementedError(_UNPORTED_W8)
+        return True
     if quant is not True and quant != "w8a8":
         raise NotImplementedError(_UNPORTED_BF16)
+    return False
 
 
 def fused_mlp_block_q(x: torch.Tensor, ln_scale: torch.Tensor,
@@ -247,37 +356,44 @@ def fused_mlp_block_q(x: torch.Tensor, ln_scale: torch.Tensor,
                       b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                       eps: float = 1e-5, quant=True) -> torch.Tensor:
     """``x + fc2(gelu(fc1(LN(x))))``, the pre-norm MLP sub-block, with int8
-    W8A8 projections (``quant=True``); w1 [C, H] and w2 [H, C] in the JAX
-    layout (f32, as ``linear.weight.t()``). Inference-only."""
-    _check_quant(quant)
+    W8A8 projections (``quant=True``) or int8 weights and activations in
+    x's dtype (``quant="w8"``); w1 [C, H] and w2 [H, C] in the JAX layout
+    (f32, as ``linear.weight.t()``). Inference-only."""
+    w8 = _check_quant(quant)
     check_no_grad(x, ln_scale, ln_bias, w1, b1, w2, b2,
                   what="the int8 MLP sub-block kernel")
     c = x.shape[-1]
     x2d = x.reshape(-1, c)
     q1, q2 = quantized_weight(w1), quantized_weight(w2)
     strips = col_slices(q1.q.shape[0])
+    ln = (ln_scale, ln_bias, eps)
     if on_cpu(x):
-        out = ln_mlp_int8_plain(x2d, ln_scale, ln_bias, q1, b1, q2, b2,
-                                strips, eps)
+        plain = ln_mlp_w8_plain if w8 else ln_mlp_int8_plain
+        out = plain(x2d, ln_scale, ln_bias, q1, b1, q2, b2, strips, eps)
+    elif w8:
+        out = _mlp_w8_kernel(x2d.contiguous(), q1, b1, q2, b2, ln)
     else:
-        out = _mlp_int8_kernel(x2d.contiguous(), q1, b1, q2, b2, strips,
-                               (ln_scale, ln_bias, eps))
+        out = _mlp_int8_kernel(x2d.contiguous(), q1, b1, q2, b2, strips, ln)
     return out.reshape(x.shape)
 
 
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor, quant=True) -> torch.Tensor:
     """``gelu(x @ w1 + b1) @ w2 + b2`` with int8 W8A8 projections
-    (``quant=True``); x [..., C], w1 [C, H], w2 [H, C'] (JAX layout, f32).
+    (``quant=True``) or int8 weights and activations in x's dtype
+    (``quant="w8"``); x [..., C], w1 [C, H], w2 [H, C'] (JAX layout, f32).
     Inference-only."""
-    _check_quant(quant)
+    w8 = _check_quant(quant)
     check_no_grad(x, w1, b1, w2, b2, what="the int8 MLP kernel")
     c = x.shape[-1]
     x2d = x.reshape(-1, c)
     q1, q2 = quantized_weight(w1), quantized_weight(w2)
     strips = col_slices(q1.q.shape[0])
     if on_cpu(x):
-        out = mlp_int8_plain(x2d, q1, b1, q2, b2, strips)
+        plain = mlp_w8_plain if w8 else mlp_int8_plain
+        out = plain(x2d, q1, b1, q2, b2, strips)
+    elif w8:
+        out = _mlp_w8_kernel(x2d.contiguous(), q1, b1, q2, b2)
     else:
         out = _mlp_int8_kernel(x2d.contiguous(), q1, b1, q2, b2, strips)
     return out.reshape(*x.shape[:-1], q2.q.shape[0])
