@@ -10,10 +10,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. each kernel against its plain PyTorch twin at its path's shapes
    (B=50 for the sampling kernels, B=128 for the backward kernel; L=257,
    C=1024, H=16, bf16; the int8 and w8 MLPs on the 12850 rows of B=50 with
-   hidden 4096): max-abs and rel-L2 within the tolerances below; for each
-   int8 and w8 kernel, controls (twins with one rounding site changed) that
-   the same limits must refuse; kernel, twin and library-call times with
-   CUDA events; the bound of the same work on an H100 SXM;
+   hidden 4096; the [B, H, L, D] kernel at B=50, H=8, L=1024, D=32, and at
+   H=4, D=64 and at L=600): max-abs and rel-L2 within the tolerances below;
+   for each int8 and w8 kernel, controls (twins with one rounding site
+   changed) that the same limits must refuse; kernel, twin and library-call
+   times with CUDA events; the bound of the same work on an H100 SXM;
 4. the main path: U-ViT-large (embed 1024, depth 20, 16 heads, patch 2) in
    bf16 with seeded random weights, Euler-50 at batch 50 through
    `core.flow.decode` with attn_impl="auto": 21 x 50 = 1050 launches of the
@@ -60,7 +61,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (pallas_packed) against the plain path (xla attention), and the `auto`
    view (QKV-projection kernel + backward) against pallas_packed;
 9. the entry point `cli.train_lfm.run` for 2 steps; its checkpoint's params
-   load into a fresh model with strict=True.
+   load into a fresh model with strict=True;
+10. the SD-UNet path: UNet-large (`unet_large`: 256 channels x (1, 2, 4),
+   head channels 32) in bf16 with seeded weights (its zero-initialised
+   output convs drawn live), Euler-50 at batch 50 with attn_impl="auto":
+   5 x 50 = 250 launches of the [B, H, L, D] kernel and of no other kernel,
+   latents against the plain path (attn_impl="xla") from the same z, a
+   control with the kernel's output zeroed that must fail the same limits,
+   img/s of both, peak memory; one evaluation at the JAX bench's shape (head
+   channels 64, a seeded [50, 77, 768] context): 5 launches, kernel view
+   against the plain view and both against the f32 field;
+11. the f32 SD VAE (TF32 off) decodes those latents to [50, 256, 256, 3]:
+   time, peak memory, finite; one image on the card against the CPU, and
+   with TF32 on as a control;
+12. the entry point `cli.sample_lfm.run(config="unet_large", decode=True)`:
+   two batches of latents and uint8 pixels.
 
 Prints the `kernels` JSON line and then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -68,6 +83,7 @@ With `--out PATH` the whole report is also written to PATH as JSON.
 """
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -158,6 +174,26 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 
+# the SD-UNet: self-attentions at 32 x 32 latents (L = 1024) per evaluation
+UNET_KERNEL_CALLS = 5
+# the UNet's Euler-50 latents are held to PATH_MIN_COS / PATH_MAX_REL_L2:
+# first H100 run cos 0.9999956, rel-L2 2.97e-3; the zero-attention control
+# read cos 0.966, rel-L2 0.258.
+# One UNet evaluation at the bench shape, kernel view vs plain view: a bf16
+# rounding that differs in one attention call re-rounds every later layer
+# of the random-weight UNet, so one evaluation differs by about as much as
+# either bf16 view differs from the f32 field (first H100 run: 1.74e-2 vs
+# each other, 1.584e-2 and 1.594e-2 from f32). The kernel view must stay
+# within UNET_F32_RATIO of the plain view's distance to the f32 field.
+UNET_FIELD_MIN_COS = 0.999
+UNET_FIELD_MAX_REL_L2 = 5e-2
+UNET_F32_RATIO = 1.25
+# one VAE image decoded on the card against the CPU, both exact f32: first
+# H100 run cos 1 - 5e-12, rel-L2 4.9e-6; with TF32 on (the control) cos
+# 0.99999962, rel-L2 8.7e-4: only the rel-L2 limit refuses TF32
+VAE_MIN_COS = 0.99999
+VAE_MAX_REL_L2 = 1e-4
+
 # global gradient at batch 32, kernel path vs plain path and auto vs
 # pallas_packed: bf16 roundings differ in every attention call, forward and
 # backward; measured on an H100: pallas_packed vs xla cos 0.9999986, rel-L2
@@ -166,6 +202,10 @@ GRAD_MIN_COS = 0.99999
 GRAD_MAX_REL_L2 = 1e-2
 
 B, L, C, H = 50, 257, 1024, 16
+# kernel 7's phase-3 shapes (B, H, L, D); the first is the UNet main path's
+FWD_SHAPES = {"attention_fwd": (50, 8, 1024, 32),
+              "attention_fwd D=64": (50, 4, 1024, 64),
+              "attention_fwd L=600": (50, 8, 600, 32)}
 STEPS = 50
 SHORT_STEPS = 4
 TRAIN_B = 128          # the reference's per-GPU batch
@@ -324,13 +364,15 @@ def check_kernels(torch, F, attn, mlpk, quant):
         f"H={H} bf16"))
     cases += int8_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
     cases += w8_cases(torch, F, attn, mlpk, quant, randn, io)
-    results, controls, problems = [], {}, []
+    cases += fwd_cases(torch, F, attn, randn, io)
+    results, shapes, controls, problems = [], [], {}, []
     for case in cases:
-        before = all_launches(attn, mlpk)[case["name"]]
+        counter = case.get("counter", case["name"])
+        before = all_launches(attn, mlpk)[counter]
         with torch.no_grad():
             out = case["kernel"]()
         torch.cuda.synchronize()
-        if all_launches(attn, mlpk)[case["name"]] != before + 1:
+        if all_launches(attn, mlpk)[counter] != before + 1:
             fail(f"{case['name']}: the wrapper did not launch its kernel")
         ref = case["plain"]()
         max_abs, rel, tol_abs, tol_rel = judge(torch, case, out, ref)
@@ -365,10 +407,10 @@ def check_kernels(torch, F, attn, mlpk, quant):
                  shape=case.get("shape", f"B={B} L={L} C={C} H={H} bf16"))
         log(f"  {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
             f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({bound_by})")
-        results.append(r)
+        (results if case.get("listed", True) else shapes).append(r)
     if problems:
         fail("; ".join(problems))
-    return results, controls
+    return results, shapes, controls
 
 
 def attn_control(attn, quant, x, qw, w, heads, scale, change, ln=None):
@@ -614,6 +656,28 @@ def w8_cases(torch, F, attn, mlpk, quant, randn, io):
              controls=ctl("the hidden kept in f32",
                           "the weights dequantized to bf16")),
     ]
+
+
+def fwd_cases(torch, F, attn, randn, io):
+    """Phase 3's cases of the [B, H, L, D] kernel (row 7 of the PERF.md
+    table): the UNet-large self-attention at 32 x 32 latents (B=50, H=8,
+    L=1024, D=32; the `kernels` line), the JAX bench's head channels 64
+    (H=4, D=64) and a ragged L=600. Yardstick: SDPA on the same tensors."""
+    out = []
+    for name, (b, h, l, d) in FWD_SHAPES.items():
+        q, k, v = (randn(b, h, l, d) for _ in range(3))
+        out.append(dict(
+            name=name, counter="attention_fwd", listed=name == "attention_fwd",
+            source="uspace_tpu_torch/ops/csrc/attention_fwd.cu",
+            replaces="uspace_tpu/ops/attention.py:109 (_fwd_kernel)",
+            kernel=lambda q=q, k=k, v=v: attn.fused_attention(q, k, v),
+            plain=lambda q=q, k=k, v=v, d=d: attn.attention_plain(
+                q, k, v, d ** -0.5),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v),
+            bytes=io(q, k, v) + io(q), flops=4.0 * b * h * l * l * d,
+            shape=f"B={b} H={h} L={l} D={d} bf16"))
+    return out
 
 
 def decode_run(torch, flow, model, z, steps, method="euler"):
@@ -1032,6 +1096,203 @@ def train_entry_point(torch, cfg, dev):
     return dict(seconds=secs, losses=losses, checkpoint_gib=size_gb)
 
 
+def unet_field_check(torch, attn, mlpk, sample_lfm, dev, z):
+    """Phase 10b: one evaluation at the JAX bench's UNet shape
+    (bench.py:494-504: head channels 64, a seeded [B, 77, 768] context) in
+    bf16 with `auto` (5 launches of kernel 7 at D=64) and `xla`, and in f32
+    with `xla` as the reference both bf16 views are read against."""
+    from uspace_tpu_torch.configs import get_config
+
+    cfg = get_config("unet_large")
+    cfg["nnet"]["num_head_channels"] = 64
+    g = torch.Generator(device=dev).manual_seed(12)
+    ctx = torch.randn((B, 77, 768), generator=g, device=dev)
+    t = torch.full((B,), 0.5, device=dev)
+    views = {"auto": None, "xla": None, "f32": None}
+    state = None
+    for name in views:
+        c = dict(cfg, compute_dtype="float32") if name == "f32" else cfg
+        m = sample_lfm.build_model(c, dev, seed=1,
+                                   attn_impl="auto" if name == "auto"
+                                   else "xla")
+        if state is None:
+            state = m.state_dict()
+        m.load_state_dict(state)
+        reset_launches(attn, mlpk)
+        with torch.no_grad():
+            views[name] = m(z, t, ctx)[0].float()
+        torch.cuda.synchronize()
+        if name == "auto":
+            launches = all_launches(attn, mlpk)
+        del m
+    _, rel, cos = compare(torch, views["auto"], views["xla"])
+    _, rel_k, _ = compare(torch, views["auto"], views["f32"])
+    _, rel_p, _ = compare(torch, views["xla"], views["f32"])
+    log(f"UNet bench shape (head channels 64, context [{B}, 77, 768]), one "
+        f"evaluation: launches {launches}; auto vs xla cos {cos:.7f} (min "
+        f"{UNET_FIELD_MIN_COS}) rel_l2 {rel:.3e} (max "
+        f"{UNET_FIELD_MAX_REL_L2}); "
+        f"against the f32 field: auto {rel_k:.3e}, xla {rel_p:.3e} (auto at "
+        f"most {UNET_F32_RATIO} x xla)")
+    if launches != expected(attn, mlpk, attention_fwd=UNET_KERNEL_CALLS):
+        fail(f"UNet bench-shape launches {launches}")
+    if not (cos >= UNET_FIELD_MIN_COS and rel <= UNET_FIELD_MAX_REL_L2):
+        fail("the UNet bench-shape field disagrees with the plain path")
+    if rel_k > UNET_F32_RATIO * rel_p:
+        fail("the UNet kernel view is further from the f32 field than the "
+             "plain view")
+    return dict(launches=launches, cos=cos, rel_l2=rel, auto_vs_f32=rel_k,
+                xla_vs_f32=rel_p)
+
+
+def unet_path(torch, flow, attn, mlpk, sample_lfm, dev, by_key):
+    """Phase 10: SD-UNet-large (unet_large: 256 channels x (1, 2, 4), head
+    channels 32) in bf16 with seeded weights, its zero-initialised output
+    convs drawn live (normal x 0.05) in every view alike, Euler-50 at batch
+    50 through `core.flow.decode` with `auto`: 5 x 50 launches of kernel 7
+    and of no other kernel; latents against the plain path (`xla`) from the
+    same z, and a control, kernel 7's output replaced by zeros, that must
+    fail the same limits; img/s and peak memory. Returns the latents."""
+    from uspace_tpu_torch.configs import get_config
+
+    held = torch.cuda.memory_allocated() / 2**30  # by the earlier phases
+    cfg = get_config("unet_large")
+    model = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="auto")
+    plain = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="xla")
+    plain.load_state_dict(model.state_dict())
+    z = torch.randn((B, 32, 32, 4), generator=torch.Generator(
+        device=dev).manual_seed(11), device=dev)
+    with torch.no_grad():  # warm-up: cuDNN plans, allocator
+        for m in (model, plain):
+            m(z, torch.zeros(B, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(attn, mlpk)
+    lat, secs = decode_run(torch, flow, model, z, STEPS)
+    launches = all_launches(attn, mlpk)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n = UNET_KERNEL_CALLS * STEPS
+    log(f"UNet main path (auto): {secs:.3f} s, {B / secs:.3f} img/s, "
+        f"launches {launches}, peak {peak_gb:.2f} GiB ({held:.2f} GiB of it "
+        f"held by earlier phases)")
+    if launches != expected(attn, mlpk, attention_fwd=n):
+        fail(f"UNet main path launches {launches}, expected {n} of "
+             f"attention_fwd and no other")
+    by_key["attention_fwd"]["launches"] = launches["attention_fwd"]
+    torch.cuda.reset_peak_memory_stats()
+    lat_plain, secs_plain = decode_run(torch, flow, plain, z, STEPS)
+    peak_plain = torch.cuda.max_memory_allocated() / 2**30
+    max_abs, rel, cos = compare(torch, lat, lat_plain)
+    real = attn.fused_attention
+    attn.fused_attention = lambda q, k, v, scale=None: torch.zeros_like(q)
+    try:
+        lat_ctl, _ = decode_run(torch, flow, model, z, STEPS)
+    finally:
+        attn.fused_attention = real
+    _, c_rel, c_cos = compare(torch, lat_ctl, lat_plain)
+    caught = not (c_cos >= PATH_MIN_COS and c_rel <= PATH_MAX_REL_L2)
+    log(f"UNet plain path (xla): {secs_plain:.3f} s, {B / secs_plain:.3f} "
+        f"img/s, peak {peak_plain:.2f} GiB; latents cos {cos:.7f} (min "
+        f"{PATH_MIN_COS}) rel_l2 {rel:.3e} (max {PATH_MAX_REL_L2}); control, "
+        f"kernel 7 output zeroed: cos {c_cos:.7f} rel_l2 {c_rel:.3e}: "
+        f"{'fails' if caught else 'PASSES'} the comparison")
+    if tuple(lat.shape) != (B, 32, 32, 4) or not torch.isfinite(lat).all():
+        fail(f"UNet latents {tuple(lat.shape)} or not finite")
+    if not (cos >= PATH_MIN_COS and rel <= PATH_MAX_REL_L2):
+        fail("the UNet main path disagrees with the plain path")
+    if not caught:
+        fail("the UNet path limits let a field without attention pass")
+    del plain, model
+    out = dict(steps=STEPS, batch=B, seconds=secs, imgs_per_s=B / secs,
+               plain_seconds=secs_plain, plain_imgs_per_s=B / secs_plain,
+               cos=cos, rel_l2=rel, max_abs=max_abs, launches=launches,
+               peak_gib=peak_gb, plain_peak_gib=peak_plain,
+               held_by_earlier_phases_gib=held,
+               zero_attention_control=dict(cos=c_cos, rel_l2=c_rel))
+    out["bench_shape"] = unet_field_check(torch, attn, mlpk, sample_lfm, dev,
+                                          z)
+    return lat, out
+
+
+def vae_decode(torch, sample_lfm, dev, lat):
+    """Phase 11: the f32 SD VAE (seeded weights, TF32 off) decodes phase
+    10's latents to [B, 256, 256, 3]: time, peak memory, finite values; one
+    image decoded on the card against the same on the CPU, and the same
+    with TF32 on as a control the limits must refuse."""
+    from uspace_tpu_torch.codecs import vae as vae_mod
+    from uspace_tpu_torch.configs import get_config
+
+    @contextlib.contextmanager
+    def tf32_on():  # the control: the VAE's f32 convs and matmuls in TF32
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+
+    cfg = get_config("unet_large")
+    vae = sample_lfm.build_vae(cfg, dev, seed=0)
+    with torch.no_grad():
+        vae.decode(lat[:2])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        px = vae.decode(lat)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        cpu = sample_lfm.build_vae(cfg, "cpu", seed=0)
+        cpu.load_state_dict(vae.state_dict())
+        t0 = time.perf_counter()
+        one = cpu.decode(lat[:1].cpu())
+        cpu_secs = time.perf_counter() - t0
+        real = vae_mod.f32_precision
+        vae_mod.f32_precision = tf32_on
+        try:
+            px_tf32 = vae.decode(lat[:1]).cpu()
+        finally:
+            vae_mod.f32_precision = real
+    _, rel, cos = compare(torch, px[:1].cpu(), one)
+    _, t_rel, t_cos = compare(torch, px_tf32, one)
+    finite = bool(torch.isfinite(px).all())
+    log(f"VAE decode (f32, TF32 off) of {B} latents: {tuple(px.shape)} in "
+        f"{secs:.3f} s ({B / secs:.2f} img/s), peak {peak_gb:.2f} GiB, "
+        f"finite {finite}; one image, card vs CPU ({cpu_secs:.1f} s): cos "
+        f"{cos:.8f} (min {VAE_MIN_COS}) rel_l2 {rel:.3e} (max "
+        f"{VAE_MAX_REL_L2}); control, TF32 on: cos {t_cos:.8f} rel_l2 "
+        f"{t_rel:.3e}")
+    if tuple(px.shape) != (B, 256, 256, 3) or not finite:
+        fail(f"VAE pixels {tuple(px.shape)}, finite {finite}")
+    if not (cos >= VAE_MIN_COS and rel <= VAE_MAX_REL_L2):
+        fail("the VAE decode on the card disagrees with the CPU")
+    if t_cos >= VAE_MIN_COS and t_rel <= VAE_MAX_REL_L2:
+        fail("the VAE limits let a TF32 decode pass")
+    return dict(batch=B, seconds=secs, imgs_per_s=B / secs, peak_gib=peak_gb,
+                card_vs_cpu=dict(cos=cos, rel_l2=rel),
+                tf32_vs_cpu=dict(cos=t_cos, rel_l2=t_rel))
+
+
+def unet_entry_point(torch, np, sample_lfm):
+    """Phase 12: cli.sample_lfm.run(config="unet_large", decode=True): two
+    batches of latents and of uint8 pixels."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = sample_lfm.run(config="unet_large", n_samples=2 * B, batch=B,
+                               steps=STEPS, seed=3, out=tmp, decode=True)
+        secs = time.perf_counter() - t0
+        arrays = [np.load(p) for p in paths]
+    got = [(a.shape, str(a.dtype)) for a in arrays]
+    want = [((B, 32, 32, 4), "float32"), ((B, 256, 256, 3), "uint8")] * 2
+    log(f"sample_lfm.run (unet_large, decode): {got} in {secs:.1f} s")
+    if got != want or not all(np.isfinite(a).all() for a in arrays[::2]):
+        fail(f"sample_lfm (unet_large, decode) wrote {got}")
+    return dict(seconds=secs, arrays=[list(s) for s, _ in got])
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA card")
@@ -1083,7 +1344,8 @@ def main():
     log(f"built kernels in {report['build_s']:.1f} s")
 
     # 3. kernels vs twins
-    kernels, report["controls"] = check_kernels(torch, F, attn, mlpk, quant)
+    kernels, report["kernel_shapes"], report["controls"] = check_kernels(
+        torch, F, attn, mlpk, quant)
     by_key = {k["name"]: k for k in kernels}
 
     # 4. the main path: U-ViT-large Euler-50 at batch 50
@@ -1235,6 +1497,16 @@ def main():
 
     # 9. the training entry point
     report["train_lfm"] = train_entry_point(torch, cfg, dev)
+
+    # 10.-12. the SD-UNet path: Euler-50, the VAE decode, the entry point
+    lat_unet, report["unet"] = unet_path(torch, flow, attn, mlpk, sample_lfm,
+                                         dev, by_key)
+    for k in report["kernel_shapes"]:  # D=64 runs on the bench-shape path
+        if k["name"] == "attention_fwd D=64":
+            k["launches"] = report["unet"]["bench_shape"]["launches"][
+                "attention_fwd"]
+    report["vae"] = vae_decode(torch, sample_lfm, dev, lat_unet)
+    report["sample_lfm_unet"] = unet_entry_point(torch, np, sample_lfm)
 
     for k in kernels:
         if k["launches"] < 1:

@@ -106,6 +106,31 @@ def test_xla_attention_and_col_mult_match_jax(dt):
     _close(out, ref, tol)
 
 
+@pytest.mark.parametrize("l,d", [(130, 32), (130, 64), (600, 32),
+                                 (600, 64)])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_fwd_twin_matches_jax(dt, l, d):
+    """Kernel 7's twin (multi_head_attention impl="pallas": the wrapper's
+    CPU route) against JAX's _fused_attention, whose _fwd_kernel runs in
+    interpret mode on the CPU; ragged L (padded to 32 and masked)."""
+    jd, td, tol = DTYPES[dt]
+    r = np.random.default_rng(l + d)
+    q, k, v = (r.standard_normal((1, 2, l, d)).astype(np.float32)
+               for _ in range(3))
+    ref = jattn.multi_head_attention(*(jnp.asarray(a, jd) for a in (q, k, v)),
+                                     impl="pallas")
+    out = tattn.multi_head_attention(
+        *(torch.from_numpy(a).to(td) for a in (q, k, v)), impl="pallas")
+    assert out.dtype == td and out.shape == (1, 2, l, d)
+    _close(out, ref, tol)
+    # the twin itself, and auto on the CPU (plain math) within the dtype's
+    # tolerance of it
+    _close(tattn.attention_plain(*(torch.from_numpy(a).to(td)
+                                   for a in (q, k, v)), d ** -0.5), ref, tol)
+    _close(tattn.multi_head_attention(
+        *(torch.from_numpy(a).to(td) for a in (q, k, v))), ref, tol)
+
+
 def _vjp_inputs(l, seed):
     """qkv, cotangent and projection operands at 2 heads of 64."""
     r = np.random.default_rng(seed)
@@ -208,9 +233,21 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="inference-only"):
         tattn.fused_ln_qkvproj_attention(x, x[0, 0], x[0, 0], w, H,
                                          quant=True)
+    # kernel 7 runs at every L <= 1024 through "pallas" (its twin here)
     q = torch.zeros(1, H, 8, 16)
-    with pytest.raises(NotImplementedError, match="kernels 7-8"):
-        tattn.multi_head_attention(q, q, q, impl="pallas")
+    assert tattn.multi_head_attention(q, q, q, impl="pallas").shape == q.shape
+    # above 1024 the blocked kernel 9 is needed
+    long = torch.zeros(1, 1, 1025, 32)
+    with pytest.raises(NotImplementedError, match="_flash_kernel"):
+        tattn.multi_head_attention(long, long, long, impl="pallas")
+    # kernel 7 is inference-only until kernel 8 is ported
+    qg = torch.zeros(1, 1, 600, 32, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="_bwd_kernel"):
+        tattn.multi_head_attention(qg, qg, qg, impl="pallas")
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        tattn.fused_attention(qg, qg, qg)
+    with torch.no_grad():
+        tattn.fused_attention(qg, qg, qg)
     with pytest.raises(ValueError, match="unknown impl"):
         tattn.multi_head_attention(q, q, q, impl="nope")
 
@@ -223,8 +260,10 @@ def test_cpu_twin_does_not_count_launches():
                                   torch.from_numpy(a["w"]), H)
     qkv = torch.from_numpy(a["qkv"])
     tattn.packed_attention_bwd(qkv, qkv[..., :C], H)
+    q = torch.zeros(1, 2, 600, 32)
+    tattn.fused_attention(q, q, q)
     assert set(tattn.LAUNCHES.values()) == {0}
-    assert "packed_attention_bwd" in tattn.LAUNCHES
+    assert {"packed_attention_bwd", "attention_fwd"} <= set(tattn.LAUNCHES)
 
 
 def test_kernel_input_checks():
@@ -246,6 +285,17 @@ def test_kernel_input_checks():
         tattn._weight_rows(torch.zeros(1024, 1024), ok)
     with pytest.raises(ValueError, match="unsupported device"):
         tattn.fused_qkv_attention(torch.zeros(1, 4, 3 * 64, device="meta"), 1)
+    # the [B, H, L, D] kernel: bf16, head dim 32 or 64, L <= 1024
+    q = torch.zeros(2, 8, 1024, 32, dtype=torch.bfloat16)
+    for bad, msg in ((q.float(), "attn_impl='xla'"),
+                     (torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16),
+                      "head dim 32 or 64"),
+                     (torch.zeros(1, 1, 1025, 64, dtype=torch.bfloat16),
+                      "L <= 1024")):
+        with pytest.raises(ValueError, match=re.escape(msg)):
+            tattn._fwd_kernel(bad, bad, bad, 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        tattn._fwd_kernel(q, q[:, :4], q, 0.1)
     w = torch.zeros(2, requires_grad=True)
     with pytest.raises(NotImplementedError, match="inference-only"):
         _build.check_no_grad(ok, w, what="the LN kernel")
@@ -257,7 +307,7 @@ def test_ctypes_signatures_match_c_source():
     """Each declared argtypes list has one entry per C parameter, pointers
     as c_void_p (a 32-bit default would cut a pointer)."""
     assert set(_build.SIGNATURES) == {"attention", "attention_bwd",
-                                      "mlp_int8", "mlp_w8"}
+                                      "attention_fwd", "mlp_int8", "mlp_w8"}
     for name, sigs in _build.SIGNATURES.items():
         src = (_build.CSRC / f"{name}.cu").read_text()
         for fn, argtypes in sigs.items():

@@ -227,9 +227,15 @@ _GUARD = textwrap.dedent("""
                    for k in sys.modules), "jax leaked in"
     import torch
     assert not torch.cuda.is_available()
+    from uspace_tpu_torch.configs import get_config
+    sample_lfm = uspace_tpu_torch.cli.sample_lfm
     for call in (lambda: uspace_tpu_torch.resolve_device(),
                  lambda: uspace_tpu_torch.models.get_nnet("uvit"),
-                 lambda: uspace_tpu_torch.cli.sample_lfm.run(n_samples=1),
+                 lambda: uspace_tpu_torch.models.get_nnet("unet_t2i"),
+                 lambda: sample_lfm.build_vae(get_config("unet_large")),
+                 lambda: sample_lfm.run(n_samples=1),
+                 lambda: sample_lfm.run(config="unet_large", n_samples=1,
+                                        decode=True),
                  lambda: uspace_tpu_torch.cli.train_lfm.run(n_steps=1)):
         try:
             call()

@@ -10,7 +10,8 @@ flip an int8 code by one step where an f32 sum (LN statistics) runs in
 another order: max-abs one bf16 step of the largest output value, and the
 int8 rel-L2 limits of chip_smoke.py, taken for the MLP sub-block on out - x
 (the residual would dilute an error of the MLP). The weight-only int8 (w8)
-MLP kernels are held the same way, at chip_smoke.py's w8 limit.
+MLP kernels are held the same way, at chip_smoke.py's w8 limit. The
+[B, H, L, D] kernel (kernel 7) takes the bf16 forward limits.
 """
 
 import math
@@ -18,7 +19,8 @@ import math
 import pytest
 import torch
 
-from uspace_tpu_torch.models import UViT
+from uspace_tpu_torch.models import UNet, UViT
+from uspace_tpu_torch.models.unet import ZERO_INIT_STD
 from uspace_tpu_torch.ops import attention as attn
 from uspace_tpu_torch.ops import mlp
 from uspace_tpu_torch.ops import quant
@@ -126,7 +128,8 @@ def test_wrappers_count_launches_and_refuse(cuda):
                              "ln_qkvproj_attention": 0,
                              "packed_attention_bwd": 1,
                              "qkvproj_attention_int8": 0,
-                             "ln_qkvproj_attention_int8": 0}
+                             "ln_qkvproj_attention_int8": 0,
+                             "attention_fwd": 0}
     with pytest.raises(ValueError, match="bfloat16"):
         attn.fused_qkvproj_attention(x.float(), w, 2)
     with pytest.raises(ValueError, match="L <="):
@@ -373,5 +376,70 @@ def test_uvit_w8_auto_routes_through_the_lnfused_kernels(cuda):
     assert mlp.LAUNCHES == {"mlp_int8": 0, "ln_mlp_int8": 0, "mlp_w8": 0,
                             "ln_mlp_w8": 6}
     assert sum(attn.LAUNCHES.values()) == 6
+    af, bf = a.float(), b.float()
+    assert float((af * bf).sum() / (af.norm() * bf.norm())) > 0.999
+
+
+@pytest.mark.parametrize("b,h,l,d", [(50, 8, 1024, 32), (50, 4, 1024, 64),
+                                     (50, 8, 600, 32), (1, 1, 1, 32),
+                                     (2, 3, 17, 64), (3, 2, 700, 64)])
+def test_fwd_kernel_matches_twin(cuda, b, h, l, d):
+    """Kernel 7 at chip_smoke.py's phase-3 shapes and ragged edges."""
+    g = torch.Generator(device=cuda).manual_seed(l + d)
+    q, k, v = (_rand(g, b, h, l, d) for _ in range(3))
+    with torch.no_grad():
+        _agree(attn.fused_attention(q, k, v),
+               attn.attention_plain(q, k, v, d ** -0.5))
+        # the dispatcher's routes: auto takes the kernel above L = 512
+        _agree(attn.multi_head_attention(q, k, v, impl="pallas"),
+               attn.attention_plain(q, k, v, d ** -0.5))
+
+
+def test_fwd_kernel_counts_launches_and_refuses(cuda):
+    attn.reset_launches()
+    q = torch.zeros(2, 2, 600, 32, dtype=torch.bfloat16, device=cuda)
+    short = q[:, :, :512]
+    with torch.no_grad():
+        attn.multi_head_attention(q, q, q)               # auto: the kernel
+        attn.multi_head_attention(short, short, short)   # auto: plain math
+        attn.multi_head_attention(short, short, short, impl="pallas")
+        # a strided view is made contiguous first
+        attn.fused_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                             q, q)
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES["attention_fwd"] == 3
+    assert sum(attn.LAUNCHES.values()) == 3
+    with pytest.raises(ValueError, match="attn_impl='xla'"):
+        with torch.no_grad():
+            attn.fused_attention(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="head dim"):
+        with torch.no_grad():
+            attn.fused_attention(q[..., :16], q[..., :16], q[..., :16])
+    long = torch.zeros(1, 1, 1025, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="_flash_kernel"):
+        attn.multi_head_attention(long, long, long)
+    with pytest.raises(NotImplementedError, match="_bwd_kernel"):
+        attn.fused_attention(q.requires_grad_(), q, q)
+
+
+def test_unet_auto_routes_through_the_fwd_kernel(cuda):
+    """A small bf16 UNet at 32 x 32 latents with attention at ds 1: its
+    three self-attentions at L = 1024 launch kernel 7 under auto."""
+    cfg = dict(image_size=32, model_channels=64, channel_mult=(1, 2),
+               num_res_blocks=1, attention_resolutions=(1,),
+               num_head_channels=32, context_dim=64, dtype=torch.bfloat16,
+               device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    fused = UNet(**cfg).init_weights(g, zero_init_std=ZERO_INIT_STD).eval()
+    plain = UNet(attn_impl="xla", **cfg).eval()
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(4, 32, 32, 4, generator=g, device=cuda)
+    t = torch.full((4,), 0.5, device=cuda)
+    attn.reset_launches()
+    with torch.no_grad():
+        a, _ = fused(x, t)
+        b, _ = plain(x, t)
+    assert attn.LAUNCHES["attention_fwd"] == 3
+    assert sum(attn.LAUNCHES.values()) == 3
     af, bf = a.float(), b.float()
     assert float((af * bf).sum() / (af.norm() * bf.norm())) > 0.999

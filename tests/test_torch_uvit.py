@@ -177,8 +177,8 @@ def test_unported_options_raise():
              **_cfg("uncond"))
     with pytest.raises(NotImplementedError, match="kernel 10"):
         tlayers.Block(64, 4, quant="w8", attn_impl="pallas_block")
-    with pytest.raises(NotImplementedError):
-        get_nnet("unet_t2i")
+    with pytest.raises(NotImplementedError):  # the T2I slice's U-ViT
+        get_nnet("uvit_t2i")
     with pytest.raises(ValueError, match="attn_impl"):
         tlayers.Attention(64, 4, attn_impl="pallas_block")
     m = UViT(device="cpu", **_cfg("cond_mlp_time"))

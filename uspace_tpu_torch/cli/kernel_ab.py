@@ -7,7 +7,8 @@ Builds ``--base`` (a ``<source>.cu`` with the same C interface, e.g. from
 (``attention``: the bf16 and int8 sampling kernels at B=50;
 ``attention_bwd``: the backward at B=128; L=257, C=1024, H=16, bf16;
 ``mlp_int8`` and ``mlp_w8``: the W8A8 and weight-only int8 MLP kernels on
-the 12850 rows of B=50, hidden 4096)
+the 12850 rows of B=50, hidden 4096; ``attention_fwd``: the [B, H, L, D]
+kernel at the SD-UNet-large shape, B=50, H=8, L=1024, D=32)
 with CUDA events, the two builds alternating base, new, new, base, ... on
 one card. A base source that lacks an entry point skips its kernel. Needs a
 CUDA card.
@@ -19,6 +20,8 @@ CUDA card.
         --base old/mlp_int8.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source mlp_w8 \
         --base old/mlp_w8.cu
+    python -m uspace_tpu_torch.cli.kernel_ab --source attention_fwd \
+        --base old/attention_fwd.cu
 """
 
 from __future__ import annotations
@@ -95,6 +98,9 @@ def main(argv=None) -> None:
     w8 = (q1.q.data_ptr(), q1.scale.data_ptr(), b1.data_ptr(),
           q2.q.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(), out.data_ptr(),
           rows, C, hid, C)
+    # the SD-UNet-large self-attention at 32 x 32 latents
+    q7, k7, v7, o7 = (torch.randn(50, 8, 1024, 32, generator=g,
+                                  device=dev).to(bf) for _ in range(4))
     s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     calls = {
         "packed_attention": lambda lib: lib.uspace_packed_attention(
@@ -120,6 +126,9 @@ def main(argv=None) -> None:
         "mlp_w8": lambda lib: lib.uspace_mlp_w8(x.data_ptr(), *w8, s),
         "ln_mlp_w8": lambda lib: lib.uspace_ln_mlp_w8(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *w8, 1e-5, s),
+        "attention_fwd": lambda lib: lib.uspace_attention_fwd(
+            q7.data_ptr(), k7.data_ptr(), v7.data_ptr(), o7.data_ptr(), 50, 8,
+            1024, 32, 32 ** -0.5, s),
     }
     calls = {k: f for k, f in calls.items()
              if f"uspace_{k}" in _build.SIGNATURES[a.source]

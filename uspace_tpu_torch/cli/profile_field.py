@@ -1,11 +1,11 @@
 """Where one evaluation of the sampling field, or one train step, spends
 its device time.
 
-Builds a config's field (seeded random weights, compute dtype), warms it
-up, then traces ``--evals`` evaluations at ``--batch`` with
-``torch.profiler`` and prints the device time per kernel name, grouped
-into the layers that launch them, beside the host wall time (the
-difference is the device's idle share). With ``--train`` it traces
+Builds a config's field (seeded random weights, compute dtype; the
+U-ViT's or the SD-UNet's), warms it up, then traces ``--evals``
+evaluations at ``--batch`` with ``torch.profiler`` and prints the device
+time per kernel name, grouped into the layers that launch them, beside the
+host wall time (the difference is the device's idle share). With ``--train`` it traces
 ``--evals`` train steps instead (f32 master weights, ``--attn_impl``
 default pallas_packed, ``--remat_exempt`` blocks exempt from remat, the
 JAX bench's optimizer) and also reports peak device memory and img/s.
@@ -15,6 +15,8 @@ Needs a CUDA card.
 
     python -m uspace_tpu_torch.cli.profile_field --config uvit_large \\
         --batch 50 --attn_impl auto --out profile_field.json
+    python -m uspace_tpu_torch.cli.profile_field --config unet_large \\
+        --attn_impl auto --out profile_unet.json
     python -m uspace_tpu_torch.cli.profile_field --quant --out q.json
     python -m uspace_tpu_torch.cli.profile_field --quant w8 --out w8.json
     python -m uspace_tpu_torch.cli.profile_field --train --batch 128 \\
@@ -40,11 +42,13 @@ GROUPS = (
     ("attention backward kernels (ours)", ("bwd_dq_kernel",
                                            "bwd_dkdv_kernel")),
     ("attention kernel (ours)", ("attention_kernel",)),
+    ("[B, H, L, D] attention kernel (ours)", ("attention_fwd_kernel",)),
     ("int8 attention kernel (ours)", ("attention_int8_kernel",)),
     ("int8 MLP kernel (ours)", ("mlp_int8_kernel",)),
     ("w8 MLP kernel (ours)", ("mlp_w8_kernel",)),
+    ("layout transposes (NHWC <-> NCHW)", ("nchwToNhwc", "nhwcToNchw")),
+    ("conv (cuDNN)", ("conv", "Conv", "cudnn", "fprop")),
     ("matmul (cuBLAS)", ("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet")),
-    ("conv (cuDNN)", ("conv", "Conv", "cudnn")),
     ("softmax", ("softmax", "Softmax")),
     ("reduction", ("reduce", "Reduce")),
     ("elementwise / copy", ("elementwise", "vectorized", "copy", "Copy",

@@ -1,13 +1,20 @@
-"""Sample latents with the U-ViT field.
+"""Sample latents with a config's field, and decode them to pixels.
 
-The no-VAE branch of ``uspace_tpu/cli/sample_lfm.py``: noise goes through
+The sampling branch of ``uspace_tpu/cli/sample_lfm.py`` for the U-ViT
+(``uvit_large``) and the SD-UNet (``unet_large``): noise goes through
 ``core.flow.decode`` and each mini-batch of raw latents ([n, 32, 32, 4]
-f32, NHWC) is written to ``<out>/<first index>.npy``. Without
-``--weights`` the field has seeded random weights; ``--weights`` takes an
-``.npz`` of JAX params keyed ``a/b/c``. ``--quant`` samples with an int8
-view of the same weights, as the config's ``nnet.quant`` does: W8A8
-(``w8a8``, the default of the flag, or ``w8a8_mlp``) or weight-only
-(``w8``, the view for adaptive solves).
+f32, NHWC) is written to ``<out>/<first index>.npy``. With ``--decode`` the
+f32 SD VAE decodes each batch and the pixels go to
+``<out>/<first index>.pixels.npy`` as uint8 [n, 256, 256, 3] (``unpreprocess``
+and rounding, as the JAX package's PNG writer rounds). Without ``--weights``
+the field has seeded random weights (the UNet's zero-initialised output
+convs drawn small, so that the field is not zero); ``--weights`` takes an
+``.npz`` of JAX params keyed ``a/b/c``, ``--vae_weights`` the same for the
+VAE (seeded weights without it). The VAE's f32 convolutions run in exact
+f32, TF32 off. ``--quant`` samples the U-ViT with an int8 view of the same
+weights, as the config's ``nnet.quant`` does: W8A8 (``w8a8``, the default
+of the flag, or ``w8a8_mlp``) or weight-only (``w8``, the view for adaptive
+solves).
 
 The solve is the config's, fixed-step Euler of ``--steps`` by default.
 ``--solver adaptive`` runs the reference's eval decode (dopri5 at rtol =
@@ -16,6 +23,8 @@ controller unless ``--controller i``); ``--solver fixadp`` is Euler to
 ``--t_edit`` and adaptive from there. An adaptive solve prints each batch's
 field evaluations (NFE), step attempts and accepted steps.
 
+    python -m uspace_tpu_torch.cli.sample_lfm --config unet_large --decode \\
+        --n_samples 100 --batch 50 --steps 50 --seed 0 --out samples
     python -m uspace_tpu_torch.cli.sample_lfm --config uvit_large \\
         --n_samples 100 --batch 50 --steps 50 --seed 0 --out samples
     python -m uspace_tpu_torch.cli.sample_lfm --config synthetic_smoke \\
@@ -34,19 +43,31 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..codecs.convert import load_uvit_from_jax, unflatten
+from ..codecs.convert import (
+    load_unet_from_jax,
+    load_uvit_from_jax,
+    load_vae_from_jax,
+    unflatten,
+)
+from ..codecs.vae import AutoencoderKL
 from ..configs import get_config, solver_kwargs
 from ..core import flow
+from ..data.datasets import unpreprocess
 from ..models import get_nnet
+from ..models.unet import ZERO_INIT_STD
+
+_LOADERS = {"uvit": load_uvit_from_jax, "unet_t2i": load_unet_from_jax}
 
 
 def build_model(config: dict, device: torch.device, seed: int = 0,
                 weights: Optional[str] = None, attn_impl: str = "auto",
                 quant=None):
     """The config's field in its compute dtype, from JAX weights or seeded
-    random init. ``quant`` (default: the config's ``nnet.quant``) picks a
-    quantized view; such a view keeps f32 parameters, on which its int8
-    scales are fitted, as in the JAX package."""
+    random init (a UNet's zero-initialised output convs drawn live, so that
+    the field is not zero). ``quant`` (default: the config's
+    ``nnet.quant``) picks a quantized view; such a view keeps f32
+    parameters, on which its int8 scales are fitted, as in the JAX
+    package."""
     nnet = dict(config["nnet"])
     name = nnet.pop("name")
     if quant is not None:
@@ -58,10 +79,36 @@ def build_model(config: dict, device: torch.device, seed: int = 0,
                      **nnet)
     if weights:
         with np.load(weights) as npz:
-            load_uvit_from_jax(model, unflatten(dict(npz)))
+            _LOADERS[name](model, unflatten(dict(npz)))
     else:
-        model.init_weights(torch.Generator(device=device).manual_seed(seed))
+        g = torch.Generator(device=device).manual_seed(seed)
+        if name == "unet_t2i":
+            model.init_weights(g, zero_init_std=ZERO_INIT_STD)
+        else:
+            model.init_weights(g)
     return model.eval()
+
+
+def build_vae(config: dict, device=None, seed: int = 0,
+              weights: Optional[str] = None) -> AutoencoderKL:
+    """The config's f32 SD VAE on ``device`` (CUDA unless "cpu") from JAX
+    weights or seeded random init. Its f32 convolutions run in exact f32 on
+    the card, not TF32, as JAX computes on the CPU."""
+    device = resolve_device(device)
+    vae = AutoencoderKL(**config["autoencoder"], device=device)
+    if weights:
+        with np.load(weights) as npz:
+            load_vae_from_jax(vae, unflatten(dict(npz)))
+    else:
+        vae.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return vae.eval()
+
+
+def to_uint8(pixels: torch.Tensor) -> np.ndarray:
+    """Decoded pixels in [-1, 1] -> uint8 [0, 255] (unpreprocess, then
+    rounding)."""
+    return np.round(unpreprocess(pixels.float().cpu().numpy()) * 255.0
+                    ).astype(np.uint8)
 
 
 @torch.no_grad()
@@ -71,13 +118,16 @@ def run(config: str = "uvit_large", n_samples: int = 100, batch: int = 50,
         solver: Optional[str] = None, t_edit: Optional[float] = None,
         rtol: Optional[float] = None, atol: Optional[float] = None,
         controller: Optional[str] = None, safety: Optional[float] = None,
-        stats: Optional[List[dict]] = None) -> List[str]:
-    """Write ceil(n_samples / batch) latent batches; returns their paths.
+        stats: Optional[List[dict]] = None, decode: bool = False,
+        vae_weights: Optional[str] = None) -> List[str]:
+    """Write ceil(n_samples / batch) latent batches, and with ``decode``
+    their uint8 pixel batches after each; returns the paths in that order.
     For an adaptive solve each batch's statistics are printed and, when
     ``stats`` is a list, appended to it."""
     dev = resolve_device(device)
     cfg = get_config(config)
     model = build_model(cfg, dev, seed, weights, quant=quant)
+    vae = build_vae(cfg, dev, seed, vae_weights) if decode else None
     sk = solver_kwargs(cfg, steps, solver=solver, rtol=rtol, atol=atol,
                        controller=controller, safety=safety)
     c, h, w = cfg["z_shape"]
@@ -99,6 +149,10 @@ def run(config: str = "uvit_large", n_samples: int = 100, batch: int = 50,
         path = os.path.join(out, f"{b * batch}.npy")
         np.save(path, lat.float().cpu().numpy())
         paths.append(path)
+        if vae is not None:
+            path = os.path.join(out, f"{b * batch}.pixels.npy")
+            np.save(path, to_uint8(vae.decode(lat)))
+            paths.append(path)
     return paths
 
 
@@ -110,7 +164,7 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--weights", default=None,
-                    help=".npz of JAX U-ViT params (keys a/b/c)")
+                    help=".npz of JAX field params (keys a/b/c)")
     ap.add_argument("--out", default="samples")
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--quant", nargs="?", const="w8a8", default=None,
@@ -125,11 +179,17 @@ def main(argv=None) -> None:
     ap.add_argument("--atol", type=float, default=None)
     ap.add_argument("--controller", default=None, choices=["i", "pi"])
     ap.add_argument("--safety", type=float, default=None)
+    ap.add_argument("--decode", action="store_true",
+                    help="decode each batch with the f32 SD VAE and write "
+                    "uint8 pixels")
+    ap.add_argument("--vae_weights", default=None,
+                    help=".npz of JAX VAE params (keys a/b/c)")
     a = ap.parse_args(argv)
     paths = run(a.config, a.n_samples, a.batch, a.steps, a.seed, a.weights,
                 a.out, a.device, a.quant, a.solver, a.t_edit, a.rtol, a.atol,
-                a.controller, a.safety)
-    print(f"wrote {len(paths)} batches to {a.out}")
+                a.controller, a.safety, decode=a.decode,
+                vae_weights=a.vae_weights)
+    print(f"wrote {len(paths)} arrays to {a.out}")
 
 
 if __name__ == "__main__":

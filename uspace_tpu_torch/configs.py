@@ -23,6 +23,26 @@ def uvit_nnet(embed_dim: int = 512, depth: int = 16, num_heads: int = 8,
     return cfg
 
 
+def unet_nnet(model_channels: int = 256, **kw) -> Dict[str, Any]:
+    """The SD-UNet block of configs/lfm_cm256_unet_large.py:45-58."""
+    cfg = dict(name="unet_t2i", image_size=32, in_channels=4, out_channels=4,
+               model_channels=model_channels, attention_resolutions=(4, 2, 1),
+               num_res_blocks=2, channel_mult=(1, 2, 4), num_head_channels=32,
+               use_spatial_transformer=True, transformer_depth=1,
+               context_dim=768)
+    cfg.update(kw)
+    return cfg
+
+
+# the SD VAE of every 256-pixel config (configs/common.py autoencoder block;
+# uspace_tpu/codecs/vae.py SD_CONFIG), scale factor 0.18215
+_AUTOENCODER = dict(ddconfig=None, embed_dim=4, scale_factor=0.18215)
+# the SD layout at 32 channels and one res block, for the CPU configs
+_TINY_AUTOENCODER = dict(_AUTOENCODER, ddconfig=dict(
+    ch=32, out_ch=3, ch_mult=(1, 2, 2, 2), num_res_blocks=1,
+    attn_resolutions=(), in_channels=3, resolution=256, z_channels=4,
+    double_z=True))
+
 # configs/common.py:35-51 (base_config): train, optimizer, lr_scheduler,
 # dynamic. batch_size is the per-card batch here.
 _TRAIN = dict(n_steps=500_000, batch_size=256, mode="uncond", log_interval=100,
@@ -50,11 +70,44 @@ CONFIGS: Dict[str, Dict[str, Any]] = {
         z_shape=(4, 32, 32),  # CHW, reference convention
         compute_dtype="bfloat16",
         nnet=uvit_nnet(embed_dim=1024, depth=20, num_heads=16),
+        autoencoder=_AUTOENCODER,
         train=dict(_TRAIN, n_steps=300_000, batch_size=128),
         optimizer=_OPTIMIZER,
         lr_scheduler=_LR_SCHEDULER,
         dynamic=_DYNAMIC,
         sample=_SAMPLE,
+    ),
+    # CelebAMask-HQ 256 SD-UNet-large (configs/lfm_cm256_unet_large.py):
+    # 4x32x32 latents, 256 channels x (1, 2, 4), 2 res blocks, a
+    # SpatialTransformer (head channels 32, context 768, depth 1) at every
+    # level, bf16 field; uncond mode, so the context is the zeros token;
+    # sampled at batch 50 and decoded to 256-pixel images by the f32 SD VAE
+    "unet_large": dict(
+        z_shape=(4, 32, 32),
+        compute_dtype="bfloat16",
+        nnet=unet_nnet(),
+        autoencoder=_AUTOENCODER,
+        train=dict(_TRAIN, n_steps=300_000, batch_size=128),
+        optimizer=_OPTIMIZER,
+        lr_scheduler=_LR_SCHEDULER,
+        dynamic=_DYNAMIC,
+        sample=_SAMPLE,
+    ),
+    # tiny CPU UNet config (tests/test_unet.py TINY): 4x16x16 latents, 32
+    # channels x (1, 2), attention at ds 2, f32; a VAE of the SD layout at
+    # 32 channels (--decode: 128-pixel images)
+    "synthetic_unet": dict(
+        z_shape=(4, 16, 16),
+        compute_dtype="float32",
+        nnet=unet_nnet(model_channels=32, image_size=16, num_res_blocks=1,
+                       attention_resolutions=(2,), channel_mult=(1, 2),
+                       num_head_channels=16, context_dim=24),
+        autoencoder=_TINY_AUTOENCODER,
+        train=dict(_TRAIN, n_steps=10, batch_size=8),
+        optimizer=_OPTIMIZER,
+        lr_scheduler=_LR_SCHEDULER,
+        dynamic=_DYNAMIC,
+        sample=dict(_SAMPLE, sample_steps=4, n_samples=4, mini_batch_size=4),
     ),
     # tiny CPU smoke config (configs/synthetic_smoke.py): 4x8x8 latents,
     # embed 32, depth 2, f32
@@ -63,6 +116,7 @@ CONFIGS: Dict[str, Dict[str, Any]] = {
         compute_dtype="float32",
         nnet=uvit_nnet(embed_dim=32, depth=2, num_heads=4, img_size=8,
                        use_checkpoint=False),
+        autoencoder=_TINY_AUTOENCODER,
         train=dict(_TRAIN, n_steps=10, batch_size=8, log_interval=5,
                    eval_interval=10, save_interval=5),
         optimizer=_OPTIMIZER,

@@ -40,3 +40,8 @@ class SyntheticFeatures:
         """The samples at ``indices`` stacked along a new batch axis."""
         items = [self[i] for i in indices]
         return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+def unpreprocess(images: np.ndarray) -> np.ndarray:
+    """[-1, 1] -> [0, 1], clipped (reference datasets.py:84-90)."""
+    return np.clip((images + 1.0) / 2.0, 0.0, 1.0)

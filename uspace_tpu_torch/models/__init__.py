@@ -6,17 +6,19 @@ from torch import nn
 
 from .. import resolve_device
 from .layers import patchify, timestep_embedding, unpatchify
+from .unet import UNet
 from .uvit import UViT
 
 
 def get_nnet(name: str, **kwargs) -> nn.Module:
     """Build a denoiser by config name on ``device`` (CUDA unless
-    ``device="cpu"``). Only ``uvit`` is ported so far."""
-    if name == "uvit":
-        kwargs["device"] = resolve_device(kwargs.get("device"))
-        return UViT(**kwargs)
-    raise NotImplementedError(f"nnet {name!r} is not ported")
+    ``device="cpu"``): ``uvit`` or ``unet_t2i`` (the SD-UNet)."""
+    nets = {"uvit": UViT, "unet_t2i": UNet}
+    if name not in nets:
+        raise NotImplementedError(f"nnet {name!r} is not ported")
+    kwargs["device"] = resolve_device(kwargs.get("device"))
+    return nets[name](**kwargs)
 
 
-__all__ = ["UViT", "get_nnet", "patchify", "unpatchify",
+__all__ = ["UNet", "UViT", "get_nnet", "patchify", "unpatchify",
            "timestep_embedding"]

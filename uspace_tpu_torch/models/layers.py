@@ -141,7 +141,7 @@ class Dense(nn.Linear):
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` (NCHW) with parameters in ``param_dtype`` that
-    computes in ``dtype``."""
+    computes in ``dtype``; :meth:`nhwc` takes and returns NHWC."""
 
     def __init__(self, *args, dtype: torch.dtype = torch.float32,
                  param_dtype=None, device=None, **kw):
@@ -152,6 +152,11 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype),
                                   _cast(self.bias, self.dtype))
+
+    def nhwc(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv on NHWC ``x``: the NCHW view of a channels-last tensor
+        in, the NHWC view of the result out."""
+        return self(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class Embedding(nn.Embedding):
@@ -186,6 +191,39 @@ class LayerNorm(nn.Module):
                           min=0.0)
         y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight)
         return (y + self.bias).to(self.dtype)
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Flax ``nn.GroupNorm`` on NHWC ``x`` (channels last): ``gcd(32, C)``
+    groups of channels (the JAX UNet's rule), f32
+    statistics over space and the group with var = E[x^2] - mu^2 clamped
+    at 0 (Flax's fast variance; torch's ``group_norm`` takes the variance
+    another way), ``(x - mu) * (rsqrt(var + eps) * scale) + bias`` in f32,
+    then x's dtype."""
+    b, c = x.shape[0], x.shape[-1]
+    g = math.gcd(32, c)
+    xf = x.float().reshape(b, -1, g, c // g)
+    mu = xf.mean(dim=(1, 3), keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=(1, 3), keepdim=True) - mu * mu,
+                      min=0.0)
+    y = (xf - mu) * (torch.rsqrt(var + eps)
+                     * weight.float().reshape(g, c // g))
+    return (y + bias.float().reshape(g, c // g)).reshape(x.shape).to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """:func:`group_norm` with f32 scale and bias (torch names ``weight``
+    and ``bias``); eps 1e-5 in the UNet, 1e-6 in the VAE."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm(x, self.weight, self.bias, self.eps)
 
 
 class Mlp(nn.Module):

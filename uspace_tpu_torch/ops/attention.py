@@ -32,6 +32,13 @@ dS) and a launch count in :data:`LAUNCHES`. A wrapper launches its kernel
 for a CUDA tensor and uses the twin only for a tensor on the CPU; on CUDA it
 never falls back.
 
+:func:`fused_attention` is the [B, H, L, D] kernel of the SD-UNet's
+self-attention (``csrc/attention_fwd.cu``, TPU kernel ``_fwd_kernel``):
+K and V stream through shared memory, so it takes any L up to 1024, at
+head dims 32 and 64. :func:`multi_head_attention` routes to it as the JAX
+dispatcher routes on the TPU (``auto``: 512 < L <= 1024). It is
+inference-only until its backward (``_bwd_kernel``) is ported.
+
 Layout: q, k, v are ``[B, H, L, D]``; packed and fused entry points take
 and return ``[B, L, C]`` as the JAX package does.
 """
@@ -60,17 +67,23 @@ LAUNCHES: Dict[str, int] = {
     "packed_attention_bwd": 0,
     "qkvproj_attention_int8": 0,
     "ln_qkvproj_attention_int8": 0,
+    "attention_fwd": 0,
 }
 
 KERNEL_HEAD_DIM = 64
 KERNEL_MAX_LEN = 512  # the whole head's q, k, v stay in one SM's shared memory
 
-# beyond this length the JAX package switches to its [B, H, L, D] Pallas
-# kernels (_fwd_kernel/_bwd_kernel, _flash_kernel), not yet ported
+# the JAX dispatcher: plain math up to this length, then the [B, H, L, D]
+# kernel (_fwd_kernel) up to FUSED_MAX_LEN, then _flash_kernel
 _XLA_PREFERRED_MAX_LEN = 512
-_UNPORTED_LONG = ("[B, H, L, D] kernel attention (kernels 7-8 of the kernel "
-                  "table: _fwd_kernel/_bwd_kernel, and 9: _flash_kernel) is "
-                  "not ported yet")
+FUSED_MAX_LEN = 1024
+FWD_HEAD_DIMS = (32, 64)
+_UNPORTED_FLASH = ("attention over L > 1024 needs the blocked online-softmax "
+                   "kernel (kernel 9 of the kernel table, _flash_kernel), "
+                   "not ported yet")
+_NO_FWD_GRAD = ("until its backward (kernel 8 of the kernel table, "
+                "_bwd_kernel) is ported; call under torch.no_grad() or train "
+                "with attn_impl='xla'")
 
 
 def reset_launches() -> None:
@@ -99,10 +112,16 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _attention_core_plain(q, k, v, scale):
-    """The fused kernels' attention core on [B, H, L, D]: f32 scores and
-    row max, p = exp(s - max), bf16 P before P·V, division by the f32 row
-    sum after P·V."""
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """The fused kernels' attention core on [B, H, L, D], and the twin of
+    the [B, H, L, D] kernel (``_fwd_kernel``): f32 scores ``f32(q k^T) *
+    scale``, f32 row max, ``p = exp(s - m)`` and its f32 row sum; ``(p in
+    v's dtype) . v`` with f32 sums divided by the sum, rounded once to q's
+    dtype. The TPU kernel's row padding to a multiple of 32 and its
+    ``-0.7 * f32 max`` key mask change no value (exp of the masked scores
+    is exactly 0, padded V rows are zero, padded query rows are dropped),
+    so the twin has neither."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
@@ -117,7 +136,7 @@ def packed_attention_plain(qkv: torch.Tensor, num_heads: int,
     h = num_heads
     d = c3 // (3 * h)
     q, k, v = qkv.reshape(b, l, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
-    o = _attention_core_plain(q, k, v, scale)
+    o = attention_plain(q, k, v, scale)
     return o.transpose(1, 2).reshape(b, l, h * d)
 
 
@@ -333,6 +352,43 @@ def _int8_kernel(x, qw, num_heads, scale, ln=None):
     return out
 
 
+def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: float) -> torch.Tensor:
+    b, h, l, d = q.shape
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the [B, H, L, D] attention kernel takes bfloat16, "
+                         f"got {q.dtype} (use attn_impl='xla' for other "
+                         f"dtypes)")
+    if d not in FWD_HEAD_DIMS:
+        raise ValueError(f"the [B, H, L, D] attention kernel takes head dim "
+                         f"{' or '.join(map(str, FWD_HEAD_DIMS))}, got {d}")
+    if not 1 <= l <= FUSED_MAX_LEN:
+        raise ValueError(f"the [B, H, L, D] attention kernel takes 1 <= L <= "
+                         f"{FUSED_MAX_LEN}, got {l}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_tensor(name, t, torch.bfloat16, (b, h, l, d), q.device)
+    out = torch.empty_like(q)
+    rc = load("attention_fwd").uspace_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, l, d,
+        scale, cuda_stream(q.device))
+    raise_on(rc, "uspace_attention_fwd")
+    LAUNCHES["attention_fwd"] += 1
+    return out
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v on [B, H, L, D] through the [B, H, L, D]
+    kernel (its twin on the CPU): bf16, head dim 32 or 64, L <= 1024;
+    strided views are made contiguous first. Inference-only."""
+    scale = _default_scale(q.shape[-1], scale)
+    check_no_grad(q, k, v, what="the [B, H, L, D] attention kernel",
+                  why=_NO_FWD_GRAD)
+    if on_cpu(q):
+        return attention_plain(q, k, v, scale)
+    return _fwd_kernel(q.contiguous(), k.contiguous(), v.contiguous(), scale)
+
+
 def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
                          num_heads: int,
                          scale: Optional[float] = None) -> torch.Tensor:
@@ -457,8 +513,10 @@ def multi_head_attention(
 
     ``col_mult``: optional ``[B, L]`` post-softmax per-key multiplier
     (prompt-to-prompt rescale), folded exactly into V. ``impl``: ``xla``
-    (plain), or ``auto`` — plain for L <= 512 and on the CPU, as in the
-    JAX package; the longer-sequence kernels are not ported yet.
+    (plain); ``pallas`` — :func:`fused_attention` for L <= 1024; ``auto`` —
+    plain for L <= 512 and on the CPU, the kernel for 512 < L <= 1024 on
+    the card, as the JAX package routes on the TPU. Above 1024 the kernel
+    routes raise (``_flash_kernel`` is not ported yet).
     """
     scale = _default_scale(q.shape[-1], scale)
     if col_mult is not None:
@@ -467,12 +525,12 @@ def multi_head_attention(
     if return_probs:
         return xla_attention(q, k, v, scale, return_probs=True)
     if impl == "auto":
-        if q.shape[2] <= _XLA_PREFERRED_MAX_LEN or on_cpu(q):
-            impl = "xla"
-        else:
-            raise NotImplementedError(_UNPORTED_LONG)
+        impl = ("xla" if q.shape[2] <= _XLA_PREFERRED_MAX_LEN or on_cpu(q)
+                else "pallas")
     if impl == "xla":
         return xla_attention(q, k, v, scale)
     if impl == "pallas":
-        raise NotImplementedError(_UNPORTED_LONG)
+        if q.shape[2] > FUSED_MAX_LEN:
+            raise NotImplementedError(_UNPORTED_FLASH)
+        return fused_attention(q, k, v, scale)
     raise ValueError(f"unknown impl {impl!r}")
