@@ -11,10 +11,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (B=50 for the sampling kernels, B=128 for the backward kernel; L=257,
    C=1024, H=16, bf16; the int8 and w8 MLPs on the 12850 rows of B=50 with
    hidden 4096; the [B, H, L, D] kernel at B=50, H=8, L=1024, D=32, and at
-   H=4, D=64 and at L=600): max-abs and rel-L2 within the tolerances below;
+   H=4, D=64 and at L=600; its backward at B=128 at the same three head
+   shapes, dq, dk and dv each): max-abs and rel-L2 within the tolerances below;
    for each int8 and w8 kernel, controls (twins with one rounding site
    changed) that the same limits must refuse; kernel, twin and library-call
    times with CUDA events; the bound of the same work on an H100 SXM;
+3b. `ops.quant.int8_conv` on the card against the CPU at UNet-large's 3x3
+   conv and Downsample shapes: equal codes, bit-equal f32 outputs;
 4. the main path: U-ViT-large (embed 1024, depth 20, 16 heads, patch 2) in
    bf16 with seeded random weights, Euler-50 at batch 50 through
    `core.flow.decode` with attn_impl="auto": 21 x 50 = 1050 launches of the
@@ -75,7 +78,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    time, peak memory, finite; one image on the card against the CPU, and
    with TF32 on as a control;
 12. the entry point `cli.sample_lfm.run(config="unet_large", decode=True)`:
-   two batches of latents and uint8 pixels.
+   two batches of latents and uint8 pixels;
+13. the UNet's int8 view (quant=True: its convs in W8A8), f32 weights of
+   phase 10's seed, Euler-50 at batch 50 from phase 10's z: 250 launches of
+   kernel 7 and no other, no weight quantization in the timed solve, img/s
+   against the bf16 view, latents against phase 10's; one evaluation at the
+   bench shape against the bf16 view;
+14. the VAE's int8 decode view decodes those latents: time, peak memory,
+   finite pixels, rel-L2 against the f32 decode;
+15. `cli.sample_lfm.run(config="unet_large", quant=True, decode=True)`: two
+   batches of latents and uint8 pixels through both int8 views;
+16. UNet-large training: batch 128, f32 masters, bf16 compute, `auto`, the
+   reference init, phase 7's optimizer: img/s, peak memory, finite losses,
+   per step 5 launches of the backward kernel, 5 of kernel 7 (10 with
+   remat) and no other;
+17. the UNet gradient at batch 32 on one batch (output convs drawn live):
+   the kernel path against the plain path and both against the f32
+   field's, globally and on the L = 1024 attention projections; a control
+   with the backward kernel's outputs zeroed must fail the limits;
+18. `cli.train_lfm.run(config="unet_large")` for 2 steps; its checkpoint's
+   params load into a fresh model with strict=True.
 
 Prints the `kernels` JSON line and then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -215,6 +237,38 @@ TRAIN_B = 128          # the reference's per-GPU batch
 REMAT_EXEMPT = 21
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 GRAD_B = 32
+# kernel 8's phase-3 shapes (B, H, L, D) at the training batch; the first is
+# the UNet-large training path's (its five self-attentions at 32 x 32)
+BWD_SHAPES = {"fused_attention_bwd": (TRAIN_B, 8, 1024, 32),
+              "fused_attention_bwd D=64": (TRAIN_B, 4, 1024, 64),
+              "fused_attention_bwd L=600": (TRAIN_B, 8, 600, 32)}
+# kernel 8's twin holds several [B, H, L, L] f32 tensors: run it in chunks
+TWIN_CHUNK = 16
+# int8_conv on the card against the CPU on the same inputs: UNet-large's
+# 3x3 conv at 32 x 32 and 256 channels, and its Downsample (k3 s2)
+INT8_CONV_SHAPES = {"k3": ((B, 32, 32, 256), 256, 1),
+                    "k3 s2": ((B, 32, 32, 256), 256, 2)}
+# UNet-large training at TRAIN_B runs without remat, as its config does:
+# it fits (58.6 GiB peak on the first H100 run)
+UNET_TRAIN_REMAT = False
+# the UNet's global gradient at GRAD_B, kernel path (auto: kernels 7 and 8)
+# against the plain path (xla), and its part on the five L = 1024
+# self-attentions' q, k and v projections (kernel 8's direct product); each
+# path also against the f32 field's gradient, the kernel path within
+# UNET_F32_RATIO of the plain path's distance. First H100 run: cos
+# 0.9999950 / rel-L2 3.17e-3 globally, 0.9999961 / 2.80e-3 on the
+# projections (the U-ViT's closeness, not one evaluation's), 1.01x the
+# plain path's distance to f32; the control with kernel 8 zeroed read
+# rel-L2 0.317 and 1.0: limits at about 5x the readings
+UNET_GRAD_MIN_COS = 0.99997
+UNET_GRAD_MAX_REL_L2 = 1.5e-2
+# the int8 (convs-only) UNet view against the bf16 kernel view, Euler-50
+# latents (first H100 run: cos 0.9995759, rel-L2 2.92e-2) and one
+# evaluation at the JAX bench's shape (cos 0.9977634, rel-L2 6.69e-2): 5x
+# the readings, but never looser than the JAX package's one-evaluation gate
+# (cos > 0.995, rel-L2 < 0.1, tests/test_quant.py:493-501)
+UNET_QUANT_LIMITS = (0.998, 0.1)
+UNET_QUANT_EVAL_LIMITS = (0.995, 0.1)
 
 
 def fail(msg):
@@ -261,6 +315,10 @@ def judge(torch, case, out, ref):
     """max-abs and rel-L2 of ``out`` against ``ref`` (rel-L2 on the
     case's ``part``) and the case's limits; a max-abs limit of None is one
     bf16 step of the largest |ref|."""
+    if isinstance(out, tuple):  # each output held to the limits
+        parts = [judge(torch, case, o, r) for o, r in zip(out, ref)]
+        return (max(p[0] for p in parts), max(p[1] for p in parts),
+                min(p[2] for p in parts), parts[0][3])
     part = case.get("part", lambda t: t)
     _, rel, _ = compare(torch, part(out), part(ref))
     max_abs, _, _ = compare(torch, out, ref)
@@ -365,6 +423,7 @@ def check_kernels(torch, F, attn, mlpk, quant):
     cases += int8_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
     cases += w8_cases(torch, F, attn, mlpk, quant, randn, io)
     cases += fwd_cases(torch, F, attn, randn, io)
+    cases += bwd_cases(torch, F, attn, randn, io)
     results, shapes, controls, problems = [], [], {}, []
     for case in cases:
         counter = case.get("counter", case["name"])
@@ -677,6 +736,89 @@ def fwd_cases(torch, F, attn, randn, io):
                 q, k, v),
             bytes=io(q, k, v) + io(q), flops=4.0 * b * h * l * l * d,
             shape=f"B={b} H={h} L={l} D={d} bf16"))
+    return out
+
+
+def bwd_cases(torch, F, attn, randn, io):
+    """Phase 3's cases of the [B, H, L, D] backward kernel (row 8 of the
+    PERF.md table) at the training batch: the UNet-large self-attention at
+    32 x 32 latents (H=8, L=1024, D=32; the `kernels` line), head channels
+    64 (H=4, D=64) and a ragged L=600; dq, dk and dv each within the
+    backward limits. Yardstick: SDPA's backward through autograd on a
+    retained graph of the same inputs."""
+    out = []
+    for name, (b, h, l, d) in BWD_SHAPES.items():
+        q, k, v, do = (randn(b, h, l, d) for _ in range(4))
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(ql, kl, vl)
+
+        def twin(q=q, k=k, v=v, do=do, d=d):
+            parts = [attn.attention_bwd_plain(*ts, d ** -0.5) for ts in zip(
+                *(t.split(TWIN_CHUNK) for t in (q, k, v, do)))]
+            return tuple(torch.cat(p) for p in zip(*parts))
+
+        out.append(dict(
+            name=name, counter="fused_attention_bwd",
+            listed=name == "fused_attention_bwd",
+            source="uspace_tpu_torch/ops/csrc/fused_attention_bwd.cu",
+            replaces="uspace_tpu/ops/attention.py:132 (_bwd_kernel)",
+            kernel=lambda q=q, k=k, v=v, do=do: attn.fused_attention_bwd(
+                q, k, v, do),
+            plain=twin,
+            library=lambda o=o, ts=(ql, kl, vl), do=do: torch.autograd.grad(
+                o, ts, do, retain_graph=True),
+            bytes=io(q, k, v, do) + io(q, k, v),
+            flops=10.0 * b * h * l * l * d, tol=(BWD_MAX_ABS, BWD_REL_L2),
+            shape=f"B={b} H={h} L={l} D={d} bf16"))
+    return out
+
+
+def int8_conv_check(torch, F, quant):
+    """Phase 3b: ops.quant.int8_conv on the card (im2col, torch._int_mm)
+    against the same function on the CPU (an exact float64 product), same
+    bf16 inputs, f32 output: the int32 sums are exact, so the activation
+    codes, the weight codes and every output bit must be equal. Times the
+    card's int8_conv and, beside it, cuDNN's bf16 conv of the same shape."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(77)
+    out = {}
+    for name, (shape, cout, stride) in INT8_CONV_SHAPES.items():
+        cin = shape[-1]
+        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn((cout, cin, 3, 3), generator=g, device=dev) * \
+            (9 * cin) ** -0.5
+        bias = torch.randn((cout,), generator=g, device=dev) * 0.1
+        st = (stride, stride)
+
+        def card(x=x, w=w, bias=bias, st=st):
+            return quant.int8_conv(x, w, bias, st, (1, 1), torch.float32)
+
+        y = card()
+        xq, xs = quant.image_codes(x)
+        wq = quant.quantized_conv_weight(w)
+        torch.cuda.synchronize()
+        y_cpu = quant.int8_conv(x.cpu(), w.cpu(), bias.cpu(), st, (1, 1),
+                                torch.float32)
+        xq_cpu, xs_cpu = quant.image_codes(x.cpu())
+        wq_cpu = quant.quantized_conv_weight(w.cpu())
+        codes = (torch.equal(xq.cpu(), xq_cpu) and torch.equal(
+            xs.cpu(), xs_cpu) and torch.equal(wq.q.cpu(), wq_cpu.q)
+            and torch.equal(wq.scale.cpu(), wq_cpu.scale))
+        bits = torch.equal(y.cpu(), y_cpu)
+        max_abs, _, _ = compare(torch, y.cpu(), y_cpu)
+        xn, wb = x.permute(0, 3, 1, 2), w.to(torch.bfloat16)
+        ms = time_ms(torch, card)
+        bf16_ms = time_ms(torch, lambda: F.conv2d(xn, wb, bias.to(
+            torch.bfloat16), st, 1))
+        out[name] = dict(shape=f"{list(shape)} -> {cout}, k3 s{stride}",
+                         codes_equal=codes, bits_equal=bits,
+                         max_abs=max_abs, ms=ms, bf16_conv_ms=bf16_ms)
+        log(f"int8_conv {name} {list(shape)} -> {cout}: card vs CPU codes "
+            f"equal {codes}, outputs bit-equal {bits} (max_abs "
+            f"{max_abs:.3e}); {ms:.4f} ms on the card, cuDNN bf16 conv "
+            f"{bf16_ms:.4f} ms")
+        if not (codes and bits):
+            fail(f"int8_conv {name}: the card differs from the CPU")
     return out
 
 
@@ -1152,7 +1294,8 @@ def unet_path(torch, flow, attn, mlpk, sample_lfm, dev, by_key):
     50 through `core.flow.decode` with `auto`: 5 x 50 launches of kernel 7
     and of no other kernel; latents against the plain path (`xla`) from the
     same z, and a control, kernel 7's output replaced by zeros, that must
-    fail the same limits; img/s and peak memory. Returns the latents."""
+    fail the same limits; img/s and peak memory. Returns z and the
+    latents."""
     from uspace_tpu_torch.configs import get_config
 
     held = torch.cuda.memory_allocated() / 2**30  # by the earlier phases
@@ -1211,7 +1354,7 @@ def unet_path(torch, flow, attn, mlpk, sample_lfm, dev, by_key):
                zero_attention_control=dict(cos=c_cos, rel_l2=c_rel))
     out["bench_shape"] = unet_field_check(torch, attn, mlpk, sample_lfm, dev,
                                           z)
-    return lat, out
+    return z, lat, out
 
 
 def vae_decode(torch, sample_lfm, dev, lat):
@@ -1276,21 +1419,308 @@ def vae_decode(torch, sample_lfm, dev, lat):
                 tf32_vs_cpu=dict(cos=t_cos, rel_l2=t_rel))
 
 
-def unet_entry_point(torch, np, sample_lfm):
-    """Phase 12: cli.sample_lfm.run(config="unet_large", decode=True): two
-    batches of latents and of uint8 pixels."""
+def unet_entry_point(torch, np, sample_lfm, quant=None):
+    """Phases 12 and 15: cli.sample_lfm.run(config="unet_large",
+    decode=True), in the bf16 view or with ``quant`` the int8 UNet and VAE
+    views: two batches of latents and of uint8 pixels."""
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         paths = sample_lfm.run(config="unet_large", n_samples=2 * B, batch=B,
-                               steps=STEPS, seed=3, out=tmp, decode=True)
+                               steps=STEPS, seed=3, out=tmp, decode=True,
+                               quant=quant)
         secs = time.perf_counter() - t0
         arrays = [np.load(p) for p in paths]
     got = [(a.shape, str(a.dtype)) for a in arrays]
     want = [((B, 32, 32, 4), "float32"), ((B, 256, 256, 3), "uint8")] * 2
-    log(f"sample_lfm.run (unet_large, decode): {got} in {secs:.1f} s")
+    log(f"sample_lfm.run (unet_large, decode, quant={quant}): {got} in "
+        f"{secs:.1f} s")
     if got != want or not all(np.isfinite(a).all() for a in arrays[::2]):
-        fail(f"sample_lfm (unet_large, decode) wrote {got}")
+        fail(f"sample_lfm (unet_large, decode, quant={quant}) wrote {got}")
     return dict(seconds=secs, arrays=[list(s) for s, _ in got])
+
+
+def unet_int8_path(torch, flow, attn, mlpk, quant, sample_lfm, dev, z,
+                   lat_bf16, bf16_ips):
+    """Phase 13: the int8 (convs-only, quant=True) UNet-large view, f32
+    weights of phase 10's seed, Euler-50 at batch 50 from phase 10's z with
+    `auto`: 250 launches of kernel 7 and no other kernel, no weight
+    quantization in the timed solve, img/s against phase 10's bf16 view,
+    latents against phase 10's bf16 kernel latents; then one evaluation at
+    the JAX bench's shape (head channels 64, a seeded [50, 77, 768]
+    context) against the bf16 view of the same weights. Returns the int8
+    latents."""
+    from uspace_tpu_torch.configs import get_config
+
+    cfg = get_config("unet_large")
+    model = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="auto",
+                                   quant=True)
+    with torch.no_grad():  # warm-up: quantizes every weight once
+        model(z, torch.zeros(B, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(attn, mlpk)
+    quant.reset_quantizations()
+    lat, secs = decode_run(torch, flow, model, z, STEPS)
+    launches = all_launches(attn, mlpk)
+    n_quant = quant.QUANTIZATIONS["weights"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    max_abs, rel, cos = compare(torch, lat, lat_bf16)
+    min_cos, max_rel = UNET_QUANT_LIMITS
+    log(f"UNet int8 view (quant=True, auto): {secs:.3f} s, {B / secs:.3f} "
+        f"img/s (bf16 view {bf16_ips:.3f}), launches {launches}, weight "
+        f"quantizations in the solve {n_quant}, peak {peak_gb:.2f} GiB; "
+        f"latents vs the bf16 kernel view: cos {cos:.7f} (min {min_cos}) "
+        f"rel_l2 {rel:.3e} (max {max_rel})")
+    if launches != expected(attn, mlpk,
+                            attention_fwd=UNET_KERNEL_CALLS * STEPS):
+        fail(f"UNet int8 launches {launches}")
+    if n_quant:
+        fail(f"{n_quant} weight quantizations inside the UNet int8 solve")
+    if tuple(lat.shape) != (B, 32, 32, 4) or not torch.isfinite(lat).all():
+        fail(f"UNet int8 latents {tuple(lat.shape)} or not finite")
+    if not (cos >= min_cos and rel <= max_rel):
+        fail("the UNet int8 view disagrees with the bf16 view")
+    del model
+    bench = get_config("unet_large")
+    bench["nnet"]["num_head_channels"] = 64
+    g = torch.Generator(device=dev).manual_seed(12)
+    ctx = torch.randn((B, 77, 768), generator=g, device=dev)
+    t = torch.full((B,), 0.5, device=dev)
+    q = sample_lfm.build_model(bench, dev, seed=1, attn_impl="auto",
+                               quant=True)
+    b = sample_lfm.build_model(bench, dev, seed=1, attn_impl="auto")
+    b.load_state_dict(q.state_dict())
+    with torch.no_grad():
+        vq, vb = (m(z, t, ctx)[0].float() for m in (q, b))
+    _, e_rel, e_cos = compare(torch, vq, vb)
+    min_cos, max_rel = UNET_QUANT_EVAL_LIMITS
+    log(f"UNet int8 view at the bench shape, one evaluation vs the bf16 "
+        f"view: cos {e_cos:.7f} (min {min_cos}) rel_l2 {e_rel:.3e} (max "
+        f"{max_rel})")
+    if not (e_cos >= min_cos and e_rel <= max_rel):
+        fail("the UNet int8 view's bench-shape evaluation disagrees with "
+             "the bf16 view")
+    del q, b
+    return lat, dict(steps=STEPS, batch=B, seconds=secs, imgs_per_s=B / secs,
+                     bf16_imgs_per_s=bf16_ips, cos=cos, rel_l2=rel,
+                     max_abs=max_abs, launches=launches,
+                     quantizations_in_solve=n_quant, peak_gib=peak_gb,
+                     bench_shape=dict(cos=e_cos, rel_l2=e_rel))
+
+
+def vae_int8_decode(torch, sample_lfm, dev, lat):
+    """Phase 14: the SD VAE's int8 decode view (its decoder's 3x3 convs in
+    W8A8) decodes phase 13's latents: time, peak memory, finite pixels, and
+    rel-L2 against the f32 decode of the same latents."""
+    from uspace_tpu_torch.configs import get_config
+
+    cfg = get_config("unet_large")
+    vq = sample_lfm.build_vae(cfg, dev, seed=0, quant=True)
+    with torch.no_grad():
+        vq.decode(lat[:2])  # quantizes every weight once
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        px = vq.decode(lat)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        del vq
+        v = sample_lfm.build_vae(cfg, dev, seed=0)
+        t0 = time.perf_counter()
+        ref = v.decode(lat)
+        torch.cuda.synchronize()
+        f32_secs = time.perf_counter() - t0
+    _, rel, cos = compare(torch, px, ref)
+    finite = bool(torch.isfinite(px).all())
+    log(f"VAE int8 decode of {B} latents: {tuple(px.shape)} in {secs:.3f} s "
+        f"({B / secs:.2f} img/s; f32 {f32_secs:.3f} s), peak {peak_gb:.2f} "
+        f"GiB, finite {finite}; vs the f32 decode: cos {cos:.7f} rel_l2 "
+        f"{rel:.3e}")
+    if tuple(px.shape) != (B, 256, 256, 3) or not finite:
+        fail(f"VAE int8 pixels {tuple(px.shape)}, finite {finite}")
+    return dict(batch=B, seconds=secs, imgs_per_s=B / secs,
+                f32_seconds=f32_secs, peak_gib=peak_gb, cos=cos, rel_l2=rel)
+
+
+def unet_train_path(torch, attn, mlpk, dev, by_key):
+    """Phase 16: TRAIN_STEPS timed train steps of UNet-large at TRAIN_B
+    after TRAIN_WARMUP, f32 masters, bf16 compute, its own `auto`, the
+    reference init (zero output convs), phase 7's optimizer and EMA:
+    img/s, peak memory, finite losses, no non-finite skip, and per step
+    5 launches of kernel 8, 5 of kernel 7 (10 with remat) and no other."""
+    from uspace_tpu_torch.cli.train_lfm import build_train_model
+    from uspace_tpu_torch.configs import get_config
+    from uspace_tpu_torch.data.datasets import SyntheticFeatures
+    from uspace_tpu_torch.train.state import (
+        TrainState,
+        get_lr_schedule,
+        get_optimizer,
+    )
+    from uspace_tpu_torch.train.step import make_train_step
+
+    cfg = get_config("unet_large")
+    cfg["nnet"]["use_checkpoint"] = UNET_TRAIN_REMAT
+    model = build_train_model(cfg, dev, seed=0)
+    lr = get_lr_schedule("customized", 2e-4, warmup_steps=100)
+    tx = get_optimizer("adam", lr, betas=(0.99, 0.99), weight_decay=0.03)
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    step = make_train_step(model, tx, lr_schedule=lr, ema_rate=0.995,
+                           latents_from_moments=True)
+    n = TRAIN_WARMUP + TRAIN_STEPS
+    data = SyntheticFeatures(num=n * TRAIN_B, shape=(32, 32, 8), seed=0)
+    batches = [torch.from_numpy(data.batch(range(i * TRAIN_B,
+                                                 (i + 1) * TRAIN_B))["x"]
+                                ).to(dev) for i in range(n)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    metrics = [step(state, {"x": batches[i]}, gen)
+               for i in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(attn, mlpk)
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP, n):
+        metrics.append(step(state, {"x": batches[i]}, gen))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = all_launches(attn, mlpk)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    skips = sum(float(m["nonfinite_skip"]) for m in metrics)
+    fwd = UNET_KERNEL_CALLS * (2 if UNET_TRAIN_REMAT else 1)
+    want = expected(attn, mlpk, attention_fwd=TRAIN_STEPS * fwd,
+                    fused_attention_bwd=TRAIN_STEPS * UNET_KERNEL_CALLS)
+    ips = TRAIN_B * TRAIN_STEPS / secs
+    log(f"UNet train (auto, batch {TRAIN_B}, remat {UNET_TRAIN_REMAT}): "
+        f"{TRAIN_STEPS} steps in {secs:.3f} s, {ips:.3f} img/s, peak "
+        f"{peak_gb:.2f} GiB, launches {launches}, losses {losses[0]:.5f} .. "
+        f"{losses[-1]:.5f}, non-finite skips {skips:.0f}, step "
+        f"{int(state.step)}")
+    if launches != want:
+        fail(f"UNet training launches {launches}, expected {want}")
+    if not all(map(math.isfinite, losses)) or skips:
+        fail(f"UNet training losses {losses}, non-finite skips {skips}")
+    by_key["fused_attention_bwd"]["launches"] = launches["fused_attention_bwd"]
+    return dict(batch=TRAIN_B, steps=TRAIN_STEPS, remat=UNET_TRAIN_REMAT,
+                seconds=secs, imgs_per_s=ips,
+                ms_per_step=secs / TRAIN_STEPS * 1e3, peak_gib=peak_gb,
+                launches=launches, losses=losses)
+
+
+def unet_grad_agreement(torch, attn, mlpk, dev):
+    """Phase 17: one UNet-large gradient at GRAD_B on one batch, f32
+    masters, the zero-initialised output convs drawn live (with the
+    reference's zeros every attention gradient is zero): the kernel path
+    (bf16, auto: 5 launches each of kernels 7 and 8) against the plain
+    path (bf16, xla) and both against the f32 field's (xla), globally and
+    on the five L = 1024 self-attentions' q, k, v projections; a control
+    with kernel 8's outputs zeroed must fail the limits."""
+    from uspace_tpu_torch.cli.train_lfm import build_train_model
+    from uspace_tpu_torch.configs import get_config
+    from uspace_tpu_torch.core import interpolant
+    from uspace_tpu_torch.models.unet import ZERO_INIT_STD, SpatialTransformer
+
+    cfg = get_config("unet_large")
+    g = torch.Generator(device=dev).manual_seed(5)
+    x1 = torch.randn((GRAD_B, 32, 32, 4), generator=g, device=dev) * 0.18
+    t, xt, ut = interpolant.sample_path(x1, 1e-4, g)
+    grads, launches, state, proj = {}, {}, None, None
+    zero_bwd = lambda q, k, v, do, scale=None: tuple(  # noqa: E731
+        torch.zeros_like(q) for _ in range(3))
+    for name in ("auto", "xla", "f32", "control"):
+        c = dict(cfg, compute_dtype="float32") if name == "f32" else cfg
+        model = build_train_model(c, dev, seed=2, attn_impl=(
+            "xla" if name in ("xla", "f32") else "auto"))
+        if state is None:
+            model.init_weights(torch.Generator(device=dev).manual_seed(2),
+                               zero_init_std=ZERO_INIT_STD)
+            state = model.state_dict()
+            proj = [f"{n}.transformer_blocks.0.attn1.to_{w}.weight"
+                    for n, m in model.named_modules()
+                    if isinstance(m, SpatialTransformer)
+                    and m.proj_in.in_channels == cfg["nnet"]["model_channels"]
+                    for w in "qkv"]
+        model.load_state_dict(state)
+        reset_launches(attn, mlpk)
+        real = attn.fused_attention_bwd
+        if name == "control":
+            attn.fused_attention_bwd = zero_bwd
+        try:
+            loss = interpolant.cfm_loss(model(xt, t)[0], ut).mean()
+            names, params = zip(*model.named_parameters())
+            gs = dict(zip(names, torch.autograd.grad(loss, params)))
+        finally:
+            attn.fused_attention_bwd = real
+        torch.cuda.synchronize()
+        launches[name] = all_launches(attn, mlpk)
+        grads[name] = (torch.cat([x.flatten() for x in gs.values()]),
+                       torch.cat([gs[k].flatten() for k in proj]))
+        del model, gs, loss, params
+    out = dict(projections=len(proj), launches=launches["auto"])
+    want = expected(attn, mlpk, attention_fwd=UNET_KERNEL_CALLS,
+                    fused_attention_bwd=UNET_KERNEL_CALLS)
+    if launches["auto"] != want:
+        fail(f"UNet gradient launches {launches['auto']}, expected {want}")
+    if len(proj) != 3 * UNET_KERNEL_CALLS:
+        fail(f"{len(proj)} self-attention projections at L = 1024")
+
+    def read(name):
+        r = {}
+        for i, part in enumerate(("global", "attention_projections")):
+            _, rel, cos = compare(torch, grads[name][i], grads["xla"][i])
+            _, rel_f, _ = compare(torch, grads[name][i], grads["f32"][i])
+            _, rel_p, _ = compare(torch, grads["xla"][i], grads["f32"][i])
+            r[part] = dict(cos=cos, rel_l2=rel, vs_f32=rel_f,
+                           plain_vs_f32=rel_p,
+                           ok=cos >= UNET_GRAD_MIN_COS
+                           and rel <= UNET_GRAD_MAX_REL_L2
+                           and rel_f <= UNET_F32_RATIO * rel_p)
+        return r
+
+    for name in ("auto", "control"):
+        out[name] = read(name)
+        for part, r in out[name].items():
+            log(f"UNet gradient {name} vs xla at batch {GRAD_B}, {part}: cos "
+                f"{r['cos']:.7f} (min {UNET_GRAD_MIN_COS}) rel_l2 "
+                f"{r['rel_l2']:.3e} (max {UNET_GRAD_MAX_REL_L2}); vs the f32 "
+                f"gradient {r['vs_f32']:.3e}, xla's {r['plain_vs_f32']:.3e} "
+                f"(at most {UNET_F32_RATIO} x): "
+                f"{'within' if r['ok'] else 'OUTSIDE'} the limits")
+    if not all(r["ok"] for r in out["auto"].values()):
+        fail("the UNet kernel path's gradient disagrees with the plain path")
+    if all(r["ok"] for r in out["control"].values()):
+        fail("the UNet gradient limits let a zeroed kernel 8 pass")
+    return out
+
+
+def unet_train_entry_point(torch, dev):
+    """Phase 18: cli.train_lfm.run(config="unet_large") for 2 steps at the
+    config's batch into a temporary workdir; its checkpoint's params load
+    strictly into a fresh model."""
+    from uspace_tpu_torch.cli import train_lfm
+    from uspace_tpu_torch.configs import get_config
+    from uspace_tpu_torch.train import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = train_lfm.run(config="unet_large", n_steps=2, seed=3,
+                            workdir=tmp, log=log)
+        secs = time.perf_counter() - t0
+        losses = [h["loss"] for h in out["history"]]
+        del out["state"], out["model"]
+        sd = checkpoint.load(out["checkpoint"], map_location=dev)
+        fresh = train_lfm.build_train_model(get_config("unet_large"), dev,
+                                            seed=4)
+        fresh.load_state_dict(sd["params"], strict=True)
+        step = int(sd["step"])
+        size_gb = os.path.getsize(out["checkpoint"]) / 2**30
+        del sd, fresh
+    log(f"train_lfm.run (unet_large): 2 steps in {secs:.1f} s (build and "
+        f"checkpoint included), losses {losses}, checkpoint step {step} "
+        f"({size_gb:.2f} GiB) reloaded with strict=True")
+    if step != 2 or not all(map(math.isfinite, losses)):
+        fail(f"train_lfm (unet_large): step {step}, losses {losses}")
+    return dict(seconds=secs, losses=losses, checkpoint_gib=size_gb)
 
 
 def main():
@@ -1343,10 +1773,11 @@ def main():
     report["build_s"] = time.perf_counter() - t0
     log(f"built kernels in {report['build_s']:.1f} s")
 
-    # 3. kernels vs twins
+    # 3. kernels vs twins; int8_conv on the card vs the CPU
     kernels, report["kernel_shapes"], report["controls"] = check_kernels(
         torch, F, attn, mlpk, quant)
     by_key = {k["name"]: k for k in kernels}
+    report["int8_conv"] = int8_conv_check(torch, F, quant)
 
     # 4. the main path: U-ViT-large Euler-50 at batch 50
     cfg = get_config("uvit_large")
@@ -1499,14 +1930,31 @@ def main():
     report["train_lfm"] = train_entry_point(torch, cfg, dev)
 
     # 10.-12. the SD-UNet path: Euler-50, the VAE decode, the entry point
-    lat_unet, report["unet"] = unet_path(torch, flow, attn, mlpk, sample_lfm,
-                                         dev, by_key)
+    z_unet, lat_unet, report["unet"] = unet_path(torch, flow, attn, mlpk,
+                                                 sample_lfm, dev, by_key)
     for k in report["kernel_shapes"]:  # D=64 runs on the bench-shape path
         if k["name"] == "attention_fwd D=64":
             k["launches"] = report["unet"]["bench_shape"]["launches"][
                 "attention_fwd"]
     report["vae"] = vae_decode(torch, sample_lfm, dev, lat_unet)
     report["sample_lfm_unet"] = unet_entry_point(torch, np, sample_lfm)
+
+    # 13.-15. the int8 views: the UNet's Euler-50, the VAE's decode, the
+    # entry point with both
+    lat_q, report["unet_int8"] = unet_int8_path(
+        torch, flow, attn, mlpk, quant, sample_lfm, dev, z_unet, lat_unet,
+        report["unet"]["imgs_per_s"])
+    report["vae_int8"] = vae_int8_decode(torch, sample_lfm, dev, lat_q)
+    del lat_q, lat_unet, z_unet
+    report["sample_lfm_unet_int8"] = unet_entry_point(torch, np, sample_lfm,
+                                                      quant=True)
+
+    # 16.-18. UNet training: the train step, gradient agreement, the entry
+    # point
+    report["unet_train"] = unet_train_path(torch, attn, mlpk, dev, by_key)
+    report["unet_grad_agreement"] = unet_grad_agreement(torch, attn, mlpk,
+                                                        dev)
+    report["unet_train_lfm"] = unet_train_entry_point(torch, dev)
 
     for k in kernels:
         if k["launches"] < 1:

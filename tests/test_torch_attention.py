@@ -9,6 +9,7 @@ summed in another order), bf16 2e-2 (one bf16 rounding of an O(1) value is
 8e-3).
 """
 
+import math
 import re
 
 import jax
@@ -163,6 +164,59 @@ def test_packed_vjp_matches_jax(dt, l):
         a["g"]).to(td), 2), ref, tol)
 
 
+@pytest.mark.parametrize("l,d", [(64, 32), (64, 64), (130, 32), (130, 64),
+                                 (600, 32), (600, 64)])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_fused_vjp_matches_jax(dt, l, d):
+    """Port autograd of fused_attention (kernel 8's twin as the VJP of
+    kernel 7's twin) vs jax.vjp of multi_head_attention(impl="pallas"),
+    whose custom VJP runs _bwd_kernel in interpret mode; ragged L is padded
+    to 32 and masked there. f32 within 1e-5; bf16 within one bf16 step of
+    each output's largest value (JAX on the CPU keeps bf16 chains in f32,
+    so a rounding may fall on the other side)."""
+    jd, td, tol = DTYPES[dt]
+    r = np.random.default_rng(l + d + 7)
+    q, k, v, g = (r.standard_normal((1, 2, l, d)).astype(np.float32)
+                  for _ in range(4))
+    out_j, vjp = jax.vjp(
+        lambda q, k, v: jattn.multi_head_attention(q, k, v, impl="pallas"),
+        *(jnp.asarray(a, jd) for a in (q, k, v)))
+    refs = vjp(jnp.asarray(g, jd))
+    ts = [torch.from_numpy(a).to(td).requires_grad_() for a in (q, k, v)]
+    out = tattn.fused_attention(*ts)
+    grads = torch.autograd.grad(out, ts, torch.from_numpy(g).to(td))
+    # the public backward entry point is the same twin
+    direct = tattn.fused_attention_bwd(*(t.detach() for t in ts),
+                                       torch.from_numpy(g).to(td))
+    _close(out.detach(), out_j, tol)
+    for mine, again, ref in zip(grads, direct, refs):
+        assert mine.dtype == td and mine.shape == (1, 2, l, d)
+        assert torch.equal(mine, again)
+        top = float(np.abs(_np(ref)).max())
+        _close(mine, ref, tol if dt == "f32"
+               else 2.0 ** (math.floor(math.log2(top)) - 7))
+
+
+def test_fused_vjp_is_not_autograd_of_the_forward_twin():
+    """The Function's backward is the JAX VJP's arithmetic (P normalised in
+    f32 before its bf16 cast, delta from P and dP), not autograd of the
+    forward twin, and it saves only q, k and v."""
+    r = np.random.default_rng(9)
+    q, k, v, g = (torch.from_numpy(r.standard_normal((1, 2, 130, 32)).astype(
+        np.float32)).bfloat16() for _ in range(4))
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tattn.fused_attention(*ts)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 3 and all(torch.equal(a, b)
+                                   for a, b in zip(saved, (q, k, v)))
+    mine = torch.autograd.grad(out, ts, g)
+    ts2 = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(tattn.attention_plain(*ts2, 32 ** -0.5), ts2, g)
+    twin = tattn.attention_bwd_plain(q, k, v, g, 32 ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(mine, twin))
+    assert not all(torch.equal(a, b) for a, b in zip(mine, auto))
+
+
 @pytest.mark.parametrize("l", [17, 257])
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_qkvproj_vjp_matches_jax(dt, l):
@@ -240,12 +294,10 @@ def test_unported_paths_raise():
     long = torch.zeros(1, 1, 1025, 32)
     with pytest.raises(NotImplementedError, match="_flash_kernel"):
         tattn.multi_head_attention(long, long, long, impl="pallas")
-    # kernel 7 is inference-only until kernel 8 is ported
+    # kernel 7 is differentiable through kernel 8 (their twins here)
     qg = torch.zeros(1, 1, 600, 32, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="_bwd_kernel"):
-        tattn.multi_head_attention(qg, qg, qg, impl="pallas")
-    with pytest.raises(NotImplementedError, match="inference-only"):
-        tattn.fused_attention(qg, qg, qg)
+    tattn.multi_head_attention(qg, qg, qg, impl="pallas").sum().backward()
+    assert qg.grad.shape == qg.shape and torch.isfinite(qg.grad).all()
     with torch.no_grad():
         tattn.fused_attention(qg, qg, qg)
     with pytest.raises(ValueError, match="unknown impl"):
@@ -262,8 +314,10 @@ def test_cpu_twin_does_not_count_launches():
     tattn.packed_attention_bwd(qkv, qkv[..., :C], H)
     q = torch.zeros(1, 2, 600, 32)
     tattn.fused_attention(q, q, q)
+    tattn.fused_attention_bwd(q, q, q, q)
     assert set(tattn.LAUNCHES.values()) == {0}
-    assert {"packed_attention_bwd", "attention_fwd"} <= set(tattn.LAUNCHES)
+    assert {"packed_attention_bwd", "attention_fwd",
+            "fused_attention_bwd"} <= set(tattn.LAUNCHES)
 
 
 def test_kernel_input_checks():
@@ -296,6 +350,18 @@ def test_kernel_input_checks():
             tattn._fwd_kernel(bad, bad, bad, 0.1)
     with pytest.raises(ValueError, match="shape"):
         tattn._fwd_kernel(q, q[:, :4], q, 0.1)
+    # kernel 8 takes what kernel 7 takes, and do of q's shape and dtype
+    for bad, msg in ((q.float(), "attn_impl='xla'"),
+                     (torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16),
+                      "head dim 32 or 64"),
+                     (torch.zeros(1, 1, 1025, 64, dtype=torch.bfloat16),
+                      "L <= 1024")):
+        with pytest.raises(ValueError, match=re.escape(msg)):
+            tattn._fused_bwd_kernel(bad, bad, bad, bad, 0.1)
+    with pytest.raises(ValueError, match="do must be"):
+        tattn._fused_bwd_kernel(q, q, q, q.float(), 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        tattn._fused_bwd_kernel(q, q, q, q[:, :4], 0.1)
     w = torch.zeros(2, requires_grad=True)
     with pytest.raises(NotImplementedError, match="inference-only"):
         _build.check_no_grad(ok, w, what="the LN kernel")
@@ -307,7 +373,8 @@ def test_ctypes_signatures_match_c_source():
     """Each declared argtypes list has one entry per C parameter, pointers
     as c_void_p (a 32-bit default would cut a pointer)."""
     assert set(_build.SIGNATURES) == {"attention", "attention_bwd",
-                                      "attention_fwd", "mlp_int8", "mlp_w8"}
+                                      "attention_fwd", "fused_attention_bwd",
+                                      "mlp_int8", "mlp_w8"}
     for name, sigs in _build.SIGNATURES.items():
         src = (_build.CSRC / f"{name}.cu").read_text()
         for fn, argtypes in sigs.items():

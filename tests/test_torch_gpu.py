@@ -129,7 +129,7 @@ def test_wrappers_count_launches_and_refuse(cuda):
                              "packed_attention_bwd": 1,
                              "qkvproj_attention_int8": 0,
                              "ln_qkvproj_attention_int8": 0,
-                             "attention_fwd": 0}
+                             "attention_fwd": 0, "fused_attention_bwd": 0}
     with pytest.raises(ValueError, match="bfloat16"):
         attn.fused_qkvproj_attention(x.float(), w, 2)
     with pytest.raises(ValueError, match="L <="):
@@ -418,8 +418,14 @@ def test_fwd_kernel_counts_launches_and_refuses(cuda):
     long = torch.zeros(1, 1, 1025, 32, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(NotImplementedError, match="_flash_kernel"):
         attn.multi_head_attention(long, long, long)
-    with pytest.raises(NotImplementedError, match="_bwd_kernel"):
-        attn.fused_attention(q.requires_grad_(), q, q)
+    # under autograd the backward runs kernel 8, once per call
+    attn.reset_launches()
+    qg = q.clone().requires_grad_()
+    attn.fused_attention(qg, q, q).float().sum().backward()
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES["attention_fwd"] == 1
+    assert attn.LAUNCHES["fused_attention_bwd"] == 1
+    assert qg.grad.shape == q.shape
 
 
 def test_unet_auto_routes_through_the_fwd_kernel(cuda):
@@ -443,3 +449,85 @@ def test_unet_auto_routes_through_the_fwd_kernel(cuda):
     assert sum(attn.LAUNCHES.values()) == 3
     af, bf = a.float(), b.float()
     assert float((af * bf).sum() / (af.norm() * bf.norm())) > 0.999
+
+
+@pytest.mark.parametrize("b,h,l,d", [(128, 8, 1024, 32), (128, 4, 1024, 64),
+                                     (128, 8, 600, 32), (1, 1, 1, 32),
+                                     (2, 3, 17, 64), (3, 2, 700, 64)])
+def test_fused_bwd_kernel_matches_twin(cuda, b, h, l, d):
+    """Kernel 8 at chip_smoke.py's phase-3 shapes and ragged edges: dq, dk
+    and dv each within the backward limits (the twin in batch chunks)."""
+    g = torch.Generator(device=cuda).manual_seed(l + d + 1)
+    q, k, v, do = (_rand(g, b, h, l, d) for _ in range(4))
+    out = attn.fused_attention_bwd(q, k, v, do)
+    parts = [attn.attention_bwd_plain(*ts, d ** -0.5) for ts in zip(
+        *(t.split(16) for t in (q, k, v, do)))]
+    for o, r in zip(out, (torch.cat(p) for p in zip(*parts))):
+        if not r.any():  # L = 1: one key, so dS and with it dq, dk are 0
+            assert not o.any()
+            continue
+        _agree(o, r, BWD_MAX_ABS, BWD_REL_L2)
+
+
+def test_fused_bwd_kernel_refuses(cuda):
+    q = torch.zeros(1, 2, 64, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="attn_impl='xla'"):
+        attn.fused_attention_bwd(q.float(), q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="do must be"):
+        attn.fused_attention_bwd(q, q, q, q.float())
+    with pytest.raises(ValueError, match="is on"):
+        attn.fused_attention_bwd(q, q, q.cpu(), q)
+    with pytest.raises(ValueError, match="head dim"):
+        attn.fused_attention_bwd(*(q[..., :16],) * 4)
+
+
+def test_unet_kernel_gradients_match_plain(cuda):
+    """A small UNet at 32 x 32 latents with attention at ds 1 (three
+    self-attentions at L = 1024), f32 masters, bf16 compute, its output
+    convs drawn live: the gradient through kernels 7 and 8 (auto) against
+    the plain path's (xla), and the control with kernel 8 zeroed outside."""
+    cfg = dict(image_size=32, model_channels=64, channel_mult=(1, 2),
+               num_res_blocks=1, attention_resolutions=(1,),
+               num_head_channels=32, context_dim=64, dtype=torch.bfloat16,
+               param_dtype=torch.float32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    models = {impl: UNet(attn_impl=impl, **cfg) for impl in ("xla", "auto")}
+    models["xla"].init_weights(g, zero_init_std=ZERO_INIT_STD)
+    models["auto"].load_state_dict(models["xla"].state_dict())
+    x = torch.randn(4, 32, 32, 4, generator=g, device=cuda)
+    t = torch.rand(4, generator=g, device=cuda)
+    grads = {}
+    attn.reset_launches()
+    for impl, m in models.items():
+        v, _ = m(x, t)
+        grads[impl] = torch.cat([p.flatten() for p in torch.autograd.grad(
+            v.float().square().mean(), list(m.parameters()))])
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES["attention_fwd"] == 3
+    assert attn.LAUNCHES["fused_attention_bwd"] == 3
+    assert sum(attn.LAUNCHES.values()) == 6
+    a, b = grads["auto"], grads["xla"]
+    assert float((a * b).sum() / (a.norm() * b.norm())) > 0.999
+    assert float((a - b).norm() / b.norm()) < 5e-2
+
+
+@pytest.mark.parametrize("shape,cout,stride", [((50, 32, 32, 256), 256, 1),
+                                               ((50, 32, 32, 256), 256, 2),
+                                               ((4, 16, 16, 64), 128, 1)])
+def test_int8_conv_on_the_card_equals_the_cpu(cuda, shape, cout, stride):
+    """int8_conv on the card (im2col + torch._int_mm) against the exact CPU
+    product on the same inputs: equal codes, equal f32 outputs to the last
+    bit."""
+    g = torch.Generator(device=cuda).manual_seed(cout + stride)
+    x = _rand(g, *shape)
+    w = _rand(g, cout, shape[-1], 3, 3, std=(9 * shape[-1]) ** -0.5,
+              dtype=torch.float32)
+    b = _rand(g, cout, std=0.1, dtype=torch.float32)
+    st = (stride, stride)
+    y = quant.int8_conv(x, w, b, st, (1, 1), torch.float32)
+    ref = quant.int8_conv(x.cpu(), w.cpu(), b.cpu(), st, (1, 1),
+                          torch.float32)
+    xq, xs = quant.image_codes(x)
+    rq, rs = quant.image_codes(x.cpu())
+    assert torch.equal(xq.cpu(), rq) and torch.equal(xs.cpu(), rs)
+    assert torch.equal(y.cpu(), ref)

@@ -202,10 +202,13 @@ def test_nearest_upsample_and_group_norm_match_jax():
 
 
 def test_unported_views_raise():
-    with pytest.raises(NotImplementedError, match="int8-conv"):
-        UNet(**TINY, quant=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        UNet(**TINY, use_checkpoint=True, device="cpu")
+    """The int8 views and per-block remat build; an unknown view or
+    attn_impl, and the edit hooks, still raise."""
+    for q in (True, "conv8", "w8a8", "dense8"):
+        assert UNet(**TINY, quant=q, device="cpu").quant == q
+    assert UNet(**TINY, use_checkpoint=True, device="cpu").use_checkpoint
+    with pytest.raises(ValueError, match="unknown quant view"):
+        UNet(**TINY, quant="w8", device="cpu")
     with pytest.raises(ValueError, match="unknown attn_impl"):
         UNet(**TINY, attn_impl="pallas_packed", device="cpu")
     tm = get_nnet("unet_t2i", **TINY, device="cpu")

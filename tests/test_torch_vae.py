@@ -21,6 +21,7 @@ from uspace_tpu_torch.cli import sample_lfm
 from uspace_tpu_torch.codecs.convert import load_vae_from_jax, unflatten
 from uspace_tpu_torch.codecs.vae import AutoencoderKL, f32_precision
 from uspace_tpu_torch.configs import get_config
+from uspace_tpu_torch.models.layers import Int8Conv
 
 TINY_DD = dict(ch=32, out_ch=3, ch_mult=(1, 2), num_res_blocks=1,
                attn_resolutions=(), in_channels=3, resolution=32,
@@ -85,8 +86,10 @@ def test_f32_precision_and_unported_view():
         assert not torch.backends.cuda.matmul.allow_tf32
     assert (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32) == before
-    with pytest.raises(NotImplementedError, match="int8-conv"):
-        AutoencoderKL(TINY_DD, quant=True, device="cpu")
+    # the int8 decode view builds: the decoder's 3x3 convs are Int8Conv
+    q = AutoencoderKL(TINY_DD, quant=True, device="cpu")
+    assert isinstance(q.decoder.mid.block_1.conv1, Int8Conv)
+    assert not isinstance(q.encoder.mid.block_1.conv1, Int8Conv)
 
 
 def test_sample_lfm_decodes_uint8_pixels(tmp_path):

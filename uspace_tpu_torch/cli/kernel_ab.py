@@ -8,7 +8,9 @@ Builds ``--base`` (a ``<source>.cu`` with the same C interface, e.g. from
 ``attention_bwd``: the backward at B=128; L=257, C=1024, H=16, bf16;
 ``mlp_int8`` and ``mlp_w8``: the W8A8 and weight-only int8 MLP kernels on
 the 12850 rows of B=50, hidden 4096; ``attention_fwd``: the [B, H, L, D]
-kernel at the SD-UNet-large shape, B=50, H=8, L=1024, D=32)
+kernel at the SD-UNet-large shape, B=50, H=8, L=1024, D=32;
+``fused_attention_bwd``: its backward at the SD-UNet-large training shape,
+B=128, H=8, L=1024, D=32)
 with CUDA events, the two builds alternating base, new, new, base, ... on
 one card. A base source that lacks an entry point skips its kernel. Needs a
 CUDA card.
@@ -22,6 +24,8 @@ CUDA card.
         --base old/mlp_w8.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source attention_fwd \
         --base old/attention_fwd.cu
+    python -m uspace_tpu_torch.cli.kernel_ab --source fused_attention_bwd \
+        --base old/fused_attention_bwd.cu
 """
 
 from __future__ import annotations
@@ -101,6 +105,11 @@ def main(argv=None) -> None:
     # the SD-UNet-large self-attention at 32 x 32 latents
     q7, k7, v7, o7 = (torch.randn(50, 8, 1024, 32, generator=g,
                                   device=dev).to(bf) for _ in range(4))
+    # and its backward at the SD-UNet-large training batch
+    q8, k8, v8, do8, dq8, dk8, dv8 = (
+        torch.randn(TRAIN_B, 8, 1024, 32, generator=g, device=dev).to(bf)
+        for _ in range(7))
+    st8 = torch.empty(TRAIN_B * 8 * 3 * 1024, device=dev)
     s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     calls = {
         "packed_attention": lambda lib: lib.uspace_packed_attention(
@@ -129,6 +138,10 @@ def main(argv=None) -> None:
         "attention_fwd": lambda lib: lib.uspace_attention_fwd(
             q7.data_ptr(), k7.data_ptr(), v7.data_ptr(), o7.data_ptr(), 50, 8,
             1024, 32, 32 ** -0.5, s),
+        "fused_attention_bwd": lambda lib: lib.uspace_fused_attention_bwd(
+            q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), do8.data_ptr(),
+            dq8.data_ptr(), dk8.data_ptr(), dv8.data_ptr(), st8.data_ptr(),
+            TRAIN_B, 8, 1024, 32, 32 ** -0.5, s),
     }
     calls = {k: f for k, f in calls.items()
              if f"uspace_{k}" in _build.SIGNATURES[a.source]

@@ -7,10 +7,14 @@ evaluations at ``--batch`` with ``torch.profiler`` and prints the device
 time per kernel name, grouped into the layers that launch them, beside the
 host wall time (the difference is the device's idle share). With ``--train`` it traces
 ``--evals`` train steps instead (f32 master weights, ``--attn_impl``
-default pallas_packed, ``--remat_exempt`` blocks exempt from remat, the
-JAX bench's optimizer) and also reports peak device memory and img/s.
+default the training rule of ``train_lfm.train_attn_impl``: pallas_packed
+for the U-ViT, auto for the SD-UNet; ``--remat_exempt`` U-ViT blocks
+exempt from remat, the JAX bench's optimizer) and also reports peak device
+memory and img/s.
 ``--quant`` profiles an int8 sampling view (f32 weights, quantized once in
-the warm-up): W8A8 (the flag's default) or weight-only (``--quant w8``).
+the warm-up): the model's own (the flag's default: W8A8 for the U-ViT, the
+convs for the SD-UNet) or another (``--quant w8``, ``conv8``, ``dense8``,
+...).
 Needs a CUDA card.
 
     python -m uspace_tpu_torch.cli.profile_field --config uvit_large \\
@@ -21,6 +25,8 @@ Needs a CUDA card.
     python -m uspace_tpu_torch.cli.profile_field --quant w8 --out w8.json
     python -m uspace_tpu_torch.cli.profile_field --train --batch 128 \\
         --remat_exempt 21 --out profile_train.json
+    python -m uspace_tpu_torch.cli.profile_field --train --config unet_large \\
+        --batch 128 --out profile_unet_train.json
 """
 
 from __future__ import annotations
@@ -30,15 +36,19 @@ import json
 import os
 import time
 from collections import defaultdict
+from typing import Optional
 
 import torch
 
 from .. import resolve_device
 from ..configs import get_config
-from .sample_lfm import build_model
+from .sample_lfm import QUANT_CHOICES, build_model
+from .train_lfm import train_attn_impl
 
 # kernel-name fragments -> the layer that launches them
 GROUPS = (
+    ("[B, H, L, D] attention backward kernel (ours)", (
+        "fused_bwd_dq_kernel", "fused_bwd_dkdv_kernel")),
     ("attention backward kernels (ours)", ("bwd_dq_kernel",
                                            "bwd_dkdv_kernel")),
     ("attention kernel (ours)", ("attention_kernel",)),
@@ -99,13 +109,17 @@ def _train_fn(cfg, dev, batch, attn_impl, seed, remat_exempt):
 
 
 def profile(config: str = "uvit_large", batch: int = 50, evals: int = 3,
-            attn_impl: str = "auto", seed: int = 0, device=None,
-            train: bool = False, remat_exempt: int = 0,
+            attn_impl: Optional[str] = None, seed: int = 0, device=None,
+            train: bool = False, remat_exempt: Optional[int] = None,
             quant=None) -> dict:
+    """``attn_impl`` defaults to auto, or with ``train`` to the training
+    rule; ``remat_exempt`` to the config's (U-ViT only)."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("profile_field measures the card; it needs CUDA")
     cfg = get_config(config)
+    if attn_impl is None:
+        attn_impl = train_attn_impl(cfg) if train else "auto"
     fn = (_train_fn(cfg, dev, batch, attn_impl, seed, remat_exempt) if train
           else _field_fn(cfg, dev, batch, attn_impl, seed, quant))
     for _ in range(2):
@@ -153,17 +167,20 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=50)
     ap.add_argument("--evals", type=int, default=3)
     ap.add_argument("--attn_impl", default=None,
-                    help="default: auto, or pallas_packed with --train")
+                    help="default: auto, or with --train the training rule "
+                    "(pallas_packed for the U-ViT, auto for the SD-UNet)")
     ap.add_argument("--train", action="store_true",
                     help="trace train steps instead of field evaluations")
-    ap.add_argument("--remat_exempt", type=int, default=0)
-    ap.add_argument("--quant", nargs="?", const="w8a8", default=None,
-                    choices=["w8a8", "w8a8_mlp", "w8"],
-                    help="profile the int8 sampling view (flag: w8a8)")
+    ap.add_argument("--remat_exempt", type=int, default=None,
+                    help="U-ViT blocks exempt from remat (default: the "
+                    "config's)")
+    ap.add_argument("--quant", nargs="?", const=True, default=None,
+                    choices=QUANT_CHOICES,
+                    help="profile an int8 sampling view (flag alone: the "
+                    "model's own)")
     ap.add_argument("--out", default="")
     a = ap.parse_args(argv)
-    impl = a.attn_impl or ("pallas_packed" if a.train else "auto")
-    rep = profile(a.config, a.batch, a.evals, impl, train=a.train,
+    rep = profile(a.config, a.batch, a.evals, a.attn_impl, train=a.train,
                   remat_exempt=a.remat_exempt, quant=a.quant)
     what = (f"train step, remat_exempt {a.remat_exempt}" if a.train
             else f"field evaluation, quant={a.quant}")

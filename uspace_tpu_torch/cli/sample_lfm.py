@@ -11,10 +11,13 @@ the field has seeded random weights (the UNet's zero-initialised output
 convs drawn small, so that the field is not zero); ``--weights`` takes an
 ``.npz`` of JAX params keyed ``a/b/c``, ``--vae_weights`` the same for the
 VAE (seeded weights without it). The VAE's f32 convolutions run in exact
-f32, TF32 off. ``--quant`` samples the U-ViT with an int8 view of the same
-weights, as the config's ``nnet.quant`` does: W8A8 (``w8a8``, the default
-of the flag, or ``w8a8_mlp``) or weight-only (``w8``, the view for adaptive
-solves).
+f32, TF32 off. ``--quant`` samples with an int8 view of the same weights,
+as the config's ``nnet.quant`` does. The flag alone picks the model's own
+view: W8A8 for the U-ViT, the convs only for the SD-UNet. Named views: for
+the U-ViT ``w8a8``, ``w8a8_mlp`` and weight-only ``w8`` (the view for
+adaptive solves); for the SD-UNet ``conv8``, ``w8a8`` (the convs and the
+transformer denses) and ``dense8``. ``--decode`` with ``--quant`` decodes
+through the VAE's int8 view (its decoder's 3x3 convs in W8A8).
 
 The solve is the config's, fixed-step Euler of ``--steps`` by default.
 ``--solver adaptive`` runs the reference's eval decode (dopri5 at rtol =
@@ -25,6 +28,8 @@ field evaluations (NFE), step attempts and accepted steps.
 
     python -m uspace_tpu_torch.cli.sample_lfm --config unet_large --decode \\
         --n_samples 100 --batch 50 --steps 50 --seed 0 --out samples
+    python -m uspace_tpu_torch.cli.sample_lfm --config unet_large --quant \\
+        --decode --n_samples 100 --batch 50 --out samples_int8
     python -m uspace_tpu_torch.cli.sample_lfm --config uvit_large \\
         --n_samples 100 --batch 50 --steps 50 --seed 0 --out samples
     python -m uspace_tpu_torch.cli.sample_lfm --config synthetic_smoke \\
@@ -57,6 +62,9 @@ from ..models import get_nnet
 from ..models.unet import ZERO_INIT_STD
 
 _LOADERS = {"uvit": load_uvit_from_jax, "unet_t2i": load_unet_from_jax}
+# --quant: True is each model's own int8 view (W8A8 for the U-ViT, the
+# convs for the SD-UNet); the names are those of the models' views
+QUANT_CHOICES = ["w8a8", "w8a8_mlp", "w8", "conv8", "dense8"]
 
 
 def build_model(config: dict, device: torch.device, seed: int = 0,
@@ -90,12 +98,14 @@ def build_model(config: dict, device: torch.device, seed: int = 0,
 
 
 def build_vae(config: dict, device=None, seed: int = 0,
-              weights: Optional[str] = None) -> AutoencoderKL:
+              weights: Optional[str] = None,
+              quant: bool = False) -> AutoencoderKL:
     """The config's f32 SD VAE on ``device`` (CUDA unless "cpu") from JAX
-    weights or seeded random init. Its f32 convolutions run in exact f32 on
-    the card, not TF32, as JAX computes on the CPU."""
+    weights or seeded random init; ``quant``: its int8 decode view. Its f32
+    convolutions run in exact f32 on the card, not TF32, as JAX computes on
+    the CPU."""
     device = resolve_device(device)
-    vae = AutoencoderKL(**config["autoencoder"], device=device)
+    vae = AutoencoderKL(**config["autoencoder"], quant=quant, device=device)
     if weights:
         with np.load(weights) as npz:
             load_vae_from_jax(vae, unflatten(dict(npz)))
@@ -121,13 +131,15 @@ def run(config: str = "uvit_large", n_samples: int = 100, batch: int = 50,
         stats: Optional[List[dict]] = None, decode: bool = False,
         vae_weights: Optional[str] = None) -> List[str]:
     """Write ceil(n_samples / batch) latent batches, and with ``decode``
-    their uint8 pixel batches after each; returns the paths in that order.
+    their uint8 pixel batches after each (through the VAE's int8 view when
+    ``quant`` is set); returns the paths in that order.
     For an adaptive solve each batch's statistics are printed and, when
     ``stats`` is a list, appended to it."""
     dev = resolve_device(device)
     cfg = get_config(config)
     model = build_model(cfg, dev, seed, weights, quant=quant)
-    vae = build_vae(cfg, dev, seed, vae_weights) if decode else None
+    vae = (build_vae(cfg, dev, seed, vae_weights, quant=bool(quant))
+           if decode else None)
     sk = solver_kwargs(cfg, steps, solver=solver, rtol=rtol, atol=atol,
                        controller=controller, safety=safety)
     c, h, w = cfg["z_shape"]
@@ -167,9 +179,10 @@ def main(argv=None) -> None:
                     help=".npz of JAX field params (keys a/b/c)")
     ap.add_argument("--out", default="samples")
     ap.add_argument("--device", default=None, help="default: cuda")
-    ap.add_argument("--quant", nargs="?", const="w8a8", default=None,
-                    choices=["w8a8", "w8a8_mlp", "w8"],
-                    help="int8 sampling view (default of the flag: w8a8)")
+    ap.add_argument("--quant", nargs="?", const=True, default=None,
+                    choices=QUANT_CHOICES,
+                    help="int8 sampling view (the flag alone: the model's "
+                    "own, W8A8 for the U-ViT, the convs for the SD-UNet)")
     ap.add_argument("--solver", default=None,
                     choices=["fixed", "adaptive", "fixadp"],
                     help="default: the config's (fixed-step Euler)")
@@ -180,8 +193,8 @@ def main(argv=None) -> None:
     ap.add_argument("--controller", default=None, choices=["i", "pi"])
     ap.add_argument("--safety", type=float, default=None)
     ap.add_argument("--decode", action="store_true",
-                    help="decode each batch with the f32 SD VAE and write "
-                    "uint8 pixels")
+                    help="decode each batch with the f32 SD VAE (its int8 "
+                    "view with --quant) and write uint8 pixels")
     ap.add_argument("--vae_weights", default=None,
                     help=".npz of JAX VAE params (keys a/b/c)")
     a = ap.parse_args(argv)

@@ -10,8 +10,11 @@ so JAX params load with ``strict=True`` (``codecs/convert.load_vae_from_jax``).
 Numerics: f32 throughout. A f32 convolution on the card would run in TF32
 if cuDNN's ``allow_tf32`` (True by default in PyTorch) were left alone, so
 ``encode_moments`` and ``decode`` run under :func:`f32_precision`: exact
-f32, as JAX computes on the CPU. The int8 decode view (``quant=True``) comes with the
-int8-conv slice and is refused.
+f32, as JAX computes on the CPU. The int8 decode view (``quant=True``) is the JAX
+package's ``_conv3``: the decoder's 3x3 convs (its ResnetBlocks' and
+Upsamples') become ``Int8Conv`` (W8A8, f32 output); the 1x1 convs, the
+attention projections, the quant convs, the boundary convs and the encoder
+stay f32. The parameters are the same in both views.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.layers import Conv2d, GroupNorm
+from ..models.layers import Conv2d, GroupNorm, Int8Conv, lecun_normal_
 from ..models.unet import upsample_nearest2x
 
 SD_CONFIG = dict(  # libs/autoencoder.py:463-476
@@ -63,13 +66,19 @@ def _norm(ch: int, device=None) -> GroupNorm:
     return GroupNorm(ch, EPS, device=device)
 
 
+def _conv3(quant: bool, cin: int, cout: int, device=None) -> Conv2d:
+    """A 3x3 conv (padding 1) of the decoder, int8 in the quant view."""
+    return (Int8Conv if quant else Conv2d)(cin, cout, 3, padding=1,
+                                            device=device)
+
+
 class ResnetBlock(nn.Module):
-    def __init__(self, cin: int, cout: int, device=None):
+    def __init__(self, cin: int, cout: int, device=None, quant: bool = False):
         super().__init__()
         self.norm1 = _norm(cin, device)
-        self.conv1 = Conv2d(cin, cout, 3, padding=1, device=device)
+        self.conv1 = _conv3(quant, cin, cout, device)
         self.norm2 = _norm(cout, device)
-        self.conv2 = Conv2d(cout, cout, 3, padding=1, device=device)
+        self.conv2 = _conv3(quant, cout, cout, device)
         self.nin_shortcut = (Conv2d(cin, cout, 1, device=device)
                              if cin != cout else None)
 
@@ -117,9 +126,9 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     """x2 nearest upsampling + k3 conv (autoencoder.py:35-50)."""
 
-    def __init__(self, ch: int, device=None):
+    def __init__(self, ch: int, device=None, quant: bool = False):
         super().__init__()
-        self.conv = Conv2d(ch, ch, 3, padding=1, device=device)
+        self.conv = _conv3(quant, ch, ch, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv.nhwc(upsample_nearest2x(x))
@@ -134,11 +143,11 @@ def _level(blocks, attns, resample=None, name=""):
     return lvl
 
 
-def _mid(ch: int, device=None) -> nn.Module:
+def _mid(ch: int, device=None, quant: bool = False) -> nn.Module:
     mid = nn.Module()
-    mid.block_1 = ResnetBlock(ch, ch, device)
+    mid.block_1 = ResnetBlock(ch, ch, device, quant)
     mid.attn_1 = AttnBlock(ch, device)
-    mid.block_2 = ResnetBlock(ch, ch, device)
+    mid.block_2 = ResnetBlock(ch, ch, device, quant)
     return mid
 
 
@@ -196,24 +205,25 @@ class Decoder(nn.Module):
     def __init__(self, ch: int = 128, out_ch: int = 3,
                  ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
-                 resolution: int = 256, z_channels: int = 4, device=None):
+                 resolution: int = 256, z_channels: int = 4, device=None,
+                 quant: bool = False):
         super().__init__()
         n = len(ch_mult)
         cin = ch * ch_mult[-1]
         res = resolution // 2 ** (n - 1)
         self.conv_in = Conv2d(z_channels, cin, 3, padding=1, device=device)
-        self.mid = _mid(cin, device)
+        self.mid = _mid(cin, device, quant)
         levels = [None] * n
         for i in reversed(range(n)):
             cout = ch * ch_mult[i]
             blocks, attns = [], []
             for _ in range(num_res_blocks + 1):
-                blocks.append(ResnetBlock(cin, cout, device))
+                blocks.append(ResnetBlock(cin, cout, device, quant))
                 cin = cout
                 if res in attn_resolutions:
                     attns.append(AttnBlock(cout, device))
             levels[i] = _level(blocks, attns,
-                               Upsample(cout, device) if i else None,
+                               Upsample(cout, device, quant) if i else None,
                                "upsample")
             if i:
                 res *= 2
@@ -233,17 +243,14 @@ class Decoder(nn.Module):
 class AutoencoderKL(nn.Module):
     """Frozen SD KL-VAE (reference FrozenAutoencoderKL,
     autoencoder.py:412-460). NHWC; moments are [B, h, w, 2 * embed_dim]
-    (mean | logvar on the channel axis); exact f32 on the card."""
+    (mean | logvar on the channel axis); exact f32 on the card.
+    ``quant=True``: the int8 decode view (sampling only)."""
 
     def __init__(self, ddconfig: Optional[dict] = None,
                  embed_dim: int = SD_EMBED_DIM,
                  scale_factor: float = SD_SCALE_FACTOR, quant: bool = False,
                  device=None):
         super().__init__()
-        if quant:
-            raise NotImplementedError(
-                "the VAE's int8 decode view (quant) comes with the int8-conv "
-                "slice (Int8Conv), not ported yet")
         cfg = dict(ddconfig or SD_CONFIG)
         self.scale_factor = scale_factor
         common = dict(ch=cfg["ch"], ch_mult=tuple(cfg["ch_mult"]),
@@ -253,25 +260,22 @@ class AutoencoderKL(nn.Module):
                       z_channels=cfg["z_channels"], device=device)
         self.encoder = Encoder(in_channels=cfg.get("in_channels", 3),
                                double_z=cfg.get("double_z", True), **common)
-        self.decoder = Decoder(out_ch=cfg.get("out_ch", 3), **common)
+        self.decoder = Decoder(out_ch=cfg.get("out_ch", 3), quant=bool(quant),
+                               **common)
         zc = cfg["z_channels"]
         self.quant_conv = Conv2d(2 * zc, 2 * embed_dim, 1, device=device)
         self.post_quant_conv = Conv2d(embed_dim, zc, 1, device=device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "AutoencoderKL":
-        """Seeded random init: LeCun truncated normal (cut at 2 std) for
+        """Seeded random init: Flax's LeCun normal (``lecun_normal_``) for
         the conv weights, zero biases, unit norm scales."""
         for mod in self.modules():
             if isinstance(mod, GroupNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
             elif isinstance(mod, nn.Conv2d):
-                std = mod.weight[0].numel() ** -0.5
-                buf = torch.empty(mod.weight.shape, device=mod.weight.device)
-                nn.init.trunc_normal_(buf, std=std, a=-2 * std, b=2 * std,
-                                      generator=generator)
-                mod.weight.copy_(buf)
+                lecun_normal_(mod.weight, generator)
                 mod.bias.zero_()
         return self
 

@@ -17,7 +17,8 @@ Quantized sampling views (``quant``, the JAX package's ``_qmodes``):
 ``True``/``"w8a8"`` runs int8 W8A8 on the block matmuls (qkv, proj, MLP,
 skip_linear) where the JAX package does, ``"w8a8_mlp"`` on the MLP only,
 and ``"w8"`` keeps int8 weights with activations in the compute dtype on
-the MLP only (qkv, proj and skip_linear stay bf16 ``Dense``). The param
+the MLP only (qkv, proj and skip_linear stay bf16 ``Dense``);
+:class:`Int8Conv` is the SD-UNet's and the SD-VAE's int8 conv. The param
 tree is the bf16 view's, so one checkpoint loads into every view; the int8
 layers quantize their f32 weights once per weight value
 (``ops/quant.quantized_weight``). ``Block`` follows the JAX routing
@@ -44,10 +45,13 @@ from ..ops.attention import (
     multi_head_attention,
 )
 from ..ops.mlp import fused_mlp, fused_mlp_block_q, gelu_exact
-from ..ops.quant import int8_dense
+from ..ops.quant import int8_conv, int8_dense
 
 # torch defaults the reference relies on: LayerNorm eps=1e-5, exact GELU
 LN_EPS = 1e-5
+# the std of a unit normal truncated at +-2 (Flax's variance_scaling divides
+# by it, so that its truncated draw has the std it asks for)
+TRUNC_NORMAL_STD = 0.87962566103423978
 
 ATTN_IMPLS = ("auto", "xla", "pallas_qkvproj", "pallas_packed",
               "pallas_lnmlp")
@@ -111,6 +115,20 @@ def unpatchify(x: torch.Tensor, channels: int) -> torch.Tensor:
     return x.reshape(b, hw * p, hw * p, channels)
 
 
+@torch.no_grad()
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """Flax's ``lecun_normal`` (the default of ``nn.Dense`` and ``nn.Conv``)
+    into ``w``: a normal truncated at +-2 of its scale, scale fan_in^-1/2 /
+    0.8796, so the drawn std is fan_in^-1/2. fan_in is ``w[0].numel()``:
+    ``in`` of a Linear, ``I * kh * kw`` of a torch conv (Flax's ``H * W *
+    I``)."""
+    std = w[0].numel() ** -0.5 / TRUNC_NORMAL_STD
+    buf = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    nn.init.trunc_normal_(buf, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+    w.copy_(buf)
+
+
 def _cast(t: Optional[torch.Tensor], dtype: torch.dtype):
     return None if t is None else t.to(dtype)
 
@@ -157,6 +175,27 @@ class Conv2d(nn.Conv2d):
         """The conv on NHWC ``x``: the NCHW view of a channels-last tensor
         in, the NHWC view of the result out."""
         return self(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class Int8Conv(Conv2d):
+    """The JAX package's ``Int8Conv``: W8A8 through :func:`int8_conv` (one
+    activation scale per image, per-output-channel weight codes, int32
+    sums), output in ``dtype``. Its parameters are :class:`Conv2d`'s, f32
+    unless ``param_dtype`` says otherwise, so one state dict loads into
+    either view."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32,
+                 param_dtype=None, device=None, **kw):
+        super().__init__(*args, dtype=dtype,
+                         param_dtype=param_dtype or torch.float32,
+                         device=device, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.nhwc(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+    def nhwc(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_conv(x, self.weight, self.bias, self.stride, self.padding,
+                         out_dtype=self.dtype)
 
 
 class Embedding(nn.Embedding):

@@ -12,12 +12,24 @@ with ``strict=True`` (``codecs/convert.load_unet_from_jax``).
 Self-attention goes through ``ops.attention.multi_head_attention``: on the
 card ``auto`` sends 512 < L <= 1024 (the 32x32 levels of UNet-large) to the
 [B, H, L, D] kernel and shorter sequences to plain math, as the JAX package
-routes on the TPU. Cross-attention is plain math. A missing context becomes
-a zeros [B, 1, context_dim] token.
+routes on the TPU; the kernel is differentiable, so the model trains on its
+own ``auto``. Cross-attention is plain math. A missing context becomes a
+zeros [B, 1, context_dim] token. ``use_checkpoint`` recomputes each
+ResBlock, SpatialTransformer and AttnBlockLegacy in the backward
+(``torch.utils.checkpoint``, non-reentrant, only under autograd), as the
+JAX UNet's ``nn.remat``.
 
-Not ported yet, and refused: the int8 conv views (``quant``, the int8-conv
-slice), the u-space write hooks (``edit``, the editing slice) and per-block
-remat (``use_checkpoint``, the UNet training slice).
+Int8 sampling views (``quant``, the JAX package's ``_conv`` and
+``_udense``): ``True``/``"conv8"`` runs the ResBlock 3x3 convs, the
+Downsample and Upsample convs and the SpatialTransformer's 1x1
+``proj_in``/``proj_out`` as ``Int8Conv``; ``"w8a8"`` adds the CrossAttention
+and GEGLU denses as int8 ``Dense``; ``"dense8"`` quantizes those denses
+only. The boundary convs, the ResBlock's 1x1 skip, ``emb_layers``,
+``time_embed`` and AttnBlockLegacy's Conv1d stay in the compute dtype. The
+parameters are the same in every view.
+
+Not ported yet, and refused: the u-space write hooks (``edit``, the editing
+slice).
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention
 from .layers import (
@@ -35,17 +48,33 @@ from .layers import (
     Dense,
     Embedding,
     GroupNorm,
+    Int8Conv,
     LayerNorm,
     gelu_exact,
+    lecun_normal_,
     timestep_embedding,
 )
 from .uvit import TAPS
 
 ATTN_IMPLS = ("auto", "xla", "pallas")
+QUANT_VIEWS = (False, True, "conv8", "w8a8", "dense8")
 GN_EPS = 1e-5  # GroupNorm32 (libs/sd/util.py:238-240)
 # the std of the zero-initialised output convs in a random-weight field
 # (UNet.init_weights(zero_init_std=...)), as the JAX package's UNet tests
 ZERO_INIT_STD = 0.05
+
+
+def _int8_convs(quant) -> bool:
+    return quant is True or quant in ("conv8", "w8a8")
+
+
+def _int8_denses(quant) -> bool:
+    return quant in ("w8a8", "dense8")
+
+
+def _conv(quant, *args, **kw) -> Conv2d:
+    """``Conv2d``, or ``Int8Conv`` in the conv views (same parameters)."""
+    return (Int8Conv if _int8_convs(quant) else Conv2d)(*args, **kw)
 
 
 def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
@@ -76,18 +105,18 @@ class ResBlock(nn.Module):
     ``out_layers`` keep the reference's indices."""
 
     def __init__(self, cin: int, cout: int, emb_dim: int,
-                 use_scale_shift_norm: bool = False, **kw):
+                 use_scale_shift_norm: bool = False, quant=False, **kw):
         super().__init__()
         dev = kw.get("device")
         self.use_scale_shift_norm = use_scale_shift_norm
         self.in_layers = nn.Sequential(
             GroupNorm(cin, GN_EPS, device=dev), nn.SiLU(),
-            Conv2d(cin, cout, 3, padding=1, **kw))
+            _conv(quant, cin, cout, 3, padding=1, **kw))
         width = (2 if use_scale_shift_norm else 1) * cout
         self.emb_layers = nn.Sequential(nn.SiLU(), Dense(emb_dim, width, **kw))
         self.out_layers = nn.Sequential(
             GroupNorm(cout, GN_EPS, device=dev), nn.SiLU(), nn.Identity(),
-            Conv2d(cout, cout, 3, padding=1, **kw))
+            _conv(quant, cout, cout, 3, padding=1, **kw))
         self.skip_connection = (Conv2d(cin, cout, 1, **kw) if cin != cout
                                 else None)
 
@@ -110,11 +139,12 @@ class CrossAttention(nn.Module):
     (libs/sd/attention.py:149-189)."""
 
     def __init__(self, dim: int, ctx_dim: int, num_heads: int, head_dim: int,
-                 attn_impl: str = "auto", **kw):
+                 attn_impl: str = "auto", quant=False, **kw):
         super().__init__()
         inner = num_heads * head_dim
         self.num_heads, self.head_dim = num_heads, head_dim
         self.attn_impl = attn_impl
+        kw = dict(kw, quant=_int8_denses(quant))
         self.to_q = Dense(dim, inner, bias=False, **kw)
         self.to_k = Dense(ctx_dim, inner, bias=False, **kw)
         self.to_v = Dense(ctx_dim, inner, bias=False, **kw)
@@ -141,7 +171,7 @@ class CrossAttention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int, **kw):
         super().__init__()
-        self.proj = Dense(dim, 2 * inner, **kw)
+        self.proj = Dense(dim, 2 * inner, **kw)  # int8 in the dense views
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xx, gate = self.proj(x).chunk(2, dim=-1)
@@ -151,8 +181,9 @@ class GEGLU(nn.Module):
 class FeedForwardGEGLU(nn.Module):
     """GEGLU feed-forward, mult 4 (libs/sd/attention.py:192-229)."""
 
-    def __init__(self, dim: int, mult: int = 4, **kw):
+    def __init__(self, dim: int, mult: int = 4, quant=False, **kw):
         super().__init__()
+        kw = dict(kw, quant=_int8_denses(quant))
         self.net = nn.Sequential(GEGLU(dim, dim * mult, **kw), nn.Identity(),
                                  Dense(dim * mult, dim, **kw))
 
@@ -162,14 +193,14 @@ class FeedForwardGEGLU(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, ctx_dim: int, num_heads: int, head_dim: int,
-                 attn_impl: str = "auto", **kw):
+                 attn_impl: str = "auto", quant=False, **kw):
         super().__init__()
         dtype, dev = kw["dtype"], kw.get("device")
         self.attn1 = CrossAttention(dim, dim, num_heads, head_dim, attn_impl,
-                                    **kw)
-        self.ff = FeedForwardGEGLU(dim, **kw)
+                                    quant, **kw)
+        self.ff = FeedForwardGEGLU(dim, quant=quant, **kw)
         self.attn2 = CrossAttention(dim, ctx_dim, num_heads, head_dim,
-                                    attn_impl, **kw)
+                                    attn_impl, quant, **kw)
         self.norm1, self.norm2, self.norm3 = (
             LayerNorm(dim, LN_EPS, dtype=dtype, device=dev) for _ in range(3))
 
@@ -185,15 +216,16 @@ class SpatialTransformer(nn.Module):
     1x1 proj, residual (libs/sd/attention.py:232-277)."""
 
     def __init__(self, ch: int, ctx_dim: int, num_heads: int, head_dim: int,
-                 depth: int = 1, attn_impl: str = "auto", **kw):
+                 depth: int = 1, attn_impl: str = "auto", quant=False, **kw):
         super().__init__()
         inner = num_heads * head_dim
         self.norm = GroupNorm(ch, GN_EPS, device=kw.get("device"))
-        self.proj_in = Conv2d(ch, inner, 1, **kw)
+        self.proj_in = _conv(quant, ch, inner, 1, **kw)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, ctx_dim, num_heads, head_dim,
-                                  attn_impl, **kw) for _ in range(depth))
-        self.proj_out = Conv2d(inner, ch, 1, **kw)
+                                  attn_impl, quant, **kw)
+            for _ in range(depth))
+        self.proj_out = _conv(quant, inner, ch, 1, **kw)
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor]) -> torch.Tensor:
@@ -236,9 +268,9 @@ class Downsample(nn.Module):
     """k3 s2 conv, padded 1 on both sides as torch's Downsample (XLA's
     "SAME" would pad (0, 1) and shift the window grid)."""
 
-    def __init__(self, ch: int, **kw):
+    def __init__(self, ch: int, quant=False, **kw):
         super().__init__()
-        self.op = Conv2d(ch, ch, 3, stride=2, padding=1, **kw)
+        self.op = _conv(quant, ch, ch, 3, stride=2, padding=1, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.op.nhwc(x)
@@ -247,9 +279,9 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     """x2 nearest upsampling + k3 conv."""
 
-    def __init__(self, ch: int, **kw):
+    def __init__(self, ch: int, quant=False, **kw):
         super().__init__()
-        self.conv = Conv2d(ch, ch, 3, padding=1, **kw)
+        self.conv = _conv(quant, ch, ch, 3, padding=1, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv.nhwc(upsample_nearest2x(x))
@@ -285,14 +317,9 @@ class UNet(nn.Module):
         device=None,
     ):
         super().__init__()
-        if quant is not False:
-            raise NotImplementedError(
-                "the UNet's int8 conv views (quant) come with the int8-conv "
-                "slice (Int8Conv, quantize_convwise), not ported yet")
-        if use_checkpoint:
-            raise NotImplementedError(
-                "per-block remat (use_checkpoint) comes with the UNet "
-                "training slice, not ported yet")
+        if not (isinstance(quant, bool) or quant in QUANT_VIEWS):
+            raise ValueError(f"unknown quant view {quant!r}; the UNet takes "
+                             f"{QUANT_VIEWS}")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}; the UNet "
                              f"takes {ATTN_IMPLS}")
@@ -302,6 +329,8 @@ class UNet(nn.Module):
         self.legacy = legacy
         self.use_spatial_transformer = use_spatial_transformer
         self.context_dim = context_dim
+        self.use_checkpoint = use_checkpoint
+        self.quant = quant
         self.dtype = dtype
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         emb_dim = 4 * ch0
@@ -311,13 +340,15 @@ class UNet(nn.Module):
                           if num_classes is not None else None)
 
         def res(cin, cout):
-            return ResBlock(cin, cout, emb_dim, use_scale_shift_norm, **kw)
+            return ResBlock(cin, cout, emb_dim, use_scale_shift_norm, quant,
+                            **kw)
 
         def attn(ch):
             nh, dh = self._heads(ch)
             if use_spatial_transformer:
                 return SpatialTransformer(ch, context_dim, nh, dh,
-                                          transformer_depth, attn_impl, **kw)
+                                          transformer_depth, attn_impl, quant,
+                                          **kw)
             return AttnBlockLegacy(ch, nh, attn_impl, **kw)
 
         self.input_blocks = nn.ModuleList(
@@ -332,7 +363,8 @@ class UNet(nn.Module):
                 self.input_blocks.append(nn.ModuleList(layers))
                 chans.append(ch)
             if level != len(channel_mult) - 1:
-                self.input_blocks.append(nn.ModuleList([Downsample(ch, **kw)]))
+                self.input_blocks.append(
+                    nn.ModuleList([Downsample(ch, quant, **kw)]))
                 chans.append(ch)
                 ds *= 2
         self.middle_block = nn.ModuleList([res(ch, ch), attn(ch), res(ch, ch)])
@@ -344,7 +376,7 @@ class UNet(nn.Module):
                 if ds in attention_resolutions:
                     layers.append(attn(ch))
                 if level and i == num_res_blocks:
-                    layers.append(Upsample(ch, **kw))
+                    layers.append(Upsample(ch, quant, **kw))
                     ds //= 2
                 self.output_blocks.append(nn.ModuleList(layers))
         self.out = nn.Sequential(GroupNorm(ch, GN_EPS, device=device),
@@ -378,10 +410,11 @@ class UNet(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator,
                      zero_init_std: float = 0.0) -> "UNet":
-        """Seeded random init as the reference's: LeCun truncated normal
-        (cut at 2 std) for dense and conv weights, normal for the label
-        embedding, zero biases, unit norm scales, and zero output convs
-        (proj_out, out_layers.3, out.2), so that the field starts at zero.
+        """Seeded random init as the reference's: Flax's LeCun normal
+        (``lecun_normal_``) for dense and conv weights, a normal of std
+        features^-1/2 for the label embedding (Flax ``nn.Embed``), zero
+        biases, unit norm scales, and zero output convs (proj_out,
+        out_layers.3, out.2), so that the field starts at zero.
         ``zero_init_std > 0`` draws those output convs from normal x
         ``zero_init_std`` instead, as the JAX package's UNet tests do, so
         that a field with random weights is not zero: for checks and
@@ -391,9 +424,9 @@ class UNet(nn.Module):
             if isinstance(mod, (GroupNorm, LayerNorm)):
                 mod.weight.fill_(1.0)
             elif isinstance(mod, nn.Embedding):
-                mod.weight.copy_(torch.randn(mod.weight.shape,
-                                             generator=generator,
-                                             device=mod.weight.device))
+                mod.weight.copy_(torch.randn(
+                    mod.weight.shape, generator=generator,
+                    device=mod.weight.device) * mod.weight.shape[1] ** -0.5)
             elif isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 if mod in zero:
                     mod.weight.copy_(zero_init_std * torch.randn(
@@ -401,28 +434,31 @@ class UNet(nn.Module):
                         device=mod.weight.device) if zero_init_std
                         else torch.zeros_like(mod.weight))
                 else:
-                    std = mod.weight[0].numel() ** -0.5
-                    buf = torch.empty(mod.weight.shape, dtype=torch.float32,
-                                      device=mod.weight.device)
-                    nn.init.trunc_normal_(buf, std=std, a=-2 * std,
-                                          b=2 * std, generator=generator)
-                    mod.weight.copy_(buf)
+                    lecun_normal_(mod.weight, generator)
             else:
                 continue
             if getattr(mod, "bias", None) is not None:
                 mod.bias.zero_()
         return self
 
+    def _block(self, m: nn.Module, *args) -> torch.Tensor:
+        """A remat unit, recomputed in the backward with use_checkpoint."""
+        if self.use_checkpoint and torch.is_grad_enabled():
+            return checkpoint(m, *args, use_reentrant=False)
+        return m(*args)
+
     def _run(self, layers: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor,
              context: Optional[torch.Tensor]) -> torch.Tensor:
         for m in layers:
             if isinstance(m, ResBlock):
-                h = m(h, emb)
+                h = self._block(m, h, emb)
             elif isinstance(m, SpatialTransformer):
-                h = m(h, context)
+                h = self._block(m, h, context)
+            elif isinstance(m, AttnBlockLegacy):
+                h = self._block(m, h)
             elif isinstance(m, Conv2d):
                 h = m.nhwc(h)
-            else:  # AttnBlockLegacy, Downsample, Upsample
+            else:  # Downsample, Upsample
                 h = m(h)
         return h
 

@@ -30,6 +30,7 @@ from .layers import (
     LayerNorm,
     PatchEmbed,
     _qmodes,
+    lecun_normal_,
     timestep_embedding,
     unpatchify,
 )
@@ -119,8 +120,9 @@ class UViT(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "UViT":
         """Seeded random init: truncated normal (std 0.02, cut at 2 std)
-        for dense/embedding weights and pos_embed, LeCun truncated normal
-        for convs, zero biases, unit LayerNorm scales."""
+        for dense/embedding weights and pos_embed, Flax's LeCun normal
+        (``lecun_normal_``) for convs, zero biases, unit LayerNorm
+        scales."""
         def tn(t: torch.Tensor, std: float) -> None:
             buf = torch.empty(t.shape, dtype=torch.float32, device=t.device)
             nn.init.trunc_normal_(buf, std=std, a=-2 * std, b=2 * std,
@@ -133,7 +135,7 @@ class UViT(nn.Module):
             elif isinstance(mod, (nn.Linear, nn.Embedding)):
                 tn(mod.weight, 0.02)
             elif isinstance(mod, nn.Conv2d):
-                tn(mod.weight, mod.weight[0].numel() ** -0.5)
+                lecun_normal_(mod.weight, generator)
             else:
                 continue
             if getattr(mod, "bias", None) is not None:

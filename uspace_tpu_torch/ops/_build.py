@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable
 
 import torch
 
@@ -48,6 +48,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "attention_fwd": {
         "uspace_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    },
+    "fused_attention_bwd": {
+        "uspace_fused_attention_bwd": (_P,) * 8 + (_I,) * 4 + (_F, _P),
     },
     "mlp_int8": {
         "uspace_mlp_int8": (_P,) * 9 + (_I,) * 5 + (_P,),
@@ -144,17 +147,14 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def check_no_grad(*ts: torch.Tensor, what: str,
-                  why: Optional[str] = None) -> None:
-    """Kernels that define no backward (nor do the JAX package's, unless
-    ``why`` says otherwise): refuse rather than return an output that
-    silently drops the gradient."""
+def check_no_grad(*ts: torch.Tensor, what: str) -> None:
+    """Kernels that define no backward (nor do the JAX package's): refuse
+    rather than return an output that silently drops the gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
-            f"{what} is inference-only, " + (
-                why or "as in the JAX package; call under torch.no_grad() or "
-                "train the bf16 view with attn_impl='pallas_packed', 'auto' "
-                "or 'xla'"))
+            f"{what} is inference-only, as in the JAX package; call under "
+            "torch.no_grad() or train the bf16 view with "
+            "attn_impl='pallas_packed', 'auto' or 'xla'")
 
 
 def on_cpu(t: torch.Tensor) -> bool:

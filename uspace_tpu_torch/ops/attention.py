@@ -37,7 +37,10 @@ self-attention (``csrc/attention_fwd.cu``, TPU kernel ``_fwd_kernel``):
 K and V stream through shared memory, so it takes any L up to 1024, at
 head dims 32 and 64. :func:`multi_head_attention` routes to it as the JAX
 dispatcher routes on the TPU (``auto``: 512 < L <= 1024). It is
-inference-only until its backward (``_bwd_kernel``) is ported.
+differentiable as ``_fused_attention`` is: the backward saves only q, k and
+v and runs :func:`fused_attention_bwd` (``csrc/fused_attention_bwd.cu``,
+TPU kernel ``_bwd_kernel``), which recomputes P and normalises it in f32
+before its bf16 cast.
 
 Layout: q, k, v are ``[B, H, L, D]``; packed and fused entry points take
 and return ``[B, L, C]`` as the JAX package does.
@@ -68,6 +71,7 @@ LAUNCHES: Dict[str, int] = {
     "qkvproj_attention_int8": 0,
     "ln_qkvproj_attention_int8": 0,
     "attention_fwd": 0,
+    "fused_attention_bwd": 0,
 }
 
 KERNEL_HEAD_DIM = 64
@@ -81,9 +85,6 @@ FWD_HEAD_DIMS = (32, 64)
 _UNPORTED_FLASH = ("attention over L > 1024 needs the blocked online-softmax "
                    "kernel (kernel 9 of the kernel table, _flash_kernel), "
                    "not ported yet")
-_NO_FWD_GRAD = ("until its backward (kernel 8 of the kernel table, "
-                "_bwd_kernel) is ported; call under torch.no_grad() or train "
-                "with attn_impl='xla'")
 
 
 def reset_launches() -> None:
@@ -140,28 +141,43 @@ def packed_attention_plain(qkv: torch.Tensor, num_heads: int,
     return o.transpose(1, 2).reshape(b, l, h * d)
 
 
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, scale: float):
+    """Twin of the [B, H, L, D] backward kernel (``_bwd_kernel``): dq, dk,
+    dv [B, H, L, D] from the forward's inputs and the output cotangent do.
+    f32 scores, row max and p = e / l (normalised in f32 before any cast,
+    where the forward divides after P·V); dv = bf16(p)ᵀ·dO; delta =
+    rowsum(p ⊙ dp) from p and dp = dO·Vᵀ (not from dO ⊙ O); ds = bf16(p ⊙
+    (dp − delta)); dq = ds·K·scale, dk = dsᵀ·Q·scale; each rounded once to
+    q's dtype. Masked keys have p = 0 and padded query rows a zero
+    cotangent, so the TPU kernel's padding changes no value."""
+    qf, kf, vf, g = (t.float() for t in (q, k, v, do))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    del s, e
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), g)
+    dp = torch.matmul(g, vf.transpose(-1, -2))
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    del p, dp
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def packed_attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor,
                                num_heads: int, scale: float) -> torch.Tensor:
     """Twin of the packed backward kernel: dqkv [B, L, 3HD] from the
-    forward's input qkv and the output cotangent do [B, L, HD]. f32 scores,
-    row max and p = e / l; dv = bf16(p)ᵀ·dO; delta = rowsum(p ⊙ dp) from
-    p and dp = dO·Vᵀ (not from dO ⊙ O); ds = bf16(p ⊙ (dp − delta));
-    dq = ds·K·scale, dk = dsᵀ·Q·scale; each rounded to qkv's dtype."""
+    forward's input qkv and the output cotangent do [B, L, HD], with the
+    arithmetic of :func:`attention_bwd_plain` (``_packed_bwd_kernel``
+    rounds where ``_bwd_kernel`` does)."""
     b, l, c3 = qkv.shape
     h = num_heads
     d = c3 // (3 * h)
-    q, k, v = qkv.reshape(b, l, 3, h, d).permute(2, 0, 3, 1, 4).float()
-    g = do.reshape(b, l, h, d).transpose(1, 2).float()
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
-    dv = torch.matmul(p.to(qkv.dtype).float().transpose(-1, -2), g)
-    dp = torch.matmul(g, v.transpose(-1, -2))
-    delta = (p * dp).sum(dim=-1, keepdim=True)
-    ds = (p * (dp - delta)).to(qkv.dtype).float()
-    dq = torch.matmul(ds, k) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
-    dqkv = torch.stack([dq, dk, dv]).to(qkv.dtype)  # [3, B, H, L, D]
+    q, k, v = qkv.reshape(b, l, 3, h, d).permute(2, 0, 3, 1, 4)
+    g = do.reshape(b, l, h, d).transpose(1, 2)
+    dqkv = torch.stack(attention_bwd_plain(q, k, v, g, scale))
     return dqkv.permute(1, 3, 0, 2, 4).reshape(b, l, c3)
 
 
@@ -352,21 +368,26 @@ def _int8_kernel(x, qw, num_heads, scale, ln=None):
     return out
 
 
-def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                scale: float) -> torch.Tensor:
-    b, h, l, d = q.shape
+def _check_bhld(what: str, q: torch.Tensor) -> None:
+    """Limits of the [B, H, L, D] kernels: bf16, head dim 32 or 64,
+    1 <= L <= 1024."""
+    _, _, l, d = q.shape
     if q.dtype != torch.bfloat16:
-        raise ValueError(f"the [B, H, L, D] attention kernel takes bfloat16, "
-                         f"got {q.dtype} (use attn_impl='xla' for other "
-                         f"dtypes)")
+        raise ValueError(f"{what} takes bfloat16, got {q.dtype} (use "
+                         f"attn_impl='xla' for other dtypes)")
     if d not in FWD_HEAD_DIMS:
-        raise ValueError(f"the [B, H, L, D] attention kernel takes head dim "
+        raise ValueError(f"{what} takes head dim "
                          f"{' or '.join(map(str, FWD_HEAD_DIMS))}, got {d}")
     if not 1 <= l <= FUSED_MAX_LEN:
-        raise ValueError(f"the [B, H, L, D] attention kernel takes 1 <= L <= "
-                         f"{FUSED_MAX_LEN}, got {l}")
+        raise ValueError(f"{what} takes 1 <= L <= {FUSED_MAX_LEN}, got {l}")
+
+
+def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: float) -> torch.Tensor:
+    _check_bhld("the [B, H, L, D] attention kernel", q)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check_tensor(name, t, torch.bfloat16, (b, h, l, d), q.device)
+        check_tensor(name, t, torch.bfloat16, tuple(q.shape), q.device)
+    b, h, l, d = q.shape
     out = torch.empty_like(q)
     rc = load("attention_fwd").uspace_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, l, d,
@@ -376,17 +397,66 @@ def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _fused_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, scale: float):
+    _check_bhld("the [B, H, L, D] attention backward kernel", q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        check_tensor(name, t, torch.bfloat16, tuple(q.shape), q.device)
+    b, h, l, d = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    # per-row max, sum and delta of every 64-row tile, passed from the dQ
+    # kernel to the dK/dV one
+    lp = -(-l // 64) * 64
+    stats = torch.empty((b * h * 3 * lp,), dtype=torch.float32,
+                        device=q.device)
+    rc = load("fused_attention_bwd").uspace_fused_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, h,
+        l, d, scale, cuda_stream(q.device))
+    raise_on(rc, "uspace_fused_attention_bwd")
+    LAUNCHES["fused_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """The [B, H, L, D] kernel (its twin on the CPU) with the [B, H, L, D]
+    backward kernel as VJP, as ``_fused_attention`` of the JAX package: it
+    saves only q, k and v, and CPU autograd reproduces the JAX VJP, not
+    autograd of the forward twin."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        if on_cpu(q):
+            return attention_plain(q, k, v, scale)
+        return _fwd_kernel(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*fused_attention_bwd(q, k, v, g, ctx.scale), None)
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v on [B, H, L, D] through the [B, H, L, D]
     kernel (its twin on the CPU): bf16, head dim 32 or 64, L <= 1024;
-    strided views are made contiguous first. Inference-only."""
+    strided views are made contiguous first. Differentiable through the
+    backward kernel."""
     scale = _default_scale(q.shape[-1], scale)
-    check_no_grad(q, k, v, what="the [B, H, L, D] attention kernel",
-                  why=_NO_FWD_GRAD)
+    return _FusedAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), scale)
+
+
+def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, scale: Optional[float] = None):
+    """(dq, dk, dv) [B, H, L, D] of :func:`fused_attention` from its inputs
+    and the output cotangent do; P is recomputed, never stored."""
+    scale = _default_scale(q.shape[-1], scale)
     if on_cpu(q):
-        return attention_plain(q, k, v, scale)
-    return _fwd_kernel(q.contiguous(), k.contiguous(), v.contiguous(), scale)
+        return attention_bwd_plain(q, k, v, do, scale)
+    return _fused_bwd_kernel(q, k, v, do.contiguous(), scale)
 
 
 def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,

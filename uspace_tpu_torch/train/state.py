@@ -26,7 +26,9 @@ class FusedAdam:
     folded into the gradient before the moments) or AdamW's decoupled decay
     (``mode="adamw"``), as optax's ``scale_by_adam`` chains: bias correction
     with ``count + 1``, update ``m̂ / (sqrt(v̂) + eps)``, learning rate
-    ``lr_schedule(count)`` before the increment."""
+    ``lr_schedule(count)`` before the increment. ``grad_clip``: the raw
+    gradients are first scaled as ``optax.clip_by_global_norm`` scales them,
+    ``g / ‖g‖ * grad_clip`` where ‖g‖ >= grad_clip."""
 
     mode: str
     b1: float
@@ -34,6 +36,7 @@ class FusedAdam:
     eps: float
     weight_decay: float
     lr_schedule: Schedule
+    grad_clip: Optional[float] = None
 
     def init(self, params: Params) -> "AdamState":
         dev = next(iter(params.values())).device
@@ -74,16 +77,19 @@ def get_lr_schedule(name: str = "customized", base_lr: float = 1e-4,
 
 def get_optimizer(name: str = "adam", lr_schedule: Optional[Schedule] = None,
                   betas=(0.9, 0.999), weight_decay: float = 0.0,
+                  grad_clip: Optional[float] = None,
                   eps: float = 1e-8) -> FusedAdam:
-    """"adam" (L2 folded into the gradient) or "adamw" (decoupled); no
-    schedule means a constant 1e-4."""
+    """"adam" (L2 folded into the gradient) or "adamw" (decoupled), after
+    clipping by the global norm when ``grad_clip`` is given; no schedule
+    means a constant 1e-4."""
     if name not in ("adam", "adamw"):
         raise NotImplementedError(name)
     if lr_schedule is None:
         lr_schedule = get_lr_schedule("customized", 1e-4)
     b1, b2 = betas
     return FusedAdam(mode=name, b1=b1, b2=b2, eps=eps,
-                     weight_decay=weight_decay, lr_schedule=lr_schedule)
+                     weight_decay=weight_decay, lr_schedule=lr_schedule,
+                     grad_clip=grad_clip)
 
 
 @dataclasses.dataclass

@@ -35,12 +35,15 @@ def sample_from_moments(moments: torch.Tensor, generator: torch.Generator,
 
 @torch.no_grad()
 def fused_adam_ema(tx: FusedAdam, state: TrainState, grads: Params,
-                   ema_rate: float, ok: Optional[torch.Tensor] = None) -> None:
-    """(L2 | decoupled) weight decay + Adam moments + bias correction + LR
-    + apply + EMA lerp, one pass per parameter tensor, in place, with the
-    arithmetic of ``uspace_tpu/train/step._fused_adam_ema``. With ``ok``
-    (a 0-dim bool on the device) false, params, EMA, moments and the
-    update count keep their values."""
+                   ema_rate: float, ok: Optional[torch.Tensor] = None,
+                   grad_norm: Optional[torch.Tensor] = None) -> None:
+    """Global-norm clip (``tx.grad_clip``, with the raw gradients' norm
+    ``grad_norm``) + (L2 | decoupled) weight decay + Adam moments + bias
+    correction + LR + apply + EMA lerp, one pass per parameter tensor, in
+    place, with the arithmetic of ``uspace_tpu/train/step._fused_adam_ema``
+    after optax's ``clip_by_global_norm``. With ``ok`` (a 0-dim bool on the
+    device) false, params, EMA, moments and the update count keep their
+    values."""
     st = state.opt_state
     count_inc = st.count + 1
     tf = count_inc.float()
@@ -52,6 +55,9 @@ def fused_adam_ema(tx: FusedAdam, state: TrainState, grads: Params,
         lambda new, old: torch.where(ok, new, old))
     for k, p in state.params.items():
         g, m, v, e = grads[k], st.mu[k], st.nu[k], state.ema_params[k]
+        if tx.grad_clip is not None:
+            g = torch.where(grad_norm < tx.grad_clip, g,
+                            g / grad_norm * tx.grad_clip)
         if wd and tx.mode == "adam":
             g = g + wd * p
         m2 = b1 * m + (1.0 - b1) * g
@@ -93,7 +99,7 @@ def make_train_step(
         y = batch.get("y")
         names = list(state.params)
         per_sample = flow.training_loss(
-            lambda t, x: model(x, t, y)[0], x1, sigma_min, generator)
+            lambda t, x: model(x, t, y=y)[0], x1, sigma_min, generator)
         loss = per_sample.mean()
         grads = torch.autograd.grad(loss, [state.params[k] for k in names])
         grad_norm = torch.linalg.vector_norm(
@@ -106,7 +112,8 @@ def make_train_step(
             # a NaN/Inf in any gradient reaches the global norm
             ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
             metrics["nonfinite_skip"] = 1.0 - ok.float()
-        fused_adam_ema(tx, state, dict(zip(names, grads)), ema_rate, ok)
+        fused_adam_ema(tx, state, dict(zip(names, grads)), ema_rate, ok,
+                       grad_norm)
         state.step += 1
         return metrics
 
@@ -133,6 +140,6 @@ def make_sample_fn(model: torch.nn.Module, z_shape, sigma_min: float = 1e-4,
         dev = next(model.parameters()).device
         z = torch.randn((n, *z_shape), generator=generator,
                         dtype=torch.float32, device=dev)
-        return flow.decode(lambda t, x: model(x, t, y)[0], z, sk)
+        return flow.decode(lambda t, x: model(x, t, y=y)[0], z, sk)
 
     return sample_fn
