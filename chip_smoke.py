@@ -12,7 +12,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    C=1024, H=16, bf16; the int8 and w8 MLPs on the 12850 rows of B=50 with
    hidden 4096; the [B, H, L, D] kernel at B=50, H=8, L=1024, D=32, and at
    H=4, D=64 and at L=600; its backward at B=128 at the same three head
-   shapes, dq, dk and dv each): max-abs and rel-L2 within the tolerances below;
+   shapes, dq, dk and dv each; the bf16 and int8 attention sub-blocks at
+   B=50 and the bf16 MLP and MLP sub-block on 12850 rows, each sub-block on
+   its update out - x): max-abs and rel-L2 within the tolerances below;
    for each int8 and w8 kernel, controls (twins with one rounding site
    changed) that the same limits must refuse; kernel, twin and library-call
    times with CUDA events; the bound of the same work on an H100 SXM;
@@ -97,7 +99,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    field's, globally and on the L = 1024 attention projections; a control
    with the backward kernel's outputs zeroed must fail the limits;
 18. `cli.train_lfm.run(config="unet_large")` for 2 steps; its checkpoint's
-   params load into a fresh model with strict=True.
+   params load into a fresh model with strict=True;
+19. the whole-sub-block route, attn_impl="pallas_block", in bf16: phase 4's
+   weights and z, Euler-50 at batch 50: 1050 launches of the attention
+   sub-block kernel and of no other kernel (the MLP is plain after LN2, as
+   the JAX package routes it), latents against phase 4's plain latents,
+   img/s, peak memory;
+20. its W8A8 view (quant=True): 1050 launches each of the int8 attention
+   sub-block and int8 MLP sub-block kernels and of no other, no weight
+   quantization in the timed solve, the quality gate against phase 4's bf16
+   kernel latents, and one full-width evaluation block by block against the
+   twins (with control blocks) and whole against their composition;
+21. the w8 and w8a8_mlp views on pallas_block (4 Euler steps, launches,
+   the quantized limits against the plain path); the bf16 MLP kernels
+   inside the bf16 field (each block's MLP half as the MLP sub-block kernel,
+   then as the MLP kernel after LN2; no model route runs them, as in the JAX
+   package) against the model's own evaluation; the pallas_block gradient
+   at batch 32 against xla, with row 10 launched in every remat recompute;
+   `cli.sample_lfm.run(attn_impl="pallas_block")` in bf16 and W8A8 and
+   `cli.train_lfm.run` of a config whose nnet.attn_impl is "pallas_block".
 
 Prints the `kernels` JSON line and then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -424,6 +444,7 @@ def check_kernels(torch, F, attn, mlpk, quant):
     cases += w8_cases(torch, F, attn, mlpk, quant, randn, io)
     cases += fwd_cases(torch, F, attn, randn, io)
     cases += bwd_cases(torch, F, attn, randn, io)
+    cases += block_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
     results, shapes, controls, problems = [], [], {}, []
     for case in cases:
         counter = case.get("counter", case["name"])
@@ -613,7 +634,7 @@ def int8_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
                             "LN2 normalised in f32", ln_=ln1)),
         dict(name="mlp_int8", source=mlp_src,
              replaces="uspace_tpu/ops/mlp.py:161 (_mlp_kernel_int8)",
-             kernel=lambda: mlpk.fused_mlp(xr, w1, b1, w2, b2),
+             kernel=lambda: mlpk.fused_mlp(xr, w1, b1, w2, b2, quant=True),
              plain=lambda: mlpk.mlp_int8_plain(xr, q1, b1, q2, b2, strips),
              library=lambda: lib_mlp(xr.float()),
              bytes=io(xr) + mbytes + io(xr), flops=0.0, int8_ops=mlp_ops,
@@ -773,6 +794,142 @@ def bwd_cases(torch, F, attn, randn, io):
     return out
 
 
+def block_q_control(torch, attn, mlpk, quant, x, lns, lnb, qw, qwp, bp,
+                    change):
+    """A twin of the int8 attention sub-block kernel with one rounding site
+    changed (a wrong kernel's stand-in)."""
+    d = C // H
+    if change == "LN1 normalised in f32":  # row 5's LN
+        xln = attn._ln_f32(x, lns, lnb, 1e-5)
+    else:
+        xln = mlpk._ln_bf16_normalise(x, lns, lnb, 1e-5)
+    a = attn._int8_qkv_attention(xln, qw, H, d ** -0.5, x.dtype)
+    if change == "proj coded as int8_dense codes":  # x / (amax / 127)
+        p = quant.int8_matmul(*quant.quantize_rowwise(a.float()), qwp.kn,
+                              qwp.scale) + bp
+        return x + p.to(x.dtype)
+    aq, sa = quant.row_codes(a.float())
+    p = quant.int_matmul(aq, qwp.kn).float() * sa * qwp.scale + bp
+    return x + p.to(x.dtype)
+
+
+def block_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
+    """Phase 3's cases of the whole-sub-block route (rows 10-13 of the
+    PERF.md table) at the main path's shapes: the bf16 and int8 attention
+    sub-blocks at B=50, L=257, and the bf16 MLP and MLP sub-block on the
+    12850 rows of B=50 with hidden 4096; each sub-block compared on its
+    update out - x. Yardsticks: the same function from PyTorch calls
+    (layer_norm, matmul, SDPA, F.linear, F.gelu; row quantization and
+    torch._int_mm for the int8 one). Controls of the int8 sub-block: twins
+    with one rounding site changed, which the limits must refuse."""
+    f32, bf = torch.float32, torch.bfloat16
+    d = C // H
+    scale = d ** -0.5
+    # x at the scale of the attention update (std about 0.03 here): with x of
+    # std 1 the bf16 residual add keeps two bits of the update, and a one-ulp
+    # difference in it flips the output's rounding (first H100 run: update
+    # rel-L2 4.4e-3 for kernel and twin alike rounded); LN1 takes any scale
+    x = randn(B, L, C, std=0.05)
+    lns = 1.0 + randn(C, std=0.1, dtype=f32)
+    lnb = randn(C, std=0.1, dtype=f32)
+    # the bf16 view's weights are bf16 parameters, passed as weight.t()
+    w = randn(3 * C, C, std=0.02).t()
+    wp = randn(C, C, std=0.02).t()
+    wf = randn(3 * C, C, std=0.02, dtype=f32).t()
+    wpf = randn(C, C, std=0.02, dtype=f32).t()
+    bp = randn(C, std=0.02, dtype=f32)
+    qw, qwp = quant.quantized_weight(wf), quant.quantized_weight(wpf)
+    rows, hid = B * L, 4 * C
+    xr = randn(rows, C)
+    w1 = randn(hid, C, std=0.02).t()
+    b1 = randn(hid, std=0.02, dtype=f32)
+    w2 = randn(C, hid, std=0.02).t()
+    b2 = randn(C, std=0.02, dtype=f32)
+    strips = mlpk.col_slices(hid)
+
+    def ln(t):
+        return F.layer_norm(t, (C,), lns.to(bf), lnb.to(bf), 1e-5)
+
+    def heads(o):  # SDPA's [B, H, L, d] -> [B, L, C]
+        return o.transpose(1, 2).reshape(B, L, C)
+
+    def lib_proj(xf, qw_):  # row codes, torch._int_mm, dequant
+        return quant.int8_matmul(*quant.quantize_rowwise(xf), qw_.kn,
+                                 qw_.scale)
+
+    def lib_block_q():
+        a = heads(sdpa_packed(lib_proj(ln(x).float(), qw).to(bf)))
+        return x + (lib_proj(a.float(), qwp) + bp).to(bf)
+
+    def lib_mlp(t):
+        return F.linear(F.gelu(F.linear(t, w1.t(), b1.to(bf))), w2.t(),
+                        b2.to(bf))
+
+    def ctl(*changes):
+        return [(c, lambda c=c: block_q_control(
+            torch, attn, mlpk, quant, x, lns, lnb, qw, qwp, bp, c))
+            for c in changes]
+
+    qkv_ops = 2.0 * B * L * C * 3 * C
+    proj_ops = 2.0 * B * L * C * C
+    attn_flops = 4.0 * B * H * L * L * d
+    mlp_flops = 2.0 * 2.0 * rows * C * hid
+    src = "uspace_tpu_torch/ops/csrc/attention_block.cu"
+    msrc = "uspace_tpu_torch/ops/csrc/mlp_bf16.cu"
+    upd = dict(part=lambda t: t.double() - x.double())
+    # the MLP's outputs pass 2 in magnitude, where a bf16 step exceeds 1e-2
+    # (x of std 1 makes the MLP sub-block's do too): one bf16 step of the
+    # largest output and the bf16 rel-L2 (of the update for the sub-block),
+    # as the int8 and w8 MLP kernels are held; the attention sub-blocks'
+    # outputs stay below 0.5 with x at the update's scale
+    res_tol = (None, KERNEL_REL_L2)
+    mshape = f"rows={rows} C={C} hidden={hid} bf16"
+    return [
+        dict(name="attention_block", source=src,
+             replaces="uspace_tpu/ops/attention.py:1044 (_attn_block_kernel)",
+             kernel=lambda: attn.fused_attention_block(x, lns, lnb, w, wp, bp,
+                                                       H),
+             plain=lambda: attn.attention_block_plain(x, lns, lnb, w, wp, bp,
+                                                      H, scale, 1e-5),
+             library=lambda: x + F.linear(
+                 heads(sdpa_packed(torch.matmul(ln(x), w))), wp.t(),
+                 bp.to(bf)),
+             bytes=io(x, lns, lnb, w, wp, bp) + io(x),
+             flops=qkv_ops + attn_flops + proj_ops, **upd),
+        dict(name="attention_block_int8", source=src,
+             replaces="uspace_tpu/ops/attention.py:831 "
+             "(_attn_block_kernel_q)",
+             kernel=lambda: attn.fused_attention_block_q(x, lns, lnb, wf, wpf,
+                                                         bp, H),
+             plain=lambda: attn.attention_block_int8_plain(
+                 x, lns, lnb, qw, qwp, bp, H, scale, 1e-5),
+             library=lib_block_q,
+             bytes=io(x, lns, lnb, qw.q, qw.scale, qwp.q, qwp.scale, bp)
+             + io(x), flops=attn_flops, int8_ops=qkv_ops + proj_ops,
+             tol=(None, INT8_ATTN_REL_L2), shape=f"B={B} L={L} C={C} H={H} "
+             "bf16/int8", **upd,
+             controls=ctl("LN1 normalised in f32",
+                          "proj coded as int8_dense codes")),
+        dict(name="mlp_bf16", source=msrc,
+             replaces="uspace_tpu/ops/mlp.py:91 (_mlp_kernel_bf16)",
+             kernel=lambda: mlpk.fused_mlp(xr, w1, b1, w2, b2),
+             plain=lambda: mlpk.mlp_bf16_plain(xr, w1, b1, w2, b2, strips),
+             library=lambda: lib_mlp(xr),
+             bytes=io(xr, w1, b1, w2, b2) + io(xr), flops=mlp_flops,
+             tol=res_tol, shape=mshape),
+        dict(name="ln_mlp_bf16", source=msrc,
+             replaces="uspace_tpu/ops/mlp.py:119 (_mlp_kernel_bf16_lnres)",
+             kernel=lambda: mlpk.fused_mlp_block_q(xr, lns, lnb, w1, b1, w2,
+                                                   b2, quant=False),
+             plain=lambda: mlpk.ln_mlp_bf16_plain(xr, lns, lnb, w1, b1, w2,
+                                                  b2, strips, 1e-5),
+             library=lambda: xr + lib_mlp(ln(xr)),
+             bytes=io(xr, lns, lnb, w1, b1, w2, b2) + io(xr),
+             flops=mlp_flops, shape=mshape, tol=res_tol,
+             part=lambda t: t.double() - xr.double()),
+    ]
+
+
 def int8_conv_check(torch, F, quant):
     """Phase 3b: ops.quant.int8_conv on the card (im2col, torch._int_mm)
     against the same function on the CPU (an exact float64 product), same
@@ -834,20 +991,29 @@ def decode_run(torch, flow, model, z, steps, method="euler"):
 
 
 def twin_block(torch, blk, z, skip=None, change=None):
-    """One block of the int8 view on the LN-fused route composed from the
-    kernels' plain twins (int8_dense for proj and skip_linear, as the
-    model); ``change`` names a control of ``mlp_control`` for its MLP."""
+    """One block of the int8 view composed from the kernels' plain twins
+    (int8_dense for skip_linear, as the model): on the LN-fused route the
+    LN attention twin and int8_dense for proj, on `pallas_block` the int8
+    sub-block twin; ``change`` names a control of ``mlp_control`` for its
+    MLP."""
     from uspace_tpu_torch.ops import attention as attn
     from uspace_tpu_torch.ops import mlp as mlpk
     from uspace_tpu_torch.ops import quant
 
     if blk.skip_linear is not None:
         z = blk.skip_linear(torch.cat([z, skip], dim=-1))
-    a = attn.ln_qkvproj_attention_int8_plain(
-        z, blk.norm1.weight, blk.norm1.bias,
-        quant.quantized_weight(blk.attn.qkv.weight.t()), blk.attn.num_heads,
-        blk.attn.scale, blk.norm1.eps)
-    z = z + blk.attn.proj.int8(a).to(z.dtype)
+    qkv_w = quant.quantized_weight(blk.attn.qkv.weight.t())
+    if blk.attn_impl == "pallas_block":
+        z = attn.attention_block_int8_plain(
+            z, blk.norm1.weight, blk.norm1.bias, qkv_w,
+            quant.quantized_weight(blk.attn.proj.weight.t()),
+            blk.attn.proj.bias, blk.attn.num_heads, blk.attn.scale,
+            blk.norm1.eps)
+    else:
+        a = attn.ln_qkvproj_attention_int8_plain(
+            z, blk.norm1.weight, blk.norm1.bias, qkv_w, blk.attn.num_heads,
+            blk.attn.scale, blk.norm1.eps)
+        z = z + blk.attn.proj.int8(a).to(z.dtype)
     q1 = quant.quantized_weight(blk.mlp.fc1.weight.t())
     q2 = quant.quantized_weight(blk.mlp.fc2.weight.t())
     z2 = z.reshape(-1, z.shape[-1])
@@ -1211,15 +1377,16 @@ def grad_agreement(torch, attn, cfg, dev):
     return out
 
 
-def train_entry_point(torch, cfg, dev):
-    """Phase 9: cli.train_lfm.run for 2 steps into a temporary workdir;
-    its checkpoint's params load strictly into a fresh model."""
+def train_entry_point(torch, cfg, dev, config="uvit_large"):
+    """Phases 9 and 21d: cli.train_lfm.run of ``config`` for 2 steps into a
+    temporary workdir; its checkpoint's params load strictly into a fresh
+    model."""
     from uspace_tpu_torch.cli import train_lfm
     from uspace_tpu_torch.train import checkpoint
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        out = train_lfm.run(config="uvit_large", n_steps=2, batch=GRAD_B,
+        out = train_lfm.run(config=config, n_steps=2, batch=GRAD_B,
                             seed=3, workdir=tmp, remat_exempt=REMAT_EXEMPT,
                             log=log)
         secs = time.perf_counter() - t0
@@ -1230,9 +1397,10 @@ def train_entry_point(torch, cfg, dev):
         fresh.load_state_dict(sd["params"], strict=True)
         step = int(sd["step"])
         size_gb = os.path.getsize(out["checkpoint"]) / 2**30
-    log(f"train_lfm.run: 2 steps at batch {GRAD_B} in {secs:.1f} s (build "
-        f"and checkpoint included), losses {losses}, checkpoint step {step} "
-        f"({size_gb:.2f} GiB) reloaded with strict=True")
+    impl = train_lfm.train_attn_impl(train_lfm.get_config(config))
+    log(f"train_lfm.run ({impl}): 2 steps at batch {GRAD_B} in {secs:.1f} s "
+        f"(build and checkpoint included), losses {losses}, checkpoint step "
+        f"{step} ({size_gb:.2f} GiB) reloaded with strict=True")
     if step != 2 or not all(map(math.isfinite, losses)):
         fail(f"train_lfm: step {step}, losses {losses}")
     return dict(seconds=secs, losses=losses, checkpoint_gib=size_gb)
@@ -1723,6 +1891,254 @@ def unet_train_entry_point(torch, dev):
     return dict(seconds=secs, losses=losses, checkpoint_gib=size_gb)
 
 
+def block_bf16_path(torch, flow, attn, mlpk, sample_lfm, cfg, dev, z,
+                    lat_plain, by_key):
+    """Phase 19: the bf16 view on `pallas_block` (the whole attention
+    sub-block kernel, then the plain MLP after LN2), phase 4's weights (seed
+    0) and z, Euler-50 at batch 50: exactly 21 x 50 launches of row 10 and
+    of no other kernel, latents against phase 4's plain (`xla`) latents,
+    img/s and peak memory. Returns the model."""
+    model = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="pallas_block")
+    with torch.no_grad():
+        model(z.to(torch.bfloat16), torch.zeros(B, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(attn, mlpk)
+    lat, secs = decode_run(torch, flow, model, z, STEPS)
+    launches = all_launches(attn, mlpk)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n = (cfg["nnet"]["depth"] + 1) * STEPS
+    max_abs, rel, cos = compare(torch, lat, lat_plain)
+    log(f"pallas_block bf16: {secs:.3f} s, {B / secs:.3f} img/s, launches "
+        f"{launches}, peak {peak_gb:.2f} GiB; latents vs phase 4's plain "
+        f"path: cos {cos:.7f} (min {PATH_MIN_COS}) rel_l2 {rel:.3e} (max "
+        f"{PATH_MAX_REL_L2})")
+    if launches != expected(attn, mlpk, attention_block=n):
+        fail(f"pallas_block bf16 launches {launches}, expected {n} of "
+             f"attention_block and no other")
+    if tuple(lat.shape) != (B, 32, 32, 4) or not torch.isfinite(lat).all():
+        fail(f"pallas_block bf16 latents {tuple(lat.shape)} or not finite")
+    if not (cos >= PATH_MIN_COS and rel <= PATH_MAX_REL_L2):
+        fail("the pallas_block bf16 view disagrees with the plain path")
+    by_key["attention_block"]["launches"] = launches["attention_block"]
+    return model, dict(steps=STEPS, batch=B, seconds=secs,
+                       imgs_per_s=B / secs, cos=cos, rel_l2=rel,
+                       max_abs=max_abs, launches=launches, peak_gib=peak_gb)
+
+
+def block_int8_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
+                    lat_bf16, by_key):
+    """Phase 20: the W8A8 view on `pallas_block` (the int8 attention
+    sub-block kernel, then the int8 MLP sub-block kernel), phase 4b's f32
+    weights and z, Euler-50 at batch 50: exactly 21 x 50 launches of rows 11
+    and 15 and of no other kernel, no weight quantization in the timed
+    solve, the JAX bench's quality gate against phase 4's bf16 kernel
+    latents, img/s; one full-width evaluation block by block against the
+    twins, with controls, and the whole field against the twins'
+    composition."""
+    model = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="pallas_block",
+                                   quant=True)
+    with torch.no_grad():  # quantizes every weight once
+        model(z, torch.zeros(B, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(attn, mlpk)
+    quant.reset_quantizations()
+    lat, secs = decode_run(torch, flow, model, z, STEPS)
+    launches = all_launches(attn, mlpk)
+    n_quant = quant.QUANTIZATIONS["weights"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n = (cfg["nnet"]["depth"] + 1) * STEPS
+    want = expected(attn, mlpk, attention_block_int8=n, ln_mlp_int8=n)
+    max_abs, rel, cos = compare(torch, lat, lat_bf16)
+    log(f"pallas_block int8 (quant=True): {secs:.3f} s, {B / secs:.3f} "
+        f"img/s, launches {launches}, weight quantizations in the solve "
+        f"{n_quant}, peak {peak_gb:.2f} GiB; latents vs the bf16 kernel "
+        f"view: cos {cos:.7f} (min {QUANT_MIN_COS}) rel_l2 {rel:.3e} (max "
+        f"{QUANT_MAX_REL_L2})")
+    if launches != want:
+        fail(f"pallas_block int8 launches {launches}, expected {want}")
+    if n_quant:
+        fail(f"{n_quant} weight quantizations inside the timed solve")
+    if tuple(lat.shape) != (B, 32, 32, 4) or not torch.isfinite(lat).all():
+        fail(f"pallas_block int8 latents {tuple(lat.shape)} or not finite")
+    if not (cos >= QUANT_MIN_COS and rel <= QUANT_MAX_REL_L2):
+        fail("the pallas_block int8 view fails the quality gate")
+    by_key["attention_block_int8"]["launches"] = \
+        launches["attention_block_int8"]
+    t_half = torch.full((B,), 0.5, device=dev)
+    out = dict(steps=STEPS, batch=B, seconds=secs, imgs_per_s=B / secs,
+               cos=cos, rel_l2=rel, max_abs=max_abs, launches=launches,
+               quantizations_in_solve=n_quant, peak_gib=peak_gb,
+               field_check=field_check(torch, model, z, t_half))
+    del model
+    return out
+
+
+def block_views(torch, flow, attn, mlpk, sample_lfm, cfg, dev, z, ref_short):
+    """Phase 21a: the w8 and w8a8_mlp views on `pallas_block` (row 10, then
+    the w8 MLP, row 17, or the int8 MLP, row 14), f32 weights of phase 4's
+    seed, SHORT_STEPS Euler steps from phase 4's z: exact launches, and the
+    quantized views' limits against phase 5's plain latents."""
+    per = (cfg["nnet"]["depth"] + 1) * SHORT_STEPS
+    out = {}
+    for q, counts in (("w8", dict(attention_block=per, mlp_w8=per)),
+                      ("w8a8_mlp", dict(attention_block=per, mlp_int8=per))):
+        view = sample_lfm.build_model(cfg, dev, seed=0,
+                                      attn_impl="pallas_block", quant=q)
+        reset_launches(attn, mlpk)
+        lat, secs = decode_run(torch, flow, view, z, SHORT_STEPS)
+        got = all_launches(attn, mlpk)
+        _, rel, cos = compare(torch, lat, ref_short)
+        log(f"pallas_block {q}: {SHORT_STEPS} Euler steps in {secs:.3f} s, "
+            f"launches {got} (expected {counts}), cos {cos:.7f} rel_l2 "
+            f"{rel:.3e} against the plain path")
+        if got != expected(attn, mlpk, **counts):
+            fail(f"pallas_block {q}: launches {got}, expected {counts}")
+        if not (cos >= QUANT_MIN_COS and rel <= QUANT_MAX_REL_L2):
+            fail(f"pallas_block {q} disagrees with the plain path")
+        out[q] = dict(steps=SHORT_STEPS, seconds=secs, cos=cos, rel_l2=rel,
+                      launches=counts)
+        del view
+    return out
+
+
+def block_grad_agreement(torch, attn, mlpk, cfg, dev):
+    """Phase 21c: the global gradient at GRAD_B on one batch (f32 masters,
+    bf16 compute, full remat), `pallas_block` against `xla`: row 10 runs
+    once per block forward and once more in each remat recompute; its
+    backward is the plain recompute VJP, no kernel."""
+    from uspace_tpu_torch.cli.train_lfm import build_train_model
+    from uspace_tpu_torch.core import interpolant
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x1 = torch.randn((GRAD_B, 32, 32, 4), generator=g, device=dev) * 0.18
+    t, xt, ut = interpolant.sample_path(x1, 1e-4, g)
+    grads, launches, state = {}, {}, None
+    for impl in ("xla", "pallas_block"):
+        model = build_train_model(cfg, dev, seed=2, attn_impl=impl,
+                                  remat_exempt=0)
+        if state is None:
+            state = model.state_dict()
+        model.load_state_dict(state)
+        reset_launches(attn, mlpk)
+        loss = interpolant.cfm_loss(model(xt, t)[0], ut).mean()
+        gs = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        launches[impl] = all_launches(attn, mlpk)
+        grads[impl] = torch.cat([x.flatten() for x in gs])
+        del model, gs, loss
+    blocks = cfg["nnet"]["depth"] + 1
+    want = expected(attn, mlpk, attention_block=2 * blocks)
+    _, rel, cos = compare(torch, grads["pallas_block"], grads["xla"])
+    log(f"gradient pallas_block vs xla at batch {GRAD_B}: cos {cos:.7f} "
+        f"(min {GRAD_MIN_COS}) rel_l2 {rel:.3e} (max {GRAD_MAX_REL_L2}); "
+        f"launches {launches['pallas_block']}")
+    if launches["pallas_block"] != want:
+        fail(f"pallas_block gradient launches {launches['pallas_block']}, "
+             f"expected {want}")
+    if not (cos >= GRAD_MIN_COS and rel <= GRAD_MAX_REL_L2):
+        fail("the pallas_block gradient disagrees with xla")
+    return dict(cos=cos, rel_l2=rel, launches=launches["pallas_block"])
+
+
+def mlp_bf16_fields(torch, attn, mlpk, sample_lfm, cfg, model, z):
+    """Phase 21b: rows 12 and 13 inside the bf16 field at full width (no
+    model route runs them, as in the JAX package): one evaluation of phase
+    19's model at batch 50 with each block's MLP half as row 13
+    (`fused_mlp_block_q(quant=False)`) and one with it as x + row 12 on
+    LN2(x), each against the model's own evaluation (the plain MLP, whose
+    bf16 roundings sit elsewhere): 21 launches of the kernel and of no
+    other but row 10, the one-evaluation routing limits, and at most
+    UNET_F32_RATIO times the model's own distance to the f32 field (one
+    bf16 evaluation of a random-weight field differs from another about as
+    much as either from f32, §6 PR 5 of PERF.md)."""
+    t = torch.full((B,), 0.5, device=z.device)
+    f32 = sample_lfm.build_model(dict(cfg, compute_dtype="float32"),
+                                 z.device, seed=0, attn_impl="xla")
+    f32.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        ref32 = f32(z, t)[0].float()
+    del f32
+
+    def with_mlp(mlp_half):
+        def block(blk, zin, skip):
+            if blk.skip_linear is not None:
+                zin = blk.skip_linear(torch.cat([zin, skip], dim=-1))
+            a, n1 = blk.attn, blk.norm1
+            y = attn.fused_attention_block(
+                zin, n1.weight, n1.bias, a.qkv.weight.t(), a.proj.weight.t(),
+                a.proj.bias, a.num_heads, scale=a.scale, eps=n1.eps)
+            return mlp_half(blk, y)
+        return block
+
+    def row13(blk, y):
+        m = blk.mlp
+        return mlpk.fused_mlp_block_q(
+            y, blk.norm2.weight, blk.norm2.bias, m.fc1.weight.t(), m.fc1.bias,
+            m.fc2.weight.t(), m.fc2.bias, eps=blk.norm2.eps, quant=False)
+
+    def row12(blk, y):
+        m = blk.mlp
+        return y + mlpk.fused_mlp(blk.norm2(y), m.fc1.weight.t(), m.fc1.bias,
+                                  m.fc2.weight.t(), m.fc2.bias)
+
+    with torch.no_grad():
+        ref, _ = model(z, t)
+    _, rel_p, _ = compare(torch, ref.float(), ref32)
+    blocks = len(model.in_blocks) + 1 + len(model.out_blocks)
+    out = {}
+    for name, half in (("ln_mlp_bf16", row13), ("mlp_bf16", row12)):
+        reset_launches(attn, mlpk)
+        with torch.no_grad():
+            v = composed_field(torch, model, z, t, with_mlp(half))
+        torch.cuda.synchronize()
+        got = all_launches(attn, mlpk)
+        max_abs, rel, cos = compare(torch, v.float(), ref.float())
+        _, rel_k, _ = compare(torch, v.float(), ref32)
+        log(f"bf16 field with each MLP half on {name}: launches {got}; vs "
+            f"the model's own (plain MLP): cos {cos:.7f} (min "
+            f"{FIELD_MIN_COS}) rel_l2 {rel:.3e} (max {FIELD_MAX_REL_L2}); "
+            f"against the f32 field {rel_k:.3e}, the model's own "
+            f"{rel_p:.3e} (at most {UNET_F32_RATIO} x)")
+        if got != expected(attn, mlpk, attention_block=blocks,
+                           **{name: blocks}):
+            fail(f"the {name} field: launches {got}")
+        if not (cos >= FIELD_MIN_COS and rel <= FIELD_MAX_REL_L2):
+            fail(f"the bf16 field on {name} disagrees with the model's")
+        if rel_k > UNET_F32_RATIO * rel_p:
+            fail(f"the bf16 field on {name} is further from the f32 field "
+                 f"than the model's own")
+        out[name] = dict(cos=cos, rel_l2=rel, max_abs=max_abs, vs_f32=rel_k,
+                         model_vs_f32=rel_p, launches=got[name])
+    return out
+
+
+def block_entry_points(torch, np, sample_lfm, cfg, dev):
+    """Phase 21d: cli.sample_lfm.run(config="uvit_large",
+    attn_impl="pallas_block") for one batch in the bf16 view and one with
+    quant=True, then cli.train_lfm.run for 2 steps of a config whose
+    nnet.attn_impl is "pallas_block" (its checkpoint reloaded strictly)."""
+    out = {}
+    for q in (None, True):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            paths = sample_lfm.run(config="uvit_large", n_samples=B, batch=B,
+                                   steps=STEPS, seed=3, out=tmp, quant=q,
+                                   attn_impl="pallas_block")
+            secs = time.perf_counter() - t0
+            a = np.load(paths[0])
+        log(f"sample_lfm.run (pallas_block, quant={q}): {a.shape} in "
+            f"{secs:.1f} s")
+        if len(paths) != 1 or a.shape != (B, 32, 32, 4) or not \
+                np.isfinite(a).all():
+            fail(f"sample_lfm (pallas_block, quant={q}) wrote {a.shape}")
+        out["sample_lfm" + ("_int8" if q else "") + "_seconds"] = secs
+    block_cfg = dict(cfg, nnet=dict(cfg["nnet"], attn_impl="pallas_block"))
+    out["train_lfm"] = train_entry_point(torch, cfg, dev, config=block_cfg)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA card")
@@ -1955,6 +2371,25 @@ def main():
     report["unet_grad_agreement"] = unet_grad_agreement(torch, attn, mlpk,
                                                         dev)
     report["unet_train_lfm"] = unet_train_entry_point(torch, dev)
+
+    # 19.-21. the whole-sub-block route (pallas_block): bf16 and W8A8
+    # Euler-50, the w8 and w8a8_mlp views, the gradient, rows 12 and 13
+    # inside the bf16 field, the entry points
+    bmodel, report["pallas_block"] = block_bf16_path(
+        torch, flow, attn, mlpk, sample_lfm, cfg, dev, z, lat_plain, by_key)
+    report["pallas_block_int8"] = block_int8_path(
+        torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z, lat, by_key)
+    report["pallas_block_views"] = block_views(
+        torch, flow, attn, mlpk, sample_lfm, cfg, dev, z, ref_short)
+    report["pallas_block_mlp_fields"] = fields = mlp_bf16_fields(
+        torch, attn, mlpk, sample_lfm, cfg, bmodel, z)
+    for k in ("mlp_bf16", "ln_mlp_bf16"):
+        by_key[k]["launches"] = fields[k]["launches"]
+    del bmodel
+    report["pallas_block_grad"] = block_grad_agreement(torch, attn, mlpk,
+                                                       cfg, dev)
+    report["pallas_block_entry_points"] = block_entry_points(
+        torch, np, sample_lfm, cfg, dev)
 
     for k in kernels:
         if k["launches"] < 1:

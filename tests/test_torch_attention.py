@@ -336,7 +336,8 @@ def test_kernel_input_checks():
         with pytest.raises(ValueError, match=msg):
             tattn._check_x("x", x, h, 1)
     with pytest.raises(ValueError, match="w_qkv"):
-        tattn._weight_rows(torch.zeros(1024, 1024), ok)
+        tattn._rows(torch.zeros(1024, 1024), (1024, 3 * 1024),
+                    torch.bfloat16, ok.device, "w_qkv")
     with pytest.raises(ValueError, match="unsupported device"):
         tattn.fused_qkv_attention(torch.zeros(1, 4, 3 * 64, device="meta"), 1)
     # the [B, H, L, D] kernel: bf16, head dim 32 or 64, L <= 1024
@@ -374,7 +375,8 @@ def test_ctypes_signatures_match_c_source():
     as c_void_p (a 32-bit default would cut a pointer)."""
     assert set(_build.SIGNATURES) == {"attention", "attention_bwd",
                                       "attention_fwd", "fused_attention_bwd",
-                                      "mlp_int8", "mlp_w8"}
+                                      "mlp_int8", "mlp_w8", "attention_block",
+                                      "mlp_bf16"}
     for name, sigs in _build.SIGNATURES.items():
         src = (_build.CSRC / f"{name}.cu").read_text()
         for fn, argtypes in sigs.items():

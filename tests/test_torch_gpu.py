@@ -11,7 +11,13 @@ another order: max-abs one bf16 step of the largest output value, and the
 int8 rel-L2 limits of chip_smoke.py, taken for the MLP sub-block on out - x
 (the residual would dilute an error of the MLP). The weight-only int8 (w8)
 MLP kernels are held the same way, at chip_smoke.py's w8 limit. The
-[B, H, L, D] kernel (kernel 7) takes the bf16 forward limits.
+[B, H, L, D] kernel (kernel 7) takes the bf16 forward limits. The bf16
+attention sub-block and the bf16 MLP kernels (rows 10, 12, 13) take the
+bf16 rel-L2, the int8 sub-block (row 11) the int8 attention one; the bf16
+MLP max-abs one bf16 step of its largest output (its outputs pass 2, where
+a step exceeds 1e-2), each sub-block one step of its largest update plus
+one of its largest output (its bf16 residual add rounds a second time) and
+rel-L2 on its update out - x.
 """
 
 import math
@@ -129,7 +135,9 @@ def test_wrappers_count_launches_and_refuse(cuda):
                              "packed_attention_bwd": 1,
                              "qkvproj_attention_int8": 0,
                              "ln_qkvproj_attention_int8": 0,
-                             "attention_fwd": 0, "fused_attention_bwd": 0}
+                             "attention_fwd": 0, "fused_attention_bwd": 0,
+                             "attention_block": 0,
+                             "attention_block_int8": 0}
     with pytest.raises(ValueError, match="bfloat16"):
         attn.fused_qkvproj_attention(x.float(), w, 2)
     with pytest.raises(ValueError, match="L <="):
@@ -225,7 +233,7 @@ def test_int8_mlp_kernels_match_twins(cuda, rows, c):
     q1, q2 = quant.quantized_weight(w1), quant.quantized_weight(w2)
     s = mlp.col_slices(hid)
     with torch.no_grad():
-        _agree_int8(mlp.fused_mlp(x, w1, b1, w2, b2),
+        _agree_int8(mlp.fused_mlp(x, w1, b1, w2, b2, quant=True),
                     mlp.mlp_int8_plain(x, q1, b1, q2, b2, s), INT8_MLP_REL_L2)
         _agree_int8(mlp.fused_mlp_block_q(x, lns, lnb, w1, b1, w2, b2),
                     mlp.ln_mlp_int8_plain(x, lns, lnb, q1, b1, q2, b2, s,
@@ -260,19 +268,19 @@ def test_int8_wrappers_count_launches_and_refuse(cuda):
         w1 = torch.zeros(256, 1024, device=cuda)
         w2 = torch.zeros(1024, 256, device=cuda)
         bb = torch.zeros(1024, device=cuda)
-        mlp.fused_mlp(x, w1, bb, w2, bb[:256])
+        mlp.fused_mlp(x, w1, bb, w2, bb[:256], quant=True)
         mlp.fused_mlp_block_q(x, bb[:256] + 1, bb[:256], w1, bb, w2, bb[:256])
     torch.cuda.synchronize()
     assert attn.LAUNCHES["qkvproj_attention_int8"] == 1
     assert attn.LAUNCHES["ln_qkvproj_attention_int8"] == 1
     assert mlp.LAUNCHES == {"mlp_int8": 1, "ln_mlp_int8": 1, "mlp_w8": 0,
-                            "ln_mlp_w8": 0}
+                            "ln_mlp_w8": 0, "mlp_bf16": 0, "ln_mlp_bf16": 0}
     with pytest.raises(ValueError, match="bfloat16"):
         with torch.no_grad():
-            mlp.fused_mlp(x.float(), w1, bb, w2, bb[:256])
+            mlp.fused_mlp(x.float(), w1, bb, w2, bb[:256], quant=True)
     with pytest.raises(ValueError, match="multiple of 256"):
         with torch.no_grad():
-            mlp.fused_mlp(x, w1, bb, w2[:, :200], bb[:200])
+            mlp.fused_mlp(x, w1, bb, w2[:, :200], bb[:200], quant=True)
     with pytest.raises(NotImplementedError, match="inference-only"):
         attn.fused_qkvproj_attention(x, w.requires_grad_(), 4, quant=True)
 
@@ -340,7 +348,7 @@ def test_w8_wrappers_count_launches_and_refuse(cuda):
                               quant="w8")
     torch.cuda.synchronize()
     assert mlp.LAUNCHES == {"mlp_int8": 0, "ln_mlp_int8": 0, "mlp_w8": 1,
-                            "ln_mlp_w8": 1}
+                            "ln_mlp_w8": 1, "mlp_bf16": 0, "ln_mlp_bf16": 0}
     with pytest.raises(ValueError, match="bfloat16"):
         with torch.no_grad():
             mlp.fused_mlp(x.float(), w1, bb, w2, bb[:256], quant="w8")
@@ -374,7 +382,7 @@ def test_uvit_w8_auto_routes_through_the_lnfused_kernels(cuda):
     assert torch.equal(a, a2)
     assert attn.LAUNCHES["ln_qkvproj_attention"] == 6
     assert mlp.LAUNCHES == {"mlp_int8": 0, "ln_mlp_int8": 0, "mlp_w8": 0,
-                            "ln_mlp_w8": 6}
+                            "ln_mlp_w8": 6, "mlp_bf16": 0, "ln_mlp_bf16": 0}
     assert sum(attn.LAUNCHES.values()) == 6
     af, bf = a.float(), b.float()
     assert float((af * bf).sum() / (af.norm() * bf.norm())) > 0.999
@@ -531,3 +539,155 @@ def test_int8_conv_on_the_card_equals_the_cpu(cuda, shape, cout, stride):
     rq, rs = quant.image_codes(x.cpu())
     assert torch.equal(xq.cpu(), rq) and torch.equal(xs.cpu(), rs)
     assert torch.equal(y.cpu(), ref)
+
+
+def _block_args(g, b, l, c):
+    """x and the sub-block's f32 parameters (JAX layout); x at the scale of
+    the update, so that the bf16 residual add keeps the update's bits."""
+    f32 = torch.float32
+    return (_rand(g, b, l, c, std=0.05), 1 + _rand(g, c, std=0.1, dtype=f32),
+            _rand(g, c, std=0.1, dtype=f32),
+            _rand(g, c, 3 * c, std=c ** -0.5, dtype=f32),
+            _rand(g, c, c, std=c ** -0.5, dtype=f32),
+            _rand(g, c, std=0.1, dtype=f32))
+
+
+def _bf16_step(v):
+    return 2.0 ** (math.floor(math.log2(v)) - 7) if v > 0 else 0.0
+
+
+def _agree_update(out, ref, x, rel_l2=REL_L2):
+    """A sub-block with its bf16 residual add: kernel and twin may round
+    the update one bf16 step apart, and the add then rounds again at the
+    output's magnitude, so max-abs one bf16 step of the largest update plus
+    one of the largest output; rel-L2 of the update out - x."""
+    a, b = out.double() - x.double(), ref.double() - x.double()
+    assert torch.isfinite(a).all()
+    tol = (_bf16_step(float(b.abs().max()))
+           + _bf16_step(float(ref.double().abs().max())))
+    err = float((out.double() - ref.double()).abs().max())
+    assert err <= tol, (err, tol)
+    rel = float((a - b).norm() / b.norm())
+    assert rel <= rel_l2, rel
+
+
+@pytest.mark.parametrize("b,l,h", [(2, 17, 4), (3, 257, 16), (2, 334, 16),
+                                   (1, 512, 2), (1, 1, 2)])
+def test_attention_block_kernels_match_twins(cuda, b, l, h):
+    g = torch.Generator(device=cuda).manual_seed(l + h)
+    c = 64 * h
+    x, lns, lnb, wqkv, wproj, bproj = args = _block_args(g, b, l, c)
+    qws = (quant.quantized_weight(wqkv), quant.quantized_weight(wproj))
+    with torch.no_grad():
+        _agree_update(attn.fused_attention_block(*args, h),
+                      attn.attention_block_plain(*args, h, 0.125, 1e-5), x)
+        _agree_update(attn.fused_attention_block_q(*args, h),
+                      attn.attention_block_int8_plain(x, lns, lnb, *qws,
+                                                      bproj, h, 0.125, 1e-5),
+                      x, INT8_ATTN_REL_L2)
+
+
+def test_attention_block_counts_launches_and_refuses(cuda):
+    attn.reset_launches()
+    g = torch.Generator(device=cuda).manual_seed(3)
+    args = _block_args(g, 1, 8, 256)
+    with torch.no_grad():
+        attn.fused_attention_block(*args, 4)
+        attn.fused_attention_block_q(*args, 4)
+    leaves = [t.detach().requires_grad_() for t in args]
+    attn.fused_attention_block(*leaves, 4).float().sum().backward()
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES["attention_block"] == 2  # the backward recomputes
+    assert attn.LAUNCHES["attention_block_int8"] == 1
+    assert sum(attn.LAUNCHES.values()) == 3
+    assert all(torch.isfinite(t.grad).all() for t in leaves)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        attn.fused_attention_block_q(*leaves, 4)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        with torch.no_grad():
+            attn.fused_attention_block(*_block_args(g, 1, 8, 64), 1)
+    with pytest.raises(ValueError, match="bfloat16"):
+        with torch.no_grad():
+            attn.fused_attention_block(args[0].float(), *args[1:], 4)
+
+
+@pytest.mark.parametrize("rows,c,out", [(1, 1024, 1024), (33, 256, 256),
+                                        (500, 512, 768), (12850, 1024, 1024),
+                                        (70, 1280, 1024)])
+def test_bf16_mlp_kernels_match_twins(cuda, rows, c, out):
+    g = torch.Generator(device=cuda).manual_seed(rows + 5)
+    hid = 4 * c
+    x = _rand(g, rows, c)
+    w1 = _rand(g, c, hid, std=0.02)
+    b1 = _rand(g, hid, std=0.02, dtype=torch.float32)
+    w2 = _rand(g, hid, out, std=0.02)
+    b2 = _rand(g, out, std=0.02, dtype=torch.float32)
+    lns = 1 + _rand(g, c, std=0.1, dtype=torch.float32)
+    lnb = _rand(g, c, std=0.1, dtype=torch.float32)
+    s = mlp.col_slices(hid)
+    with torch.no_grad():
+        _agree_int8(mlp.fused_mlp(x, w1, b1, w2, b2),
+                    mlp.mlp_bf16_plain(x, w1, b1, w2, b2, s), REL_L2)
+        if out == c:
+            _agree_update(mlp.fused_mlp_block_q(x, lns, lnb, w1, b1, w2, b2,
+                                                quant=False),
+                          mlp.ln_mlp_bf16_plain(x, lns, lnb, w1, b1, w2, b2,
+                                                s, 1e-5), x)
+
+
+def test_bf16_mlp_wrappers_count_launches_and_refuse(cuda):
+    mlp.reset_launches()
+    x = torch.zeros(1, 8, 256, dtype=torch.bfloat16, device=cuda)
+    w1 = torch.zeros(256, 1024, dtype=torch.bfloat16, device=cuda)
+    w2 = torch.zeros(1024, 256, dtype=torch.bfloat16, device=cuda)
+    bb = torch.zeros(1024, device=cuda)
+    with torch.no_grad():
+        mlp.fused_mlp(x, w1, bb, w2, bb[:256])
+        mlp.fused_mlp_block_q(x, bb[:256] + 1, bb[:256], w1, bb, w2, bb[:256],
+                              quant=False)
+    torch.cuda.synchronize()
+    assert mlp.LAUNCHES == {"mlp_int8": 0, "ln_mlp_int8": 0, "mlp_w8": 0,
+                            "ln_mlp_w8": 0, "mlp_bf16": 1, "ln_mlp_bf16": 1}
+    with pytest.raises(ValueError, match="bfloat16"):
+        with torch.no_grad():
+            mlp.fused_mlp(x.float(), w1, bb, w2, bb[:256])
+    with pytest.raises(ValueError, match="output width"):
+        with torch.no_grad():
+            mlp.fused_mlp(x, w1, bb, w2[:, :200], bb[:200])
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        mlp.fused_mlp(x, w1.requires_grad_(), bb, w2, bb[:256])
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        mlp.fused_mlp_block_q(x, bb[:256] + 1, bb[:256], w1, bb, w2,
+                              bb[:256], quant=False)
+
+
+@pytest.mark.parametrize("view,counts", [
+    (False, dict(attention_block=3)),
+    (True, dict(attention_block_int8=3, ln_mlp_int8=3)),
+    ("w8", dict(attention_block=3, mlp_w8=3)),
+    ("w8a8_mlp", dict(attention_block=3, mlp_int8=3)),
+])
+def test_uvit_pallas_block_routes_through_the_block_kernels(cuda, view,
+                                                             counts):
+    """Each view on pallas_block: its kernels once per block and no other,
+    the field close to the plain path's."""
+    cfg = dict(img_size=8, patch_size=2, in_chans=4, embed_dim=256, depth=2,
+               num_heads=4, dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    m = UViT(attn_impl="pallas_block", quant=view,
+             param_dtype=torch.float32, **cfg).init_weights(g).eval()
+    plain = UViT(attn_impl="xla", param_dtype=torch.float32, **cfg).eval()
+    plain.load_state_dict(m.state_dict())
+    x = torch.randn(4, 8, 8, 4, generator=g, device=cuda)
+    t = torch.full((4,), 0.5, device=cuda)
+    attn.reset_launches()
+    mlp.reset_launches()
+    with torch.no_grad():
+        a, _ = m(x, t)
+        got = {**attn.LAUNCHES, **mlp.LAUNCHES}
+        b, _ = plain(x, t)
+    want = dict.fromkeys(got, 0)
+    want.update(counts)
+    assert got == want
+    af, bf = a.float(), b.float()
+    assert float((af * bf).sum() / (af.norm() * bf.norm())) > 0.999

@@ -6,8 +6,11 @@ Builds ``--base`` (a ``<source>.cu`` with the same C interface, e.g. from
 ``ops/csrc/<source>.cu`` and times each of its kernels at its path's shapes
 (``attention``: the bf16 and int8 sampling kernels at B=50;
 ``attention_bwd``: the backward at B=128; L=257, C=1024, H=16, bf16;
-``mlp_int8`` and ``mlp_w8``: the W8A8 and weight-only int8 MLP kernels on
-the 12850 rows of B=50, hidden 4096; ``attention_fwd``: the [B, H, L, D]
+``mlp_int8``, ``mlp_w8`` and ``mlp_bf16``: the W8A8, weight-only int8 and
+bf16 MLP kernels on the 12850 rows of B=50, hidden 4096;
+``attention_block``: the attention sub-block's own passes at B=50 (the
+bf16-chain LN, the attention output's row codes, the bf16 and the int8
+projection with bias and residual); ``attention_fwd``: the [B, H, L, D]
 kernel at the SD-UNet-large shape, B=50, H=8, L=1024, D=32;
 ``fused_attention_bwd``: its backward at the SD-UNet-large training shape,
 B=128, H=8, L=1024, D=32)
@@ -22,6 +25,10 @@ CUDA card.
         --base old/mlp_int8.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source mlp_w8 \
         --base old/mlp_w8.cu
+    python -m uspace_tpu_torch.cli.kernel_ab --source mlp_bf16 \
+        --base old/mlp_bf16.cu
+    python -m uspace_tpu_torch.cli.kernel_ab --source attention_block \
+        --base old/attention_block.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source attention_fwd \
         --base old/attention_fwd.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source fused_attention_bwd \
@@ -102,6 +109,13 @@ def main(argv=None) -> None:
     w8 = (q1.q.data_ptr(), q1.scale.data_ptr(), b1.data_ptr(),
           q2.q.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(), out.data_ptr(),
           rows, C, hid, C)
+    w1b, w2b = q1.q.to(bf), q2.q.to(bf)  # bf16 weights, torch layout
+    bw = (w1b.data_ptr(), b1.data_ptr(), w2b.data_ptr(), b2.data_ptr(),
+          out.data_ptr(), rows, C, hid, C)
+    wp = (torch.randn(C, C, generator=g, device=dev) * 0.02).to(bf)
+    qp = quantized_weight(wp.float().t())
+    codes = torch.empty(rows, C, dtype=torch.int8, device=dev)
+    sr = torch.empty(rows, device=dev)
     # the SD-UNet-large self-attention at 32 x 32 latents
     q7, k7, v7, o7 = (torch.randn(50, 8, 1024, 32, generator=g,
                                   device=dev).to(bf) for _ in range(4))
@@ -135,6 +149,21 @@ def main(argv=None) -> None:
         "mlp_w8": lambda lib: lib.uspace_mlp_w8(x.data_ptr(), *w8, s),
         "ln_mlp_w8": lambda lib: lib.uspace_ln_mlp_w8(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *w8, 1e-5, s),
+        "mlp_bf16": lambda lib: lib.uspace_mlp_bf16(x.data_ptr(), *bw, s),
+        "ln_mlp_bf16": lambda lib: lib.uspace_ln_mlp_bf16(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *bw, 1e-5, s),
+        "ln_bf16": lambda lib: lib.uspace_ln_bf16(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), out.data_ptr(),
+            rows, C, 1e-5, s),
+        "row_codes": lambda lib: lib.uspace_row_codes(
+            x.data_ptr(), codes.data_ptr(), sr.data_ptr(), rows, C, s),
+        "proj_residual": lambda lib: lib.uspace_proj_residual(
+            x.data_ptr(), wp.data_ptr(), b2.data_ptr(), x.data_ptr(),
+            out.data_ptr(), rows, C, C, s),
+        "proj_residual_int8": lambda lib: lib.uspace_proj_residual_int8(
+            codes.data_ptr(), sr.data_ptr(), qp.q.data_ptr(),
+            qp.scale.data_ptr(), b2.data_ptr(), x.data_ptr(), out.data_ptr(),
+            rows, C, C, s),
         "attention_fwd": lambda lib: lib.uspace_attention_fwd(
             q7.data_ptr(), k7.data_ptr(), v7.data_ptr(), o7.data_ptr(), 50, 8,
             1024, 32, 32 ** -0.5, s),

@@ -23,6 +23,8 @@ Needs a CUDA card.
         --attn_impl auto --out profile_unet.json
     python -m uspace_tpu_torch.cli.profile_field --quant --out q.json
     python -m uspace_tpu_torch.cli.profile_field --quant w8 --out w8.json
+    python -m uspace_tpu_torch.cli.profile_field --attn_impl pallas_block \
+        --quant --out block_int8.json
     python -m uspace_tpu_torch.cli.profile_field --train --batch 128 \\
         --remat_exempt 21 --out profile_train.json
     python -m uspace_tpu_torch.cli.profile_field --train --config unet_large \\
@@ -51,11 +53,14 @@ GROUPS = (
         "fused_bwd_dq_kernel", "fused_bwd_dkdv_kernel")),
     ("attention backward kernels (ours)", ("bwd_dq_kernel",
                                            "bwd_dkdv_kernel")),
+    ("attention sub-block passes (ours: LN, row codes, projection)", (
+        "ln_bf16_kernel", "row_codes_kernel", "proj_residual_kernel")),
     ("attention kernel (ours)", ("attention_kernel",)),
     ("[B, H, L, D] attention kernel (ours)", ("attention_fwd_kernel",)),
     ("int8 attention kernel (ours)", ("attention_int8_kernel",)),
     ("int8 MLP kernel (ours)", ("mlp_int8_kernel",)),
     ("w8 MLP kernel (ours)", ("mlp_w8_kernel",)),
+    ("bf16 MLP kernel (ours)", ("mlp_bf16_kernel",)),
     ("layout transposes (NHWC <-> NCHW)", ("nchwToNhwc", "nhwcToNchw")),
     ("conv (cuDNN)", ("conv", "Conv", "cudnn", "fprop")),
     ("matmul (cuBLAS)", ("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet")),

@@ -18,6 +18,10 @@ the U-ViT ``w8a8``, ``w8a8_mlp`` and weight-only ``w8`` (the view for
 adaptive solves); for the SD-UNet ``conv8``, ``w8a8`` (the convs and the
 transformer denses) and ``dense8``. ``--decode`` with ``--quant`` decodes
 through the VAE's int8 view (its decoder's 3x3 convs in W8A8).
+``--attn_impl`` picks the attention route (the JAX package's
+``--config.nnet.attn_impl``; default the config's, else ``auto``), e.g.
+``pallas_block``, the whole attention sub-block in one kernel, in every
+view.
 
 The solve is the config's, fixed-step Euler of ``--steps`` by default.
 ``--solver adaptive`` runs the reference's eval decode (dopri5 at rtol =
@@ -68,16 +72,20 @@ QUANT_CHOICES = ["w8a8", "w8a8_mlp", "w8", "conv8", "dense8"]
 
 
 def build_model(config: dict, device: torch.device, seed: int = 0,
-                weights: Optional[str] = None, attn_impl: str = "auto",
-                quant=None):
+                weights: Optional[str] = None,
+                attn_impl: Optional[str] = None, quant=None):
     """The config's field in its compute dtype, from JAX weights or seeded
     random init (a UNet's zero-initialised output convs drawn live, so that
-    the field is not zero). ``quant`` (default: the config's
-    ``nnet.quant``) picks a quantized view; such a view keeps f32
-    parameters, on which its int8 scales are fitted, as in the JAX
+    the field is not zero). ``attn_impl`` (default: the config's
+    ``nnet.attn_impl``, else ``"auto"``) picks the attention route, as
+    ``config.nnet.attn_impl`` does in the JAX package. ``quant`` (default:
+    the config's ``nnet.quant``) picks a quantized view; such a view keeps
+    f32 parameters, on which its int8 scales are fitted, as in the JAX
     package."""
     nnet = dict(config["nnet"])
     name = nnet.pop("name")
+    config_impl = nnet.pop("attn_impl", "auto")
+    attn_impl = attn_impl or config_impl
     if quant is not None:
         nnet["quant"] = quant
     if nnet.get("quant"):
@@ -122,22 +130,26 @@ def to_uint8(pixels: torch.Tensor) -> np.ndarray:
 
 
 @torch.no_grad()
-def run(config: str = "uvit_large", n_samples: int = 100, batch: int = 50,
+def run(config="uvit_large", n_samples: int = 100, batch: int = 50,
         steps: int = 50, seed: int = 0, weights: Optional[str] = None,
         out: str = "samples", device=None, quant=None,
         solver: Optional[str] = None, t_edit: Optional[float] = None,
         rtol: Optional[float] = None, atol: Optional[float] = None,
         controller: Optional[str] = None, safety: Optional[float] = None,
         stats: Optional[List[dict]] = None, decode: bool = False,
-        vae_weights: Optional[str] = None) -> List[str]:
+        vae_weights: Optional[str] = None,
+        attn_impl: Optional[str] = None) -> List[str]:
     """Write ceil(n_samples / batch) latent batches, and with ``decode``
     their uint8 pixel batches after each (through the VAE's int8 view when
-    ``quant`` is set); returns the paths in that order.
+    ``quant`` is set); returns the paths in that order. ``config`` is a
+    config's name or the config itself; ``attn_impl`` defaults to its
+    ``nnet.attn_impl``, else ``"auto"``.
     For an adaptive solve each batch's statistics are printed and, when
     ``stats`` is a list, appended to it."""
     dev = resolve_device(device)
     cfg = get_config(config)
-    model = build_model(cfg, dev, seed, weights, quant=quant)
+    model = build_model(cfg, dev, seed, weights, attn_impl=attn_impl,
+                        quant=quant)
     vae = (build_vae(cfg, dev, seed, vae_weights, quant=bool(quant))
            if decode else None)
     sk = solver_kwargs(cfg, steps, solver=solver, rtol=rtol, atol=atol,
@@ -197,11 +209,14 @@ def main(argv=None) -> None:
                     "view with --quant) and write uint8 pixels")
     ap.add_argument("--vae_weights", default=None,
                     help=".npz of JAX VAE params (keys a/b/c)")
+    ap.add_argument("--attn_impl", default=None,
+                    help="attention route, e.g. pallas_block (default: the "
+                    "config's nnet.attn_impl, else auto)")
     a = ap.parse_args(argv)
     paths = run(a.config, a.n_samples, a.batch, a.steps, a.seed, a.weights,
                 a.out, a.device, a.quant, a.solver, a.t_edit, a.rtol, a.atol,
                 a.controller, a.safety, decode=a.decode,
-                vae_weights=a.vae_weights)
+                vae_weights=a.vae_weights, attn_impl=a.attn_impl)
     print(f"wrote {len(paths)} arrays to {a.out}")
 
 

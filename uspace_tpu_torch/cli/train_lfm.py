@@ -9,7 +9,9 @@ latents resampled from moments in every step. The attention route follows
 the JAX loop's rule (:func:`train_attn_impl`): the U-ViT trains on
 ``"pallas_packed"`` (XLA projection, packed attention kernel and its
 backward kernel) with per-block remat, the SD-UNet on its own ``"auto"``
-(the [B, H, L, D] kernel and its backward kernel at L = 1024). Batches
+(the [B, H, L, D] kernel and its backward kernel at L = 1024); a config
+whose ``nnet.attn_impl`` is ``"pallas_block"`` trains the U-ViT through the
+whole attention sub-block kernel and its recompute backward. Batches
 come from ``SyntheticFeatures`` moments (the feature datasets are not in
 the repository). Logs loss, grad_norm and lr per step and writes one
 checkpoint to ``<workdir>/ckpts/<step>.pt``. Evaluation sampling, the VAE,
@@ -82,13 +84,14 @@ def build_optimizer(config: dict):
     return tx, lr
 
 
-def run(config: str = "uvit_large", n_steps: int = 10,
+def run(config="uvit_large", n_steps: int = 10,
         batch: Optional[int] = None, seed: int = 0, workdir: str = "workdir",
         device=None, attn_impl: Optional[str] = None,
         remat_exempt: Optional[int] = None,
         log: Callable[[str], None] = print) -> dict:
-    """Train ``n_steps``; returns ``history`` (per-step loss, grad_norm,
-    lr, nonfinite_skip), the ``checkpoint`` path, ``model`` and ``state``.
+    """Train ``n_steps`` of ``config`` (a config's name or the config
+    itself); returns ``history`` (per-step loss, grad_norm, lr,
+    nonfinite_skip), the ``checkpoint`` path, ``model`` and ``state``.
     ``batch`` defaults to the config's per-card batch, ``attn_impl`` to
     :func:`train_attn_impl`, ``remat_exempt`` to the config's (U-ViT)."""
     dev = resolve_device(device)

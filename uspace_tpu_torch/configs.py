@@ -127,7 +127,11 @@ CONFIGS: Dict[str, Dict[str, Any]] = {
 }
 
 
-def get_config(name: str) -> Dict[str, Any]:
+def get_config(name) -> Dict[str, Any]:
+    """A copy of the config registered as ``name``, or of ``name`` itself
+    when it is a config (a dict)."""
+    if isinstance(name, dict):
+        return copy.deepcopy(name)
     if name not in CONFIGS:
         raise KeyError(f"unknown config {name!r}; have {sorted(CONFIGS)}")
     return copy.deepcopy(CONFIGS[name])

@@ -25,8 +25,11 @@ layers quantize their f32 weights once per weight value
 (``uspace_tpu/models/layers.py:364-518``), including its less obvious
 choices: the unfused attention keeps bf16 qkv and proj, ``pallas_packed``
 keeps a bf16 qkv but an int8 proj, ``w8`` and ``w8a8_mlp`` on the LN-fused
-route pair the bf16 LN kernel with their MLP sub-block, and
-``pallas_lnmlp`` with a qkv bias sends ``w8a8_mlp`` to the ``w8`` MLP.
+route pair the bf16 LN kernel with their MLP sub-block, ``pallas_lnmlp``
+with a qkv bias sends ``w8a8_mlp`` to the ``w8`` MLP, and ``pallas_block``
+runs the whole attention sub-block in one kernel (W8A8: the int8 one and
+the int8 MLP sub-block; every other view: the bf16 one and its own
+``Mlp``), or with a qkv bias the unfused attention.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import (
+    fused_attention_block,
+    fused_attention_block_q,
     fused_ln_qkvproj_attention,
     fused_qkv_attention,
     fused_qkvproj_attention,
@@ -54,14 +59,8 @@ LN_EPS = 1e-5
 TRUNC_NORMAL_STD = 0.87962566103423978
 
 ATTN_IMPLS = ("auto", "xla", "pallas_qkvproj", "pallas_packed",
-              "pallas_lnmlp")
+              "pallas_lnmlp", "pallas_block")
 QUANT_VIEWS = (False, True, "w8a8", "w8", "w8a8_mlp")
-_UNPORTED_BLOCK_Q = ("attn_impl='pallas_block' with the W8A8 view needs the "
-                     "int8 whole-sub-block kernel (kernel 11 of the kernel "
-                     "table, _attn_block_kernel_q), not ported yet")
-_UNPORTED_BLOCK = ("attn_impl='pallas_block' needs the bf16 whole-attention-"
-                   "sub-block kernel (kernel 10 of the kernel table, "
-                   "_attn_block_kernel), not ported yet")
 
 
 def _qmodes(quant) -> tuple:
@@ -348,10 +347,6 @@ class Block(nn.Module):
                  device=None):
         super().__init__()
         self.w8a8, self.w8, self.a8mlp = _qmodes(quant)
-        if self.w8a8 and attn_impl == "pallas_block":
-            raise NotImplementedError(_UNPORTED_BLOCK_Q)
-        if self.w8 and attn_impl == "pallas_block":
-            raise NotImplementedError(_UNPORTED_BLOCK)
         self.quant = bool(quant)
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.dtype = dtype
@@ -374,10 +369,27 @@ class Block(nn.Module):
             self.mlp.fc1.bias, self.mlp.fc2.weight.t(), self.mlp.fc2.bias,
             eps=self.norm2.eps, quant=quant)
 
+    def _block_route(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole attention sub-block in one kernel
+        (``uspace_tpu/models/layers.py:376-392``, ``:470-497``): W8A8 runs
+        the int8 sub-block, then the int8 MLP sub-block; the other views
+        the bf16 sub-block, then their own ``Mlp`` after LN2 (plain bf16,
+        the w8 MLP, or the int8 MLP of ``w8a8_mlp``)."""
+        a, n1 = self.attn, self.norm1
+        args = (x.to(self.dtype), n1.weight, n1.bias, a.qkv.weight.t(),
+                a.proj.weight.t(), a.proj.bias, a.num_heads)
+        if self.w8a8:
+            x = fused_attention_block_q(*args, scale=a.scale, eps=n1.eps)
+            return self._mlp_block_q(x)
+        x = fused_attention_block(*args, scale=a.scale, eps=n1.eps)
+        return x + self.mlp(self.norm2(x))
+
     def forward(self, x: torch.Tensor,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.skip_linear is not None:
             x = self.skip_linear(torch.cat([x, skip], dim=-1))
+        if self.attn_impl == "pallas_block" and not self.qkv_bias:
+            return self._block_route(x)
         # LN-fused route: explicit, or `auto` for a quantized view on the
         # card (the JAX package's int8 view on its accelerator)
         lnfused = (self.attn_impl == "pallas_lnmlp" or (

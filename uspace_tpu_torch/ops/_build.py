@@ -43,6 +43,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_ln_qkvproj_attention_int8": (_P, _P, _P, _P, _P, _P, _I, _I,
                                              _I, _F, _F, _P),
     },
+    "attention_block": {
+        "uspace_ln_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
+        "uspace_row_codes": (_P, _P, _P, _I, _I, _P),
+        "uspace_proj_residual": (_P,) * 5 + (_I,) * 3 + (_P,),
+        "uspace_proj_residual_int8": (_P,) * 7 + (_I,) * 3 + (_P,),
+    },
     "attention_bwd": {
         "uspace_packed_attention_bwd": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     },
@@ -55,6 +61,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "mlp_int8": {
         "uspace_mlp_int8": (_P,) * 9 + (_I,) * 5 + (_P,),
         "uspace_ln_mlp_int8": (_P,) * 11 + (_I,) * 5 + (_F, _P),
+    },
+    "mlp_bf16": {
+        "uspace_mlp_bf16": (_P,) * 6 + (_I,) * 4 + (_P,),
+        "uspace_ln_mlp_bf16": (_P,) * 8 + (_I,) * 4 + (_F, _P),
     },
     "mlp_w8": {
         "uspace_mlp_w8": (_P,) * 8 + (_I,) * 4 + (_P,),

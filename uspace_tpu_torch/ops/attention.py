@@ -42,6 +42,19 @@ v and runs :func:`fused_attention_bwd` (``csrc/fused_attention_bwd.cu``,
 TPU kernel ``_bwd_kernel``), which recomputes P and normalises it in f32
 before its bf16 cast.
 
+The whole pre-norm attention sub-block ``x + proj(attention(qkv(LN1(x))))``
+is :func:`fused_attention_block` (``csrc/attention_block.cu``, TPU kernel
+``_attn_block_kernel``) and, in W8A8, :func:`fused_attention_block_q`
+(``_attn_block_kernel_q``). Their LN1 is the bf16 chain of the MLP
+sub-block kernels (f32 statistics, each operation rounded to bf16), not the
+f32 LN of the LN kernels above. Each is a short sequence of launches: the
+LN pass, the QKV-projection attention kernel of ``csrc/attention.cu`` on
+its output (bf16, or int8 coding each bf16 LN row), then the projection
+with bias and residual (int8: after coding the attention output per row).
+The bf16 sub-block is differentiable as in JAX: its backward is the VJP of
+the plain recompute :func:`attention_block_xla` (f32 LN), with no backward
+kernel, as the JAX package has none; the int8 one is inference-only.
+
 Layout: q, k, v are ``[B, H, L, D]``; packed and fused entry points take
 and return ``[B, L, C]`` as the JAX package does.
 """
@@ -60,6 +73,7 @@ from ._build import (
     on_cpu,
     raise_on,
 )
+from .mlp import _ln_bf16_normalise
 from .quant import QWeight, int_matmul, quantized_weight, row_codes, true_div
 
 # launches of each CUDA kernel since the last reset (the CPU twin does not count)
@@ -72,6 +86,8 @@ LAUNCHES: Dict[str, int] = {
     "ln_qkvproj_attention_int8": 0,
     "attention_fwd": 0,
     "fused_attention_bwd": 0,
+    "attention_block": 0,
+    "attention_block_int8": 0,
 }
 
 KERNEL_HEAD_DIM = 64
@@ -82,6 +98,10 @@ KERNEL_MAX_LEN = 512  # the whole head's q, k, v stay in one SM's shared memory
 _XLA_PREFERRED_MAX_LEN = 512
 FUSED_MAX_LEN = 1024
 FWD_HEAD_DIMS = (32, 64)
+# model-level attn_impl strings that select a fused route in models/layers;
+# an unfused call that carries one resolves to auto, as in the JAX dispatcher
+MODEL_IMPLS = ("pallas_packed", "pallas_qkvproj", "pallas_block",
+               "pallas_lnmlp", "int8")
 _UNPORTED_FLASH = ("attention over L > 1024 needs the blocked online-softmax "
                    "kernel (kernel 9 of the kernel table, _flash_kernel), "
                    "not ported yet")
@@ -294,22 +314,23 @@ def _packed_bwd_kernel(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
     return dqkv
 
 
-def _weight_rows(w_qkv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """[C, 3C] weight (JAX layout) as the kernel's [3C, C] rows in x's
-    dtype; free when w_qkv is the transpose of a torch Linear weight."""
-    c = x.shape[-1]
-    if tuple(w_qkv.shape) != (c, 3 * c):
-        raise ValueError(f"w_qkv must be [{c}, {3 * c}], got "
-                         f"{tuple(w_qkv.shape)}")
-    w = w_qkv.to(x.dtype).t().contiguous()
-    check_tensor("w_qkv", w, x.dtype, (3 * c, c), x.device)
-    return w
+def _rows(w: torch.Tensor, shape: tuple, dtype: torch.dtype,
+          device: torch.device, name: str) -> torch.Tensor:
+    """A [K, N] weight (JAX layout) as the kernels' [N, K] rows in
+    ``dtype``; free for the transpose of a torch Linear weight of that
+    dtype."""
+    if tuple(w.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {list(shape)}, got "
+                         f"{list(w.shape)}")
+    rows = w.to(dtype).t().contiguous()
+    check_tensor(name, rows, dtype, shape[::-1], device)
+    return rows
 
 
 def _qkvproj_kernel(x, w_qkv, num_heads, scale):
     b, l, c = x.shape
     _check_x("x", x, num_heads, 1)
-    w = _weight_rows(w_qkv, x)
+    w = _rows(w_qkv, (c, 3 * c), x.dtype, x.device, "w_qkv")
     out = torch.empty_like(x)
     rc = load("attention").uspace_qkvproj_attention(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), b, l, num_heads, scale,
@@ -324,7 +345,7 @@ def _ln_qkvproj_kernel(x, ln_scale, ln_bias, w_qkv, num_heads, scale, eps):
     _check_x("x", x, num_heads, 1)
     check_no_grad(x, ln_scale, ln_bias, w_qkv,
                   what="the LN + QKV-projection attention kernel")
-    w = _weight_rows(w_qkv, x)
+    w = _rows(w_qkv, (c, 3 * c), x.dtype, x.device, "w_qkv")
     lns = ln_scale.to(torch.float32).reshape(-1).contiguous()
     lnb = ln_bias.to(torch.float32).reshape(-1).contiguous()
     check_tensor("ln_scale", lns, torch.float32, (c,), x.device)
@@ -565,6 +586,183 @@ def fused_ln_qkvproj_attention(
 
 
 # ---------------------------------------------------------------------------
+# The whole attention sub-block (TPU kernels _attn_block_kernel and
+# _attn_block_kernel_q): x + proj(attention(qkv(LN1(x))))
+# ---------------------------------------------------------------------------
+
+
+def attention_block_plain(x: torch.Tensor, ln_scale: torch.Tensor,
+                          ln_bias: torch.Tensor, w_qkv: torch.Tensor,
+                          w_proj: torch.Tensor, b_proj: torch.Tensor,
+                          num_heads: int, scale: float,
+                          eps: float) -> torch.Tensor:
+    """Twin of the bf16 sub-block kernel (``_attn_block_kernel``): LN1 as
+    the bf16 chain (rounded after each operation), qkv rounded to x's
+    dtype, the attention core, then the projection's f32 sum plus the bias
+    rounded to x's dtype, rounded, and the residual add in x's dtype."""
+    xln = _ln_bf16_normalise(x, ln_scale, ln_bias, eps).to(x.dtype)
+    a = qkvproj_attention_plain(xln, w_qkv, num_heads, scale)
+    p = (torch.matmul(a.float(), w_proj.to(x.dtype).float())
+         + b_proj.to(x.dtype).float())
+    return x + p.to(x.dtype)
+
+
+def attention_block_int8_plain(x: torch.Tensor, ln_scale: torch.Tensor,
+                               ln_bias: torch.Tensor, qw_qkv: QWeight,
+                               qw_proj: QWeight, b_proj: torch.Tensor,
+                               num_heads: int, scale: float,
+                               eps: float) -> torch.Tensor:
+    """Twin of the int8 sub-block kernel (``_attn_block_kernel_q``): the
+    bf16-chain LN1 rows coded ``round(x * (127 / amax))``, the int8 QKV
+    projection dequantized to x's dtype, the attention core; the attention
+    output coded per row the same way (over all heads), ``f32(acc) *
+    (amax * (1/127)) * s_proj + b_proj`` (f32 bias) rounded to x's dtype,
+    and the residual add in x's dtype."""
+    xln = _ln_bf16_normalise(x, ln_scale, ln_bias, eps)
+    a = _int8_qkv_attention(xln, qw_qkv, num_heads, scale, x.dtype)
+    aq, sa = row_codes(a.float())
+    p = (int_matmul(aq, qw_proj.kn).float() * sa * qw_proj.scale
+         + b_proj.float())
+    return x + p.to(x.dtype)
+
+
+def attention_block_xla(x: torch.Tensor, ln_scale: torch.Tensor,
+                        ln_bias: torch.Tensor, w_qkv: torch.Tensor,
+                        w_proj: torch.Tensor, b_proj: torch.Tensor,
+                        num_heads: int, scale: float,
+                        eps: float) -> torch.Tensor:
+    """The plain recompute whose VJP is the sub-block's backward
+    (``_attn_block_xla``): f32 LN1 rounded to x's dtype, qkv in x's dtype,
+    :func:`xla_attention`, proj and bias in x's dtype."""
+    b, l, c = x.shape
+    h = num_heads
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf * xf).mean(dim=-1, keepdim=True) - mu * mu
+    xln = ((xf - mu) * torch.rsqrt(var + eps) * ln_scale
+           + ln_bias).to(x.dtype)
+    qkv = torch.matmul(xln, w_qkv.to(x.dtype))
+    q, k, v = qkv.reshape(b, l, 3, h, c // h).permute(2, 0, 3, 1, 4)
+    a = xla_attention(q, k, v, scale).transpose(1, 2).reshape(b, l, c)
+    return x + (torch.matmul(a, w_proj.to(a.dtype))
+                + b_proj.to(a.dtype)).to(x.dtype)
+
+
+def _block_kernel(x, ln_scale, ln_bias, w_qkv, w_proj, b_proj, num_heads,
+                  scale, eps, qws=None):
+    """Launch the sub-block on x [B, L, C] bf16: bf16, or with ``qws =
+    (QWeight of w_qkv, QWeight of w_proj)`` W8A8."""
+    b, l, c = x.shape
+    _check_x("x", x, num_heads, 1)
+    if c % 128:
+        raise ValueError(f"the attention sub-block kernels take C a "
+                         f"multiple of 128, got {c}")
+    dev, r = x.device, b * l
+    lns = ln_scale.to(torch.float32).reshape(-1).contiguous()
+    lnb = ln_bias.to(torch.float32).reshape(-1).contiguous()
+    bp = b_proj.to(torch.float32).reshape(-1).contiguous()
+    for name, t in (("ln_scale", lns), ("ln_bias", lnb), ("b_proj", bp)):
+        check_tensor(name, t, torch.float32, (c,), dev)
+    stream = cuda_stream(dev)
+    blk, lib = load("attention_block"), load("attention")
+    xln, a, out = (torch.empty_like(x) for _ in range(3))
+    raise_on(blk.uspace_ln_bf16(x.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+                                xln.data_ptr(), r, c, eps, stream),
+             "uspace_ln_bf16")
+    if qws is None:
+        w = _rows(w_qkv, (c, 3 * c), x.dtype, dev, "w_qkv")
+        wp = _rows(w_proj, (c, c), x.dtype, dev, "w_proj")
+        raise_on(lib.uspace_qkvproj_attention(
+            xln.data_ptr(), w.data_ptr(), a.data_ptr(), b, l, num_heads,
+            scale, stream), "uspace_qkvproj_attention")
+        raise_on(blk.uspace_proj_residual(
+            a.data_ptr(), wp.data_ptr(), bp.data_ptr(), x.data_ptr(),
+            out.data_ptr(), r, c, c, stream), "uspace_proj_residual")
+        LAUNCHES["attention_block"] += 1
+        return out
+    qkv_w, proj_w = qws
+    for name, qw, n in (("w_qkv", qkv_w, 3 * c), ("w_proj", proj_w, c)):
+        check_tensor(f"{name} codes", qw.q, torch.int8, (n, c), dev)
+        check_tensor(f"{name} scales", qw.scale, torch.float32, (n,), dev)
+    codes = torch.empty((r, c), dtype=torch.int8, device=dev)
+    sr = torch.empty((r,), dtype=torch.float32, device=dev)
+    raise_on(lib.uspace_qkvproj_attention_int8(
+        xln.data_ptr(), qkv_w.q.data_ptr(), qkv_w.scale.data_ptr(),
+        a.data_ptr(), b, l, num_heads, scale, stream),
+        "uspace_qkvproj_attention_int8")
+    raise_on(blk.uspace_row_codes(a.data_ptr(), codes.data_ptr(),
+                                  sr.data_ptr(), r, c, stream),
+             "uspace_row_codes")
+    raise_on(blk.uspace_proj_residual_int8(
+        codes.data_ptr(), sr.data_ptr(), proj_w.q.data_ptr(),
+        proj_w.scale.data_ptr(), bp.data_ptr(), x.data_ptr(), out.data_ptr(),
+        r, c, c, stream), "uspace_proj_residual_int8")
+    LAUNCHES["attention_block_int8"] += 1
+    return out
+
+
+class _AttentionBlock(torch.autograd.Function):
+    """The bf16 sub-block kernel (its twin on the CPU) with the VJP of
+    ``_attn_block_bwd``: autograd of :func:`attention_block_xla`
+    recomputed from the saved inputs (f32 LN), not of the forward twin."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w_qkv, w_proj, b_proj, num_heads,
+                scale, eps):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w_qkv, w_proj, b_proj)
+        ctx.args = (num_heads, scale, eps)
+        if on_cpu(x):
+            return attention_block_plain(x, ln_scale, ln_bias, w_qkv, w_proj,
+                                         b_proj, num_heads, scale, eps)
+        return _block_kernel(x, ln_scale, ln_bias, w_qkv, w_proj, b_proj,
+                             num_heads, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            out = attention_block_xla(*ins, *ctx.args)
+            wrt = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(out, wrt, g))
+        return (*(next(got) if n else None for n in need), None, None, None)
+
+
+def fused_attention_block(x: torch.Tensor, ln_scale: torch.Tensor,
+                          ln_bias: torch.Tensor, w_qkv: torch.Tensor,
+                          w_proj: torch.Tensor, b_proj: torch.Tensor,
+                          num_heads: int, scale: Optional[float] = None,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """The pre-norm attention sub-block ``x + proj(attention(qkv(LN(x))))``
+    in bf16: x [B, L, C], w_qkv [C, 3C], w_proj [C, C] (JAX layout, as
+    ``linear.weight.t()``), b_proj [C]; the weights are rounded to x's
+    dtype. Differentiable through the recompute VJP of
+    :func:`attention_block_xla`."""
+    scale = _default_scale(x.shape[-1] // num_heads, scale)
+    return _AttentionBlock.apply(x, ln_scale, ln_bias, w_qkv, w_proj, b_proj,
+                                 num_heads, scale, eps)
+
+
+def fused_attention_block_q(x: torch.Tensor, ln_scale: torch.Tensor,
+                            ln_bias: torch.Tensor, w_qkv: torch.Tensor,
+                            w_proj: torch.Tensor, b_proj: torch.Tensor,
+                            num_heads: int, scale: Optional[float] = None,
+                            eps: float = 1e-5) -> torch.Tensor:
+    """:func:`fused_attention_block` with int8 W8A8 projections of the f32
+    weights (quantized once per weight value). Inference-only."""
+    scale = _default_scale(x.shape[-1] // num_heads, scale)
+    check_no_grad(x, ln_scale, ln_bias, w_qkv, w_proj, b_proj,
+                  what="the int8 attention sub-block kernel")
+    qws = (quantized_weight(w_qkv), quantized_weight(w_proj))
+    if on_cpu(x):
+        return attention_block_int8_plain(x, ln_scale, ln_bias, *qws, b_proj,
+                                          num_heads, scale, eps)
+    return _block_kernel(x, ln_scale, ln_bias, w_qkv, w_proj, b_proj,
+                         num_heads, scale, eps, qws)
+
+
+# ---------------------------------------------------------------------------
 # Public dispatcher
 # ---------------------------------------------------------------------------
 
@@ -585,8 +783,10 @@ def multi_head_attention(
     (prompt-to-prompt rescale), folded exactly into V. ``impl``: ``xla``
     (plain); ``pallas`` — :func:`fused_attention` for L <= 1024; ``auto`` —
     plain for L <= 512 and on the CPU, the kernel for 512 < L <= 1024 on
-    the card, as the JAX package routes on the TPU. Above 1024 the kernel
-    routes raise (``_flash_kernel`` is not ported yet).
+    the card, as the JAX package routes on the TPU; the model-level strings
+    of :data:`MODEL_IMPLS` (an unfused U-ViT attention carries them)
+    resolve to ``auto``. Above 1024 the kernel routes raise
+    (``_flash_kernel`` is not ported yet).
     """
     scale = _default_scale(q.shape[-1], scale)
     if col_mult is not None:
@@ -594,6 +794,8 @@ def multi_head_attention(
         v = v * col_mult[:, None, :, None].to(v.dtype)
     if return_probs:
         return xla_attention(q, k, v, scale, return_probs=True)
+    if impl in MODEL_IMPLS:
+        impl = "auto"
     if impl == "auto":
         impl = ("xla" if q.shape[2] <= _XLA_PREFERRED_MAX_LEN or on_cpu(q)
                 else "pallas")

@@ -8,7 +8,7 @@ polynomial so that the two fields agree.
 Fused int8 MLP (``csrc/mlp_int8.cu``, CUDA C++ for Hopper):
 :func:`fused_mlp_block_q` (``x + fc2(gelu(fc1(LN2(x))))``, TPU kernel
 ``_mlp_kernel_int8_lnres``) and :func:`fused_mlp` (``fc2(gelu(fc1(x)))``,
-``_mlp_kernel_int8``). Both take f32 weights, quantized once per weight
+``_mlp_kernel_int8``) with ``quant=True``. Both take f32 weights, quantized once per weight
 value through ``ops.quant.quantized_weight``. Rounding sites, shared by
 kernel and plain twin:
 
@@ -43,6 +43,22 @@ one (what an adaptive solve needs). Rounding sites:
 Nothing is quantized per strip here, so the strip count is only tiling: it
 orders the f32 sums and changes no rounding.
 
+bf16 MLP, the ``quant=False`` view of both entry points (the default of
+:func:`fused_mlp`, as in JAX; ``csrc/mlp_bf16.cu``, TPU kernels
+``_mlp_kernel_bf16_lnres`` and ``_mlp_kernel_bf16``). Rounding sites:
+
+- LN2 (lnres only): as above, ``xln`` kept in x's dtype;
+- per hidden strip j: ``h_j = round(gelu(f32(xln @ w1[:, j]) + b1_j))`` to
+  x's dtype (exact products of x's dtype, f32 sums, f32 bias);
+- ``acc = sum_j f32(h_j @ w2[j, :])``, then ``acc + b2`` rounded to x's
+  dtype (and added to x in x's dtype).
+
+The JAX package sends :func:`fused_mlp` to XLA above 12 MB of bf16 weights
+(``uspace_tpu/ops/mlp.py:500-510``), a TPU VMEM residency rule; that branch
+has the kernel's rounding sites (f32 sums and bias, f32 GELU, a bf16
+hidden, one rounding of the output), so the port launches the kernel at
+every width.
+
 Under autograd :func:`gelu_exact` saves only its input (bf16 in training):
 eager autograd of the polynomial would save about a dozen f32 tensors of
 the MLP's hidden width per block. Its backward recomputes the derivative
@@ -68,13 +84,9 @@ from .quant import QWeight, int_matmul, quantized_weight, row_codes, true_div
 
 # launches of each CUDA kernel since the last reset (the CPU twin does not count)
 LAUNCHES: Dict[str, int] = {"mlp_int8": 0, "ln_mlp_int8": 0, "mlp_w8": 0,
-                            "ln_mlp_w8": 0}
+                            "ln_mlp_w8": 0, "mlp_bf16": 0, "ln_mlp_bf16": 0}
 
 COL_SLICES = 4  # hidden strips, at most (uspace_tpu/ops/mlp.py _COL_SLICES)
-
-_UNPORTED_BF16 = ("the fused bf16 MLP (quant=False: kernels 12-13 of the "
-                  "kernel table, _mlp_kernel_bf16 / _mlp_kernel_bf16_lnres) "
-                  "is not ported yet")
 
 _A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
 _P = 0.3275911
@@ -341,14 +353,103 @@ def _mlp_w8_kernel(x2d, q1, b1, q2, b2, ln=None):
     return out
 
 
-def _check_quant(quant) -> bool:
-    """True for the weight-only view ``"w8"``, False for W8A8 (``True`` or
-    ``"w8a8"``); the bf16 fused MLP raises."""
+def _mlp_bf16_core(xa: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor, strips: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """fc2(gelu(fc1(x))) with the bf16 kernels' rounding sites, from rows
+    ``xa [R, C]`` whose values are exact in ``dtype`` and weights w1 [C, H],
+    w2 [H, C'] (JAX layout) rounded to ``dtype``; returns ``[R, C']`` in
+    ``dtype``. The f32 products of ``dtype`` values are exact, so the
+    matmuls below are the kernels' products with f32 sums."""
+    hidden = w1.shape[-1]
+    hs = hidden // strips
+    xf = xa.float()
+    w1f, w2f = w1.to(dtype).float(), w2.to(dtype).float()
+    b1f, b2f = b1.float(), b2.float()
+    acc = None
+    for j in range(strips):
+        cols = slice(j * hs, (j + 1) * hs)
+        h = _gelu_f32(torch.matmul(xf, w1f[:, cols]) + b1f[cols]).to(dtype)
+        t = torch.matmul(h.float(), w2f[cols])
+        acc = t if acc is None else acc + t
+    return (acc + b2f).to(dtype)
+
+
+def mlp_bf16_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor,
+                   strips: int) -> torch.Tensor:
+    """Twin of the bf16 MLP kernel (``_mlp_kernel_bf16``): x [R, C], the
+    weights in the JAX layout."""
+    return _mlp_bf16_core(x, w1, b1, w2, b2, strips, x.dtype)
+
+
+def ln_mlp_bf16_plain(x: torch.Tensor, ln_scale: torch.Tensor,
+                      ln_bias: torch.Tensor, w1: torch.Tensor,
+                      b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                      strips: int, eps: float) -> torch.Tensor:
+    """Twin of the bf16 MLP sub-block kernel (``_mlp_kernel_bf16_lnres``):
+    ``x + MLP(LN2(x))`` for x [R, C], the sum in x's dtype."""
+    xln = _ln_bf16_normalise(x, ln_scale, ln_bias, eps)
+    return x + _mlp_bf16_core(xln, w1, b1, w2, b2, strips, x.dtype)
+
+
+def _mlp_bf16_kernel(x2d, w1, b1, w2, b2, ln=None):
+    """Launch the bf16 MLP kernel on x [R, C] bf16 with w1 [C, H] and w2
+    [H, C'] (JAX layout; read as their bf16 torch-layout rows, free for the
+    transpose of a bf16 Linear weight); with ``ln = (scale, bias, eps)`` the
+    LN2 + residual variant."""
+    r, c = x2d.shape
+    hidden, out_dim = w1.shape[-1], w2.shape[-1]
+    dev = x2d.device
+    if x2d.dtype != torch.bfloat16:
+        raise ValueError(f"the bf16 MLP kernels take bfloat16, got "
+                         f"{x2d.dtype}")
+    # C <= 1280: a block's bf16 rows, its hidden chunk and the weight ring
+    # share 227 KB of shared memory (csrc/mlp_bf16.cu make_layout)
+    if (c % 64 or c > 1280 or hidden % 256
+            or out_dim not in (256, 512, 768, 1024)):
+        raise ValueError(
+            f"the bf16 MLP kernels take C a multiple of 64 up to 1280, a "
+            f"hidden width that is a multiple of 256 and an output width "
+            f"of 256, 512, 768 or 1024; got C={c}, hidden={hidden}, "
+            f"out={out_dim}")
+    check_tensor("x", x2d, torch.bfloat16, (r, c), dev)
+    w1r = w1.to(torch.bfloat16).t().contiguous()
+    w2r = w2.to(torch.bfloat16).t().contiguous()
+    b1f = b1.to(torch.float32).contiguous()
+    b2f = b2.to(torch.float32).contiguous()
+    check_tensor("w1", w1r, torch.bfloat16, (hidden, c), dev)
+    check_tensor("w2", w2r, torch.bfloat16, (out_dim, hidden), dev)
+    check_tensor("b1", b1f, torch.float32, (hidden,), dev)
+    check_tensor("b2", b2f, torch.float32, (out_dim,), dev)
+    out = torch.empty((r, out_dim), dtype=x2d.dtype, device=dev)
+    stream = cuda_stream(dev)
+    lib = load("mlp_bf16")
+    common = (w1r.data_ptr(), b1f.data_ptr(), w2r.data_ptr(), b2f.data_ptr(),
+              out.data_ptr(), r, c, hidden, out_dim)
+    if ln is None:
+        rc = lib.uspace_mlp_bf16(x2d.data_ptr(), *common, stream)
+        key = "mlp_bf16"
+    else:
+        lns, lnb = _ln_operands(ln, c, out_dim, dev)
+        rc = lib.uspace_ln_mlp_bf16(x2d.data_ptr(), lns.data_ptr(),
+                                    lnb.data_ptr(), *common, ln[2], stream)
+        key = "ln_mlp_bf16"
+    raise_on(rc, f"uspace_{key}")
+    LAUNCHES[key] += 1
+    return out
+
+
+def _view(quant) -> str:
+    """The MLP view of ``quant``: ``"bf16"`` (False or None), ``"w8"``
+    (int8 weights only) or ``"int8"`` (W8A8: ``True`` or ``"w8a8"``)."""
+    if not quant:
+        return "bf16"
     if quant == "w8":
-        return True
-    if quant is not True and quant != "w8a8":
-        raise NotImplementedError(_UNPORTED_BF16)
-    return False
+        return "w8"
+    if quant is True or quant == "w8a8":
+        return "int8"
+    raise ValueError(f"unknown MLP view quant={quant!r}")
 
 
 def fused_mlp_block_q(x: torch.Tensor, ln_scale: torch.Tensor,
@@ -356,21 +457,29 @@ def fused_mlp_block_q(x: torch.Tensor, ln_scale: torch.Tensor,
                       b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                       eps: float = 1e-5, quant=True) -> torch.Tensor:
     """``x + fc2(gelu(fc1(LN(x))))``, the pre-norm MLP sub-block, with int8
-    W8A8 projections (``quant=True``) or int8 weights and activations in
-    x's dtype (``quant="w8"``); w1 [C, H] and w2 [H, C] in the JAX layout
-    (f32, as ``linear.weight.t()``). Inference-only."""
-    w8 = _check_quant(quant)
+    W8A8 projections (``quant=True``), int8 weights and activations in x's
+    dtype (``quant="w8"``) or bf16 projections (``quant=False``); w1 [C, H]
+    and w2 [H, C] in the JAX layout (as ``linear.weight.t()``; f32 for the
+    int8 views, whose codes are fitted on them). Inference-only."""
+    view = _view(quant)
     check_no_grad(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                  what="the int8 MLP sub-block kernel")
+                  what=f"the {view} MLP sub-block kernel")
     c = x.shape[-1]
     x2d = x.reshape(-1, c)
-    q1, q2 = quantized_weight(w1), quantized_weight(w2)
-    strips = col_slices(q1.q.shape[0])
+    strips = col_slices(w1.shape[-1])
     ln = (ln_scale, ln_bias, eps)
+    if view == "bf16":
+        if on_cpu(x):
+            out = ln_mlp_bf16_plain(x2d, ln_scale, ln_bias, w1, b1, w2, b2,
+                                    strips, eps)
+        else:
+            out = _mlp_bf16_kernel(x2d.contiguous(), w1, b1, w2, b2, ln)
+        return out.reshape(x.shape)
+    q1, q2 = quantized_weight(w1), quantized_weight(w2)
     if on_cpu(x):
-        plain = ln_mlp_w8_plain if w8 else ln_mlp_int8_plain
+        plain = ln_mlp_w8_plain if view == "w8" else ln_mlp_int8_plain
         out = plain(x2d, ln_scale, ln_bias, q1, b1, q2, b2, strips, eps)
-    elif w8:
+    elif view == "w8":
         out = _mlp_w8_kernel(x2d.contiguous(), q1, b1, q2, b2, ln)
     else:
         out = _mlp_int8_kernel(x2d.contiguous(), q1, b1, q2, b2, strips, ln)
@@ -378,22 +487,30 @@ def fused_mlp_block_q(x: torch.Tensor, ln_scale: torch.Tensor,
 
 
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-              w2: torch.Tensor, b2: torch.Tensor, quant=True) -> torch.Tensor:
-    """``gelu(x @ w1 + b1) @ w2 + b2`` with int8 W8A8 projections
-    (``quant=True``) or int8 weights and activations in x's dtype
-    (``quant="w8"``); x [..., C], w1 [C, H], w2 [H, C'] (JAX layout, f32).
+              w2: torch.Tensor, b2: torch.Tensor, quant=False) -> torch.Tensor:
+    """``gelu(x @ w1 + b1) @ w2 + b2`` with bf16 projections (``quant=False``,
+    the default, as in JAX), int8 W8A8 projections (``quant=True``) or int8
+    weights and activations in x's dtype (``quant="w8"``); x [..., C], w1
+    [C, H], w2 [H, C'] (JAX layout; f32 for the int8 views).
     Inference-only."""
-    w8 = _check_quant(quant)
-    check_no_grad(x, w1, b1, w2, b2, what="the int8 MLP kernel")
+    view = _view(quant)
+    check_no_grad(x, w1, b1, w2, b2, what=f"the {view} MLP kernel")
     c = x.shape[-1]
     x2d = x.reshape(-1, c)
+    strips = col_slices(w1.shape[-1])
+    out_dim = w2.shape[-1]
+    if view == "bf16":
+        if on_cpu(x):
+            out = mlp_bf16_plain(x2d, w1, b1, w2, b2, strips)
+        else:
+            out = _mlp_bf16_kernel(x2d.contiguous(), w1, b1, w2, b2)
+        return out.reshape(*x.shape[:-1], out_dim)
     q1, q2 = quantized_weight(w1), quantized_weight(w2)
-    strips = col_slices(q1.q.shape[0])
     if on_cpu(x):
-        plain = mlp_w8_plain if w8 else mlp_int8_plain
+        plain = mlp_w8_plain if view == "w8" else mlp_int8_plain
         out = plain(x2d, q1, b1, q2, b2, strips)
-    elif w8:
+    elif view == "w8":
         out = _mlp_w8_kernel(x2d.contiguous(), q1, b1, q2, b2)
     else:
         out = _mlp_int8_kernel(x2d.contiguous(), q1, b1, q2, b2, strips)
-    return out.reshape(*x.shape[:-1], q2.q.shape[0])
+    return out.reshape(*x.shape[:-1], out_dim)
