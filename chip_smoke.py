@@ -14,7 +14,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    H=4, D=64 and at L=600; its backward at B=128 at the same three head
    shapes, dq, dk and dv each; the bf16 and int8 attention sub-blocks at
    B=50 and the bf16 MLP and MLP sub-block on 12850 rows, each sub-block on
-   its update out - x): max-abs and rel-L2 within the tolerances below;
+   its update out - x; the stage-delta base and delta halves at B=50 and on
+   12850 rows, the base ones on every output, caches included, the delta
+   ones on what they add to their cache): max-abs and rel-L2 within the
+   tolerances below;
    for each int8 and w8 kernel, controls (twins with one rounding site
    changed) that the same limits must refuse; kernel, twin and library-call
    times with CUDA events; the bound of the same work on an H100 SXM;
@@ -117,7 +120,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    package) against the model's own evaluation; the pallas_block gradient
    at batch 32 against xla, with row 10 launched in every remat recompute;
    `cli.sample_lfm.run(attn_impl="pallas_block")` in bf16 and W8A8 and
-   `cli.train_lfm.run` of a config whose nnet.attn_impl is "pallas_block".
+   `cli.train_lfm.run` of a config whose nnet.attn_impl is "pallas_block";
+22. the base-anchored stage-delta int8 field (`core/delta_field.py`,
+   hidden_mode "grad") of phase 4's weights, its codes fitted once outside
+   the solve: a delta evaluation at the base's own point equal to the base
+   bit for bit, a delta at a nearby point tracking a base there, then dopri5
+   at rtol = atol = 1e-5 (I controller, safety 0.9) at batch 50 through
+   `core.flow.decode` with `solver_kwargs["stage_delta"]`, a warm solve and
+   a timed one: NFE, steps, t = 1, img/s, ms per evaluation, peak memory,
+   exactly 21 x (steps + 2) launches of rows 18 and 22 and 21 x 5 x steps
+   of rows 19 and 23 and of no other kernel, no weight quantization in the
+   solve, NFE at most 1.3 x phase 4c's bf16 NFE and latents close to its
+   latents; `cli.sample_lfm.run(field="stage_delta_int8")` for one batch and
+   `cli.profile_field`'s base and delta evaluation profiles.
 
 Prints the `kernels` JSON line and then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -210,6 +225,40 @@ W8_NFE_RATIO = 1.5
 # 8.29e-4 and 0.9999965 / 2.63e-3: margins of 5x on 1 - cos and on rel-L2
 ADAPT_RK4_LIMITS = (0.9999985, 4e-3)
 ADAPT_W8_LIMITS = (0.99998, 1.3e-2)
+
+# the stage-delta base kernels' caches against their twins: int8 codes one
+# step apart at most (an f32 sum in another order flips a rounding), at
+# most this share of them; scales within STAGE_SCALE_ABS. The twins take
+# the LN sums in the kernels' order, so on an H100 both read exact (with
+# torch's order a flipped input code moved 3e-4 of the rows' scales)
+STAGE_FLIP_RATE = 1e-3
+STAGE_SCALE_ABS = 1e-6
+# phase 3's stage-delta inputs: the streams' std and the stage gap (x = x_b
+# + STAGE_GAP * STREAM_STD * n). The gap is a large RK stage's: row 19's a
+# is rebuilt from a qkv that moved by the gap, and the attention core rounds
+# a to bf16 where its twin may round one step apart (row 1: 4e-4 of the
+# values on an H100); da = a - a_b carries that step at full size, so the
+# smaller the gap, the more it weighs (H100, twins with torch's LN sums:
+# update rel-L2 1.1e-2 at a gap of 1e-2, 1.9e-3 at 1e-1)
+STREAM_STD = 1.0
+STAGE_GAP = 1e-1
+# row 19 against its plain twin: its attention core's bf16 steps pass
+# through da (above), so the update xm - xm_b is held to 5x the first
+# reading with the twins' LN sums in the kernels' order (4.87e-4 on an
+# H100); against the twin whose attention core is row 1's kernel (the same
+# bf16 a) it read 0 and takes the int8 attention limit, where its control
+# (da coded as int8_dense codes it, 7.4e-4) is refused; against the plain
+# twin no limit separates that control from the kernel
+DELTA_ATTN_REL_L2 = 2.5e-3
+
+# phase 22, the stage-delta field: a delta at (0.32, z + 0.02 n) against a
+# base evaluation there (tests/test_delta_field.py:78-92's rule); the
+# dopri5 NFE at most this multiple of phase 4c's bf16 NFE (the JAX tests'
+# rule, tests/test_delta_field.py:250); its latents against the bf16 dopri5
+# latents (cos, rel-L2)
+STAGE_TRACK_REL = 0.04
+STAGE_NFE_RATIO = 1.3
+STAGE_LIMITS = (0.999, 5e-2)
 
 # H100 SXM published peaks (dense bf16 and int8, HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -357,12 +406,16 @@ def bound(bytes_moved, flops, int8_ops=0.0):
 
 
 def all_launches(attn, mlpk):
-    return {**attn.LAUNCHES, **mlpk.LAUNCHES}
+    """Every kernel wrapper's count: attention, MLP and stage-delta."""
+    from uspace_tpu_torch.ops import delta as dops
+    return {**attn.LAUNCHES, **mlpk.LAUNCHES, **dops.LAUNCHES}
 
 
 def reset_launches(attn, mlpk):
+    from uspace_tpu_torch.ops import delta as dops
     attn.reset_launches()
     mlpk.reset_launches()
+    dops.reset_launches()
 
 
 def expected(attn, mlpk, **counts):
@@ -445,6 +498,7 @@ def check_kernels(torch, F, attn, mlpk, quant):
     cases += fwd_cases(torch, F, attn, randn, io)
     cases += bwd_cases(torch, F, attn, randn, io)
     cases += block_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
+    cases += delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
     results, shapes, controls, problems = [], [], {}, []
     for case in cases:
         counter = case.get("counter", case["name"])
@@ -455,16 +509,28 @@ def check_kernels(torch, F, attn, mlpk, quant):
         if all_launches(attn, mlpk)[counter] != before + 1:
             fail(f"{case['name']}: the wrapper did not launch its kernel")
         ref = case["plain"]()
-        max_abs, rel, tol_abs, tol_rel = judge(torch, case, out, ref)
-        if not (max_abs <= tol_abs and rel <= tol_rel):
+        # a case with several kinds of output (a cache of codes beside a
+        # bf16 output) judges them itself: (max_abs, rel, tol_abs, tol_rel,
+        # ok, what it read)
+        own = case.get("judge")
+        if own:
+            max_abs, rel, tol_abs, tol_rel, ok, more = own(out, ref)
+        else:
+            max_abs, rel, tol_abs, tol_rel = judge(torch, case, out, ref)
+            ok, more = max_abs <= tol_abs and rel <= tol_rel, ""
+        if not ok:
             problems.append(f"{case['name']} disagrees with its plain twin")
         log(f"kernel {case['name']}: max_abs {max_abs:.3e} (tol "
-            f"{tol_abs:.3e}) rel_l2 {rel:.3e} (tol {tol_rel:.1e})")
+            f"{tol_abs:.3e}) rel_l2 {rel:.3e} (tol {tol_rel:.1e}){more}")
         for cname, cfn in case.get("controls", ()):
-            c_abs, c_rel, _, _ = judge(torch, case, cfn(), ref)
-            caught = c_abs > tol_abs or c_rel > tol_rel
+            if own:
+                c_abs, c_rel, _, _, c_ok, c_more = own(cfn(), ref)
+                caught = not c_ok
+            else:
+                c_abs, c_rel, _, _ = judge(torch, case, cfn(), ref)
+                caught, c_more = c_abs > tol_abs or c_rel > tol_rel, ""
             log(f"  control, {cname}: max_abs {c_abs:.3e} rel_l2 "
-                f"{c_rel:.3e}: {'fails' if caught else 'PASSES'} the "
+                f"{c_rel:.3e}{c_more}: {'fails' if caught else 'PASSES'} the "
                 f"comparison")
             if not caught:
                 problems.append(f"{case['name']}: the limits let a twin with "
@@ -930,6 +996,285 @@ def block_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
     ]
 
 
+def codes_read(torch, out, ref):
+    """Two int8 code tensors: the largest step between them and the share
+    of codes that differ."""
+    d = (out.int() - ref.int()).abs()
+    return int(d.max()), float((d > 0).float().mean())
+
+
+@contextlib.contextmanager
+def attention_core(dops, core):
+    """The stage-delta twins with ``core(qkv, heads, scale)`` as their
+    attention core (row 1's kernel in place of its twin)."""
+    plain = dops.packed_attention_plain
+    dops.packed_attention_plain = core
+    try:
+        yield
+    finally:
+        dops.packed_attention_plain = plain
+
+
+def delta_attn_control(torch, attn, dops, quant, x, xb, cq, cs, a_b, xm_b,
+                       lns, lnb, qw, qp, core):
+    """Row 19's twin with ``da`` coded as ``int8_dense`` codes it (a
+    division by the rounded scale, clipped): a wrong kernel's stand-in;
+    ``core(qkv, heads, scale)`` its attention core."""
+    l = x.shape[1]
+    dq, ds = quant.row_codes(dops.ln_lanes(x, lns, lnb, 1e-5)
+                             - dops.ln_lanes(xb, lns, lnb, 1e-5))
+    dqkv = quant.int_matmul(dq, qw.kn).float() * ds * qw.scale
+    qkv = (cq[:, :l].float() * cs[:, :l] + dqkv).to(x.dtype)
+    a = core(qkv, H, (C // H) ** -0.5)
+    daq, das = quant.quantize_rowwise(a.float() - a_b.float())
+    dp = quant.int_matmul(daq, qp.kn).float() * das * qp.scale
+    return (x.float() - xb.float() + xm_b.float() + dp).to(x.dtype)
+
+
+def delta_mlp_control(torch, attn, mlpk, dops, quant, x, xb, gq, gs, m_b,
+                      lns, lnb, q1, q2, strips, change):
+    """Row 23's twin with one site changed: LN2 as row 15's bf16 chain, or
+    dg coded with one scale per whole row."""
+    if change == "row 15's bf16-chain LN2":
+        ln = lambda t: mlpk._ln_bf16_normalise(t, lns, lnb, 1e-5)  # noqa
+    else:
+        ln = lambda t: dops.ln_lanes(t, lns, lnb, 1e-5)  # noqa
+    dq, ds = quant.row_codes(ln(x) - ln(xb))
+    hs = q1.q.shape[0] // strips
+    gp = gq.float() * gs.repeat_interleave(hs, dim=1)
+    dg = quant.int_matmul(dq, q1.kn).float() * ds * q1.scale * gp
+    n = 1 if change == "dg coded per whole row" else strips
+    acc, w = 0.0, q1.q.shape[0] // n
+    for j in range(n):
+        hq, hsc = quant.row_codes(dg[:, j * w:(j + 1) * w])
+        acc = acc + quant.int_matmul(hq, q2.kn[j * w:(j + 1) * w]).float() \
+            * hsc
+    return x + (m_b.float() + acc * q2.scale).to(x.dtype)
+
+
+def base_mlp_control(torch, attn, mlpk, dops, quant, x, lns, lnb, q1, b1, q2,
+                     b2, strips, change):
+    """Row 22's twin with one site changed: LN2 as row 15's bf16 chain, or
+    gelu'(e) coded with one scale per whole row (the unfused base's
+    layout, its scale repeated over the strips)."""
+    if change == "row 15's bf16-chain LN2":
+        ln = dops.ln_lanes
+        try:
+            dops.ln_lanes = mlpk._ln_bf16_normalise
+            return dops.base_mlp_grad_plain(x, lns, lnb, q1.kn, q1.scale, b1,
+                                            q2.kn, q2.scale, b2, 1e-5, strips)
+        finally:
+            dops.ln_lanes = ln
+    o, _, _, m = dops.base_mlp_grad_plain(x, lns, lnb, q1.kn, q1.scale, b1,
+                                          q2.kn, q2.scale, b2, 1e-5, strips)
+    xq, xs = quant.row_codes(dops.ln_lanes(x, lns, lnb, 1e-5))
+    e = quant.int_matmul(xq, q1.kn).float() * xs * q1.scale + b1
+    gq, gs = quant.row_codes(mlpk.gelu_grad(e))
+    return o, gq, gs.expand(-1, strips).contiguous(), m
+
+
+def delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
+    """Phase 3's cases of the stage-delta field (rows 18, 19, 22, 23 of the
+    PERF.md table) at the main path's shapes (B = 50, L = 257 padded to Lp
+    = 288 for the base's cache; 12850 rows, hidden 4096). The delta kernels'
+    inputs are a stage's: x = x_b + 1e-2 of x_b's scale, the caches from the
+    base twins on x_b, xm_b the field's post-attention stream; they are
+    compared on what they add to their cache (xm - xm_b, o - x - m_b). The
+    base kernels are held on every output, caches included: codes one step
+    apart at most at a rate below STAGE_FLIP_RATE, scales within 1e-6.
+    Yardsticks: the same chains from PyTorch calls (layer_norm, row
+    quantization, torch._int_mm, dequantization, SDPA, F.gelu and its slope
+    from autograd's formula). Controls: twins with one site changed."""
+    from uspace_tpu_torch.core import delta_field
+    from uspace_tpu_torch.ops import delta as dops
+
+    f32, bf = torch.float32, torch.bfloat16
+    d = C // H
+    scale = d ** -0.5
+    lp = dops.round_up(L, dops.SEQ_ALIGN)
+    rows, hid = B * L, 4 * C
+    strips = mlpk.col_slices(hid)
+    xb = randn(B, L, C, std=STREAM_STD)
+    x = (xb.float() + randn(B, L, C, std=STAGE_GAP * STREAM_STD,
+                            dtype=f32)).to(bf)
+    lns, lnb = 1.0 + randn(C, std=0.1, dtype=f32), randn(C, std=0.1,
+                                                         dtype=f32)
+    qw = quant.quantized_weight(randn(3 * C, C, std=0.02, dtype=f32).t())
+    qp = quant.quantized_weight(randn(C, C, std=0.02, dtype=f32).t())
+    bp = randn(C, std=0.02, dtype=f32)
+    q1 = quant.quantized_weight(randn(hid, C, std=0.02, dtype=f32).t())
+    q2 = quant.quantized_weight(randn(C, hid, std=0.02, dtype=f32).t())
+    b1 = randn(hid, std=0.02, dtype=f32)
+    b2 = randn(C, std=0.02, dtype=f32)
+    with torch.no_grad():
+        a_b, cq, cs = dops.base_attn_plain(xb, lns, lnb, qw.kn, qw.scale, H,
+                                           1e-5)
+        xm_b = (xb.float() + delta_field._int8_dot(a_b.float(), qp)
+                + bp).to(bf)
+        xr_b = randn(rows, C, std=STREAM_STD)
+        xr = (xr_b.float() + randn(rows, C, std=STAGE_GAP * STREAM_STD,
+                                   dtype=f32)).to(bf)
+        _, gq, gs, m_b = dops.base_mlp_grad_plain(
+            xr_b, lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2, 1e-5,
+            strips)
+
+    def held(main, main_ref, part, tol_rel, codes=(), scales=()):
+        """The int8 rule on the main output (max-abs one bf16 step of its
+        largest value, rel-L2 of its part), codes and scales as above."""
+        a, r = main.double(), main_ref.double()
+        tol_abs = bf16_step(float(r.abs().max()))
+        max_abs = float((a - r).abs().max())
+        pa, pr = part(a), part(r)
+        rel = float((pa - pr).norm() / pr.norm())
+        ok = max_abs <= tol_abs and rel <= tol_rel
+        more = ""
+        for name, o, rf in codes:
+            step, rate = codes_read(torch, o, rf)
+            ok = ok and step <= 1 and rate <= STAGE_FLIP_RATE
+            more += f"; {name} codes: largest step {step}, flips {rate:.2e}"
+        for name, o, rf in scales:
+            err = float((o.double() - rf.double()).abs().max())
+            ok = ok and err <= STAGE_SCALE_ABS
+            more += f"; {name} scales: max_abs {err:.1e}"
+        return max_abs, rel, tol_abs, tol_rel, ok, more
+
+    def judge_base_attn(out, ref):
+        return held(out[0], ref[0], lambda t: t, INT8_ATTN_REL_L2,
+                    codes=[("qkv", out[1][:, :L], ref[1][:, :L])],
+                    scales=[("qkv", out[2][:, :L], ref[2][:, :L])])
+
+    def judge_base_mlp(out, ref):
+        r = held(out[0], ref[0], lambda t: t - xr_b.double(),
+                 INT8_MLP_REL_L2, codes=[("gelu'", out[1], ref[1])],
+                 scales=[("gelu'", out[2], ref[2])])
+        m = held(out[3], ref[3], lambda t: t, INT8_MLP_REL_L2)
+        return (max(r[0], m[0]), max(r[1], m[1]), r[2], r[3], r[4] and m[4],
+                r[5] + f"; m max_abs {m[0]:.3e} rel_l2 {m[1]:.3e}")
+
+    def lib_codes(t):  # PyTorch's row quantization, torch._int_mm, dequant
+        return quant.quantize_rowwise(t)
+
+    def lib_proj(xf, qw_):
+        return quant.int8_matmul(*lib_codes(xf), qw_.kn, qw_.scale)
+
+    def ln(t):
+        return F.layer_norm(t.float(), (C,), lns, lnb, 1e-5)
+
+    def lib_base_attn():
+        qkv = lib_proj(ln(F.pad(xb, (0, 0, 0, lp - L))), qw)
+        q8, s8 = lib_codes(qkv)
+        return sdpa_packed((q8[:, :L].float() * s8[:, :L]).to(bf)), q8, s8
+
+    def lib_delta_attn():
+        qkv = (cq[:, :L].float() * cs[:, :L]
+               + lib_proj(ln(x) - ln(xb), qw)).to(bf)
+        a = sdpa_packed(qkv).transpose(1, 2).reshape(B, L, C)
+        return (x.float() - xb.float() + xm_b.float()
+                + lib_proj(a.float() - a_b.float(), qp)).to(bf)
+
+    def gelu_slope(e):  # d/de GELU(e), as autograd's GELU backward has it
+        return 0.5 * (1 + torch.erf(e * 0.7071067811865476)) \
+            + e * torch.exp(-0.5 * e * e) * 0.3989422804014327
+
+    def lib_base_mlp():
+        e = lib_proj(ln(xr_b), q1) + b1
+        g8 = lib_codes(gelu_slope(e))
+        m = (lib_proj(F.gelu(e), q2) + b2).to(bf)
+        return xr_b + m, g8, m
+
+    def lib_delta_mlp():
+        dg = lib_proj(ln(xr) - ln(xr_b), q1) * (gq.float() * gs.repeat_interleave(
+            hid // strips, dim=1))
+        return xr + (m_b.float() + lib_proj(dg, q2)).to(bf)
+
+    attn_args = (x, xb, cq, cs, a_b, xm_b, lns, lnb, qw.kn, qw.scale, qp.kn,
+                 qp.scale, H, 1e-5)
+
+    def row1_core(qkv, heads, scale_):
+        return attn.fused_qkv_attention(qkv, heads, scale_)
+
+    def row1_twin():
+        with attention_core(dops, row1_core):
+            return dops.delta_attn_plain(*attn_args)
+    mlp_args = (xr, xr_b, gq, gs, m_b, lns, lnb, q1.kn, q1.scale, q2.kn,
+                q2.scale, 1e-5)
+    qkv_ops = 2.0 * B * L * C * 3 * C
+    proj_ops = 2.0 * B * L * C * C
+    attn_flops = 4.0 * B * H * L * L * d
+    mlp_ops = 2.0 * 2.0 * rows * C * hid
+    wq, wp = io(qw.q, qw.scale), io(qp.q, qp.scale)
+    w12 = io(q1.q, q1.scale, q2.q, q2.scale)
+    asrc = "uspace_tpu_torch/ops/csrc/delta_attention.cu"
+    delta_attn_io = dict(
+        bytes=io(x, xb, cq, cs, a_b, xm_b, lns, lnb) + wq + wp + io(x),
+        flops=attn_flops, int8_ops=qkv_ops + proj_ops,
+        shape=f"B={B} L={L} (Lp={lp}) C={C} H={H} bf16/int8",
+        part=lambda t: t.double() - xm_b.double())
+    msrc = "uspace_tpu_torch/ops/csrc/delta_mlp.cu"
+    ashape = f"B={B} L={L} (Lp={lp}) C={C} H={H} bf16/int8"
+    mshape = f"rows={rows} C={C} hidden={hid} strips={strips} bf16/int8"
+    return [
+        dict(name="base_attn_cache", source=asrc,
+             replaces="uspace_tpu/ops/delta.py:158 (_base_attn_cache_kernel)",
+             kernel=lambda: dops.base_attn_block(xb, lns, lnb, qw.kn,
+                                                 qw.scale, H, 1e-5),
+             plain=lambda: dops.base_attn_plain(xb, lns, lnb, qw.kn,
+                                                qw.scale, H, 1e-5),
+             library=lib_base_attn, judge=judge_base_attn,
+             bytes=io(xb, lns, lnb) + wq + io(a_b, cq, cs),
+             flops=attn_flops, int8_ops=qkv_ops, shape=ashape,
+             controls=[("no qkv re-coding (row 5's route)", lambda: (
+                 attn.ln_qkvproj_attention_int8_plain(
+                     xb, lns, lnb, qw, H, scale, 1e-5), cq, cs))]),
+        dict(name="delta_attn", source=asrc,
+             replaces="uspace_tpu/ops/delta.py:184 (_delta_attn_kernel)",
+             kernel=lambda: dops.delta_attn_block(*attn_args),
+             plain=lambda: dops.delta_attn_plain(*attn_args),
+             library=lib_delta_attn, **delta_attn_io,
+             tol=(None, DELTA_ATTN_REL_L2)),
+        dict(name="delta_attn, twin on row 1's attention core",
+             counter="delta_attn", listed=False, source=asrc,
+             replaces="uspace_tpu/ops/delta.py:184 (_delta_attn_kernel)",
+             kernel=lambda: dops.delta_attn_block(*attn_args),
+             plain=row1_twin, library=lib_delta_attn, **delta_attn_io,
+             tol=(None, INT8_ATTN_REL_L2),
+             controls=[("da coded as int8_dense codes it",
+                        lambda: delta_attn_control(
+                            torch, attn, dops, quant, x, xb, cq, cs, a_b,
+                            xm_b, lns, lnb, qw, qp, row1_core))]),
+        dict(name="base_mlp_grad", source=msrc,
+             replaces="uspace_tpu/ops/delta.py:454 "
+             "(_base_mlp_cache_kernel_gr)",
+             kernel=lambda: dops.base_mlp_block(
+                 xr_b, lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2,
+                 1e-5),
+             plain=lambda: dops.base_mlp_grad_plain(
+                 xr_b, lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2,
+                 1e-5, strips),
+             library=lib_base_mlp, judge=judge_base_mlp,
+             bytes=io(xr_b, lns, lnb, b1, b2) + w12 + io(xr_b, gq, gs, m_b),
+             flops=0.0, int8_ops=mlp_ops, shape=mshape,
+             controls=[(c, lambda c=c: base_mlp_control(
+                 torch, attn, mlpk, dops, quant, xr_b, lns, lnb, q1, b1, q2,
+                 b2, strips, c)) for c in (
+                     "row 15's bf16-chain LN2",
+                     "gelu' coded per whole row (the unfused layout)")]),
+        dict(name="delta_mlp_lin", source=msrc,
+             replaces="uspace_tpu/ops/delta.py:518 (_delta_mlp_kernel_lin)",
+             kernel=lambda: dops.delta_mlp_block(*mlp_args, grad=True),
+             plain=lambda: dops.delta_mlp_lin_plain(*mlp_args, strips),
+             library=lib_delta_mlp,
+             bytes=io(xr, xr_b, gq, gs, m_b, lns, lnb) + w12 + io(xr),
+             flops=0.0, int8_ops=mlp_ops, shape=mshape,
+             tol=(None, INT8_MLP_REL_L2),
+             part=lambda t: t.double() - xr.double() - m_b.double(),
+             controls=[(c, lambda c=c: delta_mlp_control(
+                 torch, attn, mlpk, dops, quant, xr, xr_b, gq, gs, m_b, lns,
+                 lnb, q1, q2, strips, c)) for c in (
+                     "row 15's bf16-chain LN2", "dg coded per whole row")]),
+    ]
+
+
 def int8_conv_check(torch, F, quant):
     """Phase 3b: ops.quant.int8_conv on the card (im2col, torch._int_mm)
     against the same function on the CPU (an exact float64 product), same
@@ -1219,7 +1564,8 @@ def adaptive_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
     at batch 50 from phase 4's weights and z: the bf16 view on the LN-fused
     route (LN + QKV-projection kernel, plain MLP), the w8 view (the same
     kernel and the w8 MLP sub-block kernel), and the W8A8 view as a control
-    capped at W8A8_CONTROL_MAX_STEPS step attempts. Returns the w8 model."""
+    capped at W8A8_CONTROL_MAX_STEPS step attempts. Returns the w8 model and
+    the bf16 view's latents (phase 22's reference)."""
     blocks = cfg["nnet"]["depth"] + 1
     out = {}
     view = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="pallas_lnmlp")
@@ -1265,7 +1611,7 @@ def adaptive_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
         f"{' (hit the cap)' if capped else ''}, {secs:.1f} s; w8 view NFE "
         f"{out['w8']['nfe']}")
     del q, lat_q
-    return w8, out
+    return w8, lat_bf16, out
 
 
 def train_path(torch, attn, cfg, dev, by_key):
@@ -2139,6 +2485,148 @@ def block_entry_points(torch, np, sample_lfm, cfg, dev):
     return out
 
 
+def stage_delta_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
+                     lat_bf16, adaptive, by_key):
+    """Phase 22: the base-anchored stage-delta int8 field (hidden_mode
+    "grad") of phase 4's weights (seed 0), its int8 codes fitted once by
+    prepare_delta_params outside the solve: a delta evaluation at the base's
+    own point equal to the base bit for bit; a delta at (0.32, z + 0.02 n)
+    within STAGE_TRACK_REL of a base evaluation there; dopri5 at rtol = atol
+    = 1e-5 (I controller, safety 0.9) at batch 50 through core.flow.decode
+    with solver_kwargs["stage_delta"], a warm solve and a timed one: t = 1,
+    exactly 21 x (steps + 2) launches each of rows 18 and 22 and 21 x 5 x
+    steps each of rows 19 and 23 and none of any other kernel, 0 weight
+    quantizations in the solve, NFE at most STAGE_NFE_RATIO x phase 4c's
+    bf16 NFE and latents within STAGE_LIMITS of its latents; then
+    cli.sample_lfm.run(field="stage_delta_int8") for one batch and
+    cli.profile_field's base and delta evaluation profiles."""
+    import numpy as np
+
+    from uspace_tpu_torch.cli import profile_field
+    from uspace_tpu_torch.core import delta_field
+
+    blocks = cfg["nnet"]["depth"] + 1
+    out = {}
+    model = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="auto")
+    quant.reset_quantizations()
+    t0 = time.perf_counter()
+    dp = delta_field.prepare_delta_params(model)
+    torch.cuda.synchronize()
+    out["prepare_seconds"] = time.perf_counter() - t0
+    out["prepare_quantizations"] = quant.QUANTIZATIONS["weights"]
+    vf_base, vf_delta = delta_field.make_delta_field(model, dp)
+    g = torch.Generator(device=dev).manual_seed(22)
+    with torch.no_grad():
+        f0, cache = vf_base(torch.tensor(0.3), z)
+        fd = vf_delta(torch.tensor(0.3), z, cache)
+        exact = bool(torch.equal(f0, fd))
+        _, rel0, _ = compare(torch, fd, f0)
+        z1 = z + 0.02 * torch.randn(z.shape, generator=g, device=dev)
+        f1 = vf_delta(torch.tensor(0.32), z1, cache)
+        f1_full, _ = vf_base(torch.tensor(0.32), z1)
+        _, rel_track, _ = compare(torch, f1, f1_full)
+    del cache
+    log(f"stage delta: {out['prepare_quantizations']} weight quantizations "
+        f"in prepare_delta_params ({out['prepare_seconds']:.2f} s); zero "
+        f"delta equal to the base bit for bit: {exact} (rel-L2 {rel0:.1e}); "
+        f"a delta at (0.32, z + 0.02 n) vs a base there: rel-L2 "
+        f"{rel_track:.3e} (max {STAGE_TRACK_REL})")
+    if not exact:
+        fail("the stage-delta zero-distance evaluation is not the base's")
+    if not rel_track < STAGE_TRACK_REL:
+        fail("the stage-delta evaluation does not track the base")
+    out.update(zero_delta_exact=exact, zero_delta_rel_l2=rel0,
+               tracking_rel_l2=rel_track)
+
+    sk = dict(ADAPTIVE_SK, stage_delta=(vf_base, vf_delta))
+
+    def solve():
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lat = flow.decode(None, z, sk, stats=stats)
+        torch.cuda.synchronize()
+        return lat, time.perf_counter() - t0, stats
+
+    solve()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(attn, mlpk)
+    quant.reset_quantizations()
+    lat, secs, st = solve()
+    launches = all_launches(attn, mlpk)
+    n_quant = quant.QUANTIZATIONS["weights"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    steps = st["steps"]
+    want = expected(attn, mlpk, base_attn_cache=blocks * (steps + 2),
+                    base_mlp_grad=blocks * (steps + 2),
+                    delta_attn=blocks * 5 * steps,
+                    delta_mlp_lin=blocks * 5 * steps)
+    nfe_bf16 = adaptive["bf16"]["nfe"]
+    ratio = st["nfe"] / nfe_bf16
+    log(f"stage-delta dopri5 rtol=atol=1e-5 (I controller, safety 0.9): NFE "
+        f"{st['nfe']}, steps {steps}, accepted {st['accepted']}, t "
+        f"{st['t']}, {secs:.3f} s, {B / secs:.3f} img/s, "
+        f"{secs / st['nfe'] * 1e3:.2f} ms per evaluation, peak "
+        f"{peak_gb:.2f} GiB, launches {launches}, weight quantizations "
+        f"{n_quant}; NFE / bf16 NFE ({nfe_bf16}) = {ratio:.3f} (max "
+        f"{STAGE_NFE_RATIO}); phase 4c's W8A8 control: NFE "
+        f"{adaptive['w8a8_control']['nfe']}"
+        f"{' (it hit its cap)' if adaptive['w8a8_control']['hit_cap'] else ''}")
+    if st["t"] != 1.0 or steps >= MAX_STEPS:
+        fail(f"the stage-delta solve stopped at t={st['t']} after {steps} "
+             f"steps")
+    if launches != want:
+        fail(f"stage-delta launches {launches}, expected {want}")
+    if n_quant:
+        fail(f"{n_quant} weight quantizations inside the stage-delta solve")
+    if tuple(lat.shape) != (B, 32, 32, 4) or not torch.isfinite(lat).all():
+        fail(f"stage-delta latents {tuple(lat.shape)} or not finite")
+    if ratio > STAGE_NFE_RATIO:
+        fail("the stage-delta solve's NFE exceeds the bound")
+    out.update(nfe=st["nfe"], steps=steps, accepted=st["accepted"],
+               rejections=steps - st["accepted"], t=st["t"], seconds=secs,
+               imgs_per_s=B / secs, ms_per_eval=secs / st["nfe"] * 1e3,
+               peak_gib=peak_gb, launches=launches,
+               quantizations_in_solve=n_quant, nfe_ratio=ratio,
+               bf16_nfe=nfe_bf16,
+               w8a8_control_nfe=adaptive["w8a8_control"]["nfe"])
+    out["vs_bf16"] = adaptive_agree(
+        torch, "stage-delta dopri5 vs bf16 dopri5", lat, lat_bf16,
+        STAGE_LIMITS)
+    for k in ("base_attn_cache", "base_mlp_grad", "delta_attn",
+              "delta_mlp_lin"):
+        by_key[k]["launches"] = launches[k]
+    del model, dp, vf_base, vf_delta, sk, lat
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        st_cli = []
+        paths = sample_lfm.run(config="uvit_large", n_samples=B, batch=B,
+                               seed=3, out=tmp, solver="adaptive",
+                               field="stage_delta_int8", stats=st_cli)
+        secs_cli = time.perf_counter() - t0
+        a = np.load(paths[0])
+    log(f"sample_lfm.run (field=stage_delta_int8, solver=adaptive): "
+        f"{a.shape} in {secs_cli:.1f} s, {st_cli}")
+    if len(paths) != 1 or a.shape != (B, 32, 32, 4) or not \
+            np.isfinite(a).all() or st_cli[0]["t"] != 1.0:
+        fail(f"sample_lfm (stage_delta_int8) wrote {a.shape}, {st_cli}")
+    out["sample_lfm"] = dict(seconds=secs_cli, **st_cli[0])
+    rep = profile_field.profile("uvit_large", batch=B,
+                                field="stage_delta_int8")
+    out["profile"] = {}
+    for part, p in rep["parts"].items():
+        log(f"profile_field --field stage_delta_int8, {part} evaluation: "
+            f"wall {p['wall_ms_per_eval']:.2f} ms, device "
+            f"{p['device_ms_per_eval']:.2f} ms, idle {p['idle_share']:.3f}; "
+            + ", ".join(f"{k} {v:.3f}" for k, v in p["groups_ms"].items()))
+        out["profile"][part] = {k: p[k] for k in (
+            "wall_ms_per_eval", "device_ms_per_eval", "idle_share",
+            "groups_ms")}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA card")
@@ -2238,7 +2726,7 @@ def main():
         torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z, lat, by_key)
 
     # 4c. adaptive sampling: dopri5 in the bf16 and w8 views
-    w8model, report["adaptive"] = adaptive_path(
+    w8model, lat_dopri5, report["adaptive"] = adaptive_path(
         torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z, model,
         by_key)
 
@@ -2390,6 +2878,12 @@ def main():
                                                        cfg, dev)
     report["pallas_block_entry_points"] = block_entry_points(
         torch, np, sample_lfm, cfg, dev)
+
+    # 22. the stage-delta int8 field: zero delta, tracking, the dopri5
+    # solve against phase 4c's bf16 solve, the entry points
+    report["stage_delta"] = stage_delta_path(
+        torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z, lat_dopri5,
+        report["adaptive"], by_key)
 
     for k in kernels:
         if k["launches"] < 1:

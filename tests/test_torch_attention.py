@@ -376,7 +376,8 @@ def test_ctypes_signatures_match_c_source():
     assert set(_build.SIGNATURES) == {"attention", "attention_bwd",
                                       "attention_fwd", "fused_attention_bwd",
                                       "mlp_int8", "mlp_w8", "attention_block",
-                                      "mlp_bf16"}
+                                      "mlp_bf16", "delta_attention",
+                                      "delta_mlp"}
     for name, sigs in _build.SIGNATURES.items():
         src = (_build.CSRC / f"{name}.cu").read_text()
         for fn, argtypes in sigs.items():

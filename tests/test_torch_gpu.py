@@ -17,7 +17,15 @@ bf16 rel-L2, the int8 sub-block (row 11) the int8 attention one; the bf16
 MLP max-abs one bf16 step of its largest output (its outputs pass 2, where
 a step exceeds 1e-2), each sub-block one step of its largest update plus
 one of its largest output (its bf16 residual add rounds a second time) and
-rel-L2 on its update out - x.
+rel-L2 on its update out - x. The stage-delta kernels (rows 18, 19, 22,
+23) take the int8 limits: the base kernels on every output, caches
+included (codes one step apart at most, scales within 1e-6), the delta
+kernels on what they add to the cache (``xm - xm_b``, ``o - x - m_b``) with
+one bf16 step of that part plus one of the output. Row 19's twin takes row
+1's kernel as its attention core here: the core's own bf16 steps pass
+through ``da = a - a_b`` at full size (chip_smoke.py phase 3 holds row 19
+to the plain twin). A delta at the base's own point reproduces the base's
+output exactly.
 """
 
 import math
@@ -27,7 +35,9 @@ import torch
 
 from uspace_tpu_torch.models import UNet, UViT
 from uspace_tpu_torch.models.unet import ZERO_INIT_STD
+from uspace_tpu_torch.core import delta_field
 from uspace_tpu_torch.ops import attention as attn
+from uspace_tpu_torch.ops import delta
 from uspace_tpu_torch.ops import mlp
 from uspace_tpu_torch.ops import quant
 
@@ -691,3 +701,168 @@ def test_uvit_pallas_block_routes_through_the_block_kernels(cuda, view,
     assert got == want
     af, bf = a.float(), b.float()
     assert float((af * bf).sum() / (af.norm() * bf.norm())) > 0.999
+
+
+# ---------------------------------------------------------------------------
+# the stage-delta kernels (rows 18, 19, 22, 23)
+# ---------------------------------------------------------------------------
+
+
+def _agree_codes(out, ref):
+    d = (out.int() - ref.int()).abs()
+    assert int(d.max()) <= 1
+    assert float((d > 0).float().mean()) <= 5e-3
+
+
+def _agree_delta(out, ref, base, rel_l2):
+    """A delta kernel's part (out - base): max-abs one bf16 step of the
+    largest part plus one of the largest output (the output rounds at its
+    own magnitude), rel-L2 of the part."""
+    a, b = out.double() - base.double(), ref.double() - base.double()
+    assert torch.isfinite(a).all()
+    tol = (_bf16_step(float(b.abs().max()))
+           + _bf16_step(float(ref.double().abs().max())))
+    assert float((out.double() - ref.double()).abs().max()) <= tol
+    rel = float((a - b).norm() / b.norm())
+    assert rel <= rel_l2, rel
+
+
+def _delta_attn_case(g, b, l, c):
+    f32 = torch.float32
+    xb = _rand(g, b, l, c)
+    x = (xb.float() + _rand(g, b, l, c, std=0.1, dtype=f32)).to(xb.dtype)
+    lns, lnb = 1 + _rand(g, c, std=0.1, dtype=f32), _rand(g, c, std=0.1,
+                                                          dtype=f32)
+    qw = quant.quantized_weight(_rand(g, c, 3 * c, std=c ** -0.5, dtype=f32))
+    qp = quant.quantized_weight(_rand(g, c, c, std=c ** -0.5, dtype=f32))
+    return xb, x, lns, lnb, qw, qp
+
+
+@pytest.mark.parametrize("b,l,h", [(2, 17, 4), (3, 257, 16), (2, 334, 16),
+                                   (1, 512, 2), (1, 1, 2)])
+def test_delta_attention_kernels_match_twins(cuda, b, l, h, monkeypatch):
+    g = torch.Generator(device=cuda).manual_seed(l + 7 * h)
+    c = 64 * h
+    xb, x, lns, lnb, qw, qp = _delta_attn_case(g, b, l, c)
+    xm_b = _rand(g, b, l, c)
+    with torch.no_grad():
+        out = delta.base_attn_block(xb, lns, lnb, qw.kn, qw.scale, h, 1e-5)
+        ref = delta.base_attn_plain(xb, lns, lnb, qw.kn, qw.scale, h, 1e-5)
+        _agree_int8(out[0], ref[0], INT8_ATTN_REL_L2)
+        _agree_codes(out[1][:, :l], ref[1][:, :l])
+        assert float((out[2] - ref[2])[:, :l].abs().max()) <= 1e-6
+        a_b, cq, cs = ref
+        args = (x, xb, cq, cs, a_b, xm_b, lns, lnb, qw.kn, qw.scale, qp.kn,
+                qp.scale, h, 1e-5)
+        kern = delta.delta_attn_block(*args)
+        monkeypatch.setattr(delta, "packed_attention_plain",
+                            attn.fused_qkv_attention)
+        _agree_delta(kern, delta.delta_attn_plain(*args), xm_b,
+                     INT8_ATTN_REL_L2)
+        # zero delta: the base's own point reproduces xm_b exactly
+        a_k, cq_k, cs_k = out
+        same = delta.delta_attn_block(xb, xb, cq_k, cs_k, a_k, xm_b, lns,
+                                      lnb, qw.kn, qw.scale, qp.kn, qp.scale,
+                                      h, 1e-5)
+        assert torch.equal(same, xm_b)
+
+
+def _delta_mlp_case(g, rows, c):
+    f32 = torch.float32
+    hid = 4 * c
+    xb = _rand(g, rows, c)
+    x = (xb.float() + _rand(g, rows, c, std=0.1, dtype=f32)).to(xb.dtype)
+    lns, lnb = 1 + _rand(g, c, std=0.1, dtype=f32), _rand(g, c, std=0.1,
+                                                          dtype=f32)
+    q1 = quant.quantized_weight(_rand(g, c, hid, std=0.02, dtype=f32))
+    q2 = quant.quantized_weight(_rand(g, hid, c, std=0.02, dtype=f32))
+    b1 = _rand(g, hid, std=0.02, dtype=f32)
+    b2 = _rand(g, c, std=0.02, dtype=f32)
+    return xb, x, lns, lnb, q1, b1, q2, b2
+
+
+@pytest.mark.parametrize("rows,c", [(1, 1024), (33, 256), (500, 512),
+                                    (12850, 1024)])
+def test_delta_mlp_kernels_match_twins(cuda, rows, c):
+    g = torch.Generator(device=cuda).manual_seed(rows + c)
+    xb, x, lns, lnb, q1, b1, q2, b2 = _delta_mlp_case(g, rows, c)
+    s = mlp.col_slices(4 * c)
+    with torch.no_grad():
+        out = delta.base_mlp_block(xb, lns, lnb, q1.kn, q1.scale, b1, q2.kn,
+                                   q2.scale, b2, 1e-5)
+        ref = delta.base_mlp_grad_plain(xb, lns, lnb, q1.kn, q1.scale, b1,
+                                        q2.kn, q2.scale, b2, 1e-5, s)
+        _agree_int8(out[0], ref[0], INT8_MLP_REL_L2, xb)
+        _agree_codes(out[1], ref[1])
+        assert float((out[2] - ref[2]).abs().max()) <= 1e-6
+        _agree_int8(out[3], ref[3], INT8_MLP_REL_L2)
+        _, gq, gs, m_b = ref
+        args = (x, xb, gq, gs, m_b, lns, lnb, q1.kn, q1.scale, q2.kn,
+                q2.scale, 1e-5)
+        _agree_delta(delta.delta_mlp_block(*args, grad=True),
+                     delta.delta_mlp_lin_plain(*args, s),
+                     x.float() + m_b.float(), INT8_MLP_REL_L2)
+        # zero delta: the base's own point reproduces the base's output
+        same = delta.delta_mlp_block(xb, xb, out[1], out[2], out[3], lns,
+                                     lnb, q1.kn, q1.scale, q2.kn, q2.scale,
+                                     1e-5, grad=True)
+        assert torch.equal(same, out[0])
+
+
+def test_delta_kernels_count_launches_and_refuse(cuda):
+    delta.reset_launches()
+    g = torch.Generator(device=cuda).manual_seed(4)
+    xb, x, lns, lnb, qw, qp = _delta_attn_case(g, 2, 8, 256)
+    with torch.no_grad():
+        a, cq, cs = delta.base_attn_block(xb, lns, lnb, qw.kn, qw.scale, 4,
+                                          1e-5)
+        delta.delta_attn_block(x, xb, cq, cs, a, xb, lns, lnb, qw.kn,
+                               qw.scale, qp.kn, qp.scale, 4, 1e-5)
+    mb, m, ln1, ln2, q1, b1, q2, b2 = _delta_mlp_case(g, 16, 256)
+    with torch.no_grad():
+        o, gq, gs, m_b = delta.base_mlp_block(mb, ln1, ln2, q1.kn, q1.scale,
+                                              b1, q2.kn, q2.scale, b2, 1e-5)
+        delta.delta_mlp_block(m, mb, gq, gs, m_b, ln1, ln2, q1.kn, q1.scale,
+                              q2.kn, q2.scale, 1e-5, grad=True)
+    torch.cuda.synchronize()
+    assert delta.LAUNCHES == {"base_attn_cache": 1, "delta_attn": 1,
+                              "base_mlp_grad": 1, "delta_mlp_lin": 1}
+    assert cq.shape == (2, 32, 768) and cs.shape == (2, 32, 1)
+    with pytest.raises(ValueError, match="bfloat16"):
+        with torch.no_grad():
+            delta.base_attn_block(xb.float(), lns, lnb, qw.kn, qw.scale, 4,
+                                  1e-5)
+    with pytest.raises(ValueError, match="strip width"):
+        with torch.no_grad():
+            delta.base_mlp_block(mb[:, :128].contiguous(), ln1[:128],
+                                 ln2[:128], q1.kn[:128, :512],
+                                 q1.scale[:512], b1[:512],
+                                 q2.kn[:512, :128], q2.scale[:128],
+                                 b2[:128], 1e-5)
+    with pytest.raises(ValueError, match="one scale per row and strip"):
+        with torch.no_grad():
+            delta.delta_mlp_block(m, mb, gq, gs[:, :1].contiguous(), m_b,
+                                  ln1, ln2, q1.kn, q1.scale, q2.kn, q2.scale,
+                                  1e-5, grad=True)
+
+
+def test_uvit_stage_delta_field_routes_through_the_delta_kernels(cuda):
+    """A small U-ViT's base and delta evaluations on the card: each kernel
+    once per block, a zero delta equal to the base bit for bit, the fused
+    field close to the unfused one."""
+    cfg = dict(img_size=8, patch_size=2, in_chans=4, embed_dim=256, depth=2,
+               num_heads=4, dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    m = UViT(param_dtype=torch.float32, **cfg).init_weights(g).eval()
+    dp = delta_field.prepare_delta_params(m)
+    x = torch.randn(4, 8, 8, 4, generator=g, device=cuda)
+    t = torch.tensor(0.5)
+    delta.reset_launches()
+    with torch.no_grad():
+        f0, cache = delta_field.anchored_vf_base(m, dp, t, x)
+        fd = delta_field.anchored_vf_delta(m, dp, t, x, cache)
+        fu, _ = delta_field.anchored_vf_base(m, dp, t, x, fused=False)
+    assert delta.LAUNCHES == {"base_attn_cache": 3, "delta_attn": 3,
+                              "base_mlp_grad": 3, "delta_mlp_lin": 3}
+    assert torch.equal(fd, f0)
+    assert float((f0 - fu).norm() / fu.norm()) < 0.03

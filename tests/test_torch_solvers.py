@@ -257,9 +257,27 @@ def test_dispatch_refuses():
                         {"solver": "adaptive"}, has_aux=True)
     with pytest.raises(ValueError, match="t_mid"):
         tsolvers.odeint(tf, x0, 0.0, 1.0, {"solver": "fixadp"})
-    for sk in ({"stage_delta": (tf, tf)}, {"field": "stage_delta_int8"}):
-        with pytest.raises(NotImplementedError, match="kernels 18-25"):
-            tsolvers.odeint(tf, x0, 0.0, 1.0, dict(sk, solver="adaptive"))
+    # a stage-delta pair runs, with the base once per step (plus the two
+    # evaluations of the initial-step heuristic); a bare field is refused
+    calls = {"base": 0, "delta": 0}
+
+    def base(t, x):
+        calls["base"] += 1
+        return tf(t, x), None
+
+    def delta(t, x, cache):
+        calls["delta"] += 1
+        return tf(t, x)
+
+    st = {}
+    x = tsolvers.odeint(None, x0, 0.0, 1.0, {"solver": "adaptive",
+                                            "stage_delta": (base, delta)},
+                        stats=st)
+    assert st["t"] == 1.0 and bool(torch.isfinite(x).all())
+    assert calls == {"base": st["steps"] + 2, "delta": 5 * st["steps"]}
+    with pytest.raises(ValueError, match="sampling layer"):
+        tsolvers.odeint(tf, x0, 0.0, 1.0, {"solver": "adaptive",
+                                           "field": "stage_delta_int8"})
     with pytest.raises(ValueError, match="controller"):
         tsolvers.odeint_adaptive(tf, x0, 0.0, 1.0, controller="pid")
     with pytest.raises(NotImplementedError, match="rk45"):

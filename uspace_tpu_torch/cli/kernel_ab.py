@@ -13,7 +13,11 @@ bf16-chain LN, the attention output's row codes, the bf16 and the int8
 projection with bias and residual); ``attention_fwd``: the [B, H, L, D]
 kernel at the SD-UNet-large shape, B=50, H=8, L=1024, D=32;
 ``fused_attention_bwd``: its backward at the SD-UNet-large training shape,
-B=128, H=8, L=1024, D=32)
+B=128, H=8, L=1024, D=32; ``delta_attention``: the stage-delta attention
+halves' own passes at B=50 (the LN codes of the padded base rows and of a
+stage delta, the difference codes, the f32 and the two delta GEMMs, the qkv
+re-coding); ``delta_mlp``: the stage-delta base and delta MLP kernels on
+12850 rows, hidden 4096)
 with CUDA events, the two builds alternating base, new, new, base, ... on
 one card. A base source that lacks an entry point skips its kernel. Needs a
 CUDA card.
@@ -33,6 +37,8 @@ CUDA card.
         --base old/attention_fwd.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source fused_attention_bwd \
         --base old/fused_attention_bwd.cu
+    python -m uspace_tpu_torch.cli.kernel_ab --source delta_mlp \
+        --base old/delta_mlp.cu
 """
 
 from __future__ import annotations
@@ -102,9 +108,9 @@ def main(argv=None) -> None:
         (torch.randn(C, hid, generator=g, device=dev) * 0.02).t())
     b1 = 0.02 * torch.randn(hid, generator=g, device=dev)
     b2 = 0.02 * torch.randn(C, generator=g, device=dev)
-    cs = q2.colsums(4)
+    cs4 = q2.colsums(4)
     mw = (q1.q.data_ptr(), q1.scale.data_ptr(), b1.data_ptr(),
-          q2.q.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(), cs.data_ptr(),
+          q2.q.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(), cs4.data_ptr(),
           out.data_ptr(), rows, C, hid, C, 4)
     w8 = (q1.q.data_ptr(), q1.scale.data_ptr(), b1.data_ptr(),
           q2.q.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(), out.data_ptr(),
@@ -124,6 +130,20 @@ def main(argv=None) -> None:
         torch.randn(TRAIN_B, 8, 1024, 32, generator=g, device=dev).to(bf)
         for _ in range(7))
     st8 = torch.empty(TRAIN_B * 8 * 3 * 1024, device=dev)
+    # the stage-delta field's buffers (padded base rows Lp = 288)
+    lp = (L + 31) // 32 * 32
+    ucodes = torch.empty(B * lp, C, dtype=torch.int8, device=dev)
+    us = torch.empty(B * lp, device=dev)
+    qkv32 = torch.empty(B * lp, 3 * C, device=dev)
+    cq = torch.zeros(B * lp, 3 * C, dtype=torch.int8, device=dev)
+    cs = torch.full((B * lp,), 0.01, device=dev)
+    qkvd = torch.empty(B, L, 3 * C, dtype=bf, device=dev)
+    x1 = (x.float() + 0.01 * torch.randn(x.shape, generator=g, device=dev)
+          ).to(bf)
+    gp_q = torch.randint(-127, 128, (rows, hid), generator=g, device=dev,
+                         dtype=torch.int8)
+    gp_s = torch.full((rows, 4), 0.01, device=dev)
+    m_out = torch.empty(rows, C, dtype=bf, device=dev)
     s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     calls = {
         "packed_attention": lambda lib: lib.uspace_packed_attention(
@@ -172,6 +192,42 @@ def main(argv=None) -> None:
             dq8.data_ptr(), dk8.data_ptr(), dv8.data_ptr(), st8.data_ptr(),
             TRAIN_B, 8, 1024, 32, 32 ** -0.5, s),
     }
+    calls.update({
+        "ln_codes": lambda lib: lib.uspace_ln_codes(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), ucodes.data_ptr(),
+            us.data_ptr(), B, L, lp, C, 1e-5, s),
+        "ln_delta_codes": lambda lib: lib.uspace_ln_delta_codes(
+            x1.data_ptr(), x.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+            codes.data_ptr(), sr.data_ptr(), rows, C, 1e-5, s),
+        "diff_codes": lambda lib: lib.uspace_diff_codes(
+            x1.data_ptr(), x.data_ptr(), codes.data_ptr(), sr.data_ptr(),
+            rows, C, s),
+        "int8_gemm_f32": lambda lib: lib.uspace_int8_gemm_f32(
+            ucodes.data_ptr(), us.data_ptr(), q.q.data_ptr(),
+            q.scale.data_ptr(), qkv32.data_ptr(), B * lp, 3 * C, C, s),
+        "qkv_recode": lambda lib: lib.uspace_qkv_recode(
+            qkv32.data_ptr(), cq.data_ptr(), cs.data_ptr(), qkvd.data_ptr(),
+            B, L, lp, 3 * C, s),
+        "qkv_delta": lambda lib: lib.uspace_qkv_delta(
+            codes.data_ptr(), sr.data_ptr(), q.q.data_ptr(),
+            q.scale.data_ptr(), cq.data_ptr(), cs.data_ptr(), qkvd.data_ptr(),
+            B, L, lp, 3 * C, C, s),
+        "xm_delta": lambda lib: lib.uspace_xm_delta(
+            codes.data_ptr(), sr.data_ptr(), qp.q.data_ptr(),
+            qp.scale.data_ptr(), x1.data_ptr(), x.data_ptr(), x.data_ptr(),
+            out.data_ptr(), rows, C, C, s),
+        "base_mlp_grad": lambda lib: lib.uspace_base_mlp_grad(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), b1.data_ptr(), q2.q.data_ptr(),
+            q2.scale.data_ptr(), b2.data_ptr(), cs4.data_ptr(),
+            out.data_ptr(), m_out.data_ptr(), gp_q.data_ptr(),
+            gp_s.data_ptr(), rows, C, hid, 4, 1e-5, s),
+        "delta_mlp_lin": lambda lib: lib.uspace_delta_mlp_lin(
+            x1.data_ptr(), x.data_ptr(), gp_q.data_ptr(), gp_s.data_ptr(),
+            m_out.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+            q1.q.data_ptr(), q1.scale.data_ptr(), q2.q.data_ptr(),
+            q2.scale.data_ptr(), out.data_ptr(), rows, C, hid, 4, 1e-5, s),
+    })
     calls = {k: f for k, f in calls.items()
              if f"uspace_{k}" in _build.SIGNATURES[a.source]
              and hasattr(libs["base"], f"uspace_{k}")}

@@ -15,6 +15,10 @@ memory and img/s.
 the warm-up): the model's own (the flag's default: W8A8 for the U-ViT, the
 convs for the SD-UNet) or another (``--quant w8``, ``conv8``, ``dense8``,
 ...).
+``--field stage_delta_int8`` profiles the base-anchored stage-delta int8
+field instead (``core/delta_field.py``, ``hidden_mode="grad"``): one base
+evaluation (the stage that writes the step's cache) and one delta
+evaluation on that cache at a point 1e-2 away, each traced on its own.
 Needs a CUDA card.
 
     python -m uspace_tpu_torch.cli.profile_field --config uvit_large \\
@@ -25,6 +29,8 @@ Needs a CUDA card.
     python -m uspace_tpu_torch.cli.profile_field --quant w8 --out w8.json
     python -m uspace_tpu_torch.cli.profile_field --attn_impl pallas_block \
         --quant --out block_int8.json
+    python -m uspace_tpu_torch.cli.profile_field --field stage_delta_int8 \\
+        --out delta.json
     python -m uspace_tpu_torch.cli.profile_field --train --batch 128 \\
         --remat_exempt 21 --out profile_train.json
     python -m uspace_tpu_torch.cli.profile_field --train --config unet_large \\
@@ -49,6 +55,9 @@ from .train_lfm import train_attn_impl
 
 # kernel-name fragments -> the layer that launches them
 GROUPS = (
+    ("stage-delta attention passes (ours: LN codes, int8 GEMM, re-code)", (
+        "row_codes_kernel<", "int8_gemm_kernel", "recode_kernel")),
+    ("stage-delta MLP kernel (ours)", ("delta_mlp_kernel",)),
     ("[B, H, L, D] attention backward kernel (ours)", (
         "fused_bwd_dq_kernel", "fused_bwd_dkdv_kernel")),
     ("attention backward kernels (ours)", ("bwd_dq_kernel",
@@ -92,6 +101,32 @@ def _field_fn(cfg, dev, batch, attn_impl, seed, quant=None):
     return run
 
 
+def _delta_fns(cfg, dev, batch, attn_impl, seed):
+    """One base and one delta evaluation of the stage-delta field (the
+    delta on the base's cache at x + 1e-2 n), without autograd."""
+    from ..core import delta_field
+
+    model = build_model(cfg, dev, seed, attn_impl=attn_impl)
+    dp = delta_field.prepare_delta_params(model)
+    vf_base, vf_delta = delta_field.make_delta_field(model, dp)
+    c, h, w = cfg["z_shape"]
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn((batch, h, w, c), generator=g, device=dev)
+    x1 = x + 1e-2 * torch.randn(x.shape, generator=g, device=dev)
+    t = torch.tensor(0.5)
+    with torch.no_grad():
+        _, cache = vf_base(t, x)
+
+    @torch.no_grad()
+    def base():
+        vf_base(t, x)
+
+    @torch.no_grad()
+    def delta():
+        vf_delta(t, x1, cache)
+    return {"base": base, "delta": delta}
+
+
 def _train_fn(cfg, dev, batch, attn_impl, seed, remat_exempt):
     """One train step of the JAX bench's setup (bench.py:567-581) on a
     fixed batch of synthetic moments."""
@@ -113,20 +148,9 @@ def _train_fn(cfg, dev, batch, attn_impl, seed, remat_exempt):
     return lambda: step(state, {"x": x}, g)
 
 
-def profile(config: str = "uvit_large", batch: int = 50, evals: int = 3,
-            attn_impl: Optional[str] = None, seed: int = 0, device=None,
-            train: bool = False, remat_exempt: Optional[int] = None,
-            quant=None) -> dict:
-    """``attn_impl`` defaults to auto, or with ``train`` to the training
-    rule; ``remat_exempt`` to the config's (U-ViT only)."""
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise RuntimeError("profile_field measures the card; it needs CUDA")
-    cfg = get_config(config)
-    if attn_impl is None:
-        attn_impl = train_attn_impl(cfg) if train else "auto"
-    fn = (_train_fn(cfg, dev, batch, attn_impl, seed, remat_exempt) if train
-          else _field_fn(cfg, dev, batch, attn_impl, seed, quant))
+def _trace(fn, batch: int, evals: int) -> dict:
+    """Warm ``fn`` up, trace ``evals`` calls: device time by kernel and by
+    layer, host wall time, idle share, peak memory."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -151,10 +175,7 @@ def profile(config: str = "uvit_large", batch: int = 50, evals: int = 3,
         groups[_group(name)] += ms
     busy = sum(groups.values())
     return dict(
-        config=config, batch=batch, attn_impl=attn_impl, quant=quant,
-        evals=evals,
-        train=train, remat_exempt=remat_exempt if train else None,
-        card=torch.cuda.get_device_name(0), wall_ms_per_eval=wall * 1e3,
+        wall_ms_per_eval=wall * 1e3,
         imgs_per_s=batch / wall,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         device_ms_per_eval=busy,
@@ -164,6 +185,34 @@ def profile(config: str = "uvit_large", batch: int = 50, evals: int = 3,
                      for n, (ms, cnt) in sorted(kernels.items(),
                                                 key=lambda kv: -kv[1][0])[:15]],
     )
+
+
+def profile(config: str = "uvit_large", batch: int = 50, evals: int = 3,
+            attn_impl: Optional[str] = None, seed: int = 0, device=None,
+            train: bool = False, remat_exempt: Optional[int] = None,
+            quant=None, field: Optional[str] = None) -> dict:
+    """``attn_impl`` defaults to auto, or with ``train`` to the training
+    rule; ``remat_exempt`` to the config's (U-ViT only). With ``field`` the
+    report's ``parts`` hold the base's and the delta's traces."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("profile_field measures the card; it needs CUDA")
+    if field not in (None, "stage_delta_int8"):
+        raise ValueError(f"unknown field {field!r}")
+    cfg = get_config(config)
+    if attn_impl is None:
+        attn_impl = train_attn_impl(cfg) if train else "auto"
+    head = dict(config=config, batch=batch, attn_impl=attn_impl, quant=quant,
+                field=field, evals=evals, train=train,
+                remat_exempt=remat_exempt if train else None,
+                card=torch.cuda.get_device_name(0))
+    if field:
+        fns = _delta_fns(cfg, dev, batch, attn_impl, seed)
+        return dict(head, parts={k: _trace(f, batch, evals)
+                                 for k, f in fns.items()})
+    fn = (_train_fn(cfg, dev, batch, attn_impl, seed, remat_exempt) if train
+          else _field_fn(cfg, dev, batch, attn_impl, seed, quant))
+    return dict(head, **_trace(fn, batch, evals))
 
 
 def main(argv=None) -> None:
@@ -183,22 +232,29 @@ def main(argv=None) -> None:
                     choices=QUANT_CHOICES,
                     help="profile an int8 sampling view (flag alone: the "
                     "model's own)")
+    ap.add_argument("--field", default=None, choices=["stage_delta_int8"],
+                    help="profile one base and one delta evaluation of the "
+                    "stage-delta int8 field")
     ap.add_argument("--out", default="")
     a = ap.parse_args(argv)
     rep = profile(a.config, a.batch, a.evals, a.attn_impl, train=a.train,
-                  remat_exempt=a.remat_exempt, quant=a.quant)
+                  remat_exempt=a.remat_exempt, quant=a.quant, field=a.field)
     what = (f"train step, remat_exempt {a.remat_exempt}" if a.train
             else f"field evaluation, quant={a.quant}")
-    print(f"{rep['card']}: {rep['config']} batch {rep['batch']} "
-          f"attn_impl={rep['attn_impl']} ({what}): wall "
-          f"{rep['wall_ms_per_eval']:.2f} ms/eval, device "
-          f"{rep['device_ms_per_eval']:.2f} ms/eval, idle "
-          f"{rep['idle_share']:.3f}, {rep['imgs_per_s']:.3f} img/s, peak "
-          f"{rep['peak_gib']:.2f} GiB")
-    for g, ms in rep["groups_ms"].items():
-        print(f"  {g:34s} {ms:9.3f} ms")
-    for k in rep["top_kernels"]:
-        print(f"  {k['ms']:9.3f} ms x{k['calls']:4d}  {k['name']}")
+    parts = rep.get("parts") or {what: rep}
+    for name, p in parts.items():
+        if a.field:
+            name = f"{a.field} {name} evaluation"
+        print(f"{rep['card']}: {rep['config']} batch {rep['batch']} "
+              f"attn_impl={rep['attn_impl']} ({name}): wall "
+              f"{p['wall_ms_per_eval']:.2f} ms/eval, device "
+              f"{p['device_ms_per_eval']:.2f} ms/eval, idle "
+              f"{p['idle_share']:.3f}, {p['imgs_per_s']:.3f} img/s, peak "
+              f"{p['peak_gib']:.2f} GiB")
+        for g, ms in p["groups_ms"].items():
+            print(f"  {g:34s} {ms:9.3f} ms")
+        for k in p["top_kernels"]:
+            print(f"  {k['ms']:9.3f} ms x{k['calls']:4d}  {k['name']}")
     if a.out:
         os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
         with open(a.out, "w") as f:

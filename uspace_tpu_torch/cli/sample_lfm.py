@@ -29,6 +29,12 @@ atol = 1e-5 unless ``--rtol`` / ``--atol`` say otherwise; the config's PI
 controller unless ``--controller i``); ``--solver fixadp`` is Euler to
 ``--t_edit`` and adaptive from there. An adaptive solve prints each batch's
 field evaluations (NFE), step attempts and accepted steps.
+``--field stage_delta_int8`` (the config's ``sample.solver_kwargs.field``,
+as in the JAX package) solves with the base-anchored stage-delta int8
+field of ``core/delta_field.py`` (adaptive solves of an unconditional
+U-ViT only; ``--hidden_mode``, default ``grad``, the only mode ported): its
+int8 codes are fitted once per run on the model's float weights, whatever
+``--quant`` says.
 
     python -m uspace_tpu_torch.cli.sample_lfm --config unet_large --decode \\
         --n_samples 100 --batch 50 --steps 50 --seed 0 --out samples
@@ -39,6 +45,9 @@ field evaluations (NFE), step attempts and accepted steps.
     python -m uspace_tpu_torch.cli.sample_lfm --config synthetic_smoke \\
         --quant w8 --solver adaptive --device cpu --n_samples 4 --batch 4 \\
         --out /tmp/w8
+    python -m uspace_tpu_torch.cli.sample_lfm --config uvit_large \\
+        --solver adaptive --controller i --field stage_delta_int8 \\
+        --n_samples 50 --batch 50 --out samples_delta
 """
 
 from __future__ import annotations
@@ -60,7 +69,7 @@ from ..codecs.convert import (
 )
 from ..codecs.vae import AutoencoderKL
 from ..configs import get_config, solver_kwargs
-from ..core import flow
+from ..core import delta_field, flow
 from ..data.datasets import unpreprocess
 from ..models import get_nnet
 from ..models.unet import ZERO_INIT_STD
@@ -129,6 +138,32 @@ def to_uint8(pixels: torch.Tensor) -> np.ndarray:
                     ).astype(np.uint8)
 
 
+def stage_delta_kwargs(cfg: dict, sk: dict, model) -> dict:
+    """``sk`` without its ``field`` and ``hidden_mode`` keys, and with the
+    stage-delta pair when ``field`` asks for it (the JAX sampling layer's
+    rule, ``uspace_tpu/train/loop.py:235-299``): adaptive solves of an
+    unconditional U-ViT only. The pair's int8 codes are fitted here, once,
+    outside the solve."""
+    sk = dict(sk)
+    field = sk.pop("field", None)
+    hidden_mode = sk.pop("hidden_mode", None)
+    if field not in (None, "", "stage_delta_int8"):
+        raise NotImplementedError(f"solver_kwargs.field={field!r}")
+    if not field:
+        return sk
+    if sk.get("solver", "fixed") != "adaptive":
+        raise ValueError(
+            "field=stage_delta_int8 needs solver=adaptive: fixed-step solves "
+            "should use the plain int8 view (--quant) instead")
+    if (cfg["nnet"].get("num_classes", -1) or -1) > 0 or \
+            float(cfg["sample"].get("cfg_scale", 0.0) or 0.0) > 0:
+        raise NotImplementedError("stage_delta_int8 sampling is uncond-only")
+    dp = delta_field.prepare_delta_params(model)  # refuses a non-U-ViT
+    sk["stage_delta"] = delta_field.make_delta_field(model, dp,
+                                                     hidden_mode=hidden_mode)
+    return sk
+
+
 @torch.no_grad()
 def run(config="uvit_large", n_samples: int = 100, batch: int = 50,
         steps: int = 50, seed: int = 0, weights: Optional[str] = None,
@@ -138,14 +173,16 @@ def run(config="uvit_large", n_samples: int = 100, batch: int = 50,
         controller: Optional[str] = None, safety: Optional[float] = None,
         stats: Optional[List[dict]] = None, decode: bool = False,
         vae_weights: Optional[str] = None,
-        attn_impl: Optional[str] = None) -> List[str]:
+        attn_impl: Optional[str] = None, field: Optional[str] = None,
+        hidden_mode: Optional[str] = None) -> List[str]:
     """Write ceil(n_samples / batch) latent batches, and with ``decode``
     their uint8 pixel batches after each (through the VAE's int8 view when
     ``quant`` is set); returns the paths in that order. ``config`` is a
     config's name or the config itself; ``attn_impl`` defaults to its
-    ``nnet.attn_impl``, else ``"auto"``.
-    For an adaptive solve each batch's statistics are printed and, when
-    ``stats`` is a list, appended to it."""
+    ``nnet.attn_impl``, else ``"auto"``. ``field`` and ``hidden_mode``
+    (default: the config's ``sample.solver_kwargs``) pick the stage-delta
+    field (:func:`stage_delta_kwargs`). For an adaptive solve each batch's
+    statistics are printed and, when ``stats`` is a list, appended to it."""
     dev = resolve_device(device)
     cfg = get_config(config)
     model = build_model(cfg, dev, seed, weights, attn_impl=attn_impl,
@@ -153,7 +190,10 @@ def run(config="uvit_large", n_samples: int = 100, batch: int = 50,
     vae = (build_vae(cfg, dev, seed, vae_weights, quant=bool(quant))
            if decode else None)
     sk = solver_kwargs(cfg, steps, solver=solver, rtol=rtol, atol=atol,
-                       controller=controller, safety=safety)
+                       controller=controller, safety=safety, field=field,
+                       hidden_mode=hidden_mode)
+    sk = stage_delta_kwargs(cfg, sk, model)
+    vf = None if "stage_delta" in sk else (lambda t, x: model(x, t)[0])
     c, h, w = cfg["z_shape"]
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     os.makedirs(out, exist_ok=True)
@@ -163,8 +203,7 @@ def run(config="uvit_large", n_samples: int = 100, batch: int = 50,
         z = torch.randn((n, h, w, c), generator=gen, dtype=torch.float32,
                         device=dev)
         st = {}
-        lat = flow.decode(lambda t, x: model(x, t)[0], z, sk, t_edit=t_edit,
-                          stats=st)
+        lat = flow.decode(vf, z, sk, t_edit=t_edit, stats=st)
         if st:
             print(f"batch {b}: NFE {st['nfe']}, steps {st['steps']}, "
                   f"accepted {st['accepted']}, t {st['t']:.6g}", flush=True)
@@ -212,11 +251,19 @@ def main(argv=None) -> None:
     ap.add_argument("--attn_impl", default=None,
                     help="attention route, e.g. pallas_block (default: the "
                     "config's nnet.attn_impl, else auto)")
+    ap.add_argument("--field", default=None,
+                    help="stage_delta_int8: the base-anchored stage-delta "
+                    "int8 field for --solver adaptive (default: the "
+                    "config's sample.solver_kwargs.field)")
+    ap.add_argument("--hidden_mode", default=None,
+                    help="the stage-delta field's MLP cache (default grad, "
+                    "the only mode ported)")
     a = ap.parse_args(argv)
     paths = run(a.config, a.n_samples, a.batch, a.steps, a.seed, a.weights,
                 a.out, a.device, a.quant, a.solver, a.t_edit, a.rtol, a.atol,
                 a.controller, a.safety, decode=a.decode,
-                vae_weights=a.vae_weights, attn_impl=a.attn_impl)
+                vae_weights=a.vae_weights, attn_impl=a.attn_impl,
+                field=a.field, hidden_mode=a.hidden_mode)
     print(f"wrote {len(paths)} arrays to {a.out}")
 
 

@@ -43,8 +43,11 @@ def decode(
 ) -> Any:
     """Integrate noise -> data, t: 0 -> 1 (the "fixadp" solver splits at
     ``t_edit``). A dict passed as ``stats`` receives an adaptive solve's
-    step and evaluation counts (``solvers.odeint``)."""
-    vf = _scalar_to_batch_vf(velocity_fn, z.shape[0])
+    step and evaluation counts (``solvers.odeint``). With
+    ``solver_kwargs["stage_delta"]`` (the scalar-t pair of
+    ``core/delta_field.make_delta_field``) ``velocity_fn`` may be None."""
+    vf = (None if velocity_fn is None
+          else _scalar_to_batch_vf(velocity_fn, z.shape[0]))
     return solvers.odeint(vf, z, 0.0, 1.0, solver_kwargs=solver_kwargs,
                           t_mid=t_edit, has_aux=has_aux, stats=stats)
 

@@ -10,7 +10,11 @@ Counterpart of ``uspace_tpu/core/solvers.py``:
   or PI step controller, driven from the host as torchdiffeq drives it and
   as the JAX package's ``odeint_adaptive_host(program="stages")`` does;
 - the reference's ``solver_kwargs`` dispatch, including the fixed/adaptive
-  split ("fixadp") that editing uses.
+  split ("fixadp") that editing uses;
+- the base-anchored stage-delta field (``stage_delta=(vf_base,
+  vf_delta)``, ``core/delta_field.py``): stage 2 of each adaptive step
+  runs the base, which returns the step's cache, and stages 3..s run the
+  delta on it, as the JAX host loop does.
 
 Velocity-field signature: ``vf(t, x) -> dx/dt`` with ``t`` a 0-d f32 CPU
 tensor, or ``vf(t, x) -> (dx/dt, aux)`` with ``has_aux=True`` (fixed-step
@@ -46,9 +50,11 @@ CONTROLLERS = ("i", "pi")
 _RTOL = 1e-5  # the reference's defaults (torchdiffeq rtol = atol = 1e-5)
 _ATOL = 1e-5
 
-_UNPORTED_STAGE_DELTA = (
-    "the stage-delta int8 adaptive field (core/delta_field.py; kernels "
-    "18-25 of the kernel table, ops/delta.py) is not ported yet")
+_BARE_FIELD = (
+    "solver_kwargs field='stage_delta_int8' needs its (vf_base, vf_delta) "
+    "pair as solver_kwargs['stage_delta']: the sampling layer "
+    "(cli/sample_lfm) builds it from the model with "
+    "core/delta_field.make_delta_field")
 
 
 def _weak(c: float, like: torch.Tensor) -> float:
@@ -259,6 +265,7 @@ def odeint_adaptive(
     pcoeff: float = 0.4,
     icoeff: float = 0.7,
     return_stats: bool = False,
+    stage_delta: Optional[tuple] = None,
 ):
     """Adaptive embedded-RK integration of ``dx/dt = vf(t, x)`` from t0 to
     t1 (t1 < t0 integrates backwards), driven from the host: one field
@@ -277,6 +284,14 @@ def odeint_adaptive(
     per_step * steps``, the 2 spent by the initial-step heuristic
     included) and the time reached. The loop stops at ``max_steps``
     attempts whether or not it reached t1; ``t`` shows which.
+
+    ``stage_delta=(vf_base, vf_delta)``: ``vf_base(t, x) -> (f, cache)``,
+    ``vf_delta(t, x, cache) -> f``; ``vf`` is ignored. Stage 2 of each step
+    runs the base and stages 3..s the delta on its cache (the JAX host
+    loop's dispatch, ``uspace_tpu/core/solvers.py:700-711``); the first
+    evaluation, the initial-step probe and a non-FSAL last stage take the
+    base's f. NFE counts every evaluation alike (dopri5: 1 base and 5
+    deltas a step).
     """
     if method not in _TABLEAUS:
         raise NotImplementedError(f"adaptive method {method!r}")
@@ -285,6 +300,9 @@ def odeint_adaptive(
     tab = _TABLEAUS[method]
     n_stage = len(tab.c)
     direction = 1.0 if t1 >= t0 else -1.0
+    if stage_delta is not None:
+        vf_base, vf_delta = stage_delta
+        vf = lambda t, x: vf_base(t, x)[0]  # noqa: E731
 
     f = vf(_t(_f32(t0)), x0)
     h = _initial_step(vf, t0, x0, f, direction, tab.order, rtol, atol)
@@ -295,10 +313,19 @@ def odeint_adaptive(
         h_step = min(h, abs(t1 - t))
         hs = _f32(h_step * direction)
         ks = [f]
+        cache = None
         for i in range(1, n_stage):
             # x + hs * comb in x's (f32) precision, hs a strong f32
             xi = x + hs * _combine(tab.a[i], ks).to(x.dtype)
-            ks.append(vf(_t(_f32(t + tab.c[i] * h_step * direction)), xi))
+            ti = _t(_f32(t + tab.c[i] * h_step * direction))
+            if stage_delta is None:
+                ks.append(vf(ti, xi))
+            elif i == 1:  # a fresh base evaluation anchors the step's cache
+                k, cache = vf_base(ti, xi)
+                ks.append(k)
+            else:
+                ks.append(vf_delta(ti, xi, cache))
+        cache = None  # freed before the next step's base builds its own
         x_new = x + hs * _combine(tab.b, ks).to(x.dtype)
         err = hs * _combine(tab.b_err, ks).float()
         ratio = max(float(_error_ratio(err, x, x_new, rtol, atol)), 1e-10)
@@ -359,8 +386,12 @@ def odeint(
 
     Keys read by the adaptive solves: ``rtol`` / ``atol`` (1e-5),
     ``controller`` ("i") and ``safety`` (0.9, torchdiffeq's), as in the JAX
-    package, and ``max_steps`` (4096). A ``dict`` passed as ``stats``
-    receives the adaptive solve's statistics (see :func:`odeint_adaptive`).
+    package, ``max_steps`` (4096) and ``stage_delta`` (the pair of
+    :func:`odeint_adaptive`; ``vf`` may then be None for "adaptive"). The
+    config knob ``field="stage_delta_int8"`` names that pair but cannot
+    carry it: the sampling layer builds it, and a bare ``field`` is refused
+    here. A ``dict`` passed as ``stats`` receives the adaptive solve's
+    statistics (see :func:`odeint_adaptive`).
     """
     sk = dict(solver_kwargs or {"solver": "adaptive",
                                 "solver_adaptive": "dopri5"})
@@ -374,14 +405,18 @@ def odeint(
         raise ValueError(f"unknown solver {kind!r}")
     if has_aux:
         raise ValueError("activation capture requires a fixed-step solver")
-    if sk.get("stage_delta") is not None or \
-            sk.get("field") == "stage_delta_int8":
-        raise NotImplementedError(_UNPORTED_STAGE_DELTA)
+    stage_delta = sk.get("stage_delta")
+    field = sk.get("field")
+    if field not in (None, "", "stage_delta_int8"):
+        raise NotImplementedError(f"solver_kwargs field={field!r}")
+    if field and stage_delta is None:
+        raise ValueError(_BARE_FIELD)
     kw = dict(method=sk.get("solver_adaptive", "dopri5"),
               rtol=sk.get("rtol", _RTOL), atol=sk.get("atol", _ATOL),
               controller=sk.get("controller", "i"),
               safety=sk.get("safety", 0.9),
-              max_steps=sk.get("max_steps", 4096), return_stats=True)
+              max_steps=sk.get("max_steps", 4096), return_stats=True,
+              stage_delta=stage_delta)
     if kind == "fixadp":
         if t_mid is None:
             raise ValueError("fixadp requires t_mid (the reference uses "

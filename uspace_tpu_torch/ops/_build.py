@@ -49,6 +49,19 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_proj_residual": (_P,) * 5 + (_I,) * 3 + (_P,),
         "uspace_proj_residual_int8": (_P,) * 7 + (_I,) * 3 + (_P,),
     },
+    "delta_attention": {
+        "uspace_ln_codes": (_P,) * 5 + (_I,) * 4 + (_F, _P),
+        "uspace_ln_delta_codes": (_P,) * 6 + (_I, _I, _F, _P),
+        "uspace_diff_codes": (_P,) * 4 + (_I, _I, _P),
+        "uspace_int8_gemm_f32": (_P,) * 5 + (_I,) * 3 + (_P,),
+        "uspace_qkv_recode": (_P,) * 4 + (_I,) * 4 + (_P,),
+        "uspace_qkv_delta": (_P,) * 7 + (_I,) * 5 + (_P,),
+        "uspace_xm_delta": (_P,) * 8 + (_I,) * 3 + (_P,),
+    },
+    "delta_mlp": {
+        "uspace_base_mlp_grad": (_P,) * 14 + (_I,) * 4 + (_F, _P),
+        "uspace_delta_mlp_lin": (_P,) * 12 + (_I,) * 4 + (_F, _P),
+    },
     "attention_bwd": {
         "uspace_packed_attention_bwd": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     },

@@ -1,0 +1,662 @@
+// The MLP halves of the base-anchored stage-delta int8 field (hidden_mode
+// "grad") for U-ViT sampling on Hopper (sm_90a).
+//
+// Replaces two Pallas TPU kernels of uspace_tpu/ops/delta.py:
+//   uspace_base_mlp_grad <- _base_mlp_cache_kernel_gr (row 22)
+//     o = x + m, m = bf16(fc2(gelu(fc1(LN2(x))))), emitting gelu'(e) as
+//     int8 codes with one scale per row and strip (gp_q, gp_s) and m;
+//   uspace_delta_mlp_lin <- _delta_mlp_kernel_lin (row 23)
+//     de = W1 q8(LN2(x) - LN2(x_b)); dg = de * deq(gp); m = m_b + W2 q8(dg)
+//     per strip; o = x + bf16(m).
+//
+// Bound at the main path's shape (12850 rows, C = 1024, hidden 4096): 215.6 G
+// int8 operations over an H100 SXM's 1,979 TOPS = 109 us each; bytes: row 22
+// about 140 MB (x in; o, m, gp_q and gp_s out; weights), row 23 about 166 MB
+// (x, x_b, m_b, gp_q in; o out): both operations bound.
+//
+// What each block computes is what the TPU kernel computes for its rows:
+// - LN2 in f32 (uspace_tpu/ops/delta.py _ln_f32, not the bf16 chain of
+//   mlp_int8.cu): f32 sums over C, mu = sum / C, var = sum(x^2) / C - mu^2,
+//   rsqrt(var + eps), ((x - mu) * inv) * s + b in f32. Row codes
+//   round(u * (127 / amax)) with u = LN(x) (row 22) or LN(x) - LN(x_b)
+//   (row 23), the scale amax * (1/127).
+// - row 22, per hidden strip j: e = f32(acc) * xs * s1 + b1 (exact f32, never
+//   quantized); gelu'(e) = 0.5 (1 + erf(e / sqrt 2)) + e phi(e) coded per row
+//   per strip as above (gp_s [rows, strips]); GELU(e) on an affine grid per
+//   row (scale max(gmax - gmin, 1e-8) * (1/254), zp (gmax + gmin) / 2, codes
+//   round((g - zp) / scale), an IEEE division); fc2 acc += f32(d_j) * scale_j
+//   + zp_j * colsum_j(W2q); m = bf16(acc * s2 + b2); o = x + m in bf16.
+// - row 23, per hidden strip j: de = f32(acc) * ds * s1 (no bias: it cancels),
+//   dg = de * (f32(gp_q) * gp_s[j]), symmetric codes per row per strip
+//   round(dg * (127 / amax)); fc2 acc += f32(d_j) * (amax_j * (1/127)); m =
+//   f32(m_b) + acc * s2; o = x + bf16(m) in bf16.
+// erf is the Abramowitz-Stegun 7.1.26 polynomial of uspace_tpu/ops/mlp.py.
+// Every float product, sum and quotient is an explicit _rn intrinsic (expf
+// and rsqrtf are the library's), so no multiply-add is contracted where the
+// TPU kernel rounds twice.
+//
+// Design: mlp_int8.cu's block (rows 14-15), simple first; wgmma/TMA are later
+// work. One block of 16 warps per 32 rows; a strip's codes need the whole
+// strip of a row (1024 values at U-ViT-large), so a block computes a 32 x
+// 1024 strip at once with the accumulators in registers (each warp 32 rows x
+// 64 columns), reduces the row statistics through shared memory, and codes
+// the strip into an int8 hidden tile [32, hidden] that never leaves shared
+// memory. Row 22 needs three statistics of a strip (max and min of GELU, max
+// |gelu'|) before it codes either, so it keeps e in the registers and
+// evaluates GELU and gelu' twice (the second time to code them). fc2 walks
+// 256 output columns at a time over all strips. mma.sync m16n8k32 s8 x s8 ->
+// s32; weight chunks stream through a ring of two shared-memory stages by
+// cp.async, XOR-swizzled by row. Dynamic shared memory (~205 KB) is enabled
+// per launch; each entry point returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int ROWS = 32;          // rows per block
+constexpr int WARPS = 16;
+constexpr int THREADS = WARPS * 32;
+constexpr int KC1 = 32;           // fc1 K chunk, bytes (2 swizzle segments)
+constexpr int KC2 = 128;          // fc2 K chunk, bytes (8 segments)
+constexpr int NO = 256;           // fc2 output columns per pass: 8 warps x 32
+constexpr int HPAD = 16;          // hidden row padding: conflict-free A loads
+constexpr int STAGE = 32768;      // max(strip * KC1, NO * KC2)
+constexpr int MAX_ROW_VEC = 8;    // a row in registers: C <= 8 * 8 * 32
+constexpr int MAX_STRIPS = 4;
+constexpr int MAX_SMEM = 232448;  // H100: 227 KB of dynamic smem per block
+
+__device__ inline float pos_inf() { return __int_as_float(0x7f800000); }
+
+__host__ __device__ inline int align128(int x) { return (x + 127) & ~127; }
+
+struct Layout {
+  int hq_ld, hq_bytes, ring_off, xs_off, hsc_off, zp_off, gpi_off, red_off, bytes;
+};
+
+__host__ __device__ inline Layout make_layout(int hs, int strips) {
+  Layout s;
+  s.hq_ld = hs + HPAD;
+  s.hq_bytes = ROWS * s.hq_ld;  // one strip of the int8 hidden tile
+  s.ring_off = align128(strips * s.hq_bytes);
+  s.xs_off = s.ring_off + 2 * STAGE;
+  s.hsc_off = s.xs_off + ROWS * 4;
+  s.zp_off = s.hsc_off + MAX_STRIPS * ROWS * 4;
+  s.gpi_off = s.zp_off + MAX_STRIPS * ROWS * 4;
+  s.red_off = s.gpi_off + ROWS * 4;
+  s.bytes = s.red_off + 3 * WARPS * ROWS * 4;
+  return s;
+}
+
+__device__ inline void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Byte offset of (row, k) in a tile of rows of P 16-byte segments, the
+// segments XOR-swizzled by row (8 rows of a fragment load: 8 bank groups).
+template <int P>
+__device__ inline int swz(int row, int k) {
+  const int sh = P == 8 ? (row & 7) : P == 4 ? ((row >> 1) & 3) : ((row >> 2) & 1);
+  return row * P * 16 + (((k >> 4) ^ sh) << 4) + (k & 15);
+}
+
+__device__ inline void mma_s8(int (&d)[4], unsigned a0, unsigned a1, unsigned a2,
+                              unsigned a3, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ inline unsigned lds32(const int8_t* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+__device__ inline bf16 badd(bf16 a, bf16 b) {
+  return __float2bfloat16_rn(__fadd_rn(__bfloat162float(a), __bfloat162float(b)));
+}
+
+// erf(x / sqrt 2) of the Abramowitz-Stegun 7.1.26 polynomial, in the order of
+// uspace_tpu/ops/mlp.py _erf_poly.
+__device__ inline float erf_poly(float x) {
+  const float z = __fmul_rn(x, 0.7071067811865476f);
+  const float ax = fabsf(z);
+  const float t = __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(0.3275911f, ax)));
+  float p = __fadd_rn(__fmul_rn(1.061405429f, t), -1.453152027f);
+  p = __fadd_rn(__fmul_rn(p, t), 1.421413741f);
+  p = __fadd_rn(__fmul_rn(p, t), -0.284496736f);
+  p = __fadd_rn(__fmul_rn(p, t), 0.254829592f);
+  p = __fmul_rn(p, t);
+  const float e = __fsub_rn(1.0f, __fmul_rn(p, expf(__fmul_rn(-ax, ax))));
+  return z > 0.f ? e : (z < 0.f ? -e : 0.f);
+}
+
+// GELU(x) = 0.5 x (1 + erf) and gelu'(x) = 0.5 (1 + erf) + x phi(x)
+// (_gelu_exact and _gelu_grad_exact), sharing one erf.
+__device__ inline void gelu_and_grad(float x, float& g, float& gp) {
+  const float one_erf = __fadd_rn(1.0f, erf_poly(x));
+  g = __fmul_rn(__fmul_rn(0.5f, x), one_erf);
+  const float phi = __fmul_rn(0.3989422804014327f, expf(__fmul_rn(__fmul_rn(-0.5f, x), x)));
+  gp = __fadd_rn(__fmul_rn(0.5f, one_erf), __fmul_rn(x, phi));
+}
+
+// LN2 in f32 of one element: ((x - mu) * inv) * s + b.
+__device__ inline float ln_at(float x, float mu, float inv, float s, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), inv), s), b);
+}
+
+// f32 statistics of a row held as bf16 vectors: mu and rsqrt(var + eps).
+__device__ inline void row_stats(const uint4 (&v)[MAX_ROW_VEC], int nvec, int C,
+                                 float eps, float& mu, float& inv) {
+  const int lane = threadIdx.x & 31;
+  float sum = 0.f, sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < MAX_ROW_VEC; ++i) {
+    if (lane + 32 * i >= nvec) continue;
+    const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float f = __bfloat162float(e[j]);
+      sum = __fadd_rn(sum, f);
+      sq = __fadd_rn(sq, __fmul_rn(f, f));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
+    sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, o));
+  }
+  mu = __fdiv_rn(sum, (float)C);
+  const float var = __fsub_rn(__fdiv_rn(sq, (float)C), __fmul_rn(mu, mu));
+  inv = rsqrtf(__fadd_rn(var, eps));
+}
+
+// Rows row0.. -> u = LN2(x) (DELTA: LN2(x) - LN2(x_b)) in f32 -> int8 codes
+// in xq (row stride ld) and xs = amax / 127 per row; rows >= R get zero
+// codes. One warp per row, the rows held in registers; u is evaluated twice
+// (for amax, then for the codes), the same operations both times.
+template <bool DELTA>
+__device__ void code_rows(const bf16* __restrict__ x, const bf16* __restrict__ xb,
+                          const float* __restrict__ ln_s, const float* __restrict__ ln_b,
+                          int row0, int R, int C, float eps, int8_t* xq, int ld,
+                          float* xs_s) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nvec = C / 8;
+  for (int rr = warp; rr < ROWS; rr += WARPS) {
+    const int r = row0 + rr;
+    int8_t* q = xq + rr * ld;
+    if (r >= R) {
+      for (int v = lane; v < nvec; v += 32)
+        *reinterpret_cast<uint2*>(q + v * 8) = make_uint2(0u, 0u);
+      if (lane == 0) xs_s[rr] = 0.f;
+      continue;
+    }
+    uint4 v[MAX_ROW_VEC], vb[MAX_ROW_VEC];
+    const uint4* row = reinterpret_cast<const uint4*>(x + (size_t)r * C);
+    const uint4* rowb = reinterpret_cast<const uint4*>(xb + (size_t)r * C);
+#pragma unroll
+    for (int i = 0; i < MAX_ROW_VEC; ++i)
+      if (lane + 32 * i < nvec) {
+        v[i] = __ldg(row + lane + 32 * i);
+        if (DELTA) vb[i] = __ldg(rowb + lane + 32 * i);
+      }
+    float mu, inv, mub = 0.f, invb = 0.f;
+    row_stats(v, nvec, C, eps, mu, inv);
+    if (DELTA) row_stats(vb, nvec, C, eps, mub, invb);
+    auto u_at = [&](int i, int j) {
+      const int c = (lane + 32 * i) * 8 + j;
+      const float s = __ldg(ln_s + c), b = __ldg(ln_b + c);
+      const float u =
+          ln_at(__bfloat162float(reinterpret_cast<const bf16*>(&v[i])[j]), mu, inv, s, b);
+      if (!DELTA) return u;
+      const float ub =
+          ln_at(__bfloat162float(reinterpret_cast<const bf16*>(&vb[i])[j]), mub, invb, s, b);
+      return __fsub_rn(u, ub);
+    };
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAX_ROW_VEC; ++i) {
+      if (lane + 32 * i >= nvec) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(u_at(i, j)));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    amax = fmaxf(amax, 1e-8f);
+    const float inv127 = __fdiv_rn(127.f, amax);
+#pragma unroll
+    for (int i = 0; i < MAX_ROW_VEC; ++i) {
+      if (lane + 32 * i >= nvec) continue;
+      uint2 packed;
+      int8_t* b = reinterpret_cast<int8_t*>(&packed);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = (int8_t)__float2int_rn(__fmul_rn(u_at(i, j), inv127));
+      *reinterpret_cast<uint2*>(q + (lane + 32 * i) * 8) = packed;
+    }
+    if (lane == 0) xs_s[rr] = __fmul_rn(amax, 1.0f / 127.0f);
+  }
+}
+
+// NT1: 8-column tiles per warp in a strip (strip width 16 * NT1 * 8).
+// DELTA false: row 22 (x -> o, m, gp_q, gp_s); true: row 23 (x, x_b, gp_q,
+// gp_s, m_b -> o).
+template <int NT1, bool DELTA>
+__global__ void __launch_bounds__(THREADS, 1)
+delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
+                 const float* __restrict__ ln_s, const float* __restrict__ ln_b,
+                 const int8_t* __restrict__ w1, const float* __restrict__ s1,
+                 const float* __restrict__ b1, const int8_t* __restrict__ w2,
+                 const float* __restrict__ s2, const float* __restrict__ b2,
+                 const float* __restrict__ colsum, int8_t* __restrict__ gp_q,
+                 float* __restrict__ gp_s, const bf16* __restrict__ m_b,
+                 bf16* __restrict__ m_out, bf16* __restrict__ out, int R, int C,
+                 int strips, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int HS = WARPS * NT1 * 8;  // strip width
+  const int hidden = HS * strips, out_dim = C;
+  const Layout lay = make_layout(HS, strips);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * ROWS;
+  int8_t* hq = reinterpret_cast<int8_t*>(smem);
+  int8_t* xq = hq + (strips - 1) * lay.hq_bytes;  // until the last strip is coded
+  int8_t* ring = reinterpret_cast<int8_t*>(smem + lay.ring_off);
+  float* xs_s = reinterpret_cast<float*>(smem + lay.xs_off);
+  float* hsc_s = reinterpret_cast<float*>(smem + lay.hsc_off);
+  float* zp_s = reinterpret_cast<float*>(smem + lay.zp_off);
+  float* gpi_s = reinterpret_cast<float*>(smem + lay.gpi_off);
+  float* red_max = reinterpret_cast<float*>(smem + lay.red_off);
+  float* red_min = red_max + WARPS * ROWS;
+  float* red_gp = red_min + WARPS * ROWS;
+  const int ld = lay.hq_ld;
+
+  code_rows<DELTA>(x, xb, ln_s, ln_b, row0, R, C, eps, xq, ld, xs_s);
+
+  // ---- fc1 + the strip epilogue, strip by strip ----
+  const int nk1 = C / KC1, n1 = strips * nk1;
+  auto issue1 = [&](int i) {
+    const int j = i / nk1, kc = i % nk1;
+    int8_t* st = ring + (i & 1) * STAGE;
+    for (int v = tid; v < HS * 2; v += THREADS) {
+      const int n = v >> 1, seg = v & 1;
+      cp_async16(st + swz<2>(n, seg * 16),
+                 w1 + (size_t)(j * HS + n) * C + kc * KC1 + seg * 16);
+    }
+  };
+  int acc[2][NT1][4];
+  issue1(0);
+  cp_async_commit();
+  for (int i = 0; i < n1; ++i) {
+    const int j = i / nk1, kc = i % nk1;
+    if (kc == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT1; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+    }
+    cp_async_wait_all();
+    __syncthreads();  // chunk i (and the x codes) visible; chunk i-1 done
+    if (i + 1 < n1) {
+      issue1(i + 1);
+      cp_async_commit();
+    }
+    const int8_t* st = ring + (i & 1) * STAGE;
+    unsigned a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int8_t* p = xq + (mt * 16 + g) * ld + kc * KC1 + t * 4;
+      a[mt][0] = lds32(p);
+      a[mt][1] = lds32(p + 8 * ld);
+      a[mt][2] = lds32(p + 16);
+      a[mt][3] = lds32(p + 8 * ld + 16);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT1; ++nt) {
+      const int n = warp * NT1 * 8 + nt * 8 + g;
+      const unsigned b0 = lds32(st + swz<2>(n, t * 4));
+      const unsigned bb = lds32(st + swz<2>(n, 16 + t * 4));
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        mma_s8(acc[mt][nt], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b0, bb);
+    }
+    if (kc != nk1 - 1) continue;
+
+    // strip j epilogue. This thread holds rows mt*16 + hh*8 + g, columns
+    // nt*8 + t*2 + {0, 1}; acc takes the f32 value (e, or dg) as its bits.
+    float mx[2][2], mn[2][2], gx[2][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[mt][hh] = -pos_inf();
+        mn[mt][hh] = pos_inf();
+        gx[mt][hh] = 0.f;
+      }
+#pragma unroll
+    for (int nt = 0; nt < NT1; ++nt) {
+      const int col = j * HS + warp * NT1 * 8 + nt * 8 + t * 2;
+      const float sc0 = __ldg(s1 + col), sc1 = __ldg(s1 + col + 1);
+      float bi0 = 0.f, bi1 = 0.f;
+      if (!DELTA) {
+        bi0 = __ldg(b1 + col);
+        bi1 = __ldg(b1 + col + 1);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = mt * 16 + hh * 8 + g;
+          float gpv0 = 0.f, gpv1 = 0.f;
+          if (DELTA) {  // the cached slope deq(gp) of this row and strip
+            const int rg = min(row0 + r, R - 1);
+            const char2 c2 =
+                *reinterpret_cast<const char2*>(gp_q + (size_t)rg * hidden + col);
+            const float gsc = __ldg(gp_s + (size_t)rg * strips + j);
+            gpv0 = __fmul_rn((float)c2.x, gsc);
+            gpv1 = __fmul_rn((float)c2.y, gsc);
+          }
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int e = hh * 2 + k;
+            const float base = __fmul_rn(__fmul_rn((float)acc[mt][nt][e], xs_s[r]),
+                                         k ? sc1 : sc0);
+            if (DELTA) {
+              const float dg = __fmul_rn(base, k ? gpv1 : gpv0);
+              acc[mt][nt][e] = __float_as_int(dg);
+              gx[mt][hh] = fmaxf(gx[mt][hh], fabsf(dg));
+            } else {
+              const float ev = __fadd_rn(base, k ? bi1 : bi0);
+              float gv, gpv;
+              gelu_and_grad(ev, gv, gpv);
+              acc[mt][nt][e] = __float_as_int(ev);
+              mx[mt][hh] = fmaxf(mx[mt][hh], gv);
+              mn[mt][hh] = fminf(mn[mt][hh], gv);
+              gx[mt][hh] = fmaxf(gx[mt][hh], fabsf(gpv));
+            }
+          }
+        }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+        for (int o = 1; o <= 2; o <<= 1) {
+          gx[mt][hh] = fmaxf(gx[mt][hh], __shfl_xor_sync(0xffffffffu, gx[mt][hh], o));
+          if (!DELTA) {
+            mx[mt][hh] = fmaxf(mx[mt][hh], __shfl_xor_sync(0xffffffffu, mx[mt][hh], o));
+            mn[mt][hh] = fminf(mn[mt][hh], __shfl_xor_sync(0xffffffffu, mn[mt][hh], o));
+          }
+        }
+        if (t == 0) {
+          const int r = mt * 16 + hh * 8 + g;
+          red_gp[warp * ROWS + r] = gx[mt][hh];
+          if (!DELTA) {
+            red_max[warp * ROWS + r] = mx[mt][hh];
+            red_min[warp * ROWS + r] = mn[mt][hh];
+          }
+        }
+      }
+    __syncthreads();  // partials visible; every warp is done reading xq
+    if (tid < ROWS) {
+      float amax = 0.f;
+      for (int w = 0; w < WARPS; ++w) amax = fmaxf(amax, red_gp[w * ROWS + tid]);
+      amax = fmaxf(amax, 1e-8f);
+      gpi_s[tid] = __fdiv_rn(127.f, amax);
+      const float sc127 = __fmul_rn(amax, 1.0f / 127.0f);
+      if (DELTA) {
+        hsc_s[j * ROWS + tid] = sc127;
+      } else {
+        float gmax = -pos_inf(), gmin = pos_inf();
+        for (int w = 0; w < WARPS; ++w) {
+          gmax = fmaxf(gmax, red_max[w * ROWS + tid]);
+          gmin = fminf(gmin, red_min[w * ROWS + tid]);
+        }
+        hsc_s[j * ROWS + tid] =
+            __fmul_rn(fmaxf(__fsub_rn(gmax, gmin), 1e-8f), 1.0f / 254.0f);
+        zp_s[j * ROWS + tid] = __fmul_rn(__fadd_rn(gmax, gmin), 0.5f);
+        if (row0 + tid < R) gp_s[(size_t)(row0 + tid) * strips + j] = sc127;
+      }
+    }
+    __syncthreads();
+    int8_t* hj = hq + j * lay.hq_bytes;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = mt * 16 + hh * 8 + g;
+        const float sc = hsc_s[j * ROWS + r], zp = zp_s[j * ROWS + r];
+        const float gi = gpi_s[r];
+        const bool live = row0 + r < R;
+#pragma unroll
+        for (int nt = 0; nt < NT1; ++nt) {
+          const int cl = warp * NT1 * 8 + nt * 8 + t * 2;
+          char2 c2, p2;
+          if (DELTA) {
+            c2.x = (signed char)__float2int_rn(
+                __fmul_rn(__int_as_float(acc[mt][nt][hh * 2]), gi));
+            c2.y = (signed char)__float2int_rn(
+                __fmul_rn(__int_as_float(acc[mt][nt][hh * 2 + 1]), gi));
+          } else {
+            float g0, gp0, g1, gp1;
+            gelu_and_grad(__int_as_float(acc[mt][nt][hh * 2]), g0, gp0);
+            gelu_and_grad(__int_as_float(acc[mt][nt][hh * 2 + 1]), g1, gp1);
+            c2.x = (signed char)__float2int_rn(__fdiv_rn(__fsub_rn(g0, zp), sc));
+            c2.y = (signed char)__float2int_rn(__fdiv_rn(__fsub_rn(g1, zp), sc));
+            p2.x = (signed char)__float2int_rn(__fmul_rn(gp0, gi));
+            p2.y = (signed char)__float2int_rn(__fmul_rn(gp1, gi));
+            if (live)
+              *reinterpret_cast<char2*>(gp_q + (size_t)(row0 + r) * hidden + j * HS + cl) =
+                  p2;
+          }
+          *reinterpret_cast<char2*>(hj + r * ld + cl) = c2;
+        }
+      }
+  }
+
+  // ---- fc2 over the strips, NO output columns at a time ----
+  const int nk2 = HS / KC2, n2 = strips * nk2;
+  const int rg = warp >> 3, cg = warp & 7;  // 2 row groups x 8 column groups
+  for (int o0 = 0; o0 < out_dim; o0 += NO) {
+    auto issue2 = [&](int i) {
+      const int j = i / nk2, kc = i % nk2;
+      int8_t* st = ring + (i & 1) * STAGE;
+      for (int v = tid; v < NO * 8; v += THREADS) {
+        const int n = v >> 3, seg = v & 7;
+        cp_async16(st + swz<8>(n, seg * 16),
+                   w2 + (size_t)(o0 + n) * hidden + j * HS + kc * KC2 + seg * 16);
+      }
+    };
+    float accf[4][4];
+    int d[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accf[nt][e] = 0.f;
+    __syncthreads();  // the ring's last readers (fc1 or the previous pass) are done
+    issue2(0);
+    cp_async_commit();
+    for (int i = 0; i < n2; ++i) {
+      const int j = i / nk2, kc = i % nk2;
+      if (kc == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[nt][e] = 0;
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      if (i + 1 < n2) {
+        issue2(i + 1);
+        cp_async_commit();
+      }
+      const int8_t* st = ring + (i & 1) * STAGE;
+      const int8_t* A = hq + j * lay.hq_bytes + (rg * 16 + g) * ld + kc * KC2 + t * 4;
+#pragma unroll
+      for (int ks = 0; ks < KC2; ks += 32) {
+        const unsigned a0 = lds32(A + ks), a1 = lds32(A + 8 * ld + ks);
+        const unsigned a2 = lds32(A + ks + 16), a3 = lds32(A + 8 * ld + ks + 16);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int n = cg * 32 + nt * 8 + g;
+          mma_s8(d[nt], a0, a1, a2, a3, lds32(st + swz<8>(n, ks + t * 4)),
+                 lds32(st + swz<8>(n, ks + 16 + t * 4)));
+        }
+      }
+      if (kc == nk2 - 1) {  // strip j done
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = o0 + cg * 32 + nt * 8 + t * 2;
+          float cs0 = 0.f, cs1 = 0.f;
+          if (!DELTA) {
+            cs0 = __ldg(colsum + j * out_dim + col);
+            cs1 = __ldg(colsum + j * out_dim + col + 1);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = rg * 16 + (e >> 1) * 8 + g;
+            const float sc = hsc_s[j * ROWS + r];
+            const float term = __fmul_rn((float)d[nt][e], sc);
+            // row 22: + zp_j * colsum_j (the affine grid's zero point)
+            accf[nt][e] = __fadd_rn(
+                accf[nt][e],
+                DELTA ? term
+                      : __fadd_rn(term, __fmul_rn(zp_s[j * ROWS + r], (e & 1) ? cs1 : cs0)));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = o0 + cg * 32 + nt * 8 + t * 2;
+      const float w0 = __ldg(s2 + col), w1v = __ldg(s2 + col + 1);
+      float c0 = 0.f, c1 = 0.f;
+      if (!DELTA) {
+        c0 = __ldg(b2 + col);
+        c1 = __ldg(b2 + col + 1);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row0 + rg * 16 + hh * 8 + g;
+        if (r >= R) continue;
+        const size_t at = (size_t)r * out_dim + col;
+        __nv_bfloat162 m;
+        if (DELTA) {  // m = f32(m_b) + acc * s2
+          const __nv_bfloat162 mb = *reinterpret_cast<const __nv_bfloat162*>(m_b + at);
+          m.x = __float2bfloat16_rn(
+              __fadd_rn(__bfloat162float(mb.x), __fmul_rn(accf[nt][hh * 2], w0)));
+          m.y = __float2bfloat16_rn(
+              __fadd_rn(__bfloat162float(mb.y), __fmul_rn(accf[nt][hh * 2 + 1], w1v)));
+        } else {  // m = acc * s2 + b2
+          m.x = __float2bfloat16_rn(__fadd_rn(__fmul_rn(accf[nt][hh * 2], w0), c0));
+          m.y = __float2bfloat16_rn(__fadd_rn(__fmul_rn(accf[nt][hh * 2 + 1], w1v), c1));
+          *reinterpret_cast<__nv_bfloat162*>(m_out + at) = m;
+        }
+        const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(x + at);
+        __nv_bfloat162 o;
+        o.x = badd(xr.x, m.x);
+        o.y = badd(xr.y, m.y);
+        *reinterpret_cast<__nv_bfloat162*>(out + at) = o;
+      }
+    }
+  }
+}
+
+struct Args {
+  const void *x, *xb, *lns, *lnb, *w1, *s1, *b1, *w2, *s2, *b2, *colsum;
+  void* gp_q;
+  void* gp_s;
+  const void* m_b;
+  void *m_out, *out;
+};
+
+template <int NT1, bool DELTA>
+int launch_nt(const Args& a, int R, int C, int strips, float eps, cudaStream_t stream) {
+  const Layout lay = make_layout(WARPS * NT1 * 8, strips);
+  if (lay.bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(delta_mlp_kernel<NT1, DELTA>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      lay.bytes);
+  if (err) return err;
+  delta_mlp_kernel<NT1, DELTA><<<(R + ROWS - 1) / ROWS, THREADS, lay.bytes, stream>>>(
+      (const bf16*)a.x, (const bf16*)a.xb, (const float*)a.lns, (const float*)a.lnb,
+      (const int8_t*)a.w1, (const float*)a.s1, (const float*)a.b1, (const int8_t*)a.w2,
+      (const float*)a.s2, (const float*)a.b2, (const float*)a.colsum, (int8_t*)a.gp_q,
+      (float*)a.gp_s, (const bf16*)a.m_b, (bf16*)a.m_out, (bf16*)a.out, R, C, strips,
+      eps);
+  return (int)cudaGetLastError();
+}
+
+template <bool DELTA>
+int launch(const Args& a, int R, int C, int hidden, int strips, float eps, void* stream) {
+  if (R < 1 || strips < 1 || strips > MAX_STRIPS || hidden % strips)
+    return (int)cudaErrorInvalidValue;
+  const int hs = hidden / strips;
+  if (C < NO || C % NO || C > MAX_ROW_VEC * 8 * 32 || C > hs || hs % 256)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (hs / 128) {  // strips of 256, 512, 768, 1024 (U-ViT widths / 4)
+#define USPACE_NT(n) \
+  case n:            \
+    return launch_nt<n, DELTA>(a, R, C, strips, eps, s);
+    USPACE_NT(2)
+    USPACE_NT(4)
+    USPACE_NT(6)
+    USPACE_NT(8)
+#undef USPACE_NT
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Row 22. x [R, C] bf16; f32 ln_scale, ln_bias [C]; w1 [hidden, C] int8 with
+// s1, b1 [hidden] f32; w2 [C, hidden] int8 with s2, b2 [C] f32; colsum
+// [strips, C] f32 (column sums of each strip of w2's codes) -> out (x + m)
+// and m_out [R, C] bf16, gp_q [R, hidden] int8, gp_s [R, strips] f32.
+int uspace_base_mlp_grad(const void* x, const void* ln_scale, const void* ln_bias,
+                         const void* w1, const void* s1, const void* b1, const void* w2,
+                         const void* s2, const void* b2, const void* colsum, void* out,
+                         void* m_out, void* gp_q, void* gp_s, int R, int C, int hidden,
+                         int strips, float eps, void* stream) {
+  const Args a{x,      nullptr, ln_scale, ln_bias, w1,      s1,    b1,  w2,
+               s2,     b2,      colsum,   gp_q,    gp_s,    nullptr, m_out, out};
+  return launch<false>(a, R, C, hidden, strips, eps, stream);
+}
+
+// Row 23. x, x_b, m_b [R, C] bf16; gp_q [R, hidden] int8, gp_s [R, strips]
+// f32 (row 22's cache); f32 ln_scale, ln_bias [C]; w1 [hidden, C] int8 with
+// s1 [hidden]; w2 [C, hidden] int8 with s2 [C] -> out [R, C] bf16.
+int uspace_delta_mlp_lin(const void* x, const void* xb, const void* gp_q,
+                         const void* gp_s, const void* m_b, const void* ln_scale,
+                         const void* ln_bias, const void* w1, const void* s1,
+                         const void* w2, const void* s2, void* out, int R, int C,
+                         int hidden, int strips, float eps, void* stream) {
+  const Args a{x,  xb,      ln_scale,         ln_bias,          w1,  s1,      nullptr, w2,
+               s2, nullptr, nullptr, const_cast<void*>(gp_q), const_cast<void*>(gp_s),
+               m_b, nullptr, out};
+  return launch<true>(a, R, C, hidden, strips, eps, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,532 @@
+"""The fused kernels of the base-anchored stage-delta int8 field
+(counterpart of ``uspace_tpu/ops/delta.py``), ``hidden_mode="grad"``.
+
+One RK step evaluates the field once in full ("base", stage 2) and emits a
+read-only per-block cache; every later stage ("delta") rebuilds each
+projection as ``cached + W @ q8(input_i - input_base)``, an int8 product
+whose rounding step is set by the stage gap, and emits nothing. Four
+kernels, hand-written in CUDA C++ for Hopper:
+
+- :func:`base_attn_block` (``csrc/delta_attention.cu``, TPU kernel
+  ``_base_attn_cache_kernel``): ``a = attention(qkv(LN1(x)))`` in int8
+  W8A8, the qkv re-coded per row (the cache ``qkv_q``/``qkv_s``) and the
+  attention run on the dequantized cache, so a zero delta reproduces ``a``;
+- :func:`delta_attn_block` (same file, ``_delta_attn_kernel``): ``qkv =
+  deq(cache) + Wq q8(LN1(x) - LN1(x_b))``, attention, ``xm = (x - x_b) +
+  xm_b + Wp q8(a - a_b)``;
+- :func:`base_mlp_block` with ``mode="grad"`` (``csrc/delta_mlp.cu``,
+  ``_base_mlp_cache_kernel_gr``): ``o = x + m``, ``m = fc2(gelu(fc1(
+  LN2(x))))`` on the exact f32 hidden, emitting ``gelu'(e)`` as int8 codes
+  with one scale per row and strip, and ``m``;
+- :func:`delta_mlp_block` with ``grad=True`` (same file,
+  ``_delta_mlp_kernel_lin``): ``dg = de * deq(gp)``, ``m = m_b + W2 q8(dg)``
+  per strip, ``o = x + m``: no GELU at all.
+
+Rounding sites, shared by each kernel and its plain twin here:
+
+- the LN of all four is ``_ln_f32``: f32 sums over C, ``var = E[x^2] -
+  mu^2``, ``rsqrt(var + eps)``, f32 scale and bias, never rounded to bf16
+  (not the bf16 chain of the int8 MLP and sub-block kernels). The twins
+  take the two sums in the kernels' order (:func:`ln_lanes`): an f32 LN
+  row is coded as it is, so a sum taken in another order flips a code now
+  and then and moves every output of its row;
+- activations are coded per row with ``round(x * (127 / amax))`` and the
+  scale ``amax * (1/127)`` (``ops.quant.row_codes``, the TPU kernels'
+  ``_rowquant``), never with ``int8_dense``'s division;
+- the base MLP codes fc2's input on the affine grid of the int8 MLP kernel
+  (one per row and strip) and gelu'(e) symmetric per row and strip; the
+  delta codes dg symmetric per row and strip; the strip count is
+  ``ops.mlp.col_slices`` of the hidden width, as the JAX package's
+  ``_mlp_call`` derives it;
+- biases cancel in every delta product; residual adds round in x's dtype.
+
+Shapes, as the JAX functions return them: ``qkv_q`` [B, Lp, 3C] int8 and
+``qkv_s`` [B, Lp, 1] f32 with Lp = round_up(L, 32) (the base runs on the
+rows past L as zeros, as the TPU kernel's padded block does); ``a`` [B, L,
+C]; ``gp_q`` [B*L, hidden] int8 and ``gp_s`` [B*L, strips] f32; ``m`` [B,
+L, C]. Weights come pre-quantized, in the JAX layout: int8 ``[K, N]`` (the
+``kn`` view of an ``ops.quant.QWeight``, which the kernels read without a
+copy) with f32 column scales ``[N]`` or ``[1, N]``.
+
+The ``"exact"`` and ``"gelu"`` hidden modes need four more kernels (rows
+20, 21, 24 and 25 of the kernel table) and are refused here. Each wrapper
+launches its kernel for a CUDA tensor and uses its twin only for a tensor
+on the CPU; on CUDA it never falls back. Inference-only, as in JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ._build import (
+    check_no_grad,
+    check_tensor,
+    cuda_stream,
+    load,
+    on_cpu,
+    raise_on,
+)
+from .attention import KERNEL_HEAD_DIM, KERNEL_MAX_LEN, \
+    packed_attention_plain
+from .mlp import _gelu_f32, col_slices, gelu_grad
+from .quant import int_matmul, row_codes, strip_colsums, true_div
+
+# launches of each CUDA kernel since the last reset (the CPU twin does not count)
+LAUNCHES: Dict[str, int] = {"base_attn_cache": 0, "delta_attn": 0,
+                            "base_mlp_grad": 0, "delta_mlp_lin": 0}
+
+SEQ_ALIGN = 32  # the cache's row padding (the TPU kernels' Lp)
+
+_NEXT_SLICE = {
+    "e": "mode='e' (the 'exact' hidden mode) needs kernels 20 and 25 of the "
+         "kernel table (_base_mlp_cache_kernel, _delta_mlp_kernel), not "
+         "ported yet",
+    "e+g": "mode='e+g' (the 'gelu' hidden mode) needs kernels 21 and 24 of "
+           "the kernel table (_base_mlp_cache_kernel_g, _delta_mlp_kernel_g), "
+           "not ported yet",
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _vec(t: torch.Tensor) -> torch.Tensor:
+    """A scale, bias or LN vector as contiguous f32 [N]."""
+    return t.to(torch.float32).reshape(-1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Plain twins (the CPU path and the tests' reference)
+# ---------------------------------------------------------------------------
+
+
+def _lane_sum(v: torch.Tensor) -> torch.Tensor:
+    """The kernels' f32 row sum of ``v [..., C]``: lane l of a warp adds,
+    in order, the 8 values of each vector l + 32 i; then five butterfly
+    steps add lane l ^ o for o = 16, 8, 4, 2, 1 (an f32 sum is commutative,
+    so every lane ends with one value)."""
+    c = v.shape[-1]
+    vecs = -(-c // 256) * 32  # whole warps of 8-value vectors
+    v = F.pad(v, (0, vecs * 8 - c)).reshape(*v.shape[:-1], vecs // 32, 32, 8)
+    s = torch.zeros(v.shape[:-3] + (32,), dtype=v.dtype, device=v.device)
+    for i in range(v.shape[-3]):
+        for j in range(8):
+            s = s + v[..., i, :, j]
+    lanes = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[..., lanes ^ o]
+    return s[..., :1]
+
+
+def ln_lanes(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """``_ln_f32`` with its two sums taken in the kernels' order (one warp
+    per row, :func:`_lane_sum`): mu = sum / C, var = sum(x^2) / C - mu^2,
+    ``((x - mu) * rsqrt(var + eps)) * s + b`` in f32."""
+    xf = x.float()
+    c = x.shape[-1]
+    mu = true_div(_lane_sum(xf), c)
+    var = true_div(_lane_sum(xf * xf), c) - mu * mu
+    inv = torch.rsqrt(var + eps)
+    return (xf - mu) * inv * ln_scale.float() + ln_bias.float()
+
+
+def base_attn_plain(x: torch.Tensor, ln_scale: torch.Tensor,
+                    ln_bias: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                    num_heads: int, eps: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Twin of ``_base_attn_cache_kernel``: LN1 in f32 of x padded with zero
+    rows to Lp, row codes, the int8 QKV product ``f32(acc) * us * ws``, the
+    qkv re-coded per row (``qkv_q``, ``qkv_s``), the attention core on
+    ``bf16(f32(qkv_q) * qkv_s)`` of the L real rows."""
+    b, l, c = x.shape
+    lp = round_up(l, SEQ_ALIGN)
+    u = ln_lanes(F.pad(x, (0, 0, 0, lp - l)), ln_scale, ln_bias, eps)
+    uq, us = row_codes(u)
+    qkv = int_matmul(uq, wq).float() * us * _vec(ws)
+    qkv_q, qkv_s = row_codes(qkv)
+    qkv_d = (qkv_q[:, :l].float() * qkv_s[:, :l]).to(x.dtype)
+    a = packed_attention_plain(qkv_d, num_heads, (c // num_heads) ** -0.5)
+    return a, qkv_q, qkv_s
+
+
+def delta_attn_plain(x: torch.Tensor, xb: torch.Tensor, qkv_q: torch.Tensor,
+                     qkv_s: torch.Tensor, a_b: torch.Tensor,
+                     xm_b: torch.Tensor, ln_scale: torch.Tensor,
+                     ln_bias: torch.Tensor, wq: torch.Tensor,
+                     ws: torch.Tensor, wp: torch.Tensor, sp: torch.Tensor,
+                     num_heads: int, eps: float) -> torch.Tensor:
+    """Twin of ``_delta_attn_kernel`` on the L real rows: ``qkv =
+    bf16(f32(qkv_q) * qkv_s + (f32(acc) * ds) * ws)`` with the codes of
+    ``LN1(x) - LN1(x_b)``, the attention core, ``da = f32(a) - f32(a_b)``
+    coded per row, ``xm = bf16(((x - x_b) + xm_b) + (f32(acc) * das) *
+    sp)`` in f32."""
+    l, c = x.shape[1], x.shape[2]
+    d = ln_lanes(x, ln_scale, ln_bias, eps) - ln_lanes(xb, ln_scale, ln_bias,
+                                                       eps)
+    dq, ds = row_codes(d)
+    dqkv = int_matmul(dq, wq).float() * ds * _vec(ws)
+    qkv = (qkv_q[:, :l].float() * qkv_s[:, :l] + dqkv).to(x.dtype)
+    a = packed_attention_plain(qkv, num_heads, (c // num_heads) ** -0.5)
+    daq, das = row_codes(a.float() - a_b[:, :l].float())
+    dp = int_matmul(daq, wp).float() * das * _vec(sp)
+    return (x.float() - xb.float() + xm_b.float() + dp).to(x.dtype)
+
+
+def base_mlp_grad_plain(x2d: torch.Tensor, ln_scale: torch.Tensor,
+                        ln_bias: torch.Tensor, w1q: torch.Tensor,
+                        s1: torch.Tensor, b1: torch.Tensor,
+                        w2q: torch.Tensor, s2: torch.Tensor,
+                        b2: torch.Tensor, eps: float, strips: int):
+    """Twin of ``_base_mlp_cache_kernel_gr`` on rows x [R, C]: ``(o, gp_q,
+    gp_s, m)``. Per strip j: ``e = f32(acc) * xs * s1 + b1`` (exact f32),
+    gelu'(e) coded per row (``gp_s[:, j]``), GELU(e) on the affine grid that
+    fc2 reads, ``acc += f32(d_j) * scale_j + zp_j * colsum_j``; ``m =
+    bf16(acc * s2 + b2)``, ``o = x + m`` in x's dtype."""
+    hidden = w1q.shape[-1]
+    hs = hidden // strips
+    xq, xs = row_codes(ln_lanes(x2d, ln_scale, ln_bias, eps))
+    s1f, b1f = _vec(s1), _vec(b1)
+    colsum = strip_colsums(w2q, strips)
+    gp_q, gp_s, acc = [], [], None
+    for j in range(strips):
+        cols = slice(j * hs, (j + 1) * hs)
+        e = int_matmul(xq, w1q[:, cols]).float() * xs * s1f[cols] + b1f[cols]
+        q, s = row_codes(gelu_grad(e))
+        gp_q.append(q)
+        gp_s.append(s)
+        g = _gelu_f32(e)
+        gmax = g.amax(dim=-1, keepdim=True)
+        gmin = g.amin(dim=-1, keepdim=True)
+        scale = torch.clamp(gmax - gmin, min=1e-8) * (1.0 / 254.0)
+        zp = (gmax + gmin) * 0.5
+        hq = torch.round((g - zp) / scale).to(torch.int8)
+        t = int_matmul(hq, w2q[cols]).float() * scale + zp * colsum[j]
+        acc = t if acc is None else acc + t
+    m = (acc * _vec(s2) + _vec(b2)).to(x2d.dtype)
+    return x2d + m, torch.cat(gp_q, dim=1), torch.cat(gp_s, dim=1), m
+
+
+def delta_mlp_lin_plain(x2d: torch.Tensor, xb2d: torch.Tensor,
+                        gp_q: torch.Tensor, gp_s: torch.Tensor,
+                        m_b: torch.Tensor, ln_scale: torch.Tensor,
+                        ln_bias: torch.Tensor, w1q: torch.Tensor,
+                        s1: torch.Tensor, w2q: torch.Tensor,
+                        s2: torch.Tensor, eps: float,
+                        strips: int) -> torch.Tensor:
+    """Twin of ``_delta_mlp_kernel_lin`` on rows [R, C]: the codes of
+    ``LN2(x) - LN2(x_b)``; per strip ``de = f32(acc) * ds * s1``, ``dg = de
+    * (f32(gp_q) * gp_s[:, j])`` coded per row, ``acc += f32(d_j) *
+    scale_j``; ``o = x + bf16(f32(m_b) + acc * s2)``."""
+    hidden = w1q.shape[-1]
+    hs = hidden // strips
+    d = ln_lanes(x2d, ln_scale, ln_bias, eps) - ln_lanes(xb2d, ln_scale,
+                                                         ln_bias, eps)
+    dq, ds = row_codes(d)
+    s1f = _vec(s1)
+    acc = None
+    for j in range(strips):
+        cols = slice(j * hs, (j + 1) * hs)
+        de = int_matmul(dq, w1q[:, cols]).float() * ds * s1f[cols]
+        dg = de * (gp_q[:, cols].float() * gp_s[:, j:j + 1])
+        hq, hsc = row_codes(dg)
+        t = int_matmul(hq, w2q[cols]).float() * hsc
+        acc = t if acc is None else acc + t
+    m = m_b.float() + acc * _vec(s2)
+    return x2d + m.to(x2d.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _codes_nk(name: str, w: torch.Tensor, n: int, k: int,
+              dev: torch.device) -> torch.Tensor:
+    """The kernels' ``[N, K]`` rows of codes given in the JAX layout ``[K,
+    N]`` (free for the ``kn`` view of a QWeight)."""
+    t = w.t().contiguous()
+    check_tensor(f"{name} codes", t, torch.int8, (n, k), dev)
+    return t
+
+
+def _attn_operands(x, num_heads, c, ln_scale, ln_bias, ws, dev):
+    if x.dim() != 3 or x.dtype != torch.bfloat16:
+        raise ValueError(f"the stage-delta attention kernels take x [B, L, C] "
+                         f"bfloat16, got {tuple(x.shape)} {x.dtype}")
+    if c != num_heads * KERNEL_HEAD_DIM or c % 128:
+        raise ValueError(f"the stage-delta attention kernels take head dim "
+                         f"{KERNEL_HEAD_DIM} and C a multiple of 128, got "
+                         f"C={c} with {num_heads} heads")
+    if not 1 <= x.shape[1] <= KERNEL_MAX_LEN:
+        raise ValueError(f"the stage-delta attention kernels take 1 <= L <= "
+                         f"{KERNEL_MAX_LEN}, got {x.shape[1]}")
+    check_tensor("x", x, torch.bfloat16, tuple(x.shape), dev)
+    lns, lnb, wsf = _vec(ln_scale), _vec(ln_bias), _vec(ws)
+    check_tensor("ln_scale", lns, torch.float32, (c,), dev)
+    check_tensor("ln_bias", lnb, torch.float32, (c,), dev)
+    check_tensor("ws", wsf, torch.float32, (3 * c,), dev)
+    return lns, lnb, wsf
+
+
+def _base_attn_kernel(x, ln_scale, ln_bias, wq, ws, num_heads, eps):
+    b, l, c = x.shape
+    dev = x.device
+    lp = round_up(l, SEQ_ALIGN)
+    lns, lnb, wsf = _attn_operands(x, num_heads, c, ln_scale, ln_bias, ws,
+                                   dev)
+    w = _codes_nk("wq", wq, 3 * c, c, dev)
+    stream = cuda_stream(dev)
+    lib, att = load("delta_attention"), load("attention")
+    uq = torch.empty((b * lp, c), dtype=torch.int8, device=dev)
+    us = torch.empty((b * lp,), dtype=torch.float32, device=dev)
+    qkv = torch.empty((b * lp, 3 * c), dtype=torch.float32, device=dev)
+    qkv_q = torch.empty((b, lp, 3 * c), dtype=torch.int8, device=dev)
+    qkv_s = torch.empty((b, lp, 1), dtype=torch.float32, device=dev)
+    qkv_d = torch.empty((b, l, 3 * c), dtype=x.dtype, device=dev)
+    a = torch.empty_like(x)
+    raise_on(lib.uspace_ln_codes(x.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+                                 uq.data_ptr(), us.data_ptr(), b, l, lp, c,
+                                 eps, stream), "uspace_ln_codes")
+    raise_on(lib.uspace_int8_gemm_f32(uq.data_ptr(), us.data_ptr(),
+                                      w.data_ptr(), wsf.data_ptr(),
+                                      qkv.data_ptr(), b * lp, 3 * c, c,
+                                      stream), "uspace_int8_gemm_f32")
+    raise_on(lib.uspace_qkv_recode(qkv.data_ptr(), qkv_q.data_ptr(),
+                                   qkv_s.data_ptr(), qkv_d.data_ptr(), b, l,
+                                   lp, 3 * c, stream), "uspace_qkv_recode")
+    raise_on(att.uspace_packed_attention(
+        qkv_d.data_ptr(), a.data_ptr(), b, l, num_heads,
+        (c // num_heads) ** -0.5, stream), "uspace_packed_attention")
+    LAUNCHES["base_attn_cache"] += 1
+    return a, qkv_q, qkv_s
+
+
+def _delta_attn_kernel(x, xb, qkv_q, qkv_s, a_b, xm_b, ln_scale, ln_bias,
+                       wq, ws, wp, sp, num_heads, eps):
+    b, l, c = x.shape
+    dev, r = x.device, b * l
+    lp = round_up(l, SEQ_ALIGN)
+    lns, lnb, wsf = _attn_operands(x, num_heads, c, ln_scale, ln_bias, ws,
+                                   dev)
+    spf = _vec(sp)
+    check_tensor("sp", spf, torch.float32, (c,), dev)
+    for name, t in (("x_b", xb), ("a_b", a_b), ("xm_b", xm_b)):
+        # a_b is read on its L real rows only (the JAX kernel's block of Lp
+        # rows runs past the end of the unpadded cache)
+        check_tensor(name, t, torch.bfloat16, (b, l, c), dev)
+    check_tensor("qkv_q", qkv_q, torch.int8, (b, lp, 3 * c), dev)
+    check_tensor("qkv_s", qkv_s, torch.float32, (b, lp, 1), dev)
+    w = _codes_nk("wq", wq, 3 * c, c, dev)
+    wpr = _codes_nk("wp", wp, c, c, dev)
+    stream = cuda_stream(dev)
+    lib, att = load("delta_attention"), load("attention")
+    codes = torch.empty((r, c), dtype=torch.int8, device=dev)
+    sr = torch.empty((r,), dtype=torch.float32, device=dev)
+    qkv = torch.empty((b, l, 3 * c), dtype=x.dtype, device=dev)
+    a, xm = torch.empty_like(x), torch.empty_like(x)
+    raise_on(lib.uspace_ln_delta_codes(
+        x.data_ptr(), xb.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+        codes.data_ptr(), sr.data_ptr(), r, c, eps, stream),
+        "uspace_ln_delta_codes")
+    raise_on(lib.uspace_qkv_delta(
+        codes.data_ptr(), sr.data_ptr(), w.data_ptr(), wsf.data_ptr(),
+        qkv_q.data_ptr(), qkv_s.data_ptr(), qkv.data_ptr(), b, l, lp, 3 * c,
+        c, stream), "uspace_qkv_delta")
+    raise_on(att.uspace_packed_attention(
+        qkv.data_ptr(), a.data_ptr(), b, l, num_heads,
+        (c // num_heads) ** -0.5, stream), "uspace_packed_attention")
+    raise_on(lib.uspace_diff_codes(a.data_ptr(), a_b.data_ptr(),
+                                   codes.data_ptr(), sr.data_ptr(), r, c,
+                                   stream), "uspace_diff_codes")
+    raise_on(lib.uspace_xm_delta(
+        codes.data_ptr(), sr.data_ptr(), wpr.data_ptr(), spf.data_ptr(),
+        x.data_ptr(), xb.data_ptr(), xm_b.data_ptr(), xm.data_ptr(), r, c, c,
+        stream), "uspace_xm_delta")
+    LAUNCHES["delta_attn"] += 1
+    return xm
+
+
+def _mlp_operands(x2d, w1q, s1, w2q, s2, strips, ln_scale, ln_bias):
+    r, c = x2d.shape
+    hidden = w1q.shape[-1]
+    dev = x2d.device
+    hs = hidden // strips
+    if x2d.dtype != torch.bfloat16:
+        raise ValueError(f"the stage-delta MLP kernels take bfloat16, got "
+                         f"{x2d.dtype}")
+    if c % 256 or c > 2048 or hs % 256 or hs > 1024 or c > hs:
+        raise ValueError(
+            f"the stage-delta MLP kernels take C a multiple of 256 up to "
+            f"2048 and a strip width hidden/{strips} of 256, 512, 768 or "
+            f"1024 and >= C; got C={c}, hidden={hidden}")
+    check_tensor("x", x2d, torch.bfloat16, (r, c), dev)
+    w1 = _codes_nk("w1", w1q, hidden, c, dev)
+    w2 = _codes_nk("w2", w2q, c, hidden, dev)
+    out = [_vec(t) for t in (ln_scale, ln_bias, s1, s2)]
+    for name, t, n in zip(("ln_scale", "ln_bias", "s1", "s2"), out,
+                          (c, c, hidden, c)):
+        check_tensor(name, t, torch.float32, (n,), dev)
+    return (w1, w2, *out)
+
+
+def _base_mlp_kernel(x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps,
+                     strips):
+    r, c = x2d.shape
+    hidden = w1q.shape[-1]
+    dev = x2d.device
+    w1, w2, lns, lnb, s1f, s2f = _mlp_operands(x2d, w1q, s1, w2q, s2, strips,
+                                               ln_scale, ln_bias)
+    b1f, b2f = _vec(b1), _vec(b2)
+    check_tensor("b1", b1f, torch.float32, (hidden,), dev)
+    check_tensor("b2", b2f, torch.float32, (c,), dev)
+    colsum = strip_colsums(w2q, strips)
+    check_tensor("colsums", colsum, torch.float32, (strips, c), dev)
+    o, m = torch.empty_like(x2d), torch.empty_like(x2d)
+    gp_q = torch.empty((r, hidden), dtype=torch.int8, device=dev)
+    gp_s = torch.empty((r, strips), dtype=torch.float32, device=dev)
+    rc = load("delta_mlp").uspace_base_mlp_grad(
+        x2d.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w1.data_ptr(),
+        s1f.data_ptr(), b1f.data_ptr(), w2.data_ptr(), s2f.data_ptr(),
+        b2f.data_ptr(), colsum.data_ptr(), o.data_ptr(), m.data_ptr(),
+        gp_q.data_ptr(), gp_s.data_ptr(), r, c, hidden, strips, eps,
+        cuda_stream(dev))
+    raise_on(rc, "uspace_base_mlp_grad")
+    LAUNCHES["base_mlp_grad"] += 1
+    return o, gp_q, gp_s, m
+
+
+def _delta_mlp_kernel(x2d, xb2d, gp_q, gp_s, mb2d, ln_scale, ln_bias, w1q,
+                      s1, w2q, s2, eps, strips):
+    r, c = x2d.shape
+    hidden = w1q.shape[-1]
+    dev = x2d.device
+    w1, w2, lns, lnb, s1f, s2f = _mlp_operands(x2d, w1q, s1, w2q, s2, strips,
+                                               ln_scale, ln_bias)
+    check_tensor("x_b", xb2d, torch.bfloat16, (r, c), dev)
+    check_tensor("m_b", mb2d, torch.bfloat16, (r, c), dev)
+    check_tensor("gp_q", gp_q, torch.int8, (r, hidden), dev)
+    check_tensor("gp_s", gp_s, torch.float32, (r, strips), dev)
+    o = torch.empty_like(x2d)
+    rc = load("delta_mlp").uspace_delta_mlp_lin(
+        x2d.data_ptr(), xb2d.data_ptr(), gp_q.data_ptr(), gp_s.data_ptr(),
+        mb2d.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w1.data_ptr(),
+        s1f.data_ptr(), w2.data_ptr(), s2f.data_ptr(), o.data_ptr(), r, c,
+        hidden, strips, eps, cuda_stream(dev))
+    raise_on(rc, "uspace_delta_mlp_lin")
+    LAUNCHES["delta_mlp_lin"] += 1
+    return o
+
+
+# ---------------------------------------------------------------------------
+# Public entry points (the JAX package's signatures)
+# ---------------------------------------------------------------------------
+
+
+def base_attn_block(x: torch.Tensor, ln_scale: torch.Tensor,
+                    ln_bias: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                    num_heads: int, eps: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(a, qkv_q, qkv_s)``: the attention output [B, L, C] and the padded
+    int8 qkv cache ([B, Lp, 3C] int8, [B, Lp, 1] f32). ``wq`` int8 [C, 3C]
+    and ``ws`` its f32 column scales."""
+    check_no_grad(x, what="the stage-delta attention kernel")
+    if on_cpu(x):
+        return base_attn_plain(x, ln_scale, ln_bias, wq, ws, num_heads, eps)
+    return _base_attn_kernel(x, ln_scale, ln_bias, wq, ws, num_heads, eps)
+
+
+def delta_attn_block(x: torch.Tensor, xb: torch.Tensor, qkv_q: torch.Tensor,
+                     qkv_s: torch.Tensor, a_b: torch.Tensor,
+                     xm_b: torch.Tensor, ln_scale: torch.Tensor,
+                     ln_bias: torch.Tensor, wq: torch.Tensor,
+                     ws: torch.Tensor, wp: torch.Tensor, sp: torch.Tensor,
+                     num_heads: int, eps: float) -> torch.Tensor:
+    """``xm`` [B, L, C]: the whole attention half anchored at the base cache
+    (``qkv_q``/``qkv_s`` and ``a_b`` from :func:`base_attn_block`, ``x_b``
+    and ``xm_b`` the base's streams). ``wp`` int8 [C, C] and ``sp`` the
+    proj's codes and scales."""
+    check_no_grad(x, what="the stage-delta attention kernel")
+    if on_cpu(x):
+        return delta_attn_plain(x, xb, qkv_q, qkv_s, a_b, xm_b, ln_scale,
+                                ln_bias, wq, ws, wp, sp, num_heads, eps)
+    return _delta_attn_kernel(x, xb, qkv_q, qkv_s, a_b, xm_b, ln_scale,
+                              ln_bias, wq, ws, wp, sp, num_heads, eps)
+
+
+def base_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor,
+                   ln_bias: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
+                   b1: torch.Tensor, w2q: torch.Tensor, s2: torch.Tensor,
+                   b2: torch.Tensor, eps: float, mode: str = "grad"):
+    """``mode="grad"``: ``(o, gp_q, gp_s, m)`` for x [..., C]: the block
+    output, ``gelu'(e)`` as int8 [rows, hidden] with f32 scales [rows,
+    strips], and the bf16 fc2 output. ``w1q`` int8 [C, H], ``w2q`` int8
+    [H, C] with their column scales and f32 biases."""
+    if mode in _NEXT_SLICE:
+        raise NotImplementedError(_NEXT_SLICE[mode])
+    if mode != "grad":
+        raise ValueError(f"mode={mode!r} (expected e|e+g|grad)")
+    check_no_grad(x, what="the stage-delta MLP kernel")
+    c = x.shape[-1]
+    x2d = x.reshape(-1, c)
+    strips = col_slices(w1q.shape[-1])
+    if on_cpu(x):
+        o, gp_q, gp_s, m = base_mlp_grad_plain(x2d, ln_scale, ln_bias, w1q,
+                                               s1, b1, w2q, s2, b2, eps,
+                                               strips)
+    else:
+        o, gp_q, gp_s, m = _base_mlp_kernel(x2d.contiguous(), ln_scale,
+                                            ln_bias, w1q, s1, b1, w2q, s2,
+                                            b2, eps, strips)
+    return o.reshape(x.shape), gp_q, gp_s, m.reshape(x.shape)
+
+
+def delta_mlp_block(x: torch.Tensor, xb: torch.Tensor, e_q: torch.Tensor,
+                    e_s: torch.Tensor, m_b: torch.Tensor,
+                    ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                    w1q: torch.Tensor, s1: torch.Tensor, w2q: torch.Tensor,
+                    s2: torch.Tensor, eps: float,
+                    gelu_cache: Optional[Tuple[torch.Tensor, ...]] = None,
+                    grad: bool = False) -> torch.Tensor:
+    """``o`` [..., C]: the MLP half anchored at the base cache. With
+    ``grad=True`` (the only mode ported), ``e_q``/``e_s`` are the cached
+    ``gelu'(e_b)`` codes and their per-row per-strip scales from
+    :func:`base_mlp_block` ``(mode="grad")``, and the GELU-free kernel runs."""
+    if grad and gelu_cache is not None:
+        # the JAX function lets the gelu-cache kernel win and reads the
+        # cached slope as the pre-GELU hidden: refuse the contradiction
+        raise ValueError("grad=True and gelu_cache contradict each other: "
+                         "the 'grad' cache holds gelu'(e), not the pre-GELU "
+                         "hidden the gelu-cache kernel reads")
+    if gelu_cache is not None:
+        raise NotImplementedError(_NEXT_SLICE["e+g"])
+    if not grad:
+        raise NotImplementedError(_NEXT_SLICE["e"])
+    check_no_grad(x, what="the stage-delta MLP kernel")
+    c = x.shape[-1]
+    hidden = w1q.shape[-1]
+    strips = col_slices(hidden)
+    if e_s.dim() != 2 or e_s.shape[-1] != strips:
+        # a per-row scale (the unfused base's layout) would be read past its
+        # end by the per-strip kernel
+        raise ValueError(f"gp_s must hold one scale per row and strip "
+                         f"([rows, {strips}], the fused base's layout), got "
+                         f"{tuple(e_s.shape)}")
+    x2d, xb2d, mb2d = (t.reshape(-1, c) for t in (x, xb, m_b))
+    if on_cpu(x):
+        o = delta_mlp_lin_plain(x2d, xb2d, e_q, e_s, mb2d, ln_scale, ln_bias,
+                                w1q, s1, w2q, s2, eps, strips)
+    else:
+        o = _delta_mlp_kernel(x2d.contiguous(), xb2d.contiguous(), e_q, e_s,
+                              mb2d.contiguous(), ln_scale, ln_bias, w1q, s1,
+                              w2q, s2, eps, strips)
+    return o.reshape(x.shape)

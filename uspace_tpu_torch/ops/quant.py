@@ -108,17 +108,33 @@ def int8_matmul(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor,
     return (acc.float() * x_scale * w_scale).to(out_dtype)
 
 
+def strip_colsums(wq: torch.Tensor, strips: int) -> torch.Tensor:
+    """f32 ``[strips, N]``: the int32 column sums of each of ``strips`` row
+    strips of the codes ``wq [K, N]`` (exact below 2**24), what an affine
+    input grid's zero point multiplies. Kept on the tensor behind the codes
+    and made again when they change."""
+    base = wq._base if wq._base is not None else wq
+    stamp = (wq._version, wq.data_ptr(), tuple(wq.shape), tuple(wq.stride()),
+             wq.device, strips)
+    held = getattr(base, "_strip_colsums", None)
+    if held is not None and held[0] == stamp:
+        return held[1]
+    k, n = wq.shape
+    cs = (wq.reshape(strips, k // strips, n).sum(dim=1, dtype=torch.int32)
+          .float().contiguous())
+    base._strip_colsums = (stamp, cs)
+    return cs
+
+
 class QWeight:
     """A weight ``w [K, N]`` (JAX layout) quantized per output channel:
     ``q`` int8 ``[N, K]`` (the torch Linear layout the kernels read,
     contiguous), ``scale`` f32 ``[N]``. :meth:`colsums` adds what only the
-    codes determine: the int32 column sums of each of ``strips`` row strips
-    of ``w``, as f32 ``[strips, N]`` (exact below 2**24)."""
+    codes determine: :func:`strip_colsums` of ``w``'s codes."""
 
     def __init__(self, q: torch.Tensor, scale: torch.Tensor):
         self.q = q
         self.scale = scale
-        self._colsums: Dict[int, torch.Tensor] = {}
 
     @property
     def kn(self) -> torch.Tensor:
@@ -126,13 +142,7 @@ class QWeight:
         return self.q.t()
 
     def colsums(self, strips: int) -> torch.Tensor:
-        cs = self._colsums.get(strips)
-        if cs is None:
-            n, k = self.q.shape
-            cs = (self.q.reshape(n, strips, k // strips).sum(
-                dim=-1, dtype=torch.int32).t().float().contiguous())
-            self._colsums[strips] = cs
-        return cs
+        return strip_colsums(self.kn, strips)
 
 
 def _quantize(w: torch.Tensor) -> QWeight:
