@@ -15,9 +15,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shapes, dq, dk and dv each; the bf16 and int8 attention sub-blocks at
    B=50 and the bf16 MLP and MLP sub-block on 12850 rows, each sub-block on
    its update out - x; the stage-delta base and delta halves at B=50 and on
-   12850 rows, the base ones on every output, caches included, the delta
-   ones on what they add to their cache): max-abs and rel-L2 within the
-   tolerances below;
+   12850 rows, in the three hidden modes (rows 18 to 25), the base ones on
+   every output, caches included, the delta ones on what they add to their
+   cache): max-abs and rel-L2 within the tolerances below;
    for each int8 and w8 kernel, controls (twins with one rounding site
    changed) that the same limits must refuse; kernel, twin and library-call
    times with CUDA events; the bound of the same work on an H100 SXM;
@@ -132,7 +132,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    of rows 19 and 23 and of no other kernel, no weight quantization in the
    solve, NFE at most 1.3 x phase 4c's bf16 NFE and latents close to its
    latents; `cli.sample_lfm.run(field="stage_delta_int8")` for one batch and
-   `cli.profile_field`'s base and delta evaluation profiles.
+   `cli.profile_field`'s base and delta evaluation profiles;
+23. the same field in its "exact" and "gelu" hidden modes (rows 20 and 25,
+   rows 21 and 24), each as phase 22: the zero-delta evaluation (bit for bit
+   in "exact", within 1.5e-2 in "gelu", which adds back the base's hidden
+   rounding), tracking, one full-width fused base evaluation against the
+   unfused one (rel-L2 below 0.03), the warm and the timed dopri5 solve with
+   exact launches of row 18 and the mode's base MLP kernel, of row 19 and
+   its delta MLP kernel, and of no other, 0 quantizations, the NFE bound and
+   the latents against phase 4c's; `sample_lfm.run(hidden_mode=...)` and
+   `profile_field --hidden_mode`.
 
 Prints the `kernels` JSON line and then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -259,6 +268,22 @@ DELTA_ATTN_REL_L2 = 2.5e-3
 STAGE_TRACK_REL = 0.04
 STAGE_NFE_RATIO = 1.3
 STAGE_LIMITS = (0.999, 5e-2)
+# phase 23, the "exact" and "gelu" hidden modes. The "gelu" delta at the
+# base's own point adds back W2 q8(r), r = gelu(e_b) - deq(g_q) the base's
+# affine hidden rounding, which grows with the hidden width: the JAX tests
+# hold it to 5e-3 at embed 64 (tests/test_delta_field.py:111), but JAX's
+# own field reads 6.8e-3 at U-ViT-large's width (embed 1024, hidden 4096,
+# depth 2; tests/test_torch_delta_modes.py::
+# test_gelu_zero_delta_at_uvit_large_width) and the card 7.4e-3 at full
+# size, so the limit is twice those readings; one full-width fused
+# evaluation against the unfused one (tests/test_delta_field.py:57-66,
+# :148-155)
+STAGE_GELU_ZERO_REL = 1.5e-2
+STAGE_FUSED_REL = 0.03
+# each hidden mode's MLP kernels (base, delta) by their LAUNCHES keys
+STAGE_MLP = {"grad": ("base_mlp_grad", "delta_mlp_lin"),
+             "exact": ("base_mlp_e", "delta_mlp_exact"),
+             "gelu": ("base_mlp_eg", "delta_mlp_g")}
 
 # H100 SXM published peaks (dense bf16 and int8, HBM3)
 PEAK_BF16_FLOPS = 989e12
@@ -1015,6 +1040,18 @@ def attention_core(dops, core):
         dops.packed_attention_plain = plain
 
 
+@contextlib.contextmanager
+def bf16_chain_ln(dops, mlpk):
+    """The stage-delta twins with row 15's bf16-chain LN2 in place of their
+    f32 LN (``ops.delta.ln_lanes``)."""
+    ln = dops.ln_lanes
+    dops.ln_lanes = mlpk._ln_bf16_normalise
+    try:
+        yield
+    finally:
+        dops.ln_lanes = ln
+
+
 def delta_attn_control(torch, attn, dops, quant, x, xb, cq, cs, a_b, xm_b,
                        lns, lnb, qw, qp, core):
     """Row 19's twin with ``da`` coded as ``int8_dense`` codes it (a
@@ -1058,13 +1095,9 @@ def base_mlp_control(torch, attn, mlpk, dops, quant, x, lns, lnb, q1, b1, q2,
     gelu'(e) coded with one scale per whole row (the unfused base's
     layout, its scale repeated over the strips)."""
     if change == "row 15's bf16-chain LN2":
-        ln = dops.ln_lanes
-        try:
-            dops.ln_lanes = mlpk._ln_bf16_normalise
+        with bf16_chain_ln(dops, mlpk):
             return dops.base_mlp_grad_plain(x, lns, lnb, q1.kn, q1.scale, b1,
                                             q2.kn, q2.scale, b2, 1e-5, strips)
-        finally:
-            dops.ln_lanes = ln
     o, _, _, m = dops.base_mlp_grad_plain(x, lns, lnb, q1.kn, q1.scale, b1,
                                           q2.kn, q2.scale, b2, 1e-5, strips)
     xq, xs = quant.row_codes(dops.ln_lanes(x, lns, lnb, 1e-5))
@@ -1073,8 +1106,60 @@ def base_mlp_control(torch, attn, mlpk, dops, quant, x, lns, lnb, q1, b1, q2,
     return o, gq, gs.expand(-1, strips).contiguous(), m
 
 
+def base_e_control(torch, mlpk, dops, quant, x, lns, lnb, q1, b1, q2, b2,
+                   strips, change, emit_gelu):
+    """Row 20's twin (21's with ``emit_gelu``) with one site changed: LN2 as
+    row 15's bf16 chain, e coded with one scale per whole row (the unfused
+    base's layout, its scale repeated over the strips), or GELU run on the
+    uncoded e (the cache as the kernel's)."""
+    w = (lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2, 1e-5, strips)
+    if change == "row 15's bf16-chain LN2":
+        with bf16_chain_ln(dops, mlpk):
+            return dops.base_mlp_e_plain(x, *w, emit_gelu=emit_gelu)
+    if change == "GELU on the uncoded e":
+        def hidden_of(e):
+            return mlpk._gelu_f32(e), quant.row_codes(e)
+    else:  # "e coded per whole row"
+        xq, xs = quant.row_codes(dops.ln_lanes(x, lns, lnb, 1e-5))
+        e = quant.int_matmul(xq, q1.kn).float() * xs * q1.scale + b1
+        amax = e.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8)
+
+        def hidden_of(e):
+            eq = torch.round(e * quant.true_div(127.0, amax)).to(torch.int8)
+            es = amax * (1.0 / 127.0)
+            return mlpk._gelu_f32(eq.float() * es), (eq, es)
+    o, m, e_q, e_s, g_q, g_s, g_z = dops._base_mlp_twin(x, *w, hidden_of)
+    return (o, e_q, e_s, m) + ((g_q, g_s, g_z) if emit_gelu else ())
+
+
+def delta_e_control(torch, mlpk, dops, quant, x, xb, e_q, e_s, gcache, m_b,
+                    lns, lnb, q1, q2, strips, change):
+    """Row 25's twin (24's with ``gcache``) with one site changed: LN2 as
+    row 15's bf16 chain, dg coded with one scale per whole row, or row 24
+    anchored at gelu(deq(e_q)) (row 25's anchor) instead of the affine
+    codes fc2 read in the base."""
+    w = (lns, lnb, q1.kn, q1.scale, q2.kn, q2.scale, 1e-5, strips)
+    if change == "row 24 anchored at gelu(deq(e_q))":
+        return dops.delta_mlp_exact_plain(x, xb, e_q, e_s, m_b, *w)
+    if change == "row 15's bf16-chain LN2":
+        with bf16_chain_ln(dops, mlpk):
+            if gcache is None:
+                return dops.delta_mlp_exact_plain(x, xb, e_q, e_s, m_b, *w)
+            return dops.delta_mlp_g_plain(x, xb, e_q, e_s, *gcache, m_b, *w)
+    # "dg coded per whole row"
+    hs = q1.q.shape[0] // strips
+    dq, ds = quant.row_codes(dops.ln_lanes(x, lns, lnb, 1e-5)
+                             - dops.ln_lanes(xb, lns, lnb, 1e-5))
+    de = quant.int_matmul(dq, q1.kn).float() * ds * q1.scale
+    e_b = e_q.float() * e_s.repeat_interleave(hs, dim=1)
+    dg = mlpk._gelu_f32(e_b + de) - mlpk._gelu_f32(e_b)
+    hq, hsc = quant.row_codes(dg)
+    acc = quant.int_matmul(hq, q2.kn).float() * hsc
+    return x + (m_b.float() + acc * q2.scale).to(x.dtype)
+
+
 def delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
-    """Phase 3's cases of the stage-delta field (rows 18, 19, 22, 23 of the
+    """Phase 3's cases of the stage-delta field (rows 18 to 25 of the
     PERF.md table) at the main path's shapes (B = 50, L = 257 padded to Lp
     = 288 for the base's cache; 12850 rows, hidden 4096). The delta kernels'
     inputs are a stage's: x = x_b + 1e-2 of x_b's scale, the caches from the
@@ -1117,6 +1202,11 @@ def delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
         _, gq, gs, m_b = dops.base_mlp_grad_plain(
             xr_b, lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2, 1e-5,
             strips)
+        # the "exact" / "gelu" caches of rows 20-21 (their m equals row
+        # 22's only in shape: fc2 reads GELU of the coded e)
+        _, e_q, e_s, m_e, g_q, g_s, g_z = dops.base_mlp_e_plain(
+            xr_b, lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2, 1e-5,
+            strips, emit_gelu=True)
 
     def held(main, main_ref, part, tol_rel, codes=(), scales=()):
         """The int8 rule on the main output (max-abs one bf16 step of its
@@ -1143,13 +1233,23 @@ def delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
                     codes=[("qkv", out[1][:, :L], ref[1][:, :L])],
                     scales=[("qkv", out[2][:, :L], ref[2][:, :L])])
 
-    def judge_base_mlp(out, ref):
+    def judge_base_mlp(out, ref, cache="gelu'"):
+        """o on o - x, m, and the caches: (codes, scales) of ``cache`` and,
+        for row 21, the affine codes, scales and zero points of GELU."""
+        codes = [(cache, out[1], ref[1])]
+        scales = [(cache, out[2], ref[2])]
+        if len(ref) > 4:
+            codes.append(("affine GELU", out[4], ref[4]))
+            scales += [("affine GELU", out[5], ref[5]),
+                       ("affine GELU zero-point", out[6], ref[6])]
         r = held(out[0], ref[0], lambda t: t - xr_b.double(),
-                 INT8_MLP_REL_L2, codes=[("gelu'", out[1], ref[1])],
-                 scales=[("gelu'", out[2], ref[2])])
+                 INT8_MLP_REL_L2, codes=codes, scales=scales)
         m = held(out[3], ref[3], lambda t: t, INT8_MLP_REL_L2)
         return (max(r[0], m[0]), max(r[1], m[1]), r[2], r[3], r[4] and m[4],
                 r[5] + f"; m max_abs {m[0]:.3e} rel_l2 {m[1]:.3e}")
+
+    def judge_base_e(out, ref):
+        return judge_base_mlp(out, ref, cache="e")
 
     def lib_codes(t):  # PyTorch's row quantization, torch._int_mm, dequant
         return quant.quantize_rowwise(t)
@@ -1187,6 +1287,24 @@ def delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
             hid // strips, dim=1))
         return xr + (m_b.float() + lib_proj(dg, q2)).to(bf)
 
+    def per_strip(t):  # a [rows, strips] scale over the strip's columns
+        return t.repeat_interleave(hid // strips, dim=1)
+
+    def lib_base_e(emit_gelu):
+        e = lib_proj(ln(xr_b), q1) + b1
+        e8 = lib_codes(e)
+        g = F.gelu(e8[0].float() * e8[1])
+        g8 = lib_codes(g)
+        m = (lib_proj(g, q2) + b2).to(bf)
+        return (xr_b + m, *e8, m) + (g8 if emit_gelu else ())
+
+    def lib_delta_e(gelu_cache):
+        e_b = e_q.float() * per_strip(e_s)
+        g_b = (g_q.float() * per_strip(g_s) + per_strip(g_z) if gelu_cache
+               else F.gelu(e_b))
+        dg = F.gelu(e_b + lib_proj(ln(xr) - ln(xr_b), q1)) - g_b
+        return xr + (m_e.float() + lib_proj(dg, q2)).to(bf)
+
     attn_args = (x, xb, cq, cs, a_b, xm_b, lns, lnb, qw.kn, qw.scale, qp.kn,
                  qp.scale, H, 1e-5)
 
@@ -1198,6 +1316,9 @@ def delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
             return dops.delta_attn_plain(*attn_args)
     mlp_args = (xr, xr_b, gq, gs, m_b, lns, lnb, q1.kn, q1.scale, q2.kn,
                 q2.scale, 1e-5)
+    w_base = (lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2, 1e-5)
+    w_delta = (lns, lnb, q1.kn, q1.scale, q2.kn, q2.scale, 1e-5)
+    gcache = (g_q, g_s, g_z)
     qkv_ops = 2.0 * B * L * C * 3 * C
     proj_ops = 2.0 * B * L * C * C
     attn_flops = 4.0 * B * H * L * L * d
@@ -1213,7 +1334,7 @@ def delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
     msrc = "uspace_tpu_torch/ops/csrc/delta_mlp.cu"
     ashape = f"B={B} L={L} (Lp={lp}) C={C} H={H} bf16/int8"
     mshape = f"rows={rows} C={C} hidden={hid} strips={strips} bf16/int8"
-    return [
+    cases = [
         dict(name="base_attn_cache", source=asrc,
              replaces="uspace_tpu/ops/delta.py:158 (_base_attn_cache_kernel)",
              kernel=lambda: dops.base_attn_block(xb, lns, lnb, qw.kn,
@@ -1247,7 +1368,7 @@ def delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
              "(_base_mlp_cache_kernel_gr)",
              kernel=lambda: dops.base_mlp_block(
                  xr_b, lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2,
-                 1e-5),
+                 1e-5, mode="grad"),
              plain=lambda: dops.base_mlp_grad_plain(
                  xr_b, lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2,
                  1e-5, strips),
@@ -1273,6 +1394,48 @@ def delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
                  lnb, q1, q2, strips, c)) for c in (
                      "row 15's bf16-chain LN2", "dg coded per whole row")]),
     ]
+    base_controls = ("row 15's bf16-chain LN2", "e coded per whole row",
+                     "GELU on the uncoded e")
+    for name, line, mode, emit in (
+            ("base_mlp_e", "361 (_base_mlp_cache_kernel)", "e", False),
+            ("base_mlp_eg", "438 (_base_mlp_cache_kernel_g)", "e+g", True)):
+        cases.append(dict(
+            name=name, source=msrc, replaces=f"uspace_tpu/ops/delta.py:{line}",
+            kernel=lambda mode=mode: dops.base_mlp_block(xr_b, *w_base,
+                                                         mode=mode),
+            plain=lambda emit=emit: dops.base_mlp_e_plain(
+                xr_b, *w_base, strips, emit_gelu=emit),
+            library=lambda emit=emit: lib_base_e(emit), judge=judge_base_e,
+            bytes=io(xr_b, lns, lnb, b1, b2) + w12
+            + io(xr_b, e_q, e_s, m_e, *(gcache if emit else ())),
+            flops=0.0, int8_ops=mlp_ops, shape=mshape,
+            controls=[(c, lambda c=c, emit=emit: base_e_control(
+                torch, mlpk, dops, quant, xr_b, lns, lnb, q1, b1, q2, b2,
+                strips, c, emit)) for c in base_controls]))
+    for name, line, gc, controls in (
+            ("delta_mlp_exact", "639 (_delta_mlp_kernel)", None,
+             ("row 15's bf16-chain LN2", "dg coded per whole row")),
+            ("delta_mlp_g", "575 (_delta_mlp_kernel_g)", gcache,
+             ("row 15's bf16-chain LN2",
+              "row 24 anchored at gelu(deq(e_q))"))):
+        cases.append(dict(
+            name=name, source=msrc, replaces=f"uspace_tpu/ops/delta.py:{line}",
+            kernel=lambda gc=gc: dops.delta_mlp_block(
+                xr, xr_b, e_q, e_s, m_e, *w_delta, gelu_cache=gc),
+            plain=(lambda: dops.delta_mlp_exact_plain(
+                xr, xr_b, e_q, e_s, m_e, *w_delta, strips)) if gc is None
+            else (lambda: dops.delta_mlp_g_plain(
+                xr, xr_b, e_q, e_s, *gcache, m_e, *w_delta, strips)),
+            library=lambda gc=gc: lib_delta_e(gc is not None),
+            bytes=io(xr, xr_b, e_q, e_s, m_e, lns, lnb, *(gc or ())) + w12
+            + io(xr),
+            flops=0.0, int8_ops=mlp_ops, shape=mshape,
+            tol=(None, INT8_MLP_REL_L2),
+            part=lambda t: t.double() - xr.double() - m_e.double(),
+            controls=[(c, lambda c=c, gc=gc: delta_e_control(
+                torch, mlpk, dops, quant, xr, xr_b, e_q, e_s, gc, m_e, lns,
+                lnb, q1, q2, strips, c)) for c in controls]))
+    return cases
 
 
 def int8_conv_check(torch, F, quant):
@@ -2486,26 +2649,31 @@ def block_entry_points(torch, np, sample_lfm, cfg, dev):
 
 
 def stage_delta_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
-                     lat_bf16, adaptive, by_key):
-    """Phase 22: the base-anchored stage-delta int8 field (hidden_mode
-    "grad") of phase 4's weights (seed 0), its int8 codes fitted once by
-    prepare_delta_params outside the solve: a delta evaluation at the base's
-    own point equal to the base bit for bit; a delta at (0.32, z + 0.02 n)
-    within STAGE_TRACK_REL of a base evaluation there; dopri5 at rtol = atol
-    = 1e-5 (I controller, safety 0.9) at batch 50 through core.flow.decode
-    with solver_kwargs["stage_delta"], a warm solve and a timed one: t = 1,
-    exactly 21 x (steps + 2) launches each of rows 18 and 22 and 21 x 5 x
-    steps each of rows 19 and 23 and none of any other kernel, 0 weight
-    quantizations in the solve, NFE at most STAGE_NFE_RATIO x phase 4c's
-    bf16 NFE and latents within STAGE_LIMITS of its latents; then
-    cli.sample_lfm.run(field="stage_delta_int8") for one batch and
-    cli.profile_field's base and delta evaluation profiles."""
+                     lat_bf16, adaptive, by_key, hidden_mode="grad"):
+    """Phase 22 (``hidden_mode`` "grad") and phase 23 ("exact", "gelu"): the
+    base-anchored stage-delta int8 field of phase 4's weights (seed 0), its
+    int8 codes fitted once by prepare_delta_params outside the solve: a
+    delta evaluation at the base's own point equal to the base bit for bit
+    ("gelu": within STAGE_GELU_ZERO_REL); a delta at (0.32, z + 0.02 n)
+    within STAGE_TRACK_REL of a base evaluation there; phase 23 also one
+    fused base evaluation against the unfused one (STAGE_FUSED_REL); dopri5
+    at rtol = atol = 1e-5 (I controller, safety 0.9) at batch 50 through
+    core.flow.decode with solver_kwargs["stage_delta"], a warm solve and a
+    timed one: t = 1, exactly 21 x (steps + 2) launches each of row 18 and
+    the mode's base MLP kernel and 21 x 5 x steps each of row 19 and its
+    delta MLP kernel, and none of any other kernel, 0 weight quantizations
+    in the solve, NFE at most STAGE_NFE_RATIO x phase 4c's bf16 NFE and
+    latents within STAGE_LIMITS of its latents; then
+    cli.sample_lfm.run(field="stage_delta_int8", hidden_mode=...) for one
+    batch and cli.profile_field's base and delta evaluation profiles."""
     import numpy as np
 
     from uspace_tpu_torch.cli import profile_field
     from uspace_tpu_torch.core import delta_field
 
     blocks = cfg["nnet"]["depth"] + 1
+    base_mlp, delta_mlp = STAGE_MLP[hidden_mode]
+    what = f"stage delta ({hidden_mode})"
     out = {}
     model = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="auto")
     quant.reset_quantizations()
@@ -2514,7 +2682,8 @@ def stage_delta_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
     torch.cuda.synchronize()
     out["prepare_seconds"] = time.perf_counter() - t0
     out["prepare_quantizations"] = quant.QUANTIZATIONS["weights"]
-    vf_base, vf_delta = delta_field.make_delta_field(model, dp)
+    vf_base, vf_delta = delta_field.make_delta_field(
+        model, dp, hidden_mode=hidden_mode)
     g = torch.Generator(device=dev).manual_seed(22)
     with torch.no_grad():
         f0, cache = vf_base(torch.tensor(0.3), z)
@@ -2525,18 +2694,33 @@ def stage_delta_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
         f1 = vf_delta(torch.tensor(0.32), z1, cache)
         f1_full, _ = vf_base(torch.tensor(0.32), z1)
         _, rel_track, _ = compare(torch, f1, f1_full)
-    del cache
-    log(f"stage delta: {out['prepare_quantizations']} weight quantizations "
+        del cache
+        rel_fused = None
+        if hidden_mode != "grad":
+            fu, _ = delta_field.anchored_vf_base(
+                model, dp, torch.tensor(0.3), z, fused=False,
+                hidden_mode=hidden_mode)
+            _, rel_fused, _ = compare(torch, f0, fu)
+            del fu
+    log(f"{what}: {out['prepare_quantizations']} weight quantizations "
         f"in prepare_delta_params ({out['prepare_seconds']:.2f} s); zero "
-        f"delta equal to the base bit for bit: {exact} (rel-L2 {rel0:.1e}); "
-        f"a delta at (0.32, z + 0.02 n) vs a base there: rel-L2 "
-        f"{rel_track:.3e} (max {STAGE_TRACK_REL})")
-    if not exact:
-        fail("the stage-delta zero-distance evaluation is not the base's")
+        f"delta equal to the base bit for bit: {exact} (rel-L2 {rel0:.1e}"
+        f"{f', max {STAGE_GELU_ZERO_REL}' if hidden_mode == 'gelu' else ''}"
+        f"); a delta at (0.32, z + 0.02 n) vs a base there: rel-L2 "
+        f"{rel_track:.3e} (max {STAGE_TRACK_REL})"
+        + ("" if rel_fused is None else f"; fused vs unfused base: rel-L2 "
+           f"{rel_fused:.3e} (max {STAGE_FUSED_REL})"))
+    if hidden_mode == "gelu":
+        if not rel0 < STAGE_GELU_ZERO_REL:
+            fail(f"the {what} zero-distance evaluation is not near the base")
+    elif not exact:
+        fail(f"the {what} zero-distance evaluation is not the base's")
     if not rel_track < STAGE_TRACK_REL:
-        fail("the stage-delta evaluation does not track the base")
+        fail(f"the {what} evaluation does not track the base")
+    if rel_fused is not None and not rel_fused < STAGE_FUSED_REL:
+        fail(f"the {what} fused base disagrees with the unfused one")
     out.update(zero_delta_exact=exact, zero_delta_rel_l2=rel0,
-               tracking_rel_l2=rel_track)
+               tracking_rel_l2=rel_track, fused_vs_unfused_rel_l2=rel_fused)
 
     sk = dict(ADAPTIVE_SK, stage_delta=(vf_base, vf_delta))
 
@@ -2558,13 +2742,13 @@ def stage_delta_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
     n_quant = quant.QUANTIZATIONS["weights"]
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steps = st["steps"]
-    want = expected(attn, mlpk, base_attn_cache=blocks * (steps + 2),
-                    base_mlp_grad=blocks * (steps + 2),
-                    delta_attn=blocks * 5 * steps,
-                    delta_mlp_lin=blocks * 5 * steps)
+    want = expected(attn, mlpk, **{"base_attn_cache": blocks * (steps + 2),
+                                   base_mlp: blocks * (steps + 2),
+                                   "delta_attn": blocks * 5 * steps,
+                                   delta_mlp: blocks * 5 * steps})
     nfe_bf16 = adaptive["bf16"]["nfe"]
     ratio = st["nfe"] / nfe_bf16
-    log(f"stage-delta dopri5 rtol=atol=1e-5 (I controller, safety 0.9): NFE "
+    log(f"{what} dopri5 rtol=atol=1e-5 (I controller, safety 0.9): NFE "
         f"{st['nfe']}, steps {steps}, accepted {st['accepted']}, t "
         f"{st['t']}, {secs:.3f} s, {B / secs:.3f} img/s, "
         f"{secs / st['nfe'] * 1e3:.2f} ms per evaluation, peak "
@@ -2574,16 +2758,15 @@ def stage_delta_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
         f"{adaptive['w8a8_control']['nfe']}"
         f"{' (it hit its cap)' if adaptive['w8a8_control']['hit_cap'] else ''}")
     if st["t"] != 1.0 or steps >= MAX_STEPS:
-        fail(f"the stage-delta solve stopped at t={st['t']} after {steps} "
-             f"steps")
+        fail(f"the {what} solve stopped at t={st['t']} after {steps} steps")
     if launches != want:
-        fail(f"stage-delta launches {launches}, expected {want}")
+        fail(f"{what} launches {launches}, expected {want}")
     if n_quant:
-        fail(f"{n_quant} weight quantizations inside the stage-delta solve")
+        fail(f"{n_quant} weight quantizations inside the {what} solve")
     if tuple(lat.shape) != (B, 32, 32, 4) or not torch.isfinite(lat).all():
-        fail(f"stage-delta latents {tuple(lat.shape)} or not finite")
+        fail(f"{what} latents {tuple(lat.shape)} or not finite")
     if ratio > STAGE_NFE_RATIO:
-        fail("the stage-delta solve's NFE exceeds the bound")
+        fail(f"the {what} solve's NFE exceeds the bound")
     out.update(nfe=st["nfe"], steps=steps, accepted=st["accepted"],
                rejections=steps - st["accepted"], t=st["t"], seconds=secs,
                imgs_per_s=B / secs, ms_per_eval=secs / st["nfe"] * 1e3,
@@ -2592,11 +2775,9 @@ def stage_delta_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
                bf16_nfe=nfe_bf16,
                w8a8_control_nfe=adaptive["w8a8_control"]["nfe"])
     out["vs_bf16"] = adaptive_agree(
-        torch, "stage-delta dopri5 vs bf16 dopri5", lat, lat_bf16,
-        STAGE_LIMITS)
-    for k in ("base_attn_cache", "base_mlp_grad", "delta_attn",
-              "delta_mlp_lin"):
-        by_key[k]["launches"] = launches[k]
+        torch, f"{what} dopri5 vs bf16 dopri5", lat, lat_bf16, STAGE_LIMITS)
+    for k in ("base_attn_cache", base_mlp, "delta_attn", delta_mlp):
+        by_key[k]["launches"] = max(by_key[k]["launches"], launches[k])
     del model, dp, vf_base, vf_delta, sk, lat
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2604,21 +2785,24 @@ def stage_delta_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
         st_cli = []
         paths = sample_lfm.run(config="uvit_large", n_samples=B, batch=B,
                                seed=3, out=tmp, solver="adaptive",
-                               field="stage_delta_int8", stats=st_cli)
+                               field="stage_delta_int8",
+                               hidden_mode=hidden_mode, stats=st_cli)
         secs_cli = time.perf_counter() - t0
         a = np.load(paths[0])
-    log(f"sample_lfm.run (field=stage_delta_int8, solver=adaptive): "
-        f"{a.shape} in {secs_cli:.1f} s, {st_cli}")
+    log(f"sample_lfm.run (field=stage_delta_int8, hidden_mode={hidden_mode}, "
+        f"solver=adaptive): {a.shape} in {secs_cli:.1f} s, {st_cli}")
     if len(paths) != 1 or a.shape != (B, 32, 32, 4) or not \
             np.isfinite(a).all() or st_cli[0]["t"] != 1.0:
-        fail(f"sample_lfm (stage_delta_int8) wrote {a.shape}, {st_cli}")
+        fail(f"sample_lfm ({what}) wrote {a.shape}, {st_cli}")
     out["sample_lfm"] = dict(seconds=secs_cli, **st_cli[0])
     rep = profile_field.profile("uvit_large", batch=B,
-                                field="stage_delta_int8")
+                                field="stage_delta_int8",
+                                hidden_mode=hidden_mode)
     out["profile"] = {}
     for part, p in rep["parts"].items():
-        log(f"profile_field --field stage_delta_int8, {part} evaluation: "
-            f"wall {p['wall_ms_per_eval']:.2f} ms, device "
+        log(f"profile_field --field stage_delta_int8 --hidden_mode "
+            f"{hidden_mode}, {part} evaluation: wall "
+            f"{p['wall_ms_per_eval']:.2f} ms, device "
             f"{p['device_ms_per_eval']:.2f} ms, idle {p['idle_share']:.3f}; "
             + ", ".join(f"{k} {v:.3f}" for k, v in p["groups_ms"].items()))
         out["profile"][part] = {k: p[k] for k in (
@@ -2884,6 +3068,14 @@ def main():
     report["stage_delta"] = stage_delta_path(
         torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z, lat_dopri5,
         report["adaptive"], by_key)
+
+    # 23. the field's "exact" and "gelu" hidden modes: the same checks, and
+    # the fused base against the unfused one
+    report["stage_delta_modes"] = {
+        mode: stage_delta_path(torch, flow, attn, mlpk, quant, sample_lfm,
+                               cfg, dev, z, lat_dopri5, report["adaptive"],
+                               by_key, hidden_mode=mode)
+        for mode in ("exact", "gelu")}
 
     for k in kernels:
         if k["launches"] < 1:

@@ -290,11 +290,12 @@ def _z(seed, b=2):
         (b, 8, 8, 4)).astype(np.float32)
 
 
-def _port(toy, t, z, cache=None, fused=True):
+def _port(toy, t, z, cache=None, fused=True, hidden_mode="grad"):
     with torch.no_grad():
         if cache is None:
             return tdf.anchored_vf_base(toy.tm, toy.tdp, torch.tensor(t),
-                                        torch.from_numpy(z), fused=fused)
+                                        torch.from_numpy(z), fused=fused,
+                                        hidden_mode=hidden_mode)
         return tdf.anchored_vf_delta(toy.tm, toy.tdp, torch.tensor(t),
                                      torch.from_numpy(z), cache, fused=fused)
 
@@ -481,48 +482,48 @@ def test_stage_delta_through_decode_counts_one_base_per_step(toy):
 
 @pytest.mark.parametrize("fused", [True, False])
 def test_hidden_mode_refused_before_compute(fused):
-    with pytest.raises(ValueError, match="hidden_mode"):
-        tdf.anchored_vf_base(None, None, None, None, fused=fused,
-                             hidden_mode="gard")
-    with pytest.raises(NotImplementedError, match="kernels 20 and 25"):
-        tdf.anchored_vf_base(None, None, None, None, fused=fused,
-                             hidden_mode="exact")
-    with pytest.raises(NotImplementedError, match="kernels 21 and 24"):
-        tdf.anchored_vf_base(None, None, None, None, fused=fused,
-                             hidden_mode="gelu")
-    with pytest.raises(ValueError, match="hidden_mode"):
-        tdf.make_delta_field(None, None, fused=fused, hidden_mode="gard")
+    """A typo, or the ops' own names of the modes, raise before any compute
+    (the model and the codes are None) on both paths."""
+    for mode in ("gard", "e", "e+g", "Exact"):
+        with pytest.raises(ValueError, match="hidden_mode"):
+            tdf.anchored_vf_base(None, None, None, None, fused=fused,
+                                 hidden_mode=mode)
+        with pytest.raises(ValueError, match="hidden_mode"):
+            tdf.make_delta_field(None, None, fused=fused, hidden_mode=mode)
 
 
 def test_ops_refuse_the_next_slice_and_contradictions():
+    """The ops refuse an unknown mode, the contradiction of ``grad=True``
+    with a gelu cache, and scales with one value per whole row (the unfused
+    base's layout) in every delta mode."""
     k = _mlp_case(18, "bf16")
     args = (k.txb, torch.from_numpy(k.s), torch.from_numpy(k.b), k.t1, k.ts1,
             torch.from_numpy(k.b1), k.t2, k.ts2, torch.from_numpy(k.b2), EPS)
-    with pytest.raises(NotImplementedError, match="kernels 20 and 25"):
-        tdelta.base_mlp_block(*args, mode="e")
-    with pytest.raises(NotImplementedError, match="kernels 21 and 24"):
-        tdelta.base_mlp_block(*args, mode="e+g")
+    with pytest.raises(ValueError, match="expected e[|]e[+]g[|]grad"):
+        tdelta.base_mlp_block(*args, mode="exact")
     _, gq, gs, m = k.tout
     dargs = (k.tx, k.txb, gq, gs, m, torch.from_numpy(k.s),
              torch.from_numpy(k.b), k.t1, k.ts1, k.t2, k.ts2, EPS)
     with pytest.raises(ValueError, match="contradict"):
         tdelta.delta_mlp_block(*dargs, gelu_cache=(gq, gs, gs), grad=True)
-    with pytest.raises(NotImplementedError, match="kernels 21 and 24"):
-        tdelta.delta_mlp_block(*dargs, gelu_cache=(gq, gs, gs))
-    with pytest.raises(NotImplementedError, match="kernels 20 and 25"):
-        tdelta.delta_mlp_block(*dargs)
-    # the unfused base's per-row slope scale cannot reach the fused delta
-    with pytest.raises(ValueError, match="one scale per row and strip"):
-        tdelta.delta_mlp_block(*dargs[:3], gs[:, :1].contiguous(),
-                               *dargs[4:], grad=True)
+    row = gs[:, :1].contiguous()
+    # the unfused base's per-row scales cannot reach the fused delta
+    with pytest.raises(ValueError, match="gp_s must hold one scale per row"):
+        tdelta.delta_mlp_block(*dargs[:3], row, *dargs[4:], grad=True)
+    with pytest.raises(ValueError, match="e_s must hold one scale per row"):
+        tdelta.delta_mlp_block(*dargs[:3], row, *dargs[4:])
+    with pytest.raises(ValueError, match="g_s must hold one scale per row"):
+        tdelta.delta_mlp_block(*dargs, gelu_cache=(gq, row, gs))
+    with pytest.raises(ValueError, match="g_z must hold one scale per row"):
+        tdelta.delta_mlp_block(*dargs, gelu_cache=(gq, gs, row))
 
 
 def test_delta_refuses_other_caches(toy):
-    _, cache = _port(toy, 0.3, _z(19))
-    for blk in cache.values():
-        if isinstance(blk, dict):
-            blk["e_q"] = blk.pop("gp_q")
-    with pytest.raises(NotImplementedError, match="kernels 20 and 25"):
+    """The fused delta refuses the unfused base's cache (``e_s`` with one
+    scale per whole row) rather than read it as its own."""
+    _, cache = _port(toy, 0.3, _z(19), fused=False, hidden_mode="exact")
+    assert cache["mid_block"]["e_s"].shape[-1] == 1
+    with pytest.raises(ValueError, match="e_s must hold one scale per row"):
         _port(toy, 0.3, _z(19), cache=cache)
 
 

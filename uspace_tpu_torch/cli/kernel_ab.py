@@ -16,8 +16,8 @@ kernel at the SD-UNet-large shape, B=50, H=8, L=1024, D=32;
 B=128, H=8, L=1024, D=32; ``delta_attention``: the stage-delta attention
 halves' own passes at B=50 (the LN codes of the padded base rows and of a
 stage delta, the difference codes, the f32 and the two delta GEMMs, the qkv
-re-coding); ``delta_mlp``: the stage-delta base and delta MLP kernels on
-12850 rows, hidden 4096)
+re-coding); ``delta_mlp``: the stage-delta base and delta MLP kernels of
+the three hidden modes on 12850 rows, hidden 4096)
 with CUDA events, the two builds alternating base, new, new, base, ... on
 one card. A base source that lacks an entry point skips its kernel. Needs a
 CUDA card.
@@ -143,6 +143,12 @@ def main(argv=None) -> None:
     gp_q = torch.randint(-127, 128, (rows, hid), generator=g, device=dev,
                          dtype=torch.int8)
     gp_s = torch.full((rows, 4), 0.01, device=dev)
+    # the "exact" / "gelu" caches: the pre-GELU hidden's codes and scales,
+    # and the affine codes, scales and zero points of its GELU
+    e_q, g_q = gp_q.clone(), gp_q.clone()
+    e_s = torch.full((rows, 4), 0.02, device=dev)
+    g_s = torch.full((rows, 4), 0.005, device=dev)
+    g_z = torch.full((rows, 4), 0.6, device=dev)
     m_out = torch.empty(rows, C, dtype=bf, device=dev)
     s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     calls = {
@@ -227,6 +233,30 @@ def main(argv=None) -> None:
             m_out.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
             q1.q.data_ptr(), q1.scale.data_ptr(), q2.q.data_ptr(),
             q2.scale.data_ptr(), out.data_ptr(), rows, C, hid, 4, 1e-5, s),
+        "base_mlp_e": lambda lib: lib.uspace_base_mlp_e(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), b1.data_ptr(), q2.q.data_ptr(),
+            q2.scale.data_ptr(), b2.data_ptr(), cs4.data_ptr(),
+            out.data_ptr(), m_out.data_ptr(), e_q.data_ptr(),
+            e_s.data_ptr(), rows, C, hid, 4, 1e-5, s),
+        "base_mlp_eg": lambda lib: lib.uspace_base_mlp_eg(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), b1.data_ptr(), q2.q.data_ptr(),
+            q2.scale.data_ptr(), b2.data_ptr(), cs4.data_ptr(),
+            out.data_ptr(), m_out.data_ptr(), e_q.data_ptr(),
+            e_s.data_ptr(), g_q.data_ptr(), g_s.data_ptr(), g_z.data_ptr(),
+            rows, C, hid, 4, 1e-5, s),
+        "delta_mlp_exact": lambda lib: lib.uspace_delta_mlp_exact(
+            x1.data_ptr(), x.data_ptr(), e_q.data_ptr(), e_s.data_ptr(),
+            m_out.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+            q1.q.data_ptr(), q1.scale.data_ptr(), q2.q.data_ptr(),
+            q2.scale.data_ptr(), out.data_ptr(), rows, C, hid, 4, 1e-5, s),
+        "delta_mlp_g": lambda lib: lib.uspace_delta_mlp_g(
+            x1.data_ptr(), x.data_ptr(), e_q.data_ptr(), e_s.data_ptr(),
+            g_q.data_ptr(), g_s.data_ptr(), g_z.data_ptr(), m_out.data_ptr(),
+            lns.data_ptr(), lnb.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(),
+            out.data_ptr(), rows, C, hid, 4, 1e-5, s),
     })
     calls = {k: f for k, f in calls.items()
              if f"uspace_{k}" in _build.SIGNATURES[a.source]

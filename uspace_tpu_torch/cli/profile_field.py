@@ -16,9 +16,10 @@ the warm-up): the model's own (the flag's default: W8A8 for the U-ViT, the
 convs for the SD-UNet) or another (``--quant w8``, ``conv8``, ``dense8``,
 ...).
 ``--field stage_delta_int8`` profiles the base-anchored stage-delta int8
-field instead (``core/delta_field.py``, ``hidden_mode="grad"``): one base
-evaluation (the stage that writes the step's cache) and one delta
-evaluation on that cache at a point 1e-2 away, each traced on its own.
+field instead (``core/delta_field.py``, ``--hidden_mode exact|gelu|grad``,
+default ``grad``): one base evaluation (the stage that writes the step's
+cache) and one delta evaluation on that cache at a point 1e-2 away, each
+traced on its own.
 Needs a CUDA card.
 
     python -m uspace_tpu_torch.cli.profile_field --config uvit_large \\
@@ -30,7 +31,7 @@ Needs a CUDA card.
     python -m uspace_tpu_torch.cli.profile_field --attn_impl pallas_block \
         --quant --out block_int8.json
     python -m uspace_tpu_torch.cli.profile_field --field stage_delta_int8 \\
-        --out delta.json
+        --hidden_mode exact --out delta.json
     python -m uspace_tpu_torch.cli.profile_field --train --batch 128 \\
         --remat_exempt 21 --out profile_train.json
     python -m uspace_tpu_torch.cli.profile_field --train --config unet_large \\
@@ -53,11 +54,20 @@ from ..configs import get_config
 from .sample_lfm import QUANT_CHOICES, build_model
 from .train_lfm import train_attn_impl
 
+# delta_mlp.cu's kernel is one template per strip width and hidden mode
+# (delta_mlp_kernel<NT1, Mode>): rows 22, 20 and 21 base, 23, 25 and 24 delta
+_DELTA_MLP = tuple(
+    (f"stage-delta MLP kernel, {what} (ours: row {row})",
+     tuple(f"delta_mlp_kernel<{nt}, {mode}>" for nt in (2, 4, 6, 8)))
+    for mode, what, row in ((0, "grad base", 22), (1, "exact base", 20),
+                            (2, "gelu base", 21), (3, "grad delta", 23),
+                            (4, "exact delta", 25), (5, "gelu delta", 24)))
+
 # kernel-name fragments -> the layer that launches them
 GROUPS = (
     ("stage-delta attention passes (ours: LN codes, int8 GEMM, re-code)", (
         "row_codes_kernel<", "int8_gemm_kernel", "recode_kernel")),
-    ("stage-delta MLP kernel (ours)", ("delta_mlp_kernel",)),
+    *_DELTA_MLP,
     ("[B, H, L, D] attention backward kernel (ours)", (
         "fused_bwd_dq_kernel", "fused_bwd_dkdv_kernel")),
     ("attention backward kernels (ours)", ("bwd_dq_kernel",
@@ -101,14 +111,16 @@ def _field_fn(cfg, dev, batch, attn_impl, seed, quant=None):
     return run
 
 
-def _delta_fns(cfg, dev, batch, attn_impl, seed):
-    """One base and one delta evaluation of the stage-delta field (the
-    delta on the base's cache at x + 1e-2 n), without autograd."""
+def _delta_fns(cfg, dev, batch, attn_impl, seed, hidden_mode=None):
+    """One base and one delta evaluation of the stage-delta field in
+    ``hidden_mode`` (the delta on the base's cache at x + 1e-2 n), without
+    autograd."""
     from ..core import delta_field
 
     model = build_model(cfg, dev, seed, attn_impl=attn_impl)
     dp = delta_field.prepare_delta_params(model)
-    vf_base, vf_delta = delta_field.make_delta_field(model, dp)
+    vf_base, vf_delta = delta_field.make_delta_field(model, dp,
+                                                     hidden_mode=hidden_mode)
     c, h, w = cfg["z_shape"]
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     x = torch.randn((batch, h, w, c), generator=g, device=dev)
@@ -190,10 +202,12 @@ def _trace(fn, batch: int, evals: int) -> dict:
 def profile(config: str = "uvit_large", batch: int = 50, evals: int = 3,
             attn_impl: Optional[str] = None, seed: int = 0, device=None,
             train: bool = False, remat_exempt: Optional[int] = None,
-            quant=None, field: Optional[str] = None) -> dict:
+            quant=None, field: Optional[str] = None,
+            hidden_mode: Optional[str] = None) -> dict:
     """``attn_impl`` defaults to auto, or with ``train`` to the training
     rule; ``remat_exempt`` to the config's (U-ViT only). With ``field`` the
-    report's ``parts`` hold the base's and the delta's traces."""
+    report's ``parts`` hold the base's and the delta's traces, of the
+    stage-delta field in ``hidden_mode`` (default its ``grad``)."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("profile_field measures the card; it needs CUDA")
@@ -203,11 +217,12 @@ def profile(config: str = "uvit_large", batch: int = 50, evals: int = 3,
     if attn_impl is None:
         attn_impl = train_attn_impl(cfg) if train else "auto"
     head = dict(config=config, batch=batch, attn_impl=attn_impl, quant=quant,
-                field=field, evals=evals, train=train,
+                field=field, hidden_mode=hidden_mode if field else None,
+                evals=evals, train=train,
                 remat_exempt=remat_exempt if train else None,
                 card=torch.cuda.get_device_name(0))
     if field:
-        fns = _delta_fns(cfg, dev, batch, attn_impl, seed)
+        fns = _delta_fns(cfg, dev, batch, attn_impl, seed, hidden_mode)
         return dict(head, parts={k: _trace(f, batch, evals)
                                  for k, f in fns.items()})
     fn = (_train_fn(cfg, dev, batch, attn_impl, seed, remat_exempt) if train
@@ -235,16 +250,22 @@ def main(argv=None) -> None:
     ap.add_argument("--field", default=None, choices=["stage_delta_int8"],
                     help="profile one base and one delta evaluation of the "
                     "stage-delta int8 field")
+    ap.add_argument("--hidden_mode", default=None,
+                    choices=["exact", "gelu", "grad"],
+                    help="the stage-delta field's MLP hidden cache (default "
+                    "grad)")
     ap.add_argument("--out", default="")
     a = ap.parse_args(argv)
     rep = profile(a.config, a.batch, a.evals, a.attn_impl, train=a.train,
-                  remat_exempt=a.remat_exempt, quant=a.quant, field=a.field)
+                  remat_exempt=a.remat_exempt, quant=a.quant, field=a.field,
+                  hidden_mode=a.hidden_mode)
     what = (f"train step, remat_exempt {a.remat_exempt}" if a.train
             else f"field evaluation, quant={a.quant}")
     parts = rep.get("parts") or {what: rep}
     for name, p in parts.items():
         if a.field:
-            name = f"{a.field} {name} evaluation"
+            name = f"{a.field} ({rep['hidden_mode'] or 'grad'}) {name} " \
+                "evaluation"
         print(f"{rep['card']}: {rep['config']} batch {rep['batch']} "
               f"attn_impl={rep['attn_impl']} ({name}): wall "
               f"{p['wall_ms_per_eval']:.2f} ms/eval, device "

@@ -32,9 +32,9 @@ field evaluations (NFE), step attempts and accepted steps.
 ``--field stage_delta_int8`` (the config's ``sample.solver_kwargs.field``,
 as in the JAX package) solves with the base-anchored stage-delta int8
 field of ``core/delta_field.py`` (adaptive solves of an unconditional
-U-ViT only; ``--hidden_mode``, default ``grad``, the only mode ported): its
-int8 codes are fitted once per run on the model's float weights, whatever
-``--quant`` says.
+U-ViT only; ``--hidden_mode exact|gelu|grad``, the MLP hidden's cache,
+default ``grad``): its int8 codes are fitted once per run on the model's
+float weights, whatever ``--quant`` says.
 
     python -m uspace_tpu_torch.cli.sample_lfm --config unet_large --decode \\
         --n_samples 100 --batch 50 --steps 50 --seed 0 --out samples
@@ -47,7 +47,7 @@ int8 codes are fitted once per run on the model's float weights, whatever
         --out /tmp/w8
     python -m uspace_tpu_torch.cli.sample_lfm --config uvit_large \\
         --solver adaptive --controller i --field stage_delta_int8 \\
-        --n_samples 50 --batch 50 --out samples_delta
+        --hidden_mode exact --n_samples 50 --batch 50 --out samples_delta
 """
 
 from __future__ import annotations
@@ -256,8 +256,10 @@ def main(argv=None) -> None:
                     "int8 field for --solver adaptive (default: the "
                     "config's sample.solver_kwargs.field)")
     ap.add_argument("--hidden_mode", default=None,
-                    help="the stage-delta field's MLP cache (default grad, "
-                    "the only mode ported)")
+                    choices=["exact", "gelu", "grad"],
+                    help="the stage-delta field's MLP hidden cache (default: "
+                    "the config's sample.solver_kwargs.hidden_mode, else "
+                    "grad)")
     a = ap.parse_args(argv)
     paths = run(a.config, a.n_samples, a.batch, a.steps, a.seed, a.weights,
                 a.out, a.device, a.quant, a.solver, a.t_edit, a.rtol, a.atol,

@@ -14,24 +14,31 @@ rebuild every projection (qkv, proj, skip, fc1, fc2) as
 an int8 product whose rounding step shrinks with the stage gap, while the
 base's own rounding is shared by every stage of the step and cancels in
 the error estimate. Everything nonlinear (LayerNorm, softmax, residuals,
-the time embedding) is recomputed per stage; in the ``"grad"`` hidden
-mode the GELU difference is linearised, ``dg = de * gelu'(e_b)`` (its
-O(h^2) remainder is smooth). The wide caches (qkv and gelu'(e)) are int8
-with row scales, and the base consumes the dequantized qkv itself, so a
-delta evaluation at the base's own point reproduces the base bit for bit.
+the time embedding) is recomputed per stage. The MLP hidden's cache is
+the ``hidden_mode``'s: ``"exact"`` keeps the pre-GELU hidden ``e`` as int8
+codes and the delta recomputes both GELUs, ``dg = gelu(e_b + de) -
+gelu(e_b)``; ``"gelu"`` also keeps the affine codes of the GELU output that
+fc2 read, and the delta anchors there, ``dg = gelu(e_b + de) - g_b`` (one
+GELU); ``"grad"`` keeps gelu'(e) instead and linearises, ``dg = de *
+gelu'(e_b)`` (its O(h^2) remainder is smooth; no GELU). The wide caches
+(qkv and the hidden) are int8 with row scales, and the base consumes the
+dequantized qkv and ``e`` itself, so a delta evaluation at the base's own
+point reproduces the base bit for bit (in ``"gelu"`` mode it re-rounds the
+base's hidden residual, within 5e-3).
 
 ``fused=True`` runs the kernels of :mod:`uspace_tpu_torch.ops.delta`;
-``fused=False`` is the plain composition with the same anchoring (the
-unfused base codes gelu'(e) with one scale per whole row, the fused one
-per row and strip, as in JAX; each path reads only its own caches). The
-eager parts stay eager, as XLA computes them outside any Pallas kernel:
-the base's proj, skip_linear in base and delta (``ops.quant`` int8
-products), embed and decoder.
+``fused=False`` is the plain composition with the same anchoring, and the
+JAX package's own layout and rounding: the unfused base codes ``e`` and
+gelu'(e) with ``quantize_rowwise`` (a division, clipped) and one scale per
+whole row, the fused one with the kernels' product per row and strip; the
+unfused ``"exact"`` fc2 codes GELU's output per whole row, the fused one on
+the affine strips. Each path reads only its own caches. The eager parts
+stay eager, as XLA computes them outside any Pallas kernel: the base's
+proj, skip_linear in base and delta (``ops.quant`` int8 products), embed
+and decoder.
 
 The functions read the model's float weights, whatever its ``quant``
 view, through :func:`prepare_delta_params`, run once outside the solve.
-Only ``hidden_mode="grad"`` (the default) is ported; ``"exact"`` and
-``"gelu"`` need kernels 20, 21, 24 and 25 of the kernel table.
 """
 
 from __future__ import annotations
@@ -48,24 +55,17 @@ from ..ops.mlp import _gelu_f32, col_slices, gelu_grad
 from ..ops.quant import (QWeight, int8_matmul, int_matmul, quantize_rowwise,
                          quantized_weight)
 
-DEFAULT_HIDDEN_MODE = "grad"
+DEFAULT_HIDDEN_MODE = "grad"  # make_delta_field's, as in the JAX package
 HIDDEN_MODES = ("exact", "gelu", "grad")
-_UNPORTED_MODES = {
-    "exact": "hidden_mode='exact' needs kernels 20 and 25 of the kernel table "
-             "(_base_mlp_cache_kernel, _delta_mlp_kernel), not ported yet",
-    "gelu": "hidden_mode='gelu' needs kernels 21 and 24 of the kernel table "
-            "(_base_mlp_cache_kernel_g, _delta_mlp_kernel_g), not ported yet",
-}
+# the fused base MLP kernel of each hidden mode (ops.delta.base_mlp_block)
+_BASE_MLP_MODE = {"exact": "e", "gelu": "e+g", "grad": "grad"}
 
 
 def check_hidden_mode(hidden_mode: str) -> None:
-    """A typo raises ValueError and the modes of the next slice raise
-    NotImplementedError, on both paths, before any compute."""
+    """A typo raises ValueError on both paths, before any compute."""
     if hidden_mode not in HIDDEN_MODES:
         raise ValueError(f"hidden_mode={hidden_mode!r} (expected "
                          f"exact|gelu|grad)")
-    if hidden_mode in _UNPORTED_MODES:
-        raise NotImplementedError(_UNPORTED_MODES[hidden_mode])
 
 
 def check_model(model) -> None:
@@ -200,10 +200,20 @@ def _affine_strips(g: torch.Tensor, n_slices: int):
 _n_strips = col_slices
 
 
-def _fc2_affine_exact(g2: torch.Tensor, qw2: QWeight) -> torch.Tensor:
+def _affine_deq(g_q: torch.Tensor, g_s: torch.Tensor,
+                g_z: torch.Tensor) -> torch.Tensor:
+    """``f32(g_q) * g_s + g_z`` per row and strip, [rows, hidden]."""
+    r, h = g_q.shape
+    n = g_s.shape[-1]
+    gs = g_q.reshape(r, n, h // n).float()
+    return (gs * g_s[..., None] + g_z[..., None]).reshape(r, h)
+
+
+def _fc2_affine_exact(g2: torch.Tensor, qw2: QWeight):
     """fc2 on the affine-strip codes of the GELU output, quantize-then-use:
     the exact int8 product per strip, ``sum_n f32(d_n) * g_s[:, n] + g_z @
-    colsum`` (the zero points' column-sum term), times the column scales."""
+    colsum`` (the zero points' column-sum term), times the column scales.
+    Returns it with the ``(g_q, g_s, g_z)`` cache."""
     g_q, g_s, g_z = _affine_strips(g2, _n_strips(g2.shape[-1]))
     n = g_s.shape[-1]
     hs = g2.shape[-1] // n
@@ -212,7 +222,52 @@ def _fc2_affine_exact(g2: torch.Tensor, qw2: QWeight) -> torch.Tensor:
                       for j in range(n)]).float()
     colsum = w2.to(torch.int32).sum(dim=1).float()
     acc = torch.einsum("nrc,rn->rc", dd, g_s) + g_z @ colsum
-    return acc * qw2.scale
+    return acc * qw2.scale, (g_q, g_s, g_z)
+
+
+def _mlp_base_unfused(bp: Dict, xm: torch.Tensor, hidden_mode: str,
+                      c: Dict, dtype) -> torch.Tensor:
+    """The unfused base MLP half (``uspace_tpu/core/delta_field.py``'s
+    layout): writes the mode's cache into ``c``, returns ``m``."""
+    e = _int8_dot(_ln_f32(xm, bp["n2s"], bp["n2b"], LN_EPS),
+                  bp["fc1"]) + bp["fc1b"]
+    hid = e.shape[-1]
+    if hidden_mode == "grad":
+        # the base consumes the exact hidden; only gelu'(e) is cached, coded
+        # per whole row
+        c["gp_q"], c["gp_s"] = quantize_rowwise(gelu_grad(e).reshape(-1, hid))
+        g = _gelu_f32(e)
+    else:
+        # e coded per whole row (a division, clipped), consumed as coded
+        c["e_q"], c["e_s"] = quantize_rowwise(e)
+        g = _gelu_f32(c["e_q"].float() * c["e_s"])
+    if hidden_mode == "exact":
+        return (_int8_dot(g, bp["fc2"]) + bp["fc2b"]).to(dtype)
+    acc, gcache = _fc2_affine_exact(g.reshape(-1, hid), bp["fc2"])
+    if hidden_mode == "gelu":
+        c["g_q"], c["g_s"], c["g_z"] = gcache
+    return (acc + bp["fc2b"]).to(dtype).reshape(xm.shape)
+
+
+def _mlp_delta_unfused(bp: Dict, xm: torch.Tensor, cb: Dict,
+                       dtype) -> torch.Tensor:
+    """The unfused delta MLP half on the unfused base's cache: the hidden
+    mode read from its keys."""
+    u2 = _ln_f32(xm, bp["n2s"], bp["n2b"], LN_EPS)
+    u2_b = _ln_f32(cb["xm"], bp["n2s"], bp["n2b"], LN_EPS)
+    de = _int8_dot(u2 - u2_b, bp["fc1"])
+    if "gp_q" in cb:
+        dg = de * (cb["gp_q"].float() * cb["gp_s"]).reshape(de.shape)
+    else:
+        e_b = cb["e_q"].float() * cb["e_s"]
+        if "g_q" in cb:
+            g_b = _affine_deq(cb["g_q"], cb["g_s"], cb["g_z"]).reshape(
+                e_b.shape)
+        else:
+            g_b = _gelu_f32(e_b)
+        dg = _gelu_f32(e_b + de) - g_b
+    m = cb["m"].float() + _int8_dot(dg, bp["fc2"])
+    return xm + m.to(dtype)
 
 
 def _skip_base(bp: Dict, h: torch.Tensor, skip: torch.Tensor,
@@ -222,11 +277,13 @@ def _skip_base(bp: Dict, h: torch.Tensor, skip: torch.Tensor,
 
 
 def anchored_vf_base(model, dp: Dict, t, x: torch.Tensor, fused: bool = True,
-                     hidden_mode: str = DEFAULT_HIDDEN_MODE
+                     hidden_mode: str = "exact"
                      ) -> Tuple[torch.Tensor, Dict]:
     """Full int8 evaluation emitting the read-only anchored cache: per block
     ``qkv_q``/``qkv_s`` (the fused cache padded to Lp rows), ``a``, ``xm``,
-    ``gp_q``/``gp_s`` (gelu'(e) codes), ``m``, ``o`` (the block output
+    the MLP hidden's cache of ``hidden_mode`` (the JAX function's default
+    ``"exact"``: ``e_q``/``e_s``; ``"gelu"``: those and ``g_q``/``g_s``/
+    ``g_z``; ``"grad"``: ``gp_q``/``gp_s``), ``m``, ``o`` (the block output
     itself, no copy) and, for skip blocks, ``xpost``; ``_h0`` is the
     post-embed stream. Returns ``(v f32, cache)``."""
     check_hidden_mode(hidden_mode)
@@ -257,22 +314,17 @@ def anchored_vf_base(model, dp: Dict, t, x: torch.Tensor, fused: bool = True,
         xm = (h.float() + p).to(dtype)
         c["xm"] = xm
         if fused:
-            h, c["gp_q"], c["gp_s"], c["m"] = delta_ops.base_mlp_block(
+            out = delta_ops.base_mlp_block(
                 xm, bp["n2s"], bp["n2b"], bp["fc1"].kn, bp["fc1"].scale,
                 bp["fc1b"], bp["fc2"].kn, bp["fc2"].scale, bp["fc2b"],
-                LN_EPS, mode="grad")
+                LN_EPS, mode=_BASE_MLP_MODE[hidden_mode])
+            h, c["m"] = out[0], out[3]
+            keys = (("gp_q", "gp_s") if hidden_mode == "grad" else
+                    ("e_q", "e_s", "g_q", "g_s", "g_z"))
+            c.update(zip(keys, out[1:3] + out[4:]))
         else:
-            e = _int8_dot(_ln_f32(xm, bp["n2s"], bp["n2b"], LN_EPS),
-                          bp["fc1"]) + bp["fc1b"]
-            # the base consumes the exact hidden; only gelu'(e) is cached,
-            # coded per whole row
-            hid = e.shape[-1]
-            c["gp_q"], c["gp_s"] = quantize_rowwise(
-                gelu_grad(e).reshape(-1, hid))
-            acc = _fc2_affine_exact(_gelu_f32(e).reshape(-1, hid), bp["fc2"])
-            m = (acc + bp["fc2b"]).to(dtype).reshape(xm.shape)
-            c["m"] = m
-            h = xm + m
+            c["m"] = _mlp_base_unfused(bp, xm, hidden_mode, c, dtype)
+            h = xm + c["m"]
         c["o"] = h
         if bi < half:
             skips.append(h)
@@ -284,9 +336,9 @@ def anchored_vf_base(model, dp: Dict, t, x: torch.Tensor, fused: bool = True,
 def anchored_vf_delta(model, dp: Dict, t, x: torch.Tensor, cache: Dict,
                       fused: bool = True) -> torch.Tensor:
     """Delta evaluation anchored at the base cache: every projection =
-    cached + int8(stage delta); LN, attention and residuals recomputed
-    exactly, the GELU linearised at the base (``"grad"``). Emits
-    nothing."""
+    cached + int8(stage delta); LN, attention, GELU and residuals recomputed
+    exactly (the GELU linearised at the base in ``"grad"`` mode). The hidden
+    mode is read from the cache's keys, as in JAX. Emits nothing."""
     dtype = model.dtype
     heads = model.mid_block.attn.num_heads
     half = model.depth // 2
@@ -296,8 +348,6 @@ def anchored_vf_delta(model, dp: Dict, t, x: torch.Tensor, cache: Dict,
     for bi, name in enumerate(_block_names(model.depth)):
         bp = dp[name]
         cb = cache[name]
-        if "gp_q" not in cb:
-            check_hidden_mode("gelu" if "g_q" in cb else "exact")
         if "skip" in bp:
             cin = torch.cat([h, skips.pop()], dim=-1)
             cin_b = torch.cat([hb, skips_b.pop()], dim=-1)
@@ -309,10 +359,15 @@ def anchored_vf_delta(model, dp: Dict, t, x: torch.Tensor, cache: Dict,
                 h, hb, cb["qkv_q"], cb["qkv_s"], cb["a"], cb["xm"],
                 bp["n1s"], bp["n1b"], bp["qkv"].kn, bp["qkv"].scale,
                 bp["proj"].kn, bp["proj"].scale, heads, LN_EPS)
+            grad = "gp_q" in cb
             o = delta_ops.delta_mlp_block(
-                xm, cb["xm"], cb["gp_q"], cb["gp_s"], cb["m"], bp["n2s"],
+                xm, cb["xm"], cb["gp_q"] if grad else cb["e_q"],
+                cb["gp_s"] if grad else cb["e_s"], cb["m"], bp["n2s"],
                 bp["n2b"], bp["fc1"].kn, bp["fc1"].scale, bp["fc2"].kn,
-                bp["fc2"].scale, LN_EPS, grad=True)
+                bp["fc2"].scale, LN_EPS,
+                gelu_cache=((cb["g_q"], cb["g_s"], cb["g_z"])
+                            if "g_q" in cb else None),
+                grad=grad)
         else:
             u = _ln_f32(h, bp["n1s"], bp["n1b"], LN_EPS)
             u_b = _ln_f32(hb, bp["n1s"], bp["n1b"], LN_EPS)
@@ -322,12 +377,7 @@ def anchored_vf_delta(model, dp: Dict, t, x: torch.Tensor, cache: Dict,
             da = a.float() - cb["a"].float()
             xm = (h.float() - hb.float() + cb["xm"].float()
                   + _int8_dot(da, bp["proj"])).to(dtype)
-            u2 = _ln_f32(xm, bp["n2s"], bp["n2b"], LN_EPS)
-            u2_b = _ln_f32(cb["xm"], bp["n2s"], bp["n2b"], LN_EPS)
-            de = _int8_dot(u2 - u2_b, bp["fc1"])
-            gp = (cb["gp_q"].float() * cb["gp_s"]).reshape(de.shape)
-            m = cb["m"].float() + _int8_dot(de * gp, bp["fc2"])
-            o = xm + m.to(dtype)
+            o = _mlp_delta_unfused(bp, xm, cb, dtype)
         h = o
         hb = cb["o"]
         if bi < half:

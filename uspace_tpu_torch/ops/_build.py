@@ -60,7 +60,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "delta_mlp": {
         "uspace_base_mlp_grad": (_P,) * 14 + (_I,) * 4 + (_F, _P),
+        "uspace_base_mlp_e": (_P,) * 14 + (_I,) * 4 + (_F, _P),
+        "uspace_base_mlp_eg": (_P,) * 17 + (_I,) * 4 + (_F, _P),
         "uspace_delta_mlp_lin": (_P,) * 12 + (_I,) * 4 + (_F, _P),
+        "uspace_delta_mlp_exact": (_P,) * 12 + (_I,) * 4 + (_F, _P),
+        "uspace_delta_mlp_g": (_P,) * 15 + (_I,) * 4 + (_F, _P),
     },
     "attention_bwd": {
         "uspace_packed_attention_bwd": (_P, _P, _P, _P, _I, _I, _I, _F, _P),

@@ -1,35 +1,57 @@
-// The MLP halves of the base-anchored stage-delta int8 field (hidden_mode
-// "grad") for U-ViT sampling on Hopper (sm_90a).
+// The MLP halves of the base-anchored stage-delta int8 field, in its three
+// hidden modes ("grad", "exact", "gelu"), for U-ViT sampling on Hopper
+// (sm_90a).
 //
-// Replaces two Pallas TPU kernels of uspace_tpu/ops/delta.py:
-//   uspace_base_mlp_grad <- _base_mlp_cache_kernel_gr (row 22)
-//     o = x + m, m = bf16(fc2(gelu(fc1(LN2(x))))), emitting gelu'(e) as
-//     int8 codes with one scale per row and strip (gp_q, gp_s) and m;
-//   uspace_delta_mlp_lin <- _delta_mlp_kernel_lin (row 23)
+// Replaces six Pallas TPU kernels of uspace_tpu/ops/delta.py:
+//   uspace_base_mlp_e <- _base_mlp_cache_kernel (row 20, "exact" base)
+//     o = x + m, m = bf16(fc2(gelu(deq(e_q)))), e = fc1(LN2(x)) coded per row
+//     per strip (e_q, e_s) and consumed as coded, so a zero delta reproduces m;
+//   uspace_base_mlp_eg <- _base_mlp_cache_kernel_g (row 21, "gelu" base)
+//     row 20, and the affine codes fc2 consumed (g_q, g_s, g_z) written out;
+//   uspace_base_mlp_grad <- _base_mlp_cache_kernel_gr (row 22, "grad" base)
+//     o = x + m, m = bf16(fc2(gelu(fc1(LN2(x))))) on the exact hidden,
+//     emitting gelu'(e) as int8 codes with one scale per row and strip (gp_q,
+//     gp_s) and m;
+//   uspace_delta_mlp_lin <- _delta_mlp_kernel_lin (row 23, "grad" delta)
 //     de = W1 q8(LN2(x) - LN2(x_b)); dg = de * deq(gp); m = m_b + W2 q8(dg)
-//     per strip; o = x + bf16(m).
+//     per strip; o = x + bf16(m);
+//   uspace_delta_mlp_g <- _delta_mlp_kernel_g (row 24, "gelu" delta)
+//     as row 23 with dg = gelu(deq(e_q) + de) - (f32(g_q) * g_s + g_z);
+//   uspace_delta_mlp_exact <- _delta_mlp_kernel (row 25, "exact" delta)
+//     as row 23 with dg = gelu(deq(e_q) + de) - gelu(deq(e_q)).
 //
-// Bound at the main path's shape (12850 rows, C = 1024, hidden 4096): 215.6 G
-// int8 operations over an H100 SXM's 1,979 TOPS = 109 us each; bytes: row 22
-// about 140 MB (x in; o, m, gp_q and gp_s out; weights), row 23 about 166 MB
-// (x, x_b, m_b, gp_q in; o out): both operations bound.
+// Bound at the main path's shape (12850 rows, C = 1024, hidden 4096): 2 x 2 x
+// 12850 x 1024 x 4096 = 215.6 G int8 operations over an H100 SXM's 1,979 TOPS
+// = 108.9 us for every row. Bytes (each input read once, each output written
+// once; x, o, m, x_b, m_b 26.3 MB each, a [rows, 4096] int8 cache 52.6 MB,
+// the [rows, 4] scales 0.2 MB each, both weights with their scales 8.4 MB):
+// row 20 x in, o, m, e_q, e_s out: 140.1 MB = 41.8 us; row 21 adds g_q, g_s,
+// g_z: 193.2 MB = 57.7 us; row 22 as row 20: 140.1 MB; row 23 x, x_b, m_b,
+// gp_q, gp_s in, o out: 166.1 MB = 49.6 us; row 24 x, x_b, m_b, e_q, e_s,
+// g_q, g_s, g_z in, o out: 219.2 MB = 65.4 us; row 25 as row 23: 166.1 MB.
+// All six are operations bound.
 //
 // What each block computes is what the TPU kernel computes for its rows:
 // - LN2 in f32 (uspace_tpu/ops/delta.py _ln_f32, not the bf16 chain of
 //   mlp_int8.cu): f32 sums over C, mu = sum / C, var = sum(x^2) / C - mu^2,
 //   rsqrt(var + eps), ((x - mu) * inv) * s + b in f32. Row codes
-//   round(u * (127 / amax)) with u = LN(x) (row 22) or LN(x) - LN(x_b)
-//   (row 23), the scale amax * (1/127).
-// - row 22, per hidden strip j: e = f32(acc) * xs * s1 + b1 (exact f32, never
-//   quantized); gelu'(e) = 0.5 (1 + erf(e / sqrt 2)) + e phi(e) coded per row
-//   per strip as above (gp_s [rows, strips]); GELU(e) on an affine grid per
-//   row (scale max(gmax - gmin, 1e-8) * (1/254), zp (gmax + gmin) / 2, codes
-//   round((g - zp) / scale), an IEEE division); fc2 acc += f32(d_j) * scale_j
-//   + zp_j * colsum_j(W2q); m = bf16(acc * s2 + b2); o = x + m in bf16.
-// - row 23, per hidden strip j: de = f32(acc) * ds * s1 (no bias: it cancels),
-//   dg = de * (f32(gp_q) * gp_s[j]), symmetric codes per row per strip
-//   round(dg * (127 / amax)); fc2 acc += f32(d_j) * (amax_j * (1/127)); m =
-//   f32(m_b) + acc * s2; o = x + bf16(m) in bf16.
+//   round(u * (127 / amax)) with u = LN(x) (base) or LN(x) - LN(x_b)
+//   (delta), the scale amax * (1/127).
+// - the base rows, per hidden strip j: e = f32(acc) * xs * s1 + b1.
+//   Row 22: e stays exact; gelu'(e) = 0.5 (1 + erf(e / sqrt 2)) + e phi(e)
+//   coded per row per strip as above (gp_s [rows, strips]); the hidden is
+//   GELU(e). Rows 20-21: e coded per row per strip as above, a product with
+//   no clip (_rowquant; e_s [rows, strips]); the hidden is GELU(f32(e_q) *
+//   e_s), never GELU(e). Then GELU on an affine grid per row (scale
+//   max(gmax - gmin, 1e-8) * (1/254), zp (gmax + gmin) / 2, codes round((g -
+//   zp) / scale), an IEEE division: row 21's g_q, g_s, g_z); fc2 acc +=
+//   f32(d_j) * scale_j + zp_j * colsum_j(W2q); m = bf16(acc * s2 + b2);
+//   o = x + m in bf16.
+// - the delta rows, per hidden strip j: de = f32(acc) * ds * s1 (no bias: it
+//   cancels); dg as above, with deq(e_q) = f32(e_q) * e_s[j] and row 24's
+//   anchor f32(g_q) * g_s[j] + g_z[j] rounded twice (no multiply-add);
+//   symmetric codes per row per strip round(dg * (127 / amax)); fc2 acc +=
+//   f32(d_j) * (amax_j * (1/127)); m = f32(m_b) + acc * s2; o = x + bf16(m).
 // erf is the Abramowitz-Stegun 7.1.26 polynomial of uspace_tpu/ops/mlp.py.
 // Every float product, sum and quotient is an explicit _rn intrinsic (expf
 // and rsqrtf are the library's), so no multiply-add is contracted where the
@@ -43,11 +65,16 @@
 // the strip into an int8 hidden tile [32, hidden] that never leaves shared
 // memory. Row 22 needs three statistics of a strip (max and min of GELU, max
 // |gelu'|) before it codes either, so it keeps e in the registers and
-// evaluates GELU and gelu' twice (the second time to code them). fc2 walks
-// 256 output columns at a time over all strips. mma.sync m16n8k32 s8 x s8 ->
-// s32; weight chunks stream through a ring of two shared-memory stages by
-// cp.async, XOR-swizzled by row. Dynamic shared memory (~205 KB) is enabled
-// per launch; each entry point returns cudaGetLastError().
+// evaluates GELU and gelu' twice (the second time to code them). Rows 20-21
+// need two statistics one after the other (amax of e, then the range of GELU
+// of the coded e): the registers hold e, then are overwritten with g, one
+// GELU per value. Rows 23-25 read their cache per row and strip from device
+// memory in the fc1 epilogue and keep dg in the registers (row 25 evaluates
+// two GELUs per value, row 24 one). fc2 walks 256 output columns at a time
+// over all strips. mma.sync m16n8k32 s8 x s8 -> s32; weight chunks stream
+// through a ring of two shared-memory stages by cp.async, XOR-swizzled by row.
+// Dynamic shared memory (~206 KB) is enabled per launch; each entry point
+// returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +83,9 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
+
+// what a launch computes: a base row (writes a cache) or a delta row (reads it)
+enum Mode { GRAD = 0, EXACT = 1, EXACT_G = 2, LIN = 3, DELTA_EXACT = 4, DELTA_G = 5 };
 
 constexpr int ROWS = 32;          // rows per block
 constexpr int WARPS = 16;
@@ -74,7 +104,8 @@ __device__ inline float pos_inf() { return __int_as_float(0x7f800000); }
 __host__ __device__ inline int align128(int x) { return (x + 127) & ~127; }
 
 struct Layout {
-  int hq_ld, hq_bytes, ring_off, xs_off, hsc_off, zp_off, gpi_off, red_off, bytes;
+  int hq_ld, hq_bytes, ring_off, xs_off, hsc_off, zp_off, gpi_off, red_off, es_off,
+      bytes;
 };
 
 __host__ __device__ inline Layout make_layout(int hs, int strips) {
@@ -87,7 +118,8 @@ __host__ __device__ inline Layout make_layout(int hs, int strips) {
   s.zp_off = s.hsc_off + MAX_STRIPS * ROWS * 4;
   s.gpi_off = s.zp_off + MAX_STRIPS * ROWS * 4;
   s.red_off = s.gpi_off + ROWS * 4;
-  s.bytes = s.red_off + 3 * WARPS * ROWS * 4;
+  s.es_off = s.red_off + 3 * WARPS * ROWS * 4;
+  s.bytes = s.es_off + ROWS * 4;
   return s;
 }
 
@@ -146,8 +178,13 @@ __device__ inline float erf_poly(float x) {
   return z > 0.f ? e : (z < 0.f ? -e : 0.f);
 }
 
-// GELU(x) = 0.5 x (1 + erf) and gelu'(x) = 0.5 (1 + erf) + x phi(x)
-// (_gelu_exact and _gelu_grad_exact), sharing one erf.
+// GELU(x) = 0.5 x (1 + erf) (_gelu_exact).
+__device__ inline float gelu(float x) {
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, erf_poly(x)));
+}
+
+// GELU(x) and gelu'(x) = 0.5 (1 + erf) + x phi(x) (_gelu_exact and
+// _gelu_grad_exact), sharing one erf.
 __device__ inline void gelu_and_grad(float x, float& g, float& gp) {
   const float one_erf = __fadd_rn(1.0f, erf_poly(x));
   g = __fmul_rn(__fmul_rn(0.5f, x), one_erf);
@@ -253,20 +290,33 @@ __device__ void code_rows(const bf16* __restrict__ x, const bf16* __restrict__ x
   }
 }
 
-// NT1: 8-column tiles per warp in a strip (strip width 16 * NT1 * 8).
-// DELTA false: row 22 (x -> o, m, gp_q, gp_s); true: row 23 (x, x_b, gp_q,
-// gp_s, m_b -> o).
-template <int NT1, bool DELTA>
+// The pointers of one launch. c_q / c_s: the cache of codes the base writes
+// (rows 20-22: e or gelu'(e), [R, hidden] int8 and [R, strips] f32) and the
+// delta reads (rows 23-25); g_q / g_s / g_z: the affine post-GELU cache row
+// 21 writes and row 24 reads.
+struct Args {
+  const void *x, *xb, *lns, *lnb, *w1, *s1, *b1, *w2, *s2, *b2, *colsum;
+  void *c_q, *c_s, *g_q, *g_s, *g_z;
+  const void* m_b;
+  void *m_out, *out;
+};
+
+// NT1: 8-column tiles per warp in a strip (strip width 16 * NT1 * 8). MODE:
+// which row of the kernel table (Mode above).
+template <int NT1, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
                  const float* __restrict__ ln_s, const float* __restrict__ ln_b,
                  const int8_t* __restrict__ w1, const float* __restrict__ s1,
                  const float* __restrict__ b1, const int8_t* __restrict__ w2,
                  const float* __restrict__ s2, const float* __restrict__ b2,
-                 const float* __restrict__ colsum, int8_t* __restrict__ gp_q,
-                 float* __restrict__ gp_s, const bf16* __restrict__ m_b,
-                 bf16* __restrict__ m_out, bf16* __restrict__ out, int R, int C,
-                 int strips, float eps) {
+                 const float* __restrict__ colsum, int8_t* __restrict__ c_q,
+                 float* __restrict__ c_s, int8_t* __restrict__ g_q,
+                 float* __restrict__ g_s, float* __restrict__ g_z,
+                 const bf16* __restrict__ m_b, bf16* __restrict__ m_out,
+                 bf16* __restrict__ out, int R, int C, int strips, float eps) {
+  constexpr bool DELTA = MODE >= LIN;
+  constexpr bool CODES_E = MODE == EXACT || MODE == EXACT_G;  // rows 20-21
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int HS = WARPS * NT1 * 8;  // strip width
   const int hidden = HS * strips, out_dim = C;
@@ -284,6 +334,7 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
   float* red_max = reinterpret_cast<float*>(smem + lay.red_off);
   float* red_min = red_max + WARPS * ROWS;
   float* red_gp = red_min + WARPS * ROWS;
+  float* es_s = reinterpret_cast<float*>(smem + lay.es_off);
   const int ld = lay.hq_ld;
 
   code_rows<DELTA>(x, xb, ln_s, ln_b, row0, R, C, eps, xq, ld, xs_s);
@@ -340,16 +391,71 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
     if (kc != nk1 - 1) continue;
 
     // strip j epilogue. This thread holds rows mt*16 + hh*8 + g, columns
-    // nt*8 + t*2 + {0, 1}; acc takes the f32 value (e, or dg) as its bits.
+    // nt*8 + t*2 + {0, 1}; acc takes an f32 value (e, or dg) as its bits.
     float mx[2][2], mn[2][2], gx[2][2];
+    auto reset_stats = [&]() {
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        mx[mt][hh] = -pos_inf();
-        mn[mt][hh] = pos_inf();
-        gx[mt][hh] = 0.f;
+        for (int hh = 0; hh < 2; ++hh) {
+          mx[mt][hh] = -pos_inf();
+          mn[mt][hh] = pos_inf();
+          gx[mt][hh] = 0.f;
+        }
+    };
+    // each row's statistics over the strip: max |.| into red_gp, max and min
+    // into red_max and red_min (WITH_RANGE), reduced over the quad, then
+    // over the warps by the caller after a barrier
+    auto publish = [&](bool with_abs, bool with_range) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+          for (int o = 1; o <= 2; o <<= 1) {
+            if (with_abs)
+              gx[mt][hh] = fmaxf(gx[mt][hh], __shfl_xor_sync(0xffffffffu, gx[mt][hh], o));
+            if (with_range) {
+              mx[mt][hh] = fmaxf(mx[mt][hh], __shfl_xor_sync(0xffffffffu, mx[mt][hh], o));
+              mn[mt][hh] = fminf(mn[mt][hh], __shfl_xor_sync(0xffffffffu, mn[mt][hh], o));
+            }
+          }
+          if (t == 0) {
+            const int r = mt * 16 + hh * 8 + g;
+            if (with_abs) red_gp[warp * ROWS + r] = gx[mt][hh];
+            if (with_range) {
+              red_max[warp * ROWS + r] = mx[mt][hh];
+              red_min[warp * ROWS + r] = mn[mt][hh];
+            }
+          }
+        }
+    };
+    // row tid's symmetric scale: gpi_s = 127 / amax; returns amax / 127
+    auto sym_scale = [&]() {
+      float amax = 0.f;
+      for (int w = 0; w < WARPS; ++w) amax = fmaxf(amax, red_gp[w * ROWS + tid]);
+      amax = fmaxf(amax, 1e-8f);
+      gpi_s[tid] = __fdiv_rn(127.f, amax);
+      return __fmul_rn(amax, 1.0f / 127.0f);
+    };
+    // row tid's affine grid of the GELU output into hsc_s, zp_s
+    auto affine_grid = [&]() {
+      float gmax = -pos_inf(), gmin = pos_inf();
+      for (int w = 0; w < WARPS; ++w) {
+        gmax = fmaxf(gmax, red_max[w * ROWS + tid]);
+        gmin = fminf(gmin, red_min[w * ROWS + tid]);
       }
+      const float sc = __fmul_rn(fmaxf(__fsub_rn(gmax, gmin), 1e-8f), 1.0f / 254.0f);
+      const float zp = __fmul_rn(__fadd_rn(gmax, gmin), 0.5f);
+      hsc_s[j * ROWS + tid] = sc;
+      zp_s[j * ROWS + tid] = zp;
+      if (MODE == EXACT_G && row0 + tid < R) {
+        g_s[(size_t)(row0 + tid) * strips + j] = sc;
+        g_z[(size_t)(row0 + tid) * strips + j] = zp;
+      }
+    };
+
+    reset_stats();
 #pragma unroll
     for (int nt = 0; nt < NT1; ++nt) {
       const int col = j * HS + warp * NT1 * 8 + nt * 8 + t * 2;
@@ -364,79 +470,101 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int r = mt * 16 + hh * 8 + g;
-          float gpv0 = 0.f, gpv1 = 0.f;
-          if (DELTA) {  // the cached slope deq(gp) of this row and strip
+          // the delta's cache of this row and strip: deq(gp) (row 23) or
+          // deq(e_q) (rows 24-25), and row 24's affine anchor
+          float cv[2] = {0.f, 0.f}, gb[2] = {0.f, 0.f};
+          if (DELTA) {
             const int rg = min(row0 + r, R - 1);
-            const char2 c2 =
-                *reinterpret_cast<const char2*>(gp_q + (size_t)rg * hidden + col);
-            const float gsc = __ldg(gp_s + (size_t)rg * strips + j);
-            gpv0 = __fmul_rn((float)c2.x, gsc);
-            gpv1 = __fmul_rn((float)c2.y, gsc);
+            const char2 c2 = *reinterpret_cast<const char2*>(c_q + (size_t)rg * hidden + col);
+            const float csc = __ldg(c_s + (size_t)rg * strips + j);
+            cv[0] = __fmul_rn((float)c2.x, csc);
+            cv[1] = __fmul_rn((float)c2.y, csc);
+            if (MODE == DELTA_G) {
+              const char2 q2 =
+                  *reinterpret_cast<const char2*>(g_q + (size_t)rg * hidden + col);
+              const float gsc = __ldg(g_s + (size_t)rg * strips + j);
+              const float gzp = __ldg(g_z + (size_t)rg * strips + j);
+              gb[0] = __fadd_rn(__fmul_rn((float)q2.x, gsc), gzp);
+              gb[1] = __fadd_rn(__fmul_rn((float)q2.y, gsc), gzp);
+            }
           }
 #pragma unroll
           for (int k = 0; k < 2; ++k) {
             const int e = hh * 2 + k;
             const float base = __fmul_rn(__fmul_rn((float)acc[mt][nt][e], xs_s[r]),
                                          k ? sc1 : sc0);
-            if (DELTA) {
-              const float dg = __fmul_rn(base, k ? gpv1 : gpv0);
-              acc[mt][nt][e] = __float_as_int(dg);
-              gx[mt][hh] = fmaxf(gx[mt][hh], fabsf(dg));
+            float v;  // what the registers keep: e (base rows) or dg (delta rows)
+            if (MODE == LIN) {
+              v = __fmul_rn(base, cv[k]);
+            } else if (MODE == DELTA_EXACT) {
+              v = __fsub_rn(gelu(__fadd_rn(cv[k], base)), gelu(cv[k]));
+            } else if (MODE == DELTA_G) {
+              v = __fsub_rn(gelu(__fadd_rn(cv[k], base)), gb[k]);
             } else {
-              const float ev = __fadd_rn(base, k ? bi1 : bi0);
+              v = __fadd_rn(base, k ? bi1 : bi0);
+            }
+            acc[mt][nt][e] = __float_as_int(v);
+            if (MODE == GRAD) {
               float gv, gpv;
-              gelu_and_grad(ev, gv, gpv);
-              acc[mt][nt][e] = __float_as_int(ev);
+              gelu_and_grad(v, gv, gpv);
               mx[mt][hh] = fmaxf(mx[mt][hh], gv);
               mn[mt][hh] = fminf(mn[mt][hh], gv);
               gx[mt][hh] = fmaxf(gx[mt][hh], fabsf(gpv));
+            } else {
+              gx[mt][hh] = fmaxf(gx[mt][hh], fabsf(v));
             }
           }
         }
     }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-        for (int o = 1; o <= 2; o <<= 1) {
-          gx[mt][hh] = fmaxf(gx[mt][hh], __shfl_xor_sync(0xffffffffu, gx[mt][hh], o));
-          if (!DELTA) {
-            mx[mt][hh] = fmaxf(mx[mt][hh], __shfl_xor_sync(0xffffffffu, mx[mt][hh], o));
-            mn[mt][hh] = fminf(mn[mt][hh], __shfl_xor_sync(0xffffffffu, mn[mt][hh], o));
-          }
-        }
-        if (t == 0) {
-          const int r = mt * 16 + hh * 8 + g;
-          red_gp[warp * ROWS + r] = gx[mt][hh];
-          if (!DELTA) {
-            red_max[warp * ROWS + r] = mx[mt][hh];
-            red_min[warp * ROWS + r] = mn[mt][hh];
-          }
-        }
-      }
+    publish(true, MODE == GRAD);
     __syncthreads();  // partials visible; every warp is done reading xq
     if (tid < ROWS) {
-      float amax = 0.f;
-      for (int w = 0; w < WARPS; ++w) amax = fmaxf(amax, red_gp[w * ROWS + tid]);
-      amax = fmaxf(amax, 1e-8f);
-      gpi_s[tid] = __fdiv_rn(127.f, amax);
-      const float sc127 = __fmul_rn(amax, 1.0f / 127.0f);
+      const float sc127 = sym_scale();
       if (DELTA) {
         hsc_s[j * ROWS + tid] = sc127;
-      } else {
-        float gmax = -pos_inf(), gmin = pos_inf();
-        for (int w = 0; w < WARPS; ++w) {
-          gmax = fmaxf(gmax, red_max[w * ROWS + tid]);
-          gmin = fminf(gmin, red_min[w * ROWS + tid]);
-        }
-        hsc_s[j * ROWS + tid] =
-            __fmul_rn(fmaxf(__fsub_rn(gmax, gmin), 1e-8f), 1.0f / 254.0f);
-        zp_s[j * ROWS + tid] = __fmul_rn(__fadd_rn(gmax, gmin), 0.5f);
-        if (row0 + tid < R) gp_s[(size_t)(row0 + tid) * strips + j] = sc127;
+      } else if (MODE == GRAD) {
+        affine_grid();
+        if (row0 + tid < R) c_s[(size_t)(row0 + tid) * strips + j] = sc127;
+      } else {  // rows 20-21: e's scale
+        es_s[tid] = sc127;
+        if (row0 + tid < R) c_s[(size_t)(row0 + tid) * strips + j] = sc127;
       }
     }
     __syncthreads();
+    if (CODES_E) {
+      // rows 20-21: code e, write e_q, and keep g = GELU(f32(e_q) * e_s) in
+      // the registers: the base consumes e as coded (one GELU per value)
+      reset_stats();
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = mt * 16 + hh * 8 + g;
+          const float gi = gpi_s[r], es = es_s[r];
+          const bool live = row0 + r < R;
+#pragma unroll
+          for (int nt = 0; nt < NT1; ++nt) {
+            const int cl = warp * NT1 * 8 + nt * 8 + t * 2;
+            char2 c2;
+            c2.x = (signed char)__float2int_rn(
+                __fmul_rn(__int_as_float(acc[mt][nt][hh * 2]), gi));
+            c2.y = (signed char)__float2int_rn(
+                __fmul_rn(__int_as_float(acc[mt][nt][hh * 2 + 1]), gi));
+            const float g0 = gelu(__fmul_rn((float)c2.x, es));
+            const float g1 = gelu(__fmul_rn((float)c2.y, es));
+            acc[mt][nt][hh * 2] = __float_as_int(g0);
+            acc[mt][nt][hh * 2 + 1] = __float_as_int(g1);
+            mx[mt][hh] = fmaxf(mx[mt][hh], fmaxf(g0, g1));
+            mn[mt][hh] = fminf(mn[mt][hh], fminf(g0, g1));
+            if (live)
+              *reinterpret_cast<char2*>(c_q + (size_t)(row0 + r) * hidden + j * HS + cl) = c2;
+          }
+        }
+      publish(false, true);
+      __syncthreads();
+      if (tid < ROWS) affine_grid();
+      __syncthreads();
+    }
     int8_t* hj = hq + j * lay.hq_bytes;
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -455,7 +583,7 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
                 __fmul_rn(__int_as_float(acc[mt][nt][hh * 2]), gi));
             c2.y = (signed char)__float2int_rn(
                 __fmul_rn(__int_as_float(acc[mt][nt][hh * 2 + 1]), gi));
-          } else {
+          } else if (MODE == GRAD) {
             float g0, gp0, g1, gp1;
             gelu_and_grad(__int_as_float(acc[mt][nt][hh * 2]), g0, gp0);
             gelu_and_grad(__int_as_float(acc[mt][nt][hh * 2 + 1]), g1, gp1);
@@ -464,8 +592,16 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
             p2.x = (signed char)__float2int_rn(__fmul_rn(gp0, gi));
             p2.y = (signed char)__float2int_rn(__fmul_rn(gp1, gi));
             if (live)
-              *reinterpret_cast<char2*>(gp_q + (size_t)(row0 + r) * hidden + j * HS + cl) =
+              *reinterpret_cast<char2*>(c_q + (size_t)(row0 + r) * hidden + j * HS + cl) =
                   p2;
+          } else {  // rows 20-21: the registers hold g
+            c2.x = (signed char)__float2int_rn(
+                __fdiv_rn(__fsub_rn(__int_as_float(acc[mt][nt][hh * 2]), zp), sc));
+            c2.y = (signed char)__float2int_rn(
+                __fdiv_rn(__fsub_rn(__int_as_float(acc[mt][nt][hh * 2 + 1]), zp), sc));
+            if (MODE == EXACT_G && live)
+              *reinterpret_cast<char2*>(g_q + (size_t)(row0 + r) * hidden + j * HS + cl) =
+                  c2;
           }
           *reinterpret_cast<char2*>(hj + r * ld + cl) = c2;
         }
@@ -535,7 +671,7 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
             const int r = rg * 16 + (e >> 1) * 8 + g;
             const float sc = hsc_s[j * ROWS + r];
             const float term = __fmul_rn((float)d[nt][e], sc);
-            // row 22: + zp_j * colsum_j (the affine grid's zero point)
+            // base rows: + zp_j * colsum_j (the affine grid's zero point)
             accf[nt][e] = __fadd_rn(
                 accf[nt][e],
                 DELTA ? term
@@ -580,32 +716,24 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
   }
 }
 
-struct Args {
-  const void *x, *xb, *lns, *lnb, *w1, *s1, *b1, *w2, *s2, *b2, *colsum;
-  void* gp_q;
-  void* gp_s;
-  const void* m_b;
-  void *m_out, *out;
-};
-
-template <int NT1, bool DELTA>
+template <int NT1, int MODE>
 int launch_nt(const Args& a, int R, int C, int strips, float eps, cudaStream_t stream) {
   const Layout lay = make_layout(WARPS * NT1 * 8, strips);
   if (lay.bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaFuncSetAttribute(delta_mlp_kernel<NT1, DELTA>,
+  int err = (int)cudaFuncSetAttribute(delta_mlp_kernel<NT1, MODE>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       lay.bytes);
   if (err) return err;
-  delta_mlp_kernel<NT1, DELTA><<<(R + ROWS - 1) / ROWS, THREADS, lay.bytes, stream>>>(
+  delta_mlp_kernel<NT1, MODE><<<(R + ROWS - 1) / ROWS, THREADS, lay.bytes, stream>>>(
       (const bf16*)a.x, (const bf16*)a.xb, (const float*)a.lns, (const float*)a.lnb,
       (const int8_t*)a.w1, (const float*)a.s1, (const float*)a.b1, (const int8_t*)a.w2,
-      (const float*)a.s2, (const float*)a.b2, (const float*)a.colsum, (int8_t*)a.gp_q,
-      (float*)a.gp_s, (const bf16*)a.m_b, (bf16*)a.m_out, (bf16*)a.out, R, C, strips,
-      eps);
+      (const float*)a.s2, (const float*)a.b2, (const float*)a.colsum, (int8_t*)a.c_q,
+      (float*)a.c_s, (int8_t*)a.g_q, (float*)a.g_s, (float*)a.g_z, (const bf16*)a.m_b,
+      (bf16*)a.m_out, (bf16*)a.out, R, C, strips, eps);
   return (int)cudaGetLastError();
 }
 
-template <bool DELTA>
+template <int MODE>
 int launch(const Args& a, int R, int C, int hidden, int strips, float eps, void* stream) {
   if (R < 1 || strips < 1 || strips > MAX_STRIPS || hidden % strips)
     return (int)cudaErrorInvalidValue;
@@ -616,7 +744,7 @@ int launch(const Args& a, int R, int C, int hidden, int strips, float eps, void*
   switch (hs / 128) {  // strips of 256, 512, 768, 1024 (U-ViT widths / 4)
 #define USPACE_NT(n) \
   case n:            \
-    return launch_nt<n, DELTA>(a, R, C, strips, eps, s);
+    return launch_nt<n, MODE>(a, R, C, strips, eps, s);
     USPACE_NT(2)
     USPACE_NT(4)
     USPACE_NT(6)
@@ -625,6 +753,29 @@ int launch(const Args& a, int R, int C, int hidden, int strips, float eps, void*
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The base rows' pointers: x -> out (x + m), m_out, the cache c_q / c_s and,
+// for row 21, g_q / g_s / g_z.
+Args base_args(const void* x, const void* ln_scale, const void* ln_bias, const void* w1,
+               const void* s1, const void* b1, const void* w2, const void* s2,
+               const void* b2, const void* colsum, void* out, void* m_out, void* c_q,
+               void* c_s, void* g_q, void* g_s, void* g_z) {
+  return Args{x,   nullptr, ln_scale, ln_bias, w1,  s1,      b1,    w2,  s2, b2,
+              colsum, c_q,  c_s,      g_q,     g_s, g_z, nullptr, m_out, out};
+}
+
+// The delta rows' pointers: x, x_b, m_b and the caches -> out.
+Args delta_args(const void* x, const void* xb, const void* c_q, const void* c_s,
+                const void* g_q, const void* g_s, const void* g_z, const void* m_b,
+                const void* ln_scale, const void* ln_bias, const void* w1, const void* s1,
+                const void* w2, const void* s2, void* out) {
+  return Args{x,   xb,      ln_scale, ln_bias,
+              w1,  s1,      nullptr,  w2,
+              s2,  nullptr, nullptr,  const_cast<void*>(c_q),
+              const_cast<void*>(c_s), const_cast<void*>(g_q),
+              const_cast<void*>(g_s), const_cast<void*>(g_z),
+              m_b, nullptr, out};
 }
 
 }  // namespace
@@ -640,9 +791,33 @@ int uspace_base_mlp_grad(const void* x, const void* ln_scale, const void* ln_bia
                          const void* s2, const void* b2, const void* colsum, void* out,
                          void* m_out, void* gp_q, void* gp_s, int R, int C, int hidden,
                          int strips, float eps, void* stream) {
-  const Args a{x,      nullptr, ln_scale, ln_bias, w1,      s1,    b1,  w2,
-               s2,     b2,      colsum,   gp_q,    gp_s,    nullptr, m_out, out};
-  return launch<false>(a, R, C, hidden, strips, eps, stream);
+  return launch<GRAD>(base_args(x, ln_scale, ln_bias, w1, s1, b1, w2, s2, b2, colsum, out,
+                                m_out, gp_q, gp_s, nullptr, nullptr, nullptr),
+                      R, C, hidden, strips, eps, stream);
+}
+
+// Row 20. As row 22, with e_q [R, hidden] int8 and e_s [R, strips] f32 (the
+// pre-GELU hidden as coded) in place of gp_q and gp_s.
+int uspace_base_mlp_e(const void* x, const void* ln_scale, const void* ln_bias,
+                      const void* w1, const void* s1, const void* b1, const void* w2,
+                      const void* s2, const void* b2, const void* colsum, void* out,
+                      void* m_out, void* e_q, void* e_s, int R, int C, int hidden,
+                      int strips, float eps, void* stream) {
+  return launch<EXACT>(base_args(x, ln_scale, ln_bias, w1, s1, b1, w2, s2, b2, colsum, out,
+                                 m_out, e_q, e_s, nullptr, nullptr, nullptr),
+                       R, C, hidden, strips, eps, stream);
+}
+
+// Row 21. Row 20, and g_q [R, hidden] int8 with g_s, g_z [R, strips] f32: the
+// affine codes of the GELU output that fc2 consumed.
+int uspace_base_mlp_eg(const void* x, const void* ln_scale, const void* ln_bias,
+                       const void* w1, const void* s1, const void* b1, const void* w2,
+                       const void* s2, const void* b2, const void* colsum, void* out,
+                       void* m_out, void* e_q, void* e_s, void* g_q, void* g_s, void* g_z,
+                       int R, int C, int hidden, int strips, float eps, void* stream) {
+  return launch<EXACT_G>(base_args(x, ln_scale, ln_bias, w1, s1, b1, w2, s2, b2, colsum, out,
+                                   m_out, e_q, e_s, g_q, g_s, g_z),
+                         R, C, hidden, strips, eps, stream);
 }
 
 // Row 23. x, x_b, m_b [R, C] bf16; gp_q [R, hidden] int8, gp_s [R, strips]
@@ -653,10 +828,32 @@ int uspace_delta_mlp_lin(const void* x, const void* xb, const void* gp_q,
                          const void* ln_bias, const void* w1, const void* s1,
                          const void* w2, const void* s2, void* out, int R, int C,
                          int hidden, int strips, float eps, void* stream) {
-  const Args a{x,  xb,      ln_scale,         ln_bias,          w1,  s1,      nullptr, w2,
-               s2, nullptr, nullptr, const_cast<void*>(gp_q), const_cast<void*>(gp_s),
-               m_b, nullptr, out};
-  return launch<true>(a, R, C, hidden, strips, eps, stream);
+  return launch<LIN>(delta_args(x, xb, gp_q, gp_s, nullptr, nullptr, nullptr, m_b, ln_scale,
+                                ln_bias, w1, s1, w2, s2, out),
+                     R, C, hidden, strips, eps, stream);
+}
+
+// Row 25. As row 23, with row 20's e_q, e_s in place of gp_q, gp_s.
+int uspace_delta_mlp_exact(const void* x, const void* xb, const void* e_q,
+                           const void* e_s, const void* m_b, const void* ln_scale,
+                           const void* ln_bias, const void* w1, const void* s1,
+                           const void* w2, const void* s2, void* out, int R, int C,
+                           int hidden, int strips, float eps, void* stream) {
+  return launch<DELTA_EXACT>(delta_args(x, xb, e_q, e_s, nullptr, nullptr, nullptr, m_b,
+                                        ln_scale, ln_bias, w1, s1, w2, s2, out),
+                             R, C, hidden, strips, eps, stream);
+}
+
+// Row 24. As row 25, and row 21's g_q [R, hidden] int8, g_s, g_z [R, strips]
+// f32.
+int uspace_delta_mlp_g(const void* x, const void* xb, const void* e_q, const void* e_s,
+                       const void* g_q, const void* g_s, const void* g_z, const void* m_b,
+                       const void* ln_scale, const void* ln_bias, const void* w1,
+                       const void* s1, const void* w2, const void* s2, void* out, int R,
+                       int C, int hidden, int strips, float eps, void* stream) {
+  return launch<DELTA_G>(delta_args(x, xb, e_q, e_s, g_q, g_s, g_z, m_b, ln_scale, ln_bias,
+                                    w1, s1, w2, s2, out),
+                         R, C, hidden, strips, eps, stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,10 @@
 """The fused kernels of the base-anchored stage-delta int8 field
-(counterpart of ``uspace_tpu/ops/delta.py``), ``hidden_mode="grad"``.
+(counterpart of ``uspace_tpu/ops/delta.py``), in its three hidden modes.
 
 One RK step evaluates the field once in full ("base", stage 2) and emits a
 read-only per-block cache; every later stage ("delta") rebuilds each
 projection as ``cached + W @ q8(input_i - input_base)``, an int8 product
-whose rounding step is set by the stage gap, and emits nothing. Four
+whose rounding step is set by the stage gap, and emits nothing. Eight
 kernels, hand-written in CUDA C++ for Hopper:
 
 - :func:`base_attn_block` (``csrc/delta_attention.cu``, TPU kernel
@@ -13,45 +13,54 @@ kernels, hand-written in CUDA C++ for Hopper:
   attention run on the dequantized cache, so a zero delta reproduces ``a``;
 - :func:`delta_attn_block` (same file, ``_delta_attn_kernel``): ``qkv =
   deq(cache) + Wq q8(LN1(x) - LN1(x_b))``, attention, ``xm = (x - x_b) +
-  xm_b + Wp q8(a - a_b)``;
-- :func:`base_mlp_block` with ``mode="grad"`` (``csrc/delta_mlp.cu``,
-  ``_base_mlp_cache_kernel_gr``): ``o = x + m``, ``m = fc2(gelu(fc1(
-  LN2(x))))`` on the exact f32 hidden, emitting ``gelu'(e)`` as int8 codes
-  with one scale per row and strip, and ``m``;
-- :func:`delta_mlp_block` with ``grad=True`` (same file,
-  ``_delta_mlp_kernel_lin``): ``dg = de * deq(gp)``, ``m = m_b + W2 q8(dg)``
-  per strip, ``o = x + m``: no GELU at all.
+  xm_b + Wp q8(a - a_b)``; both serve every hidden mode;
+- :func:`base_mlp_block` (``csrc/delta_mlp.cu``): ``o = x + m``, ``m =
+  fc2(gelu(fc1(LN2(x))))``, and the cache of its mode. ``mode="e"`` (the
+  ``"exact"`` hidden mode, ``_base_mlp_cache_kernel``): ``e`` coded per row
+  and strip (``e_q``/``e_s``) and GELU run on ``deq(e_q)``, so a zero delta
+  reproduces ``m``; ``mode="e+g"`` (``"gelu"``,
+  ``_base_mlp_cache_kernel_g``): also the affine codes fc2 read
+  (``g_q``/``g_s``/``g_z``); ``mode="grad"`` (``_base_mlp_cache_kernel_gr``):
+  GELU on the exact f32 hidden, ``gelu'(e)`` coded per row and strip;
+- :func:`delta_mlp_block` (same file): ``m = m_b + W2 q8(dg)`` per strip,
+  ``o = x + m``, with ``de = W1 q8(LN2(x) - LN2(x_b))`` and ``dg = gelu(
+  deq(e_q) + de) - gelu(deq(e_q))`` (``_delta_mlp_kernel``, the default),
+  ``dg = gelu(deq(e_q) + de) - deq(g_q)`` with ``gelu_cache``
+  (``_delta_mlp_kernel_g``), or ``dg = de * deq(gp)`` with ``grad=True``
+  (``_delta_mlp_kernel_lin``: no GELU at all).
 
 Rounding sites, shared by each kernel and its plain twin here:
 
-- the LN of all four is ``_ln_f32``: f32 sums over C, ``var = E[x^2] -
+- the LN of all eight is ``_ln_f32``: f32 sums over C, ``var = E[x^2] -
   mu^2``, ``rsqrt(var + eps)``, f32 scale and bias, never rounded to bf16
   (not the bf16 chain of the int8 MLP and sub-block kernels). The twins
   take the two sums in the kernels' order (:func:`ln_lanes`): an f32 LN
   row is coded as it is, so a sum taken in another order flips a code now
   and then and moves every output of its row;
-- activations are coded per row with ``round(x * (127 / amax))`` and the
-  scale ``amax * (1/127)`` (``ops.quant.row_codes``, the TPU kernels'
-  ``_rowquant``), never with ``int8_dense``'s division;
+- activations, ``e`` and ``dg`` are coded per row (per row and strip for
+  the hidden) with ``round(x * (127 / amax))`` and the scale ``amax *
+  (1/127)`` (``ops.quant.row_codes``, the TPU kernels' ``_rowquant``): a
+  product, no clip, never ``int8_dense``'s division;
 - the base MLP codes fc2's input on the affine grid of the int8 MLP kernel
-  (one per row and strip) and gelu'(e) symmetric per row and strip; the
-  delta codes dg symmetric per row and strip; the strip count is
-  ``ops.mlp.col_slices`` of the hidden width, as the JAX package's
-  ``_mlp_call`` derives it;
+  (one per row and strip, ``round((g - zp) / scale)``, a division), and
+  the ``"exact"``/``"gelu"`` base runs GELU on ``f32(e_q) * e_s``, never on
+  ``e``; the ``"gelu"`` delta's anchor is ``f32(g_q) * g_s + g_z``, two
+  roundings; the strip count is ``ops.mlp.col_slices`` of the hidden
+  width, as the JAX package's ``_mlp_call`` derives it;
 - biases cancel in every delta product; residual adds round in x's dtype.
 
 Shapes, as the JAX functions return them: ``qkv_q`` [B, Lp, 3C] int8 and
 ``qkv_s`` [B, Lp, 1] f32 with Lp = round_up(L, 32) (the base runs on the
 rows past L as zeros, as the TPU kernel's padded block does); ``a`` [B, L,
-C]; ``gp_q`` [B*L, hidden] int8 and ``gp_s`` [B*L, strips] f32; ``m`` [B,
-L, C]. Weights come pre-quantized, in the JAX layout: int8 ``[K, N]`` (the
-``kn`` view of an ``ops.quant.QWeight``, which the kernels read without a
-copy) with f32 column scales ``[N]`` or ``[1, N]``.
+C]; ``e_q``, ``g_q`` or ``gp_q`` [B*L, hidden] int8 and their scales (and
+``g_z``) [B*L, strips] f32; ``m`` [B, L, C]. Weights come pre-quantized, in
+the JAX layout: int8 ``[K, N]`` (the ``kn`` view of an
+``ops.quant.QWeight``, which the kernels read without a copy) with f32
+column scales ``[N]`` or ``[1, N]``.
 
-The ``"exact"`` and ``"gelu"`` hidden modes need four more kernels (rows
-20, 21, 24 and 25 of the kernel table) and are refused here. Each wrapper
-launches its kernel for a CUDA tensor and uses its twin only for a tensor
-on the CPU; on CUDA it never falls back. Inference-only, as in JAX.
+Each wrapper launches its kernel for a CUDA tensor and uses its twin only
+for a tensor on the CPU; on CUDA it never falls back. Inference-only, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -76,18 +85,15 @@ from .quant import int_matmul, row_codes, strip_colsums, true_div
 
 # launches of each CUDA kernel since the last reset (the CPU twin does not count)
 LAUNCHES: Dict[str, int] = {"base_attn_cache": 0, "delta_attn": 0,
-                            "base_mlp_grad": 0, "delta_mlp_lin": 0}
+                            "base_mlp_grad": 0, "delta_mlp_lin": 0,
+                            "base_mlp_e": 0, "base_mlp_eg": 0,
+                            "delta_mlp_g": 0, "delta_mlp_exact": 0}
 
 SEQ_ALIGN = 32  # the cache's row padding (the TPU kernels' Lp)
 
-_NEXT_SLICE = {
-    "e": "mode='e' (the 'exact' hidden mode) needs kernels 20 and 25 of the "
-         "kernel table (_base_mlp_cache_kernel, _delta_mlp_kernel), not "
-         "ported yet",
-    "e+g": "mode='e+g' (the 'gelu' hidden mode) needs kernels 21 and 24 of "
-           "the kernel table (_base_mlp_cache_kernel_g, _delta_mlp_kernel_g), "
-           "not ported yet",
-}
+# the base MLP's cache of each mode: its kernel's entry point and count
+BASE_MODES = {"e": "base_mlp_e", "e+g": "base_mlp_eg",
+              "grad": "base_mlp_grad"}
 
 
 def reset_launches() -> None:
@@ -182,38 +188,95 @@ def delta_attn_plain(x: torch.Tensor, xb: torch.Tensor, qkv_q: torch.Tensor,
     return (x.float() - xb.float() + xm_b.float() + dp).to(x.dtype)
 
 
+def _affine_codes(g: torch.Tensor):
+    """One strip of fc2's input on its affine grid per row: ``(codes, scale,
+    zp)`` with scale ``max(gmax - gmin, 1e-8) * (1/254)``, zp ``(gmax +
+    gmin) / 2`` and codes ``round((g - zp) / scale)``, a division."""
+    gmax = g.amax(dim=-1, keepdim=True)
+    gmin = g.amin(dim=-1, keepdim=True)
+    scale = torch.clamp(gmax - gmin, min=1e-8) * (1.0 / 254.0)
+    zp = (gmax + gmin) * 0.5
+    return torch.round((g - zp) / scale).to(torch.int8), scale, zp
+
+
+def _base_mlp_twin(x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps,
+                   strips, hidden_of):
+    """The base MLP halves on rows x [R, C]: per strip j ``e = f32(acc) * xs
+    * s1 + b1``, ``g, caches = hidden_of(e)``, g on the affine grid that fc2
+    reads, ``acc += f32(d_j) * scale_j + zp_j * colsum_j``; ``m = bf16(acc *
+    s2 + b2)``, ``o = x + m`` in x's dtype. Returns ``(o, m, [the caches of
+    each strip, and the affine codes, scales and zero points]...)``."""
+    hs = w1q.shape[-1] // strips
+    xq, xs = row_codes(ln_lanes(x2d, ln_scale, ln_bias, eps))
+    s1f, b1f = _vec(s1), _vec(b1)
+    colsum = strip_colsums(w2q, strips)
+    parts, acc = [], None
+    for j in range(strips):
+        cols = slice(j * hs, (j + 1) * hs)
+        e = int_matmul(xq, w1q[:, cols]).float() * xs * s1f[cols] + b1f[cols]
+        g, caches = hidden_of(e)
+        hq, scale, zp = _affine_codes(g)
+        parts.append((*caches, hq, scale, zp))
+        t = int_matmul(hq, w2q[cols]).float() * scale + zp * colsum[j]
+        acc = t if acc is None else acc + t
+    m = (acc * _vec(s2) + _vec(b2)).to(x2d.dtype)
+    return (x2d + m, m) + tuple(torch.cat(c, dim=1) for c in zip(*parts))
+
+
 def base_mlp_grad_plain(x2d: torch.Tensor, ln_scale: torch.Tensor,
                         ln_bias: torch.Tensor, w1q: torch.Tensor,
                         s1: torch.Tensor, b1: torch.Tensor,
                         w2q: torch.Tensor, s2: torch.Tensor,
                         b2: torch.Tensor, eps: float, strips: int):
     """Twin of ``_base_mlp_cache_kernel_gr`` on rows x [R, C]: ``(o, gp_q,
-    gp_s, m)``. Per strip j: ``e = f32(acc) * xs * s1 + b1`` (exact f32),
-    gelu'(e) coded per row (``gp_s[:, j]``), GELU(e) on the affine grid that
-    fc2 reads, ``acc += f32(d_j) * scale_j + zp_j * colsum_j``; ``m =
-    bf16(acc * s2 + b2)``, ``o = x + m`` in x's dtype."""
-    hidden = w1q.shape[-1]
-    hs = hidden // strips
-    xq, xs = row_codes(ln_lanes(x2d, ln_scale, ln_bias, eps))
-    s1f, b1f = _vec(s1), _vec(b1)
-    colsum = strip_colsums(w2q, strips)
-    gp_q, gp_s, acc = [], [], None
+    gp_s, m)``. Per strip the exact f32 ``e``: gelu'(e) coded per row
+    (``gp_s[:, j]``), GELU(e) the hidden."""
+    o, m, gp_q, gp_s, *_ = _base_mlp_twin(
+        x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps, strips,
+        lambda e: (_gelu_f32(e), row_codes(gelu_grad(e))))
+    return o, gp_q, gp_s, m
+
+
+def base_mlp_e_plain(x2d: torch.Tensor, ln_scale: torch.Tensor,
+                     ln_bias: torch.Tensor, w1q: torch.Tensor,
+                     s1: torch.Tensor, b1: torch.Tensor, w2q: torch.Tensor,
+                     s2: torch.Tensor, b2: torch.Tensor, eps: float,
+                     strips: int, emit_gelu: bool = False):
+    """Twin of ``_base_mlp_cache_kernel`` (``emit_gelu``:
+    ``_base_mlp_cache_kernel_g``) on rows x [R, C]: ``(o, e_q, e_s, m)``,
+    with ``emit_gelu`` also ``(g_q, g_s, g_z)``. Per strip ``e`` coded per
+    row (``e_s[:, j]``), the hidden ``GELU(f32(e_q) * e_s)``; ``g_q``, ``g_s``
+    and ``g_z`` are the affine codes, scales and zero points fc2 read."""
+    def hidden_of(e):
+        e_q, e_s = row_codes(e)
+        return _gelu_f32(e_q.float() * e_s), (e_q, e_s)
+
+    o, m, e_q, e_s, g_q, g_s, g_z = _base_mlp_twin(
+        x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps, strips,
+        hidden_of)
+    return (o, e_q, e_s, m) + ((g_q, g_s, g_z) if emit_gelu else ())
+
+
+def _delta_mlp_twin(x2d, xb2d, m_b, ln_scale, ln_bias, w1q, s1, w2q, s2, eps,
+                    strips, dg_of):
+    """The delta MLP halves on rows [R, C]: the codes of ``LN2(x) -
+    LN2(x_b)``; per strip ``de = f32(acc) * ds * s1``, ``dg = dg_of(j, cols,
+    de)`` coded per row, ``acc += f32(d_j) * scale_j``; ``o = x + bf16(f32(
+    m_b) + acc * s2)``."""
+    hs = w1q.shape[-1] // strips
+    d = ln_lanes(x2d, ln_scale, ln_bias, eps) - ln_lanes(xb2d, ln_scale,
+                                                         ln_bias, eps)
+    dq, ds = row_codes(d)
+    s1f = _vec(s1)
+    acc = None
     for j in range(strips):
         cols = slice(j * hs, (j + 1) * hs)
-        e = int_matmul(xq, w1q[:, cols]).float() * xs * s1f[cols] + b1f[cols]
-        q, s = row_codes(gelu_grad(e))
-        gp_q.append(q)
-        gp_s.append(s)
-        g = _gelu_f32(e)
-        gmax = g.amax(dim=-1, keepdim=True)
-        gmin = g.amin(dim=-1, keepdim=True)
-        scale = torch.clamp(gmax - gmin, min=1e-8) * (1.0 / 254.0)
-        zp = (gmax + gmin) * 0.5
-        hq = torch.round((g - zp) / scale).to(torch.int8)
-        t = int_matmul(hq, w2q[cols]).float() * scale + zp * colsum[j]
+        de = int_matmul(dq, w1q[:, cols]).float() * ds * s1f[cols]
+        hq, hsc = row_codes(dg_of(j, cols, de))
+        t = int_matmul(hq, w2q[cols]).float() * hsc
         acc = t if acc is None else acc + t
-    m = (acc * _vec(s2) + _vec(b2)).to(x2d.dtype)
-    return x2d + m, torch.cat(gp_q, dim=1), torch.cat(gp_s, dim=1), m
+    m = m_b.float() + acc * _vec(s2)
+    return x2d + m.to(x2d.dtype)
 
 
 def delta_mlp_lin_plain(x2d: torch.Tensor, xb2d: torch.Tensor,
@@ -223,26 +286,47 @@ def delta_mlp_lin_plain(x2d: torch.Tensor, xb2d: torch.Tensor,
                         s1: torch.Tensor, w2q: torch.Tensor,
                         s2: torch.Tensor, eps: float,
                         strips: int) -> torch.Tensor:
-    """Twin of ``_delta_mlp_kernel_lin`` on rows [R, C]: the codes of
-    ``LN2(x) - LN2(x_b)``; per strip ``de = f32(acc) * ds * s1``, ``dg = de
-    * (f32(gp_q) * gp_s[:, j])`` coded per row, ``acc += f32(d_j) *
-    scale_j``; ``o = x + bf16(f32(m_b) + acc * s2)``."""
-    hidden = w1q.shape[-1]
-    hs = hidden // strips
-    d = ln_lanes(x2d, ln_scale, ln_bias, eps) - ln_lanes(xb2d, ln_scale,
-                                                         ln_bias, eps)
-    dq, ds = row_codes(d)
-    s1f = _vec(s1)
-    acc = None
-    for j in range(strips):
-        cols = slice(j * hs, (j + 1) * hs)
-        de = int_matmul(dq, w1q[:, cols]).float() * ds * s1f[cols]
-        dg = de * (gp_q[:, cols].float() * gp_s[:, j:j + 1])
-        hq, hsc = row_codes(dg)
-        t = int_matmul(hq, w2q[cols]).float() * hsc
-        acc = t if acc is None else acc + t
-    m = m_b.float() + acc * _vec(s2)
-    return x2d + m.to(x2d.dtype)
+    """Twin of ``_delta_mlp_kernel_lin`` on rows [R, C]: ``dg = de *
+    (f32(gp_q) * gp_s[:, j])``."""
+    return _delta_mlp_twin(
+        x2d, xb2d, m_b, ln_scale, ln_bias, w1q, s1, w2q, s2, eps, strips,
+        lambda j, cols, de: de * (gp_q[:, cols].float() * gp_s[:, j:j + 1]))
+
+
+def delta_mlp_exact_plain(x2d: torch.Tensor, xb2d: torch.Tensor,
+                          e_q: torch.Tensor, e_s: torch.Tensor,
+                          m_b: torch.Tensor, ln_scale: torch.Tensor,
+                          ln_bias: torch.Tensor, w1q: torch.Tensor,
+                          s1: torch.Tensor, w2q: torch.Tensor,
+                          s2: torch.Tensor, eps: float,
+                          strips: int) -> torch.Tensor:
+    """Twin of ``_delta_mlp_kernel`` on rows [R, C]: ``dg = gelu(e_b + de) -
+    gelu(e_b)`` with ``e_b = f32(e_q) * e_s[:, j]``: two GELUs per value."""
+    def dg_of(j, cols, de):
+        e_b = e_q[:, cols].float() * e_s[:, j:j + 1]
+        return _gelu_f32(e_b + de) - _gelu_f32(e_b)
+
+    return _delta_mlp_twin(x2d, xb2d, m_b, ln_scale, ln_bias, w1q, s1, w2q,
+                           s2, eps, strips, dg_of)
+
+
+def delta_mlp_g_plain(x2d: torch.Tensor, xb2d: torch.Tensor,
+                      e_q: torch.Tensor, e_s: torch.Tensor,
+                      g_q: torch.Tensor, g_s: torch.Tensor, g_z: torch.Tensor,
+                      m_b: torch.Tensor, ln_scale: torch.Tensor,
+                      ln_bias: torch.Tensor, w1q: torch.Tensor,
+                      s1: torch.Tensor, w2q: torch.Tensor, s2: torch.Tensor,
+                      eps: float, strips: int) -> torch.Tensor:
+    """Twin of ``_delta_mlp_kernel_g`` on rows [R, C]: ``dg = gelu(e_b + de)
+    - g_b`` with ``g_b = f32(g_q) * g_s[:, j] + g_z[:, j]`` (the affine
+    hidden fc2 read in the base, two roundings): one GELU per value."""
+    def dg_of(j, cols, de):
+        e_b = e_q[:, cols].float() * e_s[:, j:j + 1]
+        g_b = g_q[:, cols].float() * g_s[:, j:j + 1] + g_z[:, j:j + 1]
+        return _gelu_f32(e_b + de) - g_b
+
+    return _delta_mlp_twin(x2d, xb2d, m_b, ln_scale, ln_bias, w1q, s1, w2q,
+                           s2, eps, strips, dg_of)
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +464,7 @@ def _mlp_operands(x2d, w1q, s1, w2q, s2, strips, ln_scale, ln_bias):
 
 
 def _base_mlp_kernel(x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps,
-                     strips):
+                     strips, mode):
     r, c = x2d.shape
     hidden = w1q.shape[-1]
     dev = x2d.device
@@ -392,21 +476,28 @@ def _base_mlp_kernel(x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps,
     colsum = strip_colsums(w2q, strips)
     check_tensor("colsums", colsum, torch.float32, (strips, c), dev)
     o, m = torch.empty_like(x2d), torch.empty_like(x2d)
-    gp_q = torch.empty((r, hidden), dtype=torch.int8, device=dev)
-    gp_s = torch.empty((r, strips), dtype=torch.float32, device=dev)
-    rc = load("delta_mlp").uspace_base_mlp_grad(
+
+    def codes():
+        return (torch.empty((r, hidden), dtype=torch.int8, device=dev),
+                torch.empty((r, strips), dtype=torch.float32, device=dev))
+    # the cache: (gp_q, gp_s) or (e_q, e_s), and for "e+g" (g_q, g_s, g_z)
+    cache = codes()
+    if mode == "e+g":
+        cache += codes() + (torch.empty_like(cache[1]),)
+    fn = "uspace_" + BASE_MODES[mode]
+    rc = getattr(load("delta_mlp"), fn)(
         x2d.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w1.data_ptr(),
         s1f.data_ptr(), b1f.data_ptr(), w2.data_ptr(), s2f.data_ptr(),
         b2f.data_ptr(), colsum.data_ptr(), o.data_ptr(), m.data_ptr(),
-        gp_q.data_ptr(), gp_s.data_ptr(), r, c, hidden, strips, eps,
+        *(t.data_ptr() for t in cache), r, c, hidden, strips, eps,
         cuda_stream(dev))
-    raise_on(rc, "uspace_base_mlp_grad")
-    LAUNCHES["base_mlp_grad"] += 1
-    return o, gp_q, gp_s, m
+    raise_on(rc, fn)
+    LAUNCHES[BASE_MODES[mode]] += 1
+    return (o, cache[0], cache[1], m) + cache[2:]
 
 
-def _delta_mlp_kernel(x2d, xb2d, gp_q, gp_s, mb2d, ln_scale, ln_bias, w1q,
-                      s1, w2q, s2, eps, strips):
+def _delta_mlp_kernel(x2d, xb2d, c_q, c_s, gelu_cache, mb2d, ln_scale,
+                      ln_bias, w1q, s1, w2q, s2, eps, strips, grad):
     r, c = x2d.shape
     hidden = w1q.shape[-1]
     dev = x2d.device
@@ -414,16 +505,26 @@ def _delta_mlp_kernel(x2d, xb2d, gp_q, gp_s, mb2d, ln_scale, ln_bias, w1q,
                                                ln_scale, ln_bias)
     check_tensor("x_b", xb2d, torch.bfloat16, (r, c), dev)
     check_tensor("m_b", mb2d, torch.bfloat16, (r, c), dev)
-    check_tensor("gp_q", gp_q, torch.int8, (r, hidden), dev)
-    check_tensor("gp_s", gp_s, torch.float32, (r, strips), dev)
+    what = "gp" if grad else "e"
+    check_tensor(f"{what}_q", c_q, torch.int8, (r, hidden), dev)
+    check_tensor(f"{what}_s", c_s, torch.float32, (r, strips), dev)
+    cache = (c_q, c_s)
+    if gelu_cache is not None:
+        g_q, g_s, g_z = gelu_cache
+        check_tensor("g_q", g_q, torch.int8, (r, hidden), dev)
+        check_tensor("g_s", g_s, torch.float32, (r, strips), dev)
+        check_tensor("g_z", g_z, torch.float32, (r, strips), dev)
+        cache += (g_q, g_s, g_z)
+    name = ("delta_mlp_lin" if grad else "delta_mlp_exact"
+            if gelu_cache is None else "delta_mlp_g")
     o = torch.empty_like(x2d)
-    rc = load("delta_mlp").uspace_delta_mlp_lin(
-        x2d.data_ptr(), xb2d.data_ptr(), gp_q.data_ptr(), gp_s.data_ptr(),
+    rc = getattr(load("delta_mlp"), "uspace_" + name)(
+        x2d.data_ptr(), xb2d.data_ptr(), *(t.data_ptr() for t in cache),
         mb2d.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w1.data_ptr(),
         s1f.data_ptr(), w2.data_ptr(), s2f.data_ptr(), o.data_ptr(), r, c,
         hidden, strips, eps, cuda_stream(dev))
-    raise_on(rc, "uspace_delta_mlp_lin")
-    LAUNCHES["delta_mlp_lin"] += 1
+    raise_on(rc, "uspace_" + name)
+    LAUNCHES[name] += 1
     return o
 
 
@@ -466,28 +567,39 @@ def delta_attn_block(x: torch.Tensor, xb: torch.Tensor, qkv_q: torch.Tensor,
 def base_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor,
                    ln_bias: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
                    b1: torch.Tensor, w2q: torch.Tensor, s2: torch.Tensor,
-                   b2: torch.Tensor, eps: float, mode: str = "grad"):
-    """``mode="grad"``: ``(o, gp_q, gp_s, m)`` for x [..., C]: the block
-    output, ``gelu'(e)`` as int8 [rows, hidden] with f32 scales [rows,
-    strips], and the bf16 fc2 output. ``w1q`` int8 [C, H], ``w2q`` int8
-    [H, C] with their column scales and f32 biases."""
-    if mode in _NEXT_SLICE:
-        raise NotImplementedError(_NEXT_SLICE[mode])
-    if mode != "grad":
+                   b2: torch.Tensor, eps: float, mode: str = "e"):
+    """The base MLP half of x [..., C] with the hidden cache of ``mode``
+    (the JAX function's default ``"e"``): ``(o, e_q, e_s, m)``, the block
+    output, the pre-GELU hidden as int8 [rows, hidden] with f32 scales [rows,
+    strips], and the bf16 fc2 output; ``"e+g"`` appends ``(g_q, g_s, g_z)``,
+    the affine codes fc2 read ([rows, hidden] int8, scales and zero points
+    [rows, strips] f32); ``"grad"`` gives ``(o, gp_q, gp_s, m)``, gelu'(e) in
+    place of the hidden. ``w1q`` int8 [C, H], ``w2q`` int8 [H, C] with their
+    column scales and f32 biases."""
+    if mode not in BASE_MODES:
         raise ValueError(f"mode={mode!r} (expected e|e+g|grad)")
     check_no_grad(x, what="the stage-delta MLP kernel")
     c = x.shape[-1]
     x2d = x.reshape(-1, c)
     strips = col_slices(w1q.shape[-1])
-    if on_cpu(x):
-        o, gp_q, gp_s, m = base_mlp_grad_plain(x2d, ln_scale, ln_bias, w1q,
-                                               s1, b1, w2q, s2, b2, eps,
-                                               strips)
+    args = (ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps, strips)
+    if not on_cpu(x):
+        out = _base_mlp_kernel(x2d.contiguous(), *args, mode)
+    elif mode == "grad":
+        out = base_mlp_grad_plain(x2d, *args)
     else:
-        o, gp_q, gp_s, m = _base_mlp_kernel(x2d.contiguous(), ln_scale,
-                                            ln_bias, w1q, s1, b1, w2q, s2,
-                                            b2, eps, strips)
-    return o.reshape(x.shape), gp_q, gp_s, m.reshape(x.shape)
+        out = base_mlp_e_plain(x2d, *args, emit_gelu=mode == "e+g")
+    o, q, sc, m = out[:4]
+    return (o.reshape(x.shape), q, sc, m.reshape(x.shape)) + tuple(out[4:])
+
+
+def _check_strip_scales(name: str, t: torch.Tensor, strips: int) -> None:
+    """A per-row scale (the unfused base's layout) would be read past its end
+    by the per-strip kernel: refuse it."""
+    if t.dim() != 2 or t.shape[-1] != strips:
+        raise ValueError(f"{name} must hold one scale per row and strip "
+                         f"([rows, {strips}], the fused base's layout), got "
+                         f"{tuple(t.shape)}")
 
 
 def delta_mlp_block(x: torch.Tensor, xb: torch.Tensor, e_q: torch.Tensor,
@@ -497,36 +609,34 @@ def delta_mlp_block(x: torch.Tensor, xb: torch.Tensor, e_q: torch.Tensor,
                     s2: torch.Tensor, eps: float,
                     gelu_cache: Optional[Tuple[torch.Tensor, ...]] = None,
                     grad: bool = False) -> torch.Tensor:
-    """``o`` [..., C]: the MLP half anchored at the base cache. With
-    ``grad=True`` (the only mode ported), ``e_q``/``e_s`` are the cached
-    ``gelu'(e_b)`` codes and their per-row per-strip scales from
-    :func:`base_mlp_block` ``(mode="grad")``, and the GELU-free kernel runs."""
+    """``o`` [..., C]: the MLP half anchored at the base cache of
+    :func:`base_mlp_block`. By default ``e_q``/``e_s`` are the pre-GELU
+    hidden's codes and per-row per-strip scales (``mode="e"``) and the
+    two-GELU kernel runs; ``gelu_cache=(g_q, g_s, g_z)`` (``mode="e+g"``)
+    runs the one-GELU kernel; with ``grad=True`` ``e_q``/``e_s`` are the
+    cached ``gelu'(e_b)`` (``mode="grad"``) and the GELU-free kernel runs."""
     if grad and gelu_cache is not None:
         # the JAX function lets the gelu-cache kernel win and reads the
         # cached slope as the pre-GELU hidden: refuse the contradiction
         raise ValueError("grad=True and gelu_cache contradict each other: "
                          "the 'grad' cache holds gelu'(e), not the pre-GELU "
                          "hidden the gelu-cache kernel reads")
-    if gelu_cache is not None:
-        raise NotImplementedError(_NEXT_SLICE["e+g"])
-    if not grad:
-        raise NotImplementedError(_NEXT_SLICE["e"])
     check_no_grad(x, what="the stage-delta MLP kernel")
     c = x.shape[-1]
-    hidden = w1q.shape[-1]
-    strips = col_slices(hidden)
-    if e_s.dim() != 2 or e_s.shape[-1] != strips:
-        # a per-row scale (the unfused base's layout) would be read past its
-        # end by the per-strip kernel
-        raise ValueError(f"gp_s must hold one scale per row and strip "
-                         f"([rows, {strips}], the fused base's layout), got "
-                         f"{tuple(e_s.shape)}")
+    strips = col_slices(w1q.shape[-1])
+    _check_strip_scales("gp_s" if grad else "e_s", e_s, strips)
+    if gelu_cache is not None:
+        _check_strip_scales("g_s", gelu_cache[1], strips)
+        _check_strip_scales("g_z", gelu_cache[2], strips)
     x2d, xb2d, mb2d = (t.reshape(-1, c) for t in (x, xb, m_b))
-    if on_cpu(x):
-        o = delta_mlp_lin_plain(x2d, xb2d, e_q, e_s, mb2d, ln_scale, ln_bias,
-                                w1q, s1, w2q, s2, eps, strips)
-    else:
+    rest = (ln_scale, ln_bias, w1q, s1, w2q, s2, eps, strips)
+    if not on_cpu(x):
         o = _delta_mlp_kernel(x2d.contiguous(), xb2d.contiguous(), e_q, e_s,
-                              mb2d.contiguous(), ln_scale, ln_bias, w1q, s1,
-                              w2q, s2, eps, strips)
+                              gelu_cache, mb2d.contiguous(), *rest, grad)
+    elif grad:
+        o = delta_mlp_lin_plain(x2d, xb2d, e_q, e_s, mb2d, *rest)
+    elif gelu_cache is None:
+        o = delta_mlp_exact_plain(x2d, xb2d, e_q, e_s, mb2d, *rest)
+    else:
+        o = delta_mlp_g_plain(x2d, xb2d, e_q, e_s, *gelu_cache, mb2d, *rest)
     return o.reshape(x.shape)
