@@ -12,7 +12,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    C=1024, H=16, bf16; the int8 and w8 MLPs on the 12850 rows of B=50 with
    hidden 4096; the [B, H, L, D] kernel at B=50, H=8, L=1024, D=32, and at
    H=4, D=64 and at L=600; its backward at B=128 at the same three head
-   shapes, dq, dk and dv each; the bf16 and int8 attention sub-blocks at
+   shapes, dq, dk and dv each; the blocked online-softmax kernel (row 9) at
+   B=50, H=8, L=4096, D=32, at B=4, H=16, L=1025, D=64 and at a ragged
+   L=1300; the bf16 and int8 attention sub-blocks at
    B=50 and the bf16 MLP and MLP sub-block on 12850 rows, each sub-block on
    its update out - x; the stage-delta base and delta halves at B=50 and on
    12850 rows, in the three hidden modes (rows 18 to 25), the base ones on
@@ -20,7 +22,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cache): max-abs and rel-L2 within the tolerances below;
    for each int8 and w8 kernel, controls (twins with one rounding site
    changed) that the same limits must refuse; kernel, twin and library-call
-   times with CUDA events; the bound of the same work on an H100 SXM;
+   times with CUDA events; the bound of the same work on an H100 SXM (the
+   larger of its bytes, its tensor-core operations and, for the [B, H, L, D]
+   attention kernels, its exponentials over the special-function units);
 3b. `ops.quant.int8_conv` on the card against the CPU at UNet-large's 3x3
    conv and Downsample shapes: equal codes, bit-equal f32 outputs;
 4. the main path: U-ViT-large (embed 1024, depth 20, 16 heads, patch 2) in
@@ -141,7 +145,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    exact launches of row 18 and the mode's base MLP kernel, of row 19 and
    its delta MLP kernel, and of no other, 0 quantizations, the NFE bound and
    the latents against phase 4c's; `sample_lfm.run(hidden_mode=...)` and
-   `profile_field --hidden_mode`.
+   `profile_field --hidden_mode`;
+24. SD-UNet-large at SD 1.x's 512 x 512 (`unet_large_512`: 64 x 64
+   latents, L = 4096 at the top level) in bf16 with seeded weights (output
+   convs drawn live), Euler-50 at batch 50 on `auto`: exactly 5 x 50
+   launches of row 9 and of row 7 and of no other kernel, img/s, peak
+   memory; at batch 8 from the same z `auto` against `xla` within the path
+   limits, and a control with row 9's output zeroed that must fail them;
+   `sample_lfm.run(config="unet_large_512", decode=True)` to finite
+   512-pixel images;
+25. u-space editing on U-ViT-large (256 px) and on `unet_large_512`:
+   `cli.dissect_lfm.run`'s read of 8 `SyntheticAttrFeatures` samples (the
+   mid tap over the Euler-50 inversion), build_attr and build_pca (npz
+   only), then through the `DissectSession` the write sweep of attribute 0
+   at scales (-s, 0, s) on 4 samples and the encode -> decode roundtrip:
+   exact launches per evaluated batch (row 9 five times a step on the
+   UNet), the scale-0 row equal bit for bit to a plain decode, the read
+   features of `auto` against `xla` on 2 samples within the path limits,
+   the edit moving the latents one way beyond the routes' bf16 noise; the
+   roundtrip errors as readings.
 
 Prints the `kernels` JSON line and then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -289,6 +311,11 @@ STAGE_MLP = {"grad": ("base_mlp_grad", "delta_mlp_lin"),
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
+# its special-function units: 16 exponentials per SM per clock, 132 SMs, at
+# the 1980 MHz maximum SM clock that nvidia-smi reads on the card. The
+# [B, H, L, D] attention kernels take one exponential per score (rows 7 to
+# 9): at head dim 32 these, not the tensor cores, bound rows 7 and 9
+PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 
 # the SD-UNet: self-attentions at 32 x 32 latents (L = 1024) per evaluation
 UNET_KERNEL_CALLS = 5
@@ -322,6 +349,36 @@ B, L, C, H = 50, 257, 1024, 16
 FWD_SHAPES = {"attention_fwd": (50, 8, 1024, 32),
               "attention_fwd D=64": (50, 4, 1024, 64),
               "attention_fwd L=600": (50, 8, 600, 32)}
+# row 9's phase-3 shapes (B, H, L, D); the first is the 512-px UNet's top
+# level (64 x 64 latents), the last has a partial last key block
+FLASH_SHAPES = {"flash": (50, 8, 4096, 32),
+                "flash D=64": (4, 16, 1025, 64),
+                "flash L=1300": (8, 8, 1300, 32)}
+# phase 24: auto against xla at this batch (xla's f32 [B, 8, 4096, 4096]
+# scores are 27 GB at batch 50), and sample_lfm's batch
+UNET512_CMP_B = 8
+UNET512_CLI_N = 10
+# phase 25, editing: samples read, components kept, samples written. The
+# read features are the bf16 mid tap at every step of the inversion, so two
+# bf16 routes differ there by about a bf16 step of each activation, as one
+# UNet evaluation does (first H100 run: auto vs xla rel-L2 1.09e-2 on the
+# U-ViT, 1.85e-2 on the 512-px UNet): they take phase 10b's rule against
+# the f32 field (H100: auto 9.52e-3 and 1.475e-2 from f32, xla 9.52e-3 and
+# 1.479e-2). The write scale takes the direction to EDIT_REL of the tap's
+# rms. The random-weight U-ViT's velocity is small beside z, so its edits
+# move the latents little: at 0.1, 0.3, 1 and 3 of the tap's rms they moved
+# 0.8e-3, 1.9e-3, 5.8e-3 and 1.6e-2 of |x0| against the routes' own
+# difference of 5.8e-4 on the same z, with cos(x+ - x0, x0 - x-) 0.28,
+# 0.84, 0.93 and 0.87 (noise below, the quadratic response above); the
+# 512-px UNet at 0.1 moved 3.7e-2 against 3.3e-3, cos 0.975. The edit must
+# move the latents by EDIT_MIN_NOISE times the routes' difference (readings
+# 10.0 and 11.3) at a cosine of EDIT_MIN_COS (readings 0.93 and 0.975)
+EDIT_READ_N = 8
+EDIT_PCA_N = 4
+EDIT_WRITE_N = 4
+EDIT_REL = {"uvit_large": 1.0, "unet_large_512": 0.1}
+EDIT_MIN_NOISE = 5.0
+EDIT_MIN_COS = 0.8
 STEPS = 50
 SHORT_STEPS = 4
 TRAIN_B = 128          # the reference's per-GPU batch
@@ -422,12 +479,17 @@ def judge(torch, case, out, ref):
     return max_abs, rel, tol_abs, tol_rel
 
 
-def bound(bytes_moved, flops, int8_ops=0.0):
+def bound(bytes_moved, flops, int8_ops=0.0, exps=0.0):
     """Least ms for the work: bytes over the memory rate against bf16
-    operations and int8 operations, each over its peak rate."""
+    operations and int8 operations, each over its peak rate, and the
+    exponentials over the special-function units' rate (which run beside
+    the tensor cores). Returns (ms, "bytes" or "operations", the term that
+    sets it: "bytes", "tensor" or "exp")."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_tensor = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
+    t_exp = exps / PEAK_EXP_PER_S * 1e3
+    t, term = max((t_bytes, "bytes"), (t_tensor, "tensor"), (t_exp, "exp"))
+    return t, ("bytes" if term == "bytes" else "operations"), term
 
 
 def all_launches(attn, mlpk):
@@ -521,6 +583,7 @@ def check_kernels(torch, F, attn, mlpk, quant):
     cases += int8_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
     cases += w8_cases(torch, F, attn, mlpk, quant, randn, io)
     cases += fwd_cases(torch, F, attn, randn, io)
+    cases += flash_cases(torch, F, attn, randn, io)
     cases += bwd_cases(torch, F, attn, randn, io)
     cases += block_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
     cases += delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
@@ -567,17 +630,19 @@ def check_kernels(torch, F, attn, mlpk, quant):
             ms = time_ms(torch, case["kernel"])
             plain_ms = time_ms(torch, case["plain"], iters=5)
             library_ms = time_ms(torch, case["library"])
-        bound_ms, bound_by = bound(case["bytes"], case["flops"],
-                                   case.get("int8_ops", 0.0))
+        bound_ms, bound_by, term = bound(case["bytes"], case["flops"],
+                                         case.get("int8_ops", 0.0),
+                                         case.get("exps", 0.0))
         r = dict(name=case["name"], route="cuda",
                  source=case.get("source",
                                  "uspace_tpu_torch/ops/csrc/attention.cu"),
                  replaces=case["replaces"], launches=0, max_abs_err=max_abs,
                  rel_l2=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                 bound_by=bound_by, library_ms=library_ms,
+                 bound_by=bound_by, bound_term=term, library_ms=library_ms,
                  shape=case.get("shape", f"B={B} L={L} C={C} H={H} bf16"))
         log(f"  {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({bound_by})")
+            f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({bound_by}"
+            f", {term})")
         (results if case.get("listed", True) else shapes).append(r)
     if problems:
         fail("; ".join(problems))
@@ -847,7 +912,31 @@ def fwd_cases(torch, F, attn, randn, io):
             library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q, k, v),
             bytes=io(q, k, v) + io(q), flops=4.0 * b * h * l * l * d,
-            shape=f"B={b} H={h} L={l} D={d} bf16"))
+            exps=float(b * h * l * l), shape=f"B={b} H={h} L={l} D={d} bf16"))
+    return out
+
+
+def flash_cases(torch, F, attn, randn, io):
+    """Phase 3's cases of the blocked online-softmax kernel (row 9 of the
+    PERF.md table): the 512-px UNet-large's top level (B=50, H=8, L=4096,
+    D=32; the `kernels` line), an unfused U-ViT-width call just past 1024
+    (H=16, D=64) and a ragged L=1300 whose last key block is partial.
+    Yardstick: SDPA on the same tensors."""
+    out = []
+    for name, (b, h, l, d) in FLASH_SHAPES.items():
+        q, k, v = (randn(b, h, l, d) for _ in range(3))
+        out.append(dict(
+            name=name, counter="flash", listed=name == "flash",
+            source="uspace_tpu_torch/ops/csrc/flash_attention.cu",
+            replaces="uspace_tpu/ops/attention.py:1213 (_flash_kernel)",
+            kernel=lambda q=q, k=k, v=v: attn.flash_attention_blocked(
+                q, k, v),
+            plain=lambda q=q, k=k, v=v, d=d: attn.flash_attention_plain(
+                q, k, v, d ** -0.5),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v),
+            bytes=io(q, k, v) + io(q), flops=4.0 * b * h * l * l * d,
+            exps=float(b * h * l * l), shape=f"B={b} H={h} L={l} D={d} bf16"))
     return out
 
 
@@ -880,7 +969,8 @@ def bwd_cases(torch, F, attn, randn, io):
             library=lambda o=o, ts=(ql, kl, vl), do=do: torch.autograd.grad(
                 o, ts, do, retain_graph=True),
             bytes=io(q, k, v, do) + io(q, k, v),
-            flops=10.0 * b * h * l * l * d, tol=(BWD_MAX_ABS, BWD_REL_L2),
+            flops=10.0 * b * h * l * l * d, exps=float(b * h * l * l),
+            tol=(BWD_MAX_ABS, BWD_REL_L2),
             shape=f"B={b} H={h} L={l} D={d} bf16"))
     return out
 
@@ -2811,6 +2901,261 @@ def stage_delta_path(torch, flow, attn, mlpk, quant, sample_lfm, cfg, dev, z,
     return out
 
 
+def unet512_path(torch, np, flow, attn, mlpk, sample_lfm, dev, by_key):
+    """Phase 24: SD-UNet-large at SD 1.x's 512 x 512 (unet_large_512: 64 x
+    64 latents) in bf16 with seeded weights (output convs drawn live),
+    Euler-50 at batch 50 through `core.flow.decode` on `auto`: 5 x 50
+    launches of row 9 (L = 4096) and of row 7 (L = 1024) and of no other
+    kernel, img/s, peak memory; at batch UNET512_CMP_B from the same z,
+    `auto` against `xla` (whose [B, 8, 4096, 4096] f32 scores do not fit at
+    batch 50) within the path limits, and a control with row 9's output
+    zeroed that must fail them; `sample_lfm.run(config="unet_large_512",
+    decode=True)` to finite 512-pixel images."""
+    from uspace_tpu_torch.configs import get_config
+
+    cfg = get_config("unet_large_512")
+    c, h, w = cfg["z_shape"]
+    model = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="auto")
+    z = torch.randn((B, h, w, c), generator=torch.Generator(
+        device=dev).manual_seed(13), device=dev)
+    with torch.no_grad():  # warm-up: cuDNN plans, allocator
+        model(z, torch.zeros(B, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(attn, mlpk)
+    lat, secs = decode_run(torch, flow, model, z, STEPS)
+    launches = all_launches(attn, mlpk)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n = UNET_KERNEL_CALLS * STEPS
+    log(f"UNet 512 px (auto, {h} x {w} latents): {secs:.3f} s, "
+        f"{B / secs:.3f} img/s, launches {launches}, peak {peak_gb:.2f} GiB")
+    if launches != expected(attn, mlpk, flash=n, attention_fwd=n):
+        fail(f"UNet 512 px launches {launches}, expected {n} of flash and "
+             f"of attention_fwd and no other")
+    by_key["flash"]["launches"] = launches["flash"]
+    if tuple(lat.shape) != (B, h, w, c) or not torch.isfinite(lat).all():
+        fail(f"UNet 512 px latents {tuple(lat.shape)} or not finite")
+
+    plain = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="xla")
+    plain.load_state_dict(model.state_dict())
+    zs = z[:UNET512_CMP_B]
+    lat_k, secs_k = decode_run(torch, flow, model, zs, STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    lat_p, secs_p = decode_run(torch, flow, plain, zs, STEPS)
+    peak_plain = torch.cuda.max_memory_allocated() / 2**30
+    max_abs, rel, cos = compare(torch, lat_k, lat_p)
+    real = attn.flash_attention_blocked
+    attn.flash_attention_blocked = lambda q, k, v, scale=None: \
+        torch.zeros_like(q)
+    try:
+        lat_ctl, _ = decode_run(torch, flow, model, zs, STEPS)
+    finally:
+        attn.flash_attention_blocked = real
+    _, c_rel, c_cos = compare(torch, lat_ctl, lat_p)
+    caught = not (c_cos >= PATH_MIN_COS and c_rel <= PATH_MAX_REL_L2)
+    log(f"UNet 512 px at batch {UNET512_CMP_B}: auto {secs_k:.3f} s, xla "
+        f"{secs_p:.3f} s (peak {peak_plain:.2f} GiB); latents cos {cos:.7f} "
+        f"(min {PATH_MIN_COS}) rel_l2 {rel:.3e} (max {PATH_MAX_REL_L2}); "
+        f"control, row 9 output zeroed: cos {c_cos:.7f} rel_l2 {c_rel:.3e}: "
+        f"{'fails' if caught else 'PASSES'} the comparison")
+    if not (cos >= PATH_MIN_COS and rel <= PATH_MAX_REL_L2):
+        fail("the 512-px UNet disagrees with the plain path")
+    if not caught:
+        fail("the 512-px UNet limits let a field without row 9 pass")
+    del model, plain
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = sample_lfm.run(config="unet_large_512",
+                               n_samples=UNET512_CLI_N, batch=UNET512_CLI_N,
+                               steps=STEPS, seed=3, out=tmp, decode=True)
+        secs_cli = time.perf_counter() - t0
+        arrays = [np.load(p) for p in paths]
+    got = [(a.shape, str(a.dtype)) for a in arrays]
+    want = [((UNET512_CLI_N, h, w, c), "float32"),
+            ((UNET512_CLI_N, 8 * h, 8 * w, 3), "uint8")]
+    log(f"sample_lfm.run (unet_large_512, decode): {got} in {secs_cli:.1f} s")
+    if got != want or not np.isfinite(arrays[0]).all():
+        fail(f"sample_lfm (unet_large_512, decode) wrote {got}")
+    return dict(steps=STEPS, batch=B, seconds=secs, imgs_per_s=B / secs,
+                launches=launches, peak_gib=peak_gb,
+                compare_batch=UNET512_CMP_B, auto_seconds=secs_k,
+                plain_seconds=secs_p, plain_peak_gib=peak_plain, cos=cos,
+                rel_l2=rel, max_abs=max_abs,
+                zero_row9_control=dict(cos=c_cos, rel_l2=c_rel),
+                sample_lfm_seconds=secs_cli)
+
+
+def _rms(torch, t):
+    return float(t.double().pow(2).mean().sqrt())
+
+
+def editing_path(torch, np, attn, mlpk, sample_lfm, dev, config):
+    """Phase 25 on one model: `dissect_lfm.run`'s read (EDIT_READ_N
+    `SyntheticAttrFeatures` samples at the model's latent shape, the mid
+    tap captured over the config's Euler-50 inversion), build_attr and
+    build_pca (npz only), then through the `DissectSession` itself (no PNG
+    on the card) the write sweep of attribute 0 at scales (-s, 0, +s) on
+    EDIT_WRITE_N samples and the encode -> decode roundtrip. Holds: exact
+    launches per evaluated batch in the read and the sweep; the scale-0 row
+    equal bit for bit to a plain decode of the same z; the read features of
+    `auto` and of `xla` on 2 samples, each against the f32 field's, the
+    kernel route within UNET_F32_RATIO of the plain route's distance and
+    both within UNET_FIELD limits of each other; the edit moving the
+    latents by more than EDIT_MIN_NOISE times the routes' own difference
+    (a plain decode of the same z on `xla`), with (x+ - x0) and (x0 - x-)
+    at cosine EDIT_MIN_COS or more. s takes the direction to
+    EDIT_REL[config] of the tap's rms. The roundtrip errors are
+    readings."""
+    from uspace_tpu_torch.cli import dissect_common, dissect_lfm
+    from uspace_tpu_torch.configs import get_config
+    from uspace_tpu_torch.data.datasets import batches, get_dataset
+    from uspace_tpu_torch.editing.directions import (orthogonality_error,
+                                                     select_direction)
+    from uspace_tpu_torch.editing.drivers import DissectSession
+    from uspace_tpu_torch.train.step import sample_from_moments
+
+    cfg = get_config(config)
+    d = cfg["dissection"]
+    steps = round(1.0 / d["solver_kwargs"]["solver_fix_step"])
+    if cfg["nnet"]["name"] == "unet_t2i":
+        per_eval = dict(flash=UNET_KERNEL_CALLS,
+                        attention_fwd=UNET_KERNEL_CALLS)
+    else:
+        per_eval = dict(qkvproj_attention=cfg["nnet"]["depth"] + 1)
+    per_batch = {k: v * steps for k, v in per_eval.items()}
+    c, h, w = cfg["z_shape"]
+    out = dict(config=config, steps=steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(workdir=tmp, read_path_root=tmp, n_samples=EDIT_READ_N,
+                  mini_batch_size=EDIT_READ_N, pca_n=EDIT_PCA_N, device=dev)
+        reset_launches(attn, mlpk)
+        t0 = time.perf_counter()
+        read_path = dissect_lfm.run(cfg, "read", **kw)
+        torch.cuda.synchronize()
+        out["read_seconds"] = time.perf_counter() - t0
+        out["read_launches"] = got = all_launches(attn, mlpk)
+        if got != expected(attn, mlpk, **per_batch):
+            fail(f"{config} read launches {got}, expected {per_batch}")
+        t0 = time.perf_counter()
+        paths = {m: dissect_lfm.run(cfg, f"build_{m}", **kw)
+                 for m in ("attr", "pca")}
+        out["build_seconds"] = time.perf_counter() - t0
+        with np.load(read_path) as r:
+            read = {k: r[k] for k in r.files}
+        dirs = {}
+        for m, p in paths.items():
+            with np.load(p) as f:
+                dirs[m] = f["directions"]
+    feats, t_grid = read["feats"], read["t_grid"]
+    tap = feats.shape[2:]
+    shapes_ok = (feats.shape[:2] == (EDIT_READ_N, steps)
+                 and read["latent"].shape == (EDIT_READ_N, h, w, c)
+                 and dirs["attr"].shape[:2] == (steps, 4)
+                 and dirs["pca"].shape[:2] == (steps, EDIT_PCA_N)
+                 and dirs["attr"].shape[2:] == tap
+                 and all(np.isfinite(a).all() for a in
+                         (feats, read["latent"], *dirs.values())))
+    ortho = orthogonality_error(torch.as_tensor(dirs["pca"][steps // 2]))
+    log(f"{config} dissect read: {EDIT_READ_N} samples, feats "
+        f"{feats.shape}, {out['read_seconds']:.1f} s, launches "
+        f"{out['read_launches']}; build_attr {dirs['attr'].shape}, build_pca "
+        f"{dirs['pca'].shape} in {out['build_seconds']:.1f} s, PCA "
+        f"orthogonality error {ortho:.2e}")
+    if not shapes_ok:
+        fail(f"{config} dissect artifacts have the wrong shapes or are not "
+             f"finite")
+    out["pca_orthogonality_error"] = ortho
+
+    # the same weights on the plain route (bf16) and in f32 (plain route)
+    session, _ = dissect_common.build_session(cfg, dev)
+    views = {"xla": sample_lfm.build_model(cfg, dev, seed=0,
+                                           attn_impl="xla"),
+             "f32": sample_lfm.build_model(dict(cfg, compute_dtype="float32"),
+                                           dev, seed=0, attn_impl="xla")}
+    for m in views.values():
+        m.load_state_dict(session.model.state_dict())
+    others = {k: DissectSession(m, solver_kwargs=d["solver_kwargs"])
+              for k, m in views.items()}
+    data = get_dataset(**cfg["dataset"]).get_split("train")
+    two = next(batches(data, 2))
+    f = {k: torch.as_tensor(s_.read([two], generator=torch.Generator(
+        device=dev).manual_seed(5))["feats"])
+        for k, s_ in (("auto", session), *others.items())}
+    _, f_rel, f_cos = compare(torch, f["auto"], f["xla"])
+    _, rel_k, _ = compare(torch, f["auto"], f["f32"])
+    _, rel_p, _ = compare(torch, f["xla"], f["f32"])
+    del f
+    log(f"{config} read features on 2 samples: auto vs xla cos {f_cos:.7f} "
+        f"(min {UNET_FIELD_MIN_COS}) rel_l2 {f_rel:.3e} (max "
+        f"{UNET_FIELD_MAX_REL_L2}); against the f32 field's: auto "
+        f"{rel_k:.3e}, xla {rel_p:.3e} (auto at most {UNET_F32_RATIO} x "
+        f"xla)")
+    if not (f_cos >= UNET_FIELD_MIN_COS and f_rel <= UNET_FIELD_MAX_REL_L2):
+        fail(f"{config}: the read features disagree with the plain path")
+    if rel_k > UNET_F32_RATIO * rel_p:
+        fail(f"{config}: the kernel route's read features are further from "
+             f"the f32 field's than the plain route's")
+
+    grid = select_direction(torch.as_tensor(dirs["attr"]), 0)
+    rel_s = EDIT_REL[config]
+    scale = rel_s * _rms(torch, torch.as_tensor(feats)) / _rms(torch, grid)
+    z = torch.randn((EDIT_WRITE_N, h, w, c), generator=torch.Generator(
+        device=dev).manual_seed(17), device=dev)
+    reset_launches(attn, mlpk)
+    t0 = time.perf_counter()
+    sweep = session.write_sweep(grid, (-scale, 0.0, scale), EDIT_WRITE_N,
+                                grid_dt=float(t_grid[1] - t_grid[0]),
+                                grid_t0=float(t_grid[0]), fixed_z=z)
+    torch.cuda.synchronize()
+    secs_w = time.perf_counter() - t0
+    got = all_launches(attn, mlpk)
+    want = {k: 3 * v for k, v in per_batch.items()}
+    x0 = session.decode(z)
+    exact = bool(torch.equal(sweep[1], x0))
+    noise = float((others["xla"].decode(z) - x0).norm() / x0.norm())
+    del views, others
+    x_m, x_0, x_p = sweep
+    move = float((x_p - x_0).norm() / x_0.norm())
+    move_m = float((x_0 - x_m).norm() / x_0.norm())
+    a, b = (x_p - x_0).double().flatten(), (x_0 - x_m).double().flatten()
+    same_way = float((a @ b) / (a.norm() * b.norm()))
+    log(f"{config} write sweep of attribute 0 at scales (-s, 0, s), s = "
+        f"{scale:.4g} ({rel_s} of the tap's rms), {EDIT_WRITE_N} samples: "
+        f"{secs_w:.1f} s, launches {got}; scale 0 equals a plain decode bit "
+        f"for bit: {exact}; moves |x+ - x0| {move:.3e}, |x0 - x-| "
+        f"{move_m:.3e} of |x0|, the routes' difference {noise:.3e} (moves at "
+        f"least {EDIT_MIN_NOISE} x it); cos(x+ - x0, x0 - x-) {same_way:.5f} "
+        f"(min {EDIT_MIN_COS})")
+    if got != expected(attn, mlpk, **want):
+        fail(f"{config} write sweep launches {got}, expected {want}")
+    if not exact:
+        fail(f"{config}: the scale-0 write differs from a plain decode")
+    if not (min(move, move_m) > EDIT_MIN_NOISE * noise
+            and same_way >= EDIT_MIN_COS and torch.isfinite(sweep).all()):
+        fail(f"{config}: the edit does not move the latents one way")
+
+    x = sample_from_moments(torch.as_tensor(
+        next(batches(data, EDIT_WRITE_N))["x"], device=dev),
+        torch.Generator(device=dev).manual_seed(19))
+    t0 = time.perf_counter()
+    errs = session.roundtrip_error(x)
+    secs_r = time.perf_counter() - t0
+    log(f"{config} roundtrip (vis_reversible) of {EDIT_WRITE_N} samples: "
+        f"{errs} in {secs_r:.1f} s")
+    if not all(math.isfinite(v) for v in errs.values()):
+        fail(f"{config}: the roundtrip error is not finite")
+    del session
+    out.update(read_features=dict(cos=f_cos, rel_l2=f_rel, auto_vs_f32=rel_k,
+                                  xla_vs_f32=rel_p),
+               write=dict(scale=scale, rel_of_tap=rel_s, seconds=secs_w,
+                          launches=got, scale0_exact=exact, move_plus=move,
+                          move_minus=move_m, route_difference=noise,
+                          cos_same_way=same_way),
+               roundtrip=dict(errs, seconds=secs_r))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA card")
@@ -3076,6 +3421,15 @@ def main():
                                cfg, dev, z, lat_dopri5, report["adaptive"],
                                by_key, hidden_mode=mode)
         for mode in ("exact", "gelu")}
+
+    # 24. SD-UNet-large at 512 px: row 9 on the main path
+    report["unet_512"] = unet512_path(torch, np, flow, attn, mlpk,
+                                      sample_lfm, dev, by_key)
+
+    # 25. u-space editing: read, directions, write, roundtrip on both models
+    report["editing"] = {
+        name: editing_path(torch, np, attn, mlpk, sample_lfm, dev, name)
+        for name in ("uvit_large", "unet_large_512")}
 
     for k in kernels:
         if k["launches"] < 1:

@@ -290,10 +290,17 @@ def test_unported_paths_raise():
     # kernel 7 runs at every L <= 1024 through "pallas" (its twin here)
     q = torch.zeros(1, H, 8, 16)
     assert tattn.multi_head_attention(q, q, q, impl="pallas").shape == q.shape
-    # above 1024 the blocked kernel 9 is needed
-    long = torch.zeros(1, 1, 1025, 32)
-    with pytest.raises(NotImplementedError, match="_flash_kernel"):
-        tattn.multi_head_attention(long, long, long, impl="pallas")
+    # above 1024 "pallas" runs the blocked kernel 9 (its twin here), which
+    # has no backward, as in the JAX package
+    long = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (1, 1, 1025, 32)).astype(np.float32))
+    assert torch.equal(tattn.multi_head_attention(long, long, long,
+                                                  impl="pallas"),
+                       tattn.flash_attention_plain(long, long, long,
+                                                   32 ** -0.5))
+    with pytest.raises(ValueError, match="no backward"):
+        tattn.multi_head_attention(long.requires_grad_(), long, long,
+                                   impl="pallas")
     # kernel 7 is differentiable through kernel 8 (their twins here)
     qg = torch.zeros(1, 1, 600, 32, requires_grad=True)
     tattn.multi_head_attention(qg, qg, qg, impl="pallas").sum().backward()
@@ -315,9 +322,10 @@ def test_cpu_twin_does_not_count_launches():
     q = torch.zeros(1, 2, 600, 32)
     tattn.fused_attention(q, q, q)
     tattn.fused_attention_bwd(q, q, q, q)
+    tattn.flash_attention_blocked(q, q, q)
     assert set(tattn.LAUNCHES.values()) == {0}
-    assert {"packed_attention_bwd", "attention_fwd",
-            "fused_attention_bwd"} <= set(tattn.LAUNCHES)
+    assert {"packed_attention_bwd", "attention_fwd", "fused_attention_bwd",
+            "flash"} <= set(tattn.LAUNCHES)
 
 
 def test_kernel_input_checks():
@@ -363,6 +371,14 @@ def test_kernel_input_checks():
         tattn._fused_bwd_kernel(q, q, q, q.float(), 0.1)
     with pytest.raises(ValueError, match="shape"):
         tattn._fused_bwd_kernel(q, q, q, q[:, :4], 0.1)
+    # kernel 9: bf16, head dim 32 or 64, any L
+    for bad, msg in ((q.float(), "attn_impl='xla'"),
+                     (torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16),
+                      "head dim 32 or 64")):
+        with pytest.raises(ValueError, match=re.escape(msg)):
+            tattn._flash_kernel(bad, bad, bad, 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        tattn._flash_kernel(q, q[:, :4], q, 0.1)
     w = torch.zeros(2, requires_grad=True)
     with pytest.raises(NotImplementedError, match="inference-only"):
         _build.check_no_grad(ok, w, what="the LN kernel")
@@ -377,7 +393,7 @@ def test_ctypes_signatures_match_c_source():
                                       "attention_fwd", "fused_attention_bwd",
                                       "mlp_int8", "mlp_w8", "attention_block",
                                       "mlp_bf16", "delta_attention",
-                                      "delta_mlp"}
+                                      "delta_mlp", "flash_attention"}
     # rows 20-25 of the kernel table: one entry point each
     assert set(_build.SIGNATURES["delta_mlp"]) == {
         f"uspace_{k}" for k in ("base_mlp_grad", "base_mlp_e", "base_mlp_eg",

@@ -236,7 +236,11 @@ _GUARD = textwrap.dedent("""
                  lambda: sample_lfm.run(n_samples=1),
                  lambda: sample_lfm.run(config="unet_large", n_samples=1,
                                         decode=True),
-                 lambda: uspace_tpu_torch.cli.train_lfm.run(n_steps=1)):
+                 lambda: uspace_tpu_torch.cli.train_lfm.run(n_steps=1),
+                 lambda: uspace_tpu_torch.cli.dissect_lfm.run(
+                     "synthetic_smoke", "read"),
+                 lambda: uspace_tpu_torch.cli.dissect_lfm.run(
+                     "synthetic_smoke", "build_attr")):
         try:
             call()
         except RuntimeError as e:

@@ -11,7 +11,8 @@ another order: max-abs one bf16 step of the largest output value, and the
 int8 rel-L2 limits of chip_smoke.py, taken for the MLP sub-block on out - x
 (the residual would dilute an error of the MLP). The weight-only int8 (w8)
 MLP kernels are held the same way, at chip_smoke.py's w8 limit. The
-[B, H, L, D] kernel (kernel 7) takes the bf16 forward limits. The bf16
+[B, H, L, D] kernel (kernel 7) and the blocked online-softmax kernel
+(kernel 9) take the bf16 forward limits. The bf16
 attention sub-block and the bf16 MLP kernels (rows 10, 12, 13) take the
 bf16 rel-L2, the int8 sub-block (row 11) the int8 attention one; the bf16
 MLP max-abs one bf16 step of its largest output (its outputs pass 2, where
@@ -148,7 +149,7 @@ def test_wrappers_count_launches_and_refuse(cuda):
                              "ln_qkvproj_attention_int8": 0,
                              "attention_fwd": 0, "fused_attention_bwd": 0,
                              "attention_block": 0,
-                             "attention_block_int8": 0}
+                             "attention_block_int8": 0, "flash": 0}
     with pytest.raises(ValueError, match="bfloat16"):
         attn.fused_qkvproj_attention(x.float(), w, 2)
     with pytest.raises(ValueError, match="L <="):
@@ -434,9 +435,15 @@ def test_fwd_kernel_counts_launches_and_refuses(cuda):
     with pytest.raises(ValueError, match="head dim"):
         with torch.no_grad():
             attn.fused_attention(q[..., :16], q[..., :16], q[..., :16])
-    long = torch.zeros(1, 1, 1025, 32, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError, match="_flash_kernel"):
-        attn.multi_head_attention(long, long, long)
+    # above 1024, auto runs the blocked kernel 9, once, against its twin
+    long = torch.randn(1, 1, 1025, 32, generator=torch.Generator(
+        device=cuda).manual_seed(9), device=cuda).to(torch.bfloat16)
+    attn.reset_launches()
+    with torch.no_grad():
+        out = attn.multi_head_attention(long, long, long)
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES["flash"] == 1 and sum(attn.LAUNCHES.values()) == 1
+    _agree(out, attn.flash_attention_plain(long, long, long, 32 ** -0.5))
     # under autograd the backward runs kernel 8, once per call
     attn.reset_launches()
     qg = q.clone().requires_grad_()
@@ -466,6 +473,75 @@ def test_unet_auto_routes_through_the_fwd_kernel(cuda):
         b, _ = plain(x, t)
     assert attn.LAUNCHES["attention_fwd"] == 3
     assert sum(attn.LAUNCHES.values()) == 3
+    af, bf = a.float(), b.float()
+    assert float((af * bf).sum() / (af.norm() * bf.norm())) > 0.999
+
+
+@pytest.mark.parametrize("b,h,l,d", [(50, 8, 4096, 32), (4, 16, 1025, 64),
+                                     (8, 8, 1300, 32), (1, 1, 1, 32),
+                                     (2, 3, 257, 64), (1, 2, 2049, 32)])
+def test_flash_kernel_matches_twin(cuda, b, h, l, d):
+    """Kernel 9 at chip_smoke.py's phase-3 shapes and ragged edges (a
+    partial last key block, a single key, one key past a block)."""
+    g = torch.Generator(device=cuda).manual_seed(l + d)
+    q, k, v = (_rand(g, b, h, l, d) for _ in range(3))
+    attn.reset_launches()
+    with torch.no_grad():
+        out = attn.flash_attention_blocked(q, k, v)
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES["flash"] == 1
+    _agree(out, attn.flash_attention_plain(q, k, v, d ** -0.5))
+
+
+def test_flash_kernel_counts_launches_and_refuses(cuda):
+    """Kernel 9 takes bf16 at head dims 32 and 64 only, and refuses a call
+    that needs a gradient (the JAX kernel has no VJP); pallas and auto
+    send L > 1024 to it."""
+    q = torch.zeros(1, 2, 1100, 32, dtype=torch.bfloat16, device=cuda)
+    attn.reset_launches()
+    with torch.no_grad():
+        attn.multi_head_attention(q, q, q)
+        attn.multi_head_attention(q, q, q, impl="pallas")
+        attn.multi_head_attention(q, q, q, impl="pallas_block")
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES["flash"] == 3 and sum(attn.LAUNCHES.values()) == 3
+    with pytest.raises(ValueError, match="attn_impl='xla'"):
+        with torch.no_grad():
+            attn.flash_attention_blocked(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="head dim"):
+        with torch.no_grad():
+            attn.flash_attention_blocked(q[..., :16], q[..., :16],
+                                         q[..., :16])
+    with pytest.raises(ValueError, match="no backward"):
+        attn.multi_head_attention(q.clone().requires_grad_(), q, q)
+    assert attn.LAUNCHES["flash"] == 3
+
+
+def test_unet_auto_routes_through_the_flash_kernel(cuda):
+    """A small bf16 UNet at 36 x 36 latents with attention at ds 1 and 2:
+    its three self-attentions at L = 1296 launch kernel 9 under auto, the
+    two at L = 324 run plain math; a u-space edit keeps the route."""
+    from uspace_tpu_torch.editing.specs import USpaceEdit
+
+    cfg = dict(image_size=36, model_channels=64, channel_mult=(1, 2),
+               num_res_blocks=1, attention_resolutions=(1, 2),
+               num_head_channels=32, context_dim=64, dtype=torch.bfloat16,
+               device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    fused = UNet(**cfg).init_weights(g, zero_init_std=ZERO_INIT_STD).eval()
+    plain = UNet(attn_impl="xla", **cfg).eval()
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(4, 36, 36, 4, generator=g, device=cuda)
+    t = torch.full((4,), 0.5, device=cuda)
+    edit = USpaceEdit(delta_grid=torch.zeros(2, 18, 18, 128, device=cuda),
+                      scale=1.0, grid_dt=0.5)
+    attn.reset_launches()
+    with torch.no_grad():
+        a, _ = fused(x, t)
+        e, _ = fused(x, t, edit=edit)
+        b, _ = plain(x, t)
+    assert attn.LAUNCHES["flash"] == 6 and sum(attn.LAUNCHES.values()) == 6
+    assert torch.equal(a, e)
     af, bf = a.float(), b.float()
     assert float((af * bf).sum() / (af.norm() * bf.norm())) > 0.999
 

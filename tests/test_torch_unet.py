@@ -23,6 +23,7 @@ from uspace_tpu.core import flow as jflow
 from uspace_tpu.models.unet import UNet as JaxUNet
 from uspace_tpu_torch.codecs.convert import load_unet_from_jax
 from uspace_tpu_torch.core import flow as tflow
+from uspace_tpu_torch.editing.specs import USpaceEdit
 from uspace_tpu_torch.models import get_nnet
 from uspace_tpu_torch.models.layers import group_norm
 from uspace_tpu_torch.models.unet import (
@@ -203,7 +204,7 @@ def test_nearest_upsample_and_group_norm_match_jax():
 
 def test_unported_views_raise():
     """The int8 views and per-block remat build; an unknown view or
-    attn_impl, and the edit hooks, still raise."""
+    attn_impl still raises; the edit hook, once refused, now writes."""
     for q in (True, "conv8", "w8a8", "dense8"):
         assert UNet(**TINY, quant=q, device="cpu").quant == q
     assert UNet(**TINY, use_checkpoint=True, device="cpu").use_checkpoint
@@ -214,5 +215,8 @@ def test_unported_views_raise():
     tm = get_nnet("unet_t2i", **TINY, device="cpu")
     assert isinstance(tm, UNet)
     x = torch.zeros(1, 16, 16, 4)
-    with pytest.raises(NotImplementedError, match="editing slice"):
-        tm(x, torch.zeros(1), edit=object())
+    edit = USpaceEdit(delta_grid=torch.ones(2, 16, 16, 4), scale=0.5,
+                      grid_dt=0.5, loc="head")
+    with torch.no_grad():
+        _, taps = tm(x, torch.full((1,), 0.5), edit=edit, capture=("head",))
+    assert torch.equal(taps["head"], x + 0.5)

@@ -26,6 +26,8 @@ Needs a CUDA card.
         --batch 50 --attn_impl auto --out profile_field.json
     python -m uspace_tpu_torch.cli.profile_field --config unet_large \\
         --attn_impl auto --out profile_unet.json
+    python -m uspace_tpu_torch.cli.profile_field --config unet_large_512 \\
+        --out profile_unet_512.json
     python -m uspace_tpu_torch.cli.profile_field --quant --out q.json
     python -m uspace_tpu_torch.cli.profile_field --quant w8 --out w8.json
     python -m uspace_tpu_torch.cli.profile_field --attn_impl pallas_block \
@@ -74,6 +76,8 @@ GROUPS = (
                                            "bwd_dkdv_kernel")),
     ("attention sub-block passes (ours: LN, row codes, projection)", (
         "ln_bf16_kernel", "row_codes_kernel", "proj_residual_kernel")),
+    # before "attention kernel": its name contains that one's
+    ("blocked attention kernel (ours: row 9)", ("flash_attention_kernel",)),
     ("attention kernel (ours)", ("attention_kernel",)),
     ("[B, H, L, D] attention kernel (ours)", ("attention_fwd_kernel",)),
     ("int8 attention kernel (ours)", ("attention_int8_kernel",)),

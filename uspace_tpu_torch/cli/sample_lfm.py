@@ -1,17 +1,21 @@
 """Sample latents with a config's field, and decode them to pixels.
 
 The sampling branch of ``uspace_tpu/cli/sample_lfm.py`` for the U-ViT
-(``uvit_large``) and the SD-UNet (``unet_large``): noise goes through
-``core.flow.decode`` and each mini-batch of raw latents ([n, 32, 32, 4]
-f32, NHWC) is written to ``<out>/<first index>.npy``. With ``--decode`` the
-f32 SD VAE decodes each batch and the pixels go to
-``<out>/<first index>.pixels.npy`` as uint8 [n, 256, 256, 3] (``unpreprocess``
-and rounding, as the JAX package's PNG writer rounds). Without ``--weights``
-the field has seeded random weights (the UNet's zero-initialised output
-convs drawn small, so that the field is not zero); ``--weights`` takes an
-``.npz`` of JAX params keyed ``a/b/c``, ``--vae_weights`` the same for the
-VAE (seeded weights without it). The VAE's f32 convolutions run in exact
-f32, TF32 off. ``--quant`` samples with an int8 view of the same weights,
+(``uvit_large``) and the SD-UNet (``unet_large``, and ``unet_large_512`` at
+64x64 latents): noise goes through ``core.flow.decode`` and each
+mini-batch of raw latents ([n, h, w, 4] f32, NHWC: 32x32 at 256 pixels,
+64x64 at 512) is written to ``<out>/<first index>.npy``. With ``--decode``
+the f32 SD VAE decodes each batch, ``--decode_batch`` latents at a time
+(default 10), and the pixels go to ``<out>/<first index>.pixels.npy`` as
+uint8 [n, 8h, 8w, 3] (``unpreprocess`` and rounding, as the JAX package's
+PNG writer rounds). The chunks bound the decoder's memory: at 512 pixels
+one of its [10, 512, 512, 128] f32 activations is 1.3 GB, and its mid
+attention over L = 4096 positions holds 64 MB of f32 scores an image.
+Without ``--weights`` the field has seeded random weights (the UNet's
+zero-initialised output convs drawn small, so that the field is not zero);
+``--weights`` takes an ``.npz`` of JAX params keyed ``a/b/c``,
+``--vae_weights`` the same for the VAE (seeded weights without it). The
+VAE's f32 convolutions run in exact f32, TF32 off. ``--quant`` samples with an int8 view of the same weights,
 as the config's ``nnet.quant`` does. The flag alone picks the model's own
 view: W8A8 for the U-ViT, the convs only for the SD-UNet. Named views: for
 the U-ViT ``w8a8``, ``w8a8_mlp`` and weight-only ``w8`` (the view for
@@ -38,6 +42,8 @@ float weights, whatever ``--quant`` says.
 
     python -m uspace_tpu_torch.cli.sample_lfm --config unet_large --decode \\
         --n_samples 100 --batch 50 --steps 50 --seed 0 --out samples
+    python -m uspace_tpu_torch.cli.sample_lfm --config unet_large_512 \\
+        --decode --n_samples 50 --batch 50 --out samples_512
     python -m uspace_tpu_torch.cli.sample_lfm --config unet_large --quant \\
         --decode --n_samples 100 --batch 50 --out samples_int8
     python -m uspace_tpu_torch.cli.sample_lfm --config uvit_large \\
@@ -174,11 +180,13 @@ def run(config="uvit_large", n_samples: int = 100, batch: int = 50,
         stats: Optional[List[dict]] = None, decode: bool = False,
         vae_weights: Optional[str] = None,
         attn_impl: Optional[str] = None, field: Optional[str] = None,
-        hidden_mode: Optional[str] = None) -> List[str]:
+        hidden_mode: Optional[str] = None,
+        decode_batch: int = 10) -> List[str]:
     """Write ceil(n_samples / batch) latent batches, and with ``decode``
     their uint8 pixel batches after each (through the VAE's int8 view when
-    ``quant`` is set); returns the paths in that order. ``config`` is a
-    config's name or the config itself; ``attn_impl`` defaults to its
+    ``quant`` is set), ``decode_batch`` latents at a time; returns the
+    paths in that order. ``config`` is a config's name or the config
+    itself; ``attn_impl`` defaults to its
     ``nnet.attn_impl``, else ``"auto"``. ``field`` and ``hidden_mode``
     (default: the config's ``sample.solver_kwargs``) pick the stage-delta
     field (:func:`stage_delta_kwargs`). For an adaptive solve each batch's
@@ -214,7 +222,9 @@ def run(config="uvit_large", n_samples: int = 100, batch: int = 50,
         paths.append(path)
         if vae is not None:
             path = os.path.join(out, f"{b * batch}.pixels.npy")
-            np.save(path, to_uint8(vae.decode(lat)))
+            np.save(path, np.concatenate([
+                to_uint8(vae.decode(lat[i:i + decode_batch]))
+                for i in range(0, n, decode_batch)]))
             paths.append(path)
     return paths
 
@@ -246,6 +256,8 @@ def main(argv=None) -> None:
     ap.add_argument("--decode", action="store_true",
                     help="decode each batch with the f32 SD VAE (its int8 "
                     "view with --quant) and write uint8 pixels")
+    ap.add_argument("--decode_batch", type=int, default=10,
+                    help="latents per VAE decode call")
     ap.add_argument("--vae_weights", default=None,
                     help=".npz of JAX VAE params (keys a/b/c)")
     ap.add_argument("--attn_impl", default=None,
@@ -265,7 +277,8 @@ def main(argv=None) -> None:
                 a.out, a.device, a.quant, a.solver, a.t_edit, a.rtol, a.atol,
                 a.controller, a.safety, decode=a.decode,
                 vae_weights=a.vae_weights, attn_impl=a.attn_impl,
-                field=a.field, hidden_mode=a.hidden_mode)
+                field=a.field, hidden_mode=a.hidden_mode,
+                decode_batch=a.decode_batch)
     print(f"wrote {len(paths)} arrays to {a.out}")
 
 

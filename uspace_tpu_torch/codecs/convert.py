@@ -171,3 +171,13 @@ def load_vae_from_jax(model: nn.Module, params: Mapping[str, Any]
                       ) -> nn.Module:
     """The same for the SD-VAE (``codecs.vae.AutoencoderKL``)."""
     return _load(model, vae_flax_to_torch(params))
+
+
+def load_reference_nnet(model: nn.Module, path: str) -> nn.Module:
+    """Load a reference torch checkpoint (``nnet.pth`` / ``nnet_ema.pth``,
+    a plain state dict) into ``model`` in place (``strict=True``): the
+    port's modules carry the reference's torch names, so its keys need no
+    renaming, where the JAX package converts them to Flax."""
+    model.load_state_dict(torch.load(path, map_location="cpu",
+                                     weights_only=True), strict=True)
+    return model

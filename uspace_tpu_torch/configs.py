@@ -1,7 +1,8 @@
-"""Model, training and sampling configurations as plain dicts.
+"""Model, training, sampling and dissection configurations as plain dicts.
 
 Counterpart of the ``nnet``, ``train``, ``optimizer``, ``lr_scheduler``,
-``dynamic`` and ``sample`` blocks of ``uspace_tpu/configs`` (ml_collections
+``dynamic``, ``sample``, ``dataset`` and ``dissection`` blocks of
+``uspace_tpu/configs`` (ml_collections
 there; plain dicts here, so the port needs neither ml_collections nor
 absl).
 """
@@ -61,6 +62,28 @@ _SAMPLE = dict(sample_steps=50, n_samples=50_000, mini_batch_size=50,
                                   solver_adaptive="dopri5", rtol=1e-5,
                                   atol=1e-5, controller="pi"))
 
+# configs/common.py:80-121 (base_config's dissection block), the keys the
+# dissect CLI reads, with the Euler solve of configs/synthetic_attr_e2e.py
+# (solver_fix_step 0.02: 50 read and write steps) and the mid tap
+_WRITE_SCALES = (-500, -400, -300, -200, -100, -50, -10, 0,
+                 10, 50, 100, 200, 300, 400, 500)
+_DISSECTION = dict(dissect_name=None, n_samples=100, mini_batch_size=100,
+                   ckpt_path_to_dissect="", fixed_z_path="",
+                   read_path_root="dissect/read", write_scales=_WRITE_SCALES,
+                   ith_component=1, pca_n=50, ith_attr=0, class_label=0,
+                   t_edit=1.0, edit_loc="mid",
+                   solver_kwargs=dict(solver="fixed", solver_fix="euler",
+                                      solver_fix_step=0.02))
+
+
+def _attr_dataset(latent_hw: int, num: int = 4096) -> Dict[str, Any]:
+    """The read's dataset: ``SyntheticAttrFeatures`` moments at a config's
+    latent shape (configs/synthetic_attr_e2e.py; the CelebAMask-HQ features
+    with attributes are not in the repository)."""
+    return dict(name="synthetic_attr", num=num,
+                shape=(latent_hw, latent_hw, 8), num_attrs=4)
+
+
 CONFIGS: Dict[str, Dict[str, Any]] = {
     # CelebAMask-HQ 256 U-ViT-large (configs/lfm_cm256_uvit_large.py):
     # 4x32x32 latents, embed 1024, depth 20, 16 heads, patch 2, L = 257
@@ -76,6 +99,8 @@ CONFIGS: Dict[str, Dict[str, Any]] = {
         lr_scheduler=_LR_SCHEDULER,
         dynamic=_DYNAMIC,
         sample=_SAMPLE,
+        dataset=_attr_dataset(32),
+        dissection=_DISSECTION,
     ),
     # CelebAMask-HQ 256 SD-UNet-large (configs/lfm_cm256_unet_large.py):
     # 4x32x32 latents, 256 channels x (1, 2, 4), 2 res blocks, a
@@ -93,6 +118,25 @@ CONFIGS: Dict[str, Dict[str, Any]] = {
         dynamic=_DYNAMIC,
         sample=_SAMPLE,
     ),
+    # the same SD-UNet-large at SD 1.x's native 512 x 512: 4x64x64 latents,
+    # so its top attention level runs L = 4096 tokens in 8 heads of 32 (the
+    # blocked attention kernel, _flash_kernel) and ds 2 L = 1024. The JAX
+    # package runs it as configs/lfm_cm256_unet_large.py with two overrides:
+    #   --config.nnet.image_size=64 --config.z_shape="(4, 64, 64)"
+    # decoded by the f32 SD VAE to 512-pixel images
+    "unet_large_512": dict(
+        z_shape=(4, 64, 64),
+        compute_dtype="bfloat16",
+        nnet=unet_nnet(image_size=64),
+        autoencoder=_AUTOENCODER,
+        train=dict(_TRAIN, n_steps=300_000, batch_size=128),
+        optimizer=_OPTIMIZER,
+        lr_scheduler=_LR_SCHEDULER,
+        dynamic=_DYNAMIC,
+        sample=_SAMPLE,
+        dataset=_attr_dataset(64),
+        dissection=_DISSECTION,
+    ),
     # tiny CPU UNet config (tests/test_unet.py TINY): 4x16x16 latents, 32
     # channels x (1, 2), attention at ds 2, f32; a VAE of the SD layout at
     # 32 channels (--decode: 128-pixel images)
@@ -108,6 +152,11 @@ CONFIGS: Dict[str, Dict[str, Any]] = {
         lr_scheduler=_LR_SCHEDULER,
         dynamic=_DYNAMIC,
         sample=dict(_SAMPLE, sample_steps=4, n_samples=4, mini_batch_size=4),
+        dataset=_attr_dataset(16, num=64),
+        dissection=dict(_DISSECTION, n_samples=8, mini_batch_size=4,
+                        pca_n=4, write_scales=(-100, 0, 100),
+                        solver_kwargs=dict(_DISSECTION["solver_kwargs"],
+                                           solver_fix_step=0.25)),
     ),
     # tiny CPU smoke config (configs/synthetic_smoke.py): 4x8x8 latents,
     # embed 32, depth 2, f32
@@ -123,6 +172,11 @@ CONFIGS: Dict[str, Dict[str, Any]] = {
         lr_scheduler=_LR_SCHEDULER,
         dynamic=_DYNAMIC,
         sample=dict(_SAMPLE, sample_steps=4, n_samples=4, mini_batch_size=4),
+        dataset=_attr_dataset(8, num=64),
+        dissection=dict(_DISSECTION, n_samples=8, mini_batch_size=4,
+                        pca_n=4, write_scales=(-100, 0, 100),
+                        solver_kwargs=dict(_DISSECTION["solver_kwargs"],
+                                           solver_fix_step=0.25)),
     ),
 }
 

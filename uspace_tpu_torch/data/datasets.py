@@ -1,11 +1,13 @@
 """Feature datasets: the port's own copy of what its slices need from
 ``uspace_tpu/data/datasets.py`` (numpy only; the port imports nothing of
-the JAX package).
+the JAX package), with the ``get_dataset`` factory of the attribute
+dataset and :func:`batches`, a sequential batch iterator that stands in
+for the JAX package's loader.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Iterator, Sequence
 
 import numpy as np
 
@@ -40,6 +42,106 @@ class SyntheticFeatures:
         """The samples at ``indices`` stacked along a new batch axis."""
         items = [self[i] for i in indices]
         return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+class SyntheticAttrFeatures:
+    """Attribute-structured synthetic moments for the editing workflow (the
+    CelebA / FFHQ latents with attributes are not in the repository). Each
+    sample's latent is ``base_std * g(idx) + amp * sum_a attr_a(idx) P_a``
+    with per-index Gaussian noise g and fixed orthonormal patterns ``P_a``,
+    stored as VAE-style moments (mean ‖ logvar, divided by the SD scale
+    factor, so that ``sample_from_moments`` gives x plus small noise). The
+    draws are the JAX package's ``SyntheticAttrFeatures``, bit for bit."""
+
+    SCALE = 0.18215  # the SD scale factor of every config's autoencoder
+
+    def __init__(self, num: int = 4096, shape=(8, 8, 8), num_attrs: int = 4,
+                 base_std: float = 0.4, amp: float = 1.5,
+                 noise_std: float = 0.05, raw: bool = False, seed: int = 0):
+        if shape[-1] % 2:
+            raise ValueError("moments need mean ‖ logvar channels: the last "
+                             f"axis of {tuple(shape)} is odd")
+        self.num = num
+        self.raw = raw  # the latent itself instead of moments
+        self.shape = tuple(shape)
+        self.latent_shape = (*self.shape[:-1], self.shape[-1] // 2)
+        self.num_attrs = num_attrs
+        self.base_std = base_std
+        self.amp = amp
+        self.noise_std = noise_std
+        self.seed = seed
+        self._pat = self.patterns(self.latent_shape, num_attrs)
+
+    @staticmethod
+    def patterns(latent_shape, num_attrs: int) -> np.ndarray:
+        """[A, *latent_shape] fixed orthonormal directions (unit L2)."""
+        dim = int(np.prod(latent_shape))
+        rng = np.random.default_rng(12345)
+        q, _ = np.linalg.qr(rng.normal(size=(dim, num_attrs)))
+        return q.T.reshape(num_attrs, *latent_shape).astype(np.float32)
+
+    def attr_of(self, idx: int) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, 1, idx))
+        return (rng.random(self.num_attrs) < 0.5).astype(np.float32)
+
+    def latent_of(self, idx: int) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, 0, idx))
+        g = rng.normal(size=self.latent_shape).astype(np.float32)
+        attr = self.attr_of(idx)
+        return self.base_std * g + self.amp * np.tensordot(
+            attr, self._pat, axes=1)
+
+    def __len__(self) -> int:
+        return self.num
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        if self.raw:
+            return {"x": self.latent_of(idx), "attr": self.attr_of(idx)}
+        mean = self.latent_of(idx) / self.SCALE
+        logvar = np.full_like(mean, 2.0 * np.log(self.noise_std / self.SCALE))
+        return {"x": np.concatenate([mean, logvar], axis=-1),
+                "attr": self.attr_of(idx)}
+
+
+class SyntheticAttr:
+    """The ``synthetic_attr`` dataset: ``SyntheticAttrFeatures`` train and
+    test splits (the test split from seed 10000)."""
+
+    def __init__(self, num: int = 4096, shape=(8, 8, 8), num_attrs: int = 4,
+                 base_std: float = 0.4, amp: float = 1.5,
+                 noise_std: float = 0.05, raw: bool = False, **_):
+        self.train = SyntheticAttrFeatures(num, shape, num_attrs, base_std,
+                                           amp, noise_std, raw)
+        self.test = SyntheticAttrFeatures(max(num // 8, 1), shape, num_attrs,
+                                          base_std, amp, noise_std, raw,
+                                          seed=10_000)
+
+    def get_split(self, split: str = "train") -> SyntheticAttrFeatures:
+        return getattr(self, split)
+
+
+_REGISTRY = {"synthetic_attr": SyntheticAttr}
+
+
+def get_dataset(name: str, **kwargs):
+    """A dataset by its config name (``synthetic_attr``, the one the dissect
+    CLI reads: the feature datasets are not in the repository)."""
+    if name not in _REGISTRY:
+        raise NotImplementedError(f"dataset {name!r} is not ported")
+    return _REGISTRY[name](**kwargs)
+
+
+def batches(dataset, batch_size: int, drop_last: bool = True
+            ) -> Iterator[Dict[str, np.ndarray]]:
+    """One epoch of ``dataset`` (map-style: ``len`` and ``__getitem__`` ->
+    dict of arrays) in index order, ``batch_size`` samples a batch, a short
+    last batch dropped unless ``drop_last`` is False, as the JAX package's
+    unshuffled ``DataLoader`` yields them: no shuffling, no workers."""
+    n = len(dataset)
+    stop = n - n % batch_size if drop_last else n
+    for start in range(0, stop, batch_size):
+        items = [dataset[i] for i in range(start, min(start + batch_size, n))]
+        yield {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 
 def unpreprocess(images: np.ndarray) -> np.ndarray:

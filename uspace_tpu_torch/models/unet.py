@@ -11,13 +11,14 @@ with ``strict=True`` (``codecs/convert.load_unet_from_jax``).
 
 Self-attention goes through ``ops.attention.multi_head_attention``: on the
 card ``auto`` sends 512 < L <= 1024 (the 32x32 levels of UNet-large) to the
-[B, H, L, D] kernel and shorter sequences to plain math, as the JAX package
-routes on the TPU; the kernel is differentiable, so the model trains on its
-own ``auto``. Cross-attention is plain math. A missing context becomes a
-zeros [B, 1, context_dim] token. ``use_checkpoint`` recomputes each
-ResBlock, SpatialTransformer and AttnBlockLegacy in the backward
-(``torch.utils.checkpoint``, non-reentrant, only under autograd), as the
-JAX UNet's ``nn.remat``.
+[B, H, L, D] kernel, L > 1024 (the 64x64 level at 512 pixels) to the
+blocked online-softmax kernel and shorter sequences to plain math, as the
+JAX package routes on the TPU; the [B, H, L, D] kernel is differentiable,
+so the model trains on its own ``auto`` at 32x32 latents. Cross-attention
+is plain math. A missing context becomes a zeros [B, 1, context_dim]
+token. ``use_checkpoint`` recomputes each ResBlock, SpatialTransformer
+and AttnBlockLegacy in the backward (``torch.utils.checkpoint``,
+non-reentrant, only under autograd), as the JAX UNet's ``nn.remat``.
 
 Int8 sampling views (``quant``, the JAX package's ``_conv`` and
 ``_udense``): ``True``/``"conv8"`` runs the ResBlock 3x3 convs, the
@@ -28,8 +29,10 @@ only. The boundary convs, the ResBlock's 1x1 skip, ``emb_layers``,
 ``time_embed`` and AttnBlockLegacy's Conv1d stay in the compute dtype. The
 parameters are the same in every view.
 
-Not ported yet, and refused: the u-space write hooks (``edit``, the editing
-slice).
+``edit`` (a ``editing.specs.USpaceEdit``) writes at the input latents
+(head), the middle block's output (mid) or the output (tail), and
+``capture`` reads the same taps, as in the JAX package. An edit keeps every
+fused attention route.
 """
 
 from __future__ import annotations
@@ -474,12 +477,10 @@ class UNet(nn.Module):
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """x: latents [B, H, W, C]; timesteps: [B] flow times in [0, 1];
         context: [B, Lc, context_dim] or None (a zeros token); y: [B] int
-        labels (class-conditional only); capture: tap names whose
-        activations are returned. Returns ``(velocity, taps)``."""
-        if edit is not None:
-            raise NotImplementedError(
-                "u-space write hooks (edit) come with the editing slice, "
-                "not ported yet")
+        labels (class-conditional only); edit: a u-space write edit applied
+        at ``edit.loc`` (the input latents, the middle block's output or the
+        output) at the batch's time ``timesteps[0]``; capture: tap names
+        whose activations are returned. Returns ``(velocity, taps)``."""
         unknown = set(capture) - set(TAPS)
         if unknown:
             raise ValueError(f"unknown taps {sorted(unknown)}")
@@ -493,6 +494,9 @@ class UNet(nn.Module):
         if self.use_spatial_transformer and context is None:
             context = torch.zeros((x.shape[0], 1, self.context_dim),
                                   dtype=x.dtype, device=x.device)
+        t_scalar = timesteps[0]  # batch-uniform during ODE integration
+        if edit is not None and edit.loc == "head":
+            x = edit.apply(x, t_scalar)
         if "head" in capture:
             taps["head"] = x
         h, hs = x, []
@@ -500,12 +504,16 @@ class UNet(nn.Module):
             h = self._run(layers, h, emb, context)
             hs.append(h)
         h = self._run(self.middle_block, h, emb, context)
+        if edit is not None and edit.loc == "mid":
+            h = edit.apply(h, t_scalar)
         if "mid" in capture:
             taps["mid"] = h
         for layers in self.output_blocks:
             h = self._run(layers, torch.cat([h, hs.pop()], dim=-1), emb,
                           context)
         out = self.out[2].nhwc(F.silu(self.out[0](h)))
+        if edit is not None and edit.loc == "tail":
+            out = edit.apply(out, t_scalar)
         if "tail" in capture:
             taps["tail"] = out
         return out, taps

@@ -6,9 +6,10 @@ patches]``, learned position embedding, depth//2 in-blocks -> mid-block ->
 depth//2 out-blocks with skip fusion, then norm -> linear decoder ->
 unpatchify -> 3x3 conv. Latents are NHWC.
 
-``capture`` returns the head/mid/tail tap activations. The ``edit`` write
-hooks come with the editing slice. With ``use_checkpoint`` each block is
-recomputed in the backward (``torch.utils.checkpoint``, non-reentrant)
+``capture`` returns the head/mid/tail tap activations, and ``edit`` (a
+``editing.specs.USpaceEdit``) writes at its tap before the tap is read,
+as in the JAX package. With ``use_checkpoint`` each block is recomputed
+in the backward (``torch.utils.checkpoint``, non-reentrant)
 except ``remat_exempt`` blocks spread evenly over depth, the JAX package's
 exempt set; values and gradients do not depend on either. Without autograd
 (sampling) no block is checkpointed.
@@ -149,15 +150,21 @@ class UViT(nn.Module):
         timesteps: torch.Tensor,
         y: Optional[torch.Tensor] = None,
         *,
+        edit=None,
         capture: Tuple[str, ...] = (),
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """x: latents [B, H, W, C]; timesteps: [B] flow times in [0, 1];
-        y: [B] int labels (class-conditional only); capture: tap names
-        whose activations are returned. Returns ``(velocity, taps)``."""
+        y: [B] int labels (class-conditional only); edit: a u-space write
+        edit applied at ``edit.loc`` at the batch's time ``timesteps[0]``;
+        capture: tap names whose activations are returned. Returns
+        ``(velocity, taps)``."""
         unknown = set(capture) - set(TAPS)
         if unknown:
             raise ValueError(f"unknown taps {sorted(unknown)}")
         taps: Dict[str, torch.Tensor] = {}
+        t_scalar = timesteps[0]  # batch-uniform during ODE integration
+        if edit is not None and edit.loc == "head":
+            x = edit.apply(x, t_scalar)
         if "head" in capture:
             taps["head"] = x
 
@@ -184,6 +191,8 @@ class UViT(nn.Module):
             x = run(i, x)
             skips.append(x)
         x = run(half, x)
+        if edit is not None and edit.loc == "mid":
+            x = edit.apply(x, t_scalar)
         if "mid" in capture:
             taps["mid"] = x
         for i in range(half + 1, 2 * half + 1):
@@ -193,6 +202,8 @@ class UViT(nn.Module):
         x = unpatchify(x, self.in_chans)
         if self.final_layer is not None:
             x = self.final_layer(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if edit is not None and edit.loc == "tail":
+            x = edit.apply(x, t_scalar)
         if "tail" in capture:
             taps["tail"] = x
         return x, taps

@@ -72,6 +72,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "attention_fwd": {
         "uspace_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
+    "flash_attention": {
+        "uspace_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    },
     "fused_attention_bwd": {
         "uspace_fused_attention_bwd": (_P,) * 8 + (_I,) * 4 + (_F, _P),
     },

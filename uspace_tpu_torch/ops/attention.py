@@ -42,6 +42,15 @@ v and runs :func:`fused_attention_bwd` (``csrc/fused_attention_bwd.cu``,
 TPU kernel ``_bwd_kernel``), which recomputes P and normalises it in f32
 before its bf16 cast.
 
+:func:`flash_attention_blocked` is the blocked online-softmax kernel for
+long sequences (``csrc/flash_attention.cu``, TPU kernel ``_flash_kernel``):
+the running row max, row sum and output are rescaled once per 256-key
+block, and P is rounded to bf16 against the running max. The dispatcher
+sends every ``pallas`` call with L > 1024 to it, and ``auto`` on the card
+too, as the JAX dispatcher routes on the TPU. It has no backward, as the
+JAX kernel has none (no ``custom_vjp``): a call that needs a gradient
+raises.
+
 The whole pre-norm attention sub-block ``x + proj(attention(qkv(LN1(x))))``
 is :func:`fused_attention_block` (``csrc/attention_block.cu``, TPU kernel
 ``_attn_block_kernel``) and, in W8A8, :func:`fused_attention_block_q`
@@ -88,6 +97,7 @@ LAUNCHES: Dict[str, int] = {
     "fused_attention_bwd": 0,
     "attention_block": 0,
     "attention_block_int8": 0,
+    "flash": 0,
 }
 
 KERNEL_HEAD_DIM = 64
@@ -98,13 +108,12 @@ KERNEL_MAX_LEN = 512  # the whole head's q, k, v stay in one SM's shared memory
 _XLA_PREFERRED_MAX_LEN = 512
 FUSED_MAX_LEN = 1024
 FWD_HEAD_DIMS = (32, 64)
+# _flash_kernel's key block: the online softmax rescales once per block
+FLASH_BLOCK_K = 256
 # model-level attn_impl strings that select a fused route in models/layers;
 # an unfused call that carries one resolves to auto, as in the JAX dispatcher
 MODEL_IMPLS = ("pallas_packed", "pallas_qkvproj", "pallas_block",
                "pallas_lnmlp", "int8")
-_UNPORTED_FLASH = ("attention over L > 1024 needs the blocked online-softmax "
-                   "kernel (kernel 9 of the kernel table, _flash_kernel), "
-                   "not ported yet")
 
 
 def reset_launches() -> None:
@@ -148,6 +157,37 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
     return o.to(q.dtype)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float,
+                          block_k: int = FLASH_BLOCK_K) -> torch.Tensor:
+    """Twin of the blocked online-softmax kernel (``_flash_kernel``) on
+    [B, H, L, D], with its recurrence over key blocks of ``block_k``: f32
+    scores ``f32(q k^T) * scale``; ``m' = max(m, rowmax)``, ``p = exp(s -
+    m')`` and ``alpha = exp(m - m')`` in f32; ``l = alpha l + rowsum(p)``;
+    ``o = alpha o + (p in v's dtype) . v`` with f32 sums; at the end ``o /
+    l`` rounded once to q's dtype. The TPU kernel's padding of K and V to a
+    multiple of ``block_k`` and its ``-0.7 * f32 max`` key mask change no
+    value (every block holds a real key, so the row max is a real score and
+    exp of a masked one is exactly 0), so the twin slices the last block
+    instead."""
+    b, h, l, d = q.shape
+    qf = q.float()
+    m = torch.full((b, h, l, 1), float("-inf"), device=q.device)
+    lsum = torch.zeros((b, h, l, 1), device=q.device)
+    o = torch.zeros((b, h, l, v.shape[-1]), device=q.device)
+    for i in range(0, k.shape[2], block_k):
+        s = torch.matmul(qf, k[:, :, i:i + block_k].float().transpose(-1, -2))
+        s = s * scale
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        lsum = alpha * lsum + p.sum(dim=-1, keepdim=True)
+        o = alpha * o + torch.matmul(p.to(v.dtype).float(),
+                                     v[:, :, i:i + block_k].float())
+        m = m_new
+    return (o / lsum).to(q.dtype)
 
 
 def packed_attention_plain(qkv: torch.Tensor, num_heads: int,
@@ -480,6 +520,48 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _fused_bwd_kernel(q, k, v, do.contiguous(), scale)
 
 
+def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    b, h, l, d = q.shape
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the blocked attention kernel takes bfloat16, got "
+                         f"{q.dtype} (use attn_impl='xla' for other dtypes)")
+    if d not in FWD_HEAD_DIMS:
+        raise ValueError(f"the blocked attention kernel takes head dim "
+                         f"{' or '.join(map(str, FWD_HEAD_DIMS))}, got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_tensor(name, t, torch.bfloat16, tuple(q.shape), q.device)
+    out = torch.empty_like(q)
+    rc = load("flash_attention").uspace_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, l, d,
+        scale, cuda_stream(q.device))
+    raise_on(rc, "uspace_flash_attention")
+    LAUNCHES["flash"] += 1
+    return out
+
+
+def flash_attention_blocked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v on [B, H, L, D] by the blocked
+    online-softmax kernel (its twin :func:`flash_attention_plain` on the
+    CPU): bf16, head dim 32 or 64, any L; strided views are made contiguous
+    first. Inference-only, as ``flash_attention_blocked`` of the JAX
+    package, which defines no VJP: a call that needs a gradient raises
+    ``ValueError``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(
+            "the blocked attention kernel (_flash_kernel, L > 1024) has no "
+            "backward, as in the JAX package (flash_attention_blocked "
+            "defines no VJP): call it under torch.no_grad(), or use "
+            "impl='xla' to differentiate attention over L > 1024")
+    scale = _default_scale(q.shape[-1], scale)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if on_cpu(q):
+        return flash_attention_plain(q, k, v, scale)
+    return _flash_kernel(q, k, v, scale)
+
+
 def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
                          num_heads: int,
                          scale: Optional[float] = None) -> torch.Tensor:
@@ -781,12 +863,11 @@ def multi_head_attention(
 
     ``col_mult``: optional ``[B, L]`` post-softmax per-key multiplier
     (prompt-to-prompt rescale), folded exactly into V. ``impl``: ``xla``
-    (plain); ``pallas`` — :func:`fused_attention` for L <= 1024; ``auto`` —
-    plain for L <= 512 and on the CPU, the kernel for 512 < L <= 1024 on
-    the card, as the JAX package routes on the TPU; the model-level strings
-    of :data:`MODEL_IMPLS` (an unfused U-ViT attention carries them)
-    resolve to ``auto``. Above 1024 the kernel routes raise
-    (``_flash_kernel`` is not ported yet).
+    (plain); ``pallas`` — :func:`fused_attention` for L <= 1024,
+    :func:`flash_attention_blocked` above; ``auto`` — plain for L <= 512
+    and on the CPU, ``pallas`` above 512 on the card, as the JAX package
+    routes on the TPU; the model-level strings of :data:`MODEL_IMPLS` (an
+    unfused U-ViT attention carries them) resolve to ``auto``.
     """
     scale = _default_scale(q.shape[-1], scale)
     if col_mult is not None:
@@ -803,6 +884,6 @@ def multi_head_attention(
         return xla_attention(q, k, v, scale)
     if impl == "pallas":
         if q.shape[2] > FUSED_MAX_LEN:
-            raise NotImplementedError(_UNPORTED_FLASH)
+            return flash_attention_blocked(q, k, v, scale)
         return fused_attention(q, k, v, scale)
     raise ValueError(f"unknown impl {impl!r}")

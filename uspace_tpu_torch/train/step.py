@@ -120,6 +120,28 @@ def make_train_step(
     return train_step
 
 
+def make_velocity_fn(model: torch.nn.Module, cond: Optional[Dict] = None,
+                     **apply_kwargs) -> Callable:
+    """Close a denoiser over its conditioning: ``vf(t[B], x) -> velocity``,
+    or ``(velocity, taps)`` when ``capture=`` asks for taps. ``cond`` may
+    hold 'y' (class labels) or 'context'; the other keyword arguments
+    (``edit=``, ``capture=``) pass through to the model
+    (``uspace_tpu/train/step.make_velocity_fn``)."""
+    cond = cond or {}
+    want_aux = bool(apply_kwargs.get("capture"))
+
+    def vf(t: torch.Tensor, x: torch.Tensor):
+        if cond.get("context") is not None:
+            out, taps = model(x, t, cond["context"], **apply_kwargs)
+        elif cond.get("y") is not None:
+            out, taps = model(x, t, y=cond["y"], **apply_kwargs)
+        else:
+            out, taps = model(x, t, **apply_kwargs)
+        return (out, taps) if want_aux else out
+
+    return vf
+
+
 def make_sample_fn(model: torch.nn.Module, z_shape, sigma_min: float = 1e-4,
                    solver_kwargs: Optional[dict] = None,
                    sample_steps: Optional[int] = None) -> Callable:
