@@ -87,6 +87,26 @@ def test_ln_qkvproj_twin_matches_jax(dt):
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
+def test_ln_rows_then_qkvproj_is_the_ln_twin(dt):
+    """The card's bf16 LN route runs the LN pass, then the projection and
+    the core: their twins in that order give the LN twin (held to JAX
+    above) bit for bit. The LN pass's own sums in lane order
+    (``delta.ln_lanes``, which the kernel equals bit for bit on the card)
+    stay within the file's tolerance of :func:`ln_rows_plain`."""
+    from uspace_tpu_torch.ops import delta as tdelta
+    _, td, tol = DTYPES[dt]
+    a = _inputs(3)
+    x = torch.from_numpy(a["x"] * 3 + 0.5).to(td)
+    s, b, w = (torch.from_numpy(a[k]) for k in ("s", "b", "w"))
+    rows = tattn.ln_rows_plain(x, s, b, 1e-5)
+    assert rows.dtype == td and rows.shape == x.shape
+    assert torch.equal(
+        tattn.qkvproj_attention_plain(rows, w, H, 0.125),
+        tattn.ln_qkvproj_attention_plain(x, s, b, w, H, 0.125, 1e-5))
+    _close(tdelta.ln_lanes(x, s, b, 1e-5).to(td), rows, tol)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
 def test_xla_attention_and_col_mult_match_jax(dt):
     jd, td, tol = DTYPES[dt]
     r = np.random.default_rng(3)

@@ -86,8 +86,11 @@ def _agree_int8(out, ref, rel_l2, x=None):
 
 
 @pytest.mark.parametrize("b,l,h", [(2, 17, 4), (3, 257, 16), (2, 334, 16),
-                                   (1, 512, 2), (1, 1, 1)])
+                                   (1, 512, 2), (1, 1, 1), (5, 77, 2)])
 def test_kernels_match_twins(cuda, b, l, h):
+    """Rows 1-3. (5, 77, 2): B*L = 385 rows, not a multiple of the
+    projection's 128-row tile, and 3C = 384 columns, not a multiple of its
+    256-column tile."""
     g = torch.Generator(device=cuda).manual_seed(l)
     c = 64 * h
     x = _rand(g, b, l, c)
@@ -102,6 +105,17 @@ def test_kernels_match_twins(cuda, b, l, h):
            attn.qkvproj_attention_plain(x, w, h, s))
     _agree(attn.fused_ln_qkvproj_attention(x, lns, lnb, w, h),
            attn.ln_qkvproj_attention_plain(x, lns, lnb, w, h, s, 1e-5))
+
+
+@pytest.mark.parametrize("scale", [-0.125, 0.0, 0.3])
+def test_core_takes_any_scale(cuda, scale):
+    """Pass 1 takes the row's max over the raw scores and scales it once
+    (the min for a negative scale): the same m as the twin's max of the
+    scaled scores."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    qkv = _rand(g, 2, 257, 3 * 64 * 4, std=0.64)
+    _agree(attn.fused_qkv_attention(qkv, 4, scale),
+           attn.packed_attention_plain(qkv, 4, scale))
 
 
 @pytest.mark.parametrize("b,l,h", [(1, 1, 1), (2, 17, 4), (2, 257, 16),
@@ -133,17 +147,75 @@ def test_backward_kernel_refuses(cuda):
             torch.zeros(1, 513, 128, dtype=torch.bfloat16, device=cuda), 2)
 
 
+def _bf16_steps(out, ref32, a, w):
+    """|out - ref32| in units of its bound: one bf16 step of each f32
+    reference value plus twice the f32 sum's reordering bound K * 2^-24 *
+    sum_k |a_k w_k| (kernel and reference each add in their own order)."""
+    top = ref32.abs().clamp_min(2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    reorder = 2 * a.shape[-1] * 2.0 ** -24 * (a.float().abs()
+                                               @ w.float().abs().t())
+    return float(((out.float() - ref32).abs() / (step + reorder)).max())
+
+
+@pytest.mark.parametrize("rows,c", [(50 * 257, 1024), (7, 128), (33, 2048)])
+def test_ln_rows_kernel_is_bit_exact(cuda, rows, c):
+    """Row 3's LN pass equals its twin with the kernel's sum order
+    (``delta.ln_lanes`` rounded to bf16) bit for bit, and the twin of the
+    route (``ln_rows_plain``, torch's sum order) within one bf16 step."""
+    g = torch.Generator(device=cuda).manual_seed(rows + c)
+    x = (_rand(g, rows, c).float() * 3 + 0.5).to(torch.bfloat16)
+    lns = 1 + _rand(g, c, std=0.1, dtype=torch.float32)
+    lnb = _rand(g, c, std=0.1, dtype=torch.float32)
+    out = attn._ln_rows_kernel(x, lns, lnb, 1e-5)
+    assert torch.equal(out, delta.ln_lanes(x, lns, lnb, 1e-5).to(out.dtype))
+    ref = attn.ln_rows_plain(x, lns, lnb, 1e-5).float()
+    step = 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
+    assert float((out.float() - ref).abs().max()) <= step
+
+
+@pytest.mark.parametrize("m,n,k", [(50 * 257, 3072, 1024), (385, 384, 128),
+                                   (129, 3072, 1024), (1, 192, 64)])
+def test_qkv_gemm_kernel_matches_f32_product(cuda, m, n, k):
+    """The wgmma projection of rows 2 and 3 against the f32 product,
+    element by element within one bf16 step (plus f32 reordering); rows
+    past a 128-row tile and columns past a 256-column tile are neither
+    read nor written; two calls give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = _rand(g, m, k)
+    w = _rand(g, n, k, std=k ** -0.5)
+    guard = torch.full((m + 1, n), 7.0, dtype=torch.bfloat16, device=cuda)
+    out = attn._qkv_gemm_kernel(a, w)
+    ref32 = a.float() @ w.float().t()
+    assert out.shape == (m, n) and torch.isfinite(out.float()).all()
+    assert _bf16_steps(out, ref32, a, w) <= 1.0
+    assert torch.equal(out, attn._qkv_gemm_kernel(a, w))
+    # a ragged [m, n] output inside a larger buffer: the row past it stays
+    lib = attn.load("attention")
+    attn.raise_on(lib.uspace_qkv_gemm(
+        a.data_ptr(), w.data_ptr(), guard.data_ptr(), m, n, k,
+        attn.cuda_stream(a.device)), "uspace_qkv_gemm")
+    assert torch.equal(guard[:m], out)
+    assert bool((guard[m] == 7.0).all())
+
+
 def test_wrappers_count_launches_and_refuse(cuda):
+    """One count per op call, though the bf16 projection routes launch two
+    (row 2) or three (row 3) kernels."""
     attn.reset_launches()
     x = torch.zeros(1, 8, 128, dtype=torch.bfloat16, device=cuda)
     w = torch.zeros(128, 384, dtype=torch.bfloat16, device=cuda)
     attn.fused_qkvproj_attention(x, w, 2)
+    with torch.no_grad():
+        attn.fused_ln_qkvproj_attention(
+            x, torch.ones(128, device=cuda), torch.zeros(128, device=cuda), w,
+            2)
     qkv = torch.zeros(1, 8, 384, dtype=torch.bfloat16, device=cuda,
                       requires_grad=True)
     attn.fused_qkv_attention(qkv, 2).sum().backward()
     torch.cuda.synchronize()
     assert attn.LAUNCHES == {"packed_attention": 1, "qkvproj_attention": 1,
-                             "ln_qkvproj_attention": 0,
+                             "ln_qkvproj_attention": 1,
                              "packed_attention_bwd": 1,
                              "qkvproj_attention_int8": 0,
                              "ln_qkvproj_attention_int8": 0,

@@ -93,9 +93,9 @@ def _jit_step(monkeypatch, step_j):
     monkeypatch.setattr(jax.random, "uniform", fake)
     monkeypatch.setattr(jax.random, "normal", fake)
 
-    def run(state, x, draws):
+    def run(state, batch, draws):
         queue[:] = draws
-        return step_j(state, {"x": x}, jax.random.PRNGKey(0))
+        return step_j(state, batch, jax.random.PRNGKey(0))
 
     return jax.jit(run)
 
@@ -119,10 +119,23 @@ def _moments(seed=0):
     return mom
 
 
-@pytest.mark.parametrize("attn_impl", ["pallas", "auto"])
-def test_unet_train_steps_match_jax(jax_params, monkeypatch, attn_impl):
+@pytest.mark.parametrize("attn_impl,context", [
+    pytest.param("pallas", False, id="pallas"),
+    pytest.param("auto", False, id="auto"),
+    pytest.param("auto", True, id="auto-context")])
+def test_unet_train_steps_match_jax(jax_params, monkeypatch, attn_impl,
+                                    context):
     """Two train steps (moments resampling, CFM loss, grads, global norm,
-    fused Adam with L2 + EMA, a 2-step warmup) against the JAX step."""
+    fused Adam with L2 + EMA, a 2-step warmup) against the JAX step. With
+    ``context``, the batch carries text embeddings [B, 3, context_dim]
+    that both steps pass to the model's cross-attention, and the port's
+    loss differs from that of the same step without them. The context case
+    takes one step: Adam's second update divides each gradient element by
+    its own history, so the f32 round-off of an element some 650 times
+    below its tensor's largest (a zero-initialised bias behind the
+    cross-attention) reaches the parameter at full size (2.3e-4 of scale
+    after two steps); the first update is ``lr * g / (|g| + eps)``, and the
+    two-step Adam path is held by the cases without context."""
     lr_j = jstate.get_lr_schedule("customized", 1e-3, warmup_steps=2)
     tx_j = jstate.get_optimizer("adam", lr_j, betas=(0.9, 0.99),
                                 weight_decay=0.03)
@@ -139,18 +152,36 @@ def test_unet_train_steps_match_jax(jax_params, monkeypatch, attn_impl):
     step = tstep.make_train_step(model, tx, lr_schedule=lr, ema_rate=0.9,
                                  latents_from_moments=True)
     gen = torch.Generator().manual_seed(5)
-    draws = [jnp.asarray(d) for d in _draws(gen, (B, 16, 16, 4), steps=2)]
+    steps = 1 if context else 2
+    draws = [jnp.asarray(d) for d in _draws(gen, (B, 16, 16, 4), steps)]
     run_j = _jit_step(monkeypatch, step_j)
     mom = _moments(6)
-    for i in range(2):
-        state_j, m_j = run_j(state_j, jnp.asarray(mom), draws[3 * i:3 * i + 3])
-        m = step(state, {"x": torch.from_numpy(mom)}, gen)
+    batch = {"x": mom}
+    if context:
+        batch["context"] = np.random.default_rng(7).standard_normal(
+            (B, 3, NNET["context_dim"])).astype(np.float32)
+        # the same first step without the context, on a second model
+        bare = _port_unet(jax_params, attn_impl=attn_impl)
+        m_bare = tstep.make_train_step(
+            bare, tx, lr_schedule=lr, ema_rate=0.9,
+            latents_from_moments=True)(
+                tstate.TrainState.create(dict(bare.named_parameters()), tx),
+                {"x": torch.from_numpy(mom)},
+                torch.Generator().set_state(gen.get_state()))
+    for i in range(steps):
+        state_j, m_j = run_j(state_j,
+                             {k: jnp.asarray(v) for k, v in batch.items()},
+                             draws[3 * i:3 * i + 3])
+        m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()},
+                 gen)
         for k in ("loss", "grad_norm", "lr", "nonfinite_skip"):
             _close_scaled(m[k], m_j[k])
         assert float(m["grad_norm"]) > 0
+        if context and i == 0:
+            assert abs(float(m["loss"]) - float(m_bare["loss"])) > 1e-4
     adam_j = [s for s in state_j.opt_state
               if hasattr(s, "mu") and hasattr(s, "nu")][0]
-    assert int(state.step) == int(adam_j.count) == 2
+    assert int(state.step) == int(adam_j.count) == steps
     for mine, ref, tol in ((state.params, state_j.params, ADAM_TOL),
                            (state.ema_params, state_j.ema_params, ADAM_TOL),
                            (state.opt_state.mu, adam_j.mu, TOL),

@@ -19,8 +19,17 @@ stage delta, the difference codes, the f32 and the two delta GEMMs, the qkv
 re-coding); ``delta_mlp``: the stage-delta base and delta MLP kernels of
 the three hidden modes on 12850 rows, hidden 4096)
 with CUDA events, the two builds alternating base, new, new, base, ... on
-one card. A base source that lacks an entry point skips its kernel. Needs a
-CUDA card.
+one card. An entry point that the base source lacks is timed on the new
+build alone (``attention``: the LN pass, ``ln_rows``, and the wgmma
+projection, ``qkv_gemm``, the pieces of rows 2 and 3); a base
+``attention.cu`` from before the projection's workspace arguments is
+called with its own interface. ``--tree <checkout>`` instead
+runs ``chip_smoke.py``'s phase 3 (every kernel against its twin, timed at
+its path's shape, with its library yardstick) from another checkout, such
+as an unpacked ``git archive`` of the parent commit, and from this one, in
+alternating processes, which times the routes that call one source's
+kernels from another (rows 10, 18 and 19 run row 1 or 2's kernels). Needs
+a CUDA card.
 
     python -m uspace_tpu_torch.cli.kernel_ab --base old/attention.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source attention_bwd \
@@ -39,6 +48,7 @@ CUDA card.
         --base old/fused_attention_bwd.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source delta_mlp \
         --base old/delta_mlp.cu
+    python -m uspace_tpu_torch.cli.kernel_ab --tree old
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ import argparse
 import ctypes
 import json
 import subprocess
+import sys
+from pathlib import Path
 
 import torch
 
@@ -55,13 +67,28 @@ from ..ops.quant import quantized_weight
 
 B, L, C, H = 50, 257, 1024, 16
 TRAIN_B = 128
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# attention.cu before its bf16 projection routes took workspaces
+_LEGACY_ATTENTION = {
+    "uspace_qkvproj_attention": (_P, _P, _P, _I, _I, _I, _F, _P),
+    "uspace_ln_qkvproj_attention": (_P,) * 5 + (_I, _I, _I, _F, _F, _P),
+}
+
+
+def _legacy(lib: ctypes.CDLL) -> bool:
+    """An attention.cu whose projection routes take no workspace."""
+    return (hasattr(lib, "uspace_qkvproj_attention")
+            and not hasattr(lib, "uspace_qkv_gemm"))
 
 
 def _load(source: str, path: str, out: str) -> ctypes.CDLL:
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, path],
                    check=True)
     lib = ctypes.CDLL(out)
-    for fn, argtypes in _build.SIGNATURES[source].items():
+    sigs = dict(_build.SIGNATURES[source])
+    if source == "attention" and _legacy(lib):
+        sigs.update(_LEGACY_ATTENTION)
+    for fn, argtypes in sigs.items():
         if not hasattr(lib, fn):
             continue
         f = getattr(lib, fn)
@@ -70,17 +97,60 @@ def _load(source: str, path: str, out: str) -> ctypes.CDLL:
     return lib
 
 
+# chip_smoke.py's phase 3 in the checkout given as argv[1], one JSON line
+_PHASE3 = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.nn.functional as F
+import chip_smoke
+from uspace_tpu_torch.ops import _build, attention, mlp, quant
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build()
+rows, _, _ = chip_smoke.check_kernels(torch, F, attention, mlp, quant)
+print("PHASE3", json.dumps([{k: r[k] for k in ("name", "ms", "library_ms")}
+                            for r in rows]))
+"""
+
+
+def phase3_ab(other: str, pairs: int) -> None:
+    """Phase 3 of ``other`` and of this checkout in alternating processes
+    (other, this, this, other, ...), each kernel's times printed as JSON."""
+    trees = {"base": str(Path(other).resolve()),
+             "new": str(Path(__file__).resolve().parents[2])}
+    times = {}
+    for side in ["base", "new", "new", "base"] * ((pairs + 1) // 2):
+        out = subprocess.run([sys.executable, "-c", _PHASE3, trees[side]],
+                             check=True, capture_output=True, text=True)
+        line = [l for l in out.stdout.splitlines() if l.startswith("PHASE3")]
+        for r in json.loads(line[-1][len("PHASE3"):]):
+            t = times.setdefault(r["name"], {"base_ms": [], "new_ms": [],
+                                             "library_ms": []})
+            t[f"{side}_ms"].append(r["ms"])
+            t["library_ms"].append(r["library_ms"])
+    for name, t in times.items():
+        print(json.dumps({"kernel": name, "card": torch.cuda.get_device_name(0),
+                          **t}), flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--source", default="attention",
                     choices=sorted(_build.SIGNATURES))
-    ap.add_argument("--base", required=True,
-                    help="the other version of <source>.cu")
+    ap.add_argument("--base", help="the other version of <source>.cu")
+    ap.add_argument("--tree", help="another checkout: A/B of chip_smoke.py's "
+                    "phase 3 instead")
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--pairs", type=int, default=3)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA card")
+    if a.tree:
+        phase3_ab(a.tree, a.pairs)
+        return
+    if not a.base:
+        ap.error("--base or --tree is required")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {"base": _load(a.source, a.base,
                           str(_build.BUILD_DIR / f"ab_{a.source}.so")),
@@ -94,6 +164,8 @@ def main(argv=None) -> None:
     lns = 1 + 0.1 * torch.randn(C, generator=g, device=dev)
     lnb = 0.1 * torch.randn(C, generator=g, device=dev)
     out = torch.empty(B, L, C, dtype=bf, device=dev)
+    qkv_ws = torch.empty(B, L, 3 * C, dtype=bf, device=dev)
+    xln_ws = torch.empty(B, L, C, dtype=bf, device=dev)
     qkv_t = (torch.randn(TRAIN_B, L, 3 * C, generator=g, device=dev)
              * 0.64).to(bf)
     do_t = torch.randn(TRAIN_B, L, C, generator=g, device=dev).to(bf)
@@ -155,10 +227,20 @@ def main(argv=None) -> None:
         "packed_attention": lambda lib: lib.uspace_packed_attention(
             qkv.data_ptr(), out.data_ptr(), B, L, H, 0.125, s),
         "qkvproj_attention": lambda lib: lib.uspace_qkvproj_attention(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), B, L, H, 0.125, s),
+            x.data_ptr(), w.data_ptr(),
+            *(() if _legacy(lib) else (qkv_ws.data_ptr(),)),
+            out.data_ptr(), B, L, H, 0.125, s),
         "ln_qkvproj_attention": lambda lib: lib.uspace_ln_qkvproj_attention(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w.data_ptr(),
+            *(() if _legacy(lib) else (xln_ws.data_ptr(), qkv_ws.data_ptr())),
             out.data_ptr(), B, L, H, 0.125, 1e-5, s),
+        "ln_rows": lambda lib: lib.uspace_ln_rows(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), xln_ws.data_ptr(),
+            B * L, C, 1e-5, s),
+        # w as the [3C, C] rows of a torch Linear weight
+        "qkv_gemm": lambda lib: lib.uspace_qkv_gemm(
+            xln_ws.data_ptr(), w.data_ptr(), qkv_ws.data_ptr(), B * L, 3 * C,
+            C, s),
         "packed_attention_bwd": lambda lib: lib.uspace_packed_attention_bwd(
             qkv_t.data_ptr(), do_t.data_ptr(), dqkv.data_ptr(),
             stats.data_ptr(), TRAIN_B, L, H, 0.125, s),
@@ -259,8 +341,7 @@ def main(argv=None) -> None:
             out.data_ptr(), rows, C, hid, 4, 1e-5, s),
     })
     calls = {k: f for k, f in calls.items()
-             if f"uspace_{k}" in _build.SIGNATURES[a.source]
-             and hasattr(libs["base"], f"uspace_{k}")}
+             if f"uspace_{k}" in _build.SIGNATURES[a.source]}
 
     def time_ms(call, lib):
         for _ in range(3):
@@ -278,7 +359,9 @@ def main(argv=None) -> None:
 
     order = ["base", "new", "new", "base"] * ((a.pairs + 1) // 2)
     for name, call in calls.items():
-        runs = [(side, time_ms(call, libs[side])) for side in order]
+        sides = (order if hasattr(libs["base"], f"uspace_{name}")
+                 else ["new"] * (len(order) // 2))
+        runs = [(side, time_ms(call, libs[side])) for side in sides]
         print(json.dumps({
             "kernel": name, "card": torch.cuda.get_device_name(0),
             "base_ms": [t for side, t in runs if side == "base"],

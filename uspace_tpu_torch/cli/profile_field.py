@@ -76,9 +76,11 @@ GROUPS = (
                                            "bwd_dkdv_kernel")),
     ("attention sub-block passes (ours: LN, row codes, projection)", (
         "ln_bf16_kernel", "row_codes_kernel", "proj_residual_kernel")),
-    # before "attention kernel": its name contains that one's
     ("blocked attention kernel (ours: row 9)", ("flash_attention_kernel",)),
-    ("attention kernel (ours)", ("attention_kernel",)),
+    ("attention LN pass (ours: row 3)", ("ln_rows_kernel",)),
+    # before "matmul (cuBLAS)": its name contains "gemm"
+    ("QKV projection on wgmma (ours: rows 2-3)", ("qkv_gemm_kernel",)),
+    ("attention core (ours: rows 1-3)", ("packed_core_kernel",)),
     ("[B, H, L, D] attention kernel (ours)", ("attention_fwd_kernel",)),
     ("int8 attention kernel (ours)", ("attention_int8_kernel",)),
     ("int8 MLP kernel (ours)", ("mlp_int8_kernel",)),

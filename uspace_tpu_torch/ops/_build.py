@@ -35,10 +35,11 @@ _F = ctypes.c_float
 # C signatures of every entry point, by source name
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "attention": {
+        "uspace_ln_rows": (_P, _P, _P, _P, _I, _I, _F, _P),
+        "uspace_qkv_gemm": (_P, _P, _P, _I, _I, _I, _P),
         "uspace_packed_attention": (_P, _P, _I, _I, _I, _F, _P),
-        "uspace_qkvproj_attention": (_P, _P, _P, _I, _I, _I, _F, _P),
-        "uspace_ln_qkvproj_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _F,
-                                        _F, _P),
+        "uspace_qkvproj_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+        "uspace_ln_qkvproj_attention": (_P,) * 7 + (_I, _I, _I, _F, _F, _P),
         "uspace_qkvproj_attention_int8": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
         "uspace_ln_qkvproj_attention_int8": (_P, _P, _P, _P, _P, _P, _I, _I,
                                              _I, _F, _F, _P),

@@ -1,16 +1,22 @@
 """Multi-head attention for U-ViT denoisers: CUDA kernels + plain path.
 
 Counterpart of ``uspace_tpu/ops/attention.py``. The sampling views launch
-fused kernels, hand-written in CUDA C++ for Hopper (``csrc/attention.cu``);
-they share one attention core and differ in their prologue:
+kernels hand-written in CUDA C++ for Hopper (``csrc/attention.cu``); they
+share one attention core and differ in their prologue:
 
 - :func:`fused_qkv_attention` — packed qkv [B, L, 3C] in device memory
   (TPU kernel ``_packed_fwd_kernel``);
-- :func:`fused_qkvproj_attention` — the QKV projection inside the kernel
-  (``_qkv_attn_kernel``; with ``quant=True`` an int8 projection,
-  ``_qkv_attn_kernel_q``);
-- :func:`fused_ln_qkvproj_attention` — LN1 and the projection inside the
-  kernel (``_qkv_attn_kernel_ln``; int8: ``_qkv_attn_kernel_qln``).
+- :func:`fused_qkvproj_attention` — the QKV projection first
+  (``_qkv_attn_kernel``; with ``quant=True`` an int8 projection inside the
+  kernel, ``_qkv_attn_kernel_q``);
+- :func:`fused_ln_qkvproj_attention` — LN1 and the projection first
+  (``_qkv_attn_kernel_ln``; int8: ``_qkv_attn_kernel_qln``).
+
+The bf16 projection routes are three launches on one stream, counted as
+one call of their op: the LN rows once per row (:func:`ln_rows_plain` is
+their twin), the projection of all heads on wgmma into a [B, L, 3C] qkv
+workspace (W cast to x's dtype, f32 sums rounded once), and the packed
+core on it. The int8 routes keep their projection and core in one kernel.
 
 The bf16 packed and QKV-projection kernels are differentiable, as in the
 JAX package: their backward runs :func:`packed_attention_bwd`
@@ -250,6 +256,15 @@ def qkvproj_attention_plain(x: torch.Tensor, w_qkv: torch.Tensor,
     return packed_attention_plain(qkv, num_heads, scale)
 
 
+def ln_rows_plain(x: torch.Tensor, ln_scale: torch.Tensor,
+                  ln_bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """Twin of the LN pass of the bf16 LN + QKV-projection route: the f32
+    LN1 of :func:`_ln_f32` rounded once to x's dtype, the rows that
+    :func:`ln_qkvproj_attention_plain` feeds its projection. The kernel
+    takes its two f32 sums in lane order (``delta.ln_lanes``)."""
+    return _ln_f32(x, ln_scale, ln_bias, eps).to(x.dtype)
+
+
 def ln_qkvproj_attention_plain(x: torch.Tensor, ln_scale: torch.Tensor,
                                ln_bias: torch.Tensor, w_qkv: torch.Tensor,
                                num_heads: int, scale: float,
@@ -367,14 +382,54 @@ def _rows(w: torch.Tensor, shape: tuple, dtype: torch.dtype,
     return rows
 
 
+def _ln_vectors(ln_scale: torch.Tensor, ln_bias: torch.Tensor, c: int,
+                device: torch.device):
+    """LN1's scale and bias as the kernels take them: contiguous f32 [C]."""
+    lns = ln_scale.to(torch.float32).reshape(-1).contiguous()
+    lnb = ln_bias.to(torch.float32).reshape(-1).contiguous()
+    check_tensor("ln_scale", lns, torch.float32, (c,), device)
+    check_tensor("ln_bias", lnb, torch.float32, (c,), device)
+    return lns, lnb
+
+
+def _ln_rows_kernel(x: torch.Tensor, ln_scale: torch.Tensor,
+                    ln_bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """The LN pass of the bf16 LN + QKV-projection route alone, on rows
+    x [..., C] bf16 (C <= 2048); counted by no op, as it is a piece of one."""
+    c = x.shape[-1]
+    check_tensor("x", x, torch.bfloat16, tuple(x.shape), x.device)
+    lns, lnb = _ln_vectors(ln_scale, ln_bias, c, x.device)
+    out = torch.empty_like(x)
+    raise_on(load("attention").uspace_ln_rows(
+        x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), out.data_ptr(),
+        x.numel() // c, c, eps, cuda_stream(x.device)), "uspace_ln_rows")
+    return out
+
+
+def _qkv_gemm_kernel(x: torch.Tensor, w_rows: torch.Tensor) -> torch.Tensor:
+    """The wgmma projection alone: ``x [..., K] . w_rows [N, K]^T`` in
+    bf16 with f32 sums rounded once (K a multiple of 64, N of 8). Counted
+    by no op."""
+    k = x.shape[-1]
+    n = w_rows.shape[0]
+    check_tensor("x", x, torch.bfloat16, tuple(x.shape), x.device)
+    check_tensor("w_rows", w_rows, torch.bfloat16, (n, k), x.device)
+    out = x.new_empty((*x.shape[:-1], n))
+    raise_on(load("attention").uspace_qkv_gemm(
+        x.data_ptr(), w_rows.data_ptr(), out.data_ptr(), x.numel() // k, n, k,
+        cuda_stream(x.device)), "uspace_qkv_gemm")
+    return out
+
+
 def _qkvproj_kernel(x, w_qkv, num_heads, scale):
     b, l, c = x.shape
     _check_x("x", x, num_heads, 1)
     w = _rows(w_qkv, (c, 3 * c), x.dtype, x.device, "w_qkv")
+    qkv = x.new_empty((b, l, 3 * c))
     out = torch.empty_like(x)
     rc = load("attention").uspace_qkvproj_attention(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), b, l, num_heads, scale,
-        cuda_stream(x.device))
+        x.data_ptr(), w.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, l,
+        num_heads, scale, cuda_stream(x.device))
     raise_on(rc, "uspace_qkvproj_attention")
     LAUNCHES["qkvproj_attention"] += 1
     return out
@@ -386,14 +441,14 @@ def _ln_qkvproj_kernel(x, ln_scale, ln_bias, w_qkv, num_heads, scale, eps):
     check_no_grad(x, ln_scale, ln_bias, w_qkv,
                   what="the LN + QKV-projection attention kernel")
     w = _rows(w_qkv, (c, 3 * c), x.dtype, x.device, "w_qkv")
-    lns = ln_scale.to(torch.float32).reshape(-1).contiguous()
-    lnb = ln_bias.to(torch.float32).reshape(-1).contiguous()
-    check_tensor("ln_scale", lns, torch.float32, (c,), x.device)
-    check_tensor("ln_bias", lnb, torch.float32, (c,), x.device)
+    lns, lnb = _ln_vectors(ln_scale, ln_bias, c, x.device)
+    xln = torch.empty_like(x)
+    qkv = x.new_empty((b, l, 3 * c))
     out = torch.empty_like(x)
     rc = load("attention").uspace_ln_qkvproj_attention(
         x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w.data_ptr(),
-        out.data_ptr(), b, l, num_heads, scale, eps, cuda_stream(x.device))
+        xln.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, l, num_heads,
+        scale, eps, cuda_stream(x.device))
     raise_on(rc, "uspace_ln_qkvproj_attention")
     LAUNCHES["ln_qkvproj_attention"] += 1
     return out
@@ -416,10 +471,7 @@ def _int8_kernel(x, qw, num_heads, scale, ln=None):
         LAUNCHES["qkvproj_attention_int8"] += 1
         return out
     ln_scale, ln_bias, eps = ln
-    lns = ln_scale.to(torch.float32).reshape(-1).contiguous()
-    lnb = ln_bias.to(torch.float32).reshape(-1).contiguous()
-    check_tensor("ln_scale", lns, torch.float32, (c,), x.device)
-    check_tensor("ln_bias", lnb, torch.float32, (c,), x.device)
+    lns, lnb = _ln_vectors(ln_scale, ln_bias, c, x.device)
     rc = lib.uspace_ln_qkvproj_attention_int8(
         x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), qw.q.data_ptr(),
         qw.scale.data_ptr(), out.data_ptr(), b, l, num_heads, scale, eps,
@@ -629,10 +681,11 @@ def fused_qkvproj_attention(x: torch.Tensor, w_qkv: torch.Tensor,
                             num_heads: int, scale: Optional[float] = None,
                             quant: bool = False) -> torch.Tensor:
     """x [B, L, C] (post-LN) and fused QKV weight [C, 3C] -> attention
-    output [B, L, C] (pre out-projection); the [B, L, 3C] qkv never
-    touches device memory. W is cast to x's dtype first, so its gradient
-    reaches an f32 master weight through the cast. ``quant=True``: int8
-    projection of the f32 weight, inference-only."""
+    output [B, L, C] (pre out-projection); on the card the bf16 [B, L, 3C]
+    qkv makes one round trip through a workspace. W is cast to x's dtype
+    first, so its gradient reaches an f32 master weight through the cast.
+    ``quant=True``: int8 projection of the f32 weight inside the kernel
+    (the qkv never reaches device memory), inference-only."""
     scale = _default_scale(x.shape[-1] // num_heads, scale)
     if quant:
         check_no_grad(x, w_qkv, what="the int8 QKV-projection kernel")
@@ -648,9 +701,11 @@ def fused_ln_qkvproj_attention(
     w_qkv: torch.Tensor, num_heads: int, scale: Optional[float] = None,
     eps: float = 1e-5, quant: bool = False,
 ) -> torch.Tensor:
-    """``attention(qkv(LN(x)))``; the LN output never touches device
-    memory. ``quant=False``: bf16 projection (W cast to x's dtype);
-    ``quant=True``: LN in f32, int8 projection of the f32 weight."""
+    """``attention(qkv(LN(x)))``. ``quant=False``: the LN rows rounded to
+    x's dtype, bf16 projection (W cast to x's dtype); on the card the LN
+    rows and the qkv each make one round trip through a workspace.
+    ``quant=True``: LN in f32, int8 projection of the f32 weight, all in
+    one kernel."""
     scale = _default_scale(x.shape[-1] // num_heads, scale)
     if quant:
         check_no_grad(x, ln_scale, ln_bias, w_qkv,
@@ -754,9 +809,10 @@ def _block_kernel(x, ln_scale, ln_bias, w_qkv, w_proj, b_proj, num_heads,
     if qws is None:
         w = _rows(w_qkv, (c, 3 * c), x.dtype, dev, "w_qkv")
         wp = _rows(w_proj, (c, c), x.dtype, dev, "w_proj")
+        qkv = x.new_empty((b, l, 3 * c))
         raise_on(lib.uspace_qkvproj_attention(
-            xln.data_ptr(), w.data_ptr(), a.data_ptr(), b, l, num_heads,
-            scale, stream), "uspace_qkvproj_attention")
+            xln.data_ptr(), w.data_ptr(), qkv.data_ptr(), a.data_ptr(), b, l,
+            num_heads, scale, stream), "uspace_qkvproj_attention")
         raise_on(blk.uspace_proj_residual(
             a.data_ptr(), wp.data_ptr(), bp.data_ptr(), x.data_ptr(),
             out.data_ptr(), r, c, c, stream), "uspace_proj_residual")

@@ -84,7 +84,9 @@ def make_train_step(
 ) -> Callable:
     """``train_step(state, batch, generator) -> metrics``; batch holds 'x'
     (latents, or moments with ``latents_from_moments``) and optionally 'y'
-    (labels). ``state.params`` must be the model's own parameters.
+    (labels) or 'context' (text embeddings), passed to the model through
+    :func:`make_velocity_fn` as the JAX step passes them.
+    ``state.params`` must be the model's own parameters.
 
     ``skip_nonfinite``: when the loss or any gradient is NaN/Inf, params,
     EMA and Adam moments keep their values, ``step`` still advances and
@@ -96,10 +98,10 @@ def make_train_step(
         x1 = batch["x"]
         if latents_from_moments:
             x1 = sample_from_moments(x1, generator, vae_scale)
-        y = batch.get("y")
+        vf = make_velocity_fn(model, {k: batch.get(k)
+                                      for k in ("y", "context")})
         names = list(state.params)
-        per_sample = flow.training_loss(
-            lambda t, x: model(x, t, y=y)[0], x1, sigma_min, generator)
+        per_sample = flow.training_loss(vf, x1, sigma_min, generator)
         loss = per_sample.mean()
         grads = torch.autograd.grad(loss, [state.params[k] for k in names])
         grad_norm = torch.linalg.vector_norm(
