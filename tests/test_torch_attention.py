@@ -237,6 +237,74 @@ def test_fused_vjp_is_not_autograd_of_the_forward_twin():
     assert not all(torch.equal(a, b) for a, b in zip(mine, auto))
 
 
+def _two_pass_bwd(q, k, v, do, scale, tile=64):
+    """A mirror of the [B, H, L, D] backward kernel's pass structure (row 8):
+    pass 1 over 64-key tiles keeps a running max m with l = sum exp(s - m)
+    and u = sum exp(s - m) dP, both rescaled by exp(m_old - m_new) when m
+    grows, and delta = u / l; pass 2 recomputes S and dP per tile, forms
+    p = exp(s - m) / l and dS = bf16(p (dP - delta)) and accumulates dQ;
+    dK and dV take p and dS from the same m, l and delta. Only f32 sums are
+    reordered against the twin; every bf16 rounding sits where it does."""
+    qf, kf, vf, g = (t.float() for t in (q, k, v, do))
+    n = q.shape[2]
+    m = torch.full(q.shape[:3] + (1,), -0.7 * torch.finfo(torch.float32).max)
+    l = torch.zeros_like(m)
+    u = torch.zeros_like(m)
+    tiles = [slice(t0, min(t0 + tile, n)) for t0 in range(0, n, tile)]
+    for ks in tiles:
+        s = torch.matmul(qf, kf[:, :, ks].transpose(-1, -2)) * scale
+        dp = torch.matmul(g, vf[:, :, ks].transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        a = torch.exp(m - m_new)
+        e = torch.exp(s - m_new)
+        l = l * a + e.sum(dim=-1, keepdim=True)
+        u = u * a + (e * dp).sum(dim=-1, keepdim=True)
+        m = m_new
+    delta = u / l
+    dq = torch.zeros_like(qf)
+    for ks in tiles:
+        s = torch.matmul(qf, kf[:, :, ks].transpose(-1, -2)) * scale
+        dp = torch.matmul(g, vf[:, :, ks].transpose(-1, -2))
+        p = torch.exp(s - m) / l
+        ds = (p * (dp - delta)).to(q.dtype).float()
+        dq = dq + torch.matmul(ds, kf[:, :, ks])
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.exp(s - m) / l
+    dp = torch.matmul(g, vf.transpose(-1, -2))
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), g)
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return tuple(t.to(q.dtype) for t in (dq * scale, dk, dv))
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("l", [64, 130, 600])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_two_pass_backward_keeps_the_rounding_sites(dt, l, d):
+    """Row 8's pass merge (a running max with l and u rescaled, delta =
+    u / l) against jax.vjp of multi_head_attention(impl="pallas"), whose
+    custom VJP runs _bwd_kernel in interpret mode, and against the twin
+    attention_bwd_plain: f32 within 1e-5; bf16 within one bf16 step of
+    each output's largest value (test_fused_vjp_matches_jax's rule)."""
+    jd, td, tol = DTYPES[dt]
+    r = np.random.default_rng(l + 3 * d)
+    q, k, v, g = (r.standard_normal((1, 2, l, d)).astype(np.float32)
+                  for _ in range(4))
+    _, vjp = jax.vjp(
+        lambda q, k, v: jattn.multi_head_attention(q, k, v, impl="pallas"),
+        *(jnp.asarray(a, jd) for a in (q, k, v)))
+    refs = vjp(jnp.asarray(g, jd))
+    ts = [torch.from_numpy(a).to(td) for a in (q, k, v, g)]
+    mine = _two_pass_bwd(*ts, d ** -0.5)
+    twin = tattn.attention_bwd_plain(*ts, d ** -0.5)
+    for out, ref, plain in zip(mine, refs, twin):
+        assert out.dtype == td and out.shape == (1, 2, l, d)
+        for other in (ref, plain):
+            top = float(np.abs(_np(other)).max())
+            _close(out, other, tol if dt == "f32"
+                   else 2.0 ** (math.floor(math.log2(top)) - 7))
+
+
 @pytest.mark.parametrize("l", [17, 257])
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_qkvproj_vjp_matches_jax(dt, l):

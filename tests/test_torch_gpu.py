@@ -565,6 +565,23 @@ def test_flash_kernel_matches_twin(cuda, b, h, l, d):
     _agree(out, attn.flash_attention_plain(q, k, v, d ** -0.5))
 
 
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("l", [1, 127, 129, 4097])
+def test_flash_kernel_tile_edges_and_repeats(cuda, l, d):
+    """Kernel 9 at the ragged edges of its 128-row query tile and its
+    256-key block (one row, one short of a tile, one past, one key past 16
+    blocks), within the bf16 forward limits; two calls on the same inputs
+    give the same bits (no atomics, one fixed order of every sum)."""
+    g = torch.Generator(device=cuda).manual_seed(3 * l + d)
+    q, k, v = (_rand(g, 2, 2, l, d) for _ in range(3))
+    with torch.no_grad():
+        out = attn.flash_attention_blocked(q, k, v)
+        again = attn.flash_attention_blocked(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _agree(out, attn.flash_attention_plain(q, k, v, d ** -0.5))
+
+
 def test_flash_kernel_counts_launches_and_refuses(cuda):
     """Kernel 9 takes bf16 at head dims 32 and 64 only, and refuses a call
     that needs a gradient (the JAX kernel has no VJP); pallas and auto
@@ -633,6 +650,24 @@ def test_fused_bwd_kernel_matches_twin(cuda, b, h, l, d):
         if not r.any():  # L = 1: one key, so dS and with it dq, dk are 0
             assert not o.any()
             continue
+        _agree(o, r, BWD_MAX_ABS, BWD_REL_L2)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("l", [127, 129, 1023])
+def test_fused_bwd_kernel_tile_edges_and_repeats(cuda, l, d):
+    """Kernel 8 at the ragged edges of its 128-row blocks and 64-row tiles
+    (one short of a tile, one past, one short of the longest L): dq, dk and
+    dv within the backward limits, and two calls on the same inputs give
+    the same bits (no atomics, one fixed order of every sum)."""
+    g = torch.Generator(device=cuda).manual_seed(5 * l + d)
+    q, k, v, do = (_rand(g, 4, 2, l, d) for _ in range(4))
+    out = attn.fused_attention_bwd(q, k, v, do)
+    again = attn.fused_attention_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    ref = attn.attention_bwd_plain(q, k, v, do, d ** -0.5)
+    for o, a, r in zip(out, again, ref):
+        assert torch.equal(o, a)
         _agree(o, r, BWD_MAX_ABS, BWD_REL_L2)
 
 

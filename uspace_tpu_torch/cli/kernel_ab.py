@@ -13,7 +13,9 @@ bf16-chain LN, the attention output's row codes, the bf16 and the int8
 projection with bias and residual); ``attention_fwd``: the [B, H, L, D]
 kernel at the SD-UNet-large shape, B=50, H=8, L=1024, D=32;
 ``fused_attention_bwd``: its backward at the SD-UNet-large training shape,
-B=128, H=8, L=1024, D=32; ``delta_attention``: the stage-delta attention
+B=128, H=8, L=1024, D=32; ``flash_attention``: the blocked online-softmax
+kernel at the 512-px SD-UNet-large's top level, B=50, H=8, L=4096, D=32;
+``delta_attention``: the stage-delta attention
 halves' own passes at B=50 (the LN codes of the padded base rows and of a
 stage delta, the difference codes, the f32 and the two delta GEMMs, the qkv
 re-coding); ``delta_mlp``: the stage-delta base and delta MLP kernels of
@@ -46,6 +48,8 @@ a CUDA card.
         --base old/attention_fwd.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source fused_attention_bwd \
         --base old/fused_attention_bwd.cu
+    python -m uspace_tpu_torch.cli.kernel_ab --source flash_attention \
+        --base old/flash_attention.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source delta_mlp \
         --base old/delta_mlp.cu
     python -m uspace_tpu_torch.cli.kernel_ab --tree old
@@ -202,6 +206,9 @@ def main(argv=None) -> None:
         torch.randn(TRAIN_B, 8, 1024, 32, generator=g, device=dev).to(bf)
         for _ in range(7))
     st8 = torch.empty(TRAIN_B * 8 * 3 * 1024, device=dev)
+    # the 512-px SD-UNet-large's top level (64 x 64 latents)
+    q9, k9, v9, o9 = (torch.randn(50, 8, 4096, 32, generator=g,
+                                  device=dev).to(bf) for _ in range(4))
     # the stage-delta field's buffers (padded base rows Lp = 288)
     lp = (L + 31) // 32 * 32
     ucodes = torch.empty(B * lp, C, dtype=torch.int8, device=dev)
@@ -279,6 +286,9 @@ def main(argv=None) -> None:
             q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), do8.data_ptr(),
             dq8.data_ptr(), dk8.data_ptr(), dv8.data_ptr(), st8.data_ptr(),
             TRAIN_B, 8, 1024, 32, 32 ** -0.5, s),
+        "flash_attention": lambda lib: lib.uspace_flash_attention(
+            q9.data_ptr(), k9.data_ptr(), v9.data_ptr(), o9.data_ptr(), 50, 8,
+            4096, 32, 32 ** -0.5, s),
     }
     calls.update({
         "ln_codes": lambda lib: lib.uspace_ln_codes(

@@ -20,29 +20,46 @@
 // exponentials at 16 per SM per clock (the SFU), 132 SMs, ~1.98 GHz ->
 // ~1.6 ms. At D = 32 the exponentials bound it, not the tensor cores.
 //
-// Design (simple first; wgmma, TMA and a warp-specialised pipeline are later
-// work):
-// - The grid runs over (B*H, query tiles of 64 rows), 4 warps a block and 16
-//   query rows a warp, as csrc/attention_fwd.cu (row 7) does. A head's K and
-//   V (512 KB at L = 4096, D = 32) cannot sit in shared memory, so they
-//   stream through a double-buffered cp.async ring of 64-row tiles: for each
-//   256-key block the ring carries its four K tiles, then its four V tiles.
-// - Each warp keeps the f32 scores of its 16 rows against all 256 keys of
-//   the block in registers (32 mma.sync accumulator tiles, 128 floats a
-//   thread), so the block's row max is taken over all 256 keys before any
-//   exponential: p is rounded to bf16 against the TPU kernel's max. Then the
-//   accumulators become P.V's A fragments in place, as in row 7.
+// What binds it on this card: at D = 32 a score costs 128 tensor-core FLOPs
+// and, with expf, about a dozen scalar instructions (the scale, the max, the
+// shift, an expf of about eight, the sum, half a bf16 pack), so instruction
+// issue bound the kernel (5.7 ms on an H100 at the shape above), then the
+// special-function unit, and the tensor cores last. The design:
+// - The exponential is folded: m is kept in log2 units (the max of the raw
+//   scores times c = scale * log2(e)), and p = 2^(s c - m') is one FFMA and
+//   one ex2.approx a score. The rounding sites stay: p is formed in f32
+//   against the 256-key block's max and rounded once to bf16; only the f32
+//   value of p moves, within ex2.approx's 2 ulp (an H100 run: rel-L2 2.1e-4
+//   against the twin at the shape above, 2.0e-4 with expf).
+// - A block takes 128 query rows of one (batch, head) as two consumer
+//   warpgroups of 64, which share each K and V block: a head's K and V are
+//   read from L2 once per 128 rows, not once per 64.
+// - A producer warpgroup (one thread issues) loads the block's Q once and
+//   then each 256-key block of K and V (16 KB each at D = 32) by TMA into a
+//   ring of stages guarded by full and empty mbarriers; rows past L of a head
+//   are zero-filled (a 3-D tensor map [B*H, L, D]). It hands its registers
+//   to the consumers (setmaxnreg: 24 and 240 a thread), which hold 128 f32
+//   scores each. Tiles use the swizzle whose span is a row (64 bytes at
+//   D = 32, 128 at D = 64), which both wgmma and TMA read.
+// - S for a warpgroup's 64 rows and the block's 256 keys is one m64n256k16
+//   chain from shared memory (2 k-steps at D = 32, 4 at D = 64) into 128 f32
+//   registers a thread, so the block's row max over all 256 keys costs no
+//   extra pass: p is rounded to bf16 against the TPU kernel's max. Each
+//   16-key slice of p becomes, rounded to bf16, the register A fragment of
+//   O += P V (m64nDk16, 16 k-steps, V read MN-major from its row-major tile).
 // - O is scaled by alpha in f32 before the block's products accumulate into
 //   it; l keeps the full row sum, reduced over the four lanes of a row group
-//   after each block.
+//   after each block. Both warpgroups run independently between the ring's
+//   barriers, so one's products can run under the other's exponentials.
 // - The ragged key edge is masked by index (p = 0 at and past L, as the TPU
-//   kernel's exp(_MASK_VALUE - m) is 0), K and V rows >= L are zero-filled by
-//   cp.async, padded query rows are computed on zero q and never written. No
-//   tensor is padded in device memory, and no score reaches it.
-// - Every product, sum and quotient that the twin rounds is an _rn
+//   kernel's exp(_MASK_VALUE - m) is 0); padded query rows are computed on
+//   zero q and never written. No tensor is padded in device memory, no score
+//   reaches it, and no atomics: a repeated call gives the same bits.
+// - Every other product, sum and quotient that the twin rounds is an _rn
 //   intrinsic, so nvcc fuses none of them into an FMA.
-// The entry point returns cudaGetLastError().
+// The entry point returns cudaGetLastError() or the first error before it.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,58 +69,206 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int QT = WARPS * 16;  // query rows per block
-constexpr int KT = 64;          // rows per streamed K or V tile
-constexpr int BK = 256;         // keys per step of the recurrence (block_k)
-constexpr int SUB = BK / KT;    // tiles per key block
-constexpr int SN = KT / 8;      // 8-key accumulator tiles per K tile
+constexpr int WGS = 2;                   // consumer warpgroups a block
+constexpr int QR = 64 * WGS;             // query rows a block
+constexpr int BK = 256;                  // keys per step of the recurrence (block_k)
+constexpr int THREADS = 128 * (WGS + 1);  // + a producer warpgroup
+// registers a thread: the producer gives its own to the consumers
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
-// 16 bytes global -> shared; with valid == false the 16 bytes are zeros
-// (src-size 0: nothing is read from gmem)
-__device__ inline void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n)
+// the shared-memory geometry of a head dim: a tile row is 2D bytes, laid out
+// with the swizzle of that span (128 bytes: mode 1, 64 bytes: mode 2)
+template <int D>
+struct Geo {
+  static constexpr int RB = 2 * D;
+  static constexpr int QBYTES = QR * RB;
+  static constexpr int KBYTES = BK * RB;  // one K or V block
+  static constexpr int STAGES = D == 32 ? 3 : 2;
+  static constexpr uint64_t MODE = D == 64 ? 1 : 2;
+  static constexpr uint32_t SBO = 8 * RB;  // 8-row groups
+  static constexpr int SMEM = QBYTES + STAGES * 2 * KBYTES + 8 * (2 * STAGES + 1) + 1024;
+};
+
+__device__ inline uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ inline void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
                : "memory");
 }
 
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ inline void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
 }
 
-__device__ inline void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+__device__ inline void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
-// c += a . b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32
-__device__ inline void mma16816(float* c, const uint32_t* a, uint32_t b0,
-                                uint32_t b1) {
+// spin until the phase of the given parity has completed
+__device__ inline void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the box of a [B*H, L, D] map at (0, row, head) -> shared dst; completes
+// on bar; rows past L are zero-filled
+__device__ inline void tma_rows(uint32_t dst, const CUtensorMap* map, int row,
+                                int head, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(head),
+      "r"(bar)
+      : "memory");
 }
 
-// four 8x8 bf16 matrices, transposed, from the row addresses of the lanes
-__device__ inline void ldmatrix_x4_trans(uint32_t* r, const bf16* smem) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+// wgmma descriptor of a tile read K-major (rows along M or N, the reduced
+// dimension contiguous); 16 elements deeper is 32 bytes further (+2)
+template <int D>
+__device__ inline uint64_t desc_k(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(Geo<D>::SBO >> 4) << 32) | (Geo<D>::MODE << 62);
+}
+
+// wgmma descriptor of a tile read MN-major (rows along the reduced
+// dimension, D N-contiguous elements each: one swizzle atom wide)
+template <int D>
+__device__ inline uint64_t desc_mn(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) |
+         ((uint64_t)(Geo<D>::SBO >> 4) << 16) |
+         ((uint64_t)(Geo<D>::SBO >> 4) << 32) | (Geo<D>::MODE << 62);
+}
+
+__device__ inline void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ inline void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ inline void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accumulator accesses across a wgmma wait
+template <int R>
+__device__ inline void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[128] (+)= A (64 x 16, smem) . B (16 x 256, smem), both K-major; acc = 0
+// overwrites d
+__device__ inline void wgmma_ss256(float (&d)[128], uint64_t da, uint64_t db, int acc) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[16] += A (64 x 16, registers: each warp's m16n8k16 A fragment) . B
+// (16 x 32, smem, MN-major: rows of N-contiguous elements)
+__device__ inline void wgmma_rs32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[32] += A (64 x 16, registers: each warp's m16n8k16 A fragment) . B
+// (16 x 64, smem, MN-major: rows of N-contiguous elements)
+__device__ inline void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[D/2] += A (registers) . B (16 x D, MN-major)
+template <int D>
+__device__ inline void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
+                                uint64_t db) {
+  if constexpr (D == 32)
+    wgmma_rs32(d, a, db);
+  else
+    wgmma_rs64(d, a, db);
 }
 
 __device__ inline uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ inline uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // max and sum over the four lanes of a row group (lanes 4g .. 4g + 3)
@@ -117,170 +282,221 @@ __device__ inline float quad_sum(float x) {
   return __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ out,
-                       int L, float scale) {
-  constexpr int LD = D + 8;   // padded shared row of a K or V tile
-  constexpr int KD = D / 16;  // k-steps of Q K^T
-  constexpr int DN = D / 8;   // 8-column tiles of O
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  __shared__ __align__(128) bf16 ring[2][KT * LD];
+// 2^x by the special-function unit alone (subnormal results flush to 0)
+__device__ inline float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const size_t base = (size_t)blockIdx.x * L * D;  // this (batch, head)
-  const bf16* qh = q + base;
-  const bf16* kh = k + base;
-  const bf16* vh = v + base;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
-  const int ra = blockIdx.y * QT + warp * 16 + g, rb = ra + 8;  // my 2 rows
-  const int nblocks = (L + BK - 1) / BK;
-  const int nsteps = nblocks * 2 * SUB;
-
-  // Q as the A fragments of Q K^T (rows >= L zero)
-  uint32_t qa[KD][4];
+// One 256-key block of a warpgroup's recurrence: s holds its raw scores
+// (accumulator fragment: warp w holds rows 16w + lane / 4 (+ 8), keys
+// 8j + 2 (lane % 4) (+ 1) in s[4j ..]); key0 is the key of s[0]; V's rows
+// at shared address vt; m is kept in log2 units, m = max(s * c) with c =
+// scale * log2(e), so p = exp(s * scale - m') is 2^(s c - m'), one FFMA and
+// one ex2 a score. NEG: c < 0, whose max is at the least raw score (scaling
+// by a constant is monotone). MASKED: keys at and past L are left out.
+template <int D, bool MASKED, bool NEG>
+__device__ inline void block_step(float (&s)[128], float (&o)[D / 2], uint32_t vt,
+                                  int key0, int L, float c, float (&m)[2],
+                                  float (&l)[2]) {
+  float bx[2] = {NEG ? INFINITY : -INFINITY, NEG ? INFINITY : -INFINITY};
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-    const int c = kd * 16 + 2 * t4;
-    qa[kd][0] = ra < L ? ld32(qh + (size_t)ra * D + c) : 0u;
-    qa[kd][1] = rb < L ? ld32(qh + (size_t)rb * D + c) : 0u;
-    qa[kd][2] = ra < L ? ld32(qh + (size_t)ra * D + c + 8) : 0u;
-    qa[kd][3] = rb < L ? ld32(qh + (size_t)rb * D + c + 8) : 0u;
+  for (int i = 0; i < 128; ++i) {
+    const int r = (i >> 1) & 1;
+    if (!MASKED || key0 + 8 * (i >> 2) + (i & 1) < L)
+      bx[r] = NEG ? fminf(bx[r], s[i]) : fmaxf(bx[r], s[i]);
+  }
+  float mn[2], alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // every block holds a real key
+    const float x = NEG ? -quad_max(-bx[r]) : quad_max(bx[r]);
+    mn[r] = fmaxf(m[r], __fmul_rn(x, c));
+    alpha[r] = ex2(__fsub_rn(m[r], mn[r]));
+    m[r] = mn[r];
+  }
+  // p in f32 with its block sum; each 16-key slice rounded to bf16 is the A
+  // fragment of P.V's k-step
+  uint32_t pa[16][4];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    float p[8];
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      const int i = 8 * k + x, r = (x >> 1) & 1;
+      const bool live = !MASKED || key0 + 8 * (i >> 2) + (i & 1) < L;
+      p[x] = live ? ex2(__fmaf_rn(s[i], c, -mn[r])) : 0.f;
+      ps[r] = __fadd_rn(ps[r], p[x]);
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) pa[k][x] = pack_bf16(p[2 * x], p[2 * x + 1]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = __fadd_rn(__fmul_rn(alpha[r], l[r]), quad_sum(ps[r]));
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = __fmul_rn(o[i], alpha[(i >> 1) & 1]);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    wgmma_rs<D>(o, pa[k], desc_mn<D>(vt + 16 * k * Geo<D>::RB));
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(o);
+}
+
+template <int D, bool NEG>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       bf16* __restrict__ out, int L, int nblk, float scale) {
+  typedef Geo<D> G;
+  constexpr int STAGES = G::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, ring = base + G::QBYTES;
+  const uint32_t full = ring + STAGES * 2 * G::KBYTES, empty = full + 8 * STAGES,
+                 own = empty + 8 * STAGES;
+  const int bh = blockIdx.x / nblk, row0 = (blockIdx.x % nblk) * QR;
+  const int nkb = (L + BK - 1) / BK;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * WGS);
+    }
+    mbar_init(own, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == WGS) {  // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 128 * WGS) {
+      mbar_expect_tx(own, G::QBYTES);
+      tma_rows(sq, &map_q, row0, bh, own);
+      for (int kb = 0; kb < nkb; ++kb) {
+        const int s = kb % STAGES;
+        mbar_wait(empty + 8 * s, ((kb / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * G::KBYTES);
+        const uint32_t dst = ring + s * 2 * G::KBYTES;
+        tma_rows(dst, &map_k, kb * BK, bh, full + 8 * s);
+        tma_rows(dst + G::KBYTES, &map_v, kb * BK, bh, full + 8 * s);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ra = row0 + wg * 64 + warp * 16 + g, rb = ra + 8;  // my 2 rows
+  const uint32_t qa = sq + wg * 64 * G::RB;
+  mbar_wait(own, 0);
+
+  const float c = __fmul_rn(scale, 1.4426950408889634f);  // log2(e)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float s[128];
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int st = kb % STAGES;
+    mbar_wait(full + 8 * st, (kb / STAGES) & 1);
+    const uint32_t kt = ring + st * 2 * G::KBYTES;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+      wgmma_ss256(s, desc_k<D>(qa) + 2 * kd, desc_k<D>(kt) + 2 * kd, kd > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+    const int key0 = kb * BK + 2 * t4;
+    if (kb * BK + BK <= L)
+      block_step<D, false, NEG>(s, o, kt + G::KBYTES, key0, L, c, m, l);
+    else
+      block_step<D, true, NEG>(s, o, kt + G::KBYTES, key0, L, c, m, l);
+    mbar_arrive(empty + 8 * st);
   }
 
-  // step = block * 2 SUB + j: K tile j of the block for j < SUB, V tile
-  // j - SUB after; step s goes to ring buffer s & 1
-  auto issue = [&](int step) {
-    const int blk = step / (2 * SUB), j = step % (2 * SUB);
-    const bf16* src = j < SUB ? kh : vh;
-    const int row0 = blk * BK + (j % SUB) * KT;
-    bf16* dst = ring[step & 1];
-    for (int e = tid; e < KT * VPR; e += THREADS) {
-      const int r = e / VPR, cv = e % VPR, gr = row0 + r;
-      const bool ok = gr < L;
-      cp_async16(&dst[r * LD + cv * 8], src + (ok ? (size_t)gr * D + cv * 8 : 0),
-                 ok);
-    }
-  };
-  auto arrive = [&](int step) {  // prefetch the next tile, wait for this one
-    if (step + 1 < nsteps) issue(step + 1);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-  };
-
-  float m0 = -INFINITY, m1 = -INFINITY;  // running row max of rows ra, rb
-  float l0 = 0.f, l1 = 0.f;              // running row sums
-  float o[DN][4];
+  bf16* oh = out + (size_t)bh * L * D;
 #pragma unroll
-  for (int n = 0; n < DN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  issue(0);
-  cp_async_commit();
-  for (int blk = 0; blk < nblocks; ++blk) {
-    const int step0 = blk * 2 * SUB;
-    // S = Q K^T for this warp's 16 rows and the block's 256 keys, unscaled
-    float s[SUB * SN][4];
-#pragma unroll
-    for (int j = 0; j < SUB; ++j) {
-      arrive(step0 + j);
-      const bf16* kt = ring[(step0 + j) & 1];
-#pragma unroll
-      for (int n = 0; n < SN; ++n) {
-        float* c = s[j * SN + n];
-        c[0] = c[1] = c[2] = c[3] = 0.f;
-        const bf16* krow = kt + (n * 8 + g) * LD + 2 * t4;  // B[d][key] = K[key][d]
-#pragma unroll
-        for (int kd = 0; kd < KD; ++kd)
-          mma16816(c, qa[kd], ld32(krow + kd * 16), ld32(krow + kd * 16 + 8));
-      }
-      __syncthreads();  // the buffer is free for step + 2
-    }
-
-    // scale, mask, and the block's row max over all 256 keys
-    const int col0 = blk * BK + 2 * t4;  // key of s[0][0]
-    float bm0 = -INFINITY, bm1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < SUB * SN; ++n)
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const bool live = col0 + n * 8 + jj < L;
-        s[n][jj] = __fmul_rn(s[n][jj], scale);
-        s[n][2 + jj] = __fmul_rn(s[n][2 + jj], scale);
-        if (live) {
-          bm0 = fmaxf(bm0, s[n][jj]);
-          bm1 = fmaxf(bm1, s[n][2 + jj]);
-        }
-      }
-    const float mn0 = fmaxf(m0, quad_max(bm0)), mn1 = fmaxf(m1, quad_max(bm1));
-    const float alpha0 = expf(__fsub_rn(m0, mn0));
-    const float alpha1 = expf(__fsub_rn(m1, mn1));
-    m0 = mn0;
-    m1 = mn1;
-
-    // p = exp(s - m') in f32 and its block sum; masked keys give p = 0
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < SUB * SN; ++n)
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const bool live = col0 + n * 8 + jj < L;
-        const float p0 = live ? expf(__fsub_rn(s[n][jj], mn0)) : 0.f;
-        const float p1 = live ? expf(__fsub_rn(s[n][2 + jj], mn1)) : 0.f;
-        ps0 = __fadd_rn(ps0, p0);
-        ps1 = __fadd_rn(ps1, p1);
-        s[n][jj] = p0;
-        s[n][2 + jj] = p1;
-      }
-    l0 = __fadd_rn(__fmul_rn(alpha0, l0), quad_sum(ps0));
-    l1 = __fadd_rn(__fmul_rn(alpha1, l1), quad_sum(ps1));
-#pragma unroll
-    for (int n = 0; n < DN; ++n) {
-      o[n][0] = __fmul_rn(o[n][0], alpha0);
-      o[n][1] = __fmul_rn(o[n][1], alpha0);
-      o[n][2] = __fmul_rn(o[n][2], alpha1);
-      o[n][3] = __fmul_rn(o[n][3], alpha1);
-    }
-
-    // O += bf16(P) V, 16 keys per k-step: the accumulators of 8-key tiles
-    // 2kk and 2kk+1 are exactly P's A fragment
-    const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row
-#pragma unroll
-    for (int j = 0; j < SUB; ++j) {
-      arrive(step0 + SUB + j);
-      const bf16* vt = ring[(step0 + SUB + j) & 1];
-#pragma unroll
-      for (int kk = 0; kk < KT / 16; ++kk) {
-        const float* sa = s[j * SN + 2 * kk];
-        const float* sb = s[j * SN + 2 * kk + 1];
-        const uint32_t pa[4] = {pack_bf16(sa[0], sa[1]), pack_bf16(sa[2], sa[3]),
-                                pack_bf16(sb[0], sb[1]), pack_bf16(sb[2], sb[3])};
-#pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
-          // matrices: keys 0-7 / 8-15 of the k-step, columns dp*16 + 0 / 8
-          uint32_t b[4];
-          ldmatrix_x4_trans(
-              b, vt + (kk * 16 + (mi & 1) * 8 + mr) * LD + dp * 16 + (mi >> 1) * 8);
-          mma16816(o[2 * dp], pa, b[0], b[1]);
-          mma16816(o[2 * dp + 1], pa, b[2], b[3]);
-        }
-      }
-      __syncthreads();  // the buffer is free for step + 2
-    }
-  }
-
-  bf16* oh = out + base;
-#pragma unroll
-  for (int n = 0; n < DN; ++n) {
-    const int c = n * 8 + 2 * t4;
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
     if (ra < L)
       *reinterpret_cast<uint32_t*>(oh + (size_t)ra * D + c) =
-          pack_bf16(__fdiv_rn(o[n][0], l0), __fdiv_rn(o[n][1], l0));
+          pack_bf16(__fdiv_rn(o[4 * j], l[0]), __fdiv_rn(o[4 * j + 1], l[0]));
     if (rb < L)
       *reinterpret_cast<uint32_t*>(oh + (size_t)rb * D + c) =
-          pack_bf16(__fdiv_rn(o[n][2], l1), __fdiv_rn(o[n][3], l1));
+          pack_bf16(__fdiv_rn(o[4 * j + 2], l[1]), __fdiv_rn(o[4 * j + 3], l[1]));
   }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a contiguous bf16 [BH, L, D] tensor in boxes of rows x D, swizzled as the
+// kernel's tiles; rows past L of a head are zero-filled
+int make_map(CUtensorMap* map, const void* ptr, int BH, int L, int D, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(ptr), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int BH,
+           int L, float scale, cudaStream_t s) {
+  typedef Geo<D> G;
+  CUtensorMap mq, mk, mv;
+  int err = make_map(&mq, q, BH, L, D, QR);
+  if (!err) err = make_map(&mk, k, BH, L, D, BK);
+  if (!err) err = make_map(&mv, v, BH, L, D, BK);
+  if (err) return err;
+  // the sign of scale * log2(e) picks the extreme that is the max
+  auto kernel = scale < 0.f ? flash_attention_kernel<D, true>
+                            : flash_attention_kernel<D, false>;
+  err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  G::SMEM);
+  if (err) return err;
+  const int nblk = (L + QR - 1) / QR;
+  kernel<<<BH * nblk, THREADS, G::SMEM, s>>>(mq, mk, mv, (bf16*)out, L, nblk, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -292,17 +508,10 @@ int uspace_flash_attention(const void* q, const void* k, const void* v,
                            void* out, int B, int H, int L, int D, float scale,
                            void* stream) {
   if (B < 1 || H < 1 || L < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B * H, (L + QT - 1) / QT);
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == 32)
-    flash_attention_kernel<32><<<grid, THREADS, 0, s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, L, scale);
-  else if (D == 64)
-    flash_attention_kernel<64><<<grid, THREADS, 0, s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, L, scale);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (D == 32) return launch<32>(q, k, v, out, B * H, L, scale, s);
+  if (D == 64) return launch<64>(q, k, v, out, B * H, L, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -18,34 +18,64 @@
 // 2*L^2*D per (batch, head), 10*B*H*L^2*D = 344 GFLOP -> 347 us; q, k, v, dO
 // read and dq, dk, dv written once, 470 MB -> 140 us. Operations bound.
 //
-// Design (simple first; wgmma, TMA and fewer passes are later work):
-// - The TPU kernel keeps a head's q, k, v, dO and its [L, L] P and dP in
-//   VMEM. At L = 1024 q, k, v and dO of one head take 256 KB (D = 32) or
-//   512 KB (D = 64), more than the 227 KB a block may have, so both kernels
-//   stream, as the forward does: 4 warps a block, 16 rows a warp, and 64-row
-//   tiles of the other side through a double-buffered cp.async ring (static
-//   shared memory, rows padded by 8 bf16).
-// - Kernel 1, dQ by 64-query tile (grid B*H x L/64): the warp's Q and dO
-//   stay in registers as mma A fragments while K and V stream by. Four
-//   passes over the keys: the row max; l = rowsum(exp(s - m)); delta =
-//   rowsum(p * dP); dQ += bf16(dS) K. It writes m, l and delta to an f32
-//   scratch [B*H, 3, Lp] (Lp: L rounded up to 64, every row of every tile).
-// - Kernel 2, dK and dV by 64-key tile (grid B*H x L/64): the warp's K and
-//   V stay in registers while Q, dO and the saved row statistics stream by;
-//   it works on the transposes, S^T = K Q^T and dP^T = V dO^T, so that
-//   P^T and dS^T come out of the accumulators in the A-fragment layout:
-//   dV += bf16(P^T) dO and dK += bf16(dS^T) Q, f32 sums in registers.
-// - mma.sync m16n8k16 bf16 x bf16 -> f32 with the PTX fragment layouts of
-//   the forward: 32-bit shared loads for the B operand of S and dP,
-//   ldmatrix.trans for K, Q and dO as the B operand of the dQ, dK and dV
-//   products. No [L, L] tensor reaches device memory.
-// - Ragged edges: keys >= L get p = 0 (by index), rows >= L are zero-filled
-//   by cp.async, query rows >= L get p = 0 in kernel 2, so padded rows add
-//   nothing to dK and dV; rows >= L are never written.
+// What binds it on this card: at D = 32 a score costs 64 tensor-core FLOPs
+// but some 45 scalar instructions over the two kernels (three expf of about
+// eight instructions each, the normalisation, dS, the bf16 packs), so
+// instruction issue and the latency between a product and the scalar work
+// on its result bind the kernels, not the tensor cores. The design:
+// - Two passes in the dQ kernel, not four. Pass 1 takes S and dP for each
+//   key tile and keeps, per lane, a running max m with l = sum exp(s - m)
+//   and u = sum exp(s - m) dP, both rescaled by exp(m_old - m_new) when m
+//   grows; the four lanes of a row combine theirs at the end and delta =
+//   u / l. The max is order-free, so m is the row max to the bit; only f32
+//   sums are reordered, nothing in pass 1 is rounded to bf16. Pass 2
+//   recomputes S and dP, forms p = exp(s - m) / l and dS, and accumulates
+//   dQ += dS K. The dQ kernel runs 5 tile products where it ran 7, the two
+//   kernels 9 (5 is the least), and 3 exponentials a score where they ran 4.
+// - p = e / l as e * RN(1/l) corrected once by two FMAs (Markstein): the
+//   correctly rounded quotient in three instructions, not a division
+//   routine per score. RN(1/l) is taken once per row in the dQ kernel; in
+//   the dK/dV kernel, where each thread meets 16 queries a tile, a second
+//   producer warp takes it once per query beside the tile's statistics
+//   (with __frcp_rn in every consumer thread the kernel took 1.5x as long).
+// - wgmma throughout: each warpgroup owns 64 rows; S = Q K^T and dP = dO V^T
+//   are m64n64k16 chains from shared memory into registers (K-major: K and V
+//   rows are D-contiguous), dS goes from the accumulators into the A
+//   fragments of dQ += dS K (m64nDk16, K read MN-major from its row-major
+//   tile). The dK/dV kernel works on the transposes, S^T = K Q^T and dP^T =
+//   V dO^T, then dV += bf16(P^T) dO and dK += bf16(dS^T) Q with P^T and
+//   dS^T as register A operands and dO and Q read MN-major. The tensor
+//   cores read the tiles: no per-warp fragment loads from shared memory.
+// - The products of the next tile are issued before the scalar work on
+//   this one, into a second pair of register buffers; the scalar work only
+//   reads the accumulators and writes the bf16 A fragments (writing the
+//   accumulators in place cost 1.2x). ptxas still reports the wgmma
+//   pipeline serialised (C7514), so how much of the products runs under
+//   the scalar work is not known. That needs about 200 registers a
+//   consumer thread: a producer warpgroup hands its registers over with
+//   setmaxnreg (24 and 240 a thread).
+// - Two consumer warpgroups share each streamed tile (128 rows a block), so
+//   a pass reads K and V (or Q and dO) from L2 half as often as 64-row
+//   blocks would. One producer thread keeps TMA loads in flight into a ring
+//   of 4 stages guarded by full and empty mbarriers: the block's own 128
+//   rows once, then 64-row tiles of the other side (and, for dK/dV, the
+//   tile's row statistics by a bulk copy; a ready mbarrier then says that
+//   the reciprocals beside them are written). Tiles use the swizzle whose
+//   span is a row (64 bytes at D = 32, 128 at D = 64), which both wgmma and
+//   TMA read.
+// - The dQ kernel writes m, l and delta of every row of every 64-row tile
+//   to an f32 scratch [B*H, 3, Lp] (Lp: L rounded up to 64) for the dK/dV
+//   kernel. No [L, L] tensor reaches device memory, and no atomics: every
+//   sum runs in one fixed order, so a repeated call gives the same bits.
+// - Ragged edges: keys >= L get p = 0 by index; TMA zero-fills rows >= L of
+//   each head (a 3-D tensor map [B*H, L, D]), so padded rows add nothing to
+//   dK and dV, and query rows >= L get p = 0 in the dK/dV kernel; rows >= L
+//   are never written.
 // - Every product, sum and quotient that the twin rounds is an _rn
 //   intrinsic, so nvcc fuses none of them into an FMA.
-// The entry point returns cudaGetLastError().
+// The entry point returns cudaGetLastError() or the first error before it.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,50 +84,213 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int RT = WARPS * 16;  // rows per block (queries in 1, keys in 2)
-constexpr int CT = 64;          // streamed rows per tile
-constexpr int MAX_L = 1024;     // beyond: _flash_kernel's range
+constexpr int WGS = 2;                   // consumer warpgroups a block
+constexpr int RT = 64 * WGS;             // a block's own rows
+constexpr int CT = 64;                   // streamed rows a tile
+constexpr int STAGES = 4;                // ring depth
+constexpr int THREADS = 128 * (WGS + 1);  // + a producer warpgroup
+// registers a thread: the producer gives its own to the consumers
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int MAX_L = 1024;              // beyond: _flash_kernel's range
+constexpr int STAT_BYTES = 3 * CT * 4;   // m | l | delta of a tile
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 
-static_assert(RT == CT, "the row statistics are laid out per 64-row tile");
+// the shared-memory geometry of a head dim: a tile row is 2D bytes, laid out
+// with the swizzle of that span (128 bytes: mode 1, 64 bytes: mode 2)
+template <int D>
+struct Geo {
+  static constexpr int RB = 2 * D;
+  static constexpr int OWN = RT * RB;   // the block's own rows
+  static constexpr int TILE = CT * RB;  // one streamed tile
+  static constexpr uint64_t MODE = D == 64 ? 1 : 2;
+  static constexpr uint32_t SBO = 8 * RB;  // 8-row groups
+};
 
-// 16 bytes global -> shared; with valid == false the 16 bytes are zeros
-// (src-size 0: nothing is read from gmem)
-__device__ inline void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n)
+__device__ inline uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ inline void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
                : "memory");
 }
 
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ inline void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
 }
 
-__device__ inline void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+__device__ inline void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
-// c += a . b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32
-__device__ inline void mma16816(float* c, const uint32_t* a, uint32_t b0,
-                                uint32_t b1) {
+// spin until the phase of the given parity has completed
+__device__ inline void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the box of a [B*H, L, D] map at (0, row, head) -> shared dst; completes
+// on bar; rows past L are zero-filled
+__device__ inline void tma_rows(uint32_t dst, const CUtensorMap* map, int row,
+                                int head, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(head),
+      "r"(bar)
+      : "memory");
 }
 
-// four 8x8 bf16 matrices, transposed, from the row addresses of the lanes
-__device__ inline void ldmatrix_x4_trans(uint32_t* r, const bf16* smem) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+// bytes (a multiple of 16) from global src -> shared dst; completes on bar
+__device__ inline void bulk_copy(uint32_t dst, const void* src, int bytes,
+                                 uint32_t bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a tile read K-major (rows along M or N, the reduced
+// dimension contiguous); 16 elements deeper is 32 bytes further (+2)
+template <int D>
+__device__ inline uint64_t desc_k(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(Geo<D>::SBO >> 4) << 32) | (Geo<D>::MODE << 62);
+}
+
+// wgmma descriptor of a tile read MN-major (rows along the reduced
+// dimension, D N-contiguous elements each: one swizzle atom wide)
+template <int D>
+__device__ inline uint64_t desc_mn(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) |
+         ((uint64_t)(Geo<D>::SBO >> 4) << 16) |
+         ((uint64_t)(Geo<D>::SBO >> 4) << 32) | (Geo<D>::MODE << 62);
+}
+
+__device__ inline void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ inline void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ inline void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator accesses across a wgmma wait
+template <int R>
+__device__ inline void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[32] (+)= A (64 x 16, smem) . B (16 x 64, smem), both K-major; acc = 0
+// overwrites d
+__device__ inline void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[16] += A (64 x 16, registers: each warp's m16n8k16 A fragment) . B
+// (16 x 32, smem, MN-major: rows of N-contiguous elements)
+__device__ inline void wgmma_rs32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[32] += A (64 x 16, registers: each warp's m16n8k16 A fragment) . B
+// (16 x 64, smem, MN-major: rows of N-contiguous elements)
+__device__ inline void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[D/2] += A (registers) . B (16 x D, MN-major)
+template <int D>
+__device__ inline void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
+                                uint64_t db) {
+  if constexpr (D == 32)
+    wgmma_rs32(d, a, db);
+  else
+    wgmma_rs64(d, a, db);
+}
+
+// x = a0 . b0^T and y = a1 . b1^T for one warpgroup (unscaled f32): 64-row
+// K-major tiles, D deep; issued and committed as one group, not waited for
+template <int D>
+__device__ inline void issue_pair(float (&x)[32], float (&y)[32], uint32_t a0,
+                                  uint32_t b0, uint32_t a1, uint32_t b1) {
+  fence_regs(x);
+  fence_regs(y);
+  wgmma_fence();
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd)
+    wgmma_ss64(x, desc_k<D>(a0) + 2 * kd, desc_k<D>(b0) + 2 * kd, kd > 0);
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd)
+    wgmma_ss64(y, desc_k<D>(a1) + 2 * kd, desc_k<D>(b1) + 2 * kd, kd > 0);
+  wgmma_commit();
+}
+
+// acc += the bf16 A fragments a[4] (64 rows x a tile's 64 reduced rows) . the
+// tile at t (64 rows of D, read MN-major); issued, not committed
+template <int D>
+__device__ inline void issue_acc(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                 uint32_t t) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    wgmma_rs<D>(acc, a[k], desc_mn<D>(t + 16 * k * Geo<D>::RB));
 }
 
 __device__ inline uint32_t pack_bf16(float lo, float hi) {
@@ -105,324 +298,487 @@ __device__ inline uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ inline uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// a / b correctly rounded from rb = RN(1 / b): one FMA correction of a * rb
+// (Markstein); p = e / l with e <= 1 <= l stays clear of overflow
+__device__ inline float quotient(float a, float b, float rb) {
+  const float q = __fmul_rn(a, rb);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), rb, q);
 }
 
-// rows ra and rb of a row-major [L, D] head as mma A fragments (rows >= L
-// zero): a[kd] covers columns kd*16 .. kd*16 + 15
-template <int D>
-__device__ inline void load_a(uint32_t (*a)[4], const bf16* h, int ra, int rb,
-                              int L, int t4) {
+__device__ inline float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ inline float quad_sum(float x) {
+  x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// accumulator fragment of a warpgroup: warp w holds rows 16w + lane / 4
+// (+ 8), columns 8j + 2 (lane % 4) (+ 1) in x[4j ..]
+
+// pass 1 of the dQ kernel on one tile: s and dp of the tile's keys (key0:
+// the key of s[0]); the lane's running max, l and u of its two rows.
+// MASKED: keys at and past L are left out. The accumulators are only read:
+// a write to them while the next tile's products are in flight would
+// serialise the wgmma pipeline.
+template <bool MASKED>
+__device__ inline void stats_tile(const float (&s)[32], const float (&dp)[32],
+                                  int key0, int L, float scale, float (&m)[2],
+                                  float (&l)[2], float (&u)[2]) {
+  float v[32], mt[2] = {MASK_VALUE, MASK_VALUE};
 #pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
-    const int c = kd * 16 + 2 * t4;
-    a[kd][0] = ra < L ? ld32(h + (size_t)ra * D + c) : 0u;
-    a[kd][1] = rb < L ? ld32(h + (size_t)rb * D + c) : 0u;
-    a[kd][2] = ra < L ? ld32(h + (size_t)ra * D + c + 8) : 0u;
-    a[kd][3] = rb < L ? ld32(h + (size_t)rb * D + c + 8) : 0u;
+  for (int i = 0; i < 32; ++i) {
+    v[i] = __fmul_rn(s[i], scale);
+    if (!MASKED || key0 + 8 * (i >> 2) + (i & 1) < L)
+      mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], v[i]);
   }
-}
-
-// c[nn] = A . B^T for the 16 streamed rows kk*16 .. kk*16 + 15 of the shared
-// tile t ([CT][D + 8]): two 8-column accumulators, unscaled
-template <int D>
-__device__ inline void dot_tile(float (*c)[4], uint32_t (*a)[4],
-                                const bf16* t, int kk, int g, int t4) {
 #pragma unroll
-  for (int nn = 0; nn < 2; ++nn) {
-    c[nn][0] = c[nn][1] = c[nn][2] = c[nn][3] = 0.f;
-    const bf16* row = t + (kk * 16 + nn * 8 + g) * (D + 8) + 2 * t4;
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd)
-      mma16816(c[nn], a[kd], ld32(row + kd * 16), ld32(row + kd * 16 + 8));
-  }
-}
-
-// acc += A . T[kk*16 .. kk*16 + 15][:], the A fragment a (16 x 16) against
-// 16 rows of the shared tile t as the B operand (ldmatrix.trans)
-template <int D>
-__device__ inline void acc_tile(float (*acc)[4], const uint32_t* a,
-                                const bf16* t, int kk, int lane) {
-  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row
-#pragma unroll
-  for (int dp = 0; dp < D / 16; ++dp) {
-    // matrices: rows 0-7 / 8-15 of the k-step, columns dp*16 + 0 / 8
-    uint32_t b[4];
-    ldmatrix_x4_trans(
-        b, t + (kk * 16 + (mi & 1) * 8 + mr) * (D + 8) + dp * 16 + (mi >> 1) * 8);
-    mma16816(acc[2 * dp], a, b[0], b[1]);
-    mma16816(acc[2 * dp + 1], a, b[2], b[3]);
-  }
-}
-
-// the A fragment of two 8-column accumulators, rounded to bf16
-__device__ inline void to_a(uint32_t* a, float (*c)[4]) {
-  a[0] = pack_bf16(c[0][0], c[0][1]);
-  a[1] = pack_bf16(c[0][2], c[0][3]);
-  a[2] = pack_bf16(c[1][0], c[1][1]);
-  a[3] = pack_bf16(c[1][2], c[1][3]);
-}
-
-__device__ inline float prob(float s, float scale, float m, float l) {
-  return __fdiv_rn(expf(__fsub_rn(__fmul_rn(s, scale), m)), l);
-}
-
-// Kernel 1: dQ and the row statistics, one warp per 16 queries.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-fused_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    bf16* __restrict__ dq, float* __restrict__ stats, int L,
-                    float scale) {
-  constexpr int LD = D + 8, KD = D / 16, DN = D / 8, VPR = D / 8;
-  __shared__ __align__(128) bf16 ks[2][CT * LD];
-  __shared__ __align__(128) bf16 vs[2][CT * LD];
-
-  const size_t base = (size_t)blockIdx.x * L * D;  // this (batch, head)
-  const bf16* kh = k + base;
-  const bf16* vh = v + base;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
-  const int ra = blockIdx.y * RT + warp * 16 + g, rb = ra + 8;  // my 2 rows
-  const int ntiles = (L + CT - 1) / CT, nsteps = 4 * ntiles;
-
-  uint32_t qa[KD][4], ga[KD][4];  // Q and dO as A fragments
-  load_a<D>(qa, q + base, ra, rb, L, t4);
-  load_a<D>(ga, dout + base, ra, rb, L, t4);
-
-  // step s: pass s / ntiles over key tile s % ntiles; passes 0 and 1 read K
-  // only, passes 2 and 3 K and V; step s goes to ring buffer s & 1
-  auto issue = [&](int step) {
-    const int pass = step / ntiles, tile = step - pass * ntiles, buf = step & 1;
-    for (int e = tid; e < CT * VPR; e += THREADS) {
-      const int r = e / VPR, cv = e % VPR, gr = tile * CT + r;
-      const bool ok = gr < L;
-      const size_t off = ok ? (size_t)gr * D + cv * 8 : 0;
-      cp_async16(&ks[buf][r * LD + cv * 8], kh + off, ok);
-      if (pass >= 2) cp_async16(&vs[buf][r * LD + cv * 8], vh + off, ok);
+  for (int r = 0; r < 2; ++r)
+    if (mt[r] > m[r]) {
+      const float a = expf(__fsub_rn(m[r], mt[r]));
+      l[r] = __fmul_rn(l[r], a);
+      u[r] = __fmul_rn(u[r], a);
+      m[r] = mt[r];
     }
-  };
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    const bool live = !MASKED || key0 + 8 * (i >> 2) + (i & 1) < L;
+    const float e = live ? expf(__fsub_rn(v[i], m[r])) : 0.f;
+    l[r] = __fadd_rn(l[r], e);
+    u[r] = __fmaf_rn(e, dp[i], u[r]);
+  }
+}
 
-  float m[2] = {MASK_VALUE, MASK_VALUE};  // rows ra, rb
-  float l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};  // this lane's part, then all
-  float acc[DN][4];
+// pass 2 of the dQ kernel on one tile: dS = p (dP - delta), rounded to bf16
+// into the A fragments of dQ += dS K
+template <bool MASKED>
+__device__ inline void ds_tile(const float (&s)[32], const float (&dp)[32],
+                               uint32_t (&da)[4][4], int key0, int L, float scale,
+                               const float (&m)[2], const float (&l)[2],
+                               const float (&rl)[2], const float (&dl)[2]) {
 #pragma unroll
-  for (int n = 0; n < DN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int k = 0; k < 4; ++k) {
+    float ds[8];
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      const int i = 8 * k + x, r = (x >> 1) & 1;
+      const bool live = !MASKED || key0 + 8 * (i >> 2) + (i & 1) < L;
+      const float e = live ? expf(__fsub_rn(__fmul_rn(s[i], scale), m[r])) : 0.f;
+      ds[x] = __fmul_rn(quotient(e, l[r], rl[r]), __fsub_rn(dp[i], dl[r]));
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) da[k][x] = pack_bf16(ds[2 * x], ds[2 * x + 1]);
+  }
+}
 
-  issue(0);
-  cp_async_commit();
-  for (int step = 0; step < nsteps; ++step) {
-    if (step + 1 < nsteps) issue(step + 1);
-    cp_async_commit();
-    cp_async_wait1();  // this step's tile has landed
-    __syncthreads();
-    const int pass = step / ntiles, tile = step - pass * ntiles, buf = step & 1;
-    const bf16* kt = ks[buf];
-    const bf16* vt = vs[buf];
+// the dK/dV kernel's scalar work on one tile, on the transposes: s (S^T)
+// and dp (dP^T) give bf16(P^T) and bf16(dS^T) as the A fragments pa and da,
+// with the tile's row statistics sm = m | l | delta | 1/l of its 64 queries
+// (q0: the first). RAGGED: queries at and past L add nothing
+template <bool RAGGED>
+__device__ inline void grad_tile(const float (&s)[32], const float (&dp)[32],
+                                 uint32_t (&pa)[4][4], uint32_t (&da)[4][4],
+                                 const float* sm, int q0, int L, float scale) {
+  const int t4 = threadIdx.x & 3;
 #pragma unroll
-    for (int kk = 0; kk < CT / 16; ++kk) {
-      float s[2][4];
-      dot_tile<D>(s, qa, kt, kk, g, t4);
-      const int key0 = tile * CT + kk * 16 + 2 * t4;  // key of s[0][0]
-      if (pass == 0) {
+  for (int k = 0; k < 4; ++k) {
+    float p[8], ds[8];
 #pragma unroll
-        for (int nn = 0; nn < 2; ++nn)
+    for (int h = 0; h < 2; ++h) {  // the 8-query halves j = 2k + h
+      const int c = 16 * k + 8 * h + 2 * t4;  // query in tile of s[4j], s[4j + 2]
+      const float2 mm = *reinterpret_cast<const float2*>(sm + c);
+      const float2 ll = *reinterpret_cast<const float2*>(sm + CT + c);
+      const float2 dd = *reinterpret_cast<const float2*>(sm + 2 * CT + c);
+      const float2 rr = *reinterpret_cast<const float2*>(sm + 3 * CT + c);
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (key0 + nn * 8 + (j & 1) < L)
-              m[j >> 1] = fmaxf(m[j >> 1], __fmul_rn(s[nn][j], scale));
-      } else if (pass == 1) {
-#pragma unroll
-        for (int nn = 0; nn < 2; ++nn)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (key0 + nn * 8 + (j & 1) < L)
-              l[j >> 1] = __fadd_rn(
-                  l[j >> 1],
-                  expf(__fsub_rn(__fmul_rn(s[nn][j], scale), m[j >> 1])));
-      } else {
-        float dp[2][4];  // dP = dO V^T
-        dot_tile<D>(dp, ga, vt, kk, g, t4);
-#pragma unroll
-        for (int nn = 0; nn < 2; ++nn)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int r = j >> 1;
-            const float p = key0 + nn * 8 + (j & 1) < L
-                                ? prob(s[nn][j], scale, m[r], l[r])
-                                : 0.f;
-            if (pass == 2)
-              dl[r] = __fadd_rn(dl[r], __fmul_rn(p, dp[nn][j]));
-            else
-              s[nn][j] = __fmul_rn(p, __fsub_rn(dp[nn][j], dl[r]));  // dS
-          }
-        if (pass == 3) {  // dQ += bf16(dS) K
-          uint32_t da[4];
-          to_a(da, s);
-          acc_tile<D>(acc, da, kt, kk, lane);
-        }
+      for (int x = 0; x < 4; ++x) {  // x = 2r + e
+        const int e = x & 1, i = 8 * k + 4 * h + x;
+        const float mq = e ? mm.y : mm.x, lq = e ? ll.y : ll.x,
+                    dq = e ? dd.y : dd.x, rq = e ? rr.y : rr.x;
+        const bool live = !RAGGED || q0 + c + e < L;
+        const float ex = live ? expf(__fsub_rn(__fmul_rn(s[i], scale), mq)) : 0.f;
+        p[4 * h + x] = quotient(ex, lq, rq);
+        ds[4 * h + x] = live ? __fmul_rn(p[4 * h + x], __fsub_rn(dp[i], dq)) : 0.f;
       }
     }
-    if (step % ntiles == ntiles - 1 && pass < 3) {
-      // the end of a statistics pass: the four lanes of a row group share
-      // rows, so each takes the reduction of all four
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int x = 1; x <= 2; x <<= 1) {
-          if (pass == 0)
-            m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], x));
-          else if (pass == 1)
-            l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], x));
-          else
-            dl[r] = __fadd_rn(dl[r], __shfl_xor_sync(0xffffffffu, dl[r], x));
-        }
+    for (int x = 0; x < 4; ++x) {
+      pa[k][x] = pack_bf16(p[2 * x], p[2 * x + 1]);
+      da[k][x] = pack_bf16(ds[2 * x], ds[2 * x + 1]);
     }
-    __syncthreads();  // the buffer is free for step + 2
-  }
-
-  bf16* oh = dq + base;
-#pragma unroll
-  for (int n = 0; n < DN; ++n) {
-    const int c = n * 8 + 2 * t4;
-    if (ra < L)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)ra * D + c) = pack_bf16(
-          __fmul_rn(acc[n][0], scale), __fmul_rn(acc[n][1], scale));
-    if (rb < L)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)rb * D + c) = pack_bf16(
-          __fmul_rn(acc[n][2], scale), __fmul_rn(acc[n][3], scale));
-  }
-  if (t4 == 0) {  // every row of the tile, padded ones included
-    const int lp = ntiles * CT;
-    float* st = stats + (size_t)blockIdx.x * 3 * lp;
-    st[ra] = m[0];
-    st[rb] = m[1];
-    st[lp + ra] = l[0];
-    st[lp + rb] = l[1];
-    st[2 * lp + ra] = dl[0];
-    st[2 * lp + rb] = dl[1];
   }
 }
 
-// Kernel 2: dK and dV, one warp per 16 keys, on the transposes S^T, dP^T.
+// Kernel 1: dQ and the row statistics; block = (head, 128 queries).
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-fused_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ stats, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int L, float scale) {
-  constexpr int LD = D + 8, KD = D / 16, DN = D / 8, VPR = D / 8;
-  __shared__ __align__(128) bf16 qs[2][CT * LD];
-  __shared__ __align__(128) bf16 gs[2][CT * LD];
-  __shared__ __align__(16) float ss[2][3 * CT];  // m | l | delta of a tile
-
-  const size_t base = (size_t)blockIdx.x * L * D;
-  const bf16* qh = q + base;
-  const bf16* gh = dout + base;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int ka = blockIdx.y * RT + warp * 16 + g, kb = ka + 8;  // my 2 keys
-  const int ntiles = (L + CT - 1) / CT, lp = ntiles * CT;
-  const float* st = stats + (size_t)blockIdx.x * 3 * lp;
-
-  uint32_t kf[KD][4], vf[KD][4];  // K and V as A fragments
-  load_a<D>(kf, k + base, ka, kb, L, t4);
-  load_a<D>(vf, v + base, ka, kb, L, t4);
-
-  auto issue = [&](int tile) {
-    const int buf = tile & 1;
-    for (int e = tid; e < CT * VPR; e += THREADS) {
-      const int r = e / VPR, cv = e % VPR, gr = tile * CT + r;
-      const bool ok = gr < L;
-      const size_t off = ok ? (size_t)gr * D + cv * 8 : 0;
-      cp_async16(&qs[buf][r * LD + cv * 8], qh + off, ok);
-      cp_async16(&gs[buf][r * LD + cv * 8], gh + off, ok);
+__global__ void __launch_bounds__(THREADS, 1)
+fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    bf16* __restrict__ dq, float* __restrict__ stats, int L,
+                    int nblk, float scale) {
+  typedef Geo<D> G;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, sdo = base + G::OWN, ring = base + 2 * G::OWN;
+  const uint32_t full = ring + STAGES * 2 * G::TILE, empty = full + 8 * STAGES,
+                 own = empty + 8 * STAGES;
+  const int bh = blockIdx.x / nblk, row0 = (blockIdx.x % nblk) * RT;
+  const int nt = (L + CT - 1) / CT;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * WGS);
     }
-    for (int e = tid; e < 3 * CT / 4; e += THREADS) {  // 16-byte vectors
-      const int j = e / (CT / 4), c = e % (CT / 4);
-      cp_async16(&ss[buf][j * CT + c * 4], st + j * lp + tile * CT + c * 4,
-                 true);
+    mbar_init(own, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == WGS) {  // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 128 * WGS) {
+      mbar_expect_tx(own, 2 * G::OWN);
+      tma_rows(sq, &map_q, row0, bh, own);
+      tma_rows(sdo, &map_do, row0, bh, own);
+      for (int step = 0; step < 2 * nt; ++step) {  // pass 1, then pass 2
+        const int s = step % STAGES, tile = step < nt ? step : step - nt;
+        mbar_wait(empty + 8 * s, ((step / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * G::TILE);
+        const uint32_t dst = ring + s * 2 * G::TILE;
+        tma_rows(dst, &map_k, tile * CT, bh, full + 8 * s);
+        tma_rows(dst + G::TILE, &map_v, tile * CT, bh, full + 8 * s);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ra = row0 + wg * 64 + warp * 16 + g, rb = ra + 8;  // my 2 rows
+  const uint32_t qa = sq + wg * 64 * G::RB, ga = sdo + wg * 64 * G::RB;
+  mbar_wait(own, 0);
+
+  // Steps 0 .. nt - 1 are pass 1 over the key tiles, nt .. 2 nt - 1 pass 2.
+  // S and dP of step + 1 are issued before step's scalar work, into the
+  // other pair of register buffers, so the tensor cores run under it.
+  const int steps = 2 * nt;
+  float m[2] = {MASK_VALUE, MASK_VALUE}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+  float rl[2], dl[2];
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);  // zeroed before any wgmma is in flight
+  uint32_t da[4][4];
+  auto stage = [&](int step) { return ring + (step % STAGES) * 2 * G::TILE; };
+  auto issue = [&](float (&x)[32], float (&y)[32], int step) {
+    mbar_wait(full + 8 * (step % STAGES), (step / STAGES) & 1);
+    issue_pair<D>(x, y, qa, stage(step), ga, stage(step) + G::TILE);
+  };
+  auto run = [&](float (&x)[32], float (&y)[32], float (&nx)[32], float (&ny)[32],
+                 int step) {
+    if (step + 1 < steps) {
+      issue(nx, ny, step + 1);
+      wgmma_wait<1>();  // all but step + 1's pair: step's, and dQ of step - 1
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(x);
+    fence_regs(y);
+    if (step > nt) mbar_arrive(empty + 8 * ((step - 1) % STAGES));  // its dQ is done
+    const int tile = step < nt ? step : step - nt;
+    const int key0 = tile * CT + 2 * t4;
+    const bool ragged = tile * CT + CT > L;
+    if (step < nt) {
+      mbar_arrive(empty + 8 * (step % STAGES));
+      if (ragged)
+        stats_tile<true>(x, y, key0, L, scale, m, l, u);
+      else
+        stats_tile<false>(x, y, key0, L, scale, m, l, u);
+      if (step == nt - 1) {
+        // the four lanes of a row group hold parts of its two rows
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mr = quad_max(m[r]);
+          const float a = expf(__fsub_rn(m[r], mr));
+          l[r] = quad_sum(__fmul_rn(l[r], a));
+          u[r] = quad_sum(__fmul_rn(u[r], a));
+          m[r] = mr;
+          dl[r] = __fdiv_rn(u[r], l[r]);
+          rl[r] = __frcp_rn(l[r]);
+        }
+      }
+    } else {
+      if (ragged)
+        ds_tile<true>(x, y, da, key0, L, scale, m, l, rl, dl);
+      else
+        ds_tile<false>(x, y, da, key0, L, scale, m, l, rl, dl);
+      wgmma_fence();
+      issue_acc<D>(acc, da, stage(step));  // dQ += bf16(dS) K
+      wgmma_commit();
     }
   };
-
-  float dka[DN][4], dva[DN][4];
-#pragma unroll
-  for (int n = 0; n < DN; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  float s0[32], p0[32], s1[32], p1[32];
+  issue(s0, p0, 0);
+  for (int step = 0; step < steps; step += 2) {  // steps is even
+    run(s0, p0, s1, p1, step);
+    run(s1, p1, s0, p0, step + 1);
   }
+  wgmma_wait<0>();
+  fence_regs(acc);
 
-  issue(0);
-  cp_async_commit();
-  for (int tile = 0; tile < ntiles; ++tile) {
-    if (tile + 1 < ntiles) issue(tile + 1);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    const int buf = tile & 1;
-    const bf16* qt = qs[buf];
-    const bf16* gt = gs[buf];
-    const float* sm = ss[buf];
+  const size_t off = (size_t)bh * L * D;
+  bf16* oh = dq + off;
 #pragma unroll
-    for (int kq = 0; kq < CT / 16; ++kq) {
-      float s[2][4], dp[2][4];  // S^T = K Q^T, dP^T = V dO^T
-      dot_tile<D>(s, kf, qt, kq, g, t4);
-      dot_tile<D>(dp, vf, gt, kq, g, t4);
-#pragma unroll
-      for (int nn = 0; nn < 2; ++nn)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = kq * 16 + nn * 8 + 2 * t4 + (j & 1);  // query in tile
-          const float p = tile * CT + c < L  // padded queries add nothing
-                              ? prob(s[nn][j], scale, sm[c], sm[CT + c])
-                              : 0.f;
-          s[nn][j] = p;
-          dp[nn][j] = __fmul_rn(p, __fsub_rn(dp[nn][j], sm[2 * CT + c]));
-        }
-      uint32_t pa[4], da[4];
-      to_a(pa, s);
-      to_a(da, dp);
-      acc_tile<D>(dva, pa, gt, kq, lane);  // dV += bf16(P^T) dO
-      acc_tile<D>(dka, da, qt, kq, lane);  // dK += bf16(dS^T) Q
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    if (ra < L)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)ra * D + c) = pack_bf16(
+          __fmul_rn(acc[4 * j], scale), __fmul_rn(acc[4 * j + 1], scale));
+    if (rb < L)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)rb * D + c) = pack_bf16(
+          __fmul_rn(acc[4 * j + 2], scale), __fmul_rn(acc[4 * j + 3], scale));
+  }
+  const int lp = nt * CT;  // every row of every tile, padded ones included
+  if (t4 == 0) {
+    float* st = stats + (size_t)bh * 3 * lp;
+    if (ra < lp) {
+      st[ra] = m[0];
+      st[lp + ra] = l[0];
+      st[2 * lp + ra] = dl[0];
     }
-    __syncthreads();
+    if (rb < lp) {
+      st[rb] = m[1];
+      st[lp + rb] = l[1];
+      st[2 * lp + rb] = dl[1];
+    }
   }
+}
 
-  bf16* kh_out = dk + base;
-  bf16* vh_out = dv + base;
+// Kernel 2: dK and dV; block = (head, 128 keys), on the transposes.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_do,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const float* __restrict__ stats, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int L, int nblk, float scale) {
+  typedef Geo<D> G;
+  constexpr int STG = 2 * G::TILE + 1024;  // Q | dO | m, l, delta, 1/l
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sk = base, sv = base + G::OWN, ring = base + 2 * G::OWN;
+  const uint32_t full = ring + STAGES * STG, empty = full + 8 * STAGES,
+                 ready = empty + 8 * STAGES, own = ready + 8 * STAGES;
+  const int bh = blockIdx.x / nblk, k0 = (blockIdx.x % nblk) * RT;
+  const int nt = (L + CT - 1) / CT, lp = nt * CT;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * WGS);
+      mbar_init(ready + 8 * s, 32);
+    }
+    mbar_init(own, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const float* sth = stats + (size_t)bh * 3 * lp;
+  if (wg == WGS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 128 * WGS) {
+      mbar_expect_tx(own, 2 * G::OWN);
+      tma_rows(sk, &map_k, k0, bh, own);
+      tma_rows(sv, &map_v, k0, bh, own);
+      for (int tile = 0; tile < nt; ++tile) {
+        const int s = tile % STAGES;
+        mbar_wait(empty + 8 * s, ((tile / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * G::TILE + STAT_BYTES);
+        const uint32_t dst = ring + s * STG;
+        tma_rows(dst, &map_q, tile * CT, bh, full + 8 * s);
+        tma_rows(dst + G::TILE, &map_do, tile * CT, bh, full + 8 * s);
 #pragma unroll
-  for (int n = 0; n < DN; ++n) {
-    const int c = n * 8 + 2 * t4;
+        for (int j = 0; j < 3; ++j)
+          bulk_copy(dst + 2 * G::TILE + j * CT * 4, sth + j * lp + tile * CT,
+                    CT * 4, full + 8 * s);
+      }
+    } else if (threadIdx.x >= 128 * WGS + 32 && threadIdx.x < 128 * WGS + 64) {
+      // the second producer warp: RN(1/l) of each tile's 64 queries, beside
+      // its statistics, so the consumers divide by FMAs alone
+      const int lane = threadIdx.x & 31;
+      for (int tile = 0; tile < nt; ++tile) {
+        const int s = tile % STAGES;
+        mbar_wait(full + 8 * s, (tile / STAGES) & 1);
+        float* sm = reinterpret_cast<float*>(smem_raw + (ring + s * STG + 2 * G::TILE - raw));
+        sm[3 * CT + lane] = __frcp_rn(sm[CT + lane]);
+        sm[3 * CT + 32 + lane] = __frcp_rn(sm[CT + 32 + lane]);
+        mbar_arrive(ready + 8 * s);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ka = k0 + wg * 64 + warp * 16 + g, kb = ka + 8;  // my 2 keys
+  const uint32_t kw = sk + wg * 64 * G::RB, vw = sv + wg * 64 * G::RB;
+  mbar_wait(own, 0);
+
+  // S^T = K Q^T and dP^T = V dO^T of tile + 1 are issued before tile's
+  // scalar work, into the other pair of register buffers
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  fence_regs(dka);  // zeroed before any wgmma is in flight
+  fence_regs(dva);
+  uint32_t pa[4][4], da[4][4];
+  auto issue = [&](float (&x)[32], float (&y)[32], int tile) {
+    mbar_wait(full + 8 * (tile % STAGES), (tile / STAGES) & 1);
+    const uint32_t qt = ring + (tile % STAGES) * STG;
+    issue_pair<D>(x, y, kw, qt, vw, qt + G::TILE);
+  };
+  auto run = [&](float (&x)[32], float (&y)[32], float (&nx)[32], float (&ny)[32],
+                 int tile) {
+    if (tile + 1 < nt) {
+      issue(nx, ny, tile + 1);
+      wgmma_wait<1>();  // all but tile + 1's pair: tile's, and dK, dV of tile - 1
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(x);
+    fence_regs(y);
+    if (tile > 0) mbar_arrive(empty + 8 * ((tile - 1) % STAGES));
+    mbar_wait(ready + 8 * (tile % STAGES), (tile / STAGES) & 1);
+    const uint32_t qt = ring + (tile % STAGES) * STG, gt = qt + G::TILE;
+    const float* sm = reinterpret_cast<const float*>(smem_raw + (qt + 2 * G::TILE - raw));
+    if (tile * CT + CT > L)
+      grad_tile<true>(x, y, pa, da, sm, tile * CT, L, scale);
+    else
+      grad_tile<false>(x, y, pa, da, sm, tile * CT, L, scale);
+    wgmma_fence();
+    issue_acc<D>(dva, pa, gt);  // dV += bf16(P^T) dO
+    issue_acc<D>(dka, da, qt);  // dK += bf16(dS^T) Q
+    wgmma_commit();
+  };
+  float s0[32], p0[32], s1[32], p1[32];
+  issue(s0, p0, 0);
+  int tile = 0;
+  for (; tile + 1 < nt; tile += 2) {
+    run(s0, p0, s1, p1, tile);
+    run(s1, p1, s0, p0, tile + 1);
+  }
+  if (tile < nt) run(s0, p0, s1, p1, tile);
+  wgmma_wait<0>();
+  fence_regs(dka);
+  fence_regs(dva);
+
+  const size_t off = (size_t)bh * L * D;
+  bf16* kh = dk + off;
+  bf16* vh = dv + off;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
     if (ka < L) {
-      *reinterpret_cast<uint32_t*>(kh_out + (size_t)ka * D + c) = pack_bf16(
-          __fmul_rn(dka[n][0], scale), __fmul_rn(dka[n][1], scale));
-      *reinterpret_cast<uint32_t*>(vh_out + (size_t)ka * D + c) =
-          pack_bf16(dva[n][0], dva[n][1]);
+      *reinterpret_cast<uint32_t*>(kh + (size_t)ka * D + c) = pack_bf16(
+          __fmul_rn(dka[4 * j], scale), __fmul_rn(dka[4 * j + 1], scale));
+      *reinterpret_cast<uint32_t*>(vh + (size_t)ka * D + c) =
+          pack_bf16(dva[4 * j], dva[4 * j + 1]);
     }
     if (kb < L) {
-      *reinterpret_cast<uint32_t*>(kh_out + (size_t)kb * D + c) = pack_bf16(
-          __fmul_rn(dka[n][2], scale), __fmul_rn(dka[n][3], scale));
-      *reinterpret_cast<uint32_t*>(vh_out + (size_t)kb * D + c) =
-          pack_bf16(dva[n][2], dva[n][3]);
+      *reinterpret_cast<uint32_t*>(kh + (size_t)kb * D + c) = pack_bf16(
+          __fmul_rn(dka[4 * j + 2], scale), __fmul_rn(dka[4 * j + 3], scale));
+      *reinterpret_cast<uint32_t*>(vh + (size_t)kb * D + c) =
+          pack_bf16(dva[4 * j + 2], dva[4 * j + 3]);
     }
   }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a contiguous bf16 [BH, L, D] tensor in boxes of rows x D, swizzled as the
+// kernels' tiles; rows past L of a head are zero-filled
+int make_map(CUtensorMap* map, const void* ptr, int BH, int L, int D, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(ptr), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <typename K>
+int smem_setup(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   bytes);
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            void* dq, void* dk, void* dv, void* stats, int BH, int L,
            float scale, cudaStream_t s) {
-  const dim3 grid(BH, (L + RT - 1) / RT);
-  fused_bwd_dq_kernel<D><<<grid, THREADS, 0, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (bf16*)dq, (float*)stats, L, scale);
-  const int err = (int)cudaGetLastError();
+  typedef Geo<D> G;
+  CUtensorMap own[4], tile[4];  // q, dO, k, v in boxes of RT and of CT rows
+  const void* src[4] = {q, dout, k, v};
+  for (int i = 0; i < 4; ++i) {
+    int err = make_map(&own[i], src[i], BH, L, D, RT);
+    if (!err) err = make_map(&tile[i], src[i], BH, L, D, CT);
+    if (err) return err;
+  }
+  const int nblk = (L + RT - 1) / RT;
+  const int bytes1 = 2 * G::OWN + STAGES * 2 * G::TILE + 8 * (2 * STAGES + 1) + 1024;
+  const int bytes2 =
+      2 * G::OWN + STAGES * (2 * G::TILE + 1024) + 8 * (3 * STAGES + 1) + 1024;
+  int err = smem_setup(fused_bwd_dq_kernel<D>, bytes1);
+  if (!err) err = smem_setup(fused_bwd_dkdv_kernel<D>, bytes2);
   if (err) return err;
-  fused_bwd_dkdv_kernel<D><<<grid, THREADS, 0, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)stats, (bf16*)dk, (bf16*)dv, L, scale);
+  fused_bwd_dq_kernel<D><<<BH * nblk, THREADS, bytes1, s>>>(
+      own[0], own[1], tile[2], tile[3], (bf16*)dq, (float*)stats, L, nblk, scale);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  fused_bwd_dkdv_kernel<D><<<BH * nblk, THREADS, bytes2, s>>>(
+      tile[0], tile[1], own[2], own[3], (const float*)stats, (bf16*)dk,
+      (bf16*)dv, L, nblk, scale);
   return (int)cudaGetLastError();
 }
 
