@@ -152,6 +152,61 @@ def test_fwd_twin_matches_jax(dt, l, d):
         *(torch.from_numpy(a).to(td) for a in (q, k, v))), ref, tol)
 
 
+def _two_pass_fwd(q, k, v, scale, tile=256):
+    """A mirror of the [B, H, L, D] forward kernel's arithmetic (row 7):
+    pass 1 takes the extreme of the raw scores over every 256-key tile (the
+    max, or the least score for a negative scale); m = RN(extreme * c) with
+    c = RN(scale * log2(e)); pass 2 forms p = 2^(s c - m) (one rounding, as
+    the kernel's FFMA) in f32 against the whole row's max, sums it in f32
+    and rounds it once to bf16 for P V; O is divided by l once. Only f32
+    values move against the twin (the exponential's), never a rounding
+    site."""
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    n = q.shape[2]
+    tiles = [slice(t0, min(t0 + tile, n)) for t0 in range(0, n, tile)]
+    c = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    pick = torch.amax if float(c) >= 0 else torch.amin
+    x = None
+    for ks in tiles:
+        s = torch.matmul(qf, kf[:, :, ks].transpose(-1, -2))
+        e = pick(s, dim=-1, keepdim=True)
+        x = e if x is None else pick(torch.cat([x, e], dim=-1), dim=-1,
+                                     keepdim=True)
+    m = x * c
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape[:3] + (v.shape[-1],))
+    for ks in tiles:
+        s = torch.matmul(qf, kf[:, :, ks].transpose(-1, -2))
+        p = torch.exp2((s.double() * c.double() - m.double()).float())
+        l = l + p.sum(dim=-1, keepdim=True)
+        o = o + torch.matmul(p.to(v.dtype).float(), vf[:, :, ks])
+    return (o / l).to(q.dtype)
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("l,d", [(130, 32), (600, 64)])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_two_pass_forward_keeps_the_rounding_sites(dt, l, d, sign):
+    """Row 7's folded two-pass arithmetic against JAX's _fused_attention
+    (multi_head_attention impl="pallas", whose _fwd_kernel runs in
+    interpret mode on the CPU) and against the twin attention_plain, at
+    ragged L and either sign of the scale: f32 within 1e-5, bf16 within the
+    file's bf16 tolerance."""
+    jd, td, tol = DTYPES[dt]
+    r = np.random.default_rng(l + d + int(sign))
+    q, k, v = (r.standard_normal((1, 2, l, d)).astype(np.float32)
+               for _ in range(3))
+    scale = sign * d ** -0.5
+    ref = jattn.multi_head_attention(*(jnp.asarray(a, jd) for a in (q, k, v)),
+                                     scale=scale, impl="pallas")
+    ts = [torch.from_numpy(a).to(td) for a in (q, k, v)]
+    mine = _two_pass_fwd(*ts, scale)
+    assert mine.dtype == td and mine.shape == (1, 2, l, d)
+    _close(mine, ref, tol)
+    _close(mine, tattn.attention_plain(*ts, scale), tol)
+
+
 def _vjp_inputs(l, seed):
     """qkv, cotangent and projection operands at 2 heads of 64."""
     r = np.random.default_rng(seed)

@@ -10,7 +10,10 @@ flip an int8 code by one step where an f32 sum (LN statistics) runs in
 another order: max-abs one bf16 step of the largest output value, and the
 int8 rel-L2 limits of chip_smoke.py, taken for the MLP sub-block on out - x
 (the residual would dilute an error of the MLP). The weight-only int8 (w8)
-MLP kernels are held the same way, at chip_smoke.py's w8 limit. The
+MLP kernels are held the same way, at chip_smoke.py's w8 limit; the
+pieces of the w8 sub-block (row 16) alone: its LN pass bit-equal to the
+bf16-chain twin in the kernel's lane order, its fc1 and fc2 GEMMs within one
+bf16 step (plus f32 reordering) of the f32 product. The
 [B, H, L, D] kernel (kernel 7) and the blocked online-softmax kernel
 (kernel 9) take the bf16 forward limits. The bf16
 attention sub-block and the bf16 MLP kernels (rows 10, 12, 13) take the
@@ -420,6 +423,107 @@ def test_w8_mlp_kernels_match_twins(cuda, rows, c, out):
                                             1e-5), W8_MLP_REL_L2, x)
 
 
+def _w8_case(g, rows, c, out, dev):
+    hid = 4 * c
+    w1 = _rand(g, c, hid, std=0.02, dtype=torch.float32)
+    w2 = _rand(g, hid, out, std=0.02, dtype=torch.float32)
+    return dict(x=_rand(g, rows, c), w1=w1, w2=w2,
+                b1=_rand(g, hid, std=0.02, dtype=torch.float32),
+                b2=_rand(g, out, std=0.02, dtype=torch.float32),
+                lns=1 + _rand(g, c, std=0.1, dtype=torch.float32),
+                lnb=_rand(g, c, std=0.1, dtype=torch.float32),
+                q1=quant.quantized_weight(w1), q2=quant.quantized_weight(w2))
+
+
+@pytest.mark.parametrize("c", [256, 512, 768, 1024])
+@pytest.mark.parametrize("rows", [1, 33, 127, 128, 129, 500, 12850])
+def test_w8_mlp_kernels_tile_edges_and_repeats(cuda, rows, c):
+    """Row 16 (out = C) and row 17 (another output width) against their
+    twins at the edges of row 16's 128-row tiles, at every U-ViT width;
+    row 16 gives the same bits on a repeat (no atomics, one order of every
+    sum)."""
+    out = {256: 1024, 512: 256, 768: 512, 1024: 768}[c]
+    g = torch.Generator(device=cuda).manual_seed(7 * rows + c)
+    a = _w8_case(g, rows, c, c, cuda)
+    s = mlp.col_slices(4 * c)
+    with torch.no_grad():
+        y = mlp.fused_mlp_block_q(a["x"], a["lns"], a["lnb"], a["w1"],
+                                  a["b1"], a["w2"], a["b2"], quant="w8")
+        again = mlp.fused_mlp_block_q(a["x"], a["lns"], a["lnb"], a["w1"],
+                                      a["b1"], a["w2"], a["b2"], quant="w8")
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    _agree_int8(y, mlp.ln_mlp_w8_plain(a["x"], a["lns"], a["lnb"], a["q1"],
+                                       a["b1"], a["q2"], a["b2"], s, 1e-5),
+                W8_MLP_REL_L2, a["x"])
+    b = _w8_case(g, rows, c, out, cuda)
+    with torch.no_grad():
+        _agree_int8(mlp.fused_mlp(b["x"], b["w1"], b["b1"], b["w2"], b["b2"],
+                                  quant="w8"),
+                    mlp.mlp_w8_plain(b["x"], b["q1"], b["b1"], b["q2"],
+                                     b["b2"], s), W8_MLP_REL_L2)
+
+
+def _ln_chain_lanes(x, lns, lnb, eps):
+    """The bf16-chain LN2 of row 16's LN pass with its f32 sums in the
+    kernel's lane order (``delta._lane_sum``)."""
+    xf, c, bf = x.float(), x.shape[-1], torch.bfloat16
+    mu = quant.true_div(delta._lane_sum(xf), c)
+    var = quant.true_div(delta._lane_sum(xf * xf), c) - mu * mu
+    inv = torch.rsqrt(var + eps).to(bf)
+    return (x - mu.to(bf)) * inv * lns.to(bf) + lnb.to(bf)
+
+
+@pytest.mark.parametrize("rows,c", [(12850, 1024), (7, 256), (33, 768)])
+def test_w8_ln_pass_is_bit_exact(cuda, rows, c):
+    """Row 16's LN pass equals the bf16-chain twin taken in the kernel's
+    lane order bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(rows + c)
+    x = (_rand(g, rows, c).float() * 3 + 0.5).to(torch.bfloat16)
+    lns = 1 + _rand(g, c, std=0.1, dtype=torch.float32)
+    lnb = _rand(g, c, std=0.1, dtype=torch.float32)
+    out = mlp._w8_ln_kernel(x, lns, lnb, 1e-5)
+    assert torch.equal(out, _ln_chain_lanes(x, lns, lnb, 1e-5))
+
+
+@pytest.mark.parametrize("m,c", [(12850, 1024), (129, 256), (1, 512),
+                                 (385, 768)])
+def test_w8_gemms_match_f32_products(cuda, m, c):
+    """Row 16's fc1 and fc2 GEMMs against the f32 product of the same bf16
+    operands (the int8 codes are exact in bf16), element by element: fc2
+    with unit scales, zero bias and a zero residual within one bf16 step
+    plus f32 reordering, as test_qkv_gemm_kernel_matches_f32_product holds
+    rows 2-3; fc1 through its GELU epilogue within one bf16 step of the
+    output plus GELU's slope (< 1.13) times the scaled reordering bound.
+    Two calls give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(m + c)
+    hid = 4 * c
+    a = _rand(g, m, c)
+    q1 = quant.quantized_weight(_rand(g, c, hid, std=0.02,
+                                      dtype=torch.float32))
+    b1 = _rand(g, hid, std=0.5, dtype=torch.float32)
+    h = mlp._w8_fc1_kernel(a, q1, b1)
+    assert torch.equal(h, mlp._w8_fc1_kernel(a, q1, b1))
+    w1 = q1.q.float()
+    pre = (a.float() @ w1.t()) * q1.scale + b1
+    ref = mlp._gelu_f32(pre)
+    top = ref.abs().clamp_min(2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    reorder = 2 * c * 2.0 ** -24 * (a.float().abs() @ w1.abs().t())
+    err = (h.float() - ref).abs() / (step + 1.13 * reorder * q1.scale
+                                     + 1e-6 * pre.abs() + 1e-30)
+    assert float(err.max()) <= 1.0
+    q2 = quant.QWeight(q=torch.randint(-127, 128, (c, hid), generator=g,
+                                       device=cuda, dtype=torch.int8),
+                       scale=torch.ones(c, device=cuda))
+    zero = torch.zeros(m, c, dtype=torch.bfloat16, device=cuda)
+    out = mlp._w8_fc2_kernel(h, q2, torch.zeros(c, device=cuda), zero)
+    assert torch.equal(out, mlp._w8_fc2_kernel(h, q2,
+                                               torch.zeros(c, device=cuda),
+                                               zero))
+    assert _bf16_steps(out, h.float() @ q2.q.float().t(), h, q2.q) <= 1.0
+
+
 def test_w8_wrappers_count_launches_and_refuse(cuda):
     mlp.reset_launches()
     x = torch.zeros(1, 8, 256, dtype=torch.bfloat16, device=cuda)
@@ -485,6 +589,35 @@ def test_fwd_kernel_matches_twin(cuda, b, h, l, d):
         # the dispatcher's routes: auto takes the kernel above L = 512
         _agree(attn.multi_head_attention(q, k, v, impl="pallas"),
                attn.attention_plain(q, k, v, d ** -0.5))
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("l", [1, 63, 64, 65, 127, 128, 129, 255, 256, 257,
+                               600, 1023, 1024])
+def test_fwd_kernel_tile_edges_and_repeats(cuda, l, d):
+    """Kernel 7 at the edges of its 128-row query tile and its 256-key score
+    tile, within the bf16 forward limits; two calls on the same inputs give
+    the same bits (no atomics, one fixed order of every sum)."""
+    g = torch.Generator(device=cuda).manual_seed(5 * l + d)
+    q, k, v = (_rand(g, 2, 3, l, d) for _ in range(3))
+    with torch.no_grad():
+        out = attn.fused_attention(q, k, v)
+        again = attn.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _agree(out, attn.attention_plain(q, k, v, d ** -0.5))
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("scale", [-0.3, -0.125, 0.0])
+def test_fwd_kernel_takes_any_scale(cuda, scale, d):
+    """A negative scale takes the row max at the least raw score; a zero
+    scale gives uniform probabilities."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (_rand(g, 2, 2, 600, d) for _ in range(3))
+    with torch.no_grad():
+        out = attn._fwd_kernel(q, k, v, scale)
+    _agree(out, attn.attention_plain(q, k, v, scale))
 
 
 def test_fwd_kernel_counts_launches_and_refuses(cuda):

@@ -32,6 +32,7 @@ from uspace_tpu_torch.configs import get_config
 from uspace_tpu_torch.core import flow as tflow
 from uspace_tpu_torch.models import UViT
 from uspace_tpu_torch.models import layers as tlayers
+from uspace_tpu_torch.ops import delta as tdelta
 from uspace_tpu_torch.ops import mlp as tmlp
 from uspace_tpu_torch.ops import quant as tquant
 
@@ -112,6 +113,64 @@ def test_mlp_w8_twin_matches_jax(dt, hidden, out):
         res = tmlp.fused_mlp(_t(a["x"], td), *map(_t, ws), quant="w8")
     assert res.dtype == td and res.shape == (2, 50, out)
     _close(res, ref, dt)
+
+
+def _three_piece_w8(x, q1, b1, q2, b2, ln=None):
+    """A mirror of the card's w8 MLP sub-block (row 16) as three pieces: the
+    LN pass (the bf16 chain of LN2, its f32 sums in the kernel's lane order)
+    writes xln in x's dtype; the fc1 GEMM's epilogue ``f32(xln . q1^T) * s1
+    + b1``, GELU, rounds h to x's dtype; the fc2 GEMM sums ``f32(h . q2^T)``
+    over the whole hidden width at once (no strips), and its epilogue rounds
+    ``acc * s2 + b2`` to x's dtype and adds x in x's dtype. Without ``ln``
+    it is the LN-free function of row 17 on x."""
+    dt = x.dtype
+    xln = x
+    if ln is not None:
+        xf, c = x.float(), x.shape[-1]
+        mu = tquant.true_div(tdelta._lane_sum(xf), c)
+        var = tquant.true_div(tdelta._lane_sum(xf * xf), c) - mu * mu
+        inv = torch.rsqrt(var + ln[2]).to(dt)
+        xln = (x - mu.to(dt)) * inv * ln[0].to(dt) + ln[1].to(dt)
+    pre = torch.matmul(xln.float(), q1.q.float().t())
+    h = tmlp._gelu_f32(pre * q1.scale + b1.float()).to(dt)
+    acc = torch.matmul(h.float(), q2.q.float().t())
+    m = (acc * q2.scale + b2.float()).to(dt)
+    return m if ln is None else x + m
+
+
+@pytest.mark.parametrize("hidden", [256, 512])
+@pytest.mark.parametrize("lnres", [True, False])
+@pytest.mark.parametrize("dt", list(DT))
+def test_three_piece_w8_keeps_the_rounding_sites(dt, lnres, hidden):
+    """Row 16's pieces in sequence (and row 17's function without LN),
+    against the interpreted JAX kernels (_mlp_kernel_w8_lnres through
+    fused_mlp_block_q, _mlp_kernel_w8 through fused_mlp) at the file's
+    tolerances, and against the twins: the strips of the TPU kernel and
+    the twin only order f32 sums, and the lane-order LN sums move no
+    rounding site."""
+    jd, td = DT[dt]
+    a = _mlp_inputs(11 + hidden, hidden, c=128)
+    ws = [a[k] for k in ("w1", "b1", "w2", "b2")]
+    x = _t(a["x"], td).reshape(-1, 128)
+    q1 = tquant.quantized_weight(_t(a["w1"]))
+    q2 = tquant.quantized_weight(_t(a["w2"]))
+    b1, b2 = _t(a["b1"]), _t(a["b2"])
+    s = tmlp.col_slices(hidden)
+    if lnres:
+        ln = (_t(a["s"]), _t(a["b"]), 1e-5)
+        ref = jmlp.fused_mlp_block_q(
+            jnp.asarray(a["x"], jd), jnp.asarray(a["s"]), jnp.asarray(a["b"]),
+            *map(jnp.asarray, ws), interpret=True, quant="w8")
+        twin = tmlp.ln_mlp_w8_plain(x, *ln[:2], q1, b1, q2, b2, s, 1e-5)
+    else:
+        ln = None
+        ref = jmlp.fused_mlp(jnp.asarray(a["x"], jd), *map(jnp.asarray, ws),
+                             quant="w8", interpret=True)
+        twin = tmlp.mlp_w8_plain(x, q1, b1, q2, b2, s)
+    mine = _three_piece_w8(x, q1, b1, q2, b2, ln)
+    assert mine.dtype == td
+    _close(mine.reshape(a["x"].shape), ref, dt)
+    _close(mine, twin, dt)
 
 
 def test_w8_is_the_mlp_of_the_dequantized_weights():

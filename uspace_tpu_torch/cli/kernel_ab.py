@@ -25,7 +25,14 @@ one card. An entry point that the base source lacks is timed on the new
 build alone (``attention``: the LN pass, ``ln_rows``, and the wgmma
 projection, ``qkv_gemm``, the pieces of rows 2 and 3); a base
 ``attention.cu`` from before the projection's workspace arguments is
-called with its own interface. ``--tree <checkout>`` instead
+called with its own interface, and so is a base ``mlp_w8.cu`` from before
+row 16's workspaces (row 16's pieces, ``w8_ln_rows``, ``w8_fc1`` and
+``w8_fc2``, are timed on the new build alone). ``--define NAME`` builds the
+base with ``-DNAME``: with ``--base`` this checkout's own source, a
+comparison build of it (``attention_fwd.cu``: ``ATTENTION_FWD_EXPF``,
+``ATTENTION_FWD_STREAM``). For ``attention_fwd`` each build is also held to
+the twin at chip_smoke.py's three phase-3 shapes (max-abs, rel-L2).
+``--tree <checkout>`` instead
 runs ``chip_smoke.py``'s phase 3 (every kernel against its twin, timed at
 its path's shape, with its library yardstick) from another checkout, such
 as an unpacked ``git archive`` of the parent commit, and from this one, in
@@ -46,6 +53,9 @@ a CUDA card.
         --base old/attention_block.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source attention_fwd \
         --base old/attention_fwd.cu
+    python -m uspace_tpu_torch.cli.kernel_ab --source attention_fwd \
+        --base uspace_tpu_torch/ops/csrc/attention_fwd.cu \
+        --define ATTENTION_FWD_EXPF
     python -m uspace_tpu_torch.cli.kernel_ab --source fused_attention_bwd \
         --base old/fused_attention_bwd.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source flash_attention \
@@ -72,26 +82,32 @@ from ..ops.quant import quantized_weight
 B, L, C, H = 50, 257, 1024, 16
 TRAIN_B = 128
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# attention.cu before its bf16 projection routes took workspaces
+# attention.cu before its bf16 projection routes took workspaces, and
+# mlp_w8.cu before its LN2 + residual route did
 _LEGACY_ATTENTION = {
     "uspace_qkvproj_attention": (_P, _P, _P, _I, _I, _I, _F, _P),
     "uspace_ln_qkvproj_attention": (_P,) * 5 + (_I, _I, _I, _F, _F, _P),
 }
+_LEGACY_W8 = {"uspace_ln_mlp_w8": (_P,) * 10 + (_I,) * 4 + (_F, _P)}
 
 
 def _legacy(lib: ctypes.CDLL) -> bool:
-    """An attention.cu whose projection routes take no workspace."""
+    """An attention.cu whose projection routes take no workspace, or an
+    mlp_w8.cu whose LN2 + residual route takes none."""
+    if hasattr(lib, "uspace_ln_mlp_w8"):
+        return not hasattr(lib, "uspace_w8_fc1")
     return (hasattr(lib, "uspace_qkvproj_attention")
             and not hasattr(lib, "uspace_qkv_gemm"))
 
 
-def _load(source: str, path: str, out: str) -> ctypes.CDLL:
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, path],
-                   check=True)
+def _load(source: str, path: str, out: str, defines=()) -> ctypes.CDLL:
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                    *(f"-D{d}" for d in defines), "-o", out, path], check=True)
     lib = ctypes.CDLL(out)
     sigs = dict(_build.SIGNATURES[source])
-    if source == "attention" and _legacy(lib):
-        sigs.update(_LEGACY_ATTENTION)
+    if _legacy(lib):
+        sigs.update({"attention": _LEGACY_ATTENTION,
+                     "mlp_w8": _LEGACY_W8}.get(source, {}))
     for fn, argtypes in sigs.items():
         if not hasattr(lib, fn):
             continue
@@ -145,6 +161,9 @@ def main(argv=None) -> None:
     ap.add_argument("--base", help="the other version of <source>.cu")
     ap.add_argument("--tree", help="another checkout: A/B of chip_smoke.py's "
                     "phase 3 instead")
+    ap.add_argument("--define", action="append", default=[],
+                    help="a macro for the base build (-D), e.g. a source's "
+                    "comparison build; repeatable")
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--pairs", type=int, default=3)
     a = ap.parse_args(argv)
@@ -157,7 +176,8 @@ def main(argv=None) -> None:
         ap.error("--base or --tree is required")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {"base": _load(a.source, a.base,
-                          str(_build.BUILD_DIR / f"ab_{a.source}.so")),
+                          str(_build.BUILD_DIR / f"ab_{a.source}.so"),
+                          a.define),
             "new": _build.load(a.source)}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -191,6 +211,8 @@ def main(argv=None) -> None:
     w8 = (q1.q.data_ptr(), q1.scale.data_ptr(), b1.data_ptr(),
           q2.q.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(), out.data_ptr(),
           rows, C, hid, C)
+    xln_rows = torch.empty(rows, C, dtype=bf, device=dev)  # row 16's
+    h_rows = torch.empty(rows, hid, dtype=bf, device=dev)  # workspaces
     w1b, w2b = q1.q.to(bf), q2.q.to(bf)  # bf16 weights, torch layout
     bw = (w1b.data_ptr(), b1.data_ptr(), w2b.data_ptr(), b2.data_ptr(),
           out.data_ptr(), rows, C, hid, C)
@@ -263,7 +285,19 @@ def main(argv=None) -> None:
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *mw, 1e-5, s),
         "mlp_w8": lambda lib: lib.uspace_mlp_w8(x.data_ptr(), *w8, s),
         "ln_mlp_w8": lambda lib: lib.uspace_ln_mlp_w8(
-            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *w8, 1e-5, s),
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *w8[:6],
+            *(() if _legacy(lib) else (xln_rows.data_ptr(), h_rows.data_ptr())),
+            *w8[6:], 1e-5, s),
+        # row 16's three pieces
+        "w8_ln_rows": lambda lib: lib.uspace_w8_ln_rows(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), xln_rows.data_ptr(),
+            rows, C, 1e-5, s),
+        "w8_fc1": lambda lib: lib.uspace_w8_fc1(
+            xln_rows.data_ptr(), q1.q.data_ptr(), q1.scale.data_ptr(),
+            b1.data_ptr(), h_rows.data_ptr(), rows, C, hid, s),
+        "w8_fc2": lambda lib: lib.uspace_w8_fc2(
+            h_rows.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(),
+            b2.data_ptr(), x.data_ptr(), out.data_ptr(), rows, hid, C, s),
         "mlp_bf16": lambda lib: lib.uspace_mlp_bf16(x.data_ptr(), *bw, s),
         "ln_mlp_bf16": lambda lib: lib.uspace_ln_mlp_bf16(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *bw, 1e-5, s),
@@ -376,6 +410,36 @@ def main(argv=None) -> None:
             "kernel": name, "card": torch.cuda.get_device_name(0),
             "base_ms": [t for side, t in runs if side == "base"],
             "new_ms": [t for side, t in runs if side == "new"]}), flush=True)
+    if a.source == "attention_fwd":
+        fwd_agreement(libs, s, time_ms)
+
+
+def fwd_agreement(libs, stream, time_ms) -> None:
+    """Each build of the [B, H, L, D] kernel against its twin at
+    chip_smoke.py's phase-3 shapes: max-abs, rel-L2 and ms (base, new,
+    new, base), one JSON line a shape."""
+    from ..ops.attention import attention_plain
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    for b, h, l, d in ((50, 8, 1024, 32), (50, 4, 1024, 64), (50, 8, 600, 32)):
+        q, k, v = (torch.randn(b, h, l, d, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(3))
+        ref = attention_plain(q, k, v, d ** -0.5).double()
+        o = torch.empty_like(q)
+
+        def call(lib):
+            return lib.uspace_attention_fwd(q.data_ptr(), k.data_ptr(),
+                                            v.data_ptr(), o.data_ptr(), b, h,
+                                            l, d, d ** -0.5, stream)
+        row = {"shape": [b, h, l, d]}
+        for side, lib in libs.items():
+            if call(lib):
+                raise RuntimeError("kernel launch failed")
+            err = o.double() - ref
+            row[side] = {"max_abs": float(err.abs().max()),
+                         "rel_l2": float(err.norm() / ref.norm()), "ms": []}
+        for side in ("base", "new", "new", "base"):
+            row[side]["ms"].append(time_ms(call, libs[side]))
+        print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

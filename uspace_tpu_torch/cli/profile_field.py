@@ -78,13 +78,16 @@ GROUPS = (
         "ln_bf16_kernel", "row_codes_kernel", "proj_residual_kernel")),
     ("blocked attention kernel (ours: row 9)", ("flash_attention_kernel",)),
     ("attention LN pass (ours: row 3)", ("ln_rows_kernel",)),
-    # before "matmul (cuBLAS)": its name contains "gemm"
+    # before "matmul (cuBLAS)": their names contain "gemm"
     ("QKV projection on wgmma (ours: rows 2-3)", ("qkv_gemm_kernel",)),
+    ("w8 MLP sub-block, LN pass (ours: row 16)", ("w8_ln_kernel",)),
+    ("w8 MLP sub-block, fc1 on wgmma (ours: row 16)", ("w8_gemm_kernel<0",)),
+    ("w8 MLP sub-block, fc2 on wgmma (ours: row 16)", ("w8_gemm_kernel<1",)),
     ("attention core (ours: rows 1-3)", ("packed_core_kernel",)),
     ("[B, H, L, D] attention kernel (ours)", ("attention_fwd_kernel",)),
     ("int8 attention kernel (ours)", ("attention_int8_kernel",)),
     ("int8 MLP kernel (ours)", ("mlp_int8_kernel",)),
-    ("w8 MLP kernel (ours)", ("mlp_w8_kernel",)),
+    ("w8 MLP kernel (ours: row 17)", ("mlp_w8_kernel",)),
     ("bf16 MLP kernel (ours)", ("mlp_bf16_kernel",)),
     ("layout transposes (NHWC <-> NCHW)", ("nchwToNhwc", "nhwcToNchw")),
     ("conv (cuDNN)", ("conv", "Conv", "cudnn", "fprop")),

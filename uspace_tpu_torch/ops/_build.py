@@ -89,7 +89,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "mlp_w8": {
         "uspace_mlp_w8": (_P,) * 8 + (_I,) * 4 + (_P,),
-        "uspace_ln_mlp_w8": (_P,) * 10 + (_I,) * 4 + (_F, _P),
+        "uspace_ln_mlp_w8": (_P,) * 12 + (_I,) * 4 + (_F, _P),
+        "uspace_w8_ln_rows": (_P, _P, _P, _P, _I, _I, _F, _P),
+        "uspace_w8_fc1": (_P,) * 5 + (_I,) * 3 + (_P,),
+        "uspace_w8_fc2": (_P,) * 6 + (_I,) * 3 + (_P,),
     },
 }
 

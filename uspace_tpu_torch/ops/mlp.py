@@ -321,13 +321,15 @@ def ln_mlp_w8_plain(x: torch.Tensor, ln_scale: torch.Tensor,
 
 def _mlp_w8_kernel(x2d, q1, b1, q2, b2, ln=None):
     """Launch the weight-only int8 MLP kernel on x [R, C] bf16; with ``ln =
-    (scale, bias, eps)`` the LN2 + residual variant."""
+    (scale, bias, eps)`` the LN2 + residual variant, whose three pieces (the
+    LN pass, the fc1 and fc2 GEMMs) pass its rows and hidden through bf16
+    workspaces [R, C] and [R, hidden]."""
     r, c = x2d.shape
     hidden, out_dim = q1.q.shape[0], q2.q.shape[0]
     dev = x2d.device
     b1f, b2f, out = _mlp_operands("w8", x2d, q1, b1, q2, b2)
-    # C <= 1280: a block's bf16 rows, its hidden chunk and the weight ring
-    # share 227 KB of shared memory (csrc/mlp_w8.cu make_layout)
+    # C <= 1280: the LN-free kernel's bf16 rows, its hidden chunk and its
+    # weight ring share 227 KB of shared memory (csrc/mlp_w8.cu make_layout)
     if (c % 128 or c > 1280 or hidden % 256
             or out_dim not in (256, 512, 768, 1024)):
         raise ValueError(
@@ -337,19 +339,77 @@ def _mlp_w8_kernel(x2d, q1, b1, q2, b2, ln=None):
             f"out={out_dim}")
     stream = cuda_stream(dev)
     lib = load("mlp_w8")
-    common = (q1.q.data_ptr(), q1.scale.data_ptr(), b1f.data_ptr(),
-              q2.q.data_ptr(), q2.scale.data_ptr(), b2f.data_ptr(),
-              out.data_ptr(), r, c, hidden, out_dim)
+    weights = (q1.q.data_ptr(), q1.scale.data_ptr(), b1f.data_ptr(),
+               q2.q.data_ptr(), q2.scale.data_ptr(), b2f.data_ptr())
     if ln is None:
-        rc = lib.uspace_mlp_w8(x2d.data_ptr(), *common, stream)
+        rc = lib.uspace_mlp_w8(x2d.data_ptr(), *weights, out.data_ptr(), r, c,
+                               hidden, out_dim, stream)
         key = "mlp_w8"
     else:
         lns, lnb = _ln_operands(ln, c, out_dim, dev)
+        xln = torch.empty_like(x2d)
+        h = x2d.new_empty((r, hidden))
         rc = lib.uspace_ln_mlp_w8(x2d.data_ptr(), lns.data_ptr(),
-                                  lnb.data_ptr(), *common, ln[2], stream)
+                                  lnb.data_ptr(), *weights, xln.data_ptr(),
+                                  h.data_ptr(), out.data_ptr(), r, c, hidden,
+                                  out_dim, ln[2], stream)
         key = "ln_mlp_w8"
     raise_on(rc, f"uspace_{key}")
     LAUNCHES[key] += 1
+    return out
+
+
+def _w8_ln_kernel(x: torch.Tensor, ln_scale: torch.Tensor,
+                  ln_bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """The LN pass of the w8 MLP sub-block alone (the bf16 chain of LN2) on
+    x [R, C] bf16; counted by no op, as it is a piece of one."""
+    r, c = x.shape
+    check_tensor("x", x, torch.bfloat16, (r, c), x.device)
+    lns, lnb = _ln_operands((ln_scale, ln_bias), c, c, x.device)
+    out = torch.empty_like(x)
+    raise_on(load("mlp_w8").uspace_w8_ln_rows(
+        x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), out.data_ptr(), r, c,
+        eps, cuda_stream(x.device)), "uspace_w8_ln_rows")
+    return out
+
+
+def _w8_fc1_kernel(xln: torch.Tensor, q1: QWeight,
+                   b1: torch.Tensor) -> torch.Tensor:
+    """The fc1 GEMM of the w8 MLP sub-block alone: ``bf16(gelu(f32(xln .
+    q1^T) * s1 + b1))`` for xln [R, C] bf16 (C a multiple of 64, the hidden
+    width of 256). Counted by no op."""
+    r, c = xln.shape
+    hidden = q1.q.shape[0]
+    check_tensor("xln", xln, torch.bfloat16, (r, c), xln.device)
+    check_tensor("w1 codes", q1.q, torch.int8, (hidden, c), xln.device)
+    b1f = b1.to(torch.float32).contiguous()
+    check_tensor("w1 scales", q1.scale, torch.float32, (hidden,), xln.device)
+    check_tensor("b1", b1f, torch.float32, (hidden,), xln.device)
+    h = xln.new_empty((r, hidden))
+    raise_on(load("mlp_w8").uspace_w8_fc1(
+        xln.data_ptr(), q1.q.data_ptr(), q1.scale.data_ptr(), b1f.data_ptr(),
+        h.data_ptr(), r, c, hidden, cuda_stream(xln.device)), "uspace_w8_fc1")
+    return h
+
+
+def _w8_fc2_kernel(h: torch.Tensor, q2: QWeight, b2: torch.Tensor,
+                   res: torch.Tensor) -> torch.Tensor:
+    """The fc2 GEMM of the w8 MLP sub-block alone: ``res + bf16(f32(h .
+    q2^T) * s2 + b2)`` in bf16 for h [R, hidden] bf16 (hidden a multiple of
+    64, the output width of 256). Counted by no op."""
+    r, hidden = h.shape
+    out_dim = q2.q.shape[0]
+    check_tensor("h", h, torch.bfloat16, (r, hidden), h.device)
+    check_tensor("res", res, torch.bfloat16, (r, out_dim), h.device)
+    check_tensor("w2 codes", q2.q, torch.int8, (out_dim, hidden), h.device)
+    b2f = b2.to(torch.float32).contiguous()
+    check_tensor("w2 scales", q2.scale, torch.float32, (out_dim,), h.device)
+    check_tensor("b2", b2f, torch.float32, (out_dim,), h.device)
+    out = torch.empty_like(res)
+    raise_on(load("mlp_w8").uspace_w8_fc2(
+        h.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(), b2f.data_ptr(),
+        res.data_ptr(), out.data_ptr(), r, hidden, out_dim,
+        cuda_stream(h.device)), "uspace_w8_fc2")
     return out
 
 
