@@ -608,6 +608,25 @@ def test_fwd_kernel_tile_edges_and_repeats(cuda, l, d):
     _agree(out, attn.attention_plain(q, k, v, d ** -0.5))
 
 
+@pytest.mark.parametrize("b,h,d,scale", [(50, 8, 32, None), (50, 4, 64, None),
+                                         (50, 8, 32, -0.125)])
+@pytest.mark.parametrize("l", [1, 129, 257, 600])
+def test_fwd_kernel_many_items_a_block(cuda, b, h, l, d, scale):
+    """Kernel 7 with many heads at ragged L, so that each persistent block
+    walks several 128-row items: Q's two slots, and the K / V ring running
+    on across items and heads, within the bf16 forward limits; two calls
+    give the same bits."""
+    scale = d ** -0.5 if scale is None else scale
+    g = torch.Generator(device=cuda).manual_seed(7 * l + d)
+    q, k, v = (_rand(g, b, h, l, d) for _ in range(3))
+    with torch.no_grad():
+        out = attn._fwd_kernel(q, k, v, scale)
+        again = attn._fwd_kernel(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _agree(out, attn.attention_plain(q, k, v, scale))
+
+
 @pytest.mark.parametrize("d", [32, 64])
 @pytest.mark.parametrize("scale", [-0.3, -0.125, 0.0])
 def test_fwd_kernel_takes_any_scale(cuda, scale, d):

@@ -27,11 +27,11 @@ projection, ``qkv_gemm``, the pieces of rows 2 and 3); a base
 ``attention.cu`` from before the projection's workspace arguments is
 called with its own interface, and so is a base ``mlp_w8.cu`` from before
 row 16's workspaces (row 16's pieces, ``w8_ln_rows``, ``w8_fc1`` and
-``w8_fc2``, are timed on the new build alone). ``--define NAME`` builds the
-base with ``-DNAME``: with ``--base`` this checkout's own source, a
-comparison build of it (``attention_fwd.cu``: ``ATTENTION_FWD_EXPF``,
-``ATTENTION_FWD_STREAM``). For ``attention_fwd`` each build is also held to
-the twin at chip_smoke.py's three phase-3 shapes (max-abs, rel-L2).
+``w8_fc2``, are timed on the new build alone). Beside each device time
+stands the host's time a call (``host_us``: the wall time of the timed
+calls, which only enqueue, over their number). For ``attention_fwd`` each
+build is also held to the twin at chip_smoke.py's three phase-3 shapes
+(max-abs, rel-L2).
 ``--tree <checkout>`` instead
 runs ``chip_smoke.py``'s phase 3 (every kernel against its twin, timed at
 its path's shape, with its library yardstick) from another checkout, such
@@ -53,9 +53,6 @@ a CUDA card.
         --base old/attention_block.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source attention_fwd \
         --base old/attention_fwd.cu
-    python -m uspace_tpu_torch.cli.kernel_ab --source attention_fwd \
-        --base uspace_tpu_torch/ops/csrc/attention_fwd.cu \
-        --define ATTENTION_FWD_EXPF
     python -m uspace_tpu_torch.cli.kernel_ab --source fused_attention_bwd \
         --base old/fused_attention_bwd.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source flash_attention \
@@ -72,6 +69,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -100,9 +98,9 @@ def _legacy(lib: ctypes.CDLL) -> bool:
             and not hasattr(lib, "uspace_qkv_gemm"))
 
 
-def _load(source: str, path: str, out: str, defines=()) -> ctypes.CDLL:
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
-                    *(f"-D{d}" for d in defines), "-o", out, path], check=True)
+def _load(source: str, path: str, out: str) -> ctypes.CDLL:
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, path],
+                   check=True)
     lib = ctypes.CDLL(out)
     sigs = dict(_build.SIGNATURES[source])
     if _legacy(lib):
@@ -161,9 +159,6 @@ def main(argv=None) -> None:
     ap.add_argument("--base", help="the other version of <source>.cu")
     ap.add_argument("--tree", help="another checkout: A/B of chip_smoke.py's "
                     "phase 3 instead")
-    ap.add_argument("--define", action="append", default=[],
-                    help="a macro for the base build (-D), e.g. a source's "
-                    "comparison build; repeatable")
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--pairs", type=int, default=3)
     a = ap.parse_args(argv)
@@ -176,8 +171,7 @@ def main(argv=None) -> None:
         ap.error("--base or --tree is required")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {"base": _load(a.source, a.base,
-                          str(_build.BUILD_DIR / f"ab_{a.source}.so"),
-                          a.define),
+                          str(_build.BUILD_DIR / f"ab_{a.source}.so")),
             "new": _build.load(a.source)}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -388,36 +382,62 @@ def main(argv=None) -> None:
              if f"uspace_{k}" in _build.SIGNATURES[a.source]}
 
     def time_ms(call, lib):
+        """Device ms a call (CUDA events) and host us a call (the wall
+        time of the loop, which only enqueues: the card is still busy with
+        its first calls when the last is issued)."""
         for _ in range(3):
             call(lib)
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
+        t0 = time.perf_counter()
         for _ in range(a.iters):
             if call(lib):
                 raise RuntimeError("kernel launch failed")
+        host = time.perf_counter() - t0
         e1.record()
         e1.synchronize()
-        return e0.elapsed_time(e1) / a.iters
+        return e0.elapsed_time(e1) / a.iters, host * 1e6 / a.iters
 
     order = ["base", "new", "new", "base"] * ((a.pairs + 1) // 2)
     for name, call in calls.items():
         sides = (order if hasattr(libs["base"], f"uspace_{name}")
                  else ["new"] * (len(order) // 2))
-        runs = [(side, time_ms(call, libs[side])) for side in sides]
+        runs = [(side, *time_ms(call, libs[side])) for side in sides]
         print(json.dumps({
             "kernel": name, "card": torch.cuda.get_device_name(0),
-            "base_ms": [t for side, t in runs if side == "base"],
-            "new_ms": [t for side, t in runs if side == "new"]}), flush=True)
+            **{f"{b}_{k}": [r[i] for r in runs if r[0] == b]
+               for b in ("base", "new") for i, k in ((1, "ms"), (2, "host_us"))}
+        }), flush=True)
     if a.source == "attention_fwd":
         fwd_agreement(libs, s, time_ms)
+    if a.source in ("attention_fwd", "mlp_w8"):
+        wrapper_host(a.source, time_ms, x.reshape(rows, C), (lns, lnb, 1e-5),
+                     q1, b1, q2, b2, q7, k7, v7)
+
+
+def wrapper_host(source, time_ms, x2d, ln, q1, b1, q2, b2, q, k, v) -> None:
+    """The host's time a call of this checkout's Python wrapper of row 7
+    (``attention_fwd``) or row 16 (``mlp_w8``: ``ln_mlp_w8``) beside its
+    device time, one JSON line."""
+    from ..ops import attention, mlp
+    if source == "attention_fwd":
+        name, fn = "attention_fwd", lambda: attention._fwd_kernel(
+            q, k, v, q.shape[-1] ** -0.5)
+    else:
+        name, fn = "ln_mlp_w8", lambda: mlp._mlp_w8_kernel(
+            x2d, q1, b1, q2, b2, ln)
+    runs = [time_ms(lambda _: fn() is None, None) for _ in range(4)]
+    print(json.dumps({"wrapper": name, "card": torch.cuda.get_device_name(0),
+                      "ms": [r[0] for r in runs],
+                      "host_us": [r[1] for r in runs]}), flush=True)
 
 
 def fwd_agreement(libs, stream, time_ms) -> None:
     """Each build of the [B, H, L, D] kernel against its twin at
-    chip_smoke.py's phase-3 shapes: max-abs, rel-L2 and ms (base, new,
-    new, base), one JSON line a shape."""
+    chip_smoke.py's phase-3 shapes: max-abs, rel-L2, ms and host us a
+    call (base, new, new, base), one JSON line a shape."""
     from ..ops.attention import attention_plain
     g = torch.Generator(device="cuda").manual_seed(1234)
     for b, h, l, d in ((50, 8, 1024, 32), (50, 4, 1024, 64), (50, 8, 600, 32)):
@@ -436,9 +456,12 @@ def fwd_agreement(libs, stream, time_ms) -> None:
                 raise RuntimeError("kernel launch failed")
             err = o.double() - ref
             row[side] = {"max_abs": float(err.abs().max()),
-                         "rel_l2": float(err.norm() / ref.norm()), "ms": []}
+                         "rel_l2": float(err.norm() / ref.norm()), "ms": [],
+                         "host_us": []}
         for side in ("base", "new", "new", "base"):
-            row[side]["ms"].append(time_ms(call, libs[side]))
+            ms, host = time_ms(call, libs[side])
+            row[side]["ms"].append(ms)
+            row[side]["host_us"].append(host)
         print(json.dumps(row), flush=True)
 
 

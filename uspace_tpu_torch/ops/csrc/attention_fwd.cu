@@ -28,13 +28,12 @@
 //   and 240 a thread), which hold 128 f32 scores each. Tiles use the
 //   swizzle whose span is a row (64 bytes at D = 32, 128 at D = 64), which
 //   TMA writes and wgmma reads both K-major (Q K^T) and MN-major (P V).
-// - At D = 32 a head's K and V (L <= 1024: 64 KB each) stay in shared
-//   memory for both passes and for every item of that head the block takes
-//   (8 at L = 1024): the producer loads each 256-key tile once, on a barrier
-//   of its own, and loads the next head's once the consumers free them. At
-//   D = 64 (256 KB) K streams through a ring of slots for pass 1, and K and
-//   V again for pass 2, guarded by full and empty mbarriers; the ring runs
-//   on across items, so the next item's tiles land under this one's work.
+// - K streams through a ring of three slots for pass 1, and K and V again
+//   for pass 2, guarded by full and empty mbarriers; the ring runs on across
+//   items, so the next item's tiles land under this one's work. The tiles
+//   come from L2: a block's run of items is head-major, so the tiles of one
+//   head are read by consecutive items. (Keeping a head's K and V resident
+//   in shared memory at D = 32, where they fit, read no faster on an H100.)
 // - Pass 1: S for a warpgroup's 64 rows and a 256-key tile is one
 //   m64n256k16 chain from shared memory into 128 f32 registers a thread;
 //   each thread takes the max of its raw scores (no exponential in this
@@ -48,9 +47,6 @@
 //   value moves, within ex2.approx's 2 ulp. Each 16-key slice of p, rounded
 //   to bf16, is the register A fragment of O += P V (m64nDk16, V read
 //   MN-major); l sums the f32 p; O is divided by l once at the end.
-//   Compiled with -DATTENTION_FWD_EXPF, pass 2 takes expf(s * scale - m)
-//   instead, and with -DATTENTION_FWD_STREAM, D = 32 streams K and V as D =
-//   64 does (comparison builds for cli/kernel_ab.py --define).
 // - At D = 32 the exponentials bind, and the two warpgroups took them at the
 //   same time and left the tensor cores idle meanwhile (0.284 ms at the
 //   shape above). So there they take turns at the tensor cores on two
@@ -81,35 +77,21 @@ constexpr int WGS = 2;                    // consumer warpgroups a block
 constexpr int QR = 64 * WGS;              // query rows a block
 constexpr int BK = 256;                   // keys a score tile
 constexpr int MAX_L = 1024;               // beyond: _flash_kernel's range
-constexpr int MAX_KB = MAX_L / BK;        // key tiles of a head
 constexpr int THREADS = 128 * (WGS + 1);  // + a producer warpgroup
 // registers a thread: the producer gives its own to the consumers
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-#ifdef ATTENTION_FWD_EXPF
-constexpr bool EX2_FOLD = false;
-#else
-constexpr bool EX2_FOLD = true;
-#endif
-#ifdef ATTENTION_FWD_STREAM
-constexpr bool RESIDENT_D32 = false;
-#else
-constexpr bool RESIDENT_D32 = true;
-#endif
+constexpr int SLOTS = 3;                  // (K, V) slots of the ring
 
 // the shared-memory geometry of a head dim: a tile row is 2D bytes, laid out
-// with the swizzle of that span (128 bytes: mode 1, 64 bytes: mode 2). At
-// D = 32 the head's K and V are resident (RES); at D = 64 a ring of SLOTS
-// (K, V) slots streams them.
+// with the swizzle of that span (128 bytes: mode 1, 64 bytes: mode 2)
 template <int D>
 struct Geo {
   static constexpr int RB = 2 * D;
   static constexpr int QBYTES = QR * RB;
   static constexpr int KBYTES = BK * RB;  // one K or V tile
-  static constexpr bool RES = D == 32 && RESIDENT_D32;
-  static constexpr int SLOTS = RES ? MAX_KB : 3;
   static constexpr uint64_t MODE = D == 64 ? 1 : 2;
   static constexpr uint32_t SBO = 8 * RB;  // 8-row groups
-  static constexpr int SMEM = 2 * QBYTES + SLOTS * 2 * KBYTES + 8 * (2 * SLOTS + 5) + 1024;
+  static constexpr int SMEM = 2 * QBYTES + SLOTS * 2 * KBYTES + 8 * (2 * SLOTS + 4) + 1024;
 };
 
 __device__ inline uint32_t smem_u32(const void* p) {
@@ -361,9 +343,9 @@ __device__ inline void tile_extreme(const float (&s)[128], int key0, int L,
   }
 }
 
-// p of a tile against the row's max m (log2 units with the fold: p = 2^(s c
-// - m); else p = exp(s * scale - m)), its f32 sum into ps, and p rounded to
-// bf16 as the A fragments pa of P V (16 keys a k-step)
+// p = 2^(s c - m) of a tile against the row's max m (log2 units), its f32
+// sum into ps, and p rounded to bf16 as the A fragments pa of P V (16 keys a
+// k-step)
 template <bool MASKED>
 __device__ inline void tile_p(const float (&s)[128], int key0, int L, float c,
                               const float (&m)[2], float (&ps)[2],
@@ -375,10 +357,7 @@ __device__ inline void tile_p(const float (&s)[128], int key0, int L, float c,
     for (int x = 0; x < 8; ++x) {
       const int i = 8 * k + x, r = (x >> 1) & 1;
       const bool live = !MASKED || key0 + 8 * (i >> 2) + (i & 1) < L;
-      if (EX2_FOLD)
-        p[x] = live ? ex2(__fmaf_rn(s[i], c, -m[r])) : 0.f;
-      else
-        p[x] = live ? expf(__fsub_rn(__fmul_rn(s[i], c), m[r])) : 0.f;
+      p[x] = live ? ex2(__fmaf_rn(s[i], c, -m[r])) : 0.f;
       ps[r] = __fadd_rn(ps[r], p[x]);
     }
 #pragma unroll
@@ -394,15 +373,13 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                      bf16* __restrict__ out, int L, int nblk, int items,
                      float scale) {
   typedef Geo<D> G;
-  constexpr int SLOTS = G::SLOTS;
   constexpr bool TURNS = D == 32;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base, kv = base + 2 * G::QBYTES;  // slot s: K, then V
   const uint32_t full = kv + SLOTS * 2 * G::KBYTES, empty = full + 8 * SLOTS,
-                 qfull = empty + 8 * SLOTS, qempty = qfull + 16, kvfree = qempty + 16;
-  // this block's items (query tiles, head-major), a contiguous run: at D =
-  // 32 consecutive tiles of one head reuse its resident K and V
+                 qfull = empty + 8 * SLOTS, qempty = qfull + 16;
+  // this block's items (query tiles, head-major), a contiguous run
   const int i0 = (int)((long long)blockIdx.x * items / gridDim.x);
   const int i1 = (int)((long long)(blockIdx.x + 1) * items / gridDim.x);
   const int nkb = (L + BK - 1) / BK;
@@ -410,55 +387,35 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   if (threadIdx.x == 0) {
     for (int s = 0; s < SLOTS; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, G::RES ? 1 : 128 * WGS);
+      mbar_init(empty + 8 * s, 128 * WGS);
     }
     for (int s = 0; s < 2; ++s) {
       mbar_init(qfull + 8 * s, 1);
       mbar_init(qempty + 8 * s, 128 * WGS);
     }
-    mbar_init(kvfree, 128 * WGS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // Q of item li goes to Q slot li % 2 (qfull / qempty). Resident (D = 32):
-  // key tile kb of a head lives in slot kb; its K arrives on full[kb], its
-  // V on empty[kb] (used as a second full barrier), once per head, and the
-  // consumers free the slots on kvfree after the head's last item.
-  // Streamed (D = 64): each item's K tiles (pass 1), then its K and V tiles
-  // (pass 2), go round the ring of SLOTS slots (full / empty), whose
-  // position runs on across items.
+  // Q of item li goes to Q slot li % 2 (qfull / qempty). Each item's K
+  // tiles (pass 1), then its K and V tiles (pass 2), go round the ring of
+  // SLOTS slots (full / empty), whose position runs on across items.
   if (wg == WGS) {  // producer: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 128 * WGS) {
-      int prev = -1, hn = 0, ring = 0;
+      int ring = 0;
       for (int it = i0; it < i1; ++it) {
         const int li = it - i0, bh = it / nblk, qs = li & 1;
         mbar_wait(qempty + 8 * qs, ((li >> 1) & 1) ^ 1);
         mbar_expect_tx(qfull + 8 * qs, G::QBYTES);
         tma_rows(sq + qs * G::QBYTES, &map_q, (it % nblk) * QR, bh, qfull + 8 * qs);
-        if (G::RES) {
-          if (bh == prev) continue;
-          if (prev >= 0) mbar_wait(kvfree, (hn++) & 1);
-          prev = bh;
-          for (int kb = 0; kb < nkb; ++kb) {
-            mbar_expect_tx(full + 8 * kb, G::KBYTES);
-            tma_rows(kv + kb * 2 * G::KBYTES, &map_k, kb * BK, bh, full + 8 * kb);
-          }
-          for (int kb = 0; kb < nkb; ++kb) {
-            mbar_expect_tx(empty + 8 * kb, G::KBYTES);
-            tma_rows(kv + kb * 2 * G::KBYTES + G::KBYTES, &map_v, kb * BK, bh,
-                     empty + 8 * kb);
-          }
-        } else {
-          for (int i = 0; i < 2 * nkb; ++i, ++ring) {
-            const int s = ring % SLOTS, kb = i < nkb ? i : i - nkb;
-            const uint32_t dst = kv + s * 2 * G::KBYTES;
-            mbar_wait(empty + 8 * s, ((ring / SLOTS) & 1) ^ 1);
-            mbar_expect_tx(full + 8 * s, (i < nkb ? 1 : 2) * G::KBYTES);
-            tma_rows(dst, &map_k, kb * BK, bh, full + 8 * s);
-            if (i >= nkb) tma_rows(dst + G::KBYTES, &map_v, kb * BK, bh, full + 8 * s);
-          }
+        for (int i = 0; i < 2 * nkb; ++i, ++ring) {
+          const int s = ring % SLOTS, kb = i < nkb ? i : i - nkb;
+          const uint32_t dst = kv + s * 2 * G::KBYTES;
+          mbar_wait(empty + 8 * s, ((ring / SLOTS) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * s, (i < nkb ? 1 : 2) * G::KBYTES);
+          tma_rows(dst, &map_k, kb * BK, bh, full + 8 * s);
+          if (i >= nkb) tma_rows(dst + G::KBYTES, &map_v, kb * BK, bh, full + 8 * s);
         }
       }
     }
@@ -468,32 +425,25 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 
   const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  // m in log2 units (c = scale * log2(e)) with the fold, else in s * scale
-  const float c = EX2_FOLD ? __fmul_rn(scale, 1.4426950408889634f) : scale;
-  int prev = -1, hn = -1, ring = 0;
+  // m in log2 units: c = scale * log2(e)
+  const float c = __fmul_rn(scale, 1.4426950408889634f);
+  int ring = 0;
   float s[128];
   if (TURNS && wg == 1) turn_end(wg);  // warpgroup 0 takes the first turn
   for (int it = i0; it < i1; ++it) {
     const int li = it - i0, bh = it / nblk, qs = li & 1;
-    if (bh != prev) ++hn;
-    prev = bh;
     const int ra = (it % nblk) * QR + wg * 64 + warp * 16 + g, rb = ra + 8;  // my rows
     const uint32_t qa = sq + qs * G::QBYTES + wg * 64 * G::RB;
     mbar_wait(qfull + 8 * qs, (li >> 1) & 1);
 
     // the slot of pass p's tile kb, after waiting for it; then its release
     auto acquire = [&](int pass, int kb) -> uint32_t {
-      if (G::RES) {
-        mbar_wait(full + 8 * kb, hn & 1);
-        if (pass) mbar_wait(empty + 8 * kb, hn & 1);
-        return kv + kb * 2 * G::KBYTES;
-      }
       const int r = ring + pass * nkb + kb, st = r % SLOTS;
       mbar_wait(full + 8 * st, (r / SLOTS) & 1);
       return kv + st * 2 * G::KBYTES;
     };
     auto release = [&](int pass, int kb) {
-      if (!G::RES) mbar_arrive(empty + 8 * ((ring + pass * nkb + kb) % SLOTS));
+      mbar_arrive(empty + 8 * ((ring + pass * nkb + kb) % SLOTS));
     };
 
     // pass 1: the raw row extremes over all L keys (at D = 32 a turn a tile)
@@ -574,8 +524,6 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     }
     ring += 2 * nkb;
-    // the head's last item of this block frees the resident K and V
-    if (G::RES && it + 1 < i1 && (it + 1) / nblk != bh) mbar_arrive(kvfree);
     const float l0 = quad_sum(ps[0]), l1 = quad_sum(ps[1]);
 
     bf16* oh = out + (size_t)bh * L * D;
