@@ -569,7 +569,7 @@ def check_kernels(torch, F, attn, mlpk, quant):
     go_l = do_t.view(TRAIN_B, L, H, d).transpose(1, 2)
     cases.append(dict(
         name="packed_attention_bwd",
-        source="uspace_tpu_torch/ops/csrc/attention_bwd.cu",
+        source="uspace_tpu_torch/ops/csrc/fused_attention_bwd.cu",
         replaces="uspace_tpu/ops/attention.py:285 (_packed_bwd_kernel)",
         kernel=lambda: attn.packed_attention_bwd(qkv_t, do_t, H),
         plain=lambda: attn.packed_attention_bwd_plain(qkv_t, do_t, H, scale),
@@ -644,9 +644,57 @@ def check_kernels(torch, F, attn, mlpk, quant):
             f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({bound_by}"
             f", {term})")
         (results if case.get("listed", True) else shapes).append(r)
+    problems += piece_checks(torch, attn, quant, randn)
     if problems:
         fail("; ".join(problems))
     return results, shapes, controls
+
+
+def piece_checks(torch, attn, quant, randn):
+    """Rows 4 and 5 by their pieces and edges: row 5's code pass bit-equal
+    to ``row_codes(ln_lanes(x))`` (codes and row scales) and its int8
+    GEMM's qkv bit-equal to the dequantised int32 product, at B * L rows
+    and at ragged row counts; row 4 at the edges of its 64-row tiles and
+    128-row blocks with 16 heads, within the backward limits, a repeat
+    bit-equal. Returns what disagreed."""
+    from uspace_tpu_torch.ops import delta as dops
+    problems = []
+    f32 = torch.float32
+    lns = 1.0 + randn(C, std=0.1, dtype=f32)
+    lnb = randn(C, std=0.1, dtype=f32)
+    qw = quant.quantized_weight(randn(3 * C, C, std=0.02, dtype=f32).t())
+    for rows in (B * L, 1, 63, 129):
+        x = randn(rows, C)
+        codes, sr = attn._ln_codes_kernel(x, lns, lnb, 1e-5)
+        ref_q, ref_s = quant.row_codes(dops.ln_lanes(x, lns, lnb, 1e-5))
+        qkv = attn._qkv_gemm_int8_kernel(codes, sr, qw)
+        ref = ((quant.int_matmul(codes, qw.kn).float() * sr[:, None])
+               * qw.scale).to(torch.bfloat16)
+        ok = (torch.equal(codes, ref_q) and torch.equal(sr, ref_s.reshape(-1))
+              and torch.equal(qkv, ref))
+        log(f"piece ln_qkvproj_attention_int8, {rows} rows: code pass and "
+            f"int8 GEMM {'bit-equal' if ok else 'DIFFER'}")
+        if not ok:
+            problems.append(f"row 5's pieces differ at {rows} rows")
+    worst, repeats = (0.0, 0.0), True
+    for l in (1, 16, 17, 63, 64, 65, 128, 129, 257, 334, 512):
+        qkv = randn(2, l, 3 * C, std=0.64)
+        do = randn(2, l, C)
+        out = attn.packed_attention_bwd(qkv, do, H)
+        again = attn.packed_attention_bwd(qkv, do, H)
+        max_abs, rel, _ = compare(
+            torch, out, attn.packed_attention_bwd_plain(qkv, do, H, 0.125))
+        same = torch.equal(out, again)
+        worst = (max(worst[0], max_abs), max(worst[1], rel))
+        repeats = repeats and same
+        if not same or max_abs > BWD_MAX_ABS or rel > BWD_REL_L2:
+            problems.append(f"packed_attention_bwd at L={l}: max_abs "
+                            f"{max_abs:.3e} rel_l2 {rel:.3e}, repeat "
+                            f"{'equal' if same else 'differs'}")
+    log(f"piece packed_attention_bwd at 11 tile edges, B=2 H={H}: worst "
+        f"max_abs {worst[0]:.3e} rel_l2 {worst[1]:.3e}, repeats "
+        f"{'bit-equal' if repeats else 'DIFFER'}")
+    return problems
 
 
 def attn_control(attn, quant, x, qw, w, heads, scale, change, ln=None):

@@ -293,13 +293,16 @@ def test_fused_vjp_is_not_autograd_of_the_forward_twin():
 
 
 def _two_pass_bwd(q, k, v, do, scale, tile=64):
-    """A mirror of the [B, H, L, D] backward kernel's pass structure (row 8):
-    pass 1 over 64-key tiles keeps a running max m with l = sum exp(s - m)
-    and u = sum exp(s - m) dP, both rescaled by exp(m_old - m_new) when m
-    grows, and delta = u / l; pass 2 recomputes S and dP per tile, forms
-    p = exp(s - m) / l and dS = bf16(p (dP - delta)) and accumulates dQ;
-    dK and dV take p and dS from the same m, l and delta. Only f32 sums are
-    reordered against the twin; every bf16 rounding sits where it does."""
+    """A mirror of the backward kernels' pass structure (rows 4 and 8, one
+    body on two layouts): pass 1 over 64-key tiles keeps a running max m
+    with l = sum exp(s - m) and u = sum exp(s - m) dP, both rescaled by
+    exp(m_old - m_new) when m grows, and delta = u / l; pass 2 recomputes S
+    and dP per tile, forms p = exp(s - m) / l and dS = bf16(p (dP - delta))
+    and accumulates dQ; dK and dV take p and dS from the same m, l and
+    delta. A last tile of at most 16 keys is the kernels' 16-key chunk: the
+    slice ends at L either way, as the chunk's masked keys add nothing. Only
+    f32 sums are reordered against the twin; every bf16 rounding sits where
+    it does."""
     qf, kf, vf, g = (t.float() for t in (q, k, v, do))
     n = q.shape[2]
     m = torch.full(q.shape[:3] + (1,), -0.7 * torch.finfo(torch.float32).max)
@@ -332,28 +335,62 @@ def _two_pass_bwd(q, k, v, do, scale, tile=64):
     return tuple(t.to(q.dtype) for t in (dq * scale, dk, dv))
 
 
-@pytest.mark.parametrize("d", [32, 64])
-@pytest.mark.parametrize("l", [64, 130, 600])
+def _packed_two_pass_bwd(qkv, do, heads):
+    """:func:`_two_pass_bwd` on the packed layout (row 4): qkv [B, L, 3HD]
+    and do [B, L, HD] viewed per head, dqkv repacked as the kernel stores
+    it."""
+    b, l, c3 = qkv.shape
+    d = c3 // (3 * heads)
+    q, k, v = qkv.reshape(b, l, 3, heads, d).permute(2, 0, 3, 1, 4)
+    g = do.reshape(b, l, heads, d).transpose(1, 2)
+    dqkv = torch.stack(_two_pass_bwd(q, k, v, g, d ** -0.5))
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(b, l, c3)
+
+
+# row 8 ([B, H, L, D]) at three lengths and both head dims; row 4 (packed,
+# D = 64) at a ragged L and at the U-ViT's 257 (a 16-key last chunk)
+TWO_PASS_CASES = ([("bhld", l, d) for l in (64, 130, 600) for d in (32, 64)]
+                  + [("packed", l, 64) for l in (17, 257)])
+
+
+@pytest.mark.parametrize("layout,l,d", TWO_PASS_CASES)
 @pytest.mark.parametrize("dt", list(DTYPES))
-def test_two_pass_backward_keeps_the_rounding_sites(dt, l, d):
-    """Row 8's pass merge (a running max with l and u rescaled, delta =
-    u / l) against jax.vjp of multi_head_attention(impl="pallas"), whose
-    custom VJP runs _bwd_kernel in interpret mode, and against the twin
-    attention_bwd_plain: f32 within 1e-5; bf16 within one bf16 step of
-    each output's largest value (test_fused_vjp_matches_jax's rule)."""
+def test_two_pass_backward_keeps_the_rounding_sites(dt, layout, l, d):
+    """The backward kernels' pass merge (a running max with l and u
+    rescaled, delta = u / l) against jax.vjp of the JAX function whose
+    custom VJP runs the TPU kernel in interpret mode (row 8:
+    multi_head_attention(impl="pallas"), _bwd_kernel; row 4:
+    fused_qkv_attention, _packed_bwd_kernel, H = 2), and against the twin
+    (attention_bwd_plain, packed_attention_bwd_plain): f32 within 1e-5;
+    bf16 within one bf16 step of each output's largest value
+    (test_fused_vjp_matches_jax's rule)."""
     jd, td, tol = DTYPES[dt]
     r = np.random.default_rng(l + 3 * d)
-    q, k, v, g = (r.standard_normal((1, 2, l, d)).astype(np.float32)
-                  for _ in range(4))
-    _, vjp = jax.vjp(
-        lambda q, k, v: jattn.multi_head_attention(q, k, v, impl="pallas"),
-        *(jnp.asarray(a, jd) for a in (q, k, v)))
-    refs = vjp(jnp.asarray(g, jd))
-    ts = [torch.from_numpy(a).to(td) for a in (q, k, v, g)]
-    mine = _two_pass_bwd(*ts, d ** -0.5)
-    twin = tattn.attention_bwd_plain(*ts, d ** -0.5)
+    if layout == "packed":
+        heads = 2
+        qkv, g = (r.standard_normal((2, l, n * heads * d)).astype(np.float32)
+                  for n in (3, 1))
+        _, vjp = jax.vjp(
+            lambda t: jattn.fused_qkv_attention(t, heads, interpret=True),
+            jnp.asarray(qkv, jd))
+        refs = vjp(jnp.asarray(g, jd))
+        ts = [torch.from_numpy(a).to(td) for a in (qkv, g)]
+        mine = (_packed_two_pass_bwd(*ts, heads),)
+        twin = (tattn.packed_attention_bwd_plain(*ts, heads, d ** -0.5),)
+        shape = qkv.shape
+    else:
+        q, k, v, g = (r.standard_normal((1, 2, l, d)).astype(np.float32)
+                      for _ in range(4))
+        _, vjp = jax.vjp(
+            lambda q, k, v: jattn.multi_head_attention(q, k, v, impl="pallas"),
+            *(jnp.asarray(a, jd) for a in (q, k, v)))
+        refs = vjp(jnp.asarray(g, jd))
+        ts = [torch.from_numpy(a).to(td) for a in (q, k, v, g)]
+        mine = _two_pass_bwd(*ts, d ** -0.5)
+        twin = tattn.attention_bwd_plain(*ts, d ** -0.5)
+        shape = (1, 2, l, d)
     for out, ref, plain in zip(mine, refs, twin):
-        assert out.dtype == td and out.shape == (1, 2, l, d)
+        assert out.dtype == td and out.shape == shape
         for other in (ref, plain):
             top = float(np.abs(_np(other)).max())
             _close(out, other, tol if dt == "f32"
@@ -532,8 +569,8 @@ def test_kernel_input_checks():
 def test_ctypes_signatures_match_c_source():
     """Each declared argtypes list has one entry per C parameter, pointers
     as c_void_p (a 32-bit default would cut a pointer)."""
-    assert set(_build.SIGNATURES) == {"attention", "attention_bwd",
-                                      "attention_fwd", "fused_attention_bwd",
+    assert set(_build.SIGNATURES) == {"attention", "attention_fwd",
+                                      "fused_attention_bwd",
                                       "mlp_int8", "mlp_w8", "attention_block",
                                       "mlp_bf16", "delta_attention",
                                       "delta_mlp", "flash_attention"}

@@ -13,7 +13,11 @@ int8 rel-L2 limits of chip_smoke.py, taken for the MLP sub-block on out - x
 MLP kernels are held the same way, at chip_smoke.py's w8 limit; the
 pieces of the w8 sub-block (row 16) alone: its LN pass bit-equal to the
 bf16-chain twin in the kernel's lane order, its fc1 and fc2 GEMMs within one
-bf16 step (plus f32 reordering) of the f32 product. The
+bf16 step (plus f32 reordering) of the f32 product. The pieces of the
+int8 LN + QKV-projection route (row 5) alone: its code pass bit-equal to
+``row_codes(ln_lanes(x))`` (codes and row scales), its int8 GEMM's qkv
+workspace bit-equal to the dequantised int32 product. The packed backward
+(row 4) at the edges of its tiles, repeats bit-equal. The
 [B, H, L, D] kernel (kernel 7) and the blocked online-softmax kernel
 (kernel 9) take the bf16 forward limits. The bf16
 attention sub-block and the bf16 MLP kernels (rows 10, 12, 13) take the
@@ -133,6 +137,26 @@ def test_backward_kernel_matches_twin(cuda, b, l, h):
            BWD_MAX_ABS, BWD_REL_L2)
 
 
+@pytest.mark.parametrize("l", [1, 16, 17, 63, 64, 65, 128, 129, 257, 334,
+                               512])
+def test_backward_kernel_tile_edges_and_repeats(cuda, l):
+    """Row 4 at the edges of its 64-row tiles and 128-row blocks (a last
+    tile of at most 16 rows is a 16-row chunk; a warpgroup whose rows all
+    lie past L leaves) with 16 heads and B = 3, so that a tensor-map box
+    near row L of one batch element must not read the next one's rows:
+    dqkv within the backward limits, two calls bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(7 * l)
+    b, h = 3, 16
+    qkv = _rand(g, b, l, 3 * 64 * h, std=0.64)
+    do = _rand(g, b, l, 64 * h)
+    out = attn.packed_attention_bwd(qkv, do, h)
+    again = attn.packed_attention_bwd(qkv, do, h)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _agree(out, attn.packed_attention_bwd_plain(qkv, do, h, 0.125),
+           BWD_MAX_ABS, BWD_REL_L2)
+
+
 def test_backward_kernel_refuses(cuda):
     qkv = torch.zeros(1, 8, 384, dtype=torch.bfloat16, device=cuda)
     do = torch.zeros(1, 8, 128, dtype=torch.bfloat16, device=cuda)
@@ -198,6 +222,50 @@ def test_qkv_gemm_kernel_matches_f32_product(cuda, m, n, k):
     attn.raise_on(lib.uspace_qkv_gemm(
         a.data_ptr(), w.data_ptr(), guard.data_ptr(), m, n, k,
         attn.cuda_stream(a.device)), "uspace_qkv_gemm")
+    assert torch.equal(guard[:m], out)
+    assert bool((guard[m] == 7.0).all())
+
+
+@pytest.mark.parametrize("rows,c", [(50 * 257, 1024), (1, 1024),
+                                    (63, 1024), (129, 2048), (7, 128)])
+def test_ln_codes_kernel_is_bit_exact(cuda, rows, c):
+    """Row 5's code pass equals ``row_codes`` of the f32 LN rows with the
+    kernel's sum order (``delta.ln_lanes``) bit for bit, codes and row
+    scales."""
+    g = torch.Generator(device=cuda).manual_seed(rows + c + 1)
+    x = (_rand(g, rows, c).float() * 3 + 0.5).to(torch.bfloat16)
+    lns = 1 + _rand(g, c, std=0.1, dtype=torch.float32)
+    lnb = _rand(g, c, std=0.1, dtype=torch.float32)
+    codes, sr = attn._ln_codes_kernel(x, lns, lnb, 1e-5)
+    ref_q, ref_s = quant.row_codes(delta.ln_lanes(x, lns, lnb, 1e-5))
+    assert torch.equal(codes, ref_q)
+    assert torch.equal(sr, ref_s.reshape(-1))
+
+
+@pytest.mark.parametrize("m,n,k", [(50 * 257, 3072, 1024), (1, 3072, 1024),
+                                   (63, 3072, 1024), (129, 3072, 1024),
+                                   (385, 384, 128), (5, 192, 64)])
+def test_qkv_gemm_int8_kernel_is_bit_exact(cuda, m, n, k):
+    """Row 5's int8 wgmma projection: int32 sums are exact, so its qkv
+    equals the dequantised product ``bf16((f32(acc) * sr) * ws)`` bit for
+    bit; rows past a 128-row tile and columns past a 256-column tile are
+    neither read nor written; two calls give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(m + n + k + 1)
+    codes = torch.randint(-127, 128, (m, k), generator=g, device=cuda,
+                          dtype=torch.int8)
+    sr = torch.rand(m, generator=g, device=cuda) * 0.05 + 1e-3
+    qw = quant.quantized_weight(_rand(g, k, n, std=k ** -0.5,
+                                      dtype=torch.float32))
+    out = attn._qkv_gemm_int8_kernel(codes, sr, qw)
+    exact = torch.matmul(codes.double(), qw.kn.double()).to(torch.int32)
+    ref = ((exact.float() * sr[:, None]) * qw.scale).to(torch.bfloat16)
+    assert torch.equal(out, ref)
+    assert torch.equal(out, attn._qkv_gemm_int8_kernel(codes, sr, qw))
+    guard = torch.full((m + 1, n), 7.0, dtype=torch.bfloat16, device=cuda)
+    attn.raise_on(attn.load("attention").uspace_qkv_gemm_int8(
+        codes.data_ptr(), sr.data_ptr(), qw.q.data_ptr(), qw.scale.data_ptr(),
+        guard.data_ptr(), m, n, k, attn.cuda_stream(cuda)),
+        "uspace_qkv_gemm_int8")
     assert torch.equal(guard[:m], out)
     assert bool((guard[m] == 7.0).all())
 

@@ -4,8 +4,8 @@ version of that source.
 Builds ``--base`` (a ``<source>.cu`` with the same C interface, e.g. from
 ``git archive`` of the parent commit) beside this checkout's
 ``ops/csrc/<source>.cu`` and times each of its kernels at its path's shapes
-(``attention``: the bf16 and int8 sampling kernels at B=50;
-``attention_bwd``: the backward at B=128; L=257, C=1024, H=16, bf16;
+(``attention``: the bf16 and int8 sampling kernels at B=50, L=257,
+C=1024, H=16, bf16;
 ``mlp_int8``, ``mlp_w8`` and ``mlp_bf16``: the W8A8, weight-only int8 and
 bf16 MLP kernels on the 12850 rows of B=50, hidden 4096;
 ``attention_block``: the attention sub-block's own passes at B=50 (the
@@ -13,7 +13,8 @@ bf16-chain LN, the attention output's row codes, the bf16 and the int8
 projection with bias and residual); ``attention_fwd``: the [B, H, L, D]
 kernel at the SD-UNet-large shape, B=50, H=8, L=1024, D=32;
 ``fused_attention_bwd``: its backward at the SD-UNet-large training shape,
-B=128, H=8, L=1024, D=32; ``flash_attention``: the blocked online-softmax
+B=128, H=8, L=1024, D=32, and the packed backward at the U-ViT-large
+training shape, B=128, L=257, C=1024, H=16; ``flash_attention``: the blocked online-softmax
 kernel at the 512-px SD-UNet-large's top level, B=50, H=8, L=4096, D=32;
 ``delta_attention``: the stage-delta attention
 halves' own passes at B=50 (the LN codes of the padded base rows and of a
@@ -23,15 +24,25 @@ the three hidden modes on 12850 rows, hidden 4096)
 with CUDA events, the two builds alternating base, new, new, base, ... on
 one card. An entry point that the base source lacks is timed on the new
 build alone (``attention``: the LN pass, ``ln_rows``, and the wgmma
-projection, ``qkv_gemm``, the pieces of rows 2 and 3); a base
-``attention.cu`` from before the projection's workspace arguments is
-called with its own interface, and so is a base ``mlp_w8.cu`` from before
-row 16's workspaces (row 16's pieces, ``w8_ln_rows``, ``w8_fc1`` and
-``w8_fc2``, are timed on the new build alone). Beside each device time
-stands the host's time a call (``host_us``: the wall time of the timed
-calls, which only enqueue, over their number). For ``attention_fwd`` each
-build is also held to the twin at chip_smoke.py's three phase-3 shapes
-(max-abs, rel-L2).
+projection, ``qkv_gemm``, the pieces of rows 2 and 3; the code pass,
+``ln_row_codes``, and the int8 wgmma projection, ``qkv_gemm_int8``, the
+pieces of row 5 before its core); a base ``attention.cu`` from before the
+projection's workspace arguments, or from before row 5's, is called with
+its own interface, and so is a base ``mlp_w8.cu`` from before row 16's
+workspaces (row 16's pieces, ``w8_ln_rows``, ``w8_fc1`` and ``w8_fc2``,
+are timed on the new build alone). A row 4 or row 8 entry point of a base
+``attention_bwd.cu`` or ``fused_attention_bwd.cu`` is timed against this
+checkout's ``fused_attention_bwd.cu``. For ``attention`` the int8 and bf16
+projections of this checkout are also timed over K = 256 .. 2048 beside
+``torch._int_mm``. Beside each device time stands the
+host's time a call (``host_us``: the wall time of the timed calls, which
+only enqueue, over their number). The two kernels of each backward entry
+point are also timed apart (torch.profiler's device time by kernel name,
+each build). For ``attention_fwd`` each build is also held to the twin at
+chip_smoke.py's three phase-3 shapes (max-abs, rel-L2). For
+``attention``, ``attention_fwd``, ``fused_attention_bwd`` and ``mlp_w8``
+the host time a call of this checkout's Python wrapper of the redesigned
+rows (5, 7, 4 and 16) is printed beside its device time.
 ``--tree <checkout>`` instead
 runs ``chip_smoke.py``'s phase 3 (every kernel against its twin, timed at
 its path's shape, with its library yardstick) from another checkout, such
@@ -41,7 +52,7 @@ kernels from another (rows 10, 18 and 19 run row 1 or 2's kernels). Needs
 a CUDA card.
 
     python -m uspace_tpu_torch.cli.kernel_ab --base old/attention.cu
-    python -m uspace_tpu_torch.cli.kernel_ab --source attention_bwd \
+    python -m uspace_tpu_torch.cli.kernel_ab --source fused_attention_bwd \
         --base old/attention_bwd.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source mlp_int8 \
         --base old/mlp_int8.cu
@@ -81,21 +92,30 @@ B, L, C, H = 50, 257, 1024, 16
 TRAIN_B = 128
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # attention.cu before its bf16 projection routes took workspaces, and
-# mlp_w8.cu before its LN2 + residual route did
+# before its int8 LN route did; mlp_w8.cu before its LN2 + residual route
+# did
 _LEGACY_ATTENTION = {
     "uspace_qkvproj_attention": (_P, _P, _P, _I, _I, _I, _F, _P),
     "uspace_ln_qkvproj_attention": (_P,) * 5 + (_I, _I, _I, _F, _F, _P),
 }
+_LEGACY_INT8 = {"uspace_ln_qkvproj_attention_int8": (_P,) * 6 + (
+    _I, _I, _I, _F, _F, _P)}
 _LEGACY_W8 = {"uspace_ln_mlp_w8": (_P,) * 10 + (_I,) * 4 + (_F, _P)}
 
 
 def _legacy(lib: ctypes.CDLL) -> bool:
-    """An attention.cu whose projection routes take no workspace, or an
-    mlp_w8.cu whose LN2 + residual route takes none."""
+    """An attention.cu whose bf16 projection routes take no workspace, or
+    an mlp_w8.cu whose LN2 + residual route takes none."""
     if hasattr(lib, "uspace_ln_mlp_w8"):
         return not hasattr(lib, "uspace_w8_fc1")
     return (hasattr(lib, "uspace_qkvproj_attention")
             and not hasattr(lib, "uspace_qkv_gemm"))
+
+
+def _legacy_int8(lib: ctypes.CDLL) -> bool:
+    """An attention.cu whose int8 LN route takes no workspace."""
+    return (hasattr(lib, "uspace_ln_qkvproj_attention_int8")
+            and not hasattr(lib, "uspace_qkv_gemm_int8"))
 
 
 def _load(source: str, path: str, out: str) -> ctypes.CDLL:
@@ -106,6 +126,8 @@ def _load(source: str, path: str, out: str) -> ctypes.CDLL:
     if _legacy(lib):
         sigs.update({"attention": _LEGACY_ATTENTION,
                      "mlp_w8": _LEGACY_W8}.get(source, {}))
+    if _legacy_int8(lib):
+        sigs.update(_LEGACY_INT8)
     for fn, argtypes in sigs.items():
         if not hasattr(lib, fn):
             continue
@@ -188,7 +210,7 @@ def main(argv=None) -> None:
              * 0.64).to(bf)
     do_t = torch.randn(TRAIN_B, L, C, generator=g, device=dev).to(bf)
     dqkv = torch.empty_like(qkv_t)
-    stats = torch.empty(TRAIN_B * H * 3 * L, device=dev)
+    stats = torch.empty(TRAIN_B * H * 3 * (-(-L // 64) * 64), device=dev)
     q = quantized_weight(
         (torch.randn(3 * C, C, generator=g, device=dev) * 0.02).t())
     rows, hid = B * L, 4 * C
@@ -273,7 +295,17 @@ def main(argv=None) -> None:
         "ln_qkvproj_attention_int8":
             lambda lib: lib.uspace_ln_qkvproj_attention_int8(
                 x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), q.q.data_ptr(),
-                q.scale.data_ptr(), out.data_ptr(), B, L, H, 0.125, 1e-5, s),
+                q.scale.data_ptr(),
+                *(() if _legacy_int8(lib) else (
+                    codes.data_ptr(), sr.data_ptr(), qkv_ws.data_ptr())),
+                out.data_ptr(), B, L, H, 0.125, 1e-5, s),
+        # row 5's pieces before its core (row 1's kernel, "packed_attention")
+        "ln_row_codes": lambda lib: lib.uspace_ln_row_codes(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), codes.data_ptr(),
+            sr.data_ptr(), rows, C, 1e-5, s),
+        "qkv_gemm_int8": lambda lib: lib.uspace_qkv_gemm_int8(
+            codes.data_ptr(), sr.data_ptr(), q.q.data_ptr(),
+            q.scale.data_ptr(), qkv_ws.data_ptr(), rows, 3 * C, C, s),
         "mlp_int8": lambda lib: lib.uspace_mlp_int8(x.data_ptr(), *mw, s),
         "ln_mlp_int8": lambda lib: lib.uspace_ln_mlp_int8(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *mw, 1e-5, s),
@@ -410,24 +442,83 @@ def main(argv=None) -> None:
             **{f"{b}_{k}": [r[i] for r in runs if r[0] == b]
                for b in ("base", "new") for i, k in ((1, "ms"), (2, "host_us"))}
         }), flush=True)
+    if a.source == "attention":
+        gemm_k_sweep(libs["new"], s, time_ms)
     if a.source == "attention_fwd":
         fwd_agreement(libs, s, time_ms)
-    if a.source in ("attention_fwd", "mlp_w8"):
-        wrapper_host(a.source, time_ms, x.reshape(rows, C), (lns, lnb, 1e-5),
-                     q1, b1, q2, b2, q7, k7, v7)
-
-
-def wrapper_host(source, time_ms, x2d, ln, q1, b1, q2, b2, q, k, v) -> None:
-    """The host's time a call of this checkout's Python wrapper of row 7
-    (``attention_fwd``) or row 16 (``mlp_w8``: ``ln_mlp_w8``) beside its
-    device time, one JSON line."""
+    if a.source == "fused_attention_bwd":
+        for name, call in calls.items():
+            kernel_split(name, call, {k: lib for k, lib in libs.items()
+                                      if hasattr(lib, f"uspace_{name}")},
+                         a.iters)
     from ..ops import attention, mlp
-    if source == "attention_fwd":
-        name, fn = "attention_fwd", lambda: attention._fwd_kernel(
-            q, k, v, q.shape[-1] ** -0.5)
-    else:
-        name, fn = "ln_mlp_w8", lambda: mlp._mlp_w8_kernel(
-            x2d, q1, b1, q2, b2, ln)
+    wrappers = {
+        "attention": ("ln_qkvproj_attention_int8", lambda: attention._int8_kernel(
+            x, q, H, 0.125, (lns, lnb, 1e-5))),
+        "attention_fwd": ("attention_fwd", lambda: attention._fwd_kernel(
+            q7, k7, v7, 32 ** -0.5)),
+        "fused_attention_bwd": ("packed_attention_bwd",
+                                lambda: attention._packed_bwd_kernel(
+                                    qkv_t, do_t, H, 0.125)),
+        "mlp_w8": ("ln_mlp_w8", lambda: mlp._mlp_w8_kernel(
+            x.reshape(rows, C), q1, b1, q2, b2, (lns, lnb, 1e-5))),
+    }
+    if a.source in wrappers:
+        wrapper_host(*wrappers[a.source], time_ms)
+
+
+def gemm_k_sweep(lib, stream, time_ms) -> None:
+    """This checkout's int8 and bf16 wgmma projections at M = B*L, N = 3C
+    over K = 256 .. 2048 (how much of a call K does not move), with
+    torch._int_mm (int32 out) beside them, one JSON line a K."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    m, n = B * L, 3 * C
+    for k in (256, 512, 1024, 2048):
+        a8, w8 = (torch.randint(-127, 128, (r, k), generator=g, device="cuda",
+                                dtype=torch.int8) for r in (m, n))
+        ab, wb = (torch.randn(r, k, generator=g, device="cuda").bfloat16()
+                  for r in (m, n))
+        sr = torch.rand(m, generator=g, device="cuda")
+        ws = torch.rand(n, generator=g, device="cuda")
+        out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+        row = {"k_sweep": k, "card": torch.cuda.get_device_name(0)}
+        row["qkv_gemm_int8_ms"] = time_ms(lambda lb: lb.uspace_qkv_gemm_int8(
+            a8.data_ptr(), sr.data_ptr(), w8.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), m, n, k, stream), lib)[0]
+        row["qkv_gemm_ms"] = time_ms(lambda lb: lb.uspace_qkv_gemm(
+            ab.data_ptr(), wb.data_ptr(), out.data_ptr(), m, n, k, stream),
+            lib)[0]
+        row["int_mm_ms"] = time_ms(
+            lambda _: torch._int_mm(a8, w8.t()) is None, None)[0]
+        print(json.dumps(row), flush=True)
+
+
+def kernel_split(name, call, libs, iters) -> None:
+    """Device ms a call of each kernel that the entry point ``name``
+    launches, each build (torch.profiler over ``iters`` calls after a
+    warm-up), one JSON line."""
+    row = {"kernels_of": name, "card": torch.cuda.get_device_name(0)}
+    for side, lib in libs.items():
+        for _ in range(3):
+            call(lib)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                call(lib)
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                key = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+                split[key] = split.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+        row[side] = split
+    print(json.dumps(row), flush=True)
+
+
+def wrapper_host(name, fn, time_ms) -> None:
+    """The host's time a call of this checkout's Python wrapper ``fn``
+    beside its device time, one JSON line."""
     runs = [time_ms(lambda _: fn() is None, None) for _ in range(4)]
     print(json.dumps({"wrapper": name, "card": torch.cuda.get_device_name(0),
                       "ms": [r[0] for r in runs],

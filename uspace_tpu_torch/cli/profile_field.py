@@ -70,22 +70,25 @@ GROUPS = (
     ("stage-delta attention passes (ours: LN codes, int8 GEMM, re-code)", (
         "row_codes_kernel<", "int8_gemm_kernel", "recode_kernel")),
     *_DELTA_MLP,
-    ("[B, H, L, D] attention backward kernel (ours)", (
+    # rows 4 and 8 share one body, templated on the layout
+    ("packed attention backward (ours: row 4)", (
+        "fused_bwd_dq_kernel<64, true", "fused_bwd_dkdv_kernel<64, true")),
+    ("[B, H, L, D] attention backward kernel (ours: row 8)", (
         "fused_bwd_dq_kernel", "fused_bwd_dkdv_kernel")),
-    ("attention backward kernels (ours)", ("bwd_dq_kernel",
-                                           "bwd_dkdv_kernel")),
     ("attention sub-block passes (ours: LN, row codes, projection)", (
         "ln_bf16_kernel", "row_codes_kernel", "proj_residual_kernel")),
     ("blocked attention kernel (ours: row 9)", ("flash_attention_kernel",)),
     ("attention LN pass (ours: row 3)", ("ln_rows_kernel",)),
+    ("int8 attention LN code pass (ours: row 5)", ("ln_codes_kernel",)),
     # before "matmul (cuBLAS)": their names contain "gemm"
-    ("QKV projection on wgmma (ours: rows 2-3)", ("qkv_gemm_kernel",)),
+    ("QKV projection on wgmma (ours: rows 2-3)", ("qkv_gemm_kernel<false",)),
+    ("int8 QKV projection on wgmma (ours: row 5)", ("qkv_gemm_kernel<true",)),
     ("w8 MLP sub-block, LN pass (ours: row 16)", ("w8_ln_kernel",)),
     ("w8 MLP sub-block, fc1 on wgmma (ours: row 16)", ("w8_gemm_kernel<0",)),
     ("w8 MLP sub-block, fc2 on wgmma (ours: row 16)", ("w8_gemm_kernel<1",)),
-    ("attention core (ours: rows 1-3)", ("packed_core_kernel",)),
+    ("attention core (ours: rows 1-3, 5)", ("packed_core_kernel",)),
     ("[B, H, L, D] attention kernel (ours)", ("attention_fwd_kernel",)),
-    ("int8 attention kernel (ours)", ("attention_int8_kernel",)),
+    ("int8 attention kernel (ours: rows 6, 11)", ("attention_int8_kernel",)),
     ("int8 MLP kernel (ours)", ("mlp_int8_kernel",)),
     ("w8 MLP kernel (ours: row 17)", ("mlp_w8_kernel",)),
     ("bf16 MLP kernel (ours)", ("mlp_bf16_kernel",)),

@@ -36,13 +36,15 @@ _F = ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "attention": {
         "uspace_ln_rows": (_P, _P, _P, _P, _I, _I, _F, _P),
+        "uspace_ln_row_codes": (_P,) * 5 + (_I, _I, _F, _P),
         "uspace_qkv_gemm": (_P, _P, _P, _I, _I, _I, _P),
+        "uspace_qkv_gemm_int8": (_P,) * 5 + (_I, _I, _I, _P),
         "uspace_packed_attention": (_P, _P, _I, _I, _I, _F, _P),
         "uspace_qkvproj_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
         "uspace_ln_qkvproj_attention": (_P,) * 7 + (_I, _I, _I, _F, _F, _P),
         "uspace_qkvproj_attention_int8": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-        "uspace_ln_qkvproj_attention_int8": (_P, _P, _P, _P, _P, _P, _I, _I,
-                                             _I, _F, _F, _P),
+        "uspace_ln_qkvproj_attention_int8": (_P,) * 9 + (_I, _I, _I, _F, _F,
+                                                         _P),
     },
     "attention_block": {
         "uspace_ln_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
@@ -67,9 +69,6 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_delta_mlp_exact": (_P,) * 12 + (_I,) * 4 + (_F, _P),
         "uspace_delta_mlp_g": (_P,) * 15 + (_I,) * 4 + (_F, _P),
     },
-    "attention_bwd": {
-        "uspace_packed_attention_bwd": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-    },
     "attention_fwd": {
         "uspace_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
@@ -78,6 +77,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "fused_attention_bwd": {
         "uspace_fused_attention_bwd": (_P,) * 8 + (_I,) * 4 + (_F, _P),
+        "uspace_packed_attention_bwd": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     },
     "mlp_int8": {
         "uspace_mlp_int8": (_P,) * 9 + (_I,) * 5 + (_P,),

@@ -16,12 +16,17 @@ The bf16 projection routes are three launches on one stream, counted as
 one call of their op: the LN rows once per row (:func:`ln_rows_plain` is
 their twin), the projection of all heads on wgmma into a [B, L, 3C] qkv
 workspace (W cast to x's dtype, f32 sums rounded once), and the packed
-core on it. The int8 routes keep their projection and core in one kernel.
+core on it. The int8 LN route is the same sequence with int8 products: the
+f32 LN rows coded once per row into an int8 [B*L, C] workspace with their
+f32 row scales, the int8 projection of all heads on wgmma into the bf16 qkv
+workspace, the packed core. The LN-free int8 kernel keeps its projection
+and core in one kernel.
 
 The bf16 packed and QKV-projection kernels are differentiable, as in the
 JAX package: their backward runs :func:`packed_attention_bwd`
-(``csrc/attention_bwd.cu``, TPU kernel ``_packed_bwd_kernel``), which
-recomputes P from the saved qkv. The LN kernel and both int8 kernels are
+(``csrc/fused_attention_bwd.cu``, TPU kernel ``_packed_bwd_kernel``: the
+[B, H, L, D] backward's kernels on the packed layout), which recomputes P
+from the saved qkv. The LN kernel and both int8 kernels are
 inference-only.
 
 The int8 kernels take the f32 weight and quantize it once through
@@ -352,16 +357,21 @@ def _packed_kernel(qkv: torch.Tensor, num_heads: int,
     return out
 
 
+def _bwd_stats(b: int, h: int, l: int, device: torch.device) -> torch.Tensor:
+    """The backward kernels' scratch: per-row max, sum and delta of every
+    64-row tile, passed from the dQ kernel to the dK/dV one."""
+    lp = -(-l // 64) * 64
+    return torch.empty((b * h * 3 * lp,), dtype=torch.float32, device=device)
+
+
 def _packed_bwd_kernel(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
                        scale: float) -> torch.Tensor:
     b, l, c3 = qkv.shape
     _check_x("qkv", qkv, num_heads, 3)
     check_tensor("do", do, qkv.dtype, (b, l, c3 // 3), qkv.device)
     dqkv = torch.empty_like(qkv)
-    # per-row max, sum and delta, passed from the dQ kernel to the dK/dV one
-    stats = torch.empty((b * num_heads * 3 * l,), dtype=torch.float32,
-                        device=qkv.device)
-    rc = load("attention_bwd").uspace_packed_attention_bwd(
+    stats = _bwd_stats(b, num_heads, l, qkv.device)
+    rc = load("fused_attention_bwd").uspace_packed_attention_bwd(
         qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, l,
         num_heads, scale, cuda_stream(qkv.device))
     raise_on(rc, "uspace_packed_attention_bwd")
@@ -454,13 +464,53 @@ def _ln_qkvproj_kernel(x, ln_scale, ln_bias, w_qkv, num_heads, scale, eps):
     return out
 
 
+def _check_qweight(qw: QWeight, n: int, k: int, device: torch.device) -> None:
+    check_tensor("w_qkv codes", qw.q, torch.int8, (n, k), device)
+    check_tensor("w_qkv scales", qw.scale, torch.float32, (n,), device)
+
+
+def _ln_codes_kernel(x: torch.Tensor, ln_scale: torch.Tensor,
+                     ln_bias: torch.Tensor, eps: float):
+    """The code pass of the int8 LN + QKV-projection route alone, on rows
+    x [..., C] bf16 (C <= 2048): ``row_codes`` of the f32 LN rows, as
+    ``(codes [R, C] int8, sr [R] f32)``. Counted by no op."""
+    c = x.shape[-1]
+    check_tensor("x", x, torch.bfloat16, tuple(x.shape), x.device)
+    lns, lnb = _ln_vectors(ln_scale, ln_bias, c, x.device)
+    r = x.numel() // c
+    codes = torch.empty((r, c), dtype=torch.int8, device=x.device)
+    sr = torch.empty((r,), dtype=torch.float32, device=x.device)
+    raise_on(load("attention").uspace_ln_row_codes(
+        x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), codes.data_ptr(),
+        sr.data_ptr(), r, c, eps, cuda_stream(x.device)), "uspace_ln_row_codes")
+    return codes, sr
+
+
+def _qkv_gemm_int8_kernel(codes: torch.Tensor, sr: torch.Tensor,
+                          qw: QWeight) -> torch.Tensor:
+    """The int8 wgmma projection alone: ``bf16((f32(codes . qw.q^T) * sr) *
+    qw.scale)`` for codes [R, K] int8 and sr [R] f32 (K a multiple of 64,
+    N of 8). Counted by no op."""
+    r, k = codes.shape
+    n = qw.q.shape[0]
+    check_tensor("codes", codes, torch.int8, (r, k), codes.device)
+    check_tensor("sr", sr, torch.float32, (r,), codes.device)
+    _check_qweight(qw, n, k, codes.device)
+    out = torch.empty((r, n), dtype=torch.bfloat16, device=codes.device)
+    raise_on(load("attention").uspace_qkv_gemm_int8(
+        codes.data_ptr(), sr.data_ptr(), qw.q.data_ptr(), qw.scale.data_ptr(),
+        out.data_ptr(), r, n, k, cuda_stream(codes.device)),
+        "uspace_qkv_gemm_int8")
+    return out
+
+
 def _int8_kernel(x, qw, num_heads, scale, ln=None):
     """The int8 QKV-projection kernel; with ``ln = (scale, bias, eps)`` the
-    LN1 variant."""
+    LN1 route (three launches counted as one: the code pass, the int8
+    projection into a qkv workspace, the packed core)."""
     b, l, c = x.shape
     _check_x("x", x, num_heads, 1)
-    check_tensor("w_qkv codes", qw.q, torch.int8, (3 * c, c), x.device)
-    check_tensor("w_qkv scales", qw.scale, torch.float32, (3 * c,), x.device)
+    _check_qweight(qw, 3 * c, c, x.device)
     out = torch.empty_like(x)
     lib = load("attention")
     if ln is None:
@@ -472,10 +522,13 @@ def _int8_kernel(x, qw, num_heads, scale, ln=None):
         return out
     ln_scale, ln_bias, eps = ln
     lns, lnb = _ln_vectors(ln_scale, ln_bias, c, x.device)
+    codes = torch.empty((b * l, c), dtype=torch.int8, device=x.device)
+    sr = torch.empty((b * l,), dtype=torch.float32, device=x.device)
+    qkv = x.new_empty((b, l, 3 * c))
     rc = lib.uspace_ln_qkvproj_attention_int8(
         x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), qw.q.data_ptr(),
-        qw.scale.data_ptr(), out.data_ptr(), b, l, num_heads, scale, eps,
-        cuda_stream(x.device))
+        qw.scale.data_ptr(), codes.data_ptr(), sr.data_ptr(), qkv.data_ptr(),
+        out.data_ptr(), b, l, num_heads, scale, eps, cuda_stream(x.device))
     raise_on(rc, "uspace_ln_qkvproj_attention_int8")
     LAUNCHES["ln_qkvproj_attention_int8"] += 1
     return out
@@ -517,11 +570,7 @@ def _fused_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         check_tensor(name, t, torch.bfloat16, tuple(q.shape), q.device)
     b, h, l, d = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # per-row max, sum and delta of every 64-row tile, passed from the dQ
-    # kernel to the dK/dV one
-    lp = -(-l // 64) * 64
-    stats = torch.empty((b * h * 3 * lp,), dtype=torch.float32,
-                        device=q.device)
+    stats = _bwd_stats(b, h, l, q.device)
     rc = load("fused_attention_bwd").uspace_fused_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, h,
@@ -704,8 +753,9 @@ def fused_ln_qkvproj_attention(
     """``attention(qkv(LN(x)))``. ``quant=False``: the LN rows rounded to
     x's dtype, bf16 projection (W cast to x's dtype); on the card the LN
     rows and the qkv each make one round trip through a workspace.
-    ``quant=True``: LN in f32, int8 projection of the f32 weight, all in
-    one kernel."""
+    ``quant=True``: LN in f32, int8 projection of the f32 weight; on the
+    card the row codes and the qkv each make one round trip through a
+    workspace."""
     scale = _default_scale(x.shape[-1] // num_heads, scale)
     if quant:
         check_no_grad(x, ln_scale, ln_bias, w_qkv,

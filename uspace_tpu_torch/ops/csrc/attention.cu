@@ -12,7 +12,9 @@
 // an H100 SXM's 989 TFLOP/s bf16 and 3.35 TB/s:
 //   packed:     13.5 GFLOP, 105 MB moved -> ~31 us, memory bound;
 //   qkvproj/ln: 80.9 + 13.5 GFLOP, 59 MB -> ~95 us, compute bound (the
-//               projection is 86% of the operations).
+//               projection is 86% of the operations);
+//   int8 ln:    80.9 G int8 operations over 1,979 TOPS + 13.5 GFLOP = 55 us,
+//               operations bound.
 //
 // The bf16 entry points are short sequences of kernels on one stream, split
 // where the card wants them split rather than as the TPU's one program per
@@ -58,15 +60,34 @@
 //   work (about 12 instructions a score over the two passes) takes about as
 //   long as the kernel; its products take far less.
 //
-// The int8 kernels (W8A8, rows 5 and 6, and row 11's projection) keep one
-// block per (batch, head) with the head's qkv tile in shared memory and the
-// WMMA attention core `attend` (bound at the main path's shape: 80.9 G int8
-// operations over 1,979 TOPS = 41 us, plus the attention's 13.5 GFLOP over
-// 989 TFLOP/s = 14 us; operations bound):
+// The int8 LN route (row 5, W8A8 sampling on `auto`) is the same sequence
+// with int8 products:
+// - ln_codes_kernel: LN1 once per row, one warp per row with the row in
+//   registers, the f32 sums in ln_rows_kernel's lane order (a reordered sum
+//   moves an f32 LN value by an ulp and can flip a code); the f32 LN row is
+//   never rounded to bf16; from it amax (clamped at 1e-8), the codes
+//   round(u * RN(127 / amax)) into an int8 [B*L, C] workspace and the row
+//   scale sr = amax * RN(1/127) into an f32 [B*L] one.
+// - qkv_gemm_kernel<true>: qkv_gemm_kernel on the int8 codes and the cached
+//   torch-layout [3C, C] int8 weight, both K-major as wgmma wants 8-bit
+//   operands: 128-code K chunks (one 128-byte swizzle row, as a 64-element
+//   bf16 chunk), wgmma.mma_async m64n256k32 s8 x s8 -> s32 (each k32 step
+//   32 bytes deeper, as each bf16 k16 step), and the epilogue
+//   bf16((f32(acc) * sr[row]) * ws[col]) into the bf16 [B, L, 3C] workspace.
+//   int32 sums are exact, so the workspace equals the twin's dequantised
+//   product bit for bit. A block's fixed cost, not K, binds it on an H100:
+//   with the epilogue written from the fragments (128 scattered 4-byte
+//   stores a thread) the GEMM took 0.159 ms at the main path's shape, 0.11
+//   of it independent of K; with the tile staged through the free ring and
+//   stored in 16-byte row pieces, 0.094 ms.
+// - packed_core_kernel on that workspace, as row 1.
+//
+// The LN-free int8 kernel (row 6, and row 11's projection) keeps one block
+// per (batch, head) with the head's qkv tile in shared memory and the WMMA
+// attention core `attend` (bound as row 5's):
 // - A row's int8 scale needs the whole row first, so a statistics pass (one
-//   warp per row, the row held in registers) takes mu and rstd (LN1 only,
-//   f32, var = E[x^2] - mu^2) and then amax of the f32 row (after LN) before
-//   any column is coded. The LN output stays f32 (never rounded to bf16).
+//   warp per row, the row held in registers) takes amax of the row before
+//   any column is coded.
 // - Projection: mma.sync m16n8k32 s8 x s8 -> s32 with known fragment
 //   layouts; 12 warps tile a 144-row pass of the head's [rows, 192] output
 //   3 x 4, each warp 3 x 6 tiles. K chunks of 64 (or 32) bytes: each thread
@@ -89,6 +110,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 using namespace nvcuda;
 
@@ -151,31 +174,20 @@ __device__ inline void cp_async_wait(int n) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// LN1 (f32, unfused as in the TPU kernel) of x[c] in a row with mu, rstd.
-__device__ inline float ln_f32(float x, float mu, float rstd, const float* s,
-                               const float* b, int c) {
-  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), rstd), __ldg(s + c)),
-                   __ldg(b + c));
-}
-
 // ---------------------------------------------------------------------------
-// LN1 rows (row 3's prologue)
+// LN1 rows (row 3's prologue) and LN1 row codes (row 5's)
 // ---------------------------------------------------------------------------
 
 constexpr int LN_WARPS = 8;
 
-// NV: 16-byte vectors of the row a lane holds (C <= NV * 256)
+// Row r of x [R, C] into registers v (lane + 32 i: NV 16-byte vectors of 8
+// bf16) with the f32 LN1 statistics of the row: the sums in lane order, mu =
+// sum / C, var = sum(x^2) / C - mu^2, inv = rsqrt(var + eps).
 template <int NV>
-__global__ void __launch_bounds__(LN_WARPS * 32)
-ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-               const float* __restrict__ ln_b, bf16* __restrict__ out, int R,
-               int C, float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * LN_WARPS + warp;
-  if (r >= R) return;
-  const int nvec = C / 8;
+__device__ inline void ln_row_stats(const bf16* __restrict__ x, int r, int C, float eps,
+                                    uint4 (&v)[NV], float& mu, float& inv) {
+  const int lane = threadIdx.x & 31, nvec = C / 8;
   const uint4* row = reinterpret_cast<const uint4*>(x + (size_t)r * C);
-  uint4 v[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i)
     if (lane + 32 * i < nvec) v[i] = __ldg(row + lane + 32 * i);
@@ -196,31 +208,98 @@ ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
     sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
     sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, o));
   }
-  const float mu = __fdiv_rn(sum, (float)C);
+  mu = __fdiv_rn(sum, (float)C);
   const float var = __fsub_rn(__fdiv_rn(sq, (float)C), __fmul_rn(mu, mu));
-  const float inv = rsqrtf(__fadd_rn(var, eps));
+  inv = rsqrtf(__fadd_rn(var, eps));
+}
+
+// ((x - mu) * inv) * s + b in f32, unfused, for the 8 values of vector vi
+// (its 8 scales and biases read as two 16-byte loads each: strided 4-byte
+// loads cost 1.7x the LN pass's time)
+__device__ inline void ln_vec(const uint4& v, int vi, float mu, float inv,
+                              const float* __restrict__ ln_s,
+                              const float* __restrict__ ln_b, float (&u)[8]) {
+  float sc[8], bi[8];
+  *reinterpret_cast<float4*>(sc) = __ldg(reinterpret_cast<const float4*>(ln_s) + 2 * vi);
+  *reinterpret_cast<float4*>(sc + 4) =
+      __ldg(reinterpret_cast<const float4*>(ln_s) + 2 * vi + 1);
+  *reinterpret_cast<float4*>(bi) = __ldg(reinterpret_cast<const float4*>(ln_b) + 2 * vi);
+  *reinterpret_cast<float4*>(bi + 4) =
+      __ldg(reinterpret_cast<const float4*>(ln_b) + 2 * vi + 1);
+  const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    u[j] = __fadd_rn(
+        __fmul_rn(__fmul_rn(__fsub_rn(__bfloat162float(e[j]), mu), inv), sc[j]),
+        bi[j]);
+}
+
+// NV: 16-byte vectors of the row a lane holds (C <= NV * 256)
+template <int NV>
+__global__ void __launch_bounds__(LN_WARPS * 32)
+ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+               const float* __restrict__ ln_b, bf16* __restrict__ out, int R,
+               int C, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const int nvec = C / 8;
+  uint4 v[NV];
+  float mu, inv;
+  ln_row_stats<NV>(x, r, C, eps, v, mu, inv);
   uint4* orow = reinterpret_cast<uint4*>(out + (size_t)r * C);
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int vi = lane + 32 * i;
     if (vi >= nvec) continue;
-    const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
-    // this vector's 8 scales and biases, as two 16-byte loads each
-    float sc[8], bi[8];
-    *reinterpret_cast<float4*>(sc) = __ldg(reinterpret_cast<const float4*>(ln_s) + 2 * vi);
-    *reinterpret_cast<float4*>(sc + 4) =
-        __ldg(reinterpret_cast<const float4*>(ln_s) + 2 * vi + 1);
-    *reinterpret_cast<float4*>(bi) = __ldg(reinterpret_cast<const float4*>(ln_b) + 2 * vi);
-    *reinterpret_cast<float4*>(bi + 4) =
-        __ldg(reinterpret_cast<const float4*>(ln_b) + 2 * vi + 1);
+    float u[8];
+    ln_vec(v[i], vi, mu, inv, ln_s, ln_b, u);
     uint4 packed;
     bf16* o = reinterpret_cast<bf16*>(&packed);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)  // ((x - mu) * inv) * s + b, unfused
-      o[j] = __float2bfloat16_rn(__fadd_rn(
-          __fmul_rn(__fmul_rn(__fsub_rn(__bfloat162float(e[j]), mu), inv), sc[j]),
-          bi[j]));
+    for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16_rn(u[j]);
     orow[vi] = packed;
+  }
+}
+
+// Row 5's code pass: the f32 LN1 row u (kept in registers, never rounded to
+// bf16), amax = max(max |u|, 1e-8), codes [R, C] int8 = round(u * RN(127 /
+// amax)) and sr [R] f32 = amax * RN(1/127).
+template <int NV>
+__global__ void __launch_bounds__(LN_WARPS * 32)
+ln_codes_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+                const float* __restrict__ ln_b, int8_t* __restrict__ codes,
+                float* __restrict__ sr, int R, int C, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const int nvec = C / 8;
+  uint4 v[NV];
+  float mu, inv;
+  ln_row_stats<NV>(x, r, C, eps, v, mu, inv);
+  float u[NV][8];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (lane + 32 * i >= nvec) continue;
+    ln_vec(v[i], lane + 32 * i, mu, inv, ln_s, ln_b, u[i]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(u[i][j]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  amax = fmaxf(amax, 1e-8f);
+  const float inv127 = __fdiv_rn(127.f, amax);
+  if (lane == 0) sr[r] = __fmul_rn(amax, 1.0f / 127.0f);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (lane + 32 * i >= nvec) continue;
+    uint2 packed;
+    int8_t* q = reinterpret_cast<int8_t*>(&packed);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) q[j] = (int8_t)__float2int_rn(__fmul_rn(u[i][j], inv127));
+    *reinterpret_cast<uint2*>(codes + (size_t)r * C + (lane + 32 * i) * 8) = packed;
   }
 }
 
@@ -228,12 +307,17 @@ ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
 // The QKV projection on wgmma (rows 2 and 3)
 // ---------------------------------------------------------------------------
 
-constexpr int G_BM = 128, G_BN = 256, G_BK = 64, G_STAGES = 4;
+constexpr int G_BM = 128, G_BN = 256, G_KBYTES = 128, G_STAGES = 4;
 constexpr int G_THREADS = 384;  // a producer warpgroup, two consumer ones
-constexpr int G_A_BYTES = G_BM * G_BK * 2;
-constexpr int G_B_BYTES = G_BN * G_BK * 2;
+constexpr int G_A_BYTES = G_BM * G_KBYTES;
+constexpr int G_B_BYTES = G_BN * G_KBYTES;
 constexpr int G_SMEM = G_STAGES * (G_A_BYTES + G_B_BYTES) + 2 * G_STAGES * 8 +
                        1024;  // the ring, its barriers, alignment
+// the int8 epilogue's staged output rows: 256 bf16 + 16 bytes, so that the
+// fragment writes of a warp fall on 32 banks
+constexpr int G_ST_LD = G_BN + 8;
+static_assert(2 * 64 * G_ST_LD * 2 <= G_STAGES * (G_A_BYTES + G_B_BYTES),
+              "the staged tile fits in the ring");
 
 __device__ inline uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -307,6 +391,60 @@ template <int R>
 __device__ inline void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ inline void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// acc[128] += A (64 x 32 codes, smem) . B (32 x 256 codes, smem), both
+// K-major (8-bit operands are K-major only), int32 sums
+__device__ inline void wgmma_n256(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // acc[128] += A (64 x 16, smem) . B (16 x 256, smem), both K-major
@@ -409,22 +547,31 @@ __device__ inline void wgmma_n64_rs(float (&d)[32], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// c [M, N] = a [M, K] . b [N, K]^T, bf16 in and out, f32 sums; K a multiple
-// of G_BK. At the main path's shape a 128 x 128 tile took 1.05x the time of
-// this 128 x 256 one, and a persistent grid (one block an SM walking its
-// tiles) 1.06x; handing the producer's registers to the consumers with
-// setmaxnreg gained nothing measurable (154 registers a thread hold the 128
-// accumulators without spilling).
+// c [M, N] = a [M, K] . b [N, K]^T with the sums in registers, each operand
+// in 128-byte K chunks (64 bf16 or 128 int8 values, one swizzle row);
+// chunks past K are zero-filled by TMA.
+// - bf16 (rows 2 and 3): bf16 in and out, f32 sums rounded once. At the main
+//   path's shape a 128 x 128 tile took 1.05x the time of this 128 x 256 one,
+//   and a persistent grid (one block an SM walking its tiles) 1.06x; handing
+//   the producer's registers to the consumers with setmaxnreg gained nothing
+//   measurable (154 registers a thread hold the 128 accumulators without
+//   spilling).
+// - INT8 (row 5): int8 codes a with row scales sr [M], the int8 weight b with
+//   column scales ws [N]; int32 sums; c = bf16((f32(acc) * sr) * ws).
+template <bool INT8>
 __global__ void __launch_bounds__(G_THREADS, 1)
 qkv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_b,
-                bf16* __restrict__ c, int M, int N, int K) {
+                bf16* __restrict__ c, const float* __restrict__ sr,
+                const float* __restrict__ ws, int M, int N, int K) {
+  typedef typename std::conditional<INT8, int, float>::type Acc;
+  constexpr int CHUNK = INT8 ? G_KBYTES : G_KBYTES / 2;  // values a K chunk
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sa = (raw + 1023u) & ~1023u;  // the swizzle's 1024-byte atoms
   const uint32_t sb = sa + G_STAGES * G_A_BYTES;
   const uint32_t full = sb + G_STAGES * G_B_BYTES, empty = full + 8 * G_STAGES;
-  const int wg = threadIdx.x >> 7, nk = K / G_BK;
+  const int wg = threadIdx.x >> 7, nk = (K + CHUNK - 1) / CHUNK;
   const int n0 = blockIdx.x * G_BN, m0 = blockIdx.y * G_BM;
   if (threadIdx.x == 0) {
     for (int s = 0; s < G_STAGES; ++s) {
@@ -441,8 +588,8 @@ qkv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         const int s = kb % G_STAGES;
         mbar_wait(empty + 8 * s, ((kb / G_STAGES) & 1) ^ 1);
         mbar_expect_tx(full + 8 * s, G_A_BYTES + G_B_BYTES);
-        tma_load_2d(sa + s * G_A_BYTES, &map_a, kb * G_BK, m0, full + 8 * s);
-        tma_load_2d(sb + s * G_B_BYTES, &map_b, kb * G_BK, n0, full + 8 * s);
+        tma_load_2d(sa + s * G_A_BYTES, &map_a, kb * CHUNK, m0, full + 8 * s);
+        tma_load_2d(sb + s * G_B_BYTES, &map_b, kb * CHUNK, n0, full + 8 * s);
       }
     }
     return;
@@ -450,9 +597,9 @@ qkv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
 
   // consumers: warpgroup wg - 1 takes rows (wg - 1) * 64 .. + 63 of the tile
   const int cw = wg - 1;
-  float acc[G_BN / 2];
+  Acc acc[G_BN / 2];
 #pragma unroll
-  for (int i = 0; i < G_BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < G_BN / 2; ++i) acc[i] = 0;
   fence_regs(acc);
   for (int kb = 0; kb < nk; ++kb) {
     const int s = kb % G_STAGES;
@@ -460,9 +607,10 @@ qkv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
     const uint64_t da = sw128_desc(sa + s * G_A_BYTES + cw * 64 * 128);
     const uint64_t db = sw128_desc(sb + s * G_B_BYTES);
     wgmma_fence();
+    // four steps a chunk (bf16 k16, int8 k32), each 32 bytes deeper: +2
+    // (16-byte units)
 #pragma unroll
-    for (int kk = 0; kk < G_BK / 16; ++kk)  // 32 bytes deeper: +2 (16-byte units)
-      wgmma_n256(acc, da + 2 * kk, db + 2 * kk);
+    for (int kk = 0; kk < 4; ++kk) wgmma_n256(acc, da + 2 * kk, db + 2 * kk);
     wgmma_commit();
     wgmma_wait<1>();  // the previous chunk's wgmmas are done: free its stage
     if (kb > 0) mbar_arrive(empty + 8 * ((kb - 1) % G_STAGES));
@@ -475,16 +623,50 @@ qkv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
   const int r0 = m0 + cw * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
   const int col0 = n0 + 2 * (lane & 3);
+  if constexpr (INT8) {
+    // bf16((f32(acc) * sr) * ws), unfused; the tile goes out through shared
+    // memory (the ring is free once both consumer warpgroups have retired
+    // their products) in 16-byte pieces of its rows: 16 coalesced stores a
+    // thread where the fragment layout gives 128 scattered 4-byte ones
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    bf16* st = reinterpret_cast<bf16*>(smem_raw + (sa - raw)) + cw * 64 * G_ST_LD;
+    const int rl = warp * 16 + (lane >> 2);  // r0 in the warpgroup's 64 rows
+    const float s0 = r0 < M ? __ldg(sr + r0) : 0.f;
+    const float s1 = r1 < M ? __ldg(sr + r1) : 0.f;
+    auto deq = [](int a, float rs, float w) {
+      return __fmul_rn(__fmul_rn(__int2float_rn(a), rs), w);
+    };
 #pragma unroll
-  for (int j = 0; j < G_BN / 8; ++j) {
-    const int col = col0 + j * 8;
-    if (col >= N) continue;
-    if (r0 < M)
-      *reinterpret_cast<__nv_bfloat162*>(c + (size_t)r0 * N + col) =
-          __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
-    if (r1 < M)
-      *reinterpret_cast<__nv_bfloat162*>(c + (size_t)r1 * N + col) =
-          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+    for (int j = 0; j < G_BN / 8; ++j) {
+      const int lc = 8 * j + 2 * (lane & 3);
+      const float2 w = n0 + lc < N ? __ldg(reinterpret_cast<const float2*>(ws + n0 + lc))
+                                   : make_float2(0.f, 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(st + rl * G_ST_LD + lc) =
+          __floats2bfloat162_rn(deq(acc[4 * j], s0, w.x), deq(acc[4 * j + 1], s0, w.y));
+      *reinterpret_cast<__nv_bfloat162*>(st + (rl + 8) * G_ST_LD + lc) =
+          __floats2bfloat162_rn(deq(acc[4 * j + 2], s1, w.x), deq(acc[4 * j + 3], s1, w.y));
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
+#pragma unroll 4
+    for (int i = 0; i < 64 * G_BN / 8 / 128; ++i) {  // 64 rows of 32 pieces
+      const int idx = i * 128 + t, row = idx / (G_BN / 8), piece = idx % (G_BN / 8);
+      const int gr = m0 + cw * 64 + row, gc = n0 + 8 * piece;
+      if (gr < M && gc < N)
+        *reinterpret_cast<uint4*>(c + (size_t)gr * N + gc) =
+            *reinterpret_cast<const uint4*>(st + row * G_ST_LD + 8 * piece);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < G_BN / 8; ++j) {
+      const int col = col0 + j * 8;
+      if (col >= N) continue;
+      if (r0 < M)
+        *reinterpret_cast<__nv_bfloat162*>(c + (size_t)r0 * N + col) =
+            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+      if (r1 < M)
+        *reinterpret_cast<__nv_bfloat162*>(c + (size_t)r1 * N + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+    }
   }
 }
 
@@ -818,7 +1000,7 @@ __device__ void attend(const bf16* qkv_s, const Layout& lay, int L, float scale,
 
 
 // ---------------------------------------------------------------------------
-// int8 W8A8 projection (rows 5-6 of the kernel table)
+// int8 W8A8 projection (row 6 of the kernel table, and row 11's)
 // ---------------------------------------------------------------------------
 
 constexpr int QRB = 144;             // rows per projection pass: 3 x 48
@@ -834,7 +1016,7 @@ __host__ __device__ inline Layout make_layout_q(int L, int qkv_ld, int kcb) {
   const int ring = 2 * (QRB + QKV_COLS) * kcb;
   s.stats_off = s.scratch_off + (ring > FS_BYTES + PS_BYTES ? ring
                                                           : FS_BYTES + PS_BYTES);
-  s.bytes = s.stats_off + 4 * s.lp * 4;  // mu, rstd, 127/amax, amax/127
+  s.bytes = s.stats_off + 2 * s.lp * 4;  // 127/amax, amax/127
   return s;
 }
 
@@ -869,18 +1051,15 @@ __device__ inline unsigned lds32(const int8_t* p) {
   return *reinterpret_cast<const unsigned*>(p);
 }
 
-// Per row r < L: [mu, rstd,] 127/amax and amax/127 of the f32 (LN'd) row;
-// rows L..lp-1 get zeros (their codes are 0). One warp per row, the row in
-// registers, so x is read once for both passes.
-template <bool LN>
-__device__ void row_stats_q(const bf16* __restrict__ xb, const float* ln_s,
-                            const float* ln_b, int L, int lp, int C, float eps,
-                            float* mu_s, float* rstd_s, float* r_s, float* sr_s) {
+// Per row r < L: 127/amax and amax/127 of the row; rows L..lp-1 get zeros
+// (their codes are 0). One warp per row, the row in registers.
+__device__ void row_stats_q(const bf16* __restrict__ xb, int L, int lp, int C,
+                            float* r_s, float* sr_s) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nvec = C / 8;
   for (int r = warp; r < lp; r += WARPS) {
     if (r >= L) {
-      if (lane == 0) mu_s[r] = rstd_s[r] = r_s[r] = sr_s[r] = 0.f;
+      if (lane == 0) r_s[r] = sr_s[r] = 0.f;
       continue;
     }
     const uint4* row = reinterpret_cast<const uint4*>(xb + (size_t)r * C);
@@ -888,63 +1067,31 @@ __device__ void row_stats_q(const bf16* __restrict__ xb, const float* ln_s,
 #pragma unroll
     for (int i = 0; i < MAX_ROW_VEC; ++i)
       if (lane + 32 * i < nvec) v[i] = row[lane + 32 * i];
-    float mu = 0.f, rstd = 0.f;
-    if (LN) {
-      float sum = 0.f, sq = 0.f;
-#pragma unroll
-      for (int i = 0; i < MAX_ROW_VEC; ++i) {
-        if (lane + 32 * i >= nvec) continue;
-        const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float f = __bfloat162float(e[j]);
-          sum = __fadd_rn(sum, f);
-          sq = __fadd_rn(sq, __fmul_rn(f, f));
-        }
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        sq += __shfl_xor_sync(0xffffffffu, sq, o);
-      }
-      mu = __fdiv_rn(sum, (float)C);
-      const float var = __fsub_rn(__fdiv_rn(sq, (float)C), __fmul_rn(mu, mu));
-      rstd = rsqrtf(__fadd_rn(var, eps));
-    }
     float amax = 0.f;
 #pragma unroll
     for (int i = 0; i < MAX_ROW_VEC; ++i) {
       if (lane + 32 * i >= nvec) continue;
       const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float f = __bfloat162float(e[j]);
-        if (LN) f = ln_f32(f, mu, rstd, ln_s, ln_b, (lane + 32 * i) * 8 + j);
-        amax = fmaxf(amax, fabsf(f));
-      }
+      for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(__bfloat162float(e[j])));
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
     amax = fmaxf(amax, 1e-8f);
     if (lane == 0) {
-      mu_s[r] = mu;
-      rstd_s[r] = rstd;
       r_s[r] = __fdiv_rn(127.f, amax);
       sr_s[r] = __fmul_rn(amax, 1.0f / 127.0f);
     }
   }
 }
 
-// qkv tile = dequant(int8(LN(x_b)) @ int8(W_h)^T), rounded to bf16. wq is the
+// qkv tile = dequant(int8(x_b) @ int8(W_h)^T), rounded to bf16. wq is the
 // torch-layout [3C, C] int8 weight, ws its [3C] f32 scales. Rows >= L are 0.
-template <bool LN>
-__device__ void project_q(const bf16* __restrict__ xb, const float* __restrict__ ln_s,
-                          const float* __restrict__ ln_b, const int8_t* __restrict__ wq,
+__device__ void project_q(const bf16* __restrict__ xb, const int8_t* __restrict__ wq,
                           const float* __restrict__ ws, int h, int H, int L,
                           const Layout& lay, bf16* qkv_s, unsigned char* scratch,
-                          const float* mu_s, const float* rstd_s, const float* r_s,
-                          const float* sr_s) {
+                          const float* r_s, const float* sr_s) {
   const int C = H * D, kcb = lay.stages, nk = C / kcb, P = kcb / 16;
   const int vpr = kcb / 8;  // x vectors of 8 per staged row
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -967,7 +1114,7 @@ __device__ void project_q(const bf16* __restrict__ xb, const float* __restrict__
               xb + (size_t)gr * C + kc * kcb + cv * 8));
       }
     };
-    auto code_x = [&](int kc, int8_t* dst) {  // f32 [LN] row -> int8 codes
+    auto code_x = [&](int kc, int8_t* dst) {  // row -> int8 codes
 #pragma unroll
       for (int i = 0; i < QXV; ++i) {
         const int v = tid + i * THREADS, r = v / vpr, cv = v % vpr, gr = r0 + r;
@@ -978,11 +1125,8 @@ __device__ void project_q(const bf16* __restrict__ xb, const float* __restrict__
           int8_t* q = reinterpret_cast<int8_t*>(&packed);
           const float inv127 = r_s[gr];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            float f = __bfloat162float(e[j]);
-            if (LN) f = ln_f32(f, mu_s[gr], rstd_s[gr], ln_s, ln_b, kc * kcb + cv * 8 + j);
-            q[j] = (int8_t)__float2int_rn(__fmul_rn(f, inv127));
-          }
+          for (int j = 0; j < 8; ++j)
+            q[j] = (int8_t)__float2int_rn(__fmul_rn(__bfloat162float(e[j]), inv127));
         }
         *reinterpret_cast<uint2*>(dst + swz(r, cv * 8, P)) = packed;
       }
@@ -1065,26 +1209,20 @@ __device__ void project_q(const bf16* __restrict__ xb, const float* __restrict__
   }
 }
 
-template <bool LN>
 __global__ void __launch_bounds__(THREADS, 1)
-qkvproj_attention_int8_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-                              const float* __restrict__ ln_b,
-                              const int8_t* __restrict__ wq, const float* __restrict__ ws,
-                              bf16* __restrict__ out, int L, int H, float scale,
-                              float eps, int qkv_ld, int kcb) {
+qkvproj_attention_int8_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ wq,
+                              const float* __restrict__ ws, bf16* __restrict__ out,
+                              int L, int H, float scale, int qkv_ld, int kcb) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout lay = make_layout_q(L, qkv_ld, kcb);
   const int b = blockIdx.x / H, h = blockIdx.x % H, C = H * D;
   const bf16* xb = x + (size_t)b * L * C;
   bf16* qkv_s = reinterpret_cast<bf16*>(smem);
-  float* mu_s = reinterpret_cast<float*>(smem + lay.stats_off);
-  float* rstd_s = mu_s + lay.lp;
-  float* r_s = rstd_s + lay.lp;
+  float* r_s = reinterpret_cast<float*>(smem + lay.stats_off);
   float* sr_s = r_s + lay.lp;
-  row_stats_q<LN>(xb, ln_s, ln_b, L, lay.lp, C, eps, mu_s, rstd_s, r_s, sr_s);
+  row_stats_q(xb, L, lay.lp, C, r_s, sr_s);
   __syncthreads();
-  project_q<LN>(xb, ln_s, ln_b, wq, ws, h, H, L, lay, qkv_s, smem + lay.scratch_off,
-                mu_s, rstd_s, r_s, sr_s);
+  project_q(xb, wq, ws, h, H, L, lay, qkv_s, smem + lay.scratch_off, r_s, sr_s);
   attend(qkv_s, lay, L, scale, out + (size_t)b * L * C + h * D, C,
          smem + lay.scratch_off);
 }
@@ -1125,50 +1263,64 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major bf16 [rows, cols] matrix in boxes of box_rows x G_BK with the
-// 128-byte swizzle; boxes past its edge are zero-filled
-int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+// a row-major [rows, cols] matrix of 2-byte (bf16) or 1-byte (int8) values
+// in boxes of box_rows x 128 bytes with the 128-byte swizzle; boxes past
+// its edge are zero-filled
+int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
+             bool int8) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const int esize = int8 ? 1 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)G_BK, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)(G_KBYTES / esize), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                         const_cast<void*>(ptr), dims, strides, box, elem,
+  const CUresult r = enc(map,
+                         int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         2, const_cast<void*>(ptr), dims, strides, box, elem,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// c [M, N] bf16 = a [M, K] . w [N, K]^T; INT8: int8 a and w with the row
+// scales sr [M] and column scales ws [N]
+template <bool INT8>
 int launch_gemm(const void* a, const void* w, void* c, int M, int N, int K,
-                cudaStream_t stream) {
-  if (M < 1 || N < 8 || N % 8 || K < G_BK || K % G_BK)
+                cudaStream_t stream, const void* sr = nullptr,
+                const void* ws = nullptr) {
+  if (M < 1 || N < 8 || N % 8 || K < 64 || K % 64)
     return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb;
-  int err = make_map(&ma, a, M, K, G_BM);
-  if (!err) err = make_map(&mb, w, N, K, G_BN);
-  if (!err) err = launch_setup(qkv_gemm_kernel, G_SMEM);
+  int err = make_map(&ma, a, M, K, G_BM, INT8);
+  if (!err) err = make_map(&mb, w, N, K, G_BN, INT8);
+  if (!err) err = launch_setup(qkv_gemm_kernel<INT8>, G_SMEM);
   if (err) return err;
   const dim3 grid((N + G_BN - 1) / G_BN, (M + G_BM - 1) / G_BM);
-  qkv_gemm_kernel<<<grid, G_THREADS, G_SMEM, stream>>>(ma, mb, (bf16*)c, M, N,
-                                                       K);
+  qkv_gemm_kernel<INT8><<<grid, G_THREADS, G_SMEM, stream>>>(
+      ma, mb, (bf16*)c, (const float*)sr, (const float*)ws, M, N, K);
   return (int)cudaGetLastError();
 }
 
+// ln_rows_kernel, or with codes and sr ln_codes_kernel, on R rows of C
 int launch_ln(const void* x, const void* ln_scale, const void* ln_bias, void* out,
-              int R, int C, float eps, cudaStream_t stream) {
+              int R, int C, float eps, cudaStream_t stream, void* codes = nullptr,
+              void* sr = nullptr) {
   if (R < 1 || C < 8 || C % 8 || C > MAX_ROW_VEC * 8 * 32)
     return (int)cudaErrorInvalidValue;
   const int grid = (R + LN_WARPS - 1) / LN_WARPS, nv = (C / 8 + 31) / 32;
   const bf16* xp = (const bf16*)x;
   const float *sp = (const float*)ln_scale, *bp = (const float*)ln_bias;
-  bf16* op = (bf16*)out;
-#define LN_CASE(n)                                                       \
-  case n:                                                                \
-    ln_rows_kernel<n><<<grid, LN_WARPS * 32, 0, stream>>>(xp, sp, bp, op, R, \
-                                                          C, eps);       \
+#define LN_CASE(n)                                                          \
+  case n:                                                                   \
+    if (codes)                                                              \
+      ln_codes_kernel<n><<<grid, LN_WARPS * 32, 0, stream>>>(               \
+          xp, sp, bp, (int8_t*)codes, (float*)sr, R, C, eps);               \
+    else                                                                    \
+      ln_rows_kernel<n><<<grid, LN_WARPS * 32, 0, stream>>>(xp, sp, bp,     \
+                                                            (bf16*)out, R, C, eps); \
     break;
   switch (nv) {
     LN_CASE(1) LN_CASE(2) LN_CASE(3) LN_CASE(4)
@@ -1199,11 +1351,29 @@ int uspace_ln_rows(const void* x, const void* ln_scale, const void* ln_bias,
   return launch_ln(x, ln_scale, ln_bias, out, R, C, eps, (cudaStream_t)stream);
 }
 
+// The f32 LN1 of x [R, C] bf16 (f32 ln_scale, ln_bias [C]) coded per row:
+// codes [R, C] int8 and row scales sr [R] f32.
+int uspace_ln_row_codes(const void* x, const void* ln_scale, const void* ln_bias,
+                        void* codes, void* sr, int R, int C, float eps,
+                        void* stream) {
+  return launch_ln(x, ln_scale, ln_bias, nullptr, R, C, eps, (cudaStream_t)stream,
+                   codes, sr);
+}
+
 // c [M, N] = a [M, K] . w [N, K]^T, bf16 (w: torch Linear layout), K a
 // multiple of 64 and N of 8.
 int uspace_qkv_gemm(const void* a, const void* w, void* c, int M, int N, int K,
                     void* stream) {
-  return launch_gemm(a, w, c, M, N, K, (cudaStream_t)stream);
+  return launch_gemm<false>(a, w, c, M, N, K, (cudaStream_t)stream);
+}
+
+// c [M, N] bf16 = bf16((f32(codes . wq^T) * sr) * ws): codes [M, K] int8 with
+// sr [M] f32, wq [N, K] int8 (torch layout) with ws [N] f32; K a multiple of
+// 64 and N of 8.
+int uspace_qkv_gemm_int8(const void* codes, const void* sr, const void* wq,
+                         const void* ws, void* c, int M, int N, int K,
+                         void* stream) {
+  return launch_gemm<true>(codes, wq, c, M, N, K, (cudaStream_t)stream, sr, ws);
 }
 
 // qkv [B, L, 3*H*64] bf16 (packed [q | k | v] x heads) -> out [B, L, H*64].
@@ -1219,7 +1389,7 @@ int uspace_qkvproj_attention(const void* x, const void* w, void* qkv, void* out,
   if (bad_shape(B, L, H)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int C = H * D;
-  const int err = launch_gemm(x, w, qkv, B * L, 3 * C, C, s);
+  const int err = launch_gemm<false>(x, w, qkv, B * L, 3 * C, C, s);
   return err ? err : launch_core(qkv, out, B, L, H, scale, s);
 }
 
@@ -1233,7 +1403,7 @@ int uspace_ln_qkvproj_attention(const void* x, const void* ln_scale,
   const cudaStream_t s = (cudaStream_t)stream;
   const int C = H * D;
   int err = launch_ln(x, ln_scale, ln_bias, xln, B * L, C, eps, s);
-  if (!err) err = launch_gemm(xln, w, qkv, B * L, 3 * C, C, s);
+  if (!err) err = launch_gemm<false>(xln, w, qkv, B * L, 3 * C, C, s);
   return err ? err : launch_core(qkv, out, B, L, H, scale, s);
 }
 
@@ -1245,32 +1415,29 @@ int uspace_qkvproj_attention_int8(const void* x, const void* wq, const void* ws,
     return (int)cudaErrorInvalidValue;
   const Layout lay = host_layout_q(L);
   if (lay.bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  int err = launch_setup(qkvproj_attention_int8_kernel<false>, lay.bytes);
+  int err = launch_setup(qkvproj_attention_int8_kernel, lay.bytes);
   if (err) return err;
-  qkvproj_attention_int8_kernel<false><<<B * H, THREADS, lay.bytes,
-                                         (cudaStream_t)stream>>>(
-      (const bf16*)x, nullptr, nullptr, (const int8_t*)wq, (const float*)ws,
-      (bf16*)out, L, H, scale, 0.f, lay.qkv_ld, lay.stages);
+  qkvproj_attention_int8_kernel<<<B * H, THREADS, lay.bytes, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const int8_t*)wq, (const float*)ws, (bf16*)out, L, H, scale,
+      lay.qkv_ld, lay.stages);
   return (int)cudaGetLastError();
 }
 
-// As uspace_qkvproj_attention_int8 with LN1 (f32 ln_scale, ln_bias [C]) in front.
+// x [B, L, C] bf16 -> out [B, L, C]: LN1 in f32 (f32 ln_scale, ln_bias [C])
+// coded per row into the workspaces codes [B*L, C] int8 and sr [B*L] f32,
+// the int8 projection by wq [3C, C] int8 (torch layout) with ws [3C] f32
+// into the workspace qkv [B, L, 3C] bf16, then the attention core on it.
 int uspace_ln_qkvproj_attention_int8(const void* x, const void* ln_scale,
                                      const void* ln_bias, const void* wq,
-                                     const void* ws, void* out, int B, int L,
-                                     int H, float scale, float eps, void* stream) {
-  if (bad_shape(B, L, H) || H * D > MAX_ROW_VEC * 8 * 32)
-    return (int)cudaErrorInvalidValue;
-  const Layout lay = host_layout_q(L);
-  if (lay.bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  int err = launch_setup(qkvproj_attention_int8_kernel<true>, lay.bytes);
-  if (err) return err;
-  qkvproj_attention_int8_kernel<true><<<B * H, THREADS, lay.bytes,
-                                        (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)ln_scale, (const float*)ln_bias,
-      (const int8_t*)wq, (const float*)ws, (bf16*)out, L, H, scale, eps,
-      lay.qkv_ld, lay.stages);
-  return (int)cudaGetLastError();
+                                     const void* ws, void* codes, void* sr,
+                                     void* qkv, void* out, int B, int L, int H,
+                                     float scale, float eps, void* stream) {
+  if (bad_shape(B, L, H)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int C = H * D;
+  int err = launch_ln(x, ln_scale, ln_bias, nullptr, B * L, C, eps, s, codes, sr);
+  if (!err) err = launch_gemm<true>(codes, wq, qkv, B * L, 3 * C, C, s, sr, ws);
+  return err ? err : launch_core(qkv, out, B, L, H, scale, s);
 }
 
 }  // extern "C"

@@ -1,9 +1,17 @@
-// [B, H, L, D] attention backward for SD-UNet training on Hopper (sm_90a), bf16.
+// Attention backward for SD-UNet and U-ViT training on Hopper (sm_90a), bf16.
 //
-// Replaces the Pallas TPU kernel _bwd_kernel of uspace_tpu/ops/attention.py
-// (the VJP of _fused_attention, whose forward _fwd_kernel is
-// csrc/attention_fwd.cu). From the forward's inputs q, k, v and the output
-// cotangent dO, per (batch, head), keys >= L masked:
+// Replaces two Pallas TPU kernels of uspace_tpu/ops/attention.py that
+// compute one function on two layouts, with one body templated on the
+// layout:
+//   uspace_fused_attention_bwd  <- _bwd_kernel (row 8; the VJP of
+//     _fused_attention, whose forward _fwd_kernel is csrc/attention_fwd.cu):
+//     q, k, v, dO and dq, dk, dv [B, H, L, D], D in {32, 64};
+//   uspace_packed_attention_bwd <- _packed_bwd_kernel (row 4; the VJP of
+//     the packed and QKV-projection attention of csrc/attention.cu): packed
+//     qkv [B, L, 3*H*64] ([q | k | v] x heads) and dO [B, L, H*64] in, dqkv
+//     [B, L, 3*H*64] out in the same packed layout.
+// From the forward's inputs q, k, v and the output cotangent dO, per
+// (batch, head), keys >= L masked:
 //   S = f32(Q K^T) * scale,  m = rowmax(S),  P = exp(S - m) / rowsum, f32
 //   dV = bf16(P)^T dO          dP = dO V^T
 //   delta = rowsum(P * dP)     dS = bf16(P * (dP - delta))
@@ -16,7 +24,10 @@
 // Bound at the SD-UNet-large training shape (B=128, H=8, L=1024, D=32),
 // against an H100 SXM's 989 TFLOP/s bf16 and 3.35 TB/s: five products of
 // 2*L^2*D per (batch, head), 10*B*H*L^2*D = 344 GFLOP -> 347 us; q, k, v, dO
-// read and dq, dk, dv written once, 470 MB -> 140 us. Operations bound.
+// read and dq, dk, dv written once, 470 MB -> 140 us. Operations bound. At
+// the U-ViT-large training shape (B=128, L=257, H=16, D=64): 86.6 GFLOP ->
+// 88 us; 202 MB qkv + 67 MB dO read, 202 MB dqkv written -> 141 us. Bytes
+// bound.
 //
 // What binds it on this card: at D = 32 a score costs 64 tensor-core FLOPs
 // but some 45 scalar instructions over the two kernels (three expf of about
@@ -67,10 +78,25 @@
 //   to an f32 scratch [B*H, 3, Lp] (Lp: L rounded up to 64) for the dK/dV
 //   kernel. No [L, L] tensor reaches device memory, and no atomics: every
 //   sum runs in one fixed order, so a repeated call gives the same bits.
+// - Layouts: every operand is read through a 3-D tensor map [Z, L, width]
+//   in boxes of D columns: [B*H, L, D] with Z = B*H, or packed [B, L, 3*H*64]
+//   (qkv) and [B, L, H*64] (dO) with Z = B and part p of head h at column
+//   (p*H + h)*64. The L dimension of the map is what keeps a box that starts
+//   near row L of one batch element from reading the next one's rows. dq,
+//   dk, dv are stored at the same column offsets (packed: of dqkv).
 // - Ragged edges: keys >= L get p = 0 by index; TMA zero-fills rows >= L of
-//   each head (a 3-D tensor map [B*H, L, D]), so padded rows add nothing to
-//   dK and dV, and query rows >= L get p = 0 in the dK/dV kernel; rows >= L
-//   are never written.
+//   each head, so padded rows add nothing to dK and dV, and query rows >= L
+//   get p = 0 in the dK/dV kernel; rows >= L are never written. On the
+//   packed layout a last tile of at most 16 rows (L = 257: one) is taken as
+//   a 16-row chunk, as row 1 takes its tail keys (attention.cu): in the dQ
+//   kernel S and dP are m64n16k16 and dQ += dS K one k16 step; in the dK/dV
+//   kernel S^T and dP^T are m64n16k16 and dV, dK one k16 step each. The
+//   chunk is a template instance of its own: compiled into the [B*H, L, D]
+//   kernels, its branches cost them registers and 11% of their time on an
+//   H100. A consumer warpgroup whose
+//   64 rows all lie past L leaves at once, and the ring's empty barriers
+//   count only the others (L = 257: the third block of a head runs one
+//   warpgroup).
 // - Every product, sum and quotient that the twin rounds is an _rn
 //   intrinsic, so nvcc fuses none of them into an FMA.
 // The entry point returns cudaGetLastError() or the first error before it.
@@ -142,17 +168,41 @@ __device__ inline void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// the box of a [B*H, L, D] map at (0, row, head) -> shared dst; completes
+// the box of a [Z, L, width] map at (col, row, z) -> shared dst; completes
 // on bar; rows past L are zero-filled
-__device__ inline void tma_rows(uint32_t dst, const CUtensorMap* map, int row,
-                                int head, uint32_t bar) {
+__device__ inline void tma_rows(uint32_t dst, const CUtensorMap* map, int col,
+                                int row, int z, uint32_t bar) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_"
       "tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(head),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(z),
       "r"(bar)
       : "memory");
 }
+
+// where the rows of head bh lie: the maps' coordinates of q, k, v and dO,
+// and the outputs' row stride and head offset (elements)
+template <int D, bool PACKED>
+struct Head {
+  int z, cq, ck, cv, cdo, ld;
+  size_t base;
+  __device__ Head(int bh, int H, int L) {
+    if (PACKED) {  // qkv [B, L, 3*H*D], dO [B, L, H*D], dqkv as qkv
+      const int b = bh / H, h = bh % H;
+      z = b;
+      cq = cdo = h * D;
+      ck = (H + h) * D;
+      cv = (2 * H + h) * D;
+      ld = 3 * H * D;
+      base = (size_t)b * L * ld;
+    } else {  // [B*H, L, D]
+      z = bh;
+      cq = ck = cv = cdo = 0;
+      ld = D;
+      base = (size_t)bh * L * D;
+    }
+  }
+};
 
 // bytes (a multiple of 16) from global src -> shared dst; completes on bar
 __device__ inline void bulk_copy(uint32_t dst, const void* src, int bytes,
@@ -221,6 +271,18 @@ __device__ inline void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db, int 
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// d[8] (+)= A (64 x 16, smem) . B (16 x 16, smem), both K-major; acc = 0
+// overwrites d
+__device__ inline void wgmma_ss16(float (&d)[8], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // d[16] += A (64 x 16, registers: each warp's m16n8k16 A fragment) . B
 // (16 x 32, smem, MN-major: rows of N-contiguous elements)
 __device__ inline void wgmma_rs32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
@@ -266,30 +328,44 @@ __device__ inline void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
     wgmma_rs64(d, a, db);
 }
 
+// a 16-row chunk's scores live in the first 8 registers of a tile's 32
+typedef float F8[8];
+__device__ inline F8& head8(float (&x)[32]) { return *reinterpret_cast<F8*>(x); }
+
+template <int N>
+__device__ inline void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 64)
+    wgmma_ss64(d, da, db, acc);
+  else
+    wgmma_ss16(d, da, db, acc);
+}
+
 // x = a0 . b0^T and y = a1 . b1^T for one warpgroup (unscaled f32): 64-row
-// K-major tiles, D deep; issued and committed as one group, not waited for
-template <int D>
-__device__ inline void issue_pair(float (&x)[32], float (&y)[32], uint32_t a0,
+// K-major tiles a, the first N rows of K-major tiles b, D deep; issued and
+// committed as one group, not waited for
+template <int D, int N>
+__device__ inline void issue_pair(float (&x)[N / 2], float (&y)[N / 2], uint32_t a0,
                                   uint32_t b0, uint32_t a1, uint32_t b1) {
   fence_regs(x);
   fence_regs(y);
   wgmma_fence();
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd)
-    wgmma_ss64(x, desc_k<D>(a0) + 2 * kd, desc_k<D>(b0) + 2 * kd, kd > 0);
+    wgmma_ss<N>(x, desc_k<D>(a0) + 2 * kd, desc_k<D>(b0) + 2 * kd, kd > 0);
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd)
-    wgmma_ss64(y, desc_k<D>(a1) + 2 * kd, desc_k<D>(b1) + 2 * kd, kd > 0);
+    wgmma_ss<N>(y, desc_k<D>(a1) + 2 * kd, desc_k<D>(b1) + 2 * kd, kd > 0);
   wgmma_commit();
 }
 
-// acc += the bf16 A fragments a[4] (64 rows x a tile's 64 reduced rows) . the
-// tile at t (64 rows of D, read MN-major); issued, not committed
-template <int D>
+// acc += the bf16 A fragments a[KS] (64 rows x KS * 16 reduced rows) . the
+// first KS * 16 rows of the tile at t (rows of D, read MN-major); issued,
+// not committed
+template <int D, int KS>
 __device__ inline void issue_acc(float (&acc)[D / 2], const uint32_t (&a)[4][4],
                                  uint32_t t) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
+  for (int k = 0; k < KS; ++k)
     wgmma_rs<D>(acc, a[k], desc_mn<D>(t + 16 * k * Geo<D>::RB));
 }
 
@@ -323,13 +399,13 @@ __device__ inline float quad_sum(float x) {
 // MASKED: keys at and past L are left out. The accumulators are only read:
 // a write to them while the next tile's products are in flight would
 // serialise the wgmma pipeline.
-template <bool MASKED>
-__device__ inline void stats_tile(const float (&s)[32], const float (&dp)[32],
+template <int N, bool MASKED>
+__device__ inline void stats_tile(const float (&s)[N / 2], const float (&dp)[N / 2],
                                   int key0, int L, float scale, float (&m)[2],
                                   float (&l)[2], float (&u)[2]) {
-  float v[32], mt[2] = {MASK_VALUE, MASK_VALUE};
+  float v[N / 2], mt[2] = {MASK_VALUE, MASK_VALUE};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     v[i] = __fmul_rn(s[i], scale);
     if (!MASKED || key0 + 8 * (i >> 2) + (i & 1) < L)
       mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], v[i]);
@@ -343,7 +419,7 @@ __device__ inline void stats_tile(const float (&s)[32], const float (&dp)[32],
       m[r] = mt[r];
     }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     const int r = (i >> 1) & 1;
     const bool live = !MASKED || key0 + 8 * (i >> 2) + (i & 1) < L;
     const float e = live ? expf(__fsub_rn(v[i], m[r])) : 0.f;
@@ -352,15 +428,15 @@ __device__ inline void stats_tile(const float (&s)[32], const float (&dp)[32],
   }
 }
 
-// pass 2 of the dQ kernel on one tile: dS = p (dP - delta), rounded to bf16
-// into the A fragments of dQ += dS K
-template <bool MASKED>
-__device__ inline void ds_tile(const float (&s)[32], const float (&dp)[32],
+// pass 2 of the dQ kernel on one tile of N keys: dS = p (dP - delta),
+// rounded to bf16 into the A fragments da[N / 16] of dQ += dS K
+template <int N, bool MASKED>
+__device__ inline void ds_tile(const float (&s)[N / 2], const float (&dp)[N / 2],
                                uint32_t (&da)[4][4], int key0, int L, float scale,
                                const float (&m)[2], const float (&l)[2],
                                const float (&rl)[2], const float (&dl)[2]) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < N / 16; ++k) {
     float ds[8];
 #pragma unroll
     for (int x = 0; x < 8; ++x) {
@@ -374,17 +450,18 @@ __device__ inline void ds_tile(const float (&s)[32], const float (&dp)[32],
   }
 }
 
-// the dK/dV kernel's scalar work on one tile, on the transposes: s (S^T)
-// and dp (dP^T) give bf16(P^T) and bf16(dS^T) as the A fragments pa and da,
-// with the tile's row statistics sm = m | l | delta | 1/l of its 64 queries
-// (q0: the first). RAGGED: queries at and past L add nothing
-template <bool RAGGED>
-__device__ inline void grad_tile(const float (&s)[32], const float (&dp)[32],
+// the dK/dV kernel's scalar work on one tile of N queries, on the
+// transposes: s (S^T) and dp (dP^T) give bf16(P^T) and bf16(dS^T) as the A
+// fragments pa[N / 16] and da[N / 16], with the tile's row statistics sm =
+// m | l | delta | 1/l of its queries (q0: the first). RAGGED: queries at and
+// past L add nothing
+template <int N, bool RAGGED>
+__device__ inline void grad_tile(const float (&s)[N / 2], const float (&dp)[N / 2],
                                  uint32_t (&pa)[4][4], uint32_t (&da)[4][4],
                                  const float* sm, int q0, int L, float scale) {
   const int t4 = threadIdx.x & 3;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < N / 16; ++k) {
     float p[8], ds[8];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {  // the 8-query halves j = 2k + h
@@ -412,14 +489,15 @@ __device__ inline void grad_tile(const float (&s)[32], const float (&dp)[32],
   }
 }
 
-// Kernel 1: dQ and the row statistics; block = (head, 128 queries).
-template <int D>
+// Kernel 1: dQ and the row statistics; block = (head, 128 queries). TAIL:
+// the last key tile holds at most 16 keys, taken as one 16-key chunk.
+template <int D, bool PACKED, bool TAIL>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_do,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
-                    bf16* __restrict__ dq, float* __restrict__ stats, int L,
+                    bf16* __restrict__ dq, float* __restrict__ stats, int L, int H,
                     int nblk, float scale) {
   typedef Geo<D> G;
   extern __shared__ unsigned char smem_raw[];
@@ -428,12 +506,14 @@ fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t full = ring + STAGES * 2 * G::TILE, empty = full + 8 * STAGES,
                  own = empty + 8 * STAGES;
   const int bh = blockIdx.x / nblk, row0 = (blockIdx.x % nblk) * RT;
+  const Head<D, PACKED> hd(bh, H, L);
   const int nt = (L + CT - 1) / CT;
+  const int active = min(WGS, (L - row0 + 63) / 64);  // warpgroups with a row
   const int wg = threadIdx.x >> 7;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 128 * WGS);
+      mbar_init(empty + 8 * s, 128 * active);
     }
     mbar_init(own, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -444,19 +524,20 @@ fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 128 * WGS) {
       mbar_expect_tx(own, 2 * G::OWN);
-      tma_rows(sq, &map_q, row0, bh, own);
-      tma_rows(sdo, &map_do, row0, bh, own);
+      tma_rows(sq, &map_q, hd.cq, row0, hd.z, own);
+      tma_rows(sdo, &map_do, hd.cdo, row0, hd.z, own);
       for (int step = 0; step < 2 * nt; ++step) {  // pass 1, then pass 2
         const int s = step % STAGES, tile = step < nt ? step : step - nt;
         mbar_wait(empty + 8 * s, ((step / STAGES) & 1) ^ 1);
         mbar_expect_tx(full + 8 * s, 2 * G::TILE);
         const uint32_t dst = ring + s * 2 * G::TILE;
-        tma_rows(dst, &map_k, tile * CT, bh, full + 8 * s);
-        tma_rows(dst + G::TILE, &map_v, tile * CT, bh, full + 8 * s);
+        tma_rows(dst, &map_k, hd.ck, tile * CT, hd.z, full + 8 * s);
+        tma_rows(dst + G::TILE, &map_v, hd.cv, tile * CT, hd.z, full + 8 * s);
       }
     }
     return;
   }
+  if (wg >= active) return;  // its 64 rows all lie past L
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
 
   const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
@@ -477,9 +558,13 @@ fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   fence_regs(acc);  // zeroed before any wgmma is in flight
   uint32_t da[4][4];
   auto stage = [&](int step) { return ring + (step % STAGES) * 2 * G::TILE; };
+  auto chunk16 = [&](int step) { return TAIL && (step % nt) == nt - 1; };
   auto issue = [&](float (&x)[32], float (&y)[32], int step) {
     mbar_wait(full + 8 * (step % STAGES), (step / STAGES) & 1);
-    issue_pair<D>(x, y, qa, stage(step), ga, stage(step) + G::TILE);
+    if (chunk16(step))
+      issue_pair<D, 16>(head8(x), head8(y), qa, stage(step), ga, stage(step) + G::TILE);
+    else
+      issue_pair<D, 64>(x, y, qa, stage(step), ga, stage(step) + G::TILE);
   };
   auto run = [&](float (&x)[32], float (&y)[32], float (&nx)[32], float (&ny)[32],
                  int step) {
@@ -497,10 +582,12 @@ fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     const bool ragged = tile * CT + CT > L;
     if (step < nt) {
       mbar_arrive(empty + 8 * (step % STAGES));
-      if (ragged)
-        stats_tile<true>(x, y, key0, L, scale, m, l, u);
+      if (chunk16(step))
+        stats_tile<16, true>(head8(x), head8(y), key0, L, scale, m, l, u);
+      else if (ragged)
+        stats_tile<64, true>(x, y, key0, L, scale, m, l, u);
       else
-        stats_tile<false>(x, y, key0, L, scale, m, l, u);
+        stats_tile<64, false>(x, y, key0, L, scale, m, l, u);
       if (step == nt - 1) {
         // the four lanes of a row group hold parts of its two rows
 #pragma unroll
@@ -514,13 +601,18 @@ fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
           rl[r] = __frcp_rn(l[r]);
         }
       }
+    } else if (chunk16(step)) {
+      ds_tile<16, true>(head8(x), head8(y), da, key0, L, scale, m, l, rl, dl);
+      wgmma_fence();
+      issue_acc<D, 1>(acc, da, stage(step));  // dQ += bf16(dS) K, one k16 step
+      wgmma_commit();
     } else {
       if (ragged)
-        ds_tile<true>(x, y, da, key0, L, scale, m, l, rl, dl);
+        ds_tile<64, true>(x, y, da, key0, L, scale, m, l, rl, dl);
       else
-        ds_tile<false>(x, y, da, key0, L, scale, m, l, rl, dl);
+        ds_tile<64, false>(x, y, da, key0, L, scale, m, l, rl, dl);
       wgmma_fence();
-      issue_acc<D>(acc, da, stage(step));  // dQ += bf16(dS) K
+      issue_acc<D, 4>(acc, da, stage(step));  // dQ += bf16(dS) K
       wgmma_commit();
     }
   };
@@ -533,16 +625,15 @@ fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   wgmma_wait<0>();
   fence_regs(acc);
 
-  const size_t off = (size_t)bh * L * D;
-  bf16* oh = dq + off;
+  bf16* oh = dq + hd.base + hd.cq;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = 8 * j + 2 * t4;
     if (ra < L)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)ra * D + c) = pack_bf16(
+      *reinterpret_cast<uint32_t*>(oh + (size_t)ra * hd.ld + c) = pack_bf16(
           __fmul_rn(acc[4 * j], scale), __fmul_rn(acc[4 * j + 1], scale));
     if (rb < L)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)rb * D + c) = pack_bf16(
+      *reinterpret_cast<uint32_t*>(oh + (size_t)rb * hd.ld + c) = pack_bf16(
           __fmul_rn(acc[4 * j + 2], scale), __fmul_rn(acc[4 * j + 3], scale));
   }
   const int lp = nt * CT;  // every row of every tile, padded ones included
@@ -561,15 +652,16 @@ fused_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// Kernel 2: dK and dV; block = (head, 128 keys), on the transposes.
-template <int D>
+// Kernel 2: dK and dV; block = (head, 128 keys), on the transposes. TAIL:
+// the last query tile holds at most 16 queries, taken as one k16 step.
+template <int D, bool PACKED, bool TAIL>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_do,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
                       const float* __restrict__ stats, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int L, int nblk, float scale) {
+                      bf16* __restrict__ dv, int L, int H, int nblk, float scale) {
   typedef Geo<D> G;
   constexpr int STG = 2 * G::TILE + 1024;  // Q | dO | m, l, delta, 1/l
   extern __shared__ unsigned char smem_raw[];
@@ -579,12 +671,14 @@ fused_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t full = ring + STAGES * STG, empty = full + 8 * STAGES,
                  ready = empty + 8 * STAGES, own = ready + 8 * STAGES;
   const int bh = blockIdx.x / nblk, k0 = (blockIdx.x % nblk) * RT;
+  const Head<D, PACKED> hd(bh, H, L);
   const int nt = (L + CT - 1) / CT, lp = nt * CT;
+  const int active = min(WGS, (L - k0 + 63) / 64);  // warpgroups with a key
   const int wg = threadIdx.x >> 7;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 128 * WGS);
+      mbar_init(empty + 8 * s, 128 * active);
       mbar_init(ready + 8 * s, 32);
     }
     mbar_init(own, 1);
@@ -597,15 +691,15 @@ fused_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 128 * WGS) {
       mbar_expect_tx(own, 2 * G::OWN);
-      tma_rows(sk, &map_k, k0, bh, own);
-      tma_rows(sv, &map_v, k0, bh, own);
+      tma_rows(sk, &map_k, hd.ck, k0, hd.z, own);
+      tma_rows(sv, &map_v, hd.cv, k0, hd.z, own);
       for (int tile = 0; tile < nt; ++tile) {
         const int s = tile % STAGES;
         mbar_wait(empty + 8 * s, ((tile / STAGES) & 1) ^ 1);
         mbar_expect_tx(full + 8 * s, 2 * G::TILE + STAT_BYTES);
         const uint32_t dst = ring + s * STG;
-        tma_rows(dst, &map_q, tile * CT, bh, full + 8 * s);
-        tma_rows(dst + G::TILE, &map_do, tile * CT, bh, full + 8 * s);
+        tma_rows(dst, &map_q, hd.cq, tile * CT, hd.z, full + 8 * s);
+        tma_rows(dst + G::TILE, &map_do, hd.cdo, tile * CT, hd.z, full + 8 * s);
 #pragma unroll
         for (int j = 0; j < 3; ++j)
           bulk_copy(dst + 2 * G::TILE + j * CT * 4, sth + j * lp + tile * CT,
@@ -626,6 +720,7 @@ fused_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     return;
   }
+  if (wg >= active) return;  // its 64 keys all lie past L
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
 
   const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
@@ -642,10 +737,14 @@ fused_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   fence_regs(dka);  // zeroed before any wgmma is in flight
   fence_regs(dva);
   uint32_t pa[4][4], da[4][4];
+  auto chunk16 = [&](int tile) { return TAIL && tile == nt - 1; };
   auto issue = [&](float (&x)[32], float (&y)[32], int tile) {
     mbar_wait(full + 8 * (tile % STAGES), (tile / STAGES) & 1);
     const uint32_t qt = ring + (tile % STAGES) * STG;
-    issue_pair<D>(x, y, kw, qt, vw, qt + G::TILE);
+    if (chunk16(tile))
+      issue_pair<D, 16>(head8(x), head8(y), kw, qt, vw, qt + G::TILE);
+    else
+      issue_pair<D, 64>(x, y, kw, qt, vw, qt + G::TILE);
   };
   auto run = [&](float (&x)[32], float (&y)[32], float (&nx)[32], float (&ny)[32],
                  int tile) {
@@ -661,13 +760,21 @@ fused_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_wait(ready + 8 * (tile % STAGES), (tile / STAGES) & 1);
     const uint32_t qt = ring + (tile % STAGES) * STG, gt = qt + G::TILE;
     const float* sm = reinterpret_cast<const float*>(smem_raw + (qt + 2 * G::TILE - raw));
+    if (chunk16(tile)) {
+      grad_tile<16, true>(head8(x), head8(y), pa, da, sm, tile * CT, L, scale);
+      wgmma_fence();
+      issue_acc<D, 1>(dva, pa, gt);  // dV += bf16(P^T) dO, one k16 step
+      issue_acc<D, 1>(dka, da, qt);  // dK += bf16(dS^T) Q
+      wgmma_commit();
+      return;
+    }
     if (tile * CT + CT > L)
-      grad_tile<true>(x, y, pa, da, sm, tile * CT, L, scale);
+      grad_tile<64, true>(x, y, pa, da, sm, tile * CT, L, scale);
     else
-      grad_tile<false>(x, y, pa, da, sm, tile * CT, L, scale);
+      grad_tile<64, false>(x, y, pa, da, sm, tile * CT, L, scale);
     wgmma_fence();
-    issue_acc<D>(dva, pa, gt);  // dV += bf16(P^T) dO
-    issue_acc<D>(dka, da, qt);  // dK += bf16(dS^T) Q
+    issue_acc<D, 4>(dva, pa, gt);  // dV += bf16(P^T) dO
+    issue_acc<D, 4>(dka, da, qt);  // dK += bf16(dS^T) Q
     wgmma_commit();
   };
   float s0[32], p0[32], s1[32], p1[32];
@@ -682,22 +789,21 @@ fused_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   fence_regs(dka);
   fence_regs(dva);
 
-  const size_t off = (size_t)bh * L * D;
-  bf16* kh = dk + off;
-  bf16* vh = dv + off;
+  bf16* kh = dk + hd.base + hd.ck;
+  bf16* vh = dv + hd.base + hd.cv;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = 8 * j + 2 * t4;
     if (ka < L) {
-      *reinterpret_cast<uint32_t*>(kh + (size_t)ka * D + c) = pack_bf16(
+      *reinterpret_cast<uint32_t*>(kh + (size_t)ka * hd.ld + c) = pack_bf16(
           __fmul_rn(dka[4 * j], scale), __fmul_rn(dka[4 * j + 1], scale));
-      *reinterpret_cast<uint32_t*>(vh + (size_t)ka * D + c) =
+      *reinterpret_cast<uint32_t*>(vh + (size_t)ka * hd.ld + c) =
           pack_bf16(dva[4 * j], dva[4 * j + 1]);
     }
     if (kb < L) {
-      *reinterpret_cast<uint32_t*>(kh + (size_t)kb * D + c) = pack_bf16(
+      *reinterpret_cast<uint32_t*>(kh + (size_t)kb * hd.ld + c) = pack_bf16(
           __fmul_rn(dka[4 * j + 2], scale), __fmul_rn(dka[4 * j + 3], scale));
-      *reinterpret_cast<uint32_t*>(vh + (size_t)kb * D + c) =
+      *reinterpret_cast<uint32_t*>(vh + (size_t)kb * hd.ld + c) =
           pack_bf16(dva[4 * j + 2], dva[4 * j + 3]);
     }
   }
@@ -729,13 +835,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a contiguous bf16 [BH, L, D] tensor in boxes of rows x D, swizzled as the
-// kernels' tiles; rows past L of a head are zero-filled
-int make_map(CUtensorMap* map, const void* ptr, int BH, int L, int D, int rows) {
+// a contiguous bf16 [Z, L, width] tensor in boxes of rows x D (at a column
+// given by each load), swizzled as the kernels' tiles; rows past L of each z
+// are zero-filled
+int make_map(CUtensorMap* map, const void* ptr, int Z, int L, int width, int D,
+             int rows) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)L, (cuuint64_t)Z};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)L * width * 2};
   const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
@@ -753,32 +861,37 @@ int smem_setup(K kernel, int bytes) {
                                    bytes);
 }
 
-template <int D>
+// PACKED: q = k = v = qkv [B, L, 3*H*D] and dq = dk = dv = dqkv, dout [B, L,
+// H*D]; else each [B*H, L, D]. TAIL: L - 1 mod 64 < 16.
+template <int D, bool PACKED, bool TAIL>
 int launch(const void* q, const void* k, const void* v, const void* dout,
-           void* dq, void* dk, void* dv, void* stats, int BH, int L,
+           void* dq, void* dk, void* dv, void* stats, int B, int H, int L,
            float scale, cudaStream_t s) {
   typedef Geo<D> G;
+  const int BH = B * H, Z = PACKED ? B : BH;
   CUtensorMap own[4], tile[4];  // q, dO, k, v in boxes of RT and of CT rows
   const void* src[4] = {q, dout, k, v};
+  const int width[4] = {PACKED ? 3 * H * D : D, PACKED ? H * D : D,
+                        PACKED ? 3 * H * D : D, PACKED ? 3 * H * D : D};
   for (int i = 0; i < 4; ++i) {
-    int err = make_map(&own[i], src[i], BH, L, D, RT);
-    if (!err) err = make_map(&tile[i], src[i], BH, L, D, CT);
+    int err = make_map(&own[i], src[i], Z, L, width[i], D, RT);
+    if (!err) err = make_map(&tile[i], src[i], Z, L, width[i], D, CT);
     if (err) return err;
   }
   const int nblk = (L + RT - 1) / RT;
   const int bytes1 = 2 * G::OWN + STAGES * 2 * G::TILE + 8 * (2 * STAGES + 1) + 1024;
   const int bytes2 =
       2 * G::OWN + STAGES * (2 * G::TILE + 1024) + 8 * (3 * STAGES + 1) + 1024;
-  int err = smem_setup(fused_bwd_dq_kernel<D>, bytes1);
-  if (!err) err = smem_setup(fused_bwd_dkdv_kernel<D>, bytes2);
+  int err = smem_setup(fused_bwd_dq_kernel<D, PACKED, TAIL>, bytes1);
+  if (!err) err = smem_setup(fused_bwd_dkdv_kernel<D, PACKED, TAIL>, bytes2);
   if (err) return err;
-  fused_bwd_dq_kernel<D><<<BH * nblk, THREADS, bytes1, s>>>(
-      own[0], own[1], tile[2], tile[3], (bf16*)dq, (float*)stats, L, nblk, scale);
+  fused_bwd_dq_kernel<D, PACKED, TAIL><<<BH * nblk, THREADS, bytes1, s>>>(
+      own[0], own[1], tile[2], tile[3], (bf16*)dq, (float*)stats, L, H, nblk, scale);
   err = (int)cudaGetLastError();
   if (err) return err;
-  fused_bwd_dkdv_kernel<D><<<BH * nblk, THREADS, bytes2, s>>>(
+  fused_bwd_dkdv_kernel<D, PACKED, TAIL><<<BH * nblk, THREADS, bytes2, s>>>(
       tile[0], tile[1], own[2], own[3], (const float*)stats, (bf16*)dk,
-      (bf16*)dv, L, nblk, scale);
+      (bf16*)dv, L, H, nblk, scale);
   return (int)cudaGetLastError();
 }
 
@@ -796,10 +909,25 @@ int uspace_fused_attention_bwd(const void* q, const void* k, const void* v,
   if (B < 1 || H < 1 || L < 1 || L > MAX_L) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (D == 32)
-    return launch<32>(q, k, v, dout, dq, dk, dv, stats, B * H, L, scale, s);
+    return launch<32, false, false>(q, k, v, dout, dq, dk, dv, stats, B, H, L, scale, s);
   if (D == 64)
-    return launch<64>(q, k, v, dout, dq, dk, dv, stats, B * H, L, scale, s);
+    return launch<64, false, false>(q, k, v, dout, dq, dk, dv, stats, B, H, L, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// qkv [B, L, 3*H*64] bf16 (the forward's input, packed [q | k | v] x heads)
+// and dout [B, L, H*64] bf16 -> dqkv [B, L, 3*H*64] bf16, 1 <= L <= 1024;
+// stats: f32 scratch of B*H*3*Lp floats, Lp = L rounded up to 64.
+int uspace_packed_attention_bwd(const void* qkv, const void* dout, void* dqkv,
+                                void* stats, int B, int L, int H, float scale,
+                                void* stream) {
+  if (B < 1 || H < 1 || L < 1 || L > MAX_L) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((L - 1) % CT < 16)  // the last tile: a 16-row chunk
+    return launch<64, true, true>(qkv, qkv, qkv, dout, dqkv, dqkv, dqkv, stats, B, H,
+                                  L, scale, s);
+  return launch<64, true, false>(qkv, qkv, qkv, dout, dqkv, dqkv, dqkv, stats, B, H, L,
+                                 scale, s);
 }
 
 }  // extern "C"
