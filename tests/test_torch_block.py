@@ -43,6 +43,7 @@ from uspace_tpu_torch.configs import get_config
 from uspace_tpu_torch.models import UViT
 from uspace_tpu_torch.models import layers as tlayers
 from uspace_tpu_torch.ops import attention as tattn
+from uspace_tpu_torch.ops import delta as tdelta
 from uspace_tpu_torch.ops import mlp as tmlp
 from uspace_tpu_torch.ops import quant as tquant
 
@@ -152,6 +153,67 @@ def test_mlp_block_bf16_twin_matches_jax(dt, hidden):
                                      *map(_t, ws), quant=False)
     assert out.dtype == td
     _close_dt(dt, out, ref, 1e-5, base=_t(a["x"], td))
+
+
+def _three_piece_bf16(x, w1, b1, w2, b2, ln=None):
+    """A mirror of the card's bf16 MLP (rows 12 and 13) as its pieces: the
+    LN pass (the bf16 chain of LN2, its f32 sums in the kernel's lane order)
+    writes xln in x's dtype; the fc1 GEMM's epilogue ``f32(xln . w1) + b1``,
+    GELU, rounds h to x's dtype over the whole hidden width at once (no
+    strips); the fc2 GEMM's epilogue rounds ``f32(h . w2) + b2`` to x's
+    dtype and adds x in x's dtype. Without ``ln`` it is row 12's function on
+    x."""
+    dt = x.dtype
+    xln = x
+    if ln is not None:
+        xf, c = x.float(), x.shape[-1]
+        mu = tquant.true_div(tdelta._lane_sum(xf), c)
+        var = tquant.true_div(tdelta._lane_sum(xf * xf), c) - mu * mu
+        inv = torch.rsqrt(var + ln[2]).to(dt)
+        xln = (x - mu.to(dt)) * inv * ln[0].to(dt) + ln[1].to(dt)
+    pre = torch.matmul(xln.float(), w1.to(dt).float()) + b1.float()
+    h = tmlp._gelu_f32(pre).to(dt)
+    m = (torch.matmul(h.float(), w2.to(dt).float()) + b2.float()).to(dt)
+    return m if ln is None else x + m
+
+
+@pytest.mark.parametrize("hidden", [250, 384])
+@pytest.mark.parametrize("lnres", [True, False])
+@pytest.mark.parametrize("dt", list(DT))
+def test_three_piece_bf16_keeps_the_rounding_sites(dt, lnres, hidden):
+    """Rows 12 and 13 as the card runs them (an LN pass, fc1 and fc2 over
+    the whole hidden width) against the interpreted JAX kernels
+    (_mlp_kernel_bf16_lnres through fused_mlp_block_q, _mlp_kernel_bf16
+    through fused_mlp) and against the twins, at the file's tolerances:
+    the TPU kernels' hidden strips (2 of 125 or 4 of 96 columns here) only
+    order f32 sums, and the lane-order LN sums move no rounding site. In
+    bf16 all but a few outputs equal the twin's bit for bit (the hidden kept
+    in f32 moves 16-41% of them here)."""
+    jd, td = DT[dt]
+    a = _mlp_inputs(21 + hidden, hidden)
+    ws = [a[k] for k in ("w1", "b1", "w2", "b2")]
+    x = _t(a["x"], td).reshape(-1, C)
+    w1, b1, w2, b2 = map(_t, ws)
+    s = tmlp.col_slices(hidden)
+    x3 = _t(a["x"], td)
+    if lnres:
+        ln = (_t(a["s"]), _t(a["b"]), 1e-5)
+        ref = jmlp.fused_mlp_block_q(
+            jnp.asarray(a["x"], jd), jnp.asarray(a["s"]), jnp.asarray(a["b"]),
+            *map(jnp.asarray, ws), quant=False, interpret=True)
+        twin = tmlp.ln_mlp_bf16_plain(x, *ln[:2], w1, b1, w2, b2, s, 1e-5)
+    else:
+        ln = None
+        ref = jmlp.fused_mlp(jnp.asarray(a["x"], jd), *map(jnp.asarray, ws),
+                             quant=False, interpret=True)
+        twin = tmlp.mlp_bf16_plain(x, w1, b1, w2, b2, s)
+    mine = _three_piece_bf16(x, w1, b1, w2, b2, ln)
+    assert mine.dtype == td
+    _close_dt(dt, mine.reshape(x3.shape), ref, 1e-5,
+              base=x3 if lnres else None)
+    _close_dt(dt, mine, twin, 1e-5, base=x if lnres else None)
+    if dt == "bf16":
+        assert float((mine != twin).float().mean()) <= 0.01
 
 
 def test_fused_mlp_defaults_to_bf16_as_in_jax():

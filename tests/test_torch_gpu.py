@@ -25,7 +25,8 @@ bf16 rel-L2, the int8 sub-block (row 11) the int8 attention one; the bf16
 MLP max-abs one bf16 step of its largest output (its outputs pass 2, where
 a step exceeds 1e-2), each sub-block one step of its largest update plus
 one of its largest output (its bf16 residual add rounds a second time) and
-rel-L2 on its update out - x. The stage-delta kernels (rows 18 to 25 of
+rel-L2 on its update out - x; the pieces of
+the bf16 MLP (rows 12 and 13) alone as row 16's, every repeat bit-equal. The stage-delta kernels (rows 18 to 25 of
 the kernel table, in the three hidden modes) take the int8 limits: the base kernels on every output, caches
 included (codes one step apart at most, scales within 1e-6), the delta
 kernels on what they add to the cache (``xm - xm_b``, ``o - x - m_b``) with
@@ -1073,6 +1074,102 @@ def test_bf16_mlp_wrappers_count_launches_and_refuse(cuda):
     with pytest.raises(NotImplementedError, match="inference-only"):
         mlp.fused_mlp_block_q(x, bb[:256] + 1, bb[:256], w1, bb, w2,
                               bb[:256], quant=False)
+
+
+@pytest.mark.parametrize("rows,c", [(12850, 1024), (7, 256), (33, 768),
+                                    (70, 1280)])
+def test_bf16_ln_pass_is_bit_exact(cuda, rows, c):
+    """Row 13's LN pass equals the bf16-chain twin taken in the kernel's
+    lane order bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(rows + c + 1)
+    x = (_rand(g, rows, c).float() * 3 + 0.5).to(torch.bfloat16)
+    lns = 1 + _rand(g, c, std=0.1, dtype=torch.float32)
+    lnb = _rand(g, c, std=0.1, dtype=torch.float32)
+    out = mlp._bf16_ln_kernel(x, lns, lnb, 1e-5)
+    assert torch.equal(out, _ln_chain_lanes(x, lns, lnb, 1e-5))
+
+
+FC2_TILE_ROWS = 208  # fc2's tile of rows (csrc/mlp_bf16.cu MLP_BF16_BX2)
+
+
+@pytest.mark.parametrize("m,c", [(12850, 1024), (1, 512), (63, 256),
+                                 (129, 768), (FC2_TILE_ROWS - 1, 256),
+                                 (FC2_TILE_ROWS, 256),
+                                 (FC2_TILE_ROWS + 1, 256)])
+def test_bf16_gemms_match_f32_products(cuda, m, c):
+    """Rows 12 and 13's fc1 and fc2 GEMMs against the f32 product of the
+    same bf16 operands, element by element: fc1 through its GELU epilogue
+    within one bf16 step of the output plus GELU's slope (< 1.13) times the
+    reordering bound; fc2 with a zero bias within one bf16 step plus f32
+    reordering, and its sub-block epilogue with a zero residual giving the
+    same bits. Two calls of each give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(m + c + 2)
+    hid = 4 * c
+    a = _rand(g, m, c)
+    w1 = _rand(g, hid, c, std=0.02)  # torch-layout rows
+    b1 = _rand(g, hid, std=0.5, dtype=torch.float32)
+    h = mlp._bf16_fc1_kernel(a, w1, b1)
+    assert torch.equal(h, mlp._bf16_fc1_kernel(a, w1, b1))
+    pre = a.float() @ w1.float().t() + b1
+    ref = mlp._gelu_f32(pre)
+    top = ref.abs().clamp_min(2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    reorder = 2 * c * 2.0 ** -24 * (a.float().abs() @ w1.float().abs().t())
+    err = (h.float() - ref).abs() / (step + 1.13 * reorder + 1e-6 * pre.abs()
+                                     + 1e-30)
+    assert float(err.max()) <= 1.0
+    w2 = _rand(g, c, hid, std=0.02)
+    zb = torch.zeros(c, device=cuda)
+    out = mlp._bf16_fc2_kernel(h, w2, zb)
+    assert torch.equal(out, mlp._bf16_fc2_kernel(h, w2, zb))
+    assert _bf16_steps(out, h.float() @ w2.float().t(), h, w2) <= 1.0
+    zero = torch.zeros(m, c, dtype=torch.bfloat16, device=cuda)
+    assert torch.equal(mlp._bf16_fc2_kernel(h, w2, zb, zero), out)
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+def test_bf16_fc1_rounds_gelu_as_the_twin(cuda, scale):
+    """fc1's GELU epilogue rounds every value as the twin's f32 sequence
+    (``_gelu_f32``, then bf16) does, bit for bit, over 52.6 M
+    pre-activations that every order of the f32 sum gives exactly (one
+    nonzero product per output, then the f32 bias)."""
+    g = torch.Generator(device=cuda).manual_seed(int(scale) + 11)
+    m, c, hid = 12850, 64, 4096
+    bf = torch.bfloat16
+    a = torch.zeros(m, c, dtype=bf, device=cuda)
+    a[:, 0] = ((torch.rand(m, generator=g, device=cuda) * 2 - 1)
+               * scale).to(bf)
+    w1 = torch.zeros(hid, c, dtype=bf, device=cuda)
+    w1[:, 0] = (torch.rand(hid, generator=g, device=cuda) * 2 - 1).to(bf)
+    b1 = torch.randn(hid, generator=g, device=cuda) * 0.5
+    h = mlp._bf16_fc1_kernel(a, w1, b1)
+    pre = a[:, :1].float() * w1[:, 0].float() + b1  # exact product, + b1
+    assert torch.equal(h, mlp._gelu_f32(pre).to(bf))
+
+
+@pytest.mark.parametrize("rows", [1, FC2_TILE_ROWS - 1, FC2_TILE_ROWS,
+                                  FC2_TILE_ROWS + 1, 12850])
+def test_bf16_mlp_repeats_are_bit_equal(cuda, rows):
+    """Rows 12 and 13 give the same bits on a repeat (no split-K, no
+    atomics: one order of every sum), one launch counted a call."""
+    c = 1024 if rows == 12850 else 256
+    g = torch.Generator(device=cuda).manual_seed(rows + 9)
+    hid = 4 * c
+    x = _rand(g, rows, c)
+    w1 = _rand(g, c, hid, std=0.02)
+    b1 = _rand(g, hid, std=0.02, dtype=torch.float32)
+    w2 = _rand(g, hid, c, std=0.02)
+    b2 = _rand(g, c, std=0.02, dtype=torch.float32)
+    lns = 1 + _rand(g, c, std=0.1, dtype=torch.float32)
+    lnb = _rand(g, c, std=0.1, dtype=torch.float32)
+    mlp.reset_launches()
+    with torch.no_grad():
+        ys = [mlp.fused_mlp_block_q(x, lns, lnb, w1, b1, w2, b2, quant=False)
+              for _ in range(2)]
+        zs = [mlp.fused_mlp(x, w1, b1, w2, b2) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1]) and torch.equal(zs[0], zs[1])
+    assert mlp.LAUNCHES["ln_mlp_bf16"] == 2 and mlp.LAUNCHES["mlp_bf16"] == 2
 
 
 @pytest.mark.parametrize("view,counts", [

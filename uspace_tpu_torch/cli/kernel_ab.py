@@ -30,19 +30,22 @@ pieces of row 5 before its core); a base ``attention.cu`` from before the
 projection's workspace arguments, or from before row 5's, is called with
 its own interface, and so is a base ``mlp_w8.cu`` from before row 16's
 workspaces (row 16's pieces, ``w8_ln_rows``, ``w8_fc1`` and ``w8_fc2``,
-are timed on the new build alone). A row 4 or row 8 entry point of a base
+are timed on the new build alone) and a base ``mlp_bf16.cu`` from before
+rows 12 and 13 took theirs (their pieces, ``bf16_ln_rows``, ``bf16_fc1``
+and ``bf16_fc2``, likewise). A row 4 or row 8 entry point of a base
 ``attention_bwd.cu`` or ``fused_attention_bwd.cu`` is timed against this
 checkout's ``fused_attention_bwd.cu``. For ``attention`` the int8 and bf16
 projections of this checkout are also timed over K = 256 .. 2048 beside
-``torch._int_mm``. Beside each device time stands the
+``torch._int_mm``; for ``mlp_bf16`` fc1's GEMM is also timed with fc2's
+bias epilogue in place of its GELU one. Beside each device time stands the
 host's time a call (``host_us``: the wall time of the timed calls, which
 only enqueue, over their number). The two kernels of each backward entry
 point are also timed apart (torch.profiler's device time by kernel name,
 each build). For ``attention_fwd`` each build is also held to the twin at
-chip_smoke.py's three phase-3 shapes (max-abs, rel-L2). For
-``attention``, ``attention_fwd``, ``fused_attention_bwd`` and ``mlp_w8``
+chip_smoke.py's three phase-3 shapes (max-abs, rel-L2). For ``attention``,
+``attention_fwd``, ``fused_attention_bwd``, ``mlp_w8`` and ``mlp_bf16``
 the host time a call of this checkout's Python wrapper of the redesigned
-rows (5, 7, 4 and 16) is printed beside its device time.
+rows (5, 7, 4, 16 and 13) is printed beside its device time.
 ``--tree <checkout>`` instead
 runs ``chip_smoke.py``'s phase 3 (every kernel against its twin, timed at
 its path's shape, with its library yardstick) from another checkout, such
@@ -93,7 +96,7 @@ TRAIN_B = 128
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # attention.cu before its bf16 projection routes took workspaces, and
 # before its int8 LN route did; mlp_w8.cu before its LN2 + residual route
-# did
+# did; mlp_bf16.cu before both of its routes did
 _LEGACY_ATTENTION = {
     "uspace_qkvproj_attention": (_P, _P, _P, _I, _I, _I, _F, _P),
     "uspace_ln_qkvproj_attention": (_P,) * 5 + (_I, _I, _I, _F, _F, _P),
@@ -101,13 +104,18 @@ _LEGACY_ATTENTION = {
 _LEGACY_INT8 = {"uspace_ln_qkvproj_attention_int8": (_P,) * 6 + (
     _I, _I, _I, _F, _F, _P)}
 _LEGACY_W8 = {"uspace_ln_mlp_w8": (_P,) * 10 + (_I,) * 4 + (_F, _P)}
+_LEGACY_BF16 = {"uspace_mlp_bf16": (_P,) * 6 + (_I,) * 4 + (_P,),
+                "uspace_ln_mlp_bf16": (_P,) * 8 + (_I,) * 4 + (_F, _P)}
 
 
 def _legacy(lib: ctypes.CDLL) -> bool:
-    """An attention.cu whose bf16 projection routes take no workspace, or
-    an mlp_w8.cu whose LN2 + residual route takes none."""
+    """An attention.cu whose bf16 projection routes take no workspace, an
+    mlp_w8.cu whose LN2 + residual route takes none, or an mlp_bf16.cu
+    whose routes take none."""
     if hasattr(lib, "uspace_ln_mlp_w8"):
         return not hasattr(lib, "uspace_w8_fc1")
+    if hasattr(lib, "uspace_ln_mlp_bf16"):
+        return not hasattr(lib, "uspace_bf16_fc1")
     return (hasattr(lib, "uspace_qkvproj_attention")
             and not hasattr(lib, "uspace_qkv_gemm"))
 
@@ -124,8 +132,8 @@ def _load(source: str, path: str, out: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(out)
     sigs = dict(_build.SIGNATURES[source])
     if _legacy(lib):
-        sigs.update({"attention": _LEGACY_ATTENTION,
-                     "mlp_w8": _LEGACY_W8}.get(source, {}))
+        sigs.update({"attention": _LEGACY_ATTENTION, "mlp_w8": _LEGACY_W8,
+                     "mlp_bf16": _LEGACY_BF16}.get(source, {}))
     if _legacy_int8(lib):
         sigs.update(_LEGACY_INT8)
     for fn, argtypes in sigs.items():
@@ -229,9 +237,10 @@ def main(argv=None) -> None:
           rows, C, hid, C)
     xln_rows = torch.empty(rows, C, dtype=bf, device=dev)  # row 16's
     h_rows = torch.empty(rows, hid, dtype=bf, device=dev)  # workspaces
-    w1b, w2b = q1.q.to(bf), q2.q.to(bf)  # bf16 weights, torch layout
-    bw = (w1b.data_ptr(), b1.data_ptr(), w2b.data_ptr(), b2.data_ptr(),
-          out.data_ptr(), rows, C, hid, C)
+    # bf16 weights at a trained layer's scale, torch layout
+    w1h = (torch.randn(hid, C, generator=g, device=dev) * 0.02).to(bf)
+    w2h = (torch.randn(C, hid, generator=g, device=dev) * 0.02).to(bf)
+    bw = (w1h.data_ptr(), b1.data_ptr(), w2h.data_ptr(), b2.data_ptr())
     wp = (torch.randn(C, C, generator=g, device=dev) * 0.02).to(bf)
     qp = quantized_weight(wp.float().t())
     codes = torch.empty(rows, C, dtype=torch.int8, device=dev)
@@ -324,9 +333,24 @@ def main(argv=None) -> None:
         "w8_fc2": lambda lib: lib.uspace_w8_fc2(
             h_rows.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(),
             b2.data_ptr(), x.data_ptr(), out.data_ptr(), rows, hid, C, s),
-        "mlp_bf16": lambda lib: lib.uspace_mlp_bf16(x.data_ptr(), *bw, s),
+        "mlp_bf16": lambda lib: lib.uspace_mlp_bf16(
+            x.data_ptr(), *bw,
+            *(() if _legacy(lib) else (h_rows.data_ptr(),)),
+            out.data_ptr(), rows, C, hid, C, s),
         "ln_mlp_bf16": lambda lib: lib.uspace_ln_mlp_bf16(
-            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *bw, 1e-5, s),
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *bw,
+            *(() if _legacy(lib) else (xln_rows.data_ptr(), h_rows.data_ptr())),
+            out.data_ptr(), rows, C, hid, C, 1e-5, s),
+        # rows 12 and 13's pieces (fc2 as row 13's, with the residual)
+        "bf16_ln_rows": lambda lib: lib.uspace_bf16_ln_rows(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), xln_rows.data_ptr(),
+            rows, C, 1e-5, s),
+        "bf16_fc1": lambda lib: lib.uspace_bf16_fc1(
+            xln_rows.data_ptr(), w1h.data_ptr(), b1.data_ptr(),
+            h_rows.data_ptr(), rows, C, hid, s),
+        "bf16_fc2": lambda lib: lib.uspace_bf16_fc2(
+            h_rows.data_ptr(), w2h.data_ptr(), b2.data_ptr(), x.data_ptr(),
+            out.data_ptr(), rows, hid, C, s),
         "ln_bf16": lambda lib: lib.uspace_ln_bf16(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), out.data_ptr(),
             rows, C, 1e-5, s),
@@ -444,6 +468,13 @@ def main(argv=None) -> None:
         }), flush=True)
     if a.source == "attention":
         gemm_k_sweep(libs["new"], s, time_ms)
+    if a.source == "mlp_bf16":  # what fc1's GELU epilogue costs
+        print(json.dumps({
+            "fc1_gemm_with_fc2_epilogue_ms": time_ms(
+                lambda lib: lib.uspace_bf16_fc2(
+                    xln_rows.data_ptr(), w1h.data_ptr(), b1.data_ptr(), None,
+                    h_rows.data_ptr(), rows, C, hid, s), libs["new"])[0],
+            "card": torch.cuda.get_device_name(0)}), flush=True)
     if a.source == "attention_fwd":
         fwd_agreement(libs, s, time_ms)
     if a.source == "fused_attention_bwd":
@@ -462,6 +493,8 @@ def main(argv=None) -> None:
                                     qkv_t, do_t, H, 0.125)),
         "mlp_w8": ("ln_mlp_w8", lambda: mlp._mlp_w8_kernel(
             x.reshape(rows, C), q1, b1, q2, b2, (lns, lnb, 1e-5))),
+        "mlp_bf16": ("ln_mlp_bf16", lambda: mlp._mlp_bf16_kernel(
+            x.reshape(rows, C), w1h.t(), b1, w2h.t(), b2, (lns, lnb, 1e-5))),
     }
     if a.source in wrappers:
         wrapper_host(*wrappers[a.source], time_ms)

@@ -8,7 +8,7 @@
 // GFLOP bf16 over an H100 SXM's 989 TFLOP/s = 218 us; 69 MB moved (bf16 x in
 // and out, bf16 weights, f32 biases) = 21 us; operations bound.
 //
-// What each block computes is what the TPU kernel computes for its rows:
+// What both compute is what the TPU kernels compute for their rows:
 // - LN2 (lnres): f32 statistics (var = E[x^2] - mu^2, each divided by C with
 //   one rounding), mu and rsqrt(var + eps) rounded to bf16, then normalised
 //   in bf16 with the scale and bias rounded to bf16, each subtract, product
@@ -24,30 +24,65 @@
 // twice. The TPU kernel's hidden strips (hidden / 4 columns) are only tiling:
 // each hidden column is rounded once, whatever the strip.
 //
-// Design: the structure of mlp_w8.cu with bf16 weight tiles (simple first;
-// wgmma/TMA are later work):
-// - One block of 16 warps per 32 rows. The block walks the hidden width in
-//   chunks of 256 columns: for each chunk it computes the [32, 256] fc1 tile
-//   (each warp 32 rows x 16 columns), writes GELU's bf16 output to a shared
-//   tile, and adds that chunk's fc2 product into f32 output accumulators that
-//   stay in registers for the whole kernel (each warp 32 rows x 64 output
-//   columns).
-// - The block's rows (x, or LN2(x)) sit in shared memory as bf16 for all of
-//   fc1; a row padding of 16 elements makes the 64-bit fragment loads free of
-//   bank conflicts.
-// - Tensor cores through mma.sync m16n8k16 bf16 -> f32. Within each k16 step
-//   the k index is permuted the same way for A and B (thread t's logical k
-//   2t, 2t+1, 2t+8, 2t+9 are physical 4t .. 4t+3), so a thread reads each
-//   fragment row as one 64-bit load.
-// - Weight chunks (fc1: 256 rows x 64 elements, fc2: out rows x 16 elements,
-//   32 KB each) stream through a ring of four shared-memory stages by
-//   cp.async, their 16-byte segments XOR-swizzled by row so that the 64-bit
-//   fragment loads of a half-warp (four rows) fall on distinct banks; three
-//   chunks are in flight under the current chunk's MMAs.
-// - Every block reads both bf16 weight matrices (16 MB at U-ViT-large) from
-//   L2. Dynamic shared memory (~210 KB) is enabled per launch; each entry
-//   point returns cudaGetLastError().
+// Each entry point is a sequence of kernels on one stream, counted as one
+// launch by its wrapper; h (and xln) make one round trip through device
+// memory (105 and 26 MB at the main path's shape; the TPU kernel rounds h to
+// bf16 too, so no rounding is added):
+// - bf16_ln_kernel (lnres): LN2 once per row, one warp per row with the row
+//   in registers, the f32 sums in lane order, the scales and biases read as
+//   16-byte vectors; xln [R, C] bf16.
+// - gemm_kernel<EPI_GELU> (fc1): h [R, hidden] = the GELU epilogue of
+//   xln . W1^T; gemm_kernel<EPI_BIAS or EPI_RESIDUAL> (fc2): out = [x +] the
+//   bf16 epilogue of h . W2^T over the whole hidden width. Both operands are
+//   K-major (the rows of x or h, and the torch-layout [N, K] weight rows), and
+//   the kernel computes the transpose W . x^T, so that a tile's row count of
+//   x is wgmma's N and can be any multiple of 8: a tile is 128 weight rows
+//   (output columns) x 256 (fc1) or 208 (fc2) rows of x.
+// - A 128 x 256 tile reads 768 bytes of its operands from L2 per 64 K
+//   operations, 1.26 GB a GEMM at the main path's shape. So the two blocks of
+//   a cluster take neighbouring weight tiles of the same rows of x, and each
+//   loads half of those rows and multicasts it to both (TMA
+//   .multicast::cluster): 512 bytes a block per 64 K operations, 0.84 GB a
+//   GEMM. On an H100 that took fc2 from 0.193 to 0.168 ms; fc1, bound by its
+//   epilogue, did not move.
+// - A producer warpgroup (one thread issues) keeps TMA loads of 64-deep K
+//   chunks (128-byte swizzle) in flight into a ring of 4 stages guarded by
+//   full and empty mbarriers; a stage is refilled once the consumer warps of
+//   both blocks of the cluster have released it. It hands its registers to
+//   the consumers (setmaxnreg 24 / 240). Each of the two consumer warpgroups
+//   takes 64 weight rows and runs wgmma.mma_async m64nNk16 with both
+//   operands from shared memory and the f32 accumulators in registers.
+// - The grid is persistent: one cluster per two SMs walks its tiles, and the
+//   producer loads the next tile's first chunks while the consumers run the
+//   epilogue of this one (fc1 0.30 -> 0.27 ms on an H100).
+// - Epilogue: each pair of outputs, rounded to bf16, is a fragment row of an
+//   8 x 8 matrix, which stmatrix .trans writes into a staging tile of the
+//   warpgroup's own (64 rows of x x 64 columns at a time, outside the ring),
+//   which the warpgroup then stores row by row in 16-byte pieces (adding x
+//   for fc2 of the sub-block).
+// - fc2's tile takes 208 rows of x, not 256: at the main path's 12850 rows
+//   its 62 x 8 tiles are 3.76 waves of 132 blocks where 256-row tiles (51 x
+//   8) are 3.09, a fourth wave 9% full (0.207 -> 0.170 ms on an H100; a
+//   multicast half must be a multiple of 8 rows, so not 200). fc1 on
+//   208-row tiles measured within 2% of 256.
+// What binds it on an H100: fc1's GELU epilogue, about 40 instructions a
+// value over 52.6 M values while the block's tensor cores idle, is about
+// 0.09 of fc1's 0.27 ms (the same GEMM with fc2's bias epilogue takes 0.17
+// to 0.18); the GEMMs themselves run at about 630 TFLOP/s. Two ways to
+// hide or shrink the GELU were measured and lost: consumer warpgroups
+// taking whole 64-row tiles in turn (ping-pong: fc1 0.29-0.31,
+// fc2 0.19-0.21 ms: a 64-row tile reads 1.5x the L2 bytes per operation,
+// and one warpgroup's wgmma stream), and a cheaper GELU with multiply-adds,
+// rcp.approx and ex2.approx kept only where its bf16 rounding is certain
+// (bit-equal over 158 M values, but its check and fallback cost as many
+// instructions as it saved: fc1 0.34-0.57 ms in four forms).
+// - No split-K and no atomics: each output's sum runs in one fixed order,
+//   so every call gives the same bits, in every design above. Rows past R
+//   are zero-filled by TMA and never stored.
+// Dynamic shared memory past 48 KB is enabled per launch; each entry point
+// returns cudaGetLastError() or the first error of its sequence.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,87 +91,8 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int ROWS = 32;          // rows per block
-constexpr int WARPS = 16;
-constexpr int THREADS = WARPS * 32;
-constexpr int HC = 256;           // hidden columns per chunk: 16 per warp in fc1
-constexpr int KC1 = 64;           // fc1 K chunk, elements of W1 (8 segments)
-constexpr int KC2 = 16;           // fc2 K chunk, elements of W2 (2 segments)
-constexpr int NSTAGE = 4;         // weight ring depth
-constexpr int STAGE = 32768;      // HC * KC1 * 2 = largest out_dim * KC2 * 2
-constexpr int PAD = 16;           // bf16 row padding of the A tiles
 constexpr int MAX_ROW_VEC = 8;    // a row in registers: C <= 8 * 8 * 32
 constexpr int MAX_SMEM = 232448;  // H100: 227 KB of dynamic smem per block
-
-__host__ __device__ inline int align128(int x) { return (x + 127) & ~127; }
-
-struct Layout {
-  int hid_off, ring_off, bytes;
-};
-
-// [ROWS, C + PAD] bf16 rows, [ROWS, HC + PAD] bf16 hidden chunk, the ring.
-__host__ __device__ inline Layout make_layout(int C) {
-  Layout s;
-  s.hid_off = align128(ROWS * (C + PAD) * 2);
-  s.ring_off = align128(s.hid_off + ROWS * (HC + PAD) * 2);
-  s.bytes = s.ring_off + NSTAGE * STAGE;
-  return s;
-}
-
-__device__ inline void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Byte offset of (row, byte b) in a tile of rows of P 16-byte segments. With
-// P = 8 the segments are XOR-swizzled by ((row & 3) << 1) | ((row >> 2) & 1),
-// so the 32 bytes a half-warp reads from each of four consecutive rows fall
-// on four distinct groups of 8 banks. With P = 2 four consecutive rows are
-// 128 contiguous bytes already.
-template <int P>
-__device__ inline int swz(int row, int b) {
-  const int sh = P == 8 ? (((row & 3) << 1) | ((row >> 2) & 1)) : 0;
-  return row * P * 16 + (((b >> 4) ^ sh) << 4) + (b & 15);
-}
-
-__device__ inline void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// B fragment of four bf16 weights (physical k 4t .. 4t+3) at p: logical k
-// 2t, 2t+1 in b0 and 2t+8, 2t+9 in b1.
-__device__ inline void b_frag(const unsigned char* p, unsigned& b0, unsigned& b1) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  b0 = w.x;
-  b1 = w.y;
-}
-
-// A fragments of one m16 tile: rows r and r + 8 of a bf16 tile (row stride
-// ld elements) at physical k .. k+3.
-__device__ inline void a_frag(const bf16* tile, int r, int ld, int k, unsigned (&a)[4]) {
-  const uint2 lo = *reinterpret_cast<const uint2*>(tile + r * ld + k);
-  const uint2 hi = *reinterpret_cast<const uint2*>(tile + (r + 8) * ld + k);
-  a[0] = lo.x;
-  a[1] = hi.x;
-  a[2] = lo.y;
-  a[3] = hi.y;
-}
 
 // bf16 arithmetic as the TPU kernel's: each result rounded to bf16 (the f32
 // product of two bf16 is exact, so this is the correctly rounded op)
@@ -166,281 +122,641 @@ __device__ inline float gelu_poly(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, erf));
 }
 
-// Rows row0.. of x [-> LN2] into the bf16 tile xa (row stride ld); rows >= R
-// are zero. One warp per row, the row held in registers.
-template <bool LN>
-__device__ void load_rows(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-                          const float* __restrict__ ln_b, int row0, int R, int C,
-                          float eps, bf16* xa, int ld) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nvec = C / 8;
-  for (int rr = warp; rr < ROWS; rr += WARPS) {
-    const int r = row0 + rr;
-    uint4* dst = reinterpret_cast<uint4*>(xa + rr * ld);
-    if (r >= R) {
-      for (int v = lane; v < nvec; v += 32) dst[v] = make_uint4(0u, 0u, 0u, 0u);
-      continue;
+// ---------------------------------------------------------------------------
+// The LN2 pass (row 13's first piece)
+// ---------------------------------------------------------------------------
+
+constexpr int LN_WARPS = 8;  // one warp per row
+
+// LN2 as the bf16 chain of _mlp_kernel_bf16_lnres: xln [R, C] bf16. NV: the
+// 16-byte vectors a lane holds (C <= NV * 256).
+template <int NV>
+__global__ void __launch_bounds__(LN_WARPS * 32)
+bf16_ln_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+               const float* __restrict__ ln_b, bf16* __restrict__ xln, int R, int C,
+               float eps) {
+  const int lane = threadIdx.x & 31, nvec = C / 8;
+  const int r = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const uint4* row = reinterpret_cast<const uint4*>(x + (size_t)r * C);
+  uint4 v[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (lane + 32 * i < nvec) v[i] = __ldg(row + lane + 32 * i);
+  float sum = 0.f, sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (lane + 32 * i >= nvec) continue;
+    const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float f = __bfloat162float(e[j]);
+      sum = __fadd_rn(sum, f);
+      sq = __fadd_rn(sq, __fmul_rn(f, f));
     }
-    const uint4* row = reinterpret_cast<const uint4*>(x + (size_t)r * C);
-    uint4 v[MAX_ROW_VEC];
+  }
 #pragma unroll
-    for (int i = 0; i < MAX_ROW_VEC; ++i)
-      if (lane + 32 * i < nvec) v[i] = __ldg(row + lane + 32 * i);
-    if (LN) {
-      float sum = 0.f, sq = 0.f;
+  for (int o = 16; o > 0; o >>= 1) {
+    sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
+    sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, o));
+  }
+  const float mu = __fdiv_rn(sum, (float)C);
+  const float var = __fsub_rn(__fdiv_rn(sq, (float)C), __fmul_rn(mu, mu));
+  const bf16 mu_b = __float2bfloat16_rn(mu);
+  const bf16 inv_b = __float2bfloat16_rn(rsqrtf(__fadd_rn(var, eps)));
+  uint4* dst = reinterpret_cast<uint4*>(xln + (size_t)r * C);
 #pragma unroll
-      for (int i = 0; i < MAX_ROW_VEC; ++i) {
-        if (lane + 32 * i >= nvec) continue;
-        const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
+  for (int i = 0; i < NV; ++i) {
+    const int vi = lane + 32 * i;
+    if (vi >= nvec) continue;
+    // this vector's 8 scales and biases, as two 16-byte loads each
+    float sc[8], bi[8];
+    const float4* s4 = reinterpret_cast<const float4*>(ln_s) + 2 * vi;
+    const float4* b4 = reinterpret_cast<const float4*>(ln_b) + 2 * vi;
+    *reinterpret_cast<float4*>(sc) = __ldg(s4);
+    *reinterpret_cast<float4*>(sc + 4) = __ldg(s4 + 1);
+    *reinterpret_cast<float4*>(bi) = __ldg(b4);
+    *reinterpret_cast<float4*>(bi + 4) = __ldg(b4 + 1);
+    bf16* e = reinterpret_cast<bf16*>(&v[i]);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float f = __bfloat162float(e[j]);
-          sum = __fadd_rn(sum, f);
-          sq = __fadd_rn(sq, __fmul_rn(f, f));
-        }
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
-        sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, o));
-      }
-      const float mu = __fdiv_rn(sum, (float)C);
-      const float var = __fsub_rn(__fdiv_rn(sq, (float)C), __fmul_rn(mu, mu));
-      const bf16 mu_b = __float2bfloat16_rn(mu);
-      const bf16 inv_b = __float2bfloat16_rn(rsqrtf(__fadd_rn(var, eps)));
-      // normalise in bf16 in place: ((x - mu) * inv) * s + b
-#pragma unroll
-      for (int i = 0; i < MAX_ROW_VEC; ++i) {
-        if (lane + 32 * i >= nvec) continue;
-        bf16* e = reinterpret_cast<bf16*>(&v[i]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = (lane + 32 * i) * 8 + j;
-          e[j] = badd(bmul(bmul(bsub(e[j], mu_b), inv_b),
-                           __float2bfloat16_rn(__ldg(ln_s + c))),
-                      __float2bfloat16_rn(__ldg(ln_b + c)));
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MAX_ROW_VEC; ++i)
-      if (lane + 32 * i < nvec) dst[lane + 32 * i] = v[i];
+    for (int j = 0; j < 8; ++j)  // ((x - mu) * inv) * s + b, each rounded to bf16
+      e[j] = badd(bmul(bmul(bsub(e[j], mu_b), inv_b), __float2bfloat16_rn(sc[j])),
+                  __float2bfloat16_rn(bi[j]));
+    dst[vi] = v[i];
   }
 }
 
-// NT2: 8-column output tiles per warp (out_dim = 16 * NT2 * 8).
-template <int NT2, bool LN>
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-                const float* __restrict__ ln_b, const bf16* __restrict__ w1,
-                const float* __restrict__ b1, const bf16* __restrict__ w2,
-                const float* __restrict__ b2, bf16* __restrict__ out, int R, int C,
-                int hidden, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int OUT = WARPS * NT2 * 8;
-  const Layout lay = make_layout(C);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * ROWS;
-  bf16* xa = reinterpret_cast<bf16*>(smem);
-  bf16* hid = reinterpret_cast<bf16*>(smem + lay.hid_off);
-  unsigned char* ring = smem + lay.ring_off;
-  const int lda = C + PAD, ldh = HC + PAD;
+// ---------------------------------------------------------------------------
+// fc1 and fc2: the wgmma GEMM of W . x^T
+// ---------------------------------------------------------------------------
 
-  // pipeline items, per hidden chunk: C / KC1 of W1 rows, then HC / KC2 of W2
-  const int n1 = C / KC1, nper = n1 + HC / KC2;
-  const int nitems = (hidden / HC) * nper;
-  auto fetch = [&](int i) {
-    unsigned char* st = ring + (i % NSTAGE) * STAGE;
-    const int hc = i / nper, k = i % nper;
-    if (k < n1) {  // W1: hidden rows hc*HC.., columns k*KC1..
-      const bf16* src = w1 + (size_t)hc * HC * C + k * KC1;
-      for (int v = tid; v < HC * 8; v += THREADS) {
-        const int n = v >> 3, seg = v & 7;
-        cp_async16(st + swz<8>(n, seg * 16), src + (size_t)n * C + seg * 8);
-      }
-    } else {  // W2: all output rows, hidden columns hc*HC + (k-n1)*KC2..
-      const bf16* src = w2 + hc * HC + (k - n1) * KC2;
-      for (int v = tid; v < OUT * 2; v += THREADS) {
-        const int n = v >> 1, seg = v & 1;
-        cp_async16(st + swz<2>(n, seg * 16), src + (size_t)n * hidden + seg * 8);
-      }
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    if (s < nitems) fetch(s);
-    cp_async_commit();
-  }
-  load_rows<LN>(x, ln_s, ln_b, row0, R, C, eps, xa, lda);
+constexpr int CL = 2;                     // blocks a cluster, sharing rows of x
+constexpr int FC1_ROWS = 256, FC2_ROWS = 208;  // rows of x a tile (see above)
+constexpr int G_BW = 128;                 // weight rows (output columns) a tile
+constexpr int G_BK = 64;                  // K chunk: one 128-byte swizzle row
+constexpr int G_STAGES = 4;               // the TMA ring
+constexpr int G_THREADS = 384;            // two consumer warpgroups, then a producer
+constexpr int G_W_BYTES = G_BW * G_BK * 2;
+constexpr int E_ROWS = 64;                // rows of x a staging pass
+constexpr int E_PITCH = 64 * 2 + 16;      // a staging row (64 columns), bytes
+constexpr int E_BYTES = E_ROWS * E_PITCH;  // a consumer warpgroup's staging tile
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+enum { EPI_GELU = 0, EPI_BIAS = 1, EPI_RESIDUAL = 2 };
 
-  float acc2[2][NT2][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc2[mt][nt][e] = 0.f;
-  float acc1[2][2][4] = {};
+// a ring stage: 128 weight rows, then BX rows of x, each 1024-byte aligned
+template <int BX>
+struct Tile {
+  static constexpr int X_BYTES = BX * G_BK * 2;
+  static constexpr int STAGE = G_W_BYTES + X_BYTES;
+  static constexpr int SMEM = 1024 + G_STAGES * STAGE + 2 * E_BYTES + 2 * G_STAGES * 8;
+  static_assert(SMEM <= MAX_SMEM, "the ring and the staging tiles fit");
+  static_assert(X_BYTES % 1024 == 0 && BX % (8 * CL) == 0,
+                "each block's rows of x in whole swizzle atoms");
+};
 
-  for (int i = 0; i < nitems; ++i) {
-    const int hc = i / nper, k = i % nper;
-    cp_async_wait<NSTAGE - 2>();
-    __syncthreads();  // item i (and the rows) visible; item i-1 consumed
-    if (i + NSTAGE - 1 < nitems) fetch(i + NSTAGE - 1);
-    cp_async_commit();
-    const unsigned char* st = ring + (i % NSTAGE) * STAGE;
-    if (k < n1) {
-      // ---- fc1: this warp's 32 x 16 tile of hidden chunk hc ----
-      if (k == 0) {
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc1[mt][nt][e] = 0.f;
-      }
-#pragma unroll
-      for (int ks = 0; ks < KC1 / 16; ++ks) {
-        unsigned a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          a_frag(xa, mt * 16 + g, lda, k * KC1 + ks * 16 + t * 4, a[mt]);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          unsigned b0, b1v;
-          b_frag(st + swz<8>(warp * 16 + nt * 8 + g, (ks * 16 + t * 4) * 2), b0, b1v);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) mma_bf16(acc1[mt][nt], a[mt], b0, b1v);
-        }
-      }
-      if (k == n1 - 1) {
-        // chunk epilogue: + b1, GELU, bf16 into the hidden tile. This thread
-        // holds rows mt*16 + hh*8 + g, columns nt*8 + t*2 + {0, 1}.
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int col = warp * 16 + nt * 8 + t * 2;
-          const int gc = hc * HC + col;
-          const float bi0 = __ldg(b1 + gc), bi1 = __ldg(b1 + gc + 1);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const int r = mt * 16 + hh * 8 + g;
-              __nv_bfloat162 h;
-              h.x = __float2bfloat16_rn(gelu_poly(__fadd_rn(acc1[mt][nt][hh * 2], bi0)));
-              h.y = __float2bfloat16_rn(
-                  gelu_poly(__fadd_rn(acc1[mt][nt][hh * 2 + 1], bi1)));
-              *reinterpret_cast<__nv_bfloat162*>(hid + r * ldh + col) = h;
-            }
-        }
-      }
-    } else {
-      // ---- fc2: this chunk's hidden (KC2 of it) into the output sums ----
-      const int kk = (k - n1) * KC2;
-#pragma unroll
-      for (int ks = 0; ks < KC2 / 16; ++ks) {
-        unsigned a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          a_frag(hid, mt * 16 + g, ldh, kk + ks * 16 + t * 4, a[mt]);
-#pragma unroll
-        for (int nt = 0; nt < NT2; ++nt) {
-          unsigned b0, b1v;
-          b_frag(st + swz<2>(warp * NT2 * 8 + nt * 8 + g, (ks * 16 + t * 4) * 2), b0,
-                 b1v);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) mma_bf16(acc2[mt][nt], a[mt], b0, b1v);
-        }
-      }
-    }
-  }
-
-  // acc + b2 -> bf16 [+ x in bf16]
-#pragma unroll
-  for (int nt = 0; nt < NT2; ++nt) {
-    const int col = warp * NT2 * 8 + nt * 8 + t * 2;
-    const float c0 = __ldg(b2 + col), c1 = __ldg(b2 + col + 1);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = row0 + mt * 16 + hh * 8 + g;
-        if (r >= R) continue;
-        __nv_bfloat162 o;
-        o.x = __float2bfloat16_rn(__fadd_rn(acc2[mt][nt][hh * 2], c0));
-        o.y = __float2bfloat16_rn(__fadd_rn(acc2[mt][nt][hh * 2 + 1], c1));
-        if (LN) {
-          const __nv_bfloat162 xr =
-              *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)r * C + col);
-          o.x = badd(xr.x, o.x);
-          o.y = badd(xr.y, o.y);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * OUT + col) = o;
-      }
-  }
+__device__ inline uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int NT2, bool LN>
-int launch_nt(const void* x, const void* lns, const void* lnb, const void* w1,
-              const void* b1, const void* w2, const void* b2, void* out, int R,
-              int C, int hidden, float eps, cudaStream_t stream) {
-  const Layout lay = make_layout(C);
-  if (lay.bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaFuncSetAttribute(mlp_bf16_kernel<NT2, LN>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      lay.bytes);
-  if (err) return err;
-  mlp_bf16_kernel<NT2, LN><<<(R + ROWS - 1) / ROWS, THREADS, lay.bytes, stream>>>(
-      (const bf16*)x, (const float*)lns, (const float*)lnb, (const bf16*)w1,
-      (const float*)b1, (const bf16*)w2, (const float*)b2, (bf16*)out, R, C, hidden,
-      eps);
-  return (int)cudaGetLastError();
+__device__ inline void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-template <bool LN>
-int launch(const void* x, const void* lns, const void* lnb, const void* w1,
-           const void* b1, const void* w2, const void* b2, void* out, int R, int C,
-           int hidden, int out_dim, float eps, void* stream) {
-  if (R < 1 || C < KC1 || C % KC1 || C > MAX_ROW_VEC * 8 * 32 || hidden < HC ||
-      hidden % HC || (LN && out_dim != C))
+__device__ inline void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// arrive on the mbarrier at this block's address bar in block cta of the
+// cluster (this block's own when cta is its rank). The default .release.cta
+// is all a consumer's release needs (its reads of the stage are done);
+// .release.cluster made fc1 1.6x and fc2 2.6x slower on an H100.
+__device__ inline void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// spin until the phase of the given parity has completed
+__device__ inline void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ inline uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster
+__device__ inline void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the box of `map` at (c0 innermost, c1) -> shared dst; completes on bar
+__device__ inline void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0,
+                                   int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// the same box into dst of every block of the cluster in mask, each
+// completing on its own bar (the same addresses in every block)
+__device__ inline void tma_load_2d_mc(uint32_t dst, const CUtensorMap* map, int c0,
+                                      int c1, uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile of 64-element (128-byte) rows laid out
+// with the 128-byte swizzle: 8-row groups 1024 bytes apart (the tile base
+// 1024-byte aligned); 16 elements deeper is 32 bytes further (+2)
+__device__ inline uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ inline void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ inline void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ inline void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator accesses across a wgmma wait
+template <int R>
+__device__ inline void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// acc[128] += A (64 x 16, smem) . B (16 x 256, smem), both K-major
+__device__ inline void wgmma_ss256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// acc[104] += A (64 x 16, smem) . B (16 x 208, smem), both K-major
+__device__ inline void wgmma_ss208(float (&d)[104], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %106, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103"
+      "}, %104, %105, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// acc[BX / 2] += A (64 x 16 weight rows, smem) . B (16 x BX rows of x, smem)
+template <int BX>
+__device__ inline void wgmma_ss(float (&d)[BX / 2], uint64_t da, uint64_t db) {
+  static_assert(BX == 256 || BX == 208, "a tile of 256 or 208 rows of x");
+  if constexpr (BX == 256)
+    wgmma_ss256(d, da, db);
+  else
+    wgmma_ss208(d, da, db);
+}
+
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ inline uint4 lds128(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a));
+  return v;
+}
+
+// four 8x8 bf16 matrices (this thread's fragment rows in r), transposed,
+// to the row addresses of the lanes
+__device__ inline void stmatrix_t(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                  uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// c [M, N] = the epilogue of a [M, K] . w [N, K]^T (bf16, f32 sums):
+// EPI_GELU c = bf16(gelu(acc + bias)); EPI_BIAS c = bf16(acc + bias);
+// EPI_RESIDUAL c = res + bf16(acc + bias) in bf16. K a multiple of G_BK, N of
+// G_BW * CL. Computed as its transpose w . a^T: the weight rows are wgmma's A
+// operand (64 a warpgroup), the rows of a its B operand. The CL blocks of a
+// cluster take neighbouring weight tiles of the same BX rows of a, each
+// loading BX / CL of those rows into every block of the cluster.
+template <int EPI, int BX>
+__global__ void __launch_bounds__(G_THREADS, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+            const __grid_constant__ CUtensorMap map_w, const float* __restrict__ bias,
+            const bf16* __restrict__ res, bf16* __restrict__ c, int M, int N, int K) {
+  constexpr int X_BYTES = Tile<BX>::X_BYTES, STAGE = Tile<BX>::STAGE;
+  constexpr int XH = BX / CL;  // rows of a that each block of a cluster loads
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;  // 1024-byte atoms
+  const uint32_t stage_out = ring + G_STAGES * STAGE;
+  const uint32_t full = stage_out + 2 * E_BYTES, empty = full + 8 * G_STAGES;
+  const int wg = threadIdx.x >> 7, nk = K / G_BK;
+  const uint32_t rank = cluster_rank();
+  const int groups = N / (G_BW * CL);  // a cluster's tiles along the weights
+  const int ntiles = groups * ((M + BX - 1) / BX);
+  const int cid = blockIdx.x / CL, ncl = gridDim.x / CL;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);        // the producer's expect_tx
+      mbar_init(empty + 8 * s, 8 * CL);  // every consumer warp of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+
+  if (wg == 2) {  // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      int it = 0;
+      for (int tile = cid; tile < ntiles; tile += ncl) {
+        const int n0 = ((tile % groups) * CL + rank) * G_BW, m0 = (tile / groups) * BX;
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int s = it % G_STAGES;
+          const uint32_t st = ring + s * STAGE;
+          mbar_wait(empty + 8 * s, ((it / G_STAGES) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * s, G_W_BYTES + X_BYTES);
+          tma_load_2d(st, &map_w, kb * G_BK, n0, full + 8 * s);
+          tma_load_2d_mc(st + G_W_BYTES + rank * XH * 128, &map_a, kb * G_BK,
+                         m0 + rank * XH, full + 8 * s, (uint16_t)((1u << CL) - 1));
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    // consumers: warpgroup cw takes weight rows 64 cw .. + 63 of the tile;
+    // acc[4j ..] holds weight row wr (acc[4j], acc[4j + 1]) and wr + 8
+    // (acc[4j + 2], acc[4j + 3]) at rows 8j + 2 t4 (+ 1) of a
+    const int cw = wg, t = threadIdx.x & 127;
+    const int warp = t >> 5, lane = t & 31, g = lane >> 2;
+    const int wr = 64 * cw + 16 * warp + g;
+    const uint32_t epi = stage_out + cw * E_BYTES;
+    // a stage is free once every consumer warp of the cluster is done with it
+    auto release = [&](int i) {
+      __syncwarp();
+      if (lane == 0) {
+#pragma unroll
+        for (int r = 0; r < CL; ++r) mbar_arrive_cluster(empty + 8 * (i % G_STAGES), r);
+      }
+    };
+    int it = 0;
+    float acc[BX / 2];
+    for (int tile = cid; tile < ntiles; tile += ncl) {
+      const int n0 = ((tile % groups) * CL + rank) * G_BW, m0 = (tile / groups) * BX;
+#pragma unroll
+      for (int i = 0; i < BX / 2; ++i) acc[i] = 0.f;
+      fence_regs(acc);
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const int s = it % G_STAGES;
+        const uint32_t st = ring + s * STAGE;
+        mbar_wait(full + 8 * s, (it / G_STAGES) & 1);
+        const uint64_t da = sw128_desc(st + cw * 64 * 128);
+        const uint64_t db = sw128_desc(st + G_W_BYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < G_BK / 16; ++kk)  // 32 bytes deeper: +2 (16-byte units)
+          wgmma_ss<BX>(acc, da + 2 * kk, db + 2 * kk);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous chunk's products are done: free its stage
+        if (kb > 0) release(it - 1);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(it - 1);  // the producer may load the next tile under the epilogue
+
+      // epilogue, 64 rows of a at a time: stmatrix writes each 8 x 8 matrix
+      // of outputs transposed into the staging tile (rows of a, this
+      // warpgroup's 64 columns), then its rows go out in 16-byte pieces
+      const float ba = __ldg(bias + n0 + wr), bb = __ldg(bias + n0 + wr + 8);
+      const int q = lane & 7, mi = lane >> 3;  // stmatrix: row, matrix
+      const int wc = 16 * warp + 8 * (mi & 1);  // the matrix's first column
+#pragma unroll
+      for (int c0 = 0; c0 < BX; c0 += E_ROWS) {
+        constexpr int NJ = BX / 8;
+        asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");  // tile free
+#pragma unroll
+        for (int jj = 0; jj < E_ROWS / 8; jj += 2) {
+          const int j = c0 / 8 + jj;
+          if (j >= NJ) break;
+          // the 8 outputs of this stmatrix, acc[4j ..] and acc[4j + 4 ..],
+          // rounded to bf16 pairs
+          float v[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            v[k] = __fadd_rn(acc[4 * j + k], k & 2 ? bb : ba);
+            if (EPI == EPI_GELU) v[k] = gelu_poly(v[k]);
+          }
+          uint32_t r[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) r[k] = pack_bf16(v[2 * k], v[2 * k + 1]);
+          // matrices: (rows 8j.., columns wc - 8 (mi & 1) ..), (8j.., + 8),
+          // (8j + 8.., ..), (8j + 8.., + 8)
+          const int xr = 8 * (jj + (mi >> 1)) + q;
+          stmatrix_t(epi + xr * E_PITCH + wc * 2, r[0], r[1], r[2], r[3]);
+        }
+        asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");  // tile written
+        const int rows = BX - c0 < E_ROWS ? BX - c0 : E_ROWS;
+#pragma unroll
+        for (int i = t; i < E_ROWS * 8; i += 128) {
+          const int row = i >> 3, pc = i & 7, m = m0 + c0 + row;
+          if (row >= rows || m >= M) continue;
+          uint4 v = lds128(epi + row * E_PITCH + pc * 16);
+          const size_t off = (size_t)m * N + n0 + 64 * cw + 8 * pc;
+          if (EPI == EPI_RESIDUAL) {  // x + the bf16 output, in bf16
+            const uint4 xr = __ldg(reinterpret_cast<const uint4*>(res + off));
+            bf16* o = reinterpret_cast<bf16*>(&v);
+            const bf16* e = reinterpret_cast<const bf16*>(&xr);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) o[k] = badd(e[k], o[k]);
+          }
+          *reinterpret_cast<uint4*>(c + off) = v;
+        }
+      }
+    }
+  }
+  // no block leaves while the other blocks of its cluster may still arrive on
+  // its barriers
+  __syncwarp();
+  cluster_sync();
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major [rows, cols] bf16 matrix in boxes of box_rows x G_BK with the
+// 128-byte swizzle; boxes past its edge are zero-filled
+int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)G_BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+                         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// clusters that fit on the card at once (the persistent grid's size)
+template <typename Kernel>
+int resident_clusters(Kernel kernel, cudaLaunchConfig_t cfg) {
+  int active = 0;
+  if (cudaOccupancyMaxActiveClusters(&active, kernel, &cfg) == cudaSuccess && active > 0)
+    return active;
+  cudaGetLastError();  // the query is advisory: one cluster per two SMs
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+    return 0;
+  return sms / CL;
+}
+
+template <int EPI, int BX>
+int launch_gemm(const void* a, const void* w, const void* bias, const void* res, void* c,
+                int M, int N, int K, cudaStream_t stream) {
+  constexpr int SMEM = Tile<BX>::SMEM;
+  if (M < 1 || N < G_BW * CL || N % (G_BW * CL) || K < G_BK || K % G_BK)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (out_dim) {  // U-ViT widths: 256, 512, 768, 1024
-#define USPACE_NT(n)                                                                \
-  case WARPS * n * 8:                                                               \
-    return launch_nt<n, LN>(x, lns, lnb, w1, b1, w2, b2, out, R, C, hidden, eps, s);
-    USPACE_NT(2)
-    USPACE_NT(4)
-    USPACE_NT(6)
-    USPACE_NT(8)
-#undef USPACE_NT
-    default:
-      return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mw;
+  auto kernel = gemm_kernel<EPI, BX>;
+  int err = make_map(&ma, a, M, K, BX / CL);
+  if (!err) err = make_map(&mw, w, N, K, G_BW);
+  if (!err)
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    SMEM);
+  if (err) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL);
+  cfg.blockDim = dim3(G_THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static int resident = 0;  // per instance
+  if (resident == 0) resident = resident_clusters(kernel, cfg);
+  const int tiles = N / (G_BW * CL) * ((M + BX - 1) / BX);
+  const int clusters = resident > 0 && resident < tiles ? resident : tiles;
+  cfg.gridDim = dim3(clusters * CL);
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, ma, mw, (const float*)bias, (const bf16*)res,
+                                (bf16*)c, M, N, K);
+  return err ? err : (int)cudaGetLastError();
+}
+
+int launch_fc1(const void* xln, const void* w1, const void* b1, void* h, int R, int C,
+               int hidden, cudaStream_t s) {
+  return launch_gemm<EPI_GELU, FC1_ROWS>(xln, w1, b1, nullptr, h, R, hidden, C, s);
+}
+
+int launch_fc2(const void* h, const void* w2, const void* b2, const void* res, void* out,
+               int R, int hidden, int out_dim, cudaStream_t s) {
+  if (res)
+    return launch_gemm<EPI_RESIDUAL, FC2_ROWS>(h, w2, b2, res, out, R, out_dim, hidden, s);
+  return launch_gemm<EPI_BIAS, FC2_ROWS>(h, w2, b2, nullptr, out, R, out_dim, hidden, s);
+}
+
+int launch_ln(const void* x, const void* ln_scale, const void* ln_bias, void* xln,
+              int R, int C, float eps, cudaStream_t stream) {
+  if (R < 1 || C < 8 || C % 8 || C > MAX_ROW_VEC * 8 * 32)
+    return (int)cudaErrorInvalidValue;
+  const int grid = (R + LN_WARPS - 1) / LN_WARPS, nv = (C / 8 + 31) / 32;
+  const bf16* xp = (const bf16*)x;
+  const float *sp = (const float*)ln_scale, *bp = (const float*)ln_bias;
+  bf16* op = (bf16*)xln;
+#define LN_CASE(n)                                                                 \
+  case n:                                                                          \
+    bf16_ln_kernel<n><<<grid, LN_WARPS * 32, 0, stream>>>(xp, sp, bp, op, R, C, eps); \
+    break;
+  switch (nv) {
+    LN_CASE(1) LN_CASE(2) LN_CASE(3) LN_CASE(4)
+    LN_CASE(5) LN_CASE(6) LN_CASE(7) LN_CASE(8)
   }
+#undef LN_CASE
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// LN2 of x [R, C] bf16 with f32 ln_scale, ln_bias [C] as the bf16 chain ->
+// xln [R, C] bf16 (the first piece of uspace_ln_mlp_bf16).
+int uspace_bf16_ln_rows(const void* x, const void* ln_scale, const void* ln_bias,
+                        void* xln, int R, int C, float eps, void* stream) {
+  return launch_ln(x, ln_scale, ln_bias, xln, R, C, eps, (cudaStream_t)stream);
+}
+
+// h [R, hidden] = bf16(gelu(f32(xln . w1^T) + b1)): xln [R, C] bf16, w1
+// [hidden, C] bf16, b1 [hidden] f32 (the fc1 piece of both entry points).
+int uspace_bf16_fc1(const void* xln, const void* w1, const void* b1, void* h, int R,
+                    int C, int hidden, void* stream) {
+  return launch_fc1(xln, w1, b1, h, R, C, hidden, (cudaStream_t)stream);
+}
+
+// out [R, out] = [res +] bf16(f32(h . w2^T) + b2) (the sum in bf16): h [R,
+// hidden] bf16, w2 [out, hidden] bf16, b2 [out] f32, res [R, out] bf16 or
+// null (the fc2 piece).
+int uspace_bf16_fc2(const void* h, const void* w2, const void* b2, const void* res,
+                    void* out, int R, int hidden, int out_dim, void* stream) {
+  return launch_fc2(h, w2, b2, res, out, R, hidden, out_dim, (cudaStream_t)stream);
+}
+
 // x [R, C] bf16; w1 [hidden, C] bf16 with b1 [hidden] f32; w2 [out, hidden]
-// bf16 with b2 [out] f32 -> out [R, out] bf16.
+// bf16 with b2 [out] f32 -> out [R, out] bf16; h [R, hidden]: a bf16
+// workspace.
 int uspace_mlp_bf16(const void* x, const void* w1, const void* b1, const void* w2,
-                    const void* b2, void* out, int R, int C, int hidden, int out_dim,
-                    void* stream) {
-  return launch<false>(x, nullptr, nullptr, w1, b1, w2, b2, out, R, C, hidden,
-                       out_dim, 0.f, stream);
+                    const void* b2, void* h, void* out, int R, int C, int hidden,
+                    int out_dim, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  int err = launch_fc1(x, w1, b1, h, R, C, hidden, s);
+  if (!err) err = launch_fc2(h, w2, b2, nullptr, out, R, hidden, out_dim, s);
+  return err;
 }
 
 // As uspace_mlp_bf16 with LN2 (f32 ln_scale, ln_bias [C]) in front and the
-// residual x added (out == C).
+// residual x added (out == C); xln [R, C] and h [R, hidden]: bf16 workspaces.
 int uspace_ln_mlp_bf16(const void* x, const void* ln_scale, const void* ln_bias,
                        const void* w1, const void* b1, const void* w2, const void* b2,
-                       void* out, int R, int C, int hidden, int out_dim, float eps,
-                       void* stream) {
-  return launch<true>(x, ln_scale, ln_bias, w1, b1, w2, b2, out, R, C, hidden,
-                      out_dim, eps, stream);
+                       void* xln, void* h, void* out, int R, int C, int hidden,
+                       int out_dim, float eps, void* stream) {
+  if (out_dim != C) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int err = launch_ln(x, ln_scale, ln_bias, xln, R, C, eps, s);
+  if (!err) err = launch_fc1(xln, w1, b1, h, R, C, hidden, s);
+  if (!err) err = launch_fc2(h, w2, b2, x, out, R, hidden, out_dim, s);
+  return err;
 }
 
 }  // extern "C"

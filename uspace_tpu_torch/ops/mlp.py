@@ -53,6 +53,11 @@ bf16 MLP, the ``quant=False`` view of both entry points (the default of
 - ``acc = sum_j f32(h_j @ w2[j, :])``, then ``acc + b2`` rounded to x's
   dtype (and added to x in x's dtype).
 
+On the card each is a sequence of launches counted as one: the LN pass
+(lnres only), fc1 over the whole hidden width into a bf16 workspace, fc2
+over the whole hidden width. Nothing is quantized per strip, so the strips
+only order f32 sums, as in the w8 view.
+
 The JAX package sends :func:`fused_mlp` to XLA above 12 MB of bf16 weights
 (``uspace_tpu/ops/mlp.py:500-510``), a TPU VMEM residency rule; that branch
 has the kernel's rounding sites (f32 sums and bias, f32 GELU, a bf16
@@ -454,18 +459,20 @@ def ln_mlp_bf16_plain(x: torch.Tensor, ln_scale: torch.Tensor,
 
 
 def _mlp_bf16_kernel(x2d, w1, b1, w2, b2, ln=None):
-    """Launch the bf16 MLP kernel on x [R, C] bf16 with w1 [C, H] and w2
+    """Launch the bf16 MLP kernels on x [R, C] bf16 with w1 [C, H] and w2
     [H, C'] (JAX layout; read as their bf16 torch-layout rows, free for the
     transpose of a bf16 Linear weight); with ``ln = (scale, bias, eps)`` the
-    LN2 + residual variant."""
+    LN2 + residual variant. The pieces (the LN pass, the fc1 and fc2 GEMMs)
+    pass the rows and the hidden through bf16 workspaces [R, C] and [R,
+    H]."""
     r, c = x2d.shape
     hidden, out_dim = w1.shape[-1], w2.shape[-1]
     dev = x2d.device
     if x2d.dtype != torch.bfloat16:
         raise ValueError(f"the bf16 MLP kernels take bfloat16, got "
                          f"{x2d.dtype}")
-    # C <= 1280: a block's bf16 rows, its hidden chunk and the weight ring
-    # share 227 KB of shared memory (csrc/mlp_bf16.cu make_layout)
+    # the U-ViT widths (the GEMMs' tiles need C a multiple of 64 and hidden
+    # and output widths that are multiples of 256)
     if (c % 64 or c > 1280 or hidden % 256
             or out_dim not in (256, 512, 768, 1024)):
         raise ValueError(
@@ -483,20 +490,81 @@ def _mlp_bf16_kernel(x2d, w1, b1, w2, b2, ln=None):
     check_tensor("b1", b1f, torch.float32, (hidden,), dev)
     check_tensor("b2", b2f, torch.float32, (out_dim,), dev)
     out = torch.empty((r, out_dim), dtype=x2d.dtype, device=dev)
+    h = x2d.new_empty((r, hidden))
     stream = cuda_stream(dev)
     lib = load("mlp_bf16")
-    common = (w1r.data_ptr(), b1f.data_ptr(), w2r.data_ptr(), b2f.data_ptr(),
-              out.data_ptr(), r, c, hidden, out_dim)
+    weights = (w1r.data_ptr(), b1f.data_ptr(), w2r.data_ptr(), b2f.data_ptr())
     if ln is None:
-        rc = lib.uspace_mlp_bf16(x2d.data_ptr(), *common, stream)
+        rc = lib.uspace_mlp_bf16(x2d.data_ptr(), *weights, h.data_ptr(),
+                                 out.data_ptr(), r, c, hidden, out_dim, stream)
         key = "mlp_bf16"
     else:
         lns, lnb = _ln_operands(ln, c, out_dim, dev)
+        xln = torch.empty_like(x2d)
         rc = lib.uspace_ln_mlp_bf16(x2d.data_ptr(), lns.data_ptr(),
-                                    lnb.data_ptr(), *common, ln[2], stream)
+                                    lnb.data_ptr(), *weights, xln.data_ptr(),
+                                    h.data_ptr(), out.data_ptr(), r, c, hidden,
+                                    out_dim, ln[2], stream)
         key = "ln_mlp_bf16"
     raise_on(rc, f"uspace_{key}")
     LAUNCHES[key] += 1
+    return out
+
+
+def _bf16_ln_kernel(x: torch.Tensor, ln_scale: torch.Tensor,
+                    ln_bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """The LN pass of the bf16 MLP sub-block alone (the bf16 chain of LN2,
+    its f32 sums in lane order) on x [R, C] bf16; counted by no op, as it
+    is a piece of one."""
+    r, c = x.shape
+    check_tensor("x", x, torch.bfloat16, (r, c), x.device)
+    lns, lnb = _ln_operands((ln_scale, ln_bias), c, c, x.device)
+    out = torch.empty_like(x)
+    raise_on(load("mlp_bf16").uspace_bf16_ln_rows(
+        x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), out.data_ptr(), r, c,
+        eps, cuda_stream(x.device)), "uspace_bf16_ln_rows")
+    return out
+
+
+def _bf16_fc1_kernel(xln: torch.Tensor, w1: torch.Tensor,
+                     b1: torch.Tensor) -> torch.Tensor:
+    """The fc1 GEMM of the bf16 MLP alone: ``bf16(gelu(f32(xln . w1^T) +
+    b1))`` for xln [R, C] bf16 (C a multiple of 64) and the torch-layout
+    rows w1 [H, C] bf16 (H a multiple of 256). Counted by no op."""
+    r, c = xln.shape
+    hidden = w1.shape[0]
+    dev = xln.device
+    b1f = b1.to(torch.float32).contiguous()
+    check_tensor("xln", xln, torch.bfloat16, (r, c), dev)
+    check_tensor("w1", w1, torch.bfloat16, (hidden, c), dev)
+    check_tensor("b1", b1f, torch.float32, (hidden,), dev)
+    h = xln.new_empty((r, hidden))
+    raise_on(load("mlp_bf16").uspace_bf16_fc1(
+        xln.data_ptr(), w1.data_ptr(), b1f.data_ptr(), h.data_ptr(), r, c,
+        hidden, cuda_stream(dev)), "uspace_bf16_fc1")
+    return h
+
+
+def _bf16_fc2_kernel(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                     res: torch.Tensor = None) -> torch.Tensor:
+    """The fc2 GEMM of the bf16 MLP alone: ``[res +] bf16(f32(h . w2^T) +
+    b2)`` (the sum in bf16) for h [R, H] bf16 (H a multiple of 64) and the
+    torch-layout rows w2 [C', H] bf16 (C' a multiple of 256). Counted by no
+    op."""
+    r, hidden = h.shape
+    out_dim = w2.shape[0]
+    dev = h.device
+    b2f = b2.to(torch.float32).contiguous()
+    check_tensor("h", h, torch.bfloat16, (r, hidden), dev)
+    check_tensor("w2", w2, torch.bfloat16, (out_dim, hidden), dev)
+    check_tensor("b2", b2f, torch.float32, (out_dim,), dev)
+    if res is not None:
+        check_tensor("res", res, torch.bfloat16, (r, out_dim), dev)
+    out = h.new_empty((r, out_dim))
+    raise_on(load("mlp_bf16").uspace_bf16_fc2(
+        h.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
+        None if res is None else res.data_ptr(), out.data_ptr(), r, hidden,
+        out_dim, cuda_stream(dev)), "uspace_bf16_fc2")
     return out
 
 
