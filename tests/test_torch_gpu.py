@@ -543,10 +543,11 @@ def _ln_chain_lanes(x, lns, lnb, eps):
     return (x - mu.to(bf)) * inv * lns.to(bf) + lnb.to(bf)
 
 
-@pytest.mark.parametrize("rows,c", [(12850, 1024), (7, 256), (33, 768)])
+@pytest.mark.parametrize("rows,c", [(12850, 1024), (7, 256), (33, 768),
+                                    (70, 1280)])
 def test_w8_ln_pass_is_bit_exact(cuda, rows, c):
-    """Row 16's LN pass equals the bf16-chain twin taken in the kernel's
-    lane order bit for bit."""
+    """The LN pass of rows 16 and 13 equals the bf16-chain twin taken in
+    the kernel's lane order bit for bit (C 1280: row 13's widest)."""
     g = torch.Generator(device=cuda).manual_seed(rows + c)
     x = (_rand(g, rows, c).float() * 3 + 0.5).to(torch.bfloat16)
     lns = 1 + _rand(g, c, std=0.1, dtype=torch.float32)
@@ -1076,20 +1077,7 @@ def test_bf16_mlp_wrappers_count_launches_and_refuse(cuda):
                               bb[:256], quant=False)
 
 
-@pytest.mark.parametrize("rows,c", [(12850, 1024), (7, 256), (33, 768),
-                                    (70, 1280)])
-def test_bf16_ln_pass_is_bit_exact(cuda, rows, c):
-    """Row 13's LN pass equals the bf16-chain twin taken in the kernel's
-    lane order bit for bit."""
-    g = torch.Generator(device=cuda).manual_seed(rows + c + 1)
-    x = (_rand(g, rows, c).float() * 3 + 0.5).to(torch.bfloat16)
-    lns = 1 + _rand(g, c, std=0.1, dtype=torch.float32)
-    lnb = _rand(g, c, std=0.1, dtype=torch.float32)
-    out = mlp._bf16_ln_kernel(x, lns, lnb, 1e-5)
-    assert torch.equal(out, _ln_chain_lanes(x, lns, lnb, 1e-5))
-
-
-FC2_TILE_ROWS = 208  # fc2's tile of rows (csrc/mlp_bf16.cu MLP_BF16_BX2)
+FC2_TILE_ROWS = 208  # fc2's tile of rows (csrc/mlp_bf16.cu FC2_ROWS)
 
 
 @pytest.mark.parametrize("m,c", [(12850, 1024), (1, 512), (63, 256),

@@ -31,13 +31,14 @@ projection's workspace arguments, or from before row 5's, is called with
 its own interface, and so is a base ``mlp_w8.cu`` from before row 16's
 workspaces (row 16's pieces, ``w8_ln_rows``, ``w8_fc1`` and ``w8_fc2``,
 are timed on the new build alone) and a base ``mlp_bf16.cu`` from before
-rows 12 and 13 took theirs (their pieces, ``bf16_ln_rows``, ``bf16_fc1``
-and ``bf16_fc2``, likewise). A row 4 or row 8 entry point of a base
+rows 12 and 13 became pieces (this checkout's rows run as their pieces in
+sequence: ``mlp_w8.cu``'s LN pass for row 13, then ``bf16_fc1`` and
+``bf16_fc2``, which are also timed alone, on the new build). A row 4 or row 8 entry point of a base
 ``attention_bwd.cu`` or ``fused_attention_bwd.cu`` is timed against this
 checkout's ``fused_attention_bwd.cu``. For ``attention`` the int8 and bf16
 projections of this checkout are also timed over K = 256 .. 2048 beside
 ``torch._int_mm``; for ``mlp_bf16`` fc1's GEMM is also timed with fc2's
-bias epilogue in place of its GELU one. Beside each device time stands the
+bias epilogue in place of its GELU one, and row 13's LN pass alone. Beside each device time stands the
 host's time a call (``host_us``: the wall time of the timed calls, which
 only enqueue, over their number). The two kernels of each backward entry
 point are also timed apart (torch.profiler's device time by kernel name,
@@ -96,7 +97,7 @@ TRAIN_B = 128
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # attention.cu before its bf16 projection routes took workspaces, and
 # before its int8 LN route did; mlp_w8.cu before its LN2 + residual route
-# did; mlp_bf16.cu before both of its routes did
+# did; mlp_bf16.cu before its routes became pieces
 _LEGACY_ATTENTION = {
     "uspace_qkvproj_attention": (_P, _P, _P, _I, _I, _I, _F, _P),
     "uspace_ln_qkvproj_attention": (_P,) * 5 + (_I, _I, _I, _F, _F, _P),
@@ -111,7 +112,7 @@ _LEGACY_BF16 = {"uspace_mlp_bf16": (_P,) * 6 + (_I,) * 4 + (_P,),
 def _legacy(lib: ctypes.CDLL) -> bool:
     """An attention.cu whose bf16 projection routes take no workspace, an
     mlp_w8.cu whose LN2 + residual route takes none, or an mlp_bf16.cu
-    whose routes take none."""
+    whose routes are one entry each."""
     if hasattr(lib, "uspace_ln_mlp_w8"):
         return not hasattr(lib, "uspace_w8_fc1")
     if hasattr(lib, "uspace_ln_mlp_bf16"):
@@ -277,6 +278,24 @@ def main(argv=None) -> None:
     g_z = torch.full((rows, 4), 0.6, device=dev)
     m_out = torch.empty(rows, C, dtype=bf, device=dev)
     s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    w8lib = _build.load("mlp_w8") if a.source == "mlp_bf16" else None
+
+    def bf16_ln():
+        return w8lib.uspace_w8_ln_rows(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), xln_rows.data_ptr(),
+            rows, C, 1e-5, s)
+
+    def bf16_fc1(lib, rows_in):
+        return lib.uspace_bf16_fc1(rows_in.data_ptr(), w1h.data_ptr(),
+                                   b1.data_ptr(), h_rows.data_ptr(), rows, C,
+                                   hid, s)
+
+    def bf16_fc2(lib, res):
+        return lib.uspace_bf16_fc2(
+            h_rows.data_ptr(), w2h.data_ptr(), b2.data_ptr(),
+            None if res is None else res.data_ptr(), out.data_ptr(), rows,
+            hid, C, s)
+
     calls = {
         "packed_attention": lambda lib: lib.uspace_packed_attention(
             qkv.data_ptr(), out.data_ptr(), B, L, H, 0.125, s),
@@ -333,24 +352,19 @@ def main(argv=None) -> None:
         "w8_fc2": lambda lib: lib.uspace_w8_fc2(
             h_rows.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(),
             b2.data_ptr(), x.data_ptr(), out.data_ptr(), rows, hid, C, s),
+        # rows 12 and 13: a base's one entry each, or this checkout's pieces
+        # in sequence (row 13's LN pass is mlp_w8.cu's)
         "mlp_bf16": lambda lib: lib.uspace_mlp_bf16(
-            x.data_ptr(), *bw,
-            *(() if _legacy(lib) else (h_rows.data_ptr(),)),
-            out.data_ptr(), rows, C, hid, C, s),
+            x.data_ptr(), *bw, out.data_ptr(), rows, C, hid, C, s
+        ) if _legacy(lib) else bf16_fc1(lib, x) or bf16_fc2(lib, None),
         "ln_mlp_bf16": lambda lib: lib.uspace_ln_mlp_bf16(
-            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *bw,
-            *(() if _legacy(lib) else (xln_rows.data_ptr(), h_rows.data_ptr())),
-            out.data_ptr(), rows, C, hid, C, 1e-5, s),
-        # rows 12 and 13's pieces (fc2 as row 13's, with the residual)
-        "bf16_ln_rows": lambda lib: lib.uspace_bf16_ln_rows(
-            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), xln_rows.data_ptr(),
-            rows, C, 1e-5, s),
-        "bf16_fc1": lambda lib: lib.uspace_bf16_fc1(
-            xln_rows.data_ptr(), w1h.data_ptr(), b1.data_ptr(),
-            h_rows.data_ptr(), rows, C, hid, s),
-        "bf16_fc2": lambda lib: lib.uspace_bf16_fc2(
-            h_rows.data_ptr(), w2h.data_ptr(), b2.data_ptr(), x.data_ptr(),
-            out.data_ptr(), rows, hid, C, s),
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *bw, out.data_ptr(),
+            rows, C, hid, C, 1e-5, s
+        ) if _legacy(lib) else (bf16_ln() or bf16_fc1(lib, xln_rows)
+                                or bf16_fc2(lib, x)),
+        # rows 12 and 13's GEMMs (fc2 as row 13's, with the residual)
+        "bf16_fc1": lambda lib: bf16_fc1(lib, xln_rows),
+        "bf16_fc2": lambda lib: bf16_fc2(lib, x),
         "ln_bf16": lambda lib: lib.uspace_ln_bf16(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), out.data_ptr(),
             rows, C, 1e-5, s),
@@ -434,8 +448,10 @@ def main(argv=None) -> None:
             q1.scale.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(),
             out.data_ptr(), rows, C, hid, 4, 1e-5, s),
     })
-    calls = {k: f for k, f in calls.items()
-             if f"uspace_{k}" in _build.SIGNATURES[a.source]}
+    timed = set(_build.SIGNATURES[a.source])
+    if a.source == "mlp_bf16":  # the ops that its pieces make up
+        timed |= {"uspace_mlp_bf16", "uspace_ln_mlp_bf16"}
+    calls = {k: f for k, f in calls.items() if f"uspace_{k}" in timed}
 
     def time_ms(call, lib):
         """Device ms a call (CUDA events) and host us a call (the wall
@@ -468,8 +484,9 @@ def main(argv=None) -> None:
         }), flush=True)
     if a.source == "attention":
         gemm_k_sweep(libs["new"], s, time_ms)
-    if a.source == "mlp_bf16":  # what fc1's GELU epilogue costs
+    if a.source == "mlp_bf16":  # row 13's LN pass; what fc1's GELU costs
         print(json.dumps({
+            "ln_pass_ms": time_ms(lambda _: bf16_ln(), None)[0],
             "fc1_gemm_with_fc2_epilogue_ms": time_ms(
                 lambda lib: lib.uspace_bf16_fc2(
                     xln_rows.data_ptr(), w1h.data_ptr(), b1.data_ptr(), None,

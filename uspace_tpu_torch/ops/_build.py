@@ -84,9 +84,6 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_ln_mlp_int8": (_P,) * 11 + (_I,) * 5 + (_F, _P),
     },
     "mlp_bf16": {
-        "uspace_mlp_bf16": (_P,) * 7 + (_I,) * 4 + (_P,),
-        "uspace_ln_mlp_bf16": (_P,) * 10 + (_I,) * 4 + (_F, _P),
-        "uspace_bf16_ln_rows": (_P, _P, _P, _P, _I, _I, _F, _P),
         "uspace_bf16_fc1": (_P,) * 4 + (_I,) * 3 + (_P,),
         "uspace_bf16_fc2": (_P,) * 5 + (_I,) * 3 + (_P,),
     },

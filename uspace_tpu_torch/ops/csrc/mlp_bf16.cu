@@ -1,15 +1,18 @@
 // bf16 transformer MLP for U-ViT sampling on Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of uspace_tpu/ops/mlp.py:
-//   uspace_ln_mlp_bf16 <- _mlp_kernel_bf16_lnres  x + fc2(gelu(fc1(LN2(x))))
-//   uspace_mlp_bf16    <- _mlp_kernel_bf16        fc2(gelu(fc1(x)))
+// With the LN pass of mlp_w8.cu, replaces two Pallas TPU kernels of
+// uspace_tpu/ops/mlp.py (ops/mlp.py _mlp_bf16_kernel runs the sequence):
+//   _mlp_kernel_bf16_lnres  x + fc2(gelu(fc1(LN2(x))))  uspace_w8_ln_rows,
+//                           uspace_bf16_fc1, uspace_bf16_fc2 (with x)
+//   _mlp_kernel_bf16        fc2(gelu(fc1(x)))           uspace_bf16_fc1,
+//                                                       uspace_bf16_fc2
 //
 // Bound at the main path's shape (12850 rows, C = 1024, hidden 4096): 215.6
 // GFLOP bf16 over an H100 SXM's 989 TFLOP/s = 218 us; 69 MB moved (bf16 x in
 // and out, bf16 weights, f32 biases) = 21 us; operations bound.
 //
 // What both compute is what the TPU kernels compute for their rows:
-// - LN2 (lnres): f32 statistics (var = E[x^2] - mu^2, each divided by C with
+// - LN2 (lnres, mlp_w8.cu's pass): f32 statistics (var = E[x^2] - mu^2, each divided by C with
 //   one rounding), mu and rsqrt(var + eps) rounded to bf16, then normalised
 //   in bf16 with the scale and bias rounded to bf16, each subtract, product
 //   and sum rounded to bf16. xln stays bf16.
@@ -24,13 +27,11 @@
 // twice. The TPU kernel's hidden strips (hidden / 4 columns) are only tiling:
 // each hidden column is rounded once, whatever the strip.
 //
-// Each entry point is a sequence of kernels on one stream, counted as one
-// launch by its wrapper; h (and xln) make one round trip through device
-// memory (105 and 26 MB at the main path's shape; the TPU kernel rounds h to
-// bf16 too, so no rounding is added):
-// - bf16_ln_kernel (lnres): LN2 once per row, one warp per row with the row
-//   in registers, the f32 sums in lane order, the scales and biases read as
-//   16-byte vectors; xln [R, C] bf16.
+// Each op is a sequence of kernels on one stream, counted as one launch by
+// its wrapper; h (and xln) make one round trip through device memory (105
+// and 26 MB at the main path's shape; the TPU kernel rounds h to bf16 too,
+// so no rounding is added):
+// - mlp_w8.cu's w8_ln_kernel (lnres): LN2 once per row into xln [R, C] bf16.
 // - gemm_kernel<EPI_GELU> (fc1): h [R, hidden] = the GELU epilogue of
 //   xln . W1^T; gemm_kernel<EPI_BIAS or EPI_RESIDUAL> (fc2): out = [x +] the
 //   bf16 epilogue of h . W2^T over the whole hidden width. Both operands are
@@ -80,7 +81,7 @@
 //   so every call gives the same bits, in every design above. Rows past R
 //   are zero-filled by TMA and never stored.
 // Dynamic shared memory past 48 KB is enabled per launch; each entry point
-// returns cudaGetLastError() or the first error of its sequence.
+// returns its launch's error or cudaGetLastError().
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -91,17 +92,10 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int MAX_ROW_VEC = 8;    // a row in registers: C <= 8 * 8 * 32
 constexpr int MAX_SMEM = 232448;  // H100: 227 KB of dynamic smem per block
 
 // bf16 arithmetic as the TPU kernel's: each result rounded to bf16 (the f32
 // product of two bf16 is exact, so this is the correctly rounded op)
-__device__ inline bf16 bsub(bf16 a, bf16 b) {
-  return __float2bfloat16_rn(__fsub_rn(__bfloat162float(a), __bfloat162float(b)));
-}
-__device__ inline bf16 bmul(bf16 a, bf16 b) {
-  return __float2bfloat16_rn(__fmul_rn(__bfloat162float(a), __bfloat162float(b)));
-}
 __device__ inline bf16 badd(bf16 a, bf16 b) {
   return __float2bfloat16_rn(__fadd_rn(__bfloat162float(a), __bfloat162float(b)));
 }
@@ -120,70 +114,6 @@ __device__ inline float gelu_poly(float x) {
   const float e = __fsub_rn(1.0f, __fmul_rn(p, expf(__fmul_rn(-ax, ax))));
   const float erf = z > 0.f ? e : (z < 0.f ? -e : 0.f);
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, erf));
-}
-
-// ---------------------------------------------------------------------------
-// The LN2 pass (row 13's first piece)
-// ---------------------------------------------------------------------------
-
-constexpr int LN_WARPS = 8;  // one warp per row
-
-// LN2 as the bf16 chain of _mlp_kernel_bf16_lnres: xln [R, C] bf16. NV: the
-// 16-byte vectors a lane holds (C <= NV * 256).
-template <int NV>
-__global__ void __launch_bounds__(LN_WARPS * 32)
-bf16_ln_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-               const float* __restrict__ ln_b, bf16* __restrict__ xln, int R, int C,
-               float eps) {
-  const int lane = threadIdx.x & 31, nvec = C / 8;
-  const int r = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
-  if (r >= R) return;
-  const uint4* row = reinterpret_cast<const uint4*>(x + (size_t)r * C);
-  uint4 v[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i)
-    if (lane + 32 * i < nvec) v[i] = __ldg(row + lane + 32 * i);
-  float sum = 0.f, sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    if (lane + 32 * i >= nvec) continue;
-    const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float f = __bfloat162float(e[j]);
-      sum = __fadd_rn(sum, f);
-      sq = __fadd_rn(sq, __fmul_rn(f, f));
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
-    sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, o));
-  }
-  const float mu = __fdiv_rn(sum, (float)C);
-  const float var = __fsub_rn(__fdiv_rn(sq, (float)C), __fmul_rn(mu, mu));
-  const bf16 mu_b = __float2bfloat16_rn(mu);
-  const bf16 inv_b = __float2bfloat16_rn(rsqrtf(__fadd_rn(var, eps)));
-  uint4* dst = reinterpret_cast<uint4*>(xln + (size_t)r * C);
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int vi = lane + 32 * i;
-    if (vi >= nvec) continue;
-    // this vector's 8 scales and biases, as two 16-byte loads each
-    float sc[8], bi[8];
-    const float4* s4 = reinterpret_cast<const float4*>(ln_s) + 2 * vi;
-    const float4* b4 = reinterpret_cast<const float4*>(ln_b) + 2 * vi;
-    *reinterpret_cast<float4*>(sc) = __ldg(s4);
-    *reinterpret_cast<float4*>(sc + 4) = __ldg(s4 + 1);
-    *reinterpret_cast<float4*>(bi) = __ldg(b4);
-    *reinterpret_cast<float4*>(bi + 4) = __ldg(b4 + 1);
-    bf16* e = reinterpret_cast<bf16*>(&v[i]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)  // ((x - mu) * inv) * s + b, each rounded to bf16
-      e[j] = badd(bmul(bmul(bsub(e[j], mu_b), inv_b), __float2bfloat16_rn(sc[j])),
-                  __float2bfloat16_rn(bi[j]));
-    dst[vi] = v[i];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -675,88 +605,27 @@ int launch_gemm(const void* a, const void* w, const void* bias, const void* res,
   return err ? err : (int)cudaGetLastError();
 }
 
-int launch_fc1(const void* xln, const void* w1, const void* b1, void* h, int R, int C,
-               int hidden, cudaStream_t s) {
-  return launch_gemm<EPI_GELU, FC1_ROWS>(xln, w1, b1, nullptr, h, R, hidden, C, s);
-}
-
-int launch_fc2(const void* h, const void* w2, const void* b2, const void* res, void* out,
-               int R, int hidden, int out_dim, cudaStream_t s) {
-  if (res)
-    return launch_gemm<EPI_RESIDUAL, FC2_ROWS>(h, w2, b2, res, out, R, out_dim, hidden, s);
-  return launch_gemm<EPI_BIAS, FC2_ROWS>(h, w2, b2, nullptr, out, R, out_dim, hidden, s);
-}
-
-int launch_ln(const void* x, const void* ln_scale, const void* ln_bias, void* xln,
-              int R, int C, float eps, cudaStream_t stream) {
-  if (R < 1 || C < 8 || C % 8 || C > MAX_ROW_VEC * 8 * 32)
-    return (int)cudaErrorInvalidValue;
-  const int grid = (R + LN_WARPS - 1) / LN_WARPS, nv = (C / 8 + 31) / 32;
-  const bf16* xp = (const bf16*)x;
-  const float *sp = (const float*)ln_scale, *bp = (const float*)ln_bias;
-  bf16* op = (bf16*)xln;
-#define LN_CASE(n)                                                                 \
-  case n:                                                                          \
-    bf16_ln_kernel<n><<<grid, LN_WARPS * 32, 0, stream>>>(xp, sp, bp, op, R, C, eps); \
-    break;
-  switch (nv) {
-    LN_CASE(1) LN_CASE(2) LN_CASE(3) LN_CASE(4)
-    LN_CASE(5) LN_CASE(6) LN_CASE(7) LN_CASE(8)
-  }
-#undef LN_CASE
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// LN2 of x [R, C] bf16 with f32 ln_scale, ln_bias [C] as the bf16 chain ->
-// xln [R, C] bf16 (the first piece of uspace_ln_mlp_bf16).
-int uspace_bf16_ln_rows(const void* x, const void* ln_scale, const void* ln_bias,
-                        void* xln, int R, int C, float eps, void* stream) {
-  return launch_ln(x, ln_scale, ln_bias, xln, R, C, eps, (cudaStream_t)stream);
-}
-
 // h [R, hidden] = bf16(gelu(f32(xln . w1^T) + b1)): xln [R, C] bf16, w1
-// [hidden, C] bf16, b1 [hidden] f32 (the fc1 piece of both entry points).
+// [hidden, C] bf16, b1 [hidden] f32 (the fc1 piece of both rows).
 int uspace_bf16_fc1(const void* xln, const void* w1, const void* b1, void* h, int R,
                     int C, int hidden, void* stream) {
-  return launch_fc1(xln, w1, b1, h, R, C, hidden, (cudaStream_t)stream);
+  return launch_gemm<EPI_GELU, FC1_ROWS>(xln, w1, b1, nullptr, h, R, hidden, C,
+                                         (cudaStream_t)stream);
 }
 
 // out [R, out] = [res +] bf16(f32(h . w2^T) + b2) (the sum in bf16): h [R,
 // hidden] bf16, w2 [out, hidden] bf16, b2 [out] f32, res [R, out] bf16 or
-// null (the fc2 piece).
+// null (the fc2 piece; row 13 passes its x as res).
 int uspace_bf16_fc2(const void* h, const void* w2, const void* b2, const void* res,
                     void* out, int R, int hidden, int out_dim, void* stream) {
-  return launch_fc2(h, w2, b2, res, out, R, hidden, out_dim, (cudaStream_t)stream);
-}
-
-// x [R, C] bf16; w1 [hidden, C] bf16 with b1 [hidden] f32; w2 [out, hidden]
-// bf16 with b2 [out] f32 -> out [R, out] bf16; h [R, hidden]: a bf16
-// workspace.
-int uspace_mlp_bf16(const void* x, const void* w1, const void* b1, const void* w2,
-                    const void* b2, void* h, void* out, int R, int C, int hidden,
-                    int out_dim, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  int err = launch_fc1(x, w1, b1, h, R, C, hidden, s);
-  if (!err) err = launch_fc2(h, w2, b2, nullptr, out, R, hidden, out_dim, s);
-  return err;
-}
-
-// As uspace_mlp_bf16 with LN2 (f32 ln_scale, ln_bias [C]) in front and the
-// residual x added (out == C); xln [R, C] and h [R, hidden]: bf16 workspaces.
-int uspace_ln_mlp_bf16(const void* x, const void* ln_scale, const void* ln_bias,
-                       const void* w1, const void* b1, const void* w2, const void* b2,
-                       void* xln, void* h, void* out, int R, int C, int hidden,
-                       int out_dim, float eps, void* stream) {
-  if (out_dim != C) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  int err = launch_ln(x, ln_scale, ln_bias, xln, R, C, eps, s);
-  if (!err) err = launch_fc1(xln, w1, b1, h, R, C, hidden, s);
-  if (!err) err = launch_fc2(h, w2, b2, x, out, R, hidden, out_dim, s);
-  return err;
+  if (res)
+    return launch_gemm<EPI_RESIDUAL, FC2_ROWS>(h, w2, b2, res, out, R, out_dim, hidden, s);
+  return launch_gemm<EPI_BIAS, FC2_ROWS>(h, w2, b2, nullptr, out, R, out_dim, hidden, s);
 }
 
 }  // extern "C"
