@@ -19,7 +19,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its update out - x; the stage-delta base and delta halves at B=50 and on
    12850 rows, in the three hidden modes (rows 18 to 25), the base ones on
    every output, caches included, the delta ones on what they add to their
-   cache): max-abs and rel-L2 within the tolerances below;
+   cache; rows 1-5 and 10 also at head dim 32, B=50, L=257, C=1024 in 32
+   heads): max-abs and rel-L2 within the tolerances below;
    for each int8 and w8 kernel, controls (twins with one rounding site
    changed) that the same limits must refuse; kernel, twin and library-call
    times with CUDA events; the bound of the same work on an H100 SXM (the
@@ -163,7 +164,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    UNet), the scale-0 row equal bit for bit to a plain decode, the read
    features of `auto` against `xla` on 2 samples within the path limits,
    the edit moving the latents one way beyond the routes' bf16 noise; the
-   roundtrip errors as readings.
+   roundtrip errors as readings;
+26. a U-ViT at the JAX package's U-ViT toys' shape (embed 128, depth 6, 4
+   heads of 32, 8 x 8 x 4 latents, seeded weights): 2 train steps at batch
+   256 on `pallas_packed` with exact launches of rows 1 and 4 at head dim
+   32 and finite losses; Euler-50 at batch 64 on `auto` (row 2 at head dim
+   32) against `xla` within the path limits, exact launches.
 
 Prints the `kernels` JSON line and then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -345,6 +351,9 @@ GRAD_MIN_COS = 0.99999
 GRAD_MAX_REL_L2 = 1e-2
 
 B, L, C, H = 50, 257, 1024, 16
+# phase 3's head-dim-32 cases: the main path's width in heads of 32, the
+# head dim of the U-ViT toys (uspace_tpu/configs/synthetic_attr_e2e.py:30)
+H32 = 32
 # kernel 7's phase-3 shapes (B, H, L, D); the first is the UNet main path's
 FWD_SHAPES = {"attention_fwd": (50, 8, 1024, 32),
               "attention_fwd D=64": (50, 4, 1024, 64),
@@ -387,6 +396,10 @@ TRAIN_B = 128          # the reference's per-GPU batch
 # 12 and 90.8 at 0); phase 8 runs the rematted path (remat_exempt 0)
 REMAT_EXEMPT = 21
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# phase 26, the U-ViT toys' shape: the JAX config's training batch
+# (synthetic_attr_e2e.py: train.batch_size 256) and its sampling batch
+# (sample.mini_batch_size 64)
+TOY_TRAIN_B, TOY_TRAIN_STEPS, TOY_SAMPLE_B = 256, 2, 64
 GRAD_B = 32
 # kernel 8's phase-3 shapes (B, H, L, D) at the training batch; the first is
 # the UNet-large training path's (its five self-attentions at 32 x 32)
@@ -586,6 +599,7 @@ def check_kernels(torch, F, attn, mlpk, quant):
     cases += flash_cases(torch, F, attn, randn, io)
     cases += bwd_cases(torch, F, attn, randn, io)
     cases += block_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
+    cases += hd32_cases(torch, F, attn, randn, io, quant)
     cases += delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
     results, shapes, controls, problems = [], [], {}, []
     for case in cases:
@@ -655,8 +669,8 @@ def piece_checks(torch, attn, quant, randn):
     to ``row_codes(ln_lanes(x))`` (codes and row scales) and its int8
     GEMM's qkv bit-equal to the dequantised int32 product, at B * L rows
     and at ragged row counts; row 4 at the edges of its 64-row tiles and
-    128-row blocks with 16 heads, within the backward limits, a repeat
-    bit-equal. Returns what disagreed."""
+    128-row blocks with 16 heads of 64 and 32 heads of 32, within the
+    backward limits, a repeat bit-equal. Returns what disagreed."""
     from uspace_tpu_torch.ops import delta as dops
     problems = []
     f32 = torch.float32
@@ -676,24 +690,25 @@ def piece_checks(torch, attn, quant, randn):
             f"int8 GEMM {'bit-equal' if ok else 'DIFFER'}")
         if not ok:
             problems.append(f"row 5's pieces differ at {rows} rows")
-    worst, repeats = (0.0, 0.0), True
-    for l in (1, 16, 17, 63, 64, 65, 128, 129, 257, 334, 512):
-        qkv = randn(2, l, 3 * C, std=0.64)
-        do = randn(2, l, C)
-        out = attn.packed_attention_bwd(qkv, do, H)
-        again = attn.packed_attention_bwd(qkv, do, H)
-        max_abs, rel, _ = compare(
-            torch, out, attn.packed_attention_bwd_plain(qkv, do, H, 0.125))
-        same = torch.equal(out, again)
-        worst = (max(worst[0], max_abs), max(worst[1], rel))
-        repeats = repeats and same
-        if not same or max_abs > BWD_MAX_ABS or rel > BWD_REL_L2:
-            problems.append(f"packed_attention_bwd at L={l}: max_abs "
-                            f"{max_abs:.3e} rel_l2 {rel:.3e}, repeat "
-                            f"{'equal' if same else 'differs'}")
-    log(f"piece packed_attention_bwd at 11 tile edges, B=2 H={H}: worst "
-        f"max_abs {worst[0]:.3e} rel_l2 {worst[1]:.3e}, repeats "
-        f"{'bit-equal' if repeats else 'DIFFER'}")
+    for h in (H, H32):  # head dims 64 and 32
+        worst, repeats = (0.0, 0.0), True
+        for l in (1, 16, 17, 63, 64, 65, 128, 129, 257, 334, 512):
+            qkv = randn(2, l, 3 * C, std=0.64)
+            do = randn(2, l, C)
+            out = attn.packed_attention_bwd(qkv, do, h)
+            again = attn.packed_attention_bwd(qkv, do, h)
+            max_abs, rel, _ = compare(torch, out, attn.packed_attention_bwd_plain(
+                qkv, do, h, (C // h) ** -0.5))
+            same = torch.equal(out, again)
+            worst = (max(worst[0], max_abs), max(worst[1], rel))
+            repeats = repeats and same
+            if not same or max_abs > BWD_MAX_ABS or rel > BWD_REL_L2:
+                problems.append(f"packed_attention_bwd at L={l}, H={h}: "
+                                f"max_abs {max_abs:.3e} rel_l2 {rel:.3e}, "
+                                f"repeat {'equal' if same else 'differs'}")
+        log(f"piece packed_attention_bwd at 11 tile edges, B=2 H={h} "
+            f"D={C // h}: worst max_abs {worst[0]:.3e} rel_l2 {worst[1]:.3e}, "
+            f"repeats {'bit-equal' if repeats else 'DIFFER'}")
     return problems
 
 
@@ -1157,6 +1172,109 @@ def block_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
              flops=mlp_flops, shape=mshape, tol=res_tol,
              part=lambda t: t.double() - xr.double()),
     ]
+
+
+def hd32_cases(torch, F, attn, randn, io, quant):
+    """Phase 3's cases at head dim 32 (the U-ViT toys' head dim) of rows 1-5
+    and 10, at the main path's B=50, L=257, C=1024 (the backward at
+    TRAIN_B) in H32 = 32 heads: each against its twin within its D = 64
+    limits, with its time and bound. Listed under ``kernel_shapes``, each
+    counted on its row's launch count."""
+    f32, bf = torch.float32, torch.bfloat16
+    h, d = H32, C // H32
+    scale = d ** -0.5
+
+    def sdpa32(qkv_, b=B):
+        q, k, v = qkv_.view(b, L, 3, h, d).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v).transpose(
+            1, 2).reshape(b, L, C)
+
+    x = randn(B, L, C)
+    xb = randn(B, L, C, std=0.05)  # the sub-block's x at its update's scale
+    w = randn(3 * C, C, std=0.02).t()
+    wp = randn(C, C, std=0.02).t()
+    bp = randn(C, std=0.02, dtype=f32)
+    wf = randn(3 * C, C, std=0.02, dtype=f32).t()
+    qw = quant.quantized_weight(wf)
+    qkv = randn(B, L, 3 * C, std=0.64)
+    lns = 1.0 + randn(C, std=0.1, dtype=f32)
+    lnb = randn(C, std=0.1, dtype=f32)
+    qkv_t = randn(TRAIN_B, L, 3 * C, std=0.64)
+    do_t = randn(TRAIN_B, L, C)
+    qkv_l = qkv_t.detach().requires_grad_()
+    o_l = sdpa32(qkv_l, TRAIN_B)
+
+    def ln(t):
+        return F.layer_norm(t, (C,), lns.to(bf), lnb.to(bf), 1e-5)
+
+    proj_flops = 2.0 * B * L * C * 3 * C
+    attn_flops = 4.0 * B * h * L * L * d
+    shape = f"B={B} L={L} C={C} H={h} D={d} bf16"
+    src = "uspace_tpu_torch/ops/csrc/attention.cu"
+    cases = [
+        dict(name="packed_attention", counter="packed_attention",
+             replaces="uspace_tpu/ops/attention.py:258 (_packed_fwd_kernel)",
+             kernel=lambda: attn.fused_qkv_attention(qkv, h),
+             plain=lambda: attn.packed_attention_plain(qkv, h, scale),
+             library=lambda: sdpa32(qkv),
+             bytes=io(qkv) + io(x), flops=attn_flops),
+        dict(name="qkvproj_attention", counter="qkvproj_attention",
+             replaces="uspace_tpu/ops/attention.py:468 (_qkv_attn_kernel)",
+             kernel=lambda: attn.fused_qkvproj_attention(x, w, h),
+             plain=lambda: attn.qkvproj_attention_plain(x, w, h, scale),
+             library=lambda: sdpa32(torch.matmul(x, w)),
+             bytes=io(x, w) + io(x), flops=proj_flops + attn_flops),
+        dict(name="ln_qkvproj_attention", counter="ln_qkvproj_attention",
+             replaces="uspace_tpu/ops/attention.py:654 (_qkv_attn_kernel_ln)",
+             kernel=lambda: attn.fused_ln_qkvproj_attention(x, lns, lnb, w, h),
+             plain=lambda: attn.ln_qkvproj_attention_plain(
+                 x, lns, lnb, w, h, scale, 1e-5),
+             library=lambda: sdpa32(torch.matmul(ln(x), w)),
+             bytes=io(x, w, lns, lnb) + io(x), flops=proj_flops + attn_flops),
+        dict(name="packed_attention_bwd", counter="packed_attention_bwd",
+             source="uspace_tpu_torch/ops/csrc/fused_attention_bwd.cu",
+             replaces="uspace_tpu/ops/attention.py:285 (_packed_bwd_kernel)",
+             kernel=lambda: attn.packed_attention_bwd(qkv_t, do_t, h),
+             plain=lambda: attn.packed_attention_bwd_plain(qkv_t, do_t, h,
+                                                           scale),
+             library=lambda: torch.autograd.grad(o_l, qkv_l, do_t,
+                                                 retain_graph=True),
+             bytes=io(qkv_t, do_t) + io(qkv_t),
+             flops=10.0 * TRAIN_B * h * L * L * d,
+             tol=(BWD_MAX_ABS, BWD_REL_L2),
+             shape=f"B={TRAIN_B} L={L} C={C} H={h} D={d} bf16"),
+        dict(name="ln_qkvproj_attention_int8",
+             counter="ln_qkvproj_attention_int8",
+             replaces="uspace_tpu/ops/attention.py:592 (_qkv_attn_kernel_qln)",
+             kernel=lambda: attn.fused_ln_qkvproj_attention(
+                 x, lns, lnb, wf, h, quant=True),
+             plain=lambda: attn.ln_qkvproj_attention_int8_plain(
+                 x, lns, lnb, qw, h, scale, 1e-5),
+             library=lambda: sdpa32(quant.int8_matmul(
+                 *quant.quantize_rowwise(F.layer_norm(
+                     x.float(), (C,), lns, lnb, 1e-5)), qw.kn,
+                 qw.scale).to(bf)),
+             bytes=io(x, lns, lnb, qw.q, qw.scale) + io(x), flops=attn_flops,
+             int8_ops=proj_flops, tol=(None, INT8_ATTN_REL_L2),
+             shape=f"B={B} L={L} C={C} H={h} D={d} bf16/int8"),
+        dict(name="attention_block", counter="attention_block",
+             source="uspace_tpu_torch/ops/csrc/attention_block.cu",
+             replaces="uspace_tpu/ops/attention.py:1044 (_attn_block_kernel)",
+             kernel=lambda: attn.fused_attention_block(xb, lns, lnb, w, wp, bp,
+                                                       h),
+             plain=lambda: attn.attention_block_plain(xb, lns, lnb, w, wp, bp,
+                                                      h, scale, 1e-5),
+             library=lambda: xb + F.linear(sdpa32(torch.matmul(ln(xb), w)),
+                                           wp.t(), bp.to(bf)),
+             bytes=io(xb, lns, lnb, w, wp, bp) + io(xb),
+             flops=proj_flops * 4 / 3 + attn_flops,
+             part=lambda t: t.double() - xb.double()),
+    ]
+    for case in cases:
+        case.setdefault("source", src)
+        case.setdefault("shape", shape)
+        case.update(name=f"{case['name']} D={d}", listed=False)
+    return cases
 
 
 def codes_read(torch, out, ref):
@@ -3204,6 +3322,88 @@ def editing_path(torch, np, attn, mlpk, sample_lfm, dev, config):
     return out
 
 
+def toy_uvit_path(torch, flow, attn, mlpk, sample_lfm, dev):
+    """Phase 26: a U-ViT at the shape of the JAX package's U-ViT toys
+    (uspace_tpu/configs/synthetic_attr_e2e.py:30: embed 128, depth 6, 4
+    heads of 32, 8 x 8 x 4 latents, L = 17) with seeded weights, where the
+    packed core and its backward run at head dim 32: TOY_TRAIN_STEPS train
+    steps at TOY_TRAIN_B on `pallas_packed` (the toys' training route,
+    cli/train_lfm.py) with exact launches of rows 1 and 4 and finite
+    losses; Euler-STEPS at TOY_SAMPLE_B on `auto` (row 2 in every block)
+    against `xla` from the same z within the path limits, exact launches."""
+    from uspace_tpu_torch.cli.train_lfm import build_train_model
+    from uspace_tpu_torch.configs import get_config, uvit_nnet
+    from uspace_tpu_torch.data.datasets import SyntheticFeatures
+    from uspace_tpu_torch.train.state import (
+        TrainState,
+        get_lr_schedule,
+        get_optimizer,
+    )
+    from uspace_tpu_torch.train.step import make_train_step
+
+    cfg = get_config("uvit_large")
+    cfg.update(z_shape=(4, 8, 8), nnet=uvit_nnet(
+        embed_dim=128, depth=6, num_heads=4, img_size=8,
+        use_checkpoint=False))
+    blocks = cfg["nnet"]["depth"] + 1
+    model = build_train_model(cfg, dev, seed=0, attn_impl="pallas_packed")
+    n_remat = sum(model.remat)
+    lr = get_lr_schedule("customized", 2e-4, warmup_steps=0)
+    tx = get_optimizer("adam", lr, betas=(0.9, 0.999), weight_decay=0.0)
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    step = make_train_step(model, tx, lr_schedule=lr, ema_rate=0.999,
+                           latents_from_moments=True)
+    data = SyntheticFeatures(num=TOY_TRAIN_STEPS * TOY_TRAIN_B,
+                             shape=(8, 8, 8), seed=0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    reset_launches(attn, mlpk)
+    t0 = time.perf_counter()
+    metrics = [step(state, {"x": torch.from_numpy(data.batch(range(
+        i * TOY_TRAIN_B, (i + 1) * TOY_TRAIN_B))["x"]).to(dev)}, gen)
+        for i in range(TOY_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = all_launches(attn, mlpk)
+    losses = [float(m["loss"]) for m in metrics]
+    want = dict(packed_attention=TOY_TRAIN_STEPS * (blocks + n_remat),
+                packed_attention_bwd=TOY_TRAIN_STEPS * blocks)
+    log(f"toy U-ViT (D=32) train, pallas_packed: {TOY_TRAIN_STEPS} steps at "
+        f"batch {TOY_TRAIN_B} in {secs:.3f} s, losses {losses}, launches "
+        f"{got} (expected {want})")
+    if got != expected(attn, mlpk, **want):
+        fail(f"toy U-ViT training launches {got}, expected {want}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"toy U-ViT training losses {losses}")
+    train = dict(steps=TOY_TRAIN_STEPS, batch=TOY_TRAIN_B, seconds=secs,
+                 losses=losses, launches=want)
+    del model, state, step
+
+    kmodel = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="auto")
+    plain = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="xla")
+    plain.load_state_dict(kmodel.state_dict())
+    z = torch.randn((TOY_SAMPLE_B, 8, 8, 4), generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+    reset_launches(attn, mlpk)
+    lat, secs_k = decode_run(torch, flow, kmodel, z, STEPS)
+    got = all_launches(attn, mlpk)
+    lat_p, secs_p = decode_run(torch, flow, plain, z, STEPS)
+    max_abs, rel, cos = compare(torch, lat, lat_p)
+    n = blocks * STEPS
+    log(f"toy U-ViT (D=32) Euler-{STEPS} at batch {TOY_SAMPLE_B}: auto "
+        f"{secs_k:.3f} s, xla {secs_p:.3f} s, launches {got} (expected "
+        f"{n} of qkvproj_attention); latents cos {cos:.7f} (min "
+        f"{PATH_MIN_COS}) rel_l2 {rel:.3e} (max {PATH_MAX_REL_L2})")
+    if got != expected(attn, mlpk, qkvproj_attention=n):
+        fail(f"toy U-ViT Euler launches {got}, expected {n} of "
+             f"qkvproj_attention")
+    if tuple(lat.shape) != (TOY_SAMPLE_B, 8, 8, 4) or not (
+            cos >= PATH_MIN_COS and rel <= PATH_MAX_REL_L2):
+        fail("toy U-ViT (D=32) latents disagree with the plain path")
+    return dict(train=train, euler=dict(
+        steps=STEPS, batch=TOY_SAMPLE_B, seconds=secs_k, plain_seconds=secs_p,
+        cos=cos, rel_l2=rel, max_abs=max_abs, launches=n))
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA card")
@@ -3478,6 +3678,19 @@ def main():
     report["editing"] = {
         name: editing_path(torch, np, attn, mlpk, sample_lfm, dev, name)
         for name in ("uvit_large", "unet_large_512")}
+
+    # 26. the U-ViT toys' shape: the kernels at head dim 32 on a train step
+    # and an Euler-50 solve
+    report["toy_uvit_d32"] = toy = toy_uvit_path(torch, flow, attn, mlpk,
+                                                 sample_lfm, dev)
+    d32 = {"packed_attention": toy["train"]["launches"]["packed_attention"],
+           "packed_attention_bwd":
+               toy["train"]["launches"]["packed_attention_bwd"],
+           "qkvproj_attention": toy["euler"]["launches"]}
+    for k in report["kernel_shapes"]:
+        name, _, dim = k["name"].partition(" ")
+        if dim == f"D={C // H32}" and name in d32:
+            k["launches"] = d32[name]
 
     for k in kernels:
         if k["launches"] < 1:

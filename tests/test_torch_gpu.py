@@ -504,14 +504,15 @@ def _w8_case(g, rows, c, out, dev):
                 q1=quant.quantized_weight(w1), q2=quant.quantized_weight(w2))
 
 
-@pytest.mark.parametrize("c", [256, 512, 768, 1024])
+@pytest.mark.parametrize("c", [256, 512, 768, 1024, 1536])
 @pytest.mark.parametrize("rows", [1, 33, 127, 128, 129, 500, 12850])
 def test_w8_mlp_kernels_tile_edges_and_repeats(cuda, rows, c):
     """Row 16 (out = C) and row 17 (another output width) against their
-    twins at the edges of row 16's 128-row tiles, at every U-ViT width;
-    row 16 gives the same bits on a repeat (no atomics, one order of every
-    sum)."""
-    out = {256: 1024, 512: 256, 768: 512, 1024: 768}[c]
+    twins at the edges of their GEMMs' tiles (256 and 200 rows), at every
+    U-ViT width and at C = 1536 with an output of 1280, which the mma.sync
+    row 17 refused; both give the same bits on a repeat (no atomics, one
+    order of every sum)."""
+    out = {256: 1024, 512: 256, 768: 512, 1024: 768, 1536: 1280}[c]
     g = torch.Generator(device=cuda).manual_seed(7 * rows + c)
     a = _w8_case(g, rows, c, c, cuda)
     s = mlp.col_slices(4 * c)
@@ -527,10 +528,12 @@ def test_w8_mlp_kernels_tile_edges_and_repeats(cuda, rows, c):
                 W8_MLP_REL_L2, a["x"])
     b = _w8_case(g, rows, c, out, cuda)
     with torch.no_grad():
-        _agree_int8(mlp.fused_mlp(b["x"], b["w1"], b["b1"], b["w2"], b["b2"],
-                                  quant="w8"),
-                    mlp.mlp_w8_plain(b["x"], b["q1"], b["b1"], b["q2"],
-                                     b["b2"], s), W8_MLP_REL_L2)
+        z, again = (mlp.fused_mlp(b["x"], b["w1"], b["b1"], b["w2"], b["b2"],
+                                  quant="w8") for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(z, again)
+    _agree_int8(z, mlp.mlp_w8_plain(b["x"], b["q1"], b["b1"], b["q2"],
+                                    b["b2"], s), W8_MLP_REL_L2)
 
 
 def _ln_chain_lanes(x, lns, lnb, eps):
@@ -1428,3 +1431,141 @@ def test_uvit_stage_delta_field_routes_through_the_delta_kernels(cuda, mode):
     else:
         assert torch.equal(fd, f0)
     assert float((f0 - fu).norm() / fu.norm()) < 0.03
+
+
+# ---------------------------------------------------------------------------
+# head dim 32 (rows 1-5, 10, 18, 19) and the redesigned rows 17 and 10
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,l,h", [(2, 1, 4), (2, 17, 4), (2, 63, 4),
+                                   (2, 65, 4), (2, 257, 4), (2, 512, 4),
+                                   (3, 257, 32)])
+def test_head_dim_32_kernels_match_twins(cuda, b, l, h, monkeypatch):
+    """Rows 1-5, 10, 18 and 19 at head dim 32 (4 heads of 32 at the U-ViT
+    toys' C = 128; 32 heads at the main path's C = 1024) against their
+    twins within the head dim 64 limits; row 4 at each L (1, 65 and 257
+    end in a 16-row tail chunk), a repeat bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(32 * l + h)
+    f32 = torch.float32
+    c = 32 * h
+    s = 32 ** -0.5
+    x = _rand(g, b, l, c)
+    w = _rand(g, c, 3 * c, std=c ** -0.5)
+    wf = _rand(g, c, 3 * c, std=c ** -0.5, dtype=f32)
+    qkv = _rand(g, b, l, 3 * c)
+    lns = 1 + _rand(g, c, std=0.1, dtype=f32)
+    lnb = _rand(g, c, std=0.1, dtype=f32)
+    _agree(attn.fused_qkv_attention(qkv, h),
+           attn.packed_attention_plain(qkv, h, s))
+    _agree(attn.fused_qkvproj_attention(x, w, h),
+           attn.qkvproj_attention_plain(x, w, h, s))
+    with torch.no_grad():
+        _agree(attn.fused_ln_qkvproj_attention(x, lns, lnb, w, h),
+               attn.ln_qkvproj_attention_plain(x, lns, lnb, w, h, s, 1e-5))
+        _agree_int8(attn.fused_ln_qkvproj_attention(x, lns, lnb, wf, h,
+                                                    quant=True),
+                    attn.ln_qkvproj_attention_int8_plain(
+                        x, lns, lnb, quant.quantized_weight(wf), h, s, 1e-5),
+                    INT8_ATTN_REL_L2)
+    qkv_b = _rand(g, b, l, 3 * c, std=0.64)
+    do = _rand(g, b, l, c)
+    out = attn.packed_attention_bwd(qkv_b, do, h)
+    again = attn.packed_attention_bwd(qkv_b, do, h)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _agree(out, attn.packed_attention_bwd_plain(qkv_b, do, h, s),
+           BWD_MAX_ABS, BWD_REL_L2)
+    args = _block_args(g, b, l, c)
+    with torch.no_grad():
+        _agree_update(attn.fused_attention_block(*args, h),
+                      attn.attention_block_plain(*args, h, s, 1e-5), args[0])
+    xb, xd, dlns, dlnb, qw, qp = _delta_attn_case(g, b, l, c)
+    xm_b = _rand(g, b, l, c)
+    with torch.no_grad():
+        base = delta.base_attn_block(xb, dlns, dlnb, qw.kn, qw.scale, h, 1e-5)
+        ref = delta.base_attn_plain(xb, dlns, dlnb, qw.kn, qw.scale, h, 1e-5)
+        _agree_int8(base[0], ref[0], INT8_ATTN_REL_L2)
+        _agree_codes(base[1][:, :l], ref[1][:, :l])
+        a_b, cq, cs = ref
+        dargs = (xd, xb, cq, cs, a_b, xm_b, dlns, dlnb, qw.kn, qw.scale,
+                 qp.kn, qp.scale, h, 1e-5)
+        kern = delta.delta_attn_block(*dargs)
+        monkeypatch.setattr(delta, "packed_attention_plain",
+                            attn.fused_qkv_attention)
+        _agree_delta(kern, delta.delta_attn_plain(*dargs), xm_b,
+                     INT8_ATTN_REL_L2)
+
+
+def test_head_dims_refused_before_launch(cuda):
+    """Rows 1-5 and 10 take head dims 32 and 64 and refuse 16 and 128;
+    rows 6 and 11 (the one-block int8 kernel) take 64 only, and name it."""
+    bf = torch.bfloat16
+    attn.reset_launches()
+    for h, ok in ((8, True), (4, True), (16, False), (2, False)):  # C = 256
+        x = torch.zeros(1, 8, 256, dtype=bf, device=cuda)
+        w = torch.zeros(256, 768, dtype=bf, device=cuda)
+        if ok:
+            attn.fused_qkvproj_attention(x, w, h)
+            continue
+        with pytest.raises(ValueError, match="head dim 32 or 64"):
+            attn.fused_qkvproj_attention(x, w, h)
+    x = torch.zeros(1, 8, 256, dtype=bf, device=cuda)
+    w = torch.zeros(256, 768, device=cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="head dim 64"):
+            attn.fused_qkvproj_attention(x, w, 8, quant=True)
+        with pytest.raises(ValueError, match="head dim 64"):
+            attn.fused_attention_block_q(
+                x, torch.ones(256, device=cuda), torch.zeros(256, device=cuda),
+                w, torch.zeros(256, 256, device=cuda),
+                torch.zeros(256, device=cuda), 8)
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES["qkvproj_attention"] == 2
+    assert sum(attn.LAUNCHES.values()) == 2
+
+
+@pytest.mark.parametrize("b,l,c,h", [(3, 257, 128, 4), (3, 257, 384, 6),
+                                     (3, 257, 384, 12), (3, 257, 1024, 16),
+                                     (50, 257, 1024, 32)])
+def test_attention_block_projection_widths_and_repeats(cuda, b, l, c, h):
+    """Row 10 with its projection on mlp_bf16.cu's GEMM at C = 128, 384
+    (C / 128 odd: a cluster of one block) and 1024 (a cluster of two), at
+    head dims 32 and 64, against its twin; a repeat bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(c + h)
+    args = _block_args(g, b, l, c)
+    with torch.no_grad():
+        out, again = (attn.fused_attention_block(*args, h) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _agree_update(out, attn.attention_block_plain(*args, h, (c // h) ** -0.5,
+                                                  1e-5), args[0])
+
+
+@pytest.mark.parametrize("m,n,k", [(12850, 1024, 1024), (771, 384, 384),
+                                   (33, 128, 128), (12850, 1024, 4096)])
+def test_fc2_epilogues_are_bit_exact(cuda, m, n, k):
+    """Row 10's projection (mlp_bf16.cu fc2 with x, the bias rounded to
+    bf16; N = 384 and 128 on clusters of one block) and row 17's fc2 (the
+    w8 GEMM's bias epilogue, no residual) equal their twins' f32 sequences
+    bit for bit on integer operands, whose sums every order gives exactly:
+    ``x + bf16(acc + bf16(b))`` and ``bf16(acc * s2 + b2)``."""
+    g = torch.Generator(device=cuda).manual_seed(m + n + k)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def ints(*shape, top=4):
+        return torch.randint(-top, top + 1, shape, generator=g,
+                             device=cuda).to(bf)
+
+    a, wr, x = ints(m, k), ints(n, k), _rand(g, m, n)
+    bias = _rand(g, n, std=0.5, dtype=f32).to(bf).float()
+    acc = a.float() @ wr.float().t()
+    out = mlp._bf16_fc2_kernel(a, wr, bias, x)
+    assert torch.equal(out, x + (acc + bias).to(bf))
+    q2 = quant.QWeight(q=torch.randint(-127, 128, (n, k), generator=g,
+                                       device=cuda, dtype=torch.int8),
+                       scale=torch.rand(n, generator=g, device=cuda) * 0.01)
+    b2 = _rand(g, n, std=0.5, dtype=f32)
+    acc8 = a.float() @ q2.q.float().t()
+    assert torch.equal(mlp._w8_fc2_kernel(a, q2, b2),
+                       (acc8 * q2.scale + b2).to(bf))

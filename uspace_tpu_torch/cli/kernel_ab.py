@@ -9,8 +9,10 @@ C=1024, H=16, bf16;
 ``mlp_int8``, ``mlp_w8`` and ``mlp_bf16``: the W8A8, weight-only int8 and
 bf16 MLP kernels on the 12850 rows of B=50, hidden 4096;
 ``attention_block``: the attention sub-block's own passes at B=50 (the
-bf16-chain LN, the attention output's row codes, the bf16 and the int8
-projection with bias and residual); ``attention_fwd``: the [B, H, L, D]
+attention output's row codes, the int8 projection with bias and residual;
+a base's own bf16-chain LN pass beside ``mlp_w8.cu``'s, which rows 10-11
+run; the bf16 projection is ``mlp_bf16``'s fc2, timed there as
+``row10_proj_ms``); ``attention_fwd``: the [B, H, L, D]
 kernel at the SD-UNet-large shape, B=50, H=8, L=1024, D=32;
 ``fused_attention_bwd``: its backward at the SD-UNet-large training shape,
 B=128, H=8, L=1024, D=32, and the packed backward at the U-ViT-large
@@ -35,7 +37,12 @@ rows 12 and 13 became pieces (this checkout's rows run as their pieces in
 sequence: ``mlp_w8.cu``'s LN pass for row 13, then ``bf16_fc1`` and
 ``bf16_fc2``, which are also timed alone, on the new build). A row 4 or row 8 entry point of a base
 ``attention_bwd.cu`` or ``fused_attention_bwd.cu`` is timed against this
-checkout's ``fused_attention_bwd.cu``. For ``attention`` the int8 and bf16
+checkout's ``fused_attention_bwd.cu``. A base ``attention.cu`` or
+``fused_attention_bwd.cu`` from before the packed core took a head dim is
+called without one (this checkout's at D = 64), and a base ``mlp_w8.cu``
+whose row 17 is the mma.sync block without its h workspace; for
+``mlp_w8`` row 17's two GEMMs are also timed apart (``row17_fc1_ms``,
+``row17_fc2_ms``). For ``attention`` the int8 and bf16
 projections of this checkout are also timed over K = 256 .. 2048 beside
 ``torch._int_mm``; for ``mlp_bf16`` fc1's GEMM is also timed with fc2's
 bias epilogue in place of its GELU one, and row 13's LN pass alone. Beside each device time stands the
@@ -46,7 +53,7 @@ each build). For ``attention_fwd`` each build is also held to the twin at
 chip_smoke.py's three phase-3 shapes (max-abs, rel-L2). For ``attention``,
 ``attention_fwd``, ``fused_attention_bwd``, ``mlp_w8`` and ``mlp_bf16``
 the host time a call of this checkout's Python wrapper of the redesigned
-rows (5, 7, 4, 16 and 13) is printed beside its device time.
+rows (5, 7, 4, 17 and 13) is printed beside its device time.
 ``--tree <checkout>`` instead
 runs ``chip_smoke.py``'s phase 3 (every kernel against its twin, timed at
 its path's shape, with its library yardstick) from another checkout, such
@@ -107,6 +114,26 @@ _LEGACY_INT8 = {"uspace_ln_qkvproj_attention_int8": (_P,) * 6 + (
 _LEGACY_W8 = {"uspace_ln_mlp_w8": (_P,) * 10 + (_I,) * 4 + (_F, _P)}
 _LEGACY_BF16 = {"uspace_mlp_bf16": (_P,) * 6 + (_I,) * 4 + (_P,),
                 "uspace_ln_mlp_bf16": (_P,) * 8 + (_I,) * 4 + (_F, _P)}
+# attention.cu and fused_attention_bwd.cu before the packed core and the
+# packed backward took a head dim; mlp_w8.cu before row 17 took its h
+# workspace (the mma.sync block)
+_LEGACY_NO_D = {
+    "uspace_packed_attention": (_P, _P, _I, _I, _I, _F, _P),
+    "uspace_qkvproj_attention": (_P,) * 4 + (_I, _I, _I, _F, _P),
+    "uspace_ln_qkvproj_attention": (_P,) * 7 + (_I, _I, _I, _F, _F, _P),
+    "uspace_ln_qkvproj_attention_int8": (_P,) * 9 + (_I, _I, _I, _F, _F,
+                                                     _P),
+    "uspace_packed_attention_bwd": (_P,) * 4 + (_I, _I, _I, _F, _P),
+}
+_LEGACY_W8_BLOCK = {"uspace_mlp_w8": (_P,) * 8 + (_I,) * 4 + (_P,)}
+# attention_block.cu before rows 10-11 ran mlp_w8.cu's LN pass
+_LEGACY_LN_BF16 = {"uspace_ln_bf16": (_P, _P, _P, _P, _I, _I, _F, _P)}
+
+
+def _head_dim(lib: ctypes.CDLL) -> tuple:
+    """The head-dim argument of a build's packed-core entries: (64,), or ()
+    for a source from before they took one."""
+    return () if getattr(lib, "no_head_dim", False) else (64,)
 
 
 def _legacy(lib: ctypes.CDLL) -> bool:
@@ -131,7 +158,16 @@ def _load(source: str, path: str, out: str) -> ctypes.CDLL:
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, path],
                    check=True)
     lib = ctypes.CDLL(out)
+    text = Path(path).read_text()
+    lib.no_head_dim = "int H, int D" not in text
+    lib.w8_block = "mlp_w8_kernel" in text
     sigs = dict(_build.SIGNATURES[source])
+    if lib.no_head_dim:
+        sigs.update({k: v for k, v in _LEGACY_NO_D.items() if k in sigs})
+    if lib.w8_block:
+        sigs.update(_LEGACY_W8_BLOCK)
+    if source == "attention_block":
+        sigs.update(_LEGACY_LN_BF16)
     if _legacy(lib):
         sigs.update({"attention": _LEGACY_ATTENTION, "mlp_w8": _LEGACY_W8,
                      "mlp_bf16": _LEGACY_BF16}.get(source, {}))
@@ -157,9 +193,9 @@ from uspace_tpu_torch.ops import _build, attention, mlp, quant
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 _build.build()
-rows, _, _ = chip_smoke.check_kernels(torch, F, attention, mlp, quant)
+rows, shapes, _ = chip_smoke.check_kernels(torch, F, attention, mlp, quant)
 print("PHASE3", json.dumps([{k: r[k] for k in ("name", "ms", "library_ms")}
-                            for r in rows]))
+                            for r in rows + shapes]))
 """
 
 
@@ -298,15 +334,16 @@ def main(argv=None) -> None:
 
     calls = {
         "packed_attention": lambda lib: lib.uspace_packed_attention(
-            qkv.data_ptr(), out.data_ptr(), B, L, H, 0.125, s),
+            qkv.data_ptr(), out.data_ptr(), B, L, H, *_head_dim(lib), 0.125,
+            s),
         "qkvproj_attention": lambda lib: lib.uspace_qkvproj_attention(
             x.data_ptr(), w.data_ptr(),
             *(() if _legacy(lib) else (qkv_ws.data_ptr(),)),
-            out.data_ptr(), B, L, H, 0.125, s),
+            out.data_ptr(), B, L, H, *_head_dim(lib), 0.125, s),
         "ln_qkvproj_attention": lambda lib: lib.uspace_ln_qkvproj_attention(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w.data_ptr(),
             *(() if _legacy(lib) else (xln_ws.data_ptr(), qkv_ws.data_ptr())),
-            out.data_ptr(), B, L, H, 0.125, 1e-5, s),
+            out.data_ptr(), B, L, H, *_head_dim(lib), 0.125, 1e-5, s),
         "ln_rows": lambda lib: lib.uspace_ln_rows(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), xln_ws.data_ptr(),
             B * L, C, 1e-5, s),
@@ -316,7 +353,7 @@ def main(argv=None) -> None:
             C, s),
         "packed_attention_bwd": lambda lib: lib.uspace_packed_attention_bwd(
             qkv_t.data_ptr(), do_t.data_ptr(), dqkv.data_ptr(),
-            stats.data_ptr(), TRAIN_B, L, H, 0.125, s),
+            stats.data_ptr(), TRAIN_B, L, H, *_head_dim(lib), 0.125, s),
         "qkvproj_attention_int8": lambda lib: lib.uspace_qkvproj_attention_int8(
             x.data_ptr(), q.q.data_ptr(), q.scale.data_ptr(), out.data_ptr(),
             B, L, H, 0.125, s),
@@ -326,7 +363,7 @@ def main(argv=None) -> None:
                 q.scale.data_ptr(),
                 *(() if _legacy_int8(lib) else (
                     codes.data_ptr(), sr.data_ptr(), qkv_ws.data_ptr())),
-                out.data_ptr(), B, L, H, 0.125, 1e-5, s),
+                out.data_ptr(), B, L, H, *_head_dim(lib), 0.125, 1e-5, s),
         # row 5's pieces before its core (row 1's kernel, "packed_attention")
         "ln_row_codes": lambda lib: lib.uspace_ln_row_codes(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), codes.data_ptr(),
@@ -337,7 +374,11 @@ def main(argv=None) -> None:
         "mlp_int8": lambda lib: lib.uspace_mlp_int8(x.data_ptr(), *mw, s),
         "ln_mlp_int8": lambda lib: lib.uspace_ln_mlp_int8(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *mw, 1e-5, s),
-        "mlp_w8": lambda lib: lib.uspace_mlp_w8(x.data_ptr(), *w8, s),
+        # row 17: a base's mma.sync block, or this checkout's two GEMMs
+        "mlp_w8": lambda lib: lib.uspace_mlp_w8(
+            x.data_ptr(), *w8[:6],
+            *(() if getattr(lib, "w8_block", False) else (h_rows.data_ptr(),)),
+            *w8[6:], s),
         "ln_mlp_w8": lambda lib: lib.uspace_ln_mlp_w8(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *w8[:6],
             *(() if _legacy(lib) else (xln_rows.data_ptr(), h_rows.data_ptr())),
@@ -365,14 +406,8 @@ def main(argv=None) -> None:
         # rows 12 and 13's GEMMs (fc2 as row 13's, with the residual)
         "bf16_fc1": lambda lib: bf16_fc1(lib, xln_rows),
         "bf16_fc2": lambda lib: bf16_fc2(lib, x),
-        "ln_bf16": lambda lib: lib.uspace_ln_bf16(
-            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), out.data_ptr(),
-            rows, C, 1e-5, s),
         "row_codes": lambda lib: lib.uspace_row_codes(
             x.data_ptr(), codes.data_ptr(), sr.data_ptr(), rows, C, s),
-        "proj_residual": lambda lib: lib.uspace_proj_residual(
-            x.data_ptr(), wp.data_ptr(), b2.data_ptr(), x.data_ptr(),
-            out.data_ptr(), rows, C, C, s),
         "proj_residual_int8": lambda lib: lib.uspace_proj_residual_int8(
             codes.data_ptr(), sr.data_ptr(), qp.q.data_ptr(),
             qp.scale.data_ptr(), b2.data_ptr(), x.data_ptr(), out.data_ptr(),
@@ -484,13 +519,41 @@ def main(argv=None) -> None:
         }), flush=True)
     if a.source == "attention":
         gemm_k_sweep(libs["new"], s, time_ms)
-    if a.source == "mlp_bf16":  # row 13's LN pass; what fc1's GELU costs
+    if a.source == "mlp_bf16":  # row 13's LN pass; what fc1's GELU costs;
+        # row 10's projection (fc2 at N = K = C with x, a cluster of two)
         print(json.dumps({
             "ln_pass_ms": time_ms(lambda _: bf16_ln(), None)[0],
             "fc1_gemm_with_fc2_epilogue_ms": time_ms(
                 lambda lib: lib.uspace_bf16_fc2(
                     xln_rows.data_ptr(), w1h.data_ptr(), b1.data_ptr(), None,
                     h_rows.data_ptr(), rows, C, hid, s), libs["new"])[0],
+            "row10_proj_ms": time_ms(
+                lambda lib: lib.uspace_bf16_fc2(
+                    x.data_ptr(), wp.data_ptr(), b2.data_ptr(), x.data_ptr(),
+                    out.data_ptr(), rows, C, C, s), libs["new"])[0],
+            "card": torch.cuda.get_device_name(0)}), flush=True)
+    if a.source == "attention_block" and hasattr(libs["base"],
+                                                 "uspace_ln_bf16"):
+        # a base's own LN1 pass against mlp_w8.cu's, which rows 10-11 run
+        w8 = _build.load("mlp_w8")
+        print(json.dumps({
+            "base_ln_bf16_ms": time_ms(lambda lib: lib.uspace_ln_bf16(
+                x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), out.data_ptr(),
+                rows, C, 1e-5, s), libs["base"])[0],
+            "w8_ln_rows_ms": time_ms(lambda lib: lib.uspace_w8_ln_rows(
+                x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), out.data_ptr(),
+                rows, C, 1e-5, s), w8)[0],
+            "card": torch.cuda.get_device_name(0)}), flush=True)
+    if a.source == "mlp_w8":  # row 17's pieces: fc1 on x, fc2 without x
+        print(json.dumps({
+            "row17_fc1_ms": time_ms(lambda lib: lib.uspace_w8_fc1(
+                x.data_ptr(), q1.q.data_ptr(), q1.scale.data_ptr(),
+                b1.data_ptr(), h_rows.data_ptr(), rows, C, hid, s),
+                libs["new"])[0],
+            "row17_fc2_ms": time_ms(lambda lib: lib.uspace_w8_fc2(
+                h_rows.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(),
+                b2.data_ptr(), None, out.data_ptr(), rows, hid, C, s),
+                libs["new"])[0],
             "card": torch.cuda.get_device_name(0)}), flush=True)
     if a.source == "attention_fwd":
         fwd_agreement(libs, s, time_ms)
@@ -508,8 +571,8 @@ def main(argv=None) -> None:
         "fused_attention_bwd": ("packed_attention_bwd",
                                 lambda: attention._packed_bwd_kernel(
                                     qkv_t, do_t, H, 0.125)),
-        "mlp_w8": ("ln_mlp_w8", lambda: mlp._mlp_w8_kernel(
-            x.reshape(rows, C), q1, b1, q2, b2, (lns, lnb, 1e-5))),
+        "mlp_w8": ("mlp_w8", lambda: mlp._mlp_w8_kernel(
+            x.reshape(rows, C), q1, b1, q2, b2)),
         "mlp_bf16": ("ln_mlp_bf16", lambda: mlp._mlp_bf16_kernel(
             x.reshape(rows, C), w1h.t(), b1, w2h.t(), b2, (lns, lnb, 1e-5))),
     }

@@ -75,23 +75,24 @@ GROUPS = (
         "fused_bwd_dq_kernel<64, true", "fused_bwd_dkdv_kernel<64, true")),
     ("[B, H, L, D] attention backward kernel (ours: row 8)", (
         "fused_bwd_dq_kernel", "fused_bwd_dkdv_kernel")),
-    ("attention sub-block passes (ours: LN, row codes, projection)", (
-        "ln_bf16_kernel", "row_codes_kernel", "proj_residual_kernel")),
+    ("int8 attention sub-block passes (ours: row 11's row codes, projection)",
+     ("row_codes_kernel", "proj_residual_kernel")),
     ("blocked attention kernel (ours: row 9)", ("flash_attention_kernel",)),
     ("attention LN pass (ours: row 3)", ("ln_rows_kernel",)),
     ("int8 attention LN code pass (ours: row 5)", ("ln_codes_kernel",)),
     # before "matmul (cuBLAS)": their names contain "gemm"
     ("QKV projection on wgmma (ours: rows 2-3)", ("qkv_gemm_kernel<false",)),
     ("int8 QKV projection on wgmma (ours: row 5)", ("qkv_gemm_kernel<true",)),
-    ("w8 MLP sub-block, LN pass (ours: row 16)", ("w8_ln_kernel",)),
-    ("w8 MLP sub-block, fc1 on wgmma (ours: row 16)", ("w8_gemm_kernel<0",)),
+    ("bf16-chain LN pass (ours: rows 16, 13, 10-11)", ("w8_ln_kernel",)),
+    ("w8 MLP fc1 on wgmma (ours: rows 16-17)", ("w8_gemm_kernel<0",)),
     ("w8 MLP sub-block, fc2 on wgmma (ours: row 16)", ("w8_gemm_kernel<1",)),
+    ("w8 MLP, fc2 on wgmma (ours: row 17)", ("w8_gemm_kernel<2",)),
+    ("bf16 GEMMs on wgmma (ours: rows 12-13 fc1 and fc2, row 10's "
+     "projection)", ("::gemm_kernel<",)),
     ("attention core (ours: rows 1-3, 5)", ("packed_core_kernel",)),
     ("[B, H, L, D] attention kernel (ours)", ("attention_fwd_kernel",)),
     ("int8 attention kernel (ours: rows 6, 11)", ("attention_int8_kernel",)),
     ("int8 MLP kernel (ours)", ("mlp_int8_kernel",)),
-    ("w8 MLP kernel (ours: row 17)", ("mlp_w8_kernel",)),
-    ("bf16 MLP kernel (ours)", ("mlp_bf16_kernel",)),
     ("layout transposes (NHWC <-> NCHW)", ("nchwToNhwc", "nhwcToNchw")),
     ("conv (cuDNN)", ("conv", "Conv", "cudnn", "fprop")),
     ("matmul (cuBLAS)", ("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet")),

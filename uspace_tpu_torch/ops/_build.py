@@ -39,17 +39,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_ln_row_codes": (_P,) * 5 + (_I, _I, _F, _P),
         "uspace_qkv_gemm": (_P, _P, _P, _I, _I, _I, _P),
         "uspace_qkv_gemm_int8": (_P,) * 5 + (_I, _I, _I, _P),
-        "uspace_packed_attention": (_P, _P, _I, _I, _I, _F, _P),
-        "uspace_qkvproj_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-        "uspace_ln_qkvproj_attention": (_P,) * 7 + (_I, _I, _I, _F, _F, _P),
+        "uspace_packed_attention": (_P, _P) + (_I,) * 4 + (_F, _P),
+        "uspace_qkvproj_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
+        "uspace_ln_qkvproj_attention": (_P,) * 7 + (_I,) * 4 + (_F, _F, _P),
         "uspace_qkvproj_attention_int8": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-        "uspace_ln_qkvproj_attention_int8": (_P,) * 9 + (_I, _I, _I, _F, _F,
-                                                         _P),
+        "uspace_ln_qkvproj_attention_int8": (_P,) * 9 + (_I,) * 4 + (_F, _F,
+                                                                     _P),
     },
     "attention_block": {
-        "uspace_ln_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
         "uspace_row_codes": (_P, _P, _P, _I, _I, _P),
-        "uspace_proj_residual": (_P,) * 5 + (_I,) * 3 + (_P,),
         "uspace_proj_residual_int8": (_P,) * 7 + (_I,) * 3 + (_P,),
     },
     "delta_attention": {
@@ -77,7 +75,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "fused_attention_bwd": {
         "uspace_fused_attention_bwd": (_P,) * 8 + (_I,) * 4 + (_F, _P),
-        "uspace_packed_attention_bwd": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+        "uspace_packed_attention_bwd": (_P,) * 4 + (_I,) * 4 + (_F, _P),
     },
     "mlp_int8": {
         "uspace_mlp_int8": (_P,) * 9 + (_I,) * 5 + (_P,),
@@ -88,7 +86,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_bf16_fc2": (_P,) * 5 + (_I,) * 3 + (_P,),
     },
     "mlp_w8": {
-        "uspace_mlp_w8": (_P,) * 8 + (_I,) * 4 + (_P,),
+        "uspace_mlp_w8": (_P,) * 9 + (_I,) * 4 + (_P,),
         "uspace_ln_mlp_w8": (_P,) * 12 + (_I,) * 4 + (_F, _P),
         "uspace_w8_ln_rows": (_P, _P, _P, _P, _I, _I, _F, _P),
         "uspace_w8_fc1": (_P,) * 5 + (_I,) * 3 + (_P,),

@@ -20,7 +20,9 @@ core on it. The int8 LN route is the same sequence with int8 products: the
 f32 LN rows coded once per row into an int8 [B*L, C] workspace with their
 f32 row scales, the int8 projection of all heads on wgmma into the bf16 qkv
 workspace, the packed core. The LN-free int8 kernel keeps its projection
-and core in one kernel.
+and core in one kernel. The packed core, and every route that runs it,
+takes head dim 32 or 64 (:data:`KERNEL_HEAD_DIMS`); the LN-free int8
+kernel takes 64 (:data:`INT8_HEAD_DIMS`).
 
 The bf16 packed and QKV-projection kernels are differentiable, as in the
 JAX package: their backward runs :func:`packed_attention_bwd`
@@ -68,9 +70,11 @@ is :func:`fused_attention_block` (``csrc/attention_block.cu``, TPU kernel
 (``_attn_block_kernel_q``). Their LN1 is the bf16 chain of the MLP
 sub-block kernels (f32 statistics, each operation rounded to bf16), not the
 f32 LN of the LN kernels above. Each is a short sequence of launches: the
-LN pass, the QKV-projection attention kernel of ``csrc/attention.cu`` on
+LN pass (``csrc/mlp_w8.cu``'s), the QKV-projection attention kernel of
+``csrc/attention.cu`` on
 its output (bf16, or int8 coding each bf16 LN row), then the projection
-with bias and residual (int8: after coding the attention output per row).
+with bias and residual (bf16: the wgmma fc2 GEMM of ``csrc/mlp_bf16.cu``;
+int8: after coding the attention output per row).
 The bf16 sub-block is differentiable as in JAX: its backward is the VJP of
 the plain recompute :func:`attention_block_xla` (f32 LN), with no backward
 kernel, as the JAX package has none; the int8 one is inference-only.
@@ -93,7 +97,7 @@ from ._build import (
     on_cpu,
     raise_on,
 )
-from .mlp import _ln_bf16_normalise
+from .mlp import _bf16_fc2_kernel, _ln_bf16_normalise, _w8_ln_kernel
 from .quant import QWeight, int_matmul, quantized_weight, row_codes, true_div
 
 # launches of each CUDA kernel since the last reset (the CPU twin does not count)
@@ -111,7 +115,10 @@ LAUNCHES: Dict[str, int] = {
     "flash": 0,
 }
 
-KERNEL_HEAD_DIM = 64
+# the head dims of the packed core (row 1) and of the routes that run it
+# (rows 2-5, 10, 18, 19); the one-block int8 kernel (rows 6 and 11) keeps 64
+KERNEL_HEAD_DIMS = (32, 64)
+INT8_HEAD_DIMS = (64,)
 KERNEL_MAX_LEN = 512  # the whole head's q, k, v stay in one SM's shared memory
 
 # the JAX dispatcher: plain math up to this length, then the [B, H, L, D]
@@ -327,30 +334,38 @@ def ln_qkvproj_attention_int8_plain(x: torch.Tensor, ln_scale: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_x(name: str, x: torch.Tensor, num_heads: int, parts: int) -> None:
-    """Limits of the CUDA kernels: x [B, L, parts*H*64] bf16, L <= 512."""
+def _check_x(name: str, x: torch.Tensor, num_heads: int, parts: int,
+             head_dims: tuple = KERNEL_HEAD_DIMS) -> int:
+    """Limits of the CUDA kernels: x [B, L, parts*H*D] bf16 with D one of
+    ``head_dims``, L <= 512; a projection's input (``parts`` 1) C a multiple
+    of 64. Returns D."""
     if x.dim() != 3:
         raise ValueError(f"{name} must be [B, L, C], got {tuple(x.shape)}")
     if x.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA attention kernels take bfloat16, got "
                          f"{x.dtype} (use attn_impl='xla' for other dtypes)")
-    if x.shape[-1] != parts * num_heads * KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA attention kernels take head dim "
-                         f"{KERNEL_HEAD_DIM}: {name} width {x.shape[-1]} "
-                         f"with {num_heads} heads")
+    d = x.shape[-1] // (parts * num_heads)
+    if d not in head_dims or x.shape[-1] != parts * num_heads * d:
+        raise ValueError(f"this CUDA attention kernel takes head dim "
+                         f"{' or '.join(map(str, head_dims))}: {name} width "
+                         f"{x.shape[-1]} with {num_heads} heads")
+    if parts == 1 and x.shape[-1] % 64:  # the projection's 64-deep K chunks
+        raise ValueError(f"the QKV-projection kernels take C a multiple of "
+                         f"64, got {x.shape[-1]}")
     if not 1 <= x.shape[1] <= KERNEL_MAX_LEN:
         raise ValueError(f"the CUDA attention kernels take 1 <= L <= "
                          f"{KERNEL_MAX_LEN}, got {x.shape[1]}")
     check_tensor(name, x, torch.bfloat16, tuple(x.shape), x.device)
+    return d
 
 
 def _packed_kernel(qkv: torch.Tensor, num_heads: int,
                    scale: float) -> torch.Tensor:
     b, l, c3 = qkv.shape
-    _check_x("qkv", qkv, num_heads, 3)
+    d = _check_x("qkv", qkv, num_heads, 3)
     out = torch.empty((b, l, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     rc = load("attention").uspace_packed_attention(
-        qkv.data_ptr(), out.data_ptr(), b, l, num_heads, scale,
+        qkv.data_ptr(), out.data_ptr(), b, l, num_heads, d, scale,
         cuda_stream(qkv.device))
     raise_on(rc, "uspace_packed_attention")
     LAUNCHES["packed_attention"] += 1
@@ -367,13 +382,13 @@ def _bwd_stats(b: int, h: int, l: int, device: torch.device) -> torch.Tensor:
 def _packed_bwd_kernel(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
                        scale: float) -> torch.Tensor:
     b, l, c3 = qkv.shape
-    _check_x("qkv", qkv, num_heads, 3)
+    d = _check_x("qkv", qkv, num_heads, 3)
     check_tensor("do", do, qkv.dtype, (b, l, c3 // 3), qkv.device)
     dqkv = torch.empty_like(qkv)
     stats = _bwd_stats(b, num_heads, l, qkv.device)
     rc = load("fused_attention_bwd").uspace_packed_attention_bwd(
         qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, l,
-        num_heads, scale, cuda_stream(qkv.device))
+        num_heads, d, scale, cuda_stream(qkv.device))
     raise_on(rc, "uspace_packed_attention_bwd")
     LAUNCHES["packed_attention_bwd"] += 1
     return dqkv
@@ -433,13 +448,13 @@ def _qkv_gemm_kernel(x: torch.Tensor, w_rows: torch.Tensor) -> torch.Tensor:
 
 def _qkvproj_kernel(x, w_qkv, num_heads, scale):
     b, l, c = x.shape
-    _check_x("x", x, num_heads, 1)
+    d = _check_x("x", x, num_heads, 1)
     w = _rows(w_qkv, (c, 3 * c), x.dtype, x.device, "w_qkv")
     qkv = x.new_empty((b, l, 3 * c))
     out = torch.empty_like(x)
     rc = load("attention").uspace_qkvproj_attention(
         x.data_ptr(), w.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, l,
-        num_heads, scale, cuda_stream(x.device))
+        num_heads, d, scale, cuda_stream(x.device))
     raise_on(rc, "uspace_qkvproj_attention")
     LAUNCHES["qkvproj_attention"] += 1
     return out
@@ -447,7 +462,7 @@ def _qkvproj_kernel(x, w_qkv, num_heads, scale):
 
 def _ln_qkvproj_kernel(x, ln_scale, ln_bias, w_qkv, num_heads, scale, eps):
     b, l, c = x.shape
-    _check_x("x", x, num_heads, 1)
+    d = _check_x("x", x, num_heads, 1)
     check_no_grad(x, ln_scale, ln_bias, w_qkv,
                   what="the LN + QKV-projection attention kernel")
     w = _rows(w_qkv, (c, 3 * c), x.dtype, x.device, "w_qkv")
@@ -457,7 +472,7 @@ def _ln_qkvproj_kernel(x, ln_scale, ln_bias, w_qkv, num_heads, scale, eps):
     out = torch.empty_like(x)
     rc = load("attention").uspace_ln_qkvproj_attention(
         x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w.data_ptr(),
-        xln.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, l, num_heads,
+        xln.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, l, num_heads, d,
         scale, eps, cuda_stream(x.device))
     raise_on(rc, "uspace_ln_qkvproj_attention")
     LAUNCHES["ln_qkvproj_attention"] += 1
@@ -505,11 +520,13 @@ def _qkv_gemm_int8_kernel(codes: torch.Tensor, sr: torch.Tensor,
 
 
 def _int8_kernel(x, qw, num_heads, scale, ln=None):
-    """The int8 QKV-projection kernel; with ``ln = (scale, bias, eps)`` the
-    LN1 route (three launches counted as one: the code pass, the int8
-    projection into a qkv workspace, the packed core)."""
+    """The int8 QKV-projection kernel (head dim 64); with ``ln = (scale,
+    bias, eps)`` the LN1 route (three launches counted as one: the code
+    pass, the int8 projection into a qkv workspace, the packed core; head
+    dim 32 or 64)."""
     b, l, c = x.shape
-    _check_x("x", x, num_heads, 1)
+    d = _check_x("x", x, num_heads, 1,
+                 INT8_HEAD_DIMS if ln is None else KERNEL_HEAD_DIMS)
     _check_qweight(qw, 3 * c, c, x.device)
     out = torch.empty_like(x)
     lib = load("attention")
@@ -528,7 +545,7 @@ def _int8_kernel(x, qw, num_heads, scale, ln=None):
     rc = lib.uspace_ln_qkvproj_attention_int8(
         x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), qw.q.data_ptr(),
         qw.scale.data_ptr(), codes.data_ptr(), sr.data_ptr(), qkv.data_ptr(),
-        out.data_ptr(), b, l, num_heads, scale, eps, cuda_stream(x.device))
+        out.data_ptr(), b, l, num_heads, d, scale, eps, cuda_stream(x.device))
     raise_on(rc, "uspace_ln_qkvproj_attention_int8")
     LAUNCHES["ln_qkvproj_attention_int8"] += 1
     return out
@@ -837,13 +854,18 @@ def attention_block_xla(x: torch.Tensor, ln_scale: torch.Tensor,
 
 def _block_kernel(x, ln_scale, ln_bias, w_qkv, w_proj, b_proj, num_heads,
                   scale, eps, qws=None):
-    """Launch the sub-block on x [B, L, C] bf16: bf16, or with ``qws =
-    (QWeight of w_qkv, QWeight of w_proj)`` W8A8."""
+    """Launch the sub-block on x [B, L, C] bf16: bf16 (head dim 32 or 64),
+    or with ``qws = (QWeight of w_qkv, QWeight of w_proj)`` W8A8 (head dim
+    64, row 6's kernel). LN1 is ``mlp_w8.cu``'s LN pass (the same bf16
+    chain as LN2); the bf16 projection is ``mlp_bf16.cu``'s fc2 GEMM at N =
+    K = C with x as its residual and the bias rounded to bf16, held in
+    f32."""
     b, l, c = x.shape
-    _check_x("x", x, num_heads, 1)
-    if c % 128:
+    _check_x("x", x, num_heads, 1,
+             KERNEL_HEAD_DIMS if qws is None else INT8_HEAD_DIMS)
+    if c % 128 or c > 2048:  # the LN pass holds a row of <= 2048
         raise ValueError(f"the attention sub-block kernels take C a "
-                         f"multiple of 128, got {c}")
+                         f"multiple of 128 up to 2048, got {c}")
     dev, r = x.device, b * l
     lns = ln_scale.to(torch.float32).reshape(-1).contiguous()
     lnb = ln_bias.to(torch.float32).reshape(-1).contiguous()
@@ -851,27 +873,26 @@ def _block_kernel(x, ln_scale, ln_bias, w_qkv, w_proj, b_proj, num_heads,
     for name, t in (("ln_scale", lns), ("ln_bias", lnb), ("b_proj", bp)):
         check_tensor(name, t, torch.float32, (c,), dev)
     stream = cuda_stream(dev)
-    blk, lib = load("attention_block"), load("attention")
-    xln, a, out = (torch.empty_like(x) for _ in range(3))
-    raise_on(blk.uspace_ln_bf16(x.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
-                                xln.data_ptr(), r, c, eps, stream),
-             "uspace_ln_bf16")
+    lib = load("attention")
+    xln = _w8_ln_kernel(x.view(r, c), lns, lnb, eps).view(b, l, c)
+    a = torch.empty_like(x)
     if qws is None:
         w = _rows(w_qkv, (c, 3 * c), x.dtype, dev, "w_qkv")
         wp = _rows(w_proj, (c, c), x.dtype, dev, "w_proj")
         qkv = x.new_empty((b, l, 3 * c))
         raise_on(lib.uspace_qkvproj_attention(
             xln.data_ptr(), w.data_ptr(), qkv.data_ptr(), a.data_ptr(), b, l,
-            num_heads, scale, stream), "uspace_qkvproj_attention")
-        raise_on(blk.uspace_proj_residual(
-            a.data_ptr(), wp.data_ptr(), bp.data_ptr(), x.data_ptr(),
-            out.data_ptr(), r, c, c, stream), "uspace_proj_residual")
+            num_heads, c // num_heads, scale, stream),
+            "uspace_qkvproj_attention")
+        out = _bf16_fc2_kernel(a.view(r, c), wp, bp.to(x.dtype).float(),
+                               x.view(r, c)).view(b, l, c)
         LAUNCHES["attention_block"] += 1
         return out
     qkv_w, proj_w = qws
     for name, qw, n in (("w_qkv", qkv_w, 3 * c), ("w_proj", proj_w, c)):
         check_tensor(f"{name} codes", qw.q, torch.int8, (n, c), dev)
         check_tensor(f"{name} scales", qw.scale, torch.float32, (n,), dev)
+    blk = load("attention_block")
     codes = torch.empty((r, c), dtype=torch.int8, device=dev)
     sr = torch.empty((r,), dtype=torch.float32, device=dev)
     raise_on(lib.uspace_qkvproj_attention_int8(
@@ -881,6 +902,7 @@ def _block_kernel(x, ln_scale, ln_bias, w_qkv, w_proj, b_proj, num_heads,
     raise_on(blk.uspace_row_codes(a.data_ptr(), codes.data_ptr(),
                                   sr.data_ptr(), r, c, stream),
              "uspace_row_codes")
+    out = torch.empty_like(x)
     raise_on(blk.uspace_proj_residual_int8(
         codes.data_ptr(), sr.data_ptr(), proj_w.q.data_ptr(),
         proj_w.scale.data_ptr(), bp.data_ptr(), x.data_ptr(), out.data_ptr(),

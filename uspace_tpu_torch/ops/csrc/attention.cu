@@ -44,16 +44,18 @@
 // - packed_core_kernel (row 1, and the core of rows 2 and 3): softmax(q k^T
 //   * scale) v per (batch, head) from packed qkv, on wgmma. A block of two
 //   warpgroups takes 128 queries of one (batch, head), 64 a warpgroup; the
-//   blocks of a head are neighbours in launch order. Q, K and V go to
-//   shared memory by cp.async in the 128-byte-swizzled layout wgmma reads
-//   (L = 257: 85 KB, two blocks an SM; V lands while pass 1 runs). Per
-//   chunk of 64 keys (16 at the tail), S = Q K^T is m64nNk16 from shared
-//   memory into f32 registers; pass 1 takes the whole row's max (over the
-//   raw scores, scaled once: rounding is monotone); pass 2 recomputes each
-//   chunk, p = expf(s * scale - m) in f32 with its f32 row sum, rounds p to
-//   bf16 straight into P.V's register A fragments, and P.V is m64n64k16
-//   with V read N-major from shared memory; the f32 P.V is divided by the
-//   sum at the end and rounded to bf16. These are the TPU kernel's rounding
+//   blocks of a head are neighbours in launch order. The head dim D (32 or
+//   64) is a template parameter: Q, K and V go to shared memory by cp.async
+//   in the layout wgmma reads, rows of 2D bytes with the swizzle whose span
+//   is a row (128 bytes at D = 64, 64 bytes at D = 32; L = 257: 85 and 43
+//   KB; V lands while pass 1 runs). Per chunk of 64 keys (16 at the tail),
+//   S = Q K^T is m64nNk16 from shared memory into f32 registers; pass 1
+//   takes the whole row's max (over the raw scores, scaled once: rounding is
+//   monotone); pass 2 recomputes each chunk, p = expf(s * scale - m) in f32
+//   with its f32 row sum, rounds p to bf16 straight into P.V's register A
+//   fragments, and P.V is m64nDk16 with V read N-major from shared memory;
+//   the f32 P.V is divided by the sum at the end and rounded to bf16. At
+//   either head dim these are the TPU kernel's rounding
 //   sites. Keys at and past L are masked by index (p = 0, as exp of the TPU
 //   kernel's large finite negative is 0) and their K and V rows are
 //   zero-filled; L is never padded in device memory. Issuing its scalar
@@ -84,7 +86,7 @@
 //
 // The LN-free int8 kernel (row 6, and row 11's projection) keeps one block
 // per (batch, head) with the head's qkv tile in shared memory and the WMMA
-// attention core `attend` (bound as row 5's):
+// attention core `attend` (bound as row 5's), at head dim 64 only (Q_D):
 // - A row's int8 scale needs the whole row first, so a statistics pass (one
 //   warp per row, the row held in registers) takes amax of the row before
 //   any column is coded.
@@ -119,8 +121,8 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int D = 64;               // head dim
-constexpr int QKV_COLS = 3 * D;     // one head's q | k | v columns
+constexpr int Q_D = 64;             // the one-block int8 kernel's head dim (rows 6, 11)
+constexpr int QKV_COLS = 3 * Q_D;   // one head's q | k | v columns
 constexpr int WARPS = 12;           // int8 kernels: 3 row groups x 4 col groups
 constexpr int THREADS = WARPS * 32;
 constexpr int F_LD = 20;            // per-warp f32 tile row
@@ -678,16 +680,65 @@ constexpr int CORE_WGS = 2;               // warpgroups a block, 64 queries each
 constexpr int CORE_Q = 64 * CORE_WGS;      // queries a block
 constexpr int CORE_THREADS = 128 * CORE_WGS;
 
-// element offset of 16-byte chunk c of row r in a [rows][D] bf16 tile laid
-// out as wgmma's 128-byte swizzle wants it (rows of 128 bytes, chunks XORed
-// with the row's index mod 8, the tile 1024-byte aligned)
-__device__ inline int swz(int r, int c) { return r * D + ((c ^ (r & 7)) << 3); }
+// the shared-memory geometry of a head dim D (32 or 64): a tile row is 2D
+// bytes, laid out with the swizzle whose span is a row, which cp.async
+// writes (swz) and wgmma reads (128 bytes: mode 1, 64 bytes: mode 2); 8-row
+// groups SBO bytes apart, the tile 1024-byte aligned
+template <int D>
+struct CoreGeo {
+  static_assert(D == 32 || D == 64, "head dim 32 or 64");
+  static constexpr int RB = 2 * D;
+  static constexpr uint64_t MODE = D == 64 ? 1 : 2;
+  static constexpr uint32_t SBO = 8 * RB;
+};
+
+// element offset of 16-byte chunk c of row r in a [rows][D] bf16 tile so
+// swizzled: the chunks of a row XORed with the row's index mod 8 (128-byte
+// rows) or with half of it mod 4 (64-byte rows)
+template <int D>
+__device__ inline int swz(int r, int c) {
+  return r * D + ((c ^ (D == 64 ? (r & 7) : ((r >> 1) & 3))) << 3);
+}
+
+// wgmma descriptor of such a tile read K-major (rows along M or N, D
+// contiguous); 16 elements deeper is 32 bytes further (+2)
+template <int D>
+__device__ inline uint64_t core_desc_k(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(CoreGeo<D>::SBO >> 4) << 32) | (CoreGeo<D>::MODE << 62);
+}
 
 // wgmma descriptor of such a tile read N-major (as V in P.V: rows along K,
-// 64 N-contiguous elements each); K-wise 8-row groups 1024 bytes apart
-__device__ inline uint64_t sw128_desc_mn(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+// D N-contiguous elements each, one swizzle atom wide)
+template <int D>
+__device__ inline uint64_t core_desc_mn(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) |
+         ((uint64_t)(CoreGeo<D>::SBO >> 4) << 16) |
+         ((uint64_t)(CoreGeo<D>::SBO >> 4) << 32) | (CoreGeo<D>::MODE << 62);
+}
+
+// d[16] += A (64 x 16, registers: a warp's m16n8k16 A fragment) . B (16 x
+// 32, smem, N-major)
+__device__ inline void wgmma_n32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[D/2] += A (registers) . B (16 x D, smem, N-major)
+template <int D>
+__device__ inline void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 32)
+    wgmma_n32_rs(d, a, db);
+  else
+    wgmma_n64_rs(d, a, db);
 }
 
 __device__ inline uint32_t pack_bf16(float lo, float hi) {
@@ -697,16 +748,16 @@ __device__ inline uint32_t pack_bf16(float lo, float hi) {
 
 // S (64 queries x N keys, unscaled f32) of one warpgroup, N = 64 or 16: its
 // Q rows at shared address qa, the chunk's K rows at ka; waits for it
-template <int N>
+template <int D, int N>
 __device__ inline void score_chunk(float (&s)[N / 2], uint32_t qa, uint32_t ka) {
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd) {  // 32 bytes deeper: +2 (16-byte units)
     if constexpr (N == 64)
-      wgmma_n64_ss(s, sw128_desc(qa) + 2 * kd, sw128_desc(ka) + 2 * kd, kd > 0);
+      wgmma_n64_ss(s, core_desc_k<D>(qa) + 2 * kd, core_desc_k<D>(ka) + 2 * kd, kd > 0);
     else
-      wgmma_n16_ss(s, sw128_desc(qa) + 2 * kd, sw128_desc(ka) + 2 * kd, kd > 0);
+      wgmma_n16_ss(s, core_desc_k<D>(qa) + 2 * kd, core_desc_k<D>(ka) + 2 * kd, kd > 0);
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -732,8 +783,8 @@ __device__ inline void chunk_extreme(const float (&s)[N / 2], int key0, int L, f
 // p = exp(s * scale - m) in place with its f32 row sums, then O += bf16(p) . V
 // for the chunk's keys key0 .. key0 + N - 1 (V rows at shared address va);
 // MASKED: p = 0 at and past L
-template <int N, bool MASKED>
-__device__ inline void chunk_pv(float (&s)[N / 2], float (&o)[32], int key0, int t4,
+template <int D, int N, bool MASKED>
+__device__ inline void chunk_pv(float (&s)[N / 2], float (&o)[D / 2], int key0, int t4,
                                 int L, float scale, float m0, float m1, float& l0,
                                 float& l1, uint32_t va) {
 #pragma unroll
@@ -763,7 +814,7 @@ __device__ inline void chunk_pv(float (&s)[N / 2], float (&o)[32], int key0, int
   wgmma_fence();
 #pragma unroll
   for (int k = 0; k < N / 16; ++k)
-    wgmma_n64_rs(o, pa[k], sw128_desc_mn(va + (key0 + 16 * k) * 128));
+    wgmma_pv<D>(o, pa[k], core_desc_mn<D>(va + (key0 + 16 * k) * CoreGeo<D>::RB));
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(o);
@@ -771,17 +822,17 @@ __device__ inline void chunk_pv(float (&s)[N / 2], float (&o)[32], int key0, int
 
 // pass 1 of a warpgroup: the raw row extremes over all L keys (whole 64-key
 // chunks, then 16-key chunks up to L)
-template <bool NEG>
+template <int D, bool NEG>
 __device__ inline void row_extremes(uint32_t qa, uint32_t ka, int L, int t4, float& x0,
                                     float& x1) {
   const int full = L / 64 * 64;
   float s[32], s16[8];
   for (int k0 = 0; k0 < full; k0 += 64) {
-    score_chunk<64>(s, qa, ka + k0 * 128);
+    score_chunk<D, 64>(s, qa, ka + k0 * CoreGeo<D>::RB);
     chunk_extreme<64, false, NEG>(s, k0 + 2 * t4, L, x0, x1);
   }
   for (int k0 = full; k0 < L; k0 += 16) {
-    score_chunk<16>(s16, qa, ka + k0 * 128);
+    score_chunk<D, 16>(s16, qa, ka + k0 * CoreGeo<D>::RB);
     chunk_extreme<16, true, NEG>(s16, k0 + 2 * t4, L, x0, x1);
   }
 }
@@ -791,17 +842,19 @@ struct CoreShape {
 };
 
 // CORE_Q queries a block; Q, and K and V to a multiple of 16 keys, in
-// shared memory (L = 257: 85 KB, two blocks an SM)
-inline CoreShape core_shape(int L) {
+// shared memory (L = 257: 85 KB at D = 64, two blocks an SM; 43 KB at 32)
+inline CoreShape core_shape(int L, int D) {
   CoreShape s;
   s.blocks = (L + CORE_Q - 1) / CORE_Q;
   s.bytes = (CORE_Q + 2 * round16(L)) * D * 2 + 1024;  // + 1024-byte alignment
   return s;
 }
 
+template <int D>
 __global__ void __launch_bounds__(CORE_THREADS)
 packed_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L,
                    int H, int blocks, float scale) {
+  typedef CoreGeo<D> G;
   extern __shared__ __align__(128) unsigned char smem[];
   const int lk = round16(L);
   const uint32_t raw = smem_u32(smem);
@@ -821,8 +874,8 @@ packed_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L,
   auto load_rows = [&](bf16* dst, int row0, int rows, int col) {
     for (int e = tid; e < rows * VPR; e += CORE_THREADS) {
       const int r = e / VPR, cv = e % VPR, gr = row0 + r;
-      cp_async16z(dst + swz(r, cv), src + (size_t)(gr < L ? gr : 0) * C3 + col + cv * 8,
-                  gr < L);
+      cp_async16z(dst + swz<D>(r, cv),
+                  src + (size_t)(gr < L ? gr : 0) * C3 + col + cv * 8, gr < L);
     }
   };
   load_rows(qs, q0, CORE_Q, 0);  // group 0: Q and K
@@ -840,16 +893,16 @@ packed_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L,
   const int g = lane >> 2, t4 = lane & 3;
   const int ra = q0 + wg * 64 + warp * 16 + g, rb = ra + 8;  // this lane's rows
   const bool active = q0 + wg * 64 < L;
-  const uint32_t qa = smem_u32(qs) + wg * 64 * 128, ka = smem_u32(ks),
+  const uint32_t qa = smem_u32(qs) + wg * 64 * G::RB, ka = smem_u32(ks),
                  va = smem_u32(vs);
   float m0 = 0.f, m1 = 0.f;  // row max of the scaled scores of rows ra, rb
   if (active) {  // pass 1
     const bool neg = scale < 0.f;
     float x0 = neg ? INFINITY : -INFINITY, x1 = x0;
     if (neg)
-      row_extremes<true>(qa, ka, L, t4, x0, x1);
+      row_extremes<D, true>(qa, ka, L, t4, x0, x1);
     else
-      row_extremes<false>(qa, ka, L, t4, x0, x1);
+      row_extremes<D, false>(qa, ka, L, t4, x0, x1);
     // the four lanes of a row group share rows
 #pragma unroll
     for (int sh = 1; sh <= 2; sh <<= 1) {
@@ -867,19 +920,19 @@ packed_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L,
   if (!active) return;
 
   float l0 = 0.f, l1 = 0.f;  // this lane's part of the row sums
-  float o[32];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   {  // pass 2: p, its sum, P.V
     const int full = L / 64 * 64;
     float s[32], s16[8];
     for (int k0 = 0; k0 < full; k0 += 64) {
-      score_chunk<64>(s, qa, ka + k0 * 128);
-      chunk_pv<64, false>(s, o, k0, t4, L, scale, m0, m1, l0, l1, va);
+      score_chunk<D, 64>(s, qa, ka + k0 * G::RB);
+      chunk_pv<D, 64, false>(s, o, k0, t4, L, scale, m0, m1, l0, l1, va);
     }
     for (int k0 = full; k0 < L; k0 += 16) {
-      score_chunk<16>(s16, qa, ka + k0 * 128);
-      chunk_pv<16, true>(s16, o, k0, t4, L, scale, m0, m1, l0, l1, va);
+      score_chunk<D, 16>(s16, qa, ka + k0 * G::RB);
+      chunk_pv<D, 16, true>(s16, o, k0, t4, L, scale, m0, m1, l0, l1, va);
     }
   }
   l0 = __fadd_rn(l0, __shfl_xor_sync(0xffffffffu, l0, 1));
@@ -888,7 +941,7 @@ packed_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L,
   l1 = __fadd_rn(l1, __shfl_xor_sync(0xffffffffu, l1, 2));
   bf16* ob = out + (size_t)b * L * C + h * D;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     const int cc = 8 * j + 2 * t4;
     if (ra < L)
       *reinterpret_cast<uint32_t*>(ob + (size_t)ra * C + cc) =
@@ -914,9 +967,9 @@ __device__ inline void score_tile(const FragA* qf, const bf16* qkv_s, int ld,
   FragC sf;
   wmma::fill_fragment(sf, 0.f);
 #pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
+  for (int kd = 0; kd < Q_D / 16; ++kd) {
     FragBc kf;  // B[d][key] = K[key][d]
-    wmma::load_matrix_sync(kf, qkv_s + kt * 16 * ld + D + kd * 16, ld);
+    wmma::load_matrix_sync(kf, qkv_s + kt * 16 * ld + Q_D + kd * 16, ld);
     wmma::mma_sync(sf, qf[kd], kf, sf);
   }
   wmma::store_matrix_sync(fs, sf, F_LD, wmma::mem_row_major);
@@ -933,9 +986,9 @@ __device__ void attend(const bf16* qkv_s, const Layout& lay, int L, float scale,
   const int row = lane >> 1, c0 = (lane & 1) * 8;  // this lane's 8 tile entries
 
   for (int qt = warp; qt < ntiles; qt += WARPS) {
-    FragA qf[D / 16];
+    FragA qf[Q_D / 16];
 #pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd)
+    for (int kd = 0; kd < Q_D / 16; ++kd)
       wmma::load_matrix_sync(qf[kd], qkv_s + qt * 16 * ld + kd * 16, ld);
 
     float m = MASK_VALUE;
@@ -952,9 +1005,9 @@ __device__ void attend(const bf16* qkv_s, const Layout& lay, int L, float scale,
     }
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
 
-    FragC of[D / 16];
+    FragC of[Q_D / 16];
 #pragma unroll
-    for (int dt = 0; dt < D / 16; ++dt) wmma::fill_fragment(of[dt], 0.f);
+    for (int dt = 0; dt < Q_D / 16; ++dt) wmma::fill_fragment(of[dt], 0.f);
     float lsum = 0.f;
     for (int kt = 0; kt < ntiles; ++kt) {
       score_tile(qf, qkv_s, ld, kt, fs);
@@ -971,9 +1024,9 @@ __device__ void attend(const bf16* qkv_s, const Layout& lay, int L, float scale,
       FragA pf;
       wmma::load_matrix_sync(pf, ps, P_LD);
 #pragma unroll
-      for (int dt = 0; dt < D / 16; ++dt) {
+      for (int dt = 0; dt < Q_D / 16; ++dt) {
         FragBr vf;  // B[key][d] = V[key][d]
-        wmma::load_matrix_sync(vf, qkv_s + kt * 16 * ld + 2 * D + dt * 16, ld);
+        wmma::load_matrix_sync(vf, qkv_s + kt * 16 * ld + 2 * Q_D + dt * 16, ld);
         wmma::mma_sync(of[dt], pf, vf, of[dt]);
       }
       __syncwarp();
@@ -982,7 +1035,7 @@ __device__ void attend(const bf16* qkv_s, const Layout& lay, int L, float scale,
 
     const int grow = qt * 16 + row;
 #pragma unroll
-    for (int dt = 0; dt < D / 16; ++dt) {
+    for (int dt = 0; dt < Q_D / 16; ++dt) {
       wmma::store_matrix_sync(fs, of[dt], F_LD, wmma::mem_row_major);
       __syncwarp();
       if (grow < L) {
@@ -1092,7 +1145,7 @@ __device__ void project_q(const bf16* __restrict__ xb, const int8_t* __restrict_
                           const float* __restrict__ ws, int h, int H, int L,
                           const Layout& lay, bf16* qkv_s, unsigned char* scratch,
                           const float* r_s, const float* sr_s) {
-  const int C = H * D, kcb = lay.stages, nk = C / kcb, P = kcb / 16;
+  const int C = H * Q_D, kcb = lay.stages, nk = C / kcb, P = kcb / 16;
   const int vpr = kcb / 8;  // x vectors of 8 per staged row
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -1134,7 +1187,7 @@ __device__ void project_q(const bf16* __restrict__ xb, const int8_t* __restrict_
     auto issue_w = [&](int kc, int8_t* dst) {
       for (int v = tid; v < QKV_COLS * P; v += THREADS) {
         const int n = v / P, seg = v % P;
-        const int grow = ((n / D) * H + h) * D + (n % D);
+        const int grow = ((n / Q_D) * H + h) * Q_D + (n % Q_D);
         cp_async16(dst + swz(n, seg * 16, P), wq + (size_t)grow * C + kc * kcb + seg * 16);
       }
     };
@@ -1191,7 +1244,7 @@ __device__ void project_q(const bf16* __restrict__ xb, const int8_t* __restrict_
 #pragma unroll
         for (int nt = 0; nt < 6; ++nt) {
           const int n = cg * 48 + nt * 8 + t * 2;
-          const int gcol = ((n / D) * H + h) * D + (n % D);  // n, n+1: same part
+          const int gcol = ((n / Q_D) * H + h) * Q_D + (n % Q_D);  // n, n+1: same part
           const float w0 = __ldg(ws + gcol), w1 = __ldg(ws + gcol + 1);
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
@@ -1215,7 +1268,7 @@ qkvproj_attention_int8_kernel(const bf16* __restrict__ x, const int8_t* __restri
                               int L, int H, float scale, int qkv_ld, int kcb) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout lay = make_layout_q(L, qkv_ld, kcb);
-  const int b = blockIdx.x / H, h = blockIdx.x % H, C = H * D;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, C = H * Q_D;
   const bf16* xb = x + (size_t)b * L * C;
   bf16* qkv_s = reinterpret_cast<bf16*>(smem);
   float* r_s = reinterpret_cast<float*>(smem + lay.stats_off);
@@ -1223,12 +1276,13 @@ qkvproj_attention_int8_kernel(const bf16* __restrict__ x, const int8_t* __restri
   row_stats_q(xb, L, lay.lp, C, r_s, sr_s);
   __syncthreads();
   project_q(xb, wq, ws, h, H, L, lay, qkv_s, smem + lay.scratch_off, r_s, sr_s);
-  attend(qkv_s, lay, L, scale, out + (size_t)b * L * C + h * D, C,
+  attend(qkv_s, lay, L, scale, out + (size_t)b * L * C + h * Q_D, C,
          smem + lay.scratch_off);
 }
 
-inline bool bad_shape(int B, int L, int H) {
-  return B < 1 || H < 1 || L < 1 || L > MAX_L;
+// the core's head dims are 32 and 64; the one-block int8 kernel's is Q_D
+inline bool bad_shape(int B, int L, int H, int D) {
+  return B < 1 || H < 1 || L < 1 || L > MAX_L || (D != 32 && D != 64);
 }
 
 template <typename K>
@@ -1330,15 +1384,25 @@ int launch_ln(const void* x, const void* ln_scale, const void* ln_bias, void* ou
   return (int)cudaGetLastError();
 }
 
-int launch_core(const void* qkv, void* out, int B, int L, int H, float scale,
+// row 1's core at head dim D (32 or 64)
+int launch_core(const void* qkv, void* out, int B, int L, int H, int D, float scale,
                 cudaStream_t stream) {
-  if (bad_shape(B, L, H)) return (int)cudaErrorInvalidValue;
-  const CoreShape s = core_shape(L);
-  int err = launch_setup(packed_core_kernel, s.bytes);
-  if (err) return err;
-  packed_core_kernel<<<B * H * s.blocks, CORE_THREADS, s.bytes, stream>>>(
-      (const bf16*)qkv, (bf16*)out, L, H, s.blocks, scale);
-  return (int)cudaGetLastError();
+  if (bad_shape(B, L, H, D)) return (int)cudaErrorInvalidValue;
+  const CoreShape s = core_shape(L, D);
+  const int grid = B * H * s.blocks;
+  int err;
+  if (D == 32) {
+    err = launch_setup(packed_core_kernel<32>, s.bytes);
+    if (!err)
+      packed_core_kernel<32><<<grid, CORE_THREADS, s.bytes, stream>>>(
+          (const bf16*)qkv, (bf16*)out, L, H, s.blocks, scale);
+  } else {
+    err = launch_setup(packed_core_kernel<64>, s.bytes);
+    if (!err)
+      packed_core_kernel<64><<<grid, CORE_THREADS, s.bytes, stream>>>(
+          (const bf16*)qkv, (bf16*)out, L, H, s.blocks, scale);
+  }
+  return err ? err : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1376,42 +1440,43 @@ int uspace_qkv_gemm_int8(const void* codes, const void* sr, const void* wq,
   return launch_gemm<true>(codes, wq, c, M, N, K, (cudaStream_t)stream, sr, ws);
 }
 
-// qkv [B, L, 3*H*64] bf16 (packed [q | k | v] x heads) -> out [B, L, H*64].
-int uspace_packed_attention(const void* qkv, void* out, int B, int L, int H,
+// qkv [B, L, 3*H*D] bf16 (packed [q | k | v] x heads) -> out [B, L, H*D],
+// head dim D 32 or 64.
+int uspace_packed_attention(const void* qkv, void* out, int B, int L, int H, int D,
                             float scale, void* stream) {
-  return launch_core(qkv, out, B, L, H, scale, (cudaStream_t)stream);
+  return launch_core(qkv, out, B, L, H, D, scale, (cudaStream_t)stream);
 }
 
-// x [B, L, C] bf16, w [3C, C] bf16 (torch Linear layout) -> out [B, L, C];
-// qkv: a [B, L, 3C] bf16 workspace.
+// x [B, L, C] bf16, w [3C, C] bf16 (torch Linear layout) -> out [B, L, C],
+// C = H*D with head dim D 32 or 64; qkv: a [B, L, 3C] bf16 workspace.
 int uspace_qkvproj_attention(const void* x, const void* w, void* qkv, void* out,
-                             int B, int L, int H, float scale, void* stream) {
-  if (bad_shape(B, L, H)) return (int)cudaErrorInvalidValue;
+                             int B, int L, int H, int D, float scale, void* stream) {
+  if (bad_shape(B, L, H, D)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int C = H * D;
   const int err = launch_gemm<false>(x, w, qkv, B * L, 3 * C, C, s);
-  return err ? err : launch_core(qkv, out, B, L, H, scale, s);
+  return err ? err : launch_core(qkv, out, B, L, H, D, scale, s);
 }
 
 // As uspace_qkvproj_attention with LN1 (f32 ln_scale, ln_bias [C]) in front;
 // xln: a [B, L, C] bf16 workspace for the LN rows.
 int uspace_ln_qkvproj_attention(const void* x, const void* ln_scale,
                                 const void* ln_bias, const void* w, void* xln,
-                                void* qkv, void* out, int B, int L, int H,
+                                void* qkv, void* out, int B, int L, int H, int D,
                                 float scale, float eps, void* stream) {
-  if (bad_shape(B, L, H)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, L, H, D)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int C = H * D;
   int err = launch_ln(x, ln_scale, ln_bias, xln, B * L, C, eps, s);
   if (!err) err = launch_gemm<false>(xln, w, qkv, B * L, 3 * C, C, s);
-  return err ? err : launch_core(qkv, out, B, L, H, scale, s);
+  return err ? err : launch_core(qkv, out, B, L, H, D, scale, s);
 }
 
 // x [B, L, C] bf16, wq [3C, C] int8 (torch layout), ws [3C] f32 -> out [B, L, C].
 int uspace_qkvproj_attention_int8(const void* x, const void* wq, const void* ws,
                                   void* out, int B, int L, int H, float scale,
                                   void* stream) {
-  if (bad_shape(B, L, H) || H * D > MAX_ROW_VEC * 8 * 32)
+  if (bad_shape(B, L, H, Q_D) || H * Q_D > MAX_ROW_VEC * 8 * 32)
     return (int)cudaErrorInvalidValue;
   const Layout lay = host_layout_q(L);
   if (lay.bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -1431,13 +1496,13 @@ int uspace_ln_qkvproj_attention_int8(const void* x, const void* ln_scale,
                                      const void* ln_bias, const void* wq,
                                      const void* ws, void* codes, void* sr,
                                      void* qkv, void* out, int B, int L, int H,
-                                     float scale, float eps, void* stream) {
-  if (bad_shape(B, L, H)) return (int)cudaErrorInvalidValue;
+                                     int D, float scale, float eps, void* stream) {
+  if (bad_shape(B, L, H, D)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int C = H * D;
   int err = launch_ln(x, ln_scale, ln_bias, nullptr, B * L, C, eps, s, codes, sr);
   if (!err) err = launch_gemm<true>(codes, wq, qkv, B * L, 3 * C, C, s, sr, ws);
-  return err ? err : launch_core(qkv, out, B, L, H, scale, s);
+  return err ? err : launch_core(qkv, out, B, L, H, D, scale, s);
 }
 
 }  // extern "C"

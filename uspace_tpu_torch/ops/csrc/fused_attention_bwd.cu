@@ -8,8 +8,8 @@
 //     q, k, v, dO and dq, dk, dv [B, H, L, D], D in {32, 64};
 //   uspace_packed_attention_bwd <- _packed_bwd_kernel (row 4; the VJP of
 //     the packed and QKV-projection attention of csrc/attention.cu): packed
-//     qkv [B, L, 3*H*64] ([q | k | v] x heads) and dO [B, L, H*64] in, dqkv
-//     [B, L, 3*H*64] out in the same packed layout.
+//     qkv [B, L, 3*H*D] ([q | k | v] x heads) and dO [B, L, H*D] in, dqkv
+//     [B, L, 3*H*D] out in the same packed layout, D in {32, 64}.
 // From the forward's inputs q, k, v and the output cotangent dO, per
 // (batch, head), keys >= L masked:
 //   S = f32(Q K^T) * scale,  m = rowmax(S),  P = exp(S - m) / rowsum, f32
@@ -79,9 +79,9 @@
 //   kernel. No [L, L] tensor reaches device memory, and no atomics: every
 //   sum runs in one fixed order, so a repeated call gives the same bits.
 // - Layouts: every operand is read through a 3-D tensor map [Z, L, width]
-//   in boxes of D columns: [B*H, L, D] with Z = B*H, or packed [B, L, 3*H*64]
-//   (qkv) and [B, L, H*64] (dO) with Z = B and part p of head h at column
-//   (p*H + h)*64. The L dimension of the map is what keeps a box that starts
+//   in boxes of D columns: [B*H, L, D] with Z = B*H, or packed [B, L, 3*H*D]
+//   (qkv) and [B, L, H*D] (dO) with Z = B and part p of head h at column
+//   (p*H + h)*D. The L dimension of the map is what keeps a box that starts
 //   near row L of one batch element from reading the next one's rows. dq,
 //   dk, dv are stored at the same column offsets (packed: of dqkv).
 // - Ragged edges: keys >= L get p = 0 by index; TMA zero-fills rows >= L of
@@ -915,19 +915,29 @@ int uspace_fused_attention_bwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// qkv [B, L, 3*H*64] bf16 (the forward's input, packed [q | k | v] x heads)
-// and dout [B, L, H*64] bf16 -> dqkv [B, L, 3*H*64] bf16, 1 <= L <= 1024;
-// stats: f32 scratch of B*H*3*Lp floats, Lp = L rounded up to 64.
+// qkv [B, L, 3*H*D] bf16 (the forward's input, packed [q | k | v] x heads)
+// and dout [B, L, H*D] bf16 -> dqkv [B, L, 3*H*D] bf16, D in {32, 64},
+// 1 <= L <= 1024; stats: f32 scratch of B*H*3*Lp floats, Lp = L rounded up
+// to 64.
 int uspace_packed_attention_bwd(const void* qkv, const void* dout, void* dqkv,
-                                void* stats, int B, int L, int H, float scale,
+                                void* stats, int B, int L, int H, int D, float scale,
                                 void* stream) {
   if (B < 1 || H < 1 || L < 1 || L > MAX_L) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if ((L - 1) % CT < 16)  // the last tile: a 16-row chunk
+  const bool tail = (L - 1) % CT < 16;  // the last tile: a 16-row chunk
+  if (D == 32 && tail)
+    return launch<32, true, true>(qkv, qkv, qkv, dout, dqkv, dqkv, dqkv, stats, B, H,
+                                  L, scale, s);
+  if (D == 32)
+    return launch<32, true, false>(qkv, qkv, qkv, dout, dqkv, dqkv, dqkv, stats, B, H,
+                                   L, scale, s);
+  if (D == 64 && tail)
     return launch<64, true, true>(qkv, qkv, qkv, dout, dqkv, dqkv, dqkv, stats, B, H,
                                   L, scale, s);
-  return launch<64, true, false>(qkv, qkv, qkv, dout, dqkv, dqkv, dqkv, stats, B, H, L,
-                                 scale, s);
+  if (D == 64)
+    return launch<64, true, false>(qkv, qkv, qkv, dout, dqkv, dqkv, dqkv, stats, B, H,
+                                   L, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -6,6 +6,11 @@
 //                           uspace_bf16_fc1, uspace_bf16_fc2 (with x)
 //   _mlp_kernel_bf16        fc2(gelu(fc1(x)))           uspace_bf16_fc1,
 //                                                       uspace_bf16_fc2
+// uspace_bf16_fc2 with the residual is also the projection of row 10, the
+// bf16 attention sub-block (_attn_block_kernel; ops/attention.py
+// _block_kernel passes x + bf16(f32(a @ Wproj) + f32(bf16(b_proj))), the
+// bias rounded to bf16 and held in f32) at N = K = C: 26.9 GFLOP at the main
+// path's B = 50, L = 257, C = 1024, 27 us on an H100 SXM's tensor cores.
 //
 // Bound at the main path's shape (12850 rows, C = 1024, hidden 4096): 215.6
 // GFLOP bf16 over an H100 SXM's 989 TFLOP/s = 218 us; 69 MB moved (bf16 x in
@@ -120,7 +125,7 @@ __device__ inline float gelu_poly(float x) {
 // fc1 and fc2: the wgmma GEMM of W . x^T
 // ---------------------------------------------------------------------------
 
-constexpr int CL = 2;                     // blocks a cluster, sharing rows of x
+constexpr int CL_MAX = 2;  // blocks a cluster, sharing rows of x (1 where N / 128 is odd)
 constexpr int FC1_ROWS = 256, FC2_ROWS = 208;  // rows of x a tile (see above)
 constexpr int G_BW = 128;                 // weight rows (output columns) a tile
 constexpr int G_BK = 64;                  // K chunk: one 128-byte swizzle row
@@ -140,7 +145,7 @@ struct Tile {
   static constexpr int STAGE = G_W_BYTES + X_BYTES;
   static constexpr int SMEM = 1024 + G_STAGES * STAGE + 2 * E_BYTES + 2 * G_STAGES * 8;
   static_assert(SMEM <= MAX_SMEM, "the ring and the staging tiles fit");
-  static_assert(X_BYTES % 1024 == 0 && BX % (8 * CL) == 0,
+  static_assert(X_BYTES % 1024 == 0 && BX % (8 * CL_MAX) == 0,
                 "each block's rows of x in whole swizzle atoms");
 };
 
@@ -373,8 +378,9 @@ __device__ inline void stmatrix_t(uint32_t addr, uint32_t r0, uint32_t r1, uint3
 // G_BW * CL. Computed as its transpose w . a^T: the weight rows are wgmma's A
 // operand (64 a warpgroup), the rows of a its B operand. The CL blocks of a
 // cluster take neighbouring weight tiles of the same BX rows of a, each
-// loading BX / CL of those rows into every block of the cluster.
-template <int EPI, int BX>
+// loading BX / CL of those rows into every block of the cluster (CL = 1: a
+// cluster of one, which loads its rows without multicast).
+template <int EPI, int BX, int CL>
 __global__ void __launch_bounds__(G_THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a,
             const __grid_constant__ CUtensorMap map_w, const float* __restrict__ bias,
@@ -411,8 +417,11 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
           mbar_wait(empty + 8 * s, ((it / G_STAGES) & 1) ^ 1);
           mbar_expect_tx(full + 8 * s, G_W_BYTES + X_BYTES);
           tma_load_2d(st, &map_w, kb * G_BK, n0, full + 8 * s);
-          tma_load_2d_mc(st + G_W_BYTES + rank * XH * 128, &map_a, kb * G_BK,
-                         m0 + rank * XH, full + 8 * s, (uint16_t)((1u << CL) - 1));
+          if constexpr (CL == 1)
+            tma_load_2d(st + G_W_BYTES, &map_a, kb * G_BK, m0, full + 8 * s);
+          else
+            tma_load_2d_mc(st + G_W_BYTES + rank * XH * 128, &map_a, kb * G_BK,
+                           m0 + rank * XH, full + 8 * s, (uint16_t)((1u << CL) - 1));
         }
       }
     }
@@ -558,7 +567,7 @@ int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows
 
 // clusters that fit on the card at once (the persistent grid's size)
 template <typename Kernel>
-int resident_clusters(Kernel kernel, cudaLaunchConfig_t cfg) {
+int resident_clusters(Kernel kernel, cudaLaunchConfig_t cfg, int CL) {
   int active = 0;
   if (cudaOccupancyMaxActiveClusters(&active, kernel, &cfg) == cudaSuccess && active > 0)
     return active;
@@ -569,14 +578,14 @@ int resident_clusters(Kernel kernel, cudaLaunchConfig_t cfg) {
   return sms / CL;
 }
 
-template <int EPI, int BX>
+template <int EPI, int BX, int CL>
 int launch_gemm(const void* a, const void* w, const void* bias, const void* res, void* c,
                 int M, int N, int K, cudaStream_t stream) {
   constexpr int SMEM = Tile<BX>::SMEM;
   if (M < 1 || N < G_BW * CL || N % (G_BW * CL) || K < G_BK || K % G_BK)
     return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mw;
-  auto kernel = gemm_kernel<EPI, BX>;
+  auto kernel = gemm_kernel<EPI, BX, CL>;
   int err = make_map(&ma, a, M, K, BX / CL);
   if (!err) err = make_map(&mw, w, N, K, G_BW);
   if (!err)
@@ -596,7 +605,7 @@ int launch_gemm(const void* a, const void* w, const void* bias, const void* res,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   static int resident = 0;  // per instance
-  if (resident == 0) resident = resident_clusters(kernel, cfg);
+  if (resident == 0) resident = resident_clusters(kernel, cfg, CL);
   const int tiles = N / (G_BW * CL) * ((M + BX - 1) / BX);
   const int clusters = resident > 0 && resident < tiles ? resident : tiles;
   cfg.gridDim = dim3(clusters * CL);
@@ -613,19 +622,27 @@ extern "C" {
 // [hidden, C] bf16, b1 [hidden] f32 (the fc1 piece of both rows).
 int uspace_bf16_fc1(const void* xln, const void* w1, const void* b1, void* h, int R,
                     int C, int hidden, void* stream) {
-  return launch_gemm<EPI_GELU, FC1_ROWS>(xln, w1, b1, nullptr, h, R, hidden, C,
-                                         (cudaStream_t)stream);
+  return launch_gemm<EPI_GELU, FC1_ROWS, 2>(xln, w1, b1, nullptr, h, R, hidden, C,
+                                            (cudaStream_t)stream);
 }
 
 // out [R, out] = [res +] bf16(f32(h . w2^T) + b2) (the sum in bf16): h [R,
 // hidden] bf16, w2 [out, hidden] bf16, b2 [out] f32, res [R, out] bf16 or
-// null (the fc2 piece; row 13 passes its x as res).
+// null; hidden a multiple of 64, out of 256 (of 128 with res) (the fc2
+// piece; row 13 passes its x as res; row 10's projection runs it with N = K
+// = C and x as res, where C / 128 may be odd: a cluster of one block then
+// takes each tile).
 int uspace_bf16_fc2(const void* h, const void* w2, const void* b2, const void* res,
                     void* out, int R, int hidden, int out_dim, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (res)
-    return launch_gemm<EPI_RESIDUAL, FC2_ROWS>(h, w2, b2, res, out, R, out_dim, hidden, s);
-  return launch_gemm<EPI_BIAS, FC2_ROWS>(h, w2, b2, nullptr, out, R, out_dim, hidden, s);
+  if (!res)
+    return launch_gemm<EPI_BIAS, FC2_ROWS, 2>(h, w2, b2, nullptr, out, R, out_dim,
+                                              hidden, s);
+  if (out_dim % (2 * G_BW))
+    return launch_gemm<EPI_RESIDUAL, FC2_ROWS, 1>(h, w2, b2, res, out, R, out_dim,
+                                                  hidden, s);
+  return launch_gemm<EPI_RESIDUAL, FC2_ROWS, 2>(h, w2, b2, res, out, R, out_dim,
+                                                hidden, s);
 }
 
 }  // extern "C"

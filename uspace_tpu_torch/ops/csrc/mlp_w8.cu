@@ -25,15 +25,18 @@
 // multiply-add is contracted where the TPU kernel rounds twice.
 //
 // uspace_ln_mlp_w8 (row 16) is a sequence of three kernels on one stream,
-// counted as one launch by its wrapper; xln and h make one round trip
-// through device memory each (26 and 105 MB at the main path's shape; h is
-// rounded to bf16 in the TPU kernel too, so no rounding is added):
+// and uspace_mlp_w8 (row 17) the same without the LN pass and without the
+// residual: two kernels. Each is counted as one launch by its wrapper; xln
+// and h make one round trip through device memory each (26 and 105 MB at
+// the main path's shape; h is rounded to bf16 in the TPU kernel too, so no
+// rounding is added):
 // - w8_ln_kernel: LN2 once per row, one warp per row with the row in
 //   registers, the f32 sums in lane order, the scales and biases read as
 //   16-byte vectors; xln [R, C] bf16.
 // - w8_gemm_kernel<EPI_GELU> (fc1): h [R, hidden] = the GELU epilogue of
-//   xln . W1q^T; w8_gemm_kernel<EPI_RESIDUAL> (fc2): out = x + the bf16
-//   epilogue of h . W2q^T over the whole hidden width. Both operands are
+//   xln . W1q^T (of x . W1q^T for row 17); w8_gemm_kernel<EPI_RESIDUAL>
+//   (fc2): out = x + the bf16 epilogue of h . W2q^T over the whole hidden
+//   width (EPI_BIAS for row 17: the epilogue alone). Both operands are
 //   K-major (the rows of x or h, and the torch-layout [N, K] codes), and the
 //   kernel computes the transpose W . x^T: one block per tile of 128
 //   weight rows (output columns) x 256 (fc1) or 200 (fc2) rows of x. A
@@ -69,29 +72,6 @@
 // at C = 1024, twice an SM's register file) or recompute fc1 per output
 // slice; the split keeps tiles of wgmma's sizes.
 //
-// uspace_mlp_w8 (row 17) keeps its mma.sync design (one block of 16
-// warps per 32 rows, f32 fc2 accumulators of all output columns in
-// registers, weight chunks streamed by cp.async and converted per
-// fragment):
-// - The block walks the hidden width in chunks of 256 columns. For each
-//   chunk it computes the [32, 256] fc1 tile (each warp 32 rows x 16
-//   columns), writes GELU's bf16 output to a shared tile, and adds that
-//   chunk's fc2 product into f32 output accumulators that stay in registers
-//   for the whole kernel (each warp 32 rows x 64 output columns). The TPU
-//   kernel's hidden strips (hidden / 4 columns) are only tiling there and
-//   here; the chunking changes no rounding.
-// - The block's rows sit in shared memory as bf16 for all of fc1. Row
-//   padding of 16 elements makes the 64-bit fragment loads free of bank
-//   conflicts.
-// - Tensor cores through mma.sync m16n8k16 bf16 -> f32. Within each k16 step
-//   the k index is permuted the same way for A and B (thread t's logical k
-//   2t, 2t+1, 2t+8, 2t+9 are physical 4t .. 4t+3), so a thread reads its A
-//   fragment as one 64-bit load per row and its B fragment as one 32-bit
-//   load of four int8 codes, which it converts to bf16 in registers.
-// - Weight chunks (fc1: 256 rows x 128 bytes, fc2: out rows x 32 bytes, 32
-//   KB each) stream as int8 through a ring of four shared-memory stages by
-//   cp.async, XOR-swizzled by row so that fragment loads are free of bank
-//   conflicts; three chunks are in flight under the current chunk's MMAs.
 // Dynamic shared memory past 48 KB is enabled per launch; each entry point
 // returns cudaGetLastError() or the first error of its sequence.
 
@@ -105,9 +85,6 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int MAX_ROW_VEC = 8;    // a row in registers: C <= 8 * 8 * 32
-constexpr int MAX_SMEM = 232448;  // H100: 227 KB of dynamic smem per block
-
-__host__ __device__ inline int align128(int x) { return (x + 127) & ~127; }
 
 // bf16 arithmetic as the TPU kernel's: each result rounded to bf16 (the f32
 // product of two bf16 is exact, so this is the correctly rounded op)
@@ -135,301 +112,6 @@ __device__ inline float gelu_poly(float x) {
   const float e = __fsub_rn(1.0f, __fmul_rn(p, expf(__fmul_rn(-ax, ax))));
   const float erf = z > 0.f ? e : (z < 0.f ? -e : 0.f);
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, erf));
-}
-
-// ---------------------------------------------------------------------------
-// Row 17: the mma.sync block (fc2(gelu(fc1(x))) without LN or residual)
-// ---------------------------------------------------------------------------
-
-constexpr int ROWS = 32;          // rows per block
-constexpr int WARPS = 16;
-constexpr int THREADS = WARPS * 32;
-constexpr int HC = 256;           // hidden columns per chunk: 16 per warp in fc1
-constexpr int KC1 = 128;          // fc1 K chunk, bytes of W1 codes (8 segments)
-constexpr int KC2 = 32;           // fc2 K chunk, bytes of W2 codes (2 segments)
-constexpr int NSTAGE = 4;         // weight ring depth
-constexpr int STAGE = 32768;      // HC * KC1 = largest out_dim * KC2
-constexpr int PAD = 16;           // bf16 row padding of the A tiles
-
-struct Layout {
-  int hid_off, ring_off, bytes;
-};
-
-// [ROWS, C + PAD] bf16 rows, [ROWS, HC + PAD] bf16 hidden chunk, the ring.
-__host__ __device__ inline Layout make_layout(int C) {
-  Layout s;
-  s.hid_off = align128(ROWS * (C + PAD) * 2);
-  s.ring_off = align128(s.hid_off + ROWS * (HC + PAD) * 2);
-  s.bytes = s.ring_off + NSTAGE * STAGE;
-  return s;
-}
-
-__device__ inline void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Byte offset of (row, k) in a tile of rows of P 16-byte segments, the
-// segments XOR-swizzled by row (8 rows of a fragment load: 8 bank groups).
-template <int P>
-__device__ inline int swz(int row, int k) {
-  const int sh = P == 8 ? (row & 7) : P == 4 ? ((row >> 1) & 3) : ((row >> 2) & 1);
-  return row * P * 16 + (((k >> 4) ^ sh) << 4) + (k & 15);
-}
-
-__device__ inline void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two int8 codes as a packed bf16 pair (lo in the low half), exactly.
-__device__ inline unsigned codes_to_bf16x2(int lo, int hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn((float)lo, (float)hi);
-  return *reinterpret_cast<unsigned*>(&p);
-}
-
-// B fragment of four int8 codes (physical k 4t .. 4t+3) at p.
-__device__ inline void b_frag(const unsigned char* p, unsigned& b0, unsigned& b1) {
-  const unsigned w = *reinterpret_cast<const unsigned*>(p);
-  b0 = codes_to_bf16x2((int)(w << 24) >> 24, (int)(w << 16) >> 24);
-  b1 = codes_to_bf16x2((int)(w << 8) >> 24, (int)w >> 24);
-}
-
-// A fragments of one m16 tile: rows r and r + 8 of a bf16 tile (row stride
-// ld elements) at physical k .. k+3.
-__device__ inline void a_frag(const bf16* tile, int r, int ld, int k, unsigned (&a)[4]) {
-  const uint2 lo = *reinterpret_cast<const uint2*>(tile + r * ld + k);
-  const uint2 hi = *reinterpret_cast<const uint2*>(tile + (r + 8) * ld + k);
-  a[0] = lo.x;
-  a[1] = hi.x;
-  a[2] = lo.y;
-  a[3] = hi.y;
-}
-
-// Rows row0.. of x into the bf16 tile xa (row stride ld); rows >= R are
-// zero. One warp per row.
-__device__ void load_rows(const bf16* __restrict__ x, int row0, int R, int C, bf16* xa,
-                          int ld) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nvec = C / 8;
-  for (int rr = warp; rr < ROWS; rr += WARPS) {
-    const int r = row0 + rr;
-    uint4* dst = reinterpret_cast<uint4*>(xa + rr * ld);
-    if (r >= R) {
-      for (int v = lane; v < nvec; v += 32) dst[v] = make_uint4(0u, 0u, 0u, 0u);
-      continue;
-    }
-    const uint4* row = reinterpret_cast<const uint4*>(x + (size_t)r * C);
-    uint4 v[MAX_ROW_VEC];
-#pragma unroll
-    for (int i = 0; i < MAX_ROW_VEC; ++i)
-      if (lane + 32 * i < nvec) v[i] = __ldg(row + lane + 32 * i);
-#pragma unroll
-    for (int i = 0; i < MAX_ROW_VEC; ++i)
-      if (lane + 32 * i < nvec) dst[lane + 32 * i] = v[i];
-  }
-}
-
-// NT2: 8-column output tiles per warp (out_dim = 16 * NT2 * 8).
-template <int NT2>
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_w8_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w1,
-              const float* __restrict__ s1, const float* __restrict__ b1,
-              const int8_t* __restrict__ w2, const float* __restrict__ s2,
-              const float* __restrict__ b2, bf16* __restrict__ out, int R, int C,
-              int hidden) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int OUT = WARPS * NT2 * 8;
-  const Layout lay = make_layout(C);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * ROWS;
-  bf16* xa = reinterpret_cast<bf16*>(smem);
-  bf16* hid = reinterpret_cast<bf16*>(smem + lay.hid_off);
-  unsigned char* ring = smem + lay.ring_off;
-  const int lda = C + PAD, ldh = HC + PAD;
-
-  // pipeline items, per hidden chunk: C / KC1 of W1 rows, then HC / KC2 of W2
-  const int n1 = C / KC1, nper = n1 + HC / KC2;
-  const int nitems = (hidden / HC) * nper;
-  auto fetch = [&](int i) {
-    unsigned char* st = ring + (i % NSTAGE) * STAGE;
-    const int hc = i / nper, k = i % nper;
-    if (k < n1) {  // W1 codes: hidden rows hc*HC.., bytes k*KC1..
-      const int8_t* src = w1 + (size_t)hc * HC * C + k * KC1;
-      for (int v = tid; v < HC * 8; v += THREADS) {
-        const int n = v >> 3, seg = v & 7;
-        cp_async16(st + swz<8>(n, seg * 16), src + (size_t)n * C + seg * 16);
-      }
-    } else {  // W2 codes: all output rows, hidden bytes hc*HC + (k-n1)*KC2..
-      const int8_t* src = w2 + hc * HC + (k - n1) * KC2;
-      for (int v = tid; v < OUT * 2; v += THREADS) {
-        const int n = v >> 1, seg = v & 1;
-        cp_async16(st + swz<2>(n, seg * 16), src + (size_t)n * hidden + seg * 16);
-      }
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    if (s < nitems) fetch(s);
-    cp_async_commit();
-  }
-  load_rows(x, row0, R, C, xa, lda);
-
-  float acc2[2][NT2][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc2[mt][nt][e] = 0.f;
-  float acc1[2][2][4] = {};
-
-  for (int i = 0; i < nitems; ++i) {
-    const int hc = i / nper, k = i % nper;
-    cp_async_wait<NSTAGE - 2>();
-    __syncthreads();  // item i (and the rows) visible; item i-1 consumed
-    if (i + NSTAGE - 1 < nitems) fetch(i + NSTAGE - 1);
-    cp_async_commit();
-    const unsigned char* st = ring + (i % NSTAGE) * STAGE;
-    if (k < n1) {
-      // ---- fc1: this warp's 32 x 16 tile of hidden chunk hc ----
-      if (k == 0) {
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc1[mt][nt][e] = 0.f;
-      }
-#pragma unroll
-      for (int ks = 0; ks < KC1 / 16; ++ks) {
-        unsigned a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          a_frag(xa, mt * 16 + g, lda, k * KC1 + ks * 16 + t * 4, a[mt]);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          unsigned b0, b1v;
-          b_frag(st + swz<8>(warp * 16 + nt * 8 + g, ks * 16 + t * 4), b0, b1v);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) mma_bf16(acc1[mt][nt], a[mt], b0, b1v);
-        }
-      }
-      if (k == n1 - 1) {
-        // chunk epilogue: * s1 + b1, GELU, bf16 into the hidden tile. This
-        // thread holds rows mt*16 + hh*8 + g, columns nt*8 + t*2 + {0, 1}.
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int col = warp * 16 + nt * 8 + t * 2;
-          const int gc = hc * HC + col;
-          const float sc0 = __ldg(s1 + gc), sc1 = __ldg(s1 + gc + 1);
-          const float bi0 = __ldg(b1 + gc), bi1 = __ldg(b1 + gc + 1);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const int r = mt * 16 + hh * 8 + g;
-              __nv_bfloat162 h;
-              h.x = __float2bfloat16_rn(gelu_poly(
-                  __fadd_rn(__fmul_rn(acc1[mt][nt][hh * 2], sc0), bi0)));
-              h.y = __float2bfloat16_rn(gelu_poly(
-                  __fadd_rn(__fmul_rn(acc1[mt][nt][hh * 2 + 1], sc1), bi1)));
-              *reinterpret_cast<__nv_bfloat162*>(hid + r * ldh + col) = h;
-            }
-        }
-      }
-    } else {
-      // ---- fc2: this chunk's hidden (KC2 of it) into the output sums ----
-      const int kk = (k - n1) * KC2;
-#pragma unroll
-      for (int ks = 0; ks < KC2 / 16; ++ks) {
-        unsigned a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          a_frag(hid, mt * 16 + g, ldh, kk + ks * 16 + t * 4, a[mt]);
-#pragma unroll
-        for (int nt = 0; nt < NT2; ++nt) {
-          unsigned b0, b1v;
-          b_frag(st + swz<2>(warp * NT2 * 8 + nt * 8 + g, ks * 16 + t * 4), b0, b1v);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) mma_bf16(acc2[mt][nt], a[mt], b0, b1v);
-        }
-      }
-    }
-  }
-
-  // acc * s2 + b2 -> bf16
-#pragma unroll
-  for (int nt = 0; nt < NT2; ++nt) {
-    const int col = warp * NT2 * 8 + nt * 8 + t * 2;
-    const float w0 = __ldg(s2 + col), w1v = __ldg(s2 + col + 1);
-    const float c0 = __ldg(b2 + col), c1 = __ldg(b2 + col + 1);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = row0 + mt * 16 + hh * 8 + g;
-        if (r >= R) continue;
-        __nv_bfloat162 o;
-        o.x = __float2bfloat16_rn(__fadd_rn(__fmul_rn(acc2[mt][nt][hh * 2], w0), c0));
-        o.y = __float2bfloat16_rn(__fadd_rn(__fmul_rn(acc2[mt][nt][hh * 2 + 1], w1v), c1));
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * OUT + col) = o;
-      }
-  }
-}
-
-template <int NT2>
-int launch_nt(const void* x, const void* w1, const void* s1, const void* b1,
-              const void* w2, const void* s2, const void* b2, void* out, int R, int C,
-              int hidden, cudaStream_t stream) {
-  const Layout lay = make_layout(C);
-  if (lay.bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaFuncSetAttribute(mlp_w8_kernel<NT2>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      lay.bytes);
-  if (err) return err;
-  mlp_w8_kernel<NT2><<<(R + ROWS - 1) / ROWS, THREADS, lay.bytes, stream>>>(
-      (const bf16*)x, (const int8_t*)w1, (const float*)s1, (const float*)b1,
-      (const int8_t*)w2, (const float*)s2, (const float*)b2, (bf16*)out, R, C,
-      hidden);
-  return (int)cudaGetLastError();
-}
-
-int launch_block(const void* x, const void* w1, const void* s1, const void* b1,
-                 const void* w2, const void* s2, const void* b2, void* out, int R,
-                 int C, int hidden, int out_dim, void* stream) {
-  if (R < 1 || C < KC1 || C % KC1 || C > MAX_ROW_VEC * 8 * 32 || hidden < HC ||
-      hidden % HC)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (out_dim) {  // U-ViT widths: 256, 512, 768, 1024
-#define USPACE_NT(n)              \
-  case WARPS * n * 8:             \
-    return launch_nt<n>(x, w1, s1, b1, w2, s2, b2, out, R, C, hidden, s);
-    USPACE_NT(2)
-    USPACE_NT(4)
-    USPACE_NT(6)
-    USPACE_NT(8)
-#undef USPACE_NT
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -502,7 +184,7 @@ constexpr int G_STAGES = 4;      // the TMA ring
 constexpr int G_THREADS = 384;   // two consumer warpgroups, then a producer one
 constexpr int G_Q_BYTES = G_BW * G_BK;  // int8 codes, 64-byte swizzle
 constexpr int G_PITCH = G_BW * 2 + 16;  // a row of the output tile, bytes
-enum { EPI_GELU = 0, EPI_RESIDUAL = 1 };
+enum { EPI_GELU = 0, EPI_RESIDUAL = 1, EPI_BIAS = 2 };
 
 // the tile's rows of x (or h): 256 for fc1, 200 for fc2 (see above)
 template <int EPI>
@@ -731,7 +413,8 @@ __device__ inline void stmatrix_t(uint32_t addr, uint32_t r0, uint32_t r1, uint3
 
 // c [M, N] = the epilogue of a [M, K] (bf16) . q [N, K]^T (int8 codes),
 // f32 sums: EPI_GELU h = bf16(gelu(acc * scale + bias)); EPI_RESIDUAL out =
-// res + bf16(acc * scale + bias) in bf16. K a multiple of G_BK, N of G_BW.
+// res + bf16(acc * scale + bias) in bf16; EPI_BIAS out = bf16(acc * scale +
+// bias). K a multiple of G_BK, N of G_BW.
 // Computed as its transpose q . a^T: the weights are wgmma's register A
 // operand (64 weight rows a warpgroup), the rows of a its B operand.
 template <int EPI>
@@ -970,11 +653,15 @@ int launch_ln(const void* x, const void* ln_scale, const void* ln_bias, void* xl
 extern "C" {
 
 // x [R, C] bf16; w1 [hidden, C] int8 with s1, b1 [hidden] f32; w2 [out,
-// hidden] int8 with s2, b2 [out] f32 -> out [R, out] bf16.
+// hidden] int8 with s2, b2 [out] f32 -> out [R, out] bf16; h [R, hidden]: a
+// bf16 workspace. C and hidden multiples of 64, hidden and out of 128.
 int uspace_mlp_w8(const void* x, const void* w1, const void* s1, const void* b1,
-                  const void* w2, const void* s2, const void* b2, void* out, int R,
-                  int C, int hidden, int out_dim, void* stream) {
-  return launch_block(x, w1, s1, b1, w2, s2, b2, out, R, C, hidden, out_dim, stream);
+                  const void* w2, const void* s2, const void* b2, void* h, void* out,
+                  int R, int C, int hidden, int out_dim, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int err = launch_gemm<EPI_GELU>(x, w1, s1, b1, nullptr, h, R, hidden, C, s);
+  return err ? err
+             : launch_gemm<EPI_BIAS>(h, w2, s2, b2, nullptr, out, R, out_dim, hidden, s);
 }
 
 // LN2 of x [R, C] bf16 with f32 ln_scale, ln_bias [C] as the bf16 chain ->
@@ -985,21 +672,24 @@ int uspace_w8_ln_rows(const void* x, const void* ln_scale, const void* ln_bias,
 }
 
 // h [R, hidden] = bf16(gelu(f32(xln . w1^T) * s1 + b1)): xln [R, C] bf16, w1
-// [hidden, C] int8, s1, b1 [hidden] f32 (the second piece).
+// [hidden, C] int8, s1, b1 [hidden] f32 (the second piece of row 16, the
+// first of row 17 on x).
 int uspace_w8_fc1(const void* xln, const void* w1, const void* s1, const void* b1,
                   void* h, int R, int C, int hidden, void* stream) {
   return launch_gemm<EPI_GELU>(xln, w1, s1, b1, nullptr, h, R, hidden, C,
                                (cudaStream_t)stream);
 }
 
-// out [R, out] = res + bf16(f32(h . w2^T) * s2 + b2) in bf16: h [R, hidden]
-// and res [R, out] bf16, w2 [out, hidden] int8, s2, b2 [out] f32 (the third
-// piece).
+// out [R, out] = [res +] bf16(f32(h . w2^T) * s2 + b2) (the sum in bf16): h
+// [R, hidden] bf16, w2 [out, hidden] int8, s2, b2 [out] f32, res [R, out] bf16
+// or null (the third piece of row 16, with x as res; the second of row 17).
 int uspace_w8_fc2(const void* h, const void* w2, const void* s2, const void* b2,
                   const void* res, void* out, int R, int hidden, int out_dim,
                   void* stream) {
-  return launch_gemm<EPI_RESIDUAL>(h, w2, s2, b2, res, out, R, out_dim, hidden,
-                                   (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (res)
+    return launch_gemm<EPI_RESIDUAL>(h, w2, s2, b2, res, out, R, out_dim, hidden, s);
+  return launch_gemm<EPI_BIAS>(h, w2, s2, b2, nullptr, out, R, out_dim, hidden, s);
 }
 
 // As uspace_mlp_w8 with LN2 (f32 ln_scale, ln_bias [C]) in front and the

@@ -78,7 +78,7 @@ from ._build import (
     on_cpu,
     raise_on,
 )
-from .attention import KERNEL_HEAD_DIM, KERNEL_MAX_LEN, \
+from .attention import KERNEL_HEAD_DIMS, KERNEL_MAX_LEN, \
     packed_attention_plain
 from .mlp import _gelu_f32, col_slices, gelu_grad
 from .quant import int_matmul, row_codes, strip_colsums, true_div
@@ -347,9 +347,11 @@ def _attn_operands(x, num_heads, c, ln_scale, ln_bias, ws, dev):
     if x.dim() != 3 or x.dtype != torch.bfloat16:
         raise ValueError(f"the stage-delta attention kernels take x [B, L, C] "
                          f"bfloat16, got {tuple(x.shape)} {x.dtype}")
-    if c != num_heads * KERNEL_HEAD_DIM or c % 128:
+    if (c % num_heads or c // num_heads not in KERNEL_HEAD_DIMS
+            or c % 128):
         raise ValueError(f"the stage-delta attention kernels take head dim "
-                         f"{KERNEL_HEAD_DIM} and C a multiple of 128, got "
+                         f"{' or '.join(map(str, KERNEL_HEAD_DIMS))} and C a "
+                         f"multiple of 128, got "
                          f"C={c} with {num_heads} heads")
     if not 1 <= x.shape[1] <= KERNEL_MAX_LEN:
         raise ValueError(f"the stage-delta attention kernels take 1 <= L <= "
@@ -389,7 +391,7 @@ def _base_attn_kernel(x, ln_scale, ln_bias, wq, ws, num_heads, eps):
                                    qkv_s.data_ptr(), qkv_d.data_ptr(), b, l,
                                    lp, 3 * c, stream), "uspace_qkv_recode")
     raise_on(att.uspace_packed_attention(
-        qkv_d.data_ptr(), a.data_ptr(), b, l, num_heads,
+        qkv_d.data_ptr(), a.data_ptr(), b, l, num_heads, c // num_heads,
         (c // num_heads) ** -0.5, stream), "uspace_packed_attention")
     LAUNCHES["base_attn_cache"] += 1
     return a, qkv_q, qkv_s
@@ -427,7 +429,7 @@ def _delta_attn_kernel(x, xb, qkv_q, qkv_s, a_b, xm_b, ln_scale, ln_bias,
         qkv_q.data_ptr(), qkv_s.data_ptr(), qkv.data_ptr(), b, l, lp, 3 * c,
         c, stream), "uspace_qkv_delta")
     raise_on(att.uspace_packed_attention(
-        qkv.data_ptr(), a.data_ptr(), b, l, num_heads,
+        qkv.data_ptr(), a.data_ptr(), b, l, num_heads, c // num_heads,
         (c // num_heads) ** -0.5, stream), "uspace_packed_attention")
     raise_on(lib.uspace_diff_codes(a.data_ptr(), a_b.data_ptr(),
                                    codes.data_ptr(), sr.data_ptr(), r, c,

@@ -53,10 +53,10 @@ bf16 MLP, the ``quant=False`` view of both entry points (the default of
 - ``acc = sum_j f32(h_j @ w2[j, :])``, then ``acc + b2`` rounded to x's
   dtype (and added to x in x's dtype).
 
-On the card each is a sequence of launches counted as one: the w8 view's
-LN pass (lnres only), fc1 over the whole hidden width into a bf16 workspace, fc2
-over the whole hidden width. Nothing is quantized per strip, so the strips
-only order f32 sums, as in the w8 view.
+On the card each bf16 and w8 op is a sequence of launches counted as one:
+the w8 view's LN pass (lnres only), fc1 over the whole hidden width into a
+bf16 workspace, fc2 over the whole hidden width. Nothing is quantized per
+strip, so the strips only order f32 sums.
 
 The JAX package sends :func:`fused_mlp` to XLA above 12 MB of bf16 weights
 (``uspace_tpu/ops/mlp.py:500-510``), a TPU VMEM residency rule; that branch
@@ -325,35 +325,36 @@ def ln_mlp_w8_plain(x: torch.Tensor, ln_scale: torch.Tensor,
 
 
 def _mlp_w8_kernel(x2d, q1, b1, q2, b2, ln=None):
-    """Launch the weight-only int8 MLP kernel on x [R, C] bf16; with ``ln =
-    (scale, bias, eps)`` the LN2 + residual variant, whose three pieces (the
-    LN pass, the fc1 and fc2 GEMMs) pass its rows and hidden through bf16
-    workspaces [R, C] and [R, hidden]."""
+    """Launch the weight-only int8 MLP kernels on x [R, C] bf16: fc1 and fc2
+    (two wgmma GEMMs, the hidden through a bf16 workspace [R, hidden]); with
+    ``ln = (scale, bias, eps)`` the LN2 + residual variant, whose three
+    pieces (the LN pass, the fc1 and fc2 GEMMs) pass its rows and hidden
+    through bf16 workspaces [R, C] and [R, hidden]. Either op counts one
+    launch."""
     r, c = x2d.shape
     hidden, out_dim = q1.q.shape[0], q2.q.shape[0]
     dev = x2d.device
     b1f, b2f, out = _mlp_operands("w8", x2d, q1, b1, q2, b2)
-    # C <= 1280: the LN-free kernel's bf16 rows, its hidden chunk and its
-    # weight ring share 227 KB of shared memory (csrc/mlp_w8.cu make_layout)
-    if (c % 128 or c > 1280 or hidden % 256
-            or out_dim not in (256, 512, 768, 1024)):
+    # the GEMMs' 64-deep K chunks and 128-wide weight tiles
+    # (csrc/mlp_w8.cu launch_gemm); the LN pass holds a row of <= 2048
+    if (c % 64 or hidden % 128 or out_dim % 128
+            or (ln is not None and c > 2048)):
         raise ValueError(
-            f"the w8 MLP kernels take C a multiple of 128 up to 1280, a "
-            f"hidden width that is a multiple of 256 and an output width "
-            f"of 256, 512, 768 or 1024; got C={c}, hidden={hidden}, "
-            f"out={out_dim}")
+            f"the w8 MLP kernels take C a multiple of 64 (up to 2048 with "
+            f"LN2) and hidden and output widths that are multiples of 128; "
+            f"got C={c}, hidden={hidden}, out={out_dim}")
     stream = cuda_stream(dev)
     lib = load("mlp_w8")
     weights = (q1.q.data_ptr(), q1.scale.data_ptr(), b1f.data_ptr(),
                q2.q.data_ptr(), q2.scale.data_ptr(), b2f.data_ptr())
+    h = x2d.new_empty((r, hidden))
     if ln is None:
-        rc = lib.uspace_mlp_w8(x2d.data_ptr(), *weights, out.data_ptr(), r, c,
-                               hidden, out_dim, stream)
+        rc = lib.uspace_mlp_w8(x2d.data_ptr(), *weights, h.data_ptr(),
+                               out.data_ptr(), r, c, hidden, out_dim, stream)
         key = "mlp_w8"
     else:
         lns, lnb = _ln_operands(ln, c, out_dim, dev)
         xln = torch.empty_like(x2d)
-        h = x2d.new_empty((r, hidden))
         rc = lib.uspace_ln_mlp_w8(x2d.data_ptr(), lns.data_ptr(),
                                   lnb.data_ptr(), *weights, xln.data_ptr(),
                                   h.data_ptr(), out.data_ptr(), r, c, hidden,
@@ -381,9 +382,9 @@ def _w8_ln_kernel(x: torch.Tensor, ln_scale: torch.Tensor,
 
 def _w8_fc1_kernel(xln: torch.Tensor, q1: QWeight,
                    b1: torch.Tensor) -> torch.Tensor:
-    """The fc1 GEMM of the w8 MLP sub-block alone: ``bf16(gelu(f32(xln .
-    q1^T) * s1 + b1))`` for xln [R, C] bf16 (C a multiple of 64, the hidden
-    width of 256). Counted by no op."""
+    """The fc1 GEMM of the w8 MLPs alone: ``bf16(gelu(f32(xln . q1^T) * s1
+    + b1))`` for xln [R, C] bf16 (the LN2 rows in the sub-block, x in the
+    MLP; C a multiple of 64, the hidden width of 128). Counted by no op."""
     r, c = xln.shape
     hidden = q1.q.shape[0]
     check_tensor("xln", xln, torch.bfloat16, (r, c), xln.device)
@@ -399,23 +400,25 @@ def _w8_fc1_kernel(xln: torch.Tensor, q1: QWeight,
 
 
 def _w8_fc2_kernel(h: torch.Tensor, q2: QWeight, b2: torch.Tensor,
-                   res: torch.Tensor) -> torch.Tensor:
-    """The fc2 GEMM of the w8 MLP sub-block alone: ``res + bf16(f32(h .
-    q2^T) * s2 + b2)`` in bf16 for h [R, hidden] bf16 (hidden a multiple of
-    64, the output width of 256). Counted by no op."""
+                   res: torch.Tensor = None) -> torch.Tensor:
+    """The fc2 GEMM of the w8 MLPs alone: ``[res +] bf16(f32(h . q2^T) * s2
+    + b2)`` (the sum in bf16) for h [R, hidden] bf16 (hidden a multiple of
+    64, the output width of 128); the sub-block passes x as res, the MLP
+    none. Counted by no op."""
     r, hidden = h.shape
     out_dim = q2.q.shape[0]
     check_tensor("h", h, torch.bfloat16, (r, hidden), h.device)
-    check_tensor("res", res, torch.bfloat16, (r, out_dim), h.device)
+    if res is not None:
+        check_tensor("res", res, torch.bfloat16, (r, out_dim), h.device)
     check_tensor("w2 codes", q2.q, torch.int8, (out_dim, hidden), h.device)
     b2f = b2.to(torch.float32).contiguous()
     check_tensor("w2 scales", q2.scale, torch.float32, (out_dim,), h.device)
     check_tensor("b2", b2f, torch.float32, (out_dim,), h.device)
-    out = torch.empty_like(res)
+    out = h.new_empty((r, out_dim))
     raise_on(load("mlp_w8").uspace_w8_fc2(
         h.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(), b2f.data_ptr(),
-        res.data_ptr(), out.data_ptr(), r, hidden, out_dim,
-        cuda_stream(h.device)), "uspace_w8_fc2")
+        None if res is None else res.data_ptr(), out.data_ptr(), r, hidden,
+        out_dim, cuda_stream(h.device)), "uspace_w8_fc2")
     return out
 
 
@@ -519,10 +522,10 @@ def _bf16_fc1_kernel(x: torch.Tensor, w1: torch.Tensor,
 
 def _bf16_fc2_kernel(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                      res: torch.Tensor = None) -> torch.Tensor:
-    """The fc2 GEMM of the bf16 MLP: ``[res +] bf16(f32(h . w2^T) +
-    b2)`` (the sum in bf16) for h [R, H] bf16 (H a multiple of 64) and the
-    torch-layout rows w2 [C', H] bf16 (C' a multiple of 256). Counted by no
-    op."""
+    """The fc2 GEMM of the bf16 MLP, and the bf16 attention sub-block's
+    projection: ``[res +] bf16(f32(h . w2^T) + b2)`` (the sum in bf16) for h
+    [R, H] bf16 (H a multiple of 64) and the torch-layout rows w2 [C', H]
+    bf16 (C' a multiple of 256; of 128 with ``res``). Counted by no op."""
     r, hidden = h.shape
     out_dim = w2.shape[0]
     dev = h.device
