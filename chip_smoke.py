@@ -19,8 +19,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its update out - x; the stage-delta base and delta halves at B=50 and on
    12850 rows, in the three hidden modes (rows 18 to 25), the base ones on
    every output, caches included, the delta ones on what they add to their
-   cache; rows 1-5 and 10 also at head dim 32, B=50, L=257, C=1024 in 32
-   heads): max-abs and rel-L2 within the tolerances below;
+   cache; rows 1-6, 10 and 11 also at head dim 32, B=50, L=257, C=1024 in
+   32 heads): max-abs and rel-L2 within the tolerances below; row 25 at the
+   base's own point equal to row 20's output bit for bit, a repeat
+   bit-equal;
    for each int8 and w8 kernel, controls (twins with one rounding site
    changed) that the same limits must refuse; kernel, twin and library-call
    times with CUDA events; the bound of the same work on an H100 SXM (the
@@ -169,7 +171,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    heads of 32, 8 x 8 x 4 latents, seeded weights): 2 train steps at batch
    256 on `pallas_packed` with exact launches of rows 1 and 4 at head dim
    32 and finite losses; Euler-50 at batch 64 on `auto` (row 2 at head dim
-   32) against `xla` within the path limits, exact launches.
+   32) against `xla` within the path limits, exact launches; the W8A8 view
+   at head dim 32 (embed 256 in 8 heads of 32: the int8 MLP kernels take
+   strips of 256 hidden units or more, embed 128 gives 128) Euler-50 at
+   batch 64 on `pallas_qkvproj` (row 6) and `pallas_block` (row 11) with
+   exact launches, each against `xla`'s W8A8 view at the quality gate.
 
 Prints the `kernels` JSON line and then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -400,6 +406,9 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 # (synthetic_attr_e2e.py: train.batch_size 256) and its sampling batch
 # (sample.mini_batch_size 64)
 TOY_TRAIN_B, TOY_TRAIN_STEPS, TOY_SAMPLE_B = 256, 2, 64
+# phase 26's W8A8 view at head dim 32: the narrowest width whose MLP strips
+# (hidden / 4) the int8 MLP kernels take
+TOY_Q_EMBED = 256
 GRAD_B = 32
 # kernel 8's phase-3 shapes (B, H, L, D) at the training batch; the first is
 # the UNet-large training path's (its five self-attentions at 32 x 32)
@@ -599,7 +608,7 @@ def check_kernels(torch, F, attn, mlpk, quant):
     cases += flash_cases(torch, F, attn, randn, io)
     cases += bwd_cases(torch, F, attn, randn, io)
     cases += block_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
-    cases += hd32_cases(torch, F, attn, randn, io, quant)
+    cases += hd32_cases(torch, F, attn, mlpk, randn, io, quant)
     cases += delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
     results, shapes, controls, problems = [], [], {}, []
     for case in cases:
@@ -659,6 +668,7 @@ def check_kernels(torch, F, attn, mlpk, quant):
             f", {term})")
         (results if case.get("listed", True) else shapes).append(r)
     problems += piece_checks(torch, attn, quant, randn)
+    problems += row25_checks(torch, quant, randn)
     if problems:
         fail("; ".join(problems))
     return results, shapes, controls
@@ -710,6 +720,39 @@ def piece_checks(torch, attn, quant, randn):
             f"D={C // h}: worst max_abs {worst[0]:.3e} rel_l2 {worst[1]:.3e}, "
             f"repeats {'bit-equal' if repeats else 'DIFFER'}")
     return problems
+
+
+def row25_checks(torch, quant, randn):
+    """Row 25 on the 12850 rows of B=50 at hidden 4096: at the base's own
+    point (x = x_b, row 20's cache and m) row 20's output bit for bit (dg
+    is 0, every code 0), and a stage's delta repeated bit-equal. Returns
+    what disagreed."""
+    from uspace_tpu_torch.ops import delta as dops
+    f32, bf = torch.float32, torch.bfloat16
+    rows, hid = B * L, 4 * C
+    xb = randn(rows, C, std=STREAM_STD)
+    x = (xb.float() + randn(rows, C, std=STAGE_GAP * STREAM_STD,
+                            dtype=f32)).to(bf)
+    lns, lnb = 1.0 + randn(C, std=0.1, dtype=f32), randn(C, std=0.1,
+                                                         dtype=f32)
+    q1 = quant.quantized_weight(randn(hid, C, std=0.02, dtype=f32).t())
+    q2 = quant.quantized_weight(randn(C, hid, std=0.02, dtype=f32).t())
+    b1, b2 = randn(hid, std=0.02, dtype=f32), randn(C, std=0.02, dtype=f32)
+    dw = (lns, lnb, q1.kn, q1.scale, q2.kn, q2.scale, 1e-5)
+    with torch.no_grad():
+        o, e_q, e_s, m = dops.base_mlp_block(xb, lns, lnb, q1.kn, q1.scale,
+                                             b1, q2.kn, q2.scale, b2, 1e-5)
+        same = dops.delta_mlp_block(xb, xb, e_q, e_s, m, *dw)
+        out = dops.delta_mlp_block(x, xb, e_q, e_s, m, *dw)
+        again = dops.delta_mlp_block(x, xb, e_q, e_s, m, *dw)
+    torch.cuda.synchronize()
+    at_base, repeat = torch.equal(same, o), torch.equal(out, again)
+    log(f"piece delta_mlp_exact, {rows} rows: at the base's point "
+        f"{'bit-equal to' if at_base else 'DIFFERS from'} row 20's output; "
+        f"repeat {'bit-equal' if repeat else 'DIFFERS'}")
+    return ([] if at_base else ["row 25 at the base's point differs from "
+                                "row 20's output"]) + (
+        [] if repeat else ["row 25's repeat differs"])
 
 
 def attn_control(attn, quant, x, qw, w, heads, scale, change, ln=None):
@@ -1039,15 +1082,15 @@ def bwd_cases(torch, F, attn, randn, io):
 
 
 def block_q_control(torch, attn, mlpk, quant, x, lns, lnb, qw, qwp, bp,
-                    change):
+                    change, heads=H):
     """A twin of the int8 attention sub-block kernel with one rounding site
     changed (a wrong kernel's stand-in)."""
-    d = C // H
+    d = C // heads
     if change == "LN1 normalised in f32":  # row 5's LN
         xln = attn._ln_f32(x, lns, lnb, 1e-5)
     else:
         xln = mlpk._ln_bf16_normalise(x, lns, lnb, 1e-5)
-    a = attn._int8_qkv_attention(xln, qw, H, d ** -0.5, x.dtype)
+    a = attn._int8_qkv_attention(xln, qw, heads, d ** -0.5, x.dtype)
     if change == "proj coded as int8_dense codes":  # x / (amax / 127)
         p = quant.int8_matmul(*quant.quantize_rowwise(a.float()), qwp.kn,
                               qwp.scale) + bp
@@ -1174,12 +1217,13 @@ def block_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
     ]
 
 
-def hd32_cases(torch, F, attn, randn, io, quant):
-    """Phase 3's cases at head dim 32 (the U-ViT toys' head dim) of rows 1-5
-    and 10, at the main path's B=50, L=257, C=1024 (the backward at
+def hd32_cases(torch, F, attn, mlpk, randn, io, quant):
+    """Phase 3's cases at head dim 32 (the U-ViT toys' head dim) of rows 1-6,
+    10 and 11, at the main path's B=50, L=257, C=1024 (the backward at
     TRAIN_B) in H32 = 32 heads: each against its twin within its D = 64
-    limits, with its time and bound. Listed under ``kernel_shapes``, each
-    counted on its row's launch count."""
+    limits, with its time and bound, the int8 rows with their D = 64
+    controls. Listed under ``kernel_shapes``, each counted on its row's
+    launch count."""
     f32, bf = torch.float32, torch.bfloat16
     h, d = H32, C // H32
     scale = d ** -0.5
@@ -1196,6 +1240,8 @@ def hd32_cases(torch, F, attn, randn, io, quant):
     bp = randn(C, std=0.02, dtype=f32)
     wf = randn(3 * C, C, std=0.02, dtype=f32).t()
     qw = quant.quantized_weight(wf)
+    wpf = randn(C, C, std=0.02, dtype=f32).t()
+    qwp = quant.quantized_weight(wpf)
     qkv = randn(B, L, 3 * C, std=0.64)
     lns = 1.0 + randn(C, std=0.1, dtype=f32)
     lnb = randn(C, std=0.1, dtype=f32)
@@ -1207,9 +1253,18 @@ def hd32_cases(torch, F, attn, randn, io, quant):
     def ln(t):
         return F.layer_norm(t, (C,), lns.to(bf), lnb.to(bf), 1e-5)
 
+    def lib_proj(xf, qw_):  # row codes, torch._int_mm, dequant
+        return quant.int8_matmul(*quant.quantize_rowwise(xf), qw_.kn,
+                                 qw_.scale)
+
+    def lib_block_q():
+        a = sdpa32(lib_proj(ln(xb).float(), qw).to(bf))
+        return xb + (lib_proj(a.float(), qwp) + bp).to(bf)
+
     proj_flops = 2.0 * B * L * C * 3 * C
     attn_flops = 4.0 * B * h * L * L * d
     shape = f"B={B} L={L} C={C} H={h} D={d} bf16"
+    qshape = f"B={B} L={L} C={C} H={h} D={d} bf16/int8"
     src = "uspace_tpu_torch/ops/csrc/attention.cu"
     cases = [
         dict(name="packed_attention", counter="packed_attention",
@@ -1256,7 +1311,35 @@ def hd32_cases(torch, F, attn, randn, io, quant):
                  qw.scale).to(bf)),
              bytes=io(x, lns, lnb, qw.q, qw.scale) + io(x), flops=attn_flops,
              int8_ops=proj_flops, tol=(None, INT8_ATTN_REL_L2),
-             shape=f"B={B} L={L} C={C} H={h} D={d} bf16/int8"),
+             shape=qshape),
+        dict(name="qkvproj_attention_int8", counter="qkvproj_attention_int8",
+             replaces="uspace_tpu/ops/attention.py:541 (_qkv_attn_kernel_q)",
+             kernel=lambda: attn.fused_qkvproj_attention(x, wf, h,
+                                                         quant=True),
+             plain=lambda: attn.qkvproj_attention_int8_plain(x, qw, h, scale),
+             library=lambda: sdpa32(lib_proj(x.float(), qw).to(bf)),
+             bytes=io(x, qw.q, qw.scale) + io(x), flops=attn_flops,
+             int8_ops=proj_flops, tol=(None, INT8_ATTN_REL_L2), shape=qshape,
+             controls=[(c, lambda c=c: attn_control(
+                 attn, quant, x, qw, wf, h, scale, c))
+                 for c in ("x coded by division", "a bf16 projection")]),
+        dict(name="attention_block_int8", counter="attention_block_int8",
+             source="uspace_tpu_torch/ops/csrc/attention_block.cu",
+             replaces="uspace_tpu/ops/attention.py:831 "
+             "(_attn_block_kernel_q)",
+             kernel=lambda: attn.fused_attention_block_q(xb, lns, lnb, wf,
+                                                         wpf, bp, h),
+             plain=lambda: attn.attention_block_int8_plain(
+                 xb, lns, lnb, qw, qwp, bp, h, scale, 1e-5),
+             library=lib_block_q,
+             bytes=io(xb, lns, lnb, qw.q, qw.scale, qwp.q, qwp.scale, bp)
+             + io(xb), flops=attn_flops, int8_ops=proj_flops * 4 / 3,
+             tol=(None, INT8_ATTN_REL_L2), shape=qshape,
+             part=lambda t: t.double() - xb.double(),
+             controls=[(c, lambda c=c: block_q_control(
+                 torch, attn, mlpk, quant, xb, lns, lnb, qw, qwp, bp, c, h))
+                 for c in ("LN1 normalised in f32",
+                           "proj coded as int8_dense codes")]),
         dict(name="attention_block", counter="attention_block",
              source="uspace_tpu_torch/ops/csrc/attention_block.cu",
              replaces="uspace_tpu/ops/attention.py:1044 (_attn_block_kernel)",
@@ -3330,7 +3413,12 @@ def toy_uvit_path(torch, flow, attn, mlpk, sample_lfm, dev):
     steps at TOY_TRAIN_B on `pallas_packed` (the toys' training route,
     cli/train_lfm.py) with exact launches of rows 1 and 4 and finite
     losses; Euler-STEPS at TOY_SAMPLE_B on `auto` (row 2 in every block)
-    against `xla` from the same z within the path limits, exact launches."""
+    against `xla` from the same z within the path limits, exact launches;
+    then the W8A8 view at head dim 32 (TOY_Q_EMBED in heads of 32, the
+    same depth and latents): Euler-STEPS at TOY_SAMPLE_B on `pallas_qkvproj`
+    (row 6, the int8 MLP, row 14) and on `pallas_block` (row 11, the int8
+    MLP sub-block, row 15), exact launches, each against `xla`'s W8A8 view
+    (bf16 attention, row 14) from the same z at the quality gate."""
     from uspace_tpu_torch.cli.train_lfm import build_train_model
     from uspace_tpu_torch.configs import get_config, uvit_nnet
     from uspace_tpu_torch.data.datasets import SyntheticFeatures
@@ -3399,9 +3487,44 @@ def toy_uvit_path(torch, flow, attn, mlpk, sample_lfm, dev):
     if tuple(lat.shape) != (TOY_SAMPLE_B, 8, 8, 4) or not (
             cos >= PATH_MIN_COS and rel <= PATH_MAX_REL_L2):
         fail("toy U-ViT (D=32) latents disagree with the plain path")
-    return dict(train=train, euler=dict(
-        steps=STEPS, batch=TOY_SAMPLE_B, seconds=secs_k, plain_seconds=secs_p,
-        cos=cos, rel_l2=rel, max_abs=max_abs, launches=n))
+    euler = dict(steps=STEPS, batch=TOY_SAMPLE_B, seconds=secs_k,
+                 plain_seconds=secs_p, cos=cos, rel_l2=rel, max_abs=max_abs,
+                 launches=n)
+    del kmodel, plain
+
+    qcfg = get_config("uvit_large")
+    qcfg.update(z_shape=(4, 8, 8), nnet=uvit_nnet(
+        embed_dim=TOY_Q_EMBED, depth=6, num_heads=TOY_Q_EMBED // 32,
+        img_size=8, use_checkpoint=False))
+    qref = sample_lfm.build_model(qcfg, dev, seed=0, attn_impl="xla",
+                                  quant=True)
+    lat_x, secs_x = decode_run(torch, flow, qref, z, STEPS)
+    w8a8 = dict(xla_seconds=secs_x)
+    for impl, counts in (
+            ("pallas_qkvproj", dict(qkvproj_attention_int8=n, mlp_int8=n)),
+            ("pallas_block", dict(attention_block_int8=n, ln_mlp_int8=n))):
+        view = sample_lfm.build_model(qcfg, dev, seed=0, attn_impl=impl,
+                                      quant=True)
+        view.load_state_dict(qref.state_dict())
+        reset_launches(attn, mlpk)
+        lat_v, secs_v = decode_run(torch, flow, view, z, STEPS)
+        got = all_launches(attn, mlpk)
+        max_abs, rel, cos = compare(torch, lat_v, lat_x)
+        log(f"toy U-ViT W8A8 (embed {TOY_Q_EMBED}, D=32) {impl}: Euler-"
+            f"{STEPS} at batch {TOY_SAMPLE_B} in {secs_v:.3f} s (xla "
+            f"{secs_x:.3f} s), launches {got} (expected {counts}); latents "
+            f"vs xla's W8A8 view cos {cos:.8f} (min {QUANT_MIN_COS}) rel_l2 "
+            f"{rel:.3e} (max {QUANT_MAX_REL_L2})")
+        if got != expected(attn, mlpk, **counts):
+            fail(f"toy U-ViT W8A8 {impl} launches {got}, expected {counts}")
+        if tuple(lat_v.shape) != (TOY_SAMPLE_B, 8, 8, 4) or not (
+                cos >= QUANT_MIN_COS and rel <= QUANT_MAX_REL_L2):
+            fail(f"toy U-ViT W8A8 {impl} fails the quality gate against "
+                 f"xla's W8A8 view")
+        w8a8[impl] = dict(seconds=secs_v, cos=cos, rel_l2=rel,
+                          max_abs=max_abs, launches=counts)
+        del view
+    return dict(train=train, euler=euler, w8a8=w8a8)
 
 
 def main():
@@ -3680,13 +3803,17 @@ def main():
         for name in ("uvit_large", "unet_large_512")}
 
     # 26. the U-ViT toys' shape: the kernels at head dim 32 on a train step
-    # and an Euler-50 solve
+    # and an Euler-50 solve, and the W8A8 view's rows 6 and 11 there
     report["toy_uvit_d32"] = toy = toy_uvit_path(torch, flow, attn, mlpk,
                                                  sample_lfm, dev)
     d32 = {"packed_attention": toy["train"]["launches"]["packed_attention"],
            "packed_attention_bwd":
                toy["train"]["launches"]["packed_attention_bwd"],
-           "qkvproj_attention": toy["euler"]["launches"]}
+           "qkvproj_attention": toy["euler"]["launches"],
+           "qkvproj_attention_int8": toy["w8a8"]["pallas_qkvproj"][
+               "launches"]["qkvproj_attention_int8"],
+           "attention_block_int8": toy["w8a8"]["pallas_block"]["launches"][
+               "attention_block_int8"]}
     for k in report["kernel_shapes"]:
         name, _, dim = k["name"].partition(" ")
         if dim == f"D={C // H32}" and name in d32:

@@ -238,6 +238,50 @@ def test_twins_count_no_launches():
     assert set(tdelta.LAUNCHES.values()) == {0}
 
 
+def test_row25_wrapper_runs_its_three_pieces(monkeypatch):
+    """Row 25's plumbing on the card with the library calls stubbed: row
+    19's code pass of x and x_b, fc1 with the dg epilogue into an [R,
+    hidden] int8 workspace with [R, strips] scales, fc2 reading that
+    workspace, x and m_b into the output; one launch counted."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, fn):
+            def call(*args):
+                calls.append((fn, args))
+                return 0
+            return call
+
+    monkeypatch.setattr(tdelta, "load", lambda name: Lib())
+    monkeypatch.setattr(tdelta, "cuda_stream", lambda dev: None)
+    r, c, hidden, strips = 10, 256, 1024, 4
+    rng = np.random.default_rng(24)
+    x, xb, mb = (torch.from_numpy(rng.standard_normal((r, c)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(3))
+    (_, _), (t1, ts1) = _weights(rng, c, hidden, 0.1)
+    (_, _), (t2, ts2) = _weights(rng, hidden, c, 0.05)
+    e_q = torch.zeros((r, hidden), dtype=torch.int8)
+    e_s = torch.ones((r, strips))
+    one = torch.ones(c)
+    tdelta.reset_launches()
+    o = tdelta._delta_mlp_kernel(x, xb, e_q, e_s, None, mb, one, one, t1,
+                                 ts1, t2, ts2, EPS, strips, False)
+    assert o.shape == x.shape
+    assert [fn for fn, _ in calls] == ["uspace_ln_delta_codes",
+                                       "uspace_delta_fc1_exact",
+                                       "uspace_delta_fc2"]
+    codes, fc1, fc2 = (args for _, args in calls)
+    assert codes[:2] == (x.data_ptr(), xb.data_ptr()) and codes[6:8] == (r, c)
+    assert fc1[:2] == codes[4:6] and fc1[4:6] == (e_q.data_ptr(),
+                                                   e_s.data_ptr())
+    assert fc1[8:12] == (r, c, hidden, strips)
+    assert fc2[:2] == fc1[6:8]  # the hidden codes and their scales
+    assert fc2[4:7] == (mb.data_ptr(), x.data_ptr(), o.data_ptr())
+    assert fc2[7:11] == (r, c, hidden, strips)
+    assert tdelta.LAUNCHES["delta_mlp_exact"] == 1
+    assert sum(tdelta.LAUNCHES.values()) == 1
+
+
 # ---------------------------------------------------------------------------
 # the field against the JAX field
 # ---------------------------------------------------------------------------

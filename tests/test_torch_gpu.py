@@ -353,11 +353,17 @@ def test_uvit_kernel_gradients_match_plain(cuda):
         assert rel < 2e-2, (impl, rel)
 
 
-@pytest.mark.parametrize("b,l,h", [(2, 17, 4), (3, 257, 16), (2, 334, 16),
-                                   (1, 512, 2), (1, 1, 1)])
-def test_int8_attention_kernels_match_twins(cuda, b, l, h):
-    g = torch.Generator(device=cuda).manual_seed(l + 2)
-    c = 64 * h
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("b,l,c", [(2, 1, 128), (2, 17, 128), (2, 63, 256),
+                                   (2, 65, 256), (3, 257, 1024),
+                                   (1, 512, 256)])
+def test_int8_attention_kernels_match_twins(cuda, b, l, c, d):
+    """Rows 5, 6 and 11 at head dims 32 and 64 (rows 6 and 11 on row 5's
+    pieces: a code pass, the int8 wgmma projection, row 1's core), each L
+    a tile edge of the core (1, 63, 65, 257) or its limit (512)."""
+    g = torch.Generator(device=cuda).manual_seed(l + 2 + d)
+    h = c // d
+    s = d ** -0.5
     x = _rand(g, b, l, c)
     w = _rand(g, c, 3 * c, std=c ** -0.5, dtype=torch.float32)
     lns = 1 + _rand(g, c, std=0.1, dtype=torch.float32)
@@ -365,13 +371,21 @@ def test_int8_attention_kernels_match_twins(cuda, b, l, h):
     qw = quant.quantized_weight(w)
     with torch.no_grad():
         _agree_int8(attn.fused_qkvproj_attention(x, w, h, quant=True),
-                    attn.qkvproj_attention_int8_plain(x, qw, h, 0.125),
+                    attn.qkvproj_attention_int8_plain(x, qw, h, s),
                     INT8_ATTN_REL_L2)
         _agree_int8(attn.fused_ln_qkvproj_attention(x, lns, lnb, w, h,
                                                     quant=True),
                     attn.ln_qkvproj_attention_int8_plain(x, lns, lnb, qw, h,
-                                                         0.125, 1e-5),
+                                                         s, 1e-5),
                     INT8_ATTN_REL_L2)
+    xb, lns, lnb, wqkv, wproj, bproj = args = _block_args(g, b, l, c)
+    qws = (quant.quantized_weight(wqkv), quant.quantized_weight(wproj))
+    with torch.no_grad():
+        out = attn.fused_attention_block_q(*args, h)
+        again = attn.fused_attention_block_q(*args, h)
+        _agree_update(out, attn.attention_block_int8_plain(
+            xb, lns, lnb, *qws, bproj, h, s, 1e-5), xb, INT8_ATTN_REL_L2)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("rows,c", [(1, 1024), (33, 256), (500, 512),
@@ -412,23 +426,29 @@ def test_int_mm_is_exact(cuda):
 
 
 def test_int8_wrappers_count_launches_and_refuse(cuda):
+    """Rows 5, 6, 11, 14 and 15 count one launch a call, rows 5, 6 and 11 at
+    head dims 64 and 32 (4 and 8 heads at C = 256)."""
     attn.reset_launches()
     mlp.reset_launches()
     x = torch.zeros(1, 8, 256, dtype=torch.bfloat16, device=cuda)
     w = torch.zeros(256, 768, device=cuda)
+    wp = torch.zeros(256, 256, device=cuda)
+    one, zero = torch.ones(256, device=cuda), torch.zeros(256, device=cuda)
     with torch.no_grad():
-        attn.fused_qkvproj_attention(x, w, 4, quant=True)
-        attn.fused_ln_qkvproj_attention(x, torch.ones(256, device=cuda),
-                                        torch.zeros(256, device=cuda), w, 4,
-                                        quant=True)
+        for h in (4, 8):
+            attn.fused_qkvproj_attention(x, w, h, quant=True)
+            attn.fused_ln_qkvproj_attention(x, one, zero, w, h, quant=True)
+            attn.fused_attention_block_q(x, one, zero, w, wp, zero, h)
         w1 = torch.zeros(256, 1024, device=cuda)
         w2 = torch.zeros(1024, 256, device=cuda)
         bb = torch.zeros(1024, device=cuda)
         mlp.fused_mlp(x, w1, bb, w2, bb[:256], quant=True)
         mlp.fused_mlp_block_q(x, bb[:256] + 1, bb[:256], w1, bb, w2, bb[:256])
     torch.cuda.synchronize()
-    assert attn.LAUNCHES["qkvproj_attention_int8"] == 1
-    assert attn.LAUNCHES["ln_qkvproj_attention_int8"] == 1
+    assert attn.LAUNCHES["qkvproj_attention_int8"] == 2
+    assert attn.LAUNCHES["ln_qkvproj_attention_int8"] == 2
+    assert attn.LAUNCHES["attention_block_int8"] == 2
+    assert sum(attn.LAUNCHES.values()) == 6
     assert mlp.LAUNCHES == {"mlp_int8": 1, "ln_mlp_int8": 1, "mlp_w8": 0,
                             "ln_mlp_w8": 0, "mlp_bf16": 0, "ln_mlp_bf16": 0}
     with pytest.raises(ValueError, match="bfloat16"):
@@ -1349,6 +1369,33 @@ def test_delta_mlp_e_kernels_match_twins(cuda, rows, c):
         assert float(gap / (out[0].double() - xb.double()).norm()) < 5e-2
 
 
+@pytest.mark.parametrize("c", [256, 512, 768, 1024])
+@pytest.mark.parametrize("rows", [1, 33, 500, 12850])
+def test_delta_mlp_exact_kernel_shapes_and_repeats(cuda, rows, c):
+    """Row 25 (the code pass, fc1 with the dg epilogue on a cluster of
+    hidden / 4 / 256 blocks a strip: 1, 2, 3, 4 at these widths, fc2 with
+    the strip fold) against its twin on a stage's x on the twin's cache, a
+    repeat bit-equal, and at the base's own point row 20's output bit for
+    bit."""
+    g = torch.Generator(device=cuda).manual_seed(5 * rows + c)
+    xb, x, lns, lnb, q1, b1, q2, b2 = _delta_mlp_case(g, rows, c)
+    s = mlp.col_slices(4 * c)
+    w = (lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2, 1e-5)
+    dw = (lns, lnb, q1.kn, q1.scale, q2.kn, q2.scale, 1e-5)
+    with torch.no_grad():
+        base = delta.base_mlp_block(xb, *w)
+        _, e_q, e_s, m_b = delta.base_mlp_e_plain(xb, *w, s)
+        out = delta.delta_mlp_block(x, xb, e_q, e_s, m_b, *dw)
+        again = delta.delta_mlp_block(x, xb, e_q, e_s, m_b, *dw)
+        _agree_delta(out, delta.delta_mlp_exact_plain(x, xb, e_q, e_s, m_b,
+                                                      *dw, s),
+                     x.float() + m_b.float(), INT8_MLP_REL_L2)
+        same = delta.delta_mlp_block(xb, xb, *base[1:4], *dw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(same, base[0])
+
+
 def test_delta_kernels_count_launches_and_refuse(cuda):
     delta.reset_launches()
     g = torch.Generator(device=cuda).manual_seed(4)
@@ -1498,31 +1545,32 @@ def test_head_dim_32_kernels_match_twins(cuda, b, l, h, monkeypatch):
 
 
 def test_head_dims_refused_before_launch(cuda):
-    """Rows 1-5 and 10 take head dims 32 and 64 and refuse 16 and 128;
-    rows 6 and 11 (the one-block int8 kernel) take 64 only, and name it."""
+    """Rows 1-6, 10 and 11 take head dims 32 and 64 and refuse 16 and 128
+    before any launch."""
     bf = torch.bfloat16
     attn.reset_launches()
-    for h, ok in ((8, True), (4, True), (16, False), (2, False)):  # C = 256
-        x = torch.zeros(1, 8, 256, dtype=bf, device=cuda)
-        w = torch.zeros(256, 768, dtype=bf, device=cuda)
-        if ok:
-            attn.fused_qkvproj_attention(x, w, h)
-            continue
-        with pytest.raises(ValueError, match="head dim 32 or 64"):
-            attn.fused_qkvproj_attention(x, w, h)
     x = torch.zeros(1, 8, 256, dtype=bf, device=cuda)
-    w = torch.zeros(256, 768, device=cuda)
-    with torch.no_grad():
-        with pytest.raises(ValueError, match="head dim 64"):
-            attn.fused_qkvproj_attention(x, w, 8, quant=True)
-        with pytest.raises(ValueError, match="head dim 64"):
-            attn.fused_attention_block_q(
-                x, torch.ones(256, device=cuda), torch.zeros(256, device=cuda),
-                w, torch.zeros(256, 256, device=cuda),
-                torch.zeros(256, device=cuda), 8)
+    w = torch.zeros(256, 768, dtype=bf, device=cuda)
+    wf = torch.zeros(256, 768, device=cuda)
+    wp = torch.zeros(256, 256, device=cuda)
+    one, zero = torch.ones(256, device=cuda), torch.zeros(256, device=cuda)
+    for h, ok in ((8, True), (4, True), (16, False), (2, False)):  # C = 256
+        calls = (lambda: attn.fused_qkvproj_attention(x, w, h),
+                 lambda: attn.fused_qkvproj_attention(x, wf, h, quant=True),
+                 lambda: attn.fused_attention_block_q(
+                     x, one, zero, wf, wp, zero, h))
+        with torch.no_grad():
+            for call in calls:
+                if ok:
+                    call()
+                    continue
+                with pytest.raises(ValueError, match="head dim 32 or 64"):
+                    call()
     torch.cuda.synchronize()
     assert attn.LAUNCHES["qkvproj_attention"] == 2
-    assert sum(attn.LAUNCHES.values()) == 2
+    assert attn.LAUNCHES["qkvproj_attention_int8"] == 2
+    assert attn.LAUNCHES["attention_block_int8"] == 2
+    assert sum(attn.LAUNCHES.values()) == 6
 
 
 @pytest.mark.parametrize("b,l,c,h", [(3, 257, 128, 4), (3, 257, 384, 6),

@@ -7,13 +7,15 @@ derives it from the width). Here, at B = 2, C = 128, H = 4 (D = 32) and L =
 17 and 65 (65 ends in the backward's 16-row tail chunk), each twin of rows
 1-5, 10, 18 and 19 (the routes that run row 1's core), and row 4's backward,
 against the JAX kernels run in interpret mode on the CPU, as the other
-``tests/test_torch_*.py`` hold them at head dim 16 and 64. Also: what the
+``tests/test_torch_*.py`` hold them at head dim 16 and 64; rows 6 and 11
+(the LN-free int8 route and the W8A8 sub-block, now row 5's pieces) at head
+dims 32 and 64 (H = 4 and 2). Also: what the
 wrappers' checks take and refuse before any launch, the two pieces of the
 redesigned row 17 (fc1, then fc2 without a residual) and the three of the
 redesigned row 10 (the bf16-chain LN, row 2, the projection with the bias
 rounded to bf16 and the residual), each sequence against the interpreted
-TPU kernel, and the wrappers' plumbing of those pieces with the library
-calls stubbed. Inputs come from numpy seeds.
+TPU kernel, and the wrappers' plumbing of those pieces (and of rows 6 and
+11's) with the library calls stubbed. Inputs come from numpy seeds.
 
 Tolerances, as the files of each row hold them: f32 1e-5 (ops) and 1e-4
 (the sub-block on its update); bf16 2e-2 for the attention ops (one bf16
@@ -26,6 +28,7 @@ output, as the part is about one bf16 step of it), codes one step apart at
 most, row scales within 1e-6.
 """
 
+import inspect
 import math
 
 import jax
@@ -282,6 +285,124 @@ def test_attention_block_wrapper_runs_the_three_pieces(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# rows 6 and 11: the LN-free int8 route and the W8A8 sub-block, on row 5's
+# pieces at head dims 32 and 64
+# ---------------------------------------------------------------------------
+
+
+def _tpu_rounding_block_q_kernel():
+    """``_attn_block_kernel_q`` with its two bf16 -> f32 widenings (the LN1
+    rows and the attention rows, each coded to int8) kept as bf16 values, as
+    a TPU holds them; XLA on the CPU may elide the round trip. Made from the
+    reference's own source (``tests/test_torch_block.py`` patches it the
+    same way); the JAX package is not changed."""
+    src = inspect.getsource(jattn._attn_block_kernel_q)
+    keep = ("jax.lax.reduce_precision({}.astype(jnp.float32), "
+            "exponent_bits=8, mantissa_bits=7)")
+    new = src.replace("xln.astype(jnp.float32)", keep.format("xln"))
+    new = new.replace("qkv_buf[:, 0:c].astype(jnp.float32)",
+                      keep.format("qkv_buf[:, 0:c]"))
+    assert new.count("reduce_precision") == 2
+    ns = dict(vars(jattn))
+    exec(new, ns)
+    return ns["_attn_block_kernel_q"]
+
+
+@pytest.mark.parametrize("h", [H, 2])  # head dims 32 and 64 at C = 128
+@pytest.mark.parametrize("l", LENGTHS)
+@pytest.mark.parametrize("dt", list(DT))
+def test_qkvproj_int8_twin_matches_jax(dt, l, h):
+    """Row 6 (the bf16 rows coded as they are, the int8 projection, the
+    core) against the interpreted _qkv_attn_kernel_q."""
+    jd, td, _ = DT[dt]
+    atol, rel = INT8_TOL[dt]
+    a = _inputs(10, l)
+    ref = jattn.fused_qkvproj_attention(
+        jnp.asarray(a["x"], jd), jnp.asarray(a["w"]), h, quant=True,
+        interpret=True)
+    with torch.no_grad():
+        out = tattn.fused_qkvproj_attention(_t(a["x"], td), _t(a["w"]), h,
+                                            quant=True)
+    assert out.dtype == td and out.shape == (B, l, C)
+    _close(out, ref, atol, rel)
+
+
+@pytest.mark.parametrize("h", [H, 2])
+@pytest.mark.parametrize("l", LENGTHS)
+@pytest.mark.parametrize("dt", list(DT))
+def test_attention_block_q_twin_matches_jax(dt, l, h, monkeypatch):
+    """Row 11 on its update out - x against the interpreted
+    _attn_block_kernel_q (bf16: with its bf16 values kept bf16 on the CPU,
+    as tests/test_torch_block.py holds it at head dim 16). The update is
+    proj of the attention rows' int8 codes, as row 19's part is of da's:
+    in f32 an attention sum taken in another order flips one code by one
+    step now and then (one row of 34 here), which moves that row's update by
+    a code step, so f32 takes row 19's rel-L2 5e-3 on the part."""
+    jd, td, _ = DT[dt]
+    atol, rel = INT8_TOL[dt]
+    if dt == "bf16":
+        monkeypatch.setattr(jattn, "_attn_block_kernel_q",
+                            _tpu_rounding_block_q_kernel())
+    a = _inputs(11, l)
+    a["x"] = 0.05 * a["x"]  # at the update's scale: the residual keeps it
+    ref = jattn.fused_attention_block_q(
+        *(jnp.asarray(a[k], jd if k == "x" else jnp.float32)
+          for k in BLOCK_ARGS), h, interpret=True)
+    x = _t(a["x"], td)
+    with torch.no_grad():
+        out = tattn.fused_attention_block_q(
+            x, *(_t(a[k]) for k in BLOCK_ARGS[1:]), h)
+    assert out.dtype == td
+    _close(out, ref, atol, 5e-3 if dt == "f32" else rel, base=x)
+
+
+def test_int8_routes_run_row_5s_pieces(monkeypatch):
+    """Rows 6 and 11's plumbing at head dim 32 with the library calls
+    stubbed: row 6 is attention_block.cu's code pass on x, the int8 GEMM of
+    all heads into a [B, L, 3C] workspace and the core, one launch counted;
+    row 11 is the LN pass, those three pieces on its rows, the code pass on
+    the attention rows and the int8 projection with the residual, one launch
+    counted."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, fn):
+            def call(*args):
+                calls.append((fn, args))
+                return 0
+            return call
+
+    monkeypatch.setattr(tattn, "load", lambda name: Lib())
+    monkeypatch.setattr(tattn, "cuda_stream", lambda dev: None)
+    monkeypatch.setattr(tattn, "_w8_ln_kernel",
+                        lambda x2d, *a: torch.zeros_like(x2d))
+    a = _inputs(12, 17)
+    x = _t(a["x"], torch.bfloat16)
+    qw = tquant.quantized_weight(_t(a["w"]))
+    pieces = ["uspace_row_codes", "uspace_qkv_gemm_int8",
+              "uspace_packed_attention"]
+    tattn.reset_launches()
+    out = tattn._int8_kernel(x, qw, H, SCALE)
+    assert out.shape == x.shape
+    assert [fn for fn, _ in calls] == pieces
+    rows = B * 17
+    assert calls[0][1][3:5] == (rows, C)
+    assert calls[1][1][5:8] == (rows, 3 * C, C)
+    assert calls[2][1][2:6] == (B, 17, H, D)
+    assert tattn.LAUNCHES["qkvproj_attention_int8"] == 1
+    assert sum(tattn.LAUNCHES.values()) == 1
+    calls.clear()
+    s, b, w, wp, bp = (_t(a[k]) for k in BLOCK_ARGS[1:])
+    tattn._block_kernel(x, s, b, w, wp, bp, H, SCALE, 1e-5,
+                        (qw, tquant.quantized_weight(wp)))
+    assert [fn for fn, _ in calls] == pieces + [
+        "uspace_row_codes", "uspace_proj_residual_int8"]
+    assert calls[2][1][2:6] == (B, 17, H, D)
+    assert tattn.LAUNCHES["attention_block_int8"] == 1
+    assert sum(tattn.LAUNCHES.values()) == 2
+
+
+# ---------------------------------------------------------------------------
 # rows 18 and 19: the stage-delta attention halves on row 1's core
 # ---------------------------------------------------------------------------
 
@@ -369,24 +490,6 @@ def test_check_x_takes_head_dims_32_and_64(d, ok, parts):
         return
     with pytest.raises(ValueError, match="head dim 32 or 64"):
         tattn._check_x("x", x, 2, parts)
-
-
-def test_rows_6_and_11_refuse_head_dim_32():
-    """The one-block int8 kernel (rows 6 and 11) keeps head dim 64 until its
-    redesign: both wrappers refuse 32 before any launch and name 64."""
-    x = torch.zeros(B, 17, C, dtype=torch.bfloat16)
-    w = torch.zeros(C, 3 * C)
-    qw = tquant.quantized_weight(w)
-    with pytest.raises(ValueError, match="head dim 64:"):
-        tattn._int8_kernel(x, qw, H, SCALE)
-    qws = (qw, tquant.quantized_weight(torch.zeros(C, C)))
-    one = torch.ones(C)
-    with pytest.raises(ValueError, match="head dim 64:"):
-        tattn._block_kernel(x, one, one, w, w[:, :C], one, H, SCALE, 1e-5,
-                            qws)
-    assert tattn._check_x("x", torch.zeros(B, 17, 2 * 64,
-                                            dtype=torch.bfloat16), 2, 1,
-                          tattn.INT8_HEAD_DIMS) == 64
 
 
 def test_projection_routes_refuse_c_not_a_multiple_of_64():

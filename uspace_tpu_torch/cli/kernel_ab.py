@@ -9,10 +9,9 @@ C=1024, H=16, bf16;
 ``mlp_int8``, ``mlp_w8`` and ``mlp_bf16``: the W8A8, weight-only int8 and
 bf16 MLP kernels on the 12850 rows of B=50, hidden 4096;
 ``attention_block``: the attention sub-block's own passes at B=50 (the
-attention output's row codes, the int8 projection with bias and residual;
-a base's own bf16-chain LN pass beside ``mlp_w8.cu``'s, which rows 10-11
-run; the bf16 projection is ``mlp_bf16``'s fc2, timed there as
-``row10_proj_ms``); ``attention_fwd``: the [B, H, L, D]
+row codes of rows 6 and 11, the int8 projection with bias and residual; the
+bf16 projection is ``mlp_bf16``'s fc2, timed there as ``row10_proj_ms``);
+``attention_fwd``: the [B, H, L, D]
 kernel at the SD-UNet-large shape, B=50, H=8, L=1024, D=32;
 ``fused_attention_bwd``: its backward at the SD-UNet-large training shape,
 B=128, H=8, L=1024, D=32, and the packed backward at the U-ViT-large
@@ -22,27 +21,16 @@ kernel at the 512-px SD-UNet-large's top level, B=50, H=8, L=4096, D=32;
 halves' own passes at B=50 (the LN codes of the padded base rows and of a
 stage delta, the difference codes, the f32 and the two delta GEMMs, the qkv
 re-coding); ``delta_mlp``: the stage-delta base and delta MLP kernels of
-the three hidden modes on 12850 rows, hidden 4096)
+the three hidden modes on 12850 rows, hidden 4096, row 25 as its two wgmma
+GEMMs, ``delta_fc1_exact`` and ``delta_fc2``, on the new build alone)
 with CUDA events, the two builds alternating base, new, new, base, ... on
-one card. An entry point that the base source lacks is timed on the new
-build alone (``attention``: the LN pass, ``ln_rows``, and the wgmma
-projection, ``qkv_gemm``, the pieces of rows 2 and 3; the code pass,
-``ln_row_codes``, and the int8 wgmma projection, ``qkv_gemm_int8``, the
-pieces of row 5 before its core); a base ``attention.cu`` from before the
-projection's workspace arguments, or from before row 5's, is called with
-its own interface, and so is a base ``mlp_w8.cu`` from before row 16's
-workspaces (row 16's pieces, ``w8_ln_rows``, ``w8_fc1`` and ``w8_fc2``,
-are timed on the new build alone) and a base ``mlp_bf16.cu`` from before
-rows 12 and 13 became pieces (this checkout's rows run as their pieces in
-sequence: ``mlp_w8.cu``'s LN pass for row 13, then ``bf16_fc1`` and
-``bf16_fc2``, which are also timed alone, on the new build). A row 4 or row 8 entry point of a base
-``attention_bwd.cu`` or ``fused_attention_bwd.cu`` is timed against this
-checkout's ``fused_attention_bwd.cu``. A base ``attention.cu`` or
-``fused_attention_bwd.cu`` from before the packed core took a head dim is
-called without one (this checkout's at D = 64), and a base ``mlp_w8.cu``
-whose row 17 is the mma.sync block without its h workspace; for
-``mlp_w8`` row 17's two GEMMs are also timed apart (``row17_fc1_ms``,
-``row17_fc2_ms``). For ``attention`` the int8 and bf16
+one card. The base must have this checkout's C interface (each entry point
+of ``ops/_build.SIGNATURES``); an entry point that it lacks is timed on the
+new build alone, and rows 12 and 13 run as their pieces in sequence
+(``mlp_w8.cu``'s LN pass for row 13, then ``bf16_fc1`` and ``bf16_fc2``,
+which are also timed alone). For ``mlp_w8`` row 17's two GEMMs are also
+timed apart (``row17_fc1_ms``, ``row17_fc2_ms``). For ``attention`` the int8
+and bf16
 projections of this checkout are also timed over K = 256 .. 2048 beside
 ``torch._int_mm``; for ``mlp_bf16`` fc1's GEMM is also timed with fc2's
 bias epilogue in place of its GELU one, and row 13's LN pass alone. Beside each device time stands the
@@ -63,8 +51,6 @@ kernels from another (rows 10, 18 and 19 run row 1 or 2's kernels). Needs
 a CUDA card.
 
     python -m uspace_tpu_torch.cli.kernel_ab --base old/attention.cu
-    python -m uspace_tpu_torch.cli.kernel_ab --source fused_attention_bwd \
-        --base old/attention_bwd.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source mlp_int8 \
         --base old/mlp_int8.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source mlp_w8 \
@@ -102,78 +88,11 @@ from ..ops.quant import quantized_weight
 B, L, C, H = 50, 257, 1024, 16
 TRAIN_B = 128
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# attention.cu before its bf16 projection routes took workspaces, and
-# before its int8 LN route did; mlp_w8.cu before its LN2 + residual route
-# did; mlp_bf16.cu before its routes became pieces
-_LEGACY_ATTENTION = {
-    "uspace_qkvproj_attention": (_P, _P, _P, _I, _I, _I, _F, _P),
-    "uspace_ln_qkvproj_attention": (_P,) * 5 + (_I, _I, _I, _F, _F, _P),
-}
-_LEGACY_INT8 = {"uspace_ln_qkvproj_attention_int8": (_P,) * 6 + (
-    _I, _I, _I, _F, _F, _P)}
-_LEGACY_W8 = {"uspace_ln_mlp_w8": (_P,) * 10 + (_I,) * 4 + (_F, _P)}
-_LEGACY_BF16 = {"uspace_mlp_bf16": (_P,) * 6 + (_I,) * 4 + (_P,),
-                "uspace_ln_mlp_bf16": (_P,) * 8 + (_I,) * 4 + (_F, _P)}
-# attention.cu and fused_attention_bwd.cu before the packed core and the
-# packed backward took a head dim; mlp_w8.cu before row 17 took its h
-# workspace (the mma.sync block)
-_LEGACY_NO_D = {
-    "uspace_packed_attention": (_P, _P, _I, _I, _I, _F, _P),
-    "uspace_qkvproj_attention": (_P,) * 4 + (_I, _I, _I, _F, _P),
-    "uspace_ln_qkvproj_attention": (_P,) * 7 + (_I, _I, _I, _F, _F, _P),
-    "uspace_ln_qkvproj_attention_int8": (_P,) * 9 + (_I, _I, _I, _F, _F,
-                                                     _P),
-    "uspace_packed_attention_bwd": (_P,) * 4 + (_I, _I, _I, _F, _P),
-}
-_LEGACY_W8_BLOCK = {"uspace_mlp_w8": (_P,) * 8 + (_I,) * 4 + (_P,)}
-# attention_block.cu before rows 10-11 ran mlp_w8.cu's LN pass
-_LEGACY_LN_BF16 = {"uspace_ln_bf16": (_P, _P, _P, _P, _I, _I, _F, _P)}
-
-
-def _head_dim(lib: ctypes.CDLL) -> tuple:
-    """The head-dim argument of a build's packed-core entries: (64,), or ()
-    for a source from before they took one."""
-    return () if getattr(lib, "no_head_dim", False) else (64,)
-
-
-def _legacy(lib: ctypes.CDLL) -> bool:
-    """An attention.cu whose bf16 projection routes take no workspace, an
-    mlp_w8.cu whose LN2 + residual route takes none, or an mlp_bf16.cu
-    whose routes are one entry each."""
-    if hasattr(lib, "uspace_ln_mlp_w8"):
-        return not hasattr(lib, "uspace_w8_fc1")
-    if hasattr(lib, "uspace_ln_mlp_bf16"):
-        return not hasattr(lib, "uspace_bf16_fc1")
-    return (hasattr(lib, "uspace_qkvproj_attention")
-            and not hasattr(lib, "uspace_qkv_gemm"))
-
-
-def _legacy_int8(lib: ctypes.CDLL) -> bool:
-    """An attention.cu whose int8 LN route takes no workspace."""
-    return (hasattr(lib, "uspace_ln_qkvproj_attention_int8")
-            and not hasattr(lib, "uspace_qkv_gemm_int8"))
-
-
 def _load(source: str, path: str, out: str) -> ctypes.CDLL:
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, path],
                    check=True)
     lib = ctypes.CDLL(out)
-    text = Path(path).read_text()
-    lib.no_head_dim = "int H, int D" not in text
-    lib.w8_block = "mlp_w8_kernel" in text
-    sigs = dict(_build.SIGNATURES[source])
-    if lib.no_head_dim:
-        sigs.update({k: v for k, v in _LEGACY_NO_D.items() if k in sigs})
-    if lib.w8_block:
-        sigs.update(_LEGACY_W8_BLOCK)
-    if source == "attention_block":
-        sigs.update(_LEGACY_LN_BF16)
-    if _legacy(lib):
-        sigs.update({"attention": _LEGACY_ATTENTION, "mlp_w8": _LEGACY_W8,
-                     "mlp_bf16": _LEGACY_BF16}.get(source, {}))
-    if _legacy_int8(lib):
-        sigs.update(_LEGACY_INT8)
-    for fn, argtypes in sigs.items():
+    for fn, argtypes in _build.SIGNATURES[source].items():
         if not hasattr(lib, fn):
             continue
         f = getattr(lib, fn)
@@ -277,7 +196,6 @@ def main(argv=None) -> None:
     # bf16 weights at a trained layer's scale, torch layout
     w1h = (torch.randn(hid, C, generator=g, device=dev) * 0.02).to(bf)
     w2h = (torch.randn(C, hid, generator=g, device=dev) * 0.02).to(bf)
-    bw = (w1h.data_ptr(), b1.data_ptr(), w2h.data_ptr(), b2.data_ptr())
     wp = (torch.randn(C, C, generator=g, device=dev) * 0.02).to(bf)
     qp = quantized_weight(wp.float().t())
     codes = torch.empty(rows, C, dtype=torch.int8, device=dev)
@@ -313,6 +231,12 @@ def main(argv=None) -> None:
     g_s = torch.full((rows, 4), 0.005, device=dev)
     g_z = torch.full((rows, 4), 0.6, device=dev)
     m_out = torch.empty(rows, C, dtype=bf, device=dev)
+    # row 25's pieces: the codes of a stage delta, its hidden codes
+    dcodes = torch.randint(-127, 128, (rows, C), generator=g, device=dev,
+                           dtype=torch.int8)
+    dsr = torch.full((rows,), 1e-3, device=dev)
+    hq = torch.empty(rows, hid, dtype=torch.int8, device=dev)
+    hsc = torch.full((rows, 4), 1e-3, device=dev)
     s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     w8lib = _build.load("mlp_w8") if a.source == "mlp_bf16" else None
 
@@ -334,16 +258,15 @@ def main(argv=None) -> None:
 
     calls = {
         "packed_attention": lambda lib: lib.uspace_packed_attention(
-            qkv.data_ptr(), out.data_ptr(), B, L, H, *_head_dim(lib), 0.125,
+            qkv.data_ptr(), out.data_ptr(), B, L, H, 64, 0.125,
             s),
         "qkvproj_attention": lambda lib: lib.uspace_qkvproj_attention(
-            x.data_ptr(), w.data_ptr(),
-            *(() if _legacy(lib) else (qkv_ws.data_ptr(),)),
-            out.data_ptr(), B, L, H, *_head_dim(lib), 0.125, s),
+            x.data_ptr(), w.data_ptr(), qkv_ws.data_ptr(), out.data_ptr(), B,
+            L, H, 64, 0.125, s),
         "ln_qkvproj_attention": lambda lib: lib.uspace_ln_qkvproj_attention(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w.data_ptr(),
-            *(() if _legacy(lib) else (xln_ws.data_ptr(), qkv_ws.data_ptr())),
-            out.data_ptr(), B, L, H, *_head_dim(lib), 0.125, 1e-5, s),
+            xln_ws.data_ptr(), qkv_ws.data_ptr(), out.data_ptr(), B, L, H, 64,
+            0.125, 1e-5, s),
         "ln_rows": lambda lib: lib.uspace_ln_rows(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), xln_ws.data_ptr(),
             B * L, C, 1e-5, s),
@@ -353,17 +276,13 @@ def main(argv=None) -> None:
             C, s),
         "packed_attention_bwd": lambda lib: lib.uspace_packed_attention_bwd(
             qkv_t.data_ptr(), do_t.data_ptr(), dqkv.data_ptr(),
-            stats.data_ptr(), TRAIN_B, L, H, *_head_dim(lib), 0.125, s),
-        "qkvproj_attention_int8": lambda lib: lib.uspace_qkvproj_attention_int8(
-            x.data_ptr(), q.q.data_ptr(), q.scale.data_ptr(), out.data_ptr(),
-            B, L, H, 0.125, s),
+            stats.data_ptr(), TRAIN_B, L, H, 64, 0.125, s),
         "ln_qkvproj_attention_int8":
             lambda lib: lib.uspace_ln_qkvproj_attention_int8(
                 x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), q.q.data_ptr(),
-                q.scale.data_ptr(),
-                *(() if _legacy_int8(lib) else (
-                    codes.data_ptr(), sr.data_ptr(), qkv_ws.data_ptr())),
-                out.data_ptr(), B, L, H, *_head_dim(lib), 0.125, 1e-5, s),
+                q.scale.data_ptr(), codes.data_ptr(), sr.data_ptr(),
+                qkv_ws.data_ptr(), out.data_ptr(), B, L, H, 64, 0.125, 1e-5,
+                s),
         # row 5's pieces before its core (row 1's kernel, "packed_attention")
         "ln_row_codes": lambda lib: lib.uspace_ln_row_codes(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), codes.data_ptr(),
@@ -374,15 +293,12 @@ def main(argv=None) -> None:
         "mlp_int8": lambda lib: lib.uspace_mlp_int8(x.data_ptr(), *mw, s),
         "ln_mlp_int8": lambda lib: lib.uspace_ln_mlp_int8(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *mw, 1e-5, s),
-        # row 17: a base's mma.sync block, or this checkout's two GEMMs
+        # row 17's two GEMMs through their h workspace
         "mlp_w8": lambda lib: lib.uspace_mlp_w8(
-            x.data_ptr(), *w8[:6],
-            *(() if getattr(lib, "w8_block", False) else (h_rows.data_ptr(),)),
-            *w8[6:], s),
+            x.data_ptr(), *w8[:6], h_rows.data_ptr(), *w8[6:], s),
         "ln_mlp_w8": lambda lib: lib.uspace_ln_mlp_w8(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *w8[:6],
-            *(() if _legacy(lib) else (xln_rows.data_ptr(), h_rows.data_ptr())),
-            *w8[6:], 1e-5, s),
+            xln_rows.data_ptr(), h_rows.data_ptr(), *w8[6:], 1e-5, s),
         # row 16's three pieces
         "w8_ln_rows": lambda lib: lib.uspace_w8_ln_rows(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), xln_rows.data_ptr(),
@@ -393,16 +309,11 @@ def main(argv=None) -> None:
         "w8_fc2": lambda lib: lib.uspace_w8_fc2(
             h_rows.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(),
             b2.data_ptr(), x.data_ptr(), out.data_ptr(), rows, hid, C, s),
-        # rows 12 and 13: a base's one entry each, or this checkout's pieces
-        # in sequence (row 13's LN pass is mlp_w8.cu's)
-        "mlp_bf16": lambda lib: lib.uspace_mlp_bf16(
-            x.data_ptr(), *bw, out.data_ptr(), rows, C, hid, C, s
-        ) if _legacy(lib) else bf16_fc1(lib, x) or bf16_fc2(lib, None),
-        "ln_mlp_bf16": lambda lib: lib.uspace_ln_mlp_bf16(
-            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *bw, out.data_ptr(),
-            rows, C, hid, C, 1e-5, s
-        ) if _legacy(lib) else (bf16_ln() or bf16_fc1(lib, xln_rows)
-                                or bf16_fc2(lib, x)),
+        # rows 12 and 13: their pieces in sequence (row 13's LN pass is
+        # mlp_w8.cu's)
+        "mlp_bf16": lambda lib: bf16_fc1(lib, x) or bf16_fc2(lib, None),
+        "ln_mlp_bf16": lambda lib: (bf16_ln() or bf16_fc1(lib, xln_rows)
+                                    or bf16_fc2(lib, x)),
         # rows 12 and 13's GEMMs (fc2 as row 13's, with the residual)
         "bf16_fc1": lambda lib: bf16_fc1(lib, xln_rows),
         "bf16_fc2": lambda lib: bf16_fc2(lib, x),
@@ -471,11 +382,15 @@ def main(argv=None) -> None:
             out.data_ptr(), m_out.data_ptr(), e_q.data_ptr(),
             e_s.data_ptr(), g_q.data_ptr(), g_s.data_ptr(), g_z.data_ptr(),
             rows, C, hid, 4, 1e-5, s),
-        "delta_mlp_exact": lambda lib: lib.uspace_delta_mlp_exact(
-            x1.data_ptr(), x.data_ptr(), e_q.data_ptr(), e_s.data_ptr(),
-            m_out.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
-            q1.q.data_ptr(), q1.scale.data_ptr(), q2.q.data_ptr(),
-            q2.scale.data_ptr(), out.data_ptr(), rows, C, hid, 4, 1e-5, s),
+        # row 25's two GEMMs after its code pass (row 19's ln_delta_codes)
+        "delta_fc1_exact": lambda lib: lib.uspace_delta_fc1_exact(
+            dcodes.data_ptr(), dsr.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), e_q.data_ptr(), e_s.data_ptr(),
+            hq.data_ptr(), hsc.data_ptr(), rows, C, hid, 4, s),
+        "delta_fc2": lambda lib: lib.uspace_delta_fc2(
+            hq.data_ptr(), hsc.data_ptr(), q2.q.data_ptr(),
+            q2.scale.data_ptr(), m_out.data_ptr(), x.data_ptr(),
+            out.data_ptr(), rows, C, hid, 4, s),
         "delta_mlp_g": lambda lib: lib.uspace_delta_mlp_g(
             x1.data_ptr(), x.data_ptr(), e_q.data_ptr(), e_s.data_ptr(),
             g_q.data_ptr(), g_s.data_ptr(), g_z.data_ptr(), m_out.data_ptr(),
@@ -531,18 +446,6 @@ def main(argv=None) -> None:
                 lambda lib: lib.uspace_bf16_fc2(
                     x.data_ptr(), wp.data_ptr(), b2.data_ptr(), x.data_ptr(),
                     out.data_ptr(), rows, C, C, s), libs["new"])[0],
-            "card": torch.cuda.get_device_name(0)}), flush=True)
-    if a.source == "attention_block" and hasattr(libs["base"],
-                                                 "uspace_ln_bf16"):
-        # a base's own LN1 pass against mlp_w8.cu's, which rows 10-11 run
-        w8 = _build.load("mlp_w8")
-        print(json.dumps({
-            "base_ln_bf16_ms": time_ms(lambda lib: lib.uspace_ln_bf16(
-                x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), out.data_ptr(),
-                rows, C, 1e-5, s), libs["base"])[0],
-            "w8_ln_rows_ms": time_ms(lambda lib: lib.uspace_w8_ln_rows(
-                x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), out.data_ptr(),
-                rows, C, 1e-5, s), w8)[0],
             "card": torch.cuda.get_device_name(0)}), flush=True)
     if a.source == "mlp_w8":  # row 17's pieces: fc1 on x, fc2 without x
         print(json.dumps({

@@ -56,42 +56,48 @@ from ..configs import get_config
 from .sample_lfm import QUANT_CHOICES, build_model
 from .train_lfm import train_attn_impl
 
-# delta_mlp.cu's kernel is one template per strip width and hidden mode
-# (delta_mlp_kernel<NT1, Mode>): rows 22, 20 and 21 base, 23, 25 and 24 delta
+# delta_mlp.cu's block kernel is one template per strip width and hidden
+# mode (delta_mlp_kernel<NT1, Mode>): rows 22, 20 and 21 base, 23 and 24
+# delta; row 25 is its two wgmma GEMMs
 _DELTA_MLP = tuple(
     (f"stage-delta MLP kernel, {what} (ours: row {row})",
      tuple(f"delta_mlp_kernel<{nt}, {mode}>" for nt in (2, 4, 6, 8)))
     for mode, what, row in ((0, "grad base", 22), (1, "exact base", 20),
                             (2, "gelu base", 21), (3, "grad delta", 23),
-                            (4, "exact delta", 25), (5, "gelu delta", 24)))
+                            (5, "gelu delta", 24)))
 
 # kernel-name fragments -> the layer that launches them
 GROUPS = (
-    ("stage-delta attention passes (ours: LN codes, int8 GEMM, re-code)", (
-        "row_codes_kernel<", "int8_gemm_kernel", "recode_kernel")),
+    ("stage-delta row passes (ours: rows 18-19's LN codes, int8 GEMM, "
+     "re-code; row 25's code pass)", (
+         "row_codes_kernel<", "int8_gemm_kernel", "recode_kernel")),
     *_DELTA_MLP,
+    ("stage-delta MLP, exact delta fc1 on wgmma (ours: row 25)",
+     ("delta_fc1_kernel",)),
+    ("stage-delta MLP, delta fc2 on wgmma (ours: row 25)",
+     ("delta_fc2_kernel",)),
     # rows 4 and 8 share one body, templated on the layout
     ("packed attention backward (ours: row 4)", (
         "fused_bwd_dq_kernel<64, true", "fused_bwd_dkdv_kernel<64, true")),
     ("[B, H, L, D] attention backward kernel (ours: row 8)", (
         "fused_bwd_dq_kernel", "fused_bwd_dkdv_kernel")),
-    ("int8 attention sub-block passes (ours: row 11's row codes, projection)",
+    ("int8 attention row-code pass and projection (ours: rows 6, 11)",
      ("row_codes_kernel", "proj_residual_kernel")),
     ("blocked attention kernel (ours: row 9)", ("flash_attention_kernel",)),
     ("attention LN pass (ours: row 3)", ("ln_rows_kernel",)),
     ("int8 attention LN code pass (ours: row 5)", ("ln_codes_kernel",)),
     # before "matmul (cuBLAS)": their names contain "gemm"
     ("QKV projection on wgmma (ours: rows 2-3)", ("qkv_gemm_kernel<false",)),
-    ("int8 QKV projection on wgmma (ours: row 5)", ("qkv_gemm_kernel<true",)),
+    ("int8 QKV projection on wgmma (ours: rows 5, 6, 11)",
+     ("qkv_gemm_kernel<true",)),
     ("bf16-chain LN pass (ours: rows 16, 13, 10-11)", ("w8_ln_kernel",)),
     ("w8 MLP fc1 on wgmma (ours: rows 16-17)", ("w8_gemm_kernel<0",)),
     ("w8 MLP sub-block, fc2 on wgmma (ours: row 16)", ("w8_gemm_kernel<1",)),
     ("w8 MLP, fc2 on wgmma (ours: row 17)", ("w8_gemm_kernel<2",)),
     ("bf16 GEMMs on wgmma (ours: rows 12-13 fc1 and fc2, row 10's "
      "projection)", ("::gemm_kernel<",)),
-    ("attention core (ours: rows 1-3, 5)", ("packed_core_kernel",)),
+    ("attention core (ours: rows 1-3, 5, 6, 11)", ("packed_core_kernel",)),
     ("[B, H, L, D] attention kernel (ours)", ("attention_fwd_kernel",)),
-    ("int8 attention kernel (ours: rows 6, 11)", ("attention_int8_kernel",)),
     ("int8 MLP kernel (ours)", ("mlp_int8_kernel",)),
     ("layout transposes (NHWC <-> NCHW)", ("nchwToNhwc", "nhwcToNchw")),
     ("conv (cuDNN)", ("conv", "Conv", "cudnn", "fprop")),

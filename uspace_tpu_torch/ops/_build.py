@@ -42,7 +42,6 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_packed_attention": (_P, _P) + (_I,) * 4 + (_F, _P),
         "uspace_qkvproj_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
         "uspace_ln_qkvproj_attention": (_P,) * 7 + (_I,) * 4 + (_F, _F, _P),
-        "uspace_qkvproj_attention_int8": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
         "uspace_ln_qkvproj_attention_int8": (_P,) * 9 + (_I,) * 4 + (_F, _F,
                                                                      _P),
     },
@@ -64,7 +63,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_base_mlp_e": (_P,) * 14 + (_I,) * 4 + (_F, _P),
         "uspace_base_mlp_eg": (_P,) * 17 + (_I,) * 4 + (_F, _P),
         "uspace_delta_mlp_lin": (_P,) * 12 + (_I,) * 4 + (_F, _P),
-        "uspace_delta_mlp_exact": (_P,) * 12 + (_I,) * 4 + (_F, _P),
+        "uspace_delta_fc1_exact": (_P,) * 8 + (_I,) * 4 + (_P,),
+        "uspace_delta_fc2": (_P,) * 7 + (_I,) * 4 + (_P,),
         "uspace_delta_mlp_g": (_P,) * 15 + (_I,) * 4 + (_F, _P),
     },
     "attention_fwd": {

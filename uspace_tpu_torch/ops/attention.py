@@ -19,10 +19,11 @@ workspace (W cast to x's dtype, f32 sums rounded once), and the packed
 core on it. The int8 LN route is the same sequence with int8 products: the
 f32 LN rows coded once per row into an int8 [B*L, C] workspace with their
 f32 row scales, the int8 projection of all heads on wgmma into the bf16 qkv
-workspace, the packed core. The LN-free int8 kernel keeps its projection
-and core in one kernel. The packed core, and every route that runs it,
-takes head dim 32 or 64 (:data:`KERNEL_HEAD_DIMS`); the LN-free int8
-kernel takes 64 (:data:`INT8_HEAD_DIMS`).
+workspace, the packed core. The LN-free int8 route is that sequence on the
+rows as they come: ``csrc/attention_block.cu``'s row-code pass (the f32
+value of each bf16 row coded per row), the int8 projection, the core. The
+packed core, and every route that runs it, takes head dim 32 or 64
+(:data:`KERNEL_HEAD_DIMS`).
 
 The bf16 packed and QKV-projection kernels are differentiable, as in the
 JAX package: their backward runs :func:`packed_attention_bwd`
@@ -70,9 +71,9 @@ is :func:`fused_attention_block` (``csrc/attention_block.cu``, TPU kernel
 (``_attn_block_kernel_q``). Their LN1 is the bf16 chain of the MLP
 sub-block kernels (f32 statistics, each operation rounded to bf16), not the
 f32 LN of the LN kernels above. Each is a short sequence of launches: the
-LN pass (``csrc/mlp_w8.cu``'s), the QKV-projection attention kernel of
-``csrc/attention.cu`` on
-its output (bf16, or int8 coding each bf16 LN row), then the projection
+LN pass (``csrc/mlp_w8.cu``'s), the QKV-projection attention route on its
+output (bf16: row 2's two kernels of ``csrc/attention.cu``; int8: the
+LN-free int8 route's code pass, projection and core), then the projection
 with bias and residual (bf16: the wgmma fc2 GEMM of ``csrc/mlp_bf16.cu``;
 int8: after coding the attention output per row).
 The bf16 sub-block is differentiable as in JAX: its backward is the VJP of
@@ -115,10 +116,8 @@ LAUNCHES: Dict[str, int] = {
     "flash": 0,
 }
 
-# the head dims of the packed core (row 1) and of the routes that run it
-# (rows 2-5, 10, 18, 19); the one-block int8 kernel (rows 6 and 11) keeps 64
+# the head dims of the packed core (row 1) and of every route that runs it
 KERNEL_HEAD_DIMS = (32, 64)
-INT8_HEAD_DIMS = (64,)
 KERNEL_MAX_LEN = 512  # the whole head's q, k, v stay in one SM's shared memory
 
 # the JAX dispatcher: plain math up to this length, then the [B, H, L, D]
@@ -519,33 +518,57 @@ def _qkv_gemm_int8_kernel(codes: torch.Tensor, sr: torch.Tensor,
     return out
 
 
+def _int8_projection_attention(codes: torch.Tensor, sr: torch.Tensor,
+                               qw: QWeight, out: torch.Tensor, num_heads: int,
+                               scale: float, stream) -> None:
+    """The int8 projection of row codes [B*L, C] with row scales sr [B*L]
+    into a bf16 [B, L, 3C] qkv workspace, then the packed core into out
+    [B, L, C]."""
+    b, l, c = out.shape
+    lib = load("attention")
+    qkv = out.new_empty((b, l, 3 * c))
+    raise_on(lib.uspace_qkv_gemm_int8(
+        codes.data_ptr(), sr.data_ptr(), qw.q.data_ptr(), qw.scale.data_ptr(),
+        qkv.data_ptr(), b * l, 3 * c, c, stream), "uspace_qkv_gemm_int8")
+    raise_on(lib.uspace_packed_attention(
+        qkv.data_ptr(), out.data_ptr(), b, l, num_heads, c // num_heads, scale,
+        stream), "uspace_packed_attention")
+
+
+def _row_codes_kernel(a: torch.Tensor, codes: torch.Tensor, sr: torch.Tensor,
+                      stream) -> None:
+    """``attention_block.cu``'s code pass: the f32 value of each bf16 row of
+    a [..., C] coded per row into codes [R, C] int8 and sr [R] f32."""
+    c = a.shape[-1]
+    raise_on(load("attention_block").uspace_row_codes(
+        a.data_ptr(), codes.data_ptr(), sr.data_ptr(), a.numel() // c, c,
+        stream), "uspace_row_codes")
+
+
 def _int8_kernel(x, qw, num_heads, scale, ln=None):
-    """The int8 QKV-projection kernel (head dim 64); with ``ln = (scale,
-    bias, eps)`` the LN1 route (three launches counted as one: the code
-    pass, the int8 projection into a qkv workspace, the packed core; head
-    dim 32 or 64)."""
+    """The int8 QKV-projection route, three launches counted as one: a code
+    pass (the bf16 rows as they are; with ``ln = (scale, bias, eps)`` LN1's
+    f32 rows), the int8 projection into a qkv workspace, the packed core."""
     b, l, c = x.shape
-    d = _check_x("x", x, num_heads, 1,
-                 INT8_HEAD_DIMS if ln is None else KERNEL_HEAD_DIMS)
+    d = _check_x("x", x, num_heads, 1)
     _check_qweight(qw, 3 * c, c, x.device)
     out = torch.empty_like(x)
-    lib = load("attention")
+    codes = torch.empty((b * l, c), dtype=torch.int8, device=x.device)
+    sr = torch.empty((b * l,), dtype=torch.float32, device=x.device)
+    stream = cuda_stream(x.device)
     if ln is None:
-        rc = lib.uspace_qkvproj_attention_int8(
-            x.data_ptr(), qw.q.data_ptr(), qw.scale.data_ptr(),
-            out.data_ptr(), b, l, num_heads, scale, cuda_stream(x.device))
-        raise_on(rc, "uspace_qkvproj_attention_int8")
+        _row_codes_kernel(x, codes, sr, stream)
+        _int8_projection_attention(codes, sr, qw, out, num_heads, scale,
+                                   stream)
         LAUNCHES["qkvproj_attention_int8"] += 1
         return out
     ln_scale, ln_bias, eps = ln
     lns, lnb = _ln_vectors(ln_scale, ln_bias, c, x.device)
-    codes = torch.empty((b * l, c), dtype=torch.int8, device=x.device)
-    sr = torch.empty((b * l,), dtype=torch.float32, device=x.device)
     qkv = x.new_empty((b, l, 3 * c))
-    rc = lib.uspace_ln_qkvproj_attention_int8(
+    rc = load("attention").uspace_ln_qkvproj_attention_int8(
         x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), qw.q.data_ptr(),
         qw.scale.data_ptr(), codes.data_ptr(), sr.data_ptr(), qkv.data_ptr(),
-        out.data_ptr(), b, l, num_heads, d, scale, eps, cuda_stream(x.device))
+        out.data_ptr(), b, l, num_heads, d, scale, eps, stream)
     raise_on(rc, "uspace_ln_qkvproj_attention_int8")
     LAUNCHES["ln_qkvproj_attention_int8"] += 1
     return out
@@ -750,8 +773,9 @@ def fused_qkvproj_attention(x: torch.Tensor, w_qkv: torch.Tensor,
     output [B, L, C] (pre out-projection); on the card the bf16 [B, L, 3C]
     qkv makes one round trip through a workspace. W is cast to x's dtype
     first, so its gradient reaches an f32 master weight through the cast.
-    ``quant=True``: int8 projection of the f32 weight inside the kernel
-    (the qkv never reaches device memory), inference-only."""
+    ``quant=True``: int8 projection of the f32 weight, x coded per row; on
+    the card the row codes and the qkv each make one round trip through a
+    workspace. Inference-only."""
     scale = _default_scale(x.shape[-1] // num_heads, scale)
     if quant:
         check_no_grad(x, w_qkv, what="the int8 QKV-projection kernel")
@@ -854,15 +878,14 @@ def attention_block_xla(x: torch.Tensor, ln_scale: torch.Tensor,
 
 def _block_kernel(x, ln_scale, ln_bias, w_qkv, w_proj, b_proj, num_heads,
                   scale, eps, qws=None):
-    """Launch the sub-block on x [B, L, C] bf16: bf16 (head dim 32 or 64),
-    or with ``qws = (QWeight of w_qkv, QWeight of w_proj)`` W8A8 (head dim
-    64, row 6's kernel). LN1 is ``mlp_w8.cu``'s LN pass (the same bf16
+    """Launch the sub-block on x [B, L, C] bf16 (head dim 32 or 64): bf16,
+    or with ``qws = (QWeight of w_qkv, QWeight of w_proj)`` W8A8 (row 6's
+    pieces on the LN rows). LN1 is ``mlp_w8.cu``'s LN pass (the same bf16
     chain as LN2); the bf16 projection is ``mlp_bf16.cu``'s fc2 GEMM at N =
     K = C with x as its residual and the bias rounded to bf16, held in
     f32."""
     b, l, c = x.shape
-    _check_x("x", x, num_heads, 1,
-             KERNEL_HEAD_DIMS if qws is None else INT8_HEAD_DIMS)
+    _check_x("x", x, num_heads, 1)
     if c % 128 or c > 2048:  # the LN pass holds a row of <= 2048
         raise ValueError(f"the attention sub-block kernels take C a "
                          f"multiple of 128 up to 2048, got {c}")
@@ -873,14 +896,13 @@ def _block_kernel(x, ln_scale, ln_bias, w_qkv, w_proj, b_proj, num_heads,
     for name, t in (("ln_scale", lns), ("ln_bias", lnb), ("b_proj", bp)):
         check_tensor(name, t, torch.float32, (c,), dev)
     stream = cuda_stream(dev)
-    lib = load("attention")
     xln = _w8_ln_kernel(x.view(r, c), lns, lnb, eps).view(b, l, c)
     a = torch.empty_like(x)
     if qws is None:
         w = _rows(w_qkv, (c, 3 * c), x.dtype, dev, "w_qkv")
         wp = _rows(w_proj, (c, c), x.dtype, dev, "w_proj")
         qkv = x.new_empty((b, l, 3 * c))
-        raise_on(lib.uspace_qkvproj_attention(
+        raise_on(load("attention").uspace_qkvproj_attention(
             xln.data_ptr(), w.data_ptr(), qkv.data_ptr(), a.data_ptr(), b, l,
             num_heads, c // num_heads, scale, stream),
             "uspace_qkvproj_attention")
@@ -892,18 +914,13 @@ def _block_kernel(x, ln_scale, ln_bias, w_qkv, w_proj, b_proj, num_heads,
     for name, qw, n in (("w_qkv", qkv_w, 3 * c), ("w_proj", proj_w, c)):
         check_tensor(f"{name} codes", qw.q, torch.int8, (n, c), dev)
         check_tensor(f"{name} scales", qw.scale, torch.float32, (n,), dev)
-    blk = load("attention_block")
     codes = torch.empty((r, c), dtype=torch.int8, device=dev)
     sr = torch.empty((r,), dtype=torch.float32, device=dev)
-    raise_on(lib.uspace_qkvproj_attention_int8(
-        xln.data_ptr(), qkv_w.q.data_ptr(), qkv_w.scale.data_ptr(),
-        a.data_ptr(), b, l, num_heads, scale, stream),
-        "uspace_qkvproj_attention_int8")
-    raise_on(blk.uspace_row_codes(a.data_ptr(), codes.data_ptr(),
-                                  sr.data_ptr(), r, c, stream),
-             "uspace_row_codes")
+    _row_codes_kernel(xln, codes, sr, stream)
+    _int8_projection_attention(codes, sr, qkv_w, a, num_heads, scale, stream)
+    _row_codes_kernel(a, codes, sr, stream)
     out = torch.empty_like(x)
-    raise_on(blk.uspace_proj_residual_int8(
+    raise_on(load("attention_block").uspace_proj_residual_int8(
         codes.data_ptr(), sr.data_ptr(), proj_w.q.data_ptr(),
         proj_w.scale.data_ptr(), bp.data_ptr(), x.data_ptr(), out.data_ptr(),
         r, c, c, stream), "uspace_proj_residual_int8")

@@ -5,16 +5,18 @@
 //   uspace_packed_attention          <- _packed_fwd_kernel   (packed qkv in HBM)
 //   uspace_qkvproj_attention         <- _qkv_attn_kernel     (x @ Wqkv)
 //   uspace_ln_qkvproj_attention      <- _qkv_attn_kernel_ln  (LN1 + x @ Wqkv)
-//   uspace_qkvproj_attention_int8    <- _qkv_attn_kernel_q   (int8 x @ Wq)
 //   uspace_ln_qkvproj_attention_int8 <- _qkv_attn_kernel_qln (LN1 + int8 x @ Wq)
+//   _qkv_attn_kernel_q (int8 x @ Wq) is attention_block.cu's uspace_row_codes,
+//   then uspace_qkv_gemm_int8 and uspace_packed_attention, which
+//   ops/attention.py issues in sequence
 //
 // Bound at the main path's shape (B=50, L=257, C=1024, H=16, D=64), against
 // an H100 SXM's 989 TFLOP/s bf16 and 3.35 TB/s:
 //   packed:     13.5 GFLOP, 105 MB moved -> ~31 us, memory bound;
 //   qkvproj/ln: 80.9 + 13.5 GFLOP, 59 MB -> ~95 us, compute bound (the
 //               projection is 86% of the operations);
-//   int8 ln:    80.9 G int8 operations over 1,979 TOPS + 13.5 GFLOP = 55 us,
-//               operations bound.
+//   int8:       80.9 G int8 operations over 1,979 TOPS + 13.5 GFLOP = 55 us,
+//               operations bound (with LN1 or without).
 //
 // The bf16 entry points are short sequences of kernels on one stream, split
 // where the card wants them split rather than as the TPU's one program per
@@ -62,14 +64,16 @@
 //   work (about 12 instructions a score over the two passes) takes about as
 //   long as the kernel; its products take far less.
 //
-// The int8 LN route (row 5, W8A8 sampling on `auto`) is the same sequence
-// with int8 products:
+// The int8 routes (row 5, W8A8 sampling on `auto`; row 6, and row 11's
+// projection) are the same sequence with int8 products:
 // - ln_codes_kernel: LN1 once per row, one warp per row with the row in
 //   registers, the f32 sums in ln_rows_kernel's lane order (a reordered sum
 //   moves an f32 LN value by an ulp and can flip a code); the f32 LN row is
 //   never rounded to bf16; from it amax (clamped at 1e-8), the codes
 //   round(u * RN(127 / amax)) into an int8 [B*L, C] workspace and the row
-//   scale sr = amax * RN(1/127) into an f32 [B*L] one.
+//   scale sr = amax * RN(1/127) into an f32 [B*L] one. Row 6 codes its bf16
+//   rows as they are with attention_block.cu's row-code pass, which rows
+//   10-11 share.
 // - qkv_gemm_kernel<true>: qkv_gemm_kernel on the int8 codes and the cached
 //   torch-layout [3C, C] int8 weight, both K-major as wgmma wants 8-bit
 //   operands: 128-code K chunks (one 128-byte swizzle row, as a 64-element
@@ -84,25 +88,6 @@
 //   stored in 16-byte row pieces, 0.094 ms.
 // - packed_core_kernel on that workspace, as row 1.
 //
-// The LN-free int8 kernel (row 6, and row 11's projection) keeps one block
-// per (batch, head) with the head's qkv tile in shared memory and the WMMA
-// attention core `attend` (bound as row 5's), at head dim 64 only (Q_D):
-// - A row's int8 scale needs the whole row first, so a statistics pass (one
-//   warp per row, the row held in registers) takes amax of the row before
-//   any column is coded.
-// - Projection: mma.sync m16n8k32 s8 x s8 -> s32 with known fragment
-//   layouts; 12 warps tile a 144-row pass of the head's [rows, 192] output
-//   3 x 4, each warp 3 x 6 tiles. K chunks of 64 (or 32) bytes: each thread
-//   loads its x vectors of chunk k+1 from device memory while the MMAs of
-//   chunk k run, then codes them round(x * (127 / amax)) into an
-//   XOR-swizzled int8 tile (conflict-free fragment loads); the head's int8 W
-//   rows stream by cp.async into a second swizzled ring. The int32
-//   accumulators are dequantized from registers, f32(acc) * (amax * (1/127))
-//   * ws[col], rounded to bf16 into the qkv tile.
-// - Attention (`attend`): one warp per 16-query tile; each 16 x 16 score
-//   tile goes through shared memory; pass 1 takes the f32 row max, pass 2
-//   recomputes the scores, rounds p = exp(s - max) to bf16 for P.V and
-//   divides by the f32 row sum after P.V, at the same rounding sites.
 // Dynamic shared memory past 48 KB is enabled per launch with
 // cudaFuncSetAttribute. Every entry point returns cudaGetLastError() or the
 // first error of its sequence.
@@ -110,47 +95,18 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
-
-using namespace nvcuda;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int Q_D = 64;             // the one-block int8 kernel's head dim (rows 6, 11)
-constexpr int QKV_COLS = 3 * Q_D;   // one head's q | k | v columns
-constexpr int WARPS = 12;           // int8 kernels: 3 row groups x 4 col groups
-constexpr int THREADS = WARPS * 32;
-constexpr int F_LD = 20;            // per-warp f32 tile row
-constexpr int P_LD = 24;            // per-warp bf16 P tile row
 constexpr int MAX_L = 512;
-constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 constexpr int MAX_ROW_VEC = 8;      // a row in registers: C <= 8 * 8 * 32 = 2048
 
-constexpr int FS_BYTES = WARPS * 16 * F_LD * 4;
-constexpr int PS_BYTES = WARPS * 16 * P_LD * 2;
-constexpr int MAX_SMEM = 232448;    // H100: 227 KB of dynamic smem per block
-
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
-__host__ __device__ inline int align128(int x) { return (x + 127) & ~127; }
-
-// Shared-memory layout of the int8 kernels: qkv tile [LP][qkv_ld] | scratch
-// | row statistics. The scratch holds the projection's x/W ring, and
-// afterwards the attention's per-warp score and P tiles.
-struct Layout {
-  int lp, qkv_ld, stages, scratch_off, stats_off, bytes;
-};
-
-__device__ inline void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem)
-               : "memory");
-}
 
 // 16 bytes global -> shared; with valid == false the 16 bytes are zeros
 // (src-size 0: nothing is read from gmem)
@@ -952,335 +908,7 @@ packed_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L,
   }
 }
 
-// ---------------------------------------------------------------------------
-// The int8 kernels' WMMA attention core on a qkv tile in shared memory
-// ---------------------------------------------------------------------------
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBc;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBr;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// S tile (16 queries x 16 keys, unscaled f32) into the warp's f32 scratch.
-__device__ inline void score_tile(const FragA* qf, const bf16* qkv_s, int ld,
-                                  int kt, float* fs) {
-  FragC sf;
-  wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-  for (int kd = 0; kd < Q_D / 16; ++kd) {
-    FragBc kf;  // B[d][key] = K[key][d]
-    wmma::load_matrix_sync(kf, qkv_s + kt * 16 * ld + Q_D + kd * 16, ld);
-    wmma::mma_sync(sf, qf[kd], kf, sf);
-  }
-  wmma::store_matrix_sync(fs, sf, F_LD, wmma::mem_row_major);
-}
-
-// softmax(q k^T * scale) v per 16-query tile; writes out rows < L at
-// out_bh[row * C + d] (out_bh points at this batch's row 0, head h's column).
-__device__ void attend(const bf16* qkv_s, const Layout& lay, int L, float scale,
-                       bf16* __restrict__ out_bh, int C, unsigned char* scratch) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ld = lay.qkv_ld, ntiles = lay.lp / 16;
-  float* fs = reinterpret_cast<float*>(scratch) + warp * 16 * F_LD;
-  bf16* ps = reinterpret_cast<bf16*>(scratch + FS_BYTES) + warp * 16 * P_LD;
-  const int row = lane >> 1, c0 = (lane & 1) * 8;  // this lane's 8 tile entries
-
-  for (int qt = warp; qt < ntiles; qt += WARPS) {
-    FragA qf[Q_D / 16];
-#pragma unroll
-    for (int kd = 0; kd < Q_D / 16; ++kd)
-      wmma::load_matrix_sync(qf[kd], qkv_s + qt * 16 * ld + kd * 16, ld);
-
-    float m = MASK_VALUE;
-    for (int kt = 0; kt < ntiles; ++kt) {
-      score_tile(qf, qkv_s, ld, kt, fs);
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = kt * 16 + c0 + j;
-        const float s = col < L ? fs[row * F_LD + c0 + j] * scale : MASK_VALUE;
-        m = fmaxf(m, s);
-      }
-      __syncwarp();
-    }
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-
-    FragC of[Q_D / 16];
-#pragma unroll
-    for (int dt = 0; dt < Q_D / 16; ++dt) wmma::fill_fragment(of[dt], 0.f);
-    float lsum = 0.f;
-    for (int kt = 0; kt < ntiles; ++kt) {
-      score_tile(qf, qkv_s, ld, kt, fs);
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = kt * 16 + c0 + j;
-        const float s = col < L ? fs[row * F_LD + c0 + j] * scale : MASK_VALUE;
-        const float p = expf(s - m);
-        lsum += p;
-        ps[row * P_LD + c0 + j] = __float2bfloat16(p);
-      }
-      __syncwarp();
-      FragA pf;
-      wmma::load_matrix_sync(pf, ps, P_LD);
-#pragma unroll
-      for (int dt = 0; dt < Q_D / 16; ++dt) {
-        FragBr vf;  // B[key][d] = V[key][d]
-        wmma::load_matrix_sync(vf, qkv_s + kt * 16 * ld + 2 * Q_D + dt * 16, ld);
-        wmma::mma_sync(of[dt], pf, vf, of[dt]);
-      }
-      __syncwarp();
-    }
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-
-    const int grow = qt * 16 + row;
-#pragma unroll
-    for (int dt = 0; dt < Q_D / 16; ++dt) {
-      wmma::store_matrix_sync(fs, of[dt], F_LD, wmma::mem_row_major);
-      __syncwarp();
-      if (grow < L) {
-        uint4 packed;
-        bf16* e = reinterpret_cast<bf16*>(&packed);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          e[j] = __float2bfloat16(fs[row * F_LD + c0 + j] / lsum);
-        *reinterpret_cast<uint4*>(out_bh + (size_t)grow * C + dt * 16 + c0) = packed;
-      }
-      __syncwarp();
-    }
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// int8 W8A8 projection (row 6 of the kernel table, and row 11's)
-// ---------------------------------------------------------------------------
-
-constexpr int QRB = 144;             // rows per projection pass: 3 x 48
-constexpr int Q_MAX_KC = 64;         // K chunk, bytes (64, or 32 if smem is short)
-constexpr int QXV = QRB * Q_MAX_KC / 8 / THREADS;  // x vectors per thread (3)
-
-__host__ __device__ inline Layout make_layout_q(int L, int qkv_ld, int kcb) {
-  Layout s;
-  s.lp = round16(L);
-  s.qkv_ld = qkv_ld;
-  s.stages = kcb;  // the int8 kernels keep their K chunk here
-  s.scratch_off = align128(s.lp * qkv_ld * 2);
-  const int ring = 2 * (QRB + QKV_COLS) * kcb;
-  s.stats_off = s.scratch_off + (ring > FS_BYTES + PS_BYTES ? ring
-                                                          : FS_BYTES + PS_BYTES);
-  s.bytes = s.stats_off + 2 * s.lp * 4;  // 127/amax, amax/127
-  return s;
-}
-
-inline Layout host_layout_q(int L) {
-  Layout t = make_layout_q(L, QKV_COLS, 32);
-  for (int kcb = Q_MAX_KC; kcb >= 32; kcb -= 32)
-    for (int ld = QKV_COLS + 8; ld >= QKV_COLS; ld -= 8) {
-      Layout s = make_layout_q(L, ld, kcb);
-      if (s.bytes <= MAX_SMEM) return s;
-    }
-  return t;
-}
-
-// Byte offset of (row, k) in an int8 tile of rows of P 16-byte segments whose
-// segments are XOR-swizzled by row, so that the 8 rows a fragment load
-// touches fall on 8 different 4-bank groups.
-__device__ inline int swz(int row, int k, int P) {
-  const int sh = P == 8 ? (row & 7) : P == 4 ? ((row >> 1) & 3) : ((row >> 2) & 1);
-  return row * P * 16 + ((((k >> 4) ^ sh)) << 4) + (k & 15);
-}
-
-__device__ inline void mma_s8(int (&d)[4], unsigned a0, unsigned a1, unsigned a2,
-                              unsigned a3, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ inline unsigned lds32(const int8_t* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-// Per row r < L: 127/amax and amax/127 of the row; rows L..lp-1 get zeros
-// (their codes are 0). One warp per row, the row in registers.
-__device__ void row_stats_q(const bf16* __restrict__ xb, int L, int lp, int C,
-                            float* r_s, float* sr_s) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nvec = C / 8;
-  for (int r = warp; r < lp; r += WARPS) {
-    if (r >= L) {
-      if (lane == 0) r_s[r] = sr_s[r] = 0.f;
-      continue;
-    }
-    const uint4* row = reinterpret_cast<const uint4*>(xb + (size_t)r * C);
-    uint4 v[MAX_ROW_VEC];
-#pragma unroll
-    for (int i = 0; i < MAX_ROW_VEC; ++i)
-      if (lane + 32 * i < nvec) v[i] = row[lane + 32 * i];
-    float amax = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAX_ROW_VEC; ++i) {
-      if (lane + 32 * i >= nvec) continue;
-      const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(__bfloat162float(e[j])));
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    amax = fmaxf(amax, 1e-8f);
-    if (lane == 0) {
-      r_s[r] = __fdiv_rn(127.f, amax);
-      sr_s[r] = __fmul_rn(amax, 1.0f / 127.0f);
-    }
-  }
-}
-
-// qkv tile = dequant(int8(x_b) @ int8(W_h)^T), rounded to bf16. wq is the
-// torch-layout [3C, C] int8 weight, ws its [3C] f32 scales. Rows >= L are 0.
-__device__ void project_q(const bf16* __restrict__ xb, const int8_t* __restrict__ wq,
-                          const float* __restrict__ ws, int h, int H, int L,
-                          const Layout& lay, bf16* qkv_s, unsigned char* scratch,
-                          const float* r_s, const float* sr_s) {
-  const int C = H * Q_D, kcb = lay.stages, nk = C / kcb, P = kcb / 16;
-  const int vpr = kcb / 8;  // x vectors of 8 per staged row
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int rg = warp / 4, cg = warp % 4;  // rows rg*48.., columns cg*48..
-  int8_t* xst[2] = {reinterpret_cast<int8_t*>(scratch),
-                    reinterpret_cast<int8_t*>(scratch) + QRB * kcb};
-  int8_t* wst[2] = {xst[1] + QRB * kcb, xst[1] + QRB * kcb + QKV_COLS * kcb};
-
-  for (int r0 = 0; r0 < lay.lp; r0 += QRB) {
-    const int rows = min(QRB, lay.lp - r0), nxv = rows * vpr;
-    const int my_tiles = max(0, min(3, rows / 16 - rg * 3));
-    uint4 xv[QXV];
-    auto load_x = [&](int kc) {
-#pragma unroll
-      for (int i = 0; i < QXV; ++i) {
-        const int v = tid + i * THREADS, r = v / vpr, cv = v % vpr, gr = r0 + r;
-        if (v < nxv && gr < L)
-          xv[i] = __ldg(reinterpret_cast<const uint4*>(
-              xb + (size_t)gr * C + kc * kcb + cv * 8));
-      }
-    };
-    auto code_x = [&](int kc, int8_t* dst) {  // row -> int8 codes
-#pragma unroll
-      for (int i = 0; i < QXV; ++i) {
-        const int v = tid + i * THREADS, r = v / vpr, cv = v % vpr, gr = r0 + r;
-        if (v >= nxv) continue;
-        uint2 packed = make_uint2(0u, 0u);
-        if (gr < L) {
-          const bf16* e = reinterpret_cast<const bf16*>(&xv[i]);
-          int8_t* q = reinterpret_cast<int8_t*>(&packed);
-          const float inv127 = r_s[gr];
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            q[j] = (int8_t)__float2int_rn(__fmul_rn(__bfloat162float(e[j]), inv127));
-        }
-        *reinterpret_cast<uint2*>(dst + swz(r, cv * 8, P)) = packed;
-      }
-    };
-    auto issue_w = [&](int kc, int8_t* dst) {
-      for (int v = tid; v < QKV_COLS * P; v += THREADS) {
-        const int n = v / P, seg = v % P;
-        const int grow = ((n / Q_D) * H + h) * Q_D + (n % Q_D);
-        cp_async16(dst + swz(n, seg * 16, P), wq + (size_t)grow * C + kc * kcb + seg * 16);
-      }
-    };
-
-    int acc[3][6][4];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 6; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-    load_x(0);
-    issue_w(0, wst[0]);
-    cp_async_commit();
-    code_x(0, xst[0]);
-    for (int kc = 0; kc < nk; ++kc) {
-      cp_async_wait(0);
-      __syncthreads();  // chunk kc visible; every warp is done with kc - 1
-      if (kc + 1 < nk) {
-        issue_w(kc + 1, wst[(kc + 1) & 1]);
-        cp_async_commit();
-        load_x(kc + 1);
-      }
-      const int8_t* xs = xst[kc & 1];
-      const int8_t* wsm = wst[kc & 1];
-      for (int ks = 0; ks < kcb; ks += 32) {
-        unsigned b[6][2];
-#pragma unroll
-        for (int nt = 0; nt < 6; ++nt) {
-          const int n = cg * 48 + nt * 8 + g;
-          b[nt][0] = lds32(wsm + swz(n, ks + t * 4, P));
-          b[nt][1] = lds32(wsm + swz(n, ks + 16 + t * 4, P));
-        }
-#pragma unroll
-        for (int mt = 0; mt < 3; ++mt) {
-          if (mt < my_tiles) {
-            const int r = (rg * 3 + mt) * 16 + g;
-            const unsigned a0 = lds32(xs + swz(r, ks + t * 4, P));
-            const unsigned a1 = lds32(xs + swz(r + 8, ks + t * 4, P));
-            const unsigned a2 = lds32(xs + swz(r, ks + 16 + t * 4, P));
-            const unsigned a3 = lds32(xs + swz(r + 8, ks + 16 + t * 4, P));
-#pragma unroll
-            for (int nt = 0; nt < 6; ++nt)
-              mma_s8(acc[mt][nt], a0, a1, a2, a3, b[nt][0], b[nt][1]);
-          }
-        }
-      }
-      if (kc + 1 < nk) code_x(kc + 1, xst[(kc + 1) & 1]);
-    }
-    // epilogue: f32(acc) * (amax / 127) * ws[col] -> bf16 qkv tile
-#pragma unroll
-    for (int mt = 0; mt < 3; ++mt) {
-      if (mt < my_tiles) {
-#pragma unroll
-        for (int nt = 0; nt < 6; ++nt) {
-          const int n = cg * 48 + nt * 8 + t * 2;
-          const int gcol = ((n / Q_D) * H + h) * Q_D + (n % Q_D);  // n, n+1: same part
-          const float w0 = __ldg(ws + gcol), w1 = __ldg(ws + gcol + 1);
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int r = r0 + (rg * 3 + mt) * 16 + hh * 8 + g;
-            const float sr = sr_s[r];
-            __nv_bfloat162 o;
-            o.x = __float2bfloat16(__fmul_rn(__fmul_rn((float)acc[mt][nt][hh * 2], sr), w0));
-            o.y = __float2bfloat16(__fmul_rn(__fmul_rn((float)acc[mt][nt][hh * 2 + 1], sr), w1));
-            *reinterpret_cast<__nv_bfloat162*>(qkv_s + r * lay.qkv_ld + n) = o;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-qkvproj_attention_int8_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ wq,
-                              const float* __restrict__ ws, bf16* __restrict__ out,
-                              int L, int H, float scale, int qkv_ld, int kcb) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay = make_layout_q(L, qkv_ld, kcb);
-  const int b = blockIdx.x / H, h = blockIdx.x % H, C = H * Q_D;
-  const bf16* xb = x + (size_t)b * L * C;
-  bf16* qkv_s = reinterpret_cast<bf16*>(smem);
-  float* r_s = reinterpret_cast<float*>(smem + lay.stats_off);
-  float* sr_s = r_s + lay.lp;
-  row_stats_q(xb, L, lay.lp, C, r_s, sr_s);
-  __syncthreads();
-  project_q(xb, wq, ws, h, H, L, lay, qkv_s, smem + lay.scratch_off, r_s, sr_s);
-  attend(qkv_s, lay, L, scale, out + (size_t)b * L * C + h * Q_D, C,
-         smem + lay.scratch_off);
-}
-
-// the core's head dims are 32 and 64; the one-block int8 kernel's is Q_D
+// the core's head dims are 32 and 64
 inline bool bad_shape(int B, int L, int H, int D) {
   return B < 1 || H < 1 || L < 1 || L > MAX_L || (D != 32 && D != 64);
 }
@@ -1470,22 +1098,6 @@ int uspace_ln_qkvproj_attention(const void* x, const void* ln_scale,
   int err = launch_ln(x, ln_scale, ln_bias, xln, B * L, C, eps, s);
   if (!err) err = launch_gemm<false>(xln, w, qkv, B * L, 3 * C, C, s);
   return err ? err : launch_core(qkv, out, B, L, H, D, scale, s);
-}
-
-// x [B, L, C] bf16, wq [3C, C] int8 (torch layout), ws [3C] f32 -> out [B, L, C].
-int uspace_qkvproj_attention_int8(const void* x, const void* wq, const void* ws,
-                                  void* out, int B, int L, int H, float scale,
-                                  void* stream) {
-  if (bad_shape(B, L, H, Q_D) || H * Q_D > MAX_ROW_VEC * 8 * 32)
-    return (int)cudaErrorInvalidValue;
-  const Layout lay = host_layout_q(L);
-  if (lay.bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  int err = launch_setup(qkvproj_attention_int8_kernel, lay.bytes);
-  if (err) return err;
-  qkvproj_attention_int8_kernel<<<B * H, THREADS, lay.bytes, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const int8_t*)wq, (const float*)ws, (bf16*)out, L, H, scale,
-      lay.qkv_ld, lay.stages);
-  return (int)cudaGetLastError();
 }
 
 // x [B, L, C] bf16 -> out [B, L, C]: LN1 in f32 (f32 ln_scale, ln_bias [C])

@@ -10,9 +10,11 @@
 //          uspace_qkvproj_attention (attention.cu, row 2's kernels on the
 //          LN rows) -> uspace_bf16_fc2 with the residual (mlp_bf16.cu, the
 //          wgmma GEMM of rows 12 and 13 at N = K = C)
-//   int8:  uspace_w8_ln_rows -> uspace_qkvproj_attention_int8 (attention.cu, row
-//          6's kernel: it codes the f32 value of each bf16 LN row, as row 11
-//          does) -> uspace_row_codes -> uspace_proj_residual_int8
+//   int8:  uspace_w8_ln_rows -> row 6's three pieces on the LN rows
+//          (uspace_row_codes: the f32 value of each bf16 LN row coded per
+//          row, as row 11 does; attention.cu's uspace_qkv_gemm_int8 and
+//          uspace_packed_attention) -> uspace_row_codes ->
+//          uspace_proj_residual_int8
 // The TPU kernel keeps the LN rows and the per-head outputs in VMEM; here
 // each makes one round trip through device memory ([B, L, C] bf16, 26 MB at
 // the main path's shape, about 16 us at 3.35 TB/s), and every rounding site
@@ -46,7 +48,8 @@
 // 16-byte segments XOR-swizzled by row so that fragment loads fall on
 // distinct banks; mma.sync m16n8k32 s8 -> s32. The bf16 projection is a
 // plain GEMM with a residual, which mlp_bf16.cu's wgmma GEMM already is.
-// The row-code pass is one warp per row, the row held in registers. Every
+// The row-code pass (row 6's, and row 11's twice) is one warp per row, the
+// row held in registers. Every
 // float operation is an explicit _rn intrinsic. Each entry point returns
 // cudaGetLastError().
 

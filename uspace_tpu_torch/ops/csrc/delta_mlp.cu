@@ -17,8 +17,10 @@
 //     per strip; o = x + bf16(m);
 //   uspace_delta_mlp_g <- _delta_mlp_kernel_g (row 24, "gelu" delta)
 //     as row 23 with dg = gelu(deq(e_q) + de) - (f32(g_q) * g_s + g_z);
-//   uspace_delta_mlp_exact <- _delta_mlp_kernel (row 25, "exact" delta)
-//     as row 23 with dg = gelu(deq(e_q) + de) - gelu(deq(e_q)).
+//   row 25 <- _delta_mlp_kernel ("exact" delta), three launches that
+//     ops/delta.py issues: uspace_ln_delta_codes (delta_attention.cu, row 19's
+//     code pass) -> uspace_delta_fc1_exact -> uspace_delta_fc2; as row 23
+//     with dg = gelu(deq(e_q) + de) - gelu(deq(e_q)).
 //
 // Bound at the main path's shape (12850 rows, C = 1024, hidden 4096): 2 x 2 x
 // 12850 x 1024 x 4096 = 215.6 G int8 operations over an H100 SXM's 1,979 TOPS
@@ -57,9 +59,10 @@
 // and rsqrtf are the library's), so no multiply-add is contracted where the
 // TPU kernel rounds twice.
 //
-// Design: mlp_int8.cu's block (rows 14-15), simple first; wgmma/TMA are later
-// work. One block of 16 warps per 32 rows; a strip's codes need the whole
-// strip of a row (1024 values at U-ViT-large), so a block computes a 32 x
+// Rows 20-24, design: mlp_int8.cu's block (rows 14-15), simple first;
+// wgmma/TMA are later work. One block of 16 warps per 32 rows; a strip's
+// codes need the whole strip of a row (1024 values at U-ViT-large), so a
+// block computes a 32 x
 // 1024 strip at once with the accumulators in registers (each warp 32 rows x
 // 64 columns), reduces the row statistics through shared memory, and codes
 // the strip into an int8 hidden tile [32, hidden] that never leaves shared
@@ -69,13 +72,55 @@
 // need two statistics one after the other (amax of e, then the range of GELU
 // of the coded e): the registers hold e, then are overwritten with g, one
 // GELU per value. Rows 23-25 read their cache per row and strip from device
-// memory in the fc1 epilogue and keep dg in the registers (row 25 evaluates
-// two GELUs per value, row 24 one). fc2 walks 256 output columns at a time
-// over all strips. mma.sync m16n8k32 s8 x s8 -> s32; weight chunks stream
-// through a ring of two shared-memory stages by cp.async, XOR-swizzled by row.
-// Dynamic shared memory (~206 KB) is enabled per launch; each entry point
-// returns cudaGetLastError().
+// memory in the fc1 epilogue and keep dg in the registers (row 24 evaluates
+// one GELU per value). fc2 walks 256 output columns at a time over all
+// strips. mma.sync m16n8k32 s8 x s8 -> s32; weight chunks stream through a
+// ring of two shared-memory stages by cp.async, XOR-swizzled by row. Dynamic
+// shared memory (~206 KB) is enabled per launch. That block held 32 rows (a
+// strip of 32 rows' f32 dg is 128 KB of registers), so every 32 rows
+// streamed both weights (8.4 MB, 3.4 GB from L2 a call), its 402 blocks of
+// one an SM ran 3.05 waves, and no product ran during the fc1 epilogue: row
+// 25 took 1.77 ms against a 108.9 us bound.
+//
+// Row 25, design (wgmma on TMA-fed tiles; rows 23-24 can take it by their
+// dg epilogue alone):
+// - the code pass is row 19's (the same f32 LN2 difference, coded per row);
+// - uspace_delta_fc1_exact: de = codes . w1^T as a GEMM on wgmma m64n256k32
+//   s8 (the int8 projection of attention.cu's rows 5-6: a producer warp keeps
+//   TMA loads of 128-byte K chunks of both operands, 128-byte swizzle, in
+//   flight in a ring of three stages guarded by mbarriers; two consumer
+//   warpgroups each own 64 rows x 256 hidden columns in 128 int32 registers).
+//   A strip's row amax needs all of its hidden columns, so a cluster of hs /
+//   256 blocks (4 at U-ViT-large) takes one strip of 128 rows: each block
+//   stages its int32 tile in the free ring, where each of its twelve warps
+//   (the producer's too) takes whole rows and turns their 256 columns into
+//   dg in place (e_q's tile arrives by TMA
+//   beside the mainloop; the two GELUs run on few registers in a short
+//   loop, not unrolled over 128 accumulators), writes each row's partial
+//   amax into every block of the cluster (distributed shared memory), and
+//   after one cluster barrier codes its columns with the row's amax, a
+//   warp's 128 bytes of a row at once, into an [R, hidden] int8 workspace,
+//   the scales into [R, strips]. Nothing but int8 codes leaves the chip
+//   between fc1 and fc2 (52.6 MB at the main path's shape, written once,
+//   read by fc2).
+// - uspace_delta_fc2: o = x + bf16(f32(m_b) + acc * s2) as a GEMM of the
+//   codes by w2 on wgmma m64n128k32 s8 (128 x 128 tiles, six stages); at the
+//   end of each strip's K chunks the int32 sums are folded acc += f32(d_j) *
+//   hsc_j in strip order, then reset: int32 sums are exact, so the fold is
+//   the twin's to the bit.
+// On an H100 at the main path's shape (12850 rows, C 1024, hidden 4096) the
+// code pass takes 0.086 ms, fc1 0.447 and fc2 0.135. fc1's two GELUs (about
+// 100 instructions a hidden value) take about 0.19 ms at the issue rate,
+// while the block's tensor cores idle; its GEMM skeleton (loads, products,
+// the tile's round trip, the exchange) 0.21, of which the products need
+// 0.055. Measured and lost: multicasting the cluster's shared rows of codes
+// (L2 reads are not what binds), two 64-row blocks an SM (no overlap
+// gained), __frcp_rn for the erf's 1/x, two rows a warp iteration. fc2's
+// fold sits after each strip's K loop: inside it, under a branch, ptxas
+// serialised the wgmmas (C7518; 0.161 ms).
+// Each entry point returns cudaGetLastError() or its first error.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,7 +130,7 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 // what a launch computes: a base row (writes a cache) or a delta row (reads it)
-enum Mode { GRAD = 0, EXACT = 1, EXACT_G = 2, LIN = 3, DELTA_EXACT = 4, DELTA_G = 5 };
+enum Mode { GRAD = 0, EXACT = 1, EXACT_G = 2, LIN = 3, DELTA_G = 5 };
 
 constexpr int ROWS = 32;          // rows per block
 constexpr int WARPS = 16;
@@ -471,7 +516,7 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
         for (int hh = 0; hh < 2; ++hh) {
           const int r = mt * 16 + hh * 8 + g;
           // the delta's cache of this row and strip: deq(gp) (row 23) or
-          // deq(e_q) (rows 24-25), and row 24's affine anchor
+          // deq(e_q) (row 24), and row 24's affine anchor
           float cv[2] = {0.f, 0.f}, gb[2] = {0.f, 0.f};
           if (DELTA) {
             const int rg = min(row0 + r, R - 1);
@@ -496,8 +541,6 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
             float v;  // what the registers keep: e (base rows) or dg (delta rows)
             if (MODE == LIN) {
               v = __fmul_rn(base, cv[k]);
-            } else if (MODE == DELTA_EXACT) {
-              v = __fsub_rn(gelu(__fadd_rn(cv[k], base)), gelu(cv[k]));
             } else if (MODE == DELTA_G) {
               v = __fsub_rn(gelu(__fadd_rn(cv[k], base)), gb[k]);
             } else {
@@ -778,6 +821,573 @@ Args delta_args(const void* x, const void* xb, const void* c_q, const void* c_s,
               m_b, nullptr, out};
 }
 
+// ---------------------------------------------------------------------------
+// Row 25 on wgmma: fc1 with the dg epilogue, fc2 with the strip fold
+// ---------------------------------------------------------------------------
+
+constexpr int W_BM = 128;       // rows a tile: two consumer warpgroups of 64
+constexpr int W_KB = 128;       // codes a K chunk: one 128-byte swizzle row
+constexpr int W_THREADS = 384;  // a producer warpgroup, two consumer ones
+constexpr int W_A = W_BM * W_KB;
+constexpr int F1_BN = 256, F1_STAGES = 3;  // fc1: 256 hidden columns a block
+constexpr int F2_BN = 128, F2_STAGES = 6;  // fc2: 128 output columns a block
+constexpr int F1_B = F1_BN * W_KB, F2_B = F2_BN * W_KB;
+constexpr int F1_RING = F1_STAGES * (W_A + F1_B);  // 144 KB
+constexpr int F1_EQ = W_BM * F1_BN;                // the block's e_q tile
+constexpr int MAX_CLUSTER = 1024 / F1_BN;          // blocks a strip, at most
+constexpr int F1_RED = MAX_CLUSTER * W_BM * 4;     // row amax partials
+constexpr int F1_INV = W_BM * 4;                   // 127 / amax of each row
+constexpr int F1_SMEM =
+    1024 + F1_RING + F1_EQ + F1_RED + F1_INV + 8 * (2 * F1_STAGES + 1);
+constexpr int F2_RING = F2_STAGES * (W_A + F2_B);  // 192 KB
+constexpr int F2_SMEM = 1024 + F2_RING + 8 * 2 * F2_STAGES;
+// the epilogue's [W_BM][F1_D_LD] int32 / f32 tile in the ring: rows 8 words
+// apart mod 32, so a half-warp's 8-byte fragment stores fall on 32 banks
+constexpr int F1_D_LD = F1_BN + 8;
+static_assert(W_BM * F1_D_LD * 4 <= F1_RING, "the epilogue's tile fits in the ring");
+static_assert(F1_SMEM <= MAX_SMEM && F2_SMEM <= MAX_SMEM, "shared memory");
+
+__device__ inline uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ inline void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ inline void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ inline void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// spin until the phase of the given parity has completed
+__device__ inline void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the box of `map` at (c0 innermost, c1) -> shared dst; completes on bar
+__device__ inline void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                   uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ inline uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster; orders the distributed
+// shared-memory stores before it against the loads after it
+__device__ inline void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// v into the f32 at this block's shared address `at` in block cta of the
+// cluster
+__device__ inline void st_cluster_f32(uint32_t at, uint32_t cta, float v) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "st.shared::cluster.f32 [ra], %2;\n}\n" ::"r"(at),
+      "r"(cta), "f"(v)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile of 128-byte rows as TMA writes it with
+// the 128-byte swizzle: 8-row groups 1024 bytes apart (the tile base
+// 1024-byte aligned); 32 codes deeper is 32 bytes further (+2)
+__device__ inline uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ inline void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ inline void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ inline void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator accesses across a wgmma wait
+template <int R>
+__device__ inline void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[128] += A (64 x 32 codes, smem) . B (32 x 256 codes, smem), both K-major
+__device__ inline void wgmma_n256(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64] += A (64 x 32 codes, smem) . B (32 x 128 codes, smem), both K-major
+__device__ inline void wgmma_n128(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The producer's loads of one GEMM: K chunk kb of rows m0 of a into the A
+// ring and of rows n0 of w into the B ring, each stage freed by the
+// consumers' arrivals on its empty barrier.
+template <int STAGES, int B_BYTES>
+__device__ inline void produce(const CUtensorMap* map_a, const CUtensorMap* map_w,
+                               uint32_t sa, uint32_t sb, uint32_t full, uint32_t empty,
+                               int nk, int m0, int n0) {
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % STAGES;
+    mbar_wait(empty + 8 * s, ((kb / STAGES) & 1) ^ 1);
+    mbar_expect_tx(full + 8 * s, W_A + B_BYTES);
+    tma_load_2d(sa + s * W_A, map_a, kb * W_KB, m0, full + 8 * s);
+    tma_load_2d(sb + s * B_BYTES, map_w, kb * W_KB, n0, full + 8 * s);
+  }
+}
+
+// The consumers' wgmmas on K chunk kb (four k32 steps, the warpgroup's 64
+// rows of A), releasing chunk kb - 1's stage once kb's are issued.
+template <int STAGES, int B_BYTES, int NACC>
+__device__ inline void consume(int (&acc)[NACC], uint32_t sa, uint32_t sb, uint32_t full,
+                               uint32_t empty, int kb, int cw) {
+  const int s = kb % STAGES;
+  mbar_wait(full + 8 * s, (kb / STAGES) & 1);
+  const uint64_t da = sw128_desc(sa + s * W_A + cw * 64 * W_KB);
+  const uint64_t db = sw128_desc(sb + s * B_BYTES);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (NACC == 128)
+      wgmma_n256(acc, da + 2 * kk, db + 2 * kk);
+    else
+      wgmma_n128(acc, da + 2 * kk, db + 2 * kk);
+  }
+  wgmma_commit();
+  wgmma_wait<1>();
+  if (kb > 0) mbar_arrive(empty + 8 * ((kb - 1) % STAGES));
+}
+
+// barriers: full (the producer's expect_tx) and empty (every consumer thread)
+template <int STAGES>
+__device__ inline void init_ring(uint32_t full, uint32_t empty) {
+  for (int s = 0; s < STAGES; ++s) {
+    mbar_init(full + 8 * s, 1);
+    mbar_init(empty + 8 * s, W_THREADS - 128);
+  }
+}
+
+// dg of one hidden value: de = (f32(acc) * ds) * s1, e_b = f32(e_q) * e_s,
+// gelu(e_b + de) - gelu(e_b)
+__device__ inline float dg_exact(int acc, float ds, float s1, signed char eq, float es) {
+  const float de = __fmul_rn(__fmul_rn(__int2float_rn(acc), ds), s1);
+  const float eb = __fmul_rn((float)eq, es);
+  return __fsub_rn(gelu(__fadd_rn(eb, de)), gelu(eb));
+}
+
+// Row 25's fc1 piece: a [M, K] int8 codes of LN2(x) - LN2(x_b) with row
+// scales ds [M], w1 [N, K] int8 (torch layout) with s1 [N]; e_q [M, N] int8
+// with e_s [M, strips] -> hq [M, N] int8 and hsc [M, strips] f32, the codes
+// of dg per row and strip. A cluster of N / strips / F1_BN blocks along the
+// grid's x takes one strip of W_BM rows.
+__global__ void __launch_bounds__(W_THREADS, 1)
+delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_w,
+                 const __grid_constant__ CUtensorMap map_e, const float* __restrict__ ds,
+                 const float* __restrict__ s1, const float* __restrict__ e_s,
+                 int8_t* __restrict__ hq, float* __restrict__ hsc, int M, int N, int K,
+                 int strips) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sa = (raw + 1023u) & ~1023u;  // the swizzle's 1024-byte atoms
+  const uint32_t sb = sa + F1_STAGES * W_A;
+  const uint32_t se = sb + F1_STAGES * F1_B;  // e_q: two 128-column halves
+  const uint32_t sred = se + F1_EQ;           // [cluster][W_BM] partial amax
+  const uint32_t sinv = sred + F1_RED;        // [W_BM] 127 / amax
+  const uint32_t full = sinv + F1_INV, empty = full + 8 * F1_STAGES,
+                 ebar = empty + 8 * F1_STAGES;
+  unsigned char* ring = smem_raw + (sa - raw);
+  const int wg = threadIdx.x >> 7, nk = (K + W_KB - 1) / W_KB;
+  const int n0 = blockIdx.x * F1_BN, m0 = blockIdx.y * W_BM;
+  const int hs = N / strips, j = n0 / hs, ncl = hs / F1_BN;
+  const uint32_t rank = cluster_rank();
+  if (threadIdx.x == 0) {
+    init_ring<F1_STAGES>(full, empty);
+    mbar_init(ebar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int* tile = reinterpret_cast<int*>(ring);
+  if (wg == 0) {  // producer: one thread issues every load
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(ebar, F1_EQ);
+      tma_load_2d(se, &map_e, n0, m0, ebar);
+      tma_load_2d(se + F1_EQ / 2, &map_e, n0 + F1_BN / 2, m0, ebar);
+      produce<F1_STAGES, F1_B>(&map_a, &map_w, sa, sb, full, empty, nk, m0, n0);
+    }
+  } else {
+    const int cw = wg - 1;  // consumer warpgroup: rows cw * 64 .. + 63
+    int acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0;
+    fence_regs(acc);
+    for (int kb = 0; kb < nk; ++kb)
+      consume<F1_STAGES, F1_B>(acc, sa, sb, full, empty, kb, cw);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    // The tile's int32 sums go into the ring (free once both consumer
+    // warpgroups have retired their wgmmas), where a warp takes whole rows:
+    // the epilogue then keeps few registers, a row's amax is a warp
+    // reduction, and the producer's warps share it. Accumulator fragment:
+    // warp w of the warpgroup holds rows 16w + lane / 4 (+ 8), columns 8c +
+    // 2 (lane % 4) (+ 1) in acc[4c ..].
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int rl = cw * 64 + warp * 16 + (lane >> 2), cl = 2 * (lane & 3);
+#pragma unroll
+    for (int c = 0; c < F1_BN / 8; ++c) {
+      *reinterpret_cast<int2*>(tile + rl * F1_D_LD + 8 * c + cl) =
+          make_int2(acc[4 * c], acc[4 * c + 1]);
+      *reinterpret_cast<int2*>(tile + (rl + 8) * F1_D_LD + 8 * c + cl) =
+          make_int2(acc[4 * c + 2], acc[4 * c + 3]);
+    }
+  }
+  asm volatile("bar.sync 2, %0;\n" ::"n"(W_THREADS) : "memory");
+
+  // dg in place, each of the block's twelve warps taking whole rows (row r
+  // to warp r % 12) and lane l columns 4l .. 4l + 3 and 128 + 4l .. 128 +
+  // 4l + 3; each row's amax over the block's columns into every block of
+  // the cluster
+  constexpr int EPI_WARPS = W_THREADS / 32;
+  const int ct = threadIdx.x, lane = ct & 31, warp = ct >> 5;
+  const float4 sc0 = __ldg(reinterpret_cast<const float4*>(s1 + n0) + lane);
+  const float4 sc1 = __ldg(reinterpret_cast<const float4*>(s1 + n0 + 128) + lane);
+  mbar_wait(ebar, 0);
+  const unsigned char* eq = smem_raw + (se - raw);
+  // e_q's 4 codes at (row r, column c) in its swizzled halves: 16-byte chunk
+  // k of a 128-byte row r sits at chunk k ^ (r % 8)
+  auto eq4 = [&](int r, int c) {
+    const int b = c & 127;
+    return *reinterpret_cast<const char4*>(eq + (c >> 7) * (F1_EQ / 2) + r * 128 +
+                                           (((b >> 4) ^ (r & 7)) << 4) + (b & 15));
+  };
+  for (int r = warp; r < W_BM; r += EPI_WARPS) {
+    const int gr = m0 + r;
+    const float dsr = gr < M ? __ldg(ds + gr) : 0.f;
+    const float esr = gr < M ? __ldg(e_s + (size_t)gr * strips + j) : 0.f;
+    int4* p0 = reinterpret_cast<int4*>(tile + r * F1_D_LD) + lane;
+    int4* p1 = reinterpret_cast<int4*>(tile + r * F1_D_LD + 128) + lane;
+    const int4 a0 = *p0, a1 = *p1;
+    const char4 e0 = eq4(r, 4 * lane), e1 = eq4(r, 128 + 4 * lane);
+    float4 v0, v1;
+    v0.x = dg_exact(a0.x, dsr, sc0.x, e0.x, esr);
+    v0.y = dg_exact(a0.y, dsr, sc0.y, e0.y, esr);
+    v0.z = dg_exact(a0.z, dsr, sc0.z, e0.z, esr);
+    v0.w = dg_exact(a0.w, dsr, sc0.w, e0.w, esr);
+    v1.x = dg_exact(a1.x, dsr, sc1.x, e1.x, esr);
+    v1.y = dg_exact(a1.y, dsr, sc1.y, e1.y, esr);
+    v1.z = dg_exact(a1.z, dsr, sc1.z, e1.z, esr);
+    v1.w = dg_exact(a1.w, dsr, sc1.w, e1.w, esr);
+    *reinterpret_cast<float4*>(p0) = v0;
+    *reinterpret_cast<float4*>(p1) = v1;
+    float m = fmaxf(fmaxf(fmaxf(fabsf(v0.x), fabsf(v0.y)), fmaxf(fabsf(v0.z), fabsf(v0.w))),
+                    fmaxf(fmaxf(fabsf(v1.x), fabsf(v1.y)), fmaxf(fabsf(v1.z), fabsf(v1.w))));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0)
+      for (int q = 0; q < ncl; ++q) st_cluster_f32(sred + 4 * (rank * W_BM + r), q, m);
+  }
+  cluster_sync();
+
+  // each row's amax over the strip, its scale and 127 / amax
+  float* inv = reinterpret_cast<float*>(smem_raw + (sinv - raw));
+  if (ct < W_BM) {
+    const float* red = reinterpret_cast<const float*>(smem_raw + (sred - raw));
+    float a = 0.f;
+    for (int q = 0; q < ncl; ++q) a = fmaxf(a, red[q * W_BM + ct]);
+    a = fmaxf(a, 1e-8f);
+    inv[ct] = __fdiv_rn(127.f, a);
+    if (rank == 0 && m0 + ct < M) hsc[(size_t)(m0 + ct) * strips + j] = __fmul_rn(a, 1.0f / 127.0f);
+  }
+  asm volatile("bar.sync 2, %0;\n" ::"n"(W_THREADS) : "memory");
+  // round(dg * (127 / amax)), four codes a thread, a warp's 128 bytes of a
+  // row at once
+  for (int i = ct; i < W_BM * F1_BN / 4; i += W_THREADS) {
+    const int r = i / (F1_BN / 4), c4 = i % (F1_BN / 4), gr = m0 + r;
+    if (gr >= M) continue;
+    const float4 v = *reinterpret_cast<const float4*>(tile + r * F1_D_LD + 4 * c4);
+    const float s = inv[r];
+    const char4 q = make_char4((signed char)__float2int_rn(__fmul_rn(v.x, s)),
+                               (signed char)__float2int_rn(__fmul_rn(v.y, s)),
+                               (signed char)__float2int_rn(__fmul_rn(v.z, s)),
+                               (signed char)__float2int_rn(__fmul_rn(v.w, s)));
+    *reinterpret_cast<char4*>(hq + (size_t)gr * N + n0 + 4 * c4) = q;
+  }
+}
+
+// fc2 of the delta rows: hq [M, K] int8 with hsc [M, strips], w2 [N, K] int8
+// (torch layout) with s2 [N]; acc += f32(d_j) * hsc_j over the strips in
+// order (d_j the int32 sum over strip j's K chunks), then out = x +
+// bf16(f32(m_b) + acc * s2), the sum in bf16 (m_b, x, out [M, N] bf16).
+__global__ void __launch_bounds__(W_THREADS, 1)
+delta_fc2_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_w, const float* __restrict__ hsc,
+                 const float* __restrict__ s2, const bf16* __restrict__ m_b,
+                 const bf16* __restrict__ x, bf16* __restrict__ out, int M, int N, int K,
+                 int strips) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sa = (raw + 1023u) & ~1023u;
+  const uint32_t sb = sa + F2_STAGES * W_A;
+  const uint32_t full = sb + F2_STAGES * F2_B, empty = full + 8 * F2_STAGES;
+  const int wg = threadIdx.x >> 7, nk = K / W_KB, per_strip = nk / strips;
+  const int n0 = blockIdx.x * F2_BN, m0 = blockIdx.y * W_BM;
+  if (threadIdx.x == 0) {
+    init_ring<F2_STAGES>(full, empty);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (wg == 0) {
+    if (threadIdx.x == 0)
+      produce<F2_STAGES, F2_B>(&map_a, &map_w, sa, sb, full, empty, nk, m0, n0);
+    return;
+  }
+
+  const int cw = wg - 1;
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31, t4 = lane & 3;
+  const int r0 = m0 + cw * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+  int acc[64];
+  float sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    acc[i] = 0;
+    sum[i] = 0.f;
+  }
+  fence_regs(acc);
+  // strip by strip (no branch around the fold: a fold in a divergent path
+  // makes ptxas serialise the wgmmas, C7518)
+  for (int jst = 0; jst < strips; ++jst) {
+    for (int kb = jst * per_strip; kb < (jst + 1) * per_strip; ++kb)
+      consume<F2_STAGES, F2_B>(acc, sa, sb, full, empty, kb, cw);
+    wgmma_wait<0>();  // strip jst is summed: fold it, in order
+    fence_regs(acc);
+    const float h0 = r0 < M ? __ldg(hsc + (size_t)r0 * strips + jst) : 0.f;
+    const float h1 = r1 < M ? __ldg(hsc + (size_t)r1 * strips + jst) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      sum[i] = __fadd_rn(sum[i], __fmul_rn(__int2float_rn(acc[i]), (i & 2) ? h1 : h0));
+      acc[i] = 0;
+    }
+    fence_regs(acc);
+  }
+#pragma unroll
+  for (int c = 0; c < F2_BN / 8; ++c) {
+    const int col = n0 + 8 * c + 2 * t4;
+    const float2 w = __ldg(reinterpret_cast<const float2*>(s2 + col));
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = hh ? r1 : r0;
+      if (r >= M) continue;
+      const size_t at = (size_t)r * N + col;
+      const __nv_bfloat162 mb = *reinterpret_cast<const __nv_bfloat162*>(m_b + at);
+      const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(x + at);
+      __nv_bfloat162 m, o;
+      m.x = __float2bfloat16_rn(
+          __fadd_rn(__bfloat162float(mb.x), __fmul_rn(sum[4 * c + 2 * hh], w.x)));
+      m.y = __float2bfloat16_rn(
+          __fadd_rn(__bfloat162float(mb.y), __fmul_rn(sum[4 * c + 2 * hh + 1], w.y)));
+      o.x = badd(xr.x, m.x);
+      o.y = badd(xr.y, m.y);
+      *reinterpret_cast<__nv_bfloat162*>(out + at) = o;
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                           12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major [rows, cols] int8 matrix in boxes of box_rows x 128 codes with
+// the 128-byte swizzle; boxes past its edge are zero-filled
+int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)W_KB, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r =
+      enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box,
+          elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// the shapes the two GEMMs take: strips of 256 to 1024 hidden units in
+// 256-column blocks, C a multiple of F2_BN (K chunks past C are zero-filled)
+inline bool bad_wgmma_shape(int R, int C, int hidden, int strips) {
+  if (R < 1 || strips < 1 || strips > MAX_STRIPS || hidden % strips) return true;
+  const int hs = hidden / strips;
+  return hs % F1_BN || hs > MAX_CLUSTER * F1_BN || C < F2_BN || C % F2_BN;
+}
+
+int launch_delta_fc1(const void* codes, const void* sr, const void* w1, const void* s1,
+                     const void* e_q, const void* e_s, void* hq, void* hsc, int R, int C,
+                     int hidden, int strips, cudaStream_t stream) {
+  if (bad_wgmma_shape(R, C, hidden, strips)) return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mw, me;
+  int err = make_map(&ma, codes, R, C, W_BM);
+  if (!err) err = make_map(&mw, w1, hidden, C, F1_BN);
+  if (!err) err = make_map(&me, e_q, R, hidden, W_BM);
+  if (!err)
+    err = (int)cudaFuncSetAttribute(delta_fc1_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, F1_SMEM);
+  if (err) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = hidden / strips / F1_BN;  // the blocks of a strip
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(hidden / F1_BN, (R + W_BM - 1) / W_BM);
+  cfg.blockDim = dim3(W_THREADS);
+  cfg.dynamicSmemBytes = F1_SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = (int)cudaLaunchKernelEx(&cfg, delta_fc1_kernel, ma, mw, me, (const float*)sr,
+                                (const float*)s1, (const float*)e_s, (int8_t*)hq,
+                                (float*)hsc, R, hidden, C, strips);
+  return err ? err : (int)cudaGetLastError();
+}
+
+int launch_delta_fc2(const void* hq, const void* hsc, const void* w2, const void* s2,
+                     const void* m_b, const void* x, void* out, int R, int C, int hidden,
+                     int strips, cudaStream_t stream) {
+  if (bad_wgmma_shape(R, C, hidden, strips)) return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mw;
+  int err = make_map(&ma, hq, R, hidden, W_BM);
+  if (!err) err = make_map(&mw, w2, C, hidden, F2_BN);
+  if (!err)
+    err = (int)cudaFuncSetAttribute(delta_fc2_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, F2_SMEM);
+  if (err) return err;
+  const dim3 grid(C / F2_BN, (R + W_BM - 1) / W_BM);
+  delta_fc2_kernel<<<grid, W_THREADS, F2_SMEM, stream>>>(
+      ma, mw, (const float*)hsc, (const float*)s2, (const bf16*)m_b, (const bf16*)x,
+      (bf16*)out, R, C, hidden, strips);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -833,19 +1443,9 @@ int uspace_delta_mlp_lin(const void* x, const void* xb, const void* gp_q,
                      R, C, hidden, strips, eps, stream);
 }
 
-// Row 25. As row 23, with row 20's e_q, e_s in place of gp_q, gp_s.
-int uspace_delta_mlp_exact(const void* x, const void* xb, const void* e_q,
-                           const void* e_s, const void* m_b, const void* ln_scale,
-                           const void* ln_bias, const void* w1, const void* s1,
-                           const void* w2, const void* s2, void* out, int R, int C,
-                           int hidden, int strips, float eps, void* stream) {
-  return launch<DELTA_EXACT>(delta_args(x, xb, e_q, e_s, nullptr, nullptr, nullptr, m_b,
-                                        ln_scale, ln_bias, w1, s1, w2, s2, out),
-                             R, C, hidden, strips, eps, stream);
-}
-
-// Row 24. As row 25, and row 21's g_q [R, hidden] int8, g_s, g_z [R, strips]
-// f32.
+// Row 24. As row 23, with row 20's e_q [R, hidden] int8 and e_s [R, strips]
+// f32 in place of gp_q and gp_s, and row 21's g_q [R, hidden] int8, g_s, g_z
+// [R, strips] f32.
 int uspace_delta_mlp_g(const void* x, const void* xb, const void* e_q, const void* e_s,
                        const void* g_q, const void* g_s, const void* g_z, const void* m_b,
                        const void* ln_scale, const void* ln_bias, const void* w1,
@@ -854,6 +1454,29 @@ int uspace_delta_mlp_g(const void* x, const void* xb, const void* e_q, const voi
   return launch<DELTA_G>(delta_args(x, xb, e_q, e_s, g_q, g_s, g_z, m_b, ln_scale, ln_bias,
                                     w1, s1, w2, s2, out),
                          R, C, hidden, strips, eps, stream);
+}
+
+// Row 25's fc1: codes [R, C] int8 with sr [R] f32 (uspace_ln_delta_codes of x
+// and x_b), w1 [hidden, C] int8 (torch layout) with s1 [hidden] f32, e_q [R,
+// hidden] int8 with e_s [R, strips] f32 (row 20's cache) -> hq [R, hidden]
+// int8 and hsc [R, strips] f32: dg = gelu(deq(e_q) + de) - gelu(deq(e_q))
+// coded per row and strip. Strips of 256 to 1024 in multiples of 256.
+int uspace_delta_fc1_exact(const void* codes, const void* sr, const void* w1,
+                           const void* s1, const void* e_q, const void* e_s, void* hq,
+                           void* hsc, int R, int C, int hidden, int strips, void* stream) {
+  return launch_delta_fc1(codes, sr, w1, s1, e_q, e_s, hq, hsc, R, C, hidden, strips,
+                          (cudaStream_t)stream);
+}
+
+// fc2 of the delta rows: hq [R, hidden] int8 with hsc [R, strips] f32, w2 [C,
+// hidden] int8 (torch layout) with s2 [C] f32, m_b and x [R, C] bf16 -> out
+// [R, C] = x + bf16(f32(m_b) + acc * s2), acc the strips' sums folded in
+// order; C a multiple of 128.
+int uspace_delta_fc2(const void* hq, const void* hsc, const void* w2, const void* s2,
+                     const void* m_b, const void* x, void* out, int R, int C, int hidden,
+                     int strips, void* stream) {
+  return launch_delta_fc2(hq, hsc, w2, s2, m_b, x, out, R, C, hidden, strips,
+                          (cudaStream_t)stream);
 }
 
 }  // extern "C"
