@@ -574,12 +574,13 @@ def test_ctypes_signatures_match_c_source():
                                       "mlp_int8", "mlp_w8", "attention_block",
                                       "mlp_bf16", "delta_attention",
                                       "delta_mlp", "flash_attention"}
-    # rows 20-24 of the kernel table: one entry point each; row 25: its two
-    # wgmma GEMMs (after delta_attention.cu's code pass)
+    # rows 20-22 of the kernel table: one entry point each; rows 23-25:
+    # each its fc1 and the shared fc2 on wgmma (after delta_attention.cu's
+    # code pass)
     assert set(_build.SIGNATURES["delta_mlp"]) == {
         f"uspace_{k}" for k in ("base_mlp_grad", "base_mlp_e", "base_mlp_eg",
-                                "delta_mlp_lin", "delta_fc1_exact",
-                                "delta_fc2", "delta_mlp_g")}
+                                "delta_fc1_exact", "delta_fc1_lin",
+                                "delta_fc1_g", "delta_fc2")}
     for name, sigs in _build.SIGNATURES.items():
         src = (_build.CSRC / f"{name}.cu").read_text()
         for fn, argtypes in sigs.items():

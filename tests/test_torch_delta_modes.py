@@ -238,11 +238,20 @@ def test_twins_count_no_launches():
     assert set(tdelta.LAUNCHES.values()) == {0}
 
 
-def test_row25_wrapper_runs_its_three_pieces(monkeypatch):
-    """Row 25's plumbing on the card with the library calls stubbed: row
-    19's code pass of x and x_b, fc1 with the dg epilogue into an [R,
-    hidden] int8 workspace with [R, strips] scales, fc2 reading that
-    workspace, x and m_b into the output; one launch counted."""
+# each mode's fc1 entry and launch count (rows 25, 23 and 24)
+DELTA_PIECES = {"exact": ("uspace_delta_fc1_exact", "delta_mlp_exact"),
+                "grad": ("uspace_delta_fc1_lin", "delta_mlp_lin"),
+                "gelu": ("uspace_delta_fc1_g", "delta_mlp_g")}
+
+
+@pytest.mark.parametrize("mode", ["exact", "grad", "gelu"])
+def test_row25_wrapper_runs_its_three_pieces(monkeypatch, mode):
+    """Rows 25, 23 and 24's plumbing on the card with the library calls
+    stubbed: row 19's code pass of x and x_b, the mode's fc1 with its dg
+    epilogue reading the mode's cache (e_q, e_s; gp_q, gp_s; e_q, e_s, g_q,
+    g_s, g_z) into an [R, hidden] int8 workspace with [R, strips] scales,
+    fc2 reading that workspace, x and m_b into the output; one launch
+    counted, under the mode's key."""
     calls = []
 
     class Lib:
@@ -260,25 +269,29 @@ def test_row25_wrapper_runs_its_three_pieces(monkeypatch):
         np.float32)).to(torch.bfloat16) for _ in range(3))
     (_, _), (t1, ts1) = _weights(rng, c, hidden, 0.1)
     (_, _), (t2, ts2) = _weights(rng, hidden, c, 0.05)
-    e_q = torch.zeros((r, hidden), dtype=torch.int8)
-    e_s = torch.ones((r, strips))
+    c_q = torch.zeros((r, hidden), dtype=torch.int8)
+    c_s = torch.ones((r, strips))
+    gc = ((torch.zeros((r, hidden), dtype=torch.int8), torch.ones((r, strips)),
+           torch.zeros((r, strips))) if mode == "gelu" else None)
     one = torch.ones(c)
     tdelta.reset_launches()
-    o = tdelta._delta_mlp_kernel(x, xb, e_q, e_s, None, mb, one, one, t1,
-                                 ts1, t2, ts2, EPS, strips, False)
+    o = tdelta._delta_mlp_kernel(x, xb, c_q, c_s, gc, mb, one, one, t1,
+                                 ts1, t2, ts2, EPS, strips, mode == "grad")
     assert o.shape == x.shape
-    assert [fn for fn, _ in calls] == ["uspace_ln_delta_codes",
-                                       "uspace_delta_fc1_exact",
+    fc1_name, key = DELTA_PIECES[mode]
+    assert [fn for fn, _ in calls] == ["uspace_ln_delta_codes", fc1_name,
                                        "uspace_delta_fc2"]
     codes, fc1, fc2 = (args for _, args in calls)
     assert codes[:2] == (x.data_ptr(), xb.data_ptr()) and codes[6:8] == (r, c)
-    assert fc1[:2] == codes[4:6] and fc1[4:6] == (e_q.data_ptr(),
-                                                   e_s.data_ptr())
-    assert fc1[8:12] == (r, c, hidden, strips)
-    assert fc2[:2] == fc1[6:8]  # the hidden codes and their scales
+    cache = (c_q, c_s) + (gc or ())
+    n = 4 + len(cache)
+    assert fc1[:2] == codes[4:6]
+    assert fc1[4:n] == tuple(t.data_ptr() for t in cache)
+    assert fc1[n + 2:n + 6] == (r, c, hidden, strips)
+    assert fc2[:2] == fc1[n:n + 2]  # the hidden codes and their scales
     assert fc2[4:7] == (mb.data_ptr(), x.data_ptr(), o.data_ptr())
     assert fc2[7:11] == (r, c, hidden, strips)
-    assert tdelta.LAUNCHES["delta_mlp_exact"] == 1
+    assert tdelta.LAUNCHES[key] == 1
     assert sum(tdelta.LAUNCHES.values()) == 1
 
 

@@ -1371,29 +1371,52 @@ def test_delta_mlp_e_kernels_match_twins(cuda, rows, c):
 
 @pytest.mark.parametrize("c", [256, 512, 768, 1024])
 @pytest.mark.parametrize("rows", [1, 33, 500, 12850])
-def test_delta_mlp_exact_kernel_shapes_and_repeats(cuda, rows, c):
-    """Row 25 (the code pass, fc1 with the dg epilogue on a cluster of
-    hidden / 4 / 256 blocks a strip: 1, 2, 3, 4 at these widths, fc2 with
-    the strip fold) against its twin on a stage's x on the twin's cache, a
-    repeat bit-equal, and at the base's own point row 20's output bit for
-    bit."""
+@pytest.mark.parametrize("mode", ["exact", "grad", "gelu"])
+def test_delta_mlp_pieces_shapes_and_repeats(cuda, mode, rows, c):
+    """Rows 25, 23 and 24 ("exact", "grad", "gelu": the code pass, the
+    mode's fc1 with its dg epilogue on a cluster of hidden / 4 / 256 blocks
+    a strip, 1, 2, 3, 4 at these widths, fc2 with the strip fold) against
+    their twins on a stage's x on the twin's cache, a repeat bit-equal, and
+    at the base's own point: rows 25 and 23 their base row's output (20,
+    22) bit for bit, row 24 held to its twin on the kernel's cache and near
+    row 21's output (it re-rounds the base's hidden residual)."""
     g = torch.Generator(device=cuda).manual_seed(5 * rows + c)
     xb, x, lns, lnb, q1, b1, q2, b2 = _delta_mlp_case(g, rows, c)
     s = mlp.col_slices(4 * c)
     w = (lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2, 1e-5)
     dw = (lns, lnb, q1.kn, q1.scale, q2.kn, q2.scale, 1e-5)
     with torch.no_grad():
-        base = delta.base_mlp_block(xb, *w)
-        _, e_q, e_s, m_b = delta.base_mlp_e_plain(xb, *w, s)
-        out = delta.delta_mlp_block(x, xb, e_q, e_s, m_b, *dw)
-        again = delta.delta_mlp_block(x, xb, e_q, e_s, m_b, *dw)
-        _agree_delta(out, delta.delta_mlp_exact_plain(x, xb, e_q, e_s, m_b,
-                                                      *dw, s),
+        if mode == "grad":
+            base = delta.base_mlp_block(xb, *w, mode="grad")
+            _, c_q, c_s, m_b = delta.base_mlp_grad_plain(xb, *w, s)
+            kw, gc, at_base = dict(grad=True), (), {}
+            plain = delta.delta_mlp_lin_plain
+        else:
+            gelu = mode == "gelu"
+            base = delta.base_mlp_block(xb, *w, mode="e+g" if gelu else "e")
+            _, c_q, c_s, m_b, *gc = delta.base_mlp_e_plain(xb, *w, s,
+                                                           emit_gelu=gelu)
+            kw = dict(gelu_cache=tuple(gc)) if gelu else {}
+            at_base = dict(gelu_cache=tuple(base[4:])) if gelu else {}
+            plain = (delta.delta_mlp_g_plain if gelu
+                     else delta.delta_mlp_exact_plain)
+        out = delta.delta_mlp_block(x, xb, c_q, c_s, m_b, *dw, **kw)
+        again = delta.delta_mlp_block(x, xb, c_q, c_s, m_b, *dw, **kw)
+        _agree_delta(out, plain(x, xb, c_q, c_s, *gc, m_b, *dw, s),
                      x.float() + m_b.float(), INT8_MLP_REL_L2)
-        same = delta.delta_mlp_block(xb, xb, *base[1:4], *dw)
+        same = delta.delta_mlp_block(xb, xb, *base[1:4], *dw,
+                                     **(at_base or kw))
+        if mode == "gelu":
+            _agree_delta(same, plain(xb, xb, *base[1:3], *base[4:], base[3],
+                                     *dw, s),
+                         xb.float() + base[3].float(), INT8_MLP_REL_L2)
     torch.cuda.synchronize()
     assert torch.equal(out, again)
-    assert torch.equal(same, base[0])
+    if mode == "gelu":
+        gap = (same.double() - base[0].double()).norm()
+        assert float(gap / (base[0].double() - xb.double()).norm()) < 5e-2
+    else:
+        assert torch.equal(same, base[0])
 
 
 def test_delta_kernels_count_launches_and_refuse(cuda):

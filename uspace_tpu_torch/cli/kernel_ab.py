@@ -20,9 +20,10 @@ kernel at the 512-px SD-UNet-large's top level, B=50, H=8, L=4096, D=32;
 ``delta_attention``: the stage-delta attention
 halves' own passes at B=50 (the LN codes of the padded base rows and of a
 stage delta, the difference codes, the f32 and the two delta GEMMs, the qkv
-re-coding); ``delta_mlp``: the stage-delta base and delta MLP kernels of
-the three hidden modes on 12850 rows, hidden 4096, row 25 as its two wgmma
-GEMMs, ``delta_fc1_exact`` and ``delta_fc2``, on the new build alone)
+re-coding); ``delta_mlp``: the stage-delta base MLP kernels of the three
+hidden modes on 12850 rows, hidden 4096, and the delta rows' wgmma GEMMs,
+``delta_fc1_exact``, ``delta_fc1_lin``, ``delta_fc1_g`` (rows 25, 23, 24)
+and ``delta_fc2``)
 with CUDA events, the two builds alternating base, new, new, base, ... on
 one card. The base must have this checkout's C interface (each entry point
 of ``ops/_build.SIGNATURES``); an entry point that it lacks is timed on the
@@ -231,7 +232,7 @@ def main(argv=None) -> None:
     g_s = torch.full((rows, 4), 0.005, device=dev)
     g_z = torch.full((rows, 4), 0.6, device=dev)
     m_out = torch.empty(rows, C, dtype=bf, device=dev)
-    # row 25's pieces: the codes of a stage delta, its hidden codes
+    # rows 23-25's pieces: the codes of a stage delta, its hidden codes
     dcodes = torch.randint(-127, 128, (rows, C), generator=g, device=dev,
                            dtype=torch.int8)
     dsr = torch.full((rows,), 1e-3, device=dev)
@@ -364,11 +365,6 @@ def main(argv=None) -> None:
             q2.scale.data_ptr(), b2.data_ptr(), cs4.data_ptr(),
             out.data_ptr(), m_out.data_ptr(), gp_q.data_ptr(),
             gp_s.data_ptr(), rows, C, hid, 4, 1e-5, s),
-        "delta_mlp_lin": lambda lib: lib.uspace_delta_mlp_lin(
-            x1.data_ptr(), x.data_ptr(), gp_q.data_ptr(), gp_s.data_ptr(),
-            m_out.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
-            q1.q.data_ptr(), q1.scale.data_ptr(), q2.q.data_ptr(),
-            q2.scale.data_ptr(), out.data_ptr(), rows, C, hid, 4, 1e-5, s),
         "base_mlp_e": lambda lib: lib.uspace_base_mlp_e(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), q1.q.data_ptr(),
             q1.scale.data_ptr(), b1.data_ptr(), q2.q.data_ptr(),
@@ -382,21 +378,25 @@ def main(argv=None) -> None:
             out.data_ptr(), m_out.data_ptr(), e_q.data_ptr(),
             e_s.data_ptr(), g_q.data_ptr(), g_s.data_ptr(), g_z.data_ptr(),
             rows, C, hid, 4, 1e-5, s),
-        # row 25's two GEMMs after its code pass (row 19's ln_delta_codes)
+        # rows 25, 23 and 24's fc1 and their fc2 after the code pass (row
+        # 19's ln_delta_codes)
         "delta_fc1_exact": lambda lib: lib.uspace_delta_fc1_exact(
             dcodes.data_ptr(), dsr.data_ptr(), q1.q.data_ptr(),
             q1.scale.data_ptr(), e_q.data_ptr(), e_s.data_ptr(),
             hq.data_ptr(), hsc.data_ptr(), rows, C, hid, 4, s),
+        "delta_fc1_lin": lambda lib: lib.uspace_delta_fc1_lin(
+            dcodes.data_ptr(), dsr.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), gp_q.data_ptr(), gp_s.data_ptr(),
+            hq.data_ptr(), hsc.data_ptr(), rows, C, hid, 4, s),
+        "delta_fc1_g": lambda lib: lib.uspace_delta_fc1_g(
+            dcodes.data_ptr(), dsr.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), e_q.data_ptr(), e_s.data_ptr(),
+            g_q.data_ptr(), g_s.data_ptr(), g_z.data_ptr(), hq.data_ptr(),
+            hsc.data_ptr(), rows, C, hid, 4, s),
         "delta_fc2": lambda lib: lib.uspace_delta_fc2(
             hq.data_ptr(), hsc.data_ptr(), q2.q.data_ptr(),
             q2.scale.data_ptr(), m_out.data_ptr(), x.data_ptr(),
             out.data_ptr(), rows, C, hid, 4, s),
-        "delta_mlp_g": lambda lib: lib.uspace_delta_mlp_g(
-            x1.data_ptr(), x.data_ptr(), e_q.data_ptr(), e_s.data_ptr(),
-            g_q.data_ptr(), g_s.data_ptr(), g_z.data_ptr(), m_out.data_ptr(),
-            lns.data_ptr(), lnb.data_ptr(), q1.q.data_ptr(),
-            q1.scale.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(),
-            out.data_ptr(), rows, C, hid, 4, 1e-5, s),
     })
     timed = set(_build.SIGNATURES[a.source])
     if a.source == "mlp_bf16":  # the ops that its pieces make up

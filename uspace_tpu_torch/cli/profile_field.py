@@ -56,25 +56,26 @@ from ..configs import get_config
 from .sample_lfm import QUANT_CHOICES, build_model
 from .train_lfm import train_attn_impl
 
-# delta_mlp.cu's block kernel is one template per strip width and hidden
-# mode (delta_mlp_kernel<NT1, Mode>): rows 22, 20 and 21 base, 23 and 24
-# delta; row 25 is its two wgmma GEMMs
+# delta_mlp.cu's block kernel is one template per strip width and base
+# row (delta_mlp_kernel<NT1, Mode>: rows 22, 20 and 21); the delta rows are
+# each a code pass, their fc1 instance (delta_fc1_kernel<Dg>: rows 25, 23
+# and 24) and the shared fc2
 _DELTA_MLP = tuple(
     (f"stage-delta MLP kernel, {what} (ours: row {row})",
      tuple(f"delta_mlp_kernel<{nt}, {mode}>" for nt in (2, 4, 6, 8)))
     for mode, what, row in ((0, "grad base", 22), (1, "exact base", 20),
-                            (2, "gelu base", 21), (3, "grad delta", 23),
-                            (5, "gelu delta", 24)))
+                            (2, "gelu base", 21))) + tuple(
+    (f"stage-delta MLP, {what} delta fc1 on wgmma (ours: row {row})",
+     (f"delta_fc1_kernel<{dg}>",))
+    for dg, what, row in ((0, "exact", 25), (1, "grad", 23), (2, "gelu", 24)))
 
 # kernel-name fragments -> the layer that launches them
 GROUPS = (
     ("stage-delta row passes (ours: rows 18-19's LN codes, int8 GEMM, "
-     "re-code; row 25's code pass)", (
+     "re-code; rows 23-25's code pass)", (
          "row_codes_kernel<", "int8_gemm_kernel", "recode_kernel")),
     *_DELTA_MLP,
-    ("stage-delta MLP, exact delta fc1 on wgmma (ours: row 25)",
-     ("delta_fc1_kernel",)),
-    ("stage-delta MLP, delta fc2 on wgmma (ours: row 25)",
+    ("stage-delta MLP, delta fc2 on wgmma (ours: rows 23-25)",
      ("delta_fc2_kernel",)),
     # rows 4 and 8 share one body, templated on the layout
     ("packed attention backward (ours: row 4)", (

@@ -1,0 +1,153 @@
+"""The delta MLP rows' pieces on the card at the main path's shape (12850
+rows, C 1024, hidden 4096, seeded inputs, the caches from the base
+kernels of rows 21 and 22): row 19's code pass, each row's fc1 (rows 25,
+23 and 24: ``exact``, ``lin``, ``g``) and fc2 timed apart, and each row's
+whole wrapper; then fc1 and fc2 of other builds of ``delta_mlp.cu`` (paths
+given as arguments, this checkout's C interface) timed alternating with
+this checkout's, their codes, scales and outputs compared with this
+checkout's bit for bit. One JSON line a piece and a build; CUDA events, 50
+calls after 3. Needs a CUDA card.
+
+    python -m uspace_tpu_torch.cli.time_delta_mlp [variant.cu ...]
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+from ..ops import _build, quant
+from ..ops import delta as dops
+from .kernel_ab import _load
+
+B, L, C = 50, 257, 1024
+ROWS, HIDDEN, STRIPS = B * L, 4 * C, 4
+MODES = ("exact", "lin", "g")  # rows 25, 23, 24
+
+
+def time_ms(fn, arg=None, iters=50):
+    """Device ms a call (CUDA events) and host us a call."""
+    for _ in range(3):
+        fn(arg)
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        if fn(arg):
+            raise RuntimeError("launch failed")
+    host = (time.perf_counter() - t0) / iters * 1e6
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters, host
+
+
+def main(argv=None) -> None:
+    paths = sys.argv[1:] if argv is None else argv
+    if not torch.cuda.is_available():
+        raise SystemExit("time_delta_mlp needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    f32 = torch.float32
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    xb = randn(ROWS, C)
+    x = (xb.float() + randn(ROWS, C, std=0.01, dtype=f32)).to(torch.bfloat16)
+    lns, lnb = 1 + randn(C, std=0.1, dtype=f32), randn(C, std=0.1, dtype=f32)
+    q1 = quant.quantized_weight(randn(HIDDEN, C, std=0.02, dtype=f32).t())
+    q2 = quant.quantized_weight(randn(C, HIDDEN, std=0.02, dtype=f32).t())
+    b1, b2 = randn(HIDDEN, std=0.02, dtype=f32), randn(C, std=0.02, dtype=f32)
+    w = (lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2, 1e-5)
+    with torch.no_grad():
+        _, e_q, e_s, m_e, *gc = dops.base_mlp_block(xb, *w, mode="e+g")
+        _, gp_q, gp_s, m_g = dops.base_mlp_block(xb, *w, mode="grad")
+    # each row's cache as its fc1 reads it, its m_b, and its wrapper's
+    # keyword arguments
+    caches = {"exact": ((e_q, e_s), m_e, {}),
+              "lin": ((gp_q, gp_s), m_g, dict(grad=True)),
+              "g": ((e_q, e_s, *gc), m_e, dict(gelu_cache=tuple(gc)))}
+    dw = (lns, lnb, q1.kn, q1.scale, q2.kn, q2.scale, 1e-5)
+    s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    codes = torch.empty(ROWS, C, dtype=torch.int8, device=dev)
+    sr = torch.empty(ROWS, device=dev)
+    hq = {m: torch.empty(ROWS, HIDDEN, dtype=torch.int8, device=dev)
+          for m in MODES}
+    hsc = {m: torch.empty(ROWS, STRIPS, device=dev) for m in MODES}
+    out = torch.empty_like(x)
+    da, dm = _build.load("delta_attention"), _build.load("delta_mlp")
+
+    def code_pass(_=None):
+        return da.uspace_ln_delta_codes(
+            x.data_ptr(), xb.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+            codes.data_ptr(), sr.data_ptr(), ROWS, C, 1e-5, s)
+
+    def fc1(mode, lib, hq_=None, hsc_=None):
+        hq_ = hq[mode] if hq_ is None else hq_
+        hsc_ = hsc[mode] if hsc_ is None else hsc_
+        return getattr(lib, f"uspace_delta_fc1_{mode}")(
+            codes.data_ptr(), sr.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), *(t.data_ptr() for t in caches[mode][0]),
+            hq_.data_ptr(), hsc_.data_ptr(), ROWS, C, HIDDEN, STRIPS, s)
+
+    def fc2(mode, lib, out_=out):
+        return lib.uspace_delta_fc2(
+            hq[mode].data_ptr(), hsc[mode].data_ptr(), q2.q.data_ptr(),
+            q2.scale.data_ptr(), caches[mode][1].data_ptr(), x.data_ptr(),
+            out_.data_ptr(), ROWS, C, HIDDEN, STRIPS, s)
+
+    def wrapper(mode):
+        with torch.no_grad():
+            dops.delta_mlp_block(x, xb, *caches[mode][0][:2],
+                                 caches[mode][1], *dw, **caches[mode][2])
+
+    card = torch.cuda.get_device_name(0)
+    code_pass()
+    ref = {}
+    for mode in MODES:
+        fc1(mode, dm)
+        fc2(mode, dm)
+        ref[mode] = (hq[mode].clone(), hsc[mode].clone(), out.clone())
+    pieces = [("code_pass", code_pass, None)]
+    for mode in MODES:
+        pieces += [(f"fc1_{mode}", lambda lib, m=mode: fc1(m, lib), dm),
+                   (f"fc2_{mode}", lambda lib, m=mode: fc2(m, lib), dm),
+                   (f"wrapper_{mode}", wrapper, mode)]
+    for name, fn, arg in pieces:
+        ms, host = time_ms(fn, arg)
+        print(json.dumps({"piece": name, "ms": ms, "host_us": host,
+                          "card": card}), flush=True)
+    for path in paths:
+        name = Path(path).stem
+        lib = _load("delta_mlp", path,
+                    str(_build.BUILD_DIR / f"var_{name}.so"))
+        row = {"variant": name, "card": card}
+        for mode in MODES:
+            hq_v, hsc_v, out_v = (torch.empty_like(t) for t in ref[mode])
+            fc1(mode, lib, hq_v, hsc_v)
+            torch.cuda.synchronize()
+            row[f"fc1_{mode}_bit_equal"] = (torch.equal(hq_v, ref[mode][0])
+                                            and torch.equal(hsc_v,
+                                                            ref[mode][1]))
+            fc2(mode, lib, out_v)
+            torch.cuda.synchronize()
+            row[f"fc2_{mode}_bit_equal"] = torch.equal(out_v, ref[mode][2])
+        for piece, fn, n in [(f"fc1_{m}", lambda lb, m=m: fc1(m, lb), 2)
+                             for m in MODES] + [
+                ("fc2", lambda lb: fc2("exact", lb), 1)]:
+            times = {"this": [], name: []}
+            for side in ("this", name, name, "this") * n:
+                times[side].append(time_ms(fn, dm if side == "this"
+                                           else lib)[0])
+            row[f"{piece}_ms"] = times
+        print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -62,10 +62,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_base_mlp_grad": (_P,) * 14 + (_I,) * 4 + (_F, _P),
         "uspace_base_mlp_e": (_P,) * 14 + (_I,) * 4 + (_F, _P),
         "uspace_base_mlp_eg": (_P,) * 17 + (_I,) * 4 + (_F, _P),
-        "uspace_delta_mlp_lin": (_P,) * 12 + (_I,) * 4 + (_F, _P),
         "uspace_delta_fc1_exact": (_P,) * 8 + (_I,) * 4 + (_P,),
+        "uspace_delta_fc1_lin": (_P,) * 8 + (_I,) * 4 + (_P,),
+        "uspace_delta_fc1_g": (_P,) * 11 + (_I,) * 4 + (_P,),
         "uspace_delta_fc2": (_P,) * 7 + (_I,) * 4 + (_P,),
-        "uspace_delta_mlp_g": (_P,) * 15 + (_I,) * 4 + (_F, _P),
     },
     "attention_fwd": {
         "uspace_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),

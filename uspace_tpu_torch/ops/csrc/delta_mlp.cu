@@ -12,15 +12,16 @@
 //     o = x + m, m = bf16(fc2(gelu(fc1(LN2(x))))) on the exact hidden,
 //     emitting gelu'(e) as int8 codes with one scale per row and strip (gp_q,
 //     gp_s) and m;
-//   uspace_delta_mlp_lin <- _delta_mlp_kernel_lin (row 23, "grad" delta)
-//     de = W1 q8(LN2(x) - LN2(x_b)); dg = de * deq(gp); m = m_b + W2 q8(dg)
-//     per strip; o = x + bf16(m);
-//   uspace_delta_mlp_g <- _delta_mlp_kernel_g (row 24, "gelu" delta)
-//     as row 23 with dg = gelu(deq(e_q) + de) - (f32(g_q) * g_s + g_z);
-//   row 25 <- _delta_mlp_kernel ("exact" delta), three launches that
-//     ops/delta.py issues: uspace_ln_delta_codes (delta_attention.cu, row 19's
-//     code pass) -> uspace_delta_fc1_exact -> uspace_delta_fc2; as row 23
-//     with dg = gelu(deq(e_q) + de) - gelu(deq(e_q)).
+//   rows 23-25, the delta rows, each three launches that ops/delta.py
+//     issues: uspace_ln_delta_codes (delta_attention.cu, row 19's code pass)
+//     -> the row's fc1 -> uspace_delta_fc2. de = W1 q8(LN2(x) - LN2(x_b));
+//     m = m_b + W2 q8(dg) per strip; o = x + bf16(m), with dg by row:
+//   row 23 <- _delta_mlp_kernel_lin ("grad" delta), uspace_delta_fc1_lin:
+//     dg = de * deq(gp);
+//   row 24 <- _delta_mlp_kernel_g ("gelu" delta), uspace_delta_fc1_g:
+//     dg = gelu(deq(e_q) + de) - (f32(g_q) * g_s + g_z);
+//   row 25 <- _delta_mlp_kernel ("exact" delta), uspace_delta_fc1_exact:
+//     dg = gelu(deq(e_q) + de) - gelu(deq(e_q)).
 //
 // Bound at the main path's shape (12850 rows, C = 1024, hidden 4096): 2 x 2 x
 // 12850 x 1024 x 4096 = 215.6 G int8 operations over an H100 SXM's 1,979 TOPS
@@ -59,33 +60,31 @@
 // and rsqrtf are the library's), so no multiply-add is contracted where the
 // TPU kernel rounds twice.
 //
-// Rows 20-24, design: mlp_int8.cu's block (rows 14-15), simple first;
+// Rows 20-22, design: mlp_int8.cu's block (rows 14-15), simple first;
 // wgmma/TMA are later work. One block of 16 warps per 32 rows; a strip's
 // codes need the whole strip of a row (1024 values at U-ViT-large), so a
-// block computes a 32 x
-// 1024 strip at once with the accumulators in registers (each warp 32 rows x
-// 64 columns), reduces the row statistics through shared memory, and codes
-// the strip into an int8 hidden tile [32, hidden] that never leaves shared
-// memory. Row 22 needs three statistics of a strip (max and min of GELU, max
-// |gelu'|) before it codes either, so it keeps e in the registers and
-// evaluates GELU and gelu' twice (the second time to code them). Rows 20-21
-// need two statistics one after the other (amax of e, then the range of GELU
-// of the coded e): the registers hold e, then are overwritten with g, one
-// GELU per value. Rows 23-25 read their cache per row and strip from device
-// memory in the fc1 epilogue and keep dg in the registers (row 24 evaluates
-// one GELU per value). fc2 walks 256 output columns at a time over all
-// strips. mma.sync m16n8k32 s8 x s8 -> s32; weight chunks stream through a
-// ring of two shared-memory stages by cp.async, XOR-swizzled by row. Dynamic
-// shared memory (~206 KB) is enabled per launch. That block held 32 rows (a
-// strip of 32 rows' f32 dg is 128 KB of registers), so every 32 rows
-// streamed both weights (8.4 MB, 3.4 GB from L2 a call), its 402 blocks of
-// one an SM ran 3.05 waves, and no product ran during the fc1 epilogue: row
-// 25 took 1.77 ms against a 108.9 us bound.
+// block computes a 32 x 1024 strip at once with the accumulators in
+// registers (each warp 32 rows x 64 columns), reduces the row statistics
+// through shared memory, and codes the strip into an int8 hidden tile [32,
+// hidden] that never leaves shared memory. Row 22 needs three statistics of
+// a strip (max and min of GELU, max |gelu'|) before it codes either, so it
+// keeps e in the registers and evaluates GELU and gelu' twice (the second
+// time to code them). Rows 20-21 need two statistics one after the other
+// (amax of e, then the range of GELU of the coded e): the registers hold e,
+// then are overwritten with g, one GELU per value. fc2 walks 256 output
+// columns at a time over all strips. mma.sync m16n8k32 s8 x s8 -> s32;
+// weight chunks stream through a ring of two shared-memory stages by
+// cp.async, XOR-swizzled by row. Dynamic shared memory (~206 KB) is enabled
+// per launch. The block holds 32 rows (a strip of 32 rows' f32 values is
+// 128 KB of registers), so every 32 rows stream both weights (8.4 MB, 3.4
+// GB from L2 a call), its 402 blocks of one an SM run 3.05 waves, and no
+// product runs during the fc1 epilogue: the delta rows took 1.41-1.77 ms on
+// it against a 108.9 us bound.
 //
-// Row 25, design (wgmma on TMA-fed tiles; rows 23-24 can take it by their
-// dg epilogue alone):
+// Rows 23-25, design (wgmma on TMA-fed tiles; one fc1 body templated on the
+// dg epilogue, delta_fc1_kernel<DG>):
 // - the code pass is row 19's (the same f32 LN2 difference, coded per row);
-// - uspace_delta_fc1_exact: de = codes . w1^T as a GEMM on wgmma m64n256k32
+// - fc1: de = codes . w1^T as a GEMM on wgmma m64n256k32
 //   s8 (the int8 projection of attention.cu's rows 5-6: a producer warp keeps
 //   TMA loads of 128-byte K chunks of both operands, 128-byte swizzle, in
 //   flight in a ring of three stages guarded by mbarriers; two consumer
@@ -94,9 +93,11 @@
 //   256 blocks (4 at U-ViT-large) takes one strip of 128 rows: each block
 //   stages its int32 tile in the free ring, where each of its twelve warps
 //   (the producer's too) takes whole rows and turns their 256 columns into
-//   dg in place (e_q's tile arrives by TMA
-//   beside the mainloop; the two GELUs run on few registers in a short
-//   loop, not unrolled over 128 accumulators), writes each row's partial
+//   dg in place (the cache's tile arrives by TMA beside the mainloop: e_q
+//   or gp_q, and row 24's g_q, two 32 KB tiles on one barrier; the GELUs
+//   run on few registers in a short loop, not unrolled over 128
+//   accumulators; the per-row, per-strip scales come from device memory
+//   in the epilogue), writes each row's partial
 //   amax into every block of the cluster (distributed shared memory), and
 //   after one cluster barrier codes its columns with the row's amax, a
 //   warp's 128 bytes of a row at once, into an [R, hidden] int8 workspace,
@@ -109,15 +110,17 @@
 //   hsc_j in strip order, then reset: int32 sums are exact, so the fold is
 //   the twin's to the bit.
 // On an H100 at the main path's shape (12850 rows, C 1024, hidden 4096) the
-// code pass takes 0.086 ms, fc1 0.447 and fc2 0.135. fc1's two GELUs (about
-// 100 instructions a hidden value) take about 0.19 ms at the issue rate,
-// while the block's tensor cores idle; its GEMM skeleton (loads, products,
-// the tile's round trip, the exchange) 0.21, of which the products need
-// 0.055. Measured and lost: multicasting the cluster's shared rows of codes
-// (L2 reads are not what binds), two 64-row blocks an SM (no overlap
-// gained), __frcp_rn for the erf's 1/x, two rows a warp iteration. fc2's
-// fold sits after each strip's K loop: inside it, under a branch, ptxas
-// serialised the wgmmas (C7518; 0.161 ms).
+// code pass takes 0.086 ms, fc2 0.135, and fc1 0.447 (row 25), 0.254 (row
+// 23) and 0.374-0.382 (row 24). Row 25's two GELUs (about 100 instructions a
+// hidden value) take about 0.19 ms at the issue rate, while the block's
+// tensor cores idle; the GEMM skeleton (loads, products, the tile's round
+// trip, the exchange) 0.21, of which the products need 0.055. Measured and
+// lost: multicasting the cluster's shared rows of codes (L2 reads are not
+// what binds), two 64-row blocks an SM (no overlap gained), __frcp_rn for
+// the erf's 1/x, two rows a warp iteration, row 24's g_q read by __ldg in
+// the epilogue instead of its TMA tile (2% slower). fc2's fold sits after
+// each strip's K loop: inside it, under a branch, ptxas serialised the
+// wgmmas (C7518; 0.161 ms).
 // Each entry point returns cudaGetLastError() or its first error.
 
 #include <cuda.h>
@@ -129,8 +132,8 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-// what a launch computes: a base row (writes a cache) or a delta row (reads it)
-enum Mode { GRAD = 0, EXACT = 1, EXACT_G = 2, LIN = 3, DELTA_G = 5 };
+// which base row a launch of the block kernel computes (the cache it writes)
+enum Mode { GRAD = 0, EXACT = 1, EXACT_G = 2 };
 
 constexpr int ROWS = 32;          // rows per block
 constexpr int WARPS = 16;
@@ -268,13 +271,12 @@ __device__ inline void row_stats(const uint4 (&v)[MAX_ROW_VEC], int nvec, int C,
   inv = rsqrtf(__fadd_rn(var, eps));
 }
 
-// Rows row0.. -> u = LN2(x) (DELTA: LN2(x) - LN2(x_b)) in f32 -> int8 codes
-// in xq (row stride ld) and xs = amax / 127 per row; rows >= R get zero
-// codes. One warp per row, the rows held in registers; u is evaluated twice
-// (for amax, then for the codes), the same operations both times.
-template <bool DELTA>
-__device__ void code_rows(const bf16* __restrict__ x, const bf16* __restrict__ xb,
-                          const float* __restrict__ ln_s, const float* __restrict__ ln_b,
+// Rows row0.. -> u = LN2(x) in f32 -> int8 codes in xq (row stride ld) and
+// xs = amax / 127 per row; rows >= R get zero codes. One warp per row, the
+// rows held in registers; u is evaluated twice (for amax, then for the
+// codes), the same operations both times.
+__device__ void code_rows(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+                          const float* __restrict__ ln_b,
                           int row0, int R, int C, float eps, int8_t* xq, int ld,
                           float* xs_s) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -288,27 +290,17 @@ __device__ void code_rows(const bf16* __restrict__ x, const bf16* __restrict__ x
       if (lane == 0) xs_s[rr] = 0.f;
       continue;
     }
-    uint4 v[MAX_ROW_VEC], vb[MAX_ROW_VEC];
+    uint4 v[MAX_ROW_VEC];
     const uint4* row = reinterpret_cast<const uint4*>(x + (size_t)r * C);
-    const uint4* rowb = reinterpret_cast<const uint4*>(xb + (size_t)r * C);
 #pragma unroll
     for (int i = 0; i < MAX_ROW_VEC; ++i)
-      if (lane + 32 * i < nvec) {
-        v[i] = __ldg(row + lane + 32 * i);
-        if (DELTA) vb[i] = __ldg(rowb + lane + 32 * i);
-      }
-    float mu, inv, mub = 0.f, invb = 0.f;
+      if (lane + 32 * i < nvec) v[i] = __ldg(row + lane + 32 * i);
+    float mu, inv;
     row_stats(v, nvec, C, eps, mu, inv);
-    if (DELTA) row_stats(vb, nvec, C, eps, mub, invb);
     auto u_at = [&](int i, int j) {
       const int c = (lane + 32 * i) * 8 + j;
-      const float s = __ldg(ln_s + c), b = __ldg(ln_b + c);
-      const float u =
-          ln_at(__bfloat162float(reinterpret_cast<const bf16*>(&v[i])[j]), mu, inv, s, b);
-      if (!DELTA) return u;
-      const float ub =
-          ln_at(__bfloat162float(reinterpret_cast<const bf16*>(&vb[i])[j]), mub, invb, s, b);
-      return __fsub_rn(u, ub);
+      return ln_at(__bfloat162float(reinterpret_cast<const bf16*>(&v[i])[j]), mu, inv,
+                   __ldg(ln_s + c), __ldg(ln_b + c));
     };
     float amax = 0.f;
 #pragma unroll
@@ -336,31 +328,25 @@ __device__ void code_rows(const bf16* __restrict__ x, const bf16* __restrict__ x
 }
 
 // The pointers of one launch. c_q / c_s: the cache of codes the base writes
-// (rows 20-22: e or gelu'(e), [R, hidden] int8 and [R, strips] f32) and the
-// delta reads (rows 23-25); g_q / g_s / g_z: the affine post-GELU cache row
-// 21 writes and row 24 reads.
+// (rows 20-22: e or gelu'(e), [R, hidden] int8 and [R, strips] f32); g_q /
+// g_s / g_z: the affine post-GELU cache row 21 writes.
 struct Args {
-  const void *x, *xb, *lns, *lnb, *w1, *s1, *b1, *w2, *s2, *b2, *colsum;
-  void *c_q, *c_s, *g_q, *g_s, *g_z;
-  const void* m_b;
-  void *m_out, *out;
+  const void *x, *lns, *lnb, *w1, *s1, *b1, *w2, *s2, *b2, *colsum;
+  void *c_q, *c_s, *g_q, *g_s, *g_z, *m_out, *out;
 };
 
 // NT1: 8-column tiles per warp in a strip (strip width 16 * NT1 * 8). MODE:
-// which row of the kernel table (Mode above).
+// which base row (Mode above).
 template <int NT1, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
-delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
-                 const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-                 const int8_t* __restrict__ w1, const float* __restrict__ s1,
-                 const float* __restrict__ b1, const int8_t* __restrict__ w2,
-                 const float* __restrict__ s2, const float* __restrict__ b2,
-                 const float* __restrict__ colsum, int8_t* __restrict__ c_q,
-                 float* __restrict__ c_s, int8_t* __restrict__ g_q,
-                 float* __restrict__ g_s, float* __restrict__ g_z,
-                 const bf16* __restrict__ m_b, bf16* __restrict__ m_out,
+delta_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+                 const float* __restrict__ ln_b, const int8_t* __restrict__ w1,
+                 const float* __restrict__ s1, const float* __restrict__ b1,
+                 const int8_t* __restrict__ w2, const float* __restrict__ s2,
+                 const float* __restrict__ b2, const float* __restrict__ colsum,
+                 int8_t* __restrict__ c_q, float* __restrict__ c_s, int8_t* __restrict__ g_q,
+                 float* __restrict__ g_s, float* __restrict__ g_z, bf16* __restrict__ m_out,
                  bf16* __restrict__ out, int R, int C, int strips, float eps) {
-  constexpr bool DELTA = MODE >= LIN;
   constexpr bool CODES_E = MODE == EXACT || MODE == EXACT_G;  // rows 20-21
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int HS = WARPS * NT1 * 8;  // strip width
@@ -382,7 +368,7 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
   float* es_s = reinterpret_cast<float*>(smem + lay.es_off);
   const int ld = lay.hq_ld;
 
-  code_rows<DELTA>(x, xb, ln_s, ln_b, row0, R, C, eps, xq, ld, xs_s);
+  code_rows(x, ln_s, ln_b, row0, R, C, eps, xq, ld, xs_s);
 
   // ---- fc1 + the strip epilogue, strip by strip ----
   const int nk1 = C / KC1, n1 = strips * nk1;
@@ -436,7 +422,7 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
     if (kc != nk1 - 1) continue;
 
     // strip j epilogue. This thread holds rows mt*16 + hh*8 + g, columns
-    // nt*8 + t*2 + {0, 1}; acc takes an f32 value (e, or dg) as its bits.
+    // nt*8 + t*2 + {0, 1}; acc takes an f32 value (e, or g) as its bits.
     float mx[2][2], mn[2][2], gx[2][2];
     auto reset_stats = [&]() {
 #pragma unroll
@@ -505,47 +491,19 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
     for (int nt = 0; nt < NT1; ++nt) {
       const int col = j * HS + warp * NT1 * 8 + nt * 8 + t * 2;
       const float sc0 = __ldg(s1 + col), sc1 = __ldg(s1 + col + 1);
-      float bi0 = 0.f, bi1 = 0.f;
-      if (!DELTA) {
-        bi0 = __ldg(b1 + col);
-        bi1 = __ldg(b1 + col + 1);
-      }
+      const float bi0 = __ldg(b1 + col), bi1 = __ldg(b1 + col + 1);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int r = mt * 16 + hh * 8 + g;
-          // the delta's cache of this row and strip: deq(gp) (row 23) or
-          // deq(e_q) (row 24), and row 24's affine anchor
-          float cv[2] = {0.f, 0.f}, gb[2] = {0.f, 0.f};
-          if (DELTA) {
-            const int rg = min(row0 + r, R - 1);
-            const char2 c2 = *reinterpret_cast<const char2*>(c_q + (size_t)rg * hidden + col);
-            const float csc = __ldg(c_s + (size_t)rg * strips + j);
-            cv[0] = __fmul_rn((float)c2.x, csc);
-            cv[1] = __fmul_rn((float)c2.y, csc);
-            if (MODE == DELTA_G) {
-              const char2 q2 =
-                  *reinterpret_cast<const char2*>(g_q + (size_t)rg * hidden + col);
-              const float gsc = __ldg(g_s + (size_t)rg * strips + j);
-              const float gzp = __ldg(g_z + (size_t)rg * strips + j);
-              gb[0] = __fadd_rn(__fmul_rn((float)q2.x, gsc), gzp);
-              gb[1] = __fadd_rn(__fmul_rn((float)q2.y, gsc), gzp);
-            }
-          }
 #pragma unroll
           for (int k = 0; k < 2; ++k) {
             const int e = hh * 2 + k;
-            const float base = __fmul_rn(__fmul_rn((float)acc[mt][nt][e], xs_s[r]),
-                                         k ? sc1 : sc0);
-            float v;  // what the registers keep: e (base rows) or dg (delta rows)
-            if (MODE == LIN) {
-              v = __fmul_rn(base, cv[k]);
-            } else if (MODE == DELTA_G) {
-              v = __fsub_rn(gelu(__fadd_rn(cv[k], base)), gb[k]);
-            } else {
-              v = __fadd_rn(base, k ? bi1 : bi0);
-            }
+            // e, kept in the registers as its bits
+            const float v = __fadd_rn(
+                __fmul_rn(__fmul_rn((float)acc[mt][nt][e], xs_s[r]), k ? sc1 : sc0),
+                k ? bi1 : bi0);
             acc[mt][nt][e] = __float_as_int(v);
             if (MODE == GRAD) {
               float gv, gpv;
@@ -563,9 +521,7 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
     __syncthreads();  // partials visible; every warp is done reading xq
     if (tid < ROWS) {
       const float sc127 = sym_scale();
-      if (DELTA) {
-        hsc_s[j * ROWS + tid] = sc127;
-      } else if (MODE == GRAD) {
+      if (MODE == GRAD) {
         affine_grid();
         if (row0 + tid < R) c_s[(size_t)(row0 + tid) * strips + j] = sc127;
       } else {  // rows 20-21: e's scale
@@ -621,12 +577,7 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
         for (int nt = 0; nt < NT1; ++nt) {
           const int cl = warp * NT1 * 8 + nt * 8 + t * 2;
           char2 c2, p2;
-          if (DELTA) {
-            c2.x = (signed char)__float2int_rn(
-                __fmul_rn(__int_as_float(acc[mt][nt][hh * 2]), gi));
-            c2.y = (signed char)__float2int_rn(
-                __fmul_rn(__int_as_float(acc[mt][nt][hh * 2 + 1]), gi));
-          } else if (MODE == GRAD) {
+          if (MODE == GRAD) {
             float g0, gp0, g1, gp1;
             gelu_and_grad(__int_as_float(acc[mt][nt][hh * 2]), g0, gp0);
             gelu_and_grad(__int_as_float(acc[mt][nt][hh * 2 + 1]), g1, gp1);
@@ -704,21 +655,15 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           const int col = o0 + cg * 32 + nt * 8 + t * 2;
-          float cs0 = 0.f, cs1 = 0.f;
-          if (!DELTA) {
-            cs0 = __ldg(colsum + j * out_dim + col);
-            cs1 = __ldg(colsum + j * out_dim + col + 1);
-          }
+          const float cs0 = __ldg(colsum + j * out_dim + col);
+          const float cs1 = __ldg(colsum + j * out_dim + col + 1);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int r = rg * 16 + (e >> 1) * 8 + g;
-            const float sc = hsc_s[j * ROWS + r];
-            const float term = __fmul_rn((float)d[nt][e], sc);
-            // base rows: + zp_j * colsum_j (the affine grid's zero point)
+            const float term = __fmul_rn((float)d[nt][e], hsc_s[j * ROWS + r]);
+            // + zp_j * colsum_j (the affine grid's zero point)
             accf[nt][e] = __fadd_rn(
-                accf[nt][e],
-                DELTA ? term
-                      : __fadd_rn(term, __fmul_rn(zp_s[j * ROWS + r], (e & 1) ? cs1 : cs0)));
+                accf[nt][e], __fadd_rn(term, __fmul_rn(zp_s[j * ROWS + r], (e & 1) ? cs1 : cs0)));
           }
         }
       }
@@ -727,28 +672,16 @@ delta_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
     for (int nt = 0; nt < 4; ++nt) {
       const int col = o0 + cg * 32 + nt * 8 + t * 2;
       const float w0 = __ldg(s2 + col), w1v = __ldg(s2 + col + 1);
-      float c0 = 0.f, c1 = 0.f;
-      if (!DELTA) {
-        c0 = __ldg(b2 + col);
-        c1 = __ldg(b2 + col + 1);
-      }
+      const float c0 = __ldg(b2 + col), c1 = __ldg(b2 + col + 1);
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int r = row0 + rg * 16 + hh * 8 + g;
         if (r >= R) continue;
         const size_t at = (size_t)r * out_dim + col;
-        __nv_bfloat162 m;
-        if (DELTA) {  // m = f32(m_b) + acc * s2
-          const __nv_bfloat162 mb = *reinterpret_cast<const __nv_bfloat162*>(m_b + at);
-          m.x = __float2bfloat16_rn(
-              __fadd_rn(__bfloat162float(mb.x), __fmul_rn(accf[nt][hh * 2], w0)));
-          m.y = __float2bfloat16_rn(
-              __fadd_rn(__bfloat162float(mb.y), __fmul_rn(accf[nt][hh * 2 + 1], w1v)));
-        } else {  // m = acc * s2 + b2
-          m.x = __float2bfloat16_rn(__fadd_rn(__fmul_rn(accf[nt][hh * 2], w0), c0));
-          m.y = __float2bfloat16_rn(__fadd_rn(__fmul_rn(accf[nt][hh * 2 + 1], w1v), c1));
-          *reinterpret_cast<__nv_bfloat162*>(m_out + at) = m;
-        }
+        __nv_bfloat162 m;  // m = acc * s2 + b2
+        m.x = __float2bfloat16_rn(__fadd_rn(__fmul_rn(accf[nt][hh * 2], w0), c0));
+        m.y = __float2bfloat16_rn(__fadd_rn(__fmul_rn(accf[nt][hh * 2 + 1], w1v), c1));
+        *reinterpret_cast<__nv_bfloat162*>(m_out + at) = m;
         const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(x + at);
         __nv_bfloat162 o;
         o.x = badd(xr.x, m.x);
@@ -768,11 +701,11 @@ int launch_nt(const Args& a, int R, int C, int strips, float eps, cudaStream_t s
                                       lay.bytes);
   if (err) return err;
   delta_mlp_kernel<NT1, MODE><<<(R + ROWS - 1) / ROWS, THREADS, lay.bytes, stream>>>(
-      (const bf16*)a.x, (const bf16*)a.xb, (const float*)a.lns, (const float*)a.lnb,
-      (const int8_t*)a.w1, (const float*)a.s1, (const float*)a.b1, (const int8_t*)a.w2,
-      (const float*)a.s2, (const float*)a.b2, (const float*)a.colsum, (int8_t*)a.c_q,
-      (float*)a.c_s, (int8_t*)a.g_q, (float*)a.g_s, (float*)a.g_z, (const bf16*)a.m_b,
-      (bf16*)a.m_out, (bf16*)a.out, R, C, strips, eps);
+      (const bf16*)a.x, (const float*)a.lns, (const float*)a.lnb, (const int8_t*)a.w1,
+      (const float*)a.s1, (const float*)a.b1, (const int8_t*)a.w2, (const float*)a.s2,
+      (const float*)a.b2, (const float*)a.colsum, (int8_t*)a.c_q, (float*)a.c_s,
+      (int8_t*)a.g_q, (float*)a.g_s, (float*)a.g_z, (bf16*)a.m_out, (bf16*)a.out, R, C,
+      strips, eps);
   return (int)cudaGetLastError();
 }
 
@@ -804,26 +737,17 @@ Args base_args(const void* x, const void* ln_scale, const void* ln_bias, const v
                const void* s1, const void* b1, const void* w2, const void* s2,
                const void* b2, const void* colsum, void* out, void* m_out, void* c_q,
                void* c_s, void* g_q, void* g_s, void* g_z) {
-  return Args{x,   nullptr, ln_scale, ln_bias, w1,  s1,      b1,    w2,  s2, b2,
-              colsum, c_q,  c_s,      g_q,     g_s, g_z, nullptr, m_out, out};
-}
-
-// The delta rows' pointers: x, x_b, m_b and the caches -> out.
-Args delta_args(const void* x, const void* xb, const void* c_q, const void* c_s,
-                const void* g_q, const void* g_s, const void* g_z, const void* m_b,
-                const void* ln_scale, const void* ln_bias, const void* w1, const void* s1,
-                const void* w2, const void* s2, void* out) {
-  return Args{x,   xb,      ln_scale, ln_bias,
-              w1,  s1,      nullptr,  w2,
-              s2,  nullptr, nullptr,  const_cast<void*>(c_q),
-              const_cast<void*>(c_s), const_cast<void*>(g_q),
-              const_cast<void*>(g_s), const_cast<void*>(g_z),
-              m_b, nullptr, out};
+  return Args{x, ln_scale, ln_bias, w1, s1, b1, w2, s2, b2, colsum, c_q, c_s, g_q, g_s,
+              g_z, m_out, out};
 }
 
 // ---------------------------------------------------------------------------
-// Row 25 on wgmma: fc1 with the dg epilogue, fc2 with the strip fold
+// Rows 23-25 on wgmma: fc1 with the dg epilogue, fc2 with the strip fold
 // ---------------------------------------------------------------------------
+
+// fc1's dg epilogue, by row: dg = gelu(e_b + de) - gelu(e_b) (row 25), de *
+// gp_b (row 23), gelu(e_b + de) - g_b (row 24)
+enum Dg { DG_EXACT = 0, DG_LIN = 1, DG_GELU = 2 };
 
 constexpr int W_BM = 128;       // rows a tile: two consumer warpgroups of 64
 constexpr int W_KB = 128;       // codes a K chunk: one 128-byte swizzle row
@@ -833,19 +757,22 @@ constexpr int F1_BN = 256, F1_STAGES = 3;  // fc1: 256 hidden columns a block
 constexpr int F2_BN = 128, F2_STAGES = 6;  // fc2: 128 output columns a block
 constexpr int F1_B = F1_BN * W_KB, F2_B = F2_BN * W_KB;
 constexpr int F1_RING = F1_STAGES * (W_A + F1_B);  // 144 KB
-constexpr int F1_EQ = W_BM * F1_BN;                // the block's e_q tile
+constexpr int F1_TILE = W_BM * F1_BN;              // the block's tile of a cache
 constexpr int MAX_CLUSTER = 1024 / F1_BN;          // blocks a strip, at most
 constexpr int F1_RED = MAX_CLUSTER * W_BM * 4;     // row amax partials
 constexpr int F1_INV = W_BM * 4;                   // 127 / amax of each row
-constexpr int F1_SMEM =
-    1024 + F1_RING + F1_EQ + F1_RED + F1_INV + 8 * (2 * F1_STAGES + 1);
+// the cache tiles fc1 reads: e_q or gp_q, and row 24's g_q
+__host__ __device__ constexpr int f1_tiles(int dg) { return dg == DG_GELU ? 2 : 1; }
+__host__ __device__ constexpr int f1_smem(int dg) {
+  return 1024 + F1_RING + f1_tiles(dg) * F1_TILE + F1_RED + F1_INV + 8 * (2 * F1_STAGES + 1);
+}
 constexpr int F2_RING = F2_STAGES * (W_A + F2_B);  // 192 KB
 constexpr int F2_SMEM = 1024 + F2_RING + 8 * 2 * F2_STAGES;
 // the epilogue's [W_BM][F1_D_LD] int32 / f32 tile in the ring: rows 8 words
 // apart mod 32, so a half-warp's 8-byte fragment stores fall on 32 banks
 constexpr int F1_D_LD = F1_BN + 8;
 static_assert(W_BM * F1_D_LD * 4 <= F1_RING, "the epilogue's tile fits in the ring");
-static_assert(F1_SMEM <= MAX_SMEM && F2_SMEM <= MAX_SMEM, "shared memory");
+static_assert(f1_smem(DG_GELU) <= MAX_SMEM && F2_SMEM <= MAX_SMEM, "shared memory");
 
 __device__ inline uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -1063,32 +990,45 @@ __device__ inline void init_ring(uint32_t full, uint32_t empty) {
   }
 }
 
-// dg of one hidden value: de = (f32(acc) * ds) * s1, e_b = f32(e_q) * e_s,
-// gelu(e_b + de) - gelu(e_b)
-__device__ inline float dg_exact(int acc, float ds, float s1, signed char eq, float es) {
+// dg of one hidden value: de = (f32(acc) * ds) * s1 and the cache's value c
+// = f32(c_q) * c_s (e_b for rows 24-25, gp_b = gelu'(e_b) for row 23); row
+// 24's anchor g_b = f32(g_q) * g_s + g_z, rounded twice
+template <int DG>
+__device__ inline float dg_of(int acc, float ds, float s1, signed char cq, float cs,
+                              signed char gq, float gs, float gz) {
   const float de = __fmul_rn(__fmul_rn(__int2float_rn(acc), ds), s1);
-  const float eb = __fmul_rn((float)eq, es);
-  return __fsub_rn(gelu(__fadd_rn(eb, de)), gelu(eb));
+  const float c = __fmul_rn((float)cq, cs);
+  if constexpr (DG == DG_LIN) return __fmul_rn(de, c);
+  const float g = gelu(__fadd_rn(c, de));
+  if constexpr (DG == DG_GELU) return __fsub_rn(g, __fadd_rn(__fmul_rn((float)gq, gs), gz));
+  return __fsub_rn(g, gelu(c));
 }
 
-// Row 25's fc1 piece: a [M, K] int8 codes of LN2(x) - LN2(x_b) with row
-// scales ds [M], w1 [N, K] int8 (torch layout) with s1 [N]; e_q [M, N] int8
-// with e_s [M, strips] -> hq [M, N] int8 and hsc [M, strips] f32, the codes
-// of dg per row and strip. A cluster of N / strips / F1_BN blocks along the
-// grid's x takes one strip of W_BM rows.
+// The fc1 piece of rows 23-25 (DG): a [M, K] int8 codes of LN2(x) -
+// LN2(x_b) with row scales ds [M], w1 [N, K] int8 (torch layout) with s1
+// [N]; the cache c_q [M, N] int8 (map_c) with c_s [M, strips] (e_q, e_s or
+// gp_q, gp_s) and, for row 24, g_q [M, N] int8 (map_g) with g_s, g_z [M,
+// strips] -> hq [M, N] int8 and hsc [M, strips] f32, the codes of dg per row
+// and strip. A cluster of N / strips / F1_BN blocks along the grid's x takes
+// one strip of W_BM rows.
+template <int DG>
 __global__ void __launch_bounds__(W_THREADS, 1)
 delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_w,
-                 const __grid_constant__ CUtensorMap map_e, const float* __restrict__ ds,
-                 const float* __restrict__ s1, const float* __restrict__ e_s,
+                 const __grid_constant__ CUtensorMap map_c,
+                 const __grid_constant__ CUtensorMap map_g, const float* __restrict__ ds,
+                 const float* __restrict__ s1, const float* __restrict__ c_s,
+                 const float* __restrict__ g_s, const float* __restrict__ g_z,
                  int8_t* __restrict__ hq, float* __restrict__ hsc, int M, int N, int K,
                  int strips) {
+  constexpr int TILES = f1_tiles(DG);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sa = (raw + 1023u) & ~1023u;  // the swizzle's 1024-byte atoms
   const uint32_t sb = sa + F1_STAGES * W_A;
-  const uint32_t se = sb + F1_STAGES * F1_B;  // e_q: two 128-column halves
-  const uint32_t sred = se + F1_EQ;           // [cluster][W_BM] partial amax
+  // the cache tiles (c_q, then row 24's g_q), each two 128-column halves
+  const uint32_t se = sb + F1_STAGES * F1_B;
+  const uint32_t sred = se + TILES * F1_TILE;  // [cluster][W_BM] partial amax
   const uint32_t sinv = sred + F1_RED;        // [W_BM] 127 / amax
   const uint32_t full = sinv + F1_INV, empty = full + 8 * F1_STAGES,
                  ebar = empty + 8 * F1_STAGES;
@@ -1107,9 +1047,13 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
   int* tile = reinterpret_cast<int*>(ring);
   if (wg == 0) {  // producer: one thread issues every load
     if (threadIdx.x == 0) {
-      mbar_expect_tx(ebar, F1_EQ);
-      tma_load_2d(se, &map_e, n0, m0, ebar);
-      tma_load_2d(se + F1_EQ / 2, &map_e, n0 + F1_BN / 2, m0, ebar);
+      mbar_expect_tx(ebar, TILES * F1_TILE);
+      tma_load_2d(se, &map_c, n0, m0, ebar);
+      tma_load_2d(se + F1_TILE / 2, &map_c, n0 + F1_BN / 2, m0, ebar);
+      if (TILES == 2) {
+        tma_load_2d(se + F1_TILE, &map_g, n0, m0, ebar);
+        tma_load_2d(se + F1_TILE + F1_TILE / 2, &map_g, n0 + F1_BN / 2, m0, ebar);
+      }
       produce<F1_STAGES, F1_B>(&map_a, &map_w, sa, sb, full, empty, nk, m0, n0);
     }
   } else {
@@ -1150,31 +1094,40 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
   const float4 sc0 = __ldg(reinterpret_cast<const float4*>(s1 + n0) + lane);
   const float4 sc1 = __ldg(reinterpret_cast<const float4*>(s1 + n0 + 128) + lane);
   mbar_wait(ebar, 0);
-  const unsigned char* eq = smem_raw + (se - raw);
-  // e_q's 4 codes at (row r, column c) in its swizzled halves: 16-byte chunk
-  // k of a 128-byte row r sits at chunk k ^ (r % 8)
-  auto eq4 = [&](int r, int c) {
+  const unsigned char* ct0 = smem_raw + (se - raw);
+  // a cache tile's 4 codes at (row r, column c) in its swizzled halves:
+  // 16-byte chunk k of a 128-byte row r sits at chunk k ^ (r % 8)
+  auto tile4 = [&](int t, int r, int c) {
     const int b = c & 127;
-    return *reinterpret_cast<const char4*>(eq + (c >> 7) * (F1_EQ / 2) + r * 128 +
-                                           (((b >> 4) ^ (r & 7)) << 4) + (b & 15));
+    return *reinterpret_cast<const char4*>(ct0 + t * F1_TILE + (c >> 7) * (F1_TILE / 2) +
+                                           r * 128 + (((b >> 4) ^ (r & 7)) << 4) + (b & 15));
   };
   for (int r = warp; r < W_BM; r += EPI_WARPS) {
     const int gr = m0 + r;
-    const float dsr = gr < M ? __ldg(ds + gr) : 0.f;
-    const float esr = gr < M ? __ldg(e_s + (size_t)gr * strips + j) : 0.f;
+    const bool live = gr < M;
+    const size_t at = (size_t)gr * strips + j;
+    const float dsr = live ? __ldg(ds + gr) : 0.f;
+    const float csr = live ? __ldg(c_s + at) : 0.f;
+    const float gsr = DG == DG_GELU && live ? __ldg(g_s + at) : 0.f;
+    const float gzr = DG == DG_GELU && live ? __ldg(g_z + at) : 0.f;
     int4* p0 = reinterpret_cast<int4*>(tile + r * F1_D_LD) + lane;
     int4* p1 = reinterpret_cast<int4*>(tile + r * F1_D_LD + 128) + lane;
     const int4 a0 = *p0, a1 = *p1;
-    const char4 e0 = eq4(r, 4 * lane), e1 = eq4(r, 128 + 4 * lane);
+    const char4 e0 = tile4(0, r, 4 * lane), e1 = tile4(0, r, 128 + 4 * lane);
+    char4 q0 = make_char4(0, 0, 0, 0), q1 = q0;
+    if (DG == DG_GELU) {
+      q0 = tile4(1, r, 4 * lane);
+      q1 = tile4(1, r, 128 + 4 * lane);
+    }
     float4 v0, v1;
-    v0.x = dg_exact(a0.x, dsr, sc0.x, e0.x, esr);
-    v0.y = dg_exact(a0.y, dsr, sc0.y, e0.y, esr);
-    v0.z = dg_exact(a0.z, dsr, sc0.z, e0.z, esr);
-    v0.w = dg_exact(a0.w, dsr, sc0.w, e0.w, esr);
-    v1.x = dg_exact(a1.x, dsr, sc1.x, e1.x, esr);
-    v1.y = dg_exact(a1.y, dsr, sc1.y, e1.y, esr);
-    v1.z = dg_exact(a1.z, dsr, sc1.z, e1.z, esr);
-    v1.w = dg_exact(a1.w, dsr, sc1.w, e1.w, esr);
+    v0.x = dg_of<DG>(a0.x, dsr, sc0.x, e0.x, csr, q0.x, gsr, gzr);
+    v0.y = dg_of<DG>(a0.y, dsr, sc0.y, e0.y, csr, q0.y, gsr, gzr);
+    v0.z = dg_of<DG>(a0.z, dsr, sc0.z, e0.z, csr, q0.z, gsr, gzr);
+    v0.w = dg_of<DG>(a0.w, dsr, sc0.w, e0.w, csr, q0.w, gsr, gzr);
+    v1.x = dg_of<DG>(a1.x, dsr, sc1.x, e1.x, csr, q1.x, gsr, gzr);
+    v1.y = dg_of<DG>(a1.y, dsr, sc1.y, e1.y, csr, q1.y, gsr, gzr);
+    v1.z = dg_of<DG>(a1.z, dsr, sc1.z, e1.z, csr, q1.z, gsr, gzr);
+    v1.w = dg_of<DG>(a1.w, dsr, sc1.w, e1.w, csr, q1.w, gsr, gzr);
     *reinterpret_cast<float4*>(p0) = v0;
     *reinterpret_cast<float4*>(p1) = v1;
     float m = fmaxf(fmaxf(fmaxf(fabsf(v0.x), fabsf(v0.y)), fmaxf(fabsf(v0.z), fabsf(v0.w))),
@@ -1340,17 +1293,21 @@ inline bool bad_wgmma_shape(int R, int C, int hidden, int strips) {
   return hs % F1_BN || hs > MAX_CLUSTER * F1_BN || C < F2_BN || C % F2_BN;
 }
 
+// fc1 of row DG; g_q, g_s, g_z are row 24's and are not read by the others
+template <int DG>
 int launch_delta_fc1(const void* codes, const void* sr, const void* w1, const void* s1,
-                     const void* e_q, const void* e_s, void* hq, void* hsc, int R, int C,
-                     int hidden, int strips, cudaStream_t stream) {
+                     const void* c_q, const void* c_s, const void* g_q, const void* g_s,
+                     const void* g_z, void* hq, void* hsc, int R, int C, int hidden,
+                     int strips, cudaStream_t stream) {
   if (bad_wgmma_shape(R, C, hidden, strips)) return (int)cudaErrorInvalidValue;
-  CUtensorMap ma, mw, me;
+  CUtensorMap ma, mw, mc, mg;
   int err = make_map(&ma, codes, R, C, W_BM);
   if (!err) err = make_map(&mw, w1, hidden, C, F1_BN);
-  if (!err) err = make_map(&me, e_q, R, hidden, W_BM);
+  if (!err) err = make_map(&mc, c_q, R, hidden, W_BM);
+  if (!err) err = make_map(&mg, DG == DG_GELU ? g_q : c_q, R, hidden, W_BM);
   if (!err)
-    err = (int)cudaFuncSetAttribute(delta_fc1_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, F1_SMEM);
+    err = (int)cudaFuncSetAttribute(delta_fc1_kernel<DG>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, f1_smem(DG));
   if (err) return err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1360,13 +1317,14 @@ int launch_delta_fc1(const void* codes, const void* sr, const void* w1, const vo
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(hidden / F1_BN, (R + W_BM - 1) / W_BM);
   cfg.blockDim = dim3(W_THREADS);
-  cfg.dynamicSmemBytes = F1_SMEM;
+  cfg.dynamicSmemBytes = f1_smem(DG);
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = (int)cudaLaunchKernelEx(&cfg, delta_fc1_kernel, ma, mw, me, (const float*)sr,
-                                (const float*)s1, (const float*)e_s, (int8_t*)hq,
-                                (float*)hsc, R, hidden, C, strips);
+  err = (int)cudaLaunchKernelEx(&cfg, delta_fc1_kernel<DG>, ma, mw, mc, mg, (const float*)sr,
+                                (const float*)s1, (const float*)c_s, (const float*)g_s,
+                                (const float*)g_z, (int8_t*)hq, (float*)hsc, R, hidden, C,
+                                strips);
   return err ? err : (int)cudaGetLastError();
 }
 
@@ -1430,32 +1388,6 @@ int uspace_base_mlp_eg(const void* x, const void* ln_scale, const void* ln_bias,
                          R, C, hidden, strips, eps, stream);
 }
 
-// Row 23. x, x_b, m_b [R, C] bf16; gp_q [R, hidden] int8, gp_s [R, strips]
-// f32 (row 22's cache); f32 ln_scale, ln_bias [C]; w1 [hidden, C] int8 with
-// s1 [hidden]; w2 [C, hidden] int8 with s2 [C] -> out [R, C] bf16.
-int uspace_delta_mlp_lin(const void* x, const void* xb, const void* gp_q,
-                         const void* gp_s, const void* m_b, const void* ln_scale,
-                         const void* ln_bias, const void* w1, const void* s1,
-                         const void* w2, const void* s2, void* out, int R, int C,
-                         int hidden, int strips, float eps, void* stream) {
-  return launch<LIN>(delta_args(x, xb, gp_q, gp_s, nullptr, nullptr, nullptr, m_b, ln_scale,
-                                ln_bias, w1, s1, w2, s2, out),
-                     R, C, hidden, strips, eps, stream);
-}
-
-// Row 24. As row 23, with row 20's e_q [R, hidden] int8 and e_s [R, strips]
-// f32 in place of gp_q and gp_s, and row 21's g_q [R, hidden] int8, g_s, g_z
-// [R, strips] f32.
-int uspace_delta_mlp_g(const void* x, const void* xb, const void* e_q, const void* e_s,
-                       const void* g_q, const void* g_s, const void* g_z, const void* m_b,
-                       const void* ln_scale, const void* ln_bias, const void* w1,
-                       const void* s1, const void* w2, const void* s2, void* out, int R,
-                       int C, int hidden, int strips, float eps, void* stream) {
-  return launch<DELTA_G>(delta_args(x, xb, e_q, e_s, g_q, g_s, g_z, m_b, ln_scale, ln_bias,
-                                    w1, s1, w2, s2, out),
-                         R, C, hidden, strips, eps, stream);
-}
-
 // Row 25's fc1: codes [R, C] int8 with sr [R] f32 (uspace_ln_delta_codes of x
 // and x_b), w1 [hidden, C] int8 (torch layout) with s1 [hidden] f32, e_q [R,
 // hidden] int8 with e_s [R, strips] f32 (row 20's cache) -> hq [R, hidden]
@@ -1464,8 +1396,28 @@ int uspace_delta_mlp_g(const void* x, const void* xb, const void* e_q, const voi
 int uspace_delta_fc1_exact(const void* codes, const void* sr, const void* w1,
                            const void* s1, const void* e_q, const void* e_s, void* hq,
                            void* hsc, int R, int C, int hidden, int strips, void* stream) {
-  return launch_delta_fc1(codes, sr, w1, s1, e_q, e_s, hq, hsc, R, C, hidden, strips,
-                          (cudaStream_t)stream);
+  return launch_delta_fc1<DG_EXACT>(codes, sr, w1, s1, e_q, e_s, nullptr, nullptr, nullptr,
+                                    hq, hsc, R, C, hidden, strips, (cudaStream_t)stream);
+}
+
+// Row 23's fc1: as row 25's with gp_q [R, hidden] int8 and gp_s [R, strips]
+// f32 (row 22's cache of gelu'(e)) in place of e_q and e_s: dg = de *
+// deq(gp_q).
+int uspace_delta_fc1_lin(const void* codes, const void* sr, const void* w1, const void* s1,
+                         const void* gp_q, const void* gp_s, void* hq, void* hsc, int R,
+                         int C, int hidden, int strips, void* stream) {
+  return launch_delta_fc1<DG_LIN>(codes, sr, w1, s1, gp_q, gp_s, nullptr, nullptr, nullptr,
+                                  hq, hsc, R, C, hidden, strips, (cudaStream_t)stream);
+}
+
+// Row 24's fc1: as row 25's, and row 21's g_q [R, hidden] int8 with g_s, g_z
+// [R, strips] f32: dg = gelu(deq(e_q) + de) - (f32(g_q) * g_s + g_z).
+int uspace_delta_fc1_g(const void* codes, const void* sr, const void* w1, const void* s1,
+                       const void* e_q, const void* e_s, const void* g_q, const void* g_s,
+                       const void* g_z, void* hq, void* hsc, int R, int C, int hidden,
+                       int strips, void* stream) {
+  return launch_delta_fc1<DG_GELU>(codes, sr, w1, s1, e_q, e_s, g_q, g_s, g_z, hq, hsc, R, C,
+                                   hidden, strips, (cudaStream_t)stream);
 }
 
 // fc2 of the delta rows: hq [R, hidden] int8 with hsc [R, strips] f32, w2 [C,

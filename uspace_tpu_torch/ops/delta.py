@@ -27,11 +27,11 @@ kernels, hand-written in CUDA C++ for Hopper:
   deq(e_q) + de) - gelu(deq(e_q))`` (``_delta_mlp_kernel``, the default),
   ``dg = gelu(deq(e_q) + de) - deq(g_q)`` with ``gelu_cache``
   (``_delta_mlp_kernel_g``), or ``dg = de * deq(gp)`` with ``grad=True``
-  (``_delta_mlp_kernel_lin``: no GELU at all). The default is three
-  launches counted as one: row 19's code pass of ``LN2(x) - LN2(x_b)``
-  (``csrc/delta_attention.cu``), fc1 on wgmma with the dg epilogue, its
-  codes per row and strip into an int8 workspace, then fc2 on wgmma with
-  the strips' sums folded in order.
+  (``_delta_mlp_kernel_lin``: no GELU at all). Each is three launches
+  counted as one: row 19's code pass of ``LN2(x) - LN2(x_b)``
+  (``csrc/delta_attention.cu``), fc1 on wgmma with the mode's dg epilogue,
+  its codes per row and strip into an int8 workspace, then fc2 on wgmma
+  with the strips' sums folded in order.
 
 Rounding sites, shared by each kernel and its plain twin here:
 
@@ -521,36 +521,30 @@ def _delta_mlp_kernel(x2d, xb2d, c_q, c_s, gelu_cache, mb2d, ln_scale,
         check_tensor("g_s", g_s, torch.float32, (r, strips), dev)
         check_tensor("g_z", g_z, torch.float32, (r, strips), dev)
         cache += (g_q, g_s, g_z)
+    # three launches: row 19's code pass, the mode's fc1, fc2; the mode
+    # names both the fc1 entry and the launch count
+    mode = "lin" if grad else "exact" if gelu_cache is None else "g"
+    fc1 = f"uspace_delta_fc1_{mode}"
     o = torch.empty_like(x2d)
     stream = cuda_stream(dev)
-    if not grad and gelu_cache is None:  # row 25: three launches
-        codes = torch.empty((r, c), dtype=torch.int8, device=dev)
-        sr = torch.empty((r,), dtype=torch.float32, device=dev)
-        hq = torch.empty((r, hidden), dtype=torch.int8, device=dev)
-        hsc = torch.empty((r, strips), dtype=torch.float32, device=dev)
-        lib = load("delta_mlp")
-        raise_on(load("delta_attention").uspace_ln_delta_codes(
-            x2d.data_ptr(), xb2d.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
-            codes.data_ptr(), sr.data_ptr(), r, c, eps, stream),
-            "uspace_ln_delta_codes")
-        raise_on(lib.uspace_delta_fc1_exact(
-            codes.data_ptr(), sr.data_ptr(), w1.data_ptr(), s1f.data_ptr(),
-            c_q.data_ptr(), c_s.data_ptr(), hq.data_ptr(), hsc.data_ptr(), r,
-            c, hidden, strips, stream), "uspace_delta_fc1_exact")
-        raise_on(lib.uspace_delta_fc2(
-            hq.data_ptr(), hsc.data_ptr(), w2.data_ptr(), s2f.data_ptr(),
-            mb2d.data_ptr(), x2d.data_ptr(), o.data_ptr(), r, c, hidden,
-            strips, stream), "uspace_delta_fc2")
-        LAUNCHES["delta_mlp_exact"] += 1
-        return o
-    name = "delta_mlp_lin" if grad else "delta_mlp_g"
-    rc = getattr(load("delta_mlp"), "uspace_" + name)(
-        x2d.data_ptr(), xb2d.data_ptr(), *(t.data_ptr() for t in cache),
-        mb2d.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w1.data_ptr(),
-        s1f.data_ptr(), w2.data_ptr(), s2f.data_ptr(), o.data_ptr(), r, c,
-        hidden, strips, eps, stream)
-    raise_on(rc, "uspace_" + name)
-    LAUNCHES[name] += 1
+    codes = torch.empty((r, c), dtype=torch.int8, device=dev)
+    sr = torch.empty((r,), dtype=torch.float32, device=dev)
+    hq = torch.empty((r, hidden), dtype=torch.int8, device=dev)
+    hsc = torch.empty((r, strips), dtype=torch.float32, device=dev)
+    lib = load("delta_mlp")
+    raise_on(load("delta_attention").uspace_ln_delta_codes(
+        x2d.data_ptr(), xb2d.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+        codes.data_ptr(), sr.data_ptr(), r, c, eps, stream),
+        "uspace_ln_delta_codes")
+    raise_on(getattr(lib, fc1)(
+        codes.data_ptr(), sr.data_ptr(), w1.data_ptr(), s1f.data_ptr(),
+        *(t.data_ptr() for t in cache), hq.data_ptr(), hsc.data_ptr(), r, c,
+        hidden, strips, stream), fc1)
+    raise_on(lib.uspace_delta_fc2(
+        hq.data_ptr(), hsc.data_ptr(), w2.data_ptr(), s2f.data_ptr(),
+        mb2d.data_ptr(), x2d.data_ptr(), o.data_ptr(), r, c, hidden, strips,
+        stream), "uspace_delta_fc2")
+    LAUNCHES[f"delta_mlp_{mode}"] += 1
     return o
 
 
