@@ -24,7 +24,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    MLP rows 25, 23 and 24 each against its twin (max-abs printed) and
    repeated bit-equal, at the base's own point rows 25 and 23 equal to rows
    20 and 22's outputs bit for bit and row 24 within DELTA_G_ZERO_REL of
-   row 21's;
+   row 21's; rows 15 and 19 by their pieces: row 15's code pass, fc1 and
+   fc2 and row 19's code pass and two GEMMs each bit-equal to its twin on
+   the same inputs, row 15's sub-block to its pieces and to a repeat;
    for each int8 and w8 kernel, controls (twins with one rounding site
    changed) that the same limits must refuse; kernel, twin and library-call
    times with CUDA events; the bound of the same work on an H100 SXM (the
@@ -673,6 +675,7 @@ def check_kernels(torch, F, attn, mlpk, quant):
             f", {term})")
         (results if case.get("listed", True) else shapes).append(r)
     problems += piece_checks(torch, attn, quant, randn)
+    problems += row15_19_piece_checks(torch, mlpk, quant, randn)
     problems += delta_mlp_checks(torch, quant, randn)
     if problems:
         fail("; ".join(problems))
@@ -724,6 +727,82 @@ def piece_checks(torch, attn, quant, randn):
         log(f"piece packed_attention_bwd at 11 tile edges, B=2 H={h} "
             f"D={C // h}: worst max_abs {worst[0]:.3e} rel_l2 {worst[1]:.3e}, "
             f"repeats {'bit-equal' if repeats else 'DIFFER'}")
+    return problems
+
+
+def row15_19_piece_checks(torch, mlpk, quant, randn):
+    """Rows 15 and 19 by their pieces at the main path's shapes (12850
+    rows, C 1024, hidden 4096; B = 50, L = 257, Lp = 288): row 15's code
+    pass bit-equal to ``row_codes`` of the bf16-chain LN2 in lane order, its
+    fc1 (codes, scales, zero points) and fc2 bit-equal to their twins on the
+    same inputs, the sub-block bit-equal to its pieces and to a repeat; row
+    19's code pass bit-equal to ``ln_delta_codes_plain``, its qkv and xm
+    GEMMs bit-equal to the twins' dequantised products on the same codes.
+    Returns what disagreed."""
+    from uspace_tpu_torch.ops import delta as dops
+    f32, bf = torch.float32, torch.bfloat16
+    rows, hid, strips = B * L, 4 * C, 4
+    problems = []
+    x = randn(rows, C)
+    lns, lnb = 1.0 + randn(C, std=0.1, dtype=f32), randn(C, std=0.1,
+                                                         dtype=f32)
+    w1, w2 = randn(hid, C, std=0.02, dtype=f32).t(), randn(
+        C, hid, std=0.02, dtype=f32).t()
+    b1, b2 = randn(hid, std=0.02, dtype=f32), randn(C, std=0.02, dtype=f32)
+    q1, q2 = quant.quantized_weight(w1), quant.quantized_weight(w2)
+    with torch.no_grad():
+        codes, sr = mlpk._int8_codes_kernel(x, lns, lnb, 1e-5)
+        xf = x.float()
+        mu = quant.true_div(dops._lane_sum(xf), C)
+        var = quant.true_div(dops._lane_sum(xf * xf), C) - mu * mu
+        xln = ((x - mu.to(bf)) * torch.rsqrt(var + 1e-5).to(bf) * lns.to(bf)
+               + lnb.to(bf))
+        ref_q, ref_s = quant.row_codes(xln.float())
+        hq, hsc, hzp = mlpk._int8_fc1_kernel(codes, sr, q1, b1, strips)
+        twin = mlpk.mlp_int8_fc1_plain(codes, sr[:, None], q1, b1, strips)
+        out = mlpk._int8_fc2_kernel(hq, hsc, hzp, q2, b2, q2.colsums(strips),
+                                    x)
+        ref = mlpk.mlp_int8_fc2_plain(hq, hsc, hzp, q2, b2, x)
+        block = mlpk.fused_mlp_block_q(x, lns, lnb, w1, b1, w2, b2)
+        again = mlpk.fused_mlp_block_q(x, lns, lnb, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    checks = dict(
+        code_pass=torch.equal(codes, ref_q) and torch.equal(
+            sr, ref_s.reshape(-1)),
+        fc1=all(torch.equal(a, t) for a, t in zip((hq, hsc, hzp), twin)),
+        fc2=torch.equal(out, ref),
+        pieces_and_repeat=torch.equal(block, out) and torch.equal(block,
+                                                                  again))
+    log(f"piece ln_mlp_int8, {rows} rows: " + ", ".join(
+        f"{k} {'bit-equal' if v else 'DIFFERS'}" for k, v in checks.items()))
+    problems += [f"row 15's {k} differs" for k, v in checks.items() if not v]
+    del hq, twin, block, again
+    lp = dops.round_up(L, dops.SEQ_ALIGN)
+    xb = randn(rows, C, std=STREAM_STD)
+    xs = (xb.float() + randn(rows, C, std=STAGE_GAP * STREAM_STD,
+                             dtype=f32)).to(bf)
+    qw = quant.quantized_weight(randn(3 * C, C, std=0.02, dtype=f32).t())
+    qp = quant.quantized_weight(randn(C, C, std=0.02, dtype=f32).t())
+    qkv_q = (randn(B, lp, 3 * C, std=50.0, dtype=f32).round()
+             .clamp(-127, 127).to(torch.int8))
+    qkv_s = randn(B, lp, 1, std=0.01, dtype=f32).abs()
+    with torch.no_grad():
+        codes, sr = dops._ln_delta_codes_kernel(xs, xb, lns, lnb, 1e-5)
+        ref_q, ref_s = dops.ln_delta_codes_plain(xs, xb, lns, lnb, 1e-5)
+        qkv = dops._qkv_delta_kernel(codes, sr, qw.q, qw.scale, qkv_q, qkv_s,
+                                     L)
+        xm = dops._xm_delta_kernel(codes, sr, qp.q, qp.scale, xs, xb, x)
+    torch.cuda.synchronize()
+    checks = dict(
+        code_pass=torch.equal(codes, ref_q) and torch.equal(
+            sr, ref_s.reshape(-1)),
+        qkv_gemm=torch.equal(qkv, dops.qkv_delta_plain(
+            codes, sr[:, None], qw.kn, qw.scale, qkv_q, qkv_s, L)),
+        xm_gemm=torch.equal(xm, dops.xm_delta_plain(
+            codes, sr[:, None], qp.kn, qp.scale, xs, xb, x)))
+    log(f"piece delta_attn, B={B} L={L} (Lp={lp}): " + ", ".join(
+        f"{k} {'bit-equal' if v else 'DIFFERS'}" for k, v in checks.items()))
+    problems += [f"row 19's {k} differs" for k, v in checks.items() if not v]
     return problems
 
 
@@ -829,9 +908,9 @@ def mlp_control(torch, attn, mlpk, quant, x, q1, b1, q2, b2, strips, change,
         m = (torch.matmul(h, q2.kn.float() * q2.scale) + b2.float()).to(
             x.dtype)
     else:
-        m = mlpk._mlp_int8_core(
-            *codes, q1, b1, q2, b2,
-            1 if change == "one hidden grid per row" else strips, x.dtype)
+        m = mlpk.mlp_int8_fc2_plain(*mlpk.mlp_int8_fc1_plain(
+            *codes, q1, b1, 1 if change == "one hidden grid per row"
+            else strips), q2, b2, x, residual=False)
     return m if ln is None else x + m
 
 
@@ -893,7 +972,10 @@ def int8_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
     mbytes = io(q1.q, q1.scale, b1, q2.q, q2.scale, b2)
     mshape = f"rows={rows} C={C} hidden={hid} strips={strips} bf16/int8"
     ashape = f"B={B} L={L} C={C} H={H} bf16/int8"
+    # row 15 runs delta_mlp.cu's wgmma GEMMs after its code pass; row 14
+    # keeps mlp_int8.cu's block kernel
     mlp_src = "uspace_tpu_torch/ops/csrc/mlp_int8.cu"
+    lnmlp_src = "uspace_tpu_torch/ops/csrc/delta_mlp.cu"
     a_tol, m_tol = (None, INT8_ATTN_REL_L2), (None, INT8_MLP_REL_L2)
     return [
         dict(name="ln_qkvproj_attention_int8",
@@ -918,7 +1000,7 @@ def int8_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
              bytes=io(x) + wbytes + io(x), flops=attn_flops,
              int8_ops=proj_ops, tol=a_tol, shape=ashape,
              controls=a_ctl("x coded by division", "a bf16 projection")),
-        dict(name="ln_mlp_int8", source=mlp_src,
+        dict(name="ln_mlp_int8", source=lnmlp_src,
              replaces="uspace_tpu/ops/mlp.py:225 (_mlp_kernel_int8_lnres)",
              kernel=lambda: mlpk.fused_mlp_block_q(xr, lns, lnb, w1, b1, w2,
                                                    b2),

@@ -410,6 +410,70 @@ def test_int8_mlp_kernels_match_twins(cuda, rows, c):
                                           1e-5), INT8_MLP_REL_L2, x)
 
 
+@pytest.mark.parametrize("c", [256, 512, 1024])
+@pytest.mark.parametrize("rows", [1, 33, 500, 12850])
+def test_int8_mlp_pieces_shapes_and_repeats(cuda, rows, c):
+    """Row 15's pieces at hidden 4C in 4 strips (clusters of 1, 2 and 4
+    blocks a strip): the code pass (LN2 and the row codes of its bf16 rows
+    in one pass) bit-equal to the bf16-chain twin in lane order, fc1's codes,
+    scales and zero points bit-equal to ``mlp_int8_fc1_plain`` on those
+    codes, fc2 bit-equal to ``mlp_int8_fc2_plain`` on fc1's hidden; the
+    sub-block bit-equal to its pieces in sequence and to a repeat."""
+    g = torch.Generator(device=cuda).manual_seed(3 * rows + c)
+    f32 = torch.float32
+    hid = 4 * c
+    x = _rand(g, rows, c)
+    lns = 1 + _rand(g, c, std=0.1, dtype=f32)
+    lnb = _rand(g, c, std=0.1, dtype=f32)
+    w1 = _rand(g, c, hid, std=c ** -0.5, dtype=f32)
+    b1 = _rand(g, hid, std=0.02, dtype=f32)
+    w2 = _rand(g, hid, c, std=0.5 * hid ** -0.5, dtype=f32)
+    b2 = _rand(g, c, std=0.02, dtype=f32)
+    q1, q2 = quant.quantized_weight(w1), quant.quantized_weight(w2)
+    s = mlp.col_slices(hid)
+    with torch.no_grad():
+        codes, sr = mlp._int8_codes_kernel(x, lns, lnb, 1e-5)
+        ref_q, ref_s = quant.row_codes(_ln_chain_lanes(x, lns, lnb,
+                                                       1e-5).float())
+        hq, hsc, hzp = mlp._int8_fc1_kernel(codes, sr, q1, b1, s)
+        twin = mlp.mlp_int8_fc1_plain(codes, sr[:, None], q1, b1, s)
+        out = mlp._int8_fc2_kernel(hq, hsc, hzp, q2, b2, q2.colsums(s), x)
+        ref = mlp.mlp_int8_fc2_plain(hq, hsc, hzp, q2, b2, x)
+        block = mlp.fused_mlp_block_q(x, lns, lnb, w1, b1, w2, b2)
+        again = mlp.fused_mlp_block_q(x, lns, lnb, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, ref_q) and torch.equal(sr, ref_s.reshape(-1))
+    for got, want in zip((hq, hsc, hzp), twin):
+        assert torch.equal(got, want)
+    assert torch.equal(out, ref)
+    assert torch.equal(block, out) and torch.equal(block, again)
+
+
+def test_int8_mlp_block_refuses_before_launch(cuda):
+    """Row 15 refuses what its pieces do not take before any launch: a
+    strip of 128 hidden units, a strip narrower than C, an f32 x."""
+    x = torch.zeros(2, 8, 256, dtype=torch.bfloat16, device=cuda)
+    one = torch.ones(256, device=cuda)
+    mlp.reset_launches()
+    for hid, c in ((512, 256), (1024, 512)):  # strips of 128, of 256 < C
+        w1 = torch.zeros(c, hid, device=cuda)
+        w2 = torch.zeros(hid, c, device=cuda)
+        xc = torch.zeros(2, 8, c, dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="strip width"):
+            with torch.no_grad():
+                mlp.fused_mlp_block_q(xc, one[:1].expand(c), one[:1].expand(c),
+                                      w1, torch.zeros(hid, device=cuda), w2,
+                                      torch.zeros(c, device=cuda))
+    w1, w2 = torch.zeros(256, 1024, device=cuda), torch.zeros(1024, 256,
+                                                               device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        with torch.no_grad():
+            mlp.fused_mlp_block_q(x.float(), one, one, w1,
+                                  torch.zeros(1024, device=cuda), w2, one)
+    torch.cuda.synchronize()
+    assert sum(mlp.LAUNCHES.values()) == 0
+
+
 def test_int_mm_is_exact(cuda):
     """torch._int_mm (int8_dense on the card) against the exact f64
     product, in the one layout it is given."""
@@ -1277,6 +1341,45 @@ def test_delta_attention_kernels_match_twins(cuda, b, l, h, monkeypatch):
                                       lnb, qw.kn, qw.scale, qp.kn, qp.scale,
                                       h, 1e-5)
         assert torch.equal(same, xm_b)
+
+
+@pytest.mark.parametrize("h,d", [(16, 64), (8, 32)])
+@pytest.mark.parametrize("l", [17, 257])
+@pytest.mark.parametrize("rows", [1, 33, 12850])
+def test_delta_attn_gemms_are_bit_exact(cuda, rows, l, h, d):
+    """Row 19's code pass and its two wgmma GEMMs alone on the same codes:
+    the codes of LN1(x) - LN1(x_b) bit-equal to ``ln_delta_codes_plain``,
+    the qkv GEMM on the padded cache (Lp = round_up(L, 32), read at the
+    cache row of each row) bit-equal to ``qkv_delta_plain`` and the xm GEMM
+    to ``xm_delta_plain``: int32 sums are exact. C = H * D: heads of 64 and
+    of 32."""
+    g = torch.Generator(device=cuda).manual_seed(rows + l + d)
+    f32 = torch.float32
+    c = h * d
+    b = -(-rows // l)
+    lp = delta.round_up(l, delta.SEQ_ALIGN)
+    xb = _rand(g, rows, c)
+    x = (xb.float() + _rand(g, rows, c, std=0.1, dtype=f32)).to(xb.dtype)
+    lns, lnb = 1 + _rand(g, c, std=0.1, dtype=f32), _rand(g, c, std=0.1,
+                                                          dtype=f32)
+    qw = quant.quantized_weight(_rand(g, c, 3 * c, std=c ** -0.5, dtype=f32))
+    qp = quant.quantized_weight(_rand(g, c, c, std=c ** -0.5, dtype=f32))
+    qkv_q = torch.randint(-127, 128, (b, lp, 3 * c), generator=g,
+                          device=cuda, dtype=torch.int8)
+    qkv_s = torch.rand((b, lp, 1), generator=g, device=cuda) * 0.02
+    xm_b = _rand(g, rows, c)
+    with torch.no_grad():
+        codes, sr = delta._ln_delta_codes_kernel(x, xb, lns, lnb, 1e-5)
+        ref_q, ref_s = delta.ln_delta_codes_plain(x, xb, lns, lnb, 1e-5)
+        qkv = delta._qkv_delta_kernel(codes, sr, qw.q, qw.scale, qkv_q,
+                                      qkv_s, l)
+        xm = delta._xm_delta_kernel(codes, sr, qp.q, qp.scale, x, xb, xm_b)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, ref_q) and torch.equal(sr, ref_s.reshape(-1))
+    assert torch.equal(qkv, delta.qkv_delta_plain(
+        codes, sr[:, None], qw.kn, qw.scale, qkv_q, qkv_s, l))
+    assert torch.equal(xm, delta.xm_delta_plain(codes, sr[:, None], qp.kn,
+                                                qp.scale, x, xb, xm_b))
 
 
 def _delta_mlp_case(g, rows, c):

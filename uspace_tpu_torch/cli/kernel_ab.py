@@ -5,9 +5,9 @@ Builds ``--base`` (a ``<source>.cu`` with the same C interface, e.g. from
 ``git archive`` of the parent commit) beside this checkout's
 ``ops/csrc/<source>.cu`` and times each of its kernels at its path's shapes
 (``attention``: the bf16 and int8 sampling kernels at B=50, L=257,
-C=1024, H=16, bf16;
-``mlp_int8``, ``mlp_w8`` and ``mlp_bf16``: the W8A8, weight-only int8 and
-bf16 MLP kernels on the 12850 rows of B=50, hidden 4096;
+C=1024, H=16, bf16, and row 19's two GEMMs (``qkv_delta``, ``xm_delta``);
+``mlp_int8`` (row 14), ``mlp_w8`` and ``mlp_bf16``: the W8A8, weight-only
+int8 and bf16 MLP kernels on the 12850 rows of B=50, hidden 4096;
 ``attention_block``: the attention sub-block's own passes at B=50 (the
 row codes of rows 6 and 11, the int8 projection with bias and residual; the
 bf16 projection is ``mlp_bf16``'s fc2, timed there as ``row10_proj_ms``);
@@ -19,11 +19,12 @@ training shape, B=128, L=257, C=1024, H=16; ``flash_attention``: the blocked onl
 kernel at the 512-px SD-UNet-large's top level, B=50, H=8, L=4096, D=32;
 ``delta_attention``: the stage-delta attention
 halves' own passes at B=50 (the LN codes of the padded base rows and of a
-stage delta, the difference codes, the f32 and the two delta GEMMs, the qkv
-re-coding); ``delta_mlp``: the stage-delta base MLP kernels of the three
-hidden modes on 12850 rows, hidden 4096, and the delta rows' wgmma GEMMs,
+stage delta, the difference codes, the f32 GEMM, the qkv re-coding);
+``delta_mlp``: the stage-delta base MLP kernels of the three hidden modes
+on 12850 rows, hidden 4096, and the wgmma GEMMs of the delta rows,
 ``delta_fc1_exact``, ``delta_fc1_lin``, ``delta_fc1_g`` (rows 25, 23, 24)
-and ``delta_fc2``)
+and ``delta_fc2``, and of row 15, ``mlp_int8_codes``, ``mlp_int8_fc1``,
+``mlp_int8_fc2`` and ``ln_mlp_int8``, which chains them)
 with CUDA events, the two builds alternating base, new, new, base, ... on
 one card. The base must have this checkout's C interface (each entry point
 of ``ops/_build.SIGNATURES``); an entry point that it lacks is timed on the
@@ -238,6 +239,7 @@ def main(argv=None) -> None:
     dsr = torch.full((rows,), 1e-3, device=dev)
     hq = torch.empty(rows, hid, dtype=torch.int8, device=dev)
     hsc = torch.full((rows, 4), 1e-3, device=dev)
+    hzp = torch.full((rows, 4), 0.1, device=dev)
     s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     w8lib = _build.load("mlp_w8") if a.source == "mlp_bf16" else None
 
@@ -292,8 +294,6 @@ def main(argv=None) -> None:
             codes.data_ptr(), sr.data_ptr(), q.q.data_ptr(),
             q.scale.data_ptr(), qkv_ws.data_ptr(), rows, 3 * C, C, s),
         "mlp_int8": lambda lib: lib.uspace_mlp_int8(x.data_ptr(), *mw, s),
-        "ln_mlp_int8": lambda lib: lib.uspace_ln_mlp_int8(
-            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), *mw, 1e-5, s),
         # row 17's two GEMMs through their h workspace
         "mlp_w8": lambda lib: lib.uspace_mlp_w8(
             x.data_ptr(), *w8[:6], h_rows.data_ptr(), *w8[6:], s),
@@ -352,11 +352,11 @@ def main(argv=None) -> None:
             qkv32.data_ptr(), cq.data_ptr(), cs.data_ptr(), qkvd.data_ptr(),
             B, L, lp, 3 * C, s),
         "qkv_delta": lambda lib: lib.uspace_qkv_delta(
-            codes.data_ptr(), sr.data_ptr(), q.q.data_ptr(),
+            dcodes.data_ptr(), dsr.data_ptr(), q.q.data_ptr(),
             q.scale.data_ptr(), cq.data_ptr(), cs.data_ptr(), qkvd.data_ptr(),
-            B, L, lp, 3 * C, C, s),
+            rows, L, lp, 3 * C, C, s),
         "xm_delta": lambda lib: lib.uspace_xm_delta(
-            codes.data_ptr(), sr.data_ptr(), qp.q.data_ptr(),
+            dcodes.data_ptr(), dsr.data_ptr(), qp.q.data_ptr(),
             qp.scale.data_ptr(), x1.data_ptr(), x.data_ptr(), x.data_ptr(),
             out.data_ptr(), rows, C, C, s),
         "base_mlp_grad": lambda lib: lib.uspace_base_mlp_grad(
@@ -396,6 +396,24 @@ def main(argv=None) -> None:
         "delta_fc2": lambda lib: lib.uspace_delta_fc2(
             hq.data_ptr(), hsc.data_ptr(), q2.q.data_ptr(),
             q2.scale.data_ptr(), m_out.data_ptr(), x.data_ptr(),
+            out.data_ptr(), rows, C, hid, 4, s),
+        # row 15: its code pass, its GEMMs after it, the three chained
+        "mlp_int8_codes": lambda lib: lib.uspace_mlp_int8_codes(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), dcodes.data_ptr(),
+            dsr.data_ptr(), rows, C, 1e-5, s),
+        "ln_mlp_int8": lambda lib: lib.uspace_ln_mlp_int8(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), b1.data_ptr(), q2.q.data_ptr(),
+            q2.scale.data_ptr(), b2.data_ptr(), cs4.data_ptr(),
+            dcodes.data_ptr(), dsr.data_ptr(), hq.data_ptr(), hsc.data_ptr(),
+            hzp.data_ptr(), out.data_ptr(), rows, C, hid, 4, 1e-5, s),
+        "mlp_int8_fc1": lambda lib: lib.uspace_mlp_int8_fc1(
+            dcodes.data_ptr(), dsr.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), b1.data_ptr(), hq.data_ptr(), hsc.data_ptr(),
+            hzp.data_ptr(), rows, C, hid, 4, s),
+        "mlp_int8_fc2": lambda lib: lib.uspace_mlp_int8_fc2(
+            hq.data_ptr(), hsc.data_ptr(), hzp.data_ptr(), q2.q.data_ptr(),
+            q2.scale.data_ptr(), b2.data_ptr(), cs4.data_ptr(), x.data_ptr(),
             out.data_ptr(), rows, C, hid, 4, s),
     })
     timed = set(_build.SIGNATURES[a.source])

@@ -72,8 +72,13 @@ _DELTA_MLP = tuple(
 # kernel-name fragments -> the layer that launches them
 GROUPS = (
     ("stage-delta row passes (ours: rows 18-19's LN codes, int8 GEMM, "
-     "re-code; rows 23-25's code pass)", (
-         "row_codes_kernel<", "int8_gemm_kernel", "recode_kernel")),
+     "re-code, difference codes; rows 19 and 23-25's code pass)", (
+         "row_codes_kernel<", "ln_delta_codes_kernel", "int8_gemm_kernel",
+         "recode_kernel")),
+    # row 15's GEMMs are instances of the delta rows' fc1 and fc2 bodies
+    ("W8A8 MLP sub-block, code pass, fc1 and fc2 on wgmma (ours: row 15)",
+     ("mlp_code_pass_kernel", "delta_fc1_kernel<3>",
+      "delta_fc2_kernel<true>")),
     *_DELTA_MLP,
     ("stage-delta MLP, delta fc2 on wgmma (ours: rows 23-25)",
      ("delta_fc2_kernel",)),
@@ -89,6 +94,8 @@ GROUPS = (
     ("int8 attention LN code pass (ours: row 5)", ("ln_codes_kernel",)),
     # before "matmul (cuBLAS)": their names contain "gemm"
     ("QKV projection on wgmma (ours: rows 2-3)", ("qkv_gemm_kernel<false",)),
+    ("stage-delta qkv and xm GEMMs on wgmma (ours: row 19)",
+     ("qkv_gemm_kernel<true, 1>", "qkv_gemm_kernel<true, 2>")),
     ("int8 QKV projection on wgmma (ours: rows 5, 6, 11)",
      ("qkv_gemm_kernel<true",)),
     ("bf16-chain LN pass (ours: rows 16, 13, 10-11)", ("w8_ln_kernel",)),
@@ -99,7 +106,7 @@ GROUPS = (
      "projection)", ("::gemm_kernel<",)),
     ("attention core (ours: rows 1-3, 5, 6, 11)", ("packed_core_kernel",)),
     ("[B, H, L, D] attention kernel (ours)", ("attention_fwd_kernel",)),
-    ("int8 MLP kernel (ours)", ("mlp_int8_kernel",)),
+    ("int8 MLP kernel (ours: row 14)", ("mlp_int8_kernel",)),
     ("layout transposes (NHWC <-> NCHW)", ("nchwToNhwc", "nhwcToNchw")),
     ("conv (cuDNN)", ("conv", "Conv", "cudnn", "fprop")),
     ("matmul (cuBLAS)", ("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet")),

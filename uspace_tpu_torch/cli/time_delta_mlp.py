@@ -2,7 +2,12 @@
 rows, C 1024, hidden 4096, seeded inputs, the caches from the base
 kernels of rows 21 and 22): row 19's code pass, each row's fc1 (rows 25,
 23 and 24: ``exact``, ``lin``, ``g``) and fc2 timed apart, and each row's
-whole wrapper; then fc1 and fc2 of other builds of ``delta_mlp.cu`` (paths
+whole wrapper; the pieces of the W8A8 MLP sub-block (row 15: the code
+pass, fc1, fc2, the C entry that chains them, the wrapper, and row 16's
+wrapper beside it) and of the stage-delta attention
+half (row 19 at B = 50, L = 257 after the code pass above: the qkv GEMM on
+the padded cache, row 1's core, the difference codes, the xm GEMM, the
+wrapper); then fc1 and fc2 of other builds of ``delta_mlp.cu`` (paths
 given as arguments, this checkout's C interface) timed alternating with
 this checkout's, their codes, scales and outputs compared with this
 checkout's bit for bit. One JSON line a piece and a build; CUDA events, 50
@@ -23,6 +28,7 @@ import torch
 
 from ..ops import _build, quant
 from ..ops import delta as dops
+from ..ops import mlp as mops
 from .kernel_ab import _load
 
 B, L, C = 50, 257, 1024
@@ -61,8 +67,9 @@ def main(argv=None) -> None:
     xb = randn(ROWS, C)
     x = (xb.float() + randn(ROWS, C, std=0.01, dtype=f32)).to(torch.bfloat16)
     lns, lnb = 1 + randn(C, std=0.1, dtype=f32), randn(C, std=0.1, dtype=f32)
-    q1 = quant.quantized_weight(randn(HIDDEN, C, std=0.02, dtype=f32).t())
-    q2 = quant.quantized_weight(randn(C, HIDDEN, std=0.02, dtype=f32).t())
+    w1f = randn(HIDDEN, C, std=0.02, dtype=f32).t()  # the model's layout
+    w2f = randn(C, HIDDEN, std=0.02, dtype=f32).t()
+    q1, q2 = quant.quantized_weight(w1f), quant.quantized_weight(w2f)
     b1, b2 = randn(HIDDEN, std=0.02, dtype=f32), randn(C, std=0.02, dtype=f32)
     w = (lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2, 1e-5)
     with torch.no_grad():
@@ -119,6 +126,7 @@ def main(argv=None) -> None:
         pieces += [(f"fc1_{mode}", lambda lib, m=mode: fc1(m, lib), dm),
                    (f"fc2_{mode}", lambda lib, m=mode: fc2(m, lib), dm),
                    (f"wrapper_{mode}", wrapper, mode)]
+    pieces += row15_19_pieces(randn, dev, lns, lnb, x, xb, w1f, b1, w2f, b2)
     for name, fn, arg in pieces:
         ms, host = time_ms(fn, arg)
         print(json.dumps({"piece": name, "ms": ms, "host_us": host,
@@ -147,6 +155,84 @@ def main(argv=None) -> None:
                                            else lib)[0])
             row[f"{piece}_ms"] = times
         print(json.dumps(row), flush=True)
+
+
+def row15_19_pieces(randn, dev, lns, lnb, x, xb, w1f, b1, w2f, b2):
+    """(name, call, argument) of each piece of rows 15 and 19 at the main
+    path's shapes, each a C entry on workspaces made here (row 19's code
+    pass is ``code_pass`` above), and each row's wrapper."""
+    f32, bf = torch.float32, torch.bfloat16
+    s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    strips = mops.col_slices(HIDDEN)
+    q1, q2 = quant.quantized_weight(w1f), quant.quantized_weight(w2f)
+    colsum = q2.colsums(strips)
+    with torch.no_grad():
+        codes, sr = mops._int8_codes_kernel(x, lns, lnb, 1e-5)
+        hq, hsc, hzp = mops._int8_fc1_kernel(codes, sr, q1, b1, strips)
+    out = torch.empty_like(x)
+    # row 19 at B = 50, L = 257 on a padded cache of Lp = 288 rows
+    lp = dops.round_up(L, dops.SEQ_ALIGN)
+    qw = quant.quantized_weight(randn(3 * C, C, std=0.02, dtype=f32).t())
+    qp = quant.quantized_weight(randn(C, C, std=0.02, dtype=f32).t())
+    with torch.no_grad():
+        a_b, qkv_q, qkv_s = dops.base_attn_block(xb.view(B, L, C), lns, lnb,
+                                                 qw.kn, qw.scale, 16, 1e-5)
+        dcodes, dsr = dops._ln_delta_codes_kernel(x, xb, lns, lnb, 1e-5)
+    qkv = torch.empty(ROWS, 3 * C, dtype=bf, device=dev)
+    a = torch.empty(B, L, C, dtype=bf, device=dev)
+    xm_b, xm = randn(ROWS, C), torch.empty_like(x)
+    dm, da, att = (_build.load(n) for n in (
+        "delta_mlp", "delta_attention", "attention"))
+
+    def no_grad(fn):
+        def call(_=None):
+            with torch.no_grad():
+                fn()
+        return call
+
+    return [
+        ("r15_code_pass", lambda _=None: dm.uspace_mlp_int8_codes(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), codes.data_ptr(),
+            sr.data_ptr(), ROWS, C, 1e-5, s), None),
+        ("r15_fc1", lambda _=None: dm.uspace_mlp_int8_fc1(
+            codes.data_ptr(), sr.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), b1.data_ptr(), hq.data_ptr(), hsc.data_ptr(),
+            hzp.data_ptr(), ROWS, C, HIDDEN, strips, s), None),
+        ("r15_fc2", lambda _=None: dm.uspace_mlp_int8_fc2(
+            hq.data_ptr(), hsc.data_ptr(), hzp.data_ptr(), q2.q.data_ptr(),
+            q2.scale.data_ptr(), b2.data_ptr(), colsum.data_ptr(),
+            x.data_ptr(), out.data_ptr(), ROWS, C, HIDDEN, strips, s), None),
+        ("r15_c_entry", lambda _=None: dm.uspace_ln_mlp_int8(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), b1.data_ptr(), q2.q.data_ptr(),
+            q2.scale.data_ptr(), b2.data_ptr(), colsum.data_ptr(),
+            codes.data_ptr(), sr.data_ptr(), hq.data_ptr(), hsc.data_ptr(),
+            hzp.data_ptr(), out.data_ptr(), ROWS, C, HIDDEN, strips, 1e-5, s),
+         None),
+        ("r15_wrapper", no_grad(lambda: mops.fused_mlp_block_q(
+            x, lns, lnb, w1f, b1, w2f, b2)), None),
+        # row 16's wrapper on the same operands: the yardstick of the host
+        # time a call of an MLP sub-block's wrapper
+        ("r16_wrapper", no_grad(lambda: mops.fused_mlp_block_q(
+            x, lns, lnb, w1f, b1, w2f, b2, quant="w8")), None),
+        ("r19_qkv_gemm", lambda _=None: att.uspace_qkv_delta(
+            dcodes.data_ptr(), dsr.data_ptr(), qw.q.data_ptr(),
+            qw.scale.data_ptr(), qkv_q.data_ptr(), qkv_s.data_ptr(),
+            qkv.data_ptr(), ROWS, L, lp, 3 * C, C, s), None),
+        ("r19_core", lambda _=None: att.uspace_packed_attention(
+            qkv.data_ptr(), a.data_ptr(), B, L, 16, 64, 0.125, s), None),
+        ("r19_diff_codes", lambda _=None: da.uspace_diff_codes(
+            a.data_ptr(), a_b.data_ptr(), dcodes.data_ptr(), dsr.data_ptr(),
+            ROWS, C, s), None),
+        ("r19_xm_gemm", lambda _=None: att.uspace_xm_delta(
+            dcodes.data_ptr(), dsr.data_ptr(), qp.q.data_ptr(),
+            qp.scale.data_ptr(), x.data_ptr(), xb.data_ptr(), xm_b.data_ptr(),
+            xm.data_ptr(), ROWS, C, C, s), None),
+        ("r19_wrapper", no_grad(lambda: dops.delta_attn_block(
+            x.view(B, L, C), xb.view(B, L, C), qkv_q, qkv_s, a_b,
+            xm_b.view(B, L, C), lns, lnb, qw.kn, qw.scale, qp.kn, qp.scale,
+            16, 1e-5)), None),
+    ]
 
 
 if __name__ == "__main__":

@@ -44,6 +44,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_ln_qkvproj_attention": (_P,) * 7 + (_I,) * 4 + (_F, _F, _P),
         "uspace_ln_qkvproj_attention_int8": (_P,) * 9 + (_I,) * 4 + (_F, _F,
                                                                      _P),
+        "uspace_qkv_delta": (_P,) * 7 + (_I,) * 5 + (_P,),
+        "uspace_xm_delta": (_P,) * 8 + (_I,) * 3 + (_P,),
     },
     "attention_block": {
         "uspace_row_codes": (_P, _P, _P, _I, _I, _P),
@@ -55,8 +57,6 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_diff_codes": (_P,) * 4 + (_I, _I, _P),
         "uspace_int8_gemm_f32": (_P,) * 5 + (_I,) * 3 + (_P,),
         "uspace_qkv_recode": (_P,) * 4 + (_I,) * 4 + (_P,),
-        "uspace_qkv_delta": (_P,) * 7 + (_I,) * 5 + (_P,),
-        "uspace_xm_delta": (_P,) * 8 + (_I,) * 3 + (_P,),
     },
     "delta_mlp": {
         "uspace_base_mlp_grad": (_P,) * 14 + (_I,) * 4 + (_F, _P),
@@ -66,6 +66,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_delta_fc1_lin": (_P,) * 8 + (_I,) * 4 + (_P,),
         "uspace_delta_fc1_g": (_P,) * 11 + (_I,) * 4 + (_P,),
         "uspace_delta_fc2": (_P,) * 7 + (_I,) * 4 + (_P,),
+        "uspace_mlp_int8_fc1": (_P,) * 8 + (_I,) * 4 + (_P,),
+        "uspace_mlp_int8_fc2": (_P,) * 9 + (_I,) * 4 + (_P,),
+        "uspace_mlp_int8_codes": (_P,) * 5 + (_I, _I, _F, _P),
+        "uspace_ln_mlp_int8": (_P,) * 16 + (_I,) * 4 + (_F, _P),
     },
     "attention_fwd": {
         "uspace_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
@@ -79,7 +83,6 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "mlp_int8": {
         "uspace_mlp_int8": (_P,) * 9 + (_I,) * 5 + (_P,),
-        "uspace_ln_mlp_int8": (_P,) * 11 + (_I,) * 5 + (_F, _P),
     },
     "mlp_bf16": {
         "uspace_bf16_fc1": (_P,) * 4 + (_I,) * 3 + (_P,),

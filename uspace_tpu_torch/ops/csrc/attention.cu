@@ -87,6 +87,15 @@
 //   of it independent of K; with the tile staged through the free ring and
 //   stored in 16-byte row pieces, 0.094 ms.
 // - packed_core_kernel on that workspace, as row 1.
+// - Row 19's qkv and xm deltas (the stage-delta attention half, whose row
+//   passes are delta_attention.cu's) are qkv_gemm_kernel<true, QKV_DELTA |
+//   XM_DELTA>: the same mainloop, the product staged in f32 through the
+//   free ring beside each row's cache row and scale, then each thread
+//   issues every global load of its 32 rows (the cache codes, or x, x_b
+//   and xm_b) before it uses any. On an NVIDIA H100 80GB HBM3 at 700 W and
+//   the main path's shape the two took 0.258 and 0.110 ms with their loads
+//   four rows at a time (one block an SM waits out each round trip), 0.127
+//   and 0.088 with them all in flight.
 //
 // Dynamic shared memory past 48 KB is enabled per launch with
 // cudaFuncSetAttribute. Every entry point returns cudaGetLastError() or the
@@ -271,11 +280,27 @@ constexpr int G_A_BYTES = G_BM * G_KBYTES;
 constexpr int G_B_BYTES = G_BN * G_KBYTES;
 constexpr int G_SMEM = G_STAGES * (G_A_BYTES + G_B_BYTES) + 2 * G_STAGES * 8 +
                        1024;  // the ring, its barriers, alignment
-// the int8 epilogue's staged output rows: 256 bf16 + 16 bytes, so that the
-// fragment writes of a warp fall on 32 banks
+// the int8 epilogue's staged output rows: 256 bf16 + 16 bytes (the delta
+// epilogues' f32 rows: 256 + 8 floats), so that the fragment writes of a
+// warp fall on 32 banks
 constexpr int G_ST_LD = G_BN + 8;
-static_assert(2 * 64 * G_ST_LD * 2 <= G_STAGES * (G_A_BYTES + G_B_BYTES),
-              "the staged tile fits in the ring");
+static_assert(2 * 64 * G_ST_LD * 4 + 2 * 128 * 4 <= G_STAGES * (G_A_BYTES + G_B_BYTES),
+              "the staged tile and its rows' cache rows and scales fit in the ring");
+
+// Row 19's epilogues of the int8 GEMM (p = (f32(acc) * sr) * ws): QKV_DELTA
+// bf16(f32(cq) * cs + p) with the cache row (r / L) * Lp + r % L of row r;
+// XM_DELTA bf16(((f32(x) - f32(x_b)) + f32(xm_b)) + p)
+enum Delta { NO_DELTA = 0, QKV_DELTA = 1, XM_DELTA = 2 };
+
+// what a delta epilogue reads besides the accumulators
+struct DeltaArgs {
+  const int8_t* cq;  // QKV_DELTA: the cache [., N] and its row scales
+  const float* cs;
+  int L, Lp;
+  const bf16* x;  // XM_DELTA: x, x_b, xm_b [M, N]
+  const bf16* xb;
+  const bf16* xmb;
+};
 
 __device__ inline uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -516,12 +541,15 @@ __device__ inline void wgmma_n64_rs(float (&d)[32], const uint32_t (&a)[4], uint
 //   spilling).
 // - INT8 (row 5): int8 codes a with row scales sr [M], the int8 weight b with
 //   column scales ws [N]; int32 sums; c = bf16((f32(acc) * sr) * ws).
-template <bool INT8>
+// - INT8 with DELTA (row 19's qkv and xm deltas): the delta epilogues above.
+template <bool INT8, int DELTA = NO_DELTA>
 __global__ void __launch_bounds__(G_THREADS, 1)
 qkv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_b,
                 bf16* __restrict__ c, const float* __restrict__ sr,
-                const float* __restrict__ ws, int M, int N, int K) {
+                const float* __restrict__ ws, const DeltaArgs dl, int M, int N,
+                int K) {
+  static_assert(INT8 || DELTA == NO_DELTA, "the delta epilogues are int8's");
   typedef typename std::conditional<INT8, int, float>::type Acc;
   constexpr int CHUNK = INT8 ? G_KBYTES : G_KBYTES / 2;  // values a K chunk
   extern __shared__ unsigned char smem_raw[];
@@ -581,7 +609,104 @@ qkv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
   const int r0 = m0 + cw * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
   const int col0 = n0 + 2 * (lane & 3);
-  if constexpr (INT8) {
+  if constexpr (DELTA != NO_DELTA) {
+    // p = (f32(acc) * sr) * ws in f32, staged through the free ring like
+    // row 5's tile, with each row's cache row and scale (QKV_DELTA) beside
+    // it; then each thread takes 4 columns (a fixed piece of the rows) of
+    // every other row, issues all of its global loads before it uses any
+    // (one block an SM: a chain of dependent loads a row would leave the
+    // SM waiting), and stores 4 bf16 values a row
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    float* st = reinterpret_cast<float*>(smem_raw + (sa - raw)) + cw * 64 * G_ST_LD;
+    int* crow = reinterpret_cast<int*>(smem_raw + (sa - raw) + 2 * 64 * G_ST_LD * 4) + cw * 128;
+    float* csr = reinterpret_cast<float*>(crow + 64);
+    const int rl = warp * 16 + (lane >> 2);
+    const float s0 = r0 < M ? __ldg(sr + r0) : 0.f;
+    const float s1 = r1 < M ? __ldg(sr + r1) : 0.f;
+    auto deq = [](int a, float rs, float w) {
+      return __fmul_rn(__fmul_rn(__int2float_rn(a), rs), w);
+    };
+#pragma unroll
+    for (int j = 0; j < G_BN / 8; ++j) {
+      const int lc = 8 * j + 2 * (lane & 3);
+      const float2 w = n0 + lc < N ? __ldg(reinterpret_cast<const float2*>(ws + n0 + lc))
+                                   : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(st + rl * G_ST_LD + lc) =
+          make_float2(deq(acc[4 * j], s0, w.x), deq(acc[4 * j + 1], s0, w.y));
+      *reinterpret_cast<float2*>(st + (rl + 8) * G_ST_LD + lc) =
+          make_float2(deq(acc[4 * j + 2], s1, w.x), deq(acc[4 * j + 3], s1, w.y));
+    }
+    if (DELTA == QKV_DELTA && (lane & 3) == 0) {
+      // a 128-row tile spans batch elements: the cache row of each row
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = hh ? r1 : r0;
+        const int cr = r < M ? (r / dl.L) * dl.Lp + r % dl.L : 0;
+        crow[rl + 8 * hh] = cr;
+        csr[rl + 8 * hh] = r < M ? __ldg(dl.cs + cr) : 0.f;
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
+    constexpr int ROWS_T = 32;  // rows a thread: 2 i + t / 64
+    const int h = t >> 6, gc = n0 + 4 * (t & 63);
+    const int gr0 = m0 + cw * 64 + h;
+    auto combine = [&](int i, const float (&add)[4]) {
+      const int row = 2 * i + h;
+      const float4 p = *reinterpret_cast<const float4*>(st + row * G_ST_LD + (t & 63) * 4);
+      uint2 packed;
+      bf16* o = reinterpret_cast<bf16*>(&packed);
+      o[0] = __float2bfloat16_rn(__fadd_rn(add[0], p.x));
+      o[1] = __float2bfloat16_rn(__fadd_rn(add[1], p.y));
+      o[2] = __float2bfloat16_rn(__fadd_rn(add[2], p.z));
+      o[3] = __float2bfloat16_rn(__fadd_rn(add[3], p.w));
+      *reinterpret_cast<uint2*>(c + (size_t)(gr0 + 2 * i) * N + gc) = packed;
+    };
+    if (gc < N) {
+      if constexpr (DELTA == QKV_DELTA) {
+        char4 q4[ROWS_T];
+#pragma unroll
+        for (int i = 0; i < ROWS_T; ++i)
+          if (gr0 + 2 * i < M)
+            q4[i] = __ldg(reinterpret_cast<const char4*>(
+                dl.cq + (size_t)crow[2 * i + h] * N + gc));
+#pragma unroll
+        for (int i = 0; i < ROWS_T; ++i) {
+          if (gr0 + 2 * i >= M) continue;
+          const float cs = csr[2 * i + h];
+          const float add[4] = {__fmul_rn((float)q4[i].x, cs), __fmul_rn((float)q4[i].y, cs),
+                                __fmul_rn((float)q4[i].z, cs), __fmul_rn((float)q4[i].w, cs)};
+          combine(i, add);
+        }
+      } else {
+        constexpr int GROUP = 16;  // rows whose x, x_b, xm_b are in flight
+#pragma unroll
+        for (int i0 = 0; i0 < ROWS_T; i0 += GROUP) {
+          uint2 xv[GROUP], bv[GROUP], mv[GROUP];
+#pragma unroll
+          for (int i = 0; i < GROUP; ++i) {
+            if (gr0 + 2 * (i0 + i) >= M) continue;
+            const size_t at = (size_t)(gr0 + 2 * (i0 + i)) * N + gc;
+            xv[i] = __ldg(reinterpret_cast<const uint2*>(dl.x + at));
+            bv[i] = __ldg(reinterpret_cast<const uint2*>(dl.xb + at));
+            mv[i] = __ldg(reinterpret_cast<const uint2*>(dl.xmb + at));
+          }
+#pragma unroll
+          for (int i = 0; i < GROUP; ++i) {
+            if (gr0 + 2 * (i0 + i) >= M) continue;
+            const bf16* xe = reinterpret_cast<const bf16*>(&xv[i]);
+            const bf16* be = reinterpret_cast<const bf16*>(&bv[i]);
+            const bf16* me = reinterpret_cast<const bf16*>(&mv[i]);
+            float add[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              add[k] = __fadd_rn(__fsub_rn(__bfloat162float(xe[k]), __bfloat162float(be[k])),
+                                 __bfloat162float(me[k]));
+            combine(i0 + i, add);
+          }
+        }
+      }
+    }
+  } else if constexpr (INT8) {
     // bf16((f32(acc) * sr) * ws), unfused; the tile goes out through shared
     // memory (the ring is free once both consumer warpgroups have retired
     // their products) in 16-byte pieces of its rows: 16 coalesced stores a
@@ -968,21 +1093,21 @@ int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows
 }
 
 // c [M, N] bf16 = a [M, K] . w [N, K]^T; INT8: int8 a and w with the row
-// scales sr [M] and column scales ws [N]
-template <bool INT8>
+// scales sr [M] and column scales ws [N]; DELTA: row 19's epilogues (dl)
+template <bool INT8, int DELTA = NO_DELTA>
 int launch_gemm(const void* a, const void* w, void* c, int M, int N, int K,
                 cudaStream_t stream, const void* sr = nullptr,
-                const void* ws = nullptr) {
+                const void* ws = nullptr, const DeltaArgs& dl = DeltaArgs{}) {
   if (M < 1 || N < 8 || N % 8 || K < 64 || K % 64)
     return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   int err = make_map(&ma, a, M, K, G_BM, INT8);
   if (!err) err = make_map(&mb, w, N, K, G_BN, INT8);
-  if (!err) err = launch_setup(qkv_gemm_kernel<INT8>, G_SMEM);
+  if (!err) err = launch_setup(qkv_gemm_kernel<INT8, DELTA>, G_SMEM);
   if (err) return err;
   const dim3 grid((N + G_BN - 1) / G_BN, (M + G_BM - 1) / G_BM);
-  qkv_gemm_kernel<INT8><<<grid, G_THREADS, G_SMEM, stream>>>(
-      ma, mb, (bf16*)c, (const float*)sr, (const float*)ws, M, N, K);
+  qkv_gemm_kernel<INT8, DELTA><<<grid, G_THREADS, G_SMEM, stream>>>(
+      ma, mb, (bf16*)c, (const float*)sr, (const float*)ws, dl, M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -1066,6 +1191,39 @@ int uspace_qkv_gemm_int8(const void* codes, const void* sr, const void* wq,
                          const void* ws, void* c, int M, int N, int K,
                          void* stream) {
   return launch_gemm<true>(codes, wq, c, M, N, K, (cudaStream_t)stream, sr, ws);
+}
+
+// Row 19's qkv: out [M, N] bf16 = bf16(f32(cq) * cs + (f32(codes . wq^T) *
+// sr) * ws): codes [M, K] int8 with sr [M] f32 (the rows r = b L + l of a
+// stage delta), wq [N, K] int8 (torch layout) with ws [N] f32, the cache cq
+// [., N] int8 with cs [.] f32 read at row (r / L) * Lp + r % L; K a
+// multiple of 64 and N of 8.
+int uspace_qkv_delta(const void* codes, const void* sr, const void* wq, const void* ws,
+                     const void* cq, const void* cs, void* out, int M, int L, int Lp,
+                     int N, int K, void* stream) {
+  if (L < 1 || Lp < L) return (int)cudaErrorInvalidValue;
+  DeltaArgs dl{};
+  dl.cq = (const int8_t*)cq;
+  dl.cs = (const float*)cs;
+  dl.L = L;
+  dl.Lp = Lp;
+  return launch_gemm<true, QKV_DELTA>(codes, wq, out, M, N, K, (cudaStream_t)stream, sr, ws,
+                                      dl);
+}
+
+// Row 19's xm: out [M, N] bf16 = bf16(((f32(x) - f32(x_b)) + f32(xm_b)) +
+// (f32(codes . wp^T) * sr) * sp): codes [M, K] int8 with sr [M] f32, wp [N,
+// K] int8 (torch layout) with sp [N] f32, x, x_b, xm_b [M, N] bf16; K a
+// multiple of 64 and N of 8.
+int uspace_xm_delta(const void* codes, const void* sr, const void* wp, const void* sp,
+                    const void* x, const void* xb, const void* xmb, void* out, int M,
+                    int N, int K, void* stream) {
+  DeltaArgs dl{};
+  dl.x = (const bf16*)x;
+  dl.xb = (const bf16*)xb;
+  dl.xmb = (const bf16*)xmb;
+  return launch_gemm<true, XM_DELTA>(codes, wp, out, M, N, K, (cudaStream_t)stream, sr, sp,
+                                     dl);
 }
 
 // qkv [B, L, 3*H*D] bf16 (packed [q | k | v] x heads) -> out [B, L, H*D],

@@ -10,8 +10,9 @@
 //     uspace_qkv_recode -> uspace_packed_attention (attention.cu, row 1);
 //   _delta_attn_kernel (row 19): qkv = deq(cache) + Wq q8(LN1(x) - LN1(x_b)),
 //     attention, xm = (x - x_b) + xm_b + Wp q8(a - a_b):
-//     uspace_ln_delta_codes -> uspace_qkv_delta -> uspace_packed_attention ->
-//     uspace_diff_codes -> uspace_xm_delta.
+//     uspace_ln_delta_codes -> uspace_qkv_delta (attention.cu) ->
+//     uspace_packed_attention -> uspace_diff_codes -> uspace_xm_delta
+//     (attention.cu).
 // Rows 18 and 19 run their attention through one kernel on a bf16 qkv
 // buffer, so a zero stage delta reproduces the base's attention bit for bit.
 // Rounding sites, as the TPU kernels have them:
@@ -34,17 +35,25 @@
 // TFLOP/s = 54.5 us; row 19 (80.8 + 26.9) G int8 plus 13.5 GFLOP = 68.2 us;
 // both operations bound.
 //
-// Design (simple first; wgmma/TMA are later work). The qkv re-coding needs a
-// whole row of 3C columns, which no (batch, head) block sees: the GEMM writes
-// the f32 qkv rows (177 MB at the main path's shape) and a row pass codes
-// them. The GEMM is attention_block.cu's projection tile: one block of 8
-// warps per 64 rows x 128 output columns, each warp 32 x 32; K chunks of 128
-// bytes of A and W through a ring of four shared-memory stages by cp.async
-// (rows past R zero-filled), swizzled by row; mma.sync m16n8k32 s8 -> s32;
-// the epilogue (f32 out, the qkv delta, or the xm delta) works on registers.
-// The row passes are one warp per row, the row held in registers. Every float
-// operation is an explicit _rn intrinsic (rsqrtf is the library's). Each
-// entry point returns cudaGetLastError().
+// Design. Row 18's qkv re-coding needs a whole row of 3C columns, which no
+// (batch, head) block sees: its GEMM writes the f32 qkv rows (177 MB at the
+// main path's shape) and a row pass codes them. That GEMM is
+// attention_block.cu's projection tile: one block of 8 warps per 64 rows x
+// 128 output columns, each warp 32 x 32; K chunks of 128 bytes of A and W
+// through a ring of four shared-memory stages by cp.async (rows past R
+// zero-filled), swizzled by row; mma.sync m16n8k32 s8 -> s32; the f32
+// epilogue works on registers. Row 19's two GEMMs are row 5's int8 wgmma
+// GEMM of attention.cu (qkv_gemm_kernel<true, QKV_DELTA | XM_DELTA>: TMA,
+// m64n256k32 s8, the product staged in f32 through the free ring, the
+// epilogue's reads and stores 4 columns a thread along the rows); their
+// int32 sums are exact, so they give the bits the mma.sync GEMM gave. The
+// row passes are one warp per row, the row held in registers; the code pass
+// of a stage delta (ln_delta_codes_kernel, which rows 23-25 share) keeps
+// u in registers and evaluates it once: 0.031 ms at the main path's shape
+// on an NVIDIA H100 80GB HBM3 at 700 W, 0.085 when it evaluated u twice
+// with 4-byte scale loads. Every float operation is an explicit _rn
+// intrinsic (rsqrtf is the library's). Each entry point returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,17 +84,20 @@ __device__ inline void load_row(const bf16* __restrict__ x, int r, int C,
     if (lane + 32 * i < nvec) v[i] = __ldg(row + lane + 32 * i);
 }
 
-__device__ inline float elem(const uint4 (&v)[MAX_ROW_VEC], int i, int j) {
+template <int NV>
+__device__ inline float elem(const uint4 (&v)[NV], int i, int j) {
   return __bfloat162float(reinterpret_cast<const bf16*>(&v[i])[j]);
 }
 
-// f32 statistics of a row held in registers: mu and rsqrt(var + eps).
-__device__ inline void row_stats(const uint4 (&v)[MAX_ROW_VEC], int C, float eps,
-                                 float& mu, float& inv) {
+// f32 statistics of a row held in registers (NV vectors a lane): mu and
+// rsqrt(var + eps), the sums in lane order.
+template <int NV>
+__device__ inline void row_stats(const uint4 (&v)[NV], int C, float eps, float& mu,
+                                 float& inv) {
   const int lane = threadIdx.x & 31, nvec = C / 8;
   float sum = 0.f, sq = 0.f;
 #pragma unroll
-  for (int i = 0; i < MAX_ROW_VEC; ++i) {
+  for (int i = 0; i < NV; ++i) {
     if (lane + 32 * i >= nvec) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -108,12 +120,11 @@ __device__ inline float ln_at(float x, float mu, float inv, float s, float b) {
   return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), inv), s), b);
 }
 
-enum RowMode { LN_PADDED = 0, LN_DELTA = 1, DIFF = 2 };
+enum RowMode { LN_PADDED = 0, DIFF = 2 };
 
 // Per row, f32 values u -> codes q [rows, C] int8 and sr [rows] f32:
 //   LN_PADDED: rows r of [B, Lp]: u = LN1(x[b, l]) for l < L, LN1 of a zero
 //              row (= ln_b) for l >= L (x [B, L, C]);
-//   LN_DELTA:  u = LN1(x[r]) - LN1(xb[r]);
 //   DIFF:      u = f32(x[r]) - f32(xb[r]).
 // u is evaluated twice (for amax, then for the codes), the same operations
 // both times.
@@ -140,16 +151,12 @@ row_codes_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
 #pragma unroll
     for (int i = 0; i < MAX_ROW_VEC; ++i) v[i] = make_uint4(0u, 0u, 0u, 0u);
   }
-  float mu = 0.f, inv = 0.f, mub = 0.f, invb = 0.f;
+  float mu = 0.f, inv = 0.f;
   if (MODE != DIFF) row_stats(v, C, eps, mu, inv);
-  if (MODE == LN_DELTA) row_stats(vb, C, eps, mub, invb);
   auto u_at = [&](int i, int j) {
     const int c = (lane + 32 * i) * 8 + j;
     if (MODE == DIFF) return __fsub_rn(elem(v, i, j), elem(vb, i, j));
-    const float s = __ldg(ln_s + c), b = __ldg(ln_b + c);
-    const float u = ln_at(elem(v, i, j), mu, inv, s, b);
-    if (MODE == LN_PADDED) return u;
-    return __fsub_rn(u, ln_at(elem(vb, i, j), mub, invb, s, b));
+    return ln_at(elem(v, i, j), mu, inv, __ldg(ln_s + c), __ldg(ln_b + c));
   };
   float amax = 0.f;
 #pragma unroll
@@ -171,6 +178,67 @@ row_codes_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
     int8_t* c8 = reinterpret_cast<int8_t*>(&packed);
 #pragma unroll
     for (int j = 0; j < 8; ++j) c8[j] = (int8_t)__float2int_rn(__fmul_rn(u_at(i, j), inv127));
+    *reinterpret_cast<uint2*>(q + (size_t)r * C + (lane + 32 * i) * 8) = packed;
+  }
+}
+
+// The code pass of a stage delta (rows 19 and 23-25): u = LN(x[r]) -
+// LN(xb[r]) in f32 -> codes q [rows, C] int8 and sr [rows] f32, one warp per
+// row with both rows in registers (NV 16-byte vectors a lane: C <= NV *
+// 256), the sums in row_stats' lane order, u evaluated once and kept in
+// registers, each vector's 8 scales and biases read as two 16-byte loads.
+template <int NV>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+ln_delta_codes_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
+                      const float* __restrict__ ln_s, const float* __restrict__ ln_b,
+                      int8_t* __restrict__ q, float* __restrict__ sr, int rows, int C,
+                      float eps) {
+  const int lane = threadIdx.x & 31, nvec = C / 8;
+  const int r = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  uint4 v[NV], vb[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (lane + 32 * i >= nvec) continue;
+    v[i] = __ldg(reinterpret_cast<const uint4*>(x + (size_t)r * C) + lane + 32 * i);
+    vb[i] = __ldg(reinterpret_cast<const uint4*>(xb + (size_t)r * C) + lane + 32 * i);
+  }
+  float mu, inv, mub, invb;
+  row_stats(v, C, eps, mu, inv);
+  row_stats(vb, C, eps, mub, invb);
+  float u[NV][8];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = lane + 32 * i;
+    if (vi >= nvec) continue;
+    float sc[8], bi[8];
+    const float4* s4 = reinterpret_cast<const float4*>(ln_s) + 2 * vi;
+    const float4* b4 = reinterpret_cast<const float4*>(ln_b) + 2 * vi;
+    *reinterpret_cast<float4*>(sc) = __ldg(s4);
+    *reinterpret_cast<float4*>(sc + 4) = __ldg(s4 + 1);
+    *reinterpret_cast<float4*>(bi) = __ldg(b4);
+    *reinterpret_cast<float4*>(bi + 4) = __ldg(b4 + 1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      u[i][j] = __fsub_rn(ln_at(elem(v, i, j), mu, inv, sc[j], bi[j]),
+                          ln_at(elem(vb, i, j), mub, invb, sc[j], bi[j]));
+      amax = fmaxf(amax, fabsf(u[i][j]));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  amax = fmaxf(amax, 1e-8f);
+  const float inv127 = __fdiv_rn(127.f, amax);
+  if (lane == 0) sr[r] = __fmul_rn(amax, 1.0f / 127.0f);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (lane + 32 * i >= nvec) continue;
+    uint2 packed;
+    int8_t* c8 = reinterpret_cast<int8_t*>(&packed);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c8[j] = (int8_t)__float2int_rn(__fmul_rn(u[i][j], inv127));
     *reinterpret_cast<uint2*>(q + (size_t)r * C + (lane + 32 * i) * 8) = packed;
   }
 }
@@ -255,30 +323,12 @@ __device__ inline void mma_s8(int (&d)[4], unsigned a0, unsigned a1, unsigned a2
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-enum Epilogue { OUT_F32 = 0, QKV_DELTA = 1, XM_DELTA = 2 };
-
-// What the GEMM's epilogue reads besides the accumulators.
-struct EpiArgs {
-  float* out_f32;          // OUT_F32: [R, N]
-  const int8_t* cq;        // QKV_DELTA: the cache [B * Lp, N] and its scales
-  const float* cs;
-  int L, Lp;
-  const bf16* x;           // XM_DELTA: x, x_b, xm_b [R, N]
-  const bf16* xb;
-  const bf16* xmb;
-  bf16* out;               // QKV_DELTA and XM_DELTA: [R, N] bf16
-};
-
-// acc = a @ w^T in int32 for codes a [R, K] int8 with row scales sr and w
-// [N, K] int8 with column scales ws; p = (f32(acc) * sr) * ws; then
-//   OUT_F32:   out_f32 = p;
-//   QKV_DELTA: out = bf16(f32(cq) * cs + p) at the cache row of r;
-//   XM_DELTA:  out = bf16(((f32(x) - f32(x_b)) + f32(xm_b)) + p).
-template <int EPI>
+// out_f32 = (f32(acc) * sr) * ws with acc = a @ w^T in int32, for codes a [R,
+// K] int8 with row scales sr and w [N, K] int8 with column scales ws.
 __global__ void __launch_bounds__(THREADS)
 int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
-                 const float* __restrict__ sr, const float* __restrict__ ws, EpiArgs ep,
-                 int R, int N, int K) {
+                 const float* __restrict__ sr, const float* __restrict__ ws,
+                 float* __restrict__ out_f32, int R, int N, int K) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -360,32 +410,7 @@ int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
         const float rs = __ldg(sr + r);
         const float p0 = __fmul_rn(__fmul_rn((float)acc[mt][nt][hh * 2], rs), s0);
         const float p1 = __fmul_rn(__fmul_rn((float)acc[mt][nt][hh * 2 + 1], rs), s1);
-        const size_t at = (size_t)r * N + col;
-        if (EPI == OUT_F32) {
-          *reinterpret_cast<float2*>(ep.out_f32 + at) = make_float2(p0, p1);
-          continue;
-        }
-        __nv_bfloat162 o;
-        if (EPI == QKV_DELTA) {
-          const int cr = (r / ep.L) * ep.Lp + r % ep.L;
-          const char2 c2 = *reinterpret_cast<const char2*>(ep.cq + (size_t)cr * N + col);
-          const float c = __ldg(ep.cs + cr);
-          o.x = __float2bfloat16_rn(__fadd_rn(__fmul_rn((float)c2.x, c), p0));
-          o.y = __float2bfloat16_rn(__fadd_rn(__fmul_rn((float)c2.y, c), p1));
-        } else {
-          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(ep.x + at);
-          const __nv_bfloat162 bv = *reinterpret_cast<const __nv_bfloat162*>(ep.xb + at);
-          const __nv_bfloat162 mv = *reinterpret_cast<const __nv_bfloat162*>(ep.xmb + at);
-          o.x = __float2bfloat16_rn(__fadd_rn(
-              __fadd_rn(__fsub_rn(__bfloat162float(xv.x), __bfloat162float(bv.x)),
-                        __bfloat162float(mv.x)),
-              p0));
-          o.y = __float2bfloat16_rn(__fadd_rn(
-              __fadd_rn(__fsub_rn(__bfloat162float(xv.y), __bfloat162float(bv.y)),
-                        __bfloat162float(mv.y)),
-              p1));
-        }
-        *reinterpret_cast<__nv_bfloat162*>(ep.out + at) = o;
+        *reinterpret_cast<float2*>(out_f32 + (size_t)r * N + col) = make_float2(p0, p1);
       }
   }
 }
@@ -406,17 +431,23 @@ int launch_rows(const void* x, const void* xb, const void* lns, const void* lnb,
   return (int)cudaGetLastError();
 }
 
-template <int EPI>
-int launch_gemm(const void* codes, const void* sr, const void* wq, const void* ws,
-                const EpiArgs& ep, int R, int N, int K, void* stream) {
-  if (R < 1 || N < BN || N % BN || K < KB || K % KB) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaFuncSetAttribute(int8_gemm_kernel<EPI>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err) return err;
-  const dim3 grid((R + BM - 1) / BM, N / BN);
-  int8_gemm_kernel<EPI><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
-      (const int8_t*)codes, (const int8_t*)wq, (const float*)sr, (const float*)ws, ep, R,
-      N, K);
+// the code pass of a stage delta at NV vectors a lane
+int launch_ln_delta(const void* x, const void* xb, const void* lns, const void* lnb,
+                    void* codes, void* sr, int rows, int C, float eps, void* stream) {
+  if (bad_rows(rows, C)) return (int)cudaErrorInvalidValue;
+  const int grid = (rows + ROW_WARPS - 1) / ROW_WARPS, nv = (C / 8 + 31) / 32;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define LN_DELTA_CASE(n)                                                              \
+  case n:                                                                             \
+    ln_delta_codes_kernel<n><<<grid, ROW_WARPS * 32, 0, s>>>(                          \
+        (const bf16*)x, (const bf16*)xb, (const float*)lns, (const float*)lnb,        \
+        (int8_t*)codes, (float*)sr, rows, C, eps);                                    \
+    break;
+  switch (nv) {
+    LN_DELTA_CASE(1) LN_DELTA_CASE(2) LN_DELTA_CASE(3) LN_DELTA_CASE(4)
+    LN_DELTA_CASE(5) LN_DELTA_CASE(6) LN_DELTA_CASE(7) LN_DELTA_CASE(8)
+  }
+#undef LN_DELTA_CASE
   return (int)cudaGetLastError();
 }
 
@@ -439,8 +470,7 @@ int uspace_ln_codes(const void* x, const void* ln_scale, const void* ln_bias,
 int uspace_ln_delta_codes(const void* x, const void* xb, const void* ln_scale,
                           const void* ln_bias, void* codes, void* sr, int R, int C,
                           float eps, void* stream) {
-  return launch_rows<LN_DELTA>(x, xb, ln_scale, ln_bias, codes, sr, R, 1, 1, C, eps,
-                               stream);
+  return launch_ln_delta(x, xb, ln_scale, ln_bias, codes, sr, R, C, eps, stream);
 }
 
 // a, a_b [R, C] bf16 -> codes [R, C] int8 and sr [R] f32 of f32(a) - f32(a_b).
@@ -453,9 +483,15 @@ int uspace_diff_codes(const void* a, const void* ab, void* codes, void* sr, int 
 // f32, wq [N, K] int8, ws [N] f32.
 int uspace_int8_gemm_f32(const void* codes, const void* sr, const void* wq,
                          const void* ws, void* out, int R, int N, int K, void* stream) {
-  EpiArgs ep{};
-  ep.out_f32 = (float*)out;
-  return launch_gemm<OUT_F32>(codes, sr, wq, ws, ep, R, N, K, stream);
+  if (R < 1 || N < BN || N % BN || K < KB || K % KB) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(int8_gemm_kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err) return err;
+  const dim3 grid((R + BM - 1) / BM, N / BN);
+  int8_gemm_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
+      (const int8_t*)codes, (const int8_t*)wq, (const float*)sr, (const float*)ws,
+      (float*)out, R, N, K);
+  return (int)cudaGetLastError();
 }
 
 // qkv [B * Lp, N] f32 -> cq [B * Lp, N] int8, cs [B * Lp] f32, qkvd [B, L, N]
@@ -468,36 +504,6 @@ int uspace_qkv_recode(const void* qkv, void* cq, void* cs, void* qkvd, int B, in
                   (cudaStream_t)stream>>>((const float*)qkv, (int8_t*)cq, (float*)cs,
                                           (bf16*)qkvd, rows, L, Lp, N);
   return (int)cudaGetLastError();
-}
-
-// out [B, L, N] bf16 = bf16(f32(cq) * cs + (f32(codes @ wq^T) * sr) * ws):
-// codes [B * L, K] int8 with sr, wq [N, K] int8 with ws, the cache cq [B * Lp,
-// N] int8 with cs [B * Lp] f32.
-int uspace_qkv_delta(const void* codes, const void* sr, const void* wq, const void* ws,
-                     const void* cq, const void* cs, void* out, int B, int L, int Lp,
-                     int N, int K, void* stream) {
-  if (B < 1 || L < 1 || Lp < L) return (int)cudaErrorInvalidValue;
-  EpiArgs ep{};
-  ep.cq = (const int8_t*)cq;
-  ep.cs = (const float*)cs;
-  ep.L = L;
-  ep.Lp = Lp;
-  ep.out = (bf16*)out;
-  return launch_gemm<QKV_DELTA>(codes, sr, wq, ws, ep, B * L, N, K, stream);
-}
-
-// out [R, N] bf16 = bf16(((f32(x) - f32(x_b)) + f32(xm_b)) + (f32(codes @
-// wp^T) * sr) * sp): codes [R, K] int8 with sr, wp [N, K] int8 with sp, x,
-// x_b, xm_b [R, N] bf16.
-int uspace_xm_delta(const void* codes, const void* sr, const void* wp, const void* sp,
-                    const void* x, const void* xb, const void* xmb, void* out, int R,
-                    int N, int K, void* stream) {
-  EpiArgs ep{};
-  ep.x = (const bf16*)x;
-  ep.xb = (const bf16*)xb;
-  ep.xmb = (const bf16*)xmb;
-  ep.out = (bf16*)out;
-  return launch_gemm<XM_DELTA>(codes, sr, wp, sp, ep, R, N, K, stream);
 }
 
 }  // extern "C"

@@ -22,6 +22,25 @@
 //     dg = gelu(deq(e_q) + de) - (f32(g_q) * g_s + g_z);
 //   row 25 <- _delta_mlp_kernel ("exact" delta), uspace_delta_fc1_exact:
 //     dg = gelu(deq(e_q) + de) - gelu(deq(e_q)).
+// and, on the same two wgmma bodies, the GEMMs of the W8A8 MLP sub-block
+// x + fc2(gelu(fc1(LN2(x)))) <- _mlp_kernel_int8_lnres of
+// uspace_tpu/ops/mlp.py (row 15), three launches from one C entry
+// (uspace_ln_mlp_int8) after one set of checks:
+//   uspace_mlp_int8_codes: LN2 in the bf16 chain and the row codes of its
+//     bf16 rows in one pass that keeps the row in registers;
+//   uspace_mlp_int8_fc1: g = GELU((f32(acc) * xs) * s1 + b1) coded per row
+//     and strip on the affine grid of mlp_int8.cu (scale max(gmax - gmin,
+//     1e-8) * (1/254), zero point (gmax + gmin) * 0.5, codes round((g - zp)
+//     / scale), an IEEE division), the row's max and min shared across the
+//     strip's cluster as the delta rows share amax;
+//   uspace_mlp_int8_fc2: acc += f32(d_j) * scale_j + zp_j * colsum_j(W2q)
+//     after each strip's K chunks, o = x + bf16(acc * s2 + b2).
+//   On an NVIDIA H100 80GB HBM3 at 700 W and the main path's shape the
+//   code pass takes 0.032 ms (0.040 as an LN pass and a code pass apart),
+//   fc1 0.356 (its GELU epilogue runs while the tensor cores idle, as rows
+//   24-25's do) and fc2 0.144; the whole sub-block 0.54, 1.44 on
+//   mlp_int8.cu's block kernel; the C entry takes about 23 us of host time
+//   a call.
 //
 // Bound at the main path's shape (12850 rows, C = 1024, hidden 4096): 2 x 2 x
 // 12850 x 1024 x 4096 = 215.6 G int8 operations over an H100 SXM's 1,979 TOPS
@@ -110,8 +129,9 @@
 //   hsc_j in strip order, then reset: int32 sums are exact, so the fold is
 //   the twin's to the bit.
 // On an H100 at the main path's shape (12850 rows, C 1024, hidden 4096) the
-// code pass takes 0.086 ms, fc2 0.135, and fc1 0.447 (row 25), 0.254 (row
-// 23) and 0.374-0.382 (row 24). Row 25's two GELUs (about 100 instructions a
+// code pass takes 0.031 ms (0.086 before it kept u in registers; NVIDIA
+// H100 80GB HBM3, 700 W), fc2 0.135, and fc1 0.447 (row 25), 0.254 (row
+// 23) and 0.374-0.392 (row 24). Row 25's two GELUs (about 100 instructions a
 // hidden value) take about 0.19 ms at the issue rate, while the block's
 // tensor cores idle; the GEMM skeleton (loads, products, the tile's round
 // trip, the exchange) 0.21, of which the products need 0.055. Measured and
@@ -209,6 +229,12 @@ __device__ inline unsigned lds32(const int8_t* p) {
 
 __device__ inline bf16 badd(bf16 a, bf16 b) {
   return __float2bfloat16_rn(__fadd_rn(__bfloat162float(a), __bfloat162float(b)));
+}
+__device__ inline bf16 bsub(bf16 a, bf16 b) {
+  return __float2bfloat16_rn(__fsub_rn(__bfloat162float(a), __bfloat162float(b)));
+}
+__device__ inline bf16 bmul(bf16 a, bf16 b) {
+  return __float2bfloat16_rn(__fmul_rn(__bfloat162float(a), __bfloat162float(b)));
 }
 
 // erf(x / sqrt 2) of the Abramowitz-Stegun 7.1.26 polynomial, in the order of
@@ -745,9 +771,10 @@ Args base_args(const void* x, const void* ln_scale, const void* ln_bias, const v
 // Rows 23-25 on wgmma: fc1 with the dg epilogue, fc2 with the strip fold
 // ---------------------------------------------------------------------------
 
-// fc1's dg epilogue, by row: dg = gelu(e_b + de) - gelu(e_b) (row 25), de *
-// gp_b (row 23), gelu(e_b + de) - g_b (row 24)
-enum Dg { DG_EXACT = 0, DG_LIN = 1, DG_GELU = 2 };
+// fc1's epilogue, by row: dg = gelu(e_b + de) - gelu(e_b) (row 25), de *
+// gp_b (row 23), gelu(e_b + de) - g_b (row 24); DG_MLP: row 15's hidden g =
+// GELU(e) on an affine grid per row and strip
+enum Dg { DG_EXACT = 0, DG_LIN = 1, DG_GELU = 2, DG_MLP = 3 };
 
 constexpr int W_BM = 128;       // rows a tile: two consumer warpgroups of 64
 constexpr int W_KB = 128;       // codes a K chunk: one 128-byte swizzle row
@@ -759,12 +786,19 @@ constexpr int F1_B = F1_BN * W_KB, F2_B = F2_BN * W_KB;
 constexpr int F1_RING = F1_STAGES * (W_A + F1_B);  // 144 KB
 constexpr int F1_TILE = W_BM * F1_BN;              // the block's tile of a cache
 constexpr int MAX_CLUSTER = 1024 / F1_BN;          // blocks a strip, at most
-constexpr int F1_RED = MAX_CLUSTER * W_BM * 4;     // row amax partials
-constexpr int F1_INV = W_BM * 4;                   // 127 / amax of each row
-// the cache tiles fc1 reads: e_q or gp_q, and row 24's g_q
-__host__ __device__ constexpr int f1_tiles(int dg) { return dg == DG_GELU ? 2 : 1; }
+constexpr int F1_RED = MAX_CLUSTER * W_BM * 4;     // a row statistic's partials
+constexpr int F1_INV = W_BM * 4;                   // a row's factor: 127 / amax
+// the cache tiles fc1 reads: e_q or gp_q, row 24's g_q beside it, none for
+// row 15
+__host__ __device__ constexpr int f1_tiles(int dg) {
+  return dg == DG_GELU ? 2 : dg == DG_MLP ? 0 : 1;
+}
+// the row statistics a cluster shares: amax, or row 15's max and min (and
+// its two factors, scale and zero point)
+__host__ __device__ constexpr int f1_stats(int dg) { return dg == DG_MLP ? 2 : 1; }
 __host__ __device__ constexpr int f1_smem(int dg) {
-  return 1024 + F1_RING + f1_tiles(dg) * F1_TILE + F1_RED + F1_INV + 8 * (2 * F1_STAGES + 1);
+  return 1024 + F1_RING + f1_tiles(dg) * F1_TILE + f1_stats(dg) * (F1_RED + F1_INV) +
+         8 * (2 * F1_STAGES + 1);
 }
 constexpr int F2_RING = F2_STAGES * (W_A + F2_B);  // 192 KB
 constexpr int F2_SMEM = 1024 + F2_RING + 8 * 2 * F2_STAGES;
@@ -772,7 +806,9 @@ constexpr int F2_SMEM = 1024 + F2_RING + 8 * 2 * F2_STAGES;
 // apart mod 32, so a half-warp's 8-byte fragment stores fall on 32 banks
 constexpr int F1_D_LD = F1_BN + 8;
 static_assert(W_BM * F1_D_LD * 4 <= F1_RING, "the epilogue's tile fits in the ring");
-static_assert(f1_smem(DG_GELU) <= MAX_SMEM && F2_SMEM <= MAX_SMEM, "shared memory");
+static_assert(f1_smem(DG_GELU) <= MAX_SMEM && f1_smem(DG_MLP) <= MAX_SMEM &&
+                  F2_SMEM <= MAX_SMEM,
+              "shared memory");
 
 __device__ inline uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -1009,8 +1045,10 @@ __device__ inline float dg_of(int acc, float ds, float s1, signed char cq, float
 // [N]; the cache c_q [M, N] int8 (map_c) with c_s [M, strips] (e_q, e_s or
 // gp_q, gp_s) and, for row 24, g_q [M, N] int8 (map_g) with g_s, g_z [M,
 // strips] -> hq [M, N] int8 and hsc [M, strips] f32, the codes of dg per row
-// and strip. A cluster of N / strips / F1_BN blocks along the grid's x takes
-// one strip of W_BM rows.
+// and strip. Row 15 (DG_MLP): a, the codes of LN2(x) with row scales ds; b1
+// [N], no cache -> hq, hsc and hzp [M, strips], the affine codes of g =
+// GELU((f32(acc) * ds) * s1 + b1), its scales and zero points. A cluster of
+// N / strips / F1_BN blocks along the grid's x takes one strip of W_BM rows.
 template <int DG>
 __global__ void __launch_bounds__(W_THREADS, 1)
 delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -1019,18 +1057,21 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_g, const float* __restrict__ ds,
                  const float* __restrict__ s1, const float* __restrict__ c_s,
                  const float* __restrict__ g_s, const float* __restrict__ g_z,
-                 int8_t* __restrict__ hq, float* __restrict__ hsc, int M, int N, int K,
+                 const float* __restrict__ b1, int8_t* __restrict__ hq,
+                 float* __restrict__ hsc, float* __restrict__ hzp, int M, int N, int K,
                  int strips) {
-  constexpr int TILES = f1_tiles(DG);
+  constexpr int TILES = f1_tiles(DG), STATS = f1_stats(DG);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sa = (raw + 1023u) & ~1023u;  // the swizzle's 1024-byte atoms
   const uint32_t sb = sa + F1_STAGES * W_A;
   // the cache tiles (c_q, then row 24's g_q), each two 128-column halves
   const uint32_t se = sb + F1_STAGES * F1_B;
-  const uint32_t sred = se + TILES * F1_TILE;  // [cluster][W_BM] partial amax
-  const uint32_t sinv = sred + F1_RED;        // [W_BM] 127 / amax
-  const uint32_t full = sinv + F1_INV, empty = full + 8 * F1_STAGES,
+  // [STATS][cluster][W_BM] partials: amax, or row 15's max and min
+  const uint32_t sred = se + TILES * F1_TILE;
+  // [STATS][W_BM]: 127 / amax, or row 15's scale and zero point
+  const uint32_t sinv = sred + STATS * F1_RED;
+  const uint32_t full = sinv + STATS * F1_INV, empty = full + 8 * F1_STAGES,
                  ebar = empty + 8 * F1_STAGES;
   unsigned char* ring = smem_raw + (sa - raw);
   const int wg = threadIdx.x >> 7, nk = (K + W_KB - 1) / W_KB;
@@ -1047,10 +1088,12 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
   int* tile = reinterpret_cast<int*>(ring);
   if (wg == 0) {  // producer: one thread issues every load
     if (threadIdx.x == 0) {
-      mbar_expect_tx(ebar, TILES * F1_TILE);
-      tma_load_2d(se, &map_c, n0, m0, ebar);
-      tma_load_2d(se + F1_TILE / 2, &map_c, n0 + F1_BN / 2, m0, ebar);
-      if (TILES == 2) {
+      if constexpr (TILES > 0) {
+        mbar_expect_tx(ebar, TILES * F1_TILE);
+        tma_load_2d(se, &map_c, n0, m0, ebar);
+        tma_load_2d(se + F1_TILE / 2, &map_c, n0 + F1_BN / 2, m0, ebar);
+      }
+      if constexpr (TILES == 2) {
         tma_load_2d(se + F1_TILE, &map_g, n0, m0, ebar);
         tma_load_2d(se + F1_TILE + F1_TILE / 2, &map_g, n0 + F1_BN / 2, m0, ebar);
       }
@@ -1085,15 +1128,20 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   asm volatile("bar.sync 2, %0;\n" ::"n"(W_THREADS) : "memory");
 
-  // dg in place, each of the block's twelve warps taking whole rows (row r
-  // to warp r % 12) and lane l columns 4l .. 4l + 3 and 128 + 4l .. 128 +
-  // 4l + 3; each row's amax over the block's columns into every block of
-  // the cluster
+  // dg (row 15: g) in place, each of the block's twelve warps taking whole
+  // rows (row r to warp r % 12) and lane l columns 4l .. 4l + 3 and 128 +
+  // 4l .. 128 + 4l + 3; each row's statistics over the block's columns into
+  // every block of the cluster
   constexpr int EPI_WARPS = W_THREADS / 32;
   const int ct = threadIdx.x, lane = ct & 31, warp = ct >> 5;
   const float4 sc0 = __ldg(reinterpret_cast<const float4*>(s1 + n0) + lane);
   const float4 sc1 = __ldg(reinterpret_cast<const float4*>(s1 + n0 + 128) + lane);
-  mbar_wait(ebar, 0);
+  float4 bi0, bi1;  // row 15's bias
+  if constexpr (DG == DG_MLP) {
+    bi0 = __ldg(reinterpret_cast<const float4*>(b1 + n0) + lane);
+    bi1 = __ldg(reinterpret_cast<const float4*>(b1 + n0 + 128) + lane);
+  }
+  if constexpr (TILES > 0) mbar_wait(ebar, 0);
   const unsigned char* ct0 = smem_raw + (se - raw);
   // a cache tile's 4 codes at (row r, column c) in its swizzled halves:
   // 16-byte chunk k of a 128-byte row r sits at chunk k ^ (r % 8)
@@ -1107,60 +1155,116 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
     const bool live = gr < M;
     const size_t at = (size_t)gr * strips + j;
     const float dsr = live ? __ldg(ds + gr) : 0.f;
-    const float csr = live ? __ldg(c_s + at) : 0.f;
-    const float gsr = DG == DG_GELU && live ? __ldg(g_s + at) : 0.f;
-    const float gzr = DG == DG_GELU && live ? __ldg(g_z + at) : 0.f;
     int4* p0 = reinterpret_cast<int4*>(tile + r * F1_D_LD) + lane;
     int4* p1 = reinterpret_cast<int4*>(tile + r * F1_D_LD + 128) + lane;
     const int4 a0 = *p0, a1 = *p1;
-    const char4 e0 = tile4(0, r, 4 * lane), e1 = tile4(0, r, 128 + 4 * lane);
-    char4 q0 = make_char4(0, 0, 0, 0), q1 = q0;
-    if (DG == DG_GELU) {
-      q0 = tile4(1, r, 4 * lane);
-      q1 = tile4(1, r, 128 + 4 * lane);
-    }
     float4 v0, v1;
-    v0.x = dg_of<DG>(a0.x, dsr, sc0.x, e0.x, csr, q0.x, gsr, gzr);
-    v0.y = dg_of<DG>(a0.y, dsr, sc0.y, e0.y, csr, q0.y, gsr, gzr);
-    v0.z = dg_of<DG>(a0.z, dsr, sc0.z, e0.z, csr, q0.z, gsr, gzr);
-    v0.w = dg_of<DG>(a0.w, dsr, sc0.w, e0.w, csr, q0.w, gsr, gzr);
-    v1.x = dg_of<DG>(a1.x, dsr, sc1.x, e1.x, csr, q1.x, gsr, gzr);
-    v1.y = dg_of<DG>(a1.y, dsr, sc1.y, e1.y, csr, q1.y, gsr, gzr);
-    v1.z = dg_of<DG>(a1.z, dsr, sc1.z, e1.z, csr, q1.z, gsr, gzr);
-    v1.w = dg_of<DG>(a1.w, dsr, sc1.w, e1.w, csr, q1.w, gsr, gzr);
+    if constexpr (DG == DG_MLP) {  // e = (f32(acc) * xs) * s1 + b1, g = GELU(e)
+      auto g_of = [&](int a, float s, float b) {
+        return gelu(__fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(a), dsr), s), b));
+      };
+      v0 = make_float4(g_of(a0.x, sc0.x, bi0.x), g_of(a0.y, sc0.y, bi0.y),
+                       g_of(a0.z, sc0.z, bi0.z), g_of(a0.w, sc0.w, bi0.w));
+      v1 = make_float4(g_of(a1.x, sc1.x, bi1.x), g_of(a1.y, sc1.y, bi1.y),
+                       g_of(a1.z, sc1.z, bi1.z), g_of(a1.w, sc1.w, bi1.w));
+    } else {
+      const float csr = live ? __ldg(c_s + at) : 0.f;
+      const float gsr = DG == DG_GELU && live ? __ldg(g_s + at) : 0.f;
+      const float gzr = DG == DG_GELU && live ? __ldg(g_z + at) : 0.f;
+      const char4 e0 = tile4(0, r, 4 * lane), e1 = tile4(0, r, 128 + 4 * lane);
+      char4 q0 = make_char4(0, 0, 0, 0), q1 = q0;
+      if (DG == DG_GELU) {
+        q0 = tile4(1, r, 4 * lane);
+        q1 = tile4(1, r, 128 + 4 * lane);
+      }
+      v0.x = dg_of<DG>(a0.x, dsr, sc0.x, e0.x, csr, q0.x, gsr, gzr);
+      v0.y = dg_of<DG>(a0.y, dsr, sc0.y, e0.y, csr, q0.y, gsr, gzr);
+      v0.z = dg_of<DG>(a0.z, dsr, sc0.z, e0.z, csr, q0.z, gsr, gzr);
+      v0.w = dg_of<DG>(a0.w, dsr, sc0.w, e0.w, csr, q0.w, gsr, gzr);
+      v1.x = dg_of<DG>(a1.x, dsr, sc1.x, e1.x, csr, q1.x, gsr, gzr);
+      v1.y = dg_of<DG>(a1.y, dsr, sc1.y, e1.y, csr, q1.y, gsr, gzr);
+      v1.z = dg_of<DG>(a1.z, dsr, sc1.z, e1.z, csr, q1.z, gsr, gzr);
+      v1.w = dg_of<DG>(a1.w, dsr, sc1.w, e1.w, csr, q1.w, gsr, gzr);
+    }
     *reinterpret_cast<float4*>(p0) = v0;
     *reinterpret_cast<float4*>(p1) = v1;
-    float m = fmaxf(fmaxf(fmaxf(fabsf(v0.x), fabsf(v0.y)), fmaxf(fabsf(v0.z), fabsf(v0.w))),
-                    fmaxf(fmaxf(fabsf(v1.x), fabsf(v1.y)), fmaxf(fabsf(v1.z), fabsf(v1.w))));
+    if constexpr (DG == DG_MLP) {  // the row's max and min
+      float mx = fmaxf(fmaxf(fmaxf(v0.x, v0.y), fmaxf(v0.z, v0.w)),
+                       fmaxf(fmaxf(v1.x, v1.y), fmaxf(v1.z, v1.w)));
+      float mn = fminf(fminf(fminf(v0.x, v0.y), fminf(v0.z, v0.w)),
+                       fminf(fminf(v1.x, v1.y), fminf(v1.z, v1.w)));
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (lane == 0)
-      for (int q = 0; q < ncl; ++q) st_cluster_f32(sred + 4 * (rank * W_BM + r), q, m);
+      for (int o = 16; o > 0; o >>= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+      }
+      if (lane == 0)
+        for (int q = 0; q < ncl; ++q) {
+          st_cluster_f32(sred + 4 * (rank * W_BM + r), q, mx);
+          st_cluster_f32(sred + F1_RED + 4 * (rank * W_BM + r), q, mn);
+        }
+    } else {  // the row's amax
+      float m = fmaxf(fmaxf(fmaxf(fabsf(v0.x), fabsf(v0.y)), fmaxf(fabsf(v0.z), fabsf(v0.w))),
+                      fmaxf(fmaxf(fabsf(v1.x), fabsf(v1.y)), fmaxf(fabsf(v1.z), fabsf(v1.w))));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (lane == 0)
+        for (int q = 0; q < ncl; ++q) st_cluster_f32(sred + 4 * (rank * W_BM + r), q, m);
+    }
   }
   cluster_sync();
 
-  // each row's amax over the strip, its scale and 127 / amax
+  // each row's statistics over the strip: 127 / amax and the scale amax *
+  // (1/127); row 15: the affine grid's scale max(gmax - gmin, 1e-8) *
+  // (1/254) and zero point (gmax + gmin) * 0.5
   float* inv = reinterpret_cast<float*>(smem_raw + (sinv - raw));
   if (ct < W_BM) {
     const float* red = reinterpret_cast<const float*>(smem_raw + (sred - raw));
-    float a = 0.f;
-    for (int q = 0; q < ncl; ++q) a = fmaxf(a, red[q * W_BM + ct]);
-    a = fmaxf(a, 1e-8f);
-    inv[ct] = __fdiv_rn(127.f, a);
-    if (rank == 0 && m0 + ct < M) hsc[(size_t)(m0 + ct) * strips + j] = __fmul_rn(a, 1.0f / 127.0f);
+    const bool live = m0 + ct < M;
+    const size_t at = (size_t)(m0 + ct) * strips + j;
+    if constexpr (DG == DG_MLP) {
+      float gmax = -pos_inf(), gmin = pos_inf();
+      for (int q = 0; q < ncl; ++q) {
+        gmax = fmaxf(gmax, red[q * W_BM + ct]);
+        gmin = fminf(gmin, red[F1_RED / 4 + q * W_BM + ct]);
+      }
+      const float sc = __fmul_rn(fmaxf(__fsub_rn(gmax, gmin), 1e-8f), 1.0f / 254.0f);
+      const float zp = __fmul_rn(__fadd_rn(gmax, gmin), 0.5f);
+      inv[ct] = sc;
+      inv[W_BM + ct] = zp;
+      if (rank == 0 && live) {
+        hsc[at] = sc;
+        hzp[at] = zp;
+      }
+    } else {
+      float a = 0.f;
+      for (int q = 0; q < ncl; ++q) a = fmaxf(a, red[q * W_BM + ct]);
+      a = fmaxf(a, 1e-8f);
+      inv[ct] = __fdiv_rn(127.f, a);
+      if (rank == 0 && live) hsc[at] = __fmul_rn(a, 1.0f / 127.0f);
+    }
   }
   asm volatile("bar.sync 2, %0;\n" ::"n"(W_THREADS) : "memory");
-  // round(dg * (127 / amax)), four codes a thread, a warp's 128 bytes of a
-  // row at once
+  // round(dg * (127 / amax)) (row 15: round((g - zp) / scale), an IEEE
+  // division), four codes a thread, a warp's 128 bytes of a row at once
   for (int i = ct; i < W_BM * F1_BN / 4; i += W_THREADS) {
     const int r = i / (F1_BN / 4), c4 = i % (F1_BN / 4), gr = m0 + r;
     if (gr >= M) continue;
     const float4 v = *reinterpret_cast<const float4*>(tile + r * F1_D_LD + 4 * c4);
     const float s = inv[r];
-    const char4 q = make_char4((signed char)__float2int_rn(__fmul_rn(v.x, s)),
-                               (signed char)__float2int_rn(__fmul_rn(v.y, s)),
-                               (signed char)__float2int_rn(__fmul_rn(v.z, s)),
-                               (signed char)__float2int_rn(__fmul_rn(v.w, s)));
+    char4 q;
+    if constexpr (DG == DG_MLP) {
+      const float z = inv[W_BM + r];
+      q = make_char4((signed char)__float2int_rn(__fdiv_rn(__fsub_rn(v.x, z), s)),
+                     (signed char)__float2int_rn(__fdiv_rn(__fsub_rn(v.y, z), s)),
+                     (signed char)__float2int_rn(__fdiv_rn(__fsub_rn(v.z, z), s)),
+                     (signed char)__float2int_rn(__fdiv_rn(__fsub_rn(v.w, z), s)));
+    } else {
+      q = make_char4((signed char)__float2int_rn(__fmul_rn(v.x, s)),
+                     (signed char)__float2int_rn(__fmul_rn(v.y, s)),
+                     (signed char)__float2int_rn(__fmul_rn(v.z, s)),
+                     (signed char)__float2int_rn(__fmul_rn(v.w, s)));
+    }
     *reinterpret_cast<char4*>(hq + (size_t)gr * N + n0 + 4 * c4) = q;
   }
 }
@@ -1169,12 +1273,17 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
 // (torch layout) with s2 [N]; acc += f32(d_j) * hsc_j over the strips in
 // order (d_j the int32 sum over strip j's K chunks), then out = x +
 // bf16(f32(m_b) + acc * s2), the sum in bf16 (m_b, x, out [M, N] bf16).
+// MLP (row 15): hq on its affine grids, acc += f32(d_j) * hsc_j + hzp_j *
+// colsum_j (colsum [strips, N], the column sums of each strip of w2's codes),
+// then out = x + bf16(acc * s2 + b2).
+template <bool MLP>
 __global__ void __launch_bounds__(W_THREADS, 1)
 delta_fc2_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_w, const float* __restrict__ hsc,
-                 const float* __restrict__ s2, const bf16* __restrict__ m_b,
-                 const bf16* __restrict__ x, bf16* __restrict__ out, int M, int N, int K,
-                 int strips) {
+                 const float* __restrict__ hzp, const float* __restrict__ colsum,
+                 const float* __restrict__ s2, const float* __restrict__ b2,
+                 const bf16* __restrict__ m_b, const bf16* __restrict__ x,
+                 bf16* __restrict__ out, int M, int N, int K, int strips) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sa = (raw + 1023u) & ~1023u;
@@ -1213,10 +1322,28 @@ delta_fc2_kernel(const __grid_constant__ CUtensorMap map_a,
     fence_regs(acc);
     const float h0 = r0 < M ? __ldg(hsc + (size_t)r0 * strips + jst) : 0.f;
     const float h1 = r1 < M ? __ldg(hsc + (size_t)r1 * strips + jst) : 0.f;
+    if constexpr (MLP) {
+      const float z0 = r0 < M ? __ldg(hzp + (size_t)r0 * strips + jst) : 0.f;
+      const float z1 = r1 < M ? __ldg(hzp + (size_t)r1 * strips + jst) : 0.f;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      sum[i] = __fadd_rn(sum[i], __fmul_rn(__int2float_rn(acc[i]), (i & 2) ? h1 : h0));
-      acc[i] = 0;
+      for (int c = 0; c < F2_BN / 8; ++c) {
+        const float2 cs = __ldg(reinterpret_cast<const float2*>(
+            colsum + (size_t)jst * N + n0 + 8 * c + 2 * t4));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * c + e;
+          const float term = __fadd_rn(__fmul_rn(__int2float_rn(acc[i]), (e & 2) ? h1 : h0),
+                                       __fmul_rn((e & 2) ? z1 : z0, (e & 1) ? cs.y : cs.x));
+          sum[i] = __fadd_rn(sum[i], term);
+          acc[i] = 0;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        sum[i] = __fadd_rn(sum[i], __fmul_rn(__int2float_rn(acc[i]), (i & 2) ? h1 : h0));
+        acc[i] = 0;
+      }
     }
     fence_regs(acc);
   }
@@ -1224,18 +1351,25 @@ delta_fc2_kernel(const __grid_constant__ CUtensorMap map_a,
   for (int c = 0; c < F2_BN / 8; ++c) {
     const int col = n0 + 8 * c + 2 * t4;
     const float2 w = __ldg(reinterpret_cast<const float2*>(s2 + col));
+    float2 bias;
+    if constexpr (MLP) bias = __ldg(reinterpret_cast<const float2*>(b2 + col));
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = hh ? r1 : r0;
       if (r >= M) continue;
       const size_t at = (size_t)r * N + col;
-      const __nv_bfloat162 mb = *reinterpret_cast<const __nv_bfloat162*>(m_b + at);
       const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(x + at);
       __nv_bfloat162 m, o;
-      m.x = __float2bfloat16_rn(
-          __fadd_rn(__bfloat162float(mb.x), __fmul_rn(sum[4 * c + 2 * hh], w.x)));
-      m.y = __float2bfloat16_rn(
-          __fadd_rn(__bfloat162float(mb.y), __fmul_rn(sum[4 * c + 2 * hh + 1], w.y)));
+      if constexpr (MLP) {  // m = bf16(acc * s2 + b2)
+        m.x = __float2bfloat16_rn(__fadd_rn(__fmul_rn(sum[4 * c + 2 * hh], w.x), bias.x));
+        m.y = __float2bfloat16_rn(__fadd_rn(__fmul_rn(sum[4 * c + 2 * hh + 1], w.y), bias.y));
+      } else {  // m = bf16(f32(m_b) + acc * s2)
+        const __nv_bfloat162 mb = *reinterpret_cast<const __nv_bfloat162*>(m_b + at);
+        m.x = __float2bfloat16_rn(
+            __fadd_rn(__bfloat162float(mb.x), __fmul_rn(sum[4 * c + 2 * hh], w.x)));
+        m.y = __float2bfloat16_rn(
+            __fadd_rn(__bfloat162float(mb.y), __fmul_rn(sum[4 * c + 2 * hh + 1], w.y)));
+      }
       o.x = badd(xr.x, m.x);
       o.y = badd(xr.y, m.y);
       *reinterpret_cast<__nv_bfloat162*>(out + at) = o;
@@ -1293,18 +1427,126 @@ inline bool bad_wgmma_shape(int R, int C, int hidden, int strips) {
   return hs % F1_BN || hs > MAX_CLUSTER * F1_BN || C < F2_BN || C % F2_BN;
 }
 
-// fc1 of row DG; g_q, g_s, g_z are row 24's and are not read by the others
+// Row 15's code pass: LN2 of x [R, C] bf16 in the bf16 chain of mlp_w8.cu's
+// w8_ln_kernel (f32 sums in lane order, mu = sum / C, var = sum(x^2) / C -
+// mu^2, then ((x - mu) * inv) * s + b with each operation rounded to bf16),
+// the row kept in registers and coded as attention_block.cu's
+// row_codes_kernel codes a bf16 row: codes [R, C] = round(f32(xln) * (127 /
+// amax)), sr [R] = amax * (1/127), amax = max(max |xln|, 1e-8). The same
+// operations in the same order as those two passes, so the same bits. One
+// warp a row; NV: the 16-byte vectors a lane holds (C <= NV * 256).
+constexpr int CODE_WARPS = 8;
+constexpr int CODE_MAX_NV = 4;  // C <= 1024: row 15's C is at most its strip
+
+template <int NV>
+__global__ void __launch_bounds__(CODE_WARPS * 32)
+mlp_code_pass_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+                     const float* __restrict__ ln_b, int8_t* __restrict__ q,
+                     float* __restrict__ sr, int R, int C, float eps) {
+  const int lane = threadIdx.x & 31, nvec = C / 8;
+  const int r = blockIdx.x * CODE_WARPS + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const uint4* row = reinterpret_cast<const uint4*>(x + (size_t)r * C);
+  uint4 v[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (lane + 32 * i < nvec) v[i] = __ldg(row + lane + 32 * i);
+  float sum = 0.f, sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (lane + 32 * i >= nvec) continue;
+    const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float f = __bfloat162float(e[j]);
+      sum = __fadd_rn(sum, f);
+      sq = __fadd_rn(sq, __fmul_rn(f, f));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
+    sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, o));
+  }
+  const float mu = __fdiv_rn(sum, (float)C);
+  const float var = __fsub_rn(__fdiv_rn(sq, (float)C), __fmul_rn(mu, mu));
+  const bf16 mu_b = __float2bfloat16_rn(mu);
+  const bf16 inv_b = __float2bfloat16_rn(rsqrtf(__fadd_rn(var, eps)));
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = lane + 32 * i;
+    if (vi >= nvec) continue;
+    // this vector's 8 scales and biases, as two 16-byte loads each
+    float sc[8], bi[8];
+    const float4* s4 = reinterpret_cast<const float4*>(ln_s) + 2 * vi;
+    const float4* b4 = reinterpret_cast<const float4*>(ln_b) + 2 * vi;
+    *reinterpret_cast<float4*>(sc) = __ldg(s4);
+    *reinterpret_cast<float4*>(sc + 4) = __ldg(s4 + 1);
+    *reinterpret_cast<float4*>(bi) = __ldg(b4);
+    *reinterpret_cast<float4*>(bi + 4) = __ldg(b4 + 1);
+    bf16* e = reinterpret_cast<bf16*>(&v[i]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // ((x - mu) * inv) * s + b, each rounded to bf16
+      e[j] = badd(bmul(bmul(bsub(e[j], mu_b), inv_b), __float2bfloat16_rn(sc[j])),
+                  __float2bfloat16_rn(bi[j]));
+      amax = fmaxf(amax, fabsf(__bfloat162float(e[j])));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  amax = fmaxf(amax, 1e-8f);
+  const float inv127 = __fdiv_rn(127.f, amax);
+  if (lane == 0) sr[r] = __fmul_rn(amax, 1.0f / 127.0f);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (lane + 32 * i >= nvec) continue;
+    const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
+    uint2 packed;
+    int8_t* c8 = reinterpret_cast<int8_t*>(&packed);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      c8[j] = (int8_t)__float2int_rn(__fmul_rn(__bfloat162float(e[j]), inv127));
+    *reinterpret_cast<uint2*>(q + (size_t)r * C + (lane + 32 * i) * 8) = packed;
+  }
+}
+
+inline bool bad_code_shape(int R, int C) {
+  return R < 1 || C < 8 || C % 8 || C > CODE_MAX_NV * 256;
+}
+
+int launch_mlp_codes(const void* x, const void* ln_s, const void* ln_b, void* q, void* sr,
+                     int R, int C, float eps, cudaStream_t stream) {
+  if (bad_code_shape(R, C)) return (int)cudaErrorInvalidValue;
+  const int grid = (R + CODE_WARPS - 1) / CODE_WARPS;
+  const bf16* xp = (const bf16*)x;
+  const float *sp = (const float*)ln_s, *bp = (const float*)ln_b;
+  switch ((C + 255) / 256) {
+#define CODE_CASE(n)                                                                  \
+  case n:                                                                             \
+    mlp_code_pass_kernel<n><<<grid, CODE_WARPS * 32, 0, stream>>>(xp, sp, bp, (int8_t*)q, \
+                                                                  (float*)sr, R, C, eps); \
+    break;
+    CODE_CASE(1) CODE_CASE(2) CODE_CASE(3) CODE_CASE(4)
+#undef CODE_CASE
+  }
+  return (int)cudaGetLastError();
+}
+
+// fc1 of row DG; g_q, g_s, g_z are row 24's and are not read by the others;
+// b1 and hzp are row 15's, which reads no cache
 template <int DG>
 int launch_delta_fc1(const void* codes, const void* sr, const void* w1, const void* s1,
                      const void* c_q, const void* c_s, const void* g_q, const void* g_s,
-                     const void* g_z, void* hq, void* hsc, int R, int C, int hidden,
-                     int strips, cudaStream_t stream) {
+                     const void* g_z, const void* b1, void* hq, void* hsc, void* hzp, int R,
+                     int C, int hidden, int strips, cudaStream_t stream) {
   if (bad_wgmma_shape(R, C, hidden, strips)) return (int)cudaErrorInvalidValue;
-  CUtensorMap ma, mw, mc, mg;
+  CUtensorMap ma, mw, mc{}, mg{};
   int err = make_map(&ma, codes, R, C, W_BM);
   if (!err) err = make_map(&mw, w1, hidden, C, F1_BN);
-  if (!err) err = make_map(&mc, c_q, R, hidden, W_BM);
-  if (!err) err = make_map(&mg, DG == DG_GELU ? g_q : c_q, R, hidden, W_BM);
+  if (!err && f1_tiles(DG) > 0) err = make_map(&mc, c_q, R, hidden, W_BM);
+  if (!err && f1_tiles(DG) > 1) err = make_map(&mg, g_q, R, hidden, W_BM);
   if (!err)
     err = (int)cudaFuncSetAttribute(delta_fc1_kernel<DG>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, f1_smem(DG));
@@ -1323,26 +1565,29 @@ int launch_delta_fc1(const void* codes, const void* sr, const void* w1, const vo
   cfg.numAttrs = 1;
   err = (int)cudaLaunchKernelEx(&cfg, delta_fc1_kernel<DG>, ma, mw, mc, mg, (const float*)sr,
                                 (const float*)s1, (const float*)c_s, (const float*)g_s,
-                                (const float*)g_z, (int8_t*)hq, (float*)hsc, R, hidden, C,
-                                strips);
+                                (const float*)g_z, (const float*)b1, (int8_t*)hq,
+                                (float*)hsc, (float*)hzp, R, hidden, C, strips);
   return err ? err : (int)cudaGetLastError();
 }
 
-int launch_delta_fc2(const void* hq, const void* hsc, const void* w2, const void* s2,
-                     const void* m_b, const void* x, void* out, int R, int C, int hidden,
-                     int strips, cudaStream_t stream) {
+// fc2 of the delta rows (m_b), or with MLP row 15's (hzp, colsum, b2)
+template <bool MLP>
+int launch_delta_fc2(const void* hq, const void* hsc, const void* hzp, const void* colsum,
+                     const void* w2, const void* s2, const void* b2, const void* m_b,
+                     const void* x, void* out, int R, int C, int hidden, int strips,
+                     cudaStream_t stream) {
   if (bad_wgmma_shape(R, C, hidden, strips)) return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mw;
   int err = make_map(&ma, hq, R, hidden, W_BM);
   if (!err) err = make_map(&mw, w2, C, hidden, F2_BN);
   if (!err)
-    err = (int)cudaFuncSetAttribute(delta_fc2_kernel,
+    err = (int)cudaFuncSetAttribute(delta_fc2_kernel<MLP>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, F2_SMEM);
   if (err) return err;
   const dim3 grid(C / F2_BN, (R + W_BM - 1) / W_BM);
-  delta_fc2_kernel<<<grid, W_THREADS, F2_SMEM, stream>>>(
-      ma, mw, (const float*)hsc, (const float*)s2, (const bf16*)m_b, (const bf16*)x,
-      (bf16*)out, R, C, hidden, strips);
+  delta_fc2_kernel<MLP><<<grid, W_THREADS, F2_SMEM, stream>>>(
+      ma, mw, (const float*)hsc, (const float*)hzp, (const float*)colsum, (const float*)s2,
+      (const float*)b2, (const bf16*)m_b, (const bf16*)x, (bf16*)out, R, C, hidden, strips);
   return (int)cudaGetLastError();
 }
 
@@ -1397,7 +1642,8 @@ int uspace_delta_fc1_exact(const void* codes, const void* sr, const void* w1,
                            const void* s1, const void* e_q, const void* e_s, void* hq,
                            void* hsc, int R, int C, int hidden, int strips, void* stream) {
   return launch_delta_fc1<DG_EXACT>(codes, sr, w1, s1, e_q, e_s, nullptr, nullptr, nullptr,
-                                    hq, hsc, R, C, hidden, strips, (cudaStream_t)stream);
+                                    nullptr, hq, hsc, nullptr, R, C, hidden, strips,
+                                    (cudaStream_t)stream);
 }
 
 // Row 23's fc1: as row 25's with gp_q [R, hidden] int8 and gp_s [R, strips]
@@ -1407,7 +1653,8 @@ int uspace_delta_fc1_lin(const void* codes, const void* sr, const void* w1, cons
                          const void* gp_q, const void* gp_s, void* hq, void* hsc, int R,
                          int C, int hidden, int strips, void* stream) {
   return launch_delta_fc1<DG_LIN>(codes, sr, w1, s1, gp_q, gp_s, nullptr, nullptr, nullptr,
-                                  hq, hsc, R, C, hidden, strips, (cudaStream_t)stream);
+                                  nullptr, hq, hsc, nullptr, R, C, hidden, strips,
+                                  (cudaStream_t)stream);
 }
 
 // Row 24's fc1: as row 25's, and row 21's g_q [R, hidden] int8 with g_s, g_z
@@ -1416,8 +1663,8 @@ int uspace_delta_fc1_g(const void* codes, const void* sr, const void* w1, const 
                        const void* e_q, const void* e_s, const void* g_q, const void* g_s,
                        const void* g_z, void* hq, void* hsc, int R, int C, int hidden,
                        int strips, void* stream) {
-  return launch_delta_fc1<DG_GELU>(codes, sr, w1, s1, e_q, e_s, g_q, g_s, g_z, hq, hsc, R, C,
-                                   hidden, strips, (cudaStream_t)stream);
+  return launch_delta_fc1<DG_GELU>(codes, sr, w1, s1, e_q, e_s, g_q, g_s, g_z, nullptr, hq,
+                                   hsc, nullptr, R, C, hidden, strips, (cudaStream_t)stream);
 }
 
 // fc2 of the delta rows: hq [R, hidden] int8 with hsc [R, strips] f32, w2 [C,
@@ -1427,8 +1674,63 @@ int uspace_delta_fc1_g(const void* codes, const void* sr, const void* w1, const 
 int uspace_delta_fc2(const void* hq, const void* hsc, const void* w2, const void* s2,
                      const void* m_b, const void* x, void* out, int R, int C, int hidden,
                      int strips, void* stream) {
-  return launch_delta_fc2(hq, hsc, w2, s2, m_b, x, out, R, C, hidden, strips,
-                          (cudaStream_t)stream);
+  return launch_delta_fc2<false>(hq, hsc, nullptr, nullptr, w2, s2, nullptr, m_b, x, out, R,
+                                 C, hidden, strips, (cudaStream_t)stream);
+}
+
+// Row 15's fc1: codes [R, C] int8 with sr [R] f32 (uspace_mlp_int8_codes of
+// x), w1 [hidden, C] int8 (torch layout) with s1, b1
+// [hidden] f32 -> hq [R, hidden] int8, hsc and hzp [R, strips] f32: g =
+// GELU((f32(acc) * sr) * s1 + b1) coded on an affine grid per row and
+// strip, its scales and zero points. Strips of 256 to 1024 in multiples of
+// 256, C a multiple of 128.
+int uspace_mlp_int8_fc1(const void* codes, const void* sr, const void* w1, const void* s1,
+                        const void* b1, void* hq, void* hsc, void* hzp, int R, int C,
+                        int hidden, int strips, void* stream) {
+  return launch_delta_fc1<DG_MLP>(codes, sr, w1, s1, nullptr, nullptr, nullptr, nullptr,
+                                  nullptr, b1, hq, hsc, hzp, R, C, hidden, strips,
+                                  (cudaStream_t)stream);
+}
+
+// Row 15's fc2: hq [R, hidden] int8 with hsc, hzp [R, strips] f32, w2 [C,
+// hidden] int8 (torch layout) with s2, b2 [C] f32, colsum [strips, C] f32,
+// x [R, C] bf16 -> out [R, C] = x + bf16(acc * s2 + b2), acc the strips'
+// f32(d_j) * hsc_j + hzp_j * colsum_j folded in order; C a multiple of 128.
+int uspace_mlp_int8_fc2(const void* hq, const void* hsc, const void* hzp, const void* w2,
+                        const void* s2, const void* b2, const void* colsum, const void* x,
+                        void* out, int R, int C, int hidden, int strips, void* stream) {
+  return launch_delta_fc2<true>(hq, hsc, hzp, colsum, w2, s2, b2, nullptr, x, out, R, C,
+                                hidden, strips, (cudaStream_t)stream);
+}
+
+// Row 15's code pass alone: x [R, C] bf16 with LN2's f32 ln_scale, ln_bias
+// [C] -> codes [R, C] int8 and sr [R] f32. C a multiple of 8, at most 1024.
+int uspace_mlp_int8_codes(const void* x, const void* ln_scale, const void* ln_bias,
+                          void* codes, void* sr, int R, int C, float eps, void* stream) {
+  return launch_mlp_codes(x, ln_scale, ln_bias, codes, sr, R, C, eps, (cudaStream_t)stream);
+}
+
+// Row 15, the W8A8 MLP sub-block out = x + fc2(gelu(fc1(LN2(x)))) as three
+// launches on one stream: the code pass, fc1 and fc2, their operands as
+// theirs above, through the caller's workspaces codes [R, C] int8, sr [R]
+// f32, hq [R, hidden] int8, hsc and hzp [R, strips] f32 (16-byte aligned).
+// Every shape is checked before the first launch.
+int uspace_ln_mlp_int8(const void* x, const void* ln_scale, const void* ln_bias,
+                       const void* w1, const void* s1, const void* b1, const void* w2,
+                       const void* s2, const void* b2, const void* colsum, void* codes,
+                       void* sr, void* hq, void* hsc, void* hzp, void* out, int R, int C,
+                       int hidden, int strips, float eps, void* stream) {
+  if (bad_code_shape(R, C) || bad_wgmma_shape(R, C, hidden, strips))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int err = launch_mlp_codes(x, ln_scale, ln_bias, codes, sr, R, C, eps, st);
+  if (!err)
+    err = launch_delta_fc1<DG_MLP>(codes, sr, w1, s1, nullptr, nullptr, nullptr, nullptr,
+                                   nullptr, b1, hq, hsc, hzp, R, C, hidden, strips, st);
+  if (!err)
+    err = launch_delta_fc2<true>(hq, hsc, hzp, colsum, w2, s2, b2, nullptr, x, out, R, C,
+                                 hidden, strips, st);
+  return err;
 }
 
 }  // extern "C"

@@ -1,26 +1,25 @@
 // Fused int8 W8A8 transformer MLP for U-ViT sampling on Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of uspace_tpu/ops/mlp.py:
-//   uspace_ln_mlp_int8 <- _mlp_kernel_int8_lnres  x + fc2(gelu(fc1(LN2(x))))
-//   uspace_mlp_int8    <- _mlp_kernel_int8        fc2(gelu(fc1(x)))
+// Replaces the Pallas TPU kernel _mlp_kernel_int8 of uspace_tpu/ops/mlp.py
+// (row 14): uspace_mlp_int8, fc2(gelu(fc1(x))). Its LN2 + residual sibling
+// _mlp_kernel_int8_lnres (row 15) runs on delta_mlp.cu's wgmma GEMMs
+// (uspace_mlp_int8_fc1, uspace_mlp_int8_fc2) after a code pass.
 //
 // Bound at the main path's shape (12850 rows, C = 1024, hidden 4096): 215.6 G
 // int8 operations over an H100 SXM's 1,979 TOPS = 109 us; 60 MB moved
 // (bf16 x in and out, int8 weights) = 18 us; operations bound.
 //
 // What each block computes is what the TPU kernel computes for its rows:
-// - LN2 (lnres): f32 statistics (var = E[x^2] - mu^2), then normalised in
-//   bf16, each product and sum rounded to bf16 (as the TPU kernel's bf16
-//   arithmetic), then f32. Row codes round(x * (127 / amax)).
+// - row codes round(x * (127 / amax)).
 // - per hidden strip j (hidden / strips columns): int32 fc1, f32(acc) * xs *
 //   s1 + b1, GELU (Abramowitz-Stegun erf polynomial, f32, expf), then an
 //   affine grid per row: scale = max(gmax - gmin, 1e-8) / 254 (as * (1/254)),
 //   zp = (gmax + gmin) / 2, codes round((g - zp) / scale) with an IEEE
 //   division. Every float product, sum and quotient is an explicit _rn
-//   intrinsic (expf and rsqrtf are the library's), so no multiply-add is
-//   contracted where the TPU kernel rounds twice.
+//   intrinsic (expf is the library's), so no multiply-add is contracted
+//   where the TPU kernel rounds twice.
 // - fc2: acc += f32(d_j) * scale_j + zp_j * colsum_j(W2q) over the strips,
-//   then acc * s2 + b2 rounded to bf16 (and added to x in bf16).
+//   then acc * s2 + b2 rounded to bf16.
 //
 // Design (simple first; wgmma/TMA are later work):
 // - One block of 16 warps per 32 rows. A strip's quantization needs the
@@ -120,18 +119,6 @@ __device__ inline unsigned lds32(const int8_t* p) {
   return *reinterpret_cast<const unsigned*>(p);
 }
 
-// bf16 arithmetic as the TPU kernel's: each result rounded to bf16 (the
-// f32 product of two bf16 is exact, so this is the correctly rounded op)
-__device__ inline bf16 bsub(bf16 a, bf16 b) {
-  return __float2bfloat16_rn(__fsub_rn(__bfloat162float(a), __bfloat162float(b)));
-}
-__device__ inline bf16 bmul(bf16 a, bf16 b) {
-  return __float2bfloat16_rn(__fmul_rn(__bfloat162float(a), __bfloat162float(b)));
-}
-__device__ inline bf16 badd(bf16 a, bf16 b) {
-  return __float2bfloat16_rn(__fadd_rn(__bfloat162float(a), __bfloat162float(b)));
-}
-
 // GELU with the Abramowitz-Stegun 7.1.26 erf polynomial, in the order of
 // uspace_tpu/ops/mlp.py _gelu_exact / _erf_poly.
 __device__ inline float gelu_poly(float x) {
@@ -148,13 +135,11 @@ __device__ inline float gelu_poly(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, erf));
 }
 
-// Rows row0.. of x -> [LN2 ->] f32 -> int8 codes in xq (row stride ld) and
-// xs = amax / 127 per row; rows >= R get zero codes. One warp per row, the
-// row held in registers.
-template <bool LN>
-__device__ void code_rows(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-                          const float* __restrict__ ln_b, int row0, int R, int C,
-                          float eps, int8_t* xq, int ld, float* xs_s) {
+// Rows row0.. of x -> int8 codes in xq (row stride ld) and xs = amax / 127
+// per row; rows >= R get zero codes. One warp per row, the row held in
+// registers.
+__device__ void code_rows(const bf16* __restrict__ x, int row0, int R, int C, int8_t* xq,
+                          int ld, float* xs_s) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nvec = C / 8;
   for (int rr = warp; rr < ROWS; rr += WARPS) {
@@ -171,43 +156,6 @@ __device__ void code_rows(const bf16* __restrict__ x, const float* __restrict__ 
 #pragma unroll
     for (int i = 0; i < MAX_ROW_VEC; ++i)
       if (lane + 32 * i < nvec) v[i] = __ldg(row + lane + 32 * i);
-    bf16 mu_b = __float2bfloat16_rn(0.f), inv_b = mu_b;
-    if (LN) {
-      float sum = 0.f, sq = 0.f;
-#pragma unroll
-      for (int i = 0; i < MAX_ROW_VEC; ++i) {
-        if (lane + 32 * i >= nvec) continue;
-        const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float f = __bfloat162float(e[j]);
-          sum = __fadd_rn(sum, f);
-          sq = __fadd_rn(sq, __fmul_rn(f, f));
-        }
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
-        sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, o));
-      }
-      const float mu = __fdiv_rn(sum, (float)C);
-      const float var = __fsub_rn(__fdiv_rn(sq, (float)C), __fmul_rn(mu, mu));
-      mu_b = __float2bfloat16_rn(mu);
-      inv_b = __float2bfloat16_rn(rsqrtf(__fadd_rn(var, eps)));
-      // normalise in bf16 in place: ((x - mu) * inv) * s + b
-#pragma unroll
-      for (int i = 0; i < MAX_ROW_VEC; ++i) {
-        if (lane + 32 * i >= nvec) continue;
-        bf16* e = reinterpret_cast<bf16*>(&v[i]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = (lane + 32 * i) * 8 + j;
-          e[j] = badd(bmul(bmul(bsub(e[j], mu_b), inv_b),
-                           __float2bfloat16_rn(__ldg(ln_s + c))),
-                      __float2bfloat16_rn(__ldg(ln_b + c)));
-        }
-      }
-    }
     float amax = 0.f;
 #pragma unroll
     for (int i = 0; i < MAX_ROW_VEC; ++i) {
@@ -237,15 +185,13 @@ __device__ void code_rows(const bf16* __restrict__ x, const float* __restrict__ 
 }
 
 // NT1: 8-column tiles per warp in a strip (strip width 16 * NT1 * 8).
-template <int NT1, bool LN>
+template <int NT1>
 __global__ void __launch_bounds__(THREADS, 1)
-mlp_int8_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-                const float* __restrict__ ln_b, const int8_t* __restrict__ w1,
+mlp_int8_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w1,
                 const float* __restrict__ s1, const float* __restrict__ b1,
                 const int8_t* __restrict__ w2, const float* __restrict__ s2,
                 const float* __restrict__ b2, const float* __restrict__ colsum,
-                bf16* __restrict__ out, int R, int C, int strips, int out_dim,
-                float eps) {
+                bf16* __restrict__ out, int R, int C, int strips, int out_dim) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int HS = WARPS * NT1 * 8;  // strip width
   const int hidden = HS * strips;
@@ -263,7 +209,7 @@ mlp_int8_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
   float* red_min = red_max + WARPS * ROWS;
   const int ld = lay.hq_ld;
 
-  code_rows<LN>(x, ln_s, ln_b, row0, R, C, eps, xq, ld, xs_s);
+  code_rows(x, row0, R, C, xq, ld, xs_s);
 
   // ---- fc1 + GELU + per-row-per-strip affine codes, strip by strip ----
   const int nk1 = C / KC1, n1 = strips * nk1;
@@ -455,7 +401,7 @@ mlp_int8_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
         }
       }
     }
-    // acc * s2 + b2 -> bf16 [+ x in bf16]
+    // acc * s2 + b2 -> bf16
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const int col = o0 + cg * 32 + nt * 8 + t * 2;
@@ -468,62 +414,27 @@ mlp_int8_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
         __nv_bfloat162 o;
         o.x = __float2bfloat16_rn(__fadd_rn(__fmul_rn(accf[nt][hh * 2], w0), c0));
         o.y = __float2bfloat16_rn(__fadd_rn(__fmul_rn(accf[nt][hh * 2 + 1], w1v), c1));
-        if (LN) {
-          const __nv_bfloat162 xr =
-              *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)r * C + col);
-          o.x = badd(xr.x, o.x);
-          o.y = badd(xr.y, o.y);
-        }
         *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * out_dim + col) = o;
       }
     }
   }
 }
 
-template <int NT1, bool LN>
-int launch_nt(const void* x, const void* lns, const void* lnb, const void* w1,
-              const void* s1, const void* b1, const void* w2, const void* s2,
-              const void* b2, const void* colsum, void* out, int R, int C,
-              int strips, int out_dim, float eps, cudaStream_t stream) {
+template <int NT1>
+int launch_nt(const void* x, const void* w1, const void* s1, const void* b1, const void* w2,
+              const void* s2, const void* b2, const void* colsum, void* out, int R, int C,
+              int strips, int out_dim, cudaStream_t stream) {
   const Layout lay = make_layout(WARPS * NT1 * 8, strips);
   if (lay.bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaFuncSetAttribute(mlp_int8_kernel<NT1, LN>,
+  int err = (int)cudaFuncSetAttribute(mlp_int8_kernel<NT1>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       lay.bytes);
   if (err) return err;
-  mlp_int8_kernel<NT1, LN><<<(R + ROWS - 1) / ROWS, THREADS, lay.bytes, stream>>>(
-      (const bf16*)x, (const float*)lns, (const float*)lnb, (const int8_t*)w1,
-      (const float*)s1, (const float*)b1, (const int8_t*)w2, (const float*)s2,
-      (const float*)b2, (const float*)colsum, (bf16*)out, R, C, strips, out_dim,
-      eps);
+  mlp_int8_kernel<NT1><<<(R + ROWS - 1) / ROWS, THREADS, lay.bytes, stream>>>(
+      (const bf16*)x, (const int8_t*)w1, (const float*)s1, (const float*)b1,
+      (const int8_t*)w2, (const float*)s2, (const float*)b2, (const float*)colsum,
+      (bf16*)out, R, C, strips, out_dim);
   return (int)cudaGetLastError();
-}
-
-template <bool LN>
-int launch(const void* x, const void* lns, const void* lnb, const void* w1,
-           const void* s1, const void* b1, const void* w2, const void* s2,
-           const void* b2, const void* colsum, void* out, int R, int C,
-           int hidden, int out_dim, int strips, float eps, void* stream) {
-  if (R < 1 || strips < 1 || strips > MAX_STRIPS || hidden % strips)
-    return (int)cudaErrorInvalidValue;
-  const int hs = hidden / strips;
-  if (C < 32 || C % KC1 || C > MAX_ROW_VEC * 8 * 32 || C > hs || hs % 256 ||
-      out_dim < NO || out_dim % NO || (LN && out_dim != C))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (hs / 128) {  // strips of 256, 512, 768, 1024 (U-ViT widths / 4)
-#define USPACE_NT(n)                                                             \
-  case n:                                                                        \
-    return launch_nt<n, LN>(x, lns, lnb, w1, s1, b1, w2, s2, b2, colsum, out, R, \
-                            C, strips, out_dim, eps, s);
-    USPACE_NT(2)
-    USPACE_NT(4)
-    USPACE_NT(6)
-    USPACE_NT(8)
-#undef USPACE_NT
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -537,19 +448,25 @@ int uspace_mlp_int8(const void* x, const void* w1, const void* s1, const void* b
                     const void* w2, const void* s2, const void* b2,
                     const void* colsum, void* out, int R, int C, int hidden,
                     int out_dim, int strips, void* stream) {
-  return launch<false>(x, nullptr, nullptr, w1, s1, b1, w2, s2, b2, colsum, out,
-                       R, C, hidden, out_dim, strips, 0.f, stream);
-}
-
-// As uspace_mlp_int8 with LN2 (f32 ln_scale, ln_bias [C]) in front and the
-// residual x added (out == C).
-int uspace_ln_mlp_int8(const void* x, const void* ln_scale, const void* ln_bias,
-                       const void* w1, const void* s1, const void* b1,
-                       const void* w2, const void* s2, const void* b2,
-                       const void* colsum, void* out, int R, int C, int hidden,
-                       int out_dim, int strips, float eps, void* stream) {
-  return launch<true>(x, ln_scale, ln_bias, w1, s1, b1, w2, s2, b2, colsum, out,
-                      R, C, hidden, out_dim, strips, eps, stream);
+  if (R < 1 || strips < 1 || strips > MAX_STRIPS || hidden % strips)
+    return (int)cudaErrorInvalidValue;
+  const int hs = hidden / strips;
+  if (C < 32 || C % KC1 || C > MAX_ROW_VEC * 8 * 32 || C > hs || hs % 256 ||
+      out_dim < NO || out_dim % NO)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (hs / 128) {  // strips of 256, 512, 768, 1024 (U-ViT widths / 4)
+#define USPACE_NT(n) \
+  case n:            \
+    return launch_nt<n>(x, w1, s1, b1, w2, s2, b2, colsum, out, R, C, strips, out_dim, s);
+    USPACE_NT(2)
+    USPACE_NT(4)
+    USPACE_NT(6)
+    USPACE_NT(8)
+#undef USPACE_NT
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -13,7 +13,13 @@ kernels, hand-written in CUDA C++ for Hopper:
   attention run on the dequantized cache, so a zero delta reproduces ``a``;
 - :func:`delta_attn_block` (same file, ``_delta_attn_kernel``): ``qkv =
   deq(cache) + Wq q8(LN1(x) - LN1(x_b))``, attention, ``xm = (x - x_b) +
-  xm_b + Wp q8(a - a_b)``; both serve every hidden mode;
+  xm_b + Wp q8(a - a_b)``; both serve every hidden mode. Its five launches
+  (counted as one): the code pass of ``LN1(x) - LN1(x_b)``, the qkv GEMM
+  (``csrc/attention.cu``'s int8 wgmma GEMM with the cache epilogue), row
+  1's core, the codes of ``a - a_b``, the xm GEMM (the same GEMM with the
+  stream epilogue); :func:`ln_delta_codes_plain`, :func:`qkv_delta_plain`
+  and :func:`xm_delta_plain` are the pieces' twins and, with row 1's twin
+  and ``row_codes``, make up :func:`delta_attn_plain`;
 - :func:`base_mlp_block` (``csrc/delta_mlp.cu``): ``o = x + m``, ``m =
   fc2(gelu(fc1(LN2(x))))``, and the cache of its mode. ``mode="e"`` (the
   ``"exact"`` hidden mode, ``_base_mlp_cache_kernel``): ``e`` coded per row
@@ -84,7 +90,7 @@ from ._build import (
 )
 from .attention import KERNEL_HEAD_DIMS, KERNEL_MAX_LEN, \
     packed_attention_plain
-from .mlp import _gelu_f32, col_slices, gelu_grad
+from .mlp import _gelu_f32, affine_codes, col_slices, gelu_grad
 from .quant import int_matmul, row_codes, strip_colsums, true_div
 
 # launches of each CUDA kernel since the last reset (the CPU twin does not count)
@@ -175,32 +181,62 @@ def delta_attn_plain(x: torch.Tensor, xb: torch.Tensor, qkv_q: torch.Tensor,
                      ln_bias: torch.Tensor, wq: torch.Tensor,
                      ws: torch.Tensor, wp: torch.Tensor, sp: torch.Tensor,
                      num_heads: int, eps: float) -> torch.Tensor:
-    """Twin of ``_delta_attn_kernel`` on the L real rows: ``qkv =
-    bf16(f32(qkv_q) * qkv_s + (f32(acc) * ds) * ws)`` with the codes of
-    ``LN1(x) - LN1(x_b)``, the attention core, ``da = f32(a) - f32(a_b)``
-    coded per row, ``xm = bf16(((x - x_b) + xm_b) + (f32(acc) * das) *
-    sp)`` in f32."""
-    l, c = x.shape[1], x.shape[2]
-    d = ln_lanes(x, ln_scale, ln_bias, eps) - ln_lanes(xb, ln_scale, ln_bias,
-                                                       eps)
-    dq, ds = row_codes(d)
-    dqkv = int_matmul(dq, wq).float() * ds * _vec(ws)
-    qkv = (qkv_q[:, :l].float() * qkv_s[:, :l] + dqkv).to(x.dtype)
-    a = packed_attention_plain(qkv, num_heads, (c // num_heads) ** -0.5)
+    """Twin of ``_delta_attn_kernel`` on the L real rows, as the card runs
+    it: the codes of ``LN1(x) - LN1(x_b)`` (:func:`ln_delta_codes_plain`),
+    ``qkv = bf16(f32(qkv_q) * qkv_s + (f32(acc) * ds) * ws)``
+    (:func:`qkv_delta_plain`, in x's dtype), the attention core, ``da =
+    f32(a) - f32(a_b)`` coded per row, ``xm = bf16(((x - x_b) + xm_b) +
+    (f32(acc) * das) * sp)`` in f32 (:func:`xm_delta_plain`)."""
+    b, l, c = x.shape
+    codes, ds = ln_delta_codes_plain(x, xb, ln_scale, ln_bias, eps)
+    qkv = qkv_delta_plain(codes.reshape(-1, c), ds.reshape(-1, 1), wq, ws,
+                          qkv_q, qkv_s, l, x.dtype)
+    a = packed_attention_plain(qkv.reshape(b, l, 3 * c), num_heads,
+                               (c // num_heads) ** -0.5)
     daq, das = row_codes(a.float() - a_b[:, :l].float())
-    dp = int_matmul(daq, wp).float() * das * _vec(sp)
+    return xm_delta_plain(daq, das, wp, sp, x, xb, xm_b)
+
+
+def ln_delta_codes_plain(x: torch.Tensor, xb: torch.Tensor,
+                         ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                         eps: float):
+    """Twin of the code pass of a stage delta (``uspace_ln_delta_codes``,
+    rows 19 and 23-25): the row codes of ``LN(x) - LN(x_b)``, ``(codes,
+    scales [..., 1])``."""
+    return row_codes(ln_lanes(x, ln_scale, ln_bias, eps)
+                     - ln_lanes(xb, ln_scale, ln_bias, eps))
+
+
+def _cache_rows(m: int, l: int, lp: int, device) -> torch.Tensor:
+    """The padded cache's row of each of the rows r = b L + l of a stage."""
+    r = torch.arange(m, device=device)
+    return r // l * lp + r % l
+
+
+def qkv_delta_plain(codes: torch.Tensor, sr: torch.Tensor, wq: torch.Tensor,
+                    ws: torch.Tensor, qkv_q: torch.Tensor,
+                    qkv_s: torch.Tensor, l: int,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Twin of row 19's qkv GEMM (``uspace_qkv_delta``) on codes [M, C]
+    with scales ``sr [M, 1]`` of the rows r = b L + l: ``f32(cq) * cs +
+    (f32(acc) * sr) * ws`` rounded to ``dtype`` (the kernel's bf16, x's
+    dtype in :func:`delta_attn_plain`), the cache ``qkv_q [B, Lp, 3C]``,
+    ``qkv_s [B, Lp, 1]`` read at the cache row of r; returns [M, 3C]."""
+    n = qkv_q.shape[-1]
+    at = _cache_rows(codes.shape[0], l, qkv_q.shape[1], codes.device)
+    cq, cs = qkv_q.reshape(-1, n)[at], qkv_s.reshape(-1, 1)[at]
+    dqkv = int_matmul(codes, wq).float() * sr * _vec(ws)
+    return (cq.float() * cs + dqkv).to(dtype)
+
+
+def xm_delta_plain(codes: torch.Tensor, sr: torch.Tensor, wp: torch.Tensor,
+                   sp: torch.Tensor, x: torch.Tensor, xb: torch.Tensor,
+                   xm_b: torch.Tensor) -> torch.Tensor:
+    """Twin of row 19's xm GEMM (``uspace_xm_delta``) on the codes [M, C]
+    and scales ``sr [M, 1]`` of ``a - a_b``: ``bf16(((f32(x) - f32(x_b)) +
+    f32(xm_b)) + (f32(acc) * sr) * sp)`` for x, x_b, xm_b [M, C]."""
+    dp = int_matmul(codes, wp).float() * sr * _vec(sp)
     return (x.float() - xb.float() + xm_b.float() + dp).to(x.dtype)
-
-
-def _affine_codes(g: torch.Tensor):
-    """One strip of fc2's input on its affine grid per row: ``(codes, scale,
-    zp)`` with scale ``max(gmax - gmin, 1e-8) * (1/254)``, zp ``(gmax +
-    gmin) / 2`` and codes ``round((g - zp) / scale)``, a division."""
-    gmax = g.amax(dim=-1, keepdim=True)
-    gmin = g.amin(dim=-1, keepdim=True)
-    scale = torch.clamp(gmax - gmin, min=1e-8) * (1.0 / 254.0)
-    zp = (gmax + gmin) * 0.5
-    return torch.round((g - zp) / scale).to(torch.int8), scale, zp
 
 
 def _base_mlp_twin(x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps,
@@ -219,7 +255,7 @@ def _base_mlp_twin(x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps,
         cols = slice(j * hs, (j + 1) * hs)
         e = int_matmul(xq, w1q[:, cols]).float() * xs * s1f[cols] + b1f[cols]
         g, caches = hidden_of(e)
-        hq, scale, zp = _affine_codes(g)
+        hq, scale, zp = affine_codes(g)
         parts.append((*caches, hq, scale, zp))
         t = int_matmul(hq, w2q[cols]).float() * scale + zp * colsum[j]
         acc = t if acc is None else acc + t
@@ -419,31 +455,71 @@ def _delta_attn_kernel(x, xb, qkv_q, qkv_s, a_b, xm_b, ln_scale, ln_bias,
     w = _codes_nk("wq", wq, 3 * c, c, dev)
     wpr = _codes_nk("wp", wp, c, c, dev)
     stream = cuda_stream(dev)
-    lib, att = load("delta_attention"), load("attention")
-    codes = torch.empty((r, c), dtype=torch.int8, device=dev)
-    sr = torch.empty((r,), dtype=torch.float32, device=dev)
-    qkv = torch.empty((b, l, 3 * c), dtype=x.dtype, device=dev)
-    a, xm = torch.empty_like(x), torch.empty_like(x)
-    raise_on(lib.uspace_ln_delta_codes(
-        x.data_ptr(), xb.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
-        codes.data_ptr(), sr.data_ptr(), r, c, eps, stream),
-        "uspace_ln_delta_codes")
-    raise_on(lib.uspace_qkv_delta(
-        codes.data_ptr(), sr.data_ptr(), w.data_ptr(), wsf.data_ptr(),
-        qkv_q.data_ptr(), qkv_s.data_ptr(), qkv.data_ptr(), b, l, lp, 3 * c,
-        c, stream), "uspace_qkv_delta")
-    raise_on(att.uspace_packed_attention(
+    a = torch.empty_like(x)
+    codes, sr = _ln_delta_codes_kernel(x, xb, lns, lnb, eps, stream)
+    qkv = _qkv_delta_kernel(codes, sr, w, wsf, qkv_q, qkv_s, l, stream)
+    raise_on(load("attention").uspace_packed_attention(
         qkv.data_ptr(), a.data_ptr(), b, l, num_heads, c // num_heads,
         (c // num_heads) ** -0.5, stream), "uspace_packed_attention")
-    raise_on(lib.uspace_diff_codes(a.data_ptr(), a_b.data_ptr(),
-                                   codes.data_ptr(), sr.data_ptr(), r, c,
-                                   stream), "uspace_diff_codes")
-    raise_on(lib.uspace_xm_delta(
-        codes.data_ptr(), sr.data_ptr(), wpr.data_ptr(), spf.data_ptr(),
-        x.data_ptr(), xb.data_ptr(), xm_b.data_ptr(), xm.data_ptr(), r, c, c,
-        stream), "uspace_xm_delta")
+    raise_on(load("delta_attention").uspace_diff_codes(
+        a.data_ptr(), a_b.data_ptr(), codes.data_ptr(), sr.data_ptr(), r, c,
+        stream), "uspace_diff_codes")
+    xm = _xm_delta_kernel(codes, sr, wpr, spf, x, xb, xm_b, stream)
     LAUNCHES["delta_attn"] += 1
     return xm
+
+
+def _ln_delta_codes_kernel(x, xb, ln_scale, ln_bias, eps, stream=None):
+    """The code pass of a stage delta (``uspace_ln_delta_codes``, rows 19 and
+    23-25) on x, x_b [..., C] bf16: ``(codes [R, C] int8, sr [R] f32)``.
+    Counted by no op."""
+    c = x.shape[-1]
+    r = x.numel() // c
+    dev = x.device
+    lns, lnb = _vec(ln_scale), _vec(ln_bias)
+    codes = torch.empty((r, c), dtype=torch.int8, device=dev)
+    sr = torch.empty((r,), dtype=torch.float32, device=dev)
+    raise_on(load("delta_attention").uspace_ln_delta_codes(
+        x.data_ptr(), xb.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+        codes.data_ptr(), sr.data_ptr(), r, c, eps,
+        cuda_stream(dev) if stream is None else stream),
+        "uspace_ln_delta_codes")
+    return codes, sr
+
+
+def _qkv_delta_kernel(codes, sr, w, wsf, qkv_q, qkv_s, l, stream=None):
+    """Row 19's qkv GEMM alone: :func:`qkv_delta_plain` on the card for
+    codes [M, C] int8 with sr [M] f32, w [3C, C] int8 (torch layout) with
+    its f32 scales, the padded cache [B, Lp, 3C] (B * L >= M); returns [M,
+    3C] bf16. Counted by no op."""
+    m, c = codes.shape
+    n, lp = w.shape[0], qkv_q.shape[1]
+    if -(-m // l) > qkv_q.shape[0]:
+        raise ValueError(f"{m} rows of L={l} need a cache of "
+                         f"{-(-m // l)} batch elements, got {qkv_q.shape[0]}")
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=codes.device)
+    raise_on(load("attention").uspace_qkv_delta(
+        codes.data_ptr(), sr.data_ptr(), w.data_ptr(), wsf.data_ptr(),
+        qkv_q.data_ptr(), qkv_s.data_ptr(), out.data_ptr(), m, l, lp, n, c,
+        cuda_stream(codes.device) if stream is None else stream),
+        "uspace_qkv_delta")
+    return out
+
+
+def _xm_delta_kernel(codes, sr, wp, spf, x, xb, xm_b, stream=None):
+    """Row 19's xm GEMM alone: :func:`xm_delta_plain` on the card for codes
+    [M, C] int8 with sr [M] f32, wp [C, C] int8 (torch layout) with its f32
+    scales, x, x_b, xm_b of M rows of C bf16; returns x's shape. Counted by
+    no op."""
+    m, c = codes.shape
+    out = torch.empty_like(x)
+    raise_on(load("attention").uspace_xm_delta(
+        codes.data_ptr(), sr.data_ptr(), wp.data_ptr(), spf.data_ptr(),
+        x.data_ptr(), xb.data_ptr(), xm_b.data_ptr(), out.data_ptr(), m,
+        wp.shape[0], c,
+        cuda_stream(codes.device) if stream is None else stream),
+        "uspace_xm_delta")
+    return out
 
 
 def _mlp_operands(x2d, w1q, s1, w2q, s2, strips, ln_scale, ln_bias):
@@ -527,15 +603,10 @@ def _delta_mlp_kernel(x2d, xb2d, c_q, c_s, gelu_cache, mb2d, ln_scale,
     fc1 = f"uspace_delta_fc1_{mode}"
     o = torch.empty_like(x2d)
     stream = cuda_stream(dev)
-    codes = torch.empty((r, c), dtype=torch.int8, device=dev)
-    sr = torch.empty((r,), dtype=torch.float32, device=dev)
+    codes, sr = _ln_delta_codes_kernel(x2d, xb2d, lns, lnb, eps, stream)
     hq = torch.empty((r, hidden), dtype=torch.int8, device=dev)
     hsc = torch.empty((r, strips), dtype=torch.float32, device=dev)
     lib = load("delta_mlp")
-    raise_on(load("delta_attention").uspace_ln_delta_codes(
-        x2d.data_ptr(), xb2d.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
-        codes.data_ptr(), sr.data_ptr(), r, c, eps, stream),
-        "uspace_ln_delta_codes")
     raise_on(getattr(lib, fc1)(
         codes.data_ptr(), sr.data_ptr(), w1.data_ptr(), s1f.data_ptr(),
         *(t.data_ptr() for t in cache), hq.data_ptr(), hsc.data_ptr(), r, c,

@@ -5,12 +5,20 @@ The JAX field evaluates GELU with the Abramowitz–Stegun 7.1.26 erf
 polynomial (|err| <= 1.5e-7), not erf itself; the port copies the
 polynomial so that the two fields agree.
 
-Fused int8 MLP (``csrc/mlp_int8.cu``, CUDA C++ for Hopper):
-:func:`fused_mlp_block_q` (``x + fc2(gelu(fc1(LN2(x))))``, TPU kernel
-``_mlp_kernel_int8_lnres``) and :func:`fused_mlp` (``fc2(gelu(fc1(x)))``,
-``_mlp_kernel_int8``) with ``quant=True``. Both take f32 weights, quantized once per weight
-value through ``ops.quant.quantized_weight``. Rounding sites, shared by
-kernel and plain twin:
+Fused int8 MLP (CUDA C++ for Hopper): :func:`fused_mlp_block_q` (``x +
+fc2(gelu(fc1(LN2(x))))``, TPU kernel ``_mlp_kernel_int8_lnres``) and
+:func:`fused_mlp` (``fc2(gelu(fc1(x)))``, ``_mlp_kernel_int8``, one block
+kernel of ``csrc/mlp_int8.cu``) with ``quant=True``. Both take f32
+weights, quantized once per weight value through
+``ops.quant.quantized_weight``. On the card the sub-block is three
+launches from one C entry (``csrc/delta_mlp.cu`` ``uspace_ln_mlp_int8``),
+counted as one: a code pass (LN2 and the row codes of its bf16 rows, the
+row in registers), then fc1 and fc2 as s8 wgmma GEMMs with the affine
+codes of the hidden in an [R, hidden] int8 workspace and their scales and
+zero points in [R, strips] ones between them. The twins are the same
+pieces: :func:`mlp_int8_fc1_plain` and :func:`mlp_int8_fc2_plain` make up
+:func:`ln_mlp_int8_plain` and (without the residual) :func:`mlp_int8_plain`.
+Rounding sites, shared by kernel and plain twin:
 
 - LN2 (lnres only): f32 statistics, normalised in x's dtype (bf16):
   ``(x - bf16(mu)) * bf16(rsqrt(var + eps)) * bf16(s) + bf16(b)``, each
@@ -171,37 +179,60 @@ def _ln_bf16_normalise(x: torch.Tensor, ln_scale: torch.Tensor,
     return xln.float()
 
 
-def _mlp_int8_core(xq: torch.Tensor, xs: torch.Tensor, q1: QWeight,
-                   b1: torch.Tensor, q2: QWeight, b2: torch.Tensor,
-                   strips: int, dtype: torch.dtype) -> torch.Tensor:
-    """fc2(gelu(fc1(x))) with the kernels' int8 rounding sites, from the
-    row codes ``xq [R, C]`` and scales ``xs [R, 1]`` of x; returns ``[R,
-    out]`` in ``dtype``."""
-    hidden = q1.q.shape[0]
-    hs = hidden // strips
-    colsum = q2.colsums(strips)
-    b1f, b2f = b1.float(), b2.float()
-    acc = None
+def affine_codes(g: torch.Tensor):
+    """A strip of fc2's input on its affine grid per row: ``(codes, scale,
+    zp)`` with scale ``max(gmax - gmin, 1e-8) * (1/254)``, zp ``(gmax +
+    gmin) * 0.5`` and codes ``round((g - zp) / scale)``, a division."""
+    gmax = g.amax(dim=-1, keepdim=True)
+    gmin = g.amin(dim=-1, keepdim=True)
+    scale = torch.clamp(gmax - gmin, min=1e-8) * (1.0 / 254.0)
+    zp = (gmax + gmin) * 0.5
+    return torch.round((g - zp) / scale).to(torch.int8), scale, zp
+
+
+def mlp_int8_fc1_plain(xq: torch.Tensor, xs: torch.Tensor, q1: QWeight,
+                       b1: torch.Tensor, strips: int):
+    """Twin of the int8 MLP's fc1 (``uspace_mlp_int8_fc1``): per strip j,
+    ``g = GELU(f32(acc) * xs * s1 + b1)`` on its affine grid per row, from
+    the row codes ``xq [R, C]`` and scales ``xs [R, 1]``. Returns ``(hq [R,
+    hidden] int8, scale [R, strips], zp [R, strips])``."""
+    hs = q1.q.shape[0] // strips
+    b1f = b1.float()
+    parts = []
     for j in range(strips):
         cols = slice(j * hs, (j + 1) * hs)
         part = int_matmul(xq, q1.q[cols].t())
-        g = _gelu_f32(part.float() * xs * q1.scale[cols] + b1f[cols])
-        gmax = g.amax(dim=-1, keepdim=True)
-        gmin = g.amin(dim=-1, keepdim=True)
-        scale = torch.clamp(gmax - gmin, min=1e-8) * (1.0 / 254.0)
-        zp = (gmax + gmin) * 0.5
-        hq = torch.round((g - zp) / scale).to(torch.int8)
-        d = int_matmul(hq, q2.q[:, cols].t())
-        t = d.float() * scale + zp * colsum[j]
+        parts.append(affine_codes(
+            _gelu_f32(part.float() * xs * q1.scale[cols] + b1f[cols])))
+    return tuple(torch.cat(t, dim=1) for t in zip(*parts))
+
+
+def mlp_int8_fc2_plain(hq: torch.Tensor, scale: torch.Tensor,
+                       zp: torch.Tensor, q2: QWeight, b2: torch.Tensor,
+                       x: torch.Tensor, residual: bool = True) -> torch.Tensor:
+    """Twin of the int8 MLP's fc2 (``uspace_mlp_int8_fc2``): the strips'
+    ``f32(d_j) * scale_j + zp_j * colsum_j`` folded in order, then ``acc *
+    s2 + b2`` in x's dtype, added to x with ``residual``, from fc1's ``(hq,
+    scale, zp)``."""
+    strips = scale.shape[1]
+    hs = hq.shape[1] // strips
+    colsum = q2.colsums(strips)
+    acc = None
+    for j in range(strips):
+        cols = slice(j * hs, (j + 1) * hs)
+        d = int_matmul(hq[:, cols], q2.q[:, cols].t())
+        t = d.float() * scale[:, j:j + 1] + zp[:, j:j + 1] * colsum[j]
         acc = t if acc is None else acc + t
-    return (acc * q2.scale + b2f).to(dtype)
+    m = (acc * q2.scale + b2.float()).to(x.dtype)
+    return x + m if residual else m
 
 
 def mlp_int8_plain(x: torch.Tensor, q1: QWeight, b1: torch.Tensor,
                    q2: QWeight, b2: torch.Tensor, strips: int) -> torch.Tensor:
     """Twin of the int8 MLP kernel (``_mlp_kernel_int8``): x [R, C]."""
-    return _mlp_int8_core(*row_codes(x.float()), q1, b1, q2, b2, strips,
-                          x.dtype)
+    return mlp_int8_fc2_plain(
+        *mlp_int8_fc1_plain(*row_codes(x.float()), q1, b1, strips), q2, b2,
+        x, residual=False)
 
 
 def ln_mlp_int8_plain(x: torch.Tensor, ln_scale: torch.Tensor,
@@ -209,10 +240,11 @@ def ln_mlp_int8_plain(x: torch.Tensor, ln_scale: torch.Tensor,
                       q2: QWeight, b2: torch.Tensor, strips: int,
                       eps: float) -> torch.Tensor:
     """Twin of the int8 MLP sub-block kernel (``_mlp_kernel_int8_lnres``):
-    ``x + MLP(LN2(x))`` for x [R, C], the sum in x's dtype."""
-    xln = _ln_bf16_normalise(x, ln_scale, ln_bias, eps)
-    return x + _mlp_int8_core(*row_codes(xln), q1, b1, q2, b2, strips,
-                              x.dtype)
+    ``x + MLP(LN2(x))`` for x [R, C], the sum in x's dtype; the code pass
+    (``row_codes`` of the bf16-chain LN2), then the fc1 and fc2 twins."""
+    xq, xs = row_codes(_ln_bf16_normalise(x, ln_scale, ln_bias, eps))
+    return mlp_int8_fc2_plain(*mlp_int8_fc1_plain(xq, xs, q1, b1, strips),
+                              q2, b2, x)
 
 
 def _mlp_operands(what, x2d, q1, b1, q2, b2):
@@ -250,38 +282,123 @@ def _ln_operands(ln, c, out_dim, dev):
     return lns, lnb
 
 
-def _mlp_int8_kernel(x2d, q1, b1, q2, b2, strips, ln=None):
-    """Launch the int8 MLP kernel on x [R, C] bf16; with ``ln = (scale,
-    bias, eps)`` the LN2 + residual variant."""
-    r, c = x2d.shape
-    hidden, out_dim = q1.q.shape[0], q2.q.shape[0]
+def _check_int8_shapes(c, hidden, out_dim, strips):
+    """The widths both int8 MLP routes take, refused before any launch."""
     hs = hidden // strips
-    dev = x2d.device
-    b1f, b2f, out = _mlp_operands("int8", x2d, q1, b1, q2, b2)
     if (c % 32 or hs % 256 or hs > 1024 or c > hs or out_dim % 256):
         raise ValueError(
             f"the int8 MLP kernels take C % 32 == 0, a strip width "
             f"hidden/{strips} of 256, 512, 768 or 1024 and >= C, and an "
             f"output width that is a multiple of 256; got C={c}, "
             f"hidden={hidden}, out={out_dim}")
+
+
+def _mlp_int8_kernel(x2d, q1, b1, q2, b2, strips):
+    """Launch the int8 MLP kernel (``csrc/mlp_int8.cu``) on x [R, C]
+    bf16."""
+    r, c = x2d.shape
+    hidden, out_dim = q1.q.shape[0], q2.q.shape[0]
+    dev = x2d.device
+    b1f, b2f, out = _mlp_operands("int8", x2d, q1, b1, q2, b2)
+    _check_int8_shapes(c, hidden, out_dim, strips)
     colsum = q2.colsums(strips)
     check_tensor("colsums", colsum, torch.float32, (strips, out_dim), dev)
-    stream = cuda_stream(dev)
-    lib = load("mlp_int8")
-    common = (q1.q.data_ptr(), q1.scale.data_ptr(), b1f.data_ptr(),
-              q2.q.data_ptr(), q2.scale.data_ptr(), b2f.data_ptr(),
-              colsum.data_ptr(), out.data_ptr(), r, c, hidden, out_dim,
-              strips)
-    if ln is None:
-        rc = lib.uspace_mlp_int8(x2d.data_ptr(), *common, stream)
-        key = "mlp_int8"
-    else:
-        lns, lnb = _ln_operands(ln, c, out_dim, dev)
-        rc = lib.uspace_ln_mlp_int8(x2d.data_ptr(), lns.data_ptr(),
-                                    lnb.data_ptr(), *common, ln[2], stream)
-        key = "ln_mlp_int8"
-    raise_on(rc, f"uspace_{key}")
-    LAUNCHES[key] += 1
+    raise_on(load("mlp_int8").uspace_mlp_int8(
+        x2d.data_ptr(), q1.q.data_ptr(), q1.scale.data_ptr(), b1f.data_ptr(),
+        q2.q.data_ptr(), q2.scale.data_ptr(), b2f.data_ptr(),
+        colsum.data_ptr(), out.data_ptr(), r, c, hidden, out_dim, strips,
+        cuda_stream(dev)), "uspace_mlp_int8")
+    LAUNCHES["mlp_int8"] += 1
+    return out
+
+
+def _ln_mlp_int8_kernel(x2d, ln, q1, b1, q2, b2, strips):
+    """The int8 MLP sub-block on x [R, C] bf16 with ``ln = (scale, bias,
+    eps)``: one C entry (``uspace_ln_mlp_int8``) that launches the code
+    pass, fc1 and fc2, counted as one, through one workspace holding the
+    [R, hidden] int8 hidden, the [R, C] int8 row codes, the [R] f32 row
+    scales and the [R, strips] f32 hidden scales and zero points."""
+    r, c = x2d.shape
+    hidden, out_dim = q1.q.shape[0], q2.q.shape[0]
+    dev = x2d.device
+    b1f, b2f, out = _mlp_operands("int8", x2d, q1, b1, q2, b2)
+    _check_int8_shapes(c, hidden, out_dim, strips)
+    lns, lnb = _ln_operands(ln, c, out_dim, dev)
+    colsum = q2.colsums(strips)
+    check_tensor("colsums", colsum, torch.float32, (strips, c), dev)
+    ws, (hq, codes, sr, hsc, hzp) = _workspace(
+        dev, (r * hidden, r * c, 4 * r, 4 * r * strips, 4 * r * strips))
+    raise_on(load("delta_mlp").uspace_ln_mlp_int8(
+        x2d.data_ptr(), lns.data_ptr(), lnb.data_ptr(), q1.q.data_ptr(),
+        q1.scale.data_ptr(), b1f.data_ptr(), q2.q.data_ptr(),
+        q2.scale.data_ptr(), b2f.data_ptr(), colsum.data_ptr(), codes, sr, hq,
+        hsc, hzp, out.data_ptr(), r, c, hidden, strips, ln[2],
+        cuda_stream(dev)), "uspace_ln_mlp_int8")
+    del ws  # held until the launches are queued
+    LAUNCHES["ln_mlp_int8"] += 1
+    return out
+
+
+def _workspace(dev, sizes):
+    """One byte tensor holding workspaces of the given byte sizes, and the
+    address of each, 256-byte aligned."""
+    offsets, total = [], 0
+    for n in sizes:
+        offsets.append(total)
+        total += -(-n // 256) * 256
+    ws = torch.empty(total, dtype=torch.uint8, device=dev)
+    return ws, [ws.data_ptr() + o for o in offsets]
+
+
+# Row 15's pieces alone, each counted by no op, for their tests and
+# timings; the sub-block's wrapper checks their operands (f32 contiguous
+# scales and biases, bf16 rows).
+
+
+def _int8_codes_kernel(x: torch.Tensor, ln_scale: torch.Tensor,
+                       ln_bias: torch.Tensor, eps: float):
+    """The code pass (``uspace_mlp_int8_codes``) of x [R, C] bf16:
+    ``(codes [R, C] int8, sr [R] f32)``, ``row_codes`` of the bf16-chain
+    LN2 rows."""
+    r, c = x.shape
+    codes = torch.empty((r, c), dtype=torch.int8, device=x.device)
+    sr = torch.empty((r,), dtype=torch.float32, device=x.device)
+    raise_on(load("delta_mlp").uspace_mlp_int8_codes(
+        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+        codes.data_ptr(), sr.data_ptr(), r, c, eps, cuda_stream(x.device)),
+        "uspace_mlp_int8_codes")
+    return codes, sr
+
+
+def _int8_fc1_kernel(codes: torch.Tensor, sr: torch.Tensor, q1: QWeight,
+                     b1: torch.Tensor, strips: int):
+    """fc1 (``uspace_mlp_int8_fc1``): ``(hq [R, hidden] int8, scale [R,
+    strips], zp [R, strips])`` as :func:`mlp_int8_fc1_plain`."""
+    r, c = codes.shape
+    hidden = q1.q.shape[0]
+    dev = codes.device
+    hq = torch.empty((r, hidden), dtype=torch.int8, device=dev)
+    hsc = torch.empty((r, strips), dtype=torch.float32, device=dev)
+    hzp = torch.empty_like(hsc)
+    raise_on(load("delta_mlp").uspace_mlp_int8_fc1(
+        codes.data_ptr(), sr.data_ptr(), q1.q.data_ptr(), q1.scale.data_ptr(),
+        b1.data_ptr(), hq.data_ptr(), hsc.data_ptr(), hzp.data_ptr(), r, c,
+        hidden, strips, cuda_stream(dev)), "uspace_mlp_int8_fc1")
+    return hq, hsc, hzp
+
+
+def _int8_fc2_kernel(hq: torch.Tensor, hsc: torch.Tensor, hzp: torch.Tensor,
+                     q2: QWeight, b2: torch.Tensor, colsum: torch.Tensor,
+                     x: torch.Tensor) -> torch.Tensor:
+    """fc2 (``uspace_mlp_int8_fc2``): ``x + bf16(acc * s2 + b2)`` as
+    :func:`mlp_int8_fc2_plain`."""
+    r, hidden = hq.shape
+    out = torch.empty_like(x)
+    raise_on(load("delta_mlp").uspace_mlp_int8_fc2(
+        hq.data_ptr(), hsc.data_ptr(), hzp.data_ptr(), q2.q.data_ptr(),
+        q2.scale.data_ptr(), b2.data_ptr(), colsum.data_ptr(), x.data_ptr(),
+        out.data_ptr(), r, q2.q.shape[0], hidden, hsc.shape[1],
+        cuda_stream(hq.device)), "uspace_mlp_int8_fc2")
     return out
 
 
@@ -585,7 +702,8 @@ def fused_mlp_block_q(x: torch.Tensor, ln_scale: torch.Tensor,
     elif view == "w8":
         out = _mlp_w8_kernel(x2d.contiguous(), q1, b1, q2, b2, ln)
     else:
-        out = _mlp_int8_kernel(x2d.contiguous(), q1, b1, q2, b2, strips, ln)
+        out = _ln_mlp_int8_kernel(x2d.contiguous(), ln, q1, b1, q2, b2,
+                                  strips)
     return out.reshape(x.shape)
 
 
