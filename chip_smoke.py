@@ -26,7 +26,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    20 and 22's outputs bit for bit and row 24 within DELTA_G_ZERO_REL of
    row 21's; rows 15 and 19 by their pieces: row 15's code pass, fc1 and
    fc2 and row 19's code pass and two GEMMs each bit-equal to its twin on
-   the same inputs, row 15's sub-block to its pieces and to a repeat;
+   the same inputs, row 15's sub-block to its pieces and to a repeat; rows
+   21 and 22 by their pieces the same way (the f32 code pass, the mode's
+   fc1, fc2 with m) at 12850 and 129 rows;
    for each int8 and w8 kernel, controls (twins with one rounding site
    changed) that the same limits must refuse; kernel, twin and library-call
    times with CUDA events; the bound of the same work on an H100 SXM (the
@@ -676,6 +678,7 @@ def check_kernels(torch, F, attn, mlpk, quant):
         (results if case.get("listed", True) else shapes).append(r)
     problems += piece_checks(torch, attn, quant, randn)
     problems += row15_19_piece_checks(torch, mlpk, quant, randn)
+    problems += row21_22_piece_checks(torch, quant, randn)
     problems += delta_mlp_checks(torch, quant, randn)
     if problems:
         fail("; ".join(problems))
@@ -803,6 +806,60 @@ def row15_19_piece_checks(torch, mlpk, quant, randn):
     log(f"piece delta_attn, B={B} L={L} (Lp={lp}): " + ", ".join(
         f"{k} {'bit-equal' if v else 'DIFFERS'}" for k, v in checks.items()))
     problems += [f"row 19's {k} differs" for k, v in checks.items() if not v]
+    return problems
+
+
+def row21_22_piece_checks(torch, quant, randn):
+    """Rows 21 and 22 by their pieces at the main path's shape (12850 rows,
+    C 1024, hidden 4096 in 4 strips) and at 129 rows: the f32 code pass
+    bit-equal to ``base_codes_plain``, the mode's fc1 (its cache and the
+    affine codes, scales and zero points of its hidden) bit-equal to its
+    twin on the same codes, fc2 (x + m and m) bit-equal to
+    ``base_fc2_plain`` on fc1's hidden, the wrapper bit-equal to its pieces
+    in sequence and to a repeat. Returns what disagreed."""
+    from uspace_tpu_torch.ops import delta as dops
+    f32 = torch.float32
+    hid, strips = 4 * C, 4
+    problems = []
+    lns, lnb = 1.0 + randn(C, std=0.1, dtype=f32), randn(C, std=0.1,
+                                                         dtype=f32)
+    q1 = quant.quantized_weight(randn(hid, C, std=0.02, dtype=f32).t())
+    q2 = quant.quantized_weight(randn(C, hid, std=0.02, dtype=f32).t())
+    b1, b2 = randn(hid, std=0.02, dtype=f32), randn(C, std=0.02, dtype=f32)
+    w = (lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2, 1e-5)
+    for rows in (B * L, 129):
+        x = randn(rows, C, std=STREAM_STD)
+        for mode, row in (("grad", 22), ("e+g", 21)):
+            with torch.no_grad():
+                codes, sr = dops._base_codes_kernel(x, lns, lnb, 1e-5)
+                ref_q, ref_s = dops.base_codes_plain(x, lns, lnb, 1e-5)
+                fc1 = dops._base_fc1_kernel(codes, sr, q1.q, q1.scale, b1,
+                                            strips, mode)
+                twin1 = (dops.base_fc1_grad_plain if mode == "grad" else
+                         dops.base_fc1_eg_plain)(codes, sr[:, None], q1.kn,
+                                                 q1.scale, b1, strips)
+                fc2 = dops._base_fc2_kernel(*fc1[2:], q2.q, q2.scale, b2,
+                                            q2.colsums(strips), x)
+                twin2 = dops.base_fc2_plain(*fc1[2:], q2.kn, q2.scale, b2, x)
+                block = dops.base_mlp_block(x, *w, mode=mode)
+                again = dops.base_mlp_block(x, *w, mode=mode)
+            torch.cuda.synchronize()
+            pieces = ((fc2[0], *fc1[:2], fc2[1])
+                      + (fc1[2:] if mode == "e+g" else ()))
+            checks = dict(
+                code_pass=torch.equal(codes, ref_q) and torch.equal(
+                    sr, ref_s.reshape(-1)),
+                fc1=all(torch.equal(a, t) for a, t in zip(fc1, twin1)),
+                fc2=all(torch.equal(a, t) for a, t in zip(fc2, twin2)),
+                pieces_and_repeat=len(block) == len(pieces) and all(
+                    torch.equal(b_, p_) and torch.equal(b_, a_)
+                    for b_, p_, a_ in zip(block, pieces, again)))
+            log(f"piece base_mlp ({mode}, row {row}), {rows} rows: "
+                + ", ".join(f"{k} {'bit-equal' if v else 'DIFFERS'}"
+                            for k, v in checks.items()))
+            problems += [f"row {row}'s {k} differs at {rows} rows"
+                         for k, v in checks.items() if not v]
+            del fc1, twin1, fc2, twin2, block, again, pieces
     return problems
 
 

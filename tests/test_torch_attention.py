@@ -574,12 +574,15 @@ def test_ctypes_signatures_match_c_source():
                                       "mlp_int8", "mlp_w8", "attention_block",
                                       "mlp_bf16", "delta_attention",
                                       "delta_mlp", "flash_attention"}
-    # rows 20-22 of the kernel table: one entry point each; rows 23-25:
-    # each its fc1 and the shared fc2 on wgmma (after delta_attention.cu's
-    # code pass); row 15: its code pass, fc1 and fc2 on the same two
-    # bodies, and the entry that chains them
+    # rows 20-22 of the kernel table: one entry point each (rows 21 and 22
+    # chain their code pass, fc1 and fc2, each also an entry point); rows
+    # 23-25: each its fc1 and the shared fc2 on wgmma (after
+    # delta_attention.cu's code pass); row 15: its code pass, fc1 and fc2 on
+    # the same two bodies, and the entry that chains them
     assert set(_build.SIGNATURES["delta_mlp"]) == {
         f"uspace_{k}" for k in ("base_mlp_grad", "base_mlp_e", "base_mlp_eg",
+                                "base_mlp_codes", "base_fc1_grad",
+                                "base_fc1_eg", "base_fc2",
                                 "delta_fc1_exact", "delta_fc1_lin",
                                 "delta_fc1_g", "delta_fc2", "mlp_int8_fc1",
                                 "mlp_int8_fc2", "mlp_int8_codes",

@@ -1522,6 +1522,59 @@ def test_delta_mlp_pieces_shapes_and_repeats(cuda, mode, rows, c):
         assert torch.equal(same, base[0])
 
 
+@pytest.mark.parametrize("c", [256, 512, 768, 1024])
+@pytest.mark.parametrize("rows", [12850, 1, 63, 129])
+@pytest.mark.parametrize("mode", ["grad", "e+g"])
+def test_base_mlp_pieces_are_bit_equal(cuda, mode, rows, c):
+    """Rows 22 ("grad") and 21 ("e+g") at hidden 4C in 4 strips (clusters
+    of 1, 2, 3 and 4 blocks a strip), each piece bit-equal to its twin on
+    the same inputs: the f32 code pass to ``base_codes_plain``, the mode's
+    fc1 (its cache, and the affine codes, scales and zero points of its
+    hidden) to ``base_fc1_grad_plain`` / ``base_fc1_eg_plain`` on those
+    codes, fc2 (x + m and m) to ``base_fc2_plain`` on fc1's hidden; the
+    wrapper bit-equal to its pieces in sequence, to the whole twin and to
+    a repeat."""
+    g = torch.Generator(device=cuda).manual_seed(7 * rows + c)
+    f32 = torch.float32
+    hid = 4 * c
+    x = _rand(g, rows, c)
+    lns = 1 + _rand(g, c, std=0.1, dtype=f32)
+    lnb = _rand(g, c, std=0.1, dtype=f32)
+    q1 = quant.quantized_weight(_rand(g, c, hid, std=c ** -0.5, dtype=f32))
+    q2 = quant.quantized_weight(_rand(g, hid, c, std=0.5 * hid ** -0.5,
+                                      dtype=f32))
+    b1 = _rand(g, hid, std=0.02, dtype=f32)
+    b2 = _rand(g, c, std=0.02, dtype=f32)
+    s = mlp.col_slices(hid)
+    w = (lns, lnb, q1.kn, q1.scale, b1, q2.kn, q2.scale, b2, 1e-5)
+    with torch.no_grad():
+        codes, sr = delta._base_codes_kernel(x, lns, lnb, 1e-5)
+        ref_q, ref_s = delta.base_codes_plain(x, lns, lnb, 1e-5)
+        fc1 = delta._base_fc1_kernel(codes, sr, q1.q, q1.scale, b1, s, mode)
+        twin1 = (delta.base_fc1_grad_plain if mode == "grad"
+                 else delta.base_fc1_eg_plain)(codes, sr[:, None], q1.kn,
+                                               q1.scale, b1, s)
+        hidden = fc1[2:]  # (hq, hsc, hzp) or (g_q, g_s, g_z)
+        fc2 = delta._base_fc2_kernel(*hidden, q2.q, q2.scale, b2,
+                                     q2.colsums(s), x)
+        twin2 = delta.base_fc2_plain(*hidden, q2.kn, q2.scale, b2, x)
+        block = delta.base_mlp_block(x, *w, mode=mode)
+        again = delta.base_mlp_block(x, *w, mode=mode)
+        whole = (delta.base_mlp_grad_plain(x, *w, s) if mode == "grad" else
+                 delta.base_mlp_e_plain(x, *w, s, emit_gelu=True))
+    torch.cuda.synchronize()
+    assert torch.equal(codes, ref_q) and torch.equal(sr, ref_s.reshape(-1))
+    for got, want in zip(fc1, twin1):
+        assert torch.equal(got, want)
+    for got, want in zip(fc2, twin2):
+        assert torch.equal(got, want)
+    pieces = (fc2[0], *fc1[:2], fc2[1]) + (fc1[2:] if mode == "e+g" else ())
+    assert len(block) == len(pieces) == len(whole)
+    for b_, p_, w_, a_ in zip(block, pieces, whole, again):
+        assert torch.equal(b_, p_) and torch.equal(b_, w_)
+        assert torch.equal(b_, a_)
+
+
 def test_delta_kernels_count_launches_and_refuse(cuda):
     delta.reset_launches()
     g = torch.Generator(device=cuda).manual_seed(4)

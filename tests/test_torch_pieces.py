@@ -1,6 +1,7 @@
 """The pieces that the card runs for the W8A8 MLP sub-block (row 15 of the
-kernel table) and for the stage-delta attention half (row 19), through
-their twins, held to the JAX kernels on the CPU.
+kernel table), for the stage-delta attention half (row 19) and for the
+stage-delta base MLP halves of the "gelu" and "grad" modes (rows 21 and
+22), through their twins, held to the JAX kernels on the CPU.
 
 Row 15 runs as a code pass (the bf16-chain LN2 rows coded per row), fc1
 (GELU on an affine grid per row and strip) and fc2 (the strips folded in
@@ -17,7 +18,19 @@ exceeds 2e-2 in bf16; row 19 in f32 on its part xm - xm_b at the rel-L2
 5e-3 that ``test_torch_headdim32`` states for that part, in bf16 on xm (see
 the test). The wrappers' plumbing on the card runs with the library calls
 stubbed: the pieces in order on the workspaces between them, one launch
-counted, every refusal before any call. Inputs come from numpy seeds.
+counted, every refusal before any call.
+
+Rows 21 and 22 run as the f32 code pass of LN2(x), the mode's fc1 (row 22:
+GELU(e) on the affine grid and gelu'(e) coded per row and strip; row 21: e
+coded per row and strip, GELU of the coded e on the affine grid) and fc2
+storing m beside x + m. Their piece twins in sequence are the whole twins
+(``base_mlp_grad_plain``, ``base_mlp_e_plain(emit_gelu=True)``). Each
+piece holds float64 arithmetic of what it computes at 1 to 4 strips, and
+the whole twins hold the interpreted ``base_mlp_block`` at the tolerances
+of their own tests
+(``test_torch_delta.test_base_mlp_twin_matches_jax``,
+``test_torch_delta_modes.test_base_mlp_e_twin_matches_jax``). Inputs come
+from numpy seeds.
 """
 
 import jax.numpy as jnp
@@ -286,3 +299,239 @@ def test_delta_attn_block_runs_its_pieces(monkeypatch):
     with pytest.raises(ValueError, match="batch elements"):
         tdelta._qkv_delta_kernel(torch.zeros((3 * l, c), dtype=torch.int8),
                                  torch.ones(3 * l), tq.t(), ts, qq, qs, l)
+
+
+# ---------------------------------------------------------------------------
+# rows 21 and 22: the stage-delta base MLP halves of "gelu" and "grad"
+# ---------------------------------------------------------------------------
+
+FLIP_RATE = 5e-3  # one-step code flips, as the whole twins' tests allow
+
+
+def _base_case(seed, dt, l, hidden, c=256):
+    """x_b [2, L, C], LN2, w1 [C, hidden] and w2 [hidden, C] as the JAX and
+    torch codes with column scales, and biases."""
+    r = np.random.default_rng(seed)
+    xb = r.standard_normal((2, l, c)).astype(np.float32)
+    s = (1 + 0.1 * r.standard_normal(c)).astype(np.float32)
+    b = (0.1 * r.standard_normal(c)).astype(np.float32)
+    j1, t1 = _weights(r, c, hidden, 0.1)
+    j2, t2 = _weights(r, hidden, c, 0.05)
+    b1 = (r.standard_normal(hidden) * 0.02).astype(np.float32)
+    b2 = (r.standard_normal(c) * 0.02).astype(np.float32)
+    jd, td = DT[dt][:2]
+    jargs = (jnp.asarray(s), jnp.asarray(b), *j1, jnp.asarray(b1), *j2,
+             jnp.asarray(b2), EPS)
+    targs = (torch.from_numpy(s), torch.from_numpy(b), *t1,
+             torch.from_numpy(b1), *t2, torch.from_numpy(b2), EPS)
+    return (jnp.asarray(xb).astype(jd), torch.from_numpy(xb).to(td), jargs,
+            targs)
+
+
+def _base_twin(x2d, targs, strips, mode):
+    """The whole twin of the mode, the code pass, fc1 and fc2 in sequence:
+    the outputs of ``base_mlp_block`` in its order."""
+    if mode == "grad":
+        return tdelta.base_mlp_grad_plain(x2d, *targs, strips)
+    return tdelta.base_mlp_e_plain(x2d, *targs, strips, emit_gelu=True)
+
+
+def _gelu64(e):
+    return 0.5 * e * (1.0 + torch.erf(e * 0.5 ** 0.5))
+
+
+def _gelu_grad64(e):
+    return (0.5 * (1.0 + torch.erf(e * 0.5 ** 0.5))
+            + e * torch.exp(-0.5 * e * e) * (2 * np.pi) ** -0.5)
+
+
+def _strips(t, strips):
+    """[R, N] as [R, strips, N / strips]."""
+    return t.reshape(t.shape[0], strips, -1)
+
+
+def _held_by_grid(q, scale, zp, ref, strips):
+    """Codes ``q`` [R, N] on the per-(row, strip) grid ``scale``, ``zp``
+    [R, strips] stand within half a step of ``ref`` in float64, up to the
+    f32 arithmetic's own error (the erf polynomial's 1.5e-7 included)."""
+    slack = 1e-6 + 1e-5 * ref.abs().amax(dim=1, keepdim=True)
+    deq = _strips(q.double(), strips) * scale.double()[..., None]
+    if zp is not None:
+        deq = deq + zp.double()[..., None]
+    err = (deq - _strips(ref, strips)).abs()
+    assert (err <= 0.5 * scale.double()[..., None] + slack[..., None]).all()
+
+
+def _grid_of(ref, strips, affine):
+    """The float64 grid of ``ref`` [R, N] per row and strip: the symmetric
+    scale amax / 127, or the affine scale max(gmax - gmin, 1e-8) / 254 and
+    zero point (gmax + gmin) / 2."""
+    r = _strips(ref, strips)
+    if not affine:
+        return r.abs().amax(dim=2).clamp(min=1e-8) / 127, None
+    hi, lo = r.amax(dim=2), r.amin(dim=2)
+    return (hi - lo).clamp(min=1e-8) / 254, (hi + lo) / 2
+
+
+def _same_grid(scale, zp, ref, strips, affine):
+    want_s, want_z = _grid_of(ref, strips, affine)
+    top = _strips(ref, strips).abs().amax(dim=2)
+    np.testing.assert_allclose(_np(scale), _np(want_s), rtol=1e-5,
+                               atol=1e-7)
+    if affine:
+        assert ((zp.double() - want_z).abs() <= 1e-5 * top + 1e-6).all()
+
+
+@pytest.mark.parametrize("l", [17, 65])
+@pytest.mark.parametrize("dt", list(DT))
+@pytest.mark.parametrize("hidden,strips", [(1024, 1), (1024, 2), (768, 3),
+                                           (1024, 4)])
+@pytest.mark.parametrize("mode", ["grad", "e+g"])
+def test_base_mlp_pieces_chain_to_the_twin(mode, hidden, strips, dt, l):
+    """Rows 22 and 21: each piece of the chain that makes up the whole twin
+    against float64 arithmetic of what it computes. The code pass codes LN2
+    of x within half a step of its row scale amax / 127; fc1's e, recomputed
+    from those codes, gives the cache (row 22: gelu'(e); row 21: e) coded
+    per row and strip, and the hidden (GELU(e); GELU of the coded e) on the
+    affine grid, each within half a step of its grid, the grids as their
+    float64 statistics say; fc2 folds the strips' products with the colsums
+    into m within f32's error (and bf16's rounding), and o = x + m in x's
+    dtype."""
+    _, tx, _, targs = _base_case(21 + l + strips, dt, l, hidden)
+    s, b, w1, s1, b1, w2, s2, b2, eps = targs
+    x2d = tx.reshape(-1, tx.shape[-1])
+    xq, xs = tdelta.base_codes_plain(x2d, s, b, eps)
+    ln = torch.nn.functional.layer_norm(x2d.double(), (x2d.shape[-1],),
+                                        eps=eps) * s.double() + b.double()
+    _same_grid(xs, None, ln, 1, affine=False)
+    _held_by_grid(xq, xs, None, ln, 1)
+    e = ((xq.double() @ w1.double()) * xs.double() * s1.double()
+         + b1.double())
+    if mode == "grad":
+        cq, cs, hq, hsc, hzp = tdelta.base_fc1_grad_plain(xq, xs, w1, s1, b1,
+                                                          strips)
+        cache, g = _gelu_grad64(e), _gelu64(e)
+    else:
+        cq, cs, hq, hsc, hzp = tdelta.base_fc1_eg_plain(xq, xs, w1, s1, b1,
+                                                        strips)
+        cache = e
+        g = _gelu64(_strips(cq.double(), strips)
+                    * cs.double()[..., None]).reshape(e.shape)
+    assert cs.shape == hsc.shape == hzp.shape == (x2d.shape[0], strips)
+    for q, sc, zp, ref, affine in ((cq, cs, None, cache, False),
+                                   (hq, hsc, hzp, g, True)):
+        assert q.dtype == torch.int8 and q.shape == ref.shape
+        _same_grid(sc, zp, ref, strips, affine)
+        _held_by_grid(q, sc, zp, ref, strips)
+    o, m = tdelta.base_fc2_plain(hq, hsc, hzp, w2, s2, b2, x2d)
+    d = torch.einsum("rjk,jkn->rjn", _strips(hq.double(), strips),
+                     w2.double().reshape(strips, -1, w2.shape[1]))
+    terms = torch.stack([d * hsc.double()[..., None],
+                         hzp.double()[..., None]
+                         * w2.double().reshape(strips, -1, w2.shape[1])
+                         .sum(dim=1)])
+    m64 = terms.sum(dim=(0, 2)) * s2.double() + b2.double()
+    bound = terms.abs().sum(dim=(0, 2)) * s2.double().abs() * 1e-6 + 1e-7
+    if dt == "bf16":
+        bound = bound + m64.abs() * 2.0 ** -8
+    assert m.dtype == o.dtype == x2d.dtype
+    assert ((m.double() - m64).abs() <= bound).all()
+    assert torch.equal(o, x2d + m)
+
+
+def _codes_close(port, ref):
+    d = np.abs(_np(port) - _np(ref))
+    assert d.max() <= 1, d.max()
+    assert (d > 0).mean() <= FLIP_RATE, (d > 0).mean()
+
+
+@pytest.mark.parametrize("l", [17, 65])
+@pytest.mark.parametrize("dt", list(DT))
+@pytest.mark.parametrize("mode", ["grad", "e+g"])
+def test_base_mlp_pieces_hold_the_jax_kernel(mode, dt, l):
+    """C 256, hidden 1024 in 4 strips: the pieces' twins in sequence against
+    the interpreted ``base_mlp_block`` of the JAX package on every output,
+    o on o - x, codes one step apart at a small rate, scales within
+    1e-6."""
+    jx, tx, jargs, targs = _base_case(22 + l, dt, l, 1024)
+    c = tx.shape[-1]
+    _, _, atol, rel = DT[dt]
+    got = _base_twin(tx.reshape(-1, c), targs, tmlp.col_slices(1024), mode)
+    ref = jdelta.base_mlp_block(jx, *jargs, interpret=True, mode=mode)
+    assert [tuple(t.shape) for t in got[1:3]] == [a.shape for a in ref[1:3]]
+    if dt == "bf16":  # as row 15's bf16 case above: one bf16 step of |o|
+        top = float(np.abs(_np(ref[0])).max())
+        atol = max(atol, 2.0 ** (np.floor(np.log2(top)) - 7))
+    _close(got[0].reshape(tx.shape), ref[0], atol, rel, base=tx)
+    _close(got[3].reshape(tx.shape), ref[3], DT[dt][2], rel)
+    for i in range(1, len(got)):
+        if got[i].dtype == torch.int8:
+            _codes_close(got[i], ref[i])
+        elif i != 3:
+            np.testing.assert_allclose(_np(got[i]), _np(ref[i]), rtol=0,
+                                       atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["grad", "e+g"])
+def test_base_mlp_block_runs_its_pieces(monkeypatch, mode):
+    """Rows 22 and 21's plumbing on the card, the library stubbed: one call
+    of the C entry that chains the code pass, fc1 and fc2, with x, LN2,
+    both weights (torch layout), the colsums, o, m, the mode's cache and
+    one workspace allocation laid out as ``base_ws_sizes`` says (row 22:
+    the row codes, their scales, the hidden codes, their scales and zero
+    points; row 21: the row codes and their scales); one launch counted;
+    every refusal before any call."""
+    calls = _stub(monkeypatch, tdelta)
+    made = []
+    real = tdelta._base_workspace
+
+    def workspace(dev, sizes):
+        made.append((list(sizes), real(dev, sizes)))
+        return made[-1][1]
+    monkeypatch.setattr(tdelta, "_base_workspace", workspace)
+    r, c, hid, strips = 10, 256, 1024, 4
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((r, c)).astype(
+        np.float32)).to(torch.bfloat16)
+    q1 = tquant.quantized_weight(torch.from_numpy(
+        rng.standard_normal((c, hid)).astype(np.float32)))
+    q2 = tquant.quantized_weight(torch.from_numpy(
+        rng.standard_normal((hid, c)).astype(np.float32)))
+    one, b1 = torch.ones(c), torch.zeros(hid)
+    w = (one, one, q1.kn, q1.scale, b1, q2.kn, q2.scale, one, EPS, strips)
+    tdelta.reset_launches()
+    out = tdelta._base_mlp_kernel(x, *w, mode)
+    fn = "uspace_" + tdelta.BASE_MODES[mode]
+    assert [f for f, _ in calls] == [fn]
+    (_, args), = calls
+    assert args[0] == x.data_ptr()
+    assert args[3] == q1.q.data_ptr() and args[6] == q2.q.data_ptr()
+    assert args[10:12] == (out[0].data_ptr(), out[3].data_ptr())
+    cache = out[1:3] + out[4:]
+    assert len(cache) == (2 if mode == "grad" else 5)
+    assert args[12:12 + len(cache)] == tuple(t.data_ptr() for t in cache)
+    assert [t.shape for t in cache[:2]] == [(r, hid), (r, strips)]
+    (sizes, ws), = made
+    want = [r * c, 4 * r]
+    if mode == "grad":
+        want += [r * hid, 4 * r * strips, 4 * r * strips]
+    assert sizes == want == tdelta.base_ws_sizes(r, c, hid, strips, mode)
+    assert ws.dtype == torch.uint8
+    assert ws.numel() == sum(-(-n // 256) * 256 for n in want)
+    n = 12 + len(cache)
+    assert args[n] == ws.data_ptr()
+    assert args[n + 1:n + 6] == (r, c, hid, strips, EPS)
+    assert len(args) == n + 7
+    assert tdelta.LAUNCHES[tdelta.BASE_MODES[mode]] == 1
+    assert sum(tdelta.LAUNCHES.values()) == 1
+    # refused before any call or allocation: a strip of 128, an f32 x, a
+    # bias of the wrong width
+    del calls[:]
+    with pytest.raises(ValueError, match="strip width"):
+        tdelta._base_mlp_kernel(x, *w[:-1], 8, mode)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tdelta._base_mlp_kernel(x.float(), *w, mode)
+    with pytest.raises(ValueError, match="b1 must have shape"):
+        tdelta._base_mlp_kernel(x, *w[:4], b1[:512], *w[5:], mode)
+    assert calls == [] and len(made) == 1
+    assert tdelta.LAUNCHES[tdelta.BASE_MODES[mode]] == 1

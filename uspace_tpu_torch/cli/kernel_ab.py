@@ -21,10 +21,12 @@ kernel at the 512-px SD-UNet-large's top level, B=50, H=8, L=4096, D=32;
 halves' own passes at B=50 (the LN codes of the padded base rows and of a
 stage delta, the difference codes, the f32 GEMM, the qkv re-coding);
 ``delta_mlp``: the stage-delta base MLP kernels of the three hidden modes
-on 12850 rows, hidden 4096, and the wgmma GEMMs of the delta rows,
-``delta_fc1_exact``, ``delta_fc1_lin``, ``delta_fc1_g`` (rows 25, 23, 24)
-and ``delta_fc2``, and of row 15, ``mlp_int8_codes``, ``mlp_int8_fc1``,
-``mlp_int8_fc2`` and ``ln_mlp_int8``, which chains them)
+on 12850 rows, hidden 4096 (rows 21 and 22 each one C entry through a
+workspace), the pieces of rows 21 and 22, ``base_mlp_codes``,
+``base_fc1_grad``, ``base_fc1_eg`` and ``base_fc2``, the wgmma GEMMs of
+the delta rows, ``delta_fc1_exact``, ``delta_fc1_lin``, ``delta_fc1_g``
+(rows 25, 23, 24) and ``delta_fc2``, and of row 15, ``mlp_int8_codes``,
+``mlp_int8_fc1``, ``mlp_int8_fc2`` and ``ln_mlp_int8``, which chains them)
 with CUDA events, the two builds alternating base, new, new, base, ... on
 one card. The base must have this checkout's C interface (each entry point
 of ``ops/_build.SIGNATURES``); an entry point that it lacks is timed on the
@@ -85,6 +87,7 @@ from pathlib import Path
 import torch
 
 from ..ops import _build
+from ..ops.delta import base_ws_sizes
 from ..ops.quant import quantized_weight
 
 B, L, C, H = 50, 257, 1024, 16
@@ -240,6 +243,15 @@ def main(argv=None) -> None:
     hq = torch.empty(rows, hid, dtype=torch.int8, device=dev)
     hsc = torch.full((rows, 4), 1e-3, device=dev)
     hzp = torch.full((rows, 4), 0.1, device=dev)
+    # rows 21-22's workspace (row 22's, the larger) and their pieces'
+    # outputs: the row codes and scales, two [rows, hid] int8 codes (the
+    # cache, the hidden) and three [rows, 4] f32 scales
+    bws = torch.empty(sum(-(-n // 256) * 256 for n in base_ws_sizes(
+        rows, C, hid, 4, "grad")), dtype=torch.uint8, device=dev)
+    bcodes, bsr = torch.empty_like(dcodes), torch.empty_like(dsr)
+    bq, bq2 = (torch.randint(-127, 128, (rows, hid), generator=g, device=dev,
+                             dtype=torch.int8) for _ in range(2))
+    bsc = [torch.full((rows, 4), v, device=dev) for v in (1e-3, 1e-3, 0.1)]
     s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     w8lib = _build.load("mlp_w8") if a.source == "mlp_bf16" else None
 
@@ -364,7 +376,7 @@ def main(argv=None) -> None:
             q1.scale.data_ptr(), b1.data_ptr(), q2.q.data_ptr(),
             q2.scale.data_ptr(), b2.data_ptr(), cs4.data_ptr(),
             out.data_ptr(), m_out.data_ptr(), gp_q.data_ptr(),
-            gp_s.data_ptr(), rows, C, hid, 4, 1e-5, s),
+            gp_s.data_ptr(), bws.data_ptr(), rows, C, hid, 4, 1e-5, s),
         "base_mlp_e": lambda lib: lib.uspace_base_mlp_e(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), q1.q.data_ptr(),
             q1.scale.data_ptr(), b1.data_ptr(), q2.q.data_ptr(),
@@ -377,7 +389,27 @@ def main(argv=None) -> None:
             q2.scale.data_ptr(), b2.data_ptr(), cs4.data_ptr(),
             out.data_ptr(), m_out.data_ptr(), e_q.data_ptr(),
             e_s.data_ptr(), g_q.data_ptr(), g_s.data_ptr(), g_z.data_ptr(),
-            rows, C, hid, 4, 1e-5, s),
+            bws.data_ptr(), rows, C, hid, 4, 1e-5, s),
+        # rows 21-22's pieces: the f32 code pass, each fc1, fc2 with m (on
+        # buffers of their own, so the caches above stay as they are)
+        "base_mlp_codes": lambda lib: lib.uspace_base_mlp_codes(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), bcodes.data_ptr(),
+            bsr.data_ptr(), rows, C, 1e-5, s),
+        "base_fc1_grad": lambda lib: lib.uspace_base_fc1_grad(
+            dcodes.data_ptr(), dsr.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), b1.data_ptr(), bq2.data_ptr(),
+            bsc[0].data_ptr(), bq.data_ptr(), bsc[1].data_ptr(),
+            bsc[2].data_ptr(), rows, C, hid, 4, s),
+        "base_fc1_eg": lambda lib: lib.uspace_base_fc1_eg(
+            dcodes.data_ptr(), dsr.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), b1.data_ptr(), bq2.data_ptr(),
+            bsc[0].data_ptr(), bq.data_ptr(), bsc[1].data_ptr(),
+            bsc[2].data_ptr(), rows, C, hid, 4, s),
+        "base_fc2": lambda lib: lib.uspace_base_fc2(
+            bq.data_ptr(), bsc[1].data_ptr(), bsc[2].data_ptr(),
+            q2.q.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(),
+            cs4.data_ptr(), x.data_ptr(), out.data_ptr(), m_out.data_ptr(),
+            rows, C, hid, 4, s),
         # rows 25, 23 and 24's fc1 and their fc2 after the code pass (row
         # 19's ln_delta_codes)
         "delta_fc1_exact": lambda lib: lib.uspace_delta_fc1_exact(

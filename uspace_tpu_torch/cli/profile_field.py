@@ -56,15 +56,24 @@ from ..configs import get_config
 from .sample_lfm import QUANT_CHOICES, build_model
 from .train_lfm import train_attn_impl
 
-# delta_mlp.cu's block kernel is one template per strip width and base
-# row (delta_mlp_kernel<NT1, Mode>: rows 22, 20 and 21); the delta rows are
-# each a code pass, their fc1 instance (delta_fc1_kernel<Dg>: rows 25, 23
-# and 24) and the shared fc2
-_DELTA_MLP = tuple(
-    (f"stage-delta MLP kernel, {what} (ours: row {row})",
-     tuple(f"delta_mlp_kernel<{nt}, {mode}>" for nt in (2, 4, 6, 8)))
-    for mode, what, row in ((0, "grad base", 22), (1, "exact base", 20),
-                            (2, "gelu base", 21))) + tuple(
+# delta_mlp.cu's block kernel is one template per strip width (row 20,
+# delta_mlp_kernel<NT1>); rows 22 and 21 are the f32 code pass, their fc1
+# instance (delta_fc1_kernel<4>, <5>) and fc2 storing m
+# (delta_fc2_kernel<true, true>); the delta rows are each a code pass,
+# their fc1 instance (delta_fc1_kernel<Dg>: rows 25, 23 and 24) and the
+# shared fc2 (delta_fc2_kernel<false, false>). The code pass and fc2 of
+# rows 21-22 go to the profiled hidden mode's row.
+_BASE_ROW = {m: f"stage-delta MLP, {m} base: f32 code pass, fc1 and fc2 "
+             f"with m on wgmma (ours: row {row})"
+             for m, row in (("grad", 22), ("gelu", 21))}
+_BASE_SHARED = "stage-delta MLP, grad or gelu base: code pass and fc2"
+_DELTA_MLP = (
+    ("stage-delta MLP kernel, exact base (ours: row 20)",
+     ("delta_mlp_kernel<",)),
+    (_BASE_ROW["grad"], ("delta_fc1_kernel<4>",)),
+    (_BASE_ROW["gelu"], ("delta_fc1_kernel<5>",)),
+    (_BASE_SHARED, ("base_code_pass_kernel", "delta_fc2_kernel<true, true>"))
+) + tuple(
     (f"stage-delta MLP, {what} delta fc1 on wgmma (ours: row {row})",
      (f"delta_fc1_kernel<{dg}>",))
     for dg, what, row in ((0, "exact", 25), (1, "grad", 23), (2, "gelu", 24)))
@@ -78,10 +87,10 @@ GROUPS = (
     # row 15's GEMMs are instances of the delta rows' fc1 and fc2 bodies
     ("W8A8 MLP sub-block, code pass, fc1 and fc2 on wgmma (ours: row 15)",
      ("mlp_code_pass_kernel", "delta_fc1_kernel<3>",
-      "delta_fc2_kernel<true>")),
+      "delta_fc2_kernel<true, false>")),
     *_DELTA_MLP,
     ("stage-delta MLP, delta fc2 on wgmma (ours: rows 23-25)",
-     ("delta_fc2_kernel",)),
+     ("delta_fc2_kernel<false",)),
     # rows 4 and 8 share one body, templated on the layout
     ("packed attention backward (ours: row 4)", (
         "fused_bwd_dq_kernel<64, true", "fused_bwd_dkdv_kernel<64, true")),
@@ -187,9 +196,10 @@ def _train_fn(cfg, dev, batch, attn_impl, seed, remat_exempt):
     return lambda: step(state, {"x": x}, g)
 
 
-def _trace(fn, batch: int, evals: int) -> dict:
+def _trace(fn, batch: int, evals: int, hidden_mode: str = "grad") -> dict:
     """Warm ``fn`` up, trace ``evals`` calls: device time by kernel and by
-    layer, host wall time, idle share, peak memory."""
+    layer (rows 21-22's shared pieces under ``hidden_mode``'s row), host
+    wall time, idle share, peak memory."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -211,7 +221,10 @@ def _trace(fn, batch: int, evals: int) -> dict:
         raise RuntimeError("the profiler recorded no device activity")
     groups = defaultdict(float)
     for name, (ms, _) in kernels.items():
-        groups[_group(name)] += ms
+        group = _group(name)
+        if group == _BASE_SHARED:
+            group = _BASE_ROW.get(hidden_mode, group)
+        groups[group] += ms
     busy = sum(groups.values())
     return dict(
         wall_ms_per_eval=wall * 1e3,
@@ -250,7 +263,8 @@ def profile(config: str = "uvit_large", batch: int = 50, evals: int = 3,
                 card=torch.cuda.get_device_name(0))
     if field:
         fns = _delta_fns(cfg, dev, batch, attn_impl, seed, hidden_mode)
-        return dict(head, parts={k: _trace(f, batch, evals)
+        return dict(head, parts={k: _trace(f, batch, evals,
+                                           hidden_mode or "grad")
                                  for k, f in fns.items()})
     fn = (_train_fn(cfg, dev, batch, attn_impl, seed, remat_exempt) if train
           else _field_fn(cfg, dev, batch, attn_impl, seed, quant))

@@ -2,16 +2,22 @@
 rows, C 1024, hidden 4096, seeded inputs, the caches from the base
 kernels of rows 21 and 22): row 19's code pass, each row's fc1 (rows 25,
 23 and 24: ``exact``, ``lin``, ``g``) and fc2 timed apart, and each row's
-whole wrapper; the pieces of the W8A8 MLP sub-block (row 15: the code
-pass, fc1, fc2, the C entry that chains them, the wrapper, and row 16's
-wrapper beside it) and of the stage-delta attention
-half (row 19 at B = 50, L = 257 after the code pass above: the qkv GEMM on
-the padded cache, row 1's core, the difference codes, the xm GEMM, the
-wrapper); then fc1 and fc2 of other builds of ``delta_mlp.cu`` (paths
-given as arguments, this checkout's C interface) timed alternating with
-this checkout's, their codes, scales and outputs compared with this
-checkout's bit for bit. One JSON line a piece and a build; CUDA events, 50
-calls after 3. Needs a CUDA card.
+whole wrapper; the pieces of the stage-delta base rows 22 and 21 (the f32
+code pass, ``base_fc1_grad``, ``base_fc1_eg``, ``base_fc2`` with m, each
+row's C entry and wrapper; each fc1's epilogue apart from the GEMM
+skeleton as its time less that of row 23's fc1 on the same codes, whose
+epilogue is one product a value: ``epilogue_over_lin_ms``); the pieces of
+the W8A8 MLP sub-block (row 15: the code pass, fc1, fc2, the C entry that
+chains them, the wrapper, and row 16's wrapper beside it) and of the
+stage-delta attention half (row 19 at B = 50, L = 257 after the code pass
+above: the qkv GEMM on the padded cache, row 1's core, the difference
+codes, the xm GEMM, the wrapper); then fc1 and fc2 of other builds of
+``delta_mlp.cu`` (paths given as arguments, this checkout's C interface)
+timed alternating with this checkout's, their codes, scales and outputs
+compared with this checkout's bit for bit (rows 22 and 21's fc1, and row
+15's fc1 and C entry, too). One JSON line a piece and a build; CUDA
+events, 50 calls after 3 queued behind a spin of the card, so that a
+launcher's host time does not count. Needs a CUDA card.
 
     python -m uspace_tpu_torch.cli.time_delta_mlp [variant.cu ...]
 """
@@ -34,14 +40,20 @@ from .kernel_ab import _load
 B, L, C = 50, 257, 1024
 ROWS, HIDDEN, STRIPS = B * L, 4 * C, 4
 MODES = ("exact", "lin", "g")  # rows 25, 23, 24
+NAMES = (("grad", "grad"), ("e+g", "eg"))  # rows 22, 21: mode, printed name
+SPIN_CYCLES = 50_000_000  # about 25 ms at the H100's 1.98 GHz
 
 
 def time_ms(fn, arg=None, iters=50):
-    """Device ms a call (CUDA events) and host us a call."""
+    """Device ms a call (CUDA events) and host us a call. The timed calls
+    queue behind a spin of the card (about 25 ms), so a Python launcher
+    whose host time exceeds its piece's device time does not count in the
+    device time."""
     for _ in range(3):
         fn(arg)
     torch.cuda.synchronize()
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(SPIN_CYCLES)
     e0.record()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -126,16 +138,40 @@ def main(argv=None) -> None:
         pieces += [(f"fc1_{mode}", lambda lib, m=mode: fc1(m, lib), dm),
                    (f"fc2_{mode}", lambda lib, m=mode: fc2(m, lib), dm),
                    (f"wrapper_{mode}", wrapper, mode)]
-    pieces += row15_19_pieces(randn, dev, lns, lnb, x, xb, w1f, b1, w2f, b2)
+    base = Row2122(dev, lns, lnb, xb, q1, b1, q2, b2)
+    pieces += base.pieces()
+    r15_19, r15_out = row15_19_pieces(randn, dev, lns, lnb, x, xb, w1f, b1,
+                                      w2f, b2)
+    pieces += r15_19
+    # row 15's fc1 and C entry, also timed on the other builds
+    r15 = [(name, fn) for name, fn, _ in r15_19
+           if name in ("r15_fc1", "r15_c_entry")]
+    got = {}
     for name, fn, arg in pieces:
         ms, host = time_ms(fn, arg)
+        got[name] = ms
         print(json.dumps({"piece": name, "ms": ms, "host_us": host,
+                          "card": card}), flush=True)
+    for mode in ("grad", "eg"):  # the epilogue apart from the skeleton
+        print(json.dumps({"piece": f"base_fc1_{mode}",
+                          "epilogue_over_lin_ms":
+                          got[f"base_fc1_{mode}"] - got["fc1_lin"],
                           "card": card}), flush=True)
     for path in paths:
         name = Path(path).stem
         lib = _load("delta_mlp", path,
                     str(_build.BUILD_DIR / f"var_{name}.so"))
         row = {"variant": name, "card": card}
+        for mode, label in NAMES:
+            row[f"base_fc1_{label}_bit_equal"] = base.fc1_bit_equal(mode, lib)
+        for piece, fn in r15:
+            fn(dm)
+            torch.cuda.synchronize()
+            want = [t.clone() for t in r15_out]
+            fn(lib)
+            torch.cuda.synchronize()
+            row[f"{piece}_bit_equal"] = all(
+                torch.equal(a, b) for a, b in zip(r15_out, want))
         for mode in MODES:
             hq_v, hsc_v, out_v = (torch.empty_like(t) for t in ref[mode])
             fc1(mode, lib, hq_v, hsc_v)
@@ -148,7 +184,10 @@ def main(argv=None) -> None:
             row[f"fc2_{mode}_bit_equal"] = torch.equal(out_v, ref[mode][2])
         for piece, fn, n in [(f"fc1_{m}", lambda lb, m=m: fc1(m, lb), 2)
                              for m in MODES] + [
-                ("fc2", lambda lb: fc2("exact", lb), 1)]:
+                (f"base_fc1_{label}", lambda lb, m=m: base.fc1(m, lb), 2)
+                for m, label in NAMES] + [
+                ("fc2", lambda lb: fc2("exact", lb), 1)] + [
+                (piece, fn, 2) for piece, fn in r15]:
             times = {"this": [], name: []}
             for side in ("this", name, name, "this") * n:
                 times[side].append(time_ms(fn, dm if side == "this"
@@ -157,10 +196,90 @@ def main(argv=None) -> None:
         print(json.dumps(row), flush=True)
 
 
+class Row2122:
+    """Rows 22 and 21's pieces at the main path's shape on x_b, each through
+    its ``ops.delta`` launcher into buffers made here: the f32 code pass,
+    each fc1, fc2 with m; each row's C entry (one workspace) and
+    wrapper."""
+
+    def __init__(self, dev, lns, lnb, x, q1, b1, q2, b2):
+        i8, f32 = torch.int8, torch.float32
+        self.lns, self.lnb, self.x = lns, lnb, x
+        self.q1, self.b1, self.q2, self.b2 = q1, b1, q2, b2
+        self.colsum = q2.colsums(STRIPS)
+        self.codes = (torch.empty(ROWS, C, dtype=i8, device=dev),
+                      torch.empty(ROWS, device=dev))
+        # each row's fc1 outputs: two [ROWS, HIDDEN] codes, three scales
+        self.out1 = {m: [torch.empty(ROWS, HIDDEN, dtype=i8, device=dev),
+                         torch.empty(ROWS, STRIPS, dtype=f32, device=dev),
+                         torch.empty(ROWS, HIDDEN, dtype=i8, device=dev),
+                         torch.empty(ROWS, STRIPS, dtype=f32, device=dev),
+                         torch.empty(ROWS, STRIPS, dtype=f32, device=dev)]
+                     for m in ("grad", "e+g")}
+        self.out2 = (torch.empty_like(x), torch.empty_like(x))
+        self.ws = dops._base_workspace(dev, dops.base_ws_sizes(
+            ROWS, C, HIDDEN, STRIPS, "grad"))
+        self.codes_pass()
+        for mode in ("grad", "e+g"):
+            self.fc1(mode)
+        torch.cuda.synchronize()
+        self.ref = {m: [t.clone() for t in self.out1[m]]
+                    for m in ("grad", "e+g")}
+
+    def codes_pass(self, _=None):
+        dops._base_codes_kernel(self.x, self.lns, self.lnb, 1e-5,
+                                out=self.codes)
+
+    def fc1(self, mode, lib=None, out=None):
+        dops._base_fc1_kernel(*self.codes, self.q1.q, self.q1.scale, self.b1,
+                              STRIPS, mode, out=out or self.out1[mode],
+                              lib=lib)
+
+    def fc1_bit_equal(self, mode, lib) -> bool:
+        out = [torch.empty_like(t) for t in self.ref[mode]]
+        self.fc1(mode, lib, out)
+        torch.cuda.synchronize()
+        return all(torch.equal(a, b) for a, b in zip(out, self.ref[mode]))
+
+    def fc2(self, _=None):
+        dops._base_fc2_kernel(*self.out1["grad"][2:], self.q2.q,
+                              self.q2.scale, self.b2, self.colsum, self.x,
+                              out=self.out2)
+
+    def c_entry(self, mode):
+        out = self.out1[mode]
+        cache = out[:2] if mode == "grad" else out
+        dops._base_mlp_entry(mode, self.x, self.lns, self.lnb, self.q1.q,
+                             self.q1.scale, self.b1, self.q2.q,
+                             self.q2.scale, self.b2, self.colsum,
+                             *self.out2, (*cache, self.ws), STRIPS, 1e-5)
+
+    def wrapper(self, mode):
+        with torch.no_grad():
+            dops.base_mlp_block(self.x, self.lns, self.lnb, self.q1.kn,
+                                self.q1.scale, self.b1, self.q2.kn,
+                                self.q2.scale, self.b2, 1e-5, mode=mode)
+
+    def pieces(self):
+        """(name, call, argument) of each piece, C entry and wrapper."""
+        out = [("base_codes", self.codes_pass, None)]
+        for mode, label in NAMES:
+            out += [(f"base_fc1_{label}",
+                     lambda _=None, m=mode: self.fc1(m), None)]
+        out += [("base_fc2", self.fc2, None)]
+        for mode, label in NAMES:
+            out += [(f"base_c_entry_{label}",
+                     lambda _=None, m=mode: self.c_entry(m), None),
+                    (f"base_wrapper_{label}", self.wrapper, mode)]
+        return out
+
+
 def row15_19_pieces(randn, dev, lns, lnb, x, xb, w1f, b1, w2f, b2):
     """(name, call, argument) of each piece of rows 15 and 19 at the main
     path's shapes, each a C entry on workspaces made here (row 19's code
-    pass is ``code_pass`` above), and each row's wrapper."""
+    pass is ``code_pass`` above; row 15's fc1 and C entry take the library
+    as their argument), and each row's wrapper; and the outputs of row 15's
+    fc1 and C entry."""
     f32, bf = torch.float32, torch.bfloat16
     s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     strips = mops.col_slices(HIDDEN)
@@ -194,21 +313,21 @@ def row15_19_pieces(randn, dev, lns, lnb, x, xb, w1f, b1, w2f, b2):
         ("r15_code_pass", lambda _=None: dm.uspace_mlp_int8_codes(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), codes.data_ptr(),
             sr.data_ptr(), ROWS, C, 1e-5, s), None),
-        ("r15_fc1", lambda _=None: dm.uspace_mlp_int8_fc1(
+        ("r15_fc1", lambda lib: lib.uspace_mlp_int8_fc1(
             codes.data_ptr(), sr.data_ptr(), q1.q.data_ptr(),
             q1.scale.data_ptr(), b1.data_ptr(), hq.data_ptr(), hsc.data_ptr(),
-            hzp.data_ptr(), ROWS, C, HIDDEN, strips, s), None),
+            hzp.data_ptr(), ROWS, C, HIDDEN, strips, s), dm),
         ("r15_fc2", lambda _=None: dm.uspace_mlp_int8_fc2(
             hq.data_ptr(), hsc.data_ptr(), hzp.data_ptr(), q2.q.data_ptr(),
             q2.scale.data_ptr(), b2.data_ptr(), colsum.data_ptr(),
             x.data_ptr(), out.data_ptr(), ROWS, C, HIDDEN, strips, s), None),
-        ("r15_c_entry", lambda _=None: dm.uspace_ln_mlp_int8(
+        ("r15_c_entry", lambda lib: lib.uspace_ln_mlp_int8(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), q1.q.data_ptr(),
             q1.scale.data_ptr(), b1.data_ptr(), q2.q.data_ptr(),
             q2.scale.data_ptr(), b2.data_ptr(), colsum.data_ptr(),
             codes.data_ptr(), sr.data_ptr(), hq.data_ptr(), hsc.data_ptr(),
             hzp.data_ptr(), out.data_ptr(), ROWS, C, HIDDEN, strips, 1e-5, s),
-         None),
+         dm),
         ("r15_wrapper", no_grad(lambda: mops.fused_mlp_block_q(
             x, lns, lnb, w1f, b1, w2f, b2)), None),
         # row 16's wrapper on the same operands: the yardstick of the host
@@ -232,7 +351,7 @@ def row15_19_pieces(randn, dev, lns, lnb, x, xb, w1f, b1, w2f, b2):
             x.view(B, L, C), xb.view(B, L, C), qkv_q, qkv_s, a_b,
             xm_b.view(B, L, C), lns, lnb, qw.kn, qw.scale, qp.kn, qp.scale,
             16, 1e-5)), None),
-    ]
+    ], (hq, hsc, hzp, out)
 
 
 if __name__ == "__main__":

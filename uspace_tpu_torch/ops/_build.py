@@ -59,9 +59,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_qkv_recode": (_P,) * 4 + (_I,) * 4 + (_P,),
     },
     "delta_mlp": {
-        "uspace_base_mlp_grad": (_P,) * 14 + (_I,) * 4 + (_F, _P),
+        "uspace_base_mlp_grad": (_P,) * 15 + (_I,) * 4 + (_F, _P),
         "uspace_base_mlp_e": (_P,) * 14 + (_I,) * 4 + (_F, _P),
-        "uspace_base_mlp_eg": (_P,) * 17 + (_I,) * 4 + (_F, _P),
+        "uspace_base_mlp_eg": (_P,) * 18 + (_I,) * 4 + (_F, _P),
+        "uspace_base_mlp_codes": (_P,) * 5 + (_I, _I, _F, _P),
+        "uspace_base_fc1_grad": (_P,) * 10 + (_I,) * 4 + (_P,),
+        "uspace_base_fc1_eg": (_P,) * 10 + (_I,) * 4 + (_P,),
+        "uspace_base_fc2": (_P,) * 10 + (_I,) * 4 + (_P,),
         "uspace_delta_fc1_exact": (_P,) * 8 + (_I,) * 4 + (_P,),
         "uspace_delta_fc1_lin": (_P,) * 8 + (_I,) * 4 + (_P,),
         "uspace_delta_fc1_g": (_P,) * 11 + (_I,) * 4 + (_P,),

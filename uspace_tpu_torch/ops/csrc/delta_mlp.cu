@@ -41,6 +41,31 @@
 //   24-25's do) and fc2 0.144; the whole sub-block 0.54, 1.44 on
 //   mlp_int8.cu's block kernel; the C entry takes about 23 us of host time
 //   a call.
+// Rows 21 and 22 run as row 15 runs, three launches from one C entry
+// (uspace_base_mlp_eg, uspace_base_mlp_grad) after one set of checks:
+//   uspace_base_mlp_codes: LN2 in f32 (not the bf16 chain) and the row
+//     codes of its rows, the row kept in registers (attention.cu's
+//     ln_codes_kernel, row 5's code pass);
+//   uspace_base_fc1_grad (row 22): e = (f32(acc) * xs) * s1 + b1 exact;
+//     three statistics of each row's strip shared in one cluster exchange
+//     (max and min of GELU(e), max |gelu'(e)|), then GELU(e) coded on the
+//     affine grid into the hidden workspace and gelu'(e) coded per row and
+//     strip into gp_q / gp_s, GELU and gelu' evaluated again (one erf) from
+//     e kept in the free ring;
+//   uspace_base_fc1_eg (row 21): two exchanges one after the other: amax
+//     |e|, then e coded in place (e_q, e_s), g = GELU(f32(e_q) * e_s) in
+//     the tile; max and min of g in their own partial slots, then g's
+//     affine codes straight into the caller's g_q, g_s, g_z, which fc2
+//     reads;
+//   uspace_base_fc2: row 15's fc2 (the fold with the colsums, bias and
+//     residual) that also stores the bf16 m it adds to x.
+//   On an NVIDIA H100 80GB HBM3 at 700 W and the main path's shape the
+//   code pass takes 0.018 ms, fc1 0.559 (row 22) and 0.458 (row 21), fc2
+//   0.164; row 22 0.75 ms a call and row 21 0.65 (1.91 and 1.67 on the block
+//   kernel below). Measured and lost: row 22 holding gelu'(e) of a warp's
+//   rows in registers (88 a lane) to code it without the second
+//   gelu_and_grad, bit-equal but 37% slower.
+// Row 20 keeps the block kernel below.
 //
 // Bound at the main path's shape (12850 rows, C = 1024, hidden 4096): 2 x 2 x
 // 12850 x 1024 x 4096 = 215.6 G int8 operations over an H100 SXM's 1,979 TOPS
@@ -79,18 +104,17 @@
 // and rsqrtf are the library's), so no multiply-add is contracted where the
 // TPU kernel rounds twice.
 //
-// Rows 20-22, design: mlp_int8.cu's block (rows 14-15), simple first;
-// wgmma/TMA are later work. One block of 16 warps per 32 rows; a strip's
+// Row 20, design: mlp_int8.cu's block (rows 14-15), simple first; rows 21
+// and 22 ran on it until they moved to the wgmma pieces. One block of 16
+// warps per 32 rows; a strip's
 // codes need the whole strip of a row (1024 values at U-ViT-large), so a
 // block computes a 32 x 1024 strip at once with the accumulators in
 // registers (each warp 32 rows x 64 columns), reduces the row statistics
 // through shared memory, and codes the strip into an int8 hidden tile [32,
-// hidden] that never leaves shared memory. Row 22 needs three statistics of
-// a strip (max and min of GELU, max |gelu'|) before it codes either, so it
-// keeps e in the registers and evaluates GELU and gelu' twice (the second
-// time to code them). Rows 20-21 need two statistics one after the other
-// (amax of e, then the range of GELU of the coded e): the registers hold e,
-// then are overwritten with g, one GELU per value. fc2 walks 256 output
+// hidden] that never leaves shared memory. Row 20 needs two statistics one
+// after the other (amax of e, then the range of GELU of the coded e): the
+// registers hold e, then are overwritten with g, one GELU per value. fc2
+// walks 256 output
 // columns at a time over all strips. mma.sync m16n8k32 s8 x s8 -> s32;
 // weight chunks stream through a ring of two shared-memory stages by
 // cp.async, XOR-swizzled by row. Dynamic shared memory (~206 KB) is enabled
@@ -151,9 +175,6 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
-
-// which base row a launch of the block kernel computes (the cache it writes)
-enum Mode { GRAD = 0, EXACT = 1, EXACT_G = 2 };
 
 constexpr int ROWS = 32;          // rows per block
 constexpr int WARPS = 16;
@@ -353,27 +374,23 @@ __device__ void code_rows(const bf16* __restrict__ x, const float* __restrict__ 
   }
 }
 
-// The pointers of one launch. c_q / c_s: the cache of codes the base writes
-// (rows 20-22: e or gelu'(e), [R, hidden] int8 and [R, strips] f32); g_q /
-// g_s / g_z: the affine post-GELU cache row 21 writes.
+// The pointers of one launch of row 20: c_q / c_s, the cache of e's codes
+// ([R, hidden] int8 and [R, strips] f32).
 struct Args {
   const void *x, *lns, *lnb, *w1, *s1, *b1, *w2, *s2, *b2, *colsum;
-  void *c_q, *c_s, *g_q, *g_s, *g_z, *m_out, *out;
+  void *c_q, *c_s, *m_out, *out;
 };
 
-// NT1: 8-column tiles per warp in a strip (strip width 16 * NT1 * 8). MODE:
-// which base row (Mode above).
-template <int NT1, int MODE>
+// NT1: 8-column tiles per warp in a strip (strip width 16 * NT1 * 8).
+template <int NT1>
 __global__ void __launch_bounds__(THREADS, 1)
 delta_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
                  const float* __restrict__ ln_b, const int8_t* __restrict__ w1,
                  const float* __restrict__ s1, const float* __restrict__ b1,
                  const int8_t* __restrict__ w2, const float* __restrict__ s2,
                  const float* __restrict__ b2, const float* __restrict__ colsum,
-                 int8_t* __restrict__ c_q, float* __restrict__ c_s, int8_t* __restrict__ g_q,
-                 float* __restrict__ g_s, float* __restrict__ g_z, bf16* __restrict__ m_out,
+                 int8_t* __restrict__ c_q, float* __restrict__ c_s, bf16* __restrict__ m_out,
                  bf16* __restrict__ out, int R, int C, int strips, float eps) {
-  constexpr bool CODES_E = MODE == EXACT || MODE == EXACT_G;  // rows 20-21
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int HS = WARPS * NT1 * 8;  // strip width
   const int hidden = HS * strips, out_dim = C;
@@ -390,7 +407,7 @@ delta_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
   float* gpi_s = reinterpret_cast<float*>(smem + lay.gpi_off);
   float* red_max = reinterpret_cast<float*>(smem + lay.red_off);
   float* red_min = red_max + WARPS * ROWS;
-  float* red_gp = red_min + WARPS * ROWS;
+  float* red_abs = red_min + WARPS * ROWS;
   float* es_s = reinterpret_cast<float*>(smem + lay.es_off);
   const int ld = lay.hq_ld;
 
@@ -449,7 +466,7 @@ delta_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
 
     // strip j epilogue. This thread holds rows mt*16 + hh*8 + g, columns
     // nt*8 + t*2 + {0, 1}; acc takes an f32 value (e, or g) as its bits.
-    float mx[2][2], mn[2][2], gx[2][2];
+    float mx[2][2], mn[2][2], ax[2][2];
     auto reset_stats = [&]() {
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
@@ -457,21 +474,21 @@ delta_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
         for (int hh = 0; hh < 2; ++hh) {
           mx[mt][hh] = -pos_inf();
           mn[mt][hh] = pos_inf();
-          gx[mt][hh] = 0.f;
+          ax[mt][hh] = 0.f;
         }
     };
-    // each row's statistics over the strip: max |.| into red_gp, max and min
-    // into red_max and red_min (WITH_RANGE), reduced over the quad, then
+    // each row's statistics over the strip: max |e| into red_abs, or max
+    // and min of g into red_max and red_min, reduced over the quad, then
     // over the warps by the caller after a barrier
-    auto publish = [&](bool with_abs, bool with_range) {
+    auto publish = [&](bool with_range) {
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
 #pragma unroll
           for (int o = 1; o <= 2; o <<= 1) {
-            if (with_abs)
-              gx[mt][hh] = fmaxf(gx[mt][hh], __shfl_xor_sync(0xffffffffu, gx[mt][hh], o));
+            if (!with_range)
+              ax[mt][hh] = fmaxf(ax[mt][hh], __shfl_xor_sync(0xffffffffu, ax[mt][hh], o));
             if (with_range) {
               mx[mt][hh] = fmaxf(mx[mt][hh], __shfl_xor_sync(0xffffffffu, mx[mt][hh], o));
               mn[mt][hh] = fminf(mn[mt][hh], __shfl_xor_sync(0xffffffffu, mn[mt][hh], o));
@@ -479,37 +496,13 @@ delta_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
           }
           if (t == 0) {
             const int r = mt * 16 + hh * 8 + g;
-            if (with_abs) red_gp[warp * ROWS + r] = gx[mt][hh];
+            if (!with_range) red_abs[warp * ROWS + r] = ax[mt][hh];
             if (with_range) {
               red_max[warp * ROWS + r] = mx[mt][hh];
               red_min[warp * ROWS + r] = mn[mt][hh];
             }
           }
         }
-    };
-    // row tid's symmetric scale: gpi_s = 127 / amax; returns amax / 127
-    auto sym_scale = [&]() {
-      float amax = 0.f;
-      for (int w = 0; w < WARPS; ++w) amax = fmaxf(amax, red_gp[w * ROWS + tid]);
-      amax = fmaxf(amax, 1e-8f);
-      gpi_s[tid] = __fdiv_rn(127.f, amax);
-      return __fmul_rn(amax, 1.0f / 127.0f);
-    };
-    // row tid's affine grid of the GELU output into hsc_s, zp_s
-    auto affine_grid = [&]() {
-      float gmax = -pos_inf(), gmin = pos_inf();
-      for (int w = 0; w < WARPS; ++w) {
-        gmax = fmaxf(gmax, red_max[w * ROWS + tid]);
-        gmin = fminf(gmin, red_min[w * ROWS + tid]);
-      }
-      const float sc = __fmul_rn(fmaxf(__fsub_rn(gmax, gmin), 1e-8f), 1.0f / 254.0f);
-      const float zp = __fmul_rn(__fadd_rn(gmax, gmin), 0.5f);
-      hsc_s[j * ROWS + tid] = sc;
-      zp_s[j * ROWS + tid] = zp;
-      if (MODE == EXACT_G && row0 + tid < R) {
-        g_s[(size_t)(row0 + tid) * strips + j] = sc;
-        g_z[(size_t)(row0 + tid) * strips + j] = zp;
-      }
     };
 
     reset_stats();
@@ -531,65 +524,61 @@ delta_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
                 __fmul_rn(__fmul_rn((float)acc[mt][nt][e], xs_s[r]), k ? sc1 : sc0),
                 k ? bi1 : bi0);
             acc[mt][nt][e] = __float_as_int(v);
-            if (MODE == GRAD) {
-              float gv, gpv;
-              gelu_and_grad(v, gv, gpv);
-              mx[mt][hh] = fmaxf(mx[mt][hh], gv);
-              mn[mt][hh] = fminf(mn[mt][hh], gv);
-              gx[mt][hh] = fmaxf(gx[mt][hh], fabsf(gpv));
-            } else {
-              gx[mt][hh] = fmaxf(gx[mt][hh], fabsf(v));
-            }
+            ax[mt][hh] = fmaxf(ax[mt][hh], fabsf(v));
           }
         }
     }
-    publish(true, MODE == GRAD);
+    publish(false);
     __syncthreads();  // partials visible; every warp is done reading xq
-    if (tid < ROWS) {
-      const float sc127 = sym_scale();
-      if (MODE == GRAD) {
-        affine_grid();
-        if (row0 + tid < R) c_s[(size_t)(row0 + tid) * strips + j] = sc127;
-      } else {  // rows 20-21: e's scale
-        es_s[tid] = sc127;
-        if (row0 + tid < R) c_s[(size_t)(row0 + tid) * strips + j] = sc127;
-      }
+    if (tid < ROWS) {  // row tid's e scale: gpi_s = 127 / amax, es = amax / 127
+      float amax = 0.f;
+      for (int w = 0; w < WARPS; ++w) amax = fmaxf(amax, red_abs[w * ROWS + tid]);
+      amax = fmaxf(amax, 1e-8f);
+      gpi_s[tid] = __fdiv_rn(127.f, amax);
+      es_s[tid] = __fmul_rn(amax, 1.0f / 127.0f);
+      if (row0 + tid < R) c_s[(size_t)(row0 + tid) * strips + j] = es_s[tid];
     }
     __syncthreads();
-    if (CODES_E) {
-      // rows 20-21: code e, write e_q, and keep g = GELU(f32(e_q) * e_s) in
-      // the registers: the base consumes e as coded (one GELU per value)
-      reset_stats();
+    // code e, write e_q, and keep g = GELU(f32(e_q) * e_s) in the
+    // registers: the base consumes e as coded (one GELU per value)
+    reset_stats();
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = mt * 16 + hh * 8 + g;
-          const float gi = gpi_s[r], es = es_s[r];
-          const bool live = row0 + r < R;
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = mt * 16 + hh * 8 + g;
+        const float gi = gpi_s[r], es = es_s[r];
+        const bool live = row0 + r < R;
 #pragma unroll
-          for (int nt = 0; nt < NT1; ++nt) {
-            const int cl = warp * NT1 * 8 + nt * 8 + t * 2;
-            char2 c2;
-            c2.x = (signed char)__float2int_rn(
-                __fmul_rn(__int_as_float(acc[mt][nt][hh * 2]), gi));
-            c2.y = (signed char)__float2int_rn(
-                __fmul_rn(__int_as_float(acc[mt][nt][hh * 2 + 1]), gi));
-            const float g0 = gelu(__fmul_rn((float)c2.x, es));
-            const float g1 = gelu(__fmul_rn((float)c2.y, es));
-            acc[mt][nt][hh * 2] = __float_as_int(g0);
-            acc[mt][nt][hh * 2 + 1] = __float_as_int(g1);
-            mx[mt][hh] = fmaxf(mx[mt][hh], fmaxf(g0, g1));
-            mn[mt][hh] = fminf(mn[mt][hh], fminf(g0, g1));
-            if (live)
-              *reinterpret_cast<char2*>(c_q + (size_t)(row0 + r) * hidden + j * HS + cl) = c2;
-          }
+        for (int nt = 0; nt < NT1; ++nt) {
+          const int cl = warp * NT1 * 8 + nt * 8 + t * 2;
+          char2 c2;
+          c2.x = (signed char)__float2int_rn(
+              __fmul_rn(__int_as_float(acc[mt][nt][hh * 2]), gi));
+          c2.y = (signed char)__float2int_rn(
+              __fmul_rn(__int_as_float(acc[mt][nt][hh * 2 + 1]), gi));
+          const float g0 = gelu(__fmul_rn((float)c2.x, es));
+          const float g1 = gelu(__fmul_rn((float)c2.y, es));
+          acc[mt][nt][hh * 2] = __float_as_int(g0);
+          acc[mt][nt][hh * 2 + 1] = __float_as_int(g1);
+          mx[mt][hh] = fmaxf(mx[mt][hh], fmaxf(g0, g1));
+          mn[mt][hh] = fminf(mn[mt][hh], fminf(g0, g1));
+          if (live)
+            *reinterpret_cast<char2*>(c_q + (size_t)(row0 + r) * hidden + j * HS + cl) = c2;
         }
-      publish(false, true);
-      __syncthreads();
-      if (tid < ROWS) affine_grid();
-      __syncthreads();
+      }
+    publish(true);
+    __syncthreads();
+    if (tid < ROWS) {  // row tid's affine grid of g into hsc_s, zp_s
+      float gmax = -pos_inf(), gmin = pos_inf();
+      for (int w = 0; w < WARPS; ++w) {
+        gmax = fmaxf(gmax, red_max[w * ROWS + tid]);
+        gmin = fminf(gmin, red_min[w * ROWS + tid]);
+      }
+      hsc_s[j * ROWS + tid] = __fmul_rn(fmaxf(__fsub_rn(gmax, gmin), 1e-8f), 1.0f / 254.0f);
+      zp_s[j * ROWS + tid] = __fmul_rn(__fadd_rn(gmax, gmin), 0.5f);
     }
+    __syncthreads();
     int8_t* hj = hq + j * lay.hq_bytes;
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -597,32 +586,14 @@ delta_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
       for (int hh = 0; hh < 2; ++hh) {
         const int r = mt * 16 + hh * 8 + g;
         const float sc = hsc_s[j * ROWS + r], zp = zp_s[j * ROWS + r];
-        const float gi = gpi_s[r];
-        const bool live = row0 + r < R;
 #pragma unroll
         for (int nt = 0; nt < NT1; ++nt) {
           const int cl = warp * NT1 * 8 + nt * 8 + t * 2;
-          char2 c2, p2;
-          if (MODE == GRAD) {
-            float g0, gp0, g1, gp1;
-            gelu_and_grad(__int_as_float(acc[mt][nt][hh * 2]), g0, gp0);
-            gelu_and_grad(__int_as_float(acc[mt][nt][hh * 2 + 1]), g1, gp1);
-            c2.x = (signed char)__float2int_rn(__fdiv_rn(__fsub_rn(g0, zp), sc));
-            c2.y = (signed char)__float2int_rn(__fdiv_rn(__fsub_rn(g1, zp), sc));
-            p2.x = (signed char)__float2int_rn(__fmul_rn(gp0, gi));
-            p2.y = (signed char)__float2int_rn(__fmul_rn(gp1, gi));
-            if (live)
-              *reinterpret_cast<char2*>(c_q + (size_t)(row0 + r) * hidden + j * HS + cl) =
-                  p2;
-          } else {  // rows 20-21: the registers hold g
-            c2.x = (signed char)__float2int_rn(
-                __fdiv_rn(__fsub_rn(__int_as_float(acc[mt][nt][hh * 2]), zp), sc));
-            c2.y = (signed char)__float2int_rn(
-                __fdiv_rn(__fsub_rn(__int_as_float(acc[mt][nt][hh * 2 + 1]), zp), sc));
-            if (MODE == EXACT_G && live)
-              *reinterpret_cast<char2*>(g_q + (size_t)(row0 + r) * hidden + j * HS + cl) =
-                  c2;
-          }
+          char2 c2;  // the registers hold g
+          c2.x = (signed char)__float2int_rn(
+              __fdiv_rn(__fsub_rn(__int_as_float(acc[mt][nt][hh * 2]), zp), sc));
+          c2.y = (signed char)__float2int_rn(
+              __fdiv_rn(__fsub_rn(__int_as_float(acc[mt][nt][hh * 2 + 1]), zp), sc));
           *reinterpret_cast<char2*>(hj + r * ld + cl) = c2;
         }
       }
@@ -718,25 +689,25 @@ delta_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
   }
 }
 
-template <int NT1, int MODE>
+template <int NT1>
 int launch_nt(const Args& a, int R, int C, int strips, float eps, cudaStream_t stream) {
   const Layout lay = make_layout(WARPS * NT1 * 8, strips);
   if (lay.bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaFuncSetAttribute(delta_mlp_kernel<NT1, MODE>,
+  int err = (int)cudaFuncSetAttribute(delta_mlp_kernel<NT1>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       lay.bytes);
   if (err) return err;
-  delta_mlp_kernel<NT1, MODE><<<(R + ROWS - 1) / ROWS, THREADS, lay.bytes, stream>>>(
+  delta_mlp_kernel<NT1><<<(R + ROWS - 1) / ROWS, THREADS, lay.bytes, stream>>>(
       (const bf16*)a.x, (const float*)a.lns, (const float*)a.lnb, (const int8_t*)a.w1,
       (const float*)a.s1, (const float*)a.b1, (const int8_t*)a.w2, (const float*)a.s2,
       (const float*)a.b2, (const float*)a.colsum, (int8_t*)a.c_q, (float*)a.c_s,
-      (int8_t*)a.g_q, (float*)a.g_s, (float*)a.g_z, (bf16*)a.m_out, (bf16*)a.out, R, C,
-      strips, eps);
+      (bf16*)a.m_out, (bf16*)a.out, R, C, strips, eps);
   return (int)cudaGetLastError();
 }
 
-template <int MODE>
-int launch(const Args& a, int R, int C, int hidden, int strips, float eps, void* stream) {
+// row 20 on the block kernel
+int launch_block(const Args& a, int R, int C, int hidden, int strips, float eps,
+                 void* stream) {
   if (R < 1 || strips < 1 || strips > MAX_STRIPS || hidden % strips)
     return (int)cudaErrorInvalidValue;
   const int hs = hidden / strips;
@@ -746,7 +717,7 @@ int launch(const Args& a, int R, int C, int hidden, int strips, float eps, void*
   switch (hs / 128) {  // strips of 256, 512, 768, 1024 (U-ViT widths / 4)
 #define USPACE_NT(n) \
   case n:            \
-    return launch_nt<n, MODE>(a, R, C, strips, eps, s);
+    return launch_nt<n>(a, R, C, strips, eps, s);
     USPACE_NT(2)
     USPACE_NT(4)
     USPACE_NT(6)
@@ -757,24 +728,16 @@ int launch(const Args& a, int R, int C, int hidden, int strips, float eps, void*
   }
 }
 
-// The base rows' pointers: x -> out (x + m), m_out, the cache c_q / c_s and,
-// for row 21, g_q / g_s / g_z.
-Args base_args(const void* x, const void* ln_scale, const void* ln_bias, const void* w1,
-               const void* s1, const void* b1, const void* w2, const void* s2,
-               const void* b2, const void* colsum, void* out, void* m_out, void* c_q,
-               void* c_s, void* g_q, void* g_s, void* g_z) {
-  return Args{x, ln_scale, ln_bias, w1, s1, b1, w2, s2, b2, colsum, c_q, c_s, g_q, g_s,
-              g_z, m_out, out};
-}
-
 // ---------------------------------------------------------------------------
 // Rows 23-25 on wgmma: fc1 with the dg epilogue, fc2 with the strip fold
 // ---------------------------------------------------------------------------
 
 // fc1's epilogue, by row: dg = gelu(e_b + de) - gelu(e_b) (row 25), de *
 // gp_b (row 23), gelu(e_b + de) - g_b (row 24); DG_MLP: row 15's hidden g =
-// GELU(e) on an affine grid per row and strip
-enum Dg { DG_EXACT = 0, DG_LIN = 1, DG_GELU = 2, DG_MLP = 3 };
+// GELU(e) on an affine grid per row and strip; DG_BASE_GRAD: row 22's, and
+// gelu'(e) coded per row and strip; DG_BASE_EG: row 21's, e coded per row
+// and strip and g = GELU(deq(e_q)) on the affine grid
+enum Dg { DG_EXACT = 0, DG_LIN = 1, DG_GELU = 2, DG_MLP = 3, DG_BASE_GRAD = 4, DG_BASE_EG = 5 };
 
 constexpr int W_BM = 128;       // rows a tile: two consumer warpgroups of 64
 constexpr int W_KB = 128;       // codes a K chunk: one 128-byte swizzle row
@@ -788,17 +751,28 @@ constexpr int F1_TILE = W_BM * F1_BN;              // the block's tile of a cach
 constexpr int MAX_CLUSTER = 1024 / F1_BN;          // blocks a strip, at most
 constexpr int F1_RED = MAX_CLUSTER * W_BM * 4;     // a row statistic's partials
 constexpr int F1_INV = W_BM * 4;                   // a row's factor: 127 / amax
+// the rows whose fc1 reads b1 and no cache: row 15 and the base rows 21-22
+__host__ __device__ constexpr bool f1_base(int dg) { return dg >= DG_MLP; }
 // the cache tiles fc1 reads: e_q or gp_q, row 24's g_q beside it, none for
-// row 15
+// rows 15, 21 and 22
 __host__ __device__ constexpr int f1_tiles(int dg) {
-  return dg == DG_GELU ? 2 : dg == DG_MLP ? 0 : 1;
+  return dg == DG_GELU ? 2 : f1_base(dg) ? 0 : 1;
 }
-// the row statistics a cluster shares: amax, or row 15's max and min (and
-// its two factors, scale and zero point)
-__host__ __device__ constexpr int f1_stats(int dg) { return dg == DG_MLP ? 2 : 1; }
+// the row statistics a cluster shares: amax, row 15's max and min of g, row
+// 22's max and min of g and max |gelu'|, row 21's amax of e, then max and
+// min of g in slots of their own
+__host__ __device__ constexpr int f1_stats(int dg) {
+  return dg == DG_MLP ? 2 : f1_base(dg) ? 3 : 1;
+}
+// a row's factors: 127 / amax; row 15's scale and zero point; row 22's and
+// its 127 / amax of gelu'; row 21's 127 / amax and e's scale, then the
+// affine grid's scale and zero point in their place
+__host__ __device__ constexpr int f1_factors(int dg) {
+  return dg == DG_BASE_GRAD ? 3 : f1_stats(dg) == 3 ? 2 : f1_stats(dg);
+}
 __host__ __device__ constexpr int f1_smem(int dg) {
-  return 1024 + F1_RING + f1_tiles(dg) * F1_TILE + f1_stats(dg) * (F1_RED + F1_INV) +
-         8 * (2 * F1_STAGES + 1);
+  return 1024 + F1_RING + f1_tiles(dg) * F1_TILE + f1_stats(dg) * F1_RED +
+         f1_factors(dg) * F1_INV + 8 * (2 * F1_STAGES + 1);
 }
 constexpr int F2_RING = F2_STAGES * (W_A + F2_B);  // 192 KB
 constexpr int F2_SMEM = 1024 + F2_RING + 8 * 2 * F2_STAGES;
@@ -806,7 +780,7 @@ constexpr int F2_SMEM = 1024 + F2_RING + 8 * 2 * F2_STAGES;
 // apart mod 32, so a half-warp's 8-byte fragment stores fall on 32 banks
 constexpr int F1_D_LD = F1_BN + 8;
 static_assert(W_BM * F1_D_LD * 4 <= F1_RING, "the epilogue's tile fits in the ring");
-static_assert(f1_smem(DG_GELU) <= MAX_SMEM && f1_smem(DG_MLP) <= MAX_SMEM &&
+static_assert(f1_smem(DG_GELU) <= MAX_SMEM && f1_smem(DG_BASE_GRAD) <= MAX_SMEM &&
                   F2_SMEM <= MAX_SMEM,
               "shared memory");
 
@@ -1047,8 +1021,12 @@ __device__ inline float dg_of(int acc, float ds, float s1, signed char cq, float
 // strips] -> hq [M, N] int8 and hsc [M, strips] f32, the codes of dg per row
 // and strip. Row 15 (DG_MLP): a, the codes of LN2(x) with row scales ds; b1
 // [N], no cache -> hq, hsc and hzp [M, strips], the affine codes of g =
-// GELU((f32(acc) * ds) * s1 + b1), its scales and zero points. A cluster of
-// N / strips / F1_BN blocks along the grid's x takes one strip of W_BM rows.
+// GELU((f32(acc) * ds) * s1 + b1), its scales and zero points. Row 22
+// (DG_BASE_GRAD): as row 15, and gelu'(e) coded per row and strip into
+// aux_q [M, N] int8 and aux_s [M, strips] f32. Row 21 (DG_BASE_EG): e coded
+// per row and strip into aux_q and aux_s (e_q, e_s), then hq, hsc, hzp the
+// affine codes of GELU(f32(e_q) * e_s). A cluster of N / strips / F1_BN
+// blocks along the grid's x takes one strip of W_BM rows.
 template <int DG>
 __global__ void __launch_bounds__(W_THREADS, 1)
 delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -1058,9 +1036,11 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
                  const float* __restrict__ s1, const float* __restrict__ c_s,
                  const float* __restrict__ g_s, const float* __restrict__ g_z,
                  const float* __restrict__ b1, int8_t* __restrict__ hq,
-                 float* __restrict__ hsc, float* __restrict__ hzp, int M, int N, int K,
-                 int strips) {
+                 float* __restrict__ hsc, float* __restrict__ hzp,
+                 int8_t* __restrict__ aux_q, float* __restrict__ aux_s, int M, int N,
+                 int K, int strips) {
   constexpr int TILES = f1_tiles(DG), STATS = f1_stats(DG);
+  constexpr bool BASE = f1_base(DG);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sa = (raw + 1023u) & ~1023u;  // the swizzle's 1024-byte atoms
@@ -1069,9 +1049,9 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
   const uint32_t se = sb + F1_STAGES * F1_B;
   // [STATS][cluster][W_BM] partials: amax, or row 15's max and min
   const uint32_t sred = se + TILES * F1_TILE;
-  // [STATS][W_BM]: 127 / amax, or row 15's scale and zero point
+  // [factors][W_BM]: 127 / amax, or row 15's scale and zero point
   const uint32_t sinv = sred + STATS * F1_RED;
-  const uint32_t full = sinv + STATS * F1_INV, empty = full + 8 * F1_STAGES,
+  const uint32_t full = sinv + f1_factors(DG) * F1_INV, empty = full + 8 * F1_STAGES,
                  ebar = empty + 8 * F1_STAGES;
   unsigned char* ring = smem_raw + (sa - raw);
   const int wg = threadIdx.x >> 7, nk = (K + W_KB - 1) / W_KB;
@@ -1128,16 +1108,16 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   asm volatile("bar.sync 2, %0;\n" ::"n"(W_THREADS) : "memory");
 
-  // dg (row 15: g) in place, each of the block's twelve warps taking whole
-  // rows (row r to warp r % 12) and lane l columns 4l .. 4l + 3 and 128 +
-  // 4l .. 128 + 4l + 3; each row's statistics over the block's columns into
-  // every block of the cluster
+  // dg (row 15: g; rows 21-22: e) in place, each of the block's twelve
+  // warps taking whole rows (row r to warp r % 12) and lane l columns 4l ..
+  // 4l + 3 and 128 + 4l .. 128 + 4l + 3; each row's statistics over the
+  // block's columns into every block of the cluster
   constexpr int EPI_WARPS = W_THREADS / 32;
   const int ct = threadIdx.x, lane = ct & 31, warp = ct >> 5;
   const float4 sc0 = __ldg(reinterpret_cast<const float4*>(s1 + n0) + lane);
   const float4 sc1 = __ldg(reinterpret_cast<const float4*>(s1 + n0 + 128) + lane);
-  float4 bi0, bi1;  // row 15's bias
-  if constexpr (DG == DG_MLP) {
+  float4 bi0, bi1;  // the bias of rows 15, 21 and 22
+  if constexpr (BASE) {
     bi0 = __ldg(reinterpret_cast<const float4*>(b1 + n0) + lane);
     bi1 = __ldg(reinterpret_cast<const float4*>(b1 + n0 + 128) + lane);
   }
@@ -1149,6 +1129,28 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
     const int b = c & 127;
     return *reinterpret_cast<const char4*>(ct0 + t * F1_TILE + (c >> 7) * (F1_TILE / 2) +
                                            r * 128 + (((b >> 4) ^ (r & 7)) << 4) + (b & 15));
+  };
+  // the row's partials of statistics first, first + 1, ... into every block
+  // of the cluster, all of a block's in one pass of the loop (a loop a
+  // statistic cost row 15's fc1 6%)
+  auto share = [&](int first, int r, auto... v) {
+    for (int q = 0; q < ncl; ++q) {
+      int stat = first;
+      (st_cluster_f32(sred + (stat++) * F1_RED + 4 * (rank * W_BM + r), q, v), ...);
+    }
+  };
+  // the max and min over a row of the warp's lanes' eight values each
+  auto row_max_min = [](const float4& v0, const float4& v1) {
+    float mx = fmaxf(fmaxf(fmaxf(v0.x, v0.y), fmaxf(v0.z, v0.w)),
+                     fmaxf(fmaxf(v1.x, v1.y), fmaxf(v1.z, v1.w)));
+    float mn = fminf(fminf(fminf(v0.x, v0.y), fminf(v0.z, v0.w)),
+                     fminf(fminf(v1.x, v1.y), fminf(v1.z, v1.w)));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    }
+    return make_float2(mx, mn);
   };
   for (int r = warp; r < W_BM; r += EPI_WARPS) {
     const int gr = m0 + r;
@@ -1167,6 +1169,14 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
                        g_of(a0.z, sc0.z, bi0.z), g_of(a0.w, sc0.w, bi0.w));
       v1 = make_float4(g_of(a1.x, sc1.x, bi1.x), g_of(a1.y, sc1.y, bi1.y),
                        g_of(a1.z, sc1.z, bi1.z), g_of(a1.w, sc1.w, bi1.w));
+    } else if constexpr (BASE) {  // rows 21-22: e = (f32(acc) * xs) * s1 + b1
+      auto e_of = [&](int a, float s, float b) {
+        return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(a), dsr), s), b);
+      };
+      v0 = make_float4(e_of(a0.x, sc0.x, bi0.x), e_of(a0.y, sc0.y, bi0.y),
+                       e_of(a0.z, sc0.z, bi0.z), e_of(a0.w, sc0.w, bi0.w));
+      v1 = make_float4(e_of(a1.x, sc1.x, bi1.x), e_of(a1.y, sc1.y, bi1.y),
+                       e_of(a1.z, sc1.z, bi1.z), e_of(a1.w, sc1.w, bi1.w));
     } else {
       const float csr = live ? __ldg(c_s + at) : 0.f;
       const float gsr = DG == DG_GELU && live ? __ldg(g_s + at) : 0.f;
@@ -1189,76 +1199,142 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
     *reinterpret_cast<float4*>(p0) = v0;
     *reinterpret_cast<float4*>(p1) = v1;
     if constexpr (DG == DG_MLP) {  // the row's max and min
-      float mx = fmaxf(fmaxf(fmaxf(v0.x, v0.y), fmaxf(v0.z, v0.w)),
-                       fmaxf(fmaxf(v1.x, v1.y), fmaxf(v1.z, v1.w)));
-      float mn = fminf(fminf(fminf(v0.x, v0.y), fminf(v0.z, v0.w)),
-                       fminf(fminf(v1.x, v1.y), fminf(v1.z, v1.w)));
+      const float2 mm = row_max_min(v0, v1);
+      if (lane == 0) share(0, r, mm.x, mm.y);
+    } else if constexpr (DG == DG_BASE_GRAD) {
+      // the row's max and min of GELU(e) and max |gelu'(e)| (one erf each)
+      const float e8[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      float mx = -pos_inf(), mn = pos_inf(), ga = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float g, gp;
+        gelu_and_grad(e8[k], g, gp);
+        mx = fmaxf(mx, g);
+        mn = fminf(mn, g);
+        ga = fmaxf(ga, fabsf(gp));
+      }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
         mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+        ga = fmaxf(ga, __shfl_xor_sync(0xffffffffu, ga, o));
       }
-      if (lane == 0)
-        for (int q = 0; q < ncl; ++q) {
-          st_cluster_f32(sred + 4 * (rank * W_BM + r), q, mx);
-          st_cluster_f32(sred + F1_RED + 4 * (rank * W_BM + r), q, mn);
-        }
-    } else {  // the row's amax
+      if (lane == 0) share(0, r, mx, mn, ga);
+    } else {  // the row's amax (row 21: of e)
       float m = fmaxf(fmaxf(fmaxf(fabsf(v0.x), fabsf(v0.y)), fmaxf(fabsf(v0.z), fabsf(v0.w))),
                       fmaxf(fmaxf(fabsf(v1.x), fabsf(v1.y)), fmaxf(fabsf(v1.z), fabsf(v1.w))));
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      if (lane == 0)
-        for (int q = 0; q < ncl; ++q) st_cluster_f32(sred + 4 * (rank * W_BM + r), q, m);
+      if (lane == 0) share(0, r, m);
     }
   }
   cluster_sync();
 
   // each row's statistics over the strip: 127 / amax and the scale amax *
   // (1/127); row 15: the affine grid's scale max(gmax - gmin, 1e-8) *
-  // (1/254) and zero point (gmax + gmin) * 0.5
+  // (1/254) and zero point (gmax + gmin) * 0.5; row 22: both; row 21: e's
   float* inv = reinterpret_cast<float*>(smem_raw + (sinv - raw));
+  const float* red = reinterpret_cast<const float*>(smem_raw + (sred - raw));
+  // row ct's affine grid from partial slots 0 and 1 of statistics `first`
+  auto affine_grid = [&](int first, bool live, size_t at) {
+    float gmax = -pos_inf(), gmin = pos_inf();
+    for (int q = 0; q < ncl; ++q) {
+      gmax = fmaxf(gmax, red[first * F1_RED / 4 + q * W_BM + ct]);
+      gmin = fminf(gmin, red[(first + 1) * F1_RED / 4 + q * W_BM + ct]);
+    }
+    const float sc = __fmul_rn(fmaxf(__fsub_rn(gmax, gmin), 1e-8f), 1.0f / 254.0f);
+    const float zp = __fmul_rn(__fadd_rn(gmax, gmin), 0.5f);
+    inv[ct] = sc;
+    inv[W_BM + ct] = zp;
+    if (rank == 0 && live) {
+      hsc[at] = sc;
+      hzp[at] = zp;
+    }
+  };
   if (ct < W_BM) {
-    const float* red = reinterpret_cast<const float*>(smem_raw + (sred - raw));
     const bool live = m0 + ct < M;
     const size_t at = (size_t)(m0 + ct) * strips + j;
     if constexpr (DG == DG_MLP) {
-      float gmax = -pos_inf(), gmin = pos_inf();
-      for (int q = 0; q < ncl; ++q) {
-        gmax = fmaxf(gmax, red[q * W_BM + ct]);
-        gmin = fminf(gmin, red[F1_RED / 4 + q * W_BM + ct]);
-      }
-      const float sc = __fmul_rn(fmaxf(__fsub_rn(gmax, gmin), 1e-8f), 1.0f / 254.0f);
-      const float zp = __fmul_rn(__fadd_rn(gmax, gmin), 0.5f);
-      inv[ct] = sc;
-      inv[W_BM + ct] = zp;
-      if (rank == 0 && live) {
-        hsc[at] = sc;
-        hzp[at] = zp;
-      }
+      affine_grid(0, live, at);
+    } else if constexpr (DG == DG_BASE_GRAD) {  // the grid, then gelu''s amax
+      affine_grid(0, live, at);
+      float a = 0.f;
+      for (int q = 0; q < ncl; ++q) a = fmaxf(a, red[2 * F1_RED / 4 + q * W_BM + ct]);
+      a = fmaxf(a, 1e-8f);
+      inv[2 * W_BM + ct] = __fdiv_rn(127.f, a);
+      if (rank == 0 && live) aux_s[at] = __fmul_rn(a, 1.0f / 127.0f);
     } else {
       float a = 0.f;
       for (int q = 0; q < ncl; ++q) a = fmaxf(a, red[q * W_BM + ct]);
       a = fmaxf(a, 1e-8f);
       inv[ct] = __fdiv_rn(127.f, a);
-      if (rank == 0 && live) hsc[at] = __fmul_rn(a, 1.0f / 127.0f);
+      if constexpr (DG == DG_BASE_EG) {  // e's scale, kept for the GELU
+        inv[W_BM + ct] = __fmul_rn(a, 1.0f / 127.0f);
+        if (rank == 0 && live) aux_s[at] = inv[W_BM + ct];
+      } else {
+        if (rank == 0 && live) hsc[at] = __fmul_rn(a, 1.0f / 127.0f);
+      }
     }
   }
   asm volatile("bar.sync 2, %0;\n" ::"n"(W_THREADS) : "memory");
-  // round(dg * (127 / amax)) (row 15: round((g - zp) / scale), an IEEE
-  // division), four codes a thread, a warp's 128 bytes of a row at once
+  if constexpr (DG == DG_BASE_EG) {
+    // row 21: e coded in place (e_q written out), g = GELU(f32(e_q) * e_s)
+    // in the tile, the row's max and min of g into partial slots 1 and 2
+    // (slot 0 may still be read by another block of the cluster)
+    for (int r = warp; r < W_BM; r += EPI_WARPS) {
+      const int gr = m0 + r;
+      float4* p0 = reinterpret_cast<float4*>(tile + r * F1_D_LD) + lane;
+      float4* p1 = reinterpret_cast<float4*>(tile + r * F1_D_LD + 128) + lane;
+      const float4 e0 = *p0, e1 = *p1;
+      const float gi = inv[r], es = inv[W_BM + r];
+      auto code = [&](float v) { return (signed char)__float2int_rn(__fmul_rn(v, gi)); };
+      const char4 q0 = make_char4(code(e0.x), code(e0.y), code(e0.z), code(e0.w));
+      const char4 q1 = make_char4(code(e1.x), code(e1.y), code(e1.z), code(e1.w));
+      if (gr < M) {
+        *reinterpret_cast<char4*>(aux_q + (size_t)gr * N + n0 + 4 * lane) = q0;
+        *reinterpret_cast<char4*>(aux_q + (size_t)gr * N + n0 + 128 + 4 * lane) = q1;
+      }
+      auto g_of = [&](signed char q) { return gelu(__fmul_rn((float)q, es)); };
+      const float4 v0 = make_float4(g_of(q0.x), g_of(q0.y), g_of(q0.z), g_of(q0.w));
+      const float4 v1 = make_float4(g_of(q1.x), g_of(q1.y), g_of(q1.z), g_of(q1.w));
+      *p0 = v0;
+      *p1 = v1;
+      const float2 mm = row_max_min(v0, v1);
+      if (lane == 0) share(1, r, mm.x, mm.y);
+    }
+    cluster_sync();  // every block is past its reads of inv and of slot 0
+    if (ct < W_BM) affine_grid(1, m0 + ct < M, (size_t)(m0 + ct) * strips + j);
+    asm volatile("bar.sync 2, %0;\n" ::"n"(W_THREADS) : "memory");
+  }
+  // round(dg * (127 / amax)) (rows 15 and 21: round((g - zp) / scale), an
+  // IEEE division; row 22 both, on GELU(e) and gelu'(e) evaluated again),
+  // four codes a thread, a warp's 128 bytes of a row at once
   for (int i = ct; i < W_BM * F1_BN / 4; i += W_THREADS) {
     const int r = i / (F1_BN / 4), c4 = i % (F1_BN / 4), gr = m0 + r;
     if (gr >= M) continue;
     const float4 v = *reinterpret_cast<const float4*>(tile + r * F1_D_LD + 4 * c4);
     const float s = inv[r];
     char4 q;
-    if constexpr (DG == DG_MLP) {
+    if constexpr (DG == DG_MLP || DG == DG_BASE_EG) {
       const float z = inv[W_BM + r];
       q = make_char4((signed char)__float2int_rn(__fdiv_rn(__fsub_rn(v.x, z), s)),
                      (signed char)__float2int_rn(__fdiv_rn(__fsub_rn(v.y, z), s)),
                      (signed char)__float2int_rn(__fdiv_rn(__fsub_rn(v.z, z), s)),
                      (signed char)__float2int_rn(__fdiv_rn(__fsub_rn(v.w, z), s)));
+    } else if constexpr (DG == DG_BASE_GRAD) {
+      const float z = inv[W_BM + r], gi = inv[2 * W_BM + r];
+      float g[4], gp[4];
+      gelu_and_grad(v.x, g[0], gp[0]);
+      gelu_and_grad(v.y, g[1], gp[1]);
+      gelu_and_grad(v.z, g[2], gp[2]);
+      gelu_and_grad(v.w, g[3], gp[3]);
+      auto aff = [&](float x) {
+        return (signed char)__float2int_rn(__fdiv_rn(__fsub_rn(x, z), s));
+      };
+      auto sym = [&](float x) { return (signed char)__float2int_rn(__fmul_rn(x, gi)); };
+      q = make_char4(aff(g[0]), aff(g[1]), aff(g[2]), aff(g[3]));
+      *reinterpret_cast<char4*>(aux_q + (size_t)gr * N + n0 + 4 * c4) =
+          make_char4(sym(gp[0]), sym(gp[1]), sym(gp[2]), sym(gp[3]));
     } else {
       q = make_char4((signed char)__float2int_rn(__fmul_rn(v.x, s)),
                      (signed char)__float2int_rn(__fmul_rn(v.y, s)),
@@ -1275,15 +1351,18 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
 // bf16(f32(m_b) + acc * s2), the sum in bf16 (m_b, x, out [M, N] bf16).
 // MLP (row 15): hq on its affine grids, acc += f32(d_j) * hsc_j + hzp_j *
 // colsum_j (colsum [strips, N], the column sums of each strip of w2's codes),
-// then out = x + bf16(acc * s2 + b2).
-template <bool MLP>
+// then out = x + bf16(acc * s2 + b2); with STORE_M (rows 21-22) the bf16
+// m = bf16(acc * s2 + b2) is stored into m_out [M, N] too.
+template <bool MLP, bool STORE_M = false>
 __global__ void __launch_bounds__(W_THREADS, 1)
 delta_fc2_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_w, const float* __restrict__ hsc,
                  const float* __restrict__ hzp, const float* __restrict__ colsum,
                  const float* __restrict__ s2, const float* __restrict__ b2,
                  const bf16* __restrict__ m_b, const bf16* __restrict__ x,
-                 bf16* __restrict__ out, int M, int N, int K, int strips) {
+                 bf16* __restrict__ out, bf16* __restrict__ m_out, int M, int N, int K,
+                 int strips) {
+  static_assert(MLP || !STORE_M, "m is stored by the base rows only");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sa = (raw + 1023u) & ~1023u;
@@ -1373,6 +1452,7 @@ delta_fc2_kernel(const __grid_constant__ CUtensorMap map_a,
       o.x = badd(xr.x, m.x);
       o.y = badd(xr.y, m.y);
       *reinterpret_cast<__nv_bfloat162*>(out + at) = o;
+      if constexpr (STORE_M) *reinterpret_cast<__nv_bfloat162*>(m_out + at) = m;
     }
   }
 }
@@ -1436,18 +1516,16 @@ inline bool bad_wgmma_shape(int R, int C, int hidden, int strips) {
 // operations in the same order as those two passes, so the same bits. One
 // warp a row; NV: the 16-byte vectors a lane holds (C <= NV * 256).
 constexpr int CODE_WARPS = 8;
-constexpr int CODE_MAX_NV = 4;  // C <= 1024: row 15's C is at most its strip
+constexpr int CODE_MAX_NV = 4;  // C <= 1024: rows 15 and 21-22's C is at most a strip
 
+// Row r of x [R, C] into registers v (lane + 32 i: NV 16-byte vectors of 8
+// bf16) with its f32 LN statistics: the sums in lane order, mu = sum / C,
+// var = sum(x^2) / C - mu^2.
 template <int NV>
-__global__ void __launch_bounds__(CODE_WARPS * 32)
-mlp_code_pass_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-                     const float* __restrict__ ln_b, int8_t* __restrict__ q,
-                     float* __restrict__ sr, int R, int C, float eps) {
+__device__ inline void load_row_stats(const bf16* __restrict__ x, int r, int C,
+                                      uint4 (&v)[NV], float& mu, float& var) {
   const int lane = threadIdx.x & 31, nvec = C / 8;
-  const int r = blockIdx.x * CODE_WARPS + (threadIdx.x >> 5);
-  if (r >= R) return;
   const uint4* row = reinterpret_cast<const uint4*>(x + (size_t)r * C);
-  uint4 v[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i)
     if (lane + 32 * i < nvec) v[i] = __ldg(row + lane + 32 * i);
@@ -1468,8 +1546,21 @@ mlp_code_pass_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
     sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
     sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, o));
   }
-  const float mu = __fdiv_rn(sum, (float)C);
-  const float var = __fsub_rn(__fdiv_rn(sq, (float)C), __fmul_rn(mu, mu));
+  mu = __fdiv_rn(sum, (float)C);
+  var = __fsub_rn(__fdiv_rn(sq, (float)C), __fmul_rn(mu, mu));
+}
+
+template <int NV>
+__global__ void __launch_bounds__(CODE_WARPS * 32)
+mlp_code_pass_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+                     const float* __restrict__ ln_b, int8_t* __restrict__ q,
+                     float* __restrict__ sr, int R, int C, float eps) {
+  const int lane = threadIdx.x & 31, nvec = C / 8;
+  const int r = blockIdx.x * CODE_WARPS + (threadIdx.x >> 5);
+  if (r >= R) return;
+  uint4 v[NV];
+  float mu, var;
+  load_row_stats<NV>(x, r, C, v, mu, var);
   const bf16 mu_b = __float2bfloat16_rn(mu);
   const bf16 inv_b = __float2bfloat16_rn(rsqrtf(__fadd_rn(var, eps)));
   float amax = 0.f;
@@ -1512,21 +1603,81 @@ mlp_code_pass_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
   }
 }
 
+// Rows 21-22's code pass: LN2 of x [R, C] bf16 in f32 (attention.cu's
+// ln_codes_kernel, row 5's code pass: the row in registers, u = ((x - mu) *
+// rsqrt(var + eps)) * s + b never rounded to bf16), amax = max(max |u|,
+// 1e-8), codes [R, C] = round(u * (127 / amax)), sr [R] = amax * (1/127):
+// row_codes(ln_lanes(x)) to the bit.
+template <int NV>
+__global__ void __launch_bounds__(CODE_WARPS * 32)
+base_code_pass_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+                      const float* __restrict__ ln_b, int8_t* __restrict__ q,
+                      float* __restrict__ sr, int R, int C, float eps) {
+  const int lane = threadIdx.x & 31, nvec = C / 8;
+  const int r = blockIdx.x * CODE_WARPS + (threadIdx.x >> 5);
+  if (r >= R) return;
+  uint4 v[NV];
+  float mu, var;
+  load_row_stats<NV>(x, r, C, v, mu, var);
+  const float inv = rsqrtf(__fadd_rn(var, eps));
+  float u[NV][8];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = lane + 32 * i;
+    if (vi >= nvec) continue;
+    float sc[8], bi[8];  // two 16-byte loads each
+    const float4* s4 = reinterpret_cast<const float4*>(ln_s) + 2 * vi;
+    const float4* b4 = reinterpret_cast<const float4*>(ln_b) + 2 * vi;
+    *reinterpret_cast<float4*>(sc) = __ldg(s4);
+    *reinterpret_cast<float4*>(sc + 4) = __ldg(s4 + 1);
+    *reinterpret_cast<float4*>(bi) = __ldg(b4);
+    *reinterpret_cast<float4*>(bi + 4) = __ldg(b4 + 1);
+    const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      u[i][j] = ln_at(__bfloat162float(e[j]), mu, inv, sc[j], bi[j]);
+      amax = fmaxf(amax, fabsf(u[i][j]));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  amax = fmaxf(amax, 1e-8f);
+  const float inv127 = __fdiv_rn(127.f, amax);
+  if (lane == 0) sr[r] = __fmul_rn(amax, 1.0f / 127.0f);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (lane + 32 * i >= nvec) continue;
+    uint2 packed;
+    int8_t* c8 = reinterpret_cast<int8_t*>(&packed);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c8[j] = (int8_t)__float2int_rn(__fmul_rn(u[i][j], inv127));
+    *reinterpret_cast<uint2*>(q + (size_t)r * C + (lane + 32 * i) * 8) = packed;
+  }
+}
+
 inline bool bad_code_shape(int R, int C) {
   return R < 1 || C < 8 || C % 8 || C > CODE_MAX_NV * 256;
 }
 
-int launch_mlp_codes(const void* x, const void* ln_s, const void* ln_b, void* q, void* sr,
-                     int R, int C, float eps, cudaStream_t stream) {
+// the code pass: row 15's bf16 chain, or with F32 rows 21-22's f32 LN2
+template <bool F32>
+int launch_codes(const void* x, const void* ln_s, const void* ln_b, void* q, void* sr,
+                 int R, int C, float eps, cudaStream_t stream) {
   if (bad_code_shape(R, C)) return (int)cudaErrorInvalidValue;
   const int grid = (R + CODE_WARPS - 1) / CODE_WARPS;
   const bf16* xp = (const bf16*)x;
   const float *sp = (const float*)ln_s, *bp = (const float*)ln_b;
   switch ((C + 255) / 256) {
-#define CODE_CASE(n)                                                                  \
-  case n:                                                                             \
-    mlp_code_pass_kernel<n><<<grid, CODE_WARPS * 32, 0, stream>>>(xp, sp, bp, (int8_t*)q, \
-                                                                  (float*)sr, R, C, eps); \
+#define CODE_CASE(n)                                                                   \
+  case n:                                                                              \
+    if constexpr (F32)                                                                 \
+      base_code_pass_kernel<n><<<grid, CODE_WARPS * 32, 0, stream>>>(                  \
+          xp, sp, bp, (int8_t*)q, (float*)sr, R, C, eps);                              \
+    else                                                                               \
+      mlp_code_pass_kernel<n><<<grid, CODE_WARPS * 32, 0, stream>>>(                   \
+          xp, sp, bp, (int8_t*)q, (float*)sr, R, C, eps);                              \
     break;
     CODE_CASE(1) CODE_CASE(2) CODE_CASE(3) CODE_CASE(4)
 #undef CODE_CASE
@@ -1535,12 +1686,14 @@ int launch_mlp_codes(const void* x, const void* ln_s, const void* ln_b, void* q,
 }
 
 // fc1 of row DG; g_q, g_s, g_z are row 24's and are not read by the others;
-// b1 and hzp are row 15's, which reads no cache
+// b1 and hzp are those of rows 15, 21 and 22, which read no cache; aux_q and
+// aux_s the cache rows 21 and 22 write (e_q, e_s or gp_q, gp_s)
 template <int DG>
 int launch_delta_fc1(const void* codes, const void* sr, const void* w1, const void* s1,
                      const void* c_q, const void* c_s, const void* g_q, const void* g_s,
                      const void* g_z, const void* b1, void* hq, void* hsc, void* hzp, int R,
-                     int C, int hidden, int strips, cudaStream_t stream) {
+                     int C, int hidden, int strips, cudaStream_t stream,
+                     void* aux_q = nullptr, void* aux_s = nullptr) {
   if (bad_wgmma_shape(R, C, hidden, strips)) return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mw, mc{}, mg{};
   int err = make_map(&ma, codes, R, C, W_BM);
@@ -1566,29 +1719,55 @@ int launch_delta_fc1(const void* codes, const void* sr, const void* w1, const vo
   err = (int)cudaLaunchKernelEx(&cfg, delta_fc1_kernel<DG>, ma, mw, mc, mg, (const float*)sr,
                                 (const float*)s1, (const float*)c_s, (const float*)g_s,
                                 (const float*)g_z, (const float*)b1, (int8_t*)hq,
-                                (float*)hsc, (float*)hzp, R, hidden, C, strips);
+                                (float*)hsc, (float*)hzp, (int8_t*)aux_q, (float*)aux_s, R,
+                                hidden, C, strips);
   return err ? err : (int)cudaGetLastError();
 }
 
-// fc2 of the delta rows (m_b), or with MLP row 15's (hzp, colsum, b2)
-template <bool MLP>
+// fc2 of the delta rows (m_b), or with MLP row 15's (hzp, colsum, b2), and
+// with STORE_M rows 21-22's (m_out)
+template <bool MLP, bool STORE_M = false>
 int launch_delta_fc2(const void* hq, const void* hsc, const void* hzp, const void* colsum,
                      const void* w2, const void* s2, const void* b2, const void* m_b,
                      const void* x, void* out, int R, int C, int hidden, int strips,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, void* m_out = nullptr) {
   if (bad_wgmma_shape(R, C, hidden, strips)) return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mw;
   int err = make_map(&ma, hq, R, hidden, W_BM);
   if (!err) err = make_map(&mw, w2, C, hidden, F2_BN);
   if (!err)
-    err = (int)cudaFuncSetAttribute(delta_fc2_kernel<MLP>,
+    err = (int)cudaFuncSetAttribute(delta_fc2_kernel<MLP, STORE_M>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, F2_SMEM);
   if (err) return err;
   const dim3 grid(C / F2_BN, (R + W_BM - 1) / W_BM);
-  delta_fc2_kernel<MLP><<<grid, W_THREADS, F2_SMEM, stream>>>(
+  delta_fc2_kernel<MLP, STORE_M><<<grid, W_THREADS, F2_SMEM, stream>>>(
       ma, mw, (const float*)hsc, (const float*)hzp, (const float*)colsum, (const float*)s2,
-      (const float*)b2, (const bf16*)m_b, (const bf16*)x, (bf16*)out, R, C, hidden, strips);
+      (const float*)b2, (const bf16*)m_b, (const bf16*)x, (bf16*)out, (bf16*)m_out, R, C,
+      hidden, strips);
   return (int)cudaGetLastError();
+}
+
+// Rows 21-22's workspace: codes [R, C] int8, sr [R] f32, and for row 22
+// the hidden codes hq [R, hidden] int8 with hsc, hzp [R, strips] f32, in
+// this order, each 256-byte aligned (ops/delta.py base_ws_sizes)
+struct BaseWs {
+  void *codes, *sr, *hq, *hsc, *hzp;
+};
+
+inline BaseWs base_ws(void* ws, int R, int C, int hidden, int strips) {
+  char* p = static_cast<char*>(ws);
+  auto take = [&](size_t n) {
+    void* q = p;
+    p += (n + 255) / 256 * 256;
+    return q;
+  };
+  BaseWs w;
+  w.codes = take((size_t)R * C);
+  w.sr = take((size_t)R * 4);
+  w.hq = take((size_t)R * hidden);
+  w.hsc = take((size_t)R * strips * 4);
+  w.hzp = take((size_t)R * strips * 4);
+  return w;
 }
 
 }  // namespace
@@ -1598,39 +1777,110 @@ extern "C" {
 // Row 22. x [R, C] bf16; f32 ln_scale, ln_bias [C]; w1 [hidden, C] int8 with
 // s1, b1 [hidden] f32; w2 [C, hidden] int8 with s2, b2 [C] f32; colsum
 // [strips, C] f32 (column sums of each strip of w2's codes) -> out (x + m)
-// and m_out [R, C] bf16, gp_q [R, hidden] int8, gp_s [R, strips] f32.
+// and m_out [R, C] bf16, gp_q [R, hidden] int8, gp_s [R, strips] f32. Three
+// launches on one stream (the f32 code pass, fc1, fc2 with m) through the
+// workspace ws (base_ws_bytes of "grad": the codes [R, C] int8, sr [R] f32,
+// the hidden codes [R, hidden] int8, their scales and zero points [R,
+// strips] f32, each 256-byte aligned; ws itself 256-byte aligned). Every
+// shape is checked before the first launch.
 int uspace_base_mlp_grad(const void* x, const void* ln_scale, const void* ln_bias,
                          const void* w1, const void* s1, const void* b1, const void* w2,
                          const void* s2, const void* b2, const void* colsum, void* out,
-                         void* m_out, void* gp_q, void* gp_s, int R, int C, int hidden,
-                         int strips, float eps, void* stream) {
-  return launch<GRAD>(base_args(x, ln_scale, ln_bias, w1, s1, b1, w2, s2, b2, colsum, out,
-                                m_out, gp_q, gp_s, nullptr, nullptr, nullptr),
-                      R, C, hidden, strips, eps, stream);
+                         void* m_out, void* gp_q, void* gp_s, void* ws, int R, int C,
+                         int hidden, int strips, float eps, void* stream) {
+  if (bad_code_shape(R, C) || bad_wgmma_shape(R, C, hidden, strips) || (uintptr_t)ws % 256)
+    return (int)cudaErrorInvalidValue;
+  const BaseWs w = base_ws(ws, R, C, hidden, strips);
+  const cudaStream_t st = (cudaStream_t)stream;
+  int err = launch_codes<true>(x, ln_scale, ln_bias, w.codes, w.sr, R, C, eps, st);
+  if (!err)
+    err = launch_delta_fc1<DG_BASE_GRAD>(w.codes, w.sr, w1, s1, nullptr, nullptr, nullptr,
+                                         nullptr, nullptr, b1, w.hq, w.hsc, w.hzp, R, C,
+                                         hidden, strips, st, gp_q, gp_s);
+  if (!err)
+    err = launch_delta_fc2<true, true>(w.hq, w.hsc, w.hzp, colsum, w2, s2, b2, nullptr, x,
+                                       out, R, C, hidden, strips, st, m_out);
+  return err;
 }
 
-// Row 20. As row 22, with e_q [R, hidden] int8 and e_s [R, strips] f32 (the
-// pre-GELU hidden as coded) in place of gp_q and gp_s.
+// Row 20. As row 22 before the workspace, with e_q [R, hidden] int8 and e_s
+// [R, strips] f32 (the pre-GELU hidden as coded) in place of gp_q and gp_s:
+// one launch of the block kernel.
 int uspace_base_mlp_e(const void* x, const void* ln_scale, const void* ln_bias,
                       const void* w1, const void* s1, const void* b1, const void* w2,
                       const void* s2, const void* b2, const void* colsum, void* out,
                       void* m_out, void* e_q, void* e_s, int R, int C, int hidden,
                       int strips, float eps, void* stream) {
-  return launch<EXACT>(base_args(x, ln_scale, ln_bias, w1, s1, b1, w2, s2, b2, colsum, out,
-                                 m_out, e_q, e_s, nullptr, nullptr, nullptr),
-                       R, C, hidden, strips, eps, stream);
+  return launch_block(Args{x, ln_scale, ln_bias, w1, s1, b1, w2, s2, b2, colsum, e_q, e_s,
+                           m_out, out},
+                      R, C, hidden, strips, eps, stream);
 }
 
-// Row 21. Row 20, and g_q [R, hidden] int8 with g_s, g_z [R, strips] f32: the
-// affine codes of the GELU output that fc2 consumed.
+// Row 21. As row 22, with e_q [R, hidden] int8 and e_s [R, strips] f32 in
+// place of gp_q and gp_s, and g_q [R, hidden] int8 with g_s, g_z [R, strips]
+// f32: the affine codes of the GELU output, which fc2 reads. The workspace
+// holds the codes and sr alone (base_ws_bytes of "e+g").
 int uspace_base_mlp_eg(const void* x, const void* ln_scale, const void* ln_bias,
                        const void* w1, const void* s1, const void* b1, const void* w2,
                        const void* s2, const void* b2, const void* colsum, void* out,
                        void* m_out, void* e_q, void* e_s, void* g_q, void* g_s, void* g_z,
-                       int R, int C, int hidden, int strips, float eps, void* stream) {
-  return launch<EXACT_G>(base_args(x, ln_scale, ln_bias, w1, s1, b1, w2, s2, b2, colsum, out,
-                                   m_out, e_q, e_s, g_q, g_s, g_z),
-                         R, C, hidden, strips, eps, stream);
+                       void* ws, int R, int C, int hidden, int strips, float eps,
+                       void* stream) {
+  if (bad_code_shape(R, C) || bad_wgmma_shape(R, C, hidden, strips) || (uintptr_t)ws % 256)
+    return (int)cudaErrorInvalidValue;
+  const BaseWs w = base_ws(ws, R, C, hidden, strips);
+  const cudaStream_t st = (cudaStream_t)stream;
+  int err = launch_codes<true>(x, ln_scale, ln_bias, w.codes, w.sr, R, C, eps, st);
+  if (!err)
+    err = launch_delta_fc1<DG_BASE_EG>(w.codes, w.sr, w1, s1, nullptr, nullptr, nullptr,
+                                       nullptr, nullptr, b1, g_q, g_s, g_z, R, C, hidden,
+                                       strips, st, e_q, e_s);
+  if (!err)
+    err = launch_delta_fc2<true, true>(g_q, g_s, g_z, colsum, w2, s2, b2, nullptr, x, out, R,
+                                       C, hidden, strips, st, m_out);
+  return err;
+}
+
+// Rows 21-22's code pass alone: x [R, C] bf16 with LN2's f32 ln_scale,
+// ln_bias [C] -> codes [R, C] int8 and sr [R] f32, the row codes of the f32
+// LN2 rows. C a multiple of 8, at most 1024.
+int uspace_base_mlp_codes(const void* x, const void* ln_scale, const void* ln_bias,
+                          void* codes, void* sr, int R, int C, float eps, void* stream) {
+  return launch_codes<true>(x, ln_scale, ln_bias, codes, sr, R, C, eps, (cudaStream_t)stream);
+}
+
+// Row 22's fc1 alone: codes [R, C] int8 with sr [R] f32, w1 [hidden, C] int8
+// (torch layout) with s1, b1 [hidden] f32 -> gp_q [R, hidden] int8 and gp_s
+// [R, strips] f32, gelu'(e) coded per row and strip, and hq [R, hidden]
+// int8, hsc and hzp [R, strips] f32, GELU(e) on its affine grid.
+int uspace_base_fc1_grad(const void* codes, const void* sr, const void* w1, const void* s1,
+                         const void* b1, void* gp_q, void* gp_s, void* hq, void* hsc,
+                         void* hzp, int R, int C, int hidden, int strips, void* stream) {
+  return launch_delta_fc1<DG_BASE_GRAD>(codes, sr, w1, s1, nullptr, nullptr, nullptr,
+                                        nullptr, nullptr, b1, hq, hsc, hzp, R, C, hidden,
+                                        strips, (cudaStream_t)stream, gp_q, gp_s);
+}
+
+// Row 21's fc1 alone: as row 22's, with e_q [R, hidden] int8 and e_s [R,
+// strips] f32, e coded per row and strip, in place of gp_q and gp_s, and
+// g_q, g_s, g_z the affine codes of GELU(f32(e_q) * e_s) in place of hq,
+// hsc, hzp.
+int uspace_base_fc1_eg(const void* codes, const void* sr, const void* w1, const void* s1,
+                       const void* b1, void* e_q, void* e_s, void* g_q, void* g_s, void* g_z,
+                       int R, int C, int hidden, int strips, void* stream) {
+  return launch_delta_fc1<DG_BASE_EG>(codes, sr, w1, s1, nullptr, nullptr, nullptr, nullptr,
+                                      nullptr, b1, g_q, g_s, g_z, R, C, hidden, strips,
+                                      (cudaStream_t)stream, e_q, e_s);
+}
+
+// Rows 21-22's fc2 alone: row 15's (uspace_mlp_int8_fc2), and m_out [R, C]
+// bf16 = bf16(acc * s2 + b2), the m it adds to x.
+int uspace_base_fc2(const void* hq, const void* hsc, const void* hzp, const void* w2,
+                    const void* s2, const void* b2, const void* colsum, const void* x,
+                    void* out, void* m_out, int R, int C, int hidden, int strips,
+                    void* stream) {
+  return launch_delta_fc2<true, true>(hq, hsc, hzp, colsum, w2, s2, b2, nullptr, x, out, R, C,
+                                      hidden, strips, (cudaStream_t)stream, m_out);
 }
 
 // Row 25's fc1: codes [R, C] int8 with sr [R] f32 (uspace_ln_delta_codes of x
@@ -1707,7 +1957,7 @@ int uspace_mlp_int8_fc2(const void* hq, const void* hsc, const void* hzp, const 
 // [C] -> codes [R, C] int8 and sr [R] f32. C a multiple of 8, at most 1024.
 int uspace_mlp_int8_codes(const void* x, const void* ln_scale, const void* ln_bias,
                           void* codes, void* sr, int R, int C, float eps, void* stream) {
-  return launch_mlp_codes(x, ln_scale, ln_bias, codes, sr, R, C, eps, (cudaStream_t)stream);
+  return launch_codes<false>(x, ln_scale, ln_bias, codes, sr, R, C, eps, (cudaStream_t)stream);
 }
 
 // Row 15, the W8A8 MLP sub-block out = x + fc2(gelu(fc1(LN2(x)))) as three
@@ -1723,7 +1973,7 @@ int uspace_ln_mlp_int8(const void* x, const void* ln_scale, const void* ln_bias,
   if (bad_code_shape(R, C) || bad_wgmma_shape(R, C, hidden, strips))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  int err = launch_mlp_codes(x, ln_scale, ln_bias, codes, sr, R, C, eps, st);
+  int err = launch_codes<false>(x, ln_scale, ln_bias, codes, sr, R, C, eps, st);
   if (!err)
     err = launch_delta_fc1<DG_MLP>(codes, sr, w1, s1, nullptr, nullptr, nullptr, nullptr,
                                    nullptr, b1, hq, hsc, hzp, R, C, hidden, strips, st);

@@ -27,7 +27,13 @@ kernels, hand-written in CUDA C++ for Hopper:
   reproduces ``m``; ``mode="e+g"`` (``"gelu"``,
   ``_base_mlp_cache_kernel_g``): also the affine codes fc2 read
   (``g_q``/``g_s``/``g_z``); ``mode="grad"`` (``_base_mlp_cache_kernel_gr``):
-  GELU on the exact f32 hidden, ``gelu'(e)`` coded per row and strip;
+  GELU on the exact f32 hidden, ``gelu'(e)`` coded per row and strip.
+  ``"e"`` is one block kernel; ``"e+g"`` and ``"grad"`` are three launches
+  from one C entry, counted as one: the f32 code pass of LN2(x), the mode's
+  fc1 on wgmma with its statistics shared across the strip's cluster, fc2
+  on wgmma storing m beside x + m; :func:`base_codes_plain`,
+  :func:`base_fc1_grad_plain`, :func:`base_fc1_eg_plain` and
+  :func:`base_fc2_plain` are the pieces' twins;
 - :func:`delta_mlp_block` (same file): ``m = m_b + W2 q8(dg)`` per strip,
   ``o = x + m``, with ``de = W1 q8(LN2(x) - LN2(x_b))`` and ``dg = gelu(
   deq(e_q) + de) - gelu(deq(e_q))`` (``_delta_mlp_kernel``, the default),
@@ -239,28 +245,94 @@ def xm_delta_plain(codes: torch.Tensor, sr: torch.Tensor, wp: torch.Tensor,
     return (x.float() - xb.float() + xm_b.float() + dp).to(x.dtype)
 
 
-def _base_mlp_twin(x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps,
-                   strips, hidden_of):
-    """The base MLP halves on rows x [R, C]: per strip j ``e = f32(acc) * xs
-    * s1 + b1``, ``g, caches = hidden_of(e)``, g on the affine grid that fc2
-    reads, ``acc += f32(d_j) * scale_j + zp_j * colsum_j``; ``m = bf16(acc *
-    s2 + b2)``, ``o = x + m`` in x's dtype. Returns ``(o, m, [the caches of
-    each strip, and the affine codes, scales and zero points]...)``."""
+# Rows 21 and 22 as the card runs them, each piece one launch: the code
+# pass, the row's fc1, fc2 with m; the whole twins are the pieces in sequence.
+
+
+def _grad_hidden(e):
+    """Row 22's hidden of the exact f32 e: ``GELU(e)``, and gelu'(e) coded
+    per row as the cache."""
+    return _gelu_f32(e), row_codes(gelu_grad(e))
+
+
+def _eg_hidden(e):
+    """Rows 20-21's hidden: ``GELU(f32(e_q) * e_s)`` of e coded per row,
+    ``(e_q, e_s)`` the cache."""
+    e_q, e_s = row_codes(e)
+    return _gelu_f32(e_q.float() * e_s), (e_q, e_s)
+
+
+def base_codes_plain(x2d: torch.Tensor, ln_scale: torch.Tensor,
+                     ln_bias: torch.Tensor, eps: float):
+    """Twin of rows 21-22's code pass (``uspace_base_mlp_codes``): the row
+    codes of the f32 LN2 rows in lane order, ``(codes [R, C] int8, scales
+    [R, 1] f32)``."""
+    return row_codes(ln_lanes(x2d, ln_scale, ln_bias, eps))
+
+
+def _base_fc1(xq, xs, w1q, s1, b1, strips, hidden_of):
+    """fc1 of the base rows on the row codes ``xq [R, C]`` with scales ``xs
+    [R, 1]``: per strip ``e = f32(acc) * xs * s1 + b1``, ``g, cache =
+    hidden_of(e)`` and g on its affine grid; returns the strips' ``(*cache,
+    codes, scales, zero points)``, each [R, hidden] or [R, strips]."""
     hs = w1q.shape[-1] // strips
-    xq, xs = row_codes(ln_lanes(x2d, ln_scale, ln_bias, eps))
     s1f, b1f = _vec(s1), _vec(b1)
-    colsum = strip_colsums(w2q, strips)
-    parts, acc = [], None
+    parts = []
     for j in range(strips):
         cols = slice(j * hs, (j + 1) * hs)
         e = int_matmul(xq, w1q[:, cols]).float() * xs * s1f[cols] + b1f[cols]
-        g, caches = hidden_of(e)
-        hq, scale, zp = affine_codes(g)
-        parts.append((*caches, hq, scale, zp))
-        t = int_matmul(hq, w2q[cols]).float() * scale + zp * colsum[j]
+        g, cache = hidden_of(e)
+        parts.append((*cache, *affine_codes(g)))
+    return tuple(torch.cat(t, dim=1) for t in zip(*parts))
+
+
+def base_fc1_grad_plain(xq: torch.Tensor, xs: torch.Tensor,
+                        w1q: torch.Tensor, s1: torch.Tensor,
+                        b1: torch.Tensor, strips: int):
+    """Twin of row 22's fc1 (``uspace_base_fc1_grad``): ``(gp_q, gp_s, hq,
+    hsc, hzp)``, gelu'(e) coded per row and strip and GELU(e) on its affine
+    grid, from the row codes ``xq [R, C]`` and scales ``xs [R, 1]``; ``w1q``
+    int8 [C, hidden] (JAX layout)."""
+    return _base_fc1(xq, xs, w1q, s1, b1, strips, _grad_hidden)
+
+
+def base_fc1_eg_plain(xq: torch.Tensor, xs: torch.Tensor, w1q: torch.Tensor,
+                      s1: torch.Tensor, b1: torch.Tensor, strips: int):
+    """Twin of row 21's fc1 (``uspace_base_fc1_eg``): ``(e_q, e_s, g_q,
+    g_s, g_z)``, e coded per row and strip and ``GELU(f32(e_q) * e_s)`` on
+    its affine grid (the codes fc2 reads), from the row codes ``xq [R, C]``
+    and scales ``xs [R, 1]``."""
+    return _base_fc1(xq, xs, w1q, s1, b1, strips, _eg_hidden)
+
+
+def base_fc2_plain(hq: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
+                   w2q: torch.Tensor, s2: torch.Tensor, b2: torch.Tensor,
+                   x2d: torch.Tensor):
+    """Twin of rows 21-22's fc2 (``uspace_base_fc2``): the strips'
+    ``f32(d_j) * scale_j + zp_j * colsum_j`` folded in order, ``m = bf16(acc
+    * s2 + b2)`` in x's dtype; ``(x + m, m)``. ``w2q`` int8 [hidden, C] (JAX
+    layout)."""
+    strips = scale.shape[1]
+    hs = hq.shape[1] // strips
+    colsum = strip_colsums(w2q, strips)
+    acc = None
+    for j in range(strips):
+        cols = slice(j * hs, (j + 1) * hs)
+        t = (int_matmul(hq[:, cols], w2q[cols]).float() * scale[:, j:j + 1]
+             + zp[:, j:j + 1] * colsum[j])
         acc = t if acc is None else acc + t
     m = (acc * _vec(s2) + _vec(b2)).to(x2d.dtype)
-    return (x2d + m, m) + tuple(torch.cat(c, dim=1) for c in zip(*parts))
+    return x2d + m, m
+
+
+def _base_mlp_twin(x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps,
+                   strips, hidden_of):
+    """The base MLP halves on rows x [R, C] as the code pass, fc1 of
+    ``hidden_of`` and fc2: ``(o, m, *cache, codes, scales, zero points)``."""
+    xq, xs = base_codes_plain(x2d, ln_scale, ln_bias, eps)
+    *cache, hq, hsc, hzp = _base_fc1(xq, xs, w1q, s1, b1, strips, hidden_of)
+    return (*base_fc2_plain(hq, hsc, hzp, w2q, s2, b2, x2d), *cache, hq, hsc,
+            hzp)
 
 
 def base_mlp_grad_plain(x2d: torch.Tensor, ln_scale: torch.Tensor,
@@ -273,7 +345,7 @@ def base_mlp_grad_plain(x2d: torch.Tensor, ln_scale: torch.Tensor,
     (``gp_s[:, j]``), GELU(e) the hidden."""
     o, m, gp_q, gp_s, *_ = _base_mlp_twin(
         x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps, strips,
-        lambda e: (_gelu_f32(e), row_codes(gelu_grad(e))))
+        _grad_hidden)
     return o, gp_q, gp_s, m
 
 
@@ -287,13 +359,9 @@ def base_mlp_e_plain(x2d: torch.Tensor, ln_scale: torch.Tensor,
     with ``emit_gelu`` also ``(g_q, g_s, g_z)``. Per strip ``e`` coded per
     row (``e_s[:, j]``), the hidden ``GELU(f32(e_q) * e_s)``; ``g_q``, ``g_s``
     and ``g_z`` are the affine codes, scales and zero points fc2 read."""
-    def hidden_of(e):
-        e_q, e_s = row_codes(e)
-        return _gelu_f32(e_q.float() * e_s), (e_q, e_s)
-
     o, m, e_q, e_s, g_q, g_s, g_z = _base_mlp_twin(
         x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps, strips,
-        hidden_of)
+        _eg_hidden)
     return (o, e_q, e_s, m) + ((g_q, g_s, g_z) if emit_gelu else ())
 
 
@@ -545,8 +613,29 @@ def _mlp_operands(x2d, w1q, s1, w2q, s2, strips, ln_scale, ln_bias):
     return (w1, w2, *out)
 
 
+def base_ws_sizes(r: int, c: int, hidden: int, strips: int, mode: str):
+    """Byte sizes of the pieces of rows 21-22's workspace, in the order in
+    which their C entries carve it, each rounded up to 256 bytes there: the
+    row codes [R, C] int8 and scales [R] f32, and for ``"grad"`` the hidden
+    codes [R, hidden] int8 with their scales and zero points [R, strips]
+    f32 (row 21's hidden codes are its g_q, g_s, g_z)."""
+    sizes = [r * c, 4 * r]
+    if mode == "grad":
+        sizes += [r * hidden, 4 * r * strips, 4 * r * strips]
+    return sizes
+
+
+def _base_workspace(dev, sizes) -> torch.Tensor:
+    """One byte tensor for a workspace of pieces of the given sizes."""
+    return torch.empty(sum(-(-n // 256) * 256 for n in sizes),
+                       dtype=torch.uint8, device=dev)
+
+
 def _base_mlp_kernel(x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps,
                      strips, mode):
+    """One C call. Row 20 (``"e"``) launches the block kernel; rows 21 and
+    22 (``"e+g"``, ``"grad"``) launch the code pass, fc1 and fc2 with m,
+    counted as one, through one workspace allocation."""
     r, c = x2d.shape
     hidden = w1q.shape[-1]
     dev = x2d.device
@@ -566,16 +655,83 @@ def _base_mlp_kernel(x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps,
     cache = codes()
     if mode == "e+g":
         cache += codes() + (torch.empty_like(cache[1]),)
+    ws = (() if mode == "e" else
+          (_base_workspace(dev, base_ws_sizes(r, c, hidden, strips, mode)),))
+    _base_mlp_entry(mode, x2d, lns, lnb, w1, s1f, b1f, w2, s2f, b2f, colsum,
+                    o, m, cache + ws, strips, eps)
+    del ws  # held until the launches are queued
+    LAUNCHES[BASE_MODES[mode]] += 1
+    return (o, cache[0], cache[1], m) + cache[2:]
+
+
+def _base_mlp_entry(mode, x2d, lns, lnb, w1, s1f, b1f, w2, s2f, b2f, colsum,
+                    o, m, rest, strips, eps):
+    """The one C call of rows 20-22 on checked operands, into o, m and
+    ``rest`` (the mode's cache, then for rows 21-22 the workspace)."""
+    r, c = x2d.shape
     fn = "uspace_" + BASE_MODES[mode]
-    rc = getattr(load("delta_mlp"), fn)(
+    raise_on(getattr(load("delta_mlp"), fn)(
         x2d.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w1.data_ptr(),
         s1f.data_ptr(), b1f.data_ptr(), w2.data_ptr(), s2f.data_ptr(),
         b2f.data_ptr(), colsum.data_ptr(), o.data_ptr(), m.data_ptr(),
-        *(t.data_ptr() for t in cache), r, c, hidden, strips, eps,
-        cuda_stream(dev))
-    raise_on(rc, fn)
-    LAUNCHES[BASE_MODES[mode]] += 1
-    return (o, cache[0], cache[1], m) + cache[2:]
+        *(t.data_ptr() for t in rest), r, c, w1.shape[0], strips, eps,
+        cuda_stream(x2d.device)), fn)
+
+
+# Rows 21-22's pieces alone, each counted by no op, for their tests and
+# timings; the wrapper above checks their operands (f32 contiguous scales
+# and biases, bf16 rows, w1 [hidden, C] and w2 [C, hidden] int8 in the
+# torch layout).
+
+
+def _base_codes_kernel(x2d, lns, lnb, eps, out=None):
+    """The f32 code pass (``uspace_base_mlp_codes``) of x [R, C] bf16:
+    ``(codes [R, C] int8, sr [R] f32)`` as :func:`base_codes_plain`, into
+    ``out`` where given."""
+    r, c = x2d.shape
+    dev = x2d.device
+    codes, sr = out or (torch.empty((r, c), dtype=torch.int8, device=dev),
+                        torch.empty((r,), dtype=torch.float32, device=dev))
+    raise_on(load("delta_mlp").uspace_base_mlp_codes(
+        x2d.data_ptr(), lns.data_ptr(), lnb.data_ptr(), codes.data_ptr(),
+        sr.data_ptr(), r, c, eps, cuda_stream(dev)), "uspace_base_mlp_codes")
+    return codes, sr
+
+
+def _base_fc1_kernel(codes, sr, w1, s1f, b1f, strips, mode, out=None,
+                     lib=None):
+    """fc1 of row 22 (``mode="grad"``, ``uspace_base_fc1_grad``: ``(gp_q,
+    gp_s, hq, hsc, hzp)``) or row 21 (``"e+g"``, ``uspace_base_fc1_eg``:
+    ``(e_q, e_s, g_q, g_s, g_z)``) as their twins, into ``out`` where
+    given; ``lib`` another build of the library."""
+    r, c = codes.shape
+    hidden = w1.shape[0]
+    dev = codes.device
+    if out is None:
+        out = []
+        for _ in range(2):
+            out += [torch.empty((r, hidden), dtype=torch.int8, device=dev),
+                    torch.empty((r, strips), dtype=torch.float32, device=dev)]
+        out.append(torch.empty_like(out[1]))
+    fn = "uspace_base_fc1_" + ("grad" if mode == "grad" else "eg")
+    raise_on(getattr(lib or load("delta_mlp"), fn)(
+        codes.data_ptr(), sr.data_ptr(), w1.data_ptr(), s1f.data_ptr(),
+        b1f.data_ptr(), *(t.data_ptr() for t in out), r, c, hidden, strips,
+        cuda_stream(dev)), fn)
+    return tuple(out)
+
+
+def _base_fc2_kernel(hq, hsc, hzp, w2, s2f, b2f, colsum, x2d, out=None):
+    """fc2 with m (``uspace_base_fc2``): ``(x + m, m)`` as
+    :func:`base_fc2_plain`, into ``out`` where given."""
+    r, hidden = hq.shape
+    o, m = out or (torch.empty_like(x2d), torch.empty_like(x2d))
+    raise_on(load("delta_mlp").uspace_base_fc2(
+        hq.data_ptr(), hsc.data_ptr(), hzp.data_ptr(), w2.data_ptr(),
+        s2f.data_ptr(), b2f.data_ptr(), colsum.data_ptr(), x2d.data_ptr(),
+        o.data_ptr(), m.data_ptr(), r, w2.shape[0], hidden, hsc.shape[1],
+        cuda_stream(x2d.device)), "uspace_base_fc2")
+    return o, m
 
 
 def _delta_mlp_kernel(x2d, xb2d, c_q, c_s, gelu_cache, mb2d, ln_scale,
