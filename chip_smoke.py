@@ -28,7 +28,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    fc2 and row 19's code pass and two GEMMs each bit-equal to its twin on
    the same inputs, row 15's sub-block to its pieces and to a repeat; rows
    21 and 22 by their pieces the same way (the f32 code pass, the mode's
-   fc1, fc2 with m) at 12850 and 129 rows;
+   fc1, fc2 with m) at 12850 and 129 rows; row 18 by its pieces (the padded
+   LN1 code pass, the GEMM's pass A partials, pass B's codes, scales and
+   bf16 buffer) each bit-equal to its twin, its cache over all Lp rows
+   equal to the twin's and its output to row 1's kernel on the twin's bf16
+   buffer;
    for each int8 and w8 kernel, controls (twins with one rounding site
    changed) that the same limits must refuse; kernel, twin and library-call
    times with CUDA events; the bound of the same work on an H100 SXM (the
@@ -678,6 +682,7 @@ def check_kernels(torch, F, attn, mlpk, quant):
         (results if case.get("listed", True) else shapes).append(r)
     problems += piece_checks(torch, attn, quant, randn)
     problems += row15_19_piece_checks(torch, mlpk, quant, randn)
+    problems += row18_piece_checks(torch, attn, quant, randn)
     problems += row21_22_piece_checks(torch, quant, randn)
     problems += delta_mlp_checks(torch, quant, randn)
     if problems:
@@ -806,6 +811,63 @@ def row15_19_piece_checks(torch, mlpk, quant, randn):
     log(f"piece delta_attn, B={B} L={L} (Lp={lp}): " + ", ".join(
         f"{k} {'bit-equal' if v else 'DIFFERS'}" for k, v in checks.items()))
     problems += [f"row 19's {k} differs" for k, v in checks.items() if not v]
+    return problems
+
+
+def row18_piece_checks(torch, attn, quant, randn):
+    """Row 18 by its pieces at the main path's shape (B = 50, L = 257 padded
+    to Lp = 288, C = 1024, H = 16), each bit-equal to its twin on the same
+    inputs: the padded LN1 code pass to ``row_codes(ln_lanes(x padded))``,
+    pass A's row amax partials to ``qkv_amax_plain``, pass B's cache codes,
+    row scales and bf16 buffer to ``qkv_code_plain`` on them; the wrapper's
+    cache over all Lp rows (the padded rows included) to the whole twin's
+    and its ``a`` to row 1's kernel on the twin's bf16 buffer, and a repeat
+    to the first call. Code flips and the largest scale difference against
+    the twin are printed. Returns what disagreed."""
+    import torch.nn.functional as F
+
+    from uspace_tpu_torch.ops import delta as dops
+    f32 = torch.float32
+    lp = dops.round_up(L, dops.SEQ_ALIGN)
+    problems = []
+    x = randn(B, L, C, std=STREAM_STD)
+    lns, lnb = 1.0 + randn(C, std=0.1, dtype=f32), randn(C, std=0.1,
+                                                         dtype=f32)
+    qw = quant.quantized_weight(randn(3 * C, C, std=0.02, dtype=f32).t())
+    with torch.no_grad():
+        codes, sr = dops._padded_codes_kernel(x, lns, lnb, 1e-5)
+        ref_q, ref_s = quant.row_codes(dops.ln_lanes(
+            F.pad(x, (0, 0, 0, lp - L)), lns, lnb, 1e-5).reshape(B * lp, C))
+        part = dops._qkv_amax_kernel(codes, sr, qw.q, qw.scale)
+        ref_part = dops.qkv_amax_plain(codes, sr[:, None], qw.kn, qw.scale)
+        cq, cs, qkv = dops._qkv_code_kernel(codes, sr, qw.q, qw.scale, part,
+                                            L, lp)
+        ref_cq, ref_cs, ref_qkv = dops.qkv_code_plain(
+            codes, sr[:, None], qw.kn, qw.scale, ref_part, L, lp)
+        a, kq, ks = dops.base_attn_block(x, lns, lnb, qw.kn, qw.scale, H,
+                                         1e-5)
+        again = dops.base_attn_block(x, lns, lnb, qw.kn, qw.scale, H, 1e-5)
+        _, tq, ts = dops.base_attn_plain(x, lns, lnb, qw.kn, qw.scale, H,
+                                         1e-5)
+        a1 = attn.fused_qkv_attention(
+            (tq[:, :L].float() * ts[:, :L]).to(torch.bfloat16), H)
+    torch.cuda.synchronize()
+    step, rate = codes_read(torch, kq, tq)
+    scale_err = float((ks.double() - ts.double()).abs().max())
+    checks = dict(
+        code_pass=torch.equal(codes, ref_q) and torch.equal(
+            sr, ref_s.reshape(-1)),
+        pass_a=torch.equal(part, ref_part),
+        pass_b=torch.equal(cq, ref_cq) and torch.equal(
+            cs, ref_cs.reshape(-1)) and torch.equal(qkv, ref_qkv),
+        cache_over_lp_rows=torch.equal(kq, tq) and torch.equal(ks, ts),
+        a_on_row1s_kernel=torch.equal(a, a1),
+        repeat=all(torch.equal(u, v) for u, v in zip((a, kq, ks), again)))
+    log(f"piece base_attn_cache, B={B} L={L} (Lp={lp}): " + ", ".join(
+        f"{k} {'bit-equal' if v else 'DIFFERS'}" for k, v in checks.items())
+        + f"; cache against the twin over {B * lp} rows: largest code step "
+        f"{step}, flips {rate:.2e}, scales max_abs {scale_err:.1e}")
+    problems += [f"row 18's {k} differs" for k, v in checks.items() if not v]
     return problems
 
 
@@ -1743,10 +1805,10 @@ def delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
             more += f"; {name} scales: max_abs {err:.1e}"
         return max_abs, rel, tol_abs, tol_rel, ok, more
 
-    def judge_base_attn(out, ref):
+    def judge_base_attn(out, ref):  # the cache over all Lp rows
         return held(out[0], ref[0], lambda t: t, INT8_ATTN_REL_L2,
-                    codes=[("qkv", out[1][:, :L], ref[1][:, :L])],
-                    scales=[("qkv", out[2][:, :L], ref[2][:, :L])])
+                    codes=[("qkv", out[1], ref[1])],
+                    scales=[("qkv", out[2], ref[2])])
 
     def judge_base_mlp(out, ref, cache="gelu'"):
         """o on o - x, m, and the caches: (codes, scales) of ``cache`` and,

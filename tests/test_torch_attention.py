@@ -574,8 +574,8 @@ def test_ctypes_signatures_match_c_source():
                                       "mlp_int8", "mlp_w8", "attention_block",
                                       "mlp_bf16", "delta_attention",
                                       "delta_mlp", "flash_attention"}
-    # rows 20-22 of the kernel table: one entry point each (rows 21 and 22
-    # chain their code pass, fc1 and fc2, each also an entry point); rows
+    # rows 20-22 of the kernel table: one entry point each (each chains
+    # the code pass, its fc1 and fc2, each also an entry point); rows
     # 23-25: each its fc1 and the shared fc2 on wgmma (after
     # delta_attention.cu's code pass); row 15: its code pass, fc1 and fc2 on
     # the same two bodies, and the entry that chains them

@@ -30,7 +30,9 @@ the bf16 MLP (rows 12 and 13) alone as row 16's, every repeat bit-equal. The sta
 the kernel table, in the three hidden modes) take the int8 limits: the base kernels on every output, caches
 included (codes one step apart at most, scales within 1e-6), the delta
 kernels on what they add to the cache (``xm - xm_b``, ``o - x - m_b``) with
-one bf16 step of that part plus one of the output. Row 19's twin takes row
+one bf16 step of that part plus one of the output; row 18's two GEMM
+passes alone, and its cache over all Lp rows, bit-equal to their twins.
+Row 19's twin takes row
 1's kernel as its attention core here: the core's own bf16 steps pass
 through ``da = a - a_b`` at full size (chip_smoke.py phase 3 holds row 19
 to the plain twin). A delta at the base's own point reproduces the base's
@@ -1382,6 +1384,59 @@ def test_delta_attn_gemms_are_bit_exact(cuda, rows, l, h, d):
                                                 qp.scale, x, xb, xm_b))
 
 
+@pytest.mark.parametrize("h,d", [(16, 64), (32, 32)])
+@pytest.mark.parametrize("rows,l,lp", [(12850, 250, 257), (129, 40, 43),
+                                       (1, 1, 1)])
+def test_base_attn_passes_are_bit_equal(cuda, rows, l, lp, h, d):
+    """Row 18's two passes of the int8 wgmma GEMM alone on the same codes
+    (rows m of [., Lp], those with m % Lp < L in the bf16 output): pass A's
+    row amax partials bit-equal to ``qkv_amax_plain``, pass B's codes, row
+    scales and bf16 buffer to ``qkv_code_plain`` on those partials: int32
+    sums are exact and both passes round the product alike."""
+    g = torch.Generator(device=cuda).manual_seed(rows + l + d)
+    f32 = torch.float32
+    c = h * d
+    lns, lnb = 1 + _rand(g, c, std=0.1, dtype=f32), _rand(g, c, std=0.1,
+                                                          dtype=f32)
+    qw = quant.quantized_weight(_rand(g, c, 3 * c, std=c ** -0.5, dtype=f32))
+    codes, sr = quant.row_codes(delta.ln_lanes(_rand(g, rows, c), lns, lnb,
+                                               1e-5))
+    sr = sr.reshape(-1)
+    with torch.no_grad():
+        part = delta._qkv_amax_kernel(codes, sr, qw.q, qw.scale)
+        got = delta._qkv_code_kernel(codes, sr, qw.q, qw.scale, part, l, lp)
+    torch.cuda.synchronize()
+    ref_part = delta.qkv_amax_plain(codes, sr[:, None], qw.kn, qw.scale)
+    assert torch.equal(part, ref_part)
+    want = delta.qkv_code_plain(codes, sr[:, None], qw.kn, qw.scale,
+                                ref_part, l, lp)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1].reshape(-1))
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("b,l,h", [(2, 17, 4), (50, 257, 16), (2, 334, 16),
+                                   (1, 512, 2), (1, 1, 2), (3, 257, 32)])
+def test_base_attn_cache_is_the_twins(cuda, b, l, h):
+    """Row 18 whole: its cache over all Lp rows (the padded rows included)
+    bit-equal to the twin's, and ``a`` bit-equal to row 1's kernel on the
+    twin's bf16 buffer; a repeat bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(3 * l + h)
+    c = 64 * h if h <= 16 else 32 * h
+    xb, _, lns, lnb, qw, _ = _delta_attn_case(g, b, l, c)
+    with torch.no_grad():
+        out = delta.base_attn_block(xb, lns, lnb, qw.kn, qw.scale, h, 1e-5)
+        again = delta.base_attn_block(xb, lns, lnb, qw.kn, qw.scale, h, 1e-5)
+        _, cq, cs = delta.base_attn_plain(xb, lns, lnb, qw.kn, qw.scale, h,
+                                          1e-5)
+        a = attn.fused_qkv_attention(
+            (cq[:, :l].float() * cs[:, :l]).to(torch.bfloat16), h)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], cq) and torch.equal(out[2], cs)
+    assert torch.equal(out[0], a)
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
+
+
 def _delta_mlp_case(g, rows, c):
     f32 = torch.float32
     hid = 4 * c
@@ -1444,7 +1499,11 @@ def test_delta_mlp_e_kernels_match_twins(cuda, rows, c):
             _agree_codes(out[i], ref[i])
         for i in (2, 5, 6):  # e_s, g_s, g_z
             assert float((out[i] - ref[i]).abs().max()) <= 1e-6
+        before = dict(delta.LAUNCHES)
         e_only = delta.base_mlp_block(xb, *w, mode="e")
+        assert delta.LAUNCHES == dict(before, base_mlp_e=before[
+            "base_mlp_e"] + 1)
+        assert len(e_only) == 4
         assert all(torch.equal(a, b) for a, b in zip(e_only, out))
         _, e_q, e_s, m_b, g_q, g_s, g_z = ref
         dw = (lns, lnb, q1.kn, q1.scale, q2.kn, q2.scale, 1e-5)

@@ -1,7 +1,15 @@
 """The pieces that the card runs for the W8A8 MLP sub-block (row 15 of the
-kernel table), for the stage-delta attention half (row 19) and for the
-stage-delta base MLP halves of the "gelu" and "grad" modes (rows 21 and
-22), through their twins, held to the JAX kernels on the CPU.
+kernel table), for the stage-delta attention halves (rows 18 and 19) and
+for the stage-delta base MLP halves (rows 20, 21 and 22), through their
+twins, held to the JAX kernels on the CPU.
+
+Row 18 runs as the padded LN1 code pass, the int8 GEMM twice (pass A: each
+row's max |qkv| over each 256-column tile; pass B: the same product coded
+per row with the max of those partials) and row 1's core; its piece twins
+in sequence are ``base_attn_plain``, which
+``test_torch_delta.test_base_attn_twin_matches_jax`` holds to the JAX
+kernel, and here they equal the one-pass coding of the whole row bit for
+bit. Row 20 runs row 21's pieces, its affine codes kept in the workspace.
 
 Row 15 runs as a code pass (the bf16-chain LN2 rows coded per row), fc1
 (GELU on an affine grid per row and strip) and fc2 (the strips folded in
@@ -302,6 +310,107 @@ def test_delta_attn_block_runs_its_pieces(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# row 18: the stage-delta base attention half, its qkv in two GEMM passes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("c,h,l", [(128, 2, 17), (256, 4, 40)])
+@pytest.mark.parametrize("dt", list(DT))
+def test_base_attn_pieces_chain_to_the_twin(dt, c, h, l):
+    """B = 2 (Lp = round_up(L, 32)), 3C = 384 or 768 columns in 2 or 3
+    blocks of 256: the padded code pass, pass A's row amax partials and
+    pass B's codes chained equal the qkv coded per row over all 3C columns
+    in one pass (``row_codes`` of the product, the TPU kernel's rule) bit
+    for bit, and ``base_attn_plain`` is that chain. Control: pass B given
+    the amax of one 256-column block instead of the whole row's codes
+    otherwise."""
+    td = DT[dt][1]
+    b = 2
+    r = np.random.default_rng(18 + c + l)
+    x = torch.from_numpy(r.standard_normal((b, l, c)).astype(
+        np.float32)).to(td)
+    s = torch.from_numpy((1 + 0.1 * r.standard_normal(c)).astype(np.float32))
+    bb = torch.from_numpy((0.1 * r.standard_normal(c)).astype(np.float32))
+    _, (tq, ts) = _weights(r, c, 3 * c, 0.2)
+    lp = tdelta.round_up(l, tdelta.SEQ_ALIGN)
+    u = tdelta.ln_lanes(torch.nn.functional.pad(x, (0, 0, 0, lp - l)), s, bb,
+                        EPS)
+    uq, us = tquant.row_codes(u.reshape(b * lp, c))
+    p = tquant.int_matmul(uq, tq).float() * us * ts
+    part = tdelta.qkv_amax_plain(uq, us, tq, ts)
+    assert part.shape == (b * lp, -(-3 * c // tdelta.QKV_BLOCK))
+    for j in range(part.shape[1]):
+        cols = slice(j * tdelta.QKV_BLOCK, (j + 1) * tdelta.QKV_BLOCK)
+        assert torch.equal(part[:, j], p[:, cols].abs().amax(dim=1))
+    cq, cs, qkv = tdelta.qkv_code_plain(uq, us, tq, ts, part, l, lp, td)
+    want_q, want_s = tquant.row_codes(p)
+    assert torch.equal(cq, want_q) and torch.equal(cs, want_s)
+    real = cq.reshape(b, lp, -1)[:, :l].reshape(b * l, -1)
+    assert torch.equal(qkv, (real.float() * cs.reshape(b, lp, 1)[:, :l]
+                             .reshape(-1, 1)).to(td))
+    a, qq, qs = tdelta.base_attn_plain(x, s, bb, tq, ts, h, EPS)
+    assert torch.equal(qq, cq.reshape(b, lp, -1))
+    assert torch.equal(qs, cs.reshape(b, lp, 1))
+    assert torch.equal(a, tdelta.packed_attention_plain(
+        qkv.reshape(b, l, -1), h, (c // h) ** -0.5))
+    # the control: amax over the first 256 columns alone
+    bad_q, bad_s, _ = tdelta.qkv_code_plain(uq, us, tq, ts, part[:, :1], l,
+                                            lp, td)
+    assert not torch.equal(bad_s, want_s)
+    assert not torch.equal(bad_q, want_q)
+
+
+def test_base_attn_block_runs_its_pieces(monkeypatch):
+    """Row 18's plumbing on the card, the library stubbed: the padded code
+    pass of x into the workspace's codes and scales, then one C entry (pass
+    A, pass B, row 1's core) on them with the weight, the amax partials,
+    the cache, the core's bf16 input (the workspace's last piece) and a,
+    through one workspace allocation laid out as ``base_attn_ws_sizes``
+    says; one launch counted; a refusal before any call."""
+    calls = _stub(monkeypatch, tdelta)
+    made = []
+    real = tdelta._base_workspace
+
+    def workspace(dev, sizes):
+        made.append((list(sizes), real(dev, sizes)))
+        return made[-1][1]
+    monkeypatch.setattr(tdelta, "_base_workspace", workspace)
+    b, l, c, h = 2, 17, 128, 2
+    lp = tdelta.round_up(l, tdelta.SEQ_ALIGN)
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy(rng.standard_normal((b, l, c)).astype(
+        np.float32)).to(torch.bfloat16)
+    _, (tq, ts) = _weights(rng, c, 3 * c, 0.2)
+    one = torch.ones(c)
+    tdelta.reset_launches()
+    a, qq, qs = tdelta._base_attn_kernel(x, one, one, tq, ts, h, EPS)
+    assert a.shape == x.shape and qq.shape == (b, lp, 3 * c)
+    assert qs.shape == (b, lp, 1) and qq.dtype == torch.int8
+    assert [fn for fn, _ in calls] == ["uspace_ln_codes", "uspace_base_attn"]
+    (_, codes), (_, core) = calls
+    (sizes, ws), = made
+    assert sizes == tdelta.base_attn_ws_sizes(b, l, lp, c) == [
+        b * lp * c, 4 * b * lp, 4 * b * lp * 2, 2 * b * l * 3 * c]
+    assert ws.dtype == torch.uint8
+    assert ws.numel() == sum(-(-n // 256) * 256 for n in sizes)
+    at = [ws.data_ptr()]
+    for n in sizes[:-1]:
+        at.append(at[-1] + -(-n // 256) * 256)
+    assert codes[0] == x.data_ptr() and codes[3:5] == tuple(at[:2])
+    assert codes[5:10] == (b, l, lp, c, EPS)
+    assert core[:2] == tuple(at[:2]) and core[4] == at[2]
+    assert core[5:9] == (qq.data_ptr(), qs.data_ptr(), at[3], a.data_ptr())
+    assert core[9:14] == (b, l, lp, h, c // h)
+    assert core[14] == (c // h) ** -0.5 and len(core) == 16
+    assert tdelta.LAUNCHES["base_attn_cache"] == 1
+    assert sum(tdelta.LAUNCHES.values()) == 1
+    del calls[:]
+    with pytest.raises(ValueError, match="bfloat16"):
+        tdelta._base_attn_kernel(x.float(), one, one, tq, ts, h, EPS)
+    assert calls == [] and len(made) == 1
+
+
+# ---------------------------------------------------------------------------
 # rows 21 and 22: the stage-delta base MLP halves of "gelu" and "grad"
 # ---------------------------------------------------------------------------
 
@@ -472,15 +581,15 @@ def test_base_mlp_pieces_hold_the_jax_kernel(mode, dt, l):
                                        atol=1e-6)
 
 
-@pytest.mark.parametrize("mode", ["grad", "e+g"])
+@pytest.mark.parametrize("mode", ["grad", "e+g", "e"])
 def test_base_mlp_block_runs_its_pieces(monkeypatch, mode):
-    """Rows 22 and 21's plumbing on the card, the library stubbed: one call
-    of the C entry that chains the code pass, fc1 and fc2, with x, LN2,
-    both weights (torch layout), the colsums, o, m, the mode's cache and
-    one workspace allocation laid out as ``base_ws_sizes`` says (row 22:
-    the row codes, their scales, the hidden codes, their scales and zero
-    points; row 21: the row codes and their scales); one launch counted;
-    every refusal before any call."""
+    """Rows 22, 21 and 20's plumbing on the card, the library stubbed: one
+    call of the C entry that chains the code pass, fc1 and fc2, with x,
+    LN2, both weights (torch layout), the colsums, o, m, the mode's cache
+    and one workspace allocation laid out as ``base_ws_sizes`` says (rows 22
+    and 20: the row codes, their scales, the hidden codes, their scales and
+    zero points; row 21: the row codes and their scales); one launch
+    counted; every refusal before any call."""
     calls = _stub(monkeypatch, tdelta)
     made = []
     real = tdelta._base_workspace
@@ -508,12 +617,12 @@ def test_base_mlp_block_runs_its_pieces(monkeypatch, mode):
     assert args[3] == q1.q.data_ptr() and args[6] == q2.q.data_ptr()
     assert args[10:12] == (out[0].data_ptr(), out[3].data_ptr())
     cache = out[1:3] + out[4:]
-    assert len(cache) == (2 if mode == "grad" else 5)
+    assert len(cache) == (5 if mode == "e+g" else 2)
     assert args[12:12 + len(cache)] == tuple(t.data_ptr() for t in cache)
     assert [t.shape for t in cache[:2]] == [(r, hid), (r, strips)]
     (sizes, ws), = made
     want = [r * c, 4 * r]
-    if mode == "grad":
+    if mode != "e+g":
         want += [r * hid, 4 * r * strips, 4 * r * strips]
     assert sizes == want == tdelta.base_ws_sizes(r, c, hid, strips, mode)
     assert ws.dtype == torch.uint8

@@ -19,10 +19,15 @@ training shape, B=128, L=257, C=1024, H=16; ``flash_attention``: the blocked onl
 kernel at the 512-px SD-UNet-large's top level, B=50, H=8, L=4096, D=32;
 ``delta_attention``: the stage-delta attention
 halves' own passes at B=50 (the LN codes of the padded base rows and of a
-stage delta, the difference codes, the f32 GEMM, the qkv re-coding);
+stage delta, the difference codes), and row 18's passes of ``attention``'s
+GEMM on this checkout's build (``qkv_amax``, ``qkv_code``, and
+``base_attn``, which chains them with row 1's core; ``--source attention``
+times them against a base that has them and compares the two builds' row
+18 outputs bit for bit);
 ``delta_mlp``: the stage-delta base MLP kernels of the three hidden modes
-on 12850 rows, hidden 4096 (rows 21 and 22 each one C entry through a
-workspace), the pieces of rows 21 and 22, ``base_mlp_codes``,
+on 12850 rows, hidden 4096 (rows 20, 21 and 22 each one C entry through a
+workspace; row 20's entry took no workspace before, so it is timed on the
+new build alone), the pieces of rows 21 and 22, ``base_mlp_codes``,
 ``base_fc1_grad``, ``base_fc1_eg`` and ``base_fc2``, the wgmma GEMMs of
 the delta rows, ``delta_fc1_exact``, ``delta_fc1_lin``, ``delta_fc1_g``
 (rows 25, 23, 24) and ``delta_fc2``, and of row 15, ``mlp_int8_codes``,
@@ -93,6 +98,12 @@ from ..ops.quant import quantized_weight
 B, L, C, H = 50, 257, 1024, 16
 TRAIN_B = 128
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# entry points whose C interface this checkout changed from its parent's
+# (row 20's gained its workspace): a base's is not called with it, and they
+# are timed on the new build alone
+NEW_INTERFACE = {"base_mlp_e"}
+
+
 def _load(source: str, path: str, out: str) -> ctypes.CDLL:
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, path],
                    check=True)
@@ -220,7 +231,9 @@ def main(argv=None) -> None:
     lp = (L + 31) // 32 * 32
     ucodes = torch.empty(B * lp, C, dtype=torch.int8, device=dev)
     us = torch.empty(B * lp, device=dev)
-    qkv32 = torch.empty(B * lp, 3 * C, device=dev)
+    part = torch.empty(B * lp, -(-3 * C // 256), device=dev)
+    cq18 = torch.empty(B * lp, 3 * C, dtype=torch.int8, device=dev)
+    cs18 = torch.empty(B * lp, device=dev)
     cq = torch.zeros(B * lp, 3 * C, dtype=torch.int8, device=dev)
     cs = torch.full((B * lp,), 0.01, device=dev)
     qkvd = torch.empty(B, L, 3 * C, dtype=bf, device=dev)
@@ -243,7 +256,7 @@ def main(argv=None) -> None:
     hq = torch.empty(rows, hid, dtype=torch.int8, device=dev)
     hsc = torch.full((rows, 4), 1e-3, device=dev)
     hzp = torch.full((rows, 4), 0.1, device=dev)
-    # rows 21-22's workspace (row 22's, the larger) and their pieces'
+    # rows 20-22's workspace (rows 20 and 22's, the larger) and their pieces'
     # outputs: the row codes and scales, two [rows, hid] int8 codes (the
     # cache, the hidden) and three [rows, 4] f32 scales
     bws = torch.empty(sum(-(-n // 256) * 256 for n in base_ws_sizes(
@@ -357,12 +370,20 @@ def main(argv=None) -> None:
         "diff_codes": lambda lib: lib.uspace_diff_codes(
             x1.data_ptr(), x.data_ptr(), codes.data_ptr(), sr.data_ptr(),
             rows, C, s),
-        "int8_gemm_f32": lambda lib: lib.uspace_int8_gemm_f32(
+        # row 18 after its code pass: the GEMM's two passes, and the C
+        # entry that chains them with row 1's core
+        "qkv_amax": lambda lib: lib.uspace_qkv_amax(
             ucodes.data_ptr(), us.data_ptr(), q.q.data_ptr(),
-            q.scale.data_ptr(), qkv32.data_ptr(), B * lp, 3 * C, C, s),
-        "qkv_recode": lambda lib: lib.uspace_qkv_recode(
-            qkv32.data_ptr(), cq.data_ptr(), cs.data_ptr(), qkvd.data_ptr(),
-            B, L, lp, 3 * C, s),
+            q.scale.data_ptr(), part.data_ptr(), B * lp, 3 * C, C, s),
+        "qkv_code": lambda lib: lib.uspace_qkv_code(
+            ucodes.data_ptr(), us.data_ptr(), q.q.data_ptr(),
+            q.scale.data_ptr(), part.data_ptr(), cq18.data_ptr(),
+            cs18.data_ptr(), qkvd.data_ptr(), B * lp, L, lp, 3 * C, C, s),
+        "base_attn": lambda lib: lib.uspace_base_attn(
+            ucodes.data_ptr(), us.data_ptr(), q.q.data_ptr(),
+            q.scale.data_ptr(), part.data_ptr(), cq18.data_ptr(),
+            cs18.data_ptr(), qkvd.data_ptr(), out.data_ptr(), B, L, lp, H,
+            64, 0.125, s),
         "qkv_delta": lambda lib: lib.uspace_qkv_delta(
             dcodes.data_ptr(), dsr.data_ptr(), q.q.data_ptr(),
             q.scale.data_ptr(), cq.data_ptr(), cs.data_ptr(), qkvd.data_ptr(),
@@ -382,7 +403,7 @@ def main(argv=None) -> None:
             q1.scale.data_ptr(), b1.data_ptr(), q2.q.data_ptr(),
             q2.scale.data_ptr(), b2.data_ptr(), cs4.data_ptr(),
             out.data_ptr(), m_out.data_ptr(), e_q.data_ptr(),
-            e_s.data_ptr(), rows, C, hid, 4, 1e-5, s),
+            e_s.data_ptr(), bws.data_ptr(), rows, C, hid, 4, 1e-5, s),
         "base_mlp_eg": lambda lib: lib.uspace_base_mlp_eg(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), q1.q.data_ptr(),
             q1.scale.data_ptr(), b1.data_ptr(), q2.q.data_ptr(),
@@ -451,6 +472,7 @@ def main(argv=None) -> None:
     timed = set(_build.SIGNATURES[a.source])
     if a.source == "mlp_bf16":  # the ops that its pieces make up
         timed |= {"uspace_mlp_bf16", "uspace_ln_mlp_bf16"}
+    row18 = {k: calls[k] for k in ("qkv_amax", "qkv_code", "base_attn")}
     calls = {k: f for k, f in calls.items() if f"uspace_{k}" in timed}
 
     def time_ms(call, lib):
@@ -475,6 +497,7 @@ def main(argv=None) -> None:
     order = ["base", "new", "new", "base"] * ((a.pairs + 1) // 2)
     for name, call in calls.items():
         sides = (order if hasattr(libs["base"], f"uspace_{name}")
+                 and name not in NEW_INTERFACE
                  else ["new"] * (len(order) // 2))
         runs = [(side, *time_ms(call, libs[side])) for side in sides]
         print(json.dumps({
@@ -484,6 +507,28 @@ def main(argv=None) -> None:
         }), flush=True)
     if a.source == "attention":
         gemm_k_sweep(libs["new"], s, time_ms)
+        if hasattr(libs["base"], "uspace_base_attn"):
+            # row 18 of both builds on the same codes: the amax partials,
+            # cache codes, scales, bf16 buffer and output compared, each
+            # filled with a value no build writes before each run
+            got = {}
+            for side in ("base", "new"):
+                for t in (part, cq18, cs18, qkvd, out):
+                    t.fill_(-128 if t.dtype == torch.int8 else float("nan"))
+                if calls["base_attn"](libs[side]):
+                    raise RuntimeError("kernel launch failed")
+                torch.cuda.synchronize()
+                got[side] = [t.clone() for t in (part, cq18, cs18, qkvd, out)]
+            print(json.dumps({"base_attn_bit_equal": all(
+                torch.equal(u, v) for u, v in zip(got["base"], got["new"])),
+                "card": torch.cuda.get_device_name(0)}), flush=True)
+    if a.source == "delta_attention":  # row 18's passes, this checkout's
+        att = _build.load("attention")
+        for name, call in row18.items():
+            ms, host = time_ms(call, att)
+            print(json.dumps({"kernel": name, "card":
+                              torch.cuda.get_device_name(0), "new_ms": [ms],
+                              "new_host_us": [host]}), flush=True)
     if a.source == "mlp_bf16":  # row 13's LN pass; what fc1's GELU costs;
         # row 10's projection (fc2 at N = K = C with x, a cluster of two)
         print(json.dumps({

@@ -56,23 +56,20 @@ from ..configs import get_config
 from .sample_lfm import QUANT_CHOICES, build_model
 from .train_lfm import train_attn_impl
 
-# delta_mlp.cu's block kernel is one template per strip width (row 20,
-# delta_mlp_kernel<NT1>); rows 22 and 21 are the f32 code pass, their fc1
-# instance (delta_fc1_kernel<4>, <5>) and fc2 storing m
-# (delta_fc2_kernel<true, true>); the delta rows are each a code pass,
+# rows 20, 21 and 22 are the f32 code pass, their fc1 instance
+# (delta_fc1_kernel<5> for rows 20 and 21, <4> for row 22) and fc2 storing
+# m (delta_fc2_kernel<true, true>); the delta rows are each a code pass,
 # their fc1 instance (delta_fc1_kernel<Dg>: rows 25, 23 and 24) and the
-# shared fc2 (delta_fc2_kernel<false, false>). The code pass and fc2 of
-# rows 21-22 go to the profiled hidden mode's row.
+# shared fc2 (delta_fc2_kernel<false, false>). The pieces the base rows
+# share go to the profiled hidden mode's row.
 _BASE_ROW = {m: f"stage-delta MLP, {m} base: f32 code pass, fc1 and fc2 "
              f"with m on wgmma (ours: row {row})"
-             for m, row in (("grad", 22), ("gelu", 21))}
-_BASE_SHARED = "stage-delta MLP, grad or gelu base: code pass and fc2"
+             for m, row in (("grad", 22), ("gelu", 21), ("exact", 20))}
+_BASE_SHARED = "stage-delta MLP base: code pass, fc1 of rows 20-21 and fc2"
 _DELTA_MLP = (
-    ("stage-delta MLP kernel, exact base (ours: row 20)",
-     ("delta_mlp_kernel<",)),
     (_BASE_ROW["grad"], ("delta_fc1_kernel<4>",)),
-    (_BASE_ROW["gelu"], ("delta_fc1_kernel<5>",)),
-    (_BASE_SHARED, ("base_code_pass_kernel", "delta_fc2_kernel<true, true>"))
+    (_BASE_SHARED, ("base_code_pass_kernel", "delta_fc1_kernel<5>",
+                    "delta_fc2_kernel<true, true>"))
 ) + tuple(
     (f"stage-delta MLP, {what} delta fc1 on wgmma (ours: row {row})",
      (f"delta_fc1_kernel<{dg}>",))
@@ -80,10 +77,9 @@ _DELTA_MLP = (
 
 # kernel-name fragments -> the layer that launches them
 GROUPS = (
-    ("stage-delta row passes (ours: rows 18-19's LN codes, int8 GEMM, "
-     "re-code, difference codes; rows 19 and 23-25's code pass)", (
-         "row_codes_kernel<", "ln_delta_codes_kernel", "int8_gemm_kernel",
-         "recode_kernel")),
+    ("stage-delta row passes (ours: rows 18-19's LN codes and difference "
+     "codes; rows 19 and 23-25's code pass)", (
+         "row_codes_kernel<", "ln_delta_codes_kernel")),
     # row 15's GEMMs are instances of the delta rows' fc1 and fc2 bodies
     ("W8A8 MLP sub-block, code pass, fc1 and fc2 on wgmma (ours: row 15)",
      ("mlp_code_pass_kernel", "delta_fc1_kernel<3>",
@@ -105,6 +101,8 @@ GROUPS = (
     ("QKV projection on wgmma (ours: rows 2-3)", ("qkv_gemm_kernel<false",)),
     ("stage-delta qkv and xm GEMMs on wgmma (ours: row 19)",
      ("qkv_gemm_kernel<true, 1>", "qkv_gemm_kernel<true, 2>")),
+    ("stage-delta base qkv GEMM, amax and code passes on wgmma (ours: "
+     "row 18)", ("qkv_gemm_kernel<true, 3>", "qkv_gemm_kernel<true, 4>")),
     ("int8 QKV projection on wgmma (ours: rows 5, 6, 11)",
      ("qkv_gemm_kernel<true",)),
     ("bf16-chain LN pass (ours: rows 16, 13, 10-11)", ("w8_ln_kernel",)),
@@ -198,7 +196,7 @@ def _train_fn(cfg, dev, batch, attn_impl, seed, remat_exempt):
 
 def _trace(fn, batch: int, evals: int, hidden_mode: str = "grad") -> dict:
     """Warm ``fn`` up, trace ``evals`` calls: device time by kernel and by
-    layer (rows 21-22's shared pieces under ``hidden_mode``'s row), host
+    layer (rows 20-22's shared pieces under ``hidden_mode``'s row), host
     wall time, idle share, peak memory."""
     for _ in range(2):
         fn()

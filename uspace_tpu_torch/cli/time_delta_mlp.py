@@ -4,14 +4,17 @@ kernels of rows 21 and 22): row 19's code pass, each row's fc1 (rows 25,
 23 and 24: ``exact``, ``lin``, ``g``) and fc2 timed apart, and each row's
 whole wrapper; the pieces of the stage-delta base rows 22 and 21 (the f32
 code pass, ``base_fc1_grad``, ``base_fc1_eg``, ``base_fc2`` with m, each
-row's C entry and wrapper; each fc1's epilogue apart from the GEMM
+row's C entry and wrapper, and row 20's, which runs row 21's pieces; each
+fc1's epilogue apart from the GEMM
 skeleton as its time less that of row 23's fc1 on the same codes, whose
 epilogue is one product a value: ``epilogue_over_lin_ms``); the pieces of
 the W8A8 MLP sub-block (row 15: the code pass, fc1, fc2, the C entry that
 chains them, the wrapper, and row 16's wrapper beside it) and of the
-stage-delta attention half (row 19 at B = 50, L = 257 after the code pass
-above: the qkv GEMM on the padded cache, row 1's core, the difference
-codes, the xm GEMM, the wrapper); then fc1 and fc2 of other builds of
+stage-delta attention halves at B = 50, L = 257 (row 18: the padded LN1
+code pass, the GEMM's pass A and pass B, row 1's core, the C entry that
+chains the last three, the wrapper; row 19 after the code pass above: the
+qkv GEMM on the padded cache, row 1's core, the difference codes, the xm
+GEMM, the wrapper); then fc1 and fc2 of other builds of
 ``delta_mlp.cu`` (paths given as arguments, this checkout's C interface)
 timed alternating with this checkout's, their codes, scales and outputs
 compared with this checkout's bit for bit (rows 22 and 21's fc1, and row
@@ -138,10 +141,10 @@ def main(argv=None) -> None:
         pieces += [(f"fc1_{mode}", lambda lib, m=mode: fc1(m, lib), dm),
                    (f"fc2_{mode}", lambda lib, m=mode: fc2(m, lib), dm),
                    (f"wrapper_{mode}", wrapper, mode)]
-    base = Row2122(dev, lns, lnb, xb, q1, b1, q2, b2)
+    base = BaseMlpRows(dev, lns, lnb, xb, q1, b1, q2, b2)
     pieces += base.pieces()
-    r15_19, r15_out = row15_19_pieces(randn, dev, lns, lnb, x, xb, w1f, b1,
-                                      w2f, b2)
+    r15_19, r15_out = row15_18_19_pieces(randn, dev, lns, lnb, x, xb, w1f,
+                                         b1, w2f, b2)
     pieces += r15_19
     # row 15's fc1 and C entry, also timed on the other builds
     r15 = [(name, fn) for name, fn, _ in r15_19
@@ -196,11 +199,12 @@ def main(argv=None) -> None:
         print(json.dumps(row), flush=True)
 
 
-class Row2122:
+class BaseMlpRows:
     """Rows 22 and 21's pieces at the main path's shape on x_b, each through
     its ``ops.delta`` launcher into buffers made here: the f32 code pass,
-    each fc1, fc2 with m; each row's C entry (one workspace) and
-    wrapper."""
+    each fc1, fc2 with m; each row's C entry (one workspace) and wrapper,
+    and row 20's (``"e"``: row 21's pieces, its affine codes in the
+    workspace)."""
 
     def __init__(self, dev, lns, lnb, x, q1, b1, q2, b2):
         i8, f32 = torch.int8, torch.float32
@@ -247,8 +251,8 @@ class Row2122:
                               out=self.out2)
 
     def c_entry(self, mode):
-        out = self.out1[mode]
-        cache = out[:2] if mode == "grad" else out
+        out = self.out1["grad" if mode == "grad" else "e+g"]
+        cache = out if mode == "e+g" else out[:2]
         dops._base_mlp_entry(mode, self.x, self.lns, self.lnb, self.q1.q,
                              self.q1.scale, self.b1, self.q2.q,
                              self.q2.scale, self.b2, self.colsum,
@@ -267,19 +271,19 @@ class Row2122:
             out += [(f"base_fc1_{label}",
                      lambda _=None, m=mode: self.fc1(m), None)]
         out += [("base_fc2", self.fc2, None)]
-        for mode, label in NAMES:
+        for mode, label in NAMES + (("e", "e"),):
             out += [(f"base_c_entry_{label}",
                      lambda _=None, m=mode: self.c_entry(m), None),
                     (f"base_wrapper_{label}", self.wrapper, mode)]
         return out
 
 
-def row15_19_pieces(randn, dev, lns, lnb, x, xb, w1f, b1, w2f, b2):
-    """(name, call, argument) of each piece of rows 15 and 19 at the main
-    path's shapes, each a C entry on workspaces made here (row 19's code
-    pass is ``code_pass`` above; row 15's fc1 and C entry take the library
-    as their argument), and each row's wrapper; and the outputs of row 15's
-    fc1 and C entry."""
+def row15_18_19_pieces(randn, dev, lns, lnb, x, xb, w1f, b1, w2f, b2):
+    """(name, call, argument) of each piece of rows 15, 18 and 19 at the
+    main path's shapes, each a C entry on workspaces made here (row 19's
+    code pass is ``code_pass`` above; row 15's fc1 and C entry take the
+    library as their argument), and each row's wrapper; and the outputs of
+    row 15's fc1 and C entry."""
     f32, bf = torch.float32, torch.bfloat16
     s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     strips = mops.col_slices(HIDDEN)
@@ -299,6 +303,15 @@ def row15_19_pieces(randn, dev, lns, lnb, x, xb, w1f, b1, w2f, b2):
         dcodes, dsr = dops._ln_delta_codes_kernel(x, xb, lns, lnb, 1e-5)
     qkv = torch.empty(ROWS, 3 * C, dtype=bf, device=dev)
     a = torch.empty(B, L, C, dtype=bf, device=dev)
+    # row 18's pieces on x_b: the padded rows' codes, the amax partials,
+    # the cache it writes (not the one row 19 reads) and the core's input
+    xb3 = xb.view(B, L, C)
+    ucodes = torch.empty(B * lp, C, dtype=torch.int8, device=dev)
+    us = torch.empty(B * lp, device=dev)
+    part = torch.empty(B * lp, -(-3 * C // dops.QKV_BLOCK), device=dev)
+    cq = torch.empty(B * lp, 3 * C, dtype=torch.int8, device=dev)
+    cs = torch.empty(B * lp, device=dev)
+    qkvd = torch.empty(ROWS, 3 * C, dtype=bf, device=dev)
     xm_b, xm = randn(ROWS, C), torch.empty_like(x)
     dm, da, att = (_build.load(n) for n in (
         "delta_mlp", "delta_attention", "attention"))
@@ -334,6 +347,26 @@ def row15_19_pieces(randn, dev, lns, lnb, x, xb, w1f, b1, w2f, b2):
         # time a call of an MLP sub-block's wrapper
         ("r16_wrapper", no_grad(lambda: mops.fused_mlp_block_q(
             x, lns, lnb, w1f, b1, w2f, b2, quant="w8")), None),
+        ("r18_code_pass", lambda _=None: da.uspace_ln_codes(
+            xb.data_ptr(), lns.data_ptr(), lnb.data_ptr(), ucodes.data_ptr(),
+            us.data_ptr(), B, L, lp, C, 1e-5, s), None),
+        ("r18_pass_a", lambda _=None: att.uspace_qkv_amax(
+            ucodes.data_ptr(), us.data_ptr(), qw.q.data_ptr(),
+            qw.scale.data_ptr(), part.data_ptr(), B * lp, 3 * C, C, s), None),
+        ("r18_pass_b", lambda _=None: att.uspace_qkv_code(
+            ucodes.data_ptr(), us.data_ptr(), qw.q.data_ptr(),
+            qw.scale.data_ptr(), part.data_ptr(), cq.data_ptr(),
+            cs.data_ptr(), qkvd.data_ptr(), B * lp, L, lp, 3 * C, C, s),
+         None),
+        ("r18_core", lambda _=None: att.uspace_packed_attention(
+            qkvd.data_ptr(), a.data_ptr(), B, L, 16, 64, 0.125, s), None),
+        ("r18_c_entry", lambda _=None: att.uspace_base_attn(
+            ucodes.data_ptr(), us.data_ptr(), qw.q.data_ptr(),
+            qw.scale.data_ptr(), part.data_ptr(), cq.data_ptr(),
+            cs.data_ptr(), qkvd.data_ptr(), a.data_ptr(), B, L, lp, 16, 64,
+            0.125, s), None),
+        ("r18_wrapper", no_grad(lambda: dops.base_attn_block(
+            xb3, lns, lnb, qw.kn, qw.scale, 16, 1e-5)), None),
         ("r19_qkv_gemm", lambda _=None: att.uspace_qkv_delta(
             dcodes.data_ptr(), dsr.data_ptr(), qw.q.data_ptr(),
             qw.scale.data_ptr(), qkv_q.data_ptr(), qkv_s.data_ptr(),

@@ -46,6 +46,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                                                      _P),
         "uspace_qkv_delta": (_P,) * 7 + (_I,) * 5 + (_P,),
         "uspace_xm_delta": (_P,) * 8 + (_I,) * 3 + (_P,),
+        "uspace_qkv_amax": (_P,) * 5 + (_I,) * 3 + (_P,),
+        "uspace_qkv_code": (_P,) * 8 + (_I,) * 5 + (_P,),
+        "uspace_base_attn": (_P,) * 9 + (_I,) * 5 + (_F, _P),
     },
     "attention_block": {
         "uspace_row_codes": (_P, _P, _P, _I, _I, _P),
@@ -55,12 +58,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_ln_codes": (_P,) * 5 + (_I,) * 4 + (_F, _P),
         "uspace_ln_delta_codes": (_P,) * 6 + (_I, _I, _F, _P),
         "uspace_diff_codes": (_P,) * 4 + (_I, _I, _P),
-        "uspace_int8_gemm_f32": (_P,) * 5 + (_I,) * 3 + (_P,),
-        "uspace_qkv_recode": (_P,) * 4 + (_I,) * 4 + (_P,),
     },
     "delta_mlp": {
         "uspace_base_mlp_grad": (_P,) * 15 + (_I,) * 4 + (_F, _P),
-        "uspace_base_mlp_e": (_P,) * 14 + (_I,) * 4 + (_F, _P),
+        "uspace_base_mlp_e": (_P,) * 15 + (_I,) * 4 + (_F, _P),
         "uspace_base_mlp_eg": (_P,) * 18 + (_I,) * 4 + (_F, _P),
         "uspace_base_mlp_codes": (_P,) * 5 + (_I, _I, _F, _P),
         "uspace_base_fc1_grad": (_P,) * 10 + (_I,) * 4 + (_P,),

@@ -96,6 +96,27 @@
 //   the main path's shape the two took 0.258 and 0.110 ms with their loads
 //   four rows at a time (one block an SM waits out each round trip), 0.127
 //   and 0.088 with them all in flight.
+// - Row 18's qkv (the stage-delta base, uspace_base_attn after
+//   delta_attention.cu's padded LN1 code pass) is coded per row over all
+//   3C columns, which no 256-column tile sees: two passes of the same
+//   mainloop, so the same product p bit for bit. Pass A
+//   (qkv_gemm_kernel<true, QKV_AMAX>) keeps max |p| of each row over its
+//   tile's columns, reduced over the fragment's quad, and writes one f32
+//   partial a row and column block ([B*Lp, 3C/256], 0.7 MB at the main
+//   path's shape); nothing else leaves the chip. Pass B (QKV_CODE) reads
+//   its rows' partials and takes their max and its factor 127 / amax
+//   before its mainloop (the IEEE division beside the accumulators spilled),
+//   stages p in f32 through the free ring as row 19's epilogues do, then,
+//   the accumulators dead, codes 8-column pieces and stores the cache codes
+//   and bf16(code * scale) of the rows l < L in row 1's packed layout,
+//   which the core then reads; it rounds by adding 1.5 * 2^23, whose low
+//   byte is the code. This replaces an f32 qkv of every padded row written
+//   and read back (177 MB at the main path's shape) by a second product
+//   (about 41 us of int8 work at the card's peak). On an NVIDIA H100 80GB
+//   HBM3 at 700 W and the main path's shape pass A takes 0.080 ms and
+//   pass B 0.135; pass B took 0.150-0.156 with the codes staged as int8
+//   and its conversions (float to int, int to float, to bf16) in the
+//   epilogue, of which its stores were 0.018.
 //
 // Dynamic shared memory past 48 KB is enabled per launch with
 // cudaFuncSetAttribute. Every entry point returns cudaGetLastError() or the
@@ -279,7 +300,8 @@ constexpr int G_THREADS = 384;  // a producer warpgroup, two consumer ones
 constexpr int G_A_BYTES = G_BM * G_KBYTES;
 constexpr int G_B_BYTES = G_BN * G_KBYTES;
 constexpr int G_SMEM = G_STAGES * (G_A_BYTES + G_B_BYTES) + 2 * G_STAGES * 8 +
-                       1024;  // the ring, its barriers, alignment
+                       2 * G_BM * 4 + 1024;  // the ring, its barriers, row
+                                             // 18's row factors, alignment
 // the int8 epilogue's staged output rows: 256 bf16 + 16 bytes (the delta
 // epilogues' f32 rows: 256 + 8 floats), so that the fragment writes of a
 // warp fall on 32 banks
@@ -287,19 +309,24 @@ constexpr int G_ST_LD = G_BN + 8;
 static_assert(2 * 64 * G_ST_LD * 4 + 2 * 128 * 4 <= G_STAGES * (G_A_BYTES + G_B_BYTES),
               "the staged tile and its rows' cache rows and scales fit in the ring");
 
-// Row 19's epilogues of the int8 GEMM (p = (f32(acc) * sr) * ws): QKV_DELTA
-// bf16(f32(cq) * cs + p) with the cache row (r / L) * Lp + r % L of row r;
-// XM_DELTA bf16(((f32(x) - f32(x_b)) + f32(xm_b)) + p)
-enum Delta { NO_DELTA = 0, QKV_DELTA = 1, XM_DELTA = 2 };
+// Rows 18 and 19's epilogues of the int8 GEMM (p = (f32(acc) * sr) * ws):
+// row 19's QKV_DELTA bf16(f32(cq) * cs + p) with the cache row (r / L) * Lp
+// + r % L of row r, XM_DELTA bf16(((f32(x) - f32(x_b)) + f32(xm_b)) + p);
+// row 18's QKV_AMAX, max |p| of each row over the tile's columns, and
+// QKV_CODE, p coded per row with the amax of those partials
+enum Delta { NO_DELTA = 0, QKV_DELTA = 1, XM_DELTA = 2, QKV_AMAX = 3, QKV_CODE = 4 };
 
-// what a delta epilogue reads besides the accumulators
+// what a delta epilogue reads or writes besides the accumulators
 struct DeltaArgs {
   const int8_t* cq;  // QKV_DELTA: the cache [., N] and its row scales
   const float* cs;
-  int L, Lp;
+  int L, Lp;      // QKV_DELTA, QKV_CODE: rows r of [B, Lp] -> b L + l
   const bf16* x;  // XM_DELTA: x, x_b, xm_b [M, N]
   const bf16* xb;
   const bf16* xmb;
+  float* part;  // QKV_AMAX writes, QKV_CODE reads: [M, ceil(N / 256)]
+  int8_t* q;    // QKV_CODE: the codes [M, N] and row scales [M]
+  float* qs;
 };
 
 __device__ inline uint32_t smem_u32(const void* p) {
@@ -541,7 +568,8 @@ __device__ inline void wgmma_n64_rs(float (&d)[32], const uint32_t (&a)[4], uint
 //   spilling).
 // - INT8 (row 5): int8 codes a with row scales sr [M], the int8 weight b with
 //   column scales ws [N]; int32 sums; c = bf16((f32(acc) * sr) * ws).
-// - INT8 with DELTA (row 19's qkv and xm deltas): the delta epilogues above.
+// - INT8 with DELTA (row 19's qkv and xm deltas, row 18's two passes): the
+//   delta epilogues above.
 template <bool INT8, int DELTA = NO_DELTA>
 __global__ void __launch_bounds__(G_THREADS, 1)
 qkv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -583,6 +611,35 @@ qkv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
 
   // consumers: warpgroup wg - 1 takes rows (wg - 1) * 64 .. + 63 of the tile
   const int cw = wg - 1;
+  // QKV_CODE: each tile row's factor 127 / amax, then its scale amax *
+  // (1/127), past the ring's barriers
+  float* srow = reinterpret_cast<float*>(smem_raw + (empty + 8 * G_STAGES - raw));
+  if constexpr (DELTA == QKV_CODE) {
+    // the max of each row's partials, before the mainloop, whose first
+    // loads hide their latency, and the IEEE division there too (in the
+    // epilogue, beside the accumulators, it spilled): the four lanes of a
+    // quad each read every fourth partial of the quad's two rows, then
+    // reduce over the quad
+    const int t = threadIdx.x & 127, rl = (t >> 5) * 16 + ((t & 31) >> 2);
+    const int r = m0 + cw * 64 + rl, nb = gridDim.x;
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll 4
+    for (int q = t & 3; q < nb; q += 4) {
+      if (r < M) a0 = fmaxf(a0, __ldg(dl.part + (size_t)r * nb + q));
+      if (r + 8 < M) a1 = fmaxf(a1, __ldg(dl.part + (size_t)(r + 8) * nb + q));
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      a0 = fmaxf(a0, __shfl_xor_sync(0xffffffffu, a0, o));
+      a1 = fmaxf(a1, __shfl_xor_sync(0xffffffffu, a1, o));
+    }
+    if ((t & 3) < 2) {  // lanes 0 and 1 of the quad: its two rows
+      const float a = fmaxf((t & 1) ? a1 : a0, 1e-8f);
+      const int at = cw * 64 + rl + 8 * (t & 1);
+      srow[at] = __fdiv_rn(127.f, a);
+      srow[G_BM + at] = __fmul_rn(a, 1.0f / 127.0f);
+    }
+  }
   Acc acc[G_BN / 2];
 #pragma unroll
   for (int i = 0; i < G_BN / 2; ++i) acc[i] = 0;
@@ -609,7 +666,103 @@ qkv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
   const int r0 = m0 + cw * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
   const int col0 = n0 + 2 * (lane & 3);
-  if constexpr (DELTA != NO_DELTA) {
+  if constexpr (DELTA == QKV_AMAX) {
+    // row 18's pass A: max |p| over the tile's columns of each of the
+    // thread's two rows, over the quad, one partial a row and column block
+    // (columns past N have ws 0, rows past M sr 0: p = 0)
+    const float s0 = r0 < M ? __ldg(sr + r0) : 0.f;
+    const float s1 = r1 < M ? __ldg(sr + r1) : 0.f;
+    auto deq = [](int a, float rs, float w) {
+      return __fmul_rn(__fmul_rn(__int2float_rn(a), rs), w);
+    };
+    float m0v = 0.f, m1v = 0.f;
+#pragma unroll
+    for (int j = 0; j < G_BN / 8; ++j) {
+      const int lc = 8 * j + 2 * (lane & 3);
+      const float2 w = n0 + lc < N ? __ldg(reinterpret_cast<const float2*>(ws + n0 + lc))
+                                   : make_float2(0.f, 0.f);
+      m0v = fmaxf(m0v, fmaxf(fabsf(deq(acc[4 * j], s0, w.x)), fabsf(deq(acc[4 * j + 1], s0, w.y))));
+      m1v = fmaxf(m1v, fmaxf(fabsf(deq(acc[4 * j + 2], s1, w.x)),
+                             fabsf(deq(acc[4 * j + 3], s1, w.y))));
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      m0v = fmaxf(m0v, __shfl_xor_sync(0xffffffffu, m0v, o));
+      m1v = fmaxf(m1v, __shfl_xor_sync(0xffffffffu, m1v, o));
+    }
+    if ((lane & 3) == 0) {
+      if (r0 < M) dl.part[(size_t)r0 * gridDim.x + blockIdx.x] = m0v;
+      if (r1 < M) dl.part[(size_t)r1 * gridDim.x + blockIdx.x] = m1v;
+    }
+  } else if constexpr (DELTA == QKV_CODE) {
+    // row 18's pass B: p (the same bits as pass A's) staged in f32 through
+    // the free ring as row 19's epilogues stage it, then, the accumulators
+    // dead, each thread takes 8-column pieces of the rows: round(p * RN(127
+    // / amax)) with amax = max(the row's partials, 1e-8) into the cache q
+    // [M, N] and, for the rows l < L of [B, Lp], bf16(f32(code) * scale)
+    // with the scale amax * RN(1/127) into c [B, L, N], the attention's
+    // input. The rounding to an integer is a sum with 1.5 * 2^23 (exact and
+    // to nearest even, as __float2int_rn, for |v| <= 127.5), whose low byte
+    // is the code and whose difference with 1.5 * 2^23 is f32(code):
+    // full-rate adds where float-integer conversions run at a quarter of
+    // the rate
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    float* st = reinterpret_cast<float*>(smem_raw + (sa - raw)) + cw * 64 * G_ST_LD;
+    const int rl = warp * 16 + (lane >> 2);
+    const float s0 = r0 < M ? __ldg(sr + r0) : 0.f;
+    const float s1 = r1 < M ? __ldg(sr + r1) : 0.f;
+    auto deq = [](int a, float rs, float w) {
+      return __fmul_rn(__fmul_rn(__int2float_rn(a), rs), w);
+    };
+#pragma unroll
+    for (int j = 0; j < G_BN / 8; ++j) {
+      const int lc = 8 * j + 2 * (lane & 3);
+      const float2 w = n0 + lc < N ? __ldg(reinterpret_cast<const float2*>(ws + n0 + lc))
+                                   : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(st + rl * G_ST_LD + lc) =
+          make_float2(deq(acc[4 * j], s0, w.x), deq(acc[4 * j + 1], s0, w.y));
+      *reinterpret_cast<float2*>(st + (rl + 8) * G_ST_LD + lc) =
+          make_float2(deq(acc[4 * j + 2], s1, w.x), deq(acc[4 * j + 3], s1, w.y));
+    }
+    const float* rinv = srow + cw * 64;
+    const float* rscale = srow + G_BM + cw * 64;
+    if ((lane & 3) == 0 && blockIdx.x == 0) {
+      if (r0 < M) dl.qs[r0] = rscale[rl];
+      if (r1 < M) dl.qs[r1] = rscale[rl + 8];
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
+    constexpr float MAGIC = 12582912.0f;  // 1.5 * 2^23
+#pragma unroll 4
+    for (int i = 0; i < 64 * G_BN / 8 / 128; ++i) {  // 64 rows of 32 pieces
+      const int idx = i * 128 + t, row = idx / (G_BN / 8), piece = idx % (G_BN / 8);
+      const int gr = m0 + cw * 64 + row, gc = n0 + 8 * piece;
+      if (gr >= M || gc >= N) continue;
+      const float4* v4 = reinterpret_cast<const float4*>(st + row * G_ST_LD + 8 * piece);
+      const float4 p0 = v4[0], p1 = v4[1];
+      const float v[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      const float inv = rinv[row], cs = rscale[row];
+      float y[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) y[k] = __fadd_rn(__fmul_rn(v[k], inv), MAGIC);
+      uint2 q8;
+      q8.x = __byte_perm(__byte_perm(__float_as_uint(y[0]), __float_as_uint(y[1]), 0x0040),
+                         __byte_perm(__float_as_uint(y[2]), __float_as_uint(y[3]), 0x0040),
+                         0x5410);
+      q8.y = __byte_perm(__byte_perm(__float_as_uint(y[4]), __float_as_uint(y[5]), 0x0040),
+                         __byte_perm(__float_as_uint(y[6]), __float_as_uint(y[7]), 0x0040),
+                         0x5410);
+      *reinterpret_cast<uint2*>(dl.q + (size_t)gr * N + gc) = q8;
+      const int b = gr / dl.Lp, l = gr - b * dl.Lp;
+      if (l >= dl.L) continue;
+      uint4 packed;
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        o[k] = __floats2bfloat162_rn(__fmul_rn(__fsub_rn(y[2 * k], MAGIC), cs),
+                                     __fmul_rn(__fsub_rn(y[2 * k + 1], MAGIC), cs));
+      *reinterpret_cast<uint4*>(c + ((size_t)b * dl.L + l) * N + gc) = packed;
+    }
+  } else if constexpr (DELTA != NO_DELTA) {
     // p = (f32(acc) * sr) * ws in f32, staged through the free ring like
     // row 5's tile, with each row's cache row and scale (QKV_DELTA) beside
     // it; then each thread takes 4 columns (a fixed piece of the rows) of
@@ -1224,6 +1377,53 @@ int uspace_xm_delta(const void* codes, const void* sr, const void* wp, const voi
   dl.xmb = (const bf16*)xmb;
   return launch_gemm<true, XM_DELTA>(codes, wp, out, M, N, K, (cudaStream_t)stream, sr, sp,
                                      dl);
+}
+
+// Row 18's pass A: part [M, ceil(N / 256)] f32, the max |p| of each row
+// over each 256-column block of p = (f32(codes . wq^T) * sr) * ws: codes
+// [M, K] int8 with sr [M] f32, wq [N, K] int8 (torch layout) with ws [N]
+// f32; K a multiple of 64 and N of 8.
+int uspace_qkv_amax(const void* codes, const void* sr, const void* wq, const void* ws,
+                    void* part, int M, int N, int K, void* stream) {
+  DeltaArgs dl{};
+  dl.part = (float*)part;
+  return launch_gemm<true, QKV_AMAX>(codes, wq, nullptr, M, N, K, (cudaStream_t)stream, sr,
+                                     ws, dl);
+}
+
+// Row 18's pass B: the same p coded per row with amax = max(max of the
+// row's partials in part, 1e-8): cq [M, N] int8 = round(p * RN(127 /
+// amax)), cs [M] f32 = amax * RN(1/127), and qkvd = bf16(f32(cq) * cs) of
+// the rows m = b Lp + l with l < L, at row b L + l of qkvd [., N] bf16.
+int uspace_qkv_code(const void* codes, const void* sr, const void* wq, const void* ws,
+                    const void* part, void* cq, void* cs, void* qkvd, int M, int L, int Lp,
+                    int N, int K, void* stream) {
+  if (L < 1 || Lp < L) return (int)cudaErrorInvalidValue;
+  DeltaArgs dl{};
+  dl.part = (float*)part;
+  dl.q = (int8_t*)cq;
+  dl.qs = (float*)cs;
+  dl.L = L;
+  dl.Lp = Lp;
+  return launch_gemm<true, QKV_CODE>(codes, wq, qkvd, M, N, K, (cudaStream_t)stream, sr, ws,
+                                     dl);
+}
+
+// Row 18 after its code pass: codes [B * Lp, C] int8 with sr [B * Lp] f32
+// (LN1 of x padded with zero rows to Lp, C = H * D), wq [3C, C] int8 (torch
+// layout) with ws [3C] f32 -> the cache cq [B, Lp, 3C] int8 and cs [B, Lp]
+// f32, out [B, L, C] bf16 = attention of bf16(f32(cq) * cs) on the rows l <
+// L; part [B * Lp, ceil(3C / 256)] f32 and qkvd [B, L, 3C] bf16 are
+// workspaces. Three launches: pass A, pass B, the core.
+int uspace_base_attn(const void* codes, const void* sr, const void* wq, const void* ws,
+                     void* part, void* cq, void* cs, void* qkvd, void* out, int B, int L,
+                     int Lp, int H, int D, float scale, void* stream) {
+  if (bad_shape(B, L, H, D) || Lp < L) return (int)cudaErrorInvalidValue;
+  const int C = H * D;
+  int err = uspace_qkv_amax(codes, sr, wq, ws, part, B * Lp, 3 * C, C, stream);
+  if (!err) err = uspace_qkv_code(codes, sr, wq, ws, part, cq, cs, qkvd, B * Lp, L, Lp, 3 * C, C,
+                                  stream);
+  return err ? err : launch_core(qkvd, out, B, L, H, D, scale, (cudaStream_t)stream);
 }
 
 // qkv [B, L, 3*H*D] bf16 (packed [q | k | v] x heads) -> out [B, L, H*D],

@@ -6,8 +6,9 @@
 // wrapper counts one launch of the whole):
 //   _base_attn_cache_kernel (row 18): a = attention(qkv(LN1(x))) in int8
 //     W8A8, emitting the qkv cache re-coded per row (int8 + scale):
-//     uspace_ln_codes (padded rows) -> uspace_int8_gemm_f32 ->
-//     uspace_qkv_recode -> uspace_packed_attention (attention.cu, row 1);
+//     uspace_ln_codes (padded rows) -> uspace_base_attn (attention.cu: the
+//     GEMM's pass A, the row amax partials; pass B, the codes; row 1's
+//     core);
 //   _delta_attn_kernel (row 19): qkv = deq(cache) + Wq q8(LN1(x) - LN1(x_b)),
 //     attention, xm = (x - x_b) + xm_b + Wp q8(a - a_b):
 //     uspace_ln_delta_codes -> uspace_qkv_delta (attention.cu) ->
@@ -36,24 +37,20 @@
 // both operations bound.
 //
 // Design. Row 18's qkv re-coding needs a whole row of 3C columns, which no
-// (batch, head) block sees: its GEMM writes the f32 qkv rows (177 MB at the
-// main path's shape) and a row pass codes them. That GEMM is
-// attention_block.cu's projection tile: one block of 8 warps per 64 rows x
-// 128 output columns, each warp 32 x 32; K chunks of 128 bytes of A and W
-// through a ring of four shared-memory stages by cp.async (rows past R
-// zero-filled), swizzled by row; mma.sync m16n8k32 s8 -> s32; the f32
-// epilogue works on registers. Row 19's two GEMMs are row 5's int8 wgmma
-// GEMM of attention.cu (qkv_gemm_kernel<true, QKV_DELTA | XM_DELTA>: TMA,
-// m64n256k32 s8, the product staged in f32 through the free ring, the
-// epilogue's reads and stores 4 columns a thread along the rows); their
-// int32 sums are exact, so they give the bits the mma.sync GEMM gave. The
-// row passes are one warp per row, the row held in registers; the code pass
-// of a stage delta (ln_delta_codes_kernel, which rows 23-25 share) keeps
-// u in registers and evaluates it once: 0.031 ms at the main path's shape
-// on an NVIDIA H100 80GB HBM3 at 700 W, 0.085 when it evaluated u twice
-// with 4-byte scale loads. Every float operation is an explicit _rn
-// intrinsic (rsqrtf is the library's). Each entry point returns
-// cudaGetLastError().
+// GEMM tile sees: attention.cu's int8 wgmma GEMM runs twice on the codes
+// of this file's padded LN1 pass, first keeping each row's amax partials
+// of its tiles (qkv_gemm_kernel<true, QKV_AMAX>), then coding the same
+// product with their max (QKV_CODE) into the cache and the bf16 input of
+// row 1's core; no f32 qkv leaves the chip. Row 19's two GEMMs are the
+// same GEMM (qkv_gemm_kernel<true, QKV_DELTA | XM_DELTA>: TMA, m64n256k32
+// s8, the product staged in f32 through the free ring, the epilogue's
+// reads and stores 4 columns a thread along the rows). The row passes here
+// are one warp per row, the row held in registers; the code pass of a
+// stage delta (ln_delta_codes_kernel, which rows 23-25 share) keeps u in
+// registers and evaluates it once: 0.031 ms at the main path's shape on an
+// NVIDIA H100 80GB HBM3 at 700 W, 0.085 when it evaluated u twice with
+// 4-byte scale loads. Every float operation is an explicit _rn intrinsic
+// (rsqrtf is the library's). Each entry point returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,16 +60,8 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int MAX_ROW_VEC = 8;    // a row in registers: C <= 8 * 8 * 32
-constexpr int ROW_WARPS = 8;      // the row passes: one warp per row
-constexpr int BM = 64, BN = 128;  // GEMM tile
-constexpr int KB = 128;           // K chunk, bytes of A and of W
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int NSTAGE = 4;
-constexpr int A_BYTES = BM * KB, W_BYTES = BN * KB;
-constexpr int STAGE = A_BYTES + W_BYTES;
-constexpr int SMEM = NSTAGE * STAGE;  // 96 KB
+constexpr int MAX_ROW_VEC = 8;  // a row in registers: C <= 8 * 8 * 32
+constexpr int ROW_WARPS = 8;    // the row passes: one warp per row
 
 // Row r of x [R, C] into registers v (8 bf16 per vector, lane + 32 i).
 __device__ inline void load_row(const bf16* __restrict__ x, int r, int C,
@@ -243,178 +232,6 @@ ln_delta_codes_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
   }
 }
 
-// The f32 qkv rows [B * Lp, N] -> the cache codes cq [B * Lp, N] int8 and
-// scales cs [B * Lp] f32, and the attention's input bf16(f32(cq) * cs) for
-// the rows l < L into qkvd [B, L, N]. Two passes over the row (amax, codes).
-__global__ void __launch_bounds__(ROW_WARPS * 32)
-recode_kernel(const float* __restrict__ qkv, int8_t* __restrict__ cq,
-              float* __restrict__ cs, bf16* __restrict__ qkvd, int rows, int L, int Lp,
-              int N) {
-  const int lane = threadIdx.x & 31, nv = N / 4;
-  const int r = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
-  if (r >= rows) return;
-  const float4* row = reinterpret_cast<const float4*>(qkv + (size_t)r * N);
-  float amax = 0.f;
-  for (int v = lane; v < nv; v += 32) {
-    const float4 f = row[v];
-    amax = fmaxf(fmaxf(amax, fabsf(f.x)), fmaxf(fabsf(f.y), fmaxf(fabsf(f.z), fabsf(f.w))));
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  amax = fmaxf(amax, 1e-8f);
-  const float inv127 = __fdiv_rn(127.f, amax);
-  const float sc = __fmul_rn(amax, 1.0f / 127.0f);
-  if (lane == 0) cs[r] = sc;
-  const int b = r / Lp, l = r % Lp;
-  for (int v = lane; v < nv; v += 32) {
-    const float4 f = row[v];
-    const float fv[4] = {f.x, f.y, f.z, f.w};
-    char4 c;
-    signed char* cc = reinterpret_cast<signed char*>(&c);
-    uint2 packed;
-    bf16* d = reinterpret_cast<bf16*>(&packed);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int code = __float2int_rn(__fmul_rn(fv[k], inv127));
-      cc[k] = (signed char)code;
-      d[k] = __float2bfloat16_rn(__fmul_rn((float)code, sc));
-    }
-    *reinterpret_cast<char4*>(cq + (size_t)r * N + v * 4) = c;
-    if (l < L)
-      *reinterpret_cast<uint2*>(qkvd + ((size_t)b * L + l) * N + v * 4) = packed;
-  }
-}
-
-__device__ inline void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n)
-               : "memory");
-}
-
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Byte offset of (row, byte b) in a tile of 128-byte rows whose 16-byte
-// segments are XOR-swizzled by ((row & 3) << 1) | ((row >> 2) & 1).
-__device__ inline int swz(int row, int b) {
-  const int sh = ((row & 3) << 1) | ((row >> 2) & 1);
-  return row * KB + (((b >> 4) ^ sh) << 4) + (b & 15);
-}
-
-__device__ inline unsigned lds32(const unsigned char* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-__device__ inline void mma_s8(int (&d)[4], unsigned a0, unsigned a1, unsigned a2,
-                              unsigned a3, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// out_f32 = (f32(acc) * sr) * ws with acc = a @ w^T in int32, for codes a [R,
-// K] int8 with row scales sr and w [N, K] int8 with column scales ws.
-__global__ void __launch_bounds__(THREADS)
-int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
-                 const float* __restrict__ sr, const float* __restrict__ ws,
-                 float* __restrict__ out_f32, int R, int N, int K) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // rows wm*32.., columns wn*32..
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  const int nk = K / KB;
-  const unsigned char* A = reinterpret_cast<const unsigned char*>(a);
-  const unsigned char* W = reinterpret_cast<const unsigned char*>(w);
-
-  auto fetch = [&](int kc) {
-    unsigned char* st = smem + (kc % NSTAGE) * STAGE;
-    for (int v = tid; v < BM * 8; v += THREADS) {
-      const int r = v >> 3, seg = v & 7, gr = row0 + r;
-      const bool ok = gr < R;
-      cp_async16(st + swz(r, seg * 16),
-                 A + (size_t)(ok ? gr : 0) * K + (size_t)kc * KB + seg * 16, ok);
-    }
-    unsigned char* wt = st + A_BYTES;
-    for (int v = tid; v < BN * 8; v += THREADS) {
-      const int n = v >> 3, seg = v & 7;
-      cp_async16(wt + swz(n, seg * 16), W + (size_t)(col0 + n) * K + (size_t)kc * KB + seg * 16,
-                 true);
-    }
-  };
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
-
-#pragma unroll
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    if (s < nk) fetch(s);
-    cp_async_commit();
-  }
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<NSTAGE - 2>();
-    __syncthreads();  // chunk kc visible; every warp is done with kc - 1
-    if (kc + NSTAGE - 1 < nk) fetch(kc + NSTAGE - 1);
-    cp_async_commit();
-    const unsigned char* as = smem + (kc % NSTAGE) * STAGE;
-    const unsigned char* wt = as + A_BYTES;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {  // 4 k-steps of 32 bytes
-      unsigned b[4][2];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = wn * 32 + nt * 8 + g;
-        b[nt][0] = lds32(wt + swz(n, ks * 32 + t * 4));
-        b[nt][1] = lds32(wt + swz(n, ks * 32 + 16 + t * 4));
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16 + g;
-        const unsigned a0 = lds32(as + swz(r, ks * 32 + t * 4));
-        const unsigned a1 = lds32(as + swz(r + 8, ks * 32 + t * 4));
-        const unsigned a2 = lds32(as + swz(r, ks * 32 + 16 + t * 4));
-        const unsigned a3 = lds32(as + swz(r + 8, ks * 32 + 16 + t * 4));
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], a0, a1, a2, a3, b[nt][0], b[nt][1]);
-      }
-    }
-  }
-
-  // epilogue: this thread holds rows (mt*16 + hh*8 + g), columns nt*8 + 2t, +1
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int col = col0 + wn * 32 + nt * 8 + t * 2;
-    const float s0 = __ldg(ws + col), s1 = __ldg(ws + col + 1);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = row0 + wm * 32 + mt * 16 + hh * 8 + g;
-        if (r >= R) continue;
-        const float rs = __ldg(sr + r);
-        const float p0 = __fmul_rn(__fmul_rn((float)acc[mt][nt][hh * 2], rs), s0);
-        const float p1 = __fmul_rn(__fmul_rn((float)acc[mt][nt][hh * 2 + 1], rs), s1);
-        *reinterpret_cast<float2*>(out_f32 + (size_t)r * N + col) = make_float2(p0, p1);
-      }
-  }
-}
-
 inline bool bad_rows(int R, int C) {
   return R < 1 || C < 8 || C % 8 || C > MAX_ROW_VEC * 8 * 32;
 }
@@ -477,33 +294,6 @@ int uspace_ln_delta_codes(const void* x, const void* xb, const void* ln_scale,
 int uspace_diff_codes(const void* a, const void* ab, void* codes, void* sr, int R, int C,
                       void* stream) {
   return launch_rows<DIFF>(a, ab, nullptr, nullptr, codes, sr, R, 1, 1, C, 0.f, stream);
-}
-
-// out [R, N] f32 = (f32(codes @ wq^T) * sr) * ws: codes [R, K] int8, sr [R]
-// f32, wq [N, K] int8, ws [N] f32.
-int uspace_int8_gemm_f32(const void* codes, const void* sr, const void* wq,
-                         const void* ws, void* out, int R, int N, int K, void* stream) {
-  if (R < 1 || N < BN || N % BN || K < KB || K % KB) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaFuncSetAttribute(int8_gemm_kernel,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err) return err;
-  const dim3 grid((R + BM - 1) / BM, N / BN);
-  int8_gemm_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
-      (const int8_t*)codes, (const int8_t*)wq, (const float*)sr, (const float*)ws,
-      (float*)out, R, N, K);
-  return (int)cudaGetLastError();
-}
-
-// qkv [B * Lp, N] f32 -> cq [B * Lp, N] int8, cs [B * Lp] f32, qkvd [B, L, N]
-// bf16 = bf16(f32(cq) * cs) of the rows l < L.
-int uspace_qkv_recode(const void* qkv, void* cq, void* cs, void* qkvd, int B, int L,
-                      int Lp, int N, void* stream) {
-  if (B < 1 || L < 1 || Lp < L || N < 4 || N % 4) return (int)cudaErrorInvalidValue;
-  const int rows = B * Lp;
-  recode_kernel<<<(rows + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0,
-                  (cudaStream_t)stream>>>((const float*)qkv, (int8_t*)cq, (float*)cs,
-                                          (bf16*)qkvd, rows, L, Lp, N);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

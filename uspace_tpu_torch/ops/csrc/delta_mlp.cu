@@ -41,8 +41,9 @@
 //   24-25's do) and fc2 0.144; the whole sub-block 0.54, 1.44 on
 //   mlp_int8.cu's block kernel; the C entry takes about 23 us of host time
 //   a call.
-// Rows 21 and 22 run as row 15 runs, three launches from one C entry
-// (uspace_base_mlp_eg, uspace_base_mlp_grad) after one set of checks:
+// Rows 20, 21 and 22 run as row 15 runs, three launches from one C entry
+// (uspace_base_mlp_e, uspace_base_mlp_eg, uspace_base_mlp_grad) after one
+// set of checks:
 //   uspace_base_mlp_codes: LN2 in f32 (not the bf16 chain) and the row
 //     codes of its rows, the row kept in registers (attention.cu's
 //     ln_codes_kernel, row 5's code pass);
@@ -52,20 +53,23 @@
 //     affine grid into the hidden workspace and gelu'(e) coded per row and
 //     strip into gp_q / gp_s, GELU and gelu' evaluated again (one erf) from
 //     e kept in the free ring;
-//   uspace_base_fc1_eg (row 21): two exchanges one after the other: amax
-//     |e|, then e coded in place (e_q, e_s), g = GELU(f32(e_q) * e_s) in
-//     the tile; max and min of g in their own partial slots, then g's
-//     affine codes straight into the caller's g_q, g_s, g_z, which fc2
-//     reads;
+//   uspace_base_fc1_eg (rows 20 and 21): two exchanges one after the
+//     other: amax |e|, then e coded in place (e_q, e_s), g = GELU(f32(e_q)
+//     * e_s) in the tile; max and min of g in their own partial slots, then
+//     g's affine codes into g_q, g_s, g_z, which fc2 reads: row 21's
+//     caller's buffers, row 20's workspace (row 20 needs the same two
+//     exchanges, and its fc2 reads the same affine codes, so it is row 21
+//     with g_q, g_s, g_z kept from the caller);
 //   uspace_base_fc2: row 15's fc2 (the fold with the colsums, bias and
 //     residual) that also stores the bf16 m it adds to x.
 //   On an NVIDIA H100 80GB HBM3 at 700 W and the main path's shape the
 //   code pass takes 0.018 ms, fc1 0.559 (row 22) and 0.458 (row 21), fc2
-//   0.164; row 22 0.75 ms a call and row 21 0.65 (1.91 and 1.67 on the block
-//   kernel below). Measured and lost: row 22 holding gelu'(e) of a warp's
-//   rows in registers (88 a lane) to code it without the second
-//   gelu_and_grad, bit-equal but 37% slower.
-// Row 20 keeps the block kernel below.
+//   0.164; row 22 0.75 ms a call and row 21 0.65 (1.91 and 1.67 on an
+//   earlier block kernel of 32 rows a block on mma.sync, which streamed both
+//   weights again for every 32 rows; row 20 took 1.65 ms on it). Measured
+//   and lost: row 22 holding gelu'(e) of a warp's rows in registers (88 a
+//   lane) to code it without the second gelu_and_grad, bit-equal but 37%
+//   slower.
 //
 // Bound at the main path's shape (12850 rows, C = 1024, hidden 4096): 2 x 2 x
 // 12850 x 1024 x 4096 = 215.6 G int8 operations over an H100 SXM's 1,979 TOPS
@@ -78,7 +82,7 @@
 // g_q, g_s, g_z in, o out: 219.2 MB = 65.4 us; row 25 as row 23: 166.1 MB.
 // All six are operations bound.
 //
-// What each block computes is what the TPU kernel computes for its rows:
+// What the pieces compute is what the TPU kernel computes for its rows:
 // - LN2 in f32 (uspace_tpu/ops/delta.py _ln_f32, not the bf16 chain of
 //   mlp_int8.cu): f32 sums over C, mu = sum / C, var = sum(x^2) / C - mu^2,
 //   rsqrt(var + eps), ((x - mu) * inv) * s + b in f32. Row codes
@@ -103,26 +107,6 @@
 // Every float product, sum and quotient is an explicit _rn intrinsic (expf
 // and rsqrtf are the library's), so no multiply-add is contracted where the
 // TPU kernel rounds twice.
-//
-// Row 20, design: mlp_int8.cu's block (rows 14-15), simple first; rows 21
-// and 22 ran on it until they moved to the wgmma pieces. One block of 16
-// warps per 32 rows; a strip's
-// codes need the whole strip of a row (1024 values at U-ViT-large), so a
-// block computes a 32 x 1024 strip at once with the accumulators in
-// registers (each warp 32 rows x 64 columns), reduces the row statistics
-// through shared memory, and codes the strip into an int8 hidden tile [32,
-// hidden] that never leaves shared memory. Row 20 needs two statistics one
-// after the other (amax of e, then the range of GELU of the coded e): the
-// registers hold e, then are overwritten with g, one GELU per value. fc2
-// walks 256 output
-// columns at a time over all strips. mma.sync m16n8k32 s8 x s8 -> s32;
-// weight chunks stream through a ring of two shared-memory stages by
-// cp.async, XOR-swizzled by row. Dynamic shared memory (~206 KB) is enabled
-// per launch. The block holds 32 rows (a strip of 32 rows' f32 values is
-// 128 KB of registers), so every 32 rows stream both weights (8.4 MB, 3.4
-// GB from L2 a call), its 402 blocks of one an SM run 3.05 waves, and no
-// product runs during the fc1 epilogue: the delta rows took 1.41-1.77 ms on
-// it against a 108.9 us bound.
 //
 // Rows 23-25, design (wgmma on TMA-fed tiles; one fc1 body templated on the
 // dg epilogue, delta_fc1_kernel<DG>):
@@ -176,77 +160,10 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int ROWS = 32;          // rows per block
-constexpr int WARPS = 16;
-constexpr int THREADS = WARPS * 32;
-constexpr int KC1 = 32;           // fc1 K chunk, bytes (2 swizzle segments)
-constexpr int KC2 = 128;          // fc2 K chunk, bytes (8 segments)
-constexpr int NO = 256;           // fc2 output columns per pass: 8 warps x 32
-constexpr int HPAD = 16;          // hidden row padding: conflict-free A loads
-constexpr int STAGE = 32768;      // max(strip * KC1, NO * KC2)
-constexpr int MAX_ROW_VEC = 8;    // a row in registers: C <= 8 * 8 * 32
 constexpr int MAX_STRIPS = 4;
 constexpr int MAX_SMEM = 232448;  // H100: 227 KB of dynamic smem per block
 
 __device__ inline float pos_inf() { return __int_as_float(0x7f800000); }
-
-__host__ __device__ inline int align128(int x) { return (x + 127) & ~127; }
-
-struct Layout {
-  int hq_ld, hq_bytes, ring_off, xs_off, hsc_off, zp_off, gpi_off, red_off, es_off,
-      bytes;
-};
-
-__host__ __device__ inline Layout make_layout(int hs, int strips) {
-  Layout s;
-  s.hq_ld = hs + HPAD;
-  s.hq_bytes = ROWS * s.hq_ld;  // one strip of the int8 hidden tile
-  s.ring_off = align128(strips * s.hq_bytes);
-  s.xs_off = s.ring_off + 2 * STAGE;
-  s.hsc_off = s.xs_off + ROWS * 4;
-  s.zp_off = s.hsc_off + MAX_STRIPS * ROWS * 4;
-  s.gpi_off = s.zp_off + MAX_STRIPS * ROWS * 4;
-  s.red_off = s.gpi_off + ROWS * 4;
-  s.es_off = s.red_off + 3 * WARPS * ROWS * 4;
-  s.bytes = s.es_off + ROWS * 4;
-  return s;
-}
-
-__device__ inline void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ inline void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Byte offset of (row, k) in a tile of rows of P 16-byte segments, the
-// segments XOR-swizzled by row (8 rows of a fragment load: 8 bank groups).
-template <int P>
-__device__ inline int swz(int row, int k) {
-  const int sh = P == 8 ? (row & 7) : P == 4 ? ((row >> 1) & 3) : ((row >> 2) & 1);
-  return row * P * 16 + (((k >> 4) ^ sh) << 4) + (k & 15);
-}
-
-__device__ inline void mma_s8(int (&d)[4], unsigned a0, unsigned a1, unsigned a2,
-                              unsigned a3, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ inline unsigned lds32(const int8_t* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
 
 __device__ inline bf16 badd(bf16 a, bf16 b) {
   return __float2bfloat16_rn(__fadd_rn(__bfloat162float(a), __bfloat162float(b)));
@@ -290,442 +207,6 @@ __device__ inline void gelu_and_grad(float x, float& g, float& gp) {
 // LN2 in f32 of one element: ((x - mu) * inv) * s + b.
 __device__ inline float ln_at(float x, float mu, float inv, float s, float b) {
   return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), inv), s), b);
-}
-
-// f32 statistics of a row held as bf16 vectors: mu and rsqrt(var + eps).
-__device__ inline void row_stats(const uint4 (&v)[MAX_ROW_VEC], int nvec, int C,
-                                 float eps, float& mu, float& inv) {
-  const int lane = threadIdx.x & 31;
-  float sum = 0.f, sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < MAX_ROW_VEC; ++i) {
-    if (lane + 32 * i >= nvec) continue;
-    const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float f = __bfloat162float(e[j]);
-      sum = __fadd_rn(sum, f);
-      sq = __fadd_rn(sq, __fmul_rn(f, f));
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
-    sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, o));
-  }
-  mu = __fdiv_rn(sum, (float)C);
-  const float var = __fsub_rn(__fdiv_rn(sq, (float)C), __fmul_rn(mu, mu));
-  inv = rsqrtf(__fadd_rn(var, eps));
-}
-
-// Rows row0.. -> u = LN2(x) in f32 -> int8 codes in xq (row stride ld) and
-// xs = amax / 127 per row; rows >= R get zero codes. One warp per row, the
-// rows held in registers; u is evaluated twice (for amax, then for the
-// codes), the same operations both times.
-__device__ void code_rows(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-                          const float* __restrict__ ln_b,
-                          int row0, int R, int C, float eps, int8_t* xq, int ld,
-                          float* xs_s) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nvec = C / 8;
-  for (int rr = warp; rr < ROWS; rr += WARPS) {
-    const int r = row0 + rr;
-    int8_t* q = xq + rr * ld;
-    if (r >= R) {
-      for (int v = lane; v < nvec; v += 32)
-        *reinterpret_cast<uint2*>(q + v * 8) = make_uint2(0u, 0u);
-      if (lane == 0) xs_s[rr] = 0.f;
-      continue;
-    }
-    uint4 v[MAX_ROW_VEC];
-    const uint4* row = reinterpret_cast<const uint4*>(x + (size_t)r * C);
-#pragma unroll
-    for (int i = 0; i < MAX_ROW_VEC; ++i)
-      if (lane + 32 * i < nvec) v[i] = __ldg(row + lane + 32 * i);
-    float mu, inv;
-    row_stats(v, nvec, C, eps, mu, inv);
-    auto u_at = [&](int i, int j) {
-      const int c = (lane + 32 * i) * 8 + j;
-      return ln_at(__bfloat162float(reinterpret_cast<const bf16*>(&v[i])[j]), mu, inv,
-                   __ldg(ln_s + c), __ldg(ln_b + c));
-    };
-    float amax = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAX_ROW_VEC; ++i) {
-      if (lane + 32 * i >= nvec) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(u_at(i, j)));
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    amax = fmaxf(amax, 1e-8f);
-    const float inv127 = __fdiv_rn(127.f, amax);
-#pragma unroll
-    for (int i = 0; i < MAX_ROW_VEC; ++i) {
-      if (lane + 32 * i >= nvec) continue;
-      uint2 packed;
-      int8_t* b = reinterpret_cast<int8_t*>(&packed);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = (int8_t)__float2int_rn(__fmul_rn(u_at(i, j), inv127));
-      *reinterpret_cast<uint2*>(q + (lane + 32 * i) * 8) = packed;
-    }
-    if (lane == 0) xs_s[rr] = __fmul_rn(amax, 1.0f / 127.0f);
-  }
-}
-
-// The pointers of one launch of row 20: c_q / c_s, the cache of e's codes
-// ([R, hidden] int8 and [R, strips] f32).
-struct Args {
-  const void *x, *lns, *lnb, *w1, *s1, *b1, *w2, *s2, *b2, *colsum;
-  void *c_q, *c_s, *m_out, *out;
-};
-
-// NT1: 8-column tiles per warp in a strip (strip width 16 * NT1 * 8).
-template <int NT1>
-__global__ void __launch_bounds__(THREADS, 1)
-delta_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-                 const float* __restrict__ ln_b, const int8_t* __restrict__ w1,
-                 const float* __restrict__ s1, const float* __restrict__ b1,
-                 const int8_t* __restrict__ w2, const float* __restrict__ s2,
-                 const float* __restrict__ b2, const float* __restrict__ colsum,
-                 int8_t* __restrict__ c_q, float* __restrict__ c_s, bf16* __restrict__ m_out,
-                 bf16* __restrict__ out, int R, int C, int strips, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int HS = WARPS * NT1 * 8;  // strip width
-  const int hidden = HS * strips, out_dim = C;
-  const Layout lay = make_layout(HS, strips);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * ROWS;
-  int8_t* hq = reinterpret_cast<int8_t*>(smem);
-  int8_t* xq = hq + (strips - 1) * lay.hq_bytes;  // until the last strip is coded
-  int8_t* ring = reinterpret_cast<int8_t*>(smem + lay.ring_off);
-  float* xs_s = reinterpret_cast<float*>(smem + lay.xs_off);
-  float* hsc_s = reinterpret_cast<float*>(smem + lay.hsc_off);
-  float* zp_s = reinterpret_cast<float*>(smem + lay.zp_off);
-  float* gpi_s = reinterpret_cast<float*>(smem + lay.gpi_off);
-  float* red_max = reinterpret_cast<float*>(smem + lay.red_off);
-  float* red_min = red_max + WARPS * ROWS;
-  float* red_abs = red_min + WARPS * ROWS;
-  float* es_s = reinterpret_cast<float*>(smem + lay.es_off);
-  const int ld = lay.hq_ld;
-
-  code_rows(x, ln_s, ln_b, row0, R, C, eps, xq, ld, xs_s);
-
-  // ---- fc1 + the strip epilogue, strip by strip ----
-  const int nk1 = C / KC1, n1 = strips * nk1;
-  auto issue1 = [&](int i) {
-    const int j = i / nk1, kc = i % nk1;
-    int8_t* st = ring + (i & 1) * STAGE;
-    for (int v = tid; v < HS * 2; v += THREADS) {
-      const int n = v >> 1, seg = v & 1;
-      cp_async16(st + swz<2>(n, seg * 16),
-                 w1 + (size_t)(j * HS + n) * C + kc * KC1 + seg * 16);
-    }
-  };
-  int acc[2][NT1][4];
-  issue1(0);
-  cp_async_commit();
-  for (int i = 0; i < n1; ++i) {
-    const int j = i / nk1, kc = i % nk1;
-    if (kc == 0) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT1; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
-    }
-    cp_async_wait_all();
-    __syncthreads();  // chunk i (and the x codes) visible; chunk i-1 done
-    if (i + 1 < n1) {
-      issue1(i + 1);
-      cp_async_commit();
-    }
-    const int8_t* st = ring + (i & 1) * STAGE;
-    unsigned a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int8_t* p = xq + (mt * 16 + g) * ld + kc * KC1 + t * 4;
-      a[mt][0] = lds32(p);
-      a[mt][1] = lds32(p + 8 * ld);
-      a[mt][2] = lds32(p + 16);
-      a[mt][3] = lds32(p + 8 * ld + 16);
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT1; ++nt) {
-      const int n = warp * NT1 * 8 + nt * 8 + g;
-      const unsigned b0 = lds32(st + swz<2>(n, t * 4));
-      const unsigned bb = lds32(st + swz<2>(n, 16 + t * 4));
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        mma_s8(acc[mt][nt], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b0, bb);
-    }
-    if (kc != nk1 - 1) continue;
-
-    // strip j epilogue. This thread holds rows mt*16 + hh*8 + g, columns
-    // nt*8 + t*2 + {0, 1}; acc takes an f32 value (e, or g) as its bits.
-    float mx[2][2], mn[2][2], ax[2][2];
-    auto reset_stats = [&]() {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          mx[mt][hh] = -pos_inf();
-          mn[mt][hh] = pos_inf();
-          ax[mt][hh] = 0.f;
-        }
-    };
-    // each row's statistics over the strip: max |e| into red_abs, or max
-    // and min of g into red_max and red_min, reduced over the quad, then
-    // over the warps by the caller after a barrier
-    auto publish = [&](bool with_range) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-          for (int o = 1; o <= 2; o <<= 1) {
-            if (!with_range)
-              ax[mt][hh] = fmaxf(ax[mt][hh], __shfl_xor_sync(0xffffffffu, ax[mt][hh], o));
-            if (with_range) {
-              mx[mt][hh] = fmaxf(mx[mt][hh], __shfl_xor_sync(0xffffffffu, mx[mt][hh], o));
-              mn[mt][hh] = fminf(mn[mt][hh], __shfl_xor_sync(0xffffffffu, mn[mt][hh], o));
-            }
-          }
-          if (t == 0) {
-            const int r = mt * 16 + hh * 8 + g;
-            if (!with_range) red_abs[warp * ROWS + r] = ax[mt][hh];
-            if (with_range) {
-              red_max[warp * ROWS + r] = mx[mt][hh];
-              red_min[warp * ROWS + r] = mn[mt][hh];
-            }
-          }
-        }
-    };
-
-    reset_stats();
-#pragma unroll
-    for (int nt = 0; nt < NT1; ++nt) {
-      const int col = j * HS + warp * NT1 * 8 + nt * 8 + t * 2;
-      const float sc0 = __ldg(s1 + col), sc1 = __ldg(s1 + col + 1);
-      const float bi0 = __ldg(b1 + col), bi1 = __ldg(b1 + col + 1);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = mt * 16 + hh * 8 + g;
-#pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            const int e = hh * 2 + k;
-            // e, kept in the registers as its bits
-            const float v = __fadd_rn(
-                __fmul_rn(__fmul_rn((float)acc[mt][nt][e], xs_s[r]), k ? sc1 : sc0),
-                k ? bi1 : bi0);
-            acc[mt][nt][e] = __float_as_int(v);
-            ax[mt][hh] = fmaxf(ax[mt][hh], fabsf(v));
-          }
-        }
-    }
-    publish(false);
-    __syncthreads();  // partials visible; every warp is done reading xq
-    if (tid < ROWS) {  // row tid's e scale: gpi_s = 127 / amax, es = amax / 127
-      float amax = 0.f;
-      for (int w = 0; w < WARPS; ++w) amax = fmaxf(amax, red_abs[w * ROWS + tid]);
-      amax = fmaxf(amax, 1e-8f);
-      gpi_s[tid] = __fdiv_rn(127.f, amax);
-      es_s[tid] = __fmul_rn(amax, 1.0f / 127.0f);
-      if (row0 + tid < R) c_s[(size_t)(row0 + tid) * strips + j] = es_s[tid];
-    }
-    __syncthreads();
-    // code e, write e_q, and keep g = GELU(f32(e_q) * e_s) in the
-    // registers: the base consumes e as coded (one GELU per value)
-    reset_stats();
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = mt * 16 + hh * 8 + g;
-        const float gi = gpi_s[r], es = es_s[r];
-        const bool live = row0 + r < R;
-#pragma unroll
-        for (int nt = 0; nt < NT1; ++nt) {
-          const int cl = warp * NT1 * 8 + nt * 8 + t * 2;
-          char2 c2;
-          c2.x = (signed char)__float2int_rn(
-              __fmul_rn(__int_as_float(acc[mt][nt][hh * 2]), gi));
-          c2.y = (signed char)__float2int_rn(
-              __fmul_rn(__int_as_float(acc[mt][nt][hh * 2 + 1]), gi));
-          const float g0 = gelu(__fmul_rn((float)c2.x, es));
-          const float g1 = gelu(__fmul_rn((float)c2.y, es));
-          acc[mt][nt][hh * 2] = __float_as_int(g0);
-          acc[mt][nt][hh * 2 + 1] = __float_as_int(g1);
-          mx[mt][hh] = fmaxf(mx[mt][hh], fmaxf(g0, g1));
-          mn[mt][hh] = fminf(mn[mt][hh], fminf(g0, g1));
-          if (live)
-            *reinterpret_cast<char2*>(c_q + (size_t)(row0 + r) * hidden + j * HS + cl) = c2;
-        }
-      }
-    publish(true);
-    __syncthreads();
-    if (tid < ROWS) {  // row tid's affine grid of g into hsc_s, zp_s
-      float gmax = -pos_inf(), gmin = pos_inf();
-      for (int w = 0; w < WARPS; ++w) {
-        gmax = fmaxf(gmax, red_max[w * ROWS + tid]);
-        gmin = fminf(gmin, red_min[w * ROWS + tid]);
-      }
-      hsc_s[j * ROWS + tid] = __fmul_rn(fmaxf(__fsub_rn(gmax, gmin), 1e-8f), 1.0f / 254.0f);
-      zp_s[j * ROWS + tid] = __fmul_rn(__fadd_rn(gmax, gmin), 0.5f);
-    }
-    __syncthreads();
-    int8_t* hj = hq + j * lay.hq_bytes;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = mt * 16 + hh * 8 + g;
-        const float sc = hsc_s[j * ROWS + r], zp = zp_s[j * ROWS + r];
-#pragma unroll
-        for (int nt = 0; nt < NT1; ++nt) {
-          const int cl = warp * NT1 * 8 + nt * 8 + t * 2;
-          char2 c2;  // the registers hold g
-          c2.x = (signed char)__float2int_rn(
-              __fdiv_rn(__fsub_rn(__int_as_float(acc[mt][nt][hh * 2]), zp), sc));
-          c2.y = (signed char)__float2int_rn(
-              __fdiv_rn(__fsub_rn(__int_as_float(acc[mt][nt][hh * 2 + 1]), zp), sc));
-          *reinterpret_cast<char2*>(hj + r * ld + cl) = c2;
-        }
-      }
-  }
-
-  // ---- fc2 over the strips, NO output columns at a time ----
-  const int nk2 = HS / KC2, n2 = strips * nk2;
-  const int rg = warp >> 3, cg = warp & 7;  // 2 row groups x 8 column groups
-  for (int o0 = 0; o0 < out_dim; o0 += NO) {
-    auto issue2 = [&](int i) {
-      const int j = i / nk2, kc = i % nk2;
-      int8_t* st = ring + (i & 1) * STAGE;
-      for (int v = tid; v < NO * 8; v += THREADS) {
-        const int n = v >> 3, seg = v & 7;
-        cp_async16(st + swz<8>(n, seg * 16),
-                   w2 + (size_t)(o0 + n) * hidden + j * HS + kc * KC2 + seg * 16);
-      }
-    };
-    float accf[4][4];
-    int d[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) accf[nt][e] = 0.f;
-    __syncthreads();  // the ring's last readers (fc1 or the previous pass) are done
-    issue2(0);
-    cp_async_commit();
-    for (int i = 0; i < n2; ++i) {
-      const int j = i / nk2, kc = i % nk2;
-      if (kc == 0) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) d[nt][e] = 0;
-      }
-      cp_async_wait_all();
-      __syncthreads();
-      if (i + 1 < n2) {
-        issue2(i + 1);
-        cp_async_commit();
-      }
-      const int8_t* st = ring + (i & 1) * STAGE;
-      const int8_t* A = hq + j * lay.hq_bytes + (rg * 16 + g) * ld + kc * KC2 + t * 4;
-#pragma unroll
-      for (int ks = 0; ks < KC2; ks += 32) {
-        const unsigned a0 = lds32(A + ks), a1 = lds32(A + 8 * ld + ks);
-        const unsigned a2 = lds32(A + ks + 16), a3 = lds32(A + 8 * ld + ks + 16);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int n = cg * 32 + nt * 8 + g;
-          mma_s8(d[nt], a0, a1, a2, a3, lds32(st + swz<8>(n, ks + t * 4)),
-                 lds32(st + swz<8>(n, ks + 16 + t * 4)));
-        }
-      }
-      if (kc == nk2 - 1) {  // strip j done
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = o0 + cg * 32 + nt * 8 + t * 2;
-          const float cs0 = __ldg(colsum + j * out_dim + col);
-          const float cs1 = __ldg(colsum + j * out_dim + col + 1);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = rg * 16 + (e >> 1) * 8 + g;
-            const float term = __fmul_rn((float)d[nt][e], hsc_s[j * ROWS + r]);
-            // + zp_j * colsum_j (the affine grid's zero point)
-            accf[nt][e] = __fadd_rn(
-                accf[nt][e], __fadd_rn(term, __fmul_rn(zp_s[j * ROWS + r], (e & 1) ? cs1 : cs0)));
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = o0 + cg * 32 + nt * 8 + t * 2;
-      const float w0 = __ldg(s2 + col), w1v = __ldg(s2 + col + 1);
-      const float c0 = __ldg(b2 + col), c1 = __ldg(b2 + col + 1);
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = row0 + rg * 16 + hh * 8 + g;
-        if (r >= R) continue;
-        const size_t at = (size_t)r * out_dim + col;
-        __nv_bfloat162 m;  // m = acc * s2 + b2
-        m.x = __float2bfloat16_rn(__fadd_rn(__fmul_rn(accf[nt][hh * 2], w0), c0));
-        m.y = __float2bfloat16_rn(__fadd_rn(__fmul_rn(accf[nt][hh * 2 + 1], w1v), c1));
-        *reinterpret_cast<__nv_bfloat162*>(m_out + at) = m;
-        const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(x + at);
-        __nv_bfloat162 o;
-        o.x = badd(xr.x, m.x);
-        o.y = badd(xr.y, m.y);
-        *reinterpret_cast<__nv_bfloat162*>(out + at) = o;
-      }
-    }
-  }
-}
-
-template <int NT1>
-int launch_nt(const Args& a, int R, int C, int strips, float eps, cudaStream_t stream) {
-  const Layout lay = make_layout(WARPS * NT1 * 8, strips);
-  if (lay.bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaFuncSetAttribute(delta_mlp_kernel<NT1>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      lay.bytes);
-  if (err) return err;
-  delta_mlp_kernel<NT1><<<(R + ROWS - 1) / ROWS, THREADS, lay.bytes, stream>>>(
-      (const bf16*)a.x, (const float*)a.lns, (const float*)a.lnb, (const int8_t*)a.w1,
-      (const float*)a.s1, (const float*)a.b1, (const int8_t*)a.w2, (const float*)a.s2,
-      (const float*)a.b2, (const float*)a.colsum, (int8_t*)a.c_q, (float*)a.c_s,
-      (bf16*)a.m_out, (bf16*)a.out, R, C, strips, eps);
-  return (int)cudaGetLastError();
-}
-
-// row 20 on the block kernel
-int launch_block(const Args& a, int R, int C, int hidden, int strips, float eps,
-                 void* stream) {
-  if (R < 1 || strips < 1 || strips > MAX_STRIPS || hidden % strips)
-    return (int)cudaErrorInvalidValue;
-  const int hs = hidden / strips;
-  if (C < NO || C % NO || C > MAX_ROW_VEC * 8 * 32 || C > hs || hs % 256)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (hs / 128) {  // strips of 256, 512, 768, 1024 (U-ViT widths / 4)
-#define USPACE_NT(n) \
-  case n:            \
-    return launch_nt<n>(a, R, C, strips, eps, s);
-    USPACE_NT(2)
-    USPACE_NT(4)
-    USPACE_NT(6)
-    USPACE_NT(8)
-#undef USPACE_NT
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1747,9 +1228,9 @@ int launch_delta_fc2(const void* hq, const void* hsc, const void* hzp, const voi
   return (int)cudaGetLastError();
 }
 
-// Rows 21-22's workspace: codes [R, C] int8, sr [R] f32, and for row 22
-// the hidden codes hq [R, hidden] int8 with hsc, hzp [R, strips] f32, in
-// this order, each 256-byte aligned (ops/delta.py base_ws_sizes)
+// Rows 20-22's workspace: codes [R, C] int8, sr [R] f32, and for rows 20
+// and 22 the hidden codes hq [R, hidden] int8 with hsc, hzp [R, strips]
+// f32, in this order, each 256-byte aligned (ops/delta.py base_ws_sizes)
 struct BaseWs {
   void *codes, *sr, *hq, *hsc, *hzp;
 };
@@ -1779,7 +1260,7 @@ extern "C" {
 // [strips, C] f32 (column sums of each strip of w2's codes) -> out (x + m)
 // and m_out [R, C] bf16, gp_q [R, hidden] int8, gp_s [R, strips] f32. Three
 // launches on one stream (the f32 code pass, fc1, fc2 with m) through the
-// workspace ws (base_ws_bytes of "grad": the codes [R, C] int8, sr [R] f32,
+// workspace ws (base_ws_sizes of "grad": the codes [R, C] int8, sr [R] f32,
 // the hidden codes [R, hidden] int8, their scales and zero points [R,
 // strips] f32, each 256-byte aligned; ws itself 256-byte aligned). Every
 // shape is checked before the first launch.
@@ -1803,23 +1284,10 @@ int uspace_base_mlp_grad(const void* x, const void* ln_scale, const void* ln_bia
   return err;
 }
 
-// Row 20. As row 22 before the workspace, with e_q [R, hidden] int8 and e_s
-// [R, strips] f32 (the pre-GELU hidden as coded) in place of gp_q and gp_s:
-// one launch of the block kernel.
-int uspace_base_mlp_e(const void* x, const void* ln_scale, const void* ln_bias,
-                      const void* w1, const void* s1, const void* b1, const void* w2,
-                      const void* s2, const void* b2, const void* colsum, void* out,
-                      void* m_out, void* e_q, void* e_s, int R, int C, int hidden,
-                      int strips, float eps, void* stream) {
-  return launch_block(Args{x, ln_scale, ln_bias, w1, s1, b1, w2, s2, b2, colsum, e_q, e_s,
-                           m_out, out},
-                      R, C, hidden, strips, eps, stream);
-}
-
 // Row 21. As row 22, with e_q [R, hidden] int8 and e_s [R, strips] f32 in
 // place of gp_q and gp_s, and g_q [R, hidden] int8 with g_s, g_z [R, strips]
 // f32: the affine codes of the GELU output, which fc2 reads. The workspace
-// holds the codes and sr alone (base_ws_bytes of "e+g").
+// holds the codes and sr alone (base_ws_sizes of "e+g").
 int uspace_base_mlp_eg(const void* x, const void* ln_scale, const void* ln_bias,
                        const void* w1, const void* s1, const void* b1, const void* w2,
                        const void* s2, const void* b2, const void* colsum, void* out,
@@ -1839,6 +1307,20 @@ int uspace_base_mlp_eg(const void* x, const void* ln_scale, const void* ln_bias,
     err = launch_delta_fc2<true, true>(g_q, g_s, g_z, colsum, w2, s2, b2, nullptr, x, out, R,
                                        C, hidden, strips, st, m_out);
   return err;
+}
+
+// Row 20. As row 21 with g_q, g_s, g_z in the workspace ws (base_ws_sizes
+// of "e", laid out as row 22's: the codes, sr, then g_q [R, hidden] int8,
+// g_s and g_z [R, strips] f32): the same three launches.
+int uspace_base_mlp_e(const void* x, const void* ln_scale, const void* ln_bias,
+                      const void* w1, const void* s1, const void* b1, const void* w2,
+                      const void* s2, const void* b2, const void* colsum, void* out,
+                      void* m_out, void* e_q, void* e_s, void* ws, int R, int C, int hidden,
+                      int strips, float eps, void* stream) {
+  const BaseWs w = base_ws(ws, R, C, hidden, strips);
+  return uspace_base_mlp_eg(x, ln_scale, ln_bias, w1, s1, b1, w2, s2, b2, colsum, out, m_out,
+                            e_q, e_s, w.hq, w.hsc, w.hzp, ws, R, C, hidden, strips, eps,
+                            stream);
 }
 
 // Rows 21-22's code pass alone: x [R, C] bf16 with LN2's f32 ln_scale,

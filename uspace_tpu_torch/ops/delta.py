@@ -10,7 +10,14 @@ kernels, hand-written in CUDA C++ for Hopper:
 - :func:`base_attn_block` (``csrc/delta_attention.cu``, TPU kernel
   ``_base_attn_cache_kernel``): ``a = attention(qkv(LN1(x)))`` in int8
   W8A8, the qkv re-coded per row (the cache ``qkv_q``/``qkv_s``) and the
-  attention run on the dequantized cache, so a zero delta reproduces ``a``;
+  attention run on the dequantized cache, so a zero delta reproduces ``a``.
+  Its four launches (counted as one): the padded LN1 code pass, then from
+  one C entry ``csrc/attention.cu``'s int8 wgmma GEMM twice, pass A keeping
+  each row's max |qkv| over each 256-column tile, pass B coding the same
+  product with their max into the cache and the core's bf16 input, then
+  row 1's core; :func:`qkv_amax_plain` and :func:`qkv_code_plain` are the
+  passes' twins and, with the code pass's and row 1's, make up
+  :func:`base_attn_plain`;
 - :func:`delta_attn_block` (same file, ``_delta_attn_kernel``): ``qkv =
   deq(cache) + Wq q8(LN1(x) - LN1(x_b))``, attention, ``xm = (x - x_b) +
   xm_b + Wp q8(a - a_b)``; both serve every hidden mode. Its five launches
@@ -28,12 +35,13 @@ kernels, hand-written in CUDA C++ for Hopper:
   ``_base_mlp_cache_kernel_g``): also the affine codes fc2 read
   (``g_q``/``g_s``/``g_z``); ``mode="grad"`` (``_base_mlp_cache_kernel_gr``):
   GELU on the exact f32 hidden, ``gelu'(e)`` coded per row and strip.
-  ``"e"`` is one block kernel; ``"e+g"`` and ``"grad"`` are three launches
-  from one C entry, counted as one: the f32 code pass of LN2(x), the mode's
-  fc1 on wgmma with its statistics shared across the strip's cluster, fc2
-  on wgmma storing m beside x + m; :func:`base_codes_plain`,
-  :func:`base_fc1_grad_plain`, :func:`base_fc1_eg_plain` and
-  :func:`base_fc2_plain` are the pieces' twins;
+  Each mode is three launches from one C entry, counted as one: the f32
+  code pass of LN2(x), the mode's fc1 on wgmma with its statistics shared
+  across the strip's cluster, fc2 on wgmma storing m beside x + m
+  (``"e"`` runs ``"e+g"``'s, its affine codes in the workspace);
+  :func:`base_codes_plain`, :func:`base_fc1_grad_plain`,
+  :func:`base_fc1_eg_plain` and :func:`base_fc2_plain` are the pieces'
+  twins;
 - :func:`delta_mlp_block` (same file): ``m = m_b + W2 q8(dg)`` per strip,
   ``o = x + m``, with ``de = W1 q8(LN2(x) - LN2(x_b))`` and ``dg = gelu(
   deq(e_q) + de) - gelu(deq(e_q))`` (``_delta_mlp_kernel``, the default),
@@ -97,7 +105,7 @@ from ._build import (
 from .attention import KERNEL_HEAD_DIMS, KERNEL_MAX_LEN, \
     packed_attention_plain
 from .mlp import _gelu_f32, affine_codes, col_slices, gelu_grad
-from .quant import int_matmul, row_codes, strip_colsums, true_div
+from .quant import QMAX, int_matmul, row_codes, strip_colsums, true_div
 
 # launches of each CUDA kernel since the last reset (the CPU twin does not count)
 LAUNCHES: Dict[str, int] = {"base_attn_cache": 0, "delta_attn": 0,
@@ -106,6 +114,7 @@ LAUNCHES: Dict[str, int] = {"base_attn_cache": 0, "delta_attn": 0,
                             "delta_mlp_g": 0, "delta_mlp_exact": 0}
 
 SEQ_ALIGN = 32  # the cache's row padding (the TPU kernels' Lp)
+QKV_BLOCK = 256  # row 18's columns of one amax partial: the GEMM's tile
 
 # the base MLP's cache of each mode: its kernel's entry point and count
 BASE_MODES = {"e": "base_mlp_e", "e+g": "base_mlp_eg",
@@ -166,19 +175,56 @@ def base_attn_plain(x: torch.Tensor, ln_scale: torch.Tensor,
                     ln_bias: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
                     num_heads: int, eps: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Twin of ``_base_attn_cache_kernel``: LN1 in f32 of x padded with zero
-    rows to Lp, row codes, the int8 QKV product ``f32(acc) * us * ws``, the
-    qkv re-coded per row (``qkv_q``, ``qkv_s``), the attention core on
-    ``bf16(f32(qkv_q) * qkv_s)`` of the L real rows."""
+    """Twin of ``_base_attn_cache_kernel`` as the card runs it: LN1 in f32
+    of x padded with zero rows to Lp and its row codes, pass A's row amax
+    partials of the int8 QKV product ``f32(acc) * us * ws``
+    (:func:`qkv_amax_plain`), pass B's codes of it per row over all 3C
+    columns (``qkv_q``, ``qkv_s``) with ``bf16(f32(qkv_q) * qkv_s)`` of the
+    L real rows (:func:`qkv_code_plain`, in x's dtype), and the attention
+    core on those."""
     b, l, c = x.shape
     lp = round_up(l, SEQ_ALIGN)
     u = ln_lanes(F.pad(x, (0, 0, 0, lp - l)), ln_scale, ln_bias, eps)
-    uq, us = row_codes(u)
-    qkv = int_matmul(uq, wq).float() * us * _vec(ws)
-    qkv_q, qkv_s = row_codes(qkv)
-    qkv_d = (qkv_q[:, :l].float() * qkv_s[:, :l]).to(x.dtype)
-    a = packed_attention_plain(qkv_d, num_heads, (c // num_heads) ** -0.5)
-    return a, qkv_q, qkv_s
+    uq, us = row_codes(u.reshape(b * lp, c))
+    part = qkv_amax_plain(uq, us, wq, ws)
+    qkv_q, qkv_s, qkv_d = qkv_code_plain(uq, us, wq, ws, part, l, lp,
+                                         x.dtype)
+    a = packed_attention_plain(qkv_d.reshape(b, l, 3 * c), num_heads,
+                               (c // num_heads) ** -0.5)
+    return a, qkv_q.reshape(b, lp, 3 * c), qkv_s.reshape(b, lp, 1)
+
+
+def _qkv_product(uq, us, wq, ws):
+    """Row 18's product ``(f32(acc) * us) * ws`` of the row codes uq [M, C]
+    with scales us [M, 1]: [M, 3C] f32."""
+    return int_matmul(uq, wq).float() * us * _vec(ws)
+
+
+def qkv_amax_plain(uq: torch.Tensor, us: torch.Tensor, wq: torch.Tensor,
+                   ws: torch.Tensor) -> torch.Tensor:
+    """Twin of row 18's pass A (``uspace_qkv_amax``): max |p| of each row of
+    the product p over each block of QKV_BLOCK columns (the GEMM's tile),
+    [M, ceil(3C / QKV_BLOCK)] f32."""
+    p = _qkv_product(uq, us, wq, ws).abs()
+    p = F.pad(p, (0, -p.shape[-1] % QKV_BLOCK))
+    return p.reshape(p.shape[0], -1, QKV_BLOCK).amax(dim=-1)
+
+
+def qkv_code_plain(uq: torch.Tensor, us: torch.Tensor, wq: torch.Tensor,
+                   ws: torch.Tensor, part: torch.Tensor, l: int, lp: int,
+                   dtype: torch.dtype = torch.bfloat16):
+    """Twin of row 18's pass B (``uspace_qkv_code``): the product p coded
+    per row with ``amax = max(max of the row's partials, 1e-8)``,
+    ``round(p * (127 / amax))`` and the scale ``amax * (1/127)`` (the rule
+    of :func:`ops.quant.row_codes`); ``(qkv_q [M, 3C] int8, qkv_s [M, 1]
+    f32, qkv [rows, 3C])``, qkv ``f32(qkv_q) * qkv_s`` rounded to ``dtype``
+    of the rows m = b Lp + i with i < L, in order."""
+    amax = torch.clamp(part.amax(dim=-1, keepdim=True), min=1e-8)
+    qkv_q = torch.round(_qkv_product(uq, us, wq, ws)
+                        * true_div(QMAX, amax)).to(torch.int8)
+    qkv_s = amax * (1.0 / QMAX)
+    keep = torch.arange(uq.shape[0], device=uq.device) % lp < l
+    return qkv_q, qkv_s, (qkv_q[keep].float() * qkv_s[keep]).to(dtype)
 
 
 def delta_attn_plain(x: torch.Tensor, xb: torch.Tensor, qkv_q: torch.Tensor,
@@ -472,7 +518,28 @@ def _attn_operands(x, num_heads, c, ln_scale, ln_bias, ws, dev):
     return lns, lnb, wsf
 
 
+def base_attn_ws_sizes(b: int, l: int, lp: int, c: int):
+    """Byte sizes of the pieces of row 18's workspace, in order, each
+    rounded up to 256 bytes in it: the LN1 row codes [B Lp, C] int8 and
+    scales [B Lp] f32, pass A's amax partials [B Lp, ceil(3C / QKV_BLOCK)]
+    f32, the core's bf16 input [B, L, 3C]."""
+    m, n = b * lp, 3 * c
+    return [m * c, 4 * m, 4 * m * -(-n // QKV_BLOCK), 2 * b * l * n]
+
+
+def _ws_pieces(ws: torch.Tensor, sizes):
+    """The addresses of the workspace's pieces of the given sizes."""
+    at, out = ws.data_ptr(), []
+    for n in sizes:
+        out.append(at)
+        at += -(-n // 256) * 256
+    return out
+
+
 def _base_attn_kernel(x, ln_scale, ln_bias, wq, ws, num_heads, eps):
+    """Two C calls through one workspace allocation: the padded LN1 code
+    pass, then pass A, pass B and row 1's core from one entry; counted as
+    one launch."""
     b, l, c = x.shape
     dev = x.device
     lp = round_up(l, SEQ_ALIGN)
@@ -480,29 +547,69 @@ def _base_attn_kernel(x, ln_scale, ln_bias, wq, ws, num_heads, eps):
                                    dev)
     w = _codes_nk("wq", wq, 3 * c, c, dev)
     stream = cuda_stream(dev)
-    lib, att = load("delta_attention"), load("attention")
-    uq = torch.empty((b * lp, c), dtype=torch.int8, device=dev)
-    us = torch.empty((b * lp,), dtype=torch.float32, device=dev)
-    qkv = torch.empty((b * lp, 3 * c), dtype=torch.float32, device=dev)
     qkv_q = torch.empty((b, lp, 3 * c), dtype=torch.int8, device=dev)
     qkv_s = torch.empty((b, lp, 1), dtype=torch.float32, device=dev)
-    qkv_d = torch.empty((b, l, 3 * c), dtype=x.dtype, device=dev)
     a = torch.empty_like(x)
-    raise_on(lib.uspace_ln_codes(x.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
-                                 uq.data_ptr(), us.data_ptr(), b, l, lp, c,
-                                 eps, stream), "uspace_ln_codes")
-    raise_on(lib.uspace_int8_gemm_f32(uq.data_ptr(), us.data_ptr(),
-                                      w.data_ptr(), wsf.data_ptr(),
-                                      qkv.data_ptr(), b * lp, 3 * c, c,
-                                      stream), "uspace_int8_gemm_f32")
-    raise_on(lib.uspace_qkv_recode(qkv.data_ptr(), qkv_q.data_ptr(),
-                                   qkv_s.data_ptr(), qkv_d.data_ptr(), b, l,
-                                   lp, 3 * c, stream), "uspace_qkv_recode")
-    raise_on(att.uspace_packed_attention(
-        qkv_d.data_ptr(), a.data_ptr(), b, l, num_heads, c // num_heads,
-        (c // num_heads) ** -0.5, stream), "uspace_packed_attention")
+    sizes = base_attn_ws_sizes(b, l, lp, c)
+    work = _base_workspace(dev, sizes)
+    uq, us, part, qkv_d = _ws_pieces(work, sizes)
+    raise_on(load("delta_attention").uspace_ln_codes(
+        x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), uq, us, b, l, lp, c,
+        eps, stream), "uspace_ln_codes")
+    raise_on(load("attention").uspace_base_attn(
+        uq, us, w.data_ptr(), wsf.data_ptr(), part, qkv_q.data_ptr(),
+        qkv_s.data_ptr(), qkv_d, a.data_ptr(), b, l, lp, num_heads,
+        c // num_heads, (c // num_heads) ** -0.5, stream), "uspace_base_attn")
+    del work  # held until the launches are queued
     LAUNCHES["base_attn_cache"] += 1
     return a, qkv_q, qkv_s
+
+
+def _padded_codes_kernel(x, lns, lnb, eps):
+    """Row 18's code pass alone (``uspace_ln_codes``): the row codes of LN1
+    of x [B, L, C] bf16 padded with zero rows to Lp, ``(codes [B Lp, C]
+    int8, sr [B Lp] f32)``. Counted by no op."""
+    b, l, c = x.shape
+    lp = round_up(l, SEQ_ALIGN)
+    codes = torch.empty((b * lp, c), dtype=torch.int8, device=x.device)
+    sr = torch.empty((b * lp,), dtype=torch.float32, device=x.device)
+    raise_on(load("delta_attention").uspace_ln_codes(
+        x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), codes.data_ptr(),
+        sr.data_ptr(), b, l, lp, c, eps, cuda_stream(x.device)),
+        "uspace_ln_codes")
+    return codes, sr
+
+
+def _qkv_amax_kernel(codes, sr, w, wsf):
+    """Row 18's pass A alone: :func:`qkv_amax_plain` on the card for codes
+    [M, C] int8 with sr [M] f32 and w [3C, C] int8 (torch layout) with its
+    f32 scales. Counted by no op."""
+    m = codes.shape[0]
+    n = w.shape[0]
+    part = torch.empty((m, -(-n // QKV_BLOCK)), dtype=torch.float32,
+                       device=codes.device)
+    raise_on(load("attention").uspace_qkv_amax(
+        codes.data_ptr(), sr.data_ptr(), w.data_ptr(), wsf.data_ptr(),
+        part.data_ptr(), m, n, codes.shape[1], cuda_stream(codes.device)),
+        "uspace_qkv_amax")
+    return part
+
+
+def _qkv_code_kernel(codes, sr, w, wsf, part, l, lp):
+    """Row 18's pass B alone: :func:`qkv_code_plain` on the card (the rows
+    m of [., Lp], those with m % Lp < L into the bf16 output): ``(qkv_q [M,
+    3C] int8, qkv_s [M] f32, qkv [rows, 3C] bf16)``. Counted by no op."""
+    m, c = codes.shape
+    n, dev = w.shape[0], codes.device
+    rows = m // lp * l + min(m % lp, l)
+    qkv_q = torch.empty((m, n), dtype=torch.int8, device=dev)
+    qkv_s = torch.empty((m,), dtype=torch.float32, device=dev)
+    qkv = torch.empty((rows, n), dtype=torch.bfloat16, device=dev)
+    raise_on(load("attention").uspace_qkv_code(
+        codes.data_ptr(), sr.data_ptr(), w.data_ptr(), wsf.data_ptr(),
+        part.data_ptr(), qkv_q.data_ptr(), qkv_s.data_ptr(), qkv.data_ptr(),
+        m, l, lp, n, c, cuda_stream(dev)), "uspace_qkv_code")
+    return qkv_q, qkv_s, qkv
 
 
 def _delta_attn_kernel(x, xb, qkv_q, qkv_s, a_b, xm_b, ln_scale, ln_bias,
@@ -614,13 +721,14 @@ def _mlp_operands(x2d, w1q, s1, w2q, s2, strips, ln_scale, ln_bias):
 
 
 def base_ws_sizes(r: int, c: int, hidden: int, strips: int, mode: str):
-    """Byte sizes of the pieces of rows 21-22's workspace, in the order in
+    """Byte sizes of the pieces of rows 20-22's workspace, in the order in
     which their C entries carve it, each rounded up to 256 bytes there: the
-    row codes [R, C] int8 and scales [R] f32, and for ``"grad"`` the hidden
-    codes [R, hidden] int8 with their scales and zero points [R, strips]
-    f32 (row 21's hidden codes are its g_q, g_s, g_z)."""
+    row codes [R, C] int8 and scales [R] f32, and for ``"grad"`` and
+    ``"e"`` the hidden codes [R, hidden] int8 with their scales and zero
+    points [R, strips] f32 (row 20's g_q, g_s, g_z; row 21 writes them to
+    its caller)."""
     sizes = [r * c, 4 * r]
-    if mode == "grad":
+    if mode != "e+g":
         sizes += [r * hidden, 4 * r * strips, 4 * r * strips]
     return sizes
 
@@ -633,9 +741,9 @@ def _base_workspace(dev, sizes) -> torch.Tensor:
 
 def _base_mlp_kernel(x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps,
                      strips, mode):
-    """One C call. Row 20 (``"e"``) launches the block kernel; rows 21 and
-    22 (``"e+g"``, ``"grad"``) launch the code pass, fc1 and fc2 with m,
-    counted as one, through one workspace allocation."""
+    """One C call: rows 20, 21 and 22 (``"e"``, ``"e+g"``, ``"grad"``)
+    launch the code pass, fc1 and fc2 with m, counted as one, through one
+    workspace allocation."""
     r, c = x2d.shape
     hidden = w1q.shape[-1]
     dev = x2d.device
@@ -655,10 +763,9 @@ def _base_mlp_kernel(x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps,
     cache = codes()
     if mode == "e+g":
         cache += codes() + (torch.empty_like(cache[1]),)
-    ws = (() if mode == "e" else
-          (_base_workspace(dev, base_ws_sizes(r, c, hidden, strips, mode)),))
+    ws = _base_workspace(dev, base_ws_sizes(r, c, hidden, strips, mode))
     _base_mlp_entry(mode, x2d, lns, lnb, w1, s1f, b1f, w2, s2f, b2f, colsum,
-                    o, m, cache + ws, strips, eps)
+                    o, m, cache + (ws,), strips, eps)
     del ws  # held until the launches are queued
     LAUNCHES[BASE_MODES[mode]] += 1
     return (o, cache[0], cache[1], m) + cache[2:]
@@ -667,7 +774,7 @@ def _base_mlp_kernel(x2d, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps,
 def _base_mlp_entry(mode, x2d, lns, lnb, w1, s1f, b1f, w2, s2f, b2f, colsum,
                     o, m, rest, strips, eps):
     """The one C call of rows 20-22 on checked operands, into o, m and
-    ``rest`` (the mode's cache, then for rows 21-22 the workspace)."""
+    ``rest`` (the mode's cache, then the workspace)."""
     r, c = x2d.shape
     fn = "uspace_" + BASE_MODES[mode]
     raise_on(getattr(load("delta_mlp"), fn)(
