@@ -26,7 +26,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    20 and 22's outputs bit for bit and row 24 within DELTA_G_ZERO_REL of
    row 21's; rows 15 and 19 by their pieces: row 15's code pass, fc1 and
    fc2 and row 19's code pass and two GEMMs each bit-equal to its twin on
-   the same inputs, row 15's sub-block to its pieces and to a repeat; rows
+   the same inputs, row 15's sub-block to its pieces and to a repeat, row
+   14 (its limit bit-equality) to its pieces' twins and to a repeat; rows
    21 and 22 by their pieces the same way (the f32 code pass, the mode's
    fc1, fc2 with m) at 12850 and 129 rows; row 18 by its pieces (the padded
    LN1 code pass, the GEMM's pass A partials, pass B's codes, scales and
@@ -177,11 +178,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    features of `auto` against `xla` on 2 samples within the path limits,
    the edit moving the latents one way beyond the routes' bf16 noise; the
    roundtrip errors as readings;
-26. a U-ViT at the JAX package's U-ViT toys' shape (embed 128, depth 6, 4
-   heads of 32, 8 x 8 x 4 latents, seeded weights): 2 train steps at batch
-   256 on `pallas_packed` with exact launches of rows 1 and 4 at head dim
-   32 and finite losses; Euler-50 at batch 64 on `auto` (row 2 at head dim
-   32) against `xla` within the path limits, exact launches; the W8A8 view
+26. the JAX package's U-ViT toy (`synthetic_attr_e2e`: embed 128, depth 6,
+   4 heads of 32, 8 x 8 x 4 latents): `cli.train_lfm.run` for 2 steps at
+   batch 256 on `pallas_packed` from the config's dataset and loader, with
+   exact launches of rows 1 and 4 at head dim 32 and finite losses;
+   Euler-50 at batch 64 on `auto` (row 2 at head dim 32) with its EMA
+   weights against `xla` within the path limits, exact launches;
+   `cli.editing_e2e.run` on those weights at 16 samples, 3 scales and
+   Euler-10, exact launches of row 2 in the read, the sweeps with the
+   dopri5 decode, and the roundtrip, every artefact written; the W8A8 view
    at head dim 32 (embed 256 in 8 heads of 32: the int8 MLP kernels take
    strips of 256 hidden units or more, embed 128 gives 128) Euler-50 at
    batch 64 on `pallas_qkvproj` (row 6) and `pallas_block` (row 11) with
@@ -419,6 +424,8 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 # (synthetic_attr_e2e.py: train.batch_size 256) and its sampling batch
 # (sample.mini_batch_size 64)
 TOY_TRAIN_B, TOY_TRAIN_STEPS, TOY_SAMPLE_B = 256, 2, 64
+# phase 26's editing_e2e.run: one read batch, Euler steps of 0.1
+TOY_E2E_N, TOY_E2E_STEPS = 16, 10
 # phase 26's W8A8 view at head dim 32: the narrowest width whose MLP strips
 # (hidden / 4) the int8 MLP kernels take
 TOY_Q_EMBED = 256
@@ -739,11 +746,12 @@ def piece_checks(torch, attn, quant, randn):
 
 
 def row15_19_piece_checks(torch, mlpk, quant, randn):
-    """Rows 15 and 19 by their pieces at the main path's shapes (12850
+    """Rows 15, 14 and 19 by their pieces at the main path's shapes (12850
     rows, C 1024, hidden 4096; B = 50, L = 257, Lp = 288): row 15's code
     pass bit-equal to ``row_codes`` of the bf16-chain LN2 in lane order, its
     fc1 (codes, scales, zero points) and fc2 bit-equal to their twins on the
     same inputs, the sub-block bit-equal to its pieces and to a repeat; row
+    14 bit-equal to its pieces' twins in sequence and to a repeat; row
     19's code pass bit-equal to ``ln_delta_codes_plain``, its qkv and xm
     GEMMs bit-equal to the twins' dequantised products on the same codes.
     Returns what disagreed."""
@@ -785,6 +793,21 @@ def row15_19_piece_checks(torch, mlpk, quant, randn):
         f"{k} {'bit-equal' if v else 'DIFFERS'}" for k, v in checks.items()))
     problems += [f"row 15's {k} differs" for k, v in checks.items() if not v]
     del hq, twin, block, again
+    # row 14: row 15's pieces on x's own rows, without the residual
+    with torch.no_grad():
+        row14 = mlpk.fused_mlp(x, w1, b1, w2, b2, quant=True)
+        again = mlpk.fused_mlp(x, w1, b1, w2, b2, quant=True)
+        xq, xs = quant.row_codes(x.float())
+        ref = mlpk.mlp_int8_fc2_plain(
+            *mlpk.mlp_int8_fc1_plain(xq, xs, q1, b1, strips), q2, b2, x,
+            residual=False)
+    torch.cuda.synchronize()
+    checks = dict(pieces=torch.equal(row14, ref),
+                  repeat=torch.equal(row14, again))
+    log(f"piece mlp_int8, {rows} rows: " + ", ".join(
+        f"{k} {'bit-equal' if v else 'DIFFERS'}" for k, v in checks.items()))
+    problems += [f"row 14's {k} differs" for k, v in checks.items() if not v]
+    del row14, again, ref, xq
     lp = dops.round_up(L, dops.SEQ_ALIGN)
     xb = randn(rows, C, std=STREAM_STD)
     xs = (xb.float() + randn(rows, C, std=STAGE_GAP * STREAM_STD,
@@ -1091,10 +1114,8 @@ def int8_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
     mbytes = io(q1.q, q1.scale, b1, q2.q, q2.scale, b2)
     mshape = f"rows={rows} C={C} hidden={hid} strips={strips} bf16/int8"
     ashape = f"B={B} L={L} C={C} H={H} bf16/int8"
-    # row 15 runs delta_mlp.cu's wgmma GEMMs after its code pass; row 14
-    # keeps mlp_int8.cu's block kernel
-    mlp_src = "uspace_tpu_torch/ops/csrc/mlp_int8.cu"
-    lnmlp_src = "uspace_tpu_torch/ops/csrc/delta_mlp.cu"
+    # rows 15 and 14 run delta_mlp.cu's wgmma GEMMs after their code pass
+    mlp_src = "uspace_tpu_torch/ops/csrc/delta_mlp.cu"
     a_tol, m_tol = (None, INT8_ATTN_REL_L2), (None, INT8_MLP_REL_L2)
     return [
         dict(name="ln_qkvproj_attention_int8",
@@ -1119,7 +1140,7 @@ def int8_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
              bytes=io(x) + wbytes + io(x), flops=attn_flops,
              int8_ops=proj_ops, tol=a_tol, shape=ashape,
              controls=a_ctl("x coded by division", "a bf16 projection")),
-        dict(name="ln_mlp_int8", source=lnmlp_src,
+        dict(name="ln_mlp_int8", source=mlp_src,
              replaces="uspace_tpu/ops/mlp.py:225 (_mlp_kernel_int8_lnres)",
              kernel=lambda: mlpk.fused_mlp_block_q(xr, lns, lnb, w1, b1, w2,
                                                    b2),
@@ -1138,7 +1159,8 @@ def int8_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
              plain=lambda: mlpk.mlp_int8_plain(xr, q1, b1, q2, b2, strips),
              library=lambda: lib_mlp(xr.float()),
              bytes=io(xr) + mbytes + io(xr), flops=0.0, int8_ops=mlp_ops,
-             tol=m_tol, shape=mshape,
+             # its pieces' twins to the bit, as row 15's pieces are
+             tol=(0.0, 0.0), shape=mshape,
              controls=m_ctl("the hidden kept in f32",
                             "one hidden grid per row",
                             "x coded by division")),
@@ -3496,7 +3518,8 @@ def editing_path(torch, np, attn, mlpk, sample_lfm, dev, config):
     readings."""
     from uspace_tpu_torch.cli import dissect_common, dissect_lfm
     from uspace_tpu_torch.configs import get_config
-    from uspace_tpu_torch.data.datasets import batches, get_dataset
+    from uspace_tpu_torch.data.datasets import get_dataset
+    from uspace_tpu_torch.data.loader import DataLoader
     from uspace_tpu_torch.editing.directions import (orthogonality_error,
                                                      select_direction)
     from uspace_tpu_torch.editing.drivers import DissectSession
@@ -3565,7 +3588,7 @@ def editing_path(torch, np, attn, mlpk, sample_lfm, dev, config):
     others = {k: DissectSession(m, solver_kwargs=d["solver_kwargs"])
               for k, m in views.items()}
     data = get_dataset(**cfg["dataset"]).get_split("train")
-    two = next(batches(data, 2))
+    two = next(iter(DataLoader(data, 2, shuffle=False)))
     f = {k: torch.as_tensor(s_.read([two], generator=torch.Generator(
         device=dev).manual_seed(5))["feats"])
         for k, s_ in (("auto", session), *others.items())}
@@ -3623,7 +3646,8 @@ def editing_path(torch, np, attn, mlpk, sample_lfm, dev, config):
         fail(f"{config}: the edit does not move the latents one way")
 
     x = sample_from_moments(torch.as_tensor(
-        next(batches(data, EDIT_WRITE_N))["x"], device=dev),
+        next(iter(DataLoader(data, EDIT_WRITE_N, shuffle=False)))["x"],
+        device=dev),
         torch.Generator(device=dev).manual_seed(19))
     t0 = time.perf_counter()
     errs = session.roundtrip_error(x)
@@ -3644,67 +3668,55 @@ def editing_path(torch, np, attn, mlpk, sample_lfm, dev, config):
 
 
 def toy_uvit_path(torch, flow, attn, mlpk, sample_lfm, dev):
-    """Phase 26: a U-ViT at the shape of the JAX package's U-ViT toys
-    (uspace_tpu/configs/synthetic_attr_e2e.py:30: embed 128, depth 6, 4
-    heads of 32, 8 x 8 x 4 latents, L = 17) with seeded weights, where the
-    packed core and its backward run at head dim 32: TOY_TRAIN_STEPS train
-    steps at TOY_TRAIN_B on `pallas_packed` (the toys' training route,
-    cli/train_lfm.py) with exact launches of rows 1 and 4 and finite
-    losses; Euler-STEPS at TOY_SAMPLE_B on `auto` (row 2 in every block)
-    against `xla` from the same z within the path limits, exact launches;
-    then the W8A8 view at head dim 32 (TOY_Q_EMBED in heads of 32, the
-    same depth and latents): Euler-STEPS at TOY_SAMPLE_B on `pallas_qkvproj`
-    (row 6, the int8 MLP, row 14) and on `pallas_block` (row 11, the int8
-    MLP sub-block, row 15), exact launches, each against `xla`'s W8A8 view
+    """Phase 26: the JAX package's U-ViT toy (`synthetic_attr_e2e`,
+    uspace_tpu/configs/synthetic_attr_e2e.py:30: embed 128, depth 6, 4
+    heads of 32, 8 x 8 x 4 latents, L = 17), where the packed core and its
+    backward run at head dim 32: `cli.train_lfm.run` of TOY_TRAIN_STEPS
+    steps at TOY_TRAIN_B on `pallas_packed` (the toys' training route) from
+    the config's dataset and loader, exact launches of rows 1 and 4 and
+    finite losses; Euler-STEPS at TOY_SAMPLE_B on `auto` (row 2 in every
+    block) with those EMA weights against `xla` from the same z within the
+    path limits, exact launches; `cli.editing_e2e.run` on them at a reduced
+    size (TOY_E2E_N read samples, three scales, TOY_E2E_STEPS Euler steps)
+    with exact launches of row 2 in the read, the write sweeps, the dopri5
+    decode and the roundtrip, and every artefact written; then the W8A8
+    view at head dim 32 (TOY_Q_EMBED in heads of 32, the same depth and
+    latents): Euler-STEPS at TOY_SAMPLE_B on `pallas_qkvproj` (row 6, the
+    int8 MLP, row 14) and on `pallas_block` (row 11, the int8 MLP
+    sub-block, row 15), exact launches, each against `xla`'s W8A8 view
     (bf16 attention, row 14) from the same z at the quality gate."""
-    from uspace_tpu_torch.cli.train_lfm import build_train_model
+    from uspace_tpu_torch.cli import editing_e2e, train_lfm
+    from uspace_tpu_torch.cli.dissect_common import load_nnet_params
     from uspace_tpu_torch.configs import get_config, uvit_nnet
-    from uspace_tpu_torch.data.datasets import SyntheticFeatures
-    from uspace_tpu_torch.train.state import (
-        TrainState,
-        get_lr_schedule,
-        get_optimizer,
-    )
-    from uspace_tpu_torch.train.step import make_train_step
 
-    cfg = get_config("uvit_large")
-    cfg.update(z_shape=(4, 8, 8), nnet=uvit_nnet(
-        embed_dim=128, depth=6, num_heads=4, img_size=8,
-        use_checkpoint=False))
+    cfg = get_config("synthetic_attr_e2e")
     blocks = cfg["nnet"]["depth"] + 1
-    model = build_train_model(cfg, dev, seed=0, attn_impl="pallas_packed")
-    n_remat = sum(model.remat)
-    lr = get_lr_schedule("customized", 2e-4, warmup_steps=0)
-    tx = get_optimizer("adam", lr, betas=(0.9, 0.999), weight_decay=0.0)
-    state = TrainState.create(dict(model.named_parameters()), tx)
-    step = make_train_step(model, tx, lr_schedule=lr, ema_rate=0.999,
-                           latents_from_moments=True)
-    data = SyntheticFeatures(num=TOY_TRAIN_STEPS * TOY_TRAIN_B,
-                             shape=(8, 8, 8), seed=0)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    tmp = tempfile.TemporaryDirectory()
     reset_launches(attn, mlpk)
-    t0 = time.perf_counter()
-    metrics = [step(state, {"x": torch.from_numpy(data.batch(range(
-        i * TOY_TRAIN_B, (i + 1) * TOY_TRAIN_B))["x"]).to(dev)}, gen)
-        for i in range(TOY_TRAIN_STEPS)]
+    out = train_lfm.run(cfg, n_steps=TOY_TRAIN_STEPS, batch=TOY_TRAIN_B,
+                        workdir=tmp.name, log=log)
     torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
     got = all_launches(attn, mlpk)
-    losses = [float(m["loss"]) for m in metrics]
+    secs = out["seconds"]
+    losses = [h["loss"] for h in out["history"]]
+    n_remat = sum(out["model"].remat)
     want = dict(packed_attention=TOY_TRAIN_STEPS * (blocks + n_remat),
                 packed_attention_bwd=TOY_TRAIN_STEPS * blocks)
-    log(f"toy U-ViT (D=32) train, pallas_packed: {TOY_TRAIN_STEPS} steps at "
-        f"batch {TOY_TRAIN_B} in {secs:.3f} s, losses {losses}, launches "
-        f"{got} (expected {want})")
+    log(f"toy U-ViT (D=32) train_lfm.run, pallas_packed: {TOY_TRAIN_STEPS} "
+        f"steps at batch {TOY_TRAIN_B} in {secs:.3f} s, losses {losses}, "
+        f"launches {got} (expected {want})")
     if got != expected(attn, mlpk, **want):
         fail(f"toy U-ViT training launches {got}, expected {want}")
     if not all(map(math.isfinite, losses)):
         fail(f"toy U-ViT training losses {losses}")
     train = dict(steps=TOY_TRAIN_STEPS, batch=TOY_TRAIN_B, seconds=secs,
                  losses=losses, launches=want)
-    del model, state, step
+    del out
+    cfg["dissection"]["ckpt_path_to_dissect"] = os.path.join(tmp.name,
+                                                             "ckpts")
 
-    kmodel = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="auto")
+    kmodel = load_nnet_params(cfg, sample_lfm.build_model(
+        cfg, dev, seed=0, attn_impl="auto"))
     plain = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="xla")
     plain.load_state_dict(kmodel.state_dict())
     z = torch.randn((TOY_SAMPLE_B, 8, 8, 4), generator=torch.Generator(
@@ -3729,6 +3741,9 @@ def toy_uvit_path(torch, flow, attn, mlpk, sample_lfm, dev):
                  plain_seconds=secs_p, cos=cos, rel_l2=rel, max_abs=max_abs,
                  launches=n)
     del kmodel, plain
+    e2e = toy_editing_e2e(torch, attn, mlpk, editing_e2e, cfg, blocks,
+                          tmp.name)
+    tmp.cleanup()
 
     qcfg = get_config("uvit_large")
     qcfg.update(z_shape=(4, 8, 8), nnet=uvit_nnet(
@@ -3762,7 +3777,65 @@ def toy_uvit_path(torch, flow, attn, mlpk, sample_lfm, dev):
         w8a8[impl] = dict(seconds=secs_v, cos=cos, rel_l2=rel,
                           max_abs=max_abs, launches=counts)
         del view
-    return dict(train=train, euler=euler, w8a8=w8a8)
+    return dict(train=train, euler=euler, editing_e2e=e2e, w8a8=w8a8)
+
+
+def toy_editing_e2e(torch, attn, mlpk, editing_e2e, cfg, blocks, root):
+    """Phase 26's `cli.editing_e2e.run` on the toy's trained weights, cut to
+    TOY_E2E_N read and write samples, the scales (-300, 0, 300) and Euler
+    steps of 1 / TOY_E2E_STEPS: row 2 launched once a block in every
+    evaluation, counted between the harness's log lines (the read; the
+    write sweeps and the dopri5 decode, whose NFE the report gives; the
+    roundtrip's encode and decode), every artefact written. The verdict is
+    a reading: so short a training run has no attribute to edit."""
+    d = cfg["dissection"]
+    d.update(n_samples=TOY_E2E_N, mini_batch_size=TOY_E2E_N,
+             write_scales=(-300.0, 0.0, 300.0))
+    d["solver_kwargs"]["solver_fix_step"] = 1.0 / TOY_E2E_STEPS
+    marks = {}
+
+    def mark(line):
+        log(line)
+        for key in ("read:", "dopri5 decode", "editing_e2e:"):
+            if line.startswith(key):
+                marks[key] = all_launches(attn, mlpk)["qkvproj_attention"]
+
+    workdir = os.path.join(root, "e2e")
+    reset_launches(attn, mlpk)
+    t0 = time.perf_counter()
+    report = editing_e2e.run(cfg, workdir, log=mark)
+    secs = time.perf_counter() - t0
+    got = all_launches(attn, mlpk)
+    attrs, scales = len(report["attrs"]), len(d["write_scales"])
+    nfe = report["adaptive_decode"]["nfe"]
+    want = dict(read=blocks * TOY_E2E_STEPS,
+                write_and_dopri5=blocks * (attrs * scales * TOY_E2E_STEPS
+                                           + nfe),
+                roundtrip=blocks * 2 * TOY_E2E_STEPS)
+    seen = dict(read=marks.get("read:"),
+                write_and_dopri5=marks.get("dopri5 decode", 0)
+                - marks.get("read:", 0),
+                roundtrip=marks.get("editing_e2e:", 0)
+                - marks.get("dopri5 decode", 0))
+    files = sorted(os.listdir(workdir))
+    log(f"toy editing_e2e.run ({TOY_E2E_N} samples, {scales} scales, Euler "
+        f"{TOY_E2E_STEPS}): {secs:.1f} s, row 2 launches {seen} (expected "
+        f"{want}), dopri5 NFE {nfe}, passed {report['passed']} (a reading "
+        f"after {TOY_TRAIN_STEPS} steps), files {files}")
+    if seen != want or got != expected(
+            attn, mlpk, qkvproj_attention=sum(want.values())):
+        fail(f"toy editing_e2e launches {got} ({seen}), expected {want}")
+    needed = {"read.npz", "directions_attr.npz", "directions_pca.npz",
+              "roundtrip.txt", "editing_e2e.json", "editing_e2e.md"} | {
+        f"write_attr{a}_sweep.png" for a in range(attrs)}
+    if not needed <= set(files) or not all(
+            math.isfinite(r["effect_size"]) for r in report["attrs"]):
+        fail(f"toy editing_e2e wrote {files}, effects "
+             f"{[r['effect_size'] for r in report['attrs']]}")
+    return dict(seconds=secs, launches=want, nfe=nfe,
+                passed=report["passed"],
+                effects=[r["effect_size"] for r in report["attrs"]],
+                roundtrip=report["roundtrip"])
 
 
 def main():

@@ -571,14 +571,15 @@ def test_ctypes_signatures_match_c_source():
     as c_void_p (a 32-bit default would cut a pointer)."""
     assert set(_build.SIGNATURES) == {"attention", "attention_fwd",
                                       "fused_attention_bwd",
-                                      "mlp_int8", "mlp_w8", "attention_block",
+                                      "mlp_w8", "attention_block",
                                       "mlp_bf16", "delta_attention",
                                       "delta_mlp", "flash_attention"}
     # rows 20-22 of the kernel table: one entry point each (each chains
     # the code pass, its fc1 and fc2, each also an entry point); rows
     # 23-25: each its fc1 and the shared fc2 on wgmma (after
     # delta_attention.cu's code pass); row 15: its code pass, fc1 and fc2 on
-    # the same two bodies, and the entry that chains them
+    # the same two bodies, and the entry that chains them; row 14: the
+    # entry that chains its own code pass with row 15's fc1 and fc2
     assert set(_build.SIGNATURES["delta_mlp"]) == {
         f"uspace_{k}" for k in ("base_mlp_grad", "base_mlp_e", "base_mlp_eg",
                                 "base_mlp_codes", "base_fc1_grad",
@@ -586,7 +587,7 @@ def test_ctypes_signatures_match_c_source():
                                 "delta_fc1_exact", "delta_fc1_lin",
                                 "delta_fc1_g", "delta_fc2", "mlp_int8_fc1",
                                 "mlp_int8_fc2", "mlp_int8_codes",
-                                "ln_mlp_int8")}
+                                "ln_mlp_int8", "mlp_int8")}
     for name, sigs in _build.SIGNATURES.items():
         src = (_build.CSRC / f"{name}.cu").read_text()
         for fn, argtypes in sigs.items():

@@ -32,11 +32,8 @@ from uspace_tpu.models.unet import UNet as JaxUNet
 from uspace_tpu_torch.cli import dissect_lfm
 from uspace_tpu_torch.cli.dissect_common import load_nnet_params
 from uspace_tpu_torch.configs import get_config
-from uspace_tpu_torch.data.datasets import (
-    SyntheticAttrFeatures,
-    batches,
-    get_dataset,
-)
+from uspace_tpu_torch.data.datasets import SyntheticAttrFeatures, get_dataset
+from uspace_tpu_torch.data.loader import DataLoader
 from uspace_tpu_torch.editing import capture as tcapture
 from uspace_tpu_torch.editing import directions as tdir
 from uspace_tpu_torch.editing import specs as tspecs
@@ -253,9 +250,9 @@ def test_synthetic_attr_features_are_the_jax_draws():
             for k in ("x", "attr"):
                 assert np.array_equal(mine[i][k], ref[i][k])
     data = get_dataset("synthetic_attr", num=10).get_split("train")
-    got = [b["x"].shape for b in batches(data, 4)]
+    got = [b["x"].shape for b in DataLoader(data, 4, shuffle=False)]
     assert got == [(4, 8, 8, 8)] * 2  # the short last batch dropped
-    assert len(list(batches(data, 4, drop_last=False))) == 3
+    assert len(list(DataLoader(data, 4, shuffle=False, drop_last=False))) == 3
 
 
 def test_session_read_matches_jax(monkeypatch):
@@ -263,7 +260,7 @@ def test_session_read_matches_jax(monkeypatch):
     generator; JAX's sample_from_moments is handed the same draws."""
     m, jm, params = _pair("uvit")
     data = SyntheticAttrFeatures(num=4)
-    bs = list(batches(data, 2))
+    bs = list(DataLoader(data, 2, shuffle=False))
     g = torch.Generator().manual_seed(0)
     out = DissectSession(m, solver_kwargs=SK).read(bs, generator=g)
     g = torch.Generator().manual_seed(0)

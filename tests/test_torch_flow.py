@@ -240,7 +240,9 @@ _GUARD = textwrap.dedent("""
                  lambda: uspace_tpu_torch.cli.dissect_lfm.run(
                      "synthetic_smoke", "read"),
                  lambda: uspace_tpu_torch.cli.dissect_lfm.run(
-                     "synthetic_smoke", "build_attr")):
+                     "synthetic_smoke", "build_attr"),
+                 lambda: uspace_tpu_torch.cli.editing_e2e.run(
+                     "synthetic_attr_e2e", "e2e_out")):
         try:
             call()
         except RuntimeError as e:

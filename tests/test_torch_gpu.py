@@ -412,18 +412,23 @@ def test_int8_mlp_kernels_match_twins(cuda, rows, c):
                                           1e-5), INT8_MLP_REL_L2, x)
 
 
-@pytest.mark.parametrize("c", [256, 512, 1024])
+# (C, hidden) in 4 strips: hidden 4C (clusters of 1, 2 and 4 blocks a
+# strip), strips narrower than C, and C = 128 (one K chunk in fc1)
+INT8_MLP_WIDTHS = [(256, 1024), (512, 2048), (1024, 4096), (512, 1024),
+                   (1024, 2048), (128, 1024)]
+
+
+@pytest.mark.parametrize("c,hid", INT8_MLP_WIDTHS)
 @pytest.mark.parametrize("rows", [1, 33, 500, 12850])
-def test_int8_mlp_pieces_shapes_and_repeats(cuda, rows, c):
-    """Row 15's pieces at hidden 4C in 4 strips (clusters of 1, 2 and 4
-    blocks a strip): the code pass (LN2 and the row codes of its bf16 rows
-    in one pass) bit-equal to the bf16-chain twin in lane order, fc1's codes,
-    scales and zero points bit-equal to ``mlp_int8_fc1_plain`` on those
-    codes, fc2 bit-equal to ``mlp_int8_fc2_plain`` on fc1's hidden; the
-    sub-block bit-equal to its pieces in sequence and to a repeat."""
-    g = torch.Generator(device=cuda).manual_seed(3 * rows + c)
+def test_int8_mlp_pieces_shapes_and_repeats(cuda, rows, c, hid):
+    """Row 15's pieces at each of ``INT8_MLP_WIDTHS``: the code pass (LN2
+    and the row codes of its bf16 rows in one pass) bit-equal to the
+    bf16-chain twin in lane order, fc1's codes, scales and zero points
+    bit-equal to ``mlp_int8_fc1_plain`` on those codes, fc2 bit-equal to
+    ``mlp_int8_fc2_plain`` on fc1's hidden; the sub-block bit-equal to its
+    pieces in sequence and to a repeat."""
+    g = torch.Generator(device=cuda).manual_seed(3 * rows + c + hid)
     f32 = torch.float32
-    hid = 4 * c
     x = _rand(g, rows, c)
     lns = 1 + _rand(g, c, std=0.1, dtype=f32)
     lnb = _rand(g, c, std=0.1, dtype=f32)
@@ -451,13 +456,48 @@ def test_int8_mlp_pieces_shapes_and_repeats(cuda, rows, c):
     assert torch.equal(block, out) and torch.equal(block, again)
 
 
+@pytest.mark.parametrize("c,hid,out_dim",
+                         [(c, h, c) for c, h in INT8_MLP_WIDTHS]
+                         + [(256, 1024, 384)])
+@pytest.mark.parametrize("rows", [1, 33, 500, 12850])
+def test_int8_mlp_row14_shapes_and_repeats(cuda, rows, c, hid, out_dim):
+    """Row 14 (the code pass of x's own rows, row 15's fc1, fc2 without the
+    residual, from one C entry) at each of ``INT8_MLP_WIDTHS``, ragged row
+    counts and an output width apart from C: bit-equal to its three piece
+    twins in sequence (``row_codes`` of x, ``mlp_int8_fc1_plain``,
+    ``mlp_int8_fc2_plain`` without the residual) and to a repeat."""
+    g = torch.Generator(device=cuda).manual_seed(5 * rows + c + hid
+                                                 + out_dim)
+    f32 = torch.float32
+    x = _rand(g, rows, c)
+    w1 = _rand(g, c, hid, std=c ** -0.5, dtype=f32)
+    b1 = _rand(g, hid, std=0.02, dtype=f32)
+    w2 = _rand(g, hid, out_dim, std=0.5 * hid ** -0.5, dtype=f32)
+    b2 = _rand(g, out_dim, std=0.02, dtype=f32)
+    q1, q2 = quant.quantized_weight(w1), quant.quantized_weight(w2)
+    s = mlp.col_slices(hid)
+    mlp.reset_launches()
+    with torch.no_grad():
+        out = mlp.fused_mlp(x, w1, b1, w2, b2, quant=True)
+        again = mlp.fused_mlp(x, w1, b1, w2, b2, quant=True)
+        xq, xs = quant.row_codes(x.float())
+        ref = mlp.mlp_int8_fc2_plain(
+            *mlp.mlp_int8_fc1_plain(xq, xs, q1, b1, s), q2, b2, x,
+            residual=False)
+    torch.cuda.synchronize()
+    assert mlp.LAUNCHES["mlp_int8"] == 2
+    assert out.shape == (rows, out_dim)
+    assert torch.equal(out, ref) and torch.equal(out, again)
+
+
 def test_int8_mlp_block_refuses_before_launch(cuda):
     """Row 15 refuses what its pieces do not take before any launch: a
-    strip of 128 hidden units, a strip narrower than C, an f32 x."""
+    strip of 128 hidden units, a width that is not a multiple of 128, an
+    f32 x."""
     x = torch.zeros(2, 8, 256, dtype=torch.bfloat16, device=cuda)
     one = torch.ones(256, device=cuda)
     mlp.reset_launches()
-    for hid, c in ((512, 256), (1024, 512)):  # strips of 128, of 256 < C
+    for hid, c in ((512, 256), (1024, 160)):  # strips of 128, C % 128
         w1 = torch.zeros(c, hid, device=cuda)
         w2 = torch.zeros(hid, c, device=cuda)
         xc = torch.zeros(2, 8, c, dtype=torch.bfloat16, device=cuda)
@@ -520,7 +560,7 @@ def test_int8_wrappers_count_launches_and_refuse(cuda):
     with pytest.raises(ValueError, match="bfloat16"):
         with torch.no_grad():
             mlp.fused_mlp(x.float(), w1, bb, w2, bb[:256], quant=True)
-    with pytest.raises(ValueError, match="multiple of 256"):
+    with pytest.raises(ValueError, match="multiple of 128"):
         with torch.no_grad():
             mlp.fused_mlp(x, w1, bb, w2[:, :200], bb[:200], quant=True)
     with pytest.raises(NotImplementedError, match="inference-only"):

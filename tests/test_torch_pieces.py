@@ -204,6 +204,78 @@ def test_int8_mlp_block_runs_its_pieces(monkeypatch):
     assert calls == [] and tmlp.LAUNCHES["ln_mlp_int8"] == 1
 
 
+@pytest.mark.parametrize("out_dim", [256, 384])
+def test_int8_mlp_runs_its_pieces(monkeypatch, out_dim):
+    """Row 14's plumbing on the card, the library stubbed: one call of the
+    C entry that chains the code pass of x's rows, fc1 and fc2 (no LN2, no
+    residual), with x, both weights, the colsums of w2's out_dim columns,
+    the five workspaces of row 15 in one allocation and the [R, out_dim]
+    output; one launch counted."""
+    calls = _stub(monkeypatch, tmlp)
+    r, c, hid, strips = 10, 256, 1024, 4
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((r, c)).astype(
+        np.float32)).to(torch.bfloat16)
+    q1 = tquant.quantized_weight(torch.from_numpy(
+        rng.standard_normal((c, hid)).astype(np.float32)))
+    q2 = tquant.quantized_weight(torch.from_numpy(
+        rng.standard_normal((hid, out_dim)).astype(np.float32)))
+    b1, b2 = torch.zeros(hid), torch.ones(out_dim)
+    tmlp.reset_launches()
+    o = tmlp._mlp_int8_kernel(x, q1, b1, q2, b2, strips)
+    assert o.shape == (r, out_dim) and o.dtype == torch.bfloat16
+    assert [fn for fn, _ in calls] == ["uspace_mlp_int8"]
+    (_, args), = calls
+    assert args[0] == x.data_ptr()
+    assert args[1:3] == (q1.q.data_ptr(), q1.scale.data_ptr())
+    assert args[4:6] == (q2.q.data_ptr(), q2.scale.data_ptr())
+    assert args[7] == q2.colsums(strips).data_ptr()
+    codes, sr, hq, hsc, hzp = args[8:13]
+    assert all((p - hq) % 256 == 0 for p in (codes, sr, hsc, hzp))
+    assert codes - hq >= r * hid and sr - codes >= r * c
+    assert hsc - sr >= 4 * r and hzp - hsc >= 4 * r * strips
+    assert args[13] == o.data_ptr()
+    assert args[14:19] == (r, c, hid, out_dim, strips)
+    assert len(args) == 20
+    assert tmlp.LAUNCHES == {**{k: 0 for k in tmlp.LAUNCHES}, "mlp_int8": 1}
+
+
+@pytest.mark.parametrize("c,hid,out_dim", [
+    (160, 1024, 256),  # C % 32 == 0 but not % 128: fc1's K chunks
+    (1152, 4096, 1152),  # C past the code pass's row of 1024
+    (256, 512, 256),  # strips of 128
+    (256, 8192, 256),  # strips of 2048: a cluster of 8
+    (256, 1024, 200),  # fc2's 128-column tiles
+])
+def test_int8_mlp_guard_states_what_the_c_entries_take(monkeypatch, c, hid,
+                                                      out_dim):
+    """Both int8 MLP wrappers refuse, before any call, each width the C
+    entries refuse (``bad_code_shape``, ``bad_wgmma_shape``): a width the
+    guard took before it stated them (C = 160) among them. Row 15 takes
+    only out == C."""
+    calls = _stub(monkeypatch, tmlp)
+    x = torch.zeros(3, c, dtype=torch.bfloat16)
+    strips = tmlp.col_slices(hid)
+    q1 = tquant.quantized_weight(torch.ones(c, hid))
+    q2 = tquant.quantized_weight(torch.ones(hid, out_dim))
+    tmlp.reset_launches()
+    with pytest.raises(ValueError, match="int8 MLP kernels take"):
+        tmlp._mlp_int8_kernel(x, q1, torch.zeros(hid), q2,
+                              torch.zeros(out_dim), strips)
+    if out_dim == c:
+        one = torch.ones(c)
+        with pytest.raises(ValueError, match="int8 MLP kernels take"):
+            tmlp._ln_mlp_int8_kernel(x, (one, one, EPS), q1,
+                                     torch.zeros(hid), q2, one, strips)
+    assert calls == [] and sum(tmlp.LAUNCHES.values()) == 0
+    # a strip narrower than C is taken now (fc1's K is free of the strip)
+    x = torch.zeros(3, 512, dtype=torch.bfloat16)
+    q1 = tquant.quantized_weight(torch.ones(512, 1024))
+    q2 = tquant.quantized_weight(torch.ones(1024, 512))
+    tmlp._mlp_int8_kernel(x, q1, torch.zeros(1024), q2, torch.zeros(512), 4)
+    assert [fn for fn, _ in calls] == ["uspace_mlp_int8"]
+
+
 # ---------------------------------------------------------------------------
 # row 19: the stage-delta attention half
 # ---------------------------------------------------------------------------

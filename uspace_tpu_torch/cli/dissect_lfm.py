@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..data.datasets import batches, get_dataset
+from ..data.datasets import get_dataset
+from ..data.loader import DataLoader
 from ..editing.directions import latentz_delta, select_direction
 from ..editing.drivers import build_directions_npz
 from ..train.step import sample_from_moments
@@ -96,8 +97,8 @@ def run(config, dissect_name: Optional[str] = None,
 
     if name == "read":
         data = get_dataset(**cfg["dataset"]).get_split("train")
-        out = session.read(batches(data, d["mini_batch_size"]),
-                           tap=d.get("edit_loc") or "mid",
+        loader = DataLoader(data, d["mini_batch_size"], shuffle=False)
+        out = session.read(loader, tap=d.get("edit_loc") or "mid",
                            max_samples=d["n_samples"], generator=gen,
                            from_moments=from_moments)
         path = _read_path(d)
@@ -163,7 +164,8 @@ def run(config, dissect_name: Optional[str] = None,
 
     if name in ("vis_reversible", "eval_vf_interp"):
         data = get_dataset(**cfg["dataset"]).get_split("train")
-        batch = next(batches(data, d["mini_batch_size"]))
+        batch = next(iter(DataLoader(data, d["mini_batch_size"],
+                                         shuffle=False)))
         x = torch.as_tensor(batch["x"], device=dev)
         if from_moments:
             x = (session.vae_sample(x, gen) if session.vae_sample

@@ -6,8 +6,8 @@ Builds ``--base`` (a ``<source>.cu`` with the same C interface, e.g. from
 ``ops/csrc/<source>.cu`` and times each of its kernels at its path's shapes
 (``attention``: the bf16 and int8 sampling kernels at B=50, L=257,
 C=1024, H=16, bf16, and row 19's two GEMMs (``qkv_delta``, ``xm_delta``);
-``mlp_int8`` (row 14), ``mlp_w8`` and ``mlp_bf16``: the W8A8, weight-only
-int8 and bf16 MLP kernels on the 12850 rows of B=50, hidden 4096;
+``mlp_w8`` and ``mlp_bf16``: the weight-only int8 and bf16 MLP kernels on
+the 12850 rows of B=50, hidden 4096;
 ``attention_block``: the attention sub-block's own passes at B=50 (the
 row codes of rows 6 and 11, the int8 projection with bias and residual; the
 bf16 projection is ``mlp_bf16``'s fc2, timed there as ``row10_proj_ms``);
@@ -31,7 +31,8 @@ new build alone), the pieces of rows 21 and 22, ``base_mlp_codes``,
 ``base_fc1_grad``, ``base_fc1_eg`` and ``base_fc2``, the wgmma GEMMs of
 the delta rows, ``delta_fc1_exact``, ``delta_fc1_lin``, ``delta_fc1_g``
 (rows 25, 23, 24) and ``delta_fc2``, and of row 15, ``mlp_int8_codes``,
-``mlp_int8_fc1``, ``mlp_int8_fc2`` and ``ln_mlp_int8``, which chains them)
+``mlp_int8_fc1``, ``mlp_int8_fc2`` and ``ln_mlp_int8``, which chains them,
+and row 14's C entry ``mlp_int8``)
 with CUDA events, the two builds alternating base, new, new, base, ... on
 one card. The base must have this checkout's C interface (each entry point
 of ``ops/_build.SIGNATURES``); an entry point that it lacks is timed on the
@@ -60,8 +61,6 @@ kernels from another (rows 10, 18 and 19 run row 1 or 2's kernels). Needs
 a CUDA card.
 
     python -m uspace_tpu_torch.cli.kernel_ab --base old/attention.cu
-    python -m uspace_tpu_torch.cli.kernel_ab --source mlp_int8 \
-        --base old/mlp_int8.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source mlp_w8 \
         --base old/mlp_w8.cu
     python -m uspace_tpu_torch.cli.kernel_ab --source mlp_bf16 \
@@ -201,9 +200,6 @@ def main(argv=None) -> None:
     b1 = 0.02 * torch.randn(hid, generator=g, device=dev)
     b2 = 0.02 * torch.randn(C, generator=g, device=dev)
     cs4 = q2.colsums(4)
-    mw = (q1.q.data_ptr(), q1.scale.data_ptr(), b1.data_ptr(),
-          q2.q.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(), cs4.data_ptr(),
-          out.data_ptr(), rows, C, hid, C, 4)
     w8 = (q1.q.data_ptr(), q1.scale.data_ptr(), b1.data_ptr(),
           q2.q.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(), out.data_ptr(),
           rows, C, hid, C)
@@ -318,7 +314,6 @@ def main(argv=None) -> None:
         "qkv_gemm_int8": lambda lib: lib.uspace_qkv_gemm_int8(
             codes.data_ptr(), sr.data_ptr(), q.q.data_ptr(),
             q.scale.data_ptr(), qkv_ws.data_ptr(), rows, 3 * C, C, s),
-        "mlp_int8": lambda lib: lib.uspace_mlp_int8(x.data_ptr(), *mw, s),
         # row 17's two GEMMs through their h workspace
         "mlp_w8": lambda lib: lib.uspace_mlp_w8(
             x.data_ptr(), *w8[:6], h_rows.data_ptr(), *w8[6:], s),
@@ -468,6 +463,13 @@ def main(argv=None) -> None:
             hq.data_ptr(), hsc.data_ptr(), hzp.data_ptr(), q2.q.data_ptr(),
             q2.scale.data_ptr(), b2.data_ptr(), cs4.data_ptr(), x.data_ptr(),
             out.data_ptr(), rows, C, hid, 4, s),
+        # row 14: row 15's pieces on x's own rows, without the residual
+        "mlp_int8": lambda lib: lib.uspace_mlp_int8(
+            x.data_ptr(), q1.q.data_ptr(), q1.scale.data_ptr(), b1.data_ptr(),
+            q2.q.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(),
+            cs4.data_ptr(), dcodes.data_ptr(), dsr.data_ptr(), hq.data_ptr(),
+            hsc.data_ptr(), hzp.data_ptr(), out.data_ptr(), rows, C, hid, C,
+            4, s),
     })
     timed = set(_build.SIGNATURES[a.source])
     if a.source == "mlp_bf16":  # the ops that its pieces make up

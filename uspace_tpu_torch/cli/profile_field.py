@@ -69,7 +69,7 @@ _BASE_SHARED = "stage-delta MLP base: code pass, fc1 of rows 20-21 and fc2"
 _DELTA_MLP = (
     (_BASE_ROW["grad"], ("delta_fc1_kernel<4>",)),
     (_BASE_SHARED, ("base_code_pass_kernel", "delta_fc1_kernel<5>",
-                    "delta_fc2_kernel<true, true>"))
+                    "delta_fc2_kernel<true, true,"))
 ) + tuple(
     (f"stage-delta MLP, {what} delta fc1 on wgmma (ours: row {row})",
      (f"delta_fc1_kernel<{dg}>",))
@@ -80,10 +80,13 @@ GROUPS = (
     ("stage-delta row passes (ours: rows 18-19's LN codes and difference "
      "codes; rows 19 and 23-25's code pass)", (
          "row_codes_kernel<", "ln_delta_codes_kernel")),
-    # row 15's GEMMs are instances of the delta rows' fc1 and fc2 bodies
-    ("W8A8 MLP sub-block, code pass, fc1 and fc2 on wgmma (ours: row 15)",
+    # rows 15 and 14's GEMMs are instances of the delta rows' fc1 and fc2
+    # bodies (row 14's code pass and fc2 are the <NV, false> and <true,
+    # false, false> instances)
+    ("W8A8 MLP sub-block and MLP, code pass, fc1 and fc2 on wgmma (ours: "
+     "rows 15 and 14)",
      ("mlp_code_pass_kernel", "delta_fc1_kernel<3>",
-      "delta_fc2_kernel<true, false>")),
+      "delta_fc2_kernel<true, false,")),
     *_DELTA_MLP,
     ("stage-delta MLP, delta fc2 on wgmma (ours: rows 23-25)",
      ("delta_fc2_kernel<false",)),
@@ -113,7 +116,6 @@ GROUPS = (
      "projection)", ("::gemm_kernel<",)),
     ("attention core (ours: rows 1-3, 5, 6, 11)", ("packed_core_kernel",)),
     ("[B, H, L, D] attention kernel (ours)", ("attention_fwd_kernel",)),
-    ("int8 MLP kernel (ours: row 14)", ("mlp_int8_kernel",)),
     ("layout transposes (NHWC <-> NCHW)", ("nchwToNhwc", "nhwcToNchw")),
     ("conv (cuDNN)", ("conv", "Conv", "cudnn", "fprop")),
     ("matmul (cuBLAS)", ("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet")),

@@ -1,22 +1,31 @@
-"""Train a U-ViT or SD-UNet velocity field with OT-CFM on synthetic VAE
-moments.
+"""Train a U-ViT or SD-UNet velocity field with OT-CFM on a config's
+dataset.
 
 The training path of ``uspace_tpu/cli/train_lfm.py`` and
 ``train/loop.train`` that this port covers so far: f32 master weights with
 the config's compute dtype and the reference init, the config's optimizer
 (global-norm clipping where ``train.grad_clip`` > 0), LR schedule and EMA,
-latents resampled from moments in every step. The attention route follows
-the JAX loop's rule (:func:`train_attn_impl`): the U-ViT trains on
+latents resampled from moments in every step (raw latents where
+``train.from_moments`` is False). The attention route follows the JAX
+loop's rule (:func:`train_attn_impl`): the U-ViT trains on
 ``"pallas_packed"`` (XLA projection, packed attention kernel and its
 backward kernel) with per-block remat, the SD-UNet on its own ``"auto"``
 (the [B, H, L, D] kernel and its backward kernel at L = 1024); a config
 whose ``nnet.attn_impl`` is ``"pallas_block"`` trains the U-ViT through the
-whole attention sub-block kernel and its recompute backward. Batches
-come from ``SyntheticFeatures`` moments (the feature datasets are not in
-the repository). Logs loss, grad_norm and lr per step and writes one
-checkpoint to ``<workdir>/ckpts/<step>.pt``. Evaluation sampling, the VAE,
-FID and multi-card training come with later slices.
+whole attention sub-block kernel and its recompute backward. Batches come
+from the config's ``dataset`` (its train split) through
+``data/loader.DataLoader`` seeded with the config's seed, shuffled epochs
+one after the other, as the JAX loop feeds them
+(``uspace_tpu/train/loop.py:59-69``, ``:399``); a config whose own
+features are not in the repository names synthetic moments. Logs loss,
+grad_norm and lr at step 1, every ``train.log_interval`` steps and the
+last, and writes one checkpoint to ``<workdir>/ckpts/<step>.pt`` (its EMA
+weights are what ``cli/dissect_common.load_nnet_params`` loads).
+Evaluation sampling, the VAE, FID and multi-card training come with later
+slices.
 
+    python -m uspace_tpu_torch.cli.train_lfm --config synthetic_attr_e2e \\
+        --workdir toy
     python -m uspace_tpu_torch.cli.train_lfm --config uvit_large \\
         --n_steps 10 --batch 128 --workdir workdir
     python -m uspace_tpu_torch.cli.train_lfm --config unet_large \\
@@ -29,13 +38,16 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..configs import get_config
-from ..data.datasets import SyntheticFeatures
+from ..data.datasets import get_dataset
+from ..data.loader import DataLoader
 from ..models import get_nnet
 from ..train import checkpoint
 from ..train.state import TrainState, get_lr_schedule, get_optimizer
@@ -84,19 +96,24 @@ def build_optimizer(config: dict):
     return tx, lr
 
 
-def run(config="uvit_large", n_steps: int = 10,
-        batch: Optional[int] = None, seed: int = 0, workdir: str = "workdir",
-        device=None, attn_impl: Optional[str] = None,
-        remat_exempt: Optional[int] = None,
+def run(config="uvit_large", n_steps: Optional[int] = None,
+        batch: Optional[int] = None, seed: Optional[int] = None,
+        workdir: str = "workdir", device=None,
+        attn_impl: Optional[str] = None, remat_exempt: Optional[int] = None,
         log: Callable[[str], None] = print) -> dict:
-    """Train ``n_steps`` of ``config`` (a config's name or the config
-    itself); returns ``history`` (per-step loss, grad_norm, lr,
-    nonfinite_skip), the ``checkpoint`` path, ``model`` and ``state``.
-    ``batch`` defaults to the config's per-card batch, ``attn_impl`` to
-    :func:`train_attn_impl`, ``remat_exempt`` to the config's (U-ViT)."""
+    """Train ``n_steps`` (the config's ``train.n_steps`` by default) of
+    ``config`` (a config's name or the config itself); returns ``history``
+    (per-step loss, grad_norm, lr, nonfinite_skip), the ``checkpoint``
+    path, ``model``, ``state``, and the steps' wall ``seconds`` and
+    ``img_per_s``. ``batch`` defaults to the config's per-card batch,
+    ``seed`` (the init, the data order and the noise) to the config's (0
+    where it sets none), ``attn_impl`` to :func:`train_attn_impl`,
+    ``remat_exempt`` to the config's (U-ViT)."""
     dev = resolve_device(device)
     cfg = get_config(config)
     tr = cfg["train"]
+    seed = cfg.get("seed", 0) if seed is None else seed
+    n_steps = tr["n_steps"] if n_steps is None else n_steps
     model = build_train_model(cfg, dev, seed, attn_impl, remat_exempt)
     tx, lr = build_optimizer(cfg)
     state = TrainState.create(dict(model.named_parameters()), tx)
@@ -104,31 +121,43 @@ def run(config="uvit_large", n_steps: int = 10,
                            ema_rate=tr["ema_rate"], lr_schedule=lr,
                            latents_from_moments=tr["from_moments"])
     batch = batch or tr["batch_size"]
-    c, h, w = cfg["z_shape"]
-    data = SyntheticFeatures(num=max(256, batch), shape=(h, w, 2 * c),
-                             seed=seed)
+    # the JAX loop's batches for this seed (uspace_tpu/train/loop.py:59-69)
+    data = DataLoader(get_dataset(**cfg["dataset"]).get_split("train"),
+                      batch, seed=seed,
+                      num_workers=cfg.get("dl", {}).get("num_workers", 8)
+                      ).infinite()
+    every = max(1, tr.get("log_interval", 1))
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     history = []
+    t0 = time.perf_counter()
     for i in range(n_steps):
-        idx = [(i * batch + j) % len(data) for j in range(batch)]
-        x = torch.from_numpy(data.batch(idx)["x"]).to(dev)
+        x = torch.from_numpy(np.asarray(next(data)["x"])).to(dev)
         rec = {k: float(v) for k, v in step(state, {"x": x}, gen).items()}
         history.append(rec)
-        log(f"step {i + 1}/{n_steps}: loss {rec['loss']:.6f} grad_norm "
-            f"{rec['grad_norm']:.4f} lr {rec['lr']:.3e}"
-            + (" (non-finite: update skipped)" if rec["nonfinite_skip"] else ""))
+        if i == 0 or (i + 1) % every == 0 or i + 1 == n_steps:
+            log(f"step {i + 1}/{n_steps}: loss {rec['loss']:.6f} grad_norm "
+                f"{rec['grad_norm']:.4f} lr {rec['lr']:.3e}"
+                + (" (non-finite: update skipped)"
+                   if rec["nonfinite_skip"] else ""))
+    secs = time.perf_counter() - t0
+    data.close()
     path = checkpoint.save(os.path.join(workdir, "ckpts"), state)
-    log(f"checkpoint: {path}")
-    return dict(history=history, checkpoint=path, model=model, state=state)
+    img_s = n_steps * batch / secs if secs > 0 else 0.0
+    log(f"checkpoint: {path} ({n_steps} steps at batch {batch} in "
+        f"{secs:.1f} s, {img_s:.1f} img/s)")
+    return dict(history=history, checkpoint=path, model=model, state=state,
+                seconds=secs, img_per_s=img_s)
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", default="uvit_large")
-    ap.add_argument("--n_steps", type=int, default=10)
+    ap.add_argument("--n_steps", type=int, default=None,
+                    help="default: the config's train.n_steps")
     ap.add_argument("--batch", type=int, default=None,
                     help="default: the config's per-card batch")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=None,
+                    help="default: the config's seed")
     ap.add_argument("--workdir", default="workdir")
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--attn_impl", default=None,

@@ -63,17 +63,26 @@ _SAMPLE = dict(sample_steps=50, n_samples=50_000, mini_batch_size=50,
                                   atol=1e-5, controller="pi"))
 
 # configs/common.py:80-121 (base_config's dissection block), the keys the
-# dissect CLI reads, with the Euler solve of configs/synthetic_attr_e2e.py
-# (solver_fix_step 0.02: 50 read and write steps) and the mid tap
+# dissect and editing_e2e CLIs read, with the Euler solve of
+# configs/synthetic_attr_e2e.py (solver_fix_step 0.02: 50 read and write
+# steps) and the mid tap
 _WRITE_SCALES = (-500, -400, -300, -200, -100, -50, -10, 0,
                  10, 50, 100, 200, 300, 400, 500)
-_DISSECTION = dict(dissect_name=None, n_samples=100, mini_batch_size=100,
+_DISSECTION = dict(has_attr=False, dissect_task="uspace_uvit",
+                   dissect_name=None, n_samples=100, mini_batch_size=100,
                    ckpt_path_to_dissect="", fixed_z_path="",
                    read_path_root="dissect/read", write_scales=_WRITE_SCALES,
                    ith_component=1, pca_n=50, ith_attr=0, class_label=0,
-                   t_edit=1.0, edit_loc="mid",
+                   t_edit=1.0, e2e_min_effect=1.0, edit_loc="mid",
                    solver_kwargs=dict(solver="fixed", solver_fix="euler",
                                       solver_fix_step=0.02))
+
+
+def _synthetic_dataset(latent_hw: int, num: int = 256) -> Dict[str, Any]:
+    """The moments a config trains on where its own features are not in the
+    repository: ``SyntheticFeatures`` at its latent shape (the JAX
+    package's ``synthetic`` dataset)."""
+    return dict(name="synthetic", num=num, shape=(latent_hw, latent_hw, 8))
 
 
 def _attr_dataset(latent_hw: int, num: int = 4096) -> Dict[str, Any]:
@@ -117,6 +126,7 @@ CONFIGS: Dict[str, Dict[str, Any]] = {
         lr_scheduler=_LR_SCHEDULER,
         dynamic=_DYNAMIC,
         sample=_SAMPLE,
+        dataset=_synthetic_dataset(32),
     ),
     # the same SD-UNet-large at SD 1.x's native 512 x 512: 4x64x64 latents,
     # so its top attention level runs L = 4096 tokens in 8 heads of 32 (the
@@ -179,6 +189,69 @@ CONFIGS: Dict[str, Dict[str, Any]] = {
                                            solver_fix_step=0.25)),
     ),
 }
+
+
+def _toy_e2e(nnet: Dict[str, Any], write_scales, **dissection
+             ) -> Dict[str, Any]:
+    """The editing proofs' toys (configs/synthetic_attr_e2e.py:14-45):
+    4x8x8 attribute-structured latents, 3000 steps at batch 256 with lr
+    2e-4, no weight decay and EMA 0.999 (0.9999 would still be mostly the
+    random init at 3000 steps), the read and write on 256 samples with
+    Euler steps of 0.02."""
+    return dict(
+        seed=0,
+        z_shape=(4, 8, 8),
+        compute_dtype="bfloat16",
+        nnet=nnet,
+        autoencoder=_AUTOENCODER,
+        train=dict(_TRAIN, n_steps=3000, batch_size=256, log_interval=100,
+                   eval_interval=1500, save_interval=1500, ema_rate=0.999),
+        optimizer=dict(_OPTIMIZER, lr=2e-4, weight_decay=0.0),
+        lr_scheduler=_LR_SCHEDULER,
+        dynamic=_DYNAMIC,
+        sample=dict(_SAMPLE, sample_steps=50, n_samples=16,
+                    mini_batch_size=64),
+        dataset=_attr_dataset(8),
+        # one loader worker: the samples are drawn in Python, where more
+        # threads only contend for the interpreter lock (the toys train
+        # about 1.2x faster than with eight, docs/editing_e2e_torch.md)
+        dl=dict(num_workers=1),
+        # the adaptive keys of configs/common.py's dissection solve, which the
+        # UNet toy's adaptive check starts from
+        dissection=dict(_DISSECTION, has_attr=True, n_samples=256,
+                        mini_batch_size=64, write_scales=write_scales,
+                        solver_kwargs=dict(_DISSECTION["solver_kwargs"],
+                                           solver_adaptive="dopri5",
+                                           solver_adaptive_prec=0.01),
+                        **dissection),
+    )
+
+
+# the U-ViT toy (configs/synthetic_attr_e2e.py): embed 128, depth 6, 4
+# heads of 32, L = 17
+CONFIGS["synthetic_attr_e2e"] = _toy_e2e(
+    uvit_nnet(embed_dim=128, depth=6, num_heads=4, img_size=8,
+              use_checkpoint=False),
+    (-300, -200, -100, 0, 100, 200, 300))
+# the SD-UNet toy (configs/synthetic_attr_unet_e2e.py:21-67): 32 channels x
+# (1, 2), one res block, self-attention at ds 2 in heads of 16 channels, no
+# spatial transformer; its mid tap saturates past |100|, so the sweep stays
+# inside +-120; the adaptive and fixadp check after the sweeps
+CONFIGS["synthetic_attr_unet_e2e"] = _toy_e2e(
+    dict(name="unet_t2i", image_size=8, in_channels=4, out_channels=4,
+         model_channels=32, num_res_blocks=1, attention_resolutions=(2,),
+         channel_mult=(1, 2), num_head_channels=16,
+         use_spatial_transformer=False),
+    (-120, -80, -40, 0, 40, 80, 120), dissect_task="hspace_unet",
+    adaptive_check=True)
+# the pixel-space toy (configs/synthetic_attr_pixel_e2e.py): the U-ViT toy
+# on raw latents (no moments to sample from) with global-norm clipping at
+# 1.0 (the reference's train_ffmm.py:144-146)
+CONFIGS["synthetic_attr_pixel_e2e"] = copy.deepcopy(
+    CONFIGS["synthetic_attr_e2e"])
+CONFIGS["synthetic_attr_pixel_e2e"]["train"].update(from_moments=False,
+                                                    grad_clip=1.0)
+CONFIGS["synthetic_attr_pixel_e2e"]["dataset"]["raw"] = True
 
 
 def get_config(name) -> Dict[str, Any]:

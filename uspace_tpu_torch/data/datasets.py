@@ -1,13 +1,13 @@
 """Feature datasets: the port's own copy of what its slices need from
 ``uspace_tpu/data/datasets.py`` (numpy only; the port imports nothing of
-the JAX package), with the ``get_dataset`` factory of the attribute
-dataset and :func:`batches`, a sequential batch iterator that stands in
-for the JAX package's loader.
+the JAX package), with the ``get_dataset`` factory of the synthetic
+datasets (``synthetic``, ``synthetic_attr``). Batches come from
+``data/loader.DataLoader``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Sequence
+from typing import Dict, Sequence
 
 import numpy as np
 
@@ -84,10 +84,13 @@ class SyntheticAttrFeatures:
         rng = np.random.default_rng((self.seed, 1, idx))
         return (rng.random(self.num_attrs) < 0.5).astype(np.float32)
 
-    def latent_of(self, idx: int) -> np.ndarray:
+    def latent_of(self, idx: int, attr=None) -> np.ndarray:
+        """The latent of sample ``idx``; ``attr`` is its ``attr_of(idx)``
+        where the caller has it already (the same draw)."""
         rng = np.random.default_rng((self.seed, 0, idx))
         g = rng.normal(size=self.latent_shape).astype(np.float32)
-        attr = self.attr_of(idx)
+        if attr is None:
+            attr = self.attr_of(idx)
         return self.base_std * g + self.amp * np.tensordot(
             attr, self._pat, axes=1)
 
@@ -95,15 +98,34 @@ class SyntheticAttrFeatures:
         return self.num
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        attr = self.attr_of(idx)
+        latent = self.latent_of(idx, attr)
         if self.raw:
-            return {"x": self.latent_of(idx), "attr": self.attr_of(idx)}
-        mean = self.latent_of(idx) / self.SCALE
+            return {"x": latent, "attr": attr}
+        mean = latent / self.SCALE
         logvar = np.full_like(mean, 2.0 * np.log(self.noise_std / self.SCALE))
-        return {"x": np.concatenate([mean, logvar], axis=-1),
-                "attr": self.attr_of(idx)}
+        return {"x": np.concatenate([mean, logvar], axis=-1), "attr": attr}
 
 
-class SyntheticAttr:
+class _Factory:
+    def get_split(self, split: str = "train"):
+        return getattr(self, split)
+
+
+class Synthetic(_Factory):
+    """The ``synthetic`` dataset: ``SyntheticFeatures`` moments of
+    ``shape`` (H, W, 2 x latent channels), ``num`` train samples from seed
+    0 and a test split of ``num // 4`` from seed 10000, as the JAX
+    package's ``Synthetic`` factory draws them."""
+
+    def __init__(self, num: int = 256, shape=(32, 32, 8),
+                 num_classes: int = 0, context_shape=None, **_):
+        self.train = SyntheticFeatures(num, shape, num_classes, context_shape)
+        self.test = SyntheticFeatures(max(num // 4, 1), shape, num_classes,
+                                      context_shape, seed=10_000)
+
+
+class SyntheticAttr(_Factory):
     """The ``synthetic_attr`` dataset: ``SyntheticAttrFeatures`` train and
     test splits (the test split from seed 10000)."""
 
@@ -116,32 +138,17 @@ class SyntheticAttr:
                                           base_std, amp, noise_std, raw,
                                           seed=10_000)
 
-    def get_split(self, split: str = "train") -> SyntheticAttrFeatures:
-        return getattr(self, split)
 
-
-_REGISTRY = {"synthetic_attr": SyntheticAttr}
+_REGISTRY = {"synthetic": Synthetic, "synthetic_attr": SyntheticAttr}
 
 
 def get_dataset(name: str, **kwargs):
-    """A dataset by its config name (``synthetic_attr``, the one the dissect
-    CLI reads: the feature datasets are not in the repository)."""
+    """A dataset by its config name: ``synthetic`` (the random moments a
+    config trains on where its own features are not in the repository) or
+    ``synthetic_attr`` (attribute-structured moments)."""
     if name not in _REGISTRY:
         raise NotImplementedError(f"dataset {name!r} is not ported")
     return _REGISTRY[name](**kwargs)
-
-
-def batches(dataset, batch_size: int, drop_last: bool = True
-            ) -> Iterator[Dict[str, np.ndarray]]:
-    """One epoch of ``dataset`` (map-style: ``len`` and ``__getitem__`` ->
-    dict of arrays) in index order, ``batch_size`` samples a batch, a short
-    last batch dropped unless ``drop_last`` is False, as the JAX package's
-    unshuffled ``DataLoader`` yields them: no shuffling, no workers."""
-    n = len(dataset)
-    stop = n - n % batch_size if drop_last else n
-    for start in range(0, stop, batch_size):
-        items = [dataset[i] for i in range(start, min(start + batch_size, n))]
-        yield {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 
 def unpreprocess(images: np.ndarray) -> np.ndarray:

@@ -65,12 +65,15 @@ class DissectSession:
     @torch.no_grad()
     def decode(self, z: torch.Tensor, cond: Optional[Dict] = None,
                edit: Optional[USpaceEdit] = None,
-               t_edit: Optional[float] = None) -> torch.Tensor:
+               t_edit: Optional[float] = None,
+               stats: Optional[dict] = None) -> torch.Tensor:
         """z -> x (t: 0 -> 1) under an optional write edit; ``t_edit`` is
-        the split time of the "fixadp" solver."""
+        the split time of the "fixadp" solver; a dict passed as ``stats``
+        receives an adaptive solve's step and evaluation counts."""
         kw = {} if edit is None else {"edit": edit}
         vf = make_velocity_fn(self.model, cond, **kw)
-        return flow.decode(vf, z, self.solver_kwargs, t_edit=t_edit)
+        return flow.decode(vf, z, self.solver_kwargs, t_edit=t_edit,
+                           stats=stats)
 
     # -- read phase -----------------------------------------------------------
 
@@ -144,9 +147,11 @@ class DissectSession:
         fixed_z: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         z_shape: Tuple[int, ...] = (32, 32, 4),
+        stats: Optional[list] = None,
     ) -> torch.Tensor:
         """Decode the same noise under each write scale -> [S, B, ...]
-        latents, one scale after the other.
+        latents, one scale after the other. A list passed as ``stats``
+        receives each scale's adaptive solve statistics.
 
         ``grid_dt`` is the delta grid's time spacing (the read artifact's
         ``t_grid``); without it the session's ``solver_fix_step`` stands in,
@@ -176,10 +181,14 @@ class DissectSession:
         # t_edit doubles as the fixadp split point (fixed steps while the
         # edit is active, adaptive after); fixed and adaptive solves
         # ignore it
-        return torch.stack([
-            self.decode(z, cond, edit=edit0.replace(scale=float(s)),
-                        t_edit=t_edit)
-            for s in write_scales])
+        out = []
+        for s in write_scales:
+            st = {}
+            out.append(self.decode(z, cond, edit=edit0.replace(scale=float(s)),
+                                   t_edit=t_edit, stats=st))
+            if stats is not None:
+                stats.append(st)
+        return torch.stack(out)
 
     # -- correctness probes ---------------------------------------------------
 

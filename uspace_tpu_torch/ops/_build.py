@@ -75,6 +75,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uspace_mlp_int8_fc2": (_P,) * 9 + (_I,) * 4 + (_P,),
         "uspace_mlp_int8_codes": (_P,) * 5 + (_I, _I, _F, _P),
         "uspace_ln_mlp_int8": (_P,) * 16 + (_I,) * 4 + (_F, _P),
+        "uspace_mlp_int8": (_P,) * 14 + (_I,) * 5 + (_P,),
     },
     "attention_fwd": {
         "uspace_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
@@ -85,9 +86,6 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "fused_attention_bwd": {
         "uspace_fused_attention_bwd": (_P,) * 8 + (_I,) * 4 + (_F, _P),
         "uspace_packed_attention_bwd": (_P,) * 4 + (_I,) * 4 + (_F, _P),
-    },
-    "mlp_int8": {
-        "uspace_mlp_int8": (_P,) * 9 + (_I,) * 5 + (_P,),
     },
     "mlp_bf16": {
         "uspace_bf16_fc1": (_P,) * 4 + (_I,) * 3 + (_P,),

@@ -29,18 +29,27 @@
 //   uspace_mlp_int8_codes: LN2 in the bf16 chain and the row codes of its
 //     bf16 rows in one pass that keeps the row in registers;
 //   uspace_mlp_int8_fc1: g = GELU((f32(acc) * xs) * s1 + b1) coded per row
-//     and strip on the affine grid of mlp_int8.cu (scale max(gmax - gmin,
-//     1e-8) * (1/254), zero point (gmax + gmin) * 0.5, codes round((g - zp)
-//     / scale), an IEEE division), the row's max and min shared across the
-//     strip's cluster as the delta rows share amax;
+//     and strip on an affine grid (scale max(gmax - gmin, 1e-8) * (1/254),
+//     zero point (gmax + gmin) * 0.5, codes round((g - zp) / scale), an IEEE
+//     division), the row's max and min shared across the strip's cluster as
+//     the delta rows share amax;
 //   uspace_mlp_int8_fc2: acc += f32(d_j) * scale_j + zp_j * colsum_j(W2q)
 //     after each strip's K chunks, o = x + bf16(acc * s2 + b2).
 //   On an NVIDIA H100 80GB HBM3 at 700 W and the main path's shape the
 //   code pass takes 0.032 ms (0.040 as an LN pass and a code pass apart),
 //   fc1 0.356 (its GELU epilogue runs while the tensor cores idle, as rows
-//   24-25's do) and fc2 0.144; the whole sub-block 0.54, 1.44 on
-//   mlp_int8.cu's block kernel; the C entry takes about 23 us of host time
-//   a call.
+//   24-25's do) and fc2 0.144; the whole sub-block 0.54, 1.44 on an
+//   earlier block kernel of 32 rows a block on mma.sync; the C entry takes
+//   about 23 us of host time a call.
+// Row 14, the W8A8 MLP fc2(gelu(fc1(x))) <- _mlp_kernel_int8 of
+// uspace_tpu/ops/mlp.py, is row 15 without LN2 and the residual: one C entry
+// (uspace_mlp_int8), the same three launches: the code pass on the bf16
+// rows of x themselves (mlp_code_pass_kernel<NV, false>: attention_block.cu's
+// row_codes_kernel, the row in registers), row 15's fc1 unchanged, and fc2
+// with an epilogue that reads no x, out = bf16(acc * s2 + b2), its output
+// width N free of C (a multiple of 128). The same rounding sites as the TPU
+// kernel: row codes round(x * (127 / amax)) with xs = amax * (1/127), then
+// row 15's fc1 and fc2.
 // Rows 20, 21 and 22 run as row 15 runs, three launches from one C entry
 // (uspace_base_mlp_e, uspace_base_mlp_eg, uspace_base_mlp_grad) after one
 // set of checks:
@@ -79,12 +88,12 @@
 // row 20 x in, o, m, e_q, e_s out: 140.1 MB = 41.8 us; row 21 adds g_q, g_s,
 // g_z: 193.2 MB = 57.7 us; row 22 as row 20: 140.1 MB; row 23 x, x_b, m_b,
 // gp_q, gp_s in, o out: 166.1 MB = 49.6 us; row 24 x, x_b, m_b, e_q, e_s,
-// g_q, g_s, g_z in, o out: 219.2 MB = 65.4 us; row 25 as row 23: 166.1 MB.
-// All six are operations bound.
+// g_q, g_s, g_z in, o out: 219.2 MB = 65.4 us; row 25 as row 23: 166.1 MB;
+// row 14 x in, out out: 61.0 MB = 18.2 us. All seven are operations bound.
 //
 // What the pieces compute is what the TPU kernel computes for its rows:
-// - LN2 in f32 (uspace_tpu/ops/delta.py _ln_f32, not the bf16 chain of
-//   mlp_int8.cu): f32 sums over C, mu = sum / C, var = sum(x^2) / C - mu^2,
+// - LN2 in f32 (uspace_tpu/ops/delta.py _ln_f32, not row 15's bf16 chain):
+//   f32 sums over C, mu = sum / C, var = sum(x^2) / C - mu^2,
 //   rsqrt(var + eps), ((x - mu) * inv) * s + b in f32. Row codes
 //   round(u * (127 / amax)) with u = LN(x) (base) or LN(x) - LN(x_b)
 //   (delta), the scale amax * (1/127).
@@ -833,8 +842,9 @@ delta_fc1_kernel(const __grid_constant__ CUtensorMap map_a,
 // MLP (row 15): hq on its affine grids, acc += f32(d_j) * hsc_j + hzp_j *
 // colsum_j (colsum [strips, N], the column sums of each strip of w2's codes),
 // then out = x + bf16(acc * s2 + b2); with STORE_M (rows 21-22) the bf16
-// m = bf16(acc * s2 + b2) is stored into m_out [M, N] too.
-template <bool MLP, bool STORE_M = false>
+// m = bf16(acc * s2 + b2) is stored into m_out [M, N] too; without RES (row
+// 14) out = bf16(acc * s2 + b2) and x is not read.
+template <bool MLP, bool STORE_M = false, bool RES = true>
 __global__ void __launch_bounds__(W_THREADS, 1)
 delta_fc2_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_w, const float* __restrict__ hsc,
@@ -844,6 +854,7 @@ delta_fc2_kernel(const __grid_constant__ CUtensorMap map_a,
                  bf16* __restrict__ out, bf16* __restrict__ m_out, int M, int N, int K,
                  int strips) {
   static_assert(MLP || !STORE_M, "m is stored by the base rows only");
+  static_assert(RES || (MLP && !STORE_M), "only row 14's MLP adds no residual");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sa = (raw + 1023u) & ~1023u;
@@ -918,8 +929,8 @@ delta_fc2_kernel(const __grid_constant__ CUtensorMap map_a,
       const int r = hh ? r1 : r0;
       if (r >= M) continue;
       const size_t at = (size_t)r * N + col;
-      const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(x + at);
-      __nv_bfloat162 m, o;
+      __nv_bfloat162 xr, m, o;
+      if constexpr (RES) xr = *reinterpret_cast<const __nv_bfloat162*>(x + at);
       if constexpr (MLP) {  // m = bf16(acc * s2 + b2)
         m.x = __float2bfloat16_rn(__fadd_rn(__fmul_rn(sum[4 * c + 2 * hh], w.x), bias.x));
         m.y = __float2bfloat16_rn(__fadd_rn(__fmul_rn(sum[4 * c + 2 * hh + 1], w.y), bias.y));
@@ -930,8 +941,12 @@ delta_fc2_kernel(const __grid_constant__ CUtensorMap map_a,
         m.y = __float2bfloat16_rn(
             __fadd_rn(__bfloat162float(mb.y), __fmul_rn(sum[4 * c + 2 * hh + 1], w.y)));
       }
-      o.x = badd(xr.x, m.x);
-      o.y = badd(xr.y, m.y);
+      if constexpr (RES) {
+        o.x = badd(xr.x, m.x);
+        o.y = badd(xr.y, m.y);
+      } else {
+        o = m;
+      }
       *reinterpret_cast<__nv_bfloat162*>(out + at) = o;
       if constexpr (STORE_M) *reinterpret_cast<__nv_bfloat162*>(m_out + at) = m;
     }
@@ -981,11 +996,13 @@ int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows
 }
 
 // the shapes the two GEMMs take: strips of 256 to 1024 hidden units in
-// 256-column blocks, C a multiple of F2_BN (K chunks past C are zero-filled)
-inline bool bad_wgmma_shape(int R, int C, int hidden, int strips) {
+// 256-column blocks, fc1's K = C and fc2's N multiples of F2_BN (N = C but
+// in row 14)
+inline bool bad_wgmma_shape(int R, int C, int N, int hidden, int strips) {
   if (R < 1 || strips < 1 || strips > MAX_STRIPS || hidden % strips) return true;
   const int hs = hidden / strips;
-  return hs % F1_BN || hs > MAX_CLUSTER * F1_BN || C < F2_BN || C % F2_BN;
+  return hs % F1_BN || hs > MAX_CLUSTER * F1_BN || C < F2_BN || C % F2_BN || N < F2_BN ||
+         N % F2_BN;
 }
 
 // Row 15's code pass: LN2 of x [R, C] bf16 in the bf16 chain of mlp_w8.cu's
@@ -994,22 +1011,31 @@ inline bool bad_wgmma_shape(int R, int C, int hidden, int strips) {
 // the row kept in registers and coded as attention_block.cu's
 // row_codes_kernel codes a bf16 row: codes [R, C] = round(f32(xln) * (127 /
 // amax)), sr [R] = amax * (1/127), amax = max(max |xln|, 1e-8). The same
-// operations in the same order as those two passes, so the same bits. One
-// warp a row; NV: the 16-byte vectors a lane holds (C <= NV * 256).
+// operations in the same order as those two passes, so the same bits.
+// Without LN (row 14) the bf16 rows of x are coded as they are:
+// row_codes_kernel's operations on x. One warp a row; NV: the 16-byte
+// vectors a lane holds (C <= NV * 256).
 constexpr int CODE_WARPS = 8;
-constexpr int CODE_MAX_NV = 4;  // C <= 1024: rows 15 and 21-22's C is at most a strip
+constexpr int CODE_MAX_NV = 4;  // C <= 1024
 
 // Row r of x [R, C] into registers v (lane + 32 i: NV 16-byte vectors of 8
-// bf16) with its f32 LN statistics: the sums in lane order, mu = sum / C,
-// var = sum(x^2) / C - mu^2.
+// bf16).
 template <int NV>
-__device__ inline void load_row_stats(const bf16* __restrict__ x, int r, int C,
-                                      uint4 (&v)[NV], float& mu, float& var) {
+__device__ inline void load_row(const bf16* __restrict__ x, int r, int C, uint4 (&v)[NV]) {
   const int lane = threadIdx.x & 31, nvec = C / 8;
   const uint4* row = reinterpret_cast<const uint4*>(x + (size_t)r * C);
 #pragma unroll
   for (int i = 0; i < NV; ++i)
     if (lane + 32 * i < nvec) v[i] = __ldg(row + lane + 32 * i);
+}
+
+// load_row with its f32 LN statistics: the sums in lane order, mu = sum / C,
+// var = sum(x^2) / C - mu^2.
+template <int NV>
+__device__ inline void load_row_stats(const bf16* __restrict__ x, int r, int C,
+                                      uint4 (&v)[NV], float& mu, float& var) {
+  const int lane = threadIdx.x & 31, nvec = C / 8;
+  load_row<NV>(x, r, C, v);
   float sum = 0.f, sq = 0.f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
@@ -1031,7 +1057,7 @@ __device__ inline void load_row_stats(const bf16* __restrict__ x, int r, int C,
   var = __fsub_rn(__fdiv_rn(sq, (float)C), __fmul_rn(mu, mu));
 }
 
-template <int NV>
+template <int NV, bool LN>
 __global__ void __launch_bounds__(CODE_WARPS * 32)
 mlp_code_pass_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
                      const float* __restrict__ ln_b, int8_t* __restrict__ q,
@@ -1040,29 +1066,40 @@ mlp_code_pass_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
   const int r = blockIdx.x * CODE_WARPS + (threadIdx.x >> 5);
   if (r >= R) return;
   uint4 v[NV];
-  float mu, var;
-  load_row_stats<NV>(x, r, C, v, mu, var);
-  const bf16 mu_b = __float2bfloat16_rn(mu);
-  const bf16 inv_b = __float2bfloat16_rn(rsqrtf(__fadd_rn(var, eps)));
   float amax = 0.f;
+  if constexpr (LN) {
+    float mu, var;
+    load_row_stats<NV>(x, r, C, v, mu, var);
+    const bf16 mu_b = __float2bfloat16_rn(mu);
+    const bf16 inv_b = __float2bfloat16_rn(rsqrtf(__fadd_rn(var, eps)));
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int vi = lane + 32 * i;
-    if (vi >= nvec) continue;
-    // this vector's 8 scales and biases, as two 16-byte loads each
-    float sc[8], bi[8];
-    const float4* s4 = reinterpret_cast<const float4*>(ln_s) + 2 * vi;
-    const float4* b4 = reinterpret_cast<const float4*>(ln_b) + 2 * vi;
-    *reinterpret_cast<float4*>(sc) = __ldg(s4);
-    *reinterpret_cast<float4*>(sc + 4) = __ldg(s4 + 1);
-    *reinterpret_cast<float4*>(bi) = __ldg(b4);
-    *reinterpret_cast<float4*>(bi + 4) = __ldg(b4 + 1);
-    bf16* e = reinterpret_cast<bf16*>(&v[i]);
+    for (int i = 0; i < NV; ++i) {
+      const int vi = lane + 32 * i;
+      if (vi >= nvec) continue;
+      // this vector's 8 scales and biases, as two 16-byte loads each
+      float sc[8], bi[8];
+      const float4* s4 = reinterpret_cast<const float4*>(ln_s) + 2 * vi;
+      const float4* b4 = reinterpret_cast<const float4*>(ln_b) + 2 * vi;
+      *reinterpret_cast<float4*>(sc) = __ldg(s4);
+      *reinterpret_cast<float4*>(sc + 4) = __ldg(s4 + 1);
+      *reinterpret_cast<float4*>(bi) = __ldg(b4);
+      *reinterpret_cast<float4*>(bi + 4) = __ldg(b4 + 1);
+      bf16* e = reinterpret_cast<bf16*>(&v[i]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {  // ((x - mu) * inv) * s + b, each rounded to bf16
-      e[j] = badd(bmul(bmul(bsub(e[j], mu_b), inv_b), __float2bfloat16_rn(sc[j])),
-                  __float2bfloat16_rn(bi[j]));
-      amax = fmaxf(amax, fabsf(__bfloat162float(e[j])));
+      for (int j = 0; j < 8; ++j) {  // ((x - mu) * inv) * s + b, each rounded to bf16
+        e[j] = badd(bmul(bmul(bsub(e[j], mu_b), inv_b), __float2bfloat16_rn(sc[j])),
+                    __float2bfloat16_rn(bi[j]));
+        amax = fmaxf(amax, fabsf(__bfloat162float(e[j])));
+      }
+    }
+  } else {
+    load_row<NV>(x, r, C, v);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (lane + 32 * i >= nvec) continue;
+      const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(__bfloat162float(e[j])));
     }
   }
 #pragma unroll
@@ -1142,8 +1179,11 @@ inline bool bad_code_shape(int R, int C) {
   return R < 1 || C < 8 || C % 8 || C > CODE_MAX_NV * 256;
 }
 
-// the code pass: row 15's bf16 chain, or with F32 rows 21-22's f32 LN2
-template <bool F32>
+// the rows a code pass codes: row 15's bf16-chain LN2, rows 21-22's f32 LN2,
+// row 14's x itself (no LN: ln_s, ln_b and eps are not read)
+enum CodeRows { ROWS_LN_BF16, ROWS_LN_F32, ROWS_X };
+
+template <int ROWS>
 int launch_codes(const void* x, const void* ln_s, const void* ln_b, void* q, void* sr,
                  int R, int C, float eps, cudaStream_t stream) {
   if (bad_code_shape(R, C)) return (int)cudaErrorInvalidValue;
@@ -1153,11 +1193,11 @@ int launch_codes(const void* x, const void* ln_s, const void* ln_b, void* q, voi
   switch ((C + 255) / 256) {
 #define CODE_CASE(n)                                                                   \
   case n:                                                                              \
-    if constexpr (F32)                                                                 \
+    if constexpr (ROWS == ROWS_LN_F32)                                                 \
       base_code_pass_kernel<n><<<grid, CODE_WARPS * 32, 0, stream>>>(                  \
           xp, sp, bp, (int8_t*)q, (float*)sr, R, C, eps);                              \
     else                                                                               \
-      mlp_code_pass_kernel<n><<<grid, CODE_WARPS * 32, 0, stream>>>(                   \
+      mlp_code_pass_kernel<n, ROWS == ROWS_LN_BF16><<<grid, CODE_WARPS * 32, 0, stream>>>( \
           xp, sp, bp, (int8_t*)q, (float*)sr, R, C, eps);                              \
     break;
     CODE_CASE(1) CODE_CASE(2) CODE_CASE(3) CODE_CASE(4)
@@ -1175,7 +1215,7 @@ int launch_delta_fc1(const void* codes, const void* sr, const void* w1, const vo
                      const void* g_z, const void* b1, void* hq, void* hsc, void* hzp, int R,
                      int C, int hidden, int strips, cudaStream_t stream,
                      void* aux_q = nullptr, void* aux_s = nullptr) {
-  if (bad_wgmma_shape(R, C, hidden, strips)) return (int)cudaErrorInvalidValue;
+  if (bad_wgmma_shape(R, C, C, hidden, strips)) return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mw, mc{}, mg{};
   int err = make_map(&ma, codes, R, C, W_BM);
   if (!err) err = make_map(&mw, w1, hidden, C, F1_BN);
@@ -1205,25 +1245,25 @@ int launch_delta_fc1(const void* codes, const void* sr, const void* w1, const vo
   return err ? err : (int)cudaGetLastError();
 }
 
-// fc2 of the delta rows (m_b), or with MLP row 15's (hzp, colsum, b2), and
-// with STORE_M rows 21-22's (m_out)
-template <bool MLP, bool STORE_M = false>
+// fc2 of the delta rows (m_b), or with MLP row 15's (hzp, colsum, b2), with
+// STORE_M rows 21-22's (m_out), without RES row 14's (no x); N output columns
+template <bool MLP, bool STORE_M = false, bool RES = true>
 int launch_delta_fc2(const void* hq, const void* hsc, const void* hzp, const void* colsum,
                      const void* w2, const void* s2, const void* b2, const void* m_b,
-                     const void* x, void* out, int R, int C, int hidden, int strips,
+                     const void* x, void* out, int R, int N, int hidden, int strips,
                      cudaStream_t stream, void* m_out = nullptr) {
-  if (bad_wgmma_shape(R, C, hidden, strips)) return (int)cudaErrorInvalidValue;
+  if (bad_wgmma_shape(R, N, N, hidden, strips)) return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mw;
   int err = make_map(&ma, hq, R, hidden, W_BM);
-  if (!err) err = make_map(&mw, w2, C, hidden, F2_BN);
+  if (!err) err = make_map(&mw, w2, N, hidden, F2_BN);
   if (!err)
-    err = (int)cudaFuncSetAttribute(delta_fc2_kernel<MLP, STORE_M>,
+    err = (int)cudaFuncSetAttribute(delta_fc2_kernel<MLP, STORE_M, RES>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, F2_SMEM);
   if (err) return err;
-  const dim3 grid(C / F2_BN, (R + W_BM - 1) / W_BM);
-  delta_fc2_kernel<MLP, STORE_M><<<grid, W_THREADS, F2_SMEM, stream>>>(
+  const dim3 grid(N / F2_BN, (R + W_BM - 1) / W_BM);
+  delta_fc2_kernel<MLP, STORE_M, RES><<<grid, W_THREADS, F2_SMEM, stream>>>(
       ma, mw, (const float*)hsc, (const float*)hzp, (const float*)colsum, (const float*)s2,
-      (const float*)b2, (const bf16*)m_b, (const bf16*)x, (bf16*)out, (bf16*)m_out, R, C,
+      (const float*)b2, (const bf16*)m_b, (const bf16*)x, (bf16*)out, (bf16*)m_out, R, N,
       hidden, strips);
   return (int)cudaGetLastError();
 }
@@ -1269,11 +1309,11 @@ int uspace_base_mlp_grad(const void* x, const void* ln_scale, const void* ln_bia
                          const void* s2, const void* b2, const void* colsum, void* out,
                          void* m_out, void* gp_q, void* gp_s, void* ws, int R, int C,
                          int hidden, int strips, float eps, void* stream) {
-  if (bad_code_shape(R, C) || bad_wgmma_shape(R, C, hidden, strips) || (uintptr_t)ws % 256)
+  if (bad_code_shape(R, C) || bad_wgmma_shape(R, C, C, hidden, strips) || (uintptr_t)ws % 256)
     return (int)cudaErrorInvalidValue;
   const BaseWs w = base_ws(ws, R, C, hidden, strips);
   const cudaStream_t st = (cudaStream_t)stream;
-  int err = launch_codes<true>(x, ln_scale, ln_bias, w.codes, w.sr, R, C, eps, st);
+  int err = launch_codes<ROWS_LN_F32>(x, ln_scale, ln_bias, w.codes, w.sr, R, C, eps, st);
   if (!err)
     err = launch_delta_fc1<DG_BASE_GRAD>(w.codes, w.sr, w1, s1, nullptr, nullptr, nullptr,
                                          nullptr, nullptr, b1, w.hq, w.hsc, w.hzp, R, C,
@@ -1294,11 +1334,11 @@ int uspace_base_mlp_eg(const void* x, const void* ln_scale, const void* ln_bias,
                        void* m_out, void* e_q, void* e_s, void* g_q, void* g_s, void* g_z,
                        void* ws, int R, int C, int hidden, int strips, float eps,
                        void* stream) {
-  if (bad_code_shape(R, C) || bad_wgmma_shape(R, C, hidden, strips) || (uintptr_t)ws % 256)
+  if (bad_code_shape(R, C) || bad_wgmma_shape(R, C, C, hidden, strips) || (uintptr_t)ws % 256)
     return (int)cudaErrorInvalidValue;
   const BaseWs w = base_ws(ws, R, C, hidden, strips);
   const cudaStream_t st = (cudaStream_t)stream;
-  int err = launch_codes<true>(x, ln_scale, ln_bias, w.codes, w.sr, R, C, eps, st);
+  int err = launch_codes<ROWS_LN_F32>(x, ln_scale, ln_bias, w.codes, w.sr, R, C, eps, st);
   if (!err)
     err = launch_delta_fc1<DG_BASE_EG>(w.codes, w.sr, w1, s1, nullptr, nullptr, nullptr,
                                        nullptr, nullptr, b1, g_q, g_s, g_z, R, C, hidden,
@@ -1328,7 +1368,8 @@ int uspace_base_mlp_e(const void* x, const void* ln_scale, const void* ln_bias,
 // LN2 rows. C a multiple of 8, at most 1024.
 int uspace_base_mlp_codes(const void* x, const void* ln_scale, const void* ln_bias,
                           void* codes, void* sr, int R, int C, float eps, void* stream) {
-  return launch_codes<true>(x, ln_scale, ln_bias, codes, sr, R, C, eps, (cudaStream_t)stream);
+  return launch_codes<ROWS_LN_F32>(x, ln_scale, ln_bias, codes, sr, R, C, eps,
+                                   (cudaStream_t)stream);
 }
 
 // Row 22's fc1 alone: codes [R, C] int8 with sr [R] f32, w1 [hidden, C] int8
@@ -1439,7 +1480,8 @@ int uspace_mlp_int8_fc2(const void* hq, const void* hsc, const void* hzp, const 
 // [C] -> codes [R, C] int8 and sr [R] f32. C a multiple of 8, at most 1024.
 int uspace_mlp_int8_codes(const void* x, const void* ln_scale, const void* ln_bias,
                           void* codes, void* sr, int R, int C, float eps, void* stream) {
-  return launch_codes<false>(x, ln_scale, ln_bias, codes, sr, R, C, eps, (cudaStream_t)stream);
+  return launch_codes<ROWS_LN_BF16>(x, ln_scale, ln_bias, codes, sr, R, C, eps,
+                                    (cudaStream_t)stream);
 }
 
 // Row 15, the W8A8 MLP sub-block out = x + fc2(gelu(fc1(LN2(x)))) as three
@@ -1452,16 +1494,42 @@ int uspace_ln_mlp_int8(const void* x, const void* ln_scale, const void* ln_bias,
                        const void* s2, const void* b2, const void* colsum, void* codes,
                        void* sr, void* hq, void* hsc, void* hzp, void* out, int R, int C,
                        int hidden, int strips, float eps, void* stream) {
-  if (bad_code_shape(R, C) || bad_wgmma_shape(R, C, hidden, strips))
+  if (bad_code_shape(R, C) || bad_wgmma_shape(R, C, C, hidden, strips))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  int err = launch_codes<false>(x, ln_scale, ln_bias, codes, sr, R, C, eps, st);
+  int err = launch_codes<ROWS_LN_BF16>(x, ln_scale, ln_bias, codes, sr, R, C, eps, st);
   if (!err)
     err = launch_delta_fc1<DG_MLP>(codes, sr, w1, s1, nullptr, nullptr, nullptr, nullptr,
                                    nullptr, b1, hq, hsc, hzp, R, C, hidden, strips, st);
   if (!err)
     err = launch_delta_fc2<true>(hq, hsc, hzp, colsum, w2, s2, b2, nullptr, x, out, R, C,
                                  hidden, strips, st);
+  return err;
+}
+
+// Row 14, the W8A8 MLP out = fc2(gelu(fc1(x))): x [R, C] bf16, w1 [hidden,
+// C] int8 (torch layout) with s1, b1 [hidden] f32, w2 [N, hidden] int8 with
+// s2, b2 [N] f32, colsum [strips, N] f32 -> out [R, N] bf16 = bf16(acc * s2
+// + b2). Row 15's three launches on one stream without LN2 and the
+// residual: the code pass of x's own rows, fc1, fc2, through the caller's
+// workspaces codes [R, C] int8, sr [R] f32, hq [R, hidden] int8, hsc and
+// hzp [R, strips] f32 (16-byte aligned). C a multiple of 128 up to 1024, N
+// a multiple of 128, strips of 256 to 1024 in multiples of 256. Every shape
+// is checked before the first launch.
+int uspace_mlp_int8(const void* x, const void* w1, const void* s1, const void* b1,
+                    const void* w2, const void* s2, const void* b2, const void* colsum,
+                    void* codes, void* sr, void* hq, void* hsc, void* hzp, void* out, int R,
+                    int C, int hidden, int N, int strips, void* stream) {
+  if (bad_code_shape(R, C) || bad_wgmma_shape(R, C, N, hidden, strips))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int err = launch_codes<ROWS_X>(x, nullptr, nullptr, codes, sr, R, C, 0.f, st);
+  if (!err)
+    err = launch_delta_fc1<DG_MLP>(codes, sr, w1, s1, nullptr, nullptr, nullptr, nullptr,
+                                   nullptr, b1, hq, hsc, hzp, R, C, hidden, strips, st);
+  if (!err)
+    err = launch_delta_fc2<true, false, false>(hq, hsc, hzp, colsum, w2, s2, b2, nullptr,
+                                               nullptr, out, R, N, hidden, strips, st);
   return err;
 }
 

@@ -7,17 +7,17 @@ polynomial so that the two fields agree.
 
 Fused int8 MLP (CUDA C++ for Hopper): :func:`fused_mlp_block_q` (``x +
 fc2(gelu(fc1(LN2(x))))``, TPU kernel ``_mlp_kernel_int8_lnres``) and
-:func:`fused_mlp` (``fc2(gelu(fc1(x)))``, ``_mlp_kernel_int8``, one block
-kernel of ``csrc/mlp_int8.cu``) with ``quant=True``. Both take f32
-weights, quantized once per weight value through
-``ops.quant.quantized_weight``. On the card the sub-block is three
-launches from one C entry (``csrc/delta_mlp.cu`` ``uspace_ln_mlp_int8``),
-counted as one: a code pass (LN2 and the row codes of its bf16 rows, the
-row in registers), then fc1 and fc2 as s8 wgmma GEMMs with the affine
-codes of the hidden in an [R, hidden] int8 workspace and their scales and
-zero points in [R, strips] ones between them. The twins are the same
-pieces: :func:`mlp_int8_fc1_plain` and :func:`mlp_int8_fc2_plain` make up
-:func:`ln_mlp_int8_plain` and (without the residual) :func:`mlp_int8_plain`.
+:func:`fused_mlp` (``fc2(gelu(fc1(x)))``, ``_mlp_kernel_int8``) with
+``quant=True``. Both take f32 weights, quantized once per weight value
+through ``ops.quant.quantized_weight``. On the card each is three launches
+from one C entry of ``csrc/delta_mlp.cu`` (``uspace_ln_mlp_int8``,
+``uspace_mlp_int8``), counted as one: a code pass (the row codes of the
+bf16 rows of LN2(x) or of x, the row in registers), then fc1 and fc2 as s8
+wgmma GEMMs with the affine codes of the hidden in an [R, hidden] int8
+workspace and their scales and zero points in [R, strips] ones between
+them. The twins are the same pieces: :func:`mlp_int8_fc1_plain` and
+:func:`mlp_int8_fc2_plain` make up :func:`ln_mlp_int8_plain` and (without
+the residual) :func:`mlp_int8_plain`.
 Rounding sites, shared by kernel and plain twin:
 
 - LN2 (lnres only): f32 statistics, normalised in x's dtype (bf16):
@@ -282,32 +282,43 @@ def _ln_operands(ln, c, out_dim, dev):
     return lns, lnb
 
 
-def _check_int8_shapes(c, hidden, out_dim, strips):
-    """The widths both int8 MLP routes take, refused before any launch."""
+def _check_int8_shapes(r, c, hidden, out_dim, strips):
+    """The shapes both int8 MLP C entries take (``csrc/delta_mlp.cu``
+    ``bad_code_shape`` and ``bad_wgmma_shape``), refused before any
+    launch: a row at least, C a multiple of 128 up to 1024 (the code pass
+    holds a row, fc1 reads 128-code K chunks), strips of 256 to 1024
+    hidden units in multiples of 256 (clusters of 256-column blocks) and
+    an output width that is a multiple of 128 (fc2's column tiles)."""
     hs = hidden // strips
-    if (c % 32 or hs % 256 or hs > 1024 or c > hs or out_dim % 256):
+    if (r < 1 or c % 128 or not 128 <= c <= 1024 or strips > COL_SLICES
+            or hidden % strips or hs % 256 or hs > 1024 or out_dim % 128
+            or out_dim < 128):
         raise ValueError(
-            f"the int8 MLP kernels take C % 32 == 0, a strip width "
-            f"hidden/{strips} of 256, 512, 768 or 1024 and >= C, and an "
-            f"output width that is a multiple of 256; got C={c}, "
-            f"hidden={hidden}, out={out_dim}")
+            f"the int8 MLP kernels take at least one row, C a multiple of "
+            f"128 up to 1024, a strip width hidden/{strips} of 256, 512, 768 "
+            f"or 1024 and an output width that is a multiple of 128; got "
+            f"R={r}, C={c}, hidden={hidden}, out={out_dim}")
 
 
 def _mlp_int8_kernel(x2d, q1, b1, q2, b2, strips):
-    """Launch the int8 MLP kernel (``csrc/mlp_int8.cu``) on x [R, C]
-    bf16."""
+    """The int8 MLP on x [R, C] bf16: one C entry (``uspace_mlp_int8``)
+    that launches the code pass of x's rows, fc1 and fc2, counted as one,
+    through one workspace laid out as :func:`_ln_mlp_int8_kernel`'s."""
     r, c = x2d.shape
     hidden, out_dim = q1.q.shape[0], q2.q.shape[0]
     dev = x2d.device
     b1f, b2f, out = _mlp_operands("int8", x2d, q1, b1, q2, b2)
-    _check_int8_shapes(c, hidden, out_dim, strips)
+    _check_int8_shapes(r, c, hidden, out_dim, strips)
     colsum = q2.colsums(strips)
     check_tensor("colsums", colsum, torch.float32, (strips, out_dim), dev)
-    raise_on(load("mlp_int8").uspace_mlp_int8(
+    ws, (hq, codes, sr, hsc, hzp) = _workspace(
+        dev, (r * hidden, r * c, 4 * r, 4 * r * strips, 4 * r * strips))
+    raise_on(load("delta_mlp").uspace_mlp_int8(
         x2d.data_ptr(), q1.q.data_ptr(), q1.scale.data_ptr(), b1f.data_ptr(),
         q2.q.data_ptr(), q2.scale.data_ptr(), b2f.data_ptr(),
-        colsum.data_ptr(), out.data_ptr(), r, c, hidden, out_dim, strips,
-        cuda_stream(dev)), "uspace_mlp_int8")
+        colsum.data_ptr(), codes, sr, hq, hsc, hzp, out.data_ptr(), r, c,
+        hidden, out_dim, strips, cuda_stream(dev)), "uspace_mlp_int8")
+    del ws  # held until the launches are queued
     LAUNCHES["mlp_int8"] += 1
     return out
 
@@ -322,7 +333,7 @@ def _ln_mlp_int8_kernel(x2d, ln, q1, b1, q2, b2, strips):
     hidden, out_dim = q1.q.shape[0], q2.q.shape[0]
     dev = x2d.device
     b1f, b2f, out = _mlp_operands("int8", x2d, q1, b1, q2, b2)
-    _check_int8_shapes(c, hidden, out_dim, strips)
+    _check_int8_shapes(r, c, hidden, out_dim, strips)
     lns, lnb = _ln_operands(ln, c, out_dim, dev)
     colsum = q2.colsums(strips)
     check_tensor("colsums", colsum, torch.float32, (strips, c), dev)
