@@ -190,7 +190,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at head dim 32 (embed 256 in 8 heads of 32: the int8 MLP kernels take
    strips of 256 hidden units or more, embed 128 gives 128) Euler-50 at
    batch 64 on `pallas_qkvproj` (row 6) and `pallas_block` (row 11) with
-   exact launches, each against `xla`'s W8A8 view at the quality gate.
+   exact launches, each against `xla`'s W8A8 view at the quality gate;
+27. U-ViT-T2I-large (`uvit_t2i_large`: L = 1 + 77 + 256 = 334) with seeded
+   weights and CLIP-L/14 contexts (the text tower on seeded parameters and
+   seeded token ids): CFG Euler-50 at 50 prompts (100 rows in the field)
+   on `auto`, exactly 1050 launches of row 2, against `xla`;
+   `cli.sample_lfm.run` on the config (contexts of its test samples) for 4
+   steps at 50 prompts, 84 launches of row 2, against `xla`; a p2p
+   `AttnEdit` at multiplier 1 bit-equal to the plain route with 0
+   launches; one token at multipliers 0 and 2, and an edit no block
+   applies as a control; `capture_attn`; the W8A8 view for 4 steps (84
+   launches each of rows 5 and 15) at guidance 1 and 3 against the bf16
+   view, its guided field block by block against the twins, with control
+   blocks; `train_lfm.run` for 2 steps at batch 64 with CFG dropout (84
+   and 42 launches of rows 1 and 4 under full remat); phase 3 also times
+   rows 1, 2, 4, 5 and 15 at these shapes, on the `kernels` line;
+28. the conditional toys (`synthetic_cond_e2e`, `synthetic_t2i_e2e`,
+   `synthetic_t2i_unet_e2e`): `train_lfm.run` for 2 steps each (rows 1 and
+   4 at head dim 32, L = 6 and 13, on the U-ViTs), then
+   `cli.editing_e2e_cond.run` and `cli.editing_e2e_t2i.run` at 8 samples
+   and Euler-10 with exact launches of row 2 and every artefact written;
+   phase 3 times rows 1, 2 and 4 at the toys' shapes, on the `kernels`
+   line.
 
 Prints the `kernels` JSON line and then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -429,6 +450,38 @@ TOY_E2E_N, TOY_E2E_STEPS = 16, 10
 # phase 26's W8A8 view at head dim 32: the narrowest width whose MLP strips
 # (hidden / 4) the int8 MLP kernels take
 TOY_Q_EMBED = 256
+# phase 27, U-ViT-T2I-large (uvit_t2i_large): the prompts of one Euler-50
+# batch under CFG at T2I_CFG, so T2I_FIELD_B rows in the field; L = 1 + 77
+# + 256; the training batch, a quarter of the config's 256; the context
+# token the p2p edit targets (the first word after the start token) and the
+# prompts of its multiplier sweep; CLIP's start and end tokens. A multiplier
+# of 0 or 2 on one token must move the latents by T2I_EDIT_MIN_NOISE times
+# the kernel route's own distance to the plain route, to opposite sides of
+# the multiplier-1 decode (cos(x2 - x1, x1 - x0) > 0). On random weights a
+# token takes about 1/334 of each attention row, so one token's edit is
+# small: on an H100 it read 2.18x (0 and 2, in the prompts' half), 2.01x
+# (0 in both halves) and 2.09-2.19x for tokens 0, 20, 60 and 76
+# (experiments/torch_t2i_p2p_probe.py), with cos 0.634 (phase 25's 5x,
+# which a u-space edit's free write scale meets, is out of a one-token
+# edit's reach here). Controls under the limit: the edit that no block
+# applies moved 0 and the kernel route's unedited decode 1.0x
+T2I_B, T2I_CFG, T2I_L, T2I_TRAIN_B = 50, 3.0, 334, 64
+T2I_FIELD_B = 2 * T2I_B
+T2I_TARGET, T2I_SWEEP_N, T2I_EDIT_MIN_NOISE = 1, 10, 1.5
+# the W8A8 view at T2I_CFG against the bf16 view: guidance amplifies the
+# views' field difference (first H100 run, 4 steps: rel-L2 6.25e-3 at
+# guidance 1, 1.58e-2 at 3, 2.5x; 1 - cos 1.95e-5 and 1.26e-4, 6.4x), so
+# the gate's rel-L2 limit holds (1.9x the guided reading) and 1 - cos is
+# held to 5e-4 (4x the guided reading, 2.5^2 x 4 x the unguided one)
+T2I_QUANT_CFG_MIN_COS = 0.9995
+# phase 3's controls of row 15 (a twin with one rounding site changed)
+ROW15_CONTROLS = ("the hidden kept in f32", "one hidden grid per row",
+                  "x coded by division", "LN2 normalised in f32")
+CLIP_SOT, CLIP_EOT = 49406, 49407
+# phase 28, the conditional toys' harnesses: samples a setting (CFG doubles
+# them in the field) and Euler steps
+TOY_HARNESS_N = 8
+TOY_FIELD_B = 2 * TOY_HARNESS_N
 GRAD_B = 32
 # kernel 8's phase-3 shapes (B, H, L, D) at the training batch; the first is
 # the UNet-large training path's (its five self-attentions at 32 x 32)
@@ -629,6 +682,7 @@ def check_kernels(torch, F, attn, mlpk, quant):
     cases += bwd_cases(torch, F, attn, randn, io)
     cases += block_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
     cases += hd32_cases(torch, F, attn, mlpk, randn, io, quant)
+    cases += t2i_cases(torch, F, attn, mlpk, quant, randn, io)
     cases += delta_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io)
     results, shapes, controls, problems = [], [], {}, []
     for case in cases:
@@ -1150,9 +1204,7 @@ def int8_cases(torch, F, attn, mlpk, quant, randn, sdpa_packed, io):
              bytes=io(xr, lns, lnb) + mbytes + io(xr), flops=0.0,
              int8_ops=mlp_ops, tol=m_tol, shape=mshape,
              part=lambda t: t.double() - xr.double(),
-             controls=m_ctl("the hidden kept in f32",
-                            "one hidden grid per row", "x coded by division",
-                            "LN2 normalised in f32", ln_=ln1)),
+             controls=m_ctl(*ROW15_CONTROLS, ln_=ln1)),
         dict(name="mlp_int8", source=mlp_src,
              replaces="uspace_tpu/ops/mlp.py:161 (_mlp_kernel_int8)",
              kernel=lambda: mlpk.fused_mlp(xr, w1, b1, w2, b2, quant=True),
@@ -1617,6 +1669,131 @@ def hd32_cases(torch, F, attn, mlpk, randn, io, quant):
         case.setdefault("source", src)
         case.setdefault("shape", shape)
         case.update(name=f"{case['name']} D={d}", listed=False)
+    return cases
+
+
+def t2i_cases(torch, F, attn, mlpk, quant, randn, io):
+    """Phase 3's cases at the shapes of phases 27 and 28, on the `kernels`
+    line (each entry's launches those phase's run counts): U-ViT-T2I-large
+    (L = 334 = 1 + 77 + 256, C = 1024, 16 heads of 64) under CFG at
+    T2I_FIELD_B (row 2; rows 5 and 15 of the W8A8 view) and its training
+    batch T2I_TRAIN_B (rows 1 and 4); the T2I and class-conditional toys
+    (C = 128, 4 heads of 32, L = 13 and L = 6) at their training batch
+    (rows 1 and 4) and under CFG at the harness's batch (row 2). Each
+    against its twin within its row's phase-3 limits."""
+    f32, bf = torch.float32, torch.bfloat16
+    cases = []
+
+    def sdpa(qkv_, b, l, h, d):
+        q, k, v = qkv_.view(b, l, 3, h, d).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v)
+
+    def attn_rows(tag, b_field, b_train, l, c, h):
+        """Rows 2 (at b_field), 1 and 4 (at b_train) at one shape."""
+        d = c // h
+        scale = d ** -0.5
+        x = randn(b_field, l, c)
+        w = randn(3 * c, c, std=0.02).t()
+        qkv = randn(b_train, l, 3 * c, std=0.64)
+        do = randn(b_train, l, c)
+        qkv_l = qkv.detach().requires_grad_()
+        o_l = sdpa(qkv_l, b_train, l, h, d)
+        go_l = do.view(b_train, l, h, d).transpose(1, 2)
+        attn_fl = lambda b: 4.0 * b * h * l * l * d  # noqa: E731
+        return [
+            dict(name=f"qkvproj_attention {tag}", counter="qkvproj_attention",
+                 replaces="uspace_tpu/ops/attention.py:468 "
+                 "(_qkv_attn_kernel)",
+                 kernel=lambda: attn.fused_qkvproj_attention(x, w, h),
+                 plain=lambda: attn.qkvproj_attention_plain(x, w, h, scale),
+                 library=lambda: sdpa(torch.matmul(x, w), b_field, l, h, d),
+                 bytes=io(x, w) + io(x),
+                 flops=2.0 * b_field * l * c * 3 * c + attn_fl(b_field),
+                 shape=f"B={b_field} L={l} C={c} H={h} D={d} bf16"),
+            dict(name=f"packed_attention {tag}", counter="packed_attention",
+                 replaces="uspace_tpu/ops/attention.py:258 "
+                 "(_packed_fwd_kernel)",
+                 kernel=lambda: attn.fused_qkv_attention(qkv, h),
+                 plain=lambda: attn.packed_attention_plain(qkv, h, scale),
+                 library=lambda: sdpa(qkv, b_train, l, h, d),
+                 bytes=io(qkv) + io(do), flops=attn_fl(b_train),
+                 shape=f"B={b_train} L={l} C={c} H={h} D={d} bf16"),
+            dict(name=f"packed_attention_bwd {tag}",
+                 counter="packed_attention_bwd",
+                 source="uspace_tpu_torch/ops/csrc/fused_attention_bwd.cu",
+                 replaces="uspace_tpu/ops/attention.py:285 "
+                 "(_packed_bwd_kernel)",
+                 kernel=lambda: attn.packed_attention_bwd(qkv, do, h),
+                 plain=lambda: attn.packed_attention_bwd_plain(qkv, do, h,
+                                                               scale),
+                 library=lambda: torch.autograd.grad(o_l, qkv_l, go_l,
+                                                     retain_graph=True),
+                 bytes=io(qkv, do) + io(qkv),
+                 flops=10.0 * b_train * h * l * l * d,
+                 tol=(BWD_MAX_ABS, BWD_REL_L2),
+                 shape=f"B={b_train} L={l} C={c} H={h} D={d} bf16"),
+        ]
+
+    cases += attn_rows("T2I L=334", T2I_FIELD_B, T2I_TRAIN_B, T2I_L, C, H)
+    cases += attn_rows("toy L=13", TOY_FIELD_B, TOY_TRAIN_B, 13, 128, 4)
+    cases += attn_rows("toy L=6", TOY_FIELD_B, TOY_TRAIN_B, 6, 128, 4)
+
+    # the W8A8 view's rows 5 and 15 at U-ViT-T2I-large's field batch
+    b, l, d = T2I_FIELD_B, T2I_L, C // H
+    x = randn(b, l, C)
+    w = randn(3 * C, C, std=0.02, dtype=f32).t()
+    lns = 1.0 + randn(C, std=0.1, dtype=f32)
+    lnb = randn(C, std=0.1, dtype=f32)
+    qw = quant.quantized_weight(w)
+    hid, rows = 4 * C, b * l
+    xr = x.reshape(rows, C)
+    w1 = randn(hid, C, std=0.02, dtype=f32).t()
+    b1 = randn(hid, std=0.02, dtype=f32)
+    w2 = randn(C, hid, std=0.02, dtype=f32).t()
+    b2 = randn(C, std=0.02, dtype=f32)
+    q1, q2 = quant.quantized_weight(w1), quant.quantized_weight(w2)
+    strips = mlpk.col_slices(hid)
+
+    def ln(t):
+        return F.layer_norm(t.float(), (C,), lns, lnb, 1e-5)
+
+    def lib_proj(xf, qw_):  # row codes, torch._int_mm, dequant
+        return quant.int8_matmul(*quant.quantize_rowwise(xf), qw_.kn,
+                                 qw_.scale)
+
+    def lib_mlp(xf):
+        return (lib_proj(F.gelu(lib_proj(xf, q1) + b1), q2) + b2).to(bf)
+
+    cases += [
+        dict(name="ln_qkvproj_attention_int8 T2I L=334",
+             counter="ln_qkvproj_attention_int8",
+             replaces="uspace_tpu/ops/attention.py:592 (_qkv_attn_kernel_qln)",
+             kernel=lambda: attn.fused_ln_qkvproj_attention(
+                 x, lns, lnb, w, H, quant=True),
+             plain=lambda: attn.ln_qkvproj_attention_int8_plain(
+                 x, lns, lnb, qw, H, d ** -0.5, 1e-5),
+             library=lambda: sdpa(lib_proj(ln(x), qw).to(bf), b, l, H, d),
+             bytes=io(x, lns, lnb, qw.q, qw.scale) + io(x),
+             flops=4.0 * b * H * l * l * d, int8_ops=2.0 * b * l * C * 3 * C,
+             tol=(None, INT8_ATTN_REL_L2),
+             shape=f"B={b} L={l} C={C} H={H} bf16/int8"),
+        dict(name="ln_mlp_int8 T2I L=334", counter="ln_mlp_int8",
+             source="uspace_tpu_torch/ops/csrc/delta_mlp.cu",
+             replaces="uspace_tpu/ops/mlp.py:225 (_mlp_kernel_int8_lnres)",
+             kernel=lambda: mlpk.fused_mlp_block_q(xr, lns, lnb, w1, b1, w2,
+                                                   b2),
+             plain=lambda: mlpk.ln_mlp_int8_plain(xr, lns, lnb, q1, b1, q2,
+                                                  b2, strips, 1e-5),
+             library=lambda: xr + lib_mlp(ln(xr)),
+             bytes=io(xr, lns, lnb, q1.q, q1.scale, b1, q2.q, q2.scale, b2)
+             + io(xr), flops=0.0, int8_ops=4.0 * rows * C * hid,
+             tol=(None, INT8_MLP_REL_L2),
+             part=lambda t: t.double() - xr.double(),
+             shape=f"rows={rows} C={C} hidden={hid} strips={strips} "
+             "bf16/int8"),
+    ]
+    for case in cases:
+        case.setdefault("source", "uspace_tpu_torch/ops/csrc/attention.cu")
     return cases
 
 
@@ -2158,6 +2335,41 @@ def composed_field(torch, model, x, t, block):
 BLOCK_CONTROLS = ("the hidden kept in f32", "one hidden grid per row")
 
 
+def block_rels(torch, rels, blk, zin, skip, out):
+    """Append to ``rels`` the rel-L2 of block ``blk``'s update on its own
+    input: its output ``out`` (the kernels) against the twins' block, and
+    each of BLOCK_CONTROLS against the twins' block."""
+    ref = twin_block(torch, blk, zin, skip)
+    base = zin  # the update is taken after skip_linear (int8_dense)
+    if skip is not None:
+        base = blk.skip_linear(torch.cat([zin, skip], dim=-1))
+    upd = (ref.double() - base.double()).norm()
+    rels["kernels"].append(float((out.double() - ref.double()).norm() / upd))
+    for c in BLOCK_CONTROLS:
+        ctl = twin_block(torch, blk, zin, skip, c)
+        rels[c].append(float((ctl.double() - ref.double()).norm() / upd))
+
+
+def judge_blocks(rels, what):
+    """Log and judge ``block_rels``' readings: every kernel block within
+    BLOCK_REL_L2 of its twins, every control above it at every block;
+    returns the problems."""
+    top = max(rels["kernels"])
+    log(f"{what}, kernels vs twins on the same input: update rel_l2 max "
+        f"{top:.3e} over {len(rels['kernels'])} blocks (max {BLOCK_REL_L2})")
+    problems = []
+    if top > BLOCK_REL_L2:
+        problems.append(f"{what}: an int8 block disagrees with its twins")
+    for c in BLOCK_CONTROLS:
+        lo = min(rels[c])
+        log(f"  control, {c}: update rel_l2 min {lo:.3e} over the blocks: "
+            f"{'fails' if lo > BLOCK_REL_L2 else 'PASSES'} the comparison")
+        if lo <= BLOCK_REL_L2:
+            problems.append(f"{what}: the block limit lets twins with {c} "
+                            f"pass")
+    return problems
+
+
 def field_check(torch, model, z, t):
     """Phase 4b's full-width field evaluation of the int8 view: block by
     block on the kernels' own inputs (kernels vs twins, and controls vs
@@ -2168,16 +2380,7 @@ def field_check(torch, model, z, t):
 
     def kernel_block(blk, zin, skip):
         out = blk(zin, skip)
-        ref = twin_block(torch, blk, zin, skip)
-        base = zin  # the update is taken after skip_linear (int8_dense)
-        if skip is not None:
-            base = blk.skip_linear(torch.cat([zin, skip], dim=-1))
-        upd = (ref.double() - base.double()).norm()
-        rels["kernels"].append(float((out.double() - ref.double()).norm()
-                                     / upd))
-        for c in BLOCK_CONTROLS:
-            ctl = twin_block(torch, blk, zin, skip, c)
-            rels[c].append(float((ctl.double() - ref.double()).norm() / upd))
+        block_rels(torch, rels, blk, zin, skip, out)
         return out
 
     with torch.no_grad():
@@ -2198,18 +2401,7 @@ def field_check(torch, model, z, t):
                field=dict(cos=f_cos, rel_l2=f_rel, max_abs=f_abs),
                field_control=dict(change=BLOCK_CONTROLS[0], cos=c_cos,
                                   rel_l2=c_rel, max_abs=c_abs))
-    log(f"int8 blocks at batch {B}, kernels vs twins on the same input: "
-        f"update rel_l2 max {out['block_rel_l2_max']:.3e} over "
-        f"{len(rels['kernels'])} blocks (max {BLOCK_REL_L2})")
-    problems = []
-    if out["block_rel_l2_max"] > BLOCK_REL_L2:
-        problems.append("an int8 block disagrees with its twins")
-    for c in BLOCK_CONTROLS:
-        lo = out["controls"][c]["rel_l2_min"]
-        log(f"  control, {c}: update rel_l2 min {lo:.3e} over the blocks: "
-            f"{'fails' if lo > BLOCK_REL_L2 else 'PASSES'} the comparison")
-        if lo <= BLOCK_REL_L2:
-            problems.append(f"the block limit lets twins with {c} pass")
+    problems = judge_blocks(rels, f"int8 blocks at batch {B}")
     log(f"int8 field, kernels vs twins' composition: cos {f_cos:.7f} (min "
         f"{FIELD_MIN_COS}) rel_l2 {f_rel:.3e} (max {FIELD_MAX_REL_L2}) "
         f"max_abs {f_abs:.3e}; twins with {BLOCK_CONTROLS[0]} vs twins: cos "
@@ -3838,6 +4030,483 @@ def toy_editing_e2e(torch, attn, mlpk, editing_e2e, cfg, blocks, root):
                 roundtrip=report["roundtrip"])
 
 
+def t2i_large_path(torch, flow, attn, mlpk, quant, sample_lfm, dev, by_key):
+    """Phase 27: U-ViT-T2I-large (`uvit_t2i_large`: embed 1024, depth 20, 16
+    heads of 64, 77 context tokens of 768, L = 334) with seeded weights in
+    bf16. Its contexts [T2I_B, 77, 768] come from the full-width CLIP text
+    tower (`codecs.clip_text`, CLIP-L/14 on seeded parameters) applied to
+    seeded token ids, the null context from the empty prompt's ids (the
+    start token, then end tokens). Then:
+    - Euler-STEPS at T2I_B prompts with CFG at T2I_CFG (one forward over the
+      doubled batch, T2I_FIELD_B = 100 in the field) on `auto`: exactly 21 x
+      STEPS launches of row 2 and no other kernel, latents against the plain
+      route (`xla`) within the path limits, img/s and the solve's peak
+      memory above what was allocated before it;
+    - the user's entry point, `cli.sample_lfm.run(config="uvit_t2i_large",
+      cfg_scale=T2I_CFG)` at T2I_B prompts (the contexts of random test
+      samples of the config's dataset, guided against its empty context)
+      for SHORT_STEPS Euler steps on `auto` and on `xla`: exactly 21 x
+      SHORT_STEPS launches of row 2 and no other kernel on `auto`, none on
+      `xla`, finite latents of the config's shape, the two within the path
+      limits, and the run's own peak memory (its weights, data and
+      activations) above what was allocated before it;
+    - the same decode with an `AttnEdit` at multiplier 1 on context token
+      T2I_TARGET in every block: the plain attention in every block, 0
+      launches, latents equal to the plain route's bit for bit;
+    - that token at multipliers 0 and 2 in the prompts (the conditional
+      half; the null prompt has no word to rescale) on the first
+      T2I_SWEEP_N prompts: each decode at least T2I_EDIT_MIN_NOISE times
+      the kernel route's own distance to the plain route (both at that
+      batch) away from the plain route's multiplier-1 decode, the two on
+      opposite sides of it (cos(x2 - x1, x1 - x0) > 0), and multiplier 0
+      in both halves as a reading; controls that must fall under the
+      limit: the multiplier-0 edit that no block applies (block_ids empty:
+      the plain attention with col_mult ignored), and the kernel route's
+      unedited decode (an edit dropped on the way to the model);
+    - `capture_attn` of block 0 on the doubled batch at t = 0.5: f32
+      probabilities [100, 16, 334, 334] whose rows sum to 1 within 1e-5,
+      the same bit for bit under the multipliers 0 and 2 (folded into V);
+    - the W8A8 view (f32 weights of the same seed, quant=True, `auto`) for
+      SHORT_STEPS Euler steps over the doubled batch, at guidance 1 and at
+      T2I_CFG: exactly 21 x SHORT_STEPS launches each of rows 5 and 15, 0
+      weight quantizations in the solve; against the bf16 kernel view's
+      SHORT_STEPS steps, the quality gate at guidance 1 (the conditional
+      field: the JAX bench's gate is set on an unguided field) and at
+      T2I_CFG the gate's rel-L2 and T2I_QUANT_CFG_MIN_COS (guidance
+      amplifies the views' field difference); as readings, row 15 with
+      one rounding site changed (each of phase 3's row-15 controls,
+      ROW15_CONTROLS) at T2I_CFG against the same limits: no gate against
+      the bf16 view refuses them (on an H100 each read within 4% of the
+      kernels' distance to the bf16 view), so what
+      refuses a wrong kernel under guidance is the next check: the guided
+      field at t = 0.5, block by block on the kernels' own inputs over
+      the doubled batch, against the twins, with control blocks that must
+      fail phase 4b's block limit;
+    - `cli.train_lfm.run` on `uvit_t2i_large` for 2 steps at T2I_TRAIN_B
+      (a quarter of the config's 256) on its dataset with the CFG dropout
+      turned on (`dataset.cfg`, p_uncond 0.1; the config, as its JAX
+      source, trains without): finite losses and exactly 2 x 42 launches
+      of row 1 (the config's full remat, use_checkpoint with remat_exempt
+      0: each block's forward, then its recompute in the backward) and
+      2 x 21 of row 4."""
+    import numpy as np
+
+    from uspace_tpu_torch.cli import train_lfm
+    from uspace_tpu_torch.codecs.clip_text import CLIP_L14, build_clip
+    from uspace_tpu_torch.configs import get_config
+    from uspace_tpu_torch.editing.specs import AttnEdit, p2p_col_mult
+    from uspace_tpu_torch.evals.sampling import cfg_velocity_fn
+
+    t_start = time.perf_counter()
+    cfg = get_config("uvit_t2i_large")
+    nn_ = cfg["nnet"]
+    blocks = nn_["depth"] + 1
+    tokens = nn_["num_clip_token"]
+    g = torch.Generator(device=dev).manual_seed(23)
+    clip = build_clip(CLIP_L14, dev, seed=0)
+    ids = torch.randint(0, CLIP_L14["vocab_size"], (T2I_B, tokens),
+                        generator=g, device=dev)
+    empty = torch.full((1, tokens), CLIP_EOT, dtype=torch.int64, device=dev)
+    empty[0, 0] = CLIP_SOT
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ctx = clip(ids)
+        null = clip(empty).expand(T2I_B, -1, -1).contiguous()
+    torch.cuda.synchronize()
+    clip_s = time.perf_counter() - t0
+    if tuple(ctx.shape) != (T2I_B, tokens, nn_["clip_dim"]) or not \
+            torch.isfinite(ctx).all():
+        fail(f"CLIP contexts {tuple(ctx.shape)}")
+    del clip
+
+    kmodel = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="auto")
+    plain = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="xla")
+    plain.load_state_dict(kmodel.state_dict())
+    c_, h_, w_ = cfg["z_shape"]
+    z = torch.randn((T2I_B, h_, w_, c_), generator=g, device=dev)
+
+    def solve(model, z_, c_cond, c_null, steps, scale=T2I_CFG, **kw):
+        vf = cfg_velocity_fn(model, {"context": c_cond}, {"context": c_null},
+                             scale, **kw)
+        sk = {"solver": "fixed", "solver_fix": "euler",
+              "solver_fix_step": 1.0 / steps}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = flow.decode(vf, z_, sk)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.no_grad():  # warm-up: handles and allocator at this shape
+        cfg_velocity_fn(kmodel, {"context": ctx}, {"context": null},
+                        T2I_CFG)(torch.zeros(T2I_B, device=dev), z)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(attn, mlpk)
+    lat, secs = solve(kmodel, z, ctx, null, STEPS)
+    got = all_launches(attn, mlpk)
+    peak_gb = (torch.cuda.max_memory_allocated() - before) / 2**30
+    n_main = blocks * STEPS
+    lat_p, secs_p = solve(plain, z, ctx, null, STEPS)
+    max_abs, rel, cos = compare(torch, lat, lat_p)
+    log(f"T2I-large CFG {T2I_CFG} Euler-{STEPS} at {T2I_B} prompts (batch "
+        f"{T2I_FIELD_B} in the field): auto {secs:.3f} s, {T2I_B / secs:.3f} "
+        f"img/s, peak {peak_gb:.2f} GiB above the {before / 2**30:.2f} "
+        f"allocated before, launches {got}; plain {secs_p:.3f} "
+        f"s, {T2I_B / secs_p:.3f} img/s; latents cos {cos:.7f} (min "
+        f"{PATH_MIN_COS}) rel_l2 {rel:.3e} (max {PATH_MAX_REL_L2})")
+    if got != expected(attn, mlpk, qkvproj_attention=n_main):
+        fail(f"T2I-large launches {got}, expected {n_main} of "
+             f"qkvproj_attention and no other")
+    if tuple(lat.shape) != (T2I_B, h_, w_, c_) or not (
+            cos >= PATH_MIN_COS and rel <= PATH_MAX_REL_L2):
+        fail("T2I-large latents disagree with the plain route")
+    by_key["qkvproj_attention T2I L=334"]["launches"] = n_main
+    euler = dict(steps=STEPS, prompts=T2I_B, field_batch=T2I_FIELD_B,
+                 cfg_scale=T2I_CFG, seconds=secs, imgs_per_s=T2I_B / secs,
+                 plain_seconds=secs_p, plain_imgs_per_s=T2I_B / secs_p,
+                 peak_gib=peak_gb, allocated_before_gib=before / 2**30,
+                 cos=cos, rel_l2=rel, max_abs=max_abs, launches=n_main,
+                 clip_seconds=clip_s)
+
+    # the user's entry point on the config, auto against xla
+    entry = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for impl in ("auto", "xla"):
+            torch.cuda.synchronize()
+            before_e = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(attn, mlpk)
+            t0 = time.perf_counter()
+            (path,) = sample_lfm.run(
+                "uvit_t2i_large", n_samples=T2I_B, batch=T2I_B,
+                steps=SHORT_STEPS, out=os.path.join(tmp, impl), device=dev,
+                attn_impl=impl, cfg_scale=T2I_CFG)
+            torch.cuda.synchronize()
+            entry[impl] = dict(
+                seconds=time.perf_counter() - t0,
+                launches=all_launches(attn, mlpk),
+                peak_gib=(torch.cuda.max_memory_allocated() - before_e)
+                / 2**30,
+                lat=torch.from_numpy(np.load(path)))
+    n_entry = blocks * SHORT_STEPS
+    lat_e, lat_ex = entry["auto"].pop("lat"), entry["xla"].pop("lat")
+    _, rel_e, cos_e = compare(torch, lat_e, lat_ex)
+    log(f"T2I-large sample_lfm.run (cfg_scale {T2I_CFG}, {T2I_B} prompts, "
+        f"{SHORT_STEPS} Euler steps): auto {entry['auto']['seconds']:.3f} s, "
+        f"peak {entry['auto']['peak_gib']:.2f} GiB, launches "
+        f"{entry['auto']['launches']}; xla {entry['xla']['seconds']:.3f} s, "
+        f"launches {entry['xla']['launches']}; latents cos {cos_e:.7f} rel_l2 "
+        f"{rel_e:.3e}")
+    if entry["auto"]["launches"] != expected(
+            attn, mlpk, qkvproj_attention=n_entry) or \
+            entry["xla"]["launches"] != expected(attn, mlpk):
+        fail(f"sample_lfm.run launches {entry['auto']['launches']} (auto), "
+             f"{entry['xla']['launches']} (xla): expected {n_entry} of "
+             f"qkvproj_attention on auto and none on xla")
+    if tuple(lat_e.shape) != (T2I_B, h_, w_, c_) or not \
+            torch.isfinite(lat_e).all() or not (
+            cos_e >= PATH_MIN_COS and rel_e <= PATH_MAX_REL_L2):
+        fail("sample_lfm.run's T2I latents")
+    euler["entry_point"] = dict(entry, steps=SHORT_STEPS, cos=cos_e,
+                                rel_l2=rel_e, launches=n_entry)
+
+    # the p2p edit at multiplier 1: the plain attention in every block
+    def edit(n, mult, uncond=1.0):
+        """The prompts' token T2I_TARGET at ``mult``; the null prompts'
+        (the second half of the doubled batch) at ``uncond``."""
+        tgt = torch.full((2 * n, 1), T2I_TARGET, dtype=torch.int64)
+        mults = [float(mult)] * n + [float(uncond)] * n
+        return AttnEdit(p2p_col_mult(2 * n, T2I_L, tgt, mults, device=dev))
+
+    reset_launches(attn, mlpk)
+    lat_1, secs_1 = solve(kmodel, z, ctx, null, STEPS,
+                          attn_edit=edit(T2I_B, 1.0))
+    got = all_launches(attn, mlpk)
+    same = bool(torch.equal(lat_1, lat_p))
+    log(f"T2I-large edited decode at multiplier 1 (token {T2I_TARGET}): "
+        f"{secs_1:.3f} s, launches {got}, bit-equal to the plain route: "
+        f"{same}")
+    if got != expected(attn, mlpk) or not same:
+        fail("the multiplier-1 edit is not the plain route's decode")
+    # the sweep on the first T2I_SWEEP_N prompts, each decode against the
+    # plain route's unedited decode at the same batch
+    n_s = T2I_SWEEP_N
+    sub = (z[:n_s], ctx[:n_s], null[:n_s], STEPS)
+    x1, _ = solve(plain, *sub)
+    xk, _ = solve(kmodel, *sub)
+    noise = float((xk - x1).norm() / x1.norm())
+    sweep, moves = {}, {}
+    for mult, uncond in ((0.0, 1.0), (2.0, 1.0), (0.0, 0.0)):
+        out, secs_m = solve(kmodel, *sub, attn_edit=edit(n_s, mult, uncond))
+        key = f"{mult:g}" + ("" if uncond == 1.0 else " both halves")
+        moves[key] = moved = float((out - x1).norm() / x1.norm())
+        sweep[key] = out
+        checked = uncond == 1.0
+        log(f"  multiplier {key} on {n_s} prompts: {secs_m:.3f} s, moved "
+            f"{moved:.3e} of |x1| (the kernel route's own distance "
+            f"{noise:.3e}{f', min {T2I_EDIT_MIN_NOISE}x' if checked else ''}"
+            f")")
+        if checked and not moved >= T2I_EDIT_MIN_NOISE * noise:
+            fail(f"the multiplier-{mult:g} edit moved the latents "
+                 f"{moved:.3e}, under {T2I_EDIT_MIN_NOISE}x the routes' "
+                 f"{noise:.3e}")
+    # controls: the multiplier-0 edit that no block applies, and the kernel
+    # route with the edit dropped, must fall under the limit
+    out, _ = solve(kmodel, *sub, attn_edit=edit(n_s, 0.0).replace(
+        block_ids=()))
+    controls = {"edit no block applies": float((out - x1).norm()
+                                               / x1.norm()),
+                "edit dropped (the kernel route)": noise}
+    for key, moved in controls.items():
+        log(f"  control, {key}: moved {moved:.3e} of |x1|: "
+            f"{'fails' if moved < T2I_EDIT_MIN_NOISE * noise else 'PASSES'} "
+            f"the {T2I_EDIT_MIN_NOISE}x limit")
+        if not moved < T2I_EDIT_MIN_NOISE * noise:
+            fail(f"the sweep's limit lets the control ({key}) pass")
+    d2, d0 = (sweep["2"] - x1).flatten(), (x1 - sweep["0"]).flatten()
+    direction = float((d2 @ d0) / (d2.norm() * d0.norm()))
+    log(f"  direction cos(x2 - x1, x1 - x0) {direction:.4f} (min > 0)")
+    if not direction > 0:
+        fail("the multipliers 0 and 2 do not move the latents to opposite "
+             "sides of the multiplier-1 decode")
+    del sweep, lat_1, x1, xk, out
+
+    # capture_attn of block 0: rows sum to 1, multipliers folded into V
+    t_half = torch.full((2 * T2I_B,), 0.5, device=dev)
+    z2, c2 = torch.cat([z, z]).to(torch.bfloat16), torch.cat([ctx, null])
+    probs = {}
+    with torch.no_grad():
+        for mult in (None, 0.0, 2.0):
+            kw = {} if mult is None else {"attn_edit": edit(T2I_B, mult)}
+            _, taps = kmodel(z2, t_half, c2, capture_attn=(0,), **kw)
+            probs[mult] = taps["attn_0"]
+    p = probs[None]
+    row_err = float((p.double().sum(-1) - 1.0).abs().max())
+    same_p = all(torch.equal(p, probs[m]) for m in (0.0, 2.0))
+    log(f"  capture_attn block 0: {tuple(p.shape)} {p.dtype}, rows sum to 1 "
+        f"within {row_err:.2e} (max 1e-5), the same under multipliers 0 and "
+        f"2: {same_p}")
+    if tuple(p.shape) != (2 * T2I_B, nn_["num_heads"], T2I_L, T2I_L) or \
+            p.dtype != torch.float32 or not row_err <= 1e-5 or not same_p:
+        fail("capture_attn probabilities")
+    del probs, p
+    edit_rep = dict(target_token=T2I_TARGET, multiplier_1_bit_equal=same,
+                    multiplier_1_seconds=secs_1, sweep_prompts=n_s,
+                    moved=moves, route_distance=noise, direction_cos=direction,
+                    controls=controls, capture_row_sum_err=row_err)
+
+    # the W8A8 view for SHORT_STEPS steps against the bf16 view at guidance
+    # 1 and T2I_CFG, a control with row 15 changed, the guided field's blocks
+    refs = {s_: solve(kmodel, z, ctx, null, SHORT_STEPS, s_)[0]
+            for s_ in (1.0, T2I_CFG)}
+    del kmodel, plain
+    qmodel = sample_lfm.build_model(cfg, dev, seed=0, attn_impl="auto",
+                                    quant=True)
+    with torch.no_grad():  # quantizes every weight once
+        cfg_velocity_fn(qmodel, {"context": ctx}, {"context": null},
+                        T2I_CFG)(torch.zeros(T2I_B, device=dev), z)
+    n_q = blocks * SHORT_STEPS
+    w8a8 = dict(steps=SHORT_STEPS, launches=n_q)
+    limits = {1.0: (QUANT_MIN_COS, QUANT_MAX_REL_L2),
+              T2I_CFG: (T2I_QUANT_CFG_MIN_COS, QUANT_MAX_REL_L2)}
+    for s_, (min_cos, max_rel) in limits.items():
+        reset_launches(attn, mlpk)
+        quant.reset_quantizations()
+        lat_q, secs_q = solve(qmodel, z, ctx, null, SHORT_STEPS, s_)
+        got = all_launches(attn, mlpk)
+        n_quant = quant.QUANTIZATIONS["weights"]
+        _, rel_q, cos_q = compare(torch, lat_q, refs[s_])
+        log(f"T2I-large W8A8 (auto) {SHORT_STEPS} Euler steps at guidance "
+            f"{s_:g}: {secs_q:.3f} s, launches {got}, weight quantizations "
+            f"{n_quant}; latents vs the bf16 view cos {cos_q:.7f} (min "
+            f"{min_cos}) rel_l2 {rel_q:.3e} (max {max_rel})")
+        if got != expected(attn, mlpk, ln_qkvproj_attention_int8=n_q,
+                           ln_mlp_int8=n_q):
+            fail(f"T2I-large W8A8 launches {got}, expected {n_q} each of "
+                 f"rows 5 and 15")
+        if n_quant:
+            fail(f"{n_quant} weight quantizations in the W8A8 solve")
+        if not (cos_q >= min_cos and rel_q <= max_rel):
+            fail(f"the T2I-large W8A8 view fails the quality gate at "
+                 f"guidance {s_:g}")
+        w8a8[f"guidance {s_:g}"] = dict(seconds=secs_q, cos=cos_q,
+                                        rel_l2=rel_q, min_cos=min_cos,
+                                        max_rel_l2=max_rel,
+                                        quantizations_in_solve=n_quant)
+    # readings: row 15 replaced by its twin with one rounding site
+    # changed, at T2I_CFG against the same limits (they pass them)
+    row15 = mlpk._ln_mlp_int8_kernel
+    w8a8["controls"] = {}
+    for change in ROW15_CONTROLS:
+        mlpk._ln_mlp_int8_kernel = (
+            lambda x2d, ln, q1, b1, q2, b2, strips, change=change:
+            mlp_control(torch, attn, mlpk, quant, x2d, q1, b1, q2, b2,
+                        strips, change, ln))
+        try:
+            lat_c, _ = solve(qmodel, z, ctx, null, SHORT_STEPS, T2I_CFG)
+        finally:
+            mlpk._ln_mlp_int8_kernel = row15
+        _, rel_c, cos_c = compare(torch, lat_c, refs[T2I_CFG])
+        refused = not (cos_c >= T2I_QUANT_CFG_MIN_COS and
+                       rel_c <= QUANT_MAX_REL_L2)
+        log(f"  reading, row 15 with {change}, guidance {T2I_CFG:g}: cos "
+            f"{cos_c:.7f} rel_l2 {rel_c:.3e}: "
+            f"{'fails' if refused else 'passes'} the gate")
+        w8a8["controls"][change] = dict(cos=cos_c, rel_l2=rel_c,
+                                        refused=refused)
+    # the guided field block by block: each block over the doubled batch
+    # on its own input, kernels and control blocks against the twins
+    rels = {"kernels": []}
+    rels.update({c: [] for c in BLOCK_CONTROLS})
+    qblocks = [*qmodel.in_blocks, qmodel.mid_block, *qmodel.out_blocks]
+
+    def checked(blk):
+        def forward(zin, skip=None):
+            out = type(blk).forward(blk, zin, skip)
+            block_rels(torch, rels, blk, zin, skip, out)
+            return out
+        return forward
+
+    for blk in qblocks:
+        blk.forward = checked(blk)
+    try:
+        with torch.no_grad():
+            cfg_velocity_fn(qmodel, {"context": ctx}, {"context": null},
+                            T2I_CFG)(torch.full((T2I_B,), 0.5, device=dev), z)
+    finally:
+        for blk in qblocks:
+            del blk.forward
+    problems = judge_blocks(rels, f"T2I-large W8A8 guided field's blocks "
+                            f"at batch {T2I_FIELD_B}")
+    if problems:
+        fail("; ".join(problems))
+    w8a8["blocks"] = dict(
+        block_rel_l2_max=max(rels["kernels"]),
+        controls={c: min(rels[c]) for c in BLOCK_CONTROLS})
+    for k in ("ln_qkvproj_attention_int8", "ln_mlp_int8"):
+        by_key[f"{k} T2I L=334"]["launches"] = n_q
+    del qmodel, lat_q, lat_c, refs, lat, lat_p
+
+    # two train steps through the entry point, the config's full remat
+    cfg_t = get_config("uvit_t2i_large")
+    cfg_t["dataset"]["cfg"] = True  # the CFG dropout, p_uncond 0.1
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches(attn, mlpk)
+        out = train_lfm.run(cfg_t, n_steps=2, batch=T2I_TRAIN_B,
+                            workdir=tmp, log=log)
+        torch.cuda.synchronize()
+        got = all_launches(attn, mlpk)
+        n_remat = sum(out["model"].remat)
+        losses = [h["loss"] for h in out["history"]]
+        secs_t = out["seconds"]
+        del out
+    want = dict(packed_attention=2 * (blocks + n_remat),
+                packed_attention_bwd=2 * blocks)
+    log(f"T2I-large train_lfm.run: 2 steps at batch {T2I_TRAIN_B} in "
+        f"{secs_t:.3f} s, losses {losses}, {n_remat} rematted blocks, "
+        f"launches {got} (expected {want})")
+    if n_remat != blocks or got != expected(attn, mlpk, **want) or not all(
+            map(math.isfinite, losses)):
+        fail(f"T2I-large training: launches {got}, losses {losses}")
+    for k, v in want.items():
+        by_key[f"{k} T2I L=334"]["launches"] = v
+    train = dict(steps=2, batch=T2I_TRAIN_B, seconds=secs_t, losses=losses,
+                 launches=want)
+    total = time.perf_counter() - t_start
+    log(f"phase 27 took {total:.1f} s")
+    return dict(euler=euler, edit=edit_rep, w8a8=w8a8, train=train,
+                seconds=total)
+
+
+def toy_cond_paths(torch, attn, mlpk, dev, by_key):
+    """Phase 28: the conditional toys of the JAX package's proofs,
+    `synthetic_cond_e2e` (a U-ViT with a label token, L = 6),
+    `synthetic_t2i_e2e` (U-ViT-T2I, L = 13) and `synthetic_t2i_unet_e2e`
+    (the SD-UNet, cross-attention): `cli.train_lfm.run` for 2 steps at the
+    config's batch from its dataset and loader with CFG dropout, finite
+    losses, exactly 2 x 7 launches each of rows 1 and 4 at head dim 32 on
+    the U-ViTs (no remat) and none on the UNet (its attention at L <= 512
+    takes the plain route); then `cli.editing_e2e_cond.run` and
+    `cli.editing_e2e_t2i.run` on those weights at TOY_HARNESS_N samples and
+    Euler-TOY_E2E_STEPS: row 2 launched once a block in every unedited
+    evaluation (the cond harness: K classes and the 3 CFG decodes over the
+    doubled batch; the T2I harness: 4 conditioning pairs, the rewrite and
+    the 3 CFG decodes, while its 5 p2p decodes launch nothing), every
+    artefact written. The verdicts are readings: 2 steps train nothing."""
+    from uspace_tpu_torch.cli import editing_e2e_cond, editing_e2e_t2i
+    from uspace_tpu_torch.cli import train_lfm
+    from uspace_tpu_torch.configs import get_config
+
+    t_start = time.perf_counter()
+    rep = {}
+    for name, harness, files in (
+            ("synthetic_cond_e2e", editing_e2e_cond,
+             {"cond_grid.png", "editing_e2e_cond.json",
+              "editing_e2e_cond.md"}),
+            ("synthetic_t2i_e2e", editing_e2e_t2i,
+             {"t2i_sweeps.png", "editing_e2e_t2i.json",
+              "editing_e2e_t2i.md"}),
+            ("synthetic_t2i_unet_e2e", editing_e2e_t2i,
+             {"t2i_sweeps.png", "editing_e2e_t2i.json",
+              "editing_e2e_t2i.md"})):
+        cfg = get_config(name)
+        uvit = cfg["nnet"]["name"] != "unet_t2i"
+        blocks = cfg["nnet"].get("depth", 0) + 1
+        tag = {"synthetic_cond_e2e": "toy L=6",
+               "synthetic_t2i_e2e": "toy L=13"}.get(name)
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_launches(attn, mlpk)
+            out = train_lfm.run(cfg, n_steps=2, workdir=tmp, log=log)
+            torch.cuda.synchronize()
+            got = all_launches(attn, mlpk)
+            losses = [h["loss"] for h in out["history"]]
+            want = (dict(packed_attention=2 * blocks,
+                         packed_attention_bwd=2 * blocks) if uvit else {})
+            log(f"{name} train_lfm.run: 2 steps at batch "
+                f"{cfg['train']['batch_size']} in {out['seconds']:.3f} s, "
+                f"losses {losses}, launches {got} (expected {want})")
+            del out
+            if got != expected(attn, mlpk, **want) or not all(
+                    map(math.isfinite, losses)):
+                fail(f"{name} training: launches {got}, losses {losses}")
+            for k, v in want.items():
+                by_key[f"{k} {tag}"]["launches"] = v
+            d = cfg["dissection"]
+            d.update(mini_batch_size=TOY_HARNESS_N,
+                     ckpt_path_to_dissect=os.path.join(tmp, "ckpts"))
+            d["solver_kwargs"]["solver_fix_step"] = 1.0 / TOY_E2E_STEPS
+            workdir = os.path.join(tmp, "e2e")
+            reset_launches(attn, mlpk)
+            t0 = time.perf_counter()
+            report = harness.run(cfg, workdir, log=log)
+            secs = time.perf_counter() - t0
+            got = all_launches(attn, mlpk)
+            written = set(os.listdir(workdir))
+        if harness is editing_e2e_cond:
+            evals = cfg["dataset"]["num_classes"] + 3
+        else:
+            evals = 4 + 1 + 3
+        n_row2 = blocks * TOY_E2E_STEPS * evals if uvit else 0
+        want = dict(qkvproj_attention=n_row2) if uvit else {}
+        log(f"{name} {harness.__name__.rsplit('.', 1)[-1]}.run "
+            f"({TOY_HARNESS_N} samples, Euler-{TOY_E2E_STEPS}): {secs:.1f} "
+            f"s, launches {got} (expected {want}), passed "
+            f"{report['passed']} (a reading after 2 steps), files "
+            f"{sorted(written)}")
+        if got != expected(attn, mlpk, **want) or not files <= written:
+            fail(f"{name} harness: launches {got}, files {sorted(written)}")
+        if uvit:
+            by_key[f"qkvproj_attention {tag}"]["launches"] = n_row2
+        rep[name] = dict(train_losses=losses, harness_seconds=secs,
+                         launches=n_row2, passed=report["passed"])
+    rep["seconds"] = time.perf_counter() - t_start
+    log(f"phase 28 took {rep['seconds']:.1f} s")
+    return rep
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA card")
@@ -4129,6 +4798,14 @@ def main():
         name, _, dim = k["name"].partition(" ")
         if dim == f"D={C // H32}" and name in d32:
             k["launches"] = d32[name]
+
+    # 27. U-ViT-T2I-large: CFG Euler-50 on row 2, the p2p edit on the
+    # plain route, capture_attn, the W8A8 view, two train steps
+    report["t2i_large"] = t2i_large_path(torch, flow, attn, mlpk, quant,
+                                         sample_lfm, dev, by_key)
+
+    # 28. the conditional toys: train_lfm and both harnesses
+    report["toy_cond"] = toy_cond_paths(torch, attn, mlpk, dev, by_key)
 
     for k in kernels:
         if k["launches"] < 1:

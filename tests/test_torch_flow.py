@@ -242,7 +242,18 @@ _GUARD = textwrap.dedent("""
                  lambda: uspace_tpu_torch.cli.dissect_lfm.run(
                      "synthetic_smoke", "build_attr"),
                  lambda: uspace_tpu_torch.cli.editing_e2e.run(
-                     "synthetic_attr_e2e", "e2e_out")):
+                     "synthetic_attr_e2e", "e2e_out"),
+                 lambda: uspace_tpu_torch.models.get_nnet("uvit_t2i"),
+                 lambda: uspace_tpu_torch.codecs.clip_text.build_clip(),
+                 lambda: uspace_tpu_torch.cli.editing_e2e_cond.run(
+                     "synthetic_cond_e2e", "e2e_out"),
+                 lambda: uspace_tpu_torch.cli.editing_e2e_t2i.run(
+                     "synthetic_t2i_e2e", "e2e_out"),
+                 lambda: uspace_tpu_torch.cli.dissect_lfm_t2i.run(
+                     "synthetic_t2i_e2e", "vis_attention",
+                     workdir="e2e_out"),
+                 lambda: sample_lfm.run(config="synthetic_t2i_e2e",
+                                        n_samples=1)):
         try:
             call()
         except RuntimeError as e:

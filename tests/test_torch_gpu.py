@@ -1895,3 +1895,72 @@ def test_fc2_epilogues_are_bit_exact(cuda, m, n, k):
     acc8 = a.float() @ q2.q.float().t()
     assert torch.equal(mlp._w8_fc2_kernel(a, q2, b2),
                        (acc8 * q2.scale + b2).to(bf))
+
+
+def test_t2i_large_row_2_matches_twin(cuda):
+    """Row 2 at U-ViT-T2I-large's CFG field: B = 100 (50 prompts doubled),
+    L = 334 (1 time + 77 context + 256 image tokens), 16 heads of 64."""
+    g = torch.Generator(device=cuda).manual_seed(334)
+    b, l, h, c = 100, 334, 16, 1024
+    x = _rand(g, b, l, c)
+    w = _rand(g, c, 3 * c, std=c ** -0.5)
+    with torch.no_grad():
+        _agree(attn.fused_qkvproj_attention(x, w, h),
+               attn.qkvproj_attention_plain(x, w, h, 0.125))
+
+
+@pytest.mark.parametrize("l", [6, 13])
+def test_context_toy_rows_1_and_4_match_twins(cuda, l):
+    """Rows 1, 2 and 4 at the conditional toys' lengths, head dim 32 (4
+    heads of 32): L = 6 (time, label, 4 patches) and L = 13 (time, 8
+    context tokens, 4 patches) at their training batch 256; a repeat of
+    the backward bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(l)
+    b, h, c = 256, 4, 128
+    s = 32 ** -0.5
+    qkv = _rand(g, b, l, 3 * c, std=0.64)
+    do = _rand(g, b, l, c)
+    x = _rand(g, b, l, c)
+    w = _rand(g, c, 3 * c, std=c ** -0.5)
+    with torch.no_grad():
+        _agree(attn.fused_qkv_attention(qkv, h),
+               attn.packed_attention_plain(qkv, h, s))
+        _agree(attn.fused_qkvproj_attention(x, w, h),
+               attn.qkvproj_attention_plain(x, w, h, s))
+    out = attn.packed_attention_bwd(qkv, do, h)
+    again = attn.packed_attention_bwd(qkv, do, h)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _agree(out, attn.packed_attention_bwd_plain(qkv, do, h, s),
+           BWD_MAX_ABS, BWD_REL_L2)
+
+
+def test_edited_uvit_t2i_at_multiplier_1_is_the_plain_forward(cuda):
+    """A bf16 U-ViT-T2I (L = 1 + 77 + 16) with an AttnEdit of multiplier 1
+    on `auto` takes the plain attention in every block: no kernel launch,
+    and its forward equals the plain route's (`xla`) bit for bit."""
+    from uspace_tpu_torch.editing.specs import AttnEdit, p2p_col_mult
+    from uspace_tpu_torch.models import UViTT2I
+
+    kw = dict(img_size=8, embed_dim=128, depth=4, num_heads=2,
+              dtype=torch.bfloat16, device=cuda)
+    auto = UViTT2I(attn_impl="auto", **kw).init_weights(
+        torch.Generator(device=cuda).manual_seed(0)).eval()
+    plain = UViTT2I(attn_impl="xla", **kw).eval()
+    plain.load_state_dict(auto.state_dict())
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((4, 8, 8, 4), generator=g, device=cuda)
+    t = torch.full((4,), 0.4, device=cuda)
+    ctx = torch.randn((4, 77, 768), generator=g, device=cuda)
+    edit = AttnEdit(p2p_col_mult(4, 94, [[1], [2], [1], [5]], 1.0,
+                                 device=cuda))
+    attn.reset_launches()
+    with torch.no_grad():
+        out, _ = auto(x, t, ctx, attn_edit=edit)
+        ref, _ = plain(x, t, ctx)
+        kern, _ = auto(x, t, ctx)
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES["qkvproj_attention"] == 1 * 5
+    assert sum(attn.LAUNCHES.values()) == 5
+    assert torch.equal(out, ref)
+    _agree(kern, ref, 5e-2, 1e-2)

@@ -177,8 +177,10 @@ def test_unported_options_raise():
     UViT(quant=True, attn_impl="pallas_block", device="cpu", **_cfg("uncond"))
     tlayers.Block(64, 4, quant="w8", attn_impl="pallas_block")
     tlayers.Attention(64, 4, attn_impl="pallas_block")
-    with pytest.raises(NotImplementedError):  # the T2I slice's U-ViT
-        get_nnet("uvit_t2i")
+    with pytest.raises(NotImplementedError):  # a field no slice ports
+        get_nnet("uvit_nope", device="cpu")
+    get_nnet("uvit_t2i", device="cpu", img_size=8, embed_dim=64, depth=2,
+             num_heads=4, clip_dim=16, num_clip_token=4)  # ported in the T2I slice
     with pytest.raises(ValueError, match="attn_impl"):
         tlayers.Attention(64, 4, attn_impl="pallas_nope")
     m = UViT(device="cpu", **_cfg("cond_mlp_time"))

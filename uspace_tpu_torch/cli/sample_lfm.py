@@ -22,6 +22,9 @@ the U-ViT ``w8a8``, ``w8a8_mlp`` and weight-only ``w8`` (the view for
 adaptive solves); for the SD-UNet ``conv8``, ``w8a8`` (the convs and the
 transformer denses) and ``dense8``. ``--decode`` with ``--quant`` decodes
 through the VAE's int8 view (its decoder's 3x3 convs in W8A8).
+A conditional config (``train.mode`` ``t2i``, or a labelled dataset)
+samples from random test contexts or labels, with classifier-free guidance
+at ``--cfg_scale`` (the config's ``sample.cfg_scale``) above 0.
 ``--attn_impl`` picks the attention route (the JAX package's
 ``--config.nnet.attn_impl``; default the config's, else ``auto``), e.g.
 ``pallas_block``, the whole attention sub-block in one kernel, in every
@@ -51,6 +54,8 @@ float weights, whatever ``--quant`` says.
     python -m uspace_tpu_torch.cli.sample_lfm --config synthetic_smoke \\
         --quant w8 --solver adaptive --device cpu --n_samples 4 --batch 4 \\
         --out /tmp/w8
+    python -m uspace_tpu_torch.cli.sample_lfm --config uvit_t2i_large \\
+        --cfg_scale 3 --n_samples 50 --batch 50 --out samples_t2i
     python -m uspace_tpu_torch.cli.sample_lfm --config uvit_large \\
         --solver adaptive --controller i --field stage_delta_int8 \\
         --hidden_mode exact --n_samples 50 --batch 50 --out samples_delta
@@ -70,17 +75,21 @@ from .. import resolve_device
 from ..codecs.convert import (
     load_unet_from_jax,
     load_uvit_from_jax,
+    load_uvit_t2i_from_jax,
     load_vae_from_jax,
     unflatten,
 )
 from ..codecs.vae import AutoencoderKL
 from ..configs import get_config, solver_kwargs
 from ..core import delta_field, flow
-from ..data.datasets import unpreprocess
+from ..data.datasets import get_dataset, unpreprocess
+from ..evals.sampling import cfg_velocity_fn, eval_cond, null_cond
 from ..models import get_nnet
 from ..models.unet import ZERO_INIT_STD
+from ..train.step import make_velocity_fn
 
-_LOADERS = {"uvit": load_uvit_from_jax, "unet_t2i": load_unet_from_jax}
+_LOADERS = {"uvit": load_uvit_from_jax, "uvit_t2i": load_uvit_t2i_from_jax,
+            "unet_t2i": load_unet_from_jax}
 # --quant: True is each model's own int8 view (W8A8 for the U-ViT, the
 # convs for the SD-UNet); the names are those of the models' views
 QUANT_CHOICES = ["w8a8", "w8a8_mlp", "w8", "conv8", "dense8"]
@@ -144,12 +153,14 @@ def to_uint8(pixels: torch.Tensor) -> np.ndarray:
                     ).astype(np.uint8)
 
 
-def stage_delta_kwargs(cfg: dict, sk: dict, model) -> dict:
+def stage_delta_kwargs(cfg: dict, sk: dict, model,
+                       conditioned: bool = False) -> dict:
     """``sk`` without its ``field`` and ``hidden_mode`` keys, and with the
     stage-delta pair when ``field`` asks for it (the JAX sampling layer's
     rule, ``uspace_tpu/train/loop.py:235-299``): adaptive solves of an
-    unconditional U-ViT only. The pair's int8 codes are fitted here, once,
-    outside the solve."""
+    unconditional U-ViT only (``conditioned``: the samples carry labels or
+    contexts). The pair's int8 codes are fitted here, once, outside the
+    solve."""
     sk = dict(sk)
     field = sk.pop("field", None)
     hidden_mode = sk.pop("hidden_mode", None)
@@ -161,7 +172,7 @@ def stage_delta_kwargs(cfg: dict, sk: dict, model) -> dict:
         raise ValueError(
             "field=stage_delta_int8 needs solver=adaptive: fixed-step solves "
             "should use the plain int8 view (--quant) instead")
-    if (cfg["nnet"].get("num_classes", -1) or -1) > 0 or \
+    if conditioned or (cfg["nnet"].get("num_classes", -1) or -1) > 0 or \
             float(cfg["sample"].get("cfg_scale", 0.0) or 0.0) > 0:
         raise NotImplementedError("stage_delta_int8 sampling is uncond-only")
     dp = delta_field.prepare_delta_params(model)  # refuses a non-U-ViT
@@ -181,7 +192,8 @@ def run(config="uvit_large", n_samples: int = 100, batch: int = 50,
         vae_weights: Optional[str] = None,
         attn_impl: Optional[str] = None, field: Optional[str] = None,
         hidden_mode: Optional[str] = None,
-        decode_batch: int = 10) -> List[str]:
+        decode_batch: int = 10,
+        cfg_scale: Optional[float] = None) -> List[str]:
     """Write ceil(n_samples / batch) latent batches, and with ``decode``
     their uint8 pixel batches after each (through the VAE's int8 view when
     ``quant`` is set), ``decode_batch`` latents at a time; returns the
@@ -190,9 +202,23 @@ def run(config="uvit_large", n_samples: int = 100, batch: int = 50,
     ``nnet.attn_impl``, else ``"auto"``. ``field`` and ``hidden_mode``
     (default: the config's ``sample.solver_kwargs``) pick the stage-delta
     field (:func:`stage_delta_kwargs`). For an adaptive solve each batch's
-    statistics are printed and, when ``stats`` is a list, appended to it."""
+    statistics are printed and, when ``stats`` is a list, appended to it.
+
+    Conditioning follows the config's ``train.mode``, as the JAX loop's
+    evaluation does (``uspace_tpu/train/loop.py:224-360``): a ``t2i``
+    config samples each batch from the contexts of random test samples, a
+    labelled dataset from random labels, both drawn after the batch's
+    noise. ``cfg_scale`` (default the config's ``sample.cfg_scale``) above
+    0 guides them against the null conditioning (the dataset's empty
+    context, the learned null class K) in one forward over the doubled
+    batch."""
     dev = resolve_device(device)
     cfg = get_config(config)
+    mode = cfg["train"].get("mode", "uncond")
+    dataset = get_dataset(**cfg["dataset"])
+    conditioned = mode == "t2i" or getattr(dataset, "has_label", False)
+    if cfg_scale is None:
+        cfg_scale = float(cfg["sample"].get("cfg_scale", 0.0) or 0.0)
     model = build_model(cfg, dev, seed, weights, attn_impl=attn_impl,
                         quant=quant)
     vae = (build_vae(cfg, dev, seed, vae_weights, quant=bool(quant))
@@ -200,8 +226,7 @@ def run(config="uvit_large", n_samples: int = 100, batch: int = 50,
     sk = solver_kwargs(cfg, steps, solver=solver, rtol=rtol, atol=atol,
                        controller=controller, safety=safety, field=field,
                        hidden_mode=hidden_mode)
-    sk = stage_delta_kwargs(cfg, sk, model)
-    vf = None if "stage_delta" in sk else (lambda t, x: model(x, t)[0])
+    sk = stage_delta_kwargs(cfg, sk, model, conditioned)
     c, h, w = cfg["z_shape"]
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     os.makedirs(out, exist_ok=True)
@@ -210,6 +235,14 @@ def run(config="uvit_large", n_samples: int = 100, batch: int = 50,
         n = min(batch, n_samples - b * batch)
         z = torch.randn((n, h, w, c), generator=gen, dtype=torch.float32,
                         device=dev)
+        cond = eval_cond(mode, dataset, n, gen, dev)
+        if "stage_delta" in sk:
+            vf = None
+        elif cfg_scale > 0 and cond:
+            vf = cfg_velocity_fn(model, cond, null_cond(dataset, cond),
+                                 cfg_scale)
+        else:
+            vf = make_velocity_fn(model, cond)
         st = {}
         lat = flow.decode(vf, z, sk, t_edit=t_edit, stats=st)
         if st:
@@ -267,6 +300,9 @@ def main(argv=None) -> None:
                     help="stage_delta_int8: the base-anchored stage-delta "
                     "int8 field for --solver adaptive (default: the "
                     "config's sample.solver_kwargs.field)")
+    ap.add_argument("--cfg_scale", type=float, default=None,
+                    help="classifier-free guidance scale for a conditional "
+                    "config (default: the config's sample.cfg_scale)")
     ap.add_argument("--hidden_mode", default=None,
                     choices=["exact", "gelu", "grad"],
                     help="the stage-delta field's MLP hidden cache (default: "
@@ -278,7 +314,7 @@ def main(argv=None) -> None:
                 a.controller, a.safety, decode=a.decode,
                 vae_weights=a.vae_weights, attn_impl=a.attn_impl,
                 field=a.field, hidden_mode=a.hidden_mode,
-                decode_batch=a.decode_batch)
+                decode_batch=a.decode_batch, cfg_scale=a.cfg_scale)
     print(f"wrote {len(paths)} arrays to {a.out}")
 
 

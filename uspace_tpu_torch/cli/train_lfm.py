@@ -21,6 +21,10 @@ features are not in the repository names synthetic moments. Logs loss,
 grad_norm and lr at step 1, every ``train.log_interval`` steps and the
 last, and writes one checkpoint to ``<workdir>/ckpts/<step>.pt`` (its EMA
 weights are what ``cli/dissect_common.load_nnet_params`` loads).
+One loop serves every mode: the batches' class labels (``cond``, the
+``synthetic_class`` toy) or text contexts (``t2i``: U-ViT-T2I and the
+SD-UNet) reach the field as the JAX step passes them, each with the CFG
+drop its dataset makes (``data/datasets.CFGDataset``).
 Evaluation sampling, the VAE, FID and multi-card training come with later
 slices.
 
@@ -32,6 +36,8 @@ slices.
         --n_steps 10 --workdir workdir
     python -m uspace_tpu_torch.cli.train_lfm --config synthetic_unet \\
         --n_steps 3 --device cpu --workdir /tmp/unet
+    python -m uspace_tpu_torch.cli.train_lfm --config synthetic_t2i_e2e \\
+        --workdir t2i_toy
 """
 
 from __future__ import annotations
@@ -96,6 +102,21 @@ def build_optimizer(config: dict):
     return tx, lr
 
 
+def device_batch(batch: dict, device: torch.device) -> dict:
+    """The step's inputs of a loader batch on ``device``: 'x', and the
+    conditioning the mode carries, 'y' (class labels, int64) or 'context'
+    (the JAX loop's ``put_batch``: whatever the dataset yields; a
+    ``cond`` toy's labels, a ``t2i`` toy's contexts, each with its CFG
+    drop)."""
+    out = {"x": torch.from_numpy(np.asarray(batch["x"])).to(device)}
+    if "y" in batch:
+        out["y"] = torch.from_numpy(np.asarray(batch["y"])).long().to(device)
+    if "context" in batch:
+        out["context"] = torch.from_numpy(np.asarray(batch["context"])).to(
+            device)
+    return out
+
+
 def run(config="uvit_large", n_steps: Optional[int] = None,
         batch: Optional[int] = None, seed: Optional[int] = None,
         workdir: str = "workdir", device=None,
@@ -131,8 +152,8 @@ def run(config="uvit_large", n_steps: Optional[int] = None,
     history = []
     t0 = time.perf_counter()
     for i in range(n_steps):
-        x = torch.from_numpy(np.asarray(next(data)["x"])).to(dev)
-        rec = {k: float(v) for k, v in step(state, {"x": x}, gen).items()}
+        inputs = device_batch(next(data), dev)
+        rec = {k: float(v) for k, v in step(state, inputs, gen).items()}
         history.append(rec)
         if i == 0 or (i + 1) % every == 0 or i + 1 == n_steps:
             log(f"step {i + 1}/{n_steps}: loss {rec['loss']:.6f} grad_norm "

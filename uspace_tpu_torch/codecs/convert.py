@@ -1,5 +1,5 @@
-"""Carry JAX (Flax) U-ViT, SD-UNet and SD-VAE parameters across into the
-port's modules.
+"""Carry JAX (Flax) U-ViT, U-ViT-T2I, SD-UNet, SD-VAE and CLIP text-tower
+parameters across into the port's modules.
 
 The port's own copies of ``uvit_flax_to_torch`` and ``unet_flax_to_torch``
 (``uspace_tpu/codecs/convert.py``), and :func:`vae_flax_to_torch`, the
@@ -49,6 +49,19 @@ def uvit_flax_to_torch(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
             out[key] = arr
         else:  # bare params (pos_embed)
             out[".".join(parts + [leaf])] = arr
+    return out
+
+
+def clip_flax_to_torch(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """CLIP text-tower Flax params (``uspace_tpu/codecs/clip_text.py``'s
+    ``CLIPTextEncoder``) -> the port's ``CLIPTextEncoder`` keys:
+    ``layers_{i}_{name}`` -> ``layers.{i}.{name}``."""
+    out = {}
+    for path, arr in _flatten(params.get("params", params)).items():
+        *mods, leaf = path
+        base = re.sub(r"\blayers_(\d+)_", r"layers.\1.", ".".join(mods))
+        key, t = _torch_leaf(base, leaf, arr)
+        out[key] = t
     return out
 
 
@@ -159,6 +172,20 @@ def load_uvit_from_jax(model: nn.Module, params: Mapping[str, Any]
     (``strict=True``); each tensor takes the dtype and device of the
     parameter it fills."""
     return _load(model, uvit_flax_to_torch(params))
+
+
+def load_uvit_t2i_from_jax(model: nn.Module, params: Mapping[str, Any]
+                           ) -> nn.Module:
+    """The same for U-ViT-T2I (``models.uvit_t2i.UViTT2I``): its tree is the
+    U-ViT's plus ``context_embed``, under the same names."""
+    return _load(model, uvit_flax_to_torch(params))
+
+
+def load_clip_from_jax(model: nn.Module, params: Mapping[str, Any]
+                       ) -> nn.Module:
+    """The same for the CLIP text tower (``codecs.clip_text.
+    CLIPTextEncoder``)."""
+    return _load(model, clip_flax_to_torch(params))
 
 
 def load_unet_from_jax(model: nn.Module, params: Mapping[str, Any]

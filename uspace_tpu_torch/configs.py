@@ -24,6 +24,18 @@ def uvit_nnet(embed_dim: int = 512, depth: int = 16, num_heads: int = 8,
     return cfg
 
 
+def uvit_t2i_nnet(embed_dim: int = 1024, depth: int = 20, num_heads: int = 16,
+                  **kw) -> Dict[str, Any]:
+    """configs/common.py's ``uvit_t2i_nnet``: 77 CLIP tokens of 768."""
+    cfg = dict(name="uvit_t2i", img_size=32, patch_size=2, in_chans=4,
+               embed_dim=embed_dim, depth=depth, num_heads=num_heads,
+               mlp_ratio=4.0, qkv_bias=False, mlp_time_embed=False,
+               clip_dim=768, num_clip_token=77, use_checkpoint=True,
+               remat_exempt=0, quant=False)
+    cfg.update(kw)
+    return cfg
+
+
 def unet_nnet(model_channels: int = 256, **kw) -> Dict[str, Any]:
     """The SD-UNet block of configs/lfm_cm256_unet_large.py:45-58."""
     cfg = dict(name="unet_t2i", image_size=32, in_channels=4, out_channels=4,
@@ -57,6 +69,7 @@ _DYNAMIC = dict(sigma_min=1e-4)
 # the reference's eval decode (dopri5 at rtol = atol = 1e-5) with the keys
 # below. solver_fix_step <= 0 derives the step from sample_steps.
 _SAMPLE = dict(sample_steps=50, n_samples=50_000, mini_batch_size=50,
+               cfg_scale=0.0,  # > 0: classifier-free guidance
                solver_kwargs=dict(solver="fixed", solver_fix="euler",
                                   solver_fix_step=-1.0,
                                   solver_adaptive="dopri5", rtol=1e-5,
@@ -76,6 +89,13 @@ _DISSECTION = dict(has_attr=False, dissect_task="uspace_uvit",
                    t_edit=1.0, e2e_min_effect=1.0, edit_loc="mid",
                    solver_kwargs=dict(solver="fixed", solver_fix="euler",
                                       solver_fix_step=0.02))
+
+
+# configs/common.py:108-117, the prompt-to-prompt and local-prompt keys of
+# the T2I dissection (target_block_id -1: every block)
+_TOKEN_KWARGS = dict(token_dissect=None, lp_replace_from="", lp_replace_to="",
+                     lp_to_add="", lp_to_remove="", p2p_to_multiply="",
+                     p2p_multiplier=1.9, target_block_id=-1)
 
 
 def _synthetic_dataset(latent_hw: int, num: int = 256) -> Dict[str, Any]:
@@ -252,6 +272,107 @@ CONFIGS["synthetic_attr_pixel_e2e"] = copy.deepcopy(
 CONFIGS["synthetic_attr_pixel_e2e"]["train"].update(from_moments=False,
                                                     grad_clip=1.0)
 CONFIGS["synthetic_attr_pixel_e2e"]["dataset"]["raw"] = True
+
+
+
+
+def _toy_cond(nnet: Dict[str, Any], dataset: Dict[str, Any], mode: str,
+              n_steps: int, **sample) -> Dict[str, Any]:
+    """The conditional proofs' toys (configs/synthetic_cond_e2e.py,
+    synthetic_t2i_e2e.py, synthetic_t2i_unet_e2e.py): 4x4x4 latents, batch
+    256 with lr 3e-4, no weight decay and EMA 0.999, CFG dropout 0.15, the
+    harness on 128 samples in batches of 64 with Euler steps of 0.02."""
+    return dict(
+        seed=0,
+        z_shape=(4, 4, 4),
+        compute_dtype="bfloat16",
+        nnet=nnet,
+        autoencoder=_AUTOENCODER,
+        clip=dict(pretrained_path="", max_length=77),
+        train=dict(_TRAIN, mode=mode, n_steps=n_steps, batch_size=256,
+                   log_interval=100, eval_interval=n_steps // 2,
+                   save_interval=n_steps // 2, ema_rate=0.999),
+        optimizer=dict(_OPTIMIZER, lr=3e-4, weight_decay=0.0),
+        lr_scheduler=_LR_SCHEDULER,
+        dynamic=_DYNAMIC,
+        sample=dict(_SAMPLE, sample_steps=50, n_samples=16,
+                    mini_batch_size=64, **sample),
+        dataset=dataset,
+        # one loader worker, as the attribute toys (the draws are Python)
+        dl=dict(num_workers=1),
+        dissection=dict(_DISSECTION, n_samples=128, mini_batch_size=64,
+                        token_kwargs=dict(_TOKEN_KWARGS),
+                        solver_kwargs=dict(_DISSECTION["solver_kwargs"],
+                                           solver_adaptive="dopri5",
+                                           solver_adaptive_prec=0.01)),
+    )
+
+
+# the caption-structured data of the T2I toys (configs/synthetic_t2i_e2e.py:
+# 6 words, 8 context tokens of 32, amp 5) with CFG dropout
+_T2I_TOY_DATA = dict(name="synthetic_t2i", num=4096, shape=(4, 4, 8),
+                     vocab=6, num_tokens=8, ctx_dim=32, amp=5.0, cfg=True,
+                     p_uncond=0.15)
+# the class-conditional toy (configs/synthetic_cond_e2e.py): a U-ViT with a
+# label token over 6 classes and the learned null class 6, L = 6
+CONFIGS["synthetic_cond_e2e"] = _toy_cond(
+    uvit_nnet(embed_dim=128, depth=6, num_heads=4, img_size=4,
+              num_classes=7, use_checkpoint=False),
+    dict(name="synthetic_class", num=4096, shape=(4, 4, 8), num_classes=6,
+         amp=5.0, cfg=True, p_uncond=0.15),
+    "cond", 8000, cfg_scale=1.0)
+# the U-ViT-T2I toy (configs/synthetic_t2i_e2e.py): embed 128, depth 6, 4
+# heads of 32, 8 context tokens of 32, L = 1 + 8 + 4 = 13
+CONFIGS["synthetic_t2i_e2e"] = _toy_cond(
+    uvit_t2i_nnet(embed_dim=128, depth=6, num_heads=4, img_size=4,
+                  clip_dim=32, num_clip_token=8, use_checkpoint=False),
+    dict(_T2I_TOY_DATA), "t2i", 16_000)
+CONFIGS["synthetic_t2i_e2e"]["dissection"]["token_kwargs"][
+    "p2p_multiplier"] = 0.0
+# the SD-UNet T2I toy (configs/synthetic_t2i_unet_e2e.py): 64 channels x
+# (1, 2), cross-attention to the 32-wide context at ds 1 and 2
+CONFIGS["synthetic_t2i_unet_e2e"] = _toy_cond(
+    unet_nnet(model_channels=64, image_size=4, attention_resolutions=(1, 2),
+              num_res_blocks=1, channel_mult=(1, 2), num_head_channels=32,
+              context_dim=32, use_checkpoint=False),
+    dict(_T2I_TOY_DATA), "t2i", 8000)
+
+
+def _t2i_large(nnet: Dict[str, Any], batch: int) -> Dict[str, Any]:
+    """configs/lfm_mscoco_uvit_from_in256.py: MS-COCO 256 T2I, 4x32x32
+    latents, 77 CLIP tokens of 768 (L = 334), 300k steps at a batch of
+    ``batch`` (the JAX config's global batch), no weight decay, seed 1230.
+    The MS-COCO features and the ImageNet-256 weights it starts from are not
+    in the repository: it trains from the reference init on
+    ``synthetic_t2i`` moments and contexts of the same shapes. As in the
+    JAX config, ``cfg`` is off (no context dropout; p_uncond 0.1 is
+    carried but unused)."""
+    return dict(
+        seed=1230,
+        z_shape=(4, 32, 32),
+        compute_dtype="bfloat16",
+        nnet=nnet,
+        autoencoder=_AUTOENCODER,
+        clip=dict(pretrained_path="", max_length=77),
+        train=dict(_TRAIN, mode="t2i", n_steps=300_000, batch_size=batch,
+                   log_interval=10, eval_interval=500, save_interval=5000),
+        optimizer=dict(_OPTIMIZER, weight_decay=0.0),
+        lr_scheduler=_LR_SCHEDULER,
+        dynamic=_DYNAMIC,
+        sample=dict(_SAMPLE, n_samples=16, mini_batch_size=8),
+        dataset=dict(name="synthetic_t2i", num=4096, shape=(32, 32, 8),
+                     num_tokens=77, ctx_dim=768, cfg=False, p_uncond=0.1),
+        dissection=dict(_DISSECTION, ith_attr=7, pca_n=100,
+                        token_kwargs=dict(_TOKEN_KWARGS)),
+    )
+
+
+# U-ViT-T2I-large (embed 1024, depth 20, 16 heads of 64, patch 2)
+CONFIGS["uvit_t2i_large"] = _t2i_large(uvit_t2i_nnet(), 256)
+# U-ViT-small-deep16 T2I (configs/lfm_mscoco_uvit_small_deep16_v2.py:
+# embed 512, depth 16, 8 heads of 64, batch 1024)
+CONFIGS["uvit_t2i_small_deep16"] = _t2i_large(
+    uvit_t2i_nnet(embed_dim=512, depth=16, num_heads=8), 1024)
 
 
 def get_config(name) -> Dict[str, Any]:

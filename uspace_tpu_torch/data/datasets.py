@@ -1,15 +1,34 @@
 """Feature datasets: the port's own copy of what its slices need from
 ``uspace_tpu/data/datasets.py`` (numpy only; the port imports nothing of
 the JAX package), with the ``get_dataset`` factory of the synthetic
-datasets (``synthetic``, ``synthetic_attr``). Batches come from
-``data/loader.DataLoader``.
+datasets (``synthetic``, ``synthetic_attr``, ``synthetic_t2i``,
+``synthetic_class``) and the classifier-free-guidance wrapper
+:class:`CFGDataset`. Every draw is the JAX package's, bit for bit, for the
+same seed and epoch. Batches come from ``data/loader.DataLoader``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+class _EpochRng:
+    """Per-(epoch, index) generator of the host's draws (the CFG drop):
+    seeded by (seed, stream, idx, epoch), so draws change from one epoch to
+    the next yet do not depend on the loader's thread order. The loader
+    announces the epoch through ``set_epoch``. ``stream`` keeps two users
+    that wrap each other apart."""
+
+    def __init__(self, seed: int, stream: int = 0):
+        self.seed = seed
+        self.stream = stream
+        self.epoch = 0
+
+    def for_index(self, idx: int) -> np.random.Generator:
+        return np.random.default_rng((self.seed, self.stream, idx,
+                                      self.epoch))
 
 
 class SyntheticFeatures:
@@ -107,7 +126,166 @@ class SyntheticAttrFeatures:
         return {"x": np.concatenate([mean, logvar], axis=-1), "attr": attr}
 
 
+class CFGDataset:
+    """Classifier-free-guidance dropout: with probability ``p_uncond`` a
+    sample's conditioning becomes the null one (``empty_context`` for a
+    context, ``null_label`` for a label), drawn per index and epoch."""
+
+    def __init__(self, dataset, p_uncond: float, empty_context=None,
+                 null_label: Optional[int] = None, seed: int = 0):
+        self.dataset = dataset
+        self.p_uncond = p_uncond
+        self.empty_context = empty_context
+        self.null_label = null_label
+        self._rng = _EpochRng(seed, stream=1)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._rng.epoch = epoch
+        set_fn = getattr(self.dataset, "set_epoch", None)
+        if set_fn is not None:
+            set_fn(epoch)
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        out = dict(self.dataset[idx])
+        if self._rng.for_index(idx).random() < self.p_uncond:
+            if "context" in out and self.empty_context is not None:
+                out["context"] = np.asarray(self.empty_context)
+            if "y" in out and self.null_label is not None:
+                out["y"] = np.int32(self.null_label)
+        return out
+
+
+def _moments(latent: np.ndarray, noise_std: float, scale: float
+             ) -> np.ndarray:
+    """VAE-style moments of ``latent``: mean ‖ logvar, divided by the SD
+    scale factor."""
+    mean = latent / scale
+    logvar = np.full_like(mean, 2.0 * np.log(noise_std / scale))
+    return np.concatenate([mean, logvar], axis=-1)
+
+
+class SyntheticT2IFeatures:
+    """Caption-structured synthetic moments for the T2I proofs (MS-COCO's
+    latents and CLIP contexts are not in the repository). A sample's
+    caption is two distinct words of a ``vocab``-word vocabulary; its latent
+    carries their orthonormal patterns and its context their embeddings:
+    ``latent = base_std * g(idx) + amp * (P_w1 + P_w2)``, ``context = [0,
+    ctx_scale E[w1], ctx_scale E[w2], 0, ...]`` ([num_tokens, ctx_dim], the
+    words at rows 1 and 2 as in CLIP's layout behind its start token)."""
+
+    SCALE = 0.18215
+
+    def __init__(self, num: int = 4096, shape=(8, 8, 8), vocab: int = 6,
+                 num_tokens: int = 8, ctx_dim: int = 32,
+                 base_std: float = 0.35, amp: float = 3.0,
+                 noise_std: float = 0.05, ctx_scale: float = 4.0,
+                 seed: int = 0):
+        if shape[-1] % 2:
+            raise ValueError("moments need mean ‖ logvar channels: the last "
+                             f"axis of {tuple(shape)} is odd")
+        self.num = num
+        self.shape = tuple(shape)
+        self.latent_shape = (*self.shape[:-1], self.shape[-1] // 2)
+        self.vocab = vocab
+        self.num_tokens = num_tokens
+        self.ctx_dim = ctx_dim
+        self.base_std = base_std
+        self.amp = amp
+        self.noise_std = noise_std
+        self.ctx_scale = ctx_scale
+        self.seed = seed
+        self._pat = SyntheticAttrFeatures.patterns(self.latent_shape, vocab)
+        self._emb = self.word_embeddings(ctx_dim, vocab)
+
+    @staticmethod
+    def word_embeddings(ctx_dim: int, vocab: int) -> np.ndarray:
+        """[V, ctx_dim] fixed orthonormal word embeddings."""
+        rng = np.random.default_rng(54321)
+        q, _ = np.linalg.qr(rng.normal(size=(ctx_dim, vocab)))
+        return np.ascontiguousarray(q.T, dtype=np.float32)
+
+    def words_of(self, idx: int) -> Tuple[int, int]:
+        rng = np.random.default_rng((self.seed, 1, idx))
+        w1, w2 = rng.choice(self.vocab, size=2, replace=False)
+        return int(w1), int(w2)
+
+    def context_of(self, w1: int, w2: int) -> np.ndarray:
+        ctx = np.zeros((self.num_tokens, self.ctx_dim), np.float32)
+        ctx[1] = self.ctx_scale * self._emb[w1]
+        ctx[2] = self.ctx_scale * self._emb[w2]
+        return ctx
+
+    def latent_of(self, idx: int, words=None) -> np.ndarray:
+        """The latent of sample ``idx``; ``words`` is its ``words_of(idx)``
+        where the caller has it already (the same draw)."""
+        rng = np.random.default_rng((self.seed, 0, idx))
+        g = rng.normal(size=self.latent_shape).astype(np.float32)
+        w1, w2 = self.words_of(idx) if words is None else words
+        return (self.base_std * g
+                + self.amp * (self._pat[w1] + self._pat[w2]))
+
+    def __len__(self) -> int:
+        return self.num
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        w1, w2 = self.words_of(idx)
+        return {"x": _moments(self.latent_of(idx, (w1, w2)), self.noise_std,
+                              self.SCALE),
+                "context": self.context_of(w1, w2),
+                "words": np.asarray([w1, w2], np.int32)}
+
+
+class SyntheticClassFeatures:
+    """Class-structured synthetic moments for the class-conditional proof
+    (ImageNet's latents and labels are not in the repository): ``x =
+    base_std * g(idx) + amp * P_y(idx)``, stored as moments."""
+
+    SCALE = 0.18215
+
+    def __init__(self, num: int = 4096, shape=(4, 4, 8),
+                 num_classes: int = 6, base_std: float = 0.35,
+                 amp: float = 5.0, noise_std: float = 0.05, seed: int = 0):
+        if shape[-1] % 2:
+            raise ValueError("moments need mean ‖ logvar channels: the last "
+                             f"axis of {tuple(shape)} is odd")
+        self.num = num
+        self.shape = tuple(shape)
+        self.latent_shape = (*self.shape[:-1], self.shape[-1] // 2)
+        self.num_classes = num_classes
+        self.base_std = base_std
+        self.amp = amp
+        self.noise_std = noise_std
+        self.seed = seed
+        self._pat = SyntheticAttrFeatures.patterns(self.latent_shape,
+                                                   num_classes)
+
+    def label_of(self, idx: int) -> int:
+        rng = np.random.default_rng((self.seed, 1, idx))
+        return int(rng.integers(0, self.num_classes))
+
+    def latent_of(self, idx: int, label: Optional[int] = None) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, 0, idx))
+        g = rng.normal(size=self.latent_shape).astype(np.float32)
+        y = self.label_of(idx) if label is None else label
+        return self.base_std * g + self.amp * self._pat[y]
+
+    def __len__(self) -> int:
+        return self.num
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        y = self.label_of(idx)
+        return {"x": _moments(self.latent_of(idx, y), self.noise_std,
+                              self.SCALE),
+                "y": np.int32(y)}
+
+
 class _Factory:
+    K: Optional[int] = None  # number of classes
+    has_label = False
+
     def get_split(self, split: str = "train"):
         return getattr(self, split)
 
@@ -123,6 +301,9 @@ class Synthetic(_Factory):
         self.train = SyntheticFeatures(num, shape, num_classes, context_shape)
         self.test = SyntheticFeatures(max(num // 4, 1), shape, num_classes,
                                       context_shape, seed=10_000)
+        if num_classes:
+            self.K = num_classes
+            self.has_label = True
 
 
 class SyntheticAttr(_Factory):
@@ -139,13 +320,66 @@ class SyntheticAttr(_Factory):
                                           seed=10_000)
 
 
-_REGISTRY = {"synthetic": Synthetic, "synthetic_attr": SyntheticAttr}
+class SyntheticT2I(_Factory):
+    """The ``synthetic_t2i`` dataset: ``SyntheticT2IFeatures`` train and
+    test splits (the test split from seed 10000), the zeros context as the
+    null conditioning (``empty_context``), and with ``cfg`` the train
+    split's context dropped to it with probability ``p_uncond``."""
+
+    def __init__(self, num: int = 4096, shape=(8, 8, 8), vocab: int = 6,
+                 num_tokens: int = 8, ctx_dim: int = 32,
+                 base_std: float = 0.35, amp: float = 3.0,
+                 noise_std: float = 0.05, ctx_scale: float = 4.0,
+                 cfg: bool = False, p_uncond: Optional[float] = None, **_):
+        args = (shape, vocab, num_tokens, ctx_dim, base_std, amp, noise_std,
+                ctx_scale)
+        self.train = SyntheticT2IFeatures(num, *args)
+        self.test = SyntheticT2IFeatures(max(num // 8, 1), *args,
+                                         seed=10_000)
+        self.empty_context = np.zeros((num_tokens, ctx_dim), np.float32)
+        if cfg:
+            if p_uncond is None:
+                raise ValueError("cfg needs p_uncond")
+            self.train = CFGDataset(self.train, p_uncond,
+                                    empty_context=self.empty_context)
+
+
+class SyntheticClass(_Factory):
+    """The ``synthetic_class`` dataset: ``SyntheticClassFeatures`` splits
+    with labels 0..K-1; with ``cfg`` a train label drops to the learned
+    null class K (the model has K + 1 classes) with probability
+    ``p_uncond``."""
+
+    has_label = True
+
+    def __init__(self, num: int = 4096, shape=(4, 4, 8),
+                 num_classes: int = 6, base_std: float = 0.35,
+                 amp: float = 5.0, noise_std: float = 0.05,
+                 cfg: bool = False, p_uncond: Optional[float] = None, **_):
+        self.K = num_classes
+        self.null_label = None
+        args = (shape, num_classes, base_std, amp, noise_std)
+        self.train = SyntheticClassFeatures(num, *args)
+        self.test = SyntheticClassFeatures(max(num // 8, 1), *args,
+                                           seed=10_000)
+        if cfg:
+            if p_uncond is None:
+                raise ValueError("cfg needs p_uncond")
+            self.null_label = self.K
+            self.train = CFGDataset(self.train, p_uncond,
+                                    null_label=self.null_label)
+
+
+_REGISTRY = {"synthetic": Synthetic, "synthetic_attr": SyntheticAttr,
+             "synthetic_t2i": SyntheticT2I, "synthetic_class": SyntheticClass}
 
 
 def get_dataset(name: str, **kwargs):
     """A dataset by its config name: ``synthetic`` (the random moments a
-    config trains on where its own features are not in the repository) or
-    ``synthetic_attr`` (attribute-structured moments)."""
+    config trains on where its own features are not in the repository),
+    ``synthetic_attr`` (attribute-structured moments), ``synthetic_t2i``
+    (caption-structured moments and contexts) or ``synthetic_class``
+    (class-structured moments and labels)."""
     if name not in _REGISTRY:
         raise NotImplementedError(f"dataset {name!r} is not ported")
     return _REGISTRY[name](**kwargs)

@@ -1,6 +1,6 @@
-"""u-space editing (counterpart of ``uspace_tpu/editing``): write edits,
-trajectory capture, direction builders and the dissection drivers. The
-prompt-to-prompt attention edits come with the T2I slice."""
+"""u-space and prompt-to-prompt editing (counterpart of
+``uspace_tpu/editing``): write edits, attention edits, trajectory capture,
+direction builders and the dissection drivers."""
 
 from .capture import capture_trajectory, captures_to_grid
 from .directions import (
@@ -12,10 +12,18 @@ from .directions import (
     pca_directions,
     select_direction,
 )
-from .specs import USpaceEdit, interp_grid, schedule_gate
+from .specs import (
+    AttnEdit,
+    USpaceEdit,
+    interp_grid,
+    p2p_col_mult,
+    schedule_gate,
+)
 
 __all__ = [
+    "AttnEdit",
     "USpaceEdit",
+    "p2p_col_mult",
     "interp_grid",
     "schedule_gate",
     "capture_trajectory",

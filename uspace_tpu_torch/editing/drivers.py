@@ -11,6 +11,10 @@ keeps its capture grids in memory and writes one ``.npz`` per phase.
   [S, B, ...] latents;
 - roundtrip: encode -> decode reconstruction error.
 
+Every flow carries its conditioning (class labels or text contexts) through
+the read, the decode and the write; a T2I decode also takes a
+prompt-to-prompt ``AttnEdit``, the encode never does.
+
 PyTorch runs eagerly, so the JAX package's one compiled program per call
 structure is one eager call here, and the write sweep decodes one scale
 after the other, as the JAX sweep does.
@@ -29,7 +33,7 @@ from ..core import flow
 from ..train.step import make_velocity_fn, sample_from_moments
 from .capture import capture_trajectory, captures_to_grid
 from .directions import attr_delta_directions, pca_directions
-from .specs import USpaceEdit
+from .specs import AttnEdit, USpaceEdit
 
 DEFAULT_SOLVER_KWARGS = {"solver": "fixed", "solver_fix": "euler",
                          "solver_fix_step": 0.01}
@@ -56,21 +60,29 @@ class DissectSession:
     # -- primitives ----------------------------------------------------------
 
     @torch.no_grad()
-    def encode(self, x: torch.Tensor,
-               cond: Optional[Dict] = None) -> torch.Tensor:
-        """Exact inversion x -> z (fixed-step, t: 1 -> 0)."""
+    def encode(self, x: torch.Tensor, cond: Optional[Dict] = None,
+               attn_edit: Optional[AttnEdit] = None) -> torch.Tensor:
+        """Exact inversion x -> z (fixed-step, t: 1 -> 0) with the
+        conditioning ``cond`` ('y' or 'context'). An attention edit is never
+        applied here: the reference edits only while decoding
+        (``tools/utils_t2i.py:276-278``), so ``attn_edit`` is ignored."""
         vf = make_velocity_fn(self.model, cond)
         return flow.encode(vf, x, self.solver_kwargs)
 
     @torch.no_grad()
     def decode(self, z: torch.Tensor, cond: Optional[Dict] = None,
                edit: Optional[USpaceEdit] = None,
+               attn_edit: Optional[AttnEdit] = None,
                t_edit: Optional[float] = None,
                stats: Optional[dict] = None) -> torch.Tensor:
-        """z -> x (t: 0 -> 1) under an optional write edit; ``t_edit`` is
-        the split time of the "fixadp" solver; a dict passed as ``stats``
-        receives an adaptive solve's step and evaluation counts."""
+        """z -> x (t: 0 -> 1) with the conditioning ``cond``, under an
+        optional write edit and an optional prompt-to-prompt attention edit
+        (T2I); ``t_edit`` is the split time of the "fixadp" solver; a dict
+        passed as ``stats`` receives an adaptive solve's step and
+        evaluation counts."""
         kw = {} if edit is None else {"edit": edit}
+        if attn_edit is not None:
+            kw["attn_edit"] = attn_edit
         vf = make_velocity_fn(self.model, cond, **kw)
         return flow.decode(vf, z, self.solver_kwargs, t_edit=t_edit,
                            stats=stats)

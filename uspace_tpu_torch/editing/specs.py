@@ -9,14 +9,16 @@ the activation at the head, mid or tail tap. Everything stays on the
 activation's device: the interpolation index and the gate are tensors,
 never Python numbers, so an edited field makes no host round trip.
 
-The prompt-to-prompt ``AttnEdit`` and ``p2p_col_mult`` belong to the T2I
-slice.
+:class:`AttnEdit` is the prompt-to-prompt column rescale of the T2I
+family's joint attention: a per-(example, key-token) multiplier that the
+attention op folds exactly into V, gated by ``t <= t_edit`` and by the
+blocks it names; :func:`p2p_col_mult` builds its multiplier.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -100,3 +102,54 @@ class USpaceEdit:
 
     def replace(self, **changes) -> "USpaceEdit":
         return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnEdit:
+    """Prompt-to-prompt attention rescale (T2I).
+
+    ``col_mult`` [B, L] multiplies the post-softmax attention columns of
+    the target context tokens (token layout [time, context, patches], the
+    target ids already offset by the time token). It acts only while
+    decoding (an encode passes no edit) and where ``t <= t_edit``;
+    ``block_ids`` names the blocks it edits (None: all), in call order."""
+
+    col_mult: torch.Tensor
+    t_edit: float = 1.0
+    block_ids: Optional[Tuple[int, ...]] = None
+
+    def effective_mult(self, t: Time, block_id: int
+                       ) -> Optional[torch.Tensor]:
+        """The [B, L] multiplier of block ``block_id`` at time ``t`` (the
+        batch's first time, as the model passes it), or None where
+        ``block_ids`` leaves the block out. The gate is taken in f32 on
+        the multiplier's device."""
+        if self.block_ids is not None and block_id not in self.block_ids:
+            return None
+        gate = (_time(t, self.col_mult.device) <= self.t_edit + 1e-6).to(
+            self.col_mult.dtype)
+        return 1.0 + gate * (self.col_mult - 1.0)
+
+    def replace(self, **changes) -> "AttnEdit":
+        return dataclasses.replace(self, **changes)
+
+
+def p2p_col_mult(batch: int, seq_len: int, target_ids, multiplier,
+                 time_tokens: int = 1, device=None) -> torch.Tensor:
+    """The [B, L] f32 column multiplier of a p2p rescale.
+
+    ``target_ids``: [B, max_targets] context-relative token indices, padded
+    with -1; each is offset by the ``time_tokens`` in front of the context.
+    Padding is dropped, never mapped to a column (at ``time_tokens`` 0,
+    column 0 may be a real target). ``multiplier``: a scalar or one per
+    example."""
+    ids = torch.as_tensor(target_ids, dtype=torch.int64, device=device)
+    dev = ids.device
+    mult = torch.broadcast_to(torch.as_tensor(multiplier, dtype=torch.float32,
+                                              device=dev), (batch,))
+    cols = torch.ones((batch, seq_len), dtype=torch.float32, device=dev)
+    valid = (ids >= 0) & (ids + time_tokens < seq_len)
+    rows = torch.arange(batch, device=dev)[:, None].expand_as(ids)
+    vals = mult[:, None].expand_as(ids)
+    cols[rows[valid], ids[valid] + time_tokens] = vals[valid]
+    return cols

@@ -309,13 +309,20 @@ class Attention(nn.Module):
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, **kw)
         self.proj = Dense(dim, dim, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t=None, attn_edit=None,
+                block_id: int = 0, capture_probs: bool = False):
+        """Self-attention of ``x`` [B, L, C]. ``attn_edit`` (an
+        ``editing.specs.AttnEdit``) rescales the key columns of block
+        ``block_id`` at time ``t``; ``capture_probs`` also returns the f32
+        [B, H, L, L] probabilities. Either sends the call down the unfused
+        route, as in the JAX package, even where ``block_ids`` leaves the
+        block unedited."""
         b, l, c = x.shape
         h = self.num_heads
         use_fused = self.attn_impl in (
             "pallas_packed", "pallas_qkvproj", "pallas_lnmlp") or (
             self.attn_impl == "auto" and _fused_ok(x))
-        if use_fused:
+        if use_fused and attn_edit is None and not capture_probs:
             if not self.qkv_bias and self.attn_impl != "pallas_packed":
                 # QKV projection inside the kernel; weight.t() is the JAX
                 # [C, 3C] layout and costs no copy. The int8 kernel fits its
@@ -332,9 +339,16 @@ class Attention(nn.Module):
             return self.proj.int8(out) if self.w8a8 else self.proj(out)
         # the unfused route keeps bf16 qkv and proj in every view (JAX too)
         qkv = self.qkv(x).reshape(b, l, 3, h, c // h).permute(2, 0, 3, 1, 4)
-        out = multi_head_attention(qkv[0], qkv[1], qkv[2], scale=self.scale,
-                                   impl=self.attn_impl)
-        return self.proj(out.transpose(1, 2).reshape(b, l, c))
+        col_mult = None if attn_edit is None else attn_edit.effective_mult(
+            0.0 if t is None else t, block_id)
+        out = multi_head_attention(
+            qkv[0], qkv[1], qkv[2], scale=self.scale, impl=self.attn_impl,
+            col_mult=col_mult, return_probs=capture_probs)
+        probs = None
+        if capture_probs:
+            out, probs = out
+        out = self.proj(out.transpose(1, 2).reshape(b, l, c))
+        return (out, probs) if capture_probs else out
 
 
 class Block(nn.Module):
@@ -384,10 +398,23 @@ class Block(nn.Module):
         x = fused_attention_block(*args, scale=a.scale, eps=n1.eps)
         return x + self.mlp(self.norm2(x))
 
-    def forward(self, x: torch.Tensor,
-                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None,
+                t=None, attn_edit=None, block_id: int = 0,
+                capture_probs: bool = False):
+        """``t``, ``attn_edit``, ``block_id`` and ``capture_probs`` as in
+        :class:`Attention`: an edit or a capture takes the unfused
+        attention (plain qkv and proj, in every view) and the view's own
+        MLP, and a capture returns ``(x, probs)``."""
         if self.skip_linear is not None:
             x = self.skip_linear(torch.cat([x, skip], dim=-1))
+        if attn_edit is not None or capture_probs:
+            a = self.attn(self.norm1(x), t=t, attn_edit=attn_edit,
+                          block_id=block_id, capture_probs=capture_probs)
+            probs = None
+            if capture_probs:
+                a, probs = a
+            x = self._mlp_half(x + a)
+            return (x, probs) if capture_probs else x
         if self.attn_impl == "pallas_block" and not self.qkv_bias:
             return self._block_route(x)
         # LN-fused route: explicit, or `auto` for a quantized view on the
@@ -408,9 +435,13 @@ class Block(nn.Module):
             if self.w8 or self.a8mlp:
                 return self._mlp_block_q(x, "w8" if self.w8 else True)
             return x + self.mlp(self.norm2(x))  # bf16: LN2 feeds the plain MLP
-        x = x + self.attn(self.norm1(x))
+        return self._mlp_half(x + self.attn(self.norm1(x)))
+
+    def _mlp_half(self, x: torch.Tensor) -> torch.Tensor:
+        """The MLP half after the unfused attention: the int8 MLP sub-block
+        on ``pallas_lnmlp`` (reached with a qkv bias or an edit; the JAX
+        package sends w8a8_mlp to "w8"), else the view's own ``Mlp``."""
         if self.quant and self.attn_impl == "pallas_lnmlp":
-            # reached with qkv_bias; the JAX package sends w8a8_mlp to "w8"
             return self._mlp_block_q(x, True if self.w8a8 else "w8")
         return x + self.mlp(self.norm2(x))
 

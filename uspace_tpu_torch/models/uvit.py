@@ -178,9 +178,28 @@ class UViT(nn.Module):
             tokens = [self.label_emb(y)[:, None, :]] + tokens
         x = torch.cat(tokens, dim=1) + self.pos_embed.to(self.dtype)
 
+        x = self._trunk(x, t_scalar, edit, capture, taps)
+        return self._tail(x, t_scalar, edit, capture, taps), taps
+
+    def _trunk(self, x: torch.Tensor, t_scalar: torch.Tensor, edit,
+               capture: Tuple[str, ...], taps: Dict[str, torch.Tensor],
+               attn_edit=None, capture_attn: Tuple[int, ...] = ()
+               ) -> torch.Tensor:
+        """The blocks (in -> mid -> out, ids in call order) with the mid
+        tap. A block runs plain (and rematted where ``remat`` says, under
+        autograd) unless ``attn_edit`` is given or ``capture_attn`` names
+        it: then it takes the time, the edit and its id, and a captured
+        block's f32 probabilities go to ``taps["attn_{id}"]``."""
         blocks = [*self.in_blocks, self.mid_block, *self.out_blocks]
 
         def run(i: int, *args: torch.Tensor) -> torch.Tensor:
+            cap = i in capture_attn
+            if cap or attn_edit is not None:
+                out = blocks[i](*args, t=t_scalar, attn_edit=attn_edit,
+                                block_id=i, capture_probs=cap)
+                if cap:
+                    out, taps[f"attn_{i}"] = out
+                return out
             if self.remat[i] and torch.is_grad_enabled():
                 return checkpoint(blocks[i], *args, use_reentrant=False)
             return blocks[i](*args)
@@ -197,7 +216,13 @@ class UViT(nn.Module):
             taps["mid"] = x
         for i in range(half + 1, 2 * half + 1):
             x = run(i, x, skips.pop())
+        return x
 
+    def _tail(self, x: torch.Tensor, t_scalar: torch.Tensor, edit,
+              capture: Tuple[str, ...], taps: Dict[str, torch.Tensor]
+              ) -> torch.Tensor:
+        """norm -> decoder -> the patch tokens unpatchified -> final conv,
+        then the tail tap."""
         x = self.decoder_pred(self.norm(x))[:, self.extras:, :]
         x = unpatchify(x, self.in_chans)
         if self.final_layer is not None:
@@ -206,4 +231,4 @@ class UViT(nn.Module):
             x = edit.apply(x, t_scalar)
         if "tail" in capture:
             taps["tail"] = x
-        return x, taps
+        return x

@@ -125,12 +125,14 @@ def make_train_step(
 def make_velocity_fn(model: torch.nn.Module, cond: Optional[Dict] = None,
                      **apply_kwargs) -> Callable:
     """Close a denoiser over its conditioning: ``vf(t[B], x) -> velocity``,
-    or ``(velocity, taps)`` when ``capture=`` asks for taps. ``cond`` may
-    hold 'y' (class labels) or 'context'; the other keyword arguments
-    (``edit=``, ``capture=``) pass through to the model
+    or ``(velocity, taps)`` when ``capture=`` or ``capture_attn=`` asks for
+    taps. ``cond`` may hold 'y' (class labels) or 'context'; the other
+    keyword arguments (``edit=``, ``attn_edit=``, ``capture=``,
+    ``capture_attn=``) pass through to the model
     (``uspace_tpu/train/step.make_velocity_fn``)."""
     cond = cond or {}
-    want_aux = bool(apply_kwargs.get("capture"))
+    want_aux = bool(apply_kwargs.get("capture")
+                    or apply_kwargs.get("capture_attn"))
 
     def vf(t: torch.Tensor, x: torch.Tensor):
         if cond.get("context") is not None:

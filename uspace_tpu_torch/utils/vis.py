@@ -39,3 +39,11 @@ def save_image(image: np.ndarray, path: str) -> None:
     if arr.shape[-1] == 1:
         arr = arr[..., 0]
     Image.fromarray(arr).save(path)
+
+
+def save_image_batch(images: np.ndarray, out_dir: str,
+                     start_index: int = 0) -> None:
+    """Each [H, W, C] image as ``{i}.png`` (the reference's ``sample2dir``
+    layout)."""
+    for i, img in enumerate(images):
+        save_image(img, os.path.join(out_dir, f"{start_index + i}.png"))
