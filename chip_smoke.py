@@ -211,7 +211,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    `cli.editing_e2e_cond.run` and `cli.editing_e2e_t2i.run` at 8 samples
    and Euler-10 with exact launches of row 2 and every artefact written;
    phase 3 times rows 1, 2 and 4 at the toys' shapes, on the `kernels`
-   line.
+   line;
+29. the training experiment as users run it: `train.loop.train` on
+   U-ViT-large (`uvit_large`, batch 128, pallas_packed with the config's
+   full remat) for LOOP_STEPS steps, metrics every step, a checkpoint and
+   an FID every 2 steps and a vis grid of LOOP_VIS at step 4, the FIDs on
+   LOOP_FID_N samples of the config's Euler-50 (row 2 on `auto`) decoded by
+   a seeded f32 VAE saved in the reference's key format, featurized by the
+   seeded ("random") Inception and held to seeded 2048-d statistics: 4
+   finite losses, checkpoints 2 and 4, finite FIDs, `best_ckpt.txt`, the
+   final FID in `eval/<best>final`, `vis/4.png`, JAX's metric keys, exact
+   launches (row 2 4 x 1050, rows 1 and 4 by the remat rule) and no other
+   kernel; then a second run stopped by a real SIGTERM at step 2 (one
+   checkpoint, a `preempted` record) and resumed to step 4: its batches
+   and draws bit-equal to the first run's, its params and EMA compared;
+   training img/s, each evaluation's seconds, peak memory.
 
 Prints the `kernels` JSON line and then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -478,6 +492,11 @@ T2I_QUANT_CFG_MIN_COS = 0.9995
 ROW15_CONTROLS = ("the hidden kept in f32", "one hidden grid per row",
                   "x coded by division", "LN2 normalised in f32")
 CLIP_SOT, CLIP_EOT = 49406, 49407
+# phase 29, the training experiment on uvit_large: steps, the vis grid's
+# and the FID evaluations' samples (the config's Euler-50), the rows of
+# the seeded 2048-d reference statistics; the phase's time limit
+LOOP_STEPS, LOOP_VIS, LOOP_FID_N, LOOP_STAT_N = 4, 16, 50, 4096
+LOOP_MAX_S = 150.0
 # phase 28, the conditional toys' harnesses: samples a setting (CFG doubles
 # them in the field) and Euler steps
 TOY_HARNESS_N = 8
@@ -1673,8 +1692,10 @@ def hd32_cases(torch, F, attn, mlpk, randn, io, quant):
 
 
 def t2i_cases(torch, F, attn, mlpk, quant, randn, io):
-    """Phase 3's cases at the shapes of phases 27 and 28, on the `kernels`
-    line (each entry's launches those phase's run counts): U-ViT-T2I-large
+    """Phase 3's cases at the shapes of phases 27, 28 and 29, on the
+    `kernels` line (each entry's launches those phase's run counts); phase
+    29's U-ViT-large loop at its vis batch (row 2) and training batch (rows
+    1 and 4); U-ViT-T2I-large
     (L = 334 = 1 + 77 + 256, C = 1024, 16 heads of 64) under CFG at
     T2I_FIELD_B (row 2; rows 5 and 15 of the W8A8 view) and its training
     batch T2I_TRAIN_B (rows 1 and 4); the T2I and class-conditional toys
@@ -1737,6 +1758,9 @@ def t2i_cases(torch, F, attn, mlpk, quant, randn, io):
     cases += attn_rows("T2I L=334", T2I_FIELD_B, T2I_TRAIN_B, T2I_L, C, H)
     cases += attn_rows("toy L=13", TOY_FIELD_B, TOY_TRAIN_B, 13, 128, 4)
     cases += attn_rows("toy L=6", TOY_FIELD_B, TOY_TRAIN_B, 6, 128, 4)
+    # phase 29's loop: row 2 at the vis grid's batch, rows 1 and 4 at the
+    # training batch (its FID solves run row 2 at the main path's B)
+    cases += attn_rows("loop", LOOP_VIS, TRAIN_B, L, C, H)
 
     # the W8A8 view's rows 5 and 15 at U-ViT-T2I-large's field batch
     b, l, d = T2I_FIELD_B, T2I_L, C // H
@@ -4506,6 +4530,231 @@ def toy_cond_paths(torch, attn, mlpk, dev, by_key):
     log(f"phase 28 took {rep['seconds']:.1f} s")
     return rep
 
+def loop_path(torch, np, attn, mlpk, dev, by_key):
+    """Phase 29: `train.loop.train` on `uvit_large` at its per-card batch of
+    128 for LOOP_STEPS steps (log every step, save and FID every 2, the vis
+    grid at 4), the FID on LOOP_FID_N samples of the config's Euler-50,
+    decoded by a seeded f32 VAE that the phase writes in the reference's key
+    format (`autoencoder_kl.pth`), featurized by the seeded Inception
+    ("random") against seeded 2048-d statistics.
+
+    Launches: the training view is `pallas_packed` under the config's remat
+    (`use_checkpoint`, `remat_exempt` 0: all 21 blocks rematted), so a step
+    launches row 1 once a block forward and once more in each rematted
+    block's recompute, 21 + 21 = 42, and row 4 once a block, 21: 168 and
+    84 over 4 steps. The sampling view (`auto`) launches row 2 once a block
+    an Euler step, 21 x 50 = 1050 a solve: the FIDs at steps 2 and 4, the
+    vis grid at 4 and the final FID on the best checkpoint, 4 x 1050 =
+    4200. The VAE and the Inception are cuDNN convolutions: no kernel of
+    this port.
+
+    Then the same run stopped by a real SIGTERM raised from its step-2
+    metrics record (no evaluation: eval_interval and save_interval past its
+    last step), and resumed: the batch and the draw generator's state at
+    every step are bit-equal to the first run's; its final params and EMA
+    are compared with the first run's (bit for bit where the train kernels
+    are deterministic; otherwise the differing tensors are named and the
+    difference printed)."""
+    import hashlib
+    import shutil
+    import signal
+
+    from uspace_tpu_torch.codecs.vae import AutoencoderKL
+    from uspace_tpu_torch.configs import get_config
+    from uspace_tpu_torch.train import loop
+
+    t_start = time.perf_counter()
+    root = os.path.join(HERE, "build", "phase29")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    vae_path = os.path.join(root, "autoencoder_kl.pth")
+    vae = AutoencoderKL.from_config(get_config("uvit_large")["autoencoder"],
+                                    device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(29))
+    torch.save({k: v.cpu() for k, v in vae.state_dict().items()}, vae_path)
+    del vae
+    acts = np.random.default_rng(29).standard_normal((LOOP_STAT_N, 2048))
+    stat = os.path.join(root, "fid_stats.npz")
+    np.savez(stat, mu=acts.mean(0), sigma=np.cov(acts, rowvar=False))
+
+    def config(evals=True):
+        cfg = get_config("uvit_large")
+        big = 10 * LOOP_STEPS
+        cfg["train"].update(n_steps=LOOP_STEPS, log_interval=1,
+                            save_interval=2 if evals else big,
+                            eval_interval=LOOP_STEPS if evals else big)
+        cfg["vis_num"] = LOOP_VIS
+        cfg["sample"].update(n_samples=LOOP_FID_N,
+                             mini_batch_size=LOOP_FID_N,
+                             fid_weights="random")
+        cfg["dataset"]["fid_stat"] = stat
+        cfg["autoencoder"]["pretrained_path"] = vae_path
+        return cfg
+
+    # each run's Experiment, and each step's batch and generator state
+    made, fed = [], []
+    real_exp, real_batch = loop.Experiment, loop.device_batch
+
+    class Recorded(real_exp):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    def recorded_batch(batch, device):
+        rng = made[-1].state.rng.get_state().numpy().tobytes()
+        fed.append((hashlib.sha1(np.ascontiguousarray(
+            batch["x"]).tobytes()).hexdigest(),
+            hashlib.sha1(rng).hexdigest()))
+        return real_batch(batch, device)
+
+    def read(wd):
+        return [json.loads(line) for line in open(
+            os.path.join(wd, "metrics.jsonl"))]
+
+    loop.Experiment, loop.device_batch = Recorded, recorded_batch
+    try:
+        # the uninterrupted run, with its evaluations
+        wd1 = os.path.join(root, "run")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(attn, mlpk)
+        t0 = time.perf_counter()
+        state1 = loop.train(config(), wd1, device=dev)
+        torch.cuda.synchronize()
+        secs1 = time.perf_counter() - t0
+        got = all_launches(attn, mlpk)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        exp1 = made[-1]
+        blocks = exp1.config["nnet"]["depth"] + 1
+        rematted = sum(exp1.train_model.remat)
+        want = dict(packed_attention=LOOP_STEPS * (blocks + rematted),
+                    packed_attention_bwd=LOOP_STEPS * blocks,
+                    qkvproj_attention=4 * blocks * STEPS)
+        recs = read(wd1)
+        losses = [r["loss"] for r in recs if "loss" in r]
+        keys = sorted({k for r in recs if "loss" in r for k in r})
+        fids = {r["step"]: r["fid"] for r in recs if "fid" in r}
+        finals = [r for r in recs if "final_fid" in r]
+        best = open(os.path.join(wd1, "best_ckpt.txt")).read().split()
+        ckpts = sorted(os.listdir(os.path.join(wd1, "ckpts")))
+        evals = sorted(os.listdir(os.path.join(wd1, "eval")))
+        ips = [r["imgs_per_sec"] for r in recs if "loss" in r]
+        log(f"loop run (uvit_large, batch {exp1.global_batch}, "
+            f"{rematted} of {blocks} blocks rematted): {secs1:.1f} s, "
+            f"losses {losses}, img/s by step {ips}, FIDs {fids}, best "
+            f"{best}, final {finals}, checkpoints {ckpts}, eval dirs "
+            f"{evals}, peak {peak:.2f} GiB, launches {got} (expected "
+            f"{want})")
+        for e in exp1.eval_seconds:
+            log(f"  evaluation {e}")
+        problems = []
+        if got != expected(attn, mlpk, **want):
+            problems.append(f"launches {got}, expected {want}")
+        if len(losses) != LOOP_STEPS or not all(map(math.isfinite, losses)):
+            problems.append(f"losses {losses}")
+        if ckpts != ["2.pt", "4.pt"]:
+            problems.append(f"checkpoints {ckpts}")
+        if sorted(fids) != [2, 4] or not all(map(math.isfinite,
+                                                 fids.values())):
+            problems.append(f"FIDs {fids}")
+        elif (int(best[0]) != min(fids, key=fids.get)
+              or float(best[1]) != min(fids.values())):
+            problems.append(f"best_ckpt.txt {best} for FIDs {fids}")
+        if len(finals) != 1 or finals[0]["step"] != int(best[0]) or \
+                not math.isfinite(finals[0]["final_fid"]):
+            problems.append(f"final FID records {finals}")
+        if evals != sorted(["2", "4", f"{best[0]}final"]) or len(os.listdir(
+                os.path.join(wd1, "eval", f"{best[0]}final"))) != LOOP_FID_N:
+            problems.append(f"evaluation directories {evals}")
+        if not os.path.exists(os.path.join(wd1, "vis", f"{LOOP_STEPS}.png")):
+            problems.append("no vis grid")
+        if keys != sorted(["step", "time", "loss", "grad_norm", "lr",
+                           "nonfinite_skip", "imgs_per_sec"]):
+            problems.append(f"metric keys {keys}")
+        if problems:
+            fail("loop run: " + "; ".join(problems))
+        fed1 = list(fed)
+        final1 = {n: {k: v.detach().clone() for k, v in d.items()}
+                  for n, d in (("params", state1.params),
+                               ("ema_params", state1.ema_params))}
+        eval_seconds = exp1.eval_seconds
+        del state1, exp1
+        made.clear()
+        shutil.rmtree(os.path.join(wd1, "ckpts"))
+
+        # SIGTERM at step 2, then resume
+        real_writer = loop.MetricsWriter
+
+        class Interrupting(real_writer):
+            def write(self, step, metrics):
+                super().write(step, metrics)
+                if step == 2 and "loss" in metrics:
+                    signal.raise_signal(signal.SIGTERM)
+
+        wd2 = os.path.join(root, "stopped")
+        fed.clear()
+        loop.MetricsWriter = Interrupting
+        try:
+            t0 = time.perf_counter()
+            state2 = loop.train(config(evals=False), wd2, device=dev)
+            secs2 = time.perf_counter() - t0
+        finally:
+            loop.MetricsWriter = real_writer
+        stopped_at = int(state2.step)
+        del state2
+        made.clear()
+        ckpts2 = sorted(os.listdir(os.path.join(wd2, "ckpts")))
+        preempted = [r["step"] for r in read(wd2) if r.get("preempted")]
+        t0 = time.perf_counter()
+        state3 = loop.train(config(evals=False), wd2, device=dev)
+        torch.cuda.synchronize()
+        secs3 = time.perf_counter() - t0
+        recs3 = read(wd2)
+        ips3 = [r["imgs_per_sec"] for r in recs3 if "loss" in r]
+    finally:
+        loop.Experiment, loop.device_batch = real_exp, real_batch
+    diffs = {}
+    for n, d in (("params", state3.params), ("ema_params", state3.ema_params)):
+        per = {k: float((v.detach() - final1[n][k]).abs().max())
+               for k, v in d.items()}
+        diffs[n] = dict(max_abs=max(per.values()),
+                        differing=sorted(k for k, x in per.items() if x))
+    bit_equal = not diffs["params"]["differing"] and \
+        not diffs["ema_params"]["differing"]
+    same_feed = fed == fed1
+    log(f"SIGTERM run: stopped at step {stopped_at} in {secs2:.1f} s with "
+        f"checkpoints {ckpts2}, preempted records at {preempted}; resumed to "
+        f"step {int(state3.step)} in {secs3:.1f} s, img/s by step {ips3}; "
+        f"batches and draws {'bit-equal' if same_feed else 'DIFFERENT'}; "
+        f"final params and EMA {'bit-equal' if bit_equal else 'differ'} "
+        f"({ {n: (d['max_abs'], d['differing'][:6])
+              for n, d in diffs.items()} })")
+    if stopped_at != 2 or ckpts2 != ["2.pt"] or preempted != [2] or \
+            int(state3.step) != LOOP_STEPS or not same_feed:
+        fail(f"SIGTERM and resume: stopped at {stopped_at}, checkpoints "
+             f"{ckpts2}, preempted {preempted}, resumed to "
+             f"{int(state3.step)}, feed equal {same_feed}")
+    if not bit_equal:
+        fail(f"the resumed run's weights differ from the uninterrupted "
+             f"run's: {diffs}")
+    del state3, final1
+    shutil.rmtree(root, ignore_errors=True)
+    for k, n in want.items():
+        by_key[f"{k} loop"]["launches"] = n
+    train_ips = ips[1:] + ips3[1:]
+    rep = dict(seconds=time.perf_counter() - t_start, run_seconds=secs1,
+               stop_seconds=secs2, resume_seconds=secs3, losses=losses,
+               fids=fids, best=best, final_fid=finals[0]["final_fid"],
+               launches=want, peak_gib=peak, imgs_per_sec=ips,
+               resumed_imgs_per_sec=ips3,
+               train_imgs_per_sec=sum(train_ips) / len(train_ips),
+               evaluations=eval_seconds, bit_equal=bit_equal, diffs=diffs)
+    log(f"phase 29 took {rep['seconds']:.1f} s (limit {LOOP_MAX_S:.0f} s); "
+        f"training {rep['train_imgs_per_sec']:.2f} img/s at batch {TRAIN_B}")
+    if rep["seconds"] > LOOP_MAX_S:
+        fail(f"phase 29 took {rep['seconds']:.1f} s")
+    return rep
+
 
 def main():
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
@@ -4806,6 +5055,10 @@ def main():
 
     # 28. the conditional toys: train_lfm and both harnesses
     report["toy_cond"] = toy_cond_paths(torch, attn, mlpk, dev, by_key)
+
+    # 29. the training experiment: train/loop.train with evaluation, FID,
+    # best-checkpoint selection, SIGTERM and resume
+    report["loop"] = loop_path(torch, np, attn, mlpk, dev, by_key)
 
     for k in kernels:
         if k["launches"] < 1:

@@ -142,9 +142,8 @@ def test_conditional_toy_configs_are_the_jax_configs(name):
         a, b = mine[blk], ref[blk]
         port_only = {"quant"} if (blk == "nnet" and a["name"] != "unet_t2i") \
             else set()
-        jax_only = {"train": {"profile_dir"},
-                    "dissection": {"write_path_root", "vis_path"}}.get(
-                        blk, set())
+        jax_only = {"dissection": {"write_path_root", "vis_path"}}.get(
+            blk, set())
         assert set(a) - set(b) == port_only, blk
         assert set(b) - set(a) == jax_only, blk
         for key in set(a) & set(b):

@@ -124,11 +124,10 @@ def _plain(v):
 
 
 # what one side has and the other has not: the port's U-ViT view switch;
-# JAX's profiler directory and its blocks of features the port has not
-# (prompt-to-prompt tokens, write and vis paths)
+# JAX's blocks of features the port has not (prompt-to-prompt tokens,
+# write and vis paths)
 PORT_ONLY = {"uvit": {"quant"}}
-JAX_ONLY = {"train": {"profile_dir"},
-            "dissection": {"token_kwargs", "write_path_root", "vis_path"}}
+JAX_ONLY = {"dissection": {"token_kwargs", "write_path_root", "vis_path"}}
 
 
 @pytest.mark.parametrize("name", sorted(JAX_TOYS))

@@ -1964,3 +1964,119 @@ def test_edited_uvit_t2i_at_multiplier_1_is_the_plain_forward(cuda):
     assert sum(attn.LAUNCHES.values()) == 5
     assert torch.equal(out, ref)
     _agree(kern, ref, 5e-2, 1e-2)
+
+
+def _toy_loop_config(tmp_path, cuda, steps, evals=True):
+    """``synthetic_attr_e2e`` (embed 128, 4 heads of 32, L = 17) at batch 64
+    for ``steps`` steps, logged every step; with ``evals`` a checkpoint and
+    an FID at the last step and a vis grid of 8, the FID on 16 samples of
+    the config's Euler-50, decoded by a seeded SD VAE saved in the
+    reference's key format, through the random Inception against seeded
+    2048-d statistics."""
+    import numpy as np
+
+    from uspace_tpu_torch.codecs.vae import AutoencoderKL
+    from uspace_tpu_torch.configs import get_config
+
+    cfg = get_config("synthetic_attr_e2e")
+    big = 10 * steps
+    cfg["train"].update(n_steps=steps, batch_size=64, log_interval=1,
+                        save_interval=steps if evals else big,
+                        eval_interval=steps if evals else big)
+    cfg["vis_num"] = 8
+    cfg["sample"].update(n_samples=16, mini_batch_size=16,
+                         fid_weights="random")
+    if evals:
+        vae = AutoencoderKL.from_config(cfg["autoencoder"],
+                                        device=cuda).init_weights(
+            torch.Generator(device=cuda).manual_seed(0))
+        cfg["autoencoder"]["pretrained_path"] = str(tmp_path / "vae.pth")
+        torch.save(vae.state_dict(), cfg["autoencoder"]["pretrained_path"])
+        acts = np.random.default_rng(0).standard_normal((256, 2048))
+        cfg["dataset"]["fid_stat"] = str(tmp_path / "stat.npz")
+        np.savez(cfg["dataset"]["fid_stat"], mu=acts.mean(0),
+                 sigma=np.cov(acts, rowvar=False))
+    return cfg
+
+
+def test_toy_loop_launches_rows_1_4_and_2(cuda, tmp_path):
+    """``train.loop.train`` on the U-ViT toy for 2 steps on the card: rows
+    1 and 4 once a block a step in training (no remat: 2 x 7 each), row 2
+    once a block an Euler step in the vis grid, the FID and the final FID
+    (3 x 7 x 50), no other kernel; finite losses and FIDs."""
+    import json
+    import math
+
+    from uspace_tpu_torch.ops import delta
+    from uspace_tpu_torch.train import loop
+
+    cfg = _toy_loop_config(tmp_path, cuda, 2)
+    for m in (attn, mlp, delta):
+        m.reset_launches()
+    state = loop.train(cfg, str(tmp_path / "run"), device=cuda)
+    torch.cuda.synchronize()
+    got = {**attn.LAUNCHES, **mlp.LAUNCHES, **delta.LAUNCHES}
+    want = dict.fromkeys(got, 0)
+    want.update(packed_attention=14, packed_attention_bwd=14,
+                qkvproj_attention=3 * 7 * 50)
+    assert got == want
+    assert int(state.step) == 2
+    recs = [json.loads(line) for line in open(tmp_path / "run" /
+                                              "metrics.jsonl")]
+    assert all(math.isfinite(r["loss"]) for r in recs if "loss" in r)
+    fids = [r["fid"] for r in recs if "fid" in r]
+    assert len(fids) == 1 and math.isfinite(fids[0])
+    assert [r["final_fid"] for r in recs if "final_fid" in r] == fids
+    assert (tmp_path / "run" / "vis" / "2.png").exists()
+
+
+def test_toy_loop_sigterm_and_resume(cuda, tmp_path, monkeypatch):
+    """A real SIGTERM from the step-2 metrics record of a 4-step toy run on
+    the card: one checkpoint, a clean stop at 2; the resumed run ends where
+    an uninterrupted run ends, params and EMA bit for bit (the train
+    kernels and the toy's other work are deterministic)."""
+    import signal
+
+    from uspace_tpu_torch.train import loop
+
+    def cfg():
+        return _toy_loop_config(tmp_path, cuda, 4, evals=False)
+
+    ctrl = loop.train(cfg(), str(tmp_path / "ctrl"), device=cuda)
+    real = loop.MetricsWriter
+
+    class Interrupting(real):
+        def write(self, step, metrics):
+            super().write(step, metrics)
+            if step == 2 and "loss" in metrics:
+                signal.raise_signal(signal.SIGTERM)
+
+    monkeypatch.setattr(loop, "MetricsWriter", Interrupting)
+    stopped = loop.train(cfg(), str(tmp_path / "int"), device=cuda)
+    assert int(stopped.step) == 2
+    monkeypatch.setattr(loop, "MetricsWriter", real)
+    resumed = loop.train(cfg(), str(tmp_path / "int"), device=cuda)
+    assert int(resumed.step) == 4
+    for a, b in ((ctrl.params, resumed.params),
+                 (ctrl.ema_params, resumed.ema_params),
+                 (ctrl.opt_state.mu, resumed.opt_state.mu)):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert torch.equal(ctrl.rng.get_state(), resumed.rng.get_state())
+
+
+def test_inception_featurizer_on_the_card_matches_the_cpu(cuda):
+    """The random featurizer's pool3 features of seeded images at 256 px
+    (a downscale to 299) on the card against its CPU run at the same
+    weights, both exact f32: rel-L2 1e-5."""
+    import numpy as np
+
+    from uspace_tpu_torch.evals.fid import InceptionFeaturizer
+
+    imgs = np.random.default_rng(0).random((4, 256, 256, 3)).astype(
+        np.float32)
+    gpu = InceptionFeaturizer("random", device=cuda)(imgs, batch_size=4)
+    cpu = InceptionFeaturizer("random", device="cpu")(imgs, batch_size=4)
+    assert gpu.shape == (4, 2048)
+    rel = np.linalg.norm(gpu - cpu) / np.linalg.norm(cpu)
+    assert rel < 1e-5, rel

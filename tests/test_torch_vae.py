@@ -116,8 +116,8 @@ def test_sample_lfm_decodes_uint8_pixels(tmp_path):
     pix = np.load(out / "0.pixels.npy")
     assert lat.shape == (2, 16, 16, 4) and np.isfinite(lat).all()
     assert pix.shape == (2, 128, 128, 3) and pix.dtype == np.uint8
-    loaded = load_vae_from_jax(AutoencoderKL(**cfg["autoencoder"],
-                                             device="cpu"),
+    loaded = load_vae_from_jax(AutoencoderKL.from_config(cfg["autoencoder"],
+                                                         device="cpu"),
                                unflatten(dict(np.load(files["v"]))))
     with torch.no_grad():
         want = sample_lfm.to_uint8(loaded.decode(torch.from_numpy(lat)))

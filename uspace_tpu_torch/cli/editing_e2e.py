@@ -35,7 +35,8 @@ phase's wall ``seconds``) and ``editing_e2e.md``. Runs on the card unless
     python -m uspace_tpu_torch.cli.train_lfm --config synthetic_attr_e2e \\
         --workdir toy
     python -m uspace_tpu_torch.cli.editing_e2e --config synthetic_attr_e2e \\
-        --workdir toy/e2e --ckpt_path_to_dissect toy/ckpts
+        --workdir toy/e2e \\
+        --ckpt_path_to_dissect toy/synthetic_attr_e2e/default/ckpts
 """
 
 from __future__ import annotations

@@ -19,7 +19,8 @@ Writes ``cond_grid.png`` and ``editing_e2e_cond.{json,md}`` into
     python -m uspace_tpu_torch.cli.train_lfm --config synthetic_cond_e2e \\
         --workdir cond_toy
     python -m uspace_tpu_torch.cli.editing_e2e_cond \\
-        --config synthetic_cond_e2e --ckpt_path_to_dissect cond_toy/ckpts \\
+        --config synthetic_cond_e2e \\
+        --ckpt_path_to_dissect cond_toy/synthetic_cond_e2e/default/ckpts \\
         --workdir cond_toy/e2e
 """
 

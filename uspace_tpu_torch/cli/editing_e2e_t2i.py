@@ -28,7 +28,8 @@ Writes ``t2i_sweeps.png`` and ``editing_e2e_t2i.{json,md}`` into
     python -m uspace_tpu_torch.cli.train_lfm --config synthetic_t2i_e2e \\
         --workdir t2i_toy
     python -m uspace_tpu_torch.cli.editing_e2e_t2i \\
-        --config synthetic_t2i_e2e --ckpt_path_to_dissect t2i_toy/ckpts \\
+        --config synthetic_t2i_e2e \\
+        --ckpt_path_to_dissect t2i_toy/synthetic_t2i_e2e/default/ckpts \\
         --workdir t2i_toy/e2e
 """
 

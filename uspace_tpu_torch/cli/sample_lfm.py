@@ -137,7 +137,8 @@ def build_vae(config: dict, device=None, seed: int = 0,
     convolutions run in exact f32 on the card, not TF32, as JAX computes on
     the CPU."""
     device = resolve_device(device)
-    vae = AutoencoderKL(**config["autoencoder"], quant=quant, device=device)
+    vae = AutoencoderKL.from_config(config["autoencoder"], quant=quant,
+                                    device=device)
     if weights:
         with np.load(weights) as npz:
             load_vae_from_jax(vae, unflatten(dict(npz)))

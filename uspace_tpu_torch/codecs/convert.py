@@ -8,6 +8,12 @@ names to the reference's torch state-dict keys and maps HWIO conv kernels
 to OIHW, Conv1d kernels [k, I, O] to [O, I, k] and dense kernels [in, out]
 to weights [out, in]. The ``load_*_from_jax`` functions load the result
 with ``strict=True``. Only numpy is needed on the JAX side.
+
+Reference torch checkpoints (``nnet.pth``, ``autoencoder_kl.pth``, the
+pytorch-fid Inception) need no renaming, since the port's modules carry the
+reference's names: :func:`load_torch_checkpoint` unwraps a ``state_dict``
+key and strips the ``module.`` (DDP) and ``model.diffusion_model.`` (SD
+LDM UNet) prefixes, as the JAX package's loader of the same name does.
 """
 
 from __future__ import annotations
@@ -200,11 +206,51 @@ def load_vae_from_jax(model: nn.Module, params: Mapping[str, Any]
     return _load(model, vae_flax_to_torch(params))
 
 
+def inception_flax_to_torch(params: Mapping[str, Any]
+                            ) -> Dict[str, np.ndarray]:
+    """JAX InceptionV3 params (``uspace_tpu/evals/inception.py``) ->
+    pytorch-fid's state-dict keys: ``X/conv/kernel`` -> ``X.conv.weight``
+    (HWIO -> OIHW), ``X/bn_scale|bn_bias|bn_mean|bn_var`` ->
+    ``X.bn.weight|bias|running_mean|running_var``."""
+    bn = {"bn_scale": "weight", "bn_bias": "bias", "bn_mean": "running_mean",
+          "bn_var": "running_var"}
+    out = {}
+    for path, arr in _flatten(params.get("params", params)).items():
+        *mods, leaf = path
+        if leaf == "kernel":
+            out[".".join(mods) + ".weight"] = arr.transpose(3, 2, 0, 1)
+        else:
+            out[".".join(mods) + ".bn." + bn[leaf]] = arr
+    return out
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``.pth`` state dict on the CPU: a ``state_dict`` key
+    unwrapped, then the ``module.`` (DDP) and ``model.diffusion_model.``
+    (SD LDM UNet) prefixes stripped from every key, repeatedly, so that a
+    DDP-saved LDM key ``module.model.diffusion_model.*`` loses both (the
+    JAX package's ``load_torch_checkpoint``)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    out = {}
+    for k, v in sd.items():
+        stripped = True
+        while stripped:
+            stripped = False
+            for pref in ("model.diffusion_model.", "module."):
+                if k.startswith(pref):
+                    k = k[len(pref):]
+                    stripped = True
+        out[k] = v
+    return out
+
+
 def load_reference_nnet(model: nn.Module, path: str) -> nn.Module:
     """Load a reference torch checkpoint (``nnet.pth`` / ``nnet_ema.pth``,
-    a plain state dict) into ``model`` in place (``strict=True``): the
-    port's modules carry the reference's torch names, so its keys need no
-    renaming, where the JAX package converts them to Flax."""
-    model.load_state_dict(torch.load(path, map_location="cpu",
-                                     weights_only=True), strict=True)
+    or the SD VAE's ``autoencoder_kl.pth`` into ``codecs.vae.AutoencoderKL``;
+    a plain or ``{"state_dict": ...}`` state dict, DDP- or LDM-prefixed keys
+    stripped by :func:`load_torch_checkpoint`) into ``model`` in place
+    (``strict=True``)."""
+    model.load_state_dict(load_torch_checkpoint(path), strict=True)
     return model

@@ -266,6 +266,15 @@ class AutoencoderKL(nn.Module):
         self.quant_conv = Conv2d(2 * zc, 2 * embed_dim, 1, device=device)
         self.post_quant_conv = Conv2d(embed_dim, zc, 1, device=device)
 
+    @classmethod
+    def from_config(cls, block: dict, **kw) -> "AutoencoderKL":
+        """The VAE of a config's ``autoencoder`` block. Its
+        ``pretrained_path`` names the reference ``autoencoder_kl.pth`` that
+        the training loop loads (``train/loop.Experiment.vae``), not an
+        argument of the module."""
+        return cls(**{k: v for k, v in block.items()
+                      if k != "pretrained_path"}, **kw)
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "AutoencoderKL":
         """Seeded random init: Flax's LeCun normal (``lecun_normal_``) for

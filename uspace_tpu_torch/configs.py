@@ -189,9 +189,10 @@ CONFIGS: Dict[str, Dict[str, Any]] = {
                                            solver_fix_step=0.25)),
     ),
     # tiny CPU smoke config (configs/synthetic_smoke.py): 4x8x8 latents,
-    # embed 32, depth 2, f32
+    # embed 32, depth 2, f32, a vis grid of 4
     "synthetic_smoke": dict(
         z_shape=(4, 8, 8),
+        vis_num=4,
         compute_dtype="float32",
         nnet=uvit_nnet(embed_dim=32, depth=2, num_heads=4, img_size=8,
                        use_checkpoint=False),
@@ -375,14 +376,44 @@ CONFIGS["uvit_t2i_small_deep16"] = _t2i_large(
     uvit_t2i_nnet(embed_dim=512, depth=16, num_heads=8), 1024)
 
 
+# configs/common.py:20-77 (base_config), the keys the training loop reads
+# beside the blocks above, with the JAX package's defaults: the vis grid's
+# size, a reference checkpoint to start from and its surgery
+# (train/checkpoint.load_pretrained_nnet), the reference VAE's file (the
+# loop decodes through it where it exists), the loader's threads and the
+# data-parallel layout (dp -1: every process; fsdp and tp are not ported
+# and must stay 1). Keys the JAX loop reads with .get stay optional here
+# too: train.skip_nonfinite (True), tracker (none), sample.fid_decode
+# ("vae"), sample.fid_weights (pytorch-fid's file) and dataset.fid_stat
+# (none: no FID).
+_COMMON = dict(vis_num=16, pretrained_path=None, pretrained_surgery=None,
+               dl=dict(num_workers=8), parallel=dict(dp=-1, fsdp=1, tp=1))
+_COMMON_BLOCKS = dict(
+    autoencoder=dict(
+        pretrained_path="assets/stable-diffusion/autoencoder_kl.pth"),
+    train=dict(profile_dir=None))
+
+
+def with_defaults(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """``cfg`` with the base config's keys it does not set."""
+    for k, v in _COMMON.items():
+        cfg.setdefault(k, copy.deepcopy(v))
+    for blk, keys in _COMMON_BLOCKS.items():
+        if blk in cfg:
+            for k, v in keys.items():
+                cfg[blk].setdefault(k, v)
+    return cfg
+
+
 def get_config(name) -> Dict[str, Any]:
     """A copy of the config registered as ``name``, or of ``name`` itself
-    when it is a config (a dict)."""
+    when it is a config (a dict), with the base config's defaults
+    (:func:`with_defaults`)."""
     if isinstance(name, dict):
-        return copy.deepcopy(name)
+        return with_defaults(copy.deepcopy(name))
     if name not in CONFIGS:
         raise KeyError(f"unknown config {name!r}; have {sorted(CONFIGS)}")
-    return copy.deepcopy(CONFIGS[name])
+    return with_defaults(copy.deepcopy(CONFIGS[name]))
 
 
 def solver_kwargs(config: Dict[str, Any], sample_steps: int = 0,

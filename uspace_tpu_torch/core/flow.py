@@ -16,9 +16,11 @@ from . import interpolant, solvers
 
 
 def training_loss(velocity_fn: Callable, x1: torch.Tensor, sigma_min: float,
-                  generator: torch.Generator) -> torch.Tensor:
-    """Per-sample OT-CFM loss [B] (f32); t and eps from ``generator``."""
-    t, x_t, u_t = interpolant.sample_path(x1, sigma_min, generator)
+                  generator: torch.Generator,
+                  shard: interpolant.Shard = (0, 1)) -> torch.Tensor:
+    """Per-sample OT-CFM loss [B] (f32); t and eps from ``generator`` (a
+    shard's rows of the global batch's draws)."""
+    t, x_t, u_t = interpolant.sample_path(x1, sigma_min, generator, shard)
     return interpolant.cfm_loss(velocity_fn(t, x_t), u_t)
 
 

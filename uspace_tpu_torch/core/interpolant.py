@@ -18,6 +18,25 @@ from typing import Tuple
 
 import torch
 
+# (rank, world size): a data-parallel process draws the noise of the
+# global batch and keeps the rows of its shard (every world-th from rank)
+Shard = Tuple[int, int]
+
+
+def draw(fn, shape, generator: torch.Generator, dtype, device,
+         shard: Shard = (0, 1)) -> torch.Tensor:
+    """``fn`` (``torch.rand`` or ``torch.randn``) of ``shape`` from
+    ``generator``; with ``shard = (rank, world)``, ``world > 1``, drawn at
+    ``world`` times the leading size and cut to rows rank, rank + world,
+    ... (the rows the loader's shard holds), so every process consumes the
+    global batch's draws."""
+    rank, world = shard
+    if world == 1:
+        return fn(shape, generator=generator, dtype=dtype, device=device)
+    full = fn((shape[0] * world, *shape[1:]), generator=generator,
+              dtype=dtype, device=device)
+    return full[rank::world]
+
 
 def _expand_t(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Broadcast per-sample t [B] against x [B, ...]."""
@@ -39,14 +58,14 @@ def target_velocity(x1: torch.Tensor, eps: torch.Tensor,
 
 
 def sample_path(x1: torch.Tensor, sigma_min: float,
-                generator: torch.Generator
+                generator: torch.Generator, shard: Shard = (0, 1)
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Draw t [B] (first) and eps (second) from ``generator``; returns
-    ``(t, x_t, u_t)``."""
-    t = torch.rand((x1.shape[0],), generator=generator, dtype=x1.dtype,
-                   device=x1.device)
-    eps = torch.randn(x1.shape, generator=generator, dtype=x1.dtype,
-                      device=x1.device)
+    """Draw t [B] (first) and eps (second) from ``generator`` (a shard's
+    rows of the global batch's draws, :func:`draw`); returns ``(t, x_t,
+    u_t)``."""
+    t = draw(torch.rand, (x1.shape[0],), generator, x1.dtype, x1.device,
+             shard)
+    eps = draw(torch.randn, x1.shape, generator, x1.dtype, x1.device, shard)
     return t, interpolate(x1, eps, t, sigma_min), target_velocity(
         x1, eps, sigma_min)
 

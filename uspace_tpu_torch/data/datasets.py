@@ -285,6 +285,7 @@ class SyntheticClassFeatures:
 class _Factory:
     K: Optional[int] = None  # number of classes
     has_label = False
+    fid_stat: Optional[str] = None  # FID reference statistics (.npz)
 
     def get_split(self, split: str = "train"):
         return getattr(self, split)
@@ -379,10 +380,16 @@ def get_dataset(name: str, **kwargs):
     config trains on where its own features are not in the repository),
     ``synthetic_attr`` (attribute-structured moments), ``synthetic_t2i``
     (caption-structured moments and contexts) or ``synthetic_class``
-    (class-structured moments and labels)."""
+    (class-structured moments and labels). ``fid_stat`` names the FID
+    reference statistics of any of them (the training loop's in-loop FID).
+    """
     if name not in _REGISTRY:
         raise NotImplementedError(f"dataset {name!r} is not ported")
-    return _REGISTRY[name](**kwargs)
+    fid_stat = kwargs.pop("fid_stat", None)
+    dataset = _REGISTRY[name](**kwargs)
+    if fid_stat:
+        dataset.fid_stat = fid_stat
+    return dataset
 
 
 def unpreprocess(images: np.ndarray) -> np.ndarray:

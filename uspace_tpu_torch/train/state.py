@@ -95,33 +95,43 @@ def get_optimizer(name: str = "adam", lr_schedule: Optional[Schedule] = None,
 @dataclasses.dataclass
 class TrainState:
     """All mutable training state; :meth:`state_dict` is what a checkpoint
-    holds."""
+    holds. ``rng``, where set, is the generator the train step draws its
+    noise from: its state is saved and restored with the rest, which is
+    what makes a resumed run draw what an uninterrupted one draws (the JAX
+    package keys its draws on ``state.step`` instead)."""
 
     step: torch.Tensor  # train steps taken, skipped ones included (int32)
     params: Params
     ema_params: Params
     opt_state: AdamState
+    rng: Optional[torch.Generator] = None
 
     @classmethod
-    def create(cls, params: Params, tx: FusedAdam) -> "TrainState":
+    def create(cls, params: Params, tx: FusedAdam,
+               rng: Optional[torch.Generator] = None) -> "TrainState":
         """``params``: the model's parameters by name, e.g.
         ``dict(model.named_parameters())``; they are updated in place."""
         dev = next(iter(params.values())).device
         with torch.no_grad():
             ema = {k: p.detach().clone() for k, p in params.items()}
         return cls(step=torch.zeros((), dtype=torch.int32, device=dev),
-                   params=params, ema_params=ema, opt_state=tx.init(params))
+                   params=params, ema_params=ema, opt_state=tx.init(params),
+                   rng=rng)
 
     def state_dict(self) -> dict:
         detach = lambda d: {k: v.detach() for k, v in d.items()}
-        return dict(step=self.step, params=detach(self.params),
-                    ema_params=detach(self.ema_params),
-                    opt_state=dict(count=self.opt_state.count,
-                                   mu=self.opt_state.mu, nu=self.opt_state.nu))
+        sd = dict(step=self.step, params=detach(self.params),
+                  ema_params=detach(self.ema_params),
+                  opt_state=dict(count=self.opt_state.count,
+                                 mu=self.opt_state.mu, nu=self.opt_state.nu))
+        if self.rng is not None:
+            sd["rng"] = self.rng.get_state()
+        return sd
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
-        """Copy ``sd`` into this state's tensors; every key must match."""
+        """Copy ``sd`` into this state's tensors; every key must match. The
+        generator's state is restored where both have one."""
         opt = sd["opt_state"]
         pairs = [(self.params, sd["params"]),
                  (self.ema_params, sd["ema_params"]),
@@ -137,6 +147,8 @@ class TrainState:
                 mine[k].copy_(v)
         self.step.copy_(sd["step"])
         self.opt_state.count.copy_(opt["count"])
+        if self.rng is not None and sd.get("rng") is not None:
+            self.rng.set_state(sd["rng"].cpu())
 
 
 @torch.no_grad()

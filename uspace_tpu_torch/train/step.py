@@ -10,6 +10,16 @@ caller reads when it logs.
 Random draws come from the ``torch.Generator`` the caller passes, in this
 order: the moments noise, then t, then the path noise (jax.random streams
 cannot be reproduced in torch).
+
+Data parallelism (``torch.distributed`` with more than one process, the
+semantics of the JAX package's ``shard_batch_call``: the batch split, the
+weights replicated): each process draws the noise of the global batch from
+the step's generator and keeps its shard's rows, the gradients and the loss
+are averaged over the processes in one all-reduce before the global norm,
+the clip and the Adam step, so the non-finite skip is decided on the global
+values and every process applies the same update. A 2-process run
+reproduces a 1-process run at the same global batch up to the order of the
+f32 sums. On one process no collective is launched.
 """
 
 from __future__ import annotations
@@ -19,18 +29,37 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..core import flow
+from ..core.interpolant import Shard, draw
+from ..parallel import distributed
 from .state import FusedAdam, Params, TrainState
 
 
 def sample_from_moments(moments: torch.Tensor, generator: torch.Generator,
-                        scale_factor: float = 0.18215) -> torch.Tensor:
+                        scale_factor: float = 0.18215,
+                        shard: Shard = (0, 1)) -> torch.Tensor:
     """A latent from SD-VAE posterior moments [B, H, W, 2C] (mean ‖
-    logvar, logvar clipped to [-30, 20]), times the SD scale factor."""
+    logvar, logvar clipped to [-30, 20]), times the SD scale factor; the
+    noise is a shard's rows of the global batch's draw."""
     mean, logvar = moments.chunk(2, dim=-1)
     std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
-    eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                      device=mean.device)
+    eps = draw(torch.randn, mean.shape, generator, mean.dtype, mean.device,
+               shard)
     return (mean + std * eps) * scale_factor
+
+
+def all_reduce_mean(tensors) -> list:
+    """The mean over the processes of each tensor, in one all-reduce of
+    their concatenation (every process gets the same bits)."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat)
+    flat /= dist.get_world_size()
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i:i + t.numel()].view_as(t).to(t.dtype))
+        i += t.numel()
+    return out
 
 
 @torch.no_grad()
@@ -91,19 +120,26 @@ def make_train_step(
     ``skip_nonfinite``: when the loss or any gradient is NaN/Inf, params,
     EMA and Adam moments keep their values, ``step`` still advances and
     ``metrics["nonfinite_skip"]`` is 1. ``metrics["lr"]`` is the rate the
-    update used, keyed on the applied-update count."""
+    update used, keyed on the applied-update count.
+
+    Under ``torch.distributed`` (more than one process when the step is
+    made) the batch is this process's shard of the global batch: see the
+    module's docstring."""
+    shard = (distributed.process_index(), distributed.process_count())
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
         x1 = batch["x"]
         if latents_from_moments:
-            x1 = sample_from_moments(x1, generator, vae_scale)
+            x1 = sample_from_moments(x1, generator, vae_scale, shard)
         vf = make_velocity_fn(model, {k: batch.get(k)
                                       for k in ("y", "context")})
         names = list(state.params)
-        per_sample = flow.training_loss(vf, x1, sigma_min, generator)
+        per_sample = flow.training_loss(vf, x1, sigma_min, generator, shard)
         loss = per_sample.mean()
         grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        if shard[1] > 1:
+            *grads, loss = all_reduce_mean([*grads, loss.detach()])
         grad_norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
