@@ -225,7 +225,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel; then a second run stopped by a real SIGTERM at step 2 (one
    checkpoint, a `preempted` record) and resumed to step 4: its batches
    and draws bit-equal to the first run's, its params and EMA compared;
-   training img/s, each evaluation's seconds, peak memory.
+   training img/s, each evaluation's seconds, peak memory;
+30. the data layer that feeds the trainer: the SD-layout VAE on seeded
+   weights saved in the reference's keys and loaded as
+   `cli/extract_features` loads it, `data/extraction.extract_features_npy`
+   over DATA_N seeded 256 x 256 images with 40 attributes at DATA_BATCH
+   into the `cond` layout (the encoder's img/s and peak memory), 2 of the
+   moments against the CPU within phase 11's VAE limits and TF32 on as a
+   control, the directory read back through `get_dataset(
+   "celebamask256_features_cond")` bit-equal, `train.loop.fit` on
+   `lfm_cm256_uvit_large` with only the dataset's path and size and the
+   work directory overridden (2 steps at its per-card batch of 128: finite
+   losses, the first batch bit-equal to the files of its indices, exactly
+   84 launches of row 1 and 42 of row 4 and no other kernel), and the T2I
+   writers (moments, CLIP contexts on the seeded text tower, the empty
+   context, the prompts) read back by `MMCelebAHQ256Features` bit-equal.
 
 Prints the `kernels` JSON line and then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -466,7 +480,7 @@ TOY_E2E_N, TOY_E2E_STEPS = 16, 10
 TOY_Q_EMBED = 256
 # phase 27, U-ViT-T2I-large (uvit_t2i_large): the prompts of one Euler-50
 # batch under CFG at T2I_CFG, so T2I_FIELD_B rows in the field; L = 1 + 77
-# + 256; the training batch, a quarter of the config's 256; the context
+# + 256; the training batch, the config's per-card batch; the context
 # token the p2p edit targets (the first word after the start token) and the
 # prompts of its multiplier sweep; CLIP's start and end tokens. A multiplier
 # of 0 or 2 on one token must move the latents by T2I_EDIT_MIN_NOISE times
@@ -497,6 +511,14 @@ CLIP_SOT, CLIP_EOT = 49406, 49407
 # the seeded 2048-d reference statistics; the phase's time limit
 LOOP_STEPS, LOOP_VIS, LOOP_FID_N, LOOP_STAT_N = 4, 16, 50, 4096
 LOOP_MAX_S = 150.0
+# phase 30, the data layer: seeded 256 x 256 images with 40 attributes
+# extracted at the CLI's batch into the cond layout, 2 of them encoded on
+# the CPU too (held to the VAE limits above); training steps on the
+# features at lfm_cm256_uvit_large's per-card batch; the T2I extraction's
+# images (train and val) and captions an image; the phase's time limit
+DATA_N, DATA_BATCH, DATA_CPU_N, DATA_STEPS = 256, 64, 2, 2
+DATA_T2I_TRAIN, DATA_T2I_VAL, DATA_T2I_CAPS = 6, 2, 2
+DATA_MAX_S = 150.0
 # phase 28, the conditional toys' harnesses: samples a setting (CFG doubles
 # them in the field) and Euler steps
 TOY_HARNESS_N = 8
@@ -4756,6 +4778,302 @@ def loop_path(torch, np, attn, mlpk, dev, by_key):
     return rep
 
 
+class _Images:
+    """Phase 30's raw dataset from memory: seeded images with the keys a
+    sample of `data/raw.py` carries (`attr`, or `captions`)."""
+
+    def __init__(self, images, **per_index):
+        self.images = images
+        self.per_index = per_index
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        s = {"image": self.images[i]}
+        s.update({k: v[i] for k, v in self.per_index.items()})
+        return s
+
+
+class _SeededTokenizer:
+    """CLIP's tokenizer interface on seeded ids (its vocabulary is not in
+    the repository): the start token, ids drawn from the text's CRC32, the
+    end token as padding; the empty prompt is the start token alone."""
+
+    def __init__(self, vocab):
+        self.vocab = vocab
+
+    def __call__(self, texts, truncation=True, max_length=77,
+                 padding="max_length", return_tensors="np"):
+        import zlib
+
+        import numpy as np
+        ids = np.full((len(texts), max_length), CLIP_EOT, np.int64)
+        ids[:, 0] = CLIP_SOT
+        for i, t in enumerate(texts):
+            n = min(len(t.split()), max_length - 2)
+            ids[i, 1:1 + n] = np.random.default_rng(
+                zlib.crc32(t.encode())).integers(0, self.vocab - 2, n)
+        return {"input_ids": ids}
+
+
+def data_path(torch, np, attn, mlpk, dev):
+    """Phase 30: the data layer that feeds the trainer, at full width.
+
+    - The SD-layout VAE (ch 128, mult 1, 2, 4, 4, 8 moment channels) on
+      seeded weights, saved in the reference's keys and loaded as
+      `cli/extract_features` loads it (`AutoencoderKL.from_reference`:
+      `from_config` + `load_reference_nnet`, strict).
+    - `extract_features_npy` over DATA_N seeded 256 x 256 x 3 images with
+      40 attributes, from memory (PNG decoding is the host's PIL, held on
+      the CPU), at DATA_BATCH into the `cond` layout: the encoder's img/s
+      (device time of its calls, host copies included) and peak memory;
+      no kernel of this port runs (cuDNN convolutions).
+    - DATA_CPU_N of those moments against the same encoder on the CPU,
+      both exact f32, within VAE_MIN_COS / VAE_MAX_REL_L2 (phase 11's
+      limits), and with TF32 on as a control the limits must refuse.
+    - The directory read back through `get_dataset(
+      "celebamask256_features_cond", path, num=DATA_N)`: every moment and
+      attribute bit-equal to what the encoder gave.
+    - `train.loop.fit` on `lfm_cm256_uvit_large` with only `dataset.path`,
+      `dataset.num` and the work directory overridden, DATA_STEPS steps at
+      its per-card batch of 128 (no FID: the dataset's `fid_stat` is not in
+      the checkout): finite losses, the first batch's moments bit-equal to
+      the files of its indices (the loader's epoch-0 permutation of seed
+      1234), and exactly DATA_STEPS x (21 + 21) launches of row 1 and
+      DATA_STEPS x 21 of row 4 (`pallas_packed` under the config's full
+      remat) and no other kernel.
+    - `extract_t2i_features` (train and val), `extract_empty_context` and
+      `extract_test_prompts` with the CLIP text tower on seeded weights and
+      seeded token ids (phase 27's way), read back by
+      `MMCelebAHQ256Features`: moments, each sample's drawn context, the
+      empty context and the prompts bit-equal."""
+    import shutil
+
+    from uspace_tpu_torch.codecs import vae as vae_mod
+    from uspace_tpu_torch.codecs.clip_text import (CLIP_L14,
+                                                   FrozenCLIPEmbedder,
+                                                   build_clip)
+    from uspace_tpu_torch.configs import get_config
+    from uspace_tpu_torch.data import extraction
+    from uspace_tpu_torch.data.datasets import (MMCelebAHQ256Features,
+                                                get_dataset)
+    from uspace_tpu_torch.train import loop
+
+    t_start = time.perf_counter()
+    root = os.path.join(HERE, "build", "phase30")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    vae_path = os.path.join(root, "autoencoder_kl.pth")
+    src = vae_mod.AutoencoderKL(device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(30))
+    torch.save({k: v.cpu() for k, v in src.state_dict().items()}, vae_path)
+    del src
+    vae = vae_mod.AutoencoderKL.from_reference(vae_path, device=dev)
+    encode = extraction.make_vae_encoder(vae)
+    r = np.random.default_rng(30)
+    images = r.uniform(-1, 1, (DATA_N, 256, 256, 3)).astype(np.float32)
+    attrs = r.integers(0, 2, (DATA_N, 40))
+    encode(images[:DATA_BATCH])  # cuDNN's handles and algorithms
+    written, enc_s = [], []
+
+    def timed(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode(batch)  # on the host: the copy waits for the card
+        enc_s.append(time.perf_counter() - t0)
+        written.append(out)
+        return out
+
+    feat = os.path.join(root, "features")
+    reset_launches(attn, mlpk)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n = extraction.extract_features_npy(_Images(images, attr=attrs), timed,
+                                        feat, DATA_BATCH)
+    extract_s = time.perf_counter() - t0
+    enc_peak = torch.cuda.max_memory_allocated() / 2**30
+    enc_launches = all_launches(attn, mlpk)
+    moments = np.concatenate(written)
+    enc_ips = DATA_N / sum(enc_s)
+    log(f"extraction: {n} files of {tuple(moments.shape[1:])} moments in "
+        f"{extract_s:.2f} s; encoder {enc_ips:.2f} img/s at batch "
+        f"{DATA_BATCH} (f32, TF32 off, {sum(enc_s):.2f} s in its calls), "
+        f"peak {enc_peak:.2f} GiB, launches {enc_launches}")
+    if n != DATA_N or moments.shape != (DATA_N, 32, 32, 8) or not \
+            np.isfinite(moments).all():
+        fail(f"extraction wrote {n} files, moments {moments.shape}")
+    if enc_launches != expected(attn, mlpk):
+        fail(f"the encoder launched {enc_launches}")
+
+    # the card against the CPU, and TF32 on as the control
+    cpu = extraction.make_vae_encoder(
+        vae_mod.AutoencoderKL.from_reference(vae_path, device="cpu"))
+    t0 = time.perf_counter()
+    ref = torch.from_numpy(cpu(images[:DATA_CPU_N]))
+    cpu_s = time.perf_counter() - t0
+    real = vae_mod.f32_precision
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    vae_mod.f32_precision = contextlib.nullcontext
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = torch.from_numpy(encode(images[:DATA_CPU_N]))
+    finally:
+        vae_mod.f32_precision = real
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    _, rel, cos = compare(torch, torch.from_numpy(moments[:DATA_CPU_N]), ref)
+    _, t_rel, t_cos = compare(torch, tf32, ref)
+    log(f"encoder, card vs CPU on {DATA_CPU_N} images ({cpu_s:.1f} s on the "
+        f"CPU): cos {cos:.8f} (min {VAE_MIN_COS}) rel_l2 {rel:.3e} (max "
+        f"{VAE_MAX_REL_L2}); control, TF32 on: cos {t_cos:.8f} rel_l2 "
+        f"{t_rel:.3e}")
+    if not (cos >= VAE_MIN_COS and rel <= VAE_MAX_REL_L2):
+        fail("the encoder on the card disagrees with the CPU")
+    if t_cos >= VAE_MIN_COS and t_rel <= VAE_MAX_REL_L2:
+        fail("the encoder limits let a TF32 encode pass")
+    del vae, encode, cpu
+
+    # read back through the registry
+    data = get_dataset("celebamask256_features_cond", path=feat, num=DATA_N)
+    read = data.get_split("train")
+    same = len(read) == DATA_N and all(
+        np.array_equal(read[i]["x"], moments[i])
+        and np.array_equal(read[i]["attr"], attrs[i]) for i in range(DATA_N))
+    if not same:
+        fail("the features read back differ from what was written")
+
+    # two training steps on the features
+    cfg = get_config("lfm_cm256_uvit_large")
+    cfg["dataset"].update(path=feat, num=DATA_N)
+    fed = []
+    real_batch = loop.device_batch
+
+    def recorded(batch, device):
+        fed.append(np.array(batch["x"]))
+        return real_batch(batch, device)
+
+    loop.device_batch = recorded
+    history = []
+    try:
+        exp = loop.Experiment(cfg, os.path.join(root, "run"), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(attn, mlpk)
+        t0 = time.perf_counter()
+        out = loop.fit(exp, n_steps=DATA_STEPS, log=log, history=history)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        loop.device_batch = real_batch
+    got = all_launches(attn, mlpk)
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    blocks = cfg["nnet"]["depth"] + 1
+    rematted = sum(exp.train_model.remat)
+    want = dict(packed_attention=DATA_STEPS * (blocks + rematted),
+                packed_attention_bwd=DATA_STEPS * blocks)
+    losses = [h["loss"] for h in history]
+    batch = exp.local_batch
+    first = np.random.default_rng(cfg["seed"]).permutation(DATA_N)[:batch]
+    files = np.stack([np.transpose(np.load(os.path.join(
+        feat, f"{i}.npy"), allow_pickle=True)[0], (1, 2, 0)) for i in first])
+    feed_ok = bool(fed) and fed[0].shape == files.shape and \
+        np.array_equal(fed[0], files)
+    log(f"lfm_cm256_uvit_large on the features: {DATA_STEPS} steps at batch "
+        f"{batch} in {train_s:.1f} s ({rematted} of {blocks} blocks "
+        f"rematted), losses {losses}, first batch = the files of its "
+        f"indices: {feed_ok}, peak {train_peak:.2f} GiB, launches {got} "
+        f"(expected {want})")
+    if got != expected(attn, mlpk, **want):
+        fail(f"phase 30 training launches {got}, expected {want}")
+    if len(losses) != DATA_STEPS or not all(map(math.isfinite, losses)) or \
+            int(out["step"]) != DATA_STEPS:
+        fail(f"phase 30 training: losses {losses}, step {out['step']}")
+    if batch != TRAIN_B or not feed_ok:
+        fail(f"phase 30 training fed batch {batch}, files equal {feed_ok}")
+    del exp, out
+
+    # T2I: captions and contexts through the seeded CLIP text tower
+    clip = build_clip(CLIP_L14, dev, seed=0)
+    emb = FrozenCLIPEmbedder(clip, _SeededTokenizer(CLIP_L14["vocab_size"]))
+    contexts = []
+
+    def encode_text(caps):
+        ctx = emb.encode(caps)
+        contexts.append(ctx.cpu().numpy())
+        return ctx
+
+    t2i = os.path.join(root, "t2i")
+    encode = extraction.make_vae_encoder(
+        vae_mod.AutoencoderKL.from_reference(vae_path, device=dev))
+    n_img = DATA_T2I_TRAIN + DATA_T2I_VAL
+    caps = [[f"a face {i} number {k} with {'long ' * k}hair"
+             for k in range(DATA_T2I_CAPS)] for i in range(n_img)]
+    kept = []
+
+    def encode_kept(batch):
+        kept.append(encode(batch))
+        return kept[-1]
+
+    t0 = time.perf_counter()
+    splits = {}
+    for split, idx in (("train", range(DATA_T2I_TRAIN)),
+                       ("val", range(DATA_T2I_TRAIN, n_img))):
+        contexts.clear()
+        kept.clear()
+        ds = _Images(images[list(idx)], captions=[caps[i] for i in idx])
+        extraction.extract_t2i_features(ds, encode_kept, encode_text,
+                                        os.path.join(t2i, split), DATA_BATCH)
+        splits[split] = (np.concatenate(kept), list(contexts),
+                         [caps[i] for i in idx])
+    contexts.clear()
+    extraction.extract_empty_context(encode_text, t2i)
+    empty = contexts.pop()[0]
+    prompts = ["a smiling face", "a face with glasses", ""]
+    extraction.extract_test_prompts(prompts, encode_text, t2i)
+    prompt_ctx = contexts.pop()
+    t2i_s = time.perf_counter() - t0
+    back = MMCelebAHQ256Features(t2i, output_caption=True)
+    problems = []
+    for split, ds in (("train", back.train), ("val", back.test)):
+        mom, ctxs, split_caps = splits[split]
+        if len(ds) != len(mom):
+            problems.append(f"{split}: {len(ds)} images")
+            continue
+        for i in range(len(ds)):
+            item = ds[i]  # caption k drawn for this index and epoch
+            k = split_caps[i].index(item["caption"])
+            if not (np.array_equal(item["x"], mom[i])
+                    and np.array_equal(item["context"], ctxs[i][k])):
+                problems.append(f"{split} {i}")
+    if not (np.array_equal(back.empty_context, empty)
+            and back.prompts == prompts
+            and np.array_equal(back.contexts, prompt_ctx)):
+        problems.append("empty context or prompts")
+    log(f"T2I extraction: {n_img} images x {DATA_T2I_CAPS} captions, the "
+        f"empty context and {len(prompts)} prompts in {t2i_s:.2f} s; read "
+        f"back by MMCelebAHQ256Features: "
+        f"{'bit-equal' if not problems else problems}")
+    if problems:
+        fail(f"T2I features read back: {problems}")
+    del clip, emb, encode
+    shutil.rmtree(root, ignore_errors=True)
+    rep = dict(seconds=time.perf_counter() - t_start, n=DATA_N,
+               batch=DATA_BATCH, extract_seconds=extract_s,
+               encoder_seconds=sum(enc_s), encoder_imgs_per_s=enc_ips,
+               encoder_peak_gib=enc_peak, cpu_seconds=cpu_s,
+               card_vs_cpu=dict(cos=cos, rel_l2=rel),
+               tf32_vs_cpu=dict(cos=t_cos, rel_l2=t_rel),
+               train_seconds=train_s, losses=losses, launches=want,
+               train_peak_gib=train_peak, t2i_seconds=t2i_s)
+    log(f"phase 30 took {rep['seconds']:.1f} s (limit {DATA_MAX_S:.0f} s)")
+    if rep["seconds"] > DATA_MAX_S:
+        fail(f"phase 30 took {rep['seconds']:.1f} s")
+    return rep
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA card")
@@ -5059,6 +5377,10 @@ def main():
     # 29. the training experiment: train/loop.train with evaluation, FID,
     # best-checkpoint selection, SIGTERM and resume
     report["loop"] = loop_path(torch, np, attn, mlpk, dev, by_key)
+
+    # 30. the data layer: VAE extraction on the card, the feature datasets,
+    # training lfm_cm256_uvit_large on what was extracted, T2I extraction
+    report["data"] = data_path(torch, np, attn, mlpk, dev)
 
     for k in kernels:
         if k["launches"] < 1:

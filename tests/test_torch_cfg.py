@@ -37,7 +37,7 @@ from uspace_tpu_torch.codecs.convert import (
     load_uvit_t2i_from_jax,
     uvit_flax_to_torch,
 )
-from uspace_tpu_torch.configs import get_config
+from uspace_tpu_torch.configs import get_config, per_card
 from uspace_tpu_torch.data.datasets import get_dataset
 from uspace_tpu_torch.evals import sampling
 from uspace_tpu_torch.models import UViT, UViTT2I
@@ -142,10 +142,8 @@ def test_conditional_toy_configs_are_the_jax_configs(name):
         a, b = mine[blk], ref[blk]
         port_only = {"quant"} if (blk == "nnet" and a["name"] != "unet_t2i") \
             else set()
-        jax_only = {"dissection": {"write_path_root", "vis_path"}}.get(
-            blk, set())
         assert set(a) - set(b) == port_only, blk
-        assert set(b) - set(a) == jax_only, blk
+        assert set(b) - set(a) == set(), blk
         for key in set(a) & set(b):
             want = b[key]
             if (blk, key) == ("dissection", "edit_loc"):
@@ -161,14 +159,16 @@ def test_conditional_toy_configs_are_the_jax_configs(name):
     ("uvit_t2i_small_deep16", lfm_mscoco_uvit_small_deep16_v2)])
 def test_t2i_large_configs_are_the_jax_configs(name, ref):
     """The field, the training and the optimizer blocks of the MS-COCO T2I
-    configs; the dataset is synthetic_t2i at the features' shapes (L = 1 +
-    77 + 256 = 334) with the config's cfg and p_uncond (no dropout)."""
+    configs, the batch one card's of the JAX global batch (the configs'
+    batch rule); the dataset is synthetic_t2i at the features' shapes (L =
+    1 + 77 + 256 = 334) with the config's cfg and p_uncond (no dropout)."""
     mine, ref = _plain(get_config(name)), _plain(ref.get_config())
     assert mine["nnet"] == {**ref["nnet"], "quant": False}
     assert mine["seed"] == ref["seed"] and mine["z_shape"] == ref["z_shape"]
-    for key in ("n_steps", "batch_size", "mode", "log_interval",
-                "eval_interval", "save_interval", "ema_rate", "grad_clip"):
+    for key in ("n_steps", "mode", "log_interval", "eval_interval",
+                "save_interval", "ema_rate", "grad_clip"):
         assert mine["train"][key] == ref["train"][key], key
+    assert mine["train"]["batch_size"] == per_card(ref["train"]["batch_size"])
     assert mine["optimizer"] == ref["optimizer"]
     d = mine["dataset"]
     assert (d["name"], d["shape"], d["num_tokens"], d["ctx_dim"], d["cfg"],

@@ -1,9 +1,12 @@
 """The port's data path held to the JAX package's: ``data/loader.
 DataLoader`` against ``uspace_tpu.data.loader.DataLoader`` batch for batch,
 the ``synthetic`` factory against JAX's ``Synthetic``, the editing proofs'
-toy configs against the JAX configs, and the batches ``cli/train_lfm.run``
-feeds against the JAX loop's loader for the same seed. Every comparison is
-exact: both sides draw the same numpy samples in the same order.
+toy configs against the JAX configs, the batches ``cli/train_lfm.run``
+feeds against the JAX loop's loader for the same seed, and every feature
+dataset and factory of the registry against JAX's on files the tests write
+(the four npy layouts, h5, raw image folders), over three epochs of draws.
+Every comparison is exact: both sides draw the same numpy samples in the
+same order.
 """
 
 import numpy as np
@@ -15,10 +18,12 @@ from uspace_tpu.configs import (
     synthetic_attr_pixel_e2e,
     synthetic_attr_unet_e2e,
 )
+from uspace_tpu.data import datasets as jds
 from uspace_tpu.data.datasets import get_dataset as jax_get_dataset
 from uspace_tpu.data.loader import DataLoader as JaxLoader
 from uspace_tpu_torch.cli import train_lfm
 from uspace_tpu_torch.configs import get_config
+from uspace_tpu_torch.data import datasets as tds
 from uspace_tpu_torch.data.datasets import SyntheticAttr, get_dataset
 from uspace_tpu_torch.data.loader import DataLoader
 
@@ -109,8 +114,9 @@ def test_synthetic_factory_is_the_jax_one():
         assert len(a) == len(b)
         for i in (0, len(a) - 1):
             _same(a[i], b[i])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_dataset("celebamask256_features")
+    assert mine.data_shape == ref.data_shape == (4, 4, 4)
+    with pytest.raises(NotImplementedError, match="no_such_dataset"):
+        get_dataset("no_such_dataset")
 
 
 def _plain(v):
@@ -123,11 +129,11 @@ def _plain(v):
     return v
 
 
-# what one side has and the other has not: the port's U-ViT view switch;
-# JAX's blocks of features the port has not (prompt-to-prompt tokens,
-# write and vis paths)
+# what one side has and the other has not: the port's U-ViT view switch
+# (the dissection blocks carry the same keys since the port has the base
+# config's every key)
 PORT_ONLY = {"uvit": {"quant"}}
-JAX_ONLY = {"dissection": {"token_kwargs", "write_path_root", "vis_path"}}
+JAX_ONLY = {}
 
 
 @pytest.mark.parametrize("name", sorted(JAX_TOYS))
@@ -220,3 +226,151 @@ def test_loader_surfaces_errors_and_leaves_no_thread():
     while started() and time.monotonic() < deadline:
         time.sleep(0.05)
     assert not started()
+
+
+# ---------------------------------------------------------------------------
+# the feature datasets and the registry's factories on files
+# ---------------------------------------------------------------------------
+
+
+def _moments(r, shape=(8, 4, 4)):
+    return r.standard_normal(shape).astype(np.float32)
+
+
+def _write_npy(d, fmt, n, r):
+    """n files of one layout (CHW moments, as the reference stores them)."""
+    d.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        z = _moments(r)
+        obj = {"plain": z,
+               "pair": np.array((z, z), dtype=object),
+               "cond": np.array((z, np.zeros((1,), np.uint8),
+                                 r.integers(0, 2, 40)), dtype=object),
+               "labeled": np.array((z, np.int64(i % 7)), dtype=object)}[fmt]
+        np.save(d / f"{i}.npy", obj, allow_pickle=fmt != "plain")
+    return str(d)
+
+
+def _same_split(a, b, epochs=3):
+    """Two datasets item for item over ``epochs`` announced epochs."""
+    assert len(a) == len(b)
+    for epoch in range(epochs):
+        for ds in (a, b):
+            getattr(ds, "set_epoch", lambda e: None)(epoch)
+        for i in range(len(a)):
+            _same(a[i], b[i])
+
+
+@pytest.mark.parametrize("fmt", tds.NpyFeatureDataset.FORMATS)
+def test_npy_feature_dataset_is_the_jax_one(tmp_path, fmt):
+    path = _write_npy(tmp_path / fmt, fmt, 5, np.random.default_rng(0))
+    (tmp_path / fmt / "0_0.npy").write_bytes(b"")  # a context: not counted
+    for num in (None, 3):
+        mine = tds.NpyFeatureDataset(path, num, fmt)
+        ref = jds.NpyFeatureDataset(path, num, fmt)
+        assert len(mine) == (num or 5)
+        _same_split(mine, ref, epochs=1)
+    x = tds.NpyFeatureDataset(path, fmt=fmt)[0]["x"]
+    assert x.shape == (4, 4, 8) and x.dtype == np.float32
+    with pytest.raises(ValueError):
+        tds.NpyFeatureDataset(path, fmt="npz")
+
+
+def _factory_cases(tmp_path):
+    """(name, kwargs) of every registry name but the synthetic ones and
+    the captioned ones (tests/test_torch_extraction.py), each on files of
+    its layout."""
+    r = np.random.default_rng(1)
+    pair = _write_npy(tmp_path / "pair", "pair", 4, r)
+    cond = _write_npy(tmp_path / "cond", "cond", 4, r)
+    labeled = _write_npy(tmp_path / "labeled", "labeled", 6, r)
+    import h5py
+    from PIL import Image
+
+    h5 = str(tmp_path / "f.h5")
+    with h5py.File(h5, "w") as f:
+        f["train_feat"] = r.standard_normal((5, 8, 4, 4)).astype(np.float32)
+        f["train_attr"] = r.integers(0, 2, (5, 11))
+        f["train_label"] = np.arange(5)
+    imgs = tmp_path / "imgs"
+    imgs.mkdir()
+    for i in range(3):
+        Image.fromarray((r.random((12, 10, 3)) * 255).astype(np.uint8)).save(
+            imgs / f"{i}.png")
+    attr = tmp_path / "attr.txt"
+    attr.write_text("3\n" + " ".join(f"a{j}" for j in range(40)) + "\n" + "".join(
+        f"{i}.jpg " + " ".join(map(str, r.choice([-1, 1], 40))) + "\n"
+        for i in range(3)))
+    cases = [("celebamask256_features", dict(path=pair, num=4)),
+             ("celebamask256_features_cond", dict(path=cond, num=4)),
+             ("imagenet256_features", dict(path=labeled, num=6)),
+             ("imagenet256_features", dict(path=labeled, num=6, cfg=True,
+                                           p_uncond=0.5)),
+             ("imagenet512_features", dict(path=labeled, num=6))]
+    cases += [(n, dict(path=h5)) for n in (
+        "ffhq256_features", "metfaces256_features", "AFHQ256_cat_features",
+        "AFHQ256_dog_features", "churches256_features")]
+    cases += [(n, dict(path=str(imgs), resolution=8)) for n in (
+        "real_img", "ffhq256", "celeba", "imagenet", "cifar10")]
+    cases += [("celeba", dict(path=str(imgs), resolution=8,
+                              attr_file=str(attr)))]
+    cases += [("synthetic_class", dict(num=12, cfg=True, p_uncond=0.5)),
+              ("synthetic_t2i", dict(num=12, cfg=True, p_uncond=0.5)),
+              ("synthetic_attr", dict(num=12, raw=True))]
+    return cases
+
+
+def test_every_factory_is_the_jax_one(tmp_path):
+    """Each factory's splits item for item over three epochs (the CFG drop
+    draws), its data_shape, classes, null label, null context and FID
+    statistics, against JAX's for the same arguments."""
+    cases = _factory_cases(tmp_path)
+    assert {n for n, _ in cases} | {
+        "synthetic", "mscoco256_features",
+        "mmcelebahq256_features_withcaptioncontext"} == set(jds._REGISTRY)
+    for name, kw in cases:
+        mine, ref = get_dataset(name, **kw), jax_get_dataset(name, **kw)
+        assert type(mine).__name__ == type(ref).__name__, name
+        for split in ("train", "test"):
+            if getattr(ref, split, None) is None:
+                with pytest.raises(ValueError):
+                    mine.get_split(split)
+                continue
+            _same_split(mine.get_split(split), ref.get_split(split))
+        for attr in ("K", "has_label", "fid_stat", "null_label",
+                     "resolution"):
+            assert getattr(mine, attr, None) == getattr(ref, attr, None), \
+                (name, attr)
+        try:
+            want = ref.data_shape
+        except AttributeError:  # JAX's reads the CFG-wrapped train split's
+            want = ref.test.latent_shape
+        assert mine.data_shape == want, name
+        if getattr(ref, "empty_context", None) is not None:
+            np.testing.assert_array_equal(mine.empty_context,
+                                          ref.empty_context)
+
+
+def test_factory_base_and_refusals(tmp_path):
+    pair = _write_npy(tmp_path / "pair", "pair", 2, np.random.default_rng(2))
+    for mod in (tds, jds):  # CFG on a dataset without a null condition
+        with pytest.raises(NotImplementedError):
+            mod.get_dataset("celebamask256_features", path=pair, cfg=True)
+    ds = get_dataset("imagenet256_features", path=pair, num=2)
+    gen = torch.Generator().manual_seed(3)
+    y = ds.sample_label(gen, 64)
+    assert y.shape == (64,) and y.dtype == torch.int64
+    assert 0 <= int(y.min()) and int(y.max()) < 1000
+    assert torch.equal(y, ds.sample_label(torch.Generator().manual_seed(3),
+                                          64))
+    with pytest.raises(NotImplementedError):
+        get_dataset("celebamask256_features", path=pair).sample_label(gen, 2)
+    x = np.linspace(-2, 2, 9, dtype=np.float32)
+    np.testing.assert_array_equal(ds.unpreprocess(x),
+                                  jds.DatasetFactory.unpreprocess(x))
+    np.testing.assert_array_equal(tds.unpreprocess(x), ds.unpreprocess(x))
+    got = get_dataset("celebamask256_features", path=pair, num=2,
+                      fid_stat="s.npz")
+    assert got.fid_stat == "s.npz"
+    assert get_dataset("celebamask256_features", path=pair).fid_stat == \
+        jds.CM256Features.fid_stat

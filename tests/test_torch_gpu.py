@@ -2080,3 +2080,74 @@ def test_inception_featurizer_on_the_card_matches_the_cpu(cuda):
     assert gpu.shape == (4, 2048)
     rel = np.linalg.norm(gpu - cpu) / np.linalg.norm(cpu)
     assert rel < 1e-5, rel
+
+
+TINY_VAE = dict(ch=32, out_ch=3, ch_mult=(1, 2), num_res_blocks=1,
+                attn_resolutions=(), in_channels=3, resolution=32,
+                z_channels=4, double_z=True)
+
+
+def _tiny_vae(device):
+    from uspace_tpu_torch.codecs.vae import AutoencoderKL
+
+    return AutoencoderKL(TINY_VAE, device=device).init_weights(
+        torch.Generator(device=device).manual_seed(0)).eval()
+
+
+def test_tiny_vae_encoder_on_the_card_matches_the_cpu(cuda):
+    """``data/extraction.make_vae_encoder`` on the card against the same
+    weights on the CPU, both exact f32 (TF32 off inside the encoder):
+    chip_smoke.py's VAE limits, rel-L2 1e-4."""
+    import numpy as np
+
+    from uspace_tpu_torch.data import extraction
+
+    imgs = np.random.default_rng(1).uniform(-1, 1, (4, 32, 32, 3)).astype(
+        np.float32)
+    vae = _tiny_vae(cuda)
+    cpu = _tiny_vae("cpu")
+    cpu.load_state_dict(vae.state_dict())
+    got = extraction.make_vae_encoder(vae)(imgs)
+    want = extraction.make_vae_encoder(cpu)(imgs)
+    assert got.shape == (4, 16, 16, 8) and got.dtype == np.float32
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel < 1e-4, rel
+
+
+def test_extract_features_npy_round_trip_on_the_card(cuda, tmp_path):
+    """``extract_features_npy`` with the encoder on the card (the ``cond``
+    layout, flips added), read back by ``NpyFeatureDataset`` and the
+    registry: every moment and attribute bit-equal to what the encoder
+    returned."""
+    import numpy as np
+
+    from uspace_tpu_torch.data import extraction
+    from uspace_tpu_torch.data.datasets import NpyFeatureDataset, get_dataset
+
+    r = np.random.default_rng(2)
+    imgs = r.uniform(-1, 1, (5, 32, 32, 3)).astype(np.float32)
+    attrs = r.integers(0, 2, (5, 40))
+    enc = extraction.make_vae_encoder(_tiny_vae(cuda))
+    out = []
+
+    def kept(batch):
+        out.append(enc(batch))
+        return out[-1]
+
+    data = [{"image": imgs[i], "attr": attrs[i]} for i in range(5)]
+    n = extraction.extract_features_npy(data, kept, str(tmp_path), 2,
+                                        flip=True)
+    assert n == 10
+    # batches of 2: each batch encoded as is, then flipped
+    moments = {}
+    for j, start in enumerate(range(0, 5, 2)):
+        for k in range(len(out[2 * j])):
+            moments[start + k] = out[2 * j][k]
+            moments[5 + start + k] = out[2 * j + 1][k]
+    ds = NpyFeatureDataset(str(tmp_path), fmt="cond")
+    factory = get_dataset("celebamask256_features_cond", path=str(tmp_path),
+                          num=10)
+    for i in range(10):
+        for item in (ds[i], factory.train[i]):
+            assert np.array_equal(item["x"], moments[i])
+            assert np.array_equal(item["attr"], attrs[i % 5])

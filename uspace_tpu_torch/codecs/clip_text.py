@@ -118,6 +118,32 @@ class CLIPTextEncoder(nn.Module):
         return self.final_ln(h)
 
 
+def clip_hf_to_torch(state_dict) -> dict:
+    """A Hugging Face ``CLIPTextModel`` state dict (``pytorch_model.bin``)
+    under :class:`CLIPTextEncoder`'s names: ``text_model.`` dropped,
+    ``embeddings.*_embedding`` -> ``*_embedding``, ``final_layer_norm`` ->
+    ``final_ln``, ``encoder.layers.i.self_attn.{q,k,v,out}_proj`` ->
+    ``layers.i.{q,k,v,out}``, ``layer_norm1/2`` -> ``ln1/2``, ``mlp.fc1/2``
+    -> ``fc1/2`` (the JAX package's ``clip_torch_to_flax`` map); the
+    ``position_ids`` buffer is left out."""
+    out = {}
+    for key, v in state_dict.items():
+        if "position_ids" in key:
+            continue
+        k = key[len("text_model."):] if key.startswith("text_model.") else key
+        k = (k.replace("embeddings.token_embedding", "token_embedding")
+             .replace("embeddings.position_embedding", "position_embedding")
+             .replace("final_layer_norm", "final_ln")
+             .replace("encoder.layers.", "layers.")
+             .replace("self_attn.out_proj", "out")
+             .replace("layer_norm1", "ln1").replace("layer_norm2", "ln2")
+             .replace("mlp.fc1", "fc1").replace("mlp.fc2", "fc2"))
+        for p in "qkv":
+            k = k.replace(f"self_attn.{p}_proj", p)
+        out[k] = v
+    return out
+
+
 def get_word_inds(text: str, word_place, tokenizer) -> np.ndarray:
     """Token positions of a word within the padded 77-token encoding (the
     reference's ``libs/clip.py:6-27``); the p2p target ids."""

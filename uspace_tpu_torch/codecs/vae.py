@@ -20,6 +20,7 @@ stay f32. The parameters are the same in both views.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -274,6 +275,21 @@ class AutoencoderKL(nn.Module):
         argument of the module."""
         return cls(**{k: v for k, v in block.items()
                       if k != "pretrained_path"}, **kw)
+
+    @classmethod
+    def from_reference(cls, path: str, block: Optional[dict] = None,
+                       device=None) -> "AutoencoderKL":
+        """The VAE of ``block`` (a config's ``autoencoder`` block; the SD
+        layout by default) on ``device`` with the reference's
+        ``autoencoder_kl.pth`` at ``path`` loaded strictly
+        (``codecs/convert.load_reference_nnet``), in eval mode."""
+        from .convert import load_reference_nnet
+
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no VAE weights at {path!r} (the "
+                                    "reference's autoencoder_kl.pth)")
+        vae = cls.from_config(dict(block or {}), device=device)
+        return load_reference_nnet(vae, path).eval()
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "AutoencoderKL":

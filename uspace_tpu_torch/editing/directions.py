@@ -16,6 +16,28 @@ from typing import Tuple, Union
 
 import torch
 
+# the attribute vocabularies (tools/utils_attr.py:15-90: CelebA's 40 and
+# FFHQ's 11 emotion labels)
+CELEBA_ATTR40 = (
+    "5_o_Clock_Shadow Arched_Eyebrows Attractive Bags_Under_Eyes Bald Bangs "
+    "Big_Lips Big_Nose Black_Hair Blond_Hair Blurry Brown_Hair "
+    "Bushy_Eyebrows Chubby Double_Chin Eyeglasses Goatee Gray_Hair "
+    "Heavy_Makeup High_Cheekbones Male Mouth_Slightly_Open Mustache "
+    "Narrow_Eyes No_Beard Oval_Face Pale_Skin Pointy_Nose Receding_Hairline "
+    "Rosy_Cheeks Sideburns Smiling Straight_Hair Wavy_Hair Wearing_Earrings "
+    "Wearing_Hat Wearing_Lipstick Wearing_Necklace Wearing_Necktie Young"
+).split()
+FFHQ_ATTR11 = ["gender", "smile", "no_glasses", "anger", "contempt",
+               "disgust", "fear", "happiness", "neutral", "sadness",
+               "surprise"]
+
+
+def attr_name(attr_id: int, num_attrs: int) -> str:
+    """The name of attribute ``attr_id`` in the vocabulary of
+    ``num_attrs`` (40: CelebA, 11: FFHQ), else ``attr_<id>``."""
+    vocab = {40: CELEBA_ATTR40, 11: FFHQ_ATTR11}.get(num_attrs)
+    return vocab[attr_id] if vocab else f"attr_{attr_id}"
+
 
 def attr_delta(feats: torch.Tensor, attr: torch.Tensor) -> torch.Tensor:
     """``mean(feats | attr = 1) - mean(feats | attr = 0)`` for one binary

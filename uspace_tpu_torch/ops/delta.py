@@ -412,15 +412,14 @@ def base_mlp_e_plain(x2d: torch.Tensor, ln_scale: torch.Tensor,
 
 
 def _delta_mlp_twin(x2d, xb2d, m_b, ln_scale, ln_bias, w1q, s1, w2q, s2, eps,
-                    strips, dg_of):
+                    strips, dg_of, codes=None):
     """The delta MLP halves on rows [R, C]: the codes of ``LN2(x) -
-    LN2(x_b)``; per strip ``de = f32(acc) * ds * s1``, ``dg = dg_of(j, cols,
+    LN2(x_b)`` (``codes``, a ``(dq, ds)`` pair, where the caller gives
+    them); per strip ``de = f32(acc) * ds * s1``, ``dg = dg_of(j, cols,
     de)`` coded per row, ``acc += f32(d_j) * scale_j``; ``o = x + bf16(f32(
     m_b) + acc * s2)``."""
     hs = w1q.shape[-1] // strips
-    d = ln_lanes(x2d, ln_scale, ln_bias, eps) - ln_lanes(xb2d, ln_scale,
-                                                         ln_bias, eps)
-    dq, ds = row_codes(d)
+    dq, ds = codes or ln_delta_codes_plain(x2d, xb2d, ln_scale, ln_bias, eps)
     s1f = _vec(s1)
     acc = None
     for j in range(strips):
@@ -439,12 +438,15 @@ def delta_mlp_lin_plain(x2d: torch.Tensor, xb2d: torch.Tensor,
                         ln_bias: torch.Tensor, w1q: torch.Tensor,
                         s1: torch.Tensor, w2q: torch.Tensor,
                         s2: torch.Tensor, eps: float,
-                        strips: int) -> torch.Tensor:
+                        strips: int, codes=None) -> torch.Tensor:
     """Twin of ``_delta_mlp_kernel_lin`` on rows [R, C]: ``dg = de *
-    (f32(gp_q) * gp_s[:, j])``."""
+    (f32(gp_q) * gp_s[:, j])``. ``codes``: the ``(dq, ds)`` row codes of
+    ``LN2(x) - LN2(x_b)`` to take in place of its own code pass (a test
+    feeds it the reference kernel's)."""
     return _delta_mlp_twin(
         x2d, xb2d, m_b, ln_scale, ln_bias, w1q, s1, w2q, s2, eps, strips,
-        lambda j, cols, de: de * (gp_q[:, cols].float() * gp_s[:, j:j + 1]))
+        lambda j, cols, de: de * (gp_q[:, cols].float() * gp_s[:, j:j + 1]),
+        codes)
 
 
 def delta_mlp_exact_plain(x2d: torch.Tensor, xb2d: torch.Tensor,

@@ -220,14 +220,13 @@ class Experiment:
         """The reference VAE's decode where ``autoencoder.pretrained_path``
         exists (``autoencoder_kl.pth``, loaded strictly), else False."""
         if self._vae is None:
-            from ..codecs.convert import load_reference_nnet
             from ..codecs.vae import AutoencoderKL
 
             block = self.config["autoencoder"]
             path = block.get("pretrained_path", "")
             if path and os.path.exists(path):
-                vae = AutoencoderKL.from_config(block, device=self.device)
-                self._vae = load_reference_nnet(vae, path).eval().decode
+                self._vae = AutoencoderKL.from_reference(
+                    path, block, self.device).decode
             else:
                 self._vae = False
         return self._vae
